@@ -1,0 +1,256 @@
+"""The DALLE transformer trunk, unrolled executor, cached decode only.
+
+Counterpart of the JAX package's `models/transformer.py:Transformer` with
+`executor="unrolled"` as the cached decode path runs it (`_layer`): per
+layer, LayerNorm -> token shift against a ring -> attention -> [sandwich
+norm] -> LayerScale, then the same around the GEGLU feed-forward.
+Supported: attention-type cycling over {full, axial_row, axial_col,
+conv_like, sparse} (static pattern masks), cross-layer sharing
+(`shared_attn_ids` / `shared_ff_ids`), LayerScale init by depth, sandwich
+norm, stable softmax, token shift and rotary each on or off.
+
+Parity notes: flax's `nn.gelu` is the tanh approximation and flax's
+LayerNorm uses eps 1e-6 and normalizes in float32.
+
+The decode cache mirrors the reference's tree — {"layer_{i}": {"attn":
+{"k", "v", "index"}, "shift_attn", "shift_ff"}} — with the index a
+Python int; it is updated in place.
+"""
+
+from __future__ import annotations
+
+import math
+from itertools import cycle, islice
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dalle_pytorch_tpu_torch.models.attention import Attention
+from dalle_pytorch_tpu_torch.ops.masks import (
+    axial_static_mask,
+    block_layout_to_token_mask,
+    block_sparse_layout,
+    conv_like_mask,
+)
+from dalle_pytorch_tpu_torch.ops.rotary import build_dalle_rotary
+from dalle_pytorch_tpu_torch.ops.shift import (
+    shift_ring_from_prefill,
+    shift_token_step,
+    shift_tokens_dalle,
+)
+
+
+def layerscale_init(layer_index: int) -> float:
+    """LayerScale init epsilon by 1-based layer index."""
+    if layer_index <= 18:
+        return 0.1
+    if layer_index <= 24:
+        return 1e-5
+    return 1e-6
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with flax's numerics: eps 1e-6, statistics in float32,
+    output in the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(
+            x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps
+        )
+        return y.to(x.dtype)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward: Linear(dim, 2*hidden) -> x * gelu_tanh(gates)
+    -> Linear(hidden, dim)."""
+
+    def __init__(self, dim: int, mult: float = 4.0):
+        super().__init__()
+        hidden = int(dim * mult)
+        self.dense_0 = nn.Linear(dim, hidden * 2)
+        self.dense_1 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, gates = self.dense_0(x).chunk(2, dim=-1)
+        return self.dense_1(x * F.gelu(gates, approximate="tanh"))
+
+
+def build_static_mask(
+    attn_type: str,
+    seq_len: int,
+    image_fmap_size: Optional[int],
+    layer_ind: int,
+    sparse_block: int = 16,
+) -> Optional[np.ndarray]:
+    """Pattern mask of one attention type (None for "full")."""
+    if attn_type == "full":
+        return None
+    if image_fmap_size is None:
+        raise ValueError(f"attn_type {attn_type} needs image_fmap_size")
+    if attn_type == "axial_row":
+        return axial_static_mask(seq_len, image_fmap_size, axis=0)
+    if attn_type == "axial_col":
+        return axial_static_mask(seq_len, image_fmap_size, axis=1)
+    if attn_type == "conv_like":
+        return conv_like_mask(seq_len, image_fmap_size)
+    if attn_type == "sparse":
+        padded = sparse_block * math.ceil((seq_len + 1) / sparse_block)
+        text_len = seq_len + 1 - image_fmap_size**2
+        layout = block_sparse_layout(
+            padded,
+            block=sparse_block,
+            num_random_blocks=max(padded // sparse_block // 4, 1),
+            global_block_indices=tuple(range(math.ceil(text_len / sparse_block))),
+            causal=True,
+            seed=layer_ind,
+        )
+        return block_layout_to_token_mask(layout, sparse_block, causal=True)
+    raise ValueError(f'attention type "{attn_type}" is not valid')
+
+
+class Transformer(nn.Module):
+    """Causal transformer stack with the DALL-E features, cached decode."""
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        seq_len: int,
+        heads: int = 8,
+        dim_head: int = 64,
+        ff_mult: float = 4.0,
+        attn_types: Optional[Sequence[str]] = None,
+        image_fmap_size: Optional[int] = None,
+        stable: bool = False,
+        sandwich_norm: bool = False,
+        shift_tokens: bool = False,
+        rotary_emb: bool = True,
+        shared_attn_ids: Optional[Sequence[int]] = None,
+        shared_ff_ids: Optional[Sequence[int]] = None,
+        attn_impl: str = "auto",
+    ):
+        super().__init__()
+        if (shift_tokens or rotary_emb) and image_fmap_size is None:
+            raise ValueError("shift_tokens / rotary_emb need image_fmap_size")
+        self.depth = depth
+        self.image_fmap_size = image_fmap_size
+        self.shift_tokens = shift_tokens
+        self.sandwich_norm = sandwich_norm
+        self.text_len = (
+            seq_len - image_fmap_size**2 + 1 if image_fmap_size is not None else seq_len
+        )
+
+        types = list(islice(cycle(tuple(attn_types) if attn_types else ("full",)), depth))
+        self.attn_ids = list(islice(cycle(shared_attn_ids or range(depth)), depth))
+        self.ff_ids = list(islice(cycle(shared_ff_ids or range(depth)), depth))
+        self.attn = nn.ModuleDict()
+        attn_type_of = {}
+        for ind, (attn_type, attn_id) in enumerate(zip(types, self.attn_ids)):
+            if attn_id in attn_type_of:
+                if attn_type_of[attn_id] != attn_type:
+                    raise ValueError(
+                        "attn_types do not match shared_attn_ids "
+                        f"(ind = {ind}, attn_type = {attn_type!r}, "
+                        f"reused_attn_type = {attn_type_of[attn_id]!r})"
+                    )
+                continue
+            attn_type_of[attn_id] = attn_type
+            self.attn[str(attn_id)] = Attention(
+                dim, heads=heads, dim_head=dim_head, stable=stable,
+                static_mask=build_static_mask(attn_type, seq_len, image_fmap_size, ind),
+                attn_impl=attn_impl,
+            )
+        self.ff = nn.ModuleDict(
+            {str(i): FeedForward(dim, ff_mult) for i in dict.fromkeys(self.ff_ids)}
+        )
+        self.attn_norms = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
+        self.ff_norms = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
+        if sandwich_norm:
+            self.attn_norms_out = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
+            self.ff_norms_out = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
+        self.attn_scales = nn.ParameterList(
+            nn.Parameter(torch.full((1, 1, dim), layerscale_init(i + 1)))
+            for i in range(depth)
+        )
+        self.ff_scales = nn.ParameterList(
+            nn.Parameter(torch.full((1, 1, dim), layerscale_init(i + 1)))
+            for i in range(depth)
+        )
+        self.rotary_table: Optional[torch.Tensor]
+        self.register_buffer(
+            "rotary_table",
+            build_dalle_rotary(self.text_len, image_fmap_size, dim_head) if rotary_emb else None,
+            persistent=False,
+        )
+
+    def _shift(self, h: torch.Tensor, ring: torch.Tensor, pos: int):
+        """Prefill (n > 1, from position 0): batch shift and a fresh ring;
+        one token: streaming shift against the ring at `pos`."""
+        if h.shape[1] > 1:
+            return (
+                shift_tokens_dalle(h, self.text_len, self.image_fmap_size),
+                shift_ring_from_prefill(h, self.image_fmap_size),
+            )
+        return shift_token_step(h, ring, pos, self.text_len, self.image_fmap_size)
+
+    def forward(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
+        """x [B, n, dim] at the cache's position; updates `cache` in place."""
+        for i in range(self.depth):
+            lc = cache[f"layer_{i}"]
+            pos = lc["attn"]["index"]  # before attention advances it
+            h = self.attn_norms[i](x)
+            if self.shift_tokens:
+                h, lc["shift_attn"] = self._shift(h, lc["shift_attn"], pos)
+            h = self.attn[str(self.attn_ids[i])](h, lc["attn"], rotary=self.rotary_table)
+            if self.sandwich_norm:
+                h = self.attn_norms_out[i](h)
+            x = x + h * self.attn_scales[i].to(h.dtype)
+
+            h = self.ff_norms[i](x)
+            if self.shift_tokens:
+                h, lc["shift_ff"] = self._shift(h, lc["shift_ff"], pos)
+            h = self.ff[str(self.ff_ids[i])](h)
+            if self.sandwich_norm:
+                h = self.ff_norms_out[i](h)
+            x = x + h * self.ff_scales[i].to(h.dtype)
+        return x
+
+
+def make_decode_cache(
+    depth: int,
+    batch: int,
+    max_len: int,
+    heads: int,
+    dim_head: int,
+    dim: int,
+    image_fmap_size: Optional[int] = None,
+    shift_tokens: bool = False,
+    dtype=torch.float32,
+    device="cpu",
+) -> dict:
+    """Fixed-shape decode cache for the unrolled executor, zero-filled."""
+    cache = {}
+    for i in range(depth):
+        layer = {
+            "attn": {
+                "k": torch.zeros((batch, heads, max_len, dim_head), dtype=dtype, device=device),
+                "v": torch.zeros((batch, heads, max_len, dim_head), dtype=dtype, device=device),
+                "index": 0,
+            }
+        }
+        if shift_tokens:
+            for name in ("shift_attn", "shift_ff"):
+                layer[name] = torch.zeros(
+                    (batch, image_fmap_size, dim), dtype=dtype, device=device
+                )
+        cache[f"layer_{i}"] = layer
+    return cache

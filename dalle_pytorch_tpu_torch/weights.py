@@ -1,0 +1,162 @@
+"""Carry the JAX package's parameter trees into the port's modules.
+
+A tree is the reference's flax parameter tree (`variables["params"]`) as
+nested dicts of numpy arrays, the layout `save_dalle_checkpoint` writes.
+Mappings:
+
+  * Dense kernel [in, out] -> Linear.weight [out, in];
+  * Conv kernel HWIO -> Conv2d.weight OIHW;
+  * ConvTranspose kernel HWIO -> ConvTranspose2d.weight [in, out, kh, kw],
+    flipped in both spatial axes (flax's transpose_kernel=False);
+  * LayerNorm scale -> weight.
+
+Every leaf must be consumed and every port parameter filled: a missing or
+extra leaf raises, naming it. The dVAE encoder leaves are checked by name
+and not loaded (the port has the decoder only).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+
+_Target = Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]
+
+
+def _same(a):
+    return a
+
+
+def _dense_t(a):
+    return a.T
+
+
+def _conv_oihw(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+def _conv_transpose(a):
+    return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_flatten(val, path + "/"))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _assign(targets: Dict[str, _Target], flat: Dict[str, np.ndarray], what: str) -> None:
+    extra = sorted(set(flat) - set(targets))
+    missing = sorted(set(targets) - set(flat))
+    if extra or missing:
+        raise ValueError(
+            f"{what} tree does not match the port's module: "
+            f"unconsumed leaves {extra}, missing leaves {missing}"
+        )
+    with torch.no_grad():
+        for path, (param, fn) in targets.items():
+            arr = np.array(fn(flat[path]), copy=True)  # writable, contiguous
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(
+                    f"{what} leaf {path}: shape {arr.shape} does not fit "
+                    f"{tuple(param.shape)}"
+                )
+            param.copy_(torch.from_numpy(arr))
+
+
+def _linear(prefix, lin, targets, bias=True):
+    targets[f"{prefix}/kernel"] = (lin.weight, _dense_t)
+    if bias:
+        targets[f"{prefix}/bias"] = (lin.bias, _same)
+
+
+def _norm(prefix, norm, targets):
+    targets[f"{prefix}/scale"] = (norm.weight, _same)
+    targets[f"{prefix}/bias"] = (norm.bias, _same)
+
+
+def _conv(prefix, conv, targets, fn=_conv_oihw):
+    targets[f"{prefix}/kernel"] = (conv.weight, fn)
+    targets[f"{prefix}/bias"] = (conv.bias, _same)
+
+
+def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
+    """Load a reference DALLE parameter tree (unrolled executor layout)
+    into `model` in place; returns the model."""
+    if "scan_stack" in tree.get("transformer", {}):
+        raise ValueError(
+            "scan-layout DALLE tree (executor='scan'): the port loads the "
+            "unrolled layout only; scan-layout checkpoints are the ROADMAP "
+            "Queue 1 item 'scan-layout checkpoint loading'"
+        )
+    t: Dict[str, _Target] = {
+        "text_emb/embedding": (model.text_emb.weight, _same),
+        "image_emb/embedding": (model.image_emb.weight, _same),
+    }
+    if not model.rotary_emb:
+        t["text_pos_emb/embedding"] = (model.text_pos_emb.weight, _same)
+        t["image_pos_emb/rows"] = (model.image_pos_emb.rows, _same)
+        t["image_pos_emb/cols"] = (model.image_pos_emb.cols, _same)
+    _norm("logits_norm", model.logits_norm, t)
+    if model.share_input_output_emb:
+        t["logits_bias"] = (model.logits_bias, _same)
+    else:
+        _linear("logits_dense", model.logits_dense, t)
+    tr = model.transformer
+    for key, attn in tr.attn.items():
+        _linear(f"transformer/attn_{key}/to_qkv", attn.to_qkv, t, bias=False)
+        _linear(f"transformer/attn_{key}/to_out", attn.to_out, t)
+    for key, ff in tr.ff.items():
+        _linear(f"transformer/ff_{key}/Dense_0", ff.dense_0, t)
+        _linear(f"transformer/ff_{key}/Dense_1", ff.dense_1, t)
+    for i in range(tr.depth):
+        _norm(f"transformer/attn_norms_{i}", tr.attn_norms[i], t)
+        _norm(f"transformer/ff_norms_{i}", tr.ff_norms[i], t)
+        if tr.sandwich_norm:
+            _norm(f"transformer/attn_norms_out_{i}", tr.attn_norms_out[i], t)
+            _norm(f"transformer/ff_norms_out_{i}", tr.ff_norms_out[i], t)
+        t[f"transformer/attn_scale_{i}"] = (tr.attn_scales[i], _same)
+        t[f"transformer/ff_scale_{i}"] = (tr.ff_scales[i], _same)
+    _assign(t, _flatten(tree), "DALLE")
+    return model
+
+
+def _encoder_leaves(vae: DiscreteVAE):
+    names = []
+    for i in range(vae.num_layers):
+        names += [f"enc_convs_{i}/kernel", f"enc_convs_{i}/bias"]
+    for i in range(vae.num_resnet_blocks):
+        for j in range(3):
+            names += [f"enc_res_{i}/Conv_{j}/kernel", f"enc_res_{i}/Conv_{j}/bias"]
+    return names + ["enc_head/kernel", "enc_head/bias"]
+
+
+def load_dvae_params(vae: DiscreteVAE, tree: dict) -> DiscreteVAE:
+    """Load a reference DiscreteVAE parameter tree's decoder into `vae` in
+    place (encoder leaves must be present and are left unused)."""
+    flat = _flatten(tree)
+    for name in _encoder_leaves(vae):
+        if name not in flat:
+            raise ValueError(f"DiscreteVAE tree lacks encoder leaf {name}")
+        del flat[name]
+    t: Dict[str, _Target] = {"codebook/embedding": (vae.codebook.weight, _same)}
+    if vae.dec_proj is not None:
+        _conv("dec_proj", vae.dec_proj, t)
+    for i, blk in enumerate(vae.dec_res):
+        for j, conv in enumerate((blk.conv_0, blk.conv_1, blk.conv_2)):
+            _conv(f"dec_res_{i}/Conv_{j}", conv, t)
+    for i, conv in enumerate(vae.dec_convs):
+        _conv(f"dec_convs_{i}", conv, t, fn=_conv_transpose)
+    _conv("dec_head", vae.dec_head, t)
+    _assign(t, flat, "DiscreteVAE")
+    return vae
