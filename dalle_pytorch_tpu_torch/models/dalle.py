@@ -1,9 +1,15 @@
-"""DALL-E text->image token transformer: cached decode and batched sampling.
+"""DALL-E text->image token transformer: the training forward and loss,
+cached decode and batched sampling.
 
-Counterpart of the JAX package's `models/dalle.py`: `DALLE.embed_text`
-(unique padding ids, <bos> = 0), `to_logits`, `decode_prefill`,
-`decode_image_step`, `init_decode_cache` and
-`generate_images_cached_batched` with the classifier-free-guidance blend.
+Counterpart of the JAX package's `models/dalle.py`: `DALLE.__call__` (the
+logits or the split text/image cross-entropy, forward and inverse
+objectives, the 3-token accuracy, the vocab-chunked `fused_ce` losses),
+`embed_text` (unique padding ids, <bos> = 0, null conditioning),
+`to_logits`, `decode_prefill`, `decode_image_step`, `init_decode_cache`
+and `generate_images_cached_batched` with the classifier-free-guidance
+blend. Random draws (null conditioning) come from an explicit
+`torch.Generator`, so they are not jax.random's bits; dropout uses
+torch's global generator.
 
 The port holds its weights in the module (the reference keeps them in a
 separate parameter tree; `weights.py` carries a tree across). A model's
@@ -18,6 +24,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dalle_pytorch_tpu_torch.models.transformer import (
@@ -25,6 +32,7 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     Transformer,
     make_decode_cache,
 )
+from dalle_pytorch_tpu_torch.ops.losses import chunked_masked_ce, split_weighted_mean
 from dalle_pytorch_tpu_torch.ops.sampling import (
     gumbel_noise,
     gumbel_sample_per_row,
@@ -66,7 +74,20 @@ class DALLE(nn.Module):
         shared_ff_ids: Optional[Sequence[int]] = None,
         share_input_output_emb: bool = False,
         attn_impl: str = "auto",
+        reversible: bool = False,
+        reversible_impl: str = "remat",
+        attn_dropout: float = 0.0,
+        ff_dropout: float = 0.0,
+        loss_img_weight: float = 7.0,
+        text_loss_coeff: float = 1.0,
+        img_loss_coeff: Optional[float] = None,
+        text_loss_coeff_inv: float = 7.0,
+        img_loss_coeff_inv: float = 1.0,
+        fused_ce: bool = False,
     ):
+        """Arguments as the reference's fields. `img_loss_coeff` None takes
+        `loss_img_weight`; `fused_ce` computes the loss without
+        materializing [B, N, V] logits (`ops/losses.py`)."""
         super().__init__()
         self.dim, self.depth = dim, depth
         self.heads, self.dim_head = heads, dim_head
@@ -78,6 +99,16 @@ class DALLE(nn.Module):
         self.shift_tokens = shift_tokens
         self.rotary_emb = rotary_emb
         self.share_input_output_emb = share_input_output_emb
+        self.attn_types = tuple(attn_types) if attn_types else ("full",)
+        self.shared_attn_ids = None if shared_attn_ids is None else tuple(shared_attn_ids)
+        self.shared_ff_ids = None if shared_ff_ids is None else tuple(shared_ff_ids)
+        self.attn_impl = attn_impl
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
+        self.text_loss_coeff = text_loss_coeff
+        self.img_loss_coeff = loss_img_weight if img_loss_coeff is None else img_loss_coeff
+        self.text_loss_coeff_inv = text_loss_coeff_inv
+        self.img_loss_coeff_inv = img_loss_coeff_inv
+        self.fused_ce = fused_ce
 
         self.text_emb = nn.Embedding(self.total_text_tokens, dim)
         self.image_emb = nn.Embedding(num_image_tokens, dim)
@@ -99,6 +130,10 @@ class DALLE(nn.Module):
             shared_attn_ids=shared_attn_ids,
             shared_ff_ids=shared_ff_ids,
             attn_impl=attn_impl,
+            attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout,
+            reversible=reversible,
+            reversible_impl=reversible_impl,
         )
         self.logits_norm = LayerNorm(dim)
         if share_input_output_emb:
@@ -126,31 +161,166 @@ class DALLE(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.text_emb.weight.dtype
 
-    def embed_text(self, text: torch.Tensor):
-        """Unique-pad remap + <bos>: (ids [B, T+1], embeddings [B, T+1, dim])."""
+    def embed_text(
+        self,
+        text: torch.Tensor,
+        null_cond_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Unique-pad remap + <bos>: (ids [B, T+1], embeddings [B, T+1, dim]).
+        With `null_cond_prob` > 0 each row's text is blanked (all pad) with
+        that probability, drawn from `generator`."""
         if text.shape[-1] != self.text_seq_len:
             raise ValueError(
                 f"text length {text.shape[-1]} != text_seq_len {self.text_seq_len}"
             )
         text = text.long()
+        if null_cond_prob > 0:
+            draw = torch.rand((text.shape[0], 1), generator=generator, device=text.device)
+            text = torch.where(draw < null_cond_prob, torch.zeros_like(text), text)
         text_range = torch.arange(self.text_seq_len, device=text.device) + (
             self.total_text_tokens - self.text_seq_len
         )
         text = torch.where(text == 0, text_range, text)
-        text = torch.nn.functional.pad(text, (1, 0))  # <bos> = 0
+        text = F.pad(text, (1, 0))  # <bos> = 0
         tokens = self.text_emb(text)
         if not self.rotary_emb:
             tokens = tokens + self.text_pos_emb.weight[None]
         return text, tokens
 
+    def _divide_max(self, out: torch.Tensor) -> torch.Tensor:
+        return out / out.amax(dim=-1, keepdim=True).detach()
+
+    def _logits_kernel(self):
+        """(kernel [D, V], bias [V] or None) of the logits head."""
+        if self.share_input_output_emb:
+            kernel = torch.cat([self.text_emb.weight, self.image_emb.weight], dim=0).t()
+            return kernel, self.logits_bias
+        return self.logits_dense.weight.t(), self.logits_dense.bias
+
     def to_logits(self, out: torch.Tensor) -> torch.Tensor:
         if self.stable:
-            out = out / out.amax(dim=-1, keepdim=True)
+            out = self._divide_max(out)
         out = self.logits_norm(out)
         if self.share_input_output_emb:
-            kernel = torch.cat([self.text_emb.weight, self.image_emb.weight], dim=0)
-            return out @ kernel.t().to(out.dtype) + self.logits_bias.to(out.dtype)
+            kernel, bias = self._logits_kernel()
+            return out @ kernel.to(out.dtype) + bias.to(out.dtype)
         return self.logits_dense(out)
+
+    def logits_blocked(self, seq_len: int, inverse: bool, device=None) -> torch.Tensor:
+        """[seq_len, total_tokens] bool, True = blocked: text rows emit only
+        text ids and image rows only image ids; `inverse` rotates the rows
+        by text_seq_len (the image comes first)."""
+        rows = torch.arange(seq_len, device=device)
+        if inverse:
+            rows = (rows + self.text_seq_len) % self.total_seq_len
+        vocab = torch.arange(self.total_tokens, device=device)[None, :]
+        return (rows < self.text_seq_len)[:, None] != (vocab < self.total_text_tokens)
+
+    def forward(
+        self,
+        text: torch.Tensor,
+        image: Optional[torch.Tensor] = None,
+        return_loss: bool = False,
+        inverse_mapping: bool = False,
+        reverse_model: bool = False,
+        null_cond_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """text [B, text_seq_len] ids; image [B, <= image_seq_len] codebook
+        ids. Returns masked float32 logits [B, N, V], or with `return_loss`
+        (loss, accuracy): the split cross-entropy of the forward (text ->
+        image) or, with `inverse_mapping`, the inverse (image first) objective
+        and its 3-token accuracy (None for the forward one)."""
+        text, tokens = self.embed_text(text, null_cond_prob, generator)
+        if image is not None and image.shape[1] > 0:
+            image_emb = self.image_emb(image.long())
+            if not self.rotary_emb:
+                image_emb = image_emb + self.image_pos_emb()[: image_emb.shape[1]]
+            parts = [image_emb, tokens] if inverse_mapping else [tokens, image_emb]
+            tokens = torch.cat(parts, dim=1)
+        seq_len = min(tokens.shape[1], self.total_seq_len)
+        tokens = tokens[:, :seq_len]  # drop the final token's input slot
+        if self.stable:
+            tokens = tokens * 0.1 + tokens.detach() * 0.9
+        out = self.transformer(tokens, reverse_model=reverse_model)
+
+        if return_loss and image is None:
+            raise ValueError("when training, image must be supplied")
+        if return_loss and self.fused_ce:
+            loss_fn = self._fused_inverse_loss if inverse_mapping else self._fused_forward_loss
+            return loss_fn(out, text, image.long(), seq_len)
+
+        logits = self.to_logits(out).float()
+        blocked = self.logits_blocked(seq_len, inverse_mapping, logits.device)
+        logits = logits.masked_fill(blocked[None], NEG_MASK_VALUE)
+        if not return_loss:
+            return logits
+
+        offsetted_image = image.long() + self.total_text_tokens
+        if inverse_mapping:
+            labels = torch.cat([offsetted_image[:, 1:], text], dim=1)
+            split = self.image_seq_len
+            loss_text = F.cross_entropy(logits[:, split:].flatten(0, 1), labels[:, split:].flatten())
+            loss_img = F.cross_entropy(
+                logits[:, : split - 1].flatten(0, 1), labels[:, : split - 1].flatten()
+            )
+            pred3 = logits[:, split : split + 3].argmax(dim=-1)
+            accuracy = (pred3 == labels[:, split : split + 3]).all(dim=-1).float().mean()
+            ct, ci = self.text_loss_coeff_inv, self.img_loss_coeff_inv
+        else:
+            labels = torch.cat([text[:, 1:], offsetted_image], dim=1)
+            split = self.text_seq_len
+            loss_text = F.cross_entropy(logits[:, :split].flatten(0, 1), labels[:, :split].flatten())
+            loss_img = F.cross_entropy(logits[:, split:].flatten(0, 1), labels[:, split:].flatten())
+            accuracy = None
+            ct, ci = self.text_loss_coeff, self.img_loss_coeff
+        return (ct * loss_text + ci * loss_img) / (ct + ci), accuracy
+
+    def _fused_head(self, out: torch.Tensor):
+        if self.stable:
+            out = self._divide_max(out)
+        kernel, bias = self._logits_kernel()
+        return self.logits_norm(out), kernel, bias
+
+    def _fused_forward_loss(self, out, text, image, seq_len):
+        """Forward objective through the vocab-chunked CE; same numerics as
+        the dense path."""
+        h, kernel, bias = self._fused_head(out)
+        labels = torch.cat([text[:, 1:], image + self.total_text_tokens], dim=1)
+        row_is_text = torch.arange(seq_len, device=h.device) < self.text_seq_len
+        per_pos = chunked_masked_ce(
+            h, kernel, bias, labels, row_is_text=row_is_text,
+            num_text_vocab=self.total_text_tokens,
+        )
+        loss = split_weighted_mean(
+            per_pos, self.text_seq_len, self.text_loss_coeff, self.img_loss_coeff
+        )
+        return loss, None
+
+    def _fused_inverse_loss(self, out, text, image, seq_len):
+        """Inverse objective through the vocab-chunked CE, image segment
+        without its final position; the 3-token accuracy from dense logits
+        of those three text rows over the text vocabulary only."""
+        h, kernel, bias = self._fused_head(out)
+        labels = torch.cat([image[:, 1:] + self.total_text_tokens, text], dim=1)
+        split = self.image_seq_len
+        row_is_text = torch.arange(seq_len, device=h.device) >= split
+        per_pos = chunked_masked_ce(
+            h, kernel, bias, labels, row_is_text=row_is_text,
+            num_text_vocab=self.total_text_tokens,
+        )
+        loss = split_weighted_mean(
+            per_pos, split, self.img_loss_coeff_inv, self.text_loss_coeff_inv,
+            drop_last_of_first=True,
+        )
+        h3 = h[:, split : split + 3]
+        logits3 = torch.matmul(h3, kernel[:, : self.total_text_tokens].to(h3.dtype)).float()
+        if bias is not None:
+            logits3 = logits3 + bias[: self.total_text_tokens].float()
+        pred3 = logits3.argmax(dim=-1)
+        accuracy = (pred3 == labels[:, split : split + 3]).all(dim=-1).float().mean()
+        return loss, accuracy
 
     def decode_prefill(self, text: torch.Tensor, cache: dict):
         """Run bos + text through the trunk, filling the cache from position

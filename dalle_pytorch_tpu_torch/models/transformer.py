@@ -1,9 +1,16 @@
-"""The DALLE transformer trunk, unrolled executor, cached decode only.
+"""The DALLE transformer trunk, unrolled executor: cached decode and the
+uncached (training) forward.
 
 Counterpart of the JAX package's `models/transformer.py:Transformer` with
-`executor="unrolled"` as the cached decode path runs it (`_layer`): per
-layer, LayerNorm -> token shift against a ring -> attention -> [sandwich
-norm] -> LayerScale, then the same around the GEGLU feed-forward.
+`executor="unrolled"` (`_half_attn`, `_half_ff`, `_layer`, `__call__`):
+per layer, LayerNorm -> token shift -> attention -> [sandwich norm] ->
+LayerScale, then the same around the GEGLU feed-forward. Cached decode
+shifts against a ring; the uncached forward shifts the whole sequence,
+runs the layers in reverse order under `reverse_model`, applies attention
+and feed-forward dropout in training mode, and with `reversible=True`
+recomputes each layer in the backward pass (`torch.utils.checkpoint`, the
+reference's `reversible_impl="remat"`; its RNG state is restored, so
+dropout masks match). `reversible_impl="revnet"` is not ported.
 Supported: attention-type cycling over {full, axial_row, axial_col,
 conv_like, sparse} (static pattern masks), cross-layer sharing
 (`shared_attn_ids` / `shared_ff_ids`), LayerScale init by depth, sandwich
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dalle_pytorch_tpu_torch.models.attention import Attention
 from dalle_pytorch_tpu_torch.ops.masks import (
@@ -71,17 +79,19 @@ class LayerNorm(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: Linear(dim, 2*hidden) -> x * gelu_tanh(gates)
-    -> Linear(hidden, dim)."""
+    -> dropout -> Linear(hidden, dim)."""
 
-    def __init__(self, dim: int, mult: float = 4.0):
+    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0):
         super().__init__()
         hidden = int(dim * mult)
+        self.dropout = dropout
         self.dense_0 = nn.Linear(dim, hidden * 2)
         self.dense_1 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, gates = self.dense_0(x).chunk(2, dim=-1)
-        return self.dense_1(x * F.gelu(gates, approximate="tanh"))
+        x = F.dropout(x * F.gelu(gates, approximate="tanh"), self.dropout, self.training)
+        return self.dense_1(x)
 
 
 def build_static_mask(
@@ -118,7 +128,7 @@ def build_static_mask(
 
 
 class Transformer(nn.Module):
-    """Causal transformer stack with the DALL-E features, cached decode."""
+    """Causal transformer stack with the DALL-E features."""
 
     def __init__(
         self,
@@ -137,11 +147,22 @@ class Transformer(nn.Module):
         shared_attn_ids: Optional[Sequence[int]] = None,
         shared_ff_ids: Optional[Sequence[int]] = None,
         attn_impl: str = "auto",
+        attn_dropout: float = 0.0,
+        ff_dropout: float = 0.0,
+        reversible: bool = False,
+        reversible_impl: str = "remat",
     ):
         super().__init__()
         if (shift_tokens or rotary_emb) and image_fmap_size is None:
             raise ValueError("shift_tokens / rotary_emb need image_fmap_size")
+        if reversible and reversible_impl != "remat":
+            raise NotImplementedError(
+                f"reversible_impl={reversible_impl!r} (the two-stream RevNet "
+                "executor) is not ported; it is ROADMAP Queue 1 item 5 "
+                "'revnet'. reversible_impl='remat' is"
+            )
         self.depth = depth
+        self.reversible = reversible
         self.image_fmap_size = image_fmap_size
         self.shift_tokens = shift_tokens
         self.sandwich_norm = sandwich_norm
@@ -168,9 +189,10 @@ class Transformer(nn.Module):
                 dim, heads=heads, dim_head=dim_head, stable=stable,
                 static_mask=build_static_mask(attn_type, seq_len, image_fmap_size, ind),
                 attn_impl=attn_impl,
+                dropout=attn_dropout,
             )
         self.ff = nn.ModuleDict(
-            {str(i): FeedForward(dim, ff_mult) for i in dict.fromkeys(self.ff_ids)}
+            {str(i): FeedForward(dim, ff_mult, ff_dropout) for i in dict.fromkeys(self.ff_ids)}
         )
         self.attn_norms = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
         self.ff_norms = nn.ModuleList(LayerNorm(dim) for _ in range(depth))
@@ -192,36 +214,68 @@ class Transformer(nn.Module):
             persistent=False,
         )
 
-    def _shift(self, h: torch.Tensor, ring: torch.Tensor, pos: int):
-        """Prefill (n > 1, from position 0): batch shift and a fresh ring;
-        one token: streaming shift against the ring at `pos`."""
+    def _shift(self, h: torch.Tensor, lc: Optional[dict], ring_key: str, pos) -> torch.Tensor:
+        """Token shift. Uncached: the whole sequence. Cached prefill (n > 1,
+        from position 0): batch shift and a fresh ring in lc[ring_key]; one
+        token: streaming shift against that ring at `pos`."""
+        if lc is None:
+            return shift_tokens_dalle(h, self.text_len, self.image_fmap_size)
         if h.shape[1] > 1:
-            return (
-                shift_tokens_dalle(h, self.text_len, self.image_fmap_size),
-                shift_ring_from_prefill(h, self.image_fmap_size),
-            )
-        return shift_token_step(h, ring, pos, self.text_len, self.image_fmap_size)
+            lc[ring_key] = shift_ring_from_prefill(h, self.image_fmap_size)
+            return shift_tokens_dalle(h, self.text_len, self.image_fmap_size)
+        h, lc[ring_key] = shift_token_step(
+            h, lc[ring_key], pos, self.text_len, self.image_fmap_size
+        )
+        return h
 
-    def forward(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
-        """x [B, n, dim] at the cache's position; updates `cache` in place."""
-        for i in range(self.depth):
-            lc = cache[f"layer_{i}"]
-            pos = lc["attn"]["index"]  # before attention advances it
-            h = self.attn_norms[i](x)
-            if self.shift_tokens:
-                h, lc["shift_attn"] = self._shift(h, lc["shift_attn"], pos)
-            h = self.attn[str(self.attn_ids[i])](h, lc["attn"], rotary=self.rotary_table)
-            if self.sandwich_norm:
-                h = self.attn_norms_out[i](h)
-            x = x + h * self.attn_scales[i].to(h.dtype)
+    def _half_attn(self, i: int, x, lc=None, pos=None, key_mask=None) -> torch.Tensor:
+        """Attention half-block: norm -> shift -> attn -> [sandwich] ->
+        LayerScale; returns the residual branch. `lc` is the layer's decode
+        cache (None uncached), `pos` its position before this call."""
+        h = self.attn_norms[i](x)
+        if self.shift_tokens:
+            h = self._shift(h, lc, "shift_attn", pos)
+        h = self.attn[str(self.attn_ids[i])](
+            h, None if lc is None else lc["attn"], rotary=self.rotary_table, key_mask=key_mask
+        )
+        if self.sandwich_norm:
+            h = self.attn_norms_out[i](h)
+        return h * self.attn_scales[i].to(h.dtype)
 
-            h = self.ff_norms[i](x)
-            if self.shift_tokens:
-                h, lc["shift_ff"] = self._shift(h, lc["shift_ff"], pos)
-            h = self.ff[str(self.ff_ids[i])](h)
-            if self.sandwich_norm:
-                h = self.ff_norms_out[i](h)
-            x = x + h * self.ff_scales[i].to(h.dtype)
+    def _half_ff(self, i: int, x, lc=None, pos=None) -> torch.Tensor:
+        h = self.ff_norms[i](x)
+        if self.shift_tokens:
+            h = self._shift(h, lc, "shift_ff", pos)
+        h = self.ff[str(self.ff_ids[i])](h)
+        if self.sandwich_norm:
+            h = self.ff_norms_out[i](h)
+        return h * self.ff_scales[i].to(h.dtype)
+
+    def _layer(self, i: int, x, key_mask=None, lc=None) -> torch.Tensor:
+        pos = None if lc is None else lc["attn"]["index"]  # before attention advances it
+        x = x + self._half_attn(i, x, lc, pos, key_mask)
+        return x + self._half_ff(i, x, lc, pos)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cache: Optional[dict] = None,
+        reverse_model: bool = False,
+        key_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """x [B, n, dim]. With a cache: at the cache's position, updating it
+        in place. Without: the whole sequence from position 0, layers in
+        reverse order under `reverse_model`, key-padding mask [B, n]."""
+        if cache is not None:
+            for i in range(self.depth):
+                x = self._layer(i, x, lc=cache[f"layer_{i}"])
+            return x
+        order = range(self.depth - 1, -1, -1) if reverse_model else range(self.depth)
+        for i in order:
+            if self.reversible and torch.is_grad_enabled():
+                x = checkpoint(self._layer, i, x, key_mask, use_reentrant=False)
+            else:
+                x = self._layer(i, x, key_mask)
         return x
 
 

@@ -18,9 +18,10 @@ NEG_INF = -float(torch.finfo(torch.float32).max)
 
 def stable_softmax(t: torch.Tensor, dim: int = -1, alpha: float = 32.0**2) -> torch.Tensor:
     """Half-precision-stable softmax: pre-divide by alpha before the
-    max-subtract, then scale back."""
+    max-subtract (detached, as the reference's stop_gradient), then scale
+    back."""
     t = t / alpha
-    t = t - t.amax(dim=dim, keepdim=True)
+    t = t - t.amax(dim=dim, keepdim=True).detach()
     return torch.softmax(t * alpha, dim=dim)
 
 

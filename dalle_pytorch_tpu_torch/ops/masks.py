@@ -3,10 +3,15 @@
 
 Convention: True = may attend. Masks are [padded_seq, padded_seq] with
 padded_seq = text_len + image_fmap_size**2, where text_len counts <bos>.
-The cached dense attention path row-slices them at the decode position.
+The cached dense attention path row-slices them at the decode position;
+the uncached flash path analyses them into tile layouts
+(`mask_block_layout`, the JAX package's `ops/pallas_attention.py`
+function of that name).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -105,3 +110,29 @@ def block_layout_to_token_mask(layout: np.ndarray, block: int, causal: bool = Tr
     if causal:
         mask &= causal_mask(mask.shape[0])
     return mask
+
+
+def mask_block_layout(mask: np.ndarray, block_q: int, block_k: int):
+    """(padded token mask, [nq, nk] int32 occupancy layout) of a static mask
+    at tiles of block_q x block_k.
+
+    Every real query row must attend to at least one key: with the finite
+    masked-score sentinel an all-masked row would softmax to a uniform
+    average of one tile's values instead of anything meaningful, so such a
+    mask is rejected.
+    """
+    mask = np.asarray(mask, dtype=bool)
+    empty = ~mask.any(axis=1)
+    if empty.any():
+        raise ValueError(
+            f"static attention mask has {int(empty.sum())} fully-masked query "
+            f"row(s) (first: {int(np.argmax(empty))}); every query must be "
+            "allowed to attend to at least one key"
+        )
+    nq = math.ceil(mask.shape[0] / block_q)
+    nk = math.ceil(mask.shape[1] / block_k)
+    padded = np.zeros((nq * block_q, nk * block_k), dtype=bool)
+    padded[: mask.shape[0], : mask.shape[1]] = mask
+    blocks = padded.reshape(nq, block_q, nk, block_k)
+    layout = blocks.any(axis=(1, 3)).astype(np.int32)
+    return padded, layout

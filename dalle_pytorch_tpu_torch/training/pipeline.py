@@ -1,9 +1,13 @@
-"""Models from a checkpoint's metadata, and the DALLE checkpoint loader.
+"""Models from a checkpoint's metadata, and the DALLE checkpoint writer
+and loader.
 
 Counterparts of the JAX package's `training/pipeline.py:dalle_from_config`,
-`dvae_from_hparams` and `load_dalle_checkpoint`, reading the plain dicts
-stored in the checkpoint's metadata (the `config` dict of the training
-config, the `vae_hparams` dict) instead of config dataclasses.
+`dvae_from_hparams`, `save_dalle_checkpoint` and `load_dalle_checkpoint`,
+with the plain dicts stored in the checkpoint's metadata (the `config`
+dict of the training config, the `vae_hparams` dict) in place of config
+dataclasses. `dalle_config` builds that dict from a port DALLE, with only
+keys the reference's config knows, so a checkpoint written here loads in
+the JAX package's `load_dalle_checkpoint` as well as in the port.
 """
 
 from __future__ import annotations
@@ -12,9 +16,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from dalle_pytorch_tpu_torch import __version__
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
-from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz
+from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz, save_params_npz
+from dalle_pytorch_tpu_torch.weights import export_dalle_params
 
 
 def _csv(spec) -> Tuple[str, ...]:
@@ -28,20 +34,19 @@ def _ids(spec) -> Optional[Tuple[int, ...]]:
 def dalle_from_config(
     config: dict, num_image_tokens: int, image_fmap_size: int, vocab_size: int
 ) -> Tuple[DALLE, torch.dtype]:
-    """(DALLE, its dtype) from a checkpoint's `config` dict.
+    """(DALLE, its dtype) from a checkpoint's `config` dict, for decoding or
+    training.
 
-    Decode never runs the training-only attention layouts: "ring" and the
-    library kernel ("lib_flash") decode through "auto" and "dense", as in
-    the reference's cached path.
+    `attn_impl` keeps "flash", "auto", "dense" and "lib_flash" (the
+    reference's library kernel: the port trains such a model through its
+    own flash kernels and decodes it dense, as the reference decodes it;
+    see `models/attention.py`). The sequence-parallel "ring" (a multi-card
+    training layout) maps to "auto". `reversible_impl="revnet"` is not
+    ported and raises.
     """
     m = config["model"]
-    if m.get("reversible") and m.get("reversible_impl", "remat") != "remat":
-        raise NotImplementedError(
-            "reversible_impl='revnet' decodes two-stream; not ported yet"
-        )
-    attn_impl = {"ring": "auto", "lib_flash": "dense"}.get(
-        m.get("attn_impl", "auto"), m.get("attn_impl", "auto")
-    )
+    attn_impl = m.get("attn_impl", "auto")
+    attn_impl = "auto" if attn_impl == "ring" else attn_impl
     model = DALLE(
         dim=m["dim"],
         depth=m["depth"],
@@ -60,8 +65,103 @@ def dalle_from_config(
         shared_ff_ids=_ids(m.get("shared_ff_ids")),
         share_input_output_emb=m.get("share_input_output_emb", False),
         attn_impl=attn_impl,
+        reversible=m.get("reversible", False),
+        reversible_impl=m.get("reversible_impl", "remat"),
+        attn_dropout=m.get("attn_dropout", 0.0),
+        ff_dropout=m.get("ff_dropout", 0.0),
+        loss_img_weight=m.get("loss_img_weight", 7.0),
+        text_loss_coeff=config.get("text_loss_coeff", 1.0),
+        img_loss_coeff=config.get("img_loss_coeff", 7.0),
+        text_loss_coeff_inv=config.get("text_loss_coeff_inv", 7.0),
+        img_loss_coeff_inv=config.get("img_loss_coeff_inv", 1.0),
+        fused_ce=m.get("fused_ce", False),
     )
     return model, torch.bfloat16 if config.get("bf16", True) else torch.float32
+
+
+def dalle_config(model: DALLE, bf16: bool = True, mode: str = "forward_only") -> dict:
+    """The checkpoint `config` dict describing `model`, in the reference
+    config's key names (a subset of its `TrainConfig`)."""
+    tr = model.transformer
+    return {
+        "mode": mode,
+        "bf16": bf16,
+        "text_loss_coeff": model.text_loss_coeff,
+        "img_loss_coeff": model.img_loss_coeff,
+        "text_loss_coeff_inv": model.text_loss_coeff_inv,
+        "img_loss_coeff_inv": model.img_loss_coeff_inv,
+        "model": {
+            "dim": model.dim,
+            "depth": model.depth,
+            "heads": model.heads,
+            "dim_head": model.dim_head,
+            "text_seq_len": model.text_seq_len,
+            "num_text_tokens": model.num_text_tokens,
+            "attn_types": ",".join(model.attn_types),
+            "shift_tokens": model.shift_tokens,
+            "rotary_emb": model.rotary_emb,
+            "stable_softmax": model.stable,
+            "sandwich_norm": tr.sandwich_norm,
+            "share_input_output_emb": model.share_input_output_emb,
+            "shared_attn_ids": _join(model.shared_attn_ids),
+            "shared_ff_ids": _join(model.shared_ff_ids),
+            "reversible": tr.reversible,
+            "attn_dropout": model.attn_dropout,
+            "ff_dropout": model.ff_dropout,
+            "fused_ce": model.fused_ce,
+            "attn_impl": model.attn_impl,
+        },
+    }
+
+
+def _join(ids) -> Optional[str]:
+    return None if ids is None else ",".join(str(i) for i in ids)
+
+
+def save_dalle_checkpoint(
+    path: str,
+    config: dict,
+    model: DALLE,
+    vae_params: Optional[dict] = None,
+    epoch: int = 0,
+    vae_class_name: str = "DiscreteVAE",
+    vae_hparams: Optional[dict] = None,
+    train_meta: Optional[dict] = None,
+) -> None:
+    """Write `model` as the reference's single-file DALLE checkpoint: the
+    DALLE tree (and `vae_params`, a reference dVAE tree, when given) with
+    the metadata {type, version, epoch, vae_class_name, vae_hparams,
+    config, train}. The optimizer state is not written (the reference's
+    optional `opt` leaves follow optax's layout)."""
+    trees = {"dalle": export_dalle_params(model)}
+    if vae_params is not None:
+        trees["vae"] = vae_params
+    save_params_npz(
+        path,
+        trees,
+        metadata={
+            "type": "DALLE",
+            "version": __version__,
+            "epoch": epoch,
+            "vae_class_name": vae_class_name,
+            "vae_hparams": vae_hparams,
+            "config": config,
+            "train": train_meta or {},
+        },
+    )
+
+
+def dvae_hparams(vae: DiscreteVAE) -> dict:
+    """The checkpoint `vae_hparams` dict of a port DiscreteVAE."""
+    return {
+        "image_size": vae.image_size,
+        "num_tokens": vae.num_tokens,
+        "codebook_dim": vae.codebook.embedding_dim,
+        "num_layers": vae.num_layers,
+        "num_resnet_blocks": vae.num_resnet_blocks,
+        "hidden_dim": vae.dec_head.in_channels,
+        "channels": vae.dec_head.out_channels,
+    }
 
 
 def dvae_from_hparams(h: dict) -> DiscreteVAE:

@@ -1,8 +1,11 @@
-"""Carry the JAX package's parameter trees into the port's modules.
+"""Carry the JAX package's parameter trees into the port's modules, and
+back out.
 
 A tree is the reference's flax parameter tree (`variables["params"]`) as
 nested dicts of numpy arrays, the layout `save_dalle_checkpoint` writes.
-Mappings:
+`export_dalle_params` is the exact inverse of `load_dalle_params` (float32
+leaves, whatever the module's dtype); `export_dvae_params` writes the
+decoder and carries encoder leaves through. Mappings:
 
   * Dense kernel [in, out] -> Linear.weight [out, in];
   * Conv kernel HWIO -> Conv2d.weight OIHW;
@@ -17,7 +20,7 @@ and not loaded (the port has the decoder only).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +45,15 @@ def _conv_oihw(a):
 
 def _conv_transpose(a):
     return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+#: each mapping's inverse, for export (port layout -> reference layout)
+_INVERSE = {
+    _same: _same,
+    _dense_t: _dense_t,
+    _conv_oihw: lambda a: a.transpose(2, 3, 1, 0),
+    _conv_transpose: lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+}
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -90,15 +102,26 @@ def _conv(prefix, conv, targets, fn=_conv_oihw):
     targets[f"{prefix}/bias"] = (conv.bias, _same)
 
 
-def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
-    """Load a reference DALLE parameter tree (unrolled executor layout)
-    into `model` in place; returns the model."""
-    if "scan_stack" in tree.get("transformer", {}):
-        raise ValueError(
-            "scan-layout DALLE tree (executor='scan'): the port loads the "
-            "unrolled layout only; scan-layout checkpoints are the ROADMAP "
-            "Queue 1 item 'scan-layout checkpoint loading'"
-        )
+def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def _export_flat(targets: Dict[str, _Target]) -> Dict[str, np.ndarray]:
+    """Inverse of `_assign`: every leaf in the reference layout, float32."""
+    return {
+        path: np.ascontiguousarray(_INVERSE[fn](param.detach().float().cpu().numpy()))
+        for path, (param, fn) in targets.items()
+    }
+
+
+def _dalle_targets(model: DALLE) -> Dict[str, _Target]:
     t: Dict[str, _Target] = {
         "text_emb/embedding": (model.text_emb.weight, _same),
         "image_emb/embedding": (model.image_emb.weight, _same),
@@ -127,28 +150,44 @@ def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
             _norm(f"transformer/ff_norms_out_{i}", tr.ff_norms_out[i], t)
         t[f"transformer/attn_scale_{i}"] = (tr.attn_scales[i], _same)
         t[f"transformer/ff_scale_{i}"] = (tr.ff_scales[i], _same)
-    _assign(t, _flatten(tree), "DALLE")
+    return t
+
+
+def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
+    """Load a reference DALLE parameter tree (unrolled executor layout)
+    into `model` in place; returns the model."""
+    if "scan_stack" in tree.get("transformer", {}):
+        raise ValueError(
+            "scan-layout DALLE tree (executor='scan'): the port loads the "
+            "unrolled layout only; scan-layout checkpoints are the ROADMAP "
+            "Queue 1 item 'scan-layout checkpoint loading'"
+        )
+    _assign(_dalle_targets(model), _flatten(tree), "DALLE")
     return model
 
 
-def _encoder_leaves(vae: DiscreteVAE):
-    names = []
+def export_dalle_params(model: DALLE) -> dict:
+    """The reference DALLE parameter tree (unrolled layout) of `model`."""
+    return _unflatten(_export_flat(_dalle_targets(model)))
+
+
+def _encoder_shapes(vae: DiscreteVAE) -> Dict[str, tuple]:
+    """The reference encoder's leaves (flax HWIO kernels) and shapes."""
+    hid, chans = vae.dec_head.in_channels, vae.dec_head.out_channels
+    shapes = {}
     for i in range(vae.num_layers):
-        names += [f"enc_convs_{i}/kernel", f"enc_convs_{i}/bias"]
+        shapes[f"enc_convs_{i}/kernel"] = (4, 4, chans if i == 0 else hid, hid)
+        shapes[f"enc_convs_{i}/bias"] = (hid,)
     for i in range(vae.num_resnet_blocks):
-        for j in range(3):
-            names += [f"enc_res_{i}/Conv_{j}/kernel", f"enc_res_{i}/Conv_{j}/bias"]
-    return names + ["enc_head/kernel", "enc_head/bias"]
+        for j, k in enumerate((3, 3, 1)):
+            shapes[f"enc_res_{i}/Conv_{j}/kernel"] = (k, k, hid, hid)
+            shapes[f"enc_res_{i}/Conv_{j}/bias"] = (hid,)
+    shapes["enc_head/kernel"] = (1, 1, hid, vae.num_tokens)
+    shapes["enc_head/bias"] = (vae.num_tokens,)
+    return shapes
 
 
-def load_dvae_params(vae: DiscreteVAE, tree: dict) -> DiscreteVAE:
-    """Load a reference DiscreteVAE parameter tree's decoder into `vae` in
-    place (encoder leaves must be present and are left unused)."""
-    flat = _flatten(tree)
-    for name in _encoder_leaves(vae):
-        if name not in flat:
-            raise ValueError(f"DiscreteVAE tree lacks encoder leaf {name}")
-        del flat[name]
+def _dvae_decoder_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
     t: Dict[str, _Target] = {"codebook/embedding": (vae.codebook.weight, _same)}
     if vae.dec_proj is not None:
         _conv("dec_proj", vae.dec_proj, t)
@@ -158,5 +197,32 @@ def load_dvae_params(vae: DiscreteVAE, tree: dict) -> DiscreteVAE:
     for i, conv in enumerate(vae.dec_convs):
         _conv(f"dec_convs_{i}", conv, t, fn=_conv_transpose)
     _conv("dec_head", vae.dec_head, t)
-    _assign(t, flat, "DiscreteVAE")
+    return t
+
+
+def load_dvae_params(vae: DiscreteVAE, tree: dict) -> DiscreteVAE:
+    """Load a reference DiscreteVAE parameter tree's decoder into `vae` in
+    place (encoder leaves must be present and are left unused)."""
+    flat = _flatten(tree)
+    for name in _encoder_shapes(vae):
+        if name not in flat:
+            raise ValueError(f"DiscreteVAE tree lacks encoder leaf {name}")
+        del flat[name]
+    _assign(_dvae_decoder_targets(vae), flat, "DiscreteVAE")
     return vae
+
+
+def export_dvae_params(vae: DiscreteVAE, encoder: Optional[dict] = None) -> dict:
+    """A reference DiscreteVAE tree: the port's decoder, plus the encoder
+    leaves of `encoder` (a tree holding them, e.g. the one the decoder was
+    loaded from). The port has no encoder, so without one the encoder
+    leaves are written as zeros of the reference's shapes: such a tree
+    decodes, and cannot encode."""
+    flat = _export_flat(_dvae_decoder_targets(vae))
+    given = _flatten(encoder) if encoder is not None else {}
+    for name, shape in _encoder_shapes(vae).items():
+        leaf = given.get(name, np.zeros(shape, np.float32))
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"encoder leaf {name}: shape {leaf.shape} != {shape}")
+        flat[name] = leaf
+    return _unflatten(flat)

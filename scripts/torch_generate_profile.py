@@ -71,7 +71,9 @@ def main() -> int:
 
     by_name = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # device kernels only: a user annotation (e.g. "Optimizer.step#...")
+        # spans kernels already counted
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             by_name[evt.name][0] += evt.time_range.elapsed_us() / 1e6
             by_name[evt.name][1] += 1
     busy = sum(t for t, _ in by_name.values())

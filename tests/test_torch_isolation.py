@@ -22,6 +22,7 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "scripts" / "torch_generate_profile.py",
+        REPO / "scripts" / "torch_train_profile.py",
     ]
 
 
