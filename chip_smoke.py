@@ -33,7 +33,19 @@ Phases, each failing loudly (nonzero exit, no result line):
    tokens; one warmup step, then 5 Adam steps on the same batch with the
    flash-attention launch counts read from zero around them; the loss must
    fall; then `save_dalle_checkpoint`, `engine_from_checkpoint` and one
-   `generate()` from it (train -> checkpoint -> serve).
+   `generate()` from it (train -> checkpoint -> serve);
+7. the continuous-serving path: phase 5's model behind a `ContinuousEngine`
+   (4 slots, prefill waves of 4, chunks of 4 tokens) driven by the
+   `ContinuousBatcher` with phase 5's four prompts, two of them admitted
+   mid-flight, four times: causal (tokens identical to phase 5's, one
+   chunk run under CUDA's sync-debug "error" mode), int8 KV, policy
+   sparsity (tokens identical again), and policy + int8 on a model whose
+   layers cycle full / axial_row / axial_col / conv_like; each run's
+   kernel launches counted exactly.
+
+Phases 2 and 3 also hold and time the int8 arm of flash decode and the
+block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
+random and policy bitmaps, poisoned dead tiles).
 
 The line before the last is the card's nvidia-smi line, the one before
 that a JSON object of the kernels; the last line is
@@ -195,6 +207,213 @@ def time_ms(torch, fn, inputs, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the flagship geometry's pattern layers, for the policy bitmaps of phase 2
+# and 3 (a stand-in with the attributes DecodeSparsityPolicy reads)
+PATTERNED = ("full", "axial_row", "axial_col", "conv_like")
+
+
+def policy_bitmaps(attn_types, positions, chunk=1):
+    """[len(attn_types), B, nb] bitmaps of the decode-sparsity policy at the
+    flagship geometry for slots at image `positions`."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.serving.sparsity import DecodeSparsityPolicy
+
+    geo = SimpleNamespace(
+        text_seq_len=FLAGSHIP["text_seq_len"], image_seq_len=FLAGSHIP["image_fmap_size"] ** 2,
+        total_seq_len=FLAGSHIP["text_seq_len"] + FLAGSHIP["image_fmap_size"] ** 2,
+        image_fmap_size=FLAGSHIP["image_fmap_size"], depth=len(attn_types),
+        attn_types=attn_types, decode_sparse_block=128,
+    )
+    policy = DecodeSparsityPolicy(geo, chunk, len(positions))
+    return policy.chunk_bitmaps(np.asarray(positions), np.ones(len(positions), bool))
+
+
+def quantized(torch, k, v):
+    from dalle_pytorch_tpu_torch.models.attention import _kv_quantize
+
+    (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+    return kq, vq, ks, vs
+
+
+def decode_tol(torch, ref, dtype):
+    """Kernel 1's limits: bf16 one rounding step of the largest output,
+    fp32 summation order only."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return 2.0**-7 * scale if dtype == torch.bfloat16 else 2e-5 * scale
+
+
+def check_decode_variants(torch, cases):
+    """Phase 2 for the int8 arm and the block-sparse kernel; returns
+    {kernel: worst bf16 max_abs_err against the plain version}."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst = {"flash_decode_int8": 0.0, "block_sparse_flash_decode": 0.0}
+    failures = []
+
+    def arms(k, v):
+        """(label, k, v, scales) of the cache in q's dtype and of int8."""
+        kq, vq, ks, vs = quantized(torch, k, v)
+        return (("", k, v, ()), (" int8", kq, vq, (ks, vs)))
+
+    def hold(kernel, label, out, ref, dtype):
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = decode_tol(torch, ref, dtype)
+        print(f"check {kernel} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} tol {tol:.3e}")
+        if not (err <= tol and torch.isfinite(out).all()):
+            failures.append(f"{kernel} {label} {dtype}: {err:.3e} over {tol:.3e}")
+        if dtype == torch.bfloat16:
+            worst[kernel] = max(worst[kernel], err)
+
+    def hold_all(label, q, kv_arms, lens, bm, block, dtype):
+        """The int8 arm against its plain version, each arm of the
+        block-sparse kernel against its plain version on `bm`, and each
+        arm on an all-ones bitmap against flash_decode bit for bit."""
+        _, kq, vq, scales = kv_arms[1]
+        hold("flash_decode_int8", label, fd.flash_decode_attention(q, kq, vq, lens, *scales),
+             fd.flash_decode_attention_plain(q, kq, vq, lens, *scales), dtype)
+        ones = torch.ones_like(bm)
+        for suffix, kk, vv, sc in kv_arms:
+            hold("block_sparse_flash_decode", f"{label}{suffix}",
+                 fd.block_sparse_flash_decode_attention(q, kk, vv, lens, bm, block, *sc),
+                 fd.block_sparse_flash_decode_attention_plain(q, kk, vv, lens, bm, block, *sc),
+                 dtype)
+            a = fd.block_sparse_flash_decode_attention(q, kk, vv, lens, ones, block, *sc)
+            b = fd.flash_decode_attention(q, kk, vv, lens, *sc)
+            same = torch.equal(a, b)
+            print(f"check block_sparse_flash_decode {label}{suffix} {str(dtype)[6:]}: all-ones "
+                  f"bitmap vs flash_decode max_abs_err "
+                  f"{(a.float() - b.float()).abs().max().item():.1e}, bit-identical {same}")
+            if not same:
+                failures.append(f"{label}{suffix} {dtype}: all-ones bitmap not bit-identical")
+
+    s_len, block = MAIN["cache"], 128
+    nb = -(-s_len // block)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, (n, lengths) in cases.items():
+            q, k, v, lens = flash_inputs(torch, n, lengths, dtype)[0]
+            bm = (torch.rand((MAIN["batch"], nb), generator=g, device="cuda") < 0.5).to(torch.int32)
+            bm[:, 0] = 1
+            hold_all(f"{case} random bitmap", q, arms(k, v), lens, bm, block, dtype)
+        # policy bitmaps of one layer of each pattern type, for slots at the
+        # image positions of the step lengths
+        n, lengths = cases["step"]
+        q, k, v, lens = flash_inputs(torch, n, lengths, dtype)[0]
+        kv_arms = arms(k, v)
+        positions = [x - (FLAGSHIP["text_seq_len"] + 1) - 1 for x in lengths]
+        for attn_type, bm in zip(PATTERNED[1:], policy_bitmaps(PATTERNED[1:], positions)):
+            bm = torch.tensor(bm, device="cuda")
+            hold_all(f"step {attn_type} policy bitmap", q, kv_arms, lens, bm, block, dtype)
+            # dead tiles are never read: NaN in every dead position (and
+            # its scales) leaves the output finite and unchanged
+            dead = ~fd.expand_bitmap(bm, block, s_len)[:, None, :, None]
+            for suffix, kk, vv, sc in kv_arms:
+                clean = fd.block_sparse_flash_decode_attention(q, kk, vv, lens, bm, block, *sc)
+                if sc:  # int8 holds no NaN: poison the scales
+                    sc = tuple(t.masked_fill(dead[..., 0], float("nan")) for t in sc)
+                else:
+                    kk, vv = (t.masked_fill(dead, float("nan")) for t in (kk, vv))
+                poisoned = fd.block_sparse_flash_decode_attention(q, kk, vv, lens, bm, block, *sc)
+                same = torch.equal(clean, poisoned) and bool(torch.isfinite(poisoned).all())
+                print(f"check block_sparse_flash_decode poisoned dead tiles {attn_type}{suffix} "
+                      f"{str(dtype)[6:]}: finite and unchanged {same}")
+                if not same:
+                    failures.append(f"poisoned dead tiles {attn_type}{suffix} {dtype} changed the output")
+    # the other head dims, small ragged shapes, 32-position blocks
+    bm = torch.tensor([[1, 0, 1, 0], [1, 1, 0, 1], [1, 0, 0, 1], [1, 1, 1, 0]],
+                      dtype=torch.int32, device="cuda")
+    for d in (16, 32, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for shape in ((4, 2, 5, d), (4, 2, 100, d), (4, 2, 100, d)))
+            lens = torch.tensor([5, 37, 64, 100], dtype=torch.int32, device="cuda")
+            hold_all(f"D={d} n=5 S=100", q, arms(k, v), lens, bm, 32, dtype)
+    torch.cuda.synchronize()
+    if failures:
+        fail("; ".join(failures))
+    return worst
+
+
+def decode_variant_bound(per_pos_bytes, positions, pairs, peaks):
+    """(bound_ms, bound_by) of one step (n = 1) at MAIN's shapes: q read
+    and out written in bf16, `positions` cache positions read over all
+    rows at `per_pos_bytes` per position and head (K and V, and int8's
+    two fp32 scales), lengths; 4*D flops per visible (row, key) pair."""
+    b, h, d = MAIN["batch"], MAIN["heads"], MAIN["dim_head"]
+    nbytes = 2 * b * h * d * 2 + h * per_pos_bytes * positions + 4 * b
+    flops = 4 * d * h * pairs
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_decode_variants(torch, F, peaks, smi, cases):
+    """Phase 3 for the new kernels at the step shape in bf16: the int8 arm
+    (yardstick: SDPA over the bf16 cache it replaces) and the block-sparse
+    kernel with axial_row policy bitmaps (yardstick: SDPA with the
+    bitmap-expanded boolean mask)."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    n, lengths = cases["step"]
+    b, h, d, s_len = MAIN["batch"], MAIN["heads"], MAIN["dim_head"], MAIN["cache"]
+    inputs = flash_inputs(torch, n, lengths, torch.bfloat16, copies=LAYERS)
+    int8_in = []
+    for q, k, v, lens in inputs:
+        kq, vq, ks, vs = quantized(torch, k, v)
+        int8_in.append((q, kq, vq, lens, ks, vs))
+    live = [min(max(x, 0), s_len) for x in lengths]
+
+    def library_masked(q, k, v, lens, kv_live=None):
+        bound = lens.long()[:, None] - n + torch.arange(n, device="cuda")[None, :]
+        mask = torch.arange(s_len, device="cuda")[None, None, :] <= bound[:, :, None]
+        if kv_live is not None:
+            mask = mask & kv_live[:, None, :]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None])
+
+    iters = 40 * LAYERS
+    rows = {}
+    row = dict(
+        ms=time_ms(torch, fd.flash_decode_attention, int8_in, iters),
+        plain_ms=time_ms(torch, fd.flash_decode_attention_plain, int8_in, iters),
+        library_ms=time_ms(torch, library_masked, inputs, iters),
+    )
+    # n = 1: each row's one query sees its `len` keys; int8 K and V (2*D
+    # bytes) and two fp32 scales per position and head
+    row["bound_ms"], row["bound_by"] = decode_variant_bound(2 * d + 8, sum(live), sum(live), peaks)
+    rows["flash_decode_int8"] = row
+    print("time " + json.dumps(dict(
+        kernel="flash_decode_int8", case="step", q_dtype="bf16", kv="int8 + fp32 scales",
+        lengths=lengths, library="SDPA over the bf16 cache the int8 one replaces",
+        card=smi, **row)))
+
+    positions = [x - (FLAGSHIP["text_seq_len"] + 1) - 1 for x in lengths]
+    bm = torch.tensor(policy_bitmaps(("axial_row",), positions)[0], device="cuda")
+    kv_live = fd.expand_bitmap(bm, 128, s_len)
+    sparse_in = [(q, k, v, lens, bm, 128) for q, k, v, lens in inputs]
+    lib_in = [(q, k, v, lens, kv_live) for q, k, v, lens in inputs]
+    # bytes and flops of the live positions only (visible to the step row)
+    in_length = torch.arange(s_len, device="cuda")[None, :] < torch.tensor(live, device="cuda")[:, None]
+    visible = in_length & kv_live
+    n_visible = int(visible.sum())
+    row = dict(
+        ms=time_ms(torch, fd.block_sparse_flash_decode_attention, sparse_in, iters),
+        plain_ms=time_ms(torch, fd.block_sparse_flash_decode_attention_plain, sparse_in, iters),
+        library_ms=time_ms(torch, library_masked, lib_in, iters),
+    )
+    row["bound_ms"], row["bound_by"] = decode_variant_bound(2 * d * 2, n_visible, n_visible, peaks)
+    dense_ms = time_ms(torch, fd.flash_decode_attention, inputs, iters)
+    rows["block_sparse_flash_decode"] = row
+    print("time " + json.dumps(dict(
+        kernel="block_sparse_flash_decode", case="step", dtype="bf16", lengths=lengths,
+        bitmap="axial_row policy at image positions " + str(positions),
+        live_positions=n_visible, length_skip_positions=sum(live),
+        flash_decode_ms_same_inputs=dense_ms,
+        library="SDPA with the bitmap-expanded boolean mask", card=smi, **row)))
+    return rows
 
 
 PROMPTS = (
@@ -521,6 +740,153 @@ def run_training(torch, vae, specs):
     return launches, summary
 
 
+CONTINUOUS = dict(max_batch=4, prefill_batch=4, chunk_tokens=4)
+
+
+def serve_continuous(torch, model, vae, specs, label, **options):
+    """Phase 7, one run: a warmed ContinuousEngine over `model` behind the
+    ContinuousBatcher; the first two prompts are submitted, the other two
+    once 8 chunks have run (admitted mid-flight). Returns (engine, tokens,
+    pixels, {kernel: launches}, expected launches of the path's kernel)."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.serving.batcher import ContinuousBatcher
+    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine
+
+    engine = ContinuousEngine(
+        model, vae, **CONTINUOUS, tokenizer=ByteTokenizer(), device="cuda", **options
+    )
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    counters = {
+        "flash_decode": (fd.flash_decode_attention, "launches"),
+        "flash_decode_int8": (fd.flash_decode_attention, "int8_launches"),
+        "block_sparse_flash_decode": (fd.block_sparse_flash_decode_attention, "launches"),
+        "block_sparse_flash_decode_int8": (fd.block_sparse_flash_decode_attention, "int8_launches"),
+    }
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(engine)
+    t0 = time.perf_counter()
+    reqs = [batcher.submit([sp]) for sp in specs[:2]]
+    while engine.stats.chunks < 8 and not all(r.future.done() for r in reqs):
+        time.sleep(0.002)
+    reqs += [batcher.submit([sp]) for sp in specs[2:]]
+    outs = [r.future.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    batcher.shutdown()
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    chunks, waves = engine.stats.chunks, engine.stats.prefill_dispatches
+    expected = LAYERS * (CONTINUOUS["chunk_tokens"] * chunks + waves)
+    toks = np.concatenate([o[0] for o in outs])
+    pixels = np.concatenate([o[1] for o in outs])
+    print("continuous " + json.dumps(dict(
+        run=label, wall_s=wall, images_per_s=len(specs) / wall, warmup_s=warm_s,
+        chunks=chunks, prefill_waves=waves, ms_per_chunk=1e3 * wall / chunks,
+        launches=launches, expected_launches=expected,
+        kv_bytes_per_slot=engine.kv_bytes_per_slot(), sparsity=engine.sparsity_detail(),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )))
+    if toks.shape != (4, 1024) or toks.min() < 0 or toks.max() >= 8192:
+        fail(f"continuous {label}: tokens out of range or shape {toks.shape}")
+    if pixels.shape != (4, 256, 256, 3) or not math.isfinite(float(pixels.sum())):
+        fail(f"continuous {label}: pixels not finite or shape {pixels.shape}")
+    return engine, toks, pixels, launches, expected
+
+
+def run_continuous(torch, model, vae, specs, micro_tokens):
+    """Phase 7: the four runs. Returns {kernel: launches on its run}."""
+    import copy
+
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.serving.engine import GenerationEngine
+
+    def only(launches, kernel, expected, label):
+        others = {k: n for k, n in launches.items() if k != kernel and n}
+        if launches[kernel] != expected or others:
+            fail(f"continuous {label}: {kernel} launched {launches[kernel]} times "
+                 f"(expected {expected}), others {others}")
+
+    # 1. causal: the micro engine's tokens, and a chunk with no host sync
+    engine, toks1, _, launches, expected = serve_continuous(torch, model, vae, specs, "causal")
+    same = np.array_equal(toks1, micro_tokens)
+    print(f"check continuous causal tokens identical to phase 5's micro engine: {same} "
+          f"(agreement {(toks1 == micro_tokens).mean():.6f})")
+    if not same:
+        fail("the continuous engine's tokens differ from the micro engine's")
+    only(launches, "flash_decode", expected, "causal")
+    causal_bytes = engine.kv_bytes_per_slot()
+    engine.prefill_slots([(0, specs[0])])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pos, act = engine.chunk_snapshot()
+    engine.release([0])
+    print(f"check continuous chunk under sync-debug mode 'error': no host sync (slot 0 at {pos[0]})")
+    if pos[0] != CONTINUOUS["chunk_tokens"] or not act[0]:
+        fail(f"the synced-debug chunk left slot 0 at {pos[0]}, active {act[0]}")
+    del engine
+    out = {}
+
+    # 2. int8 KV
+    engine, toks2, _, launches, expected = serve_continuous(
+        torch, model, vae, specs, "int8", kv_dtype="int8")
+    only(launches, "flash_decode_int8", expected, "int8")
+    ratio = engine.kv_bytes_per_slot() / causal_bytes
+    d = FLAGSHIP["dim_head"]
+    expected_ratio = (d + 4) / (2 * d)  # int8 values + an fp32 scale vs bf16 values
+    print(f"check continuous int8: token agreement with the causal run "
+          f"{(toks2 == toks1).mean():.4f}; kv_bytes_per_slot {engine.kv_bytes_per_slot()} vs "
+          f"{causal_bytes} = {ratio:.4f} (expected ({d} + 4) / {2 * d} = {expected_ratio:.4f})")
+    if abs(ratio - expected_ratio) > 1e-3:
+        fail(f"int8 kv_bytes_per_slot ratio {ratio}")
+    out["flash_decode_int8"] = launches["flash_decode_int8"]
+    del engine
+
+    # 3. policy on the unpatterned flagship: all-ones bitmaps, same bits
+    engine, toks3, _, launches, expected = serve_continuous(
+        torch, model, vae, specs, "policy", decode_sparsity="policy")
+    same = np.array_equal(toks3, toks1)
+    print(f"check continuous policy (all full layers) tokens identical to the causal run: {same}")
+    if not same:
+        fail("policy sparsity on full layers changed the tokens")
+    only(launches, "block_sparse_flash_decode", expected, "policy")
+    out["block_sparse_flash_decode"] = launches["block_sparse_flash_decode"]
+    del engine
+
+    # 4. policy + int8 on the patterned flagship
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        patterned = DALLE(**{**FLAGSHIP, "attn_types": PATTERNED}).to(torch.bfloat16).eval()
+    engine, toks4, _, launches, expected = serve_continuous(
+        torch, patterned, vae, specs, "policy+int8 patterned",
+        decode_sparsity="policy", kv_dtype="int8")
+    only(launches, "block_sparse_flash_decode_int8", expected, "policy+int8 patterned")
+    detail = engine.sparsity_detail()
+    if not detail["kv_tiles_skipped"] > 0:
+        fail(f"the patterned policy run skipped no tiles: {detail}")
+    del engine
+    reference = copy.copy(patterned)  # the same weights, int8 KV, dense pattern layers
+    reference.kv_dtype = "int8"
+    micro = GenerationEngine(reference, vae, batch_shapes=(4,), device="cuda")
+    ref_toks, _ = micro.generate(specs)
+    print(f"check continuous policy+int8 patterned: token agreement with the micro engine "
+          f"(dense pattern layers, int8 KV) {(toks4 == ref_toks).mean():.4f}; tiles read "
+          f"{detail['kv_tiles_read']}, skipped {detail['kv_tiles_skipped']} "
+          f"({detail['kv_tiles_skipped'] / (detail['kv_tiles_read'] + detail['kv_tiles_skipped']):.3f})")
+    out["block_sparse_flash_decode_int8"] = launches["block_sparse_flash_decode_int8"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -606,6 +972,9 @@ def main() -> int:
                 fail(f"flash_decode D={d} {dtype} disagrees with its plain version")
 
     t0 = time.perf_counter()
+    variant_errs = check_decode_variants(torch, cases)
+    print(f"phase 2 int8 and block-sparse checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     attn_errs = check_attention(torch)
     print(f"phase 2 flash_attention checks: {time.perf_counter() - t0:.1f} s")
 
@@ -640,6 +1009,7 @@ def main() -> int:
     step = timings[("step", "bf16")]
     est = LAYERS * (timings[("prefill", "bf16")]["ms"] + 1024 * step["ms"])
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
+    variant_times = time_decode_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     time_attention(torch, F, peaks, torch.float32, "fp32", 4)
 
@@ -703,10 +1073,15 @@ def main() -> int:
         fail("all four prompts sampled the same tokens")
 
     # 6. training path, then its checkpoint served -------------------------------
-    vae = engine.vae
+    vae, model5 = engine.vae, engine.model
     del engine
     train_launches, _ = run_training(torch, vae, specs)
     launches.update(train_launches)
+
+    # 7. continuous-serving path ---------------------------------------------------
+    t0 = time.perf_counter()
+    launches.update(run_continuous(torch, model5, vae, specs, toks))
+    print(f"phase 7 continuous serving: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # result -------------------------------------------------------------------
@@ -743,6 +1118,32 @@ def main() -> int:
                 ("flash_attention_dq", 274),
                 ("flash_attention_dkv", 333),
             )
+        ] + [
+            dict(
+                name="flash_decode_int8",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:85",
+                launches=launches["flash_decode_int8"],
+                max_abs_err=variant_errs["flash_decode_int8"],
+                **variant_times["flash_decode_int8"],
+                timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
+                "[258, 700, 1024, 1281]; launches: phase 7 int8 run; library_ms is SDPA over "
+                "the bf16 cache",
+            ),
+            dict(
+                name="block_sparse_flash_decode",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:292",
+                launches=launches["block_sparse_flash_decode"]
+                + launches["block_sparse_flash_decode_int8"],
+                max_abs_err=variant_errs["block_sparse_flash_decode"],
+                **variant_times["block_sparse_flash_decode"],
+                timed="bf16 step n=1 B=4 H=16 D=64 S=1281, axial_row policy bitmap; launches: "
+                "phase 7 policy run (bf16 arm) + policy+int8 patterned run (int8 arm); "
+                "library_ms is SDPA with the bitmap-expanded mask",
+            ),
         ]
     }
     print(json.dumps(kernels_line))

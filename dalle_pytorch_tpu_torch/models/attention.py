@@ -2,16 +2,23 @@
 
 Counterpart of the JAX package's `models/attention.py:Attention`.
 
-Cached branch, with a scalar cache `index` (every batch row at one
-position — the micro-batch decode): project q/k/v, apply rotary to q, k
-AND v at positions index..index+n-1, write k/v into the cache at `index`,
-then attend over the written prefix. Dispatch mirrors
-`_use_flash_decode`: layers without a pattern mask go to the flash-decode
-kernel wrapper when `attn_impl="flash"`, or under "auto" when the cache
-holds at least AUTO_FLASH_DECODE_MIN_LEN positions; pattern-masked layers
-and "dense" run `dense_attention` over the causal + row-sliced pattern
-mask. The cache is updated in place (the reference returns a new one):
-one copy of the KV cache stays alive, not two.
+Cached branch: project q/k/v, apply rotary to q, k AND v at positions
+index..index+n-1, write k/v into the cache at `index`, then attend over
+the written prefix. The cache `index` is a Python int (every batch row at
+one position — the micro-batch decode) or a [B] int32 tensor (each row at
+its own position — the continuous engine's slot cache; rotary rows,
+cache writes and the causal and pattern masks then go per row). A cache
+with `k_scale`/`v_scale` leaves is int8: k/v are quantized after rotary
+(`_kv_quantize`) and read back dequantized. A `block_bitmap` entry (the
+decode-sparsity policy's [B, nb] tile bitmap, with its "sparse_block"
+width) supersedes the pattern masks. Dispatch mirrors `_use_flash_decode`:
+layers without a pattern mask, and every layer under a bitmap, go to the
+flash-decode kernel wrappers (block-sparse with a bitmap) when
+`attn_impl="flash"`, or under "auto" when the cache holds at least
+AUTO_FLASH_DECODE_MIN_LEN positions; the rest run `dense_attention` over
+the causal + pattern (or bitmap) mask. The cache is updated in place (the
+reference returns a new one): one copy of the KV cache stays alive, not
+two.
 
 Uncached branch (training, a whole sequence from position 0): rotary
 rows [:n] on q, k and v, then `use_flash` as the reference's `_use_flash`:
@@ -40,12 +47,57 @@ from torch import nn
 
 from dalle_pytorch_tpu_torch.ops.attention_core import dense_attention
 from dalle_pytorch_tpu_torch.ops.flash_attention import FlashMask, flash_attention, flash_mask
-from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention
+from dalle_pytorch_tpu_torch.ops.flash_decode import (
+    block_sparse_flash_decode_attention,
+    clamp_block_k,
+    expand_bitmap,
+    flash_decode_attention,
+)
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary
 
 AUTO_FLASH_MIN_SEQ = 1024
 AUTO_FLASH_DECODE_MIN_LEN = 512
 ATTN_IMPLS = ("auto", "flash", "dense", "lib_flash")
+# KV block width of the decode-sparsity bitmaps (the reference's choice;
+# a cache's "sparse_block" entry overrides it)
+DECODE_SPARSE_BLOCK = 128
+
+
+def _row_positions(index: torch.Tensor, n: int, length: int) -> torch.Tensor:
+    """[B, n] positions index[b]..index[b]+n-1, the start clamped to
+    [0, length - n] as the reference's dynamic slices clamp it (a finished
+    slot stepped past the cache writes into its spare last position)."""
+    start = index.to(torch.long).clamp(0, length - n)
+    return start[:, None] + torch.arange(n, device=index.device)
+
+
+def _cache_write(buf: torch.Tensor, val: torch.Tensor, index) -> None:
+    """Write val [B, H, n(, D)] into buf [B, H, S(, D)] in place at sequence
+    position `index`: a Python int (every row at one position, the micro
+    engine) or a [B] tensor (each row at its own position, the slot
+    cache)."""
+    n = val.shape[2]
+    if not torch.is_tensor(index):
+        buf[:, :, index : index + n] = val
+        return
+    pos = _row_positions(index, n, buf.shape[2])[:, None, :]  # [B, 1, n]
+    if buf.dim() == 4:
+        pos = pos[..., None]
+    buf.scatter_(2, pos.expand(val.shape), val.to(buf.dtype))
+
+
+def _kv_quantize(x: torch.Tensor):
+    """Symmetric int8 quantization over the head dim: x [B, H, n, D] ->
+    (int8 [B, H, n, D], fp32 scale [B, H, n]). fp32 throughout, round half
+    to even, eps 1e-8 so an all-zero row round-trips to zeros."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale[..., None]
 
 
 class Attention(nn.Module):
@@ -81,9 +133,16 @@ class Attention(nn.Module):
             persistent=False,
         )
 
-    def use_flash_decode(self, max_len: int) -> bool:
-        """Cached dispatch; "dense" and "lib_flash" stay dense."""
-        if self.static_mask is not None:
+    def use_flash_decode(
+        self, max_len: int, has_pattern: Optional[bool] = None, sparse: bool = False
+    ) -> bool:
+        """Cached dispatch, the reference's `_use_flash_decode`: pattern
+        layers stay dense unless the cache carries a policy bitmap (then
+        the block-sparse kernel reads them); "dense" and "lib_flash" stay
+        dense. `has_pattern` defaults to this layer's own static mask."""
+        if has_pattern is None:
+            has_pattern = self.static_mask is not None
+        if has_pattern and not sparse:
             return False
         if self.attn_impl == "flash":
             return True
@@ -132,9 +191,10 @@ class Attention(nn.Module):
         key_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x [B, n, dim]. With a cache: positions cache["index"]..+n-1; the
-        cache holds k/v [B, H, max_len, dim_head] and the Python int
-        `index`, all updated in place. Without: positions 0..n-1, with an
-        optional key-padding mask [B, n] (True = valid key)."""
+        cache holds k/v [B, H, max_len, dim_head] (int8 with k_scale/v_scale
+        [B, H, max_len]) and `index` (a Python int or a [B] tensor), all
+        updated in place. Without: positions 0..n-1, with an optional
+        key-padding mask [B, n] (True = valid key)."""
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         q, k, v = (
@@ -164,27 +224,72 @@ class Attention(nn.Module):
             mask = mask & key_mask[:, None, None, :].bool()
         return dense_attention(q, k, v, mask=mask, stable=self.stable)
 
+    def _pattern_rows(self, index, n: int, max_len: int) -> torch.Tensor:
+        """The static pattern's rows at the chunk's positions, cropped (or
+        True-padded) to the cache length: [1, 1, n, L], or [B, 1, n, L]
+        for a per-row index (the reference's `mask_rows_at`)."""
+        pm = self.static_mask
+        if pm.shape[0] < max_len:
+            pm = F.pad(pm, (0, max_len - pm.shape[0], 0, max_len - pm.shape[0]), value=True)
+        pm = pm[:, :max_len]
+        if torch.is_tensor(index):
+            return pm[_row_positions(index, n, pm.shape[0])][:, None]
+        return pm[index : index + n][None, None]
+
     def _attend_cached(self, q, k, v, cache, rotary):
         b, _, n, _ = q.shape
         index = cache["index"]
-        if rotary is not None:
-            rot = rotary[index : index + n][None, None]  # [1, 1, n, d_rot]
-            q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        per_row = torch.is_tensor(index)
         ck, cv = cache["k"], cache["v"]
-        ck[:, :, index : index + n] = k
-        cv[:, :, index : index + n] = v
         max_len = ck.shape[2]
-        if self.use_flash_decode(max_len):
-            lengths = torch.full((b,), index + n, dtype=torch.int32, device=q.device)
-            out = flash_decode_attention(q.contiguous(), ck, cv, lengths)
+        if rotary is not None:
+            if per_row:
+                rot = rotary[_row_positions(index, n, rotary.shape[0])][:, None]  # [B, 1, n, d_rot]
+            else:
+                rot = rotary[index : index + n][None, None]  # [1, 1, n, d_rot]
+            q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        # int8 cache: quantize after rotary (the cache holds what attention
+        # reads), per-(position, head) fp32 scales in sibling leaves; q
+        # stays in the model dtype
+        quant = "k_scale" in cache
+        scales = (None, None)
+        if quant:
+            k, k_sc = _kv_quantize(k)
+            v, v_sc = _kv_quantize(v)
+            scales = (cache["k_scale"], cache["v_scale"])
+            _cache_write(scales[0], k_sc, index)
+            _cache_write(scales[1], v_sc, index)
+        _cache_write(ck, k, index)
+        _cache_write(cv, v, index)
+        # a policy bitmap ([B, nb] int32, nonzero = the KV block may be
+        # read) supersedes the pattern masks on both arms and sends pattern
+        # layers to the block-sparse kernel
+        bitmap = cache.get("block_bitmap")
+        sparse = bitmap is not None
+        block = clamp_block_k(cache.get("sparse_block", DECODE_SPARSE_BLOCK), max_len)
+        if self.use_flash_decode(max_len, sparse=sparse):
+            if per_row:
+                lengths = (index + n).to(torch.int32)
+            else:
+                lengths = torch.full((b,), index + n, dtype=torch.int32, device=q.device)
+            if sparse:
+                out = block_sparse_flash_decode_attention(
+                    q.contiguous(), ck, cv, lengths, bitmap, block, *scales
+                )
+            else:
+                out = flash_decode_attention(q.contiguous(), ck, cv, lengths, *scales)
         else:
-            pos = torch.arange(max_len, device=q.device)
-            mask = pos[None, :] <= index + torch.arange(n, device=q.device)[:, None]
-            if self.static_mask is not None:
-                # rows index..index+n of the pattern; the masks are built at
-                # (or, block-sparse, above) the cache length, so cropping
-                # columns is all the reference's `mask_rows_at` padding does
-                mask = mask & self.static_mask[index : index + n, :max_len]
-            out = dense_attention(q, ck, cv, mask=mask[None, None], stable=self.stable)
+            gk, gv = ck, cv
+            if quant:
+                gk, gv = _kv_dequantize(ck, scales[0]), _kv_dequantize(cv, scales[1])
+            offsets = torch.arange(n, device=q.device)
+            qpos = index[:, None] + offsets if per_row else index + offsets  # [B, n] or [n]
+            mask = torch.arange(max_len, device=q.device) <= qpos[..., None]
+            mask = mask[:, None] if per_row else mask[None, None]  # [B or 1, 1, n, L]
+            if sparse:
+                mask = mask & expand_bitmap(bitmap, block, max_len)[:, None, None, :]
+            elif self.static_mask is not None:
+                mask = mask & self._pattern_rows(index, n, max_len)
+            out = dense_attention(q, gk, gv, mask=mask, stable=self.stable).to(q.dtype)
         cache["index"] = index + n
         return out

@@ -5,11 +5,12 @@ Counterpart of the JAX package's `models/dalle.py`: `DALLE.__call__` (the
 logits or the split text/image cross-entropy, forward and inverse
 objectives, the 3-token accuracy, the vocab-chunked `fused_ce` losses),
 `embed_text` (unique padding ids, <bos> = 0, null conditioning),
-`to_logits`, `decode_prefill`, `decode_image_step`, `init_decode_cache`
-and `generate_images_cached_batched` with the classifier-free-guidance
-blend. Random draws (null conditioning) come from an explicit
-`torch.Generator`, so they are not jax.random's bits; dropout uses
-torch's global generator.
+`to_logits`, `decode_prefill`, `decode_image_step`, `init_decode_cache`,
+`generate_images_cached_batched` with the classifier-free-guidance blend,
+and the continuous engine's slot ops (`init_slot_state`,
+`prefill_into_slots`, `release_slots`, `decode_image_chunk`). Random
+draws (null conditioning) come from an explicit `torch.Generator`, so
+they are not jax.random's bits; dropout uses torch's global generator.
 
 The port holds its weights in the module (the reference keeps them in a
 separate parameter tree; `weights.py` carries a tree across). A model's
@@ -27,10 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dalle_pytorch_tpu_torch.models.attention import DECODE_SPARSE_BLOCK
 from dalle_pytorch_tpu_torch.models.transformer import (
     LayerNorm,
     Transformer,
     make_decode_cache,
+    set_decode_cache_index,
 )
 from dalle_pytorch_tpu_torch.ops.losses import chunked_masked_ce, split_weighted_mean
 from dalle_pytorch_tpu_torch.ops.sampling import (
@@ -84,10 +87,15 @@ class DALLE(nn.Module):
         text_loss_coeff_inv: float = 7.0,
         img_loss_coeff_inv: float = 1.0,
         fused_ce: bool = False,
+        kv_dtype: Optional[str] = None,
+        decode_sparse_block: Optional[int] = None,
     ):
         """Arguments as the reference's fields. `img_loss_coeff` None takes
         `loss_img_weight`; `fused_ce` computes the loss without
-        materializing [B, N, V] logits (`ops/losses.py`)."""
+        materializing [B, N, V] logits (`ops/losses.py`). `kv_dtype="int8"`
+        gives decode caches an int8 K/V store; `decode_sparse_block` is the
+        KV block width of decode-sparsity bitmaps (None: the attention
+        module's DECODE_SPARSE_BLOCK)."""
         super().__init__()
         self.dim, self.depth = dim, depth
         self.heads, self.dim_head = heads, dim_head
@@ -109,6 +117,8 @@ class DALLE(nn.Module):
         self.text_loss_coeff_inv = text_loss_coeff_inv
         self.img_loss_coeff_inv = img_loss_coeff_inv
         self.fused_ce = fused_ce
+        self.kv_dtype = kv_dtype
+        self.decode_sparse_block = decode_sparse_block
 
         self.text_emb = nn.Embedding(self.total_text_tokens, dim)
         self.image_emb = nn.Embedding(num_image_tokens, dim)
@@ -329,21 +339,27 @@ class DALLE(nn.Module):
         out = self.transformer(tokens, cache)
         return self.to_logits(out[:, -1:])[:, 0].float(), cache
 
-    def decode_image_step(self, img_token: torch.Tensor, image_pos: int, cache: dict):
-        """Feed one image token at grid index `image_pos`; returns (logits
-        for the next position [B, V] float32, cache)."""
+    def decode_image_step(self, img_token: torch.Tensor, image_pos, cache: dict):
+        """Feed one image token at grid index `image_pos` (a Python int, or
+        a [B] tensor of per-row positions with a per-row cache); returns
+        (logits for the next position [B, V] float32, cache)."""
         emb = self.image_emb(img_token[:, None].long())
         if not self.rotary_emb:
-            p = min(max(int(image_pos), 0), self.image_seq_len - 1)
-            emb = emb + self.image_pos_emb()[p][None, None]
+            table = self.image_pos_emb()
+            if torch.is_tensor(image_pos):
+                rows = image_pos.to(torch.long).clamp(0, self.image_seq_len - 1)
+                emb = emb + table[rows][:, None]
+            else:
+                p = min(max(int(image_pos), 0), self.image_seq_len - 1)
+                emb = emb + table[p][None, None]
         out = self.transformer(emb, cache)
         return self.to_logits(out)[:, 0].float(), cache
 
 
-def init_decode_cache(model: DALLE, batch: int) -> dict:
+def init_decode_cache(model: DALLE, batch: int, per_row: bool = False) -> dict:
     """Fixed-shape cache of total_seq_len + 1 positions, in the model's
-    dtype and on its device (the final image token is fed too; its write
-    lands in the spare slot)."""
+    dtype (K/V in `model.kv_dtype` when set) and on its device (the final
+    image token is fed too; its write lands in the spare slot)."""
     return make_decode_cache(
         depth=model.depth,
         batch=batch,
@@ -355,6 +371,8 @@ def init_decode_cache(model: DALLE, batch: int) -> dict:
         shift_tokens=model.shift_tokens,
         dtype=model.dtype,
         device=model.text_emb.weight.device,
+        per_row=per_row,
+        kv_dtype=model.kv_dtype,
     )
 
 
@@ -403,3 +421,181 @@ def generate_images_cached_batched(
     if vae is None:
         return img_tokens
     return img_tokens, vae.decode(img_tokens)
+
+
+# ------------------------------------------------------ continuous batching
+#
+# Slot ops of the continuous engine (the reference's `init_slot_state`,
+# `prefill_into_slots`, `release_slots`, `decode_image_chunk`): one
+# persistent decode state of `max_batch` cache slots, each row at its own
+# position (the per-row cache index, token-shift ring slots, image position
+# and sampling parameters). A request's tokens are the same alone, padded
+# or admitted mid-flight, because every per-row quantity is threaded per
+# slot and row i's noise is keyed by (seed, image position) alone. The
+# state is updated in place: one copy of the slot cache stays alive.
+#
+# The state keeps host mirrors ("host") of each slot's image position,
+# liveness, seed and keep count, advanced by the same rules as the device
+# tensors: the noise keys and the top-k bound come from them, so a chunk
+# reads nothing back from the device.
+
+
+@torch.inference_mode()
+def init_slot_state(model: DALLE, max_batch: int) -> dict:
+    """Empty decode state for `max_batch` slots on the model's device.
+    Free slots hold zeros; `prefill_into_slots` overwrites an admitted
+    slot wholesale (every cache position), so nothing leaks between the
+    occupants of a slot, and `active` gates which rows advance."""
+    s = int(max_batch)
+    device = model.text_emb.weight.device
+    return {
+        "cache": init_decode_cache(model, s, per_row=True),
+        # pending next-position logits per slot: what the next sample draws
+        # from, written by prefill and refreshed every decode step
+        "row": torch.zeros((s, model.total_tokens), dtype=torch.float32, device=device),
+        "img_tokens": torch.zeros((s, model.image_seq_len), dtype=torch.int32, device=device),
+        "img_pos": torch.zeros(s, dtype=torch.int32, device=device),
+        "active": torch.zeros(s, dtype=torch.bool, device=device),
+        "temps": torch.ones(s, dtype=torch.float32, device=device),
+        "keep_k": torch.ones(s, dtype=torch.int32, device=device),
+        "host": {
+            "img_pos": np.zeros(s, np.int64),
+            "active": np.zeros(s, bool),
+            "seeds": np.zeros(s, np.int64),
+            "keep_k": np.ones(s, np.int64),
+        },
+    }
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor; to a card through pinned memory without
+    blocking the host (no synchronization inside a decode chunk)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _with_block_bitmap(cache: dict, bitmaps: torch.Tensor, model: DALLE) -> None:
+    """Put layer i's decode-sparsity bitmap bitmaps[i] ([B, nb] int32) and
+    the bitmap's block width into every layer's attention cache, in place."""
+    block = model.decode_sparse_block or DECODE_SPARSE_BLOCK
+    for i in range(model.depth):
+        attn = cache[f"layer_{i}"]["attn"]
+        attn["block_bitmap"] = bitmaps[i]
+        attn["sparse_block"] = block
+
+
+def _without_block_bitmap(cache: dict) -> None:
+    """Take the bitmap entries out again: the persistent slot state holds
+    none (the policy's tables are host state, made per dispatch)."""
+    for layer in cache.values():
+        layer["attn"].pop("block_bitmap", None)
+        layer["attn"].pop("sparse_block", None)
+
+
+@torch.inference_mode()
+def prefill_into_slots(
+    model: DALLE,
+    state: dict,
+    texts: np.ndarray,
+    slots: Sequence[int],
+    seeds: Sequence[int],
+    temperatures: Sequence[float],
+    keep_ks: Sequence[int],
+    block_bitmap: Optional[np.ndarray] = None,
+) -> dict:
+    """Admit R prompts (`texts` [R, text_seq_len]) into their slots in one
+    prefill at batch R — the same `decode_prefill` the micro engine runs,
+    so per-row numerics match it — then copy each row's K/V (+ scales),
+    token-shift rings, pending logits and sampling parameters into its
+    slot. Fewer real prompts than R are padded by repeating a real (slot,
+    prompt) row: the duplicates write the same slot with the same content.
+    `block_bitmap` ([depth, R, nb] int32, all ones from the policy) sends
+    the prefill through the block-sparse kernel. `index` leaves are not
+    copied: the chunk stamps them from `img_pos`. Returns `state`."""
+    device = state["row"].device
+    r = len(texts)
+    cache = init_decode_cache(model, r)
+    if block_bitmap is not None:
+        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
+    rows, cache = model.decode_prefill(_to_device(np.asarray(texts), device), cache)
+    idx = _to_device(np.asarray(slots, np.int64), device)
+    for name, layer in state["cache"].items():
+        src = cache[name]
+        for key, leaf in layer["attn"].items():
+            if key != "index":
+                leaf.index_copy_(0, idx, src["attn"][key])
+        for key in ("shift_attn", "shift_ff"):
+            if key in layer:
+                layer[key].index_copy_(0, idx, src[key])
+    state["row"].index_copy_(0, idx, rows)
+    state["img_tokens"].index_fill_(0, idx, 0)
+    state["img_pos"].index_fill_(0, idx, 0)
+    state["active"].index_fill_(0, idx, True)
+    state["temps"].index_copy_(0, idx, _to_device(np.asarray(temperatures, np.float32), device))
+    state["keep_k"].index_copy_(0, idx, _to_device(np.asarray(keep_ks, np.int32), device))
+    host = state["host"]
+    host["img_pos"][list(slots)] = 0
+    host["active"][list(slots)] = True
+    host["seeds"][list(slots)] = seeds
+    host["keep_k"][list(slots)] = keep_ks
+    return state
+
+
+@torch.inference_mode()
+def release_slots(state: dict, slots: Sequence[int]) -> dict:
+    """Deactivate `slots`: the chunk stops advancing them. Returns `state`."""
+    slots = list(slots)
+    if slots:
+        idx = _to_device(np.asarray(slots, np.int64), state["active"].device)
+        state["active"].index_fill_(0, idx, False)
+        state["host"]["active"][slots] = False
+    return state
+
+
+@torch.inference_mode()
+def decode_image_chunk(
+    model: DALLE, state: dict, chunk: int, block_bitmap: Optional[np.ndarray] = None
+) -> dict:
+    """Advance every live slot by up to `chunk` tokens.
+
+    Each step samples one token per live row from its pending logits
+    (noise keyed by the row's (seed, image position), its own temperature
+    and keep count), writes it at the row's image position and feeds it
+    through the transformer at the row's own cache position. Rows that
+    reach `image_seq_len` freeze (tokens, logits and position stop
+    advancing) until the host retires them; free slots compute along as
+    padding but keep nothing. `block_bitmap` ([depth, max_batch, nb] int32)
+    arms decode sparsity for the chunk. Launches work only: no device
+    value is read back. Returns `state`."""
+    text_len = model.text_seq_len + 1  # <bos> + text prefix
+    seq = model.image_seq_len
+    host = state["host"]
+    cache = state["cache"]
+    device = state["row"].device
+    blocked = (torch.arange(model.total_tokens, device=device) < model.total_text_tokens)[None]
+    k_max = int(host["keep_k"].max())
+    seeds = [int(s) for s in host["seeds"]]
+    if block_bitmap is not None:
+        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
+    try:
+        for _ in range(int(chunk)):
+            img_pos = state["img_pos"]
+            live = state["active"] & (img_pos < seq)
+            masked = state["row"].masked_fill(blocked, NEG_MASK_VALUE)
+            filtered = top_k_filter_per_row(masked, state["keep_k"], k_max=k_max)
+            noise = gumbel_noise(seeds, [int(p) for p in host["img_pos"]], model.total_tokens, device)
+            sample = gumbel_sample_per_row(filtered, state["temps"], noise) - model.total_text_tokens
+            col = img_pos.to(torch.long).clamp(0, seq - 1)[:, None]
+            written = state["img_tokens"].scatter(1, col, sample[:, None].to(torch.int32))
+            state["img_tokens"] = torch.where(live[:, None], written, state["img_tokens"])
+            set_decode_cache_index(cache, img_pos + text_len)
+            new_row, _ = model.decode_image_step(sample, img_pos, cache)
+            state["row"] = torch.where(live[:, None], new_row, state["row"])
+            state["img_pos"] = torch.where(live, img_pos + 1, img_pos)
+            host["img_pos"] += host["active"] & (host["img_pos"] < seq)
+    finally:
+        if block_bitmap is not None:
+            _without_block_bitmap(cache)
+    return state

@@ -20,8 +20,9 @@ Parity notes: flax's `nn.gelu` is the tanh approximation and flax's
 LayerNorm uses eps 1e-6 and normalizes in float32.
 
 The decode cache mirrors the reference's tree — {"layer_{i}": {"attn":
-{"k", "v", "index"}, "shift_attn", "shift_ff"}} — with the index a
-Python int; it is updated in place.
+{"k", "v", "index"[, "k_scale", "v_scale"]}, "shift_attn", "shift_ff"}}
+— with the index a Python int, or a [B] tensor for per-row slots; it is
+updated in place.
 """
 
 from __future__ import annotations
@@ -279,6 +280,17 @@ class Transformer(nn.Module):
         return x
 
 
+def _kv_store_dtype(dtype, kv_dtype):
+    """(K/V storage dtype, has scale leaves) for a cache request: None keeps
+    K/V in the cache dtype with no scale leaves; "int8" stores them
+    quantized beside fp32 per-(position, head) scales."""
+    if kv_dtype is None:
+        return dtype, False
+    if str(kv_dtype) != "int8":
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
+    return torch.int8, True
+
+
 def make_decode_cache(
     depth: int,
     batch: int,
@@ -290,17 +302,31 @@ def make_decode_cache(
     shift_tokens: bool = False,
     dtype=torch.float32,
     device="cpu",
+    per_row: bool = False,
+    kv_dtype=None,
 ) -> dict:
-    """Fixed-shape decode cache for the unrolled executor, zero-filled."""
+    """Fixed-shape decode cache for the unrolled executor, zero-filled.
+
+    `per_row=True` makes each layer's `index` a [batch] int32 tensor, each
+    row at its own position (the continuous engine's slot cache); else it
+    is the Python int 0. `kv_dtype="int8"` stores K/V as int8 with fp32
+    `k_scale`/`v_scale` leaves [batch, heads, max_len]; shift rings stay
+    in `dtype`.
+    """
+    kv_dt, scaled = _kv_store_dtype(dtype, kv_dtype)
     cache = {}
     for i in range(depth):
-        layer = {
-            "attn": {
-                "k": torch.zeros((batch, heads, max_len, dim_head), dtype=dtype, device=device),
-                "v": torch.zeros((batch, heads, max_len, dim_head), dtype=dtype, device=device),
-                "index": 0,
-            }
+        attn = {
+            "k": torch.zeros((batch, heads, max_len, dim_head), dtype=kv_dt, device=device),
+            "v": torch.zeros((batch, heads, max_len, dim_head), dtype=kv_dt, device=device),
+            "index": torch.zeros(batch, dtype=torch.int32, device=device) if per_row else 0,
         }
+        if scaled:
+            for name in ("k_scale", "v_scale"):
+                attn[name] = torch.zeros(
+                    (batch, heads, max_len), dtype=torch.float32, device=device
+                )
+        layer = {"attn": attn}
         if shift_tokens:
             for name in ("shift_attn", "shift_ff"):
                 layer[name] = torch.zeros(
@@ -308,3 +334,14 @@ def make_decode_cache(
                 )
         cache[f"layer_{i}"] = layer
     return cache
+
+
+def set_decode_cache_index(cache: dict, pos: torch.Tensor) -> None:
+    """Stamp every layer's cache `index` with the [B] positions `pos`, in
+    place. Layers advance in lockstep, so their indices are copies of one
+    position; the continuous chunk loop keeps it as per-slot state and
+    stamps it before each step, which also keeps retired and free slots
+    where they are."""
+    pos = pos.to(torch.int32)
+    for layer in cache.values():
+        layer["attn"]["index"] = pos

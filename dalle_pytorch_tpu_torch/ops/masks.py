@@ -6,7 +6,8 @@ padded_seq = text_len + image_fmap_size**2, where text_len counts <bos>.
 The cached dense attention path row-slices them at the decode position;
 the uncached flash path analyses them into tile layouts
 (`mask_block_layout`, the JAX package's `ops/pallas_attention.py`
-function of that name).
+function of that name); the decode-sparsity policy reduces them to KV-tile
+bitmaps (`mask_to_block_bitmap`).
 """
 
 from __future__ import annotations
@@ -110,6 +111,38 @@ def block_layout_to_token_mask(layout: np.ndarray, block: int, causal: bool = Tr
     if causal:
         mask &= causal_mask(mask.shape[0])
     return mask
+
+
+def mask_to_block_bitmap(
+    mask: np.ndarray,
+    block: int,
+    n_blocks: int | None = None,
+    always_live: int = 0,
+) -> np.ndarray:
+    """Reduce a token-level allowed mask to per-query-row KV-tile liveness:
+    bitmap[i, j] says whether query row i may read any position of KV tile
+    j (positions [j*block, (j+1)*block)), the decode-time contract of the
+    block-sparse flash-decode kernel. Conservative by construction: a tile
+    with one allowed key is read whole, and the kernel's causal/length
+    mask trims the rest.
+
+    `n_blocks` widens (False-pads) or crops the tile axis to the serving
+    cache's ceil(max_len / block); `always_live` forces the first tiles
+    covering that many key positions live (<bos> + text, which every
+    decode policy keeps resident).
+    """
+    t_q, t_k = mask.shape
+    if n_blocks is None:
+        n_blocks = -(-t_k // block)
+    out = np.zeros((t_q, n_blocks), dtype=bool)
+    for j in range(n_blocks):
+        lo = j * block
+        if lo >= t_k:
+            break
+        out[:, j] = mask[:, lo : min(lo + block, t_k)].any(axis=1)
+    if always_live > 0:
+        out[:, : -(-min(always_live, n_blocks * block) // block)] = True
+    return out
 
 
 def mask_block_layout(mask: np.ndarray, block_q: int, block_k: int):

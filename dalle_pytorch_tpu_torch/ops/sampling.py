@@ -15,7 +15,7 @@ through `noise=`.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
@@ -47,13 +47,18 @@ def noise_seed(seed: int, position: int) -> int:
     return x ^ (x >> 31)
 
 
-def gumbel_noise(seeds: Sequence[int], position: int, vocab: int, device) -> torch.Tensor:
-    """[len(seeds), vocab] float32 Gumbel noise, row i keyed by
-    (seeds[i], position)."""
+def gumbel_noise(
+    seeds: Sequence[int], positions: Union[int, Sequence[int]], vocab: int, device
+) -> torch.Tensor:
+    """[len(seeds), vocab] float32 Gumbel noise, row i keyed by (seeds[i],
+    positions[i]); one int `positions` puts every row at that position
+    (the reference's `per_row_step_keys`)."""
+    if isinstance(positions, int):
+        positions = [positions] * len(seeds)
     generator = torch.Generator(device=device)
     rows = []
-    for s in seeds:
-        generator.manual_seed(noise_seed(s, position))
+    for s, p in zip(seeds, positions):
+        generator.manual_seed(noise_seed(s, p))
         rows.append(
             torch.rand(vocab, generator=generator, device=device, dtype=torch.float32)
         )

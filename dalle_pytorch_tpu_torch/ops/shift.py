@@ -9,9 +9,11 @@ their second quarter from one column left.
 Cached decode keeps a ring of the last `image_fmap_size` pre-shift token
 vectors, indexed by position mod fmap: the slot about to be overwritten
 at position p holds h[p - fmap] (one grid row up) and slot (p-1) mod fmap
-holds h[p-1]. Here the decode position is a Python int (the micro-batch
-decode runs every row in lockstep), so branches on it are host-side, and
-`shift_token_step` updates the ring in place.
+holds h[p-1]. The decode position is a Python int (the micro-batch
+decode runs every row in lockstep; branches on it are host-side) or a [B]
+tensor (the continuous engine's slots, each row reading and writing its
+own ring slots; branches become selects). `shift_token_step` updates the
+ring in place.
 """
 
 from __future__ import annotations
@@ -63,10 +65,13 @@ def shift_token_step(
 ):
     """One-token shift at global position `pos` against the ring.
 
-    h: [B, 1, D] pre-shift value of the token at `pos`. Returns
-    (shifted [B, 1, D], ring); the ring is updated in place (slot
-    pos mod fmap now holds h), which saves a copy of it per layer-step.
+    h: [B, 1, D] pre-shift value of the token at `pos`, a Python int or a
+    [B] tensor of per-row positions. Returns (shifted [B, 1, D], ring); the
+    ring is updated in place (slot pos mod fmap now holds h), which saves a
+    copy of it per layer-step.
     """
+    if torch.is_tensor(pos):
+        return _shift_token_step_per_row(h, ring, pos, text_len, fmap)
     d = h.shape[-1]
     half, q = d // 2, d // 4
     cur = h[:, 0]
@@ -83,4 +88,27 @@ def shift_token_step(
         left = prev[:, q : 2 * q] if i % fmap else torch.zeros_like(prev[:, q : 2 * q])
         out = torch.cat([top, left, cur[:, 2 * q :]], dim=-1)
     ring[:, pos % fmap] = cur  # after the reads above: `up` aliases this slot
+    return out[:, None], ring
+
+
+def _shift_token_step_per_row(h, ring, pos, text_len: int, fmap: int):
+    """`shift_token_step` with each row at its own position pos[b]."""
+    d = h.shape[-1]
+    half, q = d // 2, d // 4
+    cur = h[:, 0]
+    rows = torch.arange(h.shape[0], device=h.device)
+    pos = pos.to(torch.long)
+    prev = ring[rows, (pos - 1) % fmap]
+    up = ring[rows, pos % fmap]
+    posb = pos[:, None]
+    first = torch.where(posb > 0, prev[:, :half], torch.zeros_like(prev[:, :half]))
+    text_shift = torch.cat([first, cur[:, half:]], dim=-1)
+    i = posb - text_len
+    top = torch.where(i >= fmap, up[:, :q], torch.zeros_like(up[:, :q]))
+    left = torch.where(
+        i % fmap != 0, prev[:, q : 2 * q], torch.zeros_like(prev[:, q : 2 * q])
+    )
+    img_shift = torch.cat([top, left, cur[:, 2 * q :]], dim=-1)
+    out = torch.where(posb < text_len, text_shift, img_shift)
+    ring[rows, pos % fmap] = cur  # after the reads above: `up` was copied out
     return out[:, None], ring
