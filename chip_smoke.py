@@ -37,15 +37,29 @@ Phases, each failing loudly (nonzero exit, no result line):
 7. the continuous-serving path: phase 5's model behind a `ContinuousEngine`
    (4 slots, prefill waves of 4, chunks of 4 tokens) driven by the
    `ContinuousBatcher` with phase 5's four prompts, two of them admitted
-   mid-flight, four times: causal (tokens identical to phase 5's, one
-   chunk run under CUDA's sync-debug "error" mode), int8 KV, policy
-   sparsity (tokens identical again), and policy + int8 on a model whose
-   layers cycle full / axial_row / axial_col / conv_like; each run's
-   kernel launches counted exactly.
+   mid-flight: causal (tokens identical to phase 5's, one chunk run under
+   CUDA's sync-debug "error" mode); on the model's first 4 layers (a
+   depth cut that holds the script's time) causal, int8 KV and policy
+   sparsity (tokens identical to that causal run); and policy + int8 on
+   a model whose layers cycle full / axial_row / axial_col / conv_like;
+   each run's kernel launches counted exactly;
+8. the paged-serving path: phase 5's model behind a `PagedContinuousEngine`
+   (4 slots, page 32, prefill waves of 4, chunks of 4) and the
+   `ContinuousBatcher`, with phase 7's four requests and repeats of the
+   first two (full-prompt prefix hits, no prefill dispatch), three times:
+   the gather impl (tokens identical to phase 7's causal run), the paged
+   kernel with a pool of two rows' worst case beside the prefix cache
+   (the batcher holds requests back; tokens identical again; one chunk
+   under sync-debug "error"), and the block-sparse paged kernel's int8 arm
+   under policy + int8 on phase 7's patterned model (tokens identical to
+   phase 7's run of it); launches counted exactly, `leak_check()` empty.
 
-Phases 2 and 3 also hold and time the int8 arm of flash decode and the
+Phases 2 and 3 also hold and time the int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
-random and policy bitmaps, poisoned dead tiles).
+random and policy bitmaps, poisoned dead tiles) and the two paged kernels
+(page sizes 16-128, shuffled tables sharing pages, NaN-poisoned pools;
+bit for bit the all-ones page bitmap against the paged kernel, and each
+paged kernel against its contiguous twin on the gathered view).
 
 The line before the last is the card's nvidia-smi line, the one before
 that a JSON object of the kernels; the last line is
@@ -416,6 +430,222 @@ def time_decode_variants(torch, F, peaks, smi, cases):
     return rows
 
 
+# ------------------------------------------------------------ paged kernels
+
+PAGE = 32  # the paged engine's page size
+PAGE_SIZES = (16, 32, 64, 128)
+PAGED_POOL = 206  # the flagship paged engine's default pool: 4 x 41 + 1 + 41
+
+
+def paged_case(torch, b, h, n, d, page, lengths, dtype, vlen, seed, n_pool=None):
+    """(q, k_pages, v_pages, lengths, table, live) on the card: a pool of
+    random pages (page 0, the garbage page, included), each row's blocks
+    at shuffled pages, rows 1 and 2 sharing row 0's first pages; `live`
+    [P, page] marks the (page, offset) slots some row can see."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = -(-vlen // page)
+    n_pool = n_pool or 1 + b * n_pages
+    perm = torch.randperm(n_pool - 1, generator=g, device="cuda")[: b * n_pages] + 1
+    table = perm.view(b, n_pages).to(torch.int32)
+    share = min(2, n_pages)
+    table[1:3, :share] = table[0, :share]
+    q = torch.randn((b, h, n, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((n_pool, h, page, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, lens, table, paged_live(torch, table, lengths, page, n_pool)
+
+
+def paged_live(torch, table, lengths, page, n_pool, page_bitmap=None):
+    """[P, page] bool: (page, offset) slots visible to some row, through
+    its table, under its length and (when given) its page bitmap."""
+    live = torch.zeros((n_pool, page), dtype=torch.bool)
+    rows = table.tolist()
+    for b, length in enumerate(lengths):
+        for j in range(-(-length // page)):
+            if page_bitmap is None or page_bitmap[b][j]:
+                live[rows[b][j], : min(page, length - j * page)] = True
+    return live.to("cuda")
+
+
+def poisoned(torch, kk, vv, sc, live):
+    """The pool with NaN in every slot `live` leaves out (in the scales of
+    an int8 pool, whose values hold no NaN)."""
+    dead = ~live[:, None, :]
+    if sc:
+        return kk, vv, tuple(t.masked_fill(dead, float("nan")) for t in sc)
+    return kk.masked_fill(dead[..., None], float("nan")), vv.masked_fill(dead[..., None], float("nan")), ()
+
+
+def check_paged_variants(torch):
+    """Phase 2 for kernels 4 and 5 (both arms, bf16 and fp32): against the
+    plain versions; bit for bit, the all-ones page bitmap against kernel
+    4, kernel 4 against kernel 1 on the `paged_gather` view and kernel 5
+    against kernel 3 on that view at block_k = page; and a pool poisoned
+    with NaN everywhere no row may read (page 0, unmapped pages, pages
+    past each row's last, tails of live pages past the length, dead
+    pages) giving finite, unchanged outputs. Returns ({kernel: worst bf16
+    max_abs_err}, {identity: cases held})."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst = {"paged_flash_decode": 0.0, "block_sparse_paged_flash_decode": 0.0}
+    held = {"all-ones page bitmap vs kernel 4": 0, "kernel 4 vs kernel 1 on the gathered view": 0,
+            "kernel 5 vs kernel 3 on the gathered view": 0, "poisoned pool unchanged": 0}
+    failures = []
+
+    def hold(kernel, label, out, ref, dtype):
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = decode_tol(torch, ref, dtype)
+        if not (err <= tol and torch.isfinite(out).all()):
+            failures.append(f"{kernel} {label}: {err:.3e} over {tol:.3e}")
+        if dtype == torch.bfloat16:
+            worst[kernel] = max(worst[kernel], err)
+        return err
+
+    def same(name, label, a, b):
+        ok = torch.equal(a, b) and bool(torch.isfinite(a).all())
+        if ok:
+            held[name] += 1
+        else:
+            failures.append(f"{label}: {name} failed (max_abs_err "
+                            f"{(a.float() - b.float()).abs().max().item():.1e})")
+
+    cases = [(4, 16, 1, 64, 1281, [257, 700, 1024, 1281])]  # the flagship step
+    cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 128)]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for b, h, n, d, vlen, lengths in cases:
+        for page in PAGE_SIZES:
+            n_pages = -(-vlen // page)
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, lens, table, live = paged_case(torch, b, h, n, d, page, lengths, dtype, vlen, SEED + page + d)
+                kq, vq, ks, vs = quantized(torch, k, v)
+                bm = (torch.rand((b, n_pages), generator=g, device="cuda") < 0.5).to(torch.int32)
+                bm[:, : min(2, n_pages)] = 1  # the shared pages stay live
+                sparse_live = paged_live(torch, table, lengths, page, k.shape[0], bm.tolist())
+                errs = []
+                for arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
+                    label = f"D={d} n={n} page={page} {str(dtype)[6:]}{arm}"
+                    out4 = fd.paged_flash_decode_attention(q, kk, vv, lens, table, *sc)
+                    errs.append(hold("paged_flash_decode", label, out4,
+                                     fd.paged_flash_decode_attention_plain(q, kk, vv, lens, table, *sc), dtype))
+                    out5 = fd.block_sparse_paged_flash_decode_attention(q, kk, vv, lens, table, bm, *sc)
+                    errs.append(hold("block_sparse_paged_flash_decode", label, out5,
+                                     fd.block_sparse_paged_flash_decode_attention_plain(
+                                         q, kk, vv, lens, table, bm, *sc), dtype))
+                    ones = torch.ones_like(bm)
+                    same("all-ones page bitmap vs kernel 4", label,
+                         fd.block_sparse_paged_flash_decode_attention(q, kk, vv, lens, table, ones, *sc), out4)
+                    kg, vg = fd.paged_gather(kk, table, vlen), fd.paged_gather(vv, table, vlen)
+                    scg = tuple(fd.paged_gather(t, table, vlen) for t in sc)
+                    same("kernel 4 vs kernel 1 on the gathered view", label,
+                         out4, fd.flash_decode_attention(q, kg, vg, lens, *scg))
+                    same("kernel 5 vs kernel 3 on the gathered view", label,
+                         out5, fd.block_sparse_flash_decode_attention(q, kg, vg, lens, bm, page, *scg))
+                    pk, pv, psc = poisoned(torch, kk, vv, sc, live)
+                    same("poisoned pool unchanged", label + " causal",
+                         fd.paged_flash_decode_attention(q, pk, pv, lens, table, *psc), out4)
+                    pk, pv, psc = poisoned(torch, kk, vv, sc, sparse_live)
+                    same("poisoned pool unchanged", label + " sparse",
+                         fd.block_sparse_paged_flash_decode_attention(q, pk, pv, lens, table, bm, *psc), out5)
+                print(f"check paged D={d} n={n} page={page} {str(dtype)[6:]} lengths={lengths}: "
+                      f"max_abs_err kernel 4 / 5, plain and int8: " + ", ".join(f"{e:.2e}" for e in errs))
+    torch.cuda.synchronize()
+    print("check paged bit identities (cases held): " + json.dumps(held))
+    if failures:
+        fail("paged kernels: " + "; ".join(failures[:10]))
+    return worst, held
+
+
+def paged_bound(lengths, page, visible, peaks):
+    """(bound_ms, bound_by) of one paged step (n = 1) at MAIN's widths in
+    bf16: q read and out written, the `visible` K/V positions read once,
+    the table entries of the pages they lie on, lengths; 4*D flops per
+    visible key."""
+    b, h, d = MAIN["batch"], MAIN["heads"], MAIN["dim_head"]
+    table = sum(-(-x // page) for x in lengths) * 4
+    nbytes = 2 * b * h * d * 2 + h * 2 * d * 2 * visible + table + 4 * b
+    flops = 4 * d * h * visible
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_paged_variants(torch, F, peaks, smi, cases):
+    """Phase 3 for kernels 4 and 5 at the flagship step in bf16 (n = 1, B
+    = 4, H = 16, D = 64, page 32, a shuffled 206-page pool, LAYERS copies
+    rotating): kernel, plain, library (SDPA over the cache gathered
+    beforehand, the gather not timed) and the reference-default gather
+    impl (paged_gather + kernel 1); kernel 5 with the axial_row policy's
+    bitmap re-expanded to pages."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    n, lengths = cases["step"]
+    vlen = MAIN["cache"]
+    sets = [paged_case(torch, MAIN["batch"], MAIN["heads"], n, MAIN["dim_head"], PAGE, lengths,
+                       torch.bfloat16, vlen, SEED + i, n_pool=PAGED_POOL)[:5] for i in range(LAYERS)]
+    gathered = [(q, fd.paged_gather(k, t, vlen), fd.paged_gather(v, t, vlen), lens) for q, k, v, lens, t in sets]
+    int8_sets = []
+    for q, k, v, lens, t in sets:
+        kq, vq, ks, vs = quantized(torch, k, v)
+        int8_sets.append((q, kq, vq, lens, t, ks, vs))
+
+    def library(q, k, v, lens, kv_live=None):
+        mask = torch.arange(vlen, device="cuda")[None, :] < lens.long()[:, None]
+        if kv_live is not None:
+            mask = mask & kv_live
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None])
+
+    def gather_impl(q, k, v, lens, t, *rest):
+        return fd.paged_decode_attention(q, k, v, lens, t, vlen, "gather", *rest)
+
+    iters = 40 * LAYERS
+    rows = {}
+    row = dict(
+        ms=time_ms(torch, fd.paged_flash_decode_attention, sets, iters),
+        plain_ms=time_ms(torch, fd.paged_flash_decode_attention_plain, sets, iters),
+        library_ms=time_ms(torch, library, gathered, iters),
+    )
+    live = sum(lengths)
+    row["bound_ms"], row["bound_by"] = paged_bound(lengths, PAGE, live, peaks)
+    extra = dict(
+        gather_impl_ms=time_ms(torch, gather_impl, sets, iters),
+        kernel1_on_gathered_ms=time_ms(torch, fd.flash_decode_attention, gathered, iters),
+        int8_ms=time_ms(torch, fd.paged_flash_decode_attention, int8_sets, iters),
+        int8_gather_impl_ms=time_ms(torch, gather_impl, int8_sets, iters),
+    )
+    rows["paged_flash_decode"] = row
+    print("time " + json.dumps(dict(
+        kernel="paged_flash_decode", case="step", dtype="bf16", page=PAGE, pool_pages=PAGED_POOL,
+        lengths=lengths, library="SDPA over the cache gathered beforehand (gather not timed)",
+        card=smi, **row, **extra)))
+
+    positions = [x - (FLAGSHIP["text_seq_len"] + 1) - 1 for x in lengths]
+    n_pages = -(-vlen // PAGE)
+    bm = fd.page_bitmap(torch.tensor(policy_bitmaps(("axial_row",), positions)[0], device="cuda"),
+                        128, PAGE, n_pages)
+    kv_live = fd.expand_bitmap(bm, PAGE, vlen)
+    sparse_in = [(q, k, v, lens, t, bm) for q, k, v, lens, t in sets]
+    visible = int((kv_live & (torch.arange(vlen, device="cuda")[None, :]
+                              < torch.tensor(lengths, device="cuda")[:, None])).sum())
+    row = dict(
+        ms=time_ms(torch, fd.block_sparse_paged_flash_decode_attention, sparse_in, iters),
+        plain_ms=time_ms(torch, fd.block_sparse_paged_flash_decode_attention_plain, sparse_in, iters),
+        library_ms=time_ms(torch, library, [g + (kv_live,) for g in gathered], iters),
+    )
+    row["bound_ms"], row["bound_by"] = paged_bound(lengths, PAGE, visible, peaks)
+    sparse_int8 = [(q, kq, vq, lens, t, bm, ks, vs) for q, kq, vq, lens, t, ks, vs in int8_sets]
+    extra = dict(
+        int8_ms=time_ms(torch, fd.block_sparse_paged_flash_decode_attention, sparse_int8, iters),
+        kernel4_same_inputs_ms=rows["paged_flash_decode"]["ms"],
+    )
+    rows["block_sparse_paged_flash_decode"] = row
+    print("time " + json.dumps(dict(
+        kernel="block_sparse_paged_flash_decode", case="step", dtype="bf16", page=PAGE,
+        bitmap="axial_row policy at image positions " + str(positions) + ", re-expanded to pages",
+        live_positions=visible, length_skip_positions=live,
+        library="SDPA with the page-expanded mask over the cache gathered beforehand",
+        card=smi, **row, **extra)))
+    return rows
+
+
 PROMPTS = (
     "a red apple on a wooden table",
     "a lighthouse on a cliff at dusk",
@@ -781,7 +1011,7 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     batcher.shutdown()
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
     chunks, waves = engine.stats.chunks, engine.stats.prefill_dispatches
-    expected = LAYERS * (CONTINUOUS["chunk_tokens"] * chunks + waves)
+    expected = engine.model.depth * (CONTINUOUS["chunk_tokens"] * chunks + waves)
     toks = np.concatenate([o[0] for o in outs])
     pixels = np.concatenate([o[1] for o in outs])
     print("continuous " + json.dumps(dict(
@@ -798,8 +1028,25 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     return engine, toks, pixels, launches, expected
 
 
+SHORT_DEPTH = 4  # phase 7's int8 and policy runs: depth cut to hold the script's time
+
+
+def first_layers(torch, model, depth):
+    """A DALLE of `depth` layers on the card holding `model`'s embeddings,
+    head and first `depth` layers (bfloat16, eval)."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    with torch.device("cuda"):
+        short = DALLE(**{**FLAGSHIP, "depth": depth})
+    own = short.state_dict()
+    short.load_state_dict({k: v for k, v in model.state_dict().items() if k in own})
+    return short.to(torch.bfloat16).eval()
+
+
 def run_continuous(torch, model, vae, specs, micro_tokens):
-    """Phase 7: the four runs. Returns {kernel: launches on its run}."""
+    """Phase 7: the four runs. Returns ({kernel: launches on its run}, the
+    causal run's tokens, the patterned model and its policy + int8
+    tokens)."""
     import copy
 
     import numpy as np
@@ -837,31 +1084,40 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
     del engine
     out = {}
 
-    # 2. int8 KV
+    # 2-3. int8 KV and policy on the model's first SHORT_DEPTH layers, held
+    # against a causal run of that model
+    short = first_layers(torch, model, SHORT_DEPTH)
+    engine, toks_short, _, _, _ = serve_continuous(
+        torch, short, vae, specs, f"causal depth {SHORT_DEPTH}")
+    short_bytes = engine.kv_bytes_per_slot()
+    del engine
     engine, toks2, _, launches, expected = serve_continuous(
-        torch, model, vae, specs, "int8", kv_dtype="int8")
+        torch, short, vae, specs, f"int8 depth {SHORT_DEPTH}", kv_dtype="int8")
     only(launches, "flash_decode_int8", expected, "int8")
-    ratio = engine.kv_bytes_per_slot() / causal_bytes
+    ratio = engine.kv_bytes_per_slot() / short_bytes
     d = FLAGSHIP["dim_head"]
     expected_ratio = (d + 4) / (2 * d)  # int8 values + an fp32 scale vs bf16 values
-    print(f"check continuous int8: token agreement with the causal run "
-          f"{(toks2 == toks1).mean():.4f}; kv_bytes_per_slot {engine.kv_bytes_per_slot()} vs "
-          f"{causal_bytes} = {ratio:.4f} (expected ({d} + 4) / {2 * d} = {expected_ratio:.4f})")
+    print(f"check continuous int8: token agreement with the causal run of its model "
+          f"{(toks2 == toks_short).mean():.4f}; kv_bytes_per_slot {engine.kv_bytes_per_slot()} "
+          f"vs {short_bytes} = {ratio:.4f} (expected ({d} + 4) / {2 * d} = {expected_ratio:.4f})")
     if abs(ratio - expected_ratio) > 1e-3:
         fail(f"int8 kv_bytes_per_slot ratio {ratio}")
+    if causal_bytes != short_bytes * LAYERS // SHORT_DEPTH:
+        fail(f"kv_bytes_per_slot {causal_bytes} at depth {LAYERS} vs {short_bytes} at {SHORT_DEPTH}")
     out["flash_decode_int8"] = launches["flash_decode_int8"]
     del engine
 
-    # 3. policy on the unpatterned flagship: all-ones bitmaps, same bits
+    # 3. policy on the unpatterned model: all-ones bitmaps, same bits
     engine, toks3, _, launches, expected = serve_continuous(
-        torch, model, vae, specs, "policy", decode_sparsity="policy")
-    same = np.array_equal(toks3, toks1)
-    print(f"check continuous policy (all full layers) tokens identical to the causal run: {same}")
+        torch, short, vae, specs, f"policy depth {SHORT_DEPTH}", decode_sparsity="policy")
+    same = np.array_equal(toks3, toks_short)
+    print(f"check continuous policy (all full layers) tokens identical to the causal run of "
+          f"its model: {same}")
     if not same:
         fail("policy sparsity on full layers changed the tokens")
     only(launches, "block_sparse_flash_decode", expected, "policy")
     out["block_sparse_flash_decode"] = launches["block_sparse_flash_decode"]
-    del engine
+    del engine, short
 
     # 4. policy + int8 on the patterned flagship
     torch.manual_seed(SEED)
@@ -884,6 +1140,165 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
           f"{detail['kv_tiles_read']}, skipped {detail['kv_tiles_skipped']} "
           f"({detail['kv_tiles_skipped'] / (detail['kv_tiles_read'] + detail['kv_tiles_skipped']):.3f})")
     out["block_sparse_flash_decode_int8"] = launches["block_sparse_flash_decode_int8"]
+    return out, toks1, patterned, toks4
+
+
+DECODE_COUNTERS = {
+    "flash_decode": ("flash_decode_attention", "launches"),
+    "flash_decode_int8": ("flash_decode_attention", "int8_launches"),
+    "block_sparse_flash_decode": ("block_sparse_flash_decode_attention", "launches"),
+    "block_sparse_flash_decode_int8": ("block_sparse_flash_decode_attention", "int8_launches"),
+    "paged_flash_decode": ("paged_flash_decode_attention", "launches"),
+    "paged_flash_decode_int8": ("paged_flash_decode_attention", "int8_launches"),
+    "block_sparse_paged_flash_decode": ("block_sparse_paged_flash_decode_attention", "launches"),
+    "block_sparse_paged_flash_decode_int8": ("block_sparse_paged_flash_decode_attention", "int8_launches"),
+}
+
+
+def serve_paged(torch, model, vae, specs, label, **options):
+    """Phase 8, one run: a warmed PagedContinuousEngine (page 32) over
+    `model` behind the ContinuousBatcher; the first two prompts are
+    submitted, then once 8 chunks have run the other two and repeats of
+    the first two with their seeds (full-prompt prefix hits). Returns
+    (engine, tokens [6, 1024], {kernel: launches}, admission record)."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.serving.batcher import ContinuousBatcher
+    from dalle_pytorch_tpu_torch.serving.engine import PagedContinuousEngine
+
+    engine = PagedContinuousEngine(
+        model, vae, **CONTINUOUS, page_size=PAGE, tokenizer=ByteTokenizer(), device="cuda", **options
+    )
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    for fn, attr in DECODE_COUNTERS.values():
+        setattr(getattr(fd, fn), attr, 0)
+    waves = []  # per prefill_slots call: its admission stats and the rows live after it
+    admit = engine.prefill_slots
+
+    def recording(assignments):
+        admit(assignments)
+        waves.append(dict(engine.last_admission_stats,
+                          live_rows=int(engine._state["host"]["active"].sum())))
+
+    engine.prefill_slots = recording
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(engine)
+    t0 = time.perf_counter()
+    reqs = [batcher.submit([sp]) for sp in specs[:2]]
+    while engine.stats.chunks < 8 and not all(r.future.done() for r in reqs):
+        time.sleep(0.002)
+    reqs += [batcher.submit([sp]) for sp in specs[2:] + specs[:2]]
+    outs = [r.future.result(900) for r in reqs]
+    wall = time.perf_counter() - t0
+    batcher.shutdown()
+    launches = {name: getattr(getattr(fd, fn), attr) for name, (fn, attr) in DECODE_COUNTERS.items()}
+    toks = np.concatenate([o[0] for o in outs])
+    pixels = np.concatenate([o[1] for o in outs])
+    detail = engine.kv_detail()
+    chunks = engine.stats.chunks
+    print("paged " + json.dumps(dict(
+        run=label, wall_s=wall, images_per_s=len(reqs) / wall, warmup_s=warm_s, chunks=chunks,
+        ms_per_chunk=1e3 * wall / chunks, prefill_dispatches=engine.stats.prefill_dispatches,
+        waves=waves, launches={k: n for k, n in launches.items() if n},
+        kv_bytes_per_page=engine.kv_page_bytes(), kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+        kv_pages=engine.kv_pages, peak_pages_allocated=engine.kv.pool.peak_allocated,
+        pages=detail, sparsity=engine.sparsity_detail(),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )))
+    if toks.shape != (6, 1024) or toks.min() < 0 or toks.max() >= 8192:
+        fail(f"paged {label}: tokens out of range or shape {toks.shape}")
+    if pixels.shape != (6, 256, 256, 3) or not math.isfinite(float(pixels.sum())):
+        fail(f"paged {label}: pixels not finite or shape {pixels.shape}")
+    return engine, toks, launches, waves
+
+
+def check_paged_run(engine, toks, launches, waves, label, kernel, decode_kernel, reference):
+    """Phase 8 checks common to the runs: the four requests' tokens equal
+    `reference`, each repeat its first occurrence; the two repeats were
+    full-prompt hits admitted with no prefill dispatch; `kernel` (each
+    chunk step's, in every layer) and `decode_kernel` (each prefill's)
+    are the only kernels launched, exactly as often as the run's chunks
+    and prefill dispatches need; the pool is consistent after the drain."""
+    import numpy as np
+
+    same = np.array_equal(toks[:4], reference) and np.array_equal(toks[4:], toks[:2])
+    hits = sum(w["prefix_hits"] for w in waves)
+    dispatches = engine.stats.prefill_dispatches
+    miss_waves = sum(1 for w in waves if w["prefix_hits"] < w["wave_rows"])
+    depth = engine.model.depth
+    expected = {kernel: depth * CONTINUOUS["chunk_tokens"] * engine.stats.chunks}
+    expected[decode_kernel] = expected.get(decode_kernel, 0) + depth * dispatches
+    others = {k: n for k, n in launches.items() if n and k not in expected}
+    leaks = engine.kv.leak_check()
+    print(f"check paged {label}: tokens identical to the reference and repeats to their first "
+          f"occurrence {same}; prefix hits {hits} with prefill dispatches {dispatches} for "
+          f"{miss_waves} waves holding misses; launches {launches[kernel]} {kernel}, "
+          f"{launches[decode_kernel]} {decode_kernel} (expected {expected}), others {others}; "
+          f"leak_check {leaks}")
+    if not same:
+        fail(f"paged {label}: tokens differ from the reference")
+    if hits != 2 or dispatches != miss_waves or sum(w["dispatches"] for w in waves) != dispatches:
+        fail(f"paged {label}: prefix hits {hits}, dispatches {dispatches}, waves {waves}")
+    if any(launches[k] != n for k, n in expected.items()) or others:
+        fail(f"paged {label}: launches {launches}, expected {expected}")
+    if leaks:
+        fail(f"paged {label}: leak_check {leaks}")
+
+
+def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_tokens):
+    """Phase 8: the three runs of the flagship PagedContinuousEngine.
+    Returns {kernel: launches on its run} for kernels 4 and 5."""
+    # 1. the reference's default impl: paged_gather + kernel 1
+    engine, toks1, launches, waves = serve_paged(torch, model, vae, specs, "gather causal",
+                                                 paged_decode_impl="gather")
+    check_paged_run(engine, toks1, launches, waves, "gather causal", "flash_decode", "flash_decode",
+                    causal_tokens)
+    del engine
+
+    # 2. kernel 4, with a pool of two rows' worst case beside the prefix
+    # cache's four entries (8 full pages and a snapshot page each)
+    per_row = -(-(FLAGSHIP["text_seq_len"] + 1024 + 1) // PAGE)  # 41
+    text_pages = -(-(FLAGSHIP["text_seq_len"] + 1) // PAGE)  # 9: 8 full and the snapshot
+    kv_pages = 1 + 2 * per_row + len(PROMPTS) * text_pages
+    engine, toks2, launches, waves = serve_paged(torch, model, vae, specs, "kernel causal, small pool",
+                                                 paged_decode_impl="kernel", kv_pages=kv_pages)
+    check_paged_run(engine, toks2, launches, waves, "kernel causal, small pool", "paged_flash_decode",
+                    "flash_decode", toks1[:4])
+    held_back = max(w["live_rows"] for w in waves)
+    print(f"check paged small pool ({kv_pages} pages): at most {held_back} rows live of "
+          f"{CONTINUOUS['max_batch']} slots; every request completed")
+    if held_back != 2:
+        fail(f"the small pool let {held_back} rows live at once")
+    out = {"paged_flash_decode": launches["paged_flash_decode"]}
+    # one chunk (a prefix hit's first) under sync-debug "error": no host sync
+    engine.prefill_slots([(0, specs[0])])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pos, act = engine.chunk_snapshot()
+    engine.release([0])
+    print(f"check paged chunk under sync-debug mode 'error': no host sync (slot 0 at {pos[0]})")
+    if pos[0] != CONTINUOUS["chunk_tokens"] or not act[0] or engine.kv.leak_check():
+        fail(f"the synced-debug paged chunk left slot 0 at {pos[0]}, active {act[0]}")
+    del engine
+
+    # 3. kernel 5's int8 arm with real holes on the patterned model
+    engine, toks3, launches, waves = serve_paged(
+        torch, patterned, vae, specs, "kernel policy+int8 patterned", paged_decode_impl="kernel",
+        decode_sparsity="policy", kv_dtype="int8")
+    check_paged_run(engine, toks3, launches, waves, "kernel policy+int8 patterned",
+                    "block_sparse_paged_flash_decode_int8", "block_sparse_flash_decode_int8",
+                    patterned_tokens)
+    if not engine.stats.kv_tiles_skipped > 0:
+        fail(f"the patterned paged run skipped no tiles: {engine.sparsity_detail()}")
+    out["block_sparse_paged_flash_decode"] = launches["block_sparse_paged_flash_decode_int8"]
     return out
 
 
@@ -975,6 +1390,9 @@ def main() -> int:
     variant_errs = check_decode_variants(torch, cases)
     print(f"phase 2 int8 and block-sparse checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    paged_errs, _ = check_paged_variants(torch)
+    print(f"phase 2 paged checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     attn_errs = check_attention(torch)
     print(f"phase 2 flash_attention checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1010,6 +1428,7 @@ def main() -> int:
     est = LAYERS * (timings[("prefill", "bf16")]["ms"] + 1024 * step["ms"])
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
     variant_times = time_decode_variants(torch, F, peaks, smi, cases)
+    paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     time_attention(torch, F, peaks, torch.float32, "fp32", 4)
 
@@ -1080,8 +1499,15 @@ def main() -> int:
 
     # 7. continuous-serving path ---------------------------------------------------
     t0 = time.perf_counter()
-    launches.update(run_continuous(torch, model5, vae, specs, toks))
+    continuous_launches, causal_toks, patterned, patterned_toks = run_continuous(
+        torch, model5, vae, specs, toks)
+    launches.update(continuous_launches)
     print(f"phase 7 continuous serving: {time.perf_counter() - t0:.1f} s")
+
+    # 8. paged continuous serving with a prefix cache ---------------------------------
+    t0 = time.perf_counter()
+    launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks))
+    print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # result -------------------------------------------------------------------
@@ -1128,8 +1554,8 @@ def main() -> int:
                 max_abs_err=variant_errs["flash_decode_int8"],
                 **variant_times["flash_decode_int8"],
                 timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
-                "[258, 700, 1024, 1281]; launches: phase 7 int8 run; library_ms is SDPA over "
-                "the bf16 cache",
+                "[258, 700, 1024, 1281]; launches: phase 7 int8 run (depth 4); library_ms is "
+                "SDPA over the bf16 cache",
             ),
             dict(
                 name="block_sparse_flash_decode",
@@ -1141,8 +1567,32 @@ def main() -> int:
                 max_abs_err=variant_errs["block_sparse_flash_decode"],
                 **variant_times["block_sparse_flash_decode"],
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281, axial_row policy bitmap; launches: "
-                "phase 7 policy run (bf16 arm) + policy+int8 patterned run (int8 arm); "
+                "phase 7 policy run (bf16 arm, depth 4) + policy+int8 patterned run (int8 arm); "
                 "library_ms is SDPA with the bitmap-expanded mask",
+            ),
+            dict(
+                name="paged_flash_decode",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:446",
+                launches=launches["paged_flash_decode"],
+                max_abs_err=paged_errs["paged_flash_decode"],
+                **paged_times["paged_flash_decode"],
+                timed="bf16 step n=1 B=4 H=16 D=64, page 32, 41-entry tables into a shuffled "
+                "206-page pool, lengths [258, 700, 1024, 1281]; launches: phase 8 kernel causal "
+                "run; library_ms is SDPA over the cache gathered beforehand (gather not timed)",
+            ),
+            dict(
+                name="block_sparse_paged_flash_decode",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:552",
+                launches=launches["block_sparse_paged_flash_decode"],
+                max_abs_err=paged_errs["block_sparse_paged_flash_decode"],
+                **paged_times["block_sparse_paged_flash_decode"],
+                timed="bf16 step as paged_flash_decode, axial_row policy bitmap re-expanded to "
+                "pages; launches: phase 8 policy+int8 patterned run (int8 arm); library_ms is "
+                "SDPA with the page-expanded mask over the gathered cache",
             ),
         ]
     }

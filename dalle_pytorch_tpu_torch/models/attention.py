@@ -20,6 +20,17 @@ the causal + pattern (or bitmap) mask. The cache is updated in place (the
 reference returns a new one): one copy of the KV cache stays alive, not
 two.
 
+A cache with a "page_table" entry ([B, n_pages] int32, put there per
+dispatch by `models/dalle.py`) is paged: k/v (and scales) are pools [P,
+H, page, D] shared by all rows, the virtual length is min(n_pages * page,
+seq_len + 1) (the slotted cache's), and each row's writes scatter to
+(page_table[b, pos // page], :, pos % page) with pos clamped per position
+to the last virtual one. The flash arm goes through
+`paged_decode_attention` (its impl from the cache's "paged_impl" entry),
+the dense arm reads `paged_gather` views. Released rows' tables point at
+the garbage page, so their writes land there; duplicate scatter targets
+(many rows on page 0) then race, harmlessly.
+
 Uncached branch (training, a whole sequence from position 0): rotary
 rows [:n] on q, k and v, then `use_flash` as the reference's `_use_flash`:
 "flash" forces the flash-attention kernels, "auto" takes them from
@@ -52,6 +63,8 @@ from dalle_pytorch_tpu_torch.ops.flash_decode import (
     clamp_block_k,
     expand_bitmap,
     flash_decode_attention,
+    paged_decode_attention,
+    paged_gather,
 )
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary
 
@@ -86,6 +99,12 @@ def _cache_write(buf: torch.Tensor, val: torch.Tensor, index) -> None:
     buf.scatter_(2, pos.expand(val.shape), val.to(buf.dtype))
 
 
+def _paged_write(pool: torch.Tensor, val: torch.Tensor, page: torch.Tensor, off: torch.Tensor) -> None:
+    """Scatter val [B, H, n(, D)] into pool [P, H, page(, D)] in place at
+    (page[b, i], :, off[b, i])."""
+    pool[page, :, off] = val.transpose(1, 2).to(pool.dtype)
+
+
 def _kv_quantize(x: torch.Tensor):
     """Symmetric int8 quantization over the head dim: x [B, H, n, D] ->
     (int8 [B, H, n, D], fp32 scale [B, H, n]). fp32 throughout, round half
@@ -114,10 +133,14 @@ class Attention(nn.Module):
         static_mask: Optional[np.ndarray] = None,
         attn_impl: str = "auto",
         dropout: float = 0.0,
+        seq_len: Optional[int] = None,
     ):
+        """`seq_len` (the model's total_seq_len) bounds a paged cache's
+        virtual length at seq_len + 1, as the slotted cache's length."""
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        self.seq_len = seq_len
         self.heads, self.dim_head = heads, dim_head
         self.stable = stable
         self.attn_impl = attn_impl
@@ -241,7 +264,16 @@ class Attention(nn.Module):
         index = cache["index"]
         per_row = torch.is_tensor(index)
         ck, cv = cache["k"], cache["v"]
-        max_len = ck.shape[2]
+        pt = cache.get("page_table")
+        if pt is None:
+            max_len = ck.shape[2]
+        else:
+            if not per_row:
+                raise ValueError("a paged cache needs a per-row [B] index")
+            page = ck.shape[2]
+            max_len = pt.shape[1] * page
+            if self.seq_len is not None:
+                max_len = min(max_len, self.seq_len + 1)
         if rotary is not None:
             if per_row:
                 rot = rotary[_row_positions(index, n, rotary.shape[0])][:, None]  # [B, 1, n, d_rot]
@@ -253,14 +285,24 @@ class Attention(nn.Module):
         # stays in the model dtype
         quant = "k_scale" in cache
         scales = (None, None)
+        writes = [(ck, k), (cv, v)]
         if quant:
             k, k_sc = _kv_quantize(k)
             v, v_sc = _kv_quantize(v)
             scales = (cache["k_scale"], cache["v_scale"])
-            _cache_write(scales[0], k_sc, index)
-            _cache_write(scales[1], v_sc, index)
-        _cache_write(ck, k, index)
-        _cache_write(cv, v, index)
+            writes = [(ck, k), (cv, v), (scales[0], k_sc), (scales[1], v_sc)]
+        if pt is None:
+            for buf, val in writes:
+                _cache_write(buf, val, index)
+        else:
+            # the reference's per-position clamp (a finished row stepped
+            # past the end rewrites its spare last position)
+            pos = (index.to(torch.long)[:, None] + torch.arange(n, device=q.device)).clamp(
+                max=max_len - 1
+            )
+            pages = torch.gather(pt.to(torch.long), 1, pos // page)
+            for buf, val in writes:
+                _paged_write(buf, val, pages, pos % page)
         # a policy bitmap ([B, nb] int32, nonzero = the KV block may be
         # read) supersedes the pattern masks on both arms and sends pattern
         # layers to the block-sparse kernel
@@ -272,7 +314,12 @@ class Attention(nn.Module):
                 lengths = (index + n).to(torch.int32)
             else:
                 lengths = torch.full((b,), index + n, dtype=torch.int32, device=q.device)
-            if sparse:
+            if pt is not None:
+                out = paged_decode_attention(
+                    q.contiguous(), ck, cv, lengths, pt, max_len, cache.get("paged_impl"),
+                    *scales, block_bitmap=bitmap, sparse_block=block if sparse else None,
+                )
+            elif sparse:
                 out = block_sparse_flash_decode_attention(
                     q.contiguous(), ck, cv, lengths, bitmap, block, *scales
                 )
@@ -280,8 +327,13 @@ class Attention(nn.Module):
                 out = flash_decode_attention(q.contiguous(), ck, cv, lengths, *scales)
         else:
             gk, gv = ck, cv
+            gscales = scales
+            if pt is not None:
+                gk, gv = paged_gather(ck, pt, max_len), paged_gather(cv, pt, max_len)
+                if quant:
+                    gscales = tuple(paged_gather(t, pt, max_len) for t in scales)
             if quant:
-                gk, gv = _kv_dequantize(ck, scales[0]), _kv_dequantize(cv, scales[1])
+                gk, gv = _kv_dequantize(gk, gscales[0]), _kv_dequantize(gv, gscales[1])
             offsets = torch.arange(n, device=q.device)
             qpos = index[:, None] + offsets if per_row else index + offsets  # [B, n] or [n]
             mask = torch.arange(max_len, device=q.device) <= qpos[..., None]

@@ -7,8 +7,11 @@ objectives, the 3-token accuracy, the vocab-chunked `fused_ce` losses),
 `embed_text` (unique padding ids, <bos> = 0, null conditioning),
 `to_logits`, `decode_prefill`, `decode_image_step`, `init_decode_cache`,
 `generate_images_cached_batched` with the classifier-free-guidance blend,
-and the continuous engine's slot ops (`init_slot_state`,
-`prefill_into_slots`, `release_slots`, `decode_image_chunk`). Random
+the continuous engine's slot ops (`init_slot_state`,
+`prefill_into_slots`, `release_slots`, `decode_image_chunk`) and their
+paged counterparts (`init_paged_slot_state`, `prefill_into_slots_paged`,
+`slice_prefix_sidecar`, `admit_cached_prefix`,
+`decode_image_chunk_paged`). Random
 draws (null conditioning) come from an explicit `torch.Generator`, so
 they are not jax.random's bits; dropout uses torch's global generator.
 
@@ -33,6 +36,7 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     LayerNorm,
     Transformer,
     make_decode_cache,
+    make_paged_decode_cache,
     set_decode_cache_index,
 )
 from dalle_pytorch_tpu_torch.ops.losses import chunked_masked_ce, split_weighted_mean
@@ -446,10 +450,15 @@ def init_slot_state(model: DALLE, max_batch: int) -> dict:
     Free slots hold zeros; `prefill_into_slots` overwrites an admitted
     slot wholesale (every cache position), so nothing leaks between the
     occupants of a slot, and `active` gates which rows advance."""
+    cache = init_decode_cache(model, max_batch, per_row=True)
+    return {"cache": cache, **_slot_control(model, max_batch)}
+
+
+def _slot_control(model: DALLE, max_batch: int) -> dict:
+    """The per-slot decode state beside the cache, and its host mirrors."""
     s = int(max_batch)
     device = model.text_emb.weight.device
     return {
-        "cache": init_decode_cache(model, s, per_row=True),
         # pending next-position logits per slot: what the next sample draws
         # from, written by prefill and refreshed every decode step
         "row": torch.zeros((s, model.total_tokens), dtype=torch.float32, device=device),
@@ -522,14 +531,34 @@ def prefill_into_slots(
     rows, cache = model.decode_prefill(_to_device(np.asarray(texts), device), cache)
     idx = _to_device(np.asarray(slots, np.int64), device)
     for name, layer in state["cache"].items():
-        src = cache[name]
         for key, leaf in layer["attn"].items():
             if key != "index":
-                leaf.index_copy_(0, idx, src["attn"][key])
-        for key in ("shift_attn", "shift_ff"):
-            if key in layer:
-                layer[key].index_copy_(0, idx, src[key])
-    state["row"].index_copy_(0, idx, rows)
+                leaf.index_copy_(0, idx, cache[name]["attn"][key])
+    _admit_slot_rows(state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks)
+    return state
+
+
+def _extract_rings(cache: dict) -> dict:
+    """{layer: {ring name: [R, fmap, dim]}} of a fresh prefill cache: the
+    part of a prefix's post-prefill state that is not in K/V (empty when
+    the model does not shift tokens)."""
+    out = {}
+    for name, layer in cache.items():
+        rings = {key: layer[key] for key in ("shift_attn", "shift_ff") if key in layer}
+        if rings:
+            out[name] = rings
+    return out
+
+
+def _admit_slot_rows(state, idx, slots, rows, rings, seeds, temperatures, keep_ks) -> None:
+    """Everything of an admission but K/V: per slot (idx the [R] slot
+    tensor) the shift rings, pending logits and sampling state from row r
+    of `rows` [R, V] and `rings`, and the host mirrors."""
+    device = state["row"].device
+    for name, layer_rings in rings.items():
+        for key, src in layer_rings.items():
+            state["cache"][name][key].index_copy_(0, idx, src.to(state["cache"][name][key].dtype))
+    state["row"].index_copy_(0, idx, rows.float())
     state["img_tokens"].index_fill_(0, idx, 0)
     state["img_pos"].index_fill_(0, idx, 0)
     state["active"].index_fill_(0, idx, True)
@@ -540,7 +569,6 @@ def prefill_into_slots(
     host["active"][list(slots)] = True
     host["seeds"][list(slots)] = seeds
     host["keep_k"][list(slots)] = keep_ks
-    return state
 
 
 @torch.inference_mode()
@@ -556,7 +584,12 @@ def release_slots(state: dict, slots: Sequence[int]) -> dict:
 
 @torch.inference_mode()
 def decode_image_chunk(
-    model: DALLE, state: dict, chunk: int, block_bitmap: Optional[np.ndarray] = None
+    model: DALLE,
+    state: dict,
+    chunk: int,
+    block_bitmap: Optional[np.ndarray] = None,
+    page_table: Optional[np.ndarray] = None,
+    paged_impl: Optional[str] = None,
 ) -> dict:
     """Advance every live slot by up to `chunk` tokens.
 
@@ -567,8 +600,10 @@ def decode_image_chunk(
     reach `image_seq_len` freeze (tokens, logits and position stop
     advancing) until the host retires them; free slots compute along as
     padding but keep nothing. `block_bitmap` ([depth, max_batch, nb] int32)
-    arms decode sparsity for the chunk. Launches work only: no device
-    value is read back. Returns `state`."""
+    arms decode sparsity for the chunk; `page_table` ([max_batch,
+    n_pages] int32 host array) reads and writes a paged state's pools
+    through it, with `paged_impl` the `paged_decode_attention` impl.
+    Launches work only: no device value is read back. Returns `state`."""
     text_len = model.text_seq_len + 1  # <bos> + text prefix
     seq = model.image_seq_len
     host = state["host"]
@@ -579,6 +614,8 @@ def decode_image_chunk(
     seeds = [int(s) for s in host["seeds"]]
     if block_bitmap is not None:
         _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
+    if page_table is not None:
+        _with_page_table(cache, _to_device(np.asarray(page_table, np.int32), device), paged_impl)
     try:
         for _ in range(int(chunk)):
             img_pos = state["img_pos"]
@@ -596,6 +633,176 @@ def decode_image_chunk(
             state["img_pos"] = torch.where(live, img_pos + 1, img_pos)
             host["img_pos"] += host["active"] & (host["img_pos"] < seq)
     finally:
-        if block_bitmap is not None:
-            _without_block_bitmap(cache)
+        _without_block_bitmap(cache)
+        _without_page_table(cache)
     return state
+
+
+# ------------------------------------------------------------ paged cache
+#
+# The paged slot ops (the reference's of the same names): K/V in page
+# pools shared by all slots, with host-owned per-row page tables
+# (`serving/paging.py`) handed to each chunk; the prefill still runs a
+# slotted cache of the wave's rows (kernel 1, or 3 under a policy) and is
+# scattered into pages. Identical caption prefixes share immutable text
+# pages, and a full-prompt hit admits from its cached sidecar (pending
+# logits + shift rings) with no transformer dispatch. The per-slot
+# control state and its host mirrors are the slotted state's.
+
+
+def _with_page_table(cache: dict, page_table: torch.Tensor, impl: Optional[str]) -> None:
+    """Put the [B, n_pages] table and the paged decode impl into every
+    layer's attention cache, in place."""
+    for layer in cache.values():
+        layer["attn"]["page_table"] = page_table
+        layer["attn"]["paged_impl"] = impl
+
+
+def _without_page_table(cache: dict) -> None:
+    for layer in cache.values():
+        layer["attn"].pop("page_table", None)
+        layer["attn"].pop("paged_impl", None)
+
+
+@torch.inference_mode()
+def init_paged_slot_state(model: DALLE, max_batch: int, n_pages: int, page_size: int) -> dict:
+    """Empty paged decode state: `init_slot_state`'s per-slot control
+    state, with K/V in pools of `n_pages` pages of `page_size` positions
+    (page 0 is the serving layer's garbage page, never allocated)."""
+    cache = make_paged_decode_cache(
+        depth=model.depth,
+        batch=int(max_batch),
+        n_pages=int(n_pages),
+        page_size=int(page_size),
+        heads=model.heads,
+        dim_head=model.dim_head,
+        dim=model.dim,
+        image_fmap_size=model.image_fmap_size,
+        shift_tokens=model.shift_tokens,
+        dtype=model.dtype,
+        device=model.text_emb.weight.device,
+        kv_dtype=model.kv_dtype,
+    )
+    return {"cache": cache, **_slot_control(model, max_batch)}
+
+
+def _text_blocks(leaf: torch.Tensor, n_blocks: int, page_size: int) -> torch.Tensor:
+    """Rows' first `n_blocks` blocks of a prefill cache leaf [R, H, L(,
+    D)], zero-padded past L, as pages [R, n_blocks, H, page(, D)]."""
+    r, h, length = leaf.shape[:3]
+    need = n_blocks * page_size
+    if need > length:
+        pad = [0, 0] * (leaf.dim() - 3) + [0, need - length]
+        leaf = F.pad(leaf, pad)
+    blocks = leaf[:, :, :need].reshape(r, h, n_blocks, page_size, *leaf.shape[3:])
+    return blocks.transpose(1, 2)
+
+
+@torch.inference_mode()
+def prefill_into_slots_paged(
+    model: DALLE,
+    state: dict,
+    texts: np.ndarray,
+    slots: Sequence[int],
+    seeds: Sequence[int],
+    temperatures: Sequence[float],
+    keep_ks: Sequence[int],
+    page_rows: np.ndarray,
+    partial_dst: np.ndarray,
+    page_size: int,
+    block_bitmap: Optional[np.ndarray] = None,
+) -> dict:
+    """Paged admission of R prompts: `prefill_into_slots`' prefill at
+    batch R, its K/V (+ scales) scattered into pages. `page_rows` [R,
+    n_text_pages] names row r's page for each text block (shared prefix
+    blocks may name pages other rows or the prefix cache map: the wave
+    rewrites them with identical bytes; padding rows repeat row 0's pages
+    likewise); `partial_dst` [R] is an extra page per row for its last
+    text block, the prefix cache's snapshot of the divergence block
+    (page 0, the garbage page, for rows not registering). Returns the
+    sidecar {"row": [R, V] pending logits, "rings": {layer: {ring: [R,
+    fmap, dim]}}} a later full-prompt hit restores."""
+    device = state["row"].device
+    r = len(texts)
+    page_rows = np.asarray(page_rows, np.int64)
+    n_text_pages = page_rows.shape[1]
+    cache = init_decode_cache(model, r)
+    if block_bitmap is not None:
+        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
+    rows, cache = model.decode_prefill(_to_device(np.asarray(texts), device), cache)
+    pages = _to_device(page_rows.reshape(-1), device)
+    snap = _to_device(np.asarray(partial_dst, np.int64), device)
+    for name, layer in state["cache"].items():
+        for key, pool in layer["attn"].items():
+            if key == "index":
+                continue
+            blocks = _text_blocks(cache[name]["attn"][key], n_text_pages, page_size)
+            pool.index_copy_(0, pages, blocks.reshape(-1, *pool.shape[1:]).to(pool.dtype))
+            pool.index_copy_(0, snap, blocks[:, -1].to(pool.dtype))
+    idx = _to_device(np.asarray(slots, np.int64), device)
+    rings = _extract_rings(cache)
+    _admit_slot_rows(state, idx, slots, rows, rings, seeds, temperatures, keep_ks)
+    return {"row": rows.float(), "rings": rings}
+
+
+def slice_prefix_sidecar(sidecar: dict, r: int) -> dict:
+    """Row `r` of a wave's sidecar, as tensors of its own (a cached entry
+    does not keep the whole wave's alive)."""
+    return {
+        "row": sidecar["row"][r].clone(),
+        "rings": {
+            name: {key: t[r].clone() for key, t in rings.items()}
+            for name, rings in sidecar["rings"].items()
+        },
+    }
+
+
+@torch.inference_mode()
+def admit_cached_prefix(
+    model: DALLE,
+    state: dict,
+    slot: int,
+    sidecar: dict,
+    seed: int,
+    temperature: float,
+    keep_k: int,
+    partial_src: int,
+    partial_dst: int,
+    page_size: int,
+) -> dict:
+    """Admit a full prefix-cache hit into `slot` with no transformer
+    dispatch: the prefix's text pages are already in the row's table
+    (the host mapped them); this copies the cache's snapshot of the
+    divergence block (`partial_src`) to the row's private page
+    (`partial_dst`) — skipped when the text ends on a page boundary —
+    and restores the sidecar's pending logits and shift rings and the
+    slot's sampling state. Returns `state`."""
+    if (model.text_seq_len + 1) % page_size:
+        for layer in state["cache"].values():
+            for key, pool in layer["attn"].items():
+                if key != "index":
+                    pool[int(partial_dst)].copy_(pool[int(partial_src)])
+    idx = _to_device(np.asarray([slot], np.int64), state["row"].device)
+    rings = {
+        name: {key: t[None] for key, t in layer_rings.items()}
+        for name, layer_rings in sidecar["rings"].items()
+    }
+    _admit_slot_rows(state, idx, [slot], sidecar["row"][None], rings, [seed], [temperature], [keep_k])
+    return state
+
+
+def decode_image_chunk_paged(
+    model: DALLE,
+    state: dict,
+    chunk: int,
+    page_table: np.ndarray,
+    block_bitmap: Optional[np.ndarray] = None,
+    paged_impl: Optional[str] = None,
+) -> dict:
+    """`decode_image_chunk` (the same body) on a paged state: every row's
+    K/V reads and writes go through `page_table` [max_batch, n_pages]
+    (host int32, uploaded through pinned memory without blocking)."""
+    return decode_image_chunk(
+        model, state, chunk, block_bitmap=block_bitmap, page_table=page_table,
+        paged_impl=paged_impl,
+    )

@@ -22,7 +22,8 @@ LayerNorm uses eps 1e-6 and normalizes in float32.
 The decode cache mirrors the reference's tree — {"layer_{i}": {"attn":
 {"k", "v", "index"[, "k_scale", "v_scale"]}, "shift_attn", "shift_ff"}}
 — with the index a Python int, or a [B] tensor for per-row slots; it is
-updated in place.
+updated in place. The paged cache (`make_paged_decode_cache`) has the same
+keys with K/V (and scales) as page pools shared by all rows.
 """
 
 from __future__ import annotations
@@ -191,6 +192,7 @@ class Transformer(nn.Module):
                 static_mask=build_static_mask(attn_type, seq_len, image_fmap_size, ind),
                 attn_impl=attn_impl,
                 dropout=attn_dropout,
+                seq_len=seq_len,
             )
         self.ff = nn.ModuleDict(
             {str(i): FeedForward(dim, ff_mult, ff_dropout) for i in dict.fromkeys(self.ff_ids)}
@@ -326,6 +328,48 @@ def make_decode_cache(
                 attn[name] = torch.zeros(
                     (batch, heads, max_len), dtype=torch.float32, device=device
                 )
+        layer = {"attn": attn}
+        if shift_tokens:
+            for name in ("shift_attn", "shift_ff"):
+                layer[name] = torch.zeros(
+                    (batch, image_fmap_size, dim), dtype=dtype, device=device
+                )
+        cache[f"layer_{i}"] = layer
+    return cache
+
+
+def make_paged_decode_cache(
+    depth: int,
+    batch: int,
+    n_pages: int,
+    page_size: int,
+    heads: int,
+    dim_head: int,
+    dim: int,
+    image_fmap_size: Optional[int] = None,
+    shift_tokens: bool = False,
+    dtype=torch.float32,
+    device="cpu",
+    kv_dtype=None,
+) -> dict:
+    """Block-paged decode cache, zero-filled: per layer K/V pools
+    [n_pages, heads, page_size, dim_head] shared by all `batch` rows (int8
+    with fp32 `k_scale`/`v_scale` pools [n_pages, heads, page_size] under
+    `kv_dtype="int8"`), a [batch] int32 `index`, and the shift rings per
+    row as in `make_decode_cache(per_row=True)`. The page table is host
+    state, handed in per dispatch (`models/dalle.py`), not stored here."""
+    kv_dt, scaled = _kv_store_dtype(dtype, kv_dtype)
+    cache = {}
+    for i in range(depth):
+        pool = (n_pages, heads, page_size)
+        attn = {
+            "k": torch.zeros(pool + (dim_head,), dtype=kv_dt, device=device),
+            "v": torch.zeros(pool + (dim_head,), dtype=kv_dt, device=device),
+            "index": torch.zeros(batch, dtype=torch.int32, device=device),
+        }
+        if scaled:
+            for name in ("k_scale", "v_scale"):
+                attn[name] = torch.zeros(pool, dtype=torch.float32, device=device)
         layer = {"attn": attn}
         if shift_tokens:
             for name in ("shift_attn", "shift_ff"):

@@ -26,15 +26,33 @@ tile its rows can see, and skips tiles the bitmap leaves dead) with
 the online softmax in fp32 registers; see the source's header for what is
 left on the table (split-K at n = 1, tensor cores, TMA).
 
+Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
+K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
+all rows, and row b's position j is at pool page page_table[b, j // page],
+offset j % page. `paged_flash_decode_attention` and its block-sparse twin
+(a bitmap of one bit per page-table entry) compute the function above on
+that view, with S = n_pages * page; the kernels read only live pages
+through the table, and a dead page's entry is never followed.
+`paged_decode_attention` is the paged cache's dispatch (the reference's
+of the same name): impl "gather" materializes the contiguous view with
+`paged_gather` and runs the contiguous kernels (bit-identical to the
+slotted cache), impl "kernel" runs the paged kernels (also bit-identical:
+same tiles and order, see the source's header). `None` takes
+`PAGED_DECODE_IMPL`, read from $DALLE_PAGED_DECODE_IMPL, default "gather"
+as in the reference.
+
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
 counts: `flash_decode_attention.launches` (plain arm) and
-`.int8_launches`, the same pair on `block_sparse_flash_decode_attention`.
+`.int8_launches`, the same pair on `block_sparse_flash_decode_attention`,
+`paged_flash_decode_attention` and
+`block_sparse_paged_flash_decode_attention`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -43,15 +61,24 @@ from dalle_pytorch_tpu_torch import kernels
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+PAGED_DECODE_IMPLS = ("gather", "kernel")
+PAGED_DECODE_IMPL = os.environ.get("DALLE_PAGED_DECODE_IMPL", "gather")
 
 
-def _check(q, k, v, lengths, k_scale=None, v_scale=None):
+def _check(q, k, v, lengths, k_scale=None, v_scale=None, page_table=None):
+    """Shapes, dtypes, device and contiguity of a call; with `page_table`
+    k/v (and the scales) are pools [P, H, page, D] and the table [B,
+    n_pages] int32 of pool pages (its range checked here on the CPU; on
+    the card the kernel traps on an entry out of range, as a check here
+    would cost a host sync)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, n, D], got {tuple(q.shape)}")
     b, h, n, d = q.shape
-    if k.dim() != 4 or k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
+    lead = (b, h) if page_table is None else (k.shape[0], h)
+    if k.dim() != 4 or k.shape[:2] != lead or k.shape[3] != d or v.shape != k.shape:
+        layout = "[B, H, S, D]" if page_table is None else "[P, H, page, D]"
         raise ValueError(
-            f"k, v must be [B, H, S, D] matching q {tuple(q.shape)}; got "
+            f"k, v must be {layout} matching q {tuple(q.shape)}; got "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
@@ -79,10 +106,21 @@ def _check(q, k, v, lengths, k_scale=None, v_scale=None):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     tensors = (q, k, v, lengths) + scales
+    if page_table is not None:
+        if page_table.dim() != 2 or page_table.shape[0] != b or page_table.dtype != torch.int32:
+            raise ValueError(
+                f"page_table must be int32 [{b}, n_pages], got {page_table.dtype} "
+                f"{tuple(page_table.shape)}"
+            )
+        if page_table.device.type == "cpu" and page_table.numel() and not (
+            0 <= int(page_table.min()) and int(page_table.max()) < k.shape[0]
+        ):
+            raise ValueError(f"page_table entries must be pool pages in [0, {k.shape[0]})")
+        tensors += (page_table,)
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("q, k, v, lengths and scales must be on one device")
+        raise ValueError("q, k, v, lengths, scales and page_table must be on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q, k, v, lengths and scales must be contiguous")
+        raise ValueError("q, k, v, lengths, scales and page_table must be contiguous")
 
 
 def clamp_block_k(block_k: int, s_len: int) -> int:
@@ -175,32 +213,46 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p]
         )
+        paged = lib.paged_flash_decode_launch
+        paged.restype = ctypes.c_int
+        paged.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
     return lib
 
 
-def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k):
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table=None):
+    """One launch of the contiguous (`page_table` None) or paged kernel;
+    `block_bitmap` picks the block-sparse variant."""
     b, h, n, d = q.shape
-    s_len = k.shape[2]
     tensors = [q, k, v] + ([] if k_scale is None else [k_scale, v_scale])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and scales must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(q)
     sparse = block_bitmap is not None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    head = (_ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths))
     with torch.cuda.device(q.device):
-        err = lib.flash_decode_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if k_scale is None else k_scale.data_ptr(),
-            None if v_scale is None else v_scale.data_ptr(),
-            lengths.data_ptr(),
-            block_bitmap.data_ptr() if sparse else None,
-            out.data_ptr(), b, h, n, s_len, d, _DTYPE_CODE[q.dtype],
-            int(k_scale is not None),
-            block_bitmap.shape[1] if sparse else 0,
-            block_k if sparse else 0,
-            d**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if page_table is None:
+            err = lib.flash_decode_launch(
+                *head, _ptr(block_bitmap), _ptr(out), b, h, n, k.shape[2], d,
+                _DTYPE_CODE[q.dtype], int(k_scale is not None),
+                block_bitmap.shape[1] if sparse else 0, block_k if sparse else 0,
+                d**-0.5, stream,
+            )
+        else:
+            err = lib.paged_flash_decode_launch(
+                *head, _ptr(page_table), _ptr(block_bitmap), _ptr(out), b, h, n,
+                k.shape[0], k.shape[2], page_table.shape[1], d, _DTYPE_CODE[q.dtype],
+                int(k_scale is not None), d**-0.5, stream,
+            )
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     return out
@@ -278,3 +330,197 @@ def block_sparse_flash_decode_attention(
 
 block_sparse_flash_decode_attention.launches = 0
 block_sparse_flash_decode_attention.int8_launches = 0
+
+
+# ------------------------------------------------------------ paged cache
+
+
+def paged_gather(pages: torch.Tensor, page_table: torch.Tensor, vlen: int) -> torch.Tensor:
+    """Contiguous per-row view of a paged pool: pages [P, H, page, ...]
+    (K/V with a trailing D, or scales without), page_table [B, n_pages]
+    -> [B, H, vlen, ...], the first `vlen` positions of each row's
+    logical sequence (positions no write reached come from whatever page
+    the table names; callers mask them)."""
+    b, n_pages = page_table.shape
+    _, h, page = pages.shape[:3]
+    g = pages[page_table.long()].transpose(1, 2)  # [B, H, n_pages, page, ...]
+    g = g.reshape(b, h, n_pages * page, *pages.shape[3:])
+    return g[:, :, :vlen].contiguous()
+
+
+def _gathered(k_pages, v_pages, page_table, vlen, k_scale, v_scale):
+    """(k, v, k_scale, v_scale) of the paged pool as contiguous caches."""
+    k, v = (paged_gather(t, page_table, vlen) for t in (k_pages, v_pages))
+    if k_scale is None:
+        return k, v, None, None
+    return k, v, paged_gather(k_scale, page_table, vlen), paged_gather(v_scale, page_table, vlen)
+
+
+def paged_flash_decode_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The paged function as the plain version over the gathered view of
+    all n_pages * page positions."""
+    vlen = page_table.shape[1] * k_pages.shape[2]
+    k, v, ks, vs = _gathered(k_pages, v_pages, page_table, vlen, k_scale, v_scale)
+    return _plain(q, k, v, lengths, ks, vs)
+
+
+def block_sparse_paged_flash_decode_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    block_bitmap: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The paged block-sparse function: the plain version over the
+    gathered view with the page bitmap expanded to positions."""
+    page = k_pages.shape[2]
+    vlen = page_table.shape[1] * page
+    k, v, ks, vs = _gathered(k_pages, v_pages, page_table, vlen, k_scale, v_scale)
+    return _plain(q, k, v, lengths, ks, vs, expand_bitmap(block_bitmap, page, vlen))
+
+
+def paged_flash_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """q [B, H, n, D] (float32 or bfloat16) over the pool k_pages/v_pages
+    [P, H, page, D] in q's dtype, or int8 with k_scale/v_scale [P, H,
+    page] float32, read through page_table [B, n_pages] int32; lengths
+    [B] int32, clipped to [0, n_pages * page] -> [B, H, n, D] in q's
+    dtype.
+
+    CUDA tensors launch the paged kernel (only live pages are read);
+    CPU tensors run the plain version; anything else raises."""
+    _check(q, k_pages, v_pages, lengths, k_scale, v_scale, page_table)
+    if q.device.type == "cpu":
+        return paged_flash_decode_attention_plain(
+            q, k_pages, v_pages, lengths, page_table, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode_attention: unsupported device {q.device}")
+    out = _launch(q, k_pages, v_pages, lengths, k_scale, v_scale, None, 0, page_table)
+    if k_scale is None:
+        paged_flash_decode_attention.launches += 1
+    else:
+        paged_flash_decode_attention.int8_launches += 1
+    return out
+
+
+paged_flash_decode_attention.launches = 0
+paged_flash_decode_attention.int8_launches = 0
+
+
+def block_sparse_paged_flash_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    block_bitmap: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`paged_flash_decode_attention` that also hides the pages whose
+    `block_bitmap` entry is 0: block_bitmap [B, n_pages] int32, one bit
+    per page-table entry. An all-ones bitmap gives exactly
+    `paged_flash_decode_attention`'s bits.
+
+    CUDA tensors launch the kernel (a dead page is never dereferenced);
+    CPU tensors run the plain version; anything else raises."""
+    _check(q, k_pages, v_pages, lengths, k_scale, v_scale, page_table)
+    page = k_pages.shape[2]
+    _check_bitmap(block_bitmap, page, q.shape[0], page_table.shape[1] * page, q.device)
+    if q.device.type == "cpu":
+        return block_sparse_paged_flash_decode_attention_plain(
+            q, k_pages, v_pages, lengths, page_table, block_bitmap, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"block_sparse_paged_flash_decode_attention: unsupported device {q.device}"
+        )
+    out = _launch(q, k_pages, v_pages, lengths, k_scale, v_scale, block_bitmap, page, page_table)
+    if k_scale is None:
+        block_sparse_paged_flash_decode_attention.launches += 1
+    else:
+        block_sparse_paged_flash_decode_attention.int8_launches += 1
+    return out
+
+
+block_sparse_paged_flash_decode_attention.launches = 0
+block_sparse_paged_flash_decode_attention.int8_launches = 0
+
+
+def page_bitmap(block_bitmap: torch.Tensor, sparse_block: int, page: int, n_pages: int) -> torch.Tensor:
+    """A [B, nb] bitmap over blocks of `sparse_block` positions re-expanded
+    to one bit per page ([B, n_pages] int32): `sparse_block` must be a
+    multiple of `page`; pages past the bitmap's reach are dead."""
+    if sparse_block % page:
+        raise ValueError(
+            f"sparse_block {sparse_block} must be a multiple of page_size {page} "
+            "for the paged kernel"
+        )
+    b, nb = block_bitmap.shape
+    r = sparse_block // page
+    bm = block_bitmap[:, :, None].expand(b, nb, r).reshape(b, nb * r)
+    if bm.shape[1] < n_pages:
+        bm = torch.cat([bm, bm.new_zeros((b, n_pages - bm.shape[1]))], dim=1)
+    return bm[:, :n_pages].contiguous()
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    vlen: int,
+    impl: Optional[str] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_bitmap: Optional[torch.Tensor] = None,
+    sparse_block: Optional[int] = None,
+) -> torch.Tensor:
+    """The paged cache's flash-decode dispatch. `vlen` is the virtual
+    contiguous length the gather impl crops to (the slotted cache's
+    max_len, so tiles match the slotted engine's exactly); `block_bitmap`
+    ([B, ceil(vlen / sparse_block)] int32, with `sparse_block` the
+    policy's block width, clamped to vlen as the slotted path clamps it)
+    arms block sparsity.
+
+    impl "gather": the contiguous (block-sparse) kernel on `paged_gather`
+    views. impl "kernel": the paged kernels, the bitmap re-expanded to
+    pages (`page_bitmap`). None: `PAGED_DECODE_IMPL`."""
+    impl = PAGED_DECODE_IMPL if impl is None else impl
+    if impl not in PAGED_DECODE_IMPLS:
+        raise ValueError(f"paged decode impl {impl!r} not in {PAGED_DECODE_IMPLS}")
+    if block_bitmap is not None and sparse_block is None:
+        raise ValueError("sparse_block rides block_bitmap")
+    if impl == "gather":
+        k, v, ks, vs = _gathered(k_pages, v_pages, page_table, vlen, k_scale, v_scale)
+        if block_bitmap is not None:
+            return block_sparse_flash_decode_attention(
+                q, k, v, lengths, block_bitmap, sparse_block, ks, vs
+            )
+        return flash_decode_attention(q, k, v, lengths, ks, vs)
+    if block_bitmap is not None:
+        bm = page_bitmap(block_bitmap, sparse_block, k_pages.shape[2], page_table.shape[1])
+        return block_sparse_paged_flash_decode_attention(
+            q, k_pages, v_pages, lengths, page_table, bm, k_scale, v_scale
+        )
+    return paged_flash_decode_attention(q, k_pages, v_pages, lengths, page_table, k_scale, v_scale)

@@ -14,7 +14,12 @@ ContinuousBatcher`. A worker thread runs, while there is work:
 
 A request arriving mid-decode waits at most one chunk to be admitted, and
 freed slots are refilled while other rows are still decoding. An engine
-error fails the requests in flight and leaves the worker serving. Not
+with a block pool (`PagedContinuousEngine`: `admission_headroom`,
+`admission_demand`, `can_ever_admit`) also gates on KV pages: a request
+whose pages do not fit stays queued until releases return them, one that
+could never fit is rejected at submit, and each wave's prefix hits are
+pinned (`protect_admission_wave`) across its `prefill_batch` splits. An
+engine error fails the requests in flight and leaves the worker serving. Not
 ported yet: QoS classes and tenants, deadline shedding, preemption,
 streaming, migration, tracing and metrics, and the HTTP server.
 """
@@ -128,6 +133,11 @@ class ContinuousBatcher:
                 raise QueueFullError(
                     f"request of {req.rows} rows exceeds the engine's {self.max_batch} slots"
                 )
+            can_ever = getattr(self.engine, "can_ever_admit", None)
+            if can_ever is not None and not can_ever(req.specs):
+                raise QueueFullError(
+                    f"request of {req.rows} rows exceeds the engine's KV block pool capacity"
+                )
             if self._queued_rows + req.rows > self.max_queue_rows:
                 raise QueueFullError(
                     f"queue full ({self._queued_rows}/{self.max_queue_rows} rows)"
@@ -147,6 +157,8 @@ class ContinuousBatcher:
     def _run(self) -> None:
         inflight: dict = {}  # slot -> (request, row index)
         partial: dict = {}  # request -> {"tokens": [rows], "remaining": n}
+        headroom = getattr(self.engine, "admission_headroom", None)
+        wave_guard = getattr(self.engine, "protect_admission_wave", None)
         while True:
             admitted = []  # (slot, spec) owed a prefill this iteration
             with self._cond:
@@ -154,8 +166,18 @@ class ContinuousBatcher:
                     if self._closed:
                         return
                     self._cond.wait()
-                # whole requests in arrival order, while their rows fit
+                # whole requests in arrival order, while their rows (and,
+                # paged, their pages) fit. Pages move only at prefill and
+                # release, on this thread, so one headroom snapshot serves
+                # the whole wave and each request's demand is summed once
+                budget = headroom() if headroom is not None else 0
+                wave_demand = 0
                 while self._queue and self.allocator.n_free >= self._queue[0].rows:
+                    if headroom is not None:
+                        need = self.engine.admission_demand(self._queue[0].specs)
+                        if wave_demand + need > budget:
+                            break  # stays queued until releases return pages
+                        wave_demand += need
                     req = self._queue.popleft()
                     self._queued_rows -= req.rows
                     partial[req] = {"tokens": [None] * req.rows, "remaining": req.rows}
@@ -163,11 +185,23 @@ class ContinuousBatcher:
                         slot = self.allocator.alloc()
                         inflight[slot] = (req, i)
                         admitted.append((slot, spec))
+                if not admitted and not inflight:
+                    # the head waits for pages that no live row holds (the
+                    # prefix cache's): nothing to decode, so wait
+                    self._cond.wait(0.01)
+                    continue
             try:
                 wave = max(1, int(self.engine.prefill_batch))
-                for i in range(0, len(admitted), wave):
-                    self.engine.prefill_slots(admitted[i : i + wave])
-                    self.prefill_waves += 1
+                # the wave was budgeted against one headroom snapshot: its
+                # prefix hits stay pinned across all of its splits
+                keys = wave_guard(admitted) if wave_guard is not None and admitted else None
+                try:
+                    for i in range(0, len(admitted), wave):
+                        self.engine.prefill_slots(admitted[i : i + wave])
+                        self.prefill_waves += 1
+                finally:
+                    if keys:
+                        self.engine.unprotect_admission_wave(keys)
                 self.admitted_rows += len(admitted)
                 img_pos, _active = self.engine.step_chunk()
                 self.chunks += 1

@@ -1,5 +1,6 @@
-"""Serving engines: the micro-batch `GenerationEngine` and the
-continuous-batching `ContinuousEngine`, and `engine_from_checkpoint`.
+"""Serving engines: the micro-batch `GenerationEngine`, the
+continuous-batching `ContinuousEngine` and its block-paged
+`PagedContinuousEngine`, and `engine_from_checkpoint`.
 
 Counterparts of the JAX package's `serving/engine.py` classes of those
 names. The micro engine keeps a ladder of batch shapes,
@@ -19,9 +20,10 @@ and advances every live slot by `chunk_tokens` per chunk; the
 `ContinuousBatcher` (`serving/batcher.py`) admits prompts into free slots
 and retires finished rows at chunk boundaries. Options: an int8 KV cache
 (`kv_dtype="int8"`) and policy decode sparsity (`decode_sparsity=
-"policy"`, `serving/sparsity.py`). Not ported yet: resume, previews,
-vitals, cost capture, fault injection, the compile cache, and the paged
-and sharded engines.
+"policy"`, `serving/sparsity.py`). The paged engine keeps K/V in a page
+pool with host page tables and a prefix cache (`serving/paging.py`).
+Not ported yet: resume and migration, previews, vitals, cost capture,
+fault injection, the compile cache, and the sharded engines.
 """
 
 from __future__ import annotations
@@ -38,13 +40,20 @@ from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
 from dalle_pytorch_tpu_torch.models.attention import DECODE_SPARSE_BLOCK
 from dalle_pytorch_tpu_torch.models.dalle import (
     DALLE,
+    admit_cached_prefix,
     decode_image_chunk,
+    decode_image_chunk_paged,
     generate_images_cached_batched,
+    init_paged_slot_state,
     init_slot_state,
     prefill_into_slots,
+    prefill_into_slots_paged,
     release_slots,
+    slice_prefix_sidecar,
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.ops.flash_decode import PAGED_DECODE_IMPL, PAGED_DECODE_IMPLS
+from dalle_pytorch_tpu_torch.serving.paging import PagedKVManager
 from dalle_pytorch_tpu_torch.serving.sparsity import DecodeSparsityPolicy
 from dalle_pytorch_tpu_torch.training.pipeline import (
     dalle_from_config,
@@ -326,15 +335,18 @@ class ContinuousEngine(GenerationEngine):
             self._state = self._fresh_state()
             raise
 
-    def kv_bytes_per_slot(self) -> int:
-        """K/V (+ scale) bytes backing one slot."""
-        total = sum(
+    def _kv_cache_bytes(self) -> int:
+        """K/V (+ scale) bytes of the whole cache."""
+        return sum(
             leaf.numel() * leaf.element_size()
             for layer in self._state["cache"].values()
             for key, leaf in layer["attn"].items()
             if key in ("k", "v", "k_scale", "v_scale")
         )
-        return total // self.max_batch
+
+    def kv_bytes_per_slot(self) -> int:
+        """K/V (+ scale) bytes backing one slot."""
+        return self._kv_cache_bytes() // self.max_batch
 
     def prefill_slots(self, assignments: Sequence[Tuple[int, SampleSpec]], _warmup: bool = False) -> None:
         """Admit up to `prefill_batch` (slot, spec) pairs in one prefill;
@@ -364,10 +376,17 @@ class ContinuousEngine(GenerationEngine):
         """Admit one prompt: a one-row `prefill_slots` wave."""
         self.prefill_slots([(slot, spec)], _warmup=_warmup)
 
+    def _pre_chunk(self) -> None:
+        """Host work before a chunk's dispatch (caller holds the lock)."""
+
+    def _chunk_op(self, state: dict, bitmap: Optional[np.ndarray]) -> None:
+        decode_image_chunk(self.model, state, self.chunk_tokens, block_bitmap=bitmap)
+
     def dispatch_chunk(self, _warmup: bool = False) -> None:
         """Launch one chunk's device work: every live slot advances by
         `chunk_tokens`. Reads nothing back from the device."""
         with self._lock:
+            self._pre_chunk()
             bitmap = None
             if self._sparsity is not None:
                 pos, act = self._state["host"]["img_pos"], self._state["host"]["active"]
@@ -376,9 +395,7 @@ class ContinuousEngine(GenerationEngine):
                     read, skipped = self._sparsity.count_tiles(pos, act)
                     self.stats.kv_tiles_read += read
                     self.stats.kv_tiles_skipped += skipped
-            self._run(lambda st: decode_image_chunk(
-                self.model, st, self.chunk_tokens, block_bitmap=bitmap
-            ))
+            self._run(lambda st: self._chunk_op(st, bitmap))
             if not _warmup:
                 self.stats.chunks += 1
                 self.stats.batches += 1
@@ -457,6 +474,311 @@ class ContinuousEngine(GenerationEngine):
         }
 
 
+class PagedContinuousEngine(ContinuousEngine):
+    """Continuous batching over a block-paged KV cache with a prefix cache.
+
+    The slotted engine's serving surface and decode semantics (one chunk
+    body, `models/dalle.py:decode_image_chunk`), with K/V in a pool of
+    `kv_pages` pages of `page_size` positions and host page tables
+    (`serving/paging.py`):
+
+      * device memory follows the tokens held, not `max_batch` worst-case
+        lanes: `kv_pages` may be sized below the slotted footprint, and
+        admission reserves each row's worst case, so lazy per-chunk page
+        allocation never runs dry mid-decode; the batcher keeps a request
+        queued while its pages do not fit (`admission_headroom` /
+        `admission_demand`) and rejects one that never could
+        (`can_ever_admit`);
+      * identical caption prefixes share immutable text pages
+        (content-hash chains, refcounted, copy-on-write at the
+        divergence block), and a full-prompt hit admits with zero
+        prefill dispatches from its cached sidecar.
+
+    `paged_decode_impl` picks the chunk's attention over the pool:
+    "gather" (contiguous views + the contiguous kernels) or "kernel" (the
+    paged kernels); None reads $DALLE_PAGED_DECODE_IMPL (default
+    "gather"). Tokens are the slotted engine's bit for bit either way.
+    `kv_pages` None sizes the pool for every slot at full length plus the
+    garbage page and one row of prefix-cache room.
+    """
+
+    def __init__(
+        self,
+        model: DALLE,
+        vae: Optional[DiscreteVAE] = None,
+        max_batch: int = 8,
+        chunk_tokens: int = 4,
+        prefill_batch: int = 4,
+        cond_scale: float = 1.0,
+        tokenizer=None,
+        page_size: int = 32,
+        kv_pages: Optional[int] = None,
+        prefix_entries: int = 64,
+        kv_dtype: Optional[str] = None,
+        decode_sparsity: str = "causal",
+        paged_decode_impl: Optional[str] = None,
+        device="cuda",
+    ):
+        self.page_size = int(page_size)
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        pages_per_row = -(-(model.total_seq_len + 1) // self.page_size)
+        if kv_pages is None:
+            kv_pages = int(max_batch) * pages_per_row + 1 + pages_per_row
+        self.kv_pages = int(kv_pages)
+        self.prefix_entries = int(prefix_entries)
+        impl = PAGED_DECODE_IMPL if paged_decode_impl is None else paged_decode_impl
+        if impl not in PAGED_DECODE_IMPLS:
+            raise ValueError(f"paged_decode_impl {impl!r} not in {PAGED_DECODE_IMPLS}")
+        self.paged_decode_impl = impl
+        if self.kv_pages < pages_per_row + 1:
+            raise ValueError(
+                f"kv_pages={self.kv_pages} cannot hold a single row "
+                f"({pages_per_row} pages + the garbage page)"
+            )
+        super().__init__(
+            model, vae, max_batch=max_batch, chunk_tokens=chunk_tokens,
+            prefill_batch=prefill_batch, cond_scale=cond_scale, tokenizer=tokenizer,
+            kv_dtype=kv_dtype, decode_sparsity=decode_sparsity, device=device,
+        )
+        if self._sparsity is not None and impl == "kernel" and self._sparsity.block % self.page_size:
+            raise ValueError(
+                f"the paged kernel reads the policy's {self._sparsity.block}-position "
+                f"blocks as whole pages: page_size {self.page_size} must divide it"
+            )
+        #: the last `prefill_slots` call's admission: {"wave_rows",
+        #: "prefix_hits", "hit_slots", "prefix_blocks_reused",
+        #: "suffix_tokens_computed", "dispatches"}
+        self.last_admission_stats: Optional[dict] = None
+
+    def _fresh_state(self) -> dict:
+        """Paged device state and new host page tables, together: after a
+        failed dispatch the pools are rebuilt, so every table, refcount
+        and cached prefix referring into them goes too."""
+        self.kv = PagedKVManager(
+            n_rows=self.max_batch,
+            page_size=self.page_size,
+            max_positions=self.model.total_seq_len + 1,
+            text_positions=self.model.text_seq_len + 1,
+            n_pages=self.kv_pages,
+            max_entries=self.prefix_entries,
+        )
+        return init_paged_slot_state(self.model, self.max_batch, self.kv_pages, self.page_size)
+
+    # --------------------------------------------------------- admission
+
+    @staticmethod
+    def _ids(spec: SampleSpec) -> np.ndarray:
+        return np.asarray(spec.text_ids, np.int32)
+
+    def can_admit(self, specs: Sequence[SampleSpec]) -> bool:
+        """Free + evictable pages cover these rows' worst case on top of
+        live rows' reservations."""
+        return self.kv.can_admit([self._ids(s) for s in specs])
+
+    def admission_headroom(self) -> int:
+        """Pages available for new admissions (the batcher snapshots it
+        once per wave and debits `admission_demand` per request)."""
+        return self.kv.admission_headroom()
+
+    def admission_demand(self, specs: Sequence[SampleSpec]) -> int:
+        """Worst-case page demand of one request's rows."""
+        return sum(self.kv.row_demand(self._ids(s)) for s in specs)
+
+    def can_ever_admit(self, specs: Sequence[SampleSpec]) -> bool:
+        """False when the request could not fit an empty pool."""
+        return self.kv.can_ever_admit(len(specs))
+
+    def protect_admission_wave(self, assignments) -> set:
+        """Pin the prefix entries of a wave's full-prompt hits against
+        eviction until `unprotect_admission_wave`: the batcher budgets a
+        whole wave against one headroom snapshot but dispatches it in
+        `prefill_batch` splits, and an earlier split evicting an entry a
+        later split was budgeted against would overdraw the reservation.
+        Returns the keys it added (pass them back verbatim)."""
+        if not self.kv.cache.enabled:
+            return set()
+        entries = (self.kv.cache.peek_full(self._ids(spec)) for _, spec in assignments)
+        return self.kv.cache.protect(e.key for e in entries if e is not None)
+
+    def unprotect_admission_wave(self, keys) -> None:
+        self.kv.cache.unprotect(keys)
+
+    # --------------------------------------------------------- accounting
+
+    def kv_page_bytes(self) -> int:
+        """Bytes of one page across all layers (K + V + int8 scales)."""
+        return self._kv_cache_bytes() // self.kv_pages
+
+    def kv_bytes_per_slot(self) -> int:
+        """Worst-case bytes one row can pin: its full page complement."""
+        return self.kv_page_bytes() * self.kv.pages_per_row
+
+    def kv_detail(self) -> dict:
+        """Block-pool and prefix-cache snapshot."""
+        cache = self.kv.cache
+        return {
+            "layout": "paged",
+            "paged_decode_impl": self.paged_decode_impl,
+            "page_size": self.page_size,
+            "pages_per_row": self.kv.pages_per_row,
+            "dtype": str(self.model.kv_dtype or self.model.dtype),
+            "bytes_per_page": self.kv_page_bytes(),
+            "blocks_total": self.kv.pool.n_pages - 1,
+            "blocks_active": self.kv.blocks_active,
+            "blocks_free": self.kv.blocks_free,
+            "prefix_cache": {
+                "entries": len(cache),
+                "hits": cache.hits,
+                "misses": cache.misses,
+                "evictions": cache.evictions,
+            },
+        }
+
+    # ----------------------------------------------------------- slot ops
+
+    def prefill_slots(self, assignments: Sequence[Tuple[int, SampleSpec]], _warmup: bool = False) -> None:
+        """Paged admission of up to `prefill_batch` (slot, spec) pairs:
+        full-prompt prefix hits admit from their cached sidecar (no
+        prefill dispatch), before the misses, which run one batched
+        prefill that maps cached prefix blocks into their tables instead
+        of allocating and registers fresh prompts in the cache."""
+        n = len(assignments)
+        if not 1 <= n <= self.prefill_batch:
+            raise ValueError(
+                f"{n} assignments outside [1, prefill_batch={self.prefill_batch}]; "
+                "the batcher splits admission waves"
+            )
+        stats = {
+            "wave_rows": n, "prefix_hits": 0, "hit_slots": [],
+            "prefix_blocks_reused": 0, "suffix_tokens_computed": 0, "dispatches": 0,
+        }
+        hits, misses = [], []
+        for slot, spec in assignments:
+            entry = self.kv.cache.lookup_full(self._ids(spec)) if self.kv.cache.enabled else None
+            if entry is not None:
+                hits.append((slot, spec, entry))
+            else:
+                misses.append((slot, spec))
+        # hit entries stay pinned for the whole wave (see
+        # protect_admission_wave); this pin covers direct callers
+        added = self.kv.cache.protect(entry.key for _, _, entry in hits)
+        kv = self.kv
+        try:
+            self._admit_wave(hits, misses, stats, _warmup)
+        finally:
+            kv.cache.unprotect(added)
+        self.last_admission_stats = stats
+
+    def _admit_wave(self, hits, misses, stats, _warmup) -> None:
+        for slot, spec, entry in hits:
+            if self.kv.cache.lookup_full(self._ids(spec)) is not entry:
+                misses.append((slot, spec))  # evicted mid-wave: a full prefill
+                continue
+            src, dst = self.kv.admit_hit(slot, entry)
+            seed, temp, keep = int(spec.seed) & 0x7FFFFFFF, float(spec.temperature), self._keep_k(spec.top_k)
+            with self._lock:
+                self._run(lambda st: admit_cached_prefix(
+                    self.model, st, slot, entry.sidecar, seed, temp, keep, src, dst, self.page_size
+                ))
+            if not _warmup:
+                self.kv.cache.hits += 1
+            stats["prefix_hits"] += 1
+            stats["hit_slots"].append(slot)
+            stats["prefix_blocks_reused"] += self.kv.n_full_blocks
+        if not misses:
+            return
+        rows = list(misses) + [misses[0]] * (self.prefill_batch - len(misses))
+        texts, slots, seeds, temps, keep = _pack_prefill_rows(rows, self._keep_k)
+        if texts.shape != (self.prefill_batch, self.model.text_seq_len):
+            raise ValueError(
+                f"prompt rows must be [{self.model.text_seq_len}] token ids, got batch {texts.shape}"
+            )
+        page_rows = np.zeros((self.prefill_batch, self.kv.n_text_pages), np.int32)
+        partial_dst = np.zeros(self.prefill_batch, np.int32)
+        pending = []  # (prefill row, registration token)
+        registered = set()  # one prompt twice in a wave registers once
+        # wave-local {chain hash: page}: later rows map earlier rows' pages
+        # for identical leading blocks
+        wave_blocks: dict = {}
+        text_positions = self.model.text_seq_len + 1
+        for i, (slot, spec) in enumerate(misses):
+            ids = self._ids(spec)
+            page_row, pdst, shared, token = self.kv.admit_miss(
+                slot, ids, register=ids.tobytes() not in registered, pending_blocks=wave_blocks
+            )
+            registered.add(ids.tobytes())
+            page_rows[i], partial_dst[i] = page_row, pdst
+            if token is not None:
+                pending.append((i, token))
+            stats["prefix_blocks_reused"] += shared
+            stats["suffix_tokens_computed"] += text_positions - shared * self.page_size
+        # padding rows rewrite row 0's pages with the same bytes; their
+        # snapshot write goes to the garbage page
+        page_rows[len(misses):] = page_rows[0]
+        bitmap = None if self._sparsity is None else self._sparsity.prefill_bitmaps(self.prefill_batch)
+        wave = {}
+        with self._lock:
+            self._run(lambda st: wave.update(sidecar=prefill_into_slots_paged(
+                self.model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
+                self.page_size, block_bitmap=bitmap,
+            )))
+            if not _warmup:
+                self.stats.prefills += len(misses)
+                self.stats.prefill_dispatches += 1
+        for i, token in pending:
+            self.kv.finish_register(token, slice_prefix_sidecar(wave["sidecar"], i))
+        if not _warmup:
+            self.kv.cache.misses += len(misses)
+        stats["dispatches"] += 1
+
+    def _pre_chunk(self) -> None:
+        # lazy decode-page allocation: every live row's table covers its
+        # writes of this chunk (reserved at admission: cannot fail)
+        host = self._state["host"]
+        text_positions = self.model.text_seq_len + 1
+        for slot in np.flatnonzero(host["active"]):
+            end = min(
+                text_positions + int(host["img_pos"][slot]) + self.chunk_tokens,
+                self.kv.max_positions,
+            )
+            self.kv.ensure(int(slot), -(-end // self.page_size))
+
+    def _chunk_op(self, state: dict, bitmap: Optional[np.ndarray]) -> None:
+        decode_image_chunk_paged(
+            self.model, state, self.chunk_tokens, self.kv.table, block_bitmap=bitmap,
+            paged_impl=self.paged_decode_impl,
+        )
+
+    def release(self, slots: Sequence[int]) -> None:
+        """Deactivate `slots` and return the pages of those that were live
+        (a free slot holds none)."""
+        slots = [int(s) for s in slots]
+        with self._lock:
+            was_active = [s for s in slots if self._state["host"]["active"][s]]
+        super().release(slots)
+        for s in was_active:
+            self.kv.release(s)
+
+    def warmup(self) -> None:
+        """A miss wave, a deliberate full-prompt hit of the same prompt, a
+        chunk, the releases and one pixel decode, then a fresh state and
+        fresh page tables (counted in stats.warmup_batches only)."""
+        dummy = SampleSpec(np.zeros(self.model.text_seq_len, np.int32), seed=0)
+        self.prefill_slots([(0, dummy)], _warmup=True)
+        if self.kv.cache.enabled:
+            hit_slot = 1 if self.max_batch > 1 else 0
+            if hit_slot == 0:
+                self.release([0])
+            self.prefill_slots([(hit_slot, dummy)], _warmup=True)
+        self.step_chunk(_warmup=True)
+        self.release(range(min(2, self.max_batch)))
+        self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32))
+        with self._lock:
+            self._state = self._fresh_state()
+            self.stats.warmup_batches += 1
+
+
 def engine_from_checkpoint(
     dalle_path: str,
     batch_shapes: Sequence[int] = (1, 4, 8),
@@ -468,6 +790,10 @@ def engine_from_checkpoint(
     kv_dtype: Optional[str] = None,
     decode_sparsity: Optional[str] = None,
     kv_layout: str = "slot",
+    page_size: int = 32,
+    kv_pages: Optional[int] = None,
+    prefix_entries: int = 64,
+    paged_decode_impl: Optional[str] = None,
     mesh=None,
 ):
     """Build a serving engine from a reference single-file DALLE checkpoint
@@ -475,7 +801,9 @@ def engine_from_checkpoint(
     it was trained with bf16).
 
     `mode="micro"` gives a `GenerationEngine`; `mode="continuous"` a
-    `ContinuousEngine` whose slot count is the largest of `batch_shapes`.
+    `ContinuousEngine` whose slot count is the largest of `batch_shapes`,
+    and with `kv_layout="paged"` a `PagedContinuousEngine` (`page_size`,
+    `kv_pages`, `prefix_entries` and `paged_decode_impl` as there).
     `kv_dtype="int8"` quantizes the KV cache in either mode (None or
     "model" keeps the model dtype); `decode_sparsity="policy"` needs the
     continuous engine. The text vocabulary size comes from the
@@ -490,11 +818,10 @@ def engine_from_checkpoint(
             "decode_sparsity='policy' needs the continuous engine (the "
             "micro-batch sampler has no per-slot bitmaps)"
         )
-    if kv_layout != "slot":
-        raise NotImplementedError(
-            f"kv_layout={kv_layout!r}: the paged engine and its kernels are "
-            "not ported yet (ROADMAP Queue 1 item 7, Queue 2 items 6 and 8)"
-        )
+    if kv_layout not in ("slot", "paged"):
+        raise ValueError(f"unknown kv_layout {kv_layout!r} ('slot' or 'paged')")
+    if kv_layout == "paged" and mode != "continuous":
+        raise ValueError("kv_layout='paged' needs the continuous engine (mode='continuous')")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the sharded continuous engine is not ported yet (ROADMAP "
@@ -523,13 +850,16 @@ def engine_from_checkpoint(
     tokenizer = ByteTokenizer() if vocab == ByteTokenizer().vocab_size else None
     common = dict(cond_scale=cond_scale, tokenizer=tokenizer, device=dev)
     if mode == "continuous":
-        return ContinuousEngine(
-            model.to(dtype),
-            vae.to(dtype),
+        common.update(
             max_batch=max(int(b) for b in batch_shapes),
             chunk_tokens=chunk_tokens,
             prefill_batch=prefill_batch,
             decode_sparsity=decode_sparsity or "causal",
-            **common,
         )
+        if kv_layout == "paged":
+            return PagedContinuousEngine(
+                model.to(dtype), vae.to(dtype), page_size=page_size, kv_pages=kv_pages,
+                prefix_entries=prefix_entries, paged_decode_impl=paged_decode_impl, **common,
+            )
+        return ContinuousEngine(model.to(dtype), vae.to(dtype), **common)
     return GenerationEngine(model.to(dtype), vae.to(dtype), batch_shapes=batch_shapes, **common)

@@ -11,15 +11,22 @@ chunk-boundary snapshot, so the device work is done), then 10 more under
 `torch.profiler` (CPU and CUDA activity), split into device-busy time per
 kernel family and the idle rest.
 
+With `--kv_layout paged` the engine is a `PagedContinuousEngine` (page
+32, the default pool) reading its pages through `--paged_decode_impl`
+("gather": paged_gather + the contiguous kernels; "kernel": the paged
+kernels), as `chip_smoke.py` phase 8 runs it.
+
 Run from the repo root on the machine with the card:
 
     python3 scripts/torch_continuous_profile.py
+    python3 scripts/torch_continuous_profile.py --kv_layout paged --paged_decode_impl kernel
 
 Prints the card's nvidia-smi line, then one JSON line per configuration.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -32,6 +39,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (  # noqa: E402
     CONTINUOUS,
     FLAGSHIP,
+    PAGE,
     PATTERNED,
     SEED,
     flagship_engine,
@@ -44,19 +52,27 @@ CHUNKS = 10
 
 def family(name: str) -> str:
     """kernel_family, with the flash-decode variants told apart by their
-    template arguments (KV type, SPARSE)."""
+    template arguments (KV type, SPARSE, PAGED)."""
     if "flash_decode_kernel" in name:
-        kind = "block_sparse_flash_decode" if ", true>" in name else "flash_decode"
+        args = name.split("flash_decode_kernel<", 1)[1].split(">", 1)[0].split(", ")
+        sparse, paged = (flag == "true" for flag in args[-2:])
+        kind = ("block_sparse_" if sparse else "") + ("paged_" if paged else "") + "flash_decode"
         return kind + (" int8" if "signed char" in name else "") + " (port kernel)"
     return kernel_family(name)
 
 
-def profile_config(torch, model, vae, specs, label, **options):
+def profile_config(torch, model, vae, specs, label, layout, **options):
     from torch.profiler import ProfilerActivity, profile
 
-    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine
+    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine, PagedContinuousEngine
 
-    engine = ContinuousEngine(model, vae, **CONTINUOUS, device="cuda", **options)
+    if layout["kv_layout"] == "paged":
+        engine = PagedContinuousEngine(
+            model, vae, **CONTINUOUS, page_size=PAGE, device="cuda",
+            paged_decode_impl=layout["paged_decode_impl"], **options,
+        )
+    else:
+        engine = ContinuousEngine(model, vae, **CONTINUOUS, device="cuda", **options)
     engine.warmup()
     engine.prefill_slots(list(enumerate(specs)))
     walls = []
@@ -83,6 +99,7 @@ def profile_config(torch, model, vae, specs, label, **options):
     launches = sum(c for _, c in by_name.values())
     return {
         "config": label,
+        **layout,
         "ms_per_chunk": 1e3 * statistics.median(walls),
         "ms_per_token_step": 1e3 * statistics.median(walls) / CONTINUOUS["chunk_tokens"],
         "profiled_wall_s": profiled_wall,
@@ -102,6 +119,13 @@ def main() -> int:
 
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kv_layout", choices=("slot", "paged"), default="slot")
+    parser.add_argument("--paged_decode_impl", choices=("gather", "kernel"), default="kernel")
+    args = parser.parse_args()
+    layout = {"kv_layout": args.kv_layout}
+    if args.kv_layout == "paged":
+        layout["paged_decode_impl"] = args.paged_decode_impl
     if not torch.cuda.is_available():
         print("torch_continuous_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -119,7 +143,7 @@ def main() -> int:
         ("policy", model, dict(decode_sparsity="policy")),
         ("policy+int8 patterned", patterned, dict(decode_sparsity="policy", kv_dtype="int8")),
     ):
-        print(json.dumps(profile_config(torch, m, vae, specs, label, **options)), flush=True)
+        print(json.dumps(profile_config(torch, m, vae, specs, label, layout, **options)), flush=True)
     return 0
 
 

@@ -49,6 +49,7 @@ from dalle_pytorch_tpu_torch.serving.batcher import (
 from dalle_pytorch_tpu_torch.serving.engine import (
     ContinuousEngine,
     GenerationEngine,
+    PagedContinuousEngine,
     SampleSpec,
     SlotAllocator,
     engine_from_checkpoint,
@@ -459,8 +460,14 @@ def test_continuous_engine_from_a_reference_checkpoint(tmp_path, pair):
     assert eng.stats.kv_tiles_read > 0
     micro = engine_from_checkpoint(str(path), batch_shapes=(1,), device="cpu", kv_dtype="int8")
     assert type(micro) is GenerationEngine and micro.model.kv_dtype == "int8"
-    with pytest.raises(NotImplementedError, match="paged"):
-        engine_from_checkpoint(str(path), device="cpu", mode="continuous", kv_layout="paged")
+    paged = engine_from_checkpoint(
+        str(path), batch_shapes=(2,), device="cpu", mode="continuous", kv_layout="paged",
+        page_size=4, paged_decode_impl="kernel", kv_dtype="int8",
+    )
+    assert isinstance(paged, PagedContinuousEngine) and paged.paged_decode_impl == "kernel"
+    assert paged.model.kv_dtype == "int8" and paged.kv_detail()["page_size"] == 4
+    with pytest.raises(NotImplementedError, match="mesh"):
+        engine_from_checkpoint(str(path), device="cpu", mode="continuous", mesh="tp=2")
 
 
 def test_error_probes(pair):

@@ -4,7 +4,8 @@ Two checks: every module of `dalle_pytorch_tpu_torch` and `chip_smoke.py`
 imports in a fresh process whose import system refuses `jax`, `jaxlib`,
 `flax` and the top-level package `dalle_pytorch_tpu` (matched exactly —
 `dalle_pytorch_tpu_torch` shares its prefix); and an AST scan finds no
-import of them in the port's sources.
+import of them in the port's sources: the package, `chip_smoke.py` and
+every `scripts/torch_*.py`.
 """
 
 import ast
@@ -19,11 +20,16 @@ REFUSED = ("jax", "jaxlib", "flax", "dalle_pytorch_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py",
-        REPO / "scripts" / "torch_generate_profile.py",
-        REPO / "scripts" / "torch_train_profile.py",
-    ]
+    return (
+        sorted(PORT.rglob("*.py"))
+        + [REPO / "chip_smoke.py"]
+        + sorted((REPO / "scripts").glob("torch_*.py"))
+    )
+
+
+def test_the_scan_covers_every_port_script():
+    names = {p.name for p in _sources()}
+    assert {"chip_smoke.py", "torch_continuous_profile.py", "paging.py"} <= names
 
 
 def test_port_imports_with_the_reference_refused():
