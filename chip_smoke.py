@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -195,14 +196,14 @@ def attention_closeness(torch, out, ref):
 
 def attention_bound(kind, elt, peaks, dtype_key):
     """(bound_ms, bound_by) of one flash-attention pass at TRAIN's causal
-    shapes: each input read once and each output written once; 4*D (fwd),
-    6*D (dq) or 8*D (dk/dv) flops per visible (query, key) pair."""
+    shapes: each input read once and each output written once; 4*D (fwd:
+    S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per visible (query,
+    key) pair."""
     b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
     rows, pairs = b * h * n, b * h * n * (n + 1) // 2
     nbytes, flops = {
-        "fwd": (4 * rows * d * elt + 4 * rows, 4 * d * pairs),   # q,k,v,o + lse
-        "dq": (5 * rows * d * elt + 8 * rows, 6 * d * pairs),    # q,k,v,do,dq + lse,delta
-        "dkv": (6 * rows * d * elt + 8 * rows, 8 * d * pairs),   # q,k,v,do,dk,dv + lse,delta
+        "fwd": (4 * rows * d * elt + 4 * rows, 4 * d * pairs),    # q,k,v,o + lse
+        "bwd": (7 * rows * d * elt + 8 * rows, 10 * d * pairs),   # q,k,v,do,dq,dk,dv + lse,delta
     }[kind]
     t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks[dtype_key]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -687,8 +688,10 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
     """Each flash-attention kernel against its plain version on the same
     inputs (the kernels run first, so no buffer can hold a plain result),
     under ATTN_TOL; bf16 against both the exact and the rounding-matched
-    plain version. The backward passes take the kernel forward's lse and
-    delta. Returns {kernel: max_abs_err against the exact version}."""
+    plain version. The backward takes the kernel forward's lse and delta,
+    and runs twice: dk and dv must be bit-identical (no atomics), dq's
+    run-to-run difference (the order of its atomic adds) is printed.
+    Returns {kernel: max_abs_err against the exact version}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -697,16 +700,18 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
     fm = None if mask is None else fa.flash_mask(mask, "cuda")
     o, lse = fa.flash_attention_fwd(q, k, v, fm)
     delta = (do.float() * o.float()).sum(-1)
-    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, fm)
-    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, fm)
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm)
     torch.cuda.synchronize()
-    outs = {"fwd": (o, lse), "dq": (dq,), "dkv": (dk, dv)}
+    outs = {"fwd": (o, lse), "bwd": grads}
+    dq_rerun = (grads[0].float() - again[0].float()).abs().max().item()
+    if not (torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])):
+        fail(f"flash_attention_bwd {label} {dtype}: dk or dv differ between two runs")
 
     def plain(p_dtype):
         return {
             "fwd": fa.flash_attention_forward_plain(q, k, v, fm, p_dtype=p_dtype),
-            "dq": (fa.flash_attention_dq_plain(q, k, v, do, lse, delta, fm, p_dtype=p_dtype),),
-            "dkv": fa.flash_attention_dkv_plain(q, k, v, do, lse, delta, fm, p_dtype=p_dtype),
+            "bwd": fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, fm, p_dtype=p_dtype),
         }
 
     refs = {"exact": plain(None)}
@@ -717,7 +722,7 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
         name = f"flash_attention_{kind}"
         for ref_kind, ref in refs.items():
             for i, (out, r) in enumerate(zip(outputs, ref[kind])):
-                tensor = ("o", "lse", "dq", "dk", "dv")[{"fwd": 0, "dq": 2, "dkv": 3}[kind] + i]
+                tensor = ("o", "lse", "dq", "dk", "dv")[{"fwd": 0, "bwd": 2}[kind] + i]
                 if dtype == torch.float32 or tensor == "lse":
                     tol_key = "fp32"
                 elif ref_kind == "exact":
@@ -737,7 +742,8 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
     print(
         f"check flash_attention {label} {str(dtype)[6:]} B={b} H={h} nq={n_q} nk={n_k} D={d}: "
         + ", ".join(f"{k[16:]} {e:.3e}" for k, e in errs.items())
-        + " max_abs_err; element, tile ratios: " + "; ".join(report)
+        + f" max_abs_err; dk, dv bit-identical over two runs, dq run-to-run {dq_rerun:.3e}"
+        + "; element, tile ratios: " + "; ".join(report)
     )
     if failures:
         fail(f"flash_attention {label} {dtype}: " + "; ".join(failures))
@@ -770,19 +776,22 @@ def check_attention(torch):
 
 
 def time_attention(torch, F, peaks, dtype, key, elt):
-    """Kernel, plain and library times of the three passes at TRAIN's
-    causal shapes (inputs rotate over 3 copies). SDPA's backward computes
-    dq, dk and dv in one call: its time is library_ms of both backward
-    rows, beside the sum of theirs."""
+    """Kernel, plain and library times of the two passes at TRAIN's causal
+    shapes (inputs rotate over 3 copies). SDPA's backward computes dq, dk
+    and dv in one call, its own delta included, so beside the backward
+    kernel the row also times the port's whole backward as the autograd
+    Function runs it (delta, then the wrapper: workspace zeroing, the
+    kernel, dq's conversion)."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    sets = []
+    sets, whole_in = [], []
     for _ in range(3):
         q, k, v, do = (torch.randn(b, h, n, d, generator=g, device="cuda").to(dtype) for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v)
         sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        whole_in.append((q, k, v, o, lse, do))
     fwd_in = [s[:3] for s in sets]
     lib_bwd_in = []
     for q, k, v, do, _, _ in sets:
@@ -796,31 +805,31 @@ def time_attention(torch, F, peaks, dtype, key, elt):
     def lib_bwd(out, q, k, v, do):
         return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
 
+    def whole_bwd(q, k, v, o, lse, do):  # _FlashAttention.backward's body
+        delta = (do.float() * o.float()).sum(dim=-1)
+        return fa.flash_attention_bwd(q, k, v, do, lse, delta)
+
     rows = {
         "flash_attention_fwd": dict(
             ms=time_ms(torch, fa.flash_attention_fwd, fwd_in, 30),
             plain_ms=time_ms(torch, fa.flash_attention_forward_plain, fwd_in, 6),
             library_ms=time_ms(torch, lib_fwd, fwd_in, 30),
         ),
-        "flash_attention_dq": dict(
-            ms=time_ms(torch, fa.flash_attention_dq, sets, 30),
-            plain_ms=time_ms(torch, fa.flash_attention_dq_plain, sets, 6),
-        ),
-        "flash_attention_dkv": dict(
-            ms=time_ms(torch, fa.flash_attention_dkv, sets, 30),
-            plain_ms=time_ms(torch, fa.flash_attention_dkv_plain, sets, 6),
+        "flash_attention_bwd": dict(
+            ms=time_ms(torch, fa.flash_attention_bwd, sets, 30),
+            plain_ms=time_ms(torch, fa.flash_attention_bwd_plain, sets, 6),
+            library_ms=time_ms(torch, lib_bwd, lib_bwd_in, 30),
+            whole_backward_ms=time_ms(torch, whole_bwd, whole_in, 30),
         ),
     }
-    lib_bwd_ms = time_ms(torch, lib_bwd, lib_bwd_in, 30)
-    for kind in ("dq", "dkv"):
-        rows[f"flash_attention_{kind}"]["library_ms"] = lib_bwd_ms
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, key)
         print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True, **row)))
+    bwd = rows["flash_attention_bwd"]
     print(
-        f"time flash_attention backward {key}: dq + dk/dv "
-        f"{rows['flash_attention_dq']['ms'] + rows['flash_attention_dkv']['ms']:.3f} ms, "
-        f"SDPA backward {lib_bwd_ms:.3f} ms"
+        f"time flash_attention backward {key}: kernel {bwd['ms']:.4f} ms, whole backward "
+        f"{bwd['whole_backward_ms']:.4f} ms, SDPA backward {bwd['library_ms']:.4f} ms, "
+        f"bound {bwd['bound_ms']:.4f} ms"
     )
     return rows
 
@@ -916,7 +925,7 @@ def run_training(torch, vae, specs):
     step(batch)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    counters = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1336,9 +1345,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s total")
     for name, info in kernels.build_log.items():
         print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
+        entry = ""
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {line.strip()}")
+            compiling = re.search(r"Compiling entry function '([^']+)'", line)
+            if compiling:  # a mangled name: show the kernel and its first int parameter
+                m = re.search(r"\d([a-z][a-z_]*_kernel)(ILi(\d+)E)?", compiling.group(1))
+                entry = (m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) if m else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {entry}: {line.strip()}")
 
     # 2. kernel vs plain ---------------------------------------------------
     cases = {
@@ -1537,12 +1551,13 @@ def main() -> int:
                 max_abs_err=attn_errs[name],
                 **attn_times[name],
                 timed="bf16 causal B=4 H=16 N=1280 D=64"
-                + ("" if name.endswith("fwd") else "; library_ms is SDPA's whole backward"),
+                + ("" if name.endswith("fwd") else "; one fused kernel for dq, dk and dv; "
+                   "library_ms is SDPA's whole backward, whole_backward_ms the port's (delta "
+                   "+ workspace zeroing + kernel + dq conversion)"),
             )
             for name, line in (
-                ("flash_attention_fwd", 129),
-                ("flash_attention_dq", 274),
-                ("flash_attention_dkv", 333),
+                ("flash_attention_fwd", "129"),
+                ("flash_attention_bwd", "274, dalle_pytorch_tpu/ops/pallas_attention.py:333"),
             )
         ] + [
             dict(

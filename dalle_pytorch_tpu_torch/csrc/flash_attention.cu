@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a): the forward pass and its two
-// backward passes (dq, and dk/dv), for training over a whole sequence.
+// Flash attention for Hopper (sm_90a): the forward pass and the backward
+// pass (dq, dk and dv), for training over a whole sequence.
 //
 // Replaces the TPU kernels of `dalle_pytorch_tpu/ops/pallas_attention.py`:
 // `_fwd_kernel` (via `_flash_forward`), `_dq_kernel` and `_dkv_kernel`
@@ -13,9 +13,8 @@
 //             tile layout; tiles whose layout entry is 0 are skipped;
 //   forward:  o = softmax(s) v, lse = m + log(l)      (o in the input
 //             type, lse fp32);
-//   dq:       p = exp(s - lse), ds = p * (do . v^T - delta) * scale,
-//             dq = ds k;
-//   dk/dv:    dv = p^T do, dk = ds^T q.
+//   backward: p = exp(s - lse), ds = p * (do . v^T - delta) * scale,
+//             dq = ds k, dk = ds^T q, dv = p^T do.
 // delta = rowsum(do * o) in fp32 is computed outside (as the reference
 // does). Masked scores take the finite value -1e30 in the forward, as in
 // the Pallas kernel, so a row's first fully masked tile is wiped out by the
@@ -23,27 +22,32 @@
 // mask check enforces it).
 //
 // What bounds it: at the training shapes (N = 1280, D = 64) the work is
-// ~N^2/2 pairs of 4-8 D-long dot products per head, so the kernels are
-// bound by operations, not bytes (K/V are re-read once per 64-row tile
-// and stay in L2). Design, simple first:
-//   * one thread block per (64-row tile, head, batch row); the block loops
-//     over its own 64-wide tiles of the other operand, so Pallas's
-//     sequential grid axis becomes an in-block loop and nothing crosses
-//     blocks. Causal blocks stop at the last live key tile (forward, dq)
-//     or start at the first live query tile (dk/dv); mask blocks skip the
-//     tiles the layout marks empty;
+// ~N^2/2 visible pairs per head, 4 D flops each in the forward (two
+// products) and 10 D in the backward (five: S and dP once, then dV, dK,
+// dQ), so both passes are bound by operations, not bytes. Design:
+//   * forward: one thread block per (64-row tile, head, batch row),
+//     looping over its own 64-wide key tiles, so Pallas's sequential grid
+//     axis becomes an in-block loop and nothing crosses blocks; causal
+//     blocks stop at the last live key tile, mask blocks skip the tiles the
+//     layout marks empty;
+//   * backward in bfloat16: one fused pass, FlashAttention-2's (second
+//     half of this file): a block per (64-key tile, head, batch row) loops
+//     over the query tiles that see its keys, computes S and dP once per
+//     tile, accumulates dK and dV in registers and adds dQ into an fp32
+//     workspace with atomics; operands by ldmatrix from padded row-major
+//     tiles (no transposed copies), the next query tile loaded by cp.async
+//     while the current one computes;
 //   * bfloat16 inputs run on tensor cores (`mma.sync.m16n8k16`, fp32
-//     accumulators; 4 warps of 16 rows, see the second half of this
-//     file). P (forward, dv) and dS (dq, dk) are rounded to bf16 before
-//     their second product, as FlashAttention does; the softmax state
-//     (m, l, lse) and every sum stay fp32;
+//     accumulators). P (forward, dv) and dS (dq, dk) are rounded to bf16
+//     before their second product, as FlashAttention does -- dS once, for
+//     both dk and dq; the softmax state (m, l, lse) and every sum stay fp32;
 //   * float32 inputs keep fp32 arithmetic on CUDA cores (256 threads,
 //     each owning a 4 x 4 patch of the 64 x 64 score tile and a 4 x D/16
 //     patch of the accumulator; tiles staged as fp32 with rows padded to
 //     D + 4 so float4 reads are conflict-free); the online softmax reduces
-//     over the 16 lanes of a half-warp.
-// Not done yet: ldmatrix, cp.async/TMA double buffering, wgmma, a fused
-// one-pass backward.
+//     over the 16 lanes of a half-warp; the backward is two passes, dq (by
+//     query tile) and dk/dv (by key tile), each recomputing p.
+// Not done yet: wgmma, TMA, a pipelined forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -425,11 +429,10 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core path for bfloat16 inputs: the same three functions with the
-// products on `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators). A
+// Tensor-core path for bfloat16 inputs, with the products on
+// `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators). The forward: a
 // block of 4 warps owns a 64-row tile, 16 rows per warp; tiles are staged
-// in shared memory as bf16 (row stride D + 8, and a transposed copy where
-// the second product needs the key or query index as its reduction axis),
+// in shared memory as bf16 (row stride D + 8, and a transposed copy of V),
 // and fragments are read with 32-bit loads that hit 32 distinct banks. The
 // score / probability tile stays in the accumulator registers: its rows
 // reduce over the 4 lanes of a quad, and it becomes the A operand of the
@@ -625,161 +628,309 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused bfloat16 backward: dq, dk and dv in one pass (FlashAttention-2's
+// backward). One block of 4 warps per (64-key tile, head, batch row); the
+// block loops over the query tiles that see its keys, each warp owning 16
+// keys. Per query tile it computes S^T = K Q^T and dP^T = V dO^T once
+// (16 keys x 64 queries a warp), P^T = exp(S^T scale - lse) and
+// dS^T = P^T (dP^T - delta) scale in registers, rounds both to bf16 once,
+// and runs the three second products from them:
+//   dV += P^T dO and dK += dS^T Q  in fp32 registers (A from registers, B
+//                                   by ldmatrix.trans of the row-major tile);
+//   dQ += dS K                      dS^T goes through shared memory once
+//                                   (bf16, the same rounded values), since
+//                                   dq reduces over the keys the warps
+//                                   split; each warp then owns 16 query rows
+//                                   over all 64 keys and adds them into an
+//                                   fp32 workspace with float4 atomics.
+// A query tile is taken in two halves of 32 queries, so only half the
+// score tile is live in registers beside dK and dV: 3 blocks fit an SM.
+// Every operand is read with ldmatrix (x4, .trans where the reduction axis
+// is the tile's row index) from row-major tiles padded by 8 bf16, so the 8
+// rows of each 8x8 matrix hit 8 distinct 16-byte bank groups. The next
+// query tile's Q, dO, lse and delta arrive by cp.async into the other of two
+// stages while the current tile's products run. The arm's mask is applied
+// only where a tile needs it: causal tiles crossing the diagonal, tiles past
+// nq or nk, and every live tile of the static-mask arm (its layout marks
+// tiles live or empty, not full). P is formed as the plain version forms
+// it, exp(fl(fl(s scale) - lse)) with no contraction, not as exp2 with
+// log2(e) folded in: that saves instructions but moves P's fp32 value by
+// ~1e-6, enough to flip its bf16 rounding on ~1e-5 of the scores, and
+// where a key is seen by few rows (the axial image keys, ~16) one flip
+// is a 1e-3 share of its dv. dk and dv have no atomics and are
+// bit-identical from run to run; dq's fp32 sum order follows the atomics'
+// arrival and may differ in its last bits.
+
+constexpr int kBwdThreads = 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16 bytes (or 4) global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [row0, row0 + 64) of a row-major [n, D] bf16 matrix -> shared memory
+// with row stride D + 8, asynchronously (rows >= n are zero)
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const uint8_t* __restrict__ mask, const int* __restrict__ layout,
-              bf16* __restrict__ dq, int H, int nq, int nk, int mode, float scale) {
-  constexpr int LD = D + 8, NBD = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + kBlock * LD;
-  bf16* ks = dos + kBlock * LD;
-  bf16* vs = ks + kBlock * LD;
-  bf16* kts = vs + kBlock * LD;  // [D][64 + 8]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const size_t bh = (size_t)b * H + h;
-  const int q0 = qt * kBlock;
-  const int ktiles = (nk + kBlock - 1) / kBlock;
-  const int kend = mode == 1 ? min(ktiles, (q0 + kBlock - 1) / kBlock + 1) : ktiles;
-
-  stage_rows<D>(qs, q + bh * nq * D, q0, nq);
-  stage_rows<D>(dos, dout + bh * nq * D, q0, nq);
-  float row_lse[2], row_delta[2], acc[NBD][4];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = q0 + r0 + g + 8 * hh;
-    row_lse[hh] = r < nq ? lse[bh * nq + r] : 0.f;
-    row_delta[hh] = r < nq ? delta[bh * nq + r] : 0.f;
-  }
-#pragma unroll
-  for (int nb = 0; nb < NBD; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-
-  for (int kt = 0; kt < kend; ++kt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;
-    const int k0 = kt * kBlock;
-    __syncthreads();
-    stage_rows<D>(ks, k + bh * nk * D, k0, nk);
-    stage_rows<D>(vs, v + bh * nk * D, k0, nk);
-    stage_cols<D>(kts, k + bh * nk * D, k0, nk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_rows<D, 8, LD, LD>(s, qs, ks, r0, g, t);
-    mma_rows<D, 8, LD, LD>(dp, dos, vs, r0, g, t);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + r0 + g + 8 * (e / 2), c = k0 + nb * 8 + 2 * t + (e % 2);
-        const float p = visible(r, c, nq, nk, mode, mask)
-                            ? expf(s[nb][e] * scale - row_lse[e / 2]) : 0.f;
-        s[nb][e] = p * (dp[nb][e] - row_delta[e / 2]) * scale;  // dS
-      }
-    mma_p<D>(acc, s, kts, g, t);
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = q0 + r0 + g + 8 * hh;
-    if (r >= nq) continue;
-    bf16* row = dq + (bh * nq + r) * D + 2 * t;
-#pragma unroll
-    for (int nb = 0; nb < NBD; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(row + nb * 8) =
-          __floats2bfloat162_rn(acc[nb][2 * hh], acc[nb][2 * hh + 1]);
+__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* __restrict__ src, int row0,
+                                                 int n) {
+  constexpr int CH = D / 8, LD = D + 8;
+  for (int c = threadIdx.x; c < kBlock * CH; c += kBwdThreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * LD + d0, src + (size_t)(ok ? row0 + r : 0) * D + d0, ok);
   }
 }
 
-// each warp owns 16 KEYS of the block's tile; the score tile is transposed
-// (rows keys, columns the streamed query tile's rows)
+// dst[0 .. 4) += x in global memory (16-byte aligned), one vector atomic
+// on sm_90
+__device__ __forceinline__ void red_add4(float* dst, float4 x) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  atomicAdd(reinterpret_cast<float4*>(dst), x);
+#else
+  atomicAdd(dst, x.x);
+  atomicAdd(dst + 1, x.y);
+  atomicAdd(dst + 2, x.z);
+  atomicAdd(dst + 3, x.w);
+#endif
+}
+
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+constexpr size_t bwd_mma_smem() {
+  // K, V; two stages of Q and dO; dS^T; two stages of lse and delta
+  return sizeof(bf16) * (6 * kBlock * (D + 8) + kBlock * kLDT) + sizeof(float) * 4 * kBlock;
+}
+
+// at most 170 registers a thread, so 3 blocks share an SM; at D = 128 the
+// shared memory (115 KB a block) fits only 2, so the registers may too
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, D == 128 ? 2 : 3)
+bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const uint8_t* __restrict__ mask, const int* __restrict__ layout,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int nq, int nk, int mode,
-               float scale) {
-  constexpr int LD = D + 8, NBD = D / 8;
+               float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv, int nq,
+               int nk, int mode, float scale) {
+  constexpr int LD = D + 8, NBD = D / 8, DC = D < 64 ? D : 64;
   extern __shared__ float4 smem4[];
   bf16* ks = reinterpret_cast<bf16*>(smem4);
   bf16* vs = ks + kBlock * LD;
-  bf16* qs = vs + kBlock * LD;
-  bf16* dos = qs + kBlock * LD;
-  bf16* qts = dos + kBlock * LD;   // [D][64 + 8]
-  bf16* dots = qts + D * kLDT;     // [D][64 + 8]
-  float* lse_s = reinterpret_cast<float*>(dots + D * kLDT);
-  float* delta_s = lse_s + kBlock;
+  bf16* qs0 = vs + kBlock * LD;         // stage s at qs0 + s * 64 * LD
+  bf16* dos0 = qs0 + 2 * kBlock * LD;
+  bf16* dsts = dos0 + 2 * kBlock * LD;  // dS^T [key][query], stride 64 + 8
+  float* lse_s0 = reinterpret_cast<float*>(dsts + kBlock * kLDT);  // [2][64]
+  float* delta_s0 = lse_s0 + 2 * kBlock;
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y is the key tile, the slowest grid index: causal key tile 0,
+  // which the most query tiles see, is scheduled first
+  const size_t bh = blockIdx.x;
+  const int kt = blockIdx.y;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const size_t bh = (size_t)b * H + h;
-  const bf16* qb = q + bh * nq * D;
-  const bf16* db = dout + bh * nq * D;
+  const int r0 = (threadIdx.x / 32) * 16;  // this warp's 16 keys, and its 16 dq rows
   const int k0 = kt * kBlock;
   const int ktiles = (nk + kBlock - 1) / kBlock;
   const int qtiles = (nq + kBlock - 1) / kBlock;
-  const int qbegin = mode == 1 ? k0 / kBlock : 0;
+  const bf16* qb = q + bh * nq * D;
+  const bf16* db = dout + bh * nq * D;
+  const float* lb = lse + bh * nq;
+  const float* deb = delta + bh * nq;
 
-  stage_rows<D>(ks, k + bh * nk * D, k0, nk);
-  stage_rows<D>(vs, v + bh * nk * D, k0, nk);
+  auto next_live = [&](int qt) {
+    if (mode == 2)
+      while (qt < qtiles && layout[qt * ktiles + kt] == 0) ++qt;
+    return qt;
+  };
+  auto stage_q = [&](int s, int qt) {
+    const int q0 = qt * kBlock;
+    stage_rows_async<D>(qs0 + s * kBlock * LD, qb, q0, nq);
+    stage_rows_async<D>(dos0 + s * kBlock * LD, db, q0, nq);
+    const int r = threadIdx.x % kBlock;  // 128 threads: lse by 0..63, delta by 64..127
+    const bool ok = q0 + r < nq;
+    if (threadIdx.x < kBlock)
+      cp_async4(lse_s0 + s * kBlock + r, lb + (ok ? q0 + r : 0), ok);
+    else
+      cp_async4(delta_s0 + s * kBlock + r, deb + (ok ? q0 + r : 0), ok);
+  };
+
+  // causal: the first query tile whose rows reach key k0 (none when nk > nq
+  // puts the whole key tile past the last query)
+  int qt = next_live(mode == 1 ? k0 / kBlock : 0);
+  if (qt < qtiles) {
+    stage_rows_async<D>(ks, k + bh * nk * D, k0, nk);
+    stage_rows_async<D>(vs, v + bh * nk * D, k0, nk);
+    stage_q(0, qt);
+  }
+  cp_async_commit();
+
   float dk_acc[NBD][4], dv_acc[NBD][4];
 #pragma unroll
   for (int nb = 0; nb < NBD; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
 
-  for (int qt = qbegin; qt < qtiles; ++qt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;
-    const int q0 = qt * kBlock;
-    __syncthreads();
-    stage_rows<D>(qs, qb, q0, nq);
-    stage_rows<D>(dos, db, q0, nq);
-    stage_cols<D>(qts, qb, q0, nq);
-    stage_cols<D>(dots, db, q0, nq);
-    for (int r = threadIdx.x; r < kBlock; r += kMmaThreads) {
-      lse_s[r] = q0 + r < nq ? lse[bh * nq + q0 + r] : 0.f;
-      delta_s[r] = q0 + r < nq ? delta[bh * nq + q0 + r] : 0.f;
+  for (int it = 0; qt < qtiles; ++it) {
+    const int st = it & 1;
+    const int qn = next_live(qt + 1);
+    if (qn < qtiles) {
+      stage_q(st ^ 1, qn);  // that stage's last readers passed this tile's second barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // this tile has landed; the previous tile's dS^T reads are done
+    const bf16* qs = qs0 + st * kBlock * LD;
+    const bf16* dos = dos0 + st * kBlock * LD;
+    const float* lse_s = lse_s0 + st * kBlock;
+    const float* delta_s = delta_s0 + st * kBlock;
+    const int q0 = qt * kBlock;
 
-    float s[8][4], dp[8][4];
+    // in two halves of 32 queries, so only half the score tile is live in
+    // registers beside dK and dV
+    const bool full = mode != 2 && q0 + kBlock <= nq && k0 + kBlock <= nk &&
+                      (mode == 0 || k0 + kBlock - 1 <= q0);
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int half = 0; half < 2; ++half) {
+      const int qh = half * 32;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
+      float s[4][4], dp[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_rows<D, 8, LD, LD>(s, ks, qs, r0, g, t);
-    mma_rows<D, 8, LD, LD>(dp, vs, dos, r0, g, t);
+      for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = k0 + r0 + g + 8 * (e / 2), rl = nb * 8 + 2 * t + (e % 2);
-        // padded query rows (>= nq) are dropped here: their lse never
-        // reaches dk/dv
-        const float p = visible(q0 + rl, c, nq, nk, mode, mask)
-                            ? expf(s[nb][e] * scale - lse_s[rl]) : 0.f;
-        s[nb][e] = p;
-        dp[nb][e] = p * (dp[nb][e] - delta_s[rl]) * scale;  // dS^T
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t ak[4], av[4];
+        const int arow = (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8;
+        ldsm_x4(ak, ks + arow);
+        ldsm_x4(av, vs + arow);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int brow =
+              (qh + np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kc * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, qs + brow);
+          mma_bf16(s[2 * np], ak, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], ak, b[2], b[3]);
+          ldsm_x4(b, dos + brow);
+          mma_bf16(dp[2 * np], av, b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
+        }
       }
-    mma_p<D>(dv_acc, s, dots, g, t);
-    mma_p<D>(dk_acc, dp, qts, g, t);
+
+      // P^T and dS^T, rounded to bf16 once, as A fragments over this
+      // half's two 16-query steps (a[kc][(nb & 1) * 2 + hh]); dS^T also to
+      // shared memory
+      uint32_t pa[2][4], dsa[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int ql = qh + nb * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + ql);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + ql);
+        const float lq[2] = {l2.x, l2.y}, de[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int kl = r0 + g + 8 * hh;
+          float p[2], ds[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            p[j] = expf(__fsub_rn(__fmul_rn(s[nb][2 * hh + j], scale), lq[j]));
+            if (!full && !visible(q0 + ql + j, k0 + kl, nq, nk, mode, mask)) p[j] = 0.f;
+            ds[j] = p[j] * (dp[nb][2 * hh + j] - de[j]) * scale;
+          }
+          pa[nb >> 1][(nb & 1) * 2 + hh] = pack_bf16(p[0], p[1]);
+          const uint32_t d2 = pack_bf16(ds[0], ds[1]);
+          dsa[nb >> 1][(nb & 1) * 2 + hh] = d2;
+          *reinterpret_cast<uint32_t*>(dsts + kl * kLDT + ql) = d2;
+        }
+      }
+
+      // dV += P^T dO, dK += dS^T Q (reduction over this half's queries)
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          const int brow = (qh + kc * 16 + (lane & 15)) * LD + nd * 16 + (lane >> 4) * 8;
+          uint32_t b[4];
+          ldsm_x4_t(b, dos + brow);
+          mma_bf16(dv_acc[2 * nd], pa[kc], b[0], b[1]);
+          mma_bf16(dv_acc[2 * nd + 1], pa[kc], b[2], b[3]);
+          ldsm_x4_t(b, qs + brow);
+          mma_bf16(dk_acc[2 * nd], dsa[kc], b[0], b[1]);
+          mma_bf16(dk_acc[2 * nd + 1], dsa[kc], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // dS^T is complete
+
+    // dQ[r0 .. r0 + 16) += dS K over the 64 keys, in 64-column chunks,
+    // added into the fp32 workspace
+#pragma unroll
+    for (int dc = 0; dc < D / DC; ++dc) {
+      float acc[DC / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < DC / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t a[4];
+        ldsm_x4_t(a, dsts + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kLDT + r0 +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int nd = 0; nd < DC / 16; ++nd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, ks + (kc * 16 + (lane & 15)) * LD + dc * DC + nd * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * nd], a, b[0], b[1]);
+          mma_bf16(acc[2 * nd + 1], a, b[2], b[3]);
+        }
+      }
+      // lanes t and t ^ 1 swap halves so that each adds 4 adjacent columns:
+      // even t row g, columns 2t .. 2t + 3; odd t row g + 8, 2t - 2 .. 2t + 1
+      const int odd = t & 1;
+      const int r = q0 + r0 + g + 8 * odd;
+      float* row = dq_acc + (bh * nq + r) * D + dc * DC + 2 * (t - odd);
+#pragma unroll
+      for (int nb = 0; nb < DC / 8; ++nb) {
+        const float send0 = odd ? acc[nb][0] : acc[nb][2];
+        const float send1 = odd ? acc[nb][1] : acc[nb][3];
+        const float got0 = __shfl_xor_sync(0xffffffffu, send0, 1);
+        const float got1 = __shfl_xor_sync(0xffffffffu, send1, 1);
+        const float4 x = odd ? make_float4(got0, got1, acc[nb][2], acc[nb][3])
+                             : make_float4(acc[nb][0], acc[nb][1], got0, got1);
+        if (r < nq) red_add4(row + nb * 8, x);
+      }
+    }
+    qt = qn;
   }
 
-  // every block writes its rows, zeros when no query tile was live
+  // every block writes its keys' rows, zeros when no query tile was live
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int c = k0 + r0 + g + 8 * hh;
@@ -796,6 +947,17 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// the fp32 dq workspace -> dq in bfloat16, 4 values a thread
+__global__ void dq_convert_kernel(const float4* __restrict__ src, __nv_bfloat162* __restrict__ dst,
+                                  size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 x = src[i];
+    dst[2 * i] = __floats2bfloat162_rn(x.x, x.y);
+    dst[2 * i + 1] = __floats2bfloat162_rn(x.z, x.w);
+  }
+}
+
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (3 * kBlock * (D + 4) + kBlock * kPLD); }
 template <int D>
@@ -807,12 +969,6 @@ constexpr size_t dkv_smem() {
 
 template <int D>
 constexpr size_t fwd_mma_smem() { return sizeof(bf16) * (2 * kBlock * (D + 8) + D * kLDT); }
-template <int D>
-constexpr size_t dq_mma_smem() { return sizeof(bf16) * (4 * kBlock * (D + 8) + D * kLDT); }
-template <int D>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * (4 * kBlock * (D + 8) + 2 * D * kLDT) + sizeof(float) * 2 * kBlock;
-}
 
 // dynamic shared memory above 48 KB must be opted into once per kernel
 template <typename Kernel>
@@ -822,15 +978,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *mask, *layout;
-  void *o, *lse_out, *dq, *dk, *dv;
+  void *o, *lse_out, *dq, *dk, *dv, *dq_acc;
   int B, H, nq, nk, mode;
   float scale;
   cudaStream_t stream;
 };
 
-enum Pass { kFwd, kDq, kDkv };
+enum Pass { kFwd, kBwd };
 
-// float32 inputs: the CUDA-core kernels
+// float32 inputs: the CUDA-core kernels (the backward as two launches, dq
+// and dk/dv)
 template <int D>
 cudaError_t run_cuda_cores(Pass pass, const Args& a) {
   const auto* q = static_cast<const float*>(a.q);
@@ -841,56 +998,60 @@ cudaError_t run_cuda_cores(Pass pass, const Args& a) {
   const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const uint8_t*>(a.mask);
   const auto* layout = static_cast<const int*>(a.layout);
-  const dim3 grid(((pass == kDkv ? a.nk : a.nq) + kBlock - 1) / kBlock, a.H, a.B);
+  const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
   cudaError_t err;
   if (pass == kFwd) {
     if ((err = allow_smem(fwd_kernel<D>, fwd_smem<D>())) != cudaSuccess) return err;
     fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), a.stream>>>(
         q, k, v, mask, layout, static_cast<float*>(a.o), static_cast<float*>(a.lse_out), a.H,
         a.nq, a.nk, a.mode, a.scale);
-  } else if (pass == kDq) {
-    if ((err = allow_smem(dq_kernel<D>, dq_smem<D>())) != cudaSuccess) return err;
-    dq_kernel<D><<<grid, kThreads, dq_smem<D>(), a.stream>>>(
-        q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dq), a.H, a.nq, a.nk,
-        a.mode, a.scale);
-  } else {
-    if ((err = allow_smem(dkv_kernel<D>, dkv_smem<D>())) != cudaSuccess) return err;
-    dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), a.stream>>>(
-        q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dk),
-        static_cast<float*>(a.dv), a.H, a.nq, a.nk, a.mode, a.scale);
+    return cudaGetLastError();
   }
+  if ((err = allow_smem(dq_kernel<D>, dq_smem<D>())) != cudaSuccess) return err;
+  dq_kernel<D><<<grid, kThreads, dq_smem<D>(), a.stream>>>(
+      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dq), a.H, a.nq, a.nk,
+      a.mode, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(dkv_kernel<D>, dkv_smem<D>())) != cudaSuccess) return err;
+  const dim3 kgrid((a.nk + kBlock - 1) / kBlock, a.H, a.B);
+  dkv_kernel<D><<<kgrid, kThreads, dkv_smem<D>(), a.stream>>>(
+      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.H, a.nq, a.nk, a.mode, a.scale);
   return cudaGetLastError();
 }
 
-// bfloat16 inputs: the tensor-core kernels
+// bfloat16 inputs: the tensor-core kernels (the backward as the fused
+// kernel between zeroing the dq workspace and converting it)
 template <int D>
 cudaError_t run_tensor_cores(Pass pass, const Args& a) {
   const auto* q = static_cast<const bf16*>(a.q);
   const auto* k = static_cast<const bf16*>(a.k);
   const auto* v = static_cast<const bf16*>(a.v);
-  const auto* dout = static_cast<const bf16*>(a.dout);
-  const auto* lse = static_cast<const float*>(a.lse);
-  const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const uint8_t*>(a.mask);
   const auto* layout = static_cast<const int*>(a.layout);
-  const dim3 grid(((pass == kDkv ? a.nk : a.nq) + kBlock - 1) / kBlock, a.H, a.B);
   cudaError_t err;
   if (pass == kFwd) {
     if ((err = allow_smem(fwd_mma_kernel<D>, fwd_mma_smem<D>())) != cudaSuccess) return err;
+    const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
     fwd_mma_kernel<D><<<grid, kMmaThreads, fwd_mma_smem<D>(), a.stream>>>(
         q, k, v, mask, layout, static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.H,
         a.nq, a.nk, a.mode, a.scale);
-  } else if (pass == kDq) {
-    if ((err = allow_smem(dq_mma_kernel<D>, dq_mma_smem<D>())) != cudaSuccess) return err;
-    dq_mma_kernel<D><<<grid, kMmaThreads, dq_mma_smem<D>(), a.stream>>>(
-        q, k, v, dout, lse, delta, mask, layout, static_cast<bf16*>(a.dq), a.H, a.nq, a.nk,
-        a.mode, a.scale);
-  } else {
-    if ((err = allow_smem(dkv_mma_kernel<D>, dkv_mma_smem<D>())) != cudaSuccess) return err;
-    dkv_mma_kernel<D><<<grid, kMmaThreads, dkv_mma_smem<D>(), a.stream>>>(
-        q, k, v, dout, lse, delta, mask, layout, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.H, a.nq, a.nk, a.mode, a.scale);
+    return cudaGetLastError();
   }
+  const size_t n = (size_t)a.B * a.H * a.nq * D;
+  auto* dq_acc = static_cast<float*>(a.dq_acc);
+  if ((err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), a.stream)) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd_mma_kernel<D>, bwd_mma_smem<D>())) != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.nk + kBlock - 1) / kBlock);
+  bwd_mma_kernel<D><<<grid, kBwdThreads, bwd_mma_smem<D>(), a.stream>>>(
+      q, k, v, static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), mask, layout, dq_acc, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.nq, a.nk, a.mode, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t n4 = n / 4;  // D is a multiple of 16
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  dq_convert_kernel<<<blocks, 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(dq_acc), static_cast<__nv_bfloat162*>(a.dq), n4);
   return cudaGetLastError();
 }
 
@@ -901,9 +1062,11 @@ cudaError_t run(Pass pass, int dtype, const Args& a) {
 
 int dispatch(Pass pass, int D, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.nq <= 0 || a.nk <= 0 || a.B > 65535 || a.H > 65535 ||
+      (size_t)a.B * a.H > 2147483647u ||
       a.mode < 0 || a.mode > 2 || (a.mode == 2 && (a.mask == nullptr || a.layout == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (pass == kBwd && dtype == 1 && a.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16: return (int)run<16>(pass, dtype, a);
     case 32: return (int)run<32>(pass, dtype, a);
@@ -931,28 +1094,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return dispatch(kFwd, D, dtype, a);
 }
 
-extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse, const void* delta,
-                                  const void* mask, const void* layout, void* dq, int B, int H,
-                                  int nq, int nk, int D, int dtype, int mode, float scale,
-                                  void* stream) {
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.mask = mask;
-  a.layout = layout; a.dq = dq;
-  a.B = B; a.H = H; a.nq = nq; a.nk = nk; a.mode = mode; a.scale = scale;
-  a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch(kDq, D, dtype, a);
-}
-
-extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
+// The backward: dq, dk and dv. bfloat16 needs `dq_acc`, a float32
+// [B,H,nq,D] workspace that this zeroes, the fused kernel accumulates into
+// and a last kernel converts into dq; float32 ignores it.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
-                                   const void* mask, const void* layout, void* dk, void* dv,
-                                   int B, int H, int nq, int nk, int D, int dtype, int mode,
-                                   float scale, void* stream) {
+                                   const void* mask, const void* layout, void* dq, void* dk,
+                                   void* dv, void* dq_acc, int B, int H, int nq, int nk, int D,
+                                   int dtype, int mode, float scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.mask = mask;
-  a.layout = layout; a.dk = dk; a.dv = dv;
+  a.layout = layout; a.dq = dq; a.dk = dk; a.dv = dv; a.dq_acc = dq_acc;
   a.B = B; a.H = H; a.nq = nq; a.nk = nk; a.mode = mode; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch(kDkv, D, dtype, a);
+  return dispatch(kBwd, D, dtype, a);
 }

@@ -1,5 +1,5 @@
 """Flash attention for training: the wrappers of `csrc/flash_attention.cu`
-(forward, dq, dk/dv), their plain PyTorch versions, and the differentiable
+(forward; backward), their plain PyTorch versions, and the differentiable
 `flash_attention` built from them.
 
 Replaces the TPU kernels of the JAX package's `ops/pallas_attention.py`:
@@ -7,9 +7,9 @@ Replaces the TPU kernels of the JAX package's `ops/pallas_attention.py`:
 (`_flash_backward`), and the custom VJP of its `flash_attention`. Layout
 [B, H, N, D] as there. Functions, with s = q . k^T * scale:
 
-    forward:  o = softmax(s) v,  lse = logsumexp(s)        -> (o, lse)
-    dq:       p = exp(s - lse), ds = p (do . v^T - delta) scale,  dq = ds k
-    dk/dv:    dv = p^T do,  dk = ds^T q
+    forward:   o = softmax(s) v,  lse = logsumexp(s)        -> (o, lse)
+    backward:  p = exp(s - lse), ds = p (do . v^T - delta) scale,
+               dq = ds k,  dk = ds^T q,  dv = p^T do        -> (dq, dk, dv)
 
 over the visible (query, key) pairs of one of three arms: all keys; causal
 (key <= query in global indices, the reference's top-left convention, also
@@ -21,17 +21,24 @@ must see a key. delta = rowsum(do * o) is computed in float32 outside the
 kernels, as the reference does. Accumulation is float32 whatever the input
 type (float32 or bfloat16); o, dq, dk, dv come out in the input type, lse
 in float32 [B, H, n_q]. On the card, bfloat16 inputs run on tensor cores
-and round P (and dS) to bfloat16 before the second product, as
-FlashAttention does; float32 inputs keep float32 arithmetic throughout.
-The plain versions round P and dS only when asked (`p_dtype`): then they
-form and round them as the tensor-core kernels do, the forward's P per
-64-key tile against the running row maximum, so a kernel can be held to
-its own rounding and not only to the exact function.
+and round P and dS to bfloat16 before their second products, as
+FlashAttention does (dS once, for both dk and dq); float32 inputs keep
+float32 arithmetic throughout. The plain versions round P and dS only when
+asked (`p_dtype`): then they form and round them as the tensor-core
+kernels do, the forward's P per 64-key tile against the running row
+maximum, so a kernel can be held to its own rounding and not only to the
+exact function.
 
-On the card the kernels are bound by operations at the training shapes
-(see the source's header). Each wrapper runs its kernel for CUDA tensors
-and its plain version for CPU tensors, by the tensor's device alone, never
-as a fallback, and counts kernel launches in `.launches`.
+On the card the kernels are bound by operations at the training shapes:
+4 D flops per visible pair forward, 10 D backward (S and dP once, then
+dV, dK and dQ). The bfloat16 backward is one fused kernel
+(FlashAttention-2's one pass: a block per key tile loops over the query
+tiles, dq added into a float32 workspace with atomics, so dq's last bits
+may change from run to run while dk and dv are bit-identical); the float32
+backward is two CUDA-core kernels, dq and dk/dv (see the source's header).
+Each wrapper runs its kernel for CUDA tensors and its plain version for
+CPU tensors, by the tensor's device alone, never as a fallback, and counts
+passes launched on the card in `.launches`.
 """
 
 from __future__ import annotations
@@ -217,6 +224,22 @@ def flash_attention_dkv_plain(
     return dk.to(k.dtype), dv.to(k.dtype)
 
 
+def flash_attention_bwd_plain(
+    q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None, *, p_dtype=None
+):
+    """(dq, dk, dv) in the inputs' dtype, P and dS formed once; with
+    `p_dtype`, P and dS enter their second products rounded to it, dS
+    rounded once for both dq and dk, as the fused kernel does."""
+    mode, fm = _resolve(mask, causal, q, k)
+    with torch.autocast(q.device.type, enabled=False):
+        p, ds = _probs_and_ds(q, k, v, do, lse, delta, mode, fm, _scale(q, sm_scale))
+        p, ds = _rounded(p, p_dtype), _rounded(ds, p_dtype)
+        dq = torch.matmul(ds, k.float())
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+        dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -225,11 +248,7 @@ def _library() -> ctypes.CDLL:
     if lib.flash_attention_fwd.argtypes is None:
         ints = [ctypes.c_int] * 7  # B, H, nq, nk, D, dtype, mode
         tail = ints + [ctypes.c_float, ctypes.c_void_p]
-        for name, n_ptr in (
-            ("flash_attention_fwd", 7),
-            ("flash_attention_dq", 9),
-            ("flash_attention_dkv", 10),
-        ):
+        for name, n_ptr in (("flash_attention_fwd", 7), ("flash_attention_bwd", 12)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
@@ -238,17 +257,19 @@ def _library() -> ctypes.CDLL:
 
 def _launch(name, q, k, ins, outs, mode, fm, scale):
     """Call csrc entry `name`: pointers of `ins`, the mask and layout (null
-    unless the mask arm), pointers of `outs`, then the sizes."""
+    unless the mask arm), pointers of `outs` (None passes null), then the
+    sizes."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if any(t.data_ptr() % 16 for t in (*ins, *outs)):
+    if any(t is not None and t.data_ptr() % 16 for t in (*ins, *outs)):
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
     lib = _library()
     b, h, n_q, d = q.shape
     masks = (fm.mask.data_ptr(), fm.layout.data_ptr()) if mode == MODE_MASK else (None, None)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
-            *(t.data_ptr() for t in ins), *masks, *(t.data_ptr() for t in outs),
+            *(t.data_ptr() for t in ins), *masks,
+            *(None if t is None else t.data_ptr() for t in outs),
             b, h, n_q, k.shape[2], d, _DTYPE_CODE[q.dtype], mode, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -270,47 +291,38 @@ def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=No
     return o, lse
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None):
-    """dq of the backward (CUDA: kernel; CPU: `flash_attention_dq_plain`)."""
+def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None):
+    """(dq, dk, dv) of the backward, from the forward's lse and delta =
+    rowsum(do * o). CUDA tensors: bfloat16 launches the fused kernel
+    (between zeroing a float32 [B, H, n_q, D] dq workspace, allocated
+    here, and converting it into dq), float32 the two CUDA-core kernels;
+    CPU tensors run `flash_attention_bwd_plain`."""
     _check(q, k, v, do, lse, delta)
     _check_backward(q, do, lse, delta)
     if q.device.type == "cpu":
-        return flash_attention_dq_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
-    dq = torch.empty_like(q)
-    _launch(
-        "flash_attention_dq", q, k, (q, k, v, do, lse, delta), (dq,), mode, fm,
-        _scale(q, sm_scale),
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    workspace = (
+        torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        if q.dtype == torch.bfloat16 else None
     )
-    flash_attention_dq.launches += 1
-    return dq
-
-
-def flash_attention_dkv(q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None):
-    """(dk, dv) of the backward (CUDA: kernel; CPU: `flash_attention_dkv_plain`)."""
-    _check(q, k, v, do, lse, delta)
-    _check_backward(q, do, lse, delta)
-    if q.device.type == "cpu":
-        return flash_attention_dkv_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
-    mode, fm = _resolve(mask, causal, q, k)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(
-        "flash_attention_dkv", q, k, (q, k, v, do, lse, delta), (dk, dv), mode, fm,
-        _scale(q, sm_scale),
+        "flash_attention_bwd", q, k, (q, k, v, do, lse, delta), (dq, dk, dv, workspace), mode,
+        fm, _scale(q, sm_scale),
     )
-    flash_attention_dkv.launches += 1
-    return dk, dv
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention_fwd.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's custom VJP: the forward saves (q, k, v, o, lse); the
-    backward recomputes p from lse in the dq and dk/dv passes. Gradients
-    come out in the inputs' dtype (bf16 under autocast)."""
+    backward recomputes p from lse in one backward call. Gradients come
+    out in the inputs' dtype (bf16 under autocast)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, sm_scale):
@@ -324,9 +336,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        args = (ctx.mask, ctx.causal, ctx.sm_scale)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, *args)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, *args)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, do, lse, delta, ctx.mask, ctx.causal, ctx.sm_scale
+        )
         return dq, dk, dv, None, None, None
 
 

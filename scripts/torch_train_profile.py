@@ -32,9 +32,12 @@ from chip_smoke import flagship_training, nvidia_smi_line  # noqa: E402
 
 def kernel_family(name: str) -> str:
     lowered = name.lower()
-    port = re.search(r"\b(fwd|dq|dkv)(_mma)?_kernel<", lowered)
-    if port:  # csrc/flash_attention.cu: tensor-core (bf16) or CUDA-core (fp32)
-        return f"flash_attention {port.group(1)} (port kernel)"
+    # csrc/flash_attention.cu: the tensor-core forward and fused backward
+    # (bf16; the backward's dq conversion beside it) or the CUDA-core
+    # forward, dq and dk/dv (fp32)
+    port = re.search(r"\b(fwd|dq|dkv|bwd)(_mma)?_kernel<|\b(dq_convert)_kernel\b", lowered)
+    if port:
+        return f"flash_attention {port.group(1) or port.group(3)} (port kernel)"
     if any(t in lowered for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     if "multi_tensor" in lowered or "foreach" in lowered:

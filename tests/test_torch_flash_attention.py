@@ -9,7 +9,9 @@ edge (N = 40) run there. The CUDA kernels are held against the plain
 versions on the card by `chip_smoke.py`.
 
 Tolerances (float32 inputs, both sides accumulate in float32): outputs
-1e-5 absolute, dq/dk/dv 1e-4 absolute (the two sum in different orders).
+1e-5 absolute, dq/dk/dv 1e-4 absolute (the two sum in different orders);
+the rounding-matched plain backward against its tile loop 1e-6 (the same
+roundings, sums in another order).
 """
 
 import os
@@ -29,10 +31,11 @@ from dalle_pytorch_tpu.ops.pallas_attention import mask_block_layout as jax_mask
 from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
 from dalle_pytorch_tpu_torch.ops.flash_attention import (
     BLOCK,
+    _FlashAttention,
     flash_attention,
-    flash_attention_dkv,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_dkv_plain,
-    flash_attention_dq,
     flash_attention_dq_plain,
     flash_attention_forward_plain,
     flash_attention_fwd,
@@ -103,20 +106,129 @@ def test_static_patterns_match_the_pallas_kernels(attn_type):
 
 
 def test_wrappers_split_as_the_autograd_function_does():
-    """The three wrappers, called directly, give the same o/dq/dk/dv as
-    the plain versions and a finite lse."""
+    """The two wrappers, called directly, give the same o/dq/dk/dv as the
+    plain versions and a finite lse; the one backward equals the
+    per-gradient plain versions."""
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 37, 37, 32, seed=4))
     o, lse = flash_attention_fwd(q, k, v)
     o_ref, lse_ref = flash_attention_forward_plain(q, k, v)
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
     assert lse.dtype == torch.float32 and lse.shape == (1, 2, 37)
     delta = (g * o).sum(-1)
-    assert torch.equal(
-        flash_attention_dq(q, k, v, g, lse, delta), flash_attention_dq_plain(q, k, v, g, lse, delta)
+    dq, dk, dv = flash_attention_bwd(q, k, v, g, lse, delta)
+    for got, ref in zip((dq, dk, dv), flash_attention_bwd_plain(q, k, v, g, lse, delta)):
+        assert torch.equal(got, ref)
+    torch.testing.assert_close(dq, flash_attention_dq_plain(q, k, v, g, lse, delta), atol=1e-6, rtol=0)
+    for got, ref in zip((dk, dv), flash_attention_dkv_plain(q, k, v, g, lse, delta)):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+def _static_pattern_mask(attn_type):
+    pattern = build_static_mask(attn_type, 39, 6, layer_ind=3)
+    return np.tril(np.ones((40, 40), bool)) & pattern[:40, :40]
+
+
+@pytest.mark.parametrize(
+    "n_q, n_k, d, causal, pattern",
+    [
+        (40, 40, 16, True, None),
+        (24, 40, 16, True, None),
+        (40, 24, 16, True, None),
+        (40, 40, 32, False, None),
+        (40, 40, 16, True, "axial_row"),
+        (40, 40, 16, True, "axial_col"),
+        (40, 40, 16, True, "conv_like"),
+        (40, 40, 16, True, "sparse"),
+    ],
+    ids=["causal", "nk>nq", "nq>nk", "no_mask", "axial_row", "axial_col", "conv_like", "sparse"],
+)
+def test_bwd_plain_matches_jax_grad(n_q, n_k, d, causal, pattern):
+    """`flash_attention_bwd_plain`, from the plain forward's lse and delta,
+    equals jax.grad through the JAX `flash_attention` (Pallas interpret
+    mode, 16 x 16 tiles) to 1e-4, in every arm."""
+    q, k, v, g = _inputs(2, 2, n_q, n_k, d, seed=9)
+    mask = None if pattern is None else _static_pattern_mask(pattern)
+
+    def jout(q_, k_, v_):
+        return jax_flash_attention(
+            q_, k_, v_, mask=mask, causal=causal, block_q=16, block_k=16, interpret=True
+        )
+
+    _, vjp = jax.vjp(jout, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    o, lse = flash_attention_forward_plain(tq, tk, tv, mask, causal)
+    delta = (tg * o).sum(-1)
+    grads = flash_attention_bwd_plain(tq, tk, tv, tg, lse, delta, mask, causal)
+    for name, got, jg in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jg), atol=1e-4, rtol=0, err_msg=f"d{name}")
+
+
+def _tiled_backward(q, k, v, do, lse, delta, keep, scale, p_dtype):
+    """The fused kernel's backward written as its loop over 64-key tiles:
+    P and dS formed once per tile in float32 and rounded once to
+    `p_dtype`, the same rounded dS feeding both dK and dQ."""
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    dks, dvs = [], []
+    for k0 in range(0, k.shape[2], BLOCK):
+        kt, vt = k[..., k0 : k0 + BLOCK, :].float(), v[..., k0 : k0 + BLOCK, :].float()
+        s = torch.matmul(q.float(), kt.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[..., None]).masked_fill(~keep[:, k0 : k0 + BLOCK], 0.0)
+        dp = torch.matmul(do.float(), vt.transpose(-1, -2))
+        ds = (p * (dp - delta[..., None]) * scale).to(p_dtype).float()
+        p = p.to(p_dtype).float()
+        dq += torch.matmul(ds, kt)
+        dks.append(torch.matmul(ds.transpose(-1, -2), q.float()))
+        dvs.append(torch.matmul(p.transpose(-1, -2), do.float()))
+    return dq, torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+
+
+@pytest.mark.parametrize("arm", ["causal", "axial_row"])
+def test_rounding_matched_bwd_plain_is_the_fused_loop(arm):
+    """With `p_dtype=bfloat16`, `flash_attention_bwd_plain` equals the
+    fused kernel's tile loop that rounds dS once for both products (1e-6),
+    and the per-gradient plain versions, which round the same float32 dS,
+    agree with it; the rounding moves the result off the exact one."""
+    n = 150
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, n, n, 16, seed=10))
+    keep = torch.ones(n, n, dtype=torch.bool).tril()
+    mask = None
+    if arm == "axial_row":
+        keep &= torch.from_numpy(build_static_mask("axial_row", n - 1, 12, layer_ind=1)[:n, :n])
+        mask = flash_mask(keep.numpy())
+    o, lse = flash_attention_forward_plain(q, k, v, mask)
+    delta = (g * o).sum(-1)
+    fused = flash_attention_bwd_plain(q, k, v, g, lse, delta, mask, p_dtype=torch.bfloat16)
+    loop = _tiled_backward(q, k, v, g, lse, delta, keep, 0.25, torch.bfloat16)
+    for name, got, ref in zip("qkv", fused, loop):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=0, msg=f"d{name}")
+    split = (
+        flash_attention_dq_plain(q, k, v, g, lse, delta, mask, p_dtype=torch.bfloat16),
+        *flash_attention_dkv_plain(q, k, v, g, lse, delta, mask, p_dtype=torch.bfloat16),
     )
-    dk, dv = flash_attention_dkv(q, k, v, g, lse, delta)
-    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, g, lse, delta)
-    assert torch.equal(dk, dk_ref) and torch.equal(dv, dv_ref)
+    for got, ref in zip(fused, split):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    exact = flash_attention_bwd_plain(q, k, v, g, lse, delta, mask)
+    assert all(not torch.equal(a, b) for a, b in zip(fused, exact))
+
+
+def test_autograd_backward_is_one_backward_call(monkeypatch):
+    """`_FlashAttention.backward` computes dq, dk and dv with one call of
+    the backward wrapper."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return flash_attention_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", counting)
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 20, 20, 16, seed=11))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    (_FlashAttention.apply(q, k, v, None, True, None) * g).sum().backward()
+    assert calls == [q.shape]
+    assert all(t.grad is not None and t.grad.shape == t.shape for t in (q, k, v))
 
 
 def _online_forward(q, k, v, keep, scale, p_dtype):
@@ -179,7 +291,7 @@ def test_bfloat16_gradients_come_back_in_bfloat16():
 
 def test_cpu_wrappers_count_no_launch():
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 1, 10, 10, 16, seed=6))
-    counters = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
+    counters = (flash_attention_fwd, flash_attention_bwd)
     before = [f.launches for f in counters]
     q.requires_grad_()
     (flash_attention(q, k, v) * g).sum().backward()
@@ -202,9 +314,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         flash_attention_fwd(q, k, v, mask=np.ones((8, 9), bool))
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="lse"):
-        flash_attention_dq(q, k, v, g, lse.double(), lse)
+        flash_attention_bwd(q, k, v, g, lse.double(), lse)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_bwd(q, k, v, g, lse, lse[..., :4].contiguous())
     with pytest.raises(ValueError, match="do must match"):
-        flash_attention_dkv(q, k, v, g[:, :, :4].contiguous(), lse, lse)
+        flash_attention_bwd(q, k, v, g[:, :, :4].contiguous(), lse, lse)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q.bfloat16(), k, v, g, lse, lse)
 
 
 def test_fully_masked_row_is_rejected():
