@@ -12,14 +12,21 @@ Phases, each failing loudly (nonzero exit, no result line):
    (one nvcc per source, started together);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
-   small shapes for the other head dims the wrappers accept; for flash
-   attention also a ragged length and an axial_row static mask, each
+   small shapes for the other head dims: the decode kernels at every
+   instance, D = 16 to 128 in steps of 16; flash attention at D = 16, 32,
+   48 and 128, D = 48 through the wrappers' zero padding to 64, and the
+   bfloat16 forward's D = 16 and 32 padded to 64 as well; for flash
+   attention also a ragged length, an axial_row static mask and the arm
+   with neither causality nor a mask, each
    output held per element and per 64-row tile, and in bfloat16 also
    against the plain version that rounds P and dS as the kernels do);
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
-   for the input type, this card's published peaks);
+   for the input type, this card's published peaks); the kernels line
+   names the CUDA kernel the bf16 forward's row ran (`cuda_kernel`, read
+   from a torch.profiler trace of one call taken after phase 8, since a
+   trace slows the launches after it: the wgmma kernel at D = 64);
 4. a small float32 model on the card, through the kernels against the
    same model through dense attention: its cached decode, and its training
    loss and every gradient;
@@ -81,6 +88,8 @@ SEED = 0
 LAYERS = 12  # flagship depth: the timed inputs rotate over this many copies
 MAIN = dict(batch=4, heads=16, dim_head=64, cache=1281, prefill=257)
 TRAIN = dict(batch=4, heads=16, n=1280, dim_head=64)  # flash attention's shapes
+# the decode kernels' instances besides the main paths' D = 64
+DECODE_OTHER_DIMS = (16, 32, 48, 80, 96, 112, 128)
 FLAGSHIP = dict(
     dim=1024, depth=LAYERS, heads=16, dim_head=64, num_image_tokens=8192,
     image_fmap_size=32, num_text_tokens=10000, text_seq_len=256,
@@ -207,6 +216,26 @@ def attention_bound(kind, elt, peaks, dtype_key):
     }[kind]
     t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks[dtype_key]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launched_kernel(torch, fn, args):
+    """The device kernel that one call fn(*args) launches, as a
+    torch.profiler trace of that call names it ("fwd_wgmma_kernel<64>");
+    fails unless the trace holds exactly one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [
+        evt.name for evt in prof.events()
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation
+    ]
+    if len(names) != 1:
+        fail(f"{fn.__name__}: expected one device kernel in its trace, saw {names}")
+    found = re.search(r"\w+_kernel<[^<>]*>", names[0])
+    return found.group(0) if found else names[0]
 
 
 def time_ms(torch, fn, inputs, iters):
@@ -342,7 +371,7 @@ def check_decode_variants(torch, cases):
     # the other head dims, small ragged shapes, 32-position blocks
     bm = torch.tensor([[1, 0, 1, 0], [1, 1, 0, 1], [1, 0, 0, 1], [1, 1, 1, 0]],
                       dtype=torch.int32, device="cuda")
-    for d in (16, 32, 128):
+    for d in DECODE_OTHER_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                        for shape in ((4, 2, 5, d), (4, 2, 100, d), (4, 2, 100, d)))
@@ -511,7 +540,7 @@ def check_paged_variants(torch):
                             f"{(a.float() - b.float()).abs().max().item():.1e})")
 
     cases = [(4, 16, 1, 64, 1281, [257, 700, 1024, 1281])]  # the flagship step
-    cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 128)]
+    cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 48, 128)]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for b, h, n, d, vlen, lengths in cases:
         for page in PAGE_SIZES:
@@ -684,7 +713,7 @@ def flagship_engine():
     return engine, specs, n_params
 
 
-def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED):
+def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED, causal=True):
     """Each flash-attention kernel against its plain version on the same
     inputs (the kernels run first, so no buffer can hold a plain result),
     under ATTN_TOL; bf16 against both the exact and the rounding-matched
@@ -698,10 +727,10 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
     q, do = (torch.randn(b, h, n_q, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(b, h, n_k, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     fm = None if mask is None else fa.flash_mask(mask, "cuda")
-    o, lse = fa.flash_attention_fwd(q, k, v, fm)
+    o, lse = fa.flash_attention_fwd(q, k, v, fm, causal)
     delta = (do.float() * o.float()).sum(-1)
-    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm)
-    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm)
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm, causal)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm, causal)
     torch.cuda.synchronize()
     outs = {"fwd": (o, lse), "bwd": grads}
     dq_rerun = (grads[0].float() - again[0].float()).abs().max().item()
@@ -710,8 +739,9 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED)
 
     def plain(p_dtype):
         return {
-            "fwd": fa.flash_attention_forward_plain(q, k, v, fm, p_dtype=p_dtype),
-            "bwd": fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, fm, p_dtype=p_dtype),
+            "fwd": fa.flash_attention_forward_plain(q, k, v, fm, causal, p_dtype=p_dtype),
+            "bwd": fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, fm, causal,
+                                                p_dtype=p_dtype),
         }
 
     refs = {"exact": plain(None)}
@@ -766,9 +796,11 @@ def check_attention(torch):
             ("ragged", b, h, 1000, 1000, d, None),
             ("axial_row", b, h, n, n, d, axial),
             ("nk>nq", 2, 2, 70, 150, d, None),
-        ] + [(f"small", 2, 2, 100, 100, dd, None) for dd in (16, 32, 128)]
+            ("all keys", 2, 2, 100, 150, d, None),  # the arm without causality or mask
+        ] + [("small", 2, 2, 100, 100, dd, None) for dd in (16, 32, 48, 128)]
         for label, *shape, mask in cases:
-            errs = attention_case(torch, label, *shape, dtype, mask=mask)
+            errs = attention_case(torch, label, *shape, dtype, mask=mask,
+                                  causal=label != "all keys")
             if dtype == torch.bfloat16:
                 for kernel, err in errs.items():
                     worst[kernel] = max(worst.get(kernel, 0.0), err)
@@ -1380,9 +1412,9 @@ def main() -> int:
             if not (err <= tol and torch.isfinite(out).all()):
                 fail(f"flash_decode {case} {dtype} disagrees with its plain version")
             errs[(case, dtype)] = err
-    # the other head dims the wrapper accepts, at a small ragged shape
+    # the other head dims the kernel has instances for, at a small ragged shape
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for d in (16, 32, 128):
+    for d in DECODE_OTHER_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (
                 torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1523,6 +1555,18 @@ def main() -> int:
     launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks))
     print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
+
+    # the kernel phase 3's forward row timed, from a trace of one call made
+    # after every timed phase: a torch.profiler trace leaves the CUDA
+    # tracer attached, which slows each launch after it
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
+    qkv = [torch.randn(b, h, n, d, generator=g, device="cuda").bfloat16() for _ in range(3)]
+    traced = launched_kernel(torch, fa.flash_attention_fwd, qkv)
+    attn_times["flash_attention_fwd"]["cuda_kernel"] = traced
+    print(f"phase 3's bf16 forward launches {traced} (torch.profiler trace of one call)")
 
     # result -------------------------------------------------------------------
     kernels_line = {

@@ -29,7 +29,8 @@
 //     looping over its own 64-wide key tiles, so Pallas's sequential grid
 //     axis becomes an in-block loop and nothing crosses blocks; causal
 //     blocks stop at the last live key tile, mask blocks skip the tiles the
-//     layout marks empty;
+//     layout marks empty; in bfloat16 on wgmma with TMA tiles (D = 64,
+//     128; the wrapper pads D = 16, 32 to 64), see the tensor-core section;
 //   * backward in bfloat16: one fused pass, FlashAttention-2's (second
 //     half of this file): a block per (64-key tile, head, batch row) loops
 //     over the query tiles that see its keys, computes S and dP once per
@@ -37,8 +38,8 @@
 //     workspace with atomics; operands by ldmatrix from padded row-major
 //     tiles (no transposed copies), the next query tile loaded by cp.async
 //     while the current one computes;
-//   * bfloat16 inputs run on tensor cores (`mma.sync.m16n8k16`, fp32
-//     accumulators). P (forward, dv) and dS (dq, dk) are rounded to bf16
+//   * bfloat16 inputs run on tensor cores (fp32 accumulators). P
+//     (forward, dv) and dS (dq, dk) are rounded to bf16
 //     before their second product, as FlashAttention does -- dS once, for
 //     both dk and dq; the softmax state (m, l, lse) and every sum stay fp32;
 //   * float32 inputs keep fp32 arithmetic on CUDA cores (256 threads,
@@ -47,8 +48,9 @@
 //     D + 4 so float4 reads are conflict-free); the online softmax reduces
 //     over the 16 lanes of a half-warp; the backward is two passes, dq (by
 //     query tile) and dk/dv (by key tile), each recomputing p.
-// Not done yet: wgmma, TMA, a pipelined forward.
+// Not done yet: wgmma and TMA in the backward.
 
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime, no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -429,22 +431,45 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core path for bfloat16 inputs, with the products on
-// `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators). The forward: a
-// block of 4 warps owns a 64-row tile, 16 rows per warp; tiles are staged
-// in shared memory as bf16 (row stride D + 8, and a transposed copy of V),
-// and fragments are read with 32-bit loads that hit 32 distinct banks. The
-// score / probability tile stays in the accumulator registers: its rows
-// reduce over the 4 lanes of a quad, and it becomes the A operand of the
-// second product in place, rounded to bf16 (P for o and dv, dS for dq and
-// dk) -- the one rounding the CUDA-core path does not have.
-// Fragment layouts (PTX ISA, m16n8k16): g = lane / 4, t = lane % 4;
+// Tensor-core path for bfloat16 inputs: bf16 operands, fp32 accumulators.
+// A block is one warpgroup (4 warps, 128 threads) owning a 64-row tile, 16
+// rows per warp. The score / probability tile stays in the accumulator
+// registers: its rows reduce over the 4 lanes of a quad, and it becomes the
+// A operand of the second product in place, rounded to bf16 (P for o and
+// dv, dS for dq and dk) -- the one rounding the CUDA-core path does not
+// have. Fragment layouts (PTX ISA, mma.m16n8k16; a wgmma warp's 16 rows of
+// its m64 tile are laid out the same): g = lane / 4, t = lane % 4;
 //   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
 //   B 16x8:  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
 //   C 16x8:  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
+//
+// The bf16 forward, `fwd_wgmma_kernel`, at D = 64 and 128 (the wrapper
+// zero-pads D = 16 and 32 to 64, so one kernel serves every head dim and
+// no 32- or 64-byte swizzle is needed). S = Q K^T is D/16 wgmma.m64n64k16
+// with Q and K K-major in shared memory; O += P V is 4 wgmma.m64nDk16 with
+// P from registers (the rounded accumulator, repacked as A fragments, as
+// FlashAttention-3 does) and V read from shared memory as an MN-major
+// operand (the transpose bit), so no transposed copy exists. Tiles are
+// 64-column panels of 64 rows x 128 bytes in the 128-byte swizzle the
+// descriptors name (D = 128: two panels), written by TMA: one thread asks
+// for a tile, which completes on an mbarrier, so the others spend no
+// instructions on loads (per-thread cp.async addressing was a large share
+// of the instructions a tile step issues, which is what limits this
+// kernel). The next live key tile's K and V arrive into a second stage while
+// the current one computes (zero-filled past nk), one barrier a tile; the
+// arm's mask is applied only where a tile needs it (the causal diagonal,
+// tiles past nq or nk, every live tile of the static-mask arm, read from
+// the mask itself); the query tile is the slowest grid index and
+// reversed, so the causal blocks with the most key tiles start first. P is
+// formed in base 2, 2^(fl(s scale log2(e)) - m) by ex2.approx: 8
+// instructions an element fewer than expf, ~18% of the forward's time on
+// the H100. That moves P's fp32 value by ~1e-6 against exp(fl(s scale) -
+// m), so the rounding-matched plain version forms P in base 2 as well.
+// (The backward keeps expf: its dv sums over the few rows an axial key
+// sees, where one flip is a large share.)
 
 constexpr int kMmaThreads = 128;
-constexpr int kLDT = kBlock + 8;  // stride of a transposed [D][64] tile
+constexpr int kLDT = kBlock + 8;  // stride of a transposed [.][64] tile (the backward's dS^T)
 
 typedef __nv_bfloat16 bf16;
 
@@ -457,78 +482,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + 64) of a row-major [n, D] bf16 matrix -> shared memory,
-// row-major with stride D + 8 (rows >= n are zero)
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int row0,
-                                           int n) {
-  constexpr int CH = D / 8, LD = D + 8;
-  for (int c = threadIdx.x; c < kBlock * CH; c += kMmaThreads) {
-    const int r = c / CH, d0 = (c % CH) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n) raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + d0);
-    *reinterpret_cast<uint4*>(dst + r * LD + d0) = raw;
-  }
-}
-
-// the same rows transposed: dst[d][r], stride 64 + 8
-template <int D>
-__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* __restrict__ src, int row0,
-                                           int n) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < kBlock * CH; c += kMmaThreads) {
-    const int r = c / CH, d0 = (c % CH) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n) raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + d0);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(d0 + i) * kLDT + r] = e[i];
-  }
-}
-
-// acc[nb] (16 x 8 each, nb < NB) += X[r0 .. r0+16) . Y[nb*8 .. nb*8+8)^T over
-// the K-long rows of X (stride LDX) and Y (stride LDY)
-template <int K, int NB, int LDX, int LDY>
-__device__ __forceinline__ void mma_rows(float (&acc)[NB][4], const bf16* x, const bf16* y,
-                                         int r0, int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    const bf16* xa = x + (r0 + g) * LDX + kc * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * LDX), ld32(xa + 8), ld32(xa + 8 * LDX + 8)};
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const bf16* yb = y + (nb * 8 + g) * LDY + kc * 16 + 2 * t;
-      mma_bf16(acc[nb], a, ld32(yb), ld32(yb + 8));
-    }
-  }
-}
-
-// acc[nb] (16 x 8 each over D) += P . Y where P is a 16 x 64 tile held in
-// accumulator layout (p[8][4]) and Y^T is staged as [D][64 + 8]
-template <int D>
-__device__ __forceinline__ void mma_p(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                      const bf16* yt, int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < kBlock / 16; ++kc) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kc][0], p[2 * kc][1]), pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-        pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-        pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
-      const bf16* yb = yt + (nb * 8 + g) * kLDT + kc * 16 + 2 * t;
-      mma_bf16(acc[nb], a, ld32(yb), ld32(yb + 8));
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -540,92 +496,409 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-               const int* __restrict__ layout, bf16* __restrict__ o, float* __restrict__ lse,
-               int H, int nq, int nk, int mode, float scale) {
-  constexpr int LD = D + 8, NBD = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* ks = qs + kBlock * LD;
-  bf16* vts = ks + kBlock * LD;  // [D][64 + 8]
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16 bytes (or 4) global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [row0, row0 + 64) of a row-major [n, D] bf16 matrix -> shared memory
+// with row stride D + 8, asynchronously (rows >= n are zero)
+template <int D>
+__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* __restrict__ src, int row0,
+                                                 int n) {
+  constexpr int CH = D / 8, LD = D + 8;
+  for (int c = threadIdx.x; c < kBlock * CH; c += kMmaThreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(smem_addr(dst + r * LD + d0), src + (size_t)(ok ? row0 + r : 0) * D + d0, ok);
+  }
+}
+
+// whether every (query, key) pair of a 64 x 64 tile is visible, so its
+// scores need no mask (the static-mask arm's layout marks tiles live or
+// empty, never full)
+__device__ __forceinline__ bool tile_full(int mode, int q0, int k0, int nq, int nk) {
+  return mode != 2 && q0 + kBlock <= nq && k0 + kBlock <= nk &&
+         (mode == 0 || k0 + kBlock - 1 <= q0);
+}
+
+// the first key tile at or after kt that the arm lets this query tile see
+// (the static-mask arm skips the tiles its layout marks empty)
+__device__ __forceinline__ int next_key_tile(int kt, int kend, int mode,
+                                             const int* __restrict__ layout, int qt, int ktiles) {
+  if (mode == 2)
+    while (kt < kend && layout[qt * ktiles + kt] == 0) ++kt;
+  return kt;
+}
+
+// the last key tile + 1 that any row of query tile q0 sees
+__device__ __forceinline__ int key_tile_end(int mode, int q0, int nk) {
+  const int ktiles = (nk + kBlock - 1) / kBlock;
+  return mode == 1 ? min(ktiles, (q0 + kBlock - 1) / kBlock + 1) : ktiles;
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 64-key tile of the online softmax for this thread's rows r and
+// r + 8: s[nb][e] is the score of row r + 8 (e / 2), key c0 + 8 nb + e % 2
+// (accumulator layout). In base 2: with x = fl(s scale_log2) (scale_log2 =
+// scale log2(e)) and m the running row maximum of x, s becomes P =
+// 2^(x - m_new) in place, unrounded; m and l are updated and corr is the
+// factor the output accumulator takes. MASKED tiles are masked by the arm
+// first; the others are wholly visible and skip it.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int r, int c0, int nq, int nk,
+                                             int mode, const uint8_t* __restrict__ mask,
+                                             float scale_log2) {
+  float tmax[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = __fmul_rn(s[nb][e], scale_log2);
+      if (MASKED && !visible(r + 8 * (e / 2), c0 + 8 * nb + (e % 2), nq, nk, mode, mask)) x = kNeg;
+      s[nb][e] = x;
+      tmax[e / 2] = fmaxf(tmax[e / 2], x);
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m_new = fmaxf(m[hh], quad_max(tmax[hh]));
+    corr[hh] = ex2(m[hh] - m_new);
+    m[hh] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nb][e] = ex2(__fsub_rn(s[nb][e], m[e / 2]));
+      psum[e / 2] += s[nb][e];
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + quad_sum(psum[hh]);
+}
+
+// P (this thread's part of a 16 x 64 tile, accumulator layout) as the A
+// fragments of P V over its four 16-key steps, rounded to bf16
+__device__ __forceinline__ void p_fragments(uint32_t (&pa)[4][4], const float (&p)[8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    pa[kc][0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
+    pa[kc][1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
+    pa[kc][2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+    pa[kc][3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void scale_rows(float (&acc)[NB][4], const float (&corr)[2]) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] *= corr[e / 2];
+}
+
+// o = acc / max(l, 1e-30) in bf16 and lse = m ln(2) + log(that) (m in
+// base 2) for this thread's rows r and r + 8 of the [nq, D] slab at o / lse
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const float (&m)[2],
+                                           const float (&l)[2], bf16* __restrict__ o,
+                                           float* __restrict__ lse, int r, int nq, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r + 8 * hh;
+    if (row >= nq) continue;
+    const float safe_l = fmaxf(l[hh], 1e-30f);
+    bf16* orow = o + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
+          __floats2bfloat162_rn(acc[nb][2 * hh] / safe_l, acc[nb][2 * hh + 1] / safe_l);
+    if (t == 0) lse[row] = m[hh] * kLn2 + logf(safe_l);
+  }
+}
+
+// --- wgmma (D = 64, 128)
+constexpr uint32_t kPanel = kBlock * 128;  // bytes of a 64-row x 64-column bf16 panel
+
+// The wgmma kernel's tiles arrive by TMA: one thread asks for a whole
+// 64 x 64 box of a [B*H, n, D] tensor map (128-byte swizzle, rows past n
+// zero-filled) and the copy completes on an mbarrier that every thread
+// waits on. A tile of D columns is D / 64 boxes, one per panel.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+// the barrier's next phase completes when `bytes` have arrived
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait for the phase of parity `phase` to complete; a copy that never
+// lands traps (after 2^22 polls) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 22)) __trap();
+  }
+}
+
+// rows [row0, row0 + 64) of batch-head bh of `map` -> the D / 64 panels at
+// shared address `dst`, completing on `bar` (one thread calls this)
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row0, int bh) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst + p * kPanel),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(p * 64), "r"(row0), "r"(bh)
+        : "memory");
+}
+
+// the wgmma descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: 8-row groups 1024 bytes apart (SBO), and `lbo` the stride of
+// 64-column panels along M/N (an MN-major operand wider than one panel;
+// unused for K-major)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the compiler may not move accesses of these registers across this point
+// (wgmma writes them asynchronously, behind the compiler's back)
+template <int NB>
+__device__ __forceinline__ void fence_regs(float (&r)[NB][4]) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+#define WG_ACC4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+#define WG_ACC32 WG_ACC4(0), WG_ACC4(1), WG_ACC4(2), WG_ACC4(3), WG_ACC4(4), WG_ACC4(5), \
+                 WG_ACC4(6), WG_ACC4(7)
+#define WG_REG32                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (+)= A B^T, wgmma.m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REG32 "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, wgmma.m64n64k16 / m64n128k16: A from registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REG32 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REG32 ", "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC32, WG_ACC4(8), WG_ACC4(9), WG_ACC4(10), WG_ACC4(11), WG_ACC4(12), WG_ACC4(13),
+        WG_ACC4(14), WG_ACC4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+constexpr size_t fwd_wgmma_smem() { return 5 * kBlock * D * sizeof(bf16) + 1024; }  // + alignment
+
+// at most 128 registers a thread, so 4 blocks share an SM at D = 64 (16
+// warps to hide the latency of the serial S -> softmax -> P V chain); the
+// D = 128 accumulator needs more, and its 81 KB of shared memory fits 2
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 4)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const uint8_t* __restrict__ mask,
+                 const int* __restrict__ layout, bf16* __restrict__ o, float* __restrict__ lse,
+                 int nq, int nk, int mode, float scale) {
+  static_assert(D % 64 == 0, "whole 64-column panels");
+  constexpr int NBD = D / 8;
+  constexpr uint32_t kTile = kBlock * D * sizeof(bf16);
+  extern __shared__ float4 smem4[];
+  const uint32_t qsm = (smem_addr(smem4) + 1023) & ~1023u;
+  const uint32_t ksm0 = qsm + kTile, vsm0 = qsm + 3 * kTile;  // stage s at + s * kTile
+  __shared__ __align__(8) uint64_t bars[3];  // Q, then one per stage
+  const uint32_t qbar = smem_addr(&bars[0]), bar0 = qbar + 8;  // stage s's at bar0 + 8 s
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int r0 = (threadIdx.x / 32) * 16;
-  const size_t bh = (size_t)b * H + h;
   const int q0 = qt * kBlock;
   const int ktiles = (nk + kBlock - 1) / kBlock;
-  const int kend = mode == 1 ? min(ktiles, (q0 + kBlock - 1) / kBlock + 1) : ktiles;
+  const int kend = key_tile_end(mode, q0, nk);
+  const bool leader = threadIdx.x == 0;
+  auto fetch_kv = [&](int st, int tile) {  // by the leader
+    mbar_expect(bar0 + 8 * st, 2 * kTile);
+    tma_tile<D>(ksm0 + st * kTile, &kmap, bar0 + 8 * st, tile * kBlock, bh);
+    tma_tile<D>(vsm0 + st * kTile, &vmap, bar0 + 8 * st, tile * kBlock, bh);
+  };
 
-  stage_rows<D>(qs, q + bh * nq * D, q0, nq);
+  int kt = next_key_tile(0, kend, mode, layout, qt, ktiles);
+  if (leader) {
+    for (int i = 0; i < 3; ++i) mbar_init(qbar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (kt < kend) {
+      mbar_expect(qbar, kTile);
+      tma_tile<D>(qsm, &qmap, qbar, q0, bh);
+      fetch_kv(0, kt);
+    }
+  }
+  __syncthreads();  // the barriers are initialised
+  if (kt < kend) mbar_wait(qbar, 0);
+
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, acc[NBD][4];
 #pragma unroll
   for (int nb = 0; nb < NBD; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
 
-  for (int kt = 0; kt < kend; ++kt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;  // block-uniform
-    const int k0 = kt * kBlock;
-    __syncthreads();
-    stage_rows<D>(ks, k + bh * nk * D, k0, nk);
-    stage_cols<D>(vts, v + bh * nk * D, k0, nk);
-    __syncthreads();
+  for (int it = 0; kt < kend; ++it) {
+    const int st = it & 1;
+    mbar_wait(bar0 + 8 * st, (it >> 1) & 1);  // this tile has landed
+    __syncthreads();  // every warp is done with the other stage
+    const int kn = next_key_tile(kt + 1, kend, mode, layout, qt, ktiles);
+    if (leader && kn < kend) fetch_kv(st ^ 1, kn);  // in flight while this tile computes
+    const uint32_t ksm = ksm0 + st * kTile, vsm = vsm0 + st * kTile;
 
+    // S = Q K^T: D / 16 steps of 16 columns, 32 bytes into a panel each
     float s[8][4];
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-    mma_rows<D, 8, LD, LD>(s, qs, ks, r0, g, t);
-
-    float tmax[2] = {kNeg, kNeg};
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + r0 + g + 8 * (e / 2), c = k0 + nb * 8 + 2 * t + (e % 2);
-        s[nb][e] = visible(r, c, nq, nk, mode, mask) ? s[nb][e] * scale : kNeg;
-        tmax[e / 2] = fmaxf(tmax[e / 2], s[nb][e]);
-      }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float m_new = fmaxf(m[hh], quad_max(tmax[hh]));
-      corr[hh] = expf(m[hh] - m_new);
-      m[hh] = m_new;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(qsm + off, 16), sw128_desc(ksm + off, 16), kk > 0);
     }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nb][e] = expf(s[nb][e] - m[e / 2]);
-        psum[e / 2] += s[nb][e];
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + quad_sum(psum[hh]);
-#pragma unroll
-    for (int nb = 0; nb < NBD; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nb][e] *= corr[e / 2];
-    mma_p<D>(acc, s, vts, g, t);
-  }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
+    float corr[2];
+    const int k0 = kt * kBlock;
+    if (tile_full(mode, q0, k0, nq, nk))
+      softmax_tile<false>(s, m, l, corr, q0 + r0 + g, k0 + 2 * t, nq, nk, mode, mask,
+                          scale * kLog2e);
+    else
+      softmax_tile<true>(s, m, l, corr, q0 + r0 + g, k0 + 2 * t, nq, nk, mode, mask,
+                         scale * kLog2e);
+    scale_rows(acc, corr);
+    uint32_t pa[4][4];
+    p_fragments(pa, s);
+
+    // O += P V: four steps of 16 keys, 2048 bytes (16 rows) apart
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = q0 + r0 + g + 8 * hh;
-    if (r >= nq) continue;
-    const float safe_l = fmaxf(l[hh], 1e-30f);
-    bf16* orow = o + (bh * nq + r) * D + 2 * t;
-#pragma unroll
-    for (int nb = 0; nb < NBD; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
-          __floats2bfloat162_rn(acc[nb][2 * hh] / safe_l, acc[nb][2 * hh + 1] / safe_l);
-    if (t == 0) lse[bh * nq + r] = m[hh] + logf(safe_l);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pa[kk], sw128_desc(vsm + kk * 2048, kPanel));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    kt = kn;
   }
+  store_rows<D>(acc, m, l, o + (size_t)bh * nq * D, lse + (size_t)bh * nq, q0 + r0 + g, nq, t);
+}
+
+// cuTensorMapEncodeTiled, found once through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the [bh, n, D] bf16 tensor at `base` as a map of 64 x 64 boxes, 128-byte
+// swizzled, rows past n read as zeros
+template <int D>
+bool tile_map(CUtensorMap* map, const void* base, int bh, int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(bf16), (cuuint64_t)n * D * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, kBlock, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -662,52 +935,6 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bit-identical from run to run; dq's fp32 sum order follows the atomics'
 // arrival and may differ in its last bits.
 
-constexpr int kBwdThreads = 128;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes (or 4) global -> shared, zero-filled when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + 64) of a row-major [n, D] bf16 matrix -> shared memory
-// with row stride D + 8, asynchronously (rows >= n are zero)
-template <int D>
-__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* __restrict__ src, int row0,
-                                                 int n) {
-  constexpr int CH = D / 8, LD = D + 8;
-  for (int c = threadIdx.x; c < kBlock * CH; c += kBwdThreads) {
-    const int r = c / CH, d0 = (c % CH) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * LD + d0, src + (size_t)(ok ? row0 + r : 0) * D + d0, ok);
-  }
-}
-
 // dst[0 .. 4) += x in global memory (16-byte aligned), one vector atomic
 // on sm_90
 __device__ __forceinline__ void red_add4(float* dst, float4 x) {
@@ -730,7 +957,7 @@ constexpr size_t bwd_mma_smem() {
 // at most 170 registers a thread, so 3 blocks share an SM; at D = 128 the
 // shared memory (115 KB a block) fits only 2, so the registers may too
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, D == 128 ? 2 : 3)
+__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3)
 bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -813,8 +1040,7 @@ bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // in two halves of 32 queries, so only half the score tile is live in
     // registers beside dK and dV
-    const bool full = mode != 2 && q0 + kBlock <= nq && k0 + kBlock <= nk &&
-                      (mode == 0 || k0 + kBlock - 1 <= q0);
+    const bool full = tile_full(mode, q0, k0, nq, nk);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qh = half * 32;
@@ -967,9 +1193,6 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * kBlock * (D + 4) + 2 * kBlock * kPLD + 2 * kBlock);
 }
 
-template <int D>
-constexpr size_t fwd_mma_smem() { return sizeof(bf16) * (2 * kBlock * (D + 8) + D * kLDT); }
-
 // dynamic shared memory above 48 KB must be opted into once per kernel
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1031,11 +1254,22 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
   const auto* layout = static_cast<const int*>(a.layout);
   cudaError_t err;
   if (pass == kFwd) {
-    if ((err = allow_smem(fwd_mma_kernel<D>, fwd_mma_smem<D>())) != cudaSuccess) return err;
-    const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
-    fwd_mma_kernel<D><<<grid, kMmaThreads, fwd_mma_smem<D>(), a.stream>>>(
-        q, k, v, mask, layout, static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.H,
-        a.nq, a.nk, a.mode, a.scale);
+    // the query tile is the slowest grid index (reversed in the kernels)
+    const dim3 grid(a.B * a.H, (a.nq + kBlock - 1) / kBlock);
+    auto* o = static_cast<bf16*>(a.o);
+    auto* lse = static_cast<float*>(a.lse_out);
+    if constexpr (D % 64 == 0) {
+      CUtensorMap maps[3];
+      const int bh = a.B * a.H;
+      if (!tile_map<D>(&maps[0], q, bh, a.nq) || !tile_map<D>(&maps[1], k, bh, a.nk) ||
+          !tile_map<D>(&maps[2], v, bh, a.nk))
+        return cudaErrorInvalidValue;
+      if ((err = allow_smem(fwd_wgmma_kernel<D>, fwd_wgmma_smem<D>())) != cudaSuccess) return err;
+      fwd_wgmma_kernel<D><<<grid, kMmaThreads, fwd_wgmma_smem<D>(), a.stream>>>(
+          maps[0], maps[1], maps[2], mask, layout, o, lse, a.nq, a.nk, a.mode, a.scale);
+    } else {
+      return cudaErrorInvalidValue;  // the caller pads D = 16, 32 to 64
+    }
     return cudaGetLastError();
   }
   const size_t n = (size_t)a.B * a.H * a.nq * D;
@@ -1043,7 +1277,7 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
   if ((err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), a.stream)) != cudaSuccess) return err;
   if ((err = allow_smem(bwd_mma_kernel<D>, bwd_mma_smem<D>())) != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.nk + kBlock - 1) / kBlock);
-  bwd_mma_kernel<D><<<grid, kBwdThreads, bwd_mma_smem<D>(), a.stream>>>(
+  bwd_mma_kernel<D><<<grid, kMmaThreads, bwd_mma_smem<D>(), a.stream>>>(
       q, k, v, static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), mask, layout, dq_acc, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.nq, a.nk, a.mode, a.scale);
@@ -1062,7 +1296,8 @@ cudaError_t run(Pass pass, int dtype, const Args& a) {
 
 int dispatch(Pass pass, int D, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.nq <= 0 || a.nk <= 0 || a.B > 65535 || a.H > 65535 ||
-      (size_t)a.B * a.H > 2147483647u ||
+      (size_t)a.B * a.H > 2147483647u || (a.nq + kBlock - 1) / kBlock > 65535 ||
+      (a.nk + kBlock - 1) / kBlock > 65535 ||
       a.mode < 0 || a.mode > 2 || (a.mode == 2 && (a.mask == nullptr || a.layout == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;

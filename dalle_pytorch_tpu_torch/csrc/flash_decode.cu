@@ -23,7 +23,10 @@
 //   (paged: k[b,h,j] = k_pages[page_table[b, j / page], h, j % page], S =
 //   n_pages * page, block_k = page)
 //
-// fp32 accumulation whatever the input type; output in q's type; int8 K/V
+// D is any multiple of 16 up to 128 (an instance each; the lane split
+// takes D / VEC chunks a row and ceil(D / 32) channels a lane, with no
+// power of two assumed). fp32 accumulation whatever the input type;
+// output in q's type; int8 K/V
 // read as k_int8 * k_scale[b,h,j] in fp32. A query row with no visible key
 // (which callers never produce) is written as zeros.
 //
@@ -274,7 +277,11 @@ cudaError_t dispatch_d(const Args& a, int D) {
   switch (D) {
     case 16: return launch<T, KV, 16, SPARSE, PAGED>(a);
     case 32: return launch<T, KV, 32, SPARSE, PAGED>(a);
+    case 48: return launch<T, KV, 48, SPARSE, PAGED>(a);
     case 64: return launch<T, KV, 64, SPARSE, PAGED>(a);
+    case 80: return launch<T, KV, 80, SPARSE, PAGED>(a);
+    case 96: return launch<T, KV, 96, SPARSE, PAGED>(a);
+    case 112: return launch<T, KV, 112, SPARSE, PAGED>(a);
     case 128: return launch<T, KV, 128, SPARSE, PAGED>(a);
     default: return cudaErrorInvalidValue;
   }

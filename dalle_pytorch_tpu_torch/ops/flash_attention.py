@@ -26,12 +26,22 @@ FlashAttention does (dS once, for both dk and dq); float32 inputs keep
 float32 arithmetic throughout. The plain versions round P and dS only when
 asked (`p_dtype`): then they form and round them as the tensor-core
 kernels do, the forward's P per 64-key tile against the running row
-maximum, so a kernel can be held to its own rounding and not only to the
-exact function.
+maximum and in base 2, 2^(fl(s scale log2(e)) - m), as the bfloat16
+forward kernel does, so a kernel can be held to its own rounding and not
+only to the exact function.
+
+Any head dim: the plain versions take any D, as the reference does. The
+kernels have instances at D = 16, 32, 64 and 128, the bfloat16 forward
+at 64 and 128 only; on the card a D <= 128 between them is zero-padded
+along D to the kernel's next instance, run with the true D's scale
+(D ** -0.5 unless `sm_scale`), and cut back (`on_kernel_head_dim`): zero
+columns add nothing to q . k and give zero output columns, so lse is
+unchanged. D > 128 raises on the card.
 
 On the card the kernels are bound by operations at the training shapes:
 4 D flops per visible pair forward, 10 D backward (S and dP once, then
-dV, dK and dQ). The bfloat16 backward is one fused kernel
+dV, dK and dQ). The bfloat16 forward runs on wgmma. The bfloat16
+backward is one fused kernel
 (FlashAttention-2's one pass: a block per key tile loops over the query
 tiles, dq added into a float32 workspace with atomics, so dq's last bits
 may change from run to run while dk and dv are bit-identical); the float32
@@ -55,7 +65,9 @@ from dalle_pytorch_tpu_torch import kernels
 from dalle_pytorch_tpu_torch.ops.masks import mask_block_layout
 
 BLOCK = 64  # the kernels' query and key tile (csrc/flash_attention.cu kBlock)
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances; other D <= 128 pad up
+WGMMA_HEAD_DIMS = (64, 128)  # the bfloat16 forward's (whole 64-column panels)
+LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MODE_ALL, MODE_CAUSAL, MODE_MASK = 0, 1, 2
@@ -116,8 +128,6 @@ def _check(q, k, v, *extra):
             f"q, k, v must share one dtype of {list(_DTYPE_CODE)}; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     tensors = (q, k, v, *extra)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all tensors must be on one device")
@@ -168,12 +178,16 @@ def flash_attention_forward_plain(
 ):
     """The forward as one masked float32 softmax: (o in q's dtype, lse
     float32 [B, H, n_q]). With `p_dtype`, P enters P . V rounded to it as
-    the kernel forms it: exp(s - m_t) per key tile t, m_t the running row
-    maximum through t, then rescaled by exp(m_t - m); l stays unrounded."""
+    the bfloat16 kernel forms it, in base 2: with x = fl(q . k^T
+    fl(scale log2(e))), 2^(x - m_t) per key tile t, m_t the running row
+    maximum of x through t, then rescaled by 2^(m_t - m); l and lse stay
+    the exact function's (the kernel's base-2 l differs by float32
+    rounding only)."""
     mode, fm = _resolve(mask, causal, q, k)
     scale = _scale(q, sm_scale)
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        qk = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        s = qk * scale
         keep = _visible(mode, fm, q.shape[2], k.shape[2], q.device)
         if keep is not None:
             s = s.masked_fill(~keep, NEG_INF)
@@ -181,8 +195,11 @@ def flash_attention_forward_plain(
         p = torch.exp(s - m)
         safe_l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
         if p_dtype is not None:
-            m_t = _running_tile_max(s)
-            p = _rounded(torch.exp(s - m_t), p_dtype) * torch.exp(m_t - m)
+            x = qk * float(np.float32(scale) * np.float32(LOG2E))
+            if keep is not None:
+                x = x.masked_fill(~keep, NEG_INF)
+            m_x, m_t = x.amax(dim=-1, keepdim=True), _running_tile_max(x)
+            p = _rounded(torch.exp2(x - m_t), p_dtype) * torch.exp2(m_t - m_x)
         o = torch.matmul(p, v.float()) / safe_l
         lse = (m + torch.log(safe_l))[..., 0]
     return o.to(q.dtype), lse
@@ -255,6 +272,34 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_head_dim(d: int, dims=KERNEL_HEAD_DIMS) -> int:
+    """The kernel's head dim for a true head dim `d`: the next of its
+    instances `dims`. Above 128 no instance exists and the card raises."""
+    for kd in dims:
+        if d <= kd:
+            return kd
+    raise ValueError(
+        f"head dim {d} > {dims[-1]}: the flash-attention kernels have no "
+        "instance for it on the card (ROADMAP.md Queue 3)"
+    )
+
+
+def on_kernel_head_dim(fn, tensors, n_sliced: int, sm_scale=None, dims=KERNEL_HEAD_DIMS):
+    """fn(*padded, scale): `tensors` ([..., D] each) zero-padded along D to
+    `kernel_head_dim(D, dims)`, scale the true D's (D ** -0.5 unless
+    `sm_scale`); the first `n_sliced` outputs are cut back to D. Zero
+    columns add nothing to q . k, and zero V columns give zero output
+    columns, so this is the unpadded function; lse and the rest pass
+    through."""
+    d = tensors[0].shape[-1]
+    dk = kernel_head_dim(d, dims)
+    scale = _scale(tensors[0], sm_scale)
+    if dk == d:
+        return fn(*tensors, scale)
+    out = fn(*(F.pad(t, (0, dk - d)) for t in tensors), scale)
+    return tuple(o[..., :d].contiguous() if i < n_sliced else o for i, o in enumerate(out))
+
+
 def _launch(name, q, k, ins, outs, mode, fm, scale):
     """Call csrc entry `name`: pointers of `ins`, the mask and layout (null
     unless the mask arm), pointers of `outs` (None passes null), then the
@@ -279,40 +324,54 @@ def _launch(name, q, k, ins, outs, mode, fm, scale):
 
 def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=None):
     """(o, lse) of the forward. CUDA tensors launch the kernel on the
-    current stream; CPU tensors run `flash_attention_forward_plain`."""
+    current stream (D padded to the kernel's head dim by
+    `on_kernel_head_dim`: 64 or 128 in bfloat16); CPU tensors run
+    `flash_attention_forward_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_forward_plain(q, k, v, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", q, k, (q, k, v), (o, lse), mode, fm, _scale(q, sm_scale))
+
+    def launch(q, k, v, scale):
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        _launch("flash_attention_fwd", q, k, (q, k, v), (o, lse), mode, fm, scale)
+        return o, lse
+
+    dims = WGMMA_HEAD_DIMS if q.dtype == torch.bfloat16 else KERNEL_HEAD_DIMS
+    o, lse = on_kernel_head_dim(launch, (q, k, v), 1, sm_scale, dims)
     flash_attention_fwd.launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None):
     """(dq, dk, dv) of the backward, from the forward's lse and delta =
-    rowsum(do * o). CUDA tensors: bfloat16 launches the fused kernel
-    (between zeroing a float32 [B, H, n_q, D] dq workspace, allocated
-    here, and converting it into dq), float32 the two CUDA-core kernels;
-    CPU tensors run `flash_attention_bwd_plain`."""
+    rowsum(do * o). CUDA tensors (D padded to the next of KERNEL_HEAD_DIMS):
+    bfloat16 launches the fused kernel (between zeroing a float32 [B, H,
+    n_q, D] dq workspace, allocated here, and converting it into dq),
+    float32 the two CUDA-core kernels; CPU tensors run
+    `flash_attention_bwd_plain`."""
     _check(q, k, v, do, lse, delta)
     _check_backward(q, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    workspace = (
-        torch.empty(q.shape, dtype=torch.float32, device=q.device)
-        if q.dtype == torch.bfloat16 else None
-    )
-    _launch(
-        "flash_attention_bwd", q, k, (q, k, v, do, lse, delta), (dq, dk, dv, workspace), mode,
-        fm, _scale(q, sm_scale),
-    )
+
+    def launch(q, k, v, do, scale):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        workspace = (
+            torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            if q.dtype == torch.bfloat16 else None
+        )
+        _launch(
+            "flash_attention_bwd", q, k, (q, k, v, do, lse, delta), (dq, dk, dv, workspace),
+            mode, fm, scale,
+        )
+        return dq, dk, dv
+
+    grads = on_kernel_head_dim(launch, (q, k, v, do), 3, sm_scale)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_fwd.launches = 0

@@ -59,7 +59,7 @@ import torch
 
 from dalle_pytorch_tpu_torch import kernels
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))  # the kernels' instances (csrc dispatch_d)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PAGED_DECODE_IMPLS = ("gather", "kernel")
 PAGED_DECODE_IMPL = os.environ.get("DALLE_PAGED_DECODE_IMPL", "gather")
@@ -103,8 +103,6 @@ def _check(q, k, v, lengths, k_scale=None, v_scale=None, page_table=None):
             f"q, k, v must share one dtype of {list(_DTYPE_CODE)}; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     tensors = (q, k, v, lengths) + scales
     if page_table is not None:
         if page_table.dim() != 2 or page_table.shape[0] != b or page_table.dtype != torch.int32:
@@ -227,10 +225,21 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def check_kernel_head_dim(d: int) -> None:
+    """Raise unless the card's kernels have an instance for head dim `d`
+    (the plain versions take any D; a cache is never padded per call)."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"head dim {d} not in {KERNEL_HEAD_DIMS}: the flash-decode kernels take "
+            "multiples of 16 up to 128 on the card (ROADMAP.md Queue 3)"
+        )
+
+
 def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table=None):
     """One launch of the contiguous (`page_table` None) or paged kernel;
     `block_bitmap` picks the block-sparse variant."""
     b, h, n, d = q.shape
+    check_kernel_head_dim(d)
     tensors = [q, k, v] + ([] if k_scale is None else [k_scale, v_scale])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and scales must be 16-byte aligned")
@@ -267,8 +276,8 @@ def flash_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [B, H, n, D] (float32 or bfloat16), k/v [B, H, S, D] in q's dtype
-    or int8 with k_scale/v_scale [B, H, S] float32 (contiguous, D in
-    SUPPORTED_HEAD_DIMS), lengths [B] int32 -> [B, H, n, D] in q's dtype.
+    or int8 with k_scale/v_scale [B, H, S] float32 (contiguous; any D on
+    the CPU, D in KERNEL_HEAD_DIMS on the card), lengths [B] int32 -> [B, H, n, D] in q's dtype.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     `flash_decode_attention_plain`; anything else raises.

@@ -11,31 +11,40 @@ kernel family and the idle rest.
 
 Run from the repo root on the machine with the card:
 
-    python3 scripts/torch_train_profile.py
+    python3 scripts/torch_train_profile.py [--parent DIR]
 
-Prints the card's nvidia-smi line, then one JSON line.
+Prints the card's nvidia-smi line, then one JSON line. With --parent DIR
+(an unpacked checkout of another commit, e.g. the parent's `git archive`
+under the git-ignored `build/`), each tree's own copy of this script runs
+in turns in separate processes, parent, this tree, this tree, parent, so
+the two are compared on one card in one call; each run prints its lines,
+and a last JSON line gives each turn's device-busy time per step and the
+flash-attention forward's share of it.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
+import subprocess
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
 
 from chip_smoke import flagship_training, nvidia_smi_line  # noqa: E402
 
 
 def kernel_family(name: str) -> str:
     lowered = name.lower()
-    # csrc/flash_attention.cu: the tensor-core forward and fused backward
-    # (bf16; the backward's dq conversion beside it) or the CUDA-core
-    # forward, dq and dk/dv (fp32)
-    port = re.search(r"\b(fwd|dq|dkv|bwd)(_mma)?_kernel<|\b(dq_convert)_kernel\b", lowered)
+    # csrc/flash_attention.cu: the tensor-core forward (wgmma; mma.sync in
+    # earlier trees) and fused backward (bf16; the backward's dq conversion
+    # beside it) or the CUDA-core forward, dq and dk/dv (fp32)
+    port = re.search(r"\b(fwd|dq|dkv|bwd)(_mma|_wgmma)?_kernel<|\b(dq_convert)_kernel\b", lowered)
     if port:
         return f"flash_attention {port.group(1) or port.group(3)} (port kernel)"
     if any(t in lowered for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")):
@@ -53,7 +62,43 @@ def kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
+FORWARD = "flash_attention fwd (port kernel)"
+
+
+def in_turns(parent: str) -> int:
+    """Run the parent's and this tree's script in turns; print a summary."""
+    turns = []
+    for label, cwd in (("parent", Path(parent)), ("change", REPO), ("change", REPO),
+                       ("parent", Path(parent))):
+        print(f"--- {label} ({cwd})", flush=True)
+        res = subprocess.run([sys.executable, "scripts/torch_train_profile.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=900)
+        print(res.stdout, end="", flush=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            print(f"torch_train_profile: {label} run failed", file=sys.stderr)
+            return 1
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        fwd = out["families"].get(FORWARD, {})
+        turns.append({
+            "tree": label,
+            "device_busy_ms_per_step": 1e3 * out["device_busy_s"] / out["profiled_steps"],
+            "median_step_ms": out["median_step_ms"],
+            "forward_ms_per_step": fwd.get("ms_per_step"),
+            "forward_launches_per_step": fwd.get("launches_per_step"),
+            "forward_share_of_busy": fwd.get("share_of_busy"),
+        })
+    print(json.dumps({"turns": turns}))
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None, help="checkout of another commit to profile in turns")
+    args = ap.parse_args()
+    if args.parent is not None:
+        return in_turns(args.parent)
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -31,6 +31,8 @@ from dalle_pytorch_tpu.ops.pallas_attention import mask_block_layout as jax_mask
 from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
 from dalle_pytorch_tpu_torch.ops.flash_attention import (
     BLOCK,
+    KERNEL_HEAD_DIMS,
+    WGMMA_HEAD_DIMS,
     _FlashAttention,
     flash_attention,
     flash_attention_bwd,
@@ -40,6 +42,8 @@ from dalle_pytorch_tpu_torch.ops.flash_attention import (
     flash_attention_forward_plain,
     flash_attention_fwd,
     flash_mask,
+    kernel_head_dim,
+    on_kernel_head_dim,
 )
 from dalle_pytorch_tpu_torch.ops.masks import mask_block_layout
 
@@ -85,6 +89,14 @@ def test_causal_matches_the_pallas_kernels(n):
     _compare(n, n, 16)
 
 
+@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "all"])
+def test_any_head_dim_matches_the_pallas_kernels(d, causal):
+    """Head dims outside the kernels' instances (16, 32, 64, 128): the
+    forward and the autograd backward equal the reference's at any D."""
+    _compare(40, 40, d, causal=causal, seed=12)
+
+
 def test_no_mask_non_causal():
     _compare(40, 40, 32, causal=False, seed=1)
 
@@ -103,6 +115,71 @@ def test_static_patterns_match_the_pallas_kernels(attn_type):
     pattern = build_static_mask(attn_type, 39, 6, layer_ind=3)
     mask = np.tril(np.ones((40, 40), bool)) & pattern[:40, :40]
     _compare(40, 40, 16, mask=mask, causal=True, seed=3)
+
+
+@pytest.mark.parametrize("d", [8, 48, 100])
+def test_head_dim_padding_is_the_unpadded_function(d):
+    """The card's padding (`on_kernel_head_dim`: D zero-padded to the
+    kernel's next head dim, the true D's scale, outputs cut back), run
+    through the plain versions, equals the unpadded plain versions: o and
+    lse 1e-6, dq/dk/dv 1e-5 (zero columns change only summation order).
+    The forward is padded both ways the card pads it: to the next of all
+    instances (float32) and of the bfloat16 wgmma kernel's 64 and 128."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 70, 70, d, seed=13))
+    assert kernel_head_dim(d) == {8: 16, 48: 64, 100: 128}[d]
+    assert kernel_head_dim(d, WGMMA_HEAD_DIMS) == {8: 64, 48: 64, 100: 128}[d]
+    o, lse = flash_attention_forward_plain(q, k, v)
+    for dims in (KERNEL_HEAD_DIMS, WGMMA_HEAD_DIMS):
+        po, plse = on_kernel_head_dim(
+            lambda q_, k_, v_, s: flash_attention_forward_plain(q_, k_, v_, sm_scale=s),
+            (q, k, v), 1, dims=dims,
+        )
+        assert po.shape == o.shape and plse.shape == lse.shape
+        torch.testing.assert_close(po, o, atol=1e-6, rtol=0)
+        torch.testing.assert_close(plse, lse, atol=1e-6, rtol=0)
+    delta = (g * o).sum(-1)
+    grads = flash_attention_bwd_plain(q, k, v, g, lse, delta)
+    padded = on_kernel_head_dim(
+        lambda q_, k_, v_, g_, s: flash_attention_bwd_plain(q_, k_, v_, g_, lse, delta, sm_scale=s),
+        (q, k, v, g), 3,
+    )
+    for got, ref in zip(padded, grads):
+        assert got.shape == ref.shape and got.is_contiguous()
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="Queue 3"):
+        kernel_head_dim(136)
+
+
+def test_attention_module_at_head_dim_48_matches_the_reference():
+    """The port's `Attention(dim=96, heads=2, dim_head=48,
+    attn_impl="flash")` against the JAX `Attention` with the same weights:
+    output 1e-5 and the input gradient 1e-4, through the flash arm."""
+    from dalle_pytorch_tpu.models.attention import Attention as JAttention
+    from dalle_pytorch_tpu_torch.models.attention import Attention
+
+    n, dim = 40, 96
+    jattn = JAttention(dim=dim, seq_len=n, heads=2, dim_head=48, attn_impl="flash")
+    rng = np.random.RandomState(14)
+    x, g = rng.randn(2, n, dim).astype(np.float32), rng.randn(2, n, dim).astype(np.float32)
+    params = jattn.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    assert jattn._use_flash(n, None)
+
+    def jloss(x_):
+        out, _ = jattn.apply({"params": params}, x_)
+        return jnp.sum(out * jnp.asarray(g)), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    attn = Attention(dim, heads=2, dim_head=48, attn_impl="flash")
+    with torch.no_grad():
+        attn.to_qkv.weight.copy_(torch.from_numpy(np.array(params["to_qkv"]["kernel"]).T))
+        attn.to_out.weight.copy_(torch.from_numpy(np.array(params["to_out"]["kernel"]).T))
+        attn.to_out.bias.copy_(torch.from_numpy(np.array(params["to_out"]["bias"])))
+    assert attn.use_flash(n, None)
+    tx = torch.from_numpy(x).requires_grad_()
+    out = attn(tx)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), atol=1e-4, rtol=0)
 
 
 def test_wrappers_split_as_the_autograd_function_does():
@@ -233,9 +310,11 @@ def test_autograd_backward_is_one_backward_call(monkeypatch):
 
 def _online_forward(q, k, v, keep, scale, p_dtype):
     """The tensor-core forward written as its loop: 64-key tiles, running
-    max m and sum l in float32, P = exp(s - m) rounded to `p_dtype` before
-    P . V, the accumulator rescaled by exp(m_old - m_new)."""
-    s_all = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    max m and sum l in float32, in base 2 (scores x = s fl(scale log2(e))),
+    P = 2^(x - m) rounded to `p_dtype` before P . V, the accumulator
+    rescaled by 2^(m_old - m_new)."""
+    scale_log2 = float(np.float32(scale) * np.float32(1.4426950408889634))
+    s_all = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale_log2
     s_all = s_all.masked_fill(~keep, -1e30)
     m = torch.full(q.shape[:3] + (1,), -1e30)
     l = torch.zeros_like(m)
@@ -243,8 +322,8 @@ def _online_forward(q, k, v, keep, scale, p_dtype):
     for k0 in range(0, k.shape[2], BLOCK):
         s = s_all[..., k0 : k0 + BLOCK]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(p_dtype).float(), v[..., k0 : k0 + BLOCK, :].float())
         m = m_new
@@ -304,8 +383,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
         flash_attention_fwd(q, k.bfloat16(), v)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(), v[..., :8].contiguous())
+    # a head dim outside the kernels' instances is the reference's function
+    q8, k8, v8 = (t[..., :8].contiguous() for t in (q, k, v))
+    ref = jax_flash_attention(
+        *(jnp.asarray(t.numpy()) for t in (q8, k8, v8)), block_q=16, block_k=16, interpret=True
+    )
+    np.testing.assert_allclose(flash_attention_fwd(q8, k8, v8)[0].numpy(), np.asarray(ref), atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.repeat(1, 1, 1, 2)[..., ::2], k, v)
     with pytest.raises(ValueError, match=r"\[B, H, N_k, D\]"):

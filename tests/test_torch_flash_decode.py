@@ -21,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from dalle_pytorch_tpu.models.attention import _kv_quantize as j_quantize
+from dalle_pytorch_tpu.ops import pallas_decode as jpd
 from dalle_pytorch_tpu.ops.pallas_decode import flash_decode_attention as jax_flash_decode
+from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 from dalle_pytorch_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_plain,
@@ -99,10 +102,89 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_decode_attention(q, k, v, lengths.long())
     with pytest.raises(ValueError, match="contiguous"):
         flash_decode_attention(q.repeat(1, 1, 1, 2)[..., ::2], k, v, lengths)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_decode_attention(q[..., :8], k[..., :8], v[..., :8], lengths)
+    # a head dim outside the kernels' instances is the reference's function
+    q8, k8, v8 = (t[..., :8].contiguous() for t in (q, k, v))
+    ref = jax_flash_decode(
+        *(jnp.asarray(t.numpy()) for t in (q8, k8, v8)), jnp.asarray(lengths.numpy()),
+        block_k=4, interpret=True,
+    )
+    np.testing.assert_allclose(
+        flash_decode_attention(q8, k8, v8, lengths).numpy(), np.asarray(ref), atol=2e-5, rtol=0
+    )
     with pytest.raises(ValueError, match=r"\[B, H, S, D\]"):
         flash_decode_attention(q, k[:, :1], v[:, :1], lengths)
+
+
+VARIANTS = ["plain", "int8", "block_sparse", "paged", "block_sparse_paged"]
+
+
+@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_every_variant_takes_any_head_dim(variant, d):
+    """Each of the five decode functions (plain and int8 arms, block-sparse,
+    paged, block-sparse paged) at head dims outside the old kernel set,
+    through the port's wrappers on the CPU and the Pallas kernels in
+    interpret mode: 2e-5 (float32 summation order)."""
+    b, h, n, page, n_pages = 3, 2, 3, 8, 5
+    s_len = page * n_pages
+    rng = np.random.RandomState(d)
+    q, k, v = _inputs(b, h, n, s_len, d, seed=d + 1)
+    lengths = np.asarray([3, 21, 40], np.int32)
+    scales = {}
+    if variant == "int8":
+        (k, ks), (v, vs) = (tuple(np.array(x) for x in j_quantize(jnp.asarray(t))) for t in (k, v))
+        scales = dict(k_scale=ks, v_scale=vs)
+    bm = (rng.rand(b, n_pages) < 0.6).astype(np.int32)
+    bm[:, 0] = 1  # a row with no live block has no softmax support
+    table = rng.permutation(b * n_pages).reshape(b, n_pages).astype(np.int32)
+    # the pool: row r's page j holds cache positions [j*page, (j+1)*page)
+    pool_k, pool_v = (np.zeros((b * n_pages, h, page, d), np.float32) for _ in range(2))
+    for r in range(b):
+        for j in range(n_pages):
+            pool_k[table[r, j]] = k[r, :, j * page : (j + 1) * page]
+            pool_v[table[r, j]] = v[r, :, j * page : (j + 1) * page]
+    j_args = dict(interpret=True, **{key: jnp.asarray(x) for key, x in scales.items()})
+    t_scales = [torch.from_numpy(x) for x in scales.values()]
+    jq, jl = jnp.asarray(q), jnp.asarray(lengths)
+    tq, tl = torch.from_numpy(q), torch.from_numpy(lengths)
+    if variant in ("plain", "int8"):
+        ref = jpd.flash_decode_attention(jq, jnp.asarray(k), jnp.asarray(v), jl, block_k=page, **j_args)
+        out = fd.flash_decode_attention(tq, torch.from_numpy(k), torch.from_numpy(v), tl, *t_scales)
+    elif variant == "block_sparse":
+        ref = jpd.block_sparse_flash_decode_attention(
+            jq, jnp.asarray(k), jnp.asarray(v), jl, jnp.asarray(bm), block_k=page, **j_args
+        )
+        out = fd.block_sparse_flash_decode_attention(
+            tq, torch.from_numpy(k), torch.from_numpy(v), tl, torch.from_numpy(bm), page
+        )
+    elif variant == "paged":
+        ref = jpd.paged_flash_decode_attention(
+            jq, jnp.asarray(pool_k), jnp.asarray(pool_v), jl, jnp.asarray(table), **j_args
+        )
+        out = fd.paged_flash_decode_attention(
+            tq, torch.from_numpy(pool_k), torch.from_numpy(pool_v), tl, torch.from_numpy(table)
+        )
+    else:
+        ref = jpd.block_sparse_paged_flash_decode_attention(
+            jq, jnp.asarray(pool_k), jnp.asarray(pool_v), jl, jnp.asarray(table),
+            jnp.asarray(bm), **j_args,
+        )
+        out = fd.block_sparse_paged_flash_decode_attention(
+            tq, torch.from_numpy(pool_k), torch.from_numpy(pool_v), tl, torch.from_numpy(table),
+            torch.from_numpy(bm),
+        )
+    assert out.shape == (b, h, n, d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+
+
+def test_kernel_head_dims_are_the_multiples_of_16_up_to_128():
+    """The card's instances: D in 16, 32, ..., 128; anything else raises
+    naming the open remainder (the CPU path takes any D)."""
+    for d in range(16, 129, 16):
+        fd.check_kernel_head_dim(d)
+    for d in (8, 40, 100, 144):
+        with pytest.raises(ValueError, match="Queue 3"):
+            fd.check_kernel_head_dim(d)
 
 
 def test_import_needs_neither_nvcc_nor_triton():

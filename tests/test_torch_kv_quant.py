@@ -71,6 +71,7 @@ def _int8_cache(b, h, s, d, seed):
         (4, 2, 1, 37, 16, [1, 9, 20, 37], 8),
         (3, 2, 5, 40, 32, [5, 17, 40], 16),
         (2, 4, 3, 70, 64, [33, 70], 16),
+        (2, 2, 3, 40, 48, [17, 40], 8),
     ],
 )
 def test_int8_arm_matches_the_pallas_kernel(b, h, n, s, d, lengths, block_k):

@@ -70,6 +70,7 @@ CASES = [  # b, h, n, page, n_pages, d, lengths
     (3, 2, 1, 4, 6, 16, [1, 13, 24]),
     (2, 2, 3, 8, 4, 16, [9, 30]),
     (3, 1, 2, 4, 5, 32, [5, 8, 17]),
+    (2, 2, 2, 4, 5, 48, [7, 19]),  # a head dim between the kernels' old instances
 ]
 
 

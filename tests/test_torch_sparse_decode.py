@@ -109,6 +109,7 @@ def _random_bitmap(b, nb, seed):
         (3, 2, 1, 40, 16, [4, 17, 40], 8),
         (3, 2, 4, 40, 32, [4, 23, 40], 8),
         (2, 2, 3, 37, 16, [20, 37], 5),
+        (2, 2, 3, 40, 48, [20, 40], 8),
     ],
 )
 def test_plain_block_sparse_matches_the_pallas_kernel(int8, b, h, n, s, d, lengths, block_k):
