@@ -12,21 +12,25 @@ Phases, each failing loudly (nonzero exit, no result line):
    (one nvcc per source, started together);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
-   small shapes for the other head dims: the decode kernels at every
-   instance, D = 16 to 128 in steps of 16; flash attention at D = 16, 32,
-   48 and 128, D = 48 through the wrappers' zero padding to 64, and the
-   bfloat16 forward's D = 16 and 32 padded to 64 as well; for flash
+   small shapes for the other head dims: the decode kernels at D = 8 to
+   256 (`DECODE_OTHER_DIMS`), a 5-row chunk and a split-K step each;
+   flash attention at D = 16, 32, 48, 128, 192 and 256, the D that are no
+   instance through the wrappers' zero padding; for flash
    attention also a ragged length, an axial_row static mask and the arm
    with neither causality nor a mask, each
    output held per element and per 64-row tile, and in bfloat16 also
    against the plain version that rounds P and dS as the kernels do);
+   D = 264 must raise in the decode and attention wrappers;
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
-   for the input type, this card's published peaks); the kernels line
-   names the CUDA kernel the bf16 forward's row ran (`cuda_kernel`, read
-   from a torch.profiler trace of one call taken after phase 8, since a
-   trace slows the launches after it: the wgmma kernel at D = 64);
+   for the input type, this card's published peaks), flash attention
+   also at D = 256; after phase 8 (a torch.profiler trace slows the
+   launches after it) each bf16 kernel row's device time per call from a
+   trace of the same timed calls (`device_ms`: CUDA events around
+   back-to-back calls read the wrapper's host time once the kernel is
+   shorter), and the CUDA kernel the bf16 forward's row ran
+   (`cuda_kernel`: the wgmma kernel at D = 64);
 4. a small float32 model on the card, through the kernels against the
    same model through dense attention: its cached decode, and its training
    loss and every gradient;
@@ -66,7 +70,8 @@ block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
 random and policy bitmaps, poisoned dead tiles) and the two paged kernels
 (page sizes 16-128, shuffled tables sharing pages, NaN-poisoned pools;
 bit for bit the all-ones page bitmap against the paged kernel, and each
-paged kernel against its contiguous twin on the gathered view).
+paged kernel against its contiguous twin on the gathered view, at D = 16
+to 256 and at split-K steps).
 
 The line before the last is the card's nvidia-smi line, the one before
 that a JSON object of the kernels; the last line is
@@ -88,8 +93,10 @@ SEED = 0
 LAYERS = 12  # flagship depth: the timed inputs rotate over this many copies
 MAIN = dict(batch=4, heads=16, dim_head=64, cache=1281, prefill=257)
 TRAIN = dict(batch=4, heads=16, n=1280, dim_head=64)  # flash attention's shapes
-# the decode kernels' instances besides the main paths' D = 64
-DECODE_OTHER_DIMS = (16, 32, 48, 80, 96, 112, 128)
+# decode head dims besides the main paths' D = 64 (any D <= 256 runs on the
+# card: 36 and 38 take the 4-byte and plain copies of int8 rows)
+DECODE_OTHER_DIMS = (8, 16, 32, 36, 38, 40, 48, 72, 80, 96, 112, 128, 200, 256)
+ATTENTION_OTHER_DIMS = (16, 32, 48, 128, 192, 256)  # flash attention's, small shapes
 FLAGSHIP = dict(
     dim=1024, depth=LAYERS, heads=16, dim_head=64, num_image_tokens=8192,
     image_fmap_size=32, num_text_tokens=10000, text_seq_len=256,
@@ -203,12 +210,12 @@ def attention_closeness(torch, out, ref):
     return err.abs().max().item(), element, tile
 
 
-def attention_bound(kind, elt, peaks, dtype_key):
+def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
     """(bound_ms, bound_by) of one flash-attention pass at TRAIN's causal
-    shapes: each input read once and each output written once; 4*D (fwd:
-    S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per visible (query,
-    key) pair."""
-    b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
+    shapes (head dim `d`): each input read once and each output written
+    once; 4*D (fwd: S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per
+    visible (query, key) pair."""
+    b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
     rows, pairs = b * h * n, b * h * n * (n + 1) // 2
     nbytes, flops = {
         "fwd": (4 * rows * d * elt + 4 * rows, 4 * d * pairs),    # q,k,v,o + lse
@@ -240,7 +247,9 @@ def launched_kernel(torch, fn, args):
 
 def time_ms(torch, fn, inputs, iters):
     """Mean ms per call over `iters` calls rotating through `inputs` (one
-    set per layer: each call finds its K/V cold in L2, as in decode)."""
+    set per layer: each call finds its K/V cold in L2, as in decode).
+    CUDA events around back-to-back calls: where the kernel is shorter
+    than the wrapper's host time this reads the host (see device_ms)."""
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
@@ -251,6 +260,42 @@ def time_ms(torch, fn, inputs, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, inputs, iters):
+    """(ms, {kernel name: launches}) per call on the card: the device time
+    of every kernel and memset the `iters` calls launch (rotating through
+    `inputs`, as time_ms), summed from a torch.profiler trace of them and
+    divided by `iters`. Traces slow the launches after them, so these run
+    after every other timed phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for it in range(iters):
+            fn(*inputs[it % len(inputs)])
+        torch.cuda.synchronize()
+    total_us, names = 0.0, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            total_us += evt.time_range.elapsed_us()
+            found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
+            name = found.group(0) if found else evt.name[:60]
+            names[name] = names.get(name, 0) + 1
+    if not names:
+        fail(f"{getattr(fn, '__name__', fn)}: the trace holds no device activity")
+    return total_us / iters / 1e3, {k: n / iters for k, n in names.items()}
+
+
+# rows of phase 3 whose device time is taken after phase 8: (row, fn,
+# inputs, iters); device_ms fills row["device_ms"] and row["device_kernels"]
+DEVICE_ROWS = []
+
+
+def defer_device_time(row, fn, inputs, iters):
+    DEVICE_ROWS.append((row, fn, inputs, iters))
 
 
 # the flagship geometry's pattern layers, for the policy bitmaps of phase 2
@@ -383,6 +428,32 @@ def check_decode_variants(torch, cases):
     return worst
 
 
+def check_head_dim_limit(torch):
+    """Phase 2: head dims above 256 raise on the card, naming ROADMAP Queue
+    3, in the decode and flash-attention wrappers alike (no plain version
+    runs instead)."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    q = torch.zeros((1, 1, 1, 264), dtype=torch.bfloat16, device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_decode_attention": lambda: fd.flash_decode_attention(q, q, q, lens),
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, q, q),
+        "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+            q, q, q, q, lens.float()[None, None], lens.float()[None, None]),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as exc:
+            if "Queue 3" not in str(exc):
+                fail(f"{name} at D = 264 raised without naming ROADMAP Queue 3: {exc}")
+            print(f"check {name} D=264 raises: {exc}")
+            continue
+        fail(f"{name} took D = 264 on the card")
+
+
 def decode_variant_bound(per_pos_bytes, positions, pairs, peaks):
     """(bound_ms, bound_by) of one step (n = 1) at MAIN's shapes: q read
     and out written in bf16, `positions` cache positions read over all
@@ -428,6 +499,7 @@ def time_decode_variants(torch, F, peaks, smi, cases):
     # n = 1: each row's one query sees its `len` keys; int8 K and V (2*D
     # bytes) and two fp32 scales per position and head
     row["bound_ms"], row["bound_by"] = decode_variant_bound(2 * d + 8, sum(live), sum(live), peaks)
+    defer_device_time(row, fd.flash_decode_attention, int8_in, iters)
     rows["flash_decode_int8"] = row
     print("time " + json.dumps(dict(
         kernel="flash_decode_int8", case="step", q_dtype="bf16", kv="int8 + fp32 scales",
@@ -449,6 +521,7 @@ def time_decode_variants(torch, F, peaks, smi, cases):
         library_ms=time_ms(torch, library_masked, lib_in, iters),
     )
     row["bound_ms"], row["bound_by"] = decode_variant_bound(2 * d * 2, n_visible, n_visible, peaks)
+    defer_device_time(row, fd.block_sparse_flash_decode_attention, sparse_in, iters)
     dense_ms = time_ms(torch, fd.flash_decode_attention, inputs, iters)
     rows["block_sparse_flash_decode"] = row
     print("time " + json.dumps(dict(
@@ -540,7 +613,8 @@ def check_paged_variants(torch):
                             f"{(a.float() - b.float()).abs().max().item():.1e})")
 
     cases = [(4, 16, 1, 64, 1281, [257, 700, 1024, 1281])]  # the flagship step
-    cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 48, 128)]
+    cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 40, 48, 128, 256)]
+    cases += [(4, 2, 1, d, 700, [1, 255, 256, 700]) for d in (40, 200)]  # split-K at other D
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for b, h, n, d, vlen, lengths in cases:
         for page in PAGE_SIZES:
@@ -635,6 +709,7 @@ def time_paged_variants(torch, F, peaks, smi, cases):
     )
     live = sum(lengths)
     row["bound_ms"], row["bound_by"] = paged_bound(lengths, PAGE, live, peaks)
+    defer_device_time(row, fd.paged_flash_decode_attention, sets, iters)
     extra = dict(
         gather_impl_ms=time_ms(torch, gather_impl, sets, iters),
         kernel1_on_gathered_ms=time_ms(torch, fd.flash_decode_attention, gathered, iters),
@@ -661,6 +736,7 @@ def time_paged_variants(torch, F, peaks, smi, cases):
         library_ms=time_ms(torch, library, [g + (kv_live,) for g in gathered], iters),
     )
     row["bound_ms"], row["bound_by"] = paged_bound(lengths, PAGE, visible, peaks)
+    defer_device_time(row, fd.block_sparse_paged_flash_decode_attention, sparse_in, iters)
     sparse_int8 = [(q, kq, vq, lens, t, bm, ks, vs) for q, kq, vq, lens, t, ks, vs in int8_sets]
     extra = dict(
         int8_ms=time_ms(torch, fd.block_sparse_paged_flash_decode_attention, sparse_int8, iters),
@@ -797,7 +873,7 @@ def check_attention(torch):
             ("axial_row", b, h, n, n, d, axial),
             ("nk>nq", 2, 2, 70, 150, d, None),
             ("all keys", 2, 2, 100, 150, d, None),  # the arm without causality or mask
-        ] + [("small", 2, 2, 100, 100, dd, None) for dd in (16, 32, 48, 128)]
+        ] + [("small", 2, 2, 100, 100, dd, None) for dd in ATTENTION_OTHER_DIMS]
         for label, *shape, mask in cases:
             errs = attention_case(torch, label, *shape, dtype, mask=mask,
                                   causal=label != "all keys")
@@ -807,16 +883,17 @@ def check_attention(torch):
     return worst
 
 
-def time_attention(torch, F, peaks, dtype, key, elt):
+def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
     """Kernel, plain and library times of the two passes at TRAIN's causal
-    shapes (inputs rotate over 3 copies). SDPA's backward computes dq, dk
-    and dv in one call, its own delta included, so beside the backward
-    kernel the row also times the port's whole backward as the autograd
-    Function runs it (delta, then the wrapper: workspace zeroing, the
-    kernel, dq's conversion)."""
+    shapes (head dim `d`; inputs rotate over 3 copies). SDPA's backward
+    computes dq, dk and dv in one call, its own delta included, so beside
+    the backward kernel the row also times the port's whole backward as
+    the autograd Function runs it (delta, then the wrapper: workspace
+    zeroing, the kernel, dq's conversion). The bf16 rows' device times are
+    taken after phase 8."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
-    b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
+    b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     sets, whole_in = [], []
     for _ in range(3):
@@ -854,8 +931,11 @@ def time_attention(torch, F, peaks, dtype, key, elt):
             whole_backward_ms=time_ms(torch, whole_bwd, whole_in, 30),
         ),
     }
+    if dtype == torch.bfloat16:
+        defer_device_time(rows["flash_attention_fwd"], fa.flash_attention_fwd, fwd_in, 30)
+        defer_device_time(rows["flash_attention_bwd"], fa.flash_attention_bwd, sets, 30)
     for name, row in rows.items():
-        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, key)
+        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, key, d)
         print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True, **row)))
     bwd = rows["flash_attention_bwd"]
     print(
@@ -1412,26 +1492,30 @@ def main() -> int:
             if not (err <= tol and torch.isfinite(out).all()):
                 fail(f"flash_decode {case} {dtype} disagrees with its plain version")
             errs[(case, dtype)] = err
-    # the other head dims the kernel has instances for, at a small ragged shape
+    # the other head dims, at small ragged shapes: a 5-row chunk (one block
+    # over the cache) and a step over 700 positions (split-K, three spans)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for d in DECODE_OTHER_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (
-                torch.randn(shape, generator=g, device="cuda").to(dtype)
-                for shape in ((4, 2, 5, d), (4, 2, 100, d), (4, 2, 100, d))
-            )
-            lens = torch.tensor([5, 37, 64, 100], dtype=torch.int32, device="cuda")
-            ref = flash_decode_attention_plain(q, k, v, lens).float()
-            err = (flash_decode_attention(q, k, v, lens).float() - ref).abs().max().item()
-            scale = max(1.0, ref.abs().max().item())
-            tol = 2.0**-7 * scale if dtype == torch.bfloat16 else 2e-5 * scale
-            print(
-                f"check flash_decode D={d} {str(dtype)[6:]} n=5 S=100: "
-                f"max_abs_err {err:.3e} tol {tol:.3e}"
-            )
-            if not err <= tol:
-                fail(f"flash_decode D={d} {dtype} disagrees with its plain version")
+            for n, s_len, lengths in ((5, 100, [5, 37, 64, 100]), (1, 700, [1, 255, 256, 700])):
+                q, k, v = (
+                    torch.randn(shape, generator=g, device="cuda").to(dtype)
+                    for shape in ((4, 2, n, d), (4, 2, s_len, d), (4, 2, s_len, d))
+                )
+                lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+                ref = flash_decode_attention_plain(q, k, v, lens).float()
+                out = flash_decode_attention(q, k, v, lens).float()
+                err = (out - ref).abs().max().item()
+                scale = max(1.0, ref.abs().max().item())
+                tol = 2.0**-7 * scale if dtype == torch.bfloat16 else 2e-5 * scale
+                print(
+                    f"check flash_decode D={d} {str(dtype)[6:]} n={n} S={s_len}: "
+                    f"max_abs_err {err:.3e} tol {tol:.3e}"
+                )
+                if not (err <= tol and torch.isfinite(out).all()):
+                    fail(f"flash_decode D={d} n={n} {dtype} disagrees with its plain version")
 
+    check_head_dim_limit(torch)
     t0 = time.perf_counter()
     variant_errs = check_decode_variants(torch, cases)
     print(f"phase 2 int8 and block-sparse checks: {time.perf_counter() - t0:.1f} s")
@@ -1465,6 +1549,8 @@ def main() -> int:
             )
             row["bound_ms"], row["bound_by"] = flash_bound(n, lengths, elt, peaks, key)
             timings[(case, key)] = row
+            if key == "bf16":
+                defer_device_time(row, flash_decode_attention, inputs, iters)
             print("time " + json.dumps(dict(
                 kernel="flash_decode", case=case, dtype=key, n=n, lengths=lengths,
                 library_max_abs_err=lib_err, **row,
@@ -1477,6 +1563,10 @@ def main() -> int:
     paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     time_attention(torch, F, peaks, torch.float32, "fp32", 4)
+    # the largest head dim the kernels take (the 256 instances: bf16 backward
+    # in two column halves, fp32 dq / dk-dv with K and V sharing a buffer)
+    attn_d256 = {key: time_attention(torch, F, peaks, dt, key, elt, d=256)
+                 for dt, key, elt in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4))}
 
     # 4. model on the card: kernel path vs dense path ----------------------
     small = dict(
@@ -1556,16 +1646,28 @@ def main() -> int:
     print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
-    # the kernel phase 3's forward row timed, from a trace of one call made
-    # after every timed phase: a torch.profiler trace leaves the CUDA
-    # tracer attached, which slows each launch after it
+    # device time per call of phase 3's kernel rows, and the kernel the
+    # forward's row ran, from traces made after every timed phase: a
+    # torch.profiler trace leaves the CUDA tracer attached, which slows
+    # each launch after it
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    for row, fn, inputs, iters in DEVICE_ROWS:
+        row["device_ms"], row["device_kernels"] = device_ms(torch, fn, inputs, iters)
+        print(f"device time {fn.__name__}: {row['device_ms']:.5f} ms a call (event time "
+              f"{row['ms']:.5f}), kernels a call {json.dumps(row['device_kernels'])}")
+    DEVICE_ROWS.clear()
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
     qkv = [torch.randn(b, h, n, d, generator=g, device="cuda").bfloat16() for _ in range(3)]
     traced = launched_kernel(torch, fa.flash_attention_fwd, qkv)
     attn_times["flash_attention_fwd"]["cuda_kernel"] = traced
+    for name, row in attn_times.items():
+        for key, rows in attn_d256.items():
+            for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                if field in rows[name]:
+                    row[f"d256_{key}_{field}"] = rows[name][field]
     print(f"phase 3's bf16 forward launches {traced} (torch.profiler trace of one call)")
 
     # result -------------------------------------------------------------------
@@ -1580,6 +1682,10 @@ def main() -> int:
                 max_abs_err=max(e for (c, d), e in errs.items() if d == torch.bfloat16),
                 ms=step["ms"],
                 plain_ms=step["plain_ms"],
+                device_ms=step["device_ms"],
+                device_kernels=step["device_kernels"],
+                prefill_ms=timings[("prefill", "bf16")]["ms"],
+                prefill_device_ms=timings[("prefill", "bf16")]["device_ms"],
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],

@@ -30,7 +30,8 @@
 //     axis becomes an in-block loop and nothing crosses blocks; causal
 //     blocks stop at the last live key tile, mask blocks skip the tiles the
 //     layout marks empty; in bfloat16 on wgmma with TMA tiles (D = 64,
-//     128; the wrapper pads D = 16, 32 to 64), see the tensor-core section;
+//     128, 256; the wrapper pads other D to the next), see the tensor-core
+//     section;
 //   * backward in bfloat16: one fused pass, FlashAttention-2's (second
 //     half of this file): a block per (64-key tile, head, batch row) loops
 //     over the query tiles that see its keys, computes S and dP once per
@@ -47,7 +48,13 @@
 //     patch of the accumulator; tiles staged as fp32 with rows padded to
 //     D + 4 so float4 reads are conflict-free); the online softmax reduces
 //     over the 16 lanes of a half-warp; the backward is two passes, dq (by
-//     query tile) and dk/dv (by key tile), each recomputing p.
+//     query tile) and dk/dv (by key tile), each recomputing p;
+//   * head dims: instances at D = 16, 32, 64, 128 and 256 (the wrapper
+//     zero-pads any other D <= 256 to the next). At 256 the fp32 dq and
+//     dk/dv kernels would pass the shared-memory limit with four staged
+//     tiles, so K and V share one buffer in turn (dk/dv restages its key
+//     tile for each query tile), and the fused bf16 backward splits the
+//     output columns over two blocks (`bwd_out_cols`).
 // Not done yet: wgmma and TMA in the backward.
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime, no -lcuda)
@@ -261,6 +268,12 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
+// D > 128: four staged tiles pass the shared-memory limit, so K and V share
+// one buffer in turn (V for dP, then K for S and dq += dS K) and the dk/dv
+// kernel restages its key tile's K and V for each query tile
+template <int D>
+__host__ __device__ constexpr bool kv_shared() { return D > 128; }
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -273,7 +286,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
   float* qs = reinterpret_cast<float*>(smem4);
   float* dos = qs + kBlock * LD;
   float* ks = dos + kBlock * LD;
-  float* vs = ks + kBlock * LD;
+  float* vs = kv_shared<D>() ? ks : ks + kBlock * LD;
   float* dss = vs + kBlock * LD;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -300,18 +313,27 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
   for (int kt = 0; kt < kend; ++kt) {
     if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;
     const int k0 = kt * kBlock;
-    __syncthreads();
-    stage_tile<D>(ks, kb, k0, nk, 1.f);
-    stage_tile<D>(vs, vb, k0, nk, 1.f);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, qs, ks, ty, tx);
-    tile_dot<D>(dp, dos, vs, ty, tx);
+    __syncthreads();
+    if constexpr (kv_shared<D>()) {
+      stage_tile<D>(vs, vb, k0, nk, 1.f);
+      __syncthreads();
+      tile_dot<D>(dp, dos, vs, ty, tx);
+      __syncthreads();
+      stage_tile<D>(ks, kb, k0, nk, 1.f);
+      __syncthreads();
+      tile_dot<D>(s, qs, ks, ty, tx);
+    } else {
+      stage_tile<D>(ks, kb, k0, nk, 1.f);
+      stage_tile<D>(vs, vb, k0, nk, 1.f);
+      __syncthreads();
+      tile_dot<D>(s, qs, ks, ty, tx);
+      tile_dot<D>(dp, dos, vs, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -347,12 +369,13 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
            int nq, int nk, int mode, float scale) {
   constexpr int LD = D + 4, DJ = D / 16;
   extern __shared__ float4 smem4[];
+  constexpr bool SHARED = kv_shared<D>();  // K and V, and P^T and dS^T, share buffers
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBlock * LD;
+  float* vs = SHARED ? ks : ks + kBlock * LD;
   float* qs = vs + kBlock * LD;
   float* dos = qs + kBlock * LD;
   float* pts = dos + kBlock * LD;
-  float* dsts = pts + kBlock * kPLD;
+  float* dsts = SHARED ? pts : pts + kBlock * kPLD;
   float* lse_s = dsts + kBlock * kPLD;
   float* delta_s = lse_s + kBlock;
 
@@ -368,8 +391,12 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   // nk > nq puts the whole key tile past the last query)
   const int qbegin = mode == 1 ? k0 / kBlock : 0;
 
-  stage_tile<D>(ks, k + bh * nk * D, k0, nk, 1.f);
-  stage_tile<D>(vs, v + bh * nk * D, k0, nk, 1.f);
+  const float* kb = k + bh * nk * D;
+  const float* vb = v + bh * nk * D;
+  if constexpr (!SHARED) {
+    stage_tile<D>(ks, kb, k0, nk, 1.f);
+    stage_tile<D>(vs, vb, k0, nk, 1.f);
+  }
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -386,6 +413,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
       lse_s[r] = q0 + r < nq ? lse[bh * nq + q0 + r] : 0.f;
       delta_s[r] = q0 + r < nq ? delta[bh * nq + q0 + r] : 0.f;
     }
+    if constexpr (SHARED) stage_tile<D>(ks, kb, k0, nk, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -394,7 +422,13 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     tile_dot<D>(s, ks, qs, ty, tx);
+    if constexpr (SHARED) {
+      __syncthreads();
+      stage_tile<D>(vs, vb, k0, nk, 1.f);
+      __syncthreads();
+    }
     tile_dot<D>(dp, vs, dos, ty, tx);
+    float ds[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = k0 + ty + 16 * i;
@@ -405,12 +439,21 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
         // reaches dk/dv
         const float p = visible(q0 + rl, c, nq, nk, mode, mask)
                             ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
+        ds[i][j] = p * (dp[i][j] - delta_s[rl]) * scale;
         pts[(ty + 16 * i) * kPLD + rl] = p;
-        dsts[(ty + 16 * i) * kPLD + rl] = p * (dp[i][j] - delta_s[rl]) * scale;
+        if constexpr (!SHARED) dsts[(ty + 16 * i) * kPLD + rl] = ds[i][j];
       }
     }
     __syncwarp();
     tile_acc<D>(dv_acc, pts, dos, ty, tx);
+    if constexpr (SHARED) {  // dS^T replaces P^T (rows of one half-warp each)
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dsts[(ty + 16 * i) * kPLD + tx + 16 * j] = ds[i][j];
+      __syncwarp();
+    }
     tile_acc<D>(dk_acc, dsts, qs, ty, tx);
   }
 
@@ -443,10 +486,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 //   B 16x8:  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
 //   C 16x8:  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
 //
-// The bf16 forward, `fwd_wgmma_kernel`, at D = 64 and 128 (the wrapper
-// zero-pads D = 16 and 32 to 64, so one kernel serves every head dim and
+// The bf16 forward, `fwd_wgmma_kernel`, at D = 64, 128 and 256 (the wrapper
+// zero-pads other D to the next, so one kernel serves every head dim and
 // no 32- or 64-byte swizzle is needed). S = Q K^T is D/16 wgmma.m64n64k16
-// with Q and K K-major in shared memory; O += P V is 4 wgmma.m64nDk16 with
+// with Q and K K-major in shared memory; O += P V is 4 wgmma.m64nDk16
+// (D = 256: two m64n128k16 a step, on the accumulator's two halves) with
 // P from registers (the rounded accumulator, repacked as A fragments, as
 // FlashAttention-3 does) and V read from shared memory as an MN-major
 // operand (the transpose bit), so no transposed copy exists. Tiles are
@@ -651,7 +695,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const f
   }
 }
 
-// --- wgmma (D = 64, 128)
+// --- wgmma (D = 64, 128, 256)
 constexpr uint32_t kPanel = kBlock * 128;  // bytes of a 64-row x 64-column bf16 panel
 
 // The wgmma kernel's tiles arrive by TMA: one thread asks for a whole
@@ -751,15 +795,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : WG_ACC32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db) {
+// (m64n128k16 on the 128 columns of d from column 8 O: O = 16 is the
+// second half of a 256-column accumulator)
+#define WG_ACC4_AT(i) "+f"(d[O + i][0]), "+f"(d[O + i][1]), "+f"(d[O + i][2]), "+f"(d[O + i][3])
+template <int O = 0, int NB>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[NB][4], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(O + 16 <= NB, "accumulator columns");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REG32 ", "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
       "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_ACC32, WG_ACC4(8), WG_ACC4(9), WG_ACC4(10), WG_ACC4(11), WG_ACC4(12), WG_ACC4(13),
-        WG_ACC4(14), WG_ACC4(15)
+      : WG_ACC4_AT(0), WG_ACC4_AT(1), WG_ACC4_AT(2), WG_ACC4_AT(3), WG_ACC4_AT(4),
+        WG_ACC4_AT(5), WG_ACC4_AT(6), WG_ACC4_AT(7), WG_ACC4_AT(8), WG_ACC4_AT(9),
+        WG_ACC4_AT(10), WG_ACC4_AT(11), WG_ACC4_AT(12), WG_ACC4_AT(13), WG_ACC4_AT(14),
+        WG_ACC4_AT(15)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -768,14 +819,15 @@ constexpr size_t fwd_wgmma_smem() { return 5 * kBlock * D * sizeof(bf16) + 1024;
 
 // at most 128 registers a thread, so 4 blocks share an SM at D = 64 (16
 // warps to hide the latency of the serial S -> softmax -> P V chain); the
-// D = 128 accumulator needs more, and its 81 KB of shared memory fits 2
+// D = 128 accumulator needs more, and its 81 KB of shared memory fits 2;
+// D = 256 (128 accumulator registers a thread, 161 KB) runs one block an SM
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 4)
+__global__ void __launch_bounds__(kMmaThreads, D >= 256 ? 1 : D == 128 ? 2 : 4)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, const uint8_t* __restrict__ mask,
                  const int* __restrict__ layout, bf16* __restrict__ o, float* __restrict__ lse,
                  int nq, int nk, int mode, float scale) {
-  static_assert(D % 64 == 0, "whole 64-column panels");
+  static_assert(D == 64 || D == 128 || D == 256, "whole 64-column panels, 128-column products");
   constexpr int NBD = D / 8;
   constexpr uint32_t kTile = kBlock * D * sizeof(bf16);
   extern __shared__ float4 smem4[];
@@ -854,11 +906,20 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     uint32_t pa[4][4];
     p_fragments(pa, s);
 
-    // O += P V: four steps of 16 keys, 2048 bytes (16 rows) apart
+    // O += P V: four steps of 16 keys, 2048 bytes (16 rows) apart; D = 256
+    // as two 128-column products, the second from V's third panel on
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pa[kk], sw128_desc(vsm + kk * 2048, kPanel));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 64) {
+        wgmma_rs(acc, pa[kk], sw128_desc(vsm + kk * 2048, kPanel));
+      } else {
+        wgmma_rs128<0>(acc, pa[kk], sw128_desc(vsm + kk * 2048, kPanel));
+        if constexpr (D == 256)
+          wgmma_rs128<16>(acc, pa[kk], sw128_desc(vsm + 2 * kPanel + kk * 2048, kPanel));
+      }
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -954,18 +1015,29 @@ constexpr size_t bwd_mma_smem() {
   return sizeof(bf16) * (6 * kBlock * (D + 8) + kBlock * kLDT) + sizeof(float) * 4 * kBlock;
 }
 
-// at most 170 registers a thread, so 3 blocks share an SM; at D = 128 the
-// shared memory (115 KB a block) fits only 2, so the registers may too
+// D = 256: dK and dV for 64 keys x 256 columns do not fit 4 warps'
+// registers, so each block owns DO = 128 of the output columns (blockIdx.z
+// picks which): it forms S and dP over all of D, as every column of dK =
+// dS^T Q, dV = P^T dO and dQ = dS K needs them, then accumulates only its
+// own columns. Two blocks per key tile recompute S and dP; the columns'
+// sums are the unsplit kernel's.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3)
+__host__ __device__ constexpr int bwd_out_cols() { return D > 128 ? D / 2 : D; }
+
+// at most 170 registers a thread, so 3 blocks share an SM; at D = 128 the
+// shared memory (115 KB a block) fits only 2, so the registers may too; at
+// D = 256 (208 KB) one
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D >= 256 ? 1 : D == 128 ? 2 : 3)
 bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const uint8_t* __restrict__ mask, const int* __restrict__ layout,
                float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv, int nq,
                int nk, int mode, float scale) {
-  constexpr int LD = D + 8, NBD = D / 8, DC = D < 64 ? D : 64;
+  constexpr int LD = D + 8, DO = bwd_out_cols<D>(), NBD = DO / 8, DC = D < 64 ? D : 64;
   extern __shared__ float4 smem4[];
+  const int c0 = blockIdx.z * DO;  // this block's output columns [c0, c0 + DO)
   bf16* ks = reinterpret_cast<bf16*>(smem4);
   bf16* vs = ks + kBlock * LD;
   bf16* qs0 = vs + kBlock * LD;         // stage s at qs0 + s * 64 * LD
@@ -1101,8 +1173,8 @@ bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kc = 0; kc < 2; ++kc) {
 #pragma unroll
-        for (int nd = 0; nd < D / 16; ++nd) {
-          const int brow = (qh + kc * 16 + (lane & 15)) * LD + nd * 16 + (lane >> 4) * 8;
+        for (int nd = 0; nd < DO / 16; ++nd) {
+          const int brow = (qh + kc * 16 + (lane & 15)) * LD + c0 + nd * 16 + (lane >> 4) * 8;
           uint32_t b[4];
           ldsm_x4_t(b, dos + brow);
           mma_bf16(dv_acc[2 * nd], pa[kc], b[0], b[1]);
@@ -1115,10 +1187,11 @@ bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // dS^T is complete
 
-    // dQ[r0 .. r0 + 16) += dS K over the 64 keys, in 64-column chunks,
-    // added into the fp32 workspace
+    // dQ[r0 .. r0 + 16) += dS K over the 64 keys, in 64-column chunks of
+    // this block's columns, added into the fp32 workspace
 #pragma unroll
-    for (int dc = 0; dc < D / DC; ++dc) {
+    for (int dcl = 0; dcl < DO / DC; ++dcl) {
+      const int dc = c0 / DC + dcl;
       float acc[DC / 8][4];
 #pragma unroll
       for (int nb = 0; nb < DC / 8; ++nb)
@@ -1161,8 +1234,8 @@ bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int c = k0 + r0 + g + 8 * hh;
     if (c >= nk) continue;
-    bf16* krow = dk + (bh * nk + c) * D + 2 * t;
-    bf16* vrow = dv + (bh * nk + c) * D + 2 * t;
+    bf16* krow = dk + (bh * nk + c) * D + c0 + 2 * t;
+    bf16* vrow = dv + (bh * nk + c) * D + c0 + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < NBD; ++nb) {
       *reinterpret_cast<__nv_bfloat162*>(krow + nb * 8) =
@@ -1187,10 +1260,13 @@ __global__ void dq_convert_kernel(const float4* __restrict__ src, __nv_bfloat162
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (3 * kBlock * (D + 4) + kBlock * kPLD); }
 template <int D>
-constexpr size_t dq_smem() { return sizeof(float) * (4 * kBlock * (D + 4) + kBlock * kPLD); }
+constexpr size_t dq_smem() {
+  return sizeof(float) * ((kv_shared<D>() ? 3 : 4) * kBlock * (D + 4) + kBlock * kPLD);
+}
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 4) + 2 * kBlock * kPLD + 2 * kBlock);
+  return sizeof(float) * ((kv_shared<D>() ? 3 : 4) * kBlock * (D + 4) +
+                          (kv_shared<D>() ? 1 : 2) * kBlock * kPLD + 2 * kBlock);
 }
 
 // dynamic shared memory above 48 KB must be opted into once per kernel
@@ -1276,7 +1352,7 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
   auto* dq_acc = static_cast<float*>(a.dq_acc);
   if ((err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), a.stream)) != cudaSuccess) return err;
   if ((err = allow_smem(bwd_mma_kernel<D>, bwd_mma_smem<D>())) != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.nk + kBlock - 1) / kBlock);
+  const dim3 grid(a.B * a.H, (a.nk + kBlock - 1) / kBlock, D / bwd_out_cols<D>());
   bwd_mma_kernel<D><<<grid, kMmaThreads, bwd_mma_smem<D>(), a.stream>>>(
       q, k, v, static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), mask, layout, dq_acc, static_cast<bf16*>(a.dk),
@@ -1307,6 +1383,7 @@ int dispatch(Pass pass, int D, int dtype, const Args& a) {
     case 32: return (int)run<32>(pass, dtype, a);
     case 64: return (int)run<64>(pass, dtype, a);
     case 128: return (int)run<128>(pass, dtype, a);
+    case 256: return (int)run<256>(pass, dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    "--split-compile=0",  # optimize a source's kernels on every core: halves flash_decode.cu's build
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}

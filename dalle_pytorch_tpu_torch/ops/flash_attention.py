@@ -31,12 +31,13 @@ forward kernel does, so a kernel can be held to its own rounding and not
 only to the exact function.
 
 Any head dim: the plain versions take any D, as the reference does. The
-kernels have instances at D = 16, 32, 64 and 128, the bfloat16 forward
-at 64 and 128 only; on the card a D <= 128 between them is zero-padded
-along D to the kernel's next instance, run with the true D's scale
-(D ** -0.5 unless `sm_scale`), and cut back (`on_kernel_head_dim`): zero
-columns add nothing to q . k and give zero output columns, so lse is
-unchanged. D > 128 raises on the card.
+kernels have instances at D = 16, 32, 64, 128 and 256, the bfloat16
+forward at 64, 128 and 256 only; on the card a D <= 256 between them is
+zero-padded along D to the kernel's next instance, run with the true D's
+scale (D ** -0.5 unless `sm_scale`), and cut back (`on_kernel_head_dim`):
+zero columns add nothing to q . k and give zero output columns, so lse is
+unchanged. D > 256 raises on the card (ROADMAP Queue 3: no DALL-E or CLIP
+configuration uses it, and 256 is where the register file runs out).
 
 On the card the kernels are bound by operations at the training shapes:
 4 D flops per visible pair forward, 10 D backward (S and dP once, then
@@ -65,8 +66,8 @@ from dalle_pytorch_tpu_torch import kernels
 from dalle_pytorch_tpu_torch.ops.masks import mask_block_layout
 
 BLOCK = 64  # the kernels' query and key tile (csrc/flash_attention.cu kBlock)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances; other D <= 128 pad up
-WGMMA_HEAD_DIMS = (64, 128)  # the bfloat16 forward's (whole 64-column panels)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances; other D <= 256 pad up
+WGMMA_HEAD_DIMS = (64, 128, 256)  # the bfloat16 forward's (whole 64-column panels)
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -274,7 +275,8 @@ def _library() -> ctypes.CDLL:
 
 def kernel_head_dim(d: int, dims=KERNEL_HEAD_DIMS) -> int:
     """The kernel's head dim for a true head dim `d`: the next of its
-    instances `dims`. Above 128 no instance exists and the card raises."""
+    instances `dims`. Above the last (256) no instance exists and the card
+    raises."""
     for kd in dims:
         if d <= kd:
             return kd
@@ -325,7 +327,7 @@ def _launch(name, q, k, ins, outs, mode, fm, scale):
 def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=None):
     """(o, lse) of the forward. CUDA tensors launch the kernel on the
     current stream (D padded to the kernel's head dim by
-    `on_kernel_head_dim`: 64 or 128 in bfloat16); CPU tensors run
+    `on_kernel_head_dim`: 64, 128 or 256 in bfloat16); CPU tensors run
     `flash_attention_forward_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":

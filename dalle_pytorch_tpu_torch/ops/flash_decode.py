@@ -20,11 +20,15 @@ key gives zeros (callers never produce one: lengths >= n). An int8 cache
 On the card this is bound by bytes: a one-token decode step reads each
 live K/V element once, 2*B*H*len*D*elt bytes per layer (elt 1 for int8,
 plus 8 bytes of scales per position), and does 4*D flops per element
-read. The kernel reads only live KV tiles (each block loops to the last
-tile its rows can see, and skips tiles the bitmap leaves dead) with
-16-byte coalesced loads, dequantizes int8 into shared memory and keeps
-the online softmax in fp32 registers; see the source's header for what is
-left on the table (split-K at n = 1, tensor cores, TMA).
+read. The kernel splits the cache into spans of `DECODE_SPAN` positions
+at the step (n <= `DECODE_ROWS`): one block per span of each (row, head),
+the spans' partial softmax states merged in span order by the last block
+to finish (`flash_decode_split_plain` is that arithmetic on the CPU). It
+reads only the keys some row can see (length skip, dead blocks and pages
+never read) with cp.async into a ring of shared-memory stages, splits each
+tile's keys over its four warps and keeps K/V in their storage type until
+registers; see the source's header. Head dims: any D on the CPU, any D <=
+`MAX_KERNEL_HEAD_DIM` (256) on the card, a cache never padded per call.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -37,9 +41,9 @@ through the table, and a dead page's entry is never followed.
 of the same name): impl "gather" materializes the contiguous view with
 `paged_gather` and runs the contiguous kernels (bit-identical to the
 slotted cache), impl "kernel" runs the paged kernels (also bit-identical:
-same tiles and order, see the source's header). `None` takes
-`PAGED_DECODE_IMPL`, read from $DALLE_PAGED_DECODE_IMPL, default "gather"
-as in the reference.
+the same spans, tiles and summation order, see the source's header).
+`None` takes `PAGED_DECODE_IMPL`, read from $DALLE_PAGED_DECODE_IMPL,
+default "gather" as in the reference.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
@@ -59,7 +63,9 @@ import torch
 
 from dalle_pytorch_tpu_torch import kernels
 
-KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))  # the kernels' instances (csrc dispatch_d)
+MAX_KERNEL_HEAD_DIM = 256  # the kernels take any D up to this (csrc dispatch_d)
+DECODE_ROWS = 4  # query rows per block (csrc kRows): n <= DECODE_ROWS splits the cache
+DECODE_SPAN = 128  # cache positions per split-K block (csrc kSpan, fixed from measurement)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PAGED_DECODE_IMPLS = ("gather", "kernel")
 PAGED_DECODE_IMPL = os.environ.get("DALLE_PAGED_DECODE_IMPL", "gather")
@@ -179,6 +185,66 @@ def flash_decode_attention_plain(
     return _plain(q, k, v, lengths, k_scale, v_scale)
 
 
+def flash_decode_split_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_bitmap: Optional[torch.Tensor] = None,
+    block_k: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,
+    span: int = DECODE_SPAN,
+) -> torch.Tensor:
+    """The kernels' split-K arithmetic in plain PyTorch (a model for tests;
+    nothing on the main path calls it). For n <= DECODE_ROWS each span of
+    `span` cache positions gets its own softmax state (m, l, acc): m the
+    span's largest visible score (-inf when it has none), l and acc its
+    sums of exp(s - m) and exp(s - m) v; the spans merge in span order,
+    M = max m, out = sum(acc e^(m - M)) / sum(l e^(m - M)) over the spans
+    with a visible key, zeros for a row with none. Larger n is one span.
+    `block_bitmap` (with `block_k`) arms block sparsity; `page_table`
+    reads k/v (and the scales) as pools [P, H, page, D] through it, the
+    bitmap then one bit per page."""
+    if page_table is not None:
+        page = k.shape[2]
+        vlen = page_table.shape[1] * page
+        k, v, k_scale, v_scale = _gathered(k, v, page_table, vlen, k_scale, v_scale)
+        block_k = page if block_bitmap is not None else block_k
+    b, h, n, d = q.shape
+    s_len = k.shape[2]
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale[..., None], vf * v_scale[..., None]
+    pos = torch.arange(s_len, device=q.device)
+    bound = lengths.to(torch.long).clamp(0, s_len)[:, None] - n + torch.arange(n, device=q.device)
+    visible = pos[None, None, :] <= bound[:, :, None]  # [B, n, S]
+    if block_bitmap is not None:
+        live = expand_bitmap(block_bitmap, clamp_block_k(block_k, s_len), s_len)
+        visible = visible & live[:, None, :]
+    scores = torch.matmul(q.float() * d**-0.5, kf.transpose(-1, -2))
+    scores = scores.masked_fill(~visible[:, None], float("-inf"))
+    vf = torch.where(visible.any(1)[:, None, :, None], vf, torch.zeros_like(vf))  # dead keys unread
+    width = span if n <= DECODE_ROWS else s_len
+    parts = []
+    for lo in range(0, s_len, width):
+        sc = scores[..., lo : lo + width]
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+        parts.append((m, p.sum(-1, keepdim=True), torch.matmul(p, vf[:, :, lo : lo + width])))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    safe_m = torch.where(torch.isfinite(big_m), big_m, torch.zeros_like(big_m))
+    total_l = torch.zeros_like(big_m)
+    total_acc = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:  # span order
+        f = torch.where(torch.isfinite(m), torch.exp(m - safe_m), torch.zeros_like(m))
+        total_l = total_l + l * f
+        total_acc = total_acc + acc * f
+    out = torch.where(total_l > 0, total_acc / total_l.clamp(min=1e-30), torch.zeros_like(total_acc))
+    return out.to(q.dtype)
+
+
 def expand_bitmap(block_bitmap: torch.Tensor, block_k: int, s_len: int) -> torch.Tensor:
     """[B, nb] block bitmap -> [B, S] bool per-position liveness."""
     return (block_bitmap != 0).repeat_interleave(block_k, dim=1)[:, :s_len]
@@ -206,18 +272,14 @@ def _library() -> ctypes.CDLL:
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        tail = [ctypes.c_float] + [ctypes.c_void_p] * 3
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + tail
         paged = lib.paged_flash_decode_launch
         paged.restype = ctypes.c_int
-        paged.argtypes = (
-            [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        paged.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + tail
+        floats = lib.flash_decode_workspace_floats
+        floats.restype = ctypes.c_longlong
+        floats.argtypes = [ctypes.c_int] * 5
     return lib
 
 
@@ -226,13 +288,34 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def check_kernel_head_dim(d: int) -> None:
-    """Raise unless the card's kernels have an instance for head dim `d`
-    (the plain versions take any D; a cache is never padded per call)."""
-    if d not in KERNEL_HEAD_DIMS:
+    """Raise unless the card's kernels take head dim `d`: any D from 1 to
+    MAX_KERNEL_HEAD_DIM (the plain versions take any D; a cache is never
+    padded per call)."""
+    if not 1 <= d <= MAX_KERNEL_HEAD_DIM:
         raise ValueError(
-            f"head dim {d} not in {KERNEL_HEAD_DIMS}: the flash-decode kernels take "
-            "multiples of 16 up to 128 on the card (ROADMAP.md Queue 3)"
+            f"head dim {d}: the flash-decode kernels take D <= {MAX_KERNEL_HEAD_DIM} on the "
+            "card (ROADMAP.md Queue 3)"
         )
+
+
+_counters = {}  # device -> int32 arrival counters, zero between calls
+
+
+def _split_scratch(lib, q, b, h, n, s_len, d):
+    """(workspace, counters) of a split-K call, or (None, None) when the
+    call has one span: a float32 workspace for the spans' partial states
+    (fresh from the caching allocator) and int32 counters per (row, head),
+    zeroed once per device and left zero by every call, so a call needs no
+    memset. Calls on one device share the counters: they run on one stream
+    at a time."""
+    floats = lib.flash_decode_workspace_floats(b, h, n, s_len, d)
+    if floats == 0:
+        return None, None
+    counters = _counters.get(q.device)
+    if counters is None or counters.numel() < b * h:
+        counters = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=q.device)
+        _counters[q.device] = counters
+    return torch.empty(floats, dtype=torch.float32, device=q.device), counters
 
 
 def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table=None):
@@ -246,21 +329,23 @@ def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_tabl
     lib = _library()
     out = torch.empty_like(q)
     sparse = block_bitmap is not None
+    s_len = k.shape[2] if page_table is None else page_table.shape[1] * k.shape[2]
+    workspace, counters = _split_scratch(lib, q, b, h, n, s_len, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (_ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths))
+    tail = (d**-0.5, stream, _ptr(workspace), _ptr(counters))
     with torch.cuda.device(q.device):
         if page_table is None:
             err = lib.flash_decode_launch(
-                *head, _ptr(block_bitmap), _ptr(out), b, h, n, k.shape[2], d,
+                *head, _ptr(block_bitmap), _ptr(out), b, h, n, s_len, d,
                 _DTYPE_CODE[q.dtype], int(k_scale is not None),
-                block_bitmap.shape[1] if sparse else 0, block_k if sparse else 0,
-                d**-0.5, stream,
+                block_bitmap.shape[1] if sparse else 0, block_k if sparse else 0, *tail,
             )
         else:
             err = lib.paged_flash_decode_launch(
                 *head, _ptr(page_table), _ptr(block_bitmap), _ptr(out), b, h, n,
                 k.shape[0], k.shape[2], page_table.shape[1], d, _DTYPE_CODE[q.dtype],
-                int(k_scale is not None), d**-0.5, stream,
+                int(k_scale is not None), *tail,
             )
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
@@ -277,7 +362,8 @@ def flash_decode_attention(
 ) -> torch.Tensor:
     """q [B, H, n, D] (float32 or bfloat16), k/v [B, H, S, D] in q's dtype
     or int8 with k_scale/v_scale [B, H, S] float32 (contiguous; any D on
-    the CPU, D in KERNEL_HEAD_DIMS on the card), lengths [B] int32 -> [B, H, n, D] in q's dtype.
+    the CPU, D <= MAX_KERNEL_HEAD_DIM on the card), lengths [B] int32 -> [B, H, n,
+    D] in q's dtype.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     `flash_decode_attention_plain`; anything else raises.

@@ -89,11 +89,12 @@ def test_causal_matches_the_pallas_kernels(n):
     _compare(n, n, 16)
 
 
-@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("d", [8, 48, 192])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "all"])
 def test_any_head_dim_matches_the_pallas_kernels(d, causal):
-    """Head dims outside the kernels' instances (16, 32, 64, 128): the
-    forward and the autograd backward equal the reference's at any D."""
+    """Head dims outside the kernels' instances (16, 32, 64, 128, 256; 192
+    runs the 256 instance on the card): the forward and the autograd
+    backward equal the reference's at any D."""
     _compare(40, 40, d, causal=causal, seed=12)
 
 
@@ -117,17 +118,20 @@ def test_static_patterns_match_the_pallas_kernels(attn_type):
     _compare(40, 40, 16, mask=mask, causal=True, seed=3)
 
 
-@pytest.mark.parametrize("d", [8, 48, 100])
+@pytest.mark.parametrize("d", [8, 48, 100, 192])
 def test_head_dim_padding_is_the_unpadded_function(d):
     """The card's padding (`on_kernel_head_dim`: D zero-padded to the
     kernel's next head dim, the true D's scale, outputs cut back), run
     through the plain versions, equals the unpadded plain versions: o and
     lse 1e-6, dq/dk/dv 1e-5 (zero columns change only summation order).
     The forward is padded both ways the card pads it: to the next of all
-    instances (float32) and of the bfloat16 wgmma kernel's 64 and 128."""
+    instances (float32) and of the bfloat16 wgmma kernel's 64, 128 and
+    256. Every D <= 256 has an instance to pad to; 264 raises."""
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 70, 70, d, seed=13))
-    assert kernel_head_dim(d) == {8: 16, 48: 64, 100: 128}[d]
-    assert kernel_head_dim(d, WGMMA_HEAD_DIMS) == {8: 64, 48: 64, 100: 128}[d]
+    assert kernel_head_dim(d) == {8: 16, 48: 64, 100: 128, 192: 256}[d]
+    assert kernel_head_dim(d, WGMMA_HEAD_DIMS) == {8: 64, 48: 64, 100: 128, 192: 256}[d]
+    for taken in (129, 136, 200, 256):
+        assert kernel_head_dim(taken) == kernel_head_dim(taken, WGMMA_HEAD_DIMS) == 256
     o, lse = flash_attention_forward_plain(q, k, v)
     for dims in (KERNEL_HEAD_DIMS, WGMMA_HEAD_DIMS):
         po, plse = on_kernel_head_dim(
@@ -146,8 +150,9 @@ def test_head_dim_padding_is_the_unpadded_function(d):
     for got, ref in zip(padded, grads):
         assert got.shape == ref.shape and got.is_contiguous()
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
-    with pytest.raises(ValueError, match="Queue 3"):
-        kernel_head_dim(136)
+    for dims in (KERNEL_HEAD_DIMS, WGMMA_HEAD_DIMS):
+        with pytest.raises(ValueError, match="Queue 3"):
+            kernel_head_dim(264, dims)
 
 
 def test_attention_module_at_head_dim_48_matches_the_reference():

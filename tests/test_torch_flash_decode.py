@@ -118,13 +118,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 VARIANTS = ["plain", "int8", "block_sparse", "paged", "block_sparse_paged"]
 
 
-@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("d", [8, 40, 48, 200])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_every_variant_takes_any_head_dim(variant, d):
     """Each of the five decode functions (plain and int8 arms, block-sparse,
-    paged, block-sparse paged) at head dims outside the old kernel set,
-    through the port's wrappers on the CPU and the Pallas kernels in
-    interpret mode: 2e-5 (float32 summation order)."""
+    paged, block-sparse paged) at head dims that are not multiples of 16
+    or lie above 128 (the card's kernels take any D <= 256), through the
+    port's wrappers on the CPU and the Pallas kernels in interpret mode:
+    2e-5 (float32 summation order)."""
     b, h, n, page, n_pages = 3, 2, 3, 8, 5
     s_len = page * n_pages
     rng = np.random.RandomState(d)
@@ -178,13 +179,84 @@ def test_every_variant_takes_any_head_dim(variant, d):
 
 
 def test_kernel_head_dims_are_the_multiples_of_16_up_to_128():
-    """The card's instances: D in 16, 32, ..., 128; anything else raises
-    naming the open remainder (the CPU path takes any D)."""
-    for d in range(16, 129, 16):
+    """The card's head-dim rule (the test keeps its name): every D from 1
+    to 256 is taken, multiples of 16 or not (head dim is a runtime
+    argument of the kernels); above 256 raises naming the open remainder
+    (the CPU path takes any D)."""
+    for d in (1, 8, 16, 36, 40, 64, 72, 100, 128, 144, 200, 256):
         fd.check_kernel_head_dim(d)
-    for d in (8, 40, 100, 144):
+    assert fd.MAX_KERNEL_HEAD_DIM == 256
+    for d in (0, 257, 264, 512):
         with pytest.raises(ValueError, match="Queue 3"):
             fd.check_kernel_head_dim(d)
+
+
+def _pallas_variant(variant, q, k, v, lengths, bm, block_k, scales):
+    """The Pallas kernel (interpret mode) of `variant` ("plain" or
+    "block_sparse", each taking the int8 scales) on the contiguous cache."""
+    j = dict(interpret=True, **{key: jnp.asarray(x) for key, x in scales.items()})
+    jq, jl = jnp.asarray(q), jnp.asarray(lengths)
+    if variant == "plain":
+        return jpd.flash_decode_attention(jq, jnp.asarray(k), jnp.asarray(v), jl, block_k=block_k, **j)
+    if variant == "block_sparse":
+        return jpd.block_sparse_flash_decode_attention(
+            jq, jnp.asarray(k), jnp.asarray(v), jl, jnp.asarray(bm), block_k=block_k, **j
+        )
+    raise ValueError(variant)
+
+
+@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("variant", ["plain", "int8", "block_sparse", "block_sparse_int8"])
+def test_split_k_model_matches_the_pallas_kernels(variant, n, d):
+    """`flash_decode_split_plain`, the card kernels' split-K arithmetic
+    (per-span m, l, acc merged in span order), against the Pallas kernels
+    in interpret mode on the contiguous cache: spans of 8 positions over a
+    43-position cache, lengths that are not multiples of the span (one row
+    inside its first span), int8 with scales, and block-sparse bitmaps
+    that leave whole spans with no live key. 2e-5 (float32 summation
+    order); its n > 4 case is one span, the plain version's function."""
+    b, h, s_len, span, block_k = 3, 2, 43, 8, 4
+    q, k, v = _inputs(b, h, n, s_len, d, seed=d + n)
+    lengths = np.asarray([n + 2, 29, 43], np.int32)
+    scales = {}
+    if variant.endswith("int8"):
+        (k, ks), (v, vs) = (tuple(np.array(x) for x in j_quantize(jnp.asarray(t))) for t in (k, v))
+        scales = dict(k_scale=ks, v_scale=vs)
+    nb = -(-s_len // block_k)
+    bm = None
+    if variant.startswith("block_sparse"):
+        bm = np.zeros((b, nb), np.int32)
+        bm[:, 0] = 1
+        bm[1, [3, 7]] = 1  # blocks 4-5 (span 1, positions 8-15) and 8-9 dead
+        bm[2, [2, 5, 10]] = 1
+    ref = _pallas_variant(
+        "block_sparse" if bm is not None else "plain", q, k, v, lengths, bm, block_k, scales
+    )
+    t_scales = [torch.from_numpy(x) for x in scales.values()]
+    out = fd.flash_decode_split_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(lengths),
+        *t_scales, block_bitmap=None if bm is None else torch.from_numpy(bm), block_k=block_k,
+        span=span,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    assert torch.isfinite(out).all()
+
+
+def test_split_k_model_writes_zeros_for_a_row_with_no_key_and_one_span_is_plain():
+    """A row of length 0 sees no key in any span: zeros, as the kernels
+    write it. For n > DECODE_ROWS (the prefill chunk) the model is one
+    span and gives the plain version's function."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 2, 1, 30, 24, seed=9))
+    lengths = torch.tensor([0, 30], dtype=torch.int32)
+    out = fd.flash_decode_split_plain(q, k, v, lengths, span=8)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out[1], fd.flash_decode_attention_plain(q, k, v, lengths)[1],
+                               atol=2e-6, rtol=0)
+    q5 = torch.from_numpy(_inputs(2, 2, 6, 30, 24, seed=10)[0])
+    lengths = torch.tensor([6, 30], dtype=torch.int32)
+    torch.testing.assert_close(fd.flash_decode_split_plain(q5, k, v, lengths, span=8),
+                               fd.flash_decode_attention_plain(q5, k, v, lengths), atol=2e-6, rtol=0)
 
 
 def test_import_needs_neither_nvcc_nor_triton():

@@ -25,6 +25,7 @@ from dalle_pytorch_tpu.ops.pallas_decode import paged_flash_decode_attention as 
 from dalle_pytorch_tpu.ops.pallas_decode import paged_gather as j_paged_gather
 from dalle_pytorch_tpu_torch.ops.flash_decode import (
     block_sparse_flash_decode_attention,
+    flash_decode_split_plain,
     block_sparse_paged_flash_decode_attention,
     flash_decode_attention,
     page_bitmap,
@@ -71,6 +72,8 @@ CASES = [  # b, h, n, page, n_pages, d, lengths
     (2, 2, 3, 8, 4, 16, [9, 30]),
     (3, 1, 2, 4, 5, 32, [5, 8, 17]),
     (2, 2, 2, 4, 5, 48, [7, 19]),  # a head dim between the kernels' old instances
+    (2, 2, 1, 8, 5, 40, [9, 37]),  # not a multiple of 16: a runtime D on the card
+    (2, 1, 2, 4, 6, 200, [7, 24]),  # above 128: the 256-channel instance on the card
 ]
 
 
@@ -196,3 +199,32 @@ def test_wrappers_check_the_table_and_count_no_cpu_launch():
         block_sparse_paged_flash_decode_attention(tq, tkp, tvp, lengths, tt, torch.ones((2, 3), dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\[P, H, page, D\]"):
         paged_flash_decode_attention(tq, tkp[:, :1].contiguous(), tvp[:, :1].contiguous(), lengths, tt)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["causal", "sparse"])
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [16, 40])
+def test_split_k_model_on_the_pool_matches_the_pallas_kernels(d, int8, sparse):
+    """`flash_decode_split_plain` reading the pool through the page table
+    (the paged kernels' split-K arithmetic: spans of 8 positions, two
+    pages each) against the paged Pallas kernels in interpret mode, with
+    ragged lengths (not multiples of the span) and a page bitmap that
+    leaves whole spans dead: 2e-5 (float32 summation order)."""
+    b, h, n, page, n_pages = 3, 2, 1, 4, 9
+    q, kp, vp, ks, vs, table = _paged_case(b, h, n, page, n_pages, d, seed=d + int8, int8=int8)
+    lengths = np.asarray([3, 22, 36], np.int32)
+    bm = None
+    if sparse:
+        bm = np.zeros((b, n_pages), np.int32)
+        bm[:, 0] = 1
+        bm[1, [1, 4, 5]] = 1  # span 1 (pages 2-3) dead for row 1
+        bm[2, [3, 6, 8]] = 1  # spans 2 and half of 1 dead for row 2
+    jq, jkp, jvp, jks, jvs, jt, jl = _j(q, kp, vp, ks, vs, table, lengths)
+    if sparse:
+        ref = j_sparse_paged(jq, jkp, jvp, jl, jt, jnp.asarray(bm), interpret=True,
+                             k_scale=jks, v_scale=jvs)
+    else:
+        ref = j_paged(jq, jkp, jvp, jl, jt, interpret=True, k_scale=jks, v_scale=jvs)
+    tq, tkp, tvp, tks, tvs, tt, tl, tbm = _t(q, kp, vp, ks, vs, table, lengths, bm)
+    out = flash_decode_split_plain(tq, tkp, tvp, tl, tks, tvs, block_bitmap=tbm, page_table=tt, span=8)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
