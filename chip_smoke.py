@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each failing loudly (nonzero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi), and the build of every
-   kernel of the port's two main paths from `dalle_pytorch_tpu_torch/csrc/`
-   (one nvcc per source, started together);
+   kernel of the port from `dalle_pytorch_tpu_torch/csrc/` (one nvcc per
+   source, started together: flash_decode.cu, flash_attention.cu and
+   wide_head.cu, the head dims above 256);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -20,7 +21,10 @@ Phases, each failing loudly (nonzero exit, no result line):
    with neither causality nor a mask, each
    output held per element and per 64-row tile, and in bfloat16 also
    against the plain version that rounds P and dS as the kernels do);
-   D = 264 must raise in the decode and attention wrappers;
+   D = 264, 320 and 1024 must route to the wide kernels, which are held
+   at D = 264-1024 (decode: the five functions, both arms, NaN-poisoned
+   caches, the bit identities at D = 320) and 264-512 (attention: the
+   causal, all-keys and static-mask arms, forward and backward);
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
@@ -30,10 +34,12 @@ Phases, each failing loudly (nonzero exit, no result line):
    trace of the same timed calls (`device_ms`: CUDA events around
    back-to-back calls read the wrapper's host time once the kernel is
    shorter), and the CUDA kernel the bf16 forward's row ran
-   (`cuda_kernel`: the wgmma kernel at D = 64);
+   (`cuda_kernel`: the wgmma kernel at D = 64); the wide kernels at D =
+   320 and 512;
 4. a small float32 model on the card, through the kernels against the
    same model through dense attention: its cached decode, and its training
-   loss and every gradient;
+   loss and every gradient; again at dim_head 320 (the wide kernels, their
+   launches counted);
 5. the generation path once: the micro `GenerationEngine` at the flagship
    width (DALLE dim 1024, depth 12, 16 heads of 64, 256 text + 1024 image
    tokens, 256 px dVAE; random weights from a seed; bfloat16; batch 4),
@@ -44,7 +50,8 @@ Phases, each failing loudly (nonzero exit, no result line):
    tokens; one warmup step, then 5 Adam steps on the same batch with the
    flash-attention launch counts read from zero around them; the loss must
    fall; then `save_dalle_checkpoint`, `engine_from_checkpoint` and one
-   `generate()` from it (train -> checkpoint -> serve);
+   `generate()` from it (train -> checkpoint -> serve; the model has the
+   default vocabulary's text embedding, which its config implies);
 7. the continuous-serving path: phase 5's model behind a `ContinuousEngine`
    (4 slots, prefill waves of 4, chunks of 4 tokens) driven by the
    `ContinuousBatcher` with phase 5's four prompts, two of them admitted
@@ -63,7 +70,16 @@ Phases, each failing loudly (nonzero exit, no result line):
    (the batcher holds requests back; tokens identical again; one chunk
    under sync-debug "error"), and the block-sparse paged kernel's int8 arm
    under policy + int8 on phase 7's patterned model (tokens identical to
-   phase 7's run of it); launches counted exactly, `leak_check()` empty.
+   phase 7's run of it); launches counted exactly, `leak_check()` empty;
+9. the generation CLI (`python -m dalle_pytorch_tpu_torch.generate`, run
+   in-process) on a flagship checkpoint of the default 32k vocabulary
+   with a CLIP checkpoint at the reference defaults: two prompts of 4
+   images with CLIP reranking (PNGs read back with zlib, 12,300
+   flash-decode launches per batch, scores best first), one `--gentxt`
+   run, and the uncached `generate_images` oracle primed with the cached
+   run's first 1008 tokens (12 flash-attention forwards per sampled
+   position, the cached tokens wherever the noised-score margin passes
+   ORACLE_MARGIN); the wall of each stage.
 
 Phases 2 and 3 also hold and time the int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
@@ -263,11 +279,14 @@ def time_ms(torch, fn, inputs, iters):
 
 
 def device_ms(torch, fn, inputs, iters):
-    """(ms, {kernel name: launches}) per call on the card: the device time
-    of every kernel and memset the `iters` calls launch (rotating through
-    `inputs`, as time_ms), summed from a torch.profiler trace of them and
-    divided by `iters`. Traces slow the launches after them, so these run
-    after every other timed phase."""
+    """(ms, {kernel name: launches}) per call on the card, from a
+    torch.profiler trace of `iters` calls (rotating through `inputs`, as
+    time_ms): for each kernel or memset the calls launch, its mean device
+    time times its launches per call (at least one), summed. The trace
+    may drop some launches' records (it kept 20-57% of the D = 64
+    flash-attention calls' on an H100), so the means, not the sums, are
+    taken; `launches` reports what it kept. Traces slow the launches
+    after them, so these run after every other timed phase."""
     from torch.profiler import ProfilerActivity, profile
 
     for args in inputs:
@@ -277,16 +296,18 @@ def device_ms(torch, fn, inputs, iters):
         for it in range(iters):
             fn(*inputs[it % len(inputs)])
         torch.cuda.synchronize()
-    total_us, names = 0.0, {}
+    times = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            total_us += evt.time_range.elapsed_us()
             found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
             name = found.group(0) if found else evt.name[:60]
-            names[name] = names.get(name, 0) + 1
-    if not names:
+            times.setdefault(name, []).append(evt.time_range.elapsed_us())
+    if not times:
         fail(f"{getattr(fn, '__name__', fn)}: the trace holds no device activity")
-    return total_us / iters / 1e3, {k: n / iters for k, n in names.items()}
+    total_us = sum(
+        sum(us) / len(us) * max(1, round(len(us) / iters)) for us in times.values()
+    )
+    return total_us / 1e3, {k: len(us) / iters for k, us in times.items()}
 
 
 # rows of phase 3 whose device time is taken after phase 8: (row, fn,
@@ -429,29 +450,254 @@ def check_decode_variants(torch, cases):
 
 
 def check_head_dim_limit(torch):
-    """Phase 2: head dims above 256 raise on the card, naming ROADMAP Queue
-    3, in the decode and flash-attention wrappers alike (no plain version
-    runs instead)."""
+    """Phase 2: head dims above 256 run on the card, none raises: the
+    decode and flash-attention wrappers route D = 264, 320 and 1024 to the
+    wide kernels (`ops/wide_head.py`), each call launching there once."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
+    counters = (wh.wide_decode, wh.wide_attention_fwd, wh.wide_attention_bwd)
+    for d in (264, 320, 1024):
+        q = torch.randn((1, 1, 2, d), dtype=torch.bfloat16, device="cuda")
+        lens = torch.full((1,), 2, dtype=torch.int32, device="cuda")
+        before = [c.launches for c in counters]
+        fd.flash_decode_attention(q, q, q, lens)
+        o, lse = fa.flash_attention_fwd(q, q, q)
+        fa.flash_attention_bwd(q, q, q, q, lse, lse)
+        torch.cuda.synchronize()
+        ran = [c.launches - b for c, b in zip(counters, before)]
+        print(f"check D={d} routes to the wide kernels: launches decode / forward / backward {ran}")
+        if ran != [1, 1, 1]:
+            fail(f"D = {d} did not launch each wide kernel once: {ran}")
+
+
+# head dims above 256: every decode variant at these D, the bit identities
+# at WIDE_IDENTITY_DIM, flash attention at WIDE_ATTENTION_DIMS, times at
+# WIDE_TIMED_DIMS
+WIDE_DECODE_DIMS = (264, 320, 512, 1024)
+WIDE_ATTENTION_DIMS = (264, 320, 512)
+WIDE_IDENTITY_DIM = 320
+WIDE_TIMED_DIMS = (320, 512)
+
+
+def check_wide_decode(torch):
+    """Phase 2 for the wide decode kernel (D > 256): kernels 1-5 (the
+    contiguous cache, block-sparse over 32-position blocks, paged with
+    16-position pages through a shuffled table, block-sparse paged), each
+    arm (the cache in q's dtype, int8) against its plain version under
+    decode_tol, at a one-row step and a 5-row chunk; every kernel's
+    output unchanged and finite with NaN in every position no row may
+    read (in the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for
+    bit: the all-ones bitmap against kernels 1 and 4, kernel 4 against
+    kernel 1 and kernel 5 against kernel 3 on the gathered view. Returns
+    (worst bf16 max_abs_err, {identity: cases held})."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst, failures = 0.0, []
+    held = {"all-ones bitmap vs kernel 1": 0, "all-ones page bitmap vs kernel 4": 0,
+            "kernel 4 vs kernel 1 on the gathered view": 0,
+            "kernel 5 vs kernel 3 on the gathered view": 0, "poisoned cache unchanged": 0}
+
+    def same(name, label, a, b):
+        if torch.equal(a, b) and bool(torch.isfinite(a).all()):
+            held[name] += 1
+        else:
+            failures.append(f"{label}: {name} failed (max_abs_err "
+                            f"{(a.float() - b.float()).abs().max().item():.1e})")
+
+    def nan_where(kk, vv, sc, dead):
+        """The cache with NaN where `dead` [B or P, S or page] (in the
+        scales of an int8 cache, whose values hold no NaN)."""
+        if sc:
+            return kk, vv, tuple(t.masked_fill(dead[:, None], float("nan")) for t in sc)
+        dead = dead[:, None, :, None]
+        return kk.masked_fill(dead, float("nan")), vv.masked_fill(dead, float("nan")), ()
+
+    page, block, b, h, s_len = 16, 32, 4, 2, 300
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for d in WIDE_DECODE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for n, lengths in ((1, [1, 130, 257, 300]), (5, [5, 64, 200, 300])):
+                q, k, v, lens, table, live = paged_case(
+                    torch, b, h, n, d, page, lengths, dtype, s_len, SEED + d + n)
+                n_pages = table.shape[1]
+                bm = (torch.rand((b, -(-s_len // block)), generator=g, device="cuda") < 0.5).to(torch.int32)
+                bm[:, 0] = 1
+                pbm = (torch.rand((b, n_pages), generator=g, device="cuda") < 0.5).to(torch.int32)
+                pbm[:, :2] = 1  # the shared pages stay live
+                sparse_live = paged_live(torch, table, lengths, page, k.shape[0], pbm.tolist())
+                in_len = torch.arange(s_len, device="cuda")[None, :] < lens[:, None]
+                kq, vq, ks, vs = quantized(torch, k, v)
+                errs = []
+                for arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
+                    label = f"D={d} n={n} {str(dtype)[6:]}{arm}"
+                    kc, vc = fd.paged_gather(kk, table, s_len), fd.paged_gather(vv, table, s_len)
+                    scc = tuple(fd.paged_gather(t, table, s_len) for t in sc)
+                    outs = {
+                        "flash_decode": (fd.flash_decode_attention(q, kc, vc, lens, *scc),
+                                         fd.flash_decode_attention_plain(q, kc, vc, lens, *scc)),
+                        "block_sparse": (
+                            fd.block_sparse_flash_decode_attention(q, kc, vc, lens, bm, block, *scc),
+                            fd.block_sparse_flash_decode_attention_plain(q, kc, vc, lens, bm, block, *scc)),
+                        "paged": (fd.paged_flash_decode_attention(q, kk, vv, lens, table, *sc),
+                                  fd.paged_flash_decode_attention_plain(q, kk, vv, lens, table, *sc)),
+                        "block_sparse_paged": (
+                            fd.block_sparse_paged_flash_decode_attention(q, kk, vv, lens, table, pbm, *sc),
+                            fd.block_sparse_paged_flash_decode_attention_plain(
+                                q, kk, vv, lens, table, pbm, *sc)),
+                    }
+                    for kernel, (out, ref) in outs.items():
+                        err = (out.float() - ref.float()).abs().max().item()
+                        tol = decode_tol(torch, ref, dtype)
+                        errs.append(err)
+                        if not (err <= tol and torch.isfinite(out).all()):
+                            failures.append(f"{kernel} {label}: {err:.3e} over {tol:.3e}")
+                        if dtype == torch.bfloat16:
+                            worst = max(worst, err)
+                    # NaN wherever no row may read: kernels 1 and 3 on the
+                    # contiguous cache, kernels 4 and 5 in the pool
+                    pk, pv, psc = nan_where(kc, vc, scc, ~in_len)
+                    same("poisoned cache unchanged", label + " kernel 1",
+                         fd.flash_decode_attention(q, pk, pv, lens, *psc), outs["flash_decode"][0])
+                    dead = ~(in_len & fd.expand_bitmap(bm, block, s_len))
+                    pk, pv, psc = nan_where(kc, vc, scc, dead)
+                    same("poisoned cache unchanged", label + " kernel 3",
+                         fd.block_sparse_flash_decode_attention(q, pk, pv, lens, bm, block, *psc),
+                         outs["block_sparse"][0])
+                    pk, pv, psc = nan_where(kk, vv, sc, ~live)
+                    same("poisoned cache unchanged", label + " kernel 4",
+                         fd.paged_flash_decode_attention(q, pk, pv, lens, table, *psc), outs["paged"][0])
+                    pk, pv, psc = nan_where(kk, vv, sc, ~sparse_live)
+                    same("poisoned cache unchanged", label + " kernel 5",
+                         fd.block_sparse_paged_flash_decode_attention(q, pk, pv, lens, table, pbm, *psc),
+                         outs["block_sparse_paged"][0])
+                    if d == WIDE_IDENTITY_DIM:
+                        ones, pones = torch.ones_like(bm), torch.ones_like(pbm)
+                        same("all-ones bitmap vs kernel 1", label,
+                             fd.block_sparse_flash_decode_attention(q, kc, vc, lens, ones, block, *scc),
+                             outs["flash_decode"][0])
+                        same("all-ones page bitmap vs kernel 4", label,
+                             fd.block_sparse_paged_flash_decode_attention(q, kk, vv, lens, table, pones, *sc),
+                             outs["paged"][0])
+                        same("kernel 4 vs kernel 1 on the gathered view", label,
+                             outs["paged"][0], outs["flash_decode"][0])
+                        same("kernel 5 vs kernel 3 on the gathered view", label,
+                             outs["block_sparse_paged"][0],
+                             fd.block_sparse_flash_decode_attention(q, kc, vc, lens, pbm, page, *scc))
+                print(f"check wide decode D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
+                      "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs))
+    torch.cuda.synchronize()
+    print("check wide decode bit identities and poisoned caches (cases held): " + json.dumps(held))
+    if failures:
+        fail("wide decode: " + "; ".join(failures[:10]))
+    return worst, held
+
+
+def check_wide_attention(torch):
+    """Phase 2 for the wide flash-attention forward and backward (D > 256):
+    the causal, all-keys and static-mask (causal axial_row) arms at
+    WIDE_ATTENTION_DIMS, bf16 and fp32, through `attention_case` (ATTN_TOL,
+    dk and dv bit-identical over two runs). Returns {kernel: worst bf16
+    max_abs_err}."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
+
+    n = 160  # 97 text + 8 x 8 image positions
+    axial = np.tril(np.ones((n, n), bool)) & build_static_mask("axial_row", n, 8, 1)[:n, :n]
+    worst = {}
+    for d in WIDE_ATTENTION_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, b, h, n_q, n_k, mask in (
+                ("wide causal", 2, 2, 100, 100, None),
+                ("wide all keys", 2, 2, 100, 150, None),
+                ("wide axial_row", 1, 2, n, n, axial),
+            ):
+                errs = attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=mask,
+                                      causal=label != "wide all keys")
+                if dtype == torch.bfloat16:
+                    for kernel, err in errs.items():
+                        key = "wide_" + kernel
+                        worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def time_wide_kernels(torch, F, peaks, smi):
+    """Phase 3 for the wide kernels at WIDE_TIMED_DIMS in bf16: decode at
+    the flagship step's geometry (B = 4, H = 16, S = 1281, n = 1, lengths
+    [258, 700, 1024, 1281]) and flash attention at TRAIN's causal shapes:
+    kernel, plain and SDPA times, the bound, and (after phase 8) the device
+    time. Returns {kernel: {D: row}}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    q = torch.zeros((1, 1, 1, 264), dtype=torch.bfloat16, device="cuda")
-    lens = torch.ones(1, dtype=torch.int32, device="cuda")
-    calls = {
-        "flash_decode_attention": lambda: fd.flash_decode_attention(q, q, q, lens),
-        "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, q, q),
-        "flash_attention_bwd": lambda: fa.flash_attention_bwd(
-            q, q, q, q, lens.float()[None, None], lens.float()[None, None]),
-    }
-    for name, call in calls.items():
-        try:
-            call()
-        except ValueError as exc:
-            if "Queue 3" not in str(exc):
-                fail(f"{name} at D = 264 raised without naming ROADMAP Queue 3: {exc}")
-            print(f"check {name} D=264 raises: {exc}")
-            continue
-        fail(f"{name} took D = 264 on the card")
+    rows = {"wide_decode": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
+    b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
+    lengths = [258, 700, 1024, 1281]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def library(q, k, v, lens):
+        bound = lens.long()[:, None] - n + torch.arange(n, device="cuda")[None, :]
+        mask = torch.arange(s_len, device="cuda")[None, None, :] <= bound[:, :, None]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None])
+
+    for d in WIDE_TIMED_DIMS:
+        inputs = [
+            tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                  for shape in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+            for _ in range(3)
+        ]
+        iters = 60
+        row = dict(
+            ms=time_ms(torch, fd.flash_decode_attention, inputs, iters),
+            plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, iters),
+            library_ms=time_ms(torch, library, inputs, iters),
+        )
+        live = sum(lengths)
+        nbytes = 2 * b * h * d * 2 + 2 * h * d * 2 * live + 4 * b
+        t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * live / peaks["bf16"]
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        defer_device_time(row, fd.flash_decode_attention, inputs, iters)
+        rows["wide_decode"][d] = row
+        print("time " + json.dumps(dict(kernel="wide_decode", case="step", dtype="bf16", D=d,
+                                        lengths=lengths, card=smi, **row)))
+        del inputs
+
+        bt, ht, nt = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
+        sets = []
+        for _ in range(2):
+            q, k, v, do = (torch.randn(bt, ht, nt, d, generator=g, device="cuda").bfloat16()
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        fwd_in = [s[:3] for s in sets]
+        lib_bwd_in = []
+        for q, k, v, do, _, _ in sets:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_bwd_in.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do))
+
+        def lib_fwd(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        def lib_bwd(out, q, k, v, do):
+            return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+        for kind, fn, plain, lib, ins, lib_in in (
+            ("fwd", fa.flash_attention_fwd, fa.flash_attention_forward_plain, lib_fwd, fwd_in, fwd_in),
+            ("bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain, lib_bwd, sets, lib_bwd_in),
+        ):
+            row = dict(ms=time_ms(torch, fn, ins, 4), plain_ms=time_ms(torch, plain, ins, 2),
+                       library_ms=time_ms(torch, lib, lib_in, 10))
+            row["bound_ms"], row["bound_by"] = attention_bound(kind, 2, peaks, "bf16", d)
+            defer_device_time(row, fn, ins, 4)
+            rows[f"wide_attention_{kind}"][d] = row
+            print("time " + json.dumps(dict(kernel=f"wide_attention_{kind}", dtype="bf16", B=bt,
+                                            H=ht, N=nt, D=d, causal=True, card=smi, **row)))
+        del sets, fwd_in, lib_bwd_in
+    return rows
 
 
 def decode_variant_bound(per_pos_bytes, positions, pairs, peaks):
@@ -946,7 +1192,45 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
     return rows
 
 
-def check_small_model_training(torch):
+def check_small_model_decode(torch, dim_head):
+    """Phase 4, decode: a small float32 DALLE (head dim `dim_head`) through
+    the kernels and through dense attention, same weights: logits of the
+    prefill and 64 cached steps within 1e-4."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE, init_decode_cache
+
+    small = dict(
+        dim=128, depth=2, heads=2, dim_head=dim_head, num_image_tokens=64, image_fmap_size=8,
+        num_text_tokens=100, text_seq_len=16, shift_tokens=True, rotary_emb=True,
+    )
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        flash_model = DALLE(**small, attn_impl="flash").eval()
+        dense_model = DALLE(**small, attn_impl="dense").eval()
+    dense_model.load_state_dict(flash_model.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    text = torch.randint(
+        1, small["num_text_tokens"], (2, small["text_seq_len"]), generator=g, device="cuda"
+    )
+    img = torch.randint(0, small["num_image_tokens"], (2, 64), generator=g, device="cuda")
+    with torch.inference_mode():
+        caches = [init_decode_cache(m, 2) for m in (flash_model, dense_model)]
+        rows = [m.decode_prefill(text, c)[0] for m, c in zip((flash_model, dense_model), caches)]
+        worst = (rows[0] - rows[1]).abs().max().item()
+        for i in range(img.shape[1]):
+            rows = [
+                m.decode_image_step(img[:, i], i, c)[0]
+                for m, c in zip((flash_model, dense_model), caches)
+            ]
+            worst = max(worst, (rows[0] - rows[1]).abs().max().item())
+    print(
+        f"check model fp32 dim_head {dim_head} kernel-vs-dense logits over prefill + 64 steps: "
+        f"max_abs_err {worst:.3e} tol 1e-4"
+    )
+    if not worst <= 1e-4:
+        fail("the small model's kernel path disagrees with its dense path")
+
+
+def check_small_model_training(torch, dim_head):
     """Phase 4, training: a small float32 DALLE (full + axial_row layers,
     n = 80, two 64-row tiles) through the flash kernels and through dense
     attention, same weights: loss and every gradient of the
@@ -955,7 +1239,7 @@ def check_small_model_training(torch):
     from dalle_pytorch_tpu_torch.training.steps import accumulate_gradients, make_dalle_loss
 
     small = dict(
-        dim=128, depth=2, heads=2, dim_head=64, num_image_tokens=64, image_fmap_size=8,
+        dim=128, depth=2, heads=2, dim_head=dim_head, num_image_tokens=64, image_fmap_size=8,
         num_text_tokens=100, text_seq_len=16, attn_types=("full", "axial_row"),
     )
     torch.manual_seed(SEED)
@@ -974,27 +1258,42 @@ def check_small_model_training(torch):
     loss_err = abs(results[0][0] - results[1][0])
     grad_err = max((a - b).abs().max().item() for a, b in zip(results[0][1], results[1][1]))
     print(
-        f"check model fp32 training kernel-vs-dense (forward_reverse_partial): loss "
+        f"check model fp32 dim_head {dim_head} training kernel-vs-dense "
+        f"(forward_reverse_partial): loss "
         f"{results[0][0]:.6f} err {loss_err:.3e}, worst gradient err {grad_err:.3e}, tol 1e-4"
     )
     if not (loss_err <= 1e-4 and grad_err <= 1e-4):
         fail("the small model's training loss or gradients disagree between kernels and dense")
 
 
+def default_vocab() -> int:
+    """The text vocabulary of a checkpoint whose config names none: the
+    default tokenizer's (the shipped 32k native BPE)."""
+    from dalle_pytorch_tpu_torch.data.tokenizer import NativeBPETokenizer, get_tokenizer
+
+    tok = get_tokenizer()
+    if not isinstance(tok, NativeBPETokenizer):
+        fail(f"the default vocabulary did not load: got {type(tok).__name__}")
+    return tok.vocab_size
+
+
 def flagship_training():
     """(DALLE, batch): the flagship DALLE on the card with float32
-    parameters from SEED, attn_impl "auto", and a batch of 4 seeded text
-    and image-token rows (text padded from position 200)."""
+    parameters from SEED, attn_impl "auto", the default vocabulary's text
+    embedding (its checkpoint names no vocabulary, so the engine serving
+    it takes the default tokenizer), and a batch of 4 seeded text and
+    image-token rows (text padded from position 200)."""
     import numpy as np
     import torch
 
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
     torch.manual_seed(SEED)
+    vocab = default_vocab()
     with torch.device("cuda"):
-        model = DALLE(**FLAGSHIP, attn_impl="auto")
+        model = DALLE(**{**FLAGSHIP, "num_text_tokens": vocab}, attn_impl="auto")
     rng = np.random.RandomState(SEED)
-    text = rng.randint(1, FLAGSHIP["num_text_tokens"], (4, FLAGSHIP["text_seq_len"]))
+    text = rng.randint(1, vocab, (4, FLAGSHIP["text_seq_len"]))
     text[:, 200:] = 0  # padding: the unique pad ids
     image = rng.randint(0, FLAGSHIP["num_image_tokens"], (4, 1024))
     batch = {
@@ -1423,6 +1722,168 @@ def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_toke
     return out
 
 
+# phase 9: the generation CLI at flagship width
+CLI_PROMPTS = "a red cube|a blue sphere"
+CLI_IMAGES = 4  # per prompt, one batch of 4
+ORACLE_PRIMED = 1008  # the oracle samples the last 16 image positions
+# the noised-score margin above which the uncached oracle must pick the
+# cached run's token: twice the largest bf16 logit difference between the
+# two paths must stay below it (measured and printed beside it)
+ORACLE_MARGIN = 0.1
+
+
+def run_generation_cli(torch, vae):
+    """Phase 9: the generation CLI (`dalle_pytorch_tpu_torch.generate.main`,
+    in-process) on a flagship checkpoint whose config names no vocabulary
+    (the default 32k native BPE), random weights from SEED, bf16, with
+    `vae` inside, and a CLIP checkpoint at the reference defaults: two
+    prompts x 4 images with CLIP reranking (4 PNGs and a grid per prompt
+    read back with zlib, 12,300 flash-decode launches per batch, scores
+    best first), one `--gentxt` run, and the uncached `generate_images`
+    oracle primed with the cached run's first ORACLE_PRIMED tokens of
+    prompt 0 (the same row seeds, so the last 16 positions sample the same
+    noise): 12 flash-attention forwards a sampled position, tokens equal
+    to the cached run's wherever the noised-score margin passes
+    ORACLE_MARGIN. Returns {counter: launches}."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch import generate
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.dalle import (
+        DALLE,
+        forward_with_cond_scale,
+        generate_images,
+        init_decode_cache,
+    )
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.training.pipeline import (
+        dalle_config,
+        dvae_hparams,
+        save_clip_checkpoint,
+        save_dalle_checkpoint,
+    )
+    from dalle_pytorch_tpu_torch.utils.images import read_png
+    from dalle_pytorch_tpu_torch.weights import export_dvae_params
+
+    vocab = default_vocab()
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    dalle_path, clip_path, out_dir = work / "dalle_cli.npz", work / "clip_cli.npz", work / "cli_outputs"
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 9)
+    with torch.device("cuda"):
+        model = DALLE(**{**FLAGSHIP, "num_text_tokens": vocab}).to(torch.bfloat16).eval()
+        clip = CLIP(num_text_tokens=vocab)
+    save_dalle_checkpoint(
+        str(dalle_path), dalle_config(model, bf16=True), model,
+        vae_params=export_dvae_params(vae), vae_hparams=dvae_hparams(vae),
+    )
+    save_clip_checkpoint(str(clip_path), clip)
+    del clip
+    print(f"phase 9 checkpoints (DALLE vocabulary {vocab}, CLIP defaults) written: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    fd.flash_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = generate.main([
+        "--dalle_path", str(dalle_path), "--text", CLI_PROMPTS, "--num_images", str(CLI_IMAGES),
+        "--batch_size", str(CLI_IMAGES), "--clip_path", str(clip_path),
+        "--outputs_dir", str(out_dir), "--seed", "0",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cli_flash_decode": fd.flash_decode_attention.launches}
+    walls = summary["walls"]
+    print(f"phase 9 CLI: {wall:.1f} s; stage walls (s) " + json.dumps(
+        {k: round(v, 3) for k, v in walls.items()}) + f"; flash_decode launches {launches}")
+    prompts = [p.strip() for p in CLI_PROMPTS.split("|")]
+    expected = len(prompts) * LAYERS * (1 + FLAGSHIP["image_fmap_size"] ** 2)
+    if launches["cli_flash_decode"] != expected:
+        fail(f"the CLI launched flash_decode {launches['cli_flash_decode']} times, expected {expected}")
+    for entry in summary["prompts"]:
+        folder = Path(entry["out_dir"])
+        names = sorted(p.name for p in folder.iterdir())
+        want = sorted([f"{i}.png" for i in range(CLI_IMAGES)] + ["grid.png"])
+        if names != want:
+            fail(f"{folder}: files {names}, expected {want}")
+        shapes = {n: read_png(folder / n).shape for n in names}
+        if any(shapes[f"{i}.png"] != (256, 256, 3) for i in range(CLI_IMAGES)):
+            fail(f"{folder}: image shapes {shapes}")
+        if shapes["grid.png"] != (256, 256 * CLI_IMAGES, 3):
+            fail(f"{folder}: grid shape {shapes['grid.png']}")
+        scores = entry["scores"]
+        if scores is None or any(a < b for a, b in zip(scores, scores[1:])):
+            fail(f"{folder}: CLIP scores not best first: {scores}")
+        print(f"check CLI {entry['prompt']!r}: {names} read back with zlib, shapes "
+              f"{sorted(set(shapes.values()))}; CLIP scores best first {scores}")
+
+    t0 = time.perf_counter()
+    summary_txt = generate.main([
+        "--dalle_path", str(dalle_path), "--text", prompts[0], "--num_images", "1",
+        "--batch_size", "1", "--gentxt", "--outputs_dir", str(out_dir / "gentxt"), "--seed", "1",
+    ])
+    completed = summary_txt["prompts"][0]["completed"]
+    print(f"phase 9 --gentxt: {time.perf_counter() - t0:.1f} s; completed text {completed!r}")
+    if not isinstance(completed, str) or not completed.startswith(prompts[0]):
+        fail(f"--gentxt completed text {completed!r} does not extend {prompts[0]!r}")
+
+    # the uncached oracle against the cached run of prompt 0 (rows seeded
+    # 0..3 by the CLI: seed 0 spreads to 0)
+    tokens = np.asarray(summary["prompts"][0]["tokens"])
+    text = torch.tensor(np.repeat(summary["prompts"][0]["text_ids"][None], CLI_IMAGES, 0),
+                        device="cuda")
+    seeds = list(range(CLI_IMAGES))
+    # the two paths' logits at image position 16: cached decode vs one
+    # uncached forward over the primed buffer
+    probe = min(16, model.image_seq_len - 1)
+    with torch.inference_mode():
+        cache = init_decode_cache(model, CLI_IMAGES)
+        row, cache = model.decode_prefill(text, cache)
+        feed = torch.tensor(tokens[:, :probe], device="cuda")
+        for i in range(probe):
+            row, cache = model.decode_image_step(feed[:, i], i, cache)
+        buf = torch.zeros((CLI_IMAGES, model.image_seq_len), dtype=torch.long, device="cuda")
+        buf[:, :probe] = feed
+        full = forward_with_cond_scale(model, text, buf)[:, model.text_seq_len + probe]
+        image_vocab = slice(model.total_text_tokens, None)
+        logit_diff = (row[:, image_vocab] - full[:, image_vocab]).abs().max().item()
+        del cache, full
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    oracle, margins = generate_images(
+        model, text, seed=seeds, filter_thres=0.9, temperature=1.0,
+        init_image_tokens=tokens, num_init_img_tokens=ORACLE_PRIMED, return_margins=True,
+    )
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    launches["oracle_flash_attention_fwd"] = fa.flash_attention_fwd.launches
+    sampled = model.image_seq_len - ORACLE_PRIMED
+    oracle = oracle.cpu().numpy()
+    differ = np.argwhere(oracle[:, ORACLE_PRIMED:] != tokens[:, ORACLE_PRIMED:])
+    margins = margins[:, ORACLE_PRIMED:].numpy()
+    bad = [(int(r), int(p) + ORACLE_PRIMED, float(margins[r, p])) for r, p in differ
+           if margins[r, p] > ORACLE_MARGIN]
+    print(f"check oracle: {sampled} sampled positions x {CLI_IMAGES} rows in {oracle_s:.1f} s, "
+          f"flash_attention_fwd launches {launches['oracle_flash_attention_fwd']}; "
+          f"cached vs uncached logits at image position {probe}: max_abs_err {logit_diff:.3e}; "
+          f"(row, position, margin) that differ: "
+          + json.dumps([(int(r), int(p) + ORACLE_PRIMED, round(float(margins[r, p]), 4))
+                        for r, p in differ])
+          + f"; smallest margin {float(np.nanmin(margins)):.4f}, ORACLE_MARGIN {ORACLE_MARGIN}")
+    if launches["oracle_flash_attention_fwd"] != LAYERS * sampled:
+        fail(f"the oracle launched flash_attention_fwd {launches['oracle_flash_attention_fwd']} "
+             f"times, expected {LAYERS * sampled}")
+    if not 2 * logit_diff < ORACLE_MARGIN:
+        fail(f"cached and uncached logits differ by {logit_diff:.3e}: ORACLE_MARGIN "
+             f"{ORACLE_MARGIN} does not cover twice that")
+    if bad:
+        fail(f"the oracle's tokens differ from the cached run's above the margin: {bad}")
+    dalle_path.unlink()
+    clip_path.unlink()
+    return launches, walls
+
+
 def main() -> int:
     import torch
 
@@ -1453,7 +1914,7 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     t_start = t0 = time.perf_counter()
-    kernels.build(["flash_decode", "flash_attention"])
+    kernels.build(["flash_decode", "flash_attention", "wide_head"])
     print(f"build: {time.perf_counter() - t0:.2f} s total")
     for name, info in kernels.build_log.items():
         print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
@@ -1517,6 +1978,10 @@ def main() -> int:
 
     check_head_dim_limit(torch)
     t0 = time.perf_counter()
+    wide_decode_err, _ = check_wide_decode(torch)
+    wide_attn_errs = check_wide_attention(torch)
+    print(f"phase 2 wide head-dim checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     variant_errs = check_decode_variants(torch, cases)
     print(f"phase 2 int8 and block-sparse checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1567,39 +2032,26 @@ def main() -> int:
     # in two column halves, fp32 dq / dk-dv with K and V sharing a buffer)
     attn_d256 = {key: time_attention(torch, F, peaks, dt, key, elt, d=256)
                  for dt, key, elt in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4))}
+    t0 = time.perf_counter()
+    wide_times = time_wide_kernels(torch, F, peaks, smi)
+    print(f"phase 3 wide head-dim times: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
-    small = dict(
-        dim=128, depth=2, heads=2, dim_head=64, num_image_tokens=64, image_fmap_size=8,
-        num_text_tokens=100, text_seq_len=16, shift_tokens=True, rotary_emb=True,
-    )
-    torch.manual_seed(SEED)
-    with torch.device("cuda"):
-        flash_model = DALLE(**small, attn_impl="flash").eval()
-        dense_model = DALLE(**small, attn_impl="dense").eval()
-    dense_model.load_state_dict(flash_model.state_dict())
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    text = torch.randint(
-        1, small["num_text_tokens"], (2, small["text_seq_len"]), generator=g, device="cuda"
-    )
-    img = torch.randint(0, small["num_image_tokens"], (2, 64), generator=g, device="cuda")
-    with torch.inference_mode():
-        caches = [init_decode_cache(m, 2) for m in (flash_model, dense_model)]
-        rows = [m.decode_prefill(text, c)[0] for m, c in zip((flash_model, dense_model), caches)]
-        worst = (rows[0] - rows[1]).abs().max().item()
-        for i in range(img.shape[1]):
-            rows = [
-                m.decode_image_step(img[:, i], i, c)[0]
-                for m, c in zip((flash_model, dense_model), caches)
-            ]
-            worst = max(worst, (rows[0] - rows[1]).abs().max().item())
-    print(
-        "check model fp32 kernel-vs-dense logits over prefill + 64 steps: "
-        f"max_abs_err {worst:.3e} tol 1e-4"
-    )
-    if not worst <= 1e-4:
-        fail("the small model's kernel path disagrees with its dense path")
-    check_small_model_training(torch)
+    check_small_model_decode(torch, 64)
+    check_small_model_training(torch, 64)
+    # the same at a head dim above 256: the wide kernels on the model's path
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
+    wide_counters = (wh.wide_decode, wh.wide_attention_fwd, wh.wide_attention_bwd)
+    for c in wide_counters:
+        c.launches = 0
+    check_small_model_decode(torch, WIDE_IDENTITY_DIM)
+    check_small_model_training(torch, WIDE_IDENTITY_DIM)
+    wide_launches = {c.__name__: c.launches for c in wide_counters}
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide kernel launches {json.dumps(wide_launches)}")
+    for name, count in wide_launches.items():
+        if count == 0:
+            fail(f"{name} was not launched by the dim_head {WIDE_IDENTITY_DIM} model")
 
     # 5. generation path -------------------------------------------------------
     engine, specs, n_params = flagship_engine()
@@ -1644,6 +2096,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks))
     print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
+
+    # 9. the generation CLI end to end ----------------------------------------------
+    t0 = time.perf_counter()
+    cli_launches, _ = run_generation_cli(torch, vae)
+    print(f"phase 9 generation CLI: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # device time per call of phase 3's kernel rows, and the kernel the
@@ -1686,10 +2143,12 @@ def main() -> int:
                 device_kernels=step["device_kernels"],
                 prefill_ms=timings[("prefill", "bf16")]["ms"],
                 prefill_device_ms=timings[("prefill", "bf16")]["device_ms"],
+                cli_launches=cli_launches["cli_flash_decode"],
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
-                timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]",
+                timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]; "
+                "cli_launches: phase 9's generation CLI (2 prompts x one batch of 4)",
             )
         ] + [
             dict(
@@ -1700,6 +2159,8 @@ def main() -> int:
                 launches=launches[name],
                 max_abs_err=attn_errs[name],
                 **attn_times[name],
+                **({"oracle_launches": cli_launches["oracle_flash_attention_fwd"]}
+                   if name.endswith("fwd") else {}),
                 timed="bf16 causal B=4 H=16 N=1280 D=64"
                 + ("" if name.endswith("fwd") else "; one fused kernel for dq, dk and dv; "
                    "library_ms is SDPA's whole backward, whole_backward_ms the port's (delta "
@@ -1759,6 +2220,35 @@ def main() -> int:
                 "pages; launches: phase 8 policy+int8 patterned run (int8 arm); library_ms is "
                 "SDPA with the page-expanded mask over the gathered cache",
             ),
+        ] + [
+            dict(
+                name=name,
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/wide_head.cu",
+                replaces=replaces,
+                launches=wide_launches[name],
+                max_abs_err=err,
+                **wide_times[name][WIDE_TIMED_DIMS[0]],
+                **{f"d{d}_{field}": wide_times[name][d].get(field) for d in WIDE_TIMED_DIMS[1:]
+                   for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+                timed=timed,
+            )
+            for name, replaces, err, timed in (
+                ("wide_decode", "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                 wide_decode_err,
+                 f"kernels 1-5 at D > 256; bf16 step n=1 B=4 H=16 S=1281 D={WIDE_TIMED_DIMS[0]} "
+                 "lengths [258, 700, 1024, 1281]; launches: phase 4's dim_head "
+                 f"{WIDE_IDENTITY_DIM} model (decode)"),
+                ("wide_attention_fwd", "dalle_pytorch_tpu/ops/pallas_attention.py:129",
+                 wide_attn_errs["wide_flash_attention_fwd"],
+                 f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]}; launches: phase 4's "
+                 f"dim_head {WIDE_IDENTITY_DIM} model (decode prefill is flash-decode; training)"),
+                ("wide_attention_bwd",
+                 "dalle_pytorch_tpu/ops/pallas_attention.py:274, dalle_pytorch_tpu/ops/pallas_attention.py:333",
+                 wide_attn_errs["wide_flash_attention_bwd"],
+                 f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]}, dq and dk/dv kernels in one "
+                 f"call; launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (training)"),
+            )
         ]
     }
     print(json.dumps(kernels_line))

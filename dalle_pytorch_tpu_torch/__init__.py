@@ -5,11 +5,13 @@ held against it by the `tests/test_torch_*.py` parity tests and never
 imports it (or jax/flax). Module names mirror the JAX package so each
 piece's counterpart is easy to find.
 
-Ported so far: KV-cached text->image generation through the micro
-`serving.engine.GenerationEngine` — the DALLE cached decode path, the
-dVAE pixel decoder, sampling, the byte tokenizer, the checkpoint reader
-and weight loader, and one hand-written CUDA kernel for the cached
-attention (`ops/flash_decode.py`, `csrc/flash_decode.cu`).
+Ported so far: text->image generation from a checkpoint, end to end
+through the `generate` CLI (tokenizers, the micro `GenerationEngine`,
+the cached and uncached samplers, CLIP rerank, PNG output); the DALLE
+training step; the continuous and paged serving engines; and a
+hand-written CUDA kernel for every TPU kernel of the JAX package
+(`csrc/`: flash decode, flash attention, and the head dims above 256).
+ROADMAP.md lists what is left.
 
 Importing the package builds nothing and needs no card: kernels are
 compiled with `nvcc` at first use on a CUDA tensor (`kernels.py`).

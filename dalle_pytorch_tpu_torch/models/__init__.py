@@ -1,1 +1,1 @@
-"""Models of the port: the DALLE cached decode path and the dVAE decoder."""
+"""Models of the port: the DALLE transformer, the dVAE decoder and CLIP."""

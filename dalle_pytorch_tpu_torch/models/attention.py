@@ -1,4 +1,5 @@
-"""Multi-head causal attention of the DALLE transformer, cached and uncached.
+"""Multi-head attention of the DALLE transformer (causal) and of CLIP's
+encoders (`causal=False`), cached and uncached.
 
 Counterpart of the JAX package's `models/attention.py:Attention`.
 
@@ -37,7 +38,10 @@ rows [:n] on q, k and v, then `use_flash` as the reference's `_use_flash`:
 AUTO_FLASH_MIN_SEQ tokens on, a key-padding mask keeps "auto" dense. The
 flash arm runs causal for full layers and the composed causal + pattern
 mask (`full_mask`, prepared once per length) for patterned ones; the
-dense arm masks with the composed mask and the key mask. Output dropout
+dense arm masks with the composed mask and the key mask. `causal=False`
+(CLIP's encoders) drops the causal rule from both arms: the flash arm
+runs the kernels' all-keys arm, the dense arm only the pattern and key
+masks (the cached branch is always causal: decode feeds a prefix). Output dropout
 follows `to_out`, active in training mode. Both thresholds are the
 reference's; choosing them for the H100 is later work.
 
@@ -120,9 +124,9 @@ def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """Multi-head causal attention, over a decode cache or a whole
-    sequence, with an optional static pattern mask ([P, P] bool, True =
-    attend)."""
+    """Multi-head attention, causal unless `causal=False`, over a decode
+    cache or a whole sequence, with an optional static pattern mask ([P,
+    P] bool, True = attend)."""
 
     def __init__(
         self,
@@ -134,10 +138,12 @@ class Attention(nn.Module):
         attn_impl: str = "auto",
         dropout: float = 0.0,
         seq_len: Optional[int] = None,
+        causal: bool = True,
     ):
         """`seq_len` (the model's total_seq_len) bounds a paged cache's
         virtual length at seq_len + 1, as the slotted cache's length."""
         super().__init__()
+        self.causal = causal
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.seq_len = seq_len
@@ -192,12 +198,13 @@ class Attention(nn.Module):
             return False
         return n >= AUTO_FLASH_MIN_SEQ
 
-    def full_mask(self, n_q: int, n_k: int) -> np.ndarray:
+    def full_mask(self, n_q: int, n_k: int) -> Optional[np.ndarray]:
         """Host composition of causal + static pattern, cropped (the
-        reference's `_full_mask`)."""
-        mask = np.tril(np.ones((n_k, n_k), dtype=bool))[n_k - n_q :, :]
+        reference's `_full_mask`); None when there is neither."""
+        mask = np.tril(np.ones((n_k, n_k), dtype=bool))[n_k - n_q :, :] if self.causal else None
         if self.static_mask is not None:
-            mask = mask & self.static_mask[n_k - n_q : n_k, :n_k].cpu().numpy()
+            pattern = self.static_mask[n_k - n_q : n_k, :n_k].cpu().numpy()
+            mask = pattern if mask is None else mask & pattern
         return mask
 
     def _flash_mask(self, n: int, device) -> FlashMask:
@@ -238,13 +245,14 @@ class Attention(nn.Module):
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
         if self.use_flash(n, key_mask):
             mask = None if self.static_mask is None else self._flash_mask(n, q.device)
-            return flash_attention(q, k, v, mask=mask, causal=True)
-        mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+            return flash_attention(q, k, v, mask=mask, causal=self.causal)
+        mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril() if self.causal else None
         if self.static_mask is not None:
-            mask = mask & self.static_mask[:n, :n]
-        mask = mask[None, None]
+            pattern = self.static_mask[:n, :n]
+            mask = pattern if mask is None else mask & pattern
         if key_mask is not None:
-            mask = mask & key_mask[:, None, None, :].bool()
+            keys = key_mask[:, None, None, :].bool()
+            mask = keys if mask is None else mask & keys
         return dense_attention(q, k, v, mask=mask, stable=self.stable)
 
     def _pattern_rows(self, index, n: int, max_len: int) -> torch.Tensor:

@@ -7,6 +7,9 @@ objectives, the 3-token accuracy, the vocab-chunked `fused_ce` losses),
 `embed_text` (unique padding ids, <bos> = 0, null conditioning),
 `to_logits`, `decode_prefill`, `decode_image_step`, `init_decode_cache`,
 `generate_images_cached_batched` with the classifier-free-guidance blend,
+the generation CLI's samplers (`forward_with_cond_scale`, the uncached
+`generate_images` oracle, `generate_images_cached` with priming,
+`generate_texts`),
 the continuous engine's slot ops (`init_slot_state`,
 `prefill_into_slots`, `release_slots`, `decode_image_chunk`) and their
 paged counterparts (`init_paged_slot_state`, `prefill_into_slots_paged`,
@@ -43,6 +46,9 @@ from dalle_pytorch_tpu_torch.ops.losses import chunked_masked_ce, split_weighted
 from dalle_pytorch_tpu_torch.ops.sampling import (
     gumbel_noise,
     gumbel_sample_per_row,
+    keep_count,
+    row_seed,
+    top_k_filter,
     top_k_filter_per_row,
 )
 
@@ -246,19 +252,10 @@ class DALLE(nn.Module):
         (loss, accuracy): the split cross-entropy of the forward (text ->
         image) or, with `inverse_mapping`, the inverse (image first) objective
         and its 3-token accuracy (None for the forward one)."""
-        text, tokens = self.embed_text(text, null_cond_prob, generator)
-        if image is not None and image.shape[1] > 0:
-            image_emb = self.image_emb(image.long())
-            if not self.rotary_emb:
-                image_emb = image_emb + self.image_pos_emb()[: image_emb.shape[1]]
-            parts = [image_emb, tokens] if inverse_mapping else [tokens, image_emb]
-            tokens = torch.cat(parts, dim=1)
-        seq_len = min(tokens.shape[1], self.total_seq_len)
-        tokens = tokens[:, :seq_len]  # drop the final token's input slot
-        if self.stable:
-            tokens = tokens * 0.1 + tokens.detach() * 0.9
-        out = self.transformer(tokens, reverse_model=reverse_model)
-
+        text, out = self.trunk(
+            text, image, inverse_mapping, reverse_model, null_cond_prob, generator
+        )
+        seq_len = out.shape[1]
         if return_loss and image is None:
             raise ValueError("when training, image must be supplied")
         if return_loss and self.fused_ce:
@@ -290,6 +287,30 @@ class DALLE(nn.Module):
             accuracy = None
             ct, ci = self.text_loss_coeff, self.img_loss_coeff
         return (ct * loss_text + ci * loss_img) / (ct + ci), accuracy
+
+    def trunk(
+        self,
+        text: torch.Tensor,
+        image: Optional[torch.Tensor] = None,
+        inverse_mapping: bool = False,
+        reverse_model: bool = False,
+        null_cond_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The uncached trunk of `forward`: (text ids with <bos> [B, T + 1],
+        the final hidden states [B, N, dim]), N = min(tokens, total_seq_len)."""
+        text, tokens = self.embed_text(text, null_cond_prob, generator)
+        if image is not None and image.shape[1] > 0:
+            image_emb = self.image_emb(image.long())
+            if not self.rotary_emb:
+                image_emb = image_emb + self.image_pos_emb()[: image_emb.shape[1]]
+            parts = [image_emb, tokens] if inverse_mapping else [tokens, image_emb]
+            tokens = torch.cat(parts, dim=1)
+        seq_len = min(tokens.shape[1], self.total_seq_len)
+        tokens = tokens[:, :seq_len]  # drop the final token's input slot
+        if self.stable:
+            tokens = tokens * 0.1 + tokens.detach() * 0.9
+        return text, self.transformer(tokens, reverse_model=reverse_model)
 
     def _fused_head(self, out: torch.Tensor):
         if self.stable:
@@ -380,6 +401,37 @@ def init_decode_cache(model: DALLE, batch: int, per_row: bool = False) -> dict:
     )
 
 
+def _primed_image_tokens(
+    model: DALLE, batch: int, init_image_tokens, num_init_img_tokens: Optional[int], device
+):
+    """(image-token buffer [B, image_seq_len] with the priming prefix
+    written in, primed length): the first `num_init_img_tokens` of
+    `init_image_tokens` (default 43.75% of the grid, the reference's)."""
+    img_tokens = torch.zeros((batch, model.image_seq_len), dtype=torch.long, device=device)
+    primed = 0
+    if init_image_tokens is not None:
+        primed = (
+            int(0.4375 * model.image_seq_len) if num_init_img_tokens is None
+            else int(num_init_img_tokens)
+        )
+        if not 0 <= primed < model.image_seq_len:
+            raise ValueError(f"primed length {primed} outside [0, {model.image_seq_len})")
+        init = torch.as_tensor(np.asarray(init_image_tokens)[:, :primed], device=device)
+        img_tokens[:, :primed] = init.long()
+    return img_tokens, primed
+
+
+def _batch_seeds(seed, batch: int) -> list:
+    """Per-row noise seeds: `row_seed(seed, r)` for one int, or a sequence
+    of `batch` per-row seeds as the engines take them."""
+    if isinstance(seed, (int, np.integer)):
+        return [row_seed(int(seed), r) for r in range(batch)]
+    seeds = [int(s) & 0x7FFFFFFF for s in seed]
+    if len(seeds) != batch:
+        raise ValueError(f"{len(seeds)} seeds for a batch of {batch}")
+    return seeds
+
+
 @torch.inference_mode()
 def generate_images_cached_batched(
     model: DALLE,
@@ -389,18 +441,23 @@ def generate_images_cached_batched(
     keep_k: torch.Tensor,
     cond_scale: float = 1.0,
     vae=None,
+    init_image_tokens=None,
+    num_init_img_tokens: Optional[int] = None,
 ):
     """KV-cached sampling with per-row seed / temperature / keep count.
 
     text [B, text_seq_len] ids; seeds: B host ints; temperatures [B];
     keep_k [B] logits kept per row. Row i's noise at image position p is
     keyed by (seeds[i], p) alone, so a request samples the same tokens in
-    any batch. Returns image tokens [B, image_seq_len] int64, or (tokens,
+    any batch. `init_image_tokens` [B, >= primed] primes the first
+    `num_init_img_tokens` positions (default 43.75%): they are fed, not
+    sampled. Returns image tokens [B, image_seq_len] int64, or (tokens,
     pixels [B, H, W, C]) when a `DiscreteVAE` is given.
     """
     b = text.shape[0]
     device = text.device
     use_null = cond_scale != 1.0
+    img_tokens, primed = _primed_image_tokens(model, b, init_image_tokens, num_init_img_tokens, device)
     if use_null:  # null conditioning == all-pad text, stacked on batch
         text = torch.cat([text, torch.zeros_like(text)], dim=0)
     cache = init_decode_cache(model, text.shape[0])
@@ -411,20 +468,148 @@ def generate_images_cached_batched(
     keep_k = keep_k.to(device)
     temperatures = temperatures.to(device)
     seeds = [int(s) for s in seeds]
-    img_tokens = torch.zeros((b, model.image_seq_len), dtype=torch.long, device=device)
     for i in range(model.image_seq_len):
-        if use_null:
-            row = row[b:] + (row[:b] - row[b:]) * cond_scale
-        masked = row.masked_fill(blocked, NEG_MASK_VALUE)
-        filtered = top_k_filter_per_row(masked, keep_k, k_max=k_max)
-        noise = gumbel_noise(seeds, i, model.total_tokens, device)
-        sample = gumbel_sample_per_row(filtered, temperatures, noise) - model.total_text_tokens
-        img_tokens[:, i] = sample
+        if i < primed:
+            sample = img_tokens[:, i]
+        else:
+            if use_null:
+                row = row[b:] + (row[:b] - row[b:]) * cond_scale
+            masked = row.masked_fill(blocked, NEG_MASK_VALUE)
+            filtered = top_k_filter_per_row(masked, keep_k, k_max=k_max)
+            noise = gumbel_noise(seeds, i, model.total_tokens, device)
+            sample = gumbel_sample_per_row(filtered, temperatures, noise) - model.total_text_tokens
+            img_tokens[:, i] = sample
         feed = torch.cat([sample, sample]) if use_null else sample
         row, cache = model.decode_image_step(feed, i, cache)
     if vae is None:
         return img_tokens
     return img_tokens, vae.decode(img_tokens)
+
+
+def generate_images_cached(
+    model: DALLE,
+    text: torch.Tensor,
+    seed,
+    filter_thres: float = 0.5,
+    temperature: float = 1.0,
+    cond_scale: float = 1.0,
+    init_image_tokens=None,
+    num_init_img_tokens: Optional[int] = None,
+    vae=None,
+):
+    """KV-cached sampling with one `filter_thres` (fraction of the
+    vocabulary dropped) and `temperature` for the batch, the reference's
+    `generate_images_cached`: `seed` an int (row r's noise seed
+    `row_seed(seed, r)`) or B per-row seeds; priming and `vae` as
+    `generate_images_cached_batched`."""
+    b = text.shape[0]
+    keep = torch.full((b,), keep_count(filter_thres, model.total_tokens), dtype=torch.int32)
+    temps = torch.full((b,), float(temperature), dtype=torch.float32)
+    return generate_images_cached_batched(
+        model, text, _batch_seeds(seed, b), temps, keep, cond_scale, vae,
+        init_image_tokens, num_init_img_tokens,
+    )
+
+
+def forward_with_cond_scale(
+    model: DALLE, text: torch.Tensor, image: Optional[torch.Tensor], cond_scale: float = 1.0
+) -> torch.Tensor:
+    """The classifier-free-guidance blend of two forwards: null + (logits -
+    null) * cond_scale, null conditioning being the all-pad text."""
+    logits = model(text, image)
+    if cond_scale == 1:
+        return logits
+    null = model(text, image, null_cond_prob=1.0)
+    return null + (logits - null) * cond_scale
+
+
+def _logits_at(model: DALLE, text, image, pos: int, blocked, cond_scale: float) -> torch.Tensor:
+    """The masked float32 logits [B, V] of sequence position `pos` from
+    full uncached forwards (guidance-blended), computing the head at that
+    position only."""
+
+    def one(null_cond_prob):
+        _, out = model.trunk(text, image, null_cond_prob=null_cond_prob)
+        return model.to_logits(out[:, pos]).float().masked_fill(blocked, NEG_MASK_VALUE)
+
+    row = one(0.0)
+    if cond_scale == 1:
+        return row
+    null = one(1.0)
+    return null + (row - null) * cond_scale
+
+
+def _sample(filtered, temperatures, noise, margins, i):
+    """Gumbel-max of one position; with `margins`, record the top-2 gap of
+    the noised scores there."""
+    if margins is not None:
+        t = temperatures.float().clamp(min=1e-4)[:, None]
+        top2 = torch.topk(filtered.float() / t + noise, 2, dim=-1).values
+        margins[:, i] = (top2[:, 0] - top2[:, 1]).cpu()
+    return gumbel_sample_per_row(filtered, temperatures, noise)
+
+
+@torch.inference_mode()
+def generate_images(
+    model: DALLE,
+    text: torch.Tensor,
+    seed,
+    filter_thres: float = 0.5,
+    temperature: float = 1.0,
+    cond_scale: float = 1.0,
+    init_image_tokens=None,
+    num_init_img_tokens: Optional[int] = None,
+    return_margins: bool = False,
+):
+    """The uncached sampling oracle (the reference's `generate_images`):
+    each sampled image position runs full forwards over the fixed-shape
+    token buffer (causality makes the unsampled suffix irrelevant), with
+    the same filter, noise and priming as `generate_images_cached`, so the
+    two sample the same tokens wherever their logits agree. Primed
+    positions are fed, and their forwards skipped (the reference computes
+    and discards them). Returns tokens [B, image_seq_len] int64; with
+    `return_margins`, also the top-2 gap of the noised scores [B,
+    image_seq_len] float32 (NaN where primed)."""
+    b = text.shape[0]
+    device = text.device
+    img_tokens, primed = _primed_image_tokens(model, b, init_image_tokens, num_init_img_tokens, device)
+    seeds = _batch_seeds(seed, b)
+    temps = torch.full((b,), float(temperature), dtype=torch.float32, device=device)
+    blocked = (torch.arange(model.total_tokens, device=device) < model.total_text_tokens)[None]
+    margins = torch.full((b, model.image_seq_len), float("nan")) if return_margins else None
+    for i in range(primed, model.image_seq_len):
+        row = _logits_at(model, text, img_tokens, model.text_seq_len + i, blocked, cond_scale)
+        noise = gumbel_noise(seeds, i, model.total_tokens, device)
+        sample = _sample(top_k_filter(row, filter_thres), temps, noise, margins, i)
+        img_tokens[:, i] = sample - model.total_text_tokens
+    return (img_tokens, margins) if return_margins else img_tokens
+
+
+@torch.inference_mode()
+def generate_texts(
+    model: DALLE,
+    text_prefix: torch.Tensor,
+    prefix_len: int,
+    seed,
+    filter_thres: float = 0.5,
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Autoregressive text completion (the reference's `generate_texts`):
+    positions from `prefix_len` on are sampled, each from a full uncached
+    forward over the text (position i predicts text token i), with the
+    noise of `generate_images` at text position i. A sampled id 0 reads
+    as padding afterwards, as in the reference. Returns [B, text_seq_len]
+    int64 ids."""
+    text = text_prefix.to(torch.long).clone()
+    b, device = text.shape[0], text.device
+    seeds = _batch_seeds(seed, b)
+    temps = torch.full((b,), float(temperature), dtype=torch.float32, device=device)
+    blocked = (torch.arange(model.total_tokens, device=device) >= model.total_text_tokens)[None]
+    for i in range(int(prefix_len), model.text_seq_len):
+        row = _logits_at(model, text, None, i, blocked, 1.0)
+        noise = gumbel_noise(seeds, i, model.total_tokens, device)
+        text[:, i] = _sample(top_k_filter(row, filter_thres), temps, noise, None, i)
+    return text
 
 
 # ------------------------------------------------------ continuous batching

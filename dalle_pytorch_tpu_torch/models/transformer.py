@@ -130,7 +130,8 @@ def build_static_mask(
 
 
 class Transformer(nn.Module):
-    """Causal transformer stack with the DALL-E features."""
+    """Transformer stack with the DALL-E features: causal (the DALLE
+    trunk) or, with `causal=False`, bidirectional (CLIP's encoders)."""
 
     def __init__(
         self,
@@ -153,6 +154,7 @@ class Transformer(nn.Module):
         ff_dropout: float = 0.0,
         reversible: bool = False,
         reversible_impl: str = "remat",
+        causal: bool = True,
     ):
         super().__init__()
         if (shift_tokens or rotary_emb) and image_fmap_size is None:
@@ -193,6 +195,7 @@ class Transformer(nn.Module):
                 attn_impl=attn_impl,
                 dropout=attn_dropout,
                 seq_len=seq_len,
+                causal=causal,
             )
         self.ff = nn.ModuleDict(
             {str(i): FeedForward(dim, ff_mult, ff_dropout) for i in dict.fromkeys(self.ff_ids)}

@@ -36,8 +36,10 @@ forward at 64, 128 and 256 only; on the card a D <= 256 between them is
 zero-padded along D to the kernel's next instance, run with the true D's
 scale (D ** -0.5 unless `sm_scale`), and cut back (`on_kernel_head_dim`):
 zero columns add nothing to q . k and give zero output columns, so lse is
-unchanged. D > 256 raises on the card (ROADMAP Queue 3: no DALL-E or CLIP
-configuration uses it, and 256 is where the register file runs out).
+unchanged. D > 256 runs unpadded on the column-group kernels of
+`csrc/wide_head.cu` (`ops/wide_head.py`: each block owns at most 64
+output columns and loops the scores over all of D, so no D runs out of
+registers or shared memory).
 
 On the card the kernels are bound by operations at the training shapes:
 4 D flops per visible pair forward, 10 D backward (S and dP once, then
@@ -49,7 +51,8 @@ may change from run to run while dk and dv are bit-identical); the float32
 backward is two CUDA-core kernels, dq and dk/dv (see the source's header).
 Each wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors, by the tensor's device alone, never as a fallback, and counts
-passes launched on the card in `.launches`.
+passes launched on the card in `.launches` (D <= 256; calls at larger D
+count in `wide_head.wide_attention_fwd/bwd.launches`).
 """
 
 from __future__ import annotations
@@ -64,9 +67,14 @@ import torch.nn.functional as F
 
 from dalle_pytorch_tpu_torch import kernels
 from dalle_pytorch_tpu_torch.ops.masks import mask_block_layout
+from dalle_pytorch_tpu_torch.ops.wide_head import (
+    WIDE_ABOVE,
+    wide_attention_bwd,
+    wide_attention_fwd,
+)
 
 BLOCK = 64  # the kernels' query and key tile (csrc/flash_attention.cu kBlock)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances; other D <= 256 pad up
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, WIDE_ABOVE)  # the instances; other D <= 256 pad up
 WGMMA_HEAD_DIMS = (64, 128, 256)  # the bfloat16 forward's (whole 64-column panels)
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -275,15 +283,15 @@ def _library() -> ctypes.CDLL:
 
 def kernel_head_dim(d: int, dims=KERNEL_HEAD_DIMS) -> int:
     """The kernel's head dim for a true head dim `d`: the next of its
-    instances `dims`. Above the last (256) no instance exists and the card
-    raises."""
-    for kd in dims:
-        if d <= kd:
-            return kd
-    raise ValueError(
-        f"head dim {d} > {dims[-1]}: the flash-attention kernels have no "
-        "instance for it on the card (ROADMAP.md Queue 3)"
-    )
+    instances `dims`; above the last (256), `d` itself (the wide kernels
+    take any D unpadded)."""
+    return next((kd for kd in dims if d <= kd), d)
+
+
+def attention_kernel_source(d: int) -> str:
+    """The source whose kernels a call at head dim `d` launches on the
+    card: "flash_attention" up to 256, "wide_head" above."""
+    return "flash_attention" if d <= WIDE_ABOVE else "wide_head"
 
 
 def on_kernel_head_dim(fn, tensors, n_sliced: int, sm_scale=None, dims=KERNEL_HEAD_DIMS):
@@ -326,13 +334,15 @@ def _launch(name, q, k, ins, outs, mode, fm, scale):
 
 def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=None):
     """(o, lse) of the forward. CUDA tensors launch the kernel on the
-    current stream (D padded to the kernel's head dim by
-    `on_kernel_head_dim`: 64, 128 or 256 in bfloat16); CPU tensors run
-    `flash_attention_forward_plain`."""
+    current stream (D <= 256 padded to the kernel's head dim by
+    `on_kernel_head_dim`: 64, 128 or 256 in bfloat16; larger D on the
+    wide kernel); CPU tensors run `flash_attention_forward_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_forward_plain(q, k, v, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
+    if attention_kernel_source(q.shape[-1]) == "wide_head":
+        return wide_attention_fwd(q, k, v, mode, fm, _scale(q, sm_scale))
 
     def launch(q, k, v, scale):
         o = torch.empty_like(q)
@@ -348,7 +358,8 @@ def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=No
 
 def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None):
     """(dq, dk, dv) of the backward, from the forward's lse and delta =
-    rowsum(do * o). CUDA tensors (D padded to the next of KERNEL_HEAD_DIMS):
+    rowsum(do * o). CUDA tensors (D > 256 on the wide kernels, smaller D
+    padded to the next of KERNEL_HEAD_DIMS):
     bfloat16 launches the fused kernel (between zeroing a float32 [B, H,
     n_q, D] dq workspace, allocated here, and converting it into dq),
     float32 the two CUDA-core kernels; CPU tensors run
@@ -358,6 +369,8 @@ def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=T
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
+    if attention_kernel_source(q.shape[-1]) == "wide_head":
+        return wide_attention_bwd(q, k, v, do, lse, delta, mode, fm, _scale(q, sm_scale))
 
     def launch(q, k, v, do, scale):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

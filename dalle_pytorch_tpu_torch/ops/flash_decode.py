@@ -27,8 +27,12 @@ to finish (`flash_decode_split_plain` is that arithmetic on the CPU). It
 reads only the keys some row can see (length skip, dead blocks and pages
 never read) with cp.async into a ring of shared-memory stages, splits each
 tile's keys over its four warps and keeps K/V in their storage type until
-registers; see the source's header. Head dims: any D on the CPU, any D <=
-`MAX_KERNEL_HEAD_DIM` (256) on the card, a cache never padded per call.
+registers; see the source's header. Head dims: any D, a cache never
+padded per call. On the card D <= `MAX_KERNEL_HEAD_DIM` (256) runs the
+kernels above and any larger D the column-group kernel of
+`csrc/wide_head.cu` (`ops/wide_head.py`), one body with runtime flags for
+the int8 cache, the bitmap and the page table, whose all-ones bitmap and
+paged layout give the plain contiguous bits as here.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -50,7 +54,8 @@ CPU tensors — by the tensor's device alone, never as a fallback. Launch
 counts: `flash_decode_attention.launches` (plain arm) and
 `.int8_launches`, the same pair on `block_sparse_flash_decode_attention`,
 `paged_flash_decode_attention` and
-`block_sparse_paged_flash_decode_attention`.
+`block_sparse_paged_flash_decode_attention` (D <= 256; calls at larger D
+count in `wide_head.wide_decode.launches`).
 """
 
 from __future__ import annotations
@@ -62,8 +67,9 @@ from typing import Optional
 import torch
 
 from dalle_pytorch_tpu_torch import kernels
+from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, wide_decode
 
-MAX_KERNEL_HEAD_DIM = 256  # the kernels take any D up to this (csrc dispatch_d)
+MAX_KERNEL_HEAD_DIM = WIDE_ABOVE  # flash_decode.cu takes any D up to this (csrc dispatch_d)
 DECODE_ROWS = 4  # query rows per block (csrc kRows): n <= DECODE_ROWS splits the cache
 DECODE_SPAN = 128  # cache positions per split-K block (csrc kSpan, fixed from measurement)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -288,14 +294,28 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def check_kernel_head_dim(d: int) -> None:
-    """Raise unless the card's kernels take head dim `d`: any D from 1 to
-    MAX_KERNEL_HEAD_DIM (the plain versions take any D; a cache is never
-    padded per call)."""
-    if not 1 <= d <= MAX_KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d}: the flash-decode kernels take D <= {MAX_KERNEL_HEAD_DIM} on the "
-            "card (ROADMAP.md Queue 3)"
-        )
+    """Raise unless `d` is a head dim (>= 1): the card takes every D, as
+    the plain versions do (a cache is never padded per call)."""
+    if d < 1:
+        raise ValueError(f"head dim {d}: a head needs at least one channel")
+
+
+def decode_kernel_source(d: int) -> str:
+    """The source whose kernel a call at head dim `d` launches on the card:
+    "flash_decode" up to MAX_KERNEL_HEAD_DIM, "wide_head" above."""
+    check_kernel_head_dim(d)
+    return "flash_decode" if d <= MAX_KERNEL_HEAD_DIM else "wide_head"
+
+
+def _count(fn, q, k_scale) -> None:
+    """One launch of `fn`'s kernel (its int8 arm with scales); calls above
+    MAX_KERNEL_HEAD_DIM launched `wide_decode` and count there."""
+    if q.shape[-1] > MAX_KERNEL_HEAD_DIM:
+        return
+    if k_scale is None:
+        fn.launches += 1
+    else:
+        fn.int8_launches += 1
 
 
 _counters = {}  # device -> int32 arrival counters, zero between calls
@@ -322,7 +342,8 @@ def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_tabl
     """One launch of the contiguous (`page_table` None) or paged kernel;
     `block_bitmap` picks the block-sparse variant."""
     b, h, n, d = q.shape
-    check_kernel_head_dim(d)
+    if decode_kernel_source(d) == "wide_head":
+        return wide_decode(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table)
     tensors = [q, k, v] + ([] if k_scale is None else [k_scale, v_scale])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and scales must be 16-byte aligned")
@@ -361,8 +382,7 @@ def flash_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [B, H, n, D] (float32 or bfloat16), k/v [B, H, S, D] in q's dtype
-    or int8 with k_scale/v_scale [B, H, S] float32 (contiguous; any D on
-    the CPU, D <= MAX_KERNEL_HEAD_DIM on the card), lengths [B] int32 -> [B, H, n,
+    or int8 with k_scale/v_scale [B, H, S] float32 (contiguous; any D), lengths [B] int32 -> [B, H, n,
     D] in q's dtype.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
@@ -374,10 +394,7 @@ def flash_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
     out = _launch(q, k, v, lengths, k_scale, v_scale, None, 0)
-    if k_scale is None:
-        flash_decode_attention.launches += 1
-    else:
-        flash_decode_attention.int8_launches += 1
+    _count(flash_decode_attention, q, k_scale)
     return out
 
 
@@ -416,10 +433,7 @@ def block_sparse_flash_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"block_sparse_flash_decode_attention: unsupported device {q.device}")
     out = _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k)
-    if k_scale is None:
-        block_sparse_flash_decode_attention.launches += 1
-    else:
-        block_sparse_flash_decode_attention.int8_launches += 1
+    _count(block_sparse_flash_decode_attention, q, k_scale)
     return out
 
 
@@ -510,10 +524,7 @@ def paged_flash_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_attention: unsupported device {q.device}")
     out = _launch(q, k_pages, v_pages, lengths, k_scale, v_scale, None, 0, page_table)
-    if k_scale is None:
-        paged_flash_decode_attention.launches += 1
-    else:
-        paged_flash_decode_attention.int8_launches += 1
+    _count(paged_flash_decode_attention, q, k_scale)
     return out
 
 
@@ -550,10 +561,7 @@ def block_sparse_paged_flash_decode_attention(
             f"block_sparse_paged_flash_decode_attention: unsupported device {q.device}"
         )
     out = _launch(q, k_pages, v_pages, lengths, k_scale, v_scale, block_bitmap, page, page_table)
-    if k_scale is None:
-        block_sparse_paged_flash_decode_attention.launches += 1
-    else:
-        block_sparse_paged_flash_decode_attention.int8_launches += 1
+    _count(block_sparse_paged_flash_decode_attention, q, k_scale)
     return out
 
 

@@ -1,7 +1,7 @@
 """Per-row sampling for the batched cached decode.
 
-Counterpart of the JAX package's `ops/sampling.py:top_k_filter_per_row`,
-`per_row_step_keys` and `gumbel_sample_per_row`.
+Counterpart of the JAX package's `ops/sampling.py:top_k_filter`,
+`top_k_filter_per_row`, `per_row_step_keys` and `gumbel_sample_per_row`.
 
 Noise contract: row i's Gumbel noise at a decode step is a pure function
 of (its request seed, the image position) — never of batch composition,
@@ -10,7 +10,11 @@ padded into any batch. The port does not reproduce jax.random's bits; it
 draws from a source of its own: torch's generator on the engine's device
 (Philox on CUDA), reseeded with a hash of (seed, position) for every row
 and step. Tests inject the same numpy-made noise into both packages
-through `noise=`.
+through `noise=`. The samplers that take one seed for a batch
+(`generate_images`, `generate_images_cached`, `generate_texts` in
+`models/dalle.py`) give row r the seed `row_seed(seed, r)`, so their
+noise is a pure function of (seed, row, position), the same in the
+cached and uncached samplers.
 """
 
 from __future__ import annotations
@@ -18,6 +22,20 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
+
+
+def keep_count(thres: float, vocab: int) -> int:
+    """Logits a fractional top-k threshold keeps: max(int((1 - thres) V), 1),
+    `thres` the fraction of the vocabulary dropped."""
+    return max(int((1.0 - thres) * vocab), 1)
+
+
+def top_k_filter(logits: torch.Tensor, thres: float = 0.5) -> torch.Tensor:
+    """Every row keeps its `keep_count(thres, V)` largest logits (ties with
+    the k-th too); the rest become -inf."""
+    k = keep_count(thres, logits.shape[-1])
+    kth = torch.topk(logits.float(), k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
 
 
 def top_k_filter_per_row(
@@ -45,6 +63,11 @@ def noise_seed(seed: int, position: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
     return x ^ (x >> 31)
+
+
+def row_seed(seed: int, row: int) -> int:
+    """The noise seed of batch row `row` under one batch seed `seed`."""
+    return noise_seed(seed, row) & 0x7FFFFFFF
 
 
 def gumbel_noise(

@@ -9,11 +9,12 @@ slices the padding back off; per-row seed / temperature / top-k ride as
 tensors, and a row's sampling noise depends on (seed, image position)
 only, so a request gets the same tokens whichever batch it lands in. The
 dVAE decode is fused: `generate` returns tokens and pixels in [0, 1].
+With a CLIP model, `rerank` orders one prompt's images best-first.
 
 PyTorch runs eagerly, so there is nothing to compile per shape; `warmup`
 runs one dummy batch per rung so the first request pays no one-time cost
 (kernel build, library handles, allocator growth). Vitals, cost tables,
-the compile cache, fault injection and CLIP rerank are not ported yet.
+the compile cache and fault injection are not ported yet.
 
 The continuous engine keeps one decode state of `max_batch` cache slots
 and advances every live slot by `chunk_tokens` per chunk; the
@@ -36,8 +37,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
 from dalle_pytorch_tpu_torch.models.attention import DECODE_SPARSE_BLOCK
+from dalle_pytorch_tpu_torch.models.clip import CLIP
+from dalle_pytorch_tpu_torch.models.clip import rerank as clip_rerank
 from dalle_pytorch_tpu_torch.models.dalle import (
     DALLE,
     admit_cached_prefix,
@@ -53,11 +55,14 @@ from dalle_pytorch_tpu_torch.models.dalle import (
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.ops.flash_decode import PAGED_DECODE_IMPL, PAGED_DECODE_IMPLS
+from dalle_pytorch_tpu_torch.ops.sampling import keep_count
 from dalle_pytorch_tpu_torch.serving.paging import PagedKVManager
 from dalle_pytorch_tpu_torch.serving.sparsity import DecodeSparsityPolicy
 from dalle_pytorch_tpu_torch.training.pipeline import (
+    build_tokenizer,
     dalle_from_config,
     dvae_from_hparams,
+    load_clip_checkpoint,
     load_dalle_checkpoint,
 )
 from dalle_pytorch_tpu_torch.weights import load_dalle_params, load_dvae_params
@@ -100,8 +105,10 @@ class GenerationEngine:
     """Batched generation over a fixed ladder of batch shapes.
 
     model: a `DALLE` with its weights; vae: an optional `DiscreteVAE`
-    (pixels are decoded in the same call); device: "cuda" unless the
-    caller asks for the CPU. The modules are moved to `device`.
+    (pixels are decoded in the same call); clip: an optional `CLIP` for
+    `rerank`; cfg: the checkpoint's config dict, kept for callers;
+    device: "cuda" unless the caller asks for the CPU. The modules are
+    moved to `device`.
     """
 
     def __init__(
@@ -112,6 +119,8 @@ class GenerationEngine:
         cond_scale: float = 1.0,
         tokenizer=None,
         device="cuda",
+        clip: Optional[CLIP] = None,
+        cfg: Optional[dict] = None,
     ):
         self.device = resolve_device(device)
         if not batch_shapes or min(int(b) for b in batch_shapes) < 1:
@@ -122,6 +131,8 @@ class GenerationEngine:
         self.max_batch = self.batch_shapes[-1]
         self.cond_scale = float(cond_scale)
         self.tokenizer = tokenizer
+        self.clip = None if clip is None else clip.to(self.device).eval()
+        self.cfg = cfg
         self._lock = threading.Lock()  # one generation on the device at a time
         self.stats = EngineStats()
 
@@ -139,19 +150,42 @@ class GenerationEngine:
         return self.model.image_seq_len
 
     def _keep_k(self, top_k: float) -> int:
-        """Fractional drop threshold -> per-row keep count."""
-        v = self.model.total_tokens
-        frac = min(max(float(top_k), 0.0), 1.0)
-        return max(int((1.0 - frac) * v), 1)
+        """Fractional drop threshold (clipped to [0, 1]) -> per-row keep count."""
+        return keep_count(min(max(float(top_k), 0.0), 1.0), self.model.total_tokens)
 
     def tokenize(self, prompt: str) -> np.ndarray:
         if self.tokenizer is None:
-            raise RuntimeError(
-                "engine built without a tokenizer (the port has the byte "
-                "tokenizer only; BPE tokenizers are not ported yet)"
-            )
+            raise RuntimeError("engine built without a tokenizer: it takes token ids only")
         ids = self.tokenizer.tokenize(prompt, self.model.text_seq_len, truncate_text=True)
         return np.asarray(ids[0], dtype=np.int32)
+
+    def rerank(self, prompt: str, images: np.ndarray):
+        """Sort one prompt's images [N, H, W, C] in [0, 1] best-first by
+        CLIP similarity. Returns (sorted images, scores, order), `order`
+        mapping each sorted position to its original row (callers holding
+        parallel arrays apply it too); without a CLIP, the images as they
+        are, zero scores and the identity order."""
+        if self.clip is None:
+            return images, np.zeros(len(images), np.float32), np.arange(len(images))
+        if self.tokenizer is None:
+            raise RuntimeError("reranking needs a tokenizer")
+        if images.shape[1] != self.clip.visual_image_size:
+            raise ValueError(
+                f"CLIP checkpoint expects {self.clip.visual_image_size}px images but "
+                f"the VAE decodes {images.shape[1]}px"
+            )
+        if self.tokenizer.vocab_size > self.clip.num_text_tokens:
+            raise ValueError(
+                f"tokenizer vocab {self.tokenizer.vocab_size} exceeds CLIP "
+                f"num_text_tokens {self.clip.num_text_tokens}"
+            )
+        ids = self.tokenizer.tokenize(prompt, self.clip.text_seq_len, truncate_text=True)
+        text = torch.tensor(ids, dtype=torch.long, device=self.device)
+        pixels = torch.tensor(np.asarray(images, np.float32), device=self.device)
+        with self._lock:
+            _, scores, order = clip_rerank(self.clip, text, pixels, text_mask=text != 0)
+            scores, order = scores.float().cpu().numpy(), order.cpu().numpy()
+        return images[order], scores, order
 
     def warmup(self) -> None:
         """Run one dummy batch per rung (counted in stats.warmup_batches)."""
@@ -795,6 +829,7 @@ def engine_from_checkpoint(
     prefix_entries: int = 64,
     paged_decode_impl: Optional[str] = None,
     mesh=None,
+    clip_path: Optional[str] = None,
 ):
     """Build a serving engine from a reference single-file DALLE checkpoint
     (with its DiscreteVAE inside), in the checkpoint's dtype (bfloat16 when
@@ -806,10 +841,11 @@ def engine_from_checkpoint(
     `kv_pages`, `prefix_entries` and `paged_decode_impl` as there).
     `kv_dtype="int8"` quantizes the KV cache in either mode (None or
     "model" keeps the model dtype); `decode_sparsity="policy"` needs the
-    continuous engine. The text vocabulary size comes from the
-    checkpoint's text embedding. When it is the byte tokenizer's, the
-    engine gets a `ByteTokenizer`; otherwise it has none (the BPE
-    tokenizers are not ported) and takes token ids only.
+    continuous engine. The tokenizer is the one the checkpoint's config
+    names (`build_tokenizer`: its flags, or the default vocabulary), and
+    the model's text vocabulary its size: a text embedding of another
+    size raises. `clip_path` loads a CLIP checkpoint for `rerank`. The
+    engine keeps the config as `cfg`.
     """
     if mode not in ("micro", "continuous"):
         raise ValueError(f"unknown engine mode {mode!r}")
@@ -836,8 +872,18 @@ def engine_from_checkpoint(
             "are not"
         )
     vae = load_dvae_params(dvae_from_hparams(meta["vae_hparams"]), vae_tree)
+    tokenizer = build_tokenizer(config)
+    vocab = max(tokenizer.vocab_size, 1)
     text_rows = dalle_tree["text_emb"]["embedding"].shape[0]
-    vocab = text_rows - config["model"]["text_seq_len"]
+    text_seq_len = config["model"]["text_seq_len"]
+    if text_rows != vocab + text_seq_len:
+        raise ValueError(
+            f"{dalle_path}: the text embedding has {text_rows} rows, but the config's "
+            f"tokenizer ({type(tokenizer).__name__}, vocabulary {vocab}) and text_seq_len "
+            f"{text_seq_len} need {vocab + text_seq_len}: the checkpoint was trained with "
+            "another vocabulary than its config names (bpe_path / hug / chinese / yttm / "
+            "native, or the default vocabulary when none is set)"
+        )
     model, dtype = dalle_from_config(
         config,
         num_image_tokens=vae.num_tokens,
@@ -847,7 +893,7 @@ def engine_from_checkpoint(
     load_dalle_params(model, dalle_tree)
     if kv_dtype not in (None, "model"):
         model.kv_dtype = str(kv_dtype)
-    tokenizer = ByteTokenizer() if vocab == ByteTokenizer().vocab_size else None
+    clip = None if clip_path is None else load_clip_checkpoint(clip_path)
     common = dict(cond_scale=cond_scale, tokenizer=tokenizer, device=dev)
     if mode == "continuous":
         common.update(
@@ -857,9 +903,15 @@ def engine_from_checkpoint(
             decode_sparsity=decode_sparsity or "causal",
         )
         if kv_layout == "paged":
-            return PagedContinuousEngine(
+            engine = PagedContinuousEngine(
                 model.to(dtype), vae.to(dtype), page_size=page_size, kv_pages=kv_pages,
                 prefix_entries=prefix_entries, paged_decode_impl=paged_decode_impl, **common,
             )
-        return ContinuousEngine(model.to(dtype), vae.to(dtype), **common)
-    return GenerationEngine(model.to(dtype), vae.to(dtype), batch_shapes=batch_shapes, **common)
+        else:
+            engine = ContinuousEngine(model.to(dtype), vae.to(dtype), **common)
+        engine.clip = None if clip is None else clip.to(dev).eval()
+        engine.cfg = config
+        return engine
+    return GenerationEngine(
+        model.to(dtype), vae.to(dtype), batch_shapes=batch_shapes, clip=clip, cfg=config, **common
+    )

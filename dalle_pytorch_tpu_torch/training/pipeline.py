@@ -1,8 +1,10 @@
-"""Models from a checkpoint's metadata, and the DALLE checkpoint writer
-and loader.
+"""Models and tokenizers from a checkpoint's metadata, and the DALLE and
+CLIP checkpoint writers and loaders.
 
-Counterparts of the JAX package's `training/pipeline.py:dalle_from_config`,
-`dvae_from_hparams`, `save_dalle_checkpoint` and `load_dalle_checkpoint`,
+Counterparts of the JAX package's `training/pipeline.py:build_tokenizer`,
+`dalle_from_config`, `dvae_from_hparams`, `save_dalle_checkpoint`,
+`load_dalle_checkpoint`, `clip_hparams`, `save_clip_checkpoint` and
+`load_clip_checkpoint`,
 with the plain dicts stored in the checkpoint's metadata (the `config`
 dict of the training config, the `vae_hparams` dict) in place of config
 dataclasses. `dalle_config` builds that dict from a port DALLE, with only
@@ -17,10 +19,12 @@ from typing import Optional, Tuple
 import torch
 
 from dalle_pytorch_tpu_torch import __version__
+from dalle_pytorch_tpu_torch.data.tokenizer import get_tokenizer
+from dalle_pytorch_tpu_torch.models.clip import CLIP
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz, save_params_npz
-from dalle_pytorch_tpu_torch.weights import export_dalle_params
+from dalle_pytorch_tpu_torch.weights import export_clip_params, export_dalle_params, load_clip_params
 
 
 def _csv(spec) -> Tuple[str, ...]:
@@ -29,6 +33,17 @@ def _csv(spec) -> Tuple[str, ...]:
 
 def _ids(spec) -> Optional[Tuple[int, ...]]:
     return tuple(int(s) for s in _csv(spec)) if spec else None
+
+
+def build_tokenizer(config: dict):
+    """The tokenizer a checkpoint's `config` names by the trainer's flags
+    (`bpe_path`, `hug`, `chinese`, `yttm`, `native`), or the default
+    vocabulary when it names none (`data/tokenizer.py:get_tokenizer`)."""
+    return get_tokenizer(
+        bpe_path=config.get("bpe_path"), hug=config.get("hug", False),
+        chinese=config.get("chinese", False), yttm=config.get("yttm", False),
+        native=config.get("native", False),
+    )
 
 
 def dalle_from_config(
@@ -182,3 +197,43 @@ def load_dalle_checkpoint(path: str):
     if meta.get("type") != "DALLE":
         raise ValueError(f"{path} is not a DALLE checkpoint")
     return meta["config"], params["dalle"], params.get("vae"), meta
+
+
+def clip_hparams(clip: CLIP) -> dict:
+    """The checkpoint `clip_hparams` dict of a port CLIP (the reference's
+    keys; the port's layers are the unrolled executor's)."""
+    return {
+        "dim_text": clip.dim_text,
+        "dim_image": clip.dim_image,
+        "dim_latent": clip.dim_latent,
+        "num_text_tokens": clip.num_text_tokens,
+        "text_enc_depth": clip.text_enc_depth,
+        "text_seq_len": clip.text_seq_len,
+        "text_heads": clip.text_heads,
+        "num_visual_tokens": clip.num_visual_tokens,
+        "visual_enc_depth": clip.visual_enc_depth,
+        "visual_heads": clip.visual_heads,
+        "visual_image_size": clip.visual_image_size,
+        "visual_patch_size": clip.visual_patch_size,
+        "channels": clip.channels,
+        "executor": "unrolled",
+    }
+
+
+def save_clip_checkpoint(path: str, clip: CLIP) -> None:
+    """The reference's single-file CLIP checkpoint: the CLIP tree and the
+    `clip_hparams` metadata."""
+    save_params_npz(path, export_clip_params(clip), metadata={"clip_hparams": clip_hparams(clip)})
+
+
+def load_clip_checkpoint(path: str) -> CLIP:
+    """A float32 CLIP with the checkpoint's weights, on the CPU."""
+    params, metadata = load_params_npz(path)
+    hparams = dict(metadata["clip_hparams"])
+    executor = hparams.pop("executor", "unrolled")
+    if executor != "unrolled":
+        raise ValueError(
+            f"CLIP checkpoint of executor {executor!r}: the port loads the unrolled "
+            "layout only (ROADMAP Queue 1, scan-layout checkpoints)"
+        )
+    return load_clip_params(CLIP(**hparams), params)

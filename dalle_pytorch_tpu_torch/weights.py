@@ -4,8 +4,9 @@ back out.
 A tree is the reference's flax parameter tree (`variables["params"]`) as
 nested dicts of numpy arrays, the layout `save_dalle_checkpoint` writes.
 `export_dalle_params` is the exact inverse of `load_dalle_params` (float32
-leaves, whatever the module's dtype); `export_dvae_params` writes the
-decoder and carries encoder leaves through. Mappings:
+leaves, whatever the module's dtype), as is `export_clip_params` of
+`load_clip_params`; `export_dvae_params` writes the decoder and carries
+encoder leaves through. Mappings:
 
   * Dense kernel [in, out] -> Linear.weight [out, in];
   * Conv kernel HWIO -> Conv2d.weight OIHW;
@@ -25,8 +26,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch.models.clip import CLIP
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.models.transformer import Transformer
 
 _Target = Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -116,7 +119,7 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 def _export_flat(targets: Dict[str, _Target]) -> Dict[str, np.ndarray]:
     """Inverse of `_assign`: every leaf in the reference layout, float32."""
     return {
-        path: np.ascontiguousarray(_INVERSE[fn](param.detach().float().cpu().numpy()))
+        path: np.array(_INVERSE[fn](param.detach().float().cpu().numpy()), order="C")
         for path, (param, fn) in targets.items()
     }
 
@@ -135,22 +138,27 @@ def _dalle_targets(model: DALLE) -> Dict[str, _Target]:
         t["logits_bias"] = (model.logits_bias, _same)
     else:
         _linear("logits_dense", model.logits_dense, t)
-    tr = model.transformer
-    for key, attn in tr.attn.items():
-        _linear(f"transformer/attn_{key}/to_qkv", attn.to_qkv, t, bias=False)
-        _linear(f"transformer/attn_{key}/to_out", attn.to_out, t)
-    for key, ff in tr.ff.items():
-        _linear(f"transformer/ff_{key}/Dense_0", ff.dense_0, t)
-        _linear(f"transformer/ff_{key}/Dense_1", ff.dense_1, t)
-    for i in range(tr.depth):
-        _norm(f"transformer/attn_norms_{i}", tr.attn_norms[i], t)
-        _norm(f"transformer/ff_norms_{i}", tr.ff_norms[i], t)
-        if tr.sandwich_norm:
-            _norm(f"transformer/attn_norms_out_{i}", tr.attn_norms_out[i], t)
-            _norm(f"transformer/ff_norms_out_{i}", tr.ff_norms_out[i], t)
-        t[f"transformer/attn_scale_{i}"] = (tr.attn_scales[i], _same)
-        t[f"transformer/ff_scale_{i}"] = (tr.ff_scales[i], _same)
+    _transformer_targets("transformer", model.transformer, t)
     return t
+
+
+def _transformer_targets(prefix: str, tr: Transformer, t: Dict[str, _Target]) -> None:
+    """The leaves of a reference `Transformer` (unrolled layout) under
+    `prefix`."""
+    for key, attn in tr.attn.items():
+        _linear(f"{prefix}/attn_{key}/to_qkv", attn.to_qkv, t, bias=False)
+        _linear(f"{prefix}/attn_{key}/to_out", attn.to_out, t)
+    for key, ff in tr.ff.items():
+        _linear(f"{prefix}/ff_{key}/Dense_0", ff.dense_0, t)
+        _linear(f"{prefix}/ff_{key}/Dense_1", ff.dense_1, t)
+    for i in range(tr.depth):
+        _norm(f"{prefix}/attn_norms_{i}", tr.attn_norms[i], t)
+        _norm(f"{prefix}/ff_norms_{i}", tr.ff_norms[i], t)
+        if tr.sandwich_norm:
+            _norm(f"{prefix}/attn_norms_out_{i}", tr.attn_norms_out[i], t)
+            _norm(f"{prefix}/ff_norms_out_{i}", tr.ff_norms_out[i], t)
+        t[f"{prefix}/attn_scale_{i}"] = (tr.attn_scales[i], _same)
+        t[f"{prefix}/ff_scale_{i}"] = (tr.ff_scales[i], _same)
 
 
 def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
@@ -226,3 +234,35 @@ def export_dvae_params(vae: DiscreteVAE, encoder: Optional[dict] = None) -> dict
             raise ValueError(f"encoder leaf {name}: shape {leaf.shape} != {shape}")
         flat[name] = leaf
     return _unflatten(flat)
+
+
+def _clip_targets(clip: CLIP) -> Dict[str, _Target]:
+    t: Dict[str, _Target] = {
+        "text_emb/embedding": (clip.text_emb.weight, _same),
+        "text_pos_emb/embedding": (clip.text_pos_emb.weight, _same),
+        "visual_pos_emb/embedding": (clip.visual_pos_emb.weight, _same),
+        "temperature": (clip.temperature, _same),
+    }
+    _linear("to_text_latent", clip.to_text_latent, t, bias=False)
+    _linear("to_visual_embedding", clip.to_visual_embedding, t)
+    _linear("to_visual_latent", clip.to_visual_latent, t, bias=False)
+    _transformer_targets("text_transformer", clip.text_transformer, t)
+    _transformer_targets("visual_transformer", clip.visual_transformer, t)
+    return t
+
+
+def load_clip_params(clip: CLIP, tree: dict) -> CLIP:
+    """Load a reference CLIP parameter tree (unrolled layout) into `clip`
+    in place; returns it."""
+    if any("scan_stack" in tree.get(k, {}) for k in ("text_transformer", "visual_transformer")):
+        raise ValueError(
+            "scan-layout CLIP tree (executor='scan'): the port loads the unrolled "
+            "layout only (ROADMAP Queue 1, scan-layout checkpoints)"
+        )
+    _assign(_clip_targets(clip), _flatten(tree), "CLIP")
+    return clip
+
+
+def export_clip_params(clip: CLIP) -> dict:
+    """The reference CLIP parameter tree (unrolled layout) of `clip`."""
+    return _unflatten(_export_flat(_clip_targets(clip)))

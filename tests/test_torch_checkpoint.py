@@ -22,6 +22,7 @@ from flax.training import train_state
 from dalle_pytorch_tpu.models.dalle import DALLE as JDALLE
 from dalle_pytorch_tpu.training import pipeline as jpipeline
 from dalle_pytorch_tpu.training import steps as jsteps
+from dalle_pytorch_tpu_torch.data import tokenizer as port_tokenizer
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
@@ -138,8 +139,20 @@ def test_dvae_export_round_trips_and_carries_the_encoder():
     assert np.array_equal(carried["enc_head"]["kernel"], enc["enc_head"]["kernel"])
 
 
-def test_checkpoint_loads_in_the_reference_and_in_the_port_engine(tmp_path):
-    cfg = {**TINY, "attn_types": ("full", "axial_row")}
+def _byte_default_vocabulary(monkeypatch):
+    """A machine whose default vocabulary cannot load (no C++ toolchain):
+    the port's default probe falls back to the byte tokenizer, the
+    vocabulary this checkpoint was trained with."""
+    monkeypatch.setattr(port_tokenizer, "default_vocabularies", lambda: [])
+    monkeypatch.setattr(port_tokenizer, "_default_decision", None)
+    monkeypatch.setattr(port_tokenizer, "_warned_default_probe", True)
+
+
+def test_checkpoint_loads_in_the_reference_and_in_the_port_engine(tmp_path, monkeypatch):
+    """The engine takes the tokenizer the config names (here none: the
+    default probe, falling back to the byte tokenizer), so the checkpoint
+    carries the byte vocabulary."""
+    cfg = {**TINY, "num_text_tokens": 257, "attn_types": ("full", "axial_row")}
     model = load_dalle_params(DALLE(**cfg, attn_impl="flash"), _jax_params(cfg, seed=5))
     vae_cfg = dict(image_size=32, num_layers=3, num_tokens=32, codebook_dim=16, hidden_dim=8)
     vae = DiscreteVAE(**vae_cfg)
@@ -152,7 +165,7 @@ def test_checkpoint_loads_in_the_reference_and_in_the_port_engine(tmp_path):
     jcfg, jparams, jvae, meta, opt = jpipeline.load_dalle_checkpoint(str(path))
     assert meta["type"] == "DALLE" and meta["epoch"] == 3 and opt is None and jvae is not None
     jmodel = jpipeline.dalle_from_config(
-        jcfg, num_image_tokens=32, image_fmap_size=4, vocab_size=TINY["num_text_tokens"]
+        jcfg, num_image_tokens=32, image_fmap_size=4, vocab_size=cfg["num_text_tokens"]
     )
     text, img = _batch(seed=1)
     jlogits = jmodel.apply({"params": jparams}, jnp.asarray(text), jnp.asarray(img))
@@ -160,6 +173,7 @@ def test_checkpoint_loads_in_the_reference_and_in_the_port_engine(tmp_path):
         logits = model.eval()(torch.from_numpy(text), torch.from_numpy(img))
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
 
+    _byte_default_vocabulary(monkeypatch)
     engine = engine_from_checkpoint(str(path), batch_shapes=(1,), device="cpu")
     assert engine.model.dim == 64 and engine.model.attn_types == ("full", "axial_row")
     for a, b in zip(engine.model.state_dict().values(), model.state_dict().values()):

@@ -35,6 +35,7 @@ from dalle_pytorch_tpu.serving.engine import SampleSpec as JSpec
 from dalle_pytorch_tpu.training.config import TrainConfig
 from dalle_pytorch_tpu.training.metrics import MetricsRegistry
 from dalle_pytorch_tpu.training.pipeline import dvae_hparams, save_dalle_checkpoint
+from dalle_pytorch_tpu_torch.data import tokenizer as port_tokenizer
 from dalle_pytorch_tpu_torch.models.dalle import (
     decode_image_chunk,
     init_slot_state,
@@ -442,8 +443,20 @@ def _checkpoint(tmp_path, pair):
     return path
 
 
-def test_continuous_engine_from_a_reference_checkpoint(tmp_path, pair):
-    path = _checkpoint(tmp_path, pair)
+def _byte_default_vocabulary(monkeypatch):
+    """A machine whose default vocabulary cannot load (no C++ toolchain):
+    the port's default probe falls back to the byte tokenizer, the
+    vocabulary this checkpoint was trained with."""
+    monkeypatch.setattr(port_tokenizer, "default_vocabularies", lambda: [])
+    monkeypatch.setattr(port_tokenizer, "_default_decision", None)
+    monkeypatch.setattr(port_tokenizer, "_warned_default_probe", True)
+
+
+def test_continuous_engine_from_a_reference_checkpoint(tmp_path, monkeypatch):
+    """A checkpoint of the byte vocabulary, which the config's default
+    probe gives on a machine that cannot load the default one."""
+    path = _checkpoint(tmp_path, _dalle_pair(seed=17, **MODEL, num_text_tokens=257))
+    _byte_default_vocabulary(monkeypatch)
     eng = engine_from_checkpoint(
         str(path), batch_shapes=(1, 2), device="cpu", mode="continuous",
         kv_dtype="int8", decode_sparsity="policy", chunk_tokens=4,

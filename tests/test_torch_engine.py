@@ -22,6 +22,7 @@ from dalle_pytorch_tpu.serving.engine import GenerationEngine as JEngine
 from dalle_pytorch_tpu.serving.engine import SampleSpec as JSpec
 from dalle_pytorch_tpu.training.config import TrainConfig
 from dalle_pytorch_tpu.training.pipeline import dvae_hparams, save_dalle_checkpoint
+from dalle_pytorch_tpu_torch.data import tokenizer as port_tokenizer
 from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
 from dalle_pytorch_tpu_torch.serving.engine import (
     GenerationEngine,
@@ -109,7 +110,16 @@ def test_sampled_tokens_do_not_depend_on_the_batch(setup):
     assert not np.array_equal(alone[0], other[0])
 
 
-def test_checkpoint_read_by_the_port(setup, tmp_path):
+def _byte_default_vocabulary(monkeypatch):
+    """A machine whose default vocabulary cannot load (no C++ toolchain):
+    the port's default probe falls back to the byte tokenizer, the
+    vocabulary this checkpoint was trained with."""
+    monkeypatch.setattr(port_tokenizer, "default_vocabularies", lambda: [])
+    monkeypatch.setattr(port_tokenizer, "_default_decision", None)
+    monkeypatch.setattr(port_tokenizer, "_warned_default_probe", True)
+
+
+def test_checkpoint_read_by_the_port(setup, tmp_path, monkeypatch):
     cfg = TrainConfig()
     for key, val in dict(
         dim=TINY["dim"], depth=TINY["depth"], heads=TINY["heads"],
@@ -123,6 +133,7 @@ def test_checkpoint_read_by_the_port(setup, tmp_path):
         str(path), cfg, setup["variables"]["params"], setup["vparams"]["params"],
         epoch=0, vae_class_name="DiscreteVAE", vae_hparams=dvae_hparams(setup["jv"]),
     )
+    _byte_default_vocabulary(monkeypatch)
     eng = engine_from_checkpoint(str(path), batch_shapes=(1,), device="cpu")
     assert isinstance(eng.tokenizer, ByteTokenizer)
     assert eng.model.dtype == torch.float32

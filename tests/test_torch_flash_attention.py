@@ -31,6 +31,7 @@ from dalle_pytorch_tpu.ops.pallas_attention import mask_block_layout as jax_mask
 from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
 from dalle_pytorch_tpu_torch.ops.flash_attention import (
     BLOCK,
+    attention_kernel_source,
     KERNEL_HEAD_DIMS,
     WGMMA_HEAD_DIMS,
     _FlashAttention,
@@ -89,11 +90,11 @@ def test_causal_matches_the_pallas_kernels(n):
     _compare(n, n, 16)
 
 
-@pytest.mark.parametrize("d", [8, 48, 192])
+@pytest.mark.parametrize("d", [8, 48, 192, 320])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "all"])
 def test_any_head_dim_matches_the_pallas_kernels(d, causal):
     """Head dims outside the kernels' instances (16, 32, 64, 128, 256; 192
-    runs the 256 instance on the card): the forward and the autograd
+    runs the 256 instance on the card, 320 the wide kernels): the forward and the autograd
     backward equal the reference's at any D."""
     _compare(40, 40, d, causal=causal, seed=12)
 
@@ -126,7 +127,8 @@ def test_head_dim_padding_is_the_unpadded_function(d):
     lse 1e-6, dq/dk/dv 1e-5 (zero columns change only summation order).
     The forward is padded both ways the card pads it: to the next of all
     instances (float32) and of the bfloat16 wgmma kernel's 64, 128 and
-    256. Every D <= 256 has an instance to pad to; 264 raises."""
+    256. Every D <= 256 has an instance to pad to; above 256 the wide
+    kernels take D as it is (no padding, no raise)."""
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 70, 70, d, seed=13))
     assert kernel_head_dim(d) == {8: 16, 48: 64, 100: 128, 192: 256}[d]
     assert kernel_head_dim(d, WGMMA_HEAD_DIMS) == {8: 64, 48: 64, 100: 128, 192: 256}[d]
@@ -151,8 +153,12 @@ def test_head_dim_padding_is_the_unpadded_function(d):
         assert got.shape == ref.shape and got.is_contiguous()
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     for dims in (KERNEL_HEAD_DIMS, WGMMA_HEAD_DIMS):
-        with pytest.raises(ValueError, match="Queue 3"):
-            kernel_head_dim(264, dims)
+        for wide in (264, 320, 1024):
+            assert kernel_head_dim(wide, dims) == wide
+    for taken in (129, 200, 256):
+        assert attention_kernel_source(taken) == "flash_attention"
+    for wide in (257, 264, 320, 1024):
+        assert attention_kernel_source(wide) == "wide_head"
 
 
 def test_attention_module_at_head_dim_48_matches_the_reference():

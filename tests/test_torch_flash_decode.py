@@ -118,12 +118,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 VARIANTS = ["plain", "int8", "block_sparse", "paged", "block_sparse_paged"]
 
 
-@pytest.mark.parametrize("d", [8, 40, 48, 200])
+@pytest.mark.parametrize("d", [8, 40, 48, 200, 320])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_every_variant_takes_any_head_dim(variant, d):
     """Each of the five decode functions (plain and int8 arms, block-sparse,
     paged, block-sparse paged) at head dims that are not multiples of 16
-    or lie above 128 (the card's kernels take any D <= 256), through the
+    or lie above 128 (the card's kernels take any D; 320 runs the wide
+    kernel there), through the
     port's wrappers on the CPU and the Pallas kernels in interpret mode:
     2e-5 (float32 summation order)."""
     b, h, n, page, n_pages = 3, 2, 3, 8, 5
@@ -179,16 +180,19 @@ def test_every_variant_takes_any_head_dim(variant, d):
 
 
 def test_kernel_head_dims_are_the_multiples_of_16_up_to_128():
-    """The card's head-dim rule (the test keeps its name): every D from 1
-    to 256 is taken, multiples of 16 or not (head dim is a runtime
-    argument of the kernels); above 256 raises naming the open remainder
+    """The card's head-dim rule (the test keeps its name): every D >= 1 is
+    taken, none raises. D <= 256 runs flash_decode.cu's kernels (head dim
+    a runtime argument), D > 256 the column-group kernel of wide_head.cu
     (the CPU path takes any D)."""
     for d in (1, 8, 16, 36, 40, 64, 72, 100, 128, 144, 200, 256):
         fd.check_kernel_head_dim(d)
+        assert fd.decode_kernel_source(d) == "flash_decode"
     assert fd.MAX_KERNEL_HEAD_DIM == 256
-    for d in (0, 257, 264, 512):
-        with pytest.raises(ValueError, match="Queue 3"):
-            fd.check_kernel_head_dim(d)
+    for d in (257, 264, 320, 512, 1024):
+        fd.check_kernel_head_dim(d)
+        assert fd.decode_kernel_source(d) == "wide_head"
+    with pytest.raises(ValueError, match="channel"):
+        fd.check_kernel_head_dim(0)
 
 
 def _pallas_variant(variant, q, k, v, lengths, bm, block_k, scales):

@@ -29,7 +29,10 @@ def _sources():
 
 def test_the_scan_covers_every_port_script():
     names = {p.name for p in _sources()}
-    assert {"chip_smoke.py", "torch_continuous_profile.py", "paging.py"} <= names
+    assert {
+        "chip_smoke.py", "torch_continuous_profile.py", "paging.py", "generate.py", "clip.py",
+        "native_bpe.py", "tokenizer.py", "images.py", "wide_head.py", "torch_wide_head_probe.py",
+    } <= names
 
 
 def test_port_imports_with_the_reference_refused():
