@@ -65,7 +65,9 @@ Phases, each failing loudly (nonzero exit, no result line):
    (4 slots, page 32, prefill waves of 4, chunks of 4) and the
    `ContinuousBatcher`, with phase 7's four requests and repeats of the
    first two (full-prompt prefix hits, no prefill dispatch), three times:
-   the gather impl (tokens identical to phase 7's causal run), the paged
+   the gather impl on the model's first 4 layers (a depth cut that holds
+   the script's time; tokens identical to phase 7's causal run of that
+   model), the paged
    kernel with a pool of two rows' worst case beside the prefix cache
    (the batcher holds requests back; tokens identical again; one chunk
    under sync-debug "error"), and the block-sparse paged kernel's int8 arm
@@ -79,9 +81,29 @@ Phases, each failing loudly (nonzero exit, no result line):
    run, and the uncached `generate_images` oracle primed with the cached
    run's first 1008 tokens (12 flash-attention forwards per sampled
    position, the cached tokens wherever the noised-score margin passes
-   ORACLE_MARGIN); the wall of each stage.
+   ORACLE_MARGIN); the wall of each stage;
+10. mid-decode resume and decode-state migration: phase 5's model behind
+   a `ContinuousEngine` with resume and previews, then a
+   `PagedContinuousEngine` (page 32, the paged kernel), then int8 KV on
+   phase 7's depth-4 model, each behind the `ContinuousBatcher` with
+   phase 7's four requests (request 0 streamed): once every row passes
+   image position DRAIN_AT, `migrate_out` exports them, the checkpoints
+   travel encode -> wire -> decode, and a fresh engine over the same
+   weights (equal fingerprint) resumes them in one dispatch (12
+   flash-decode launches at n = 1280 at depth 12). Held: tokens equal to
+   the uninterrupted run (phase 7's) up to each row's first position
+   whose noised-score margin is under ORACLE_MARGIN, the resumed pending
+   logits and K/V against the drained engine's (RESUME_LOGIT_TOL,
+   RESUME_KV_TOL), every launch counted exactly, the decoded-token
+   counter at the positions past each k, the streams' events in order,
+   `leak_check()` empty, a post-resume chunk under sync-debug "error";
+   the resume dispatch's wall and device time, the export and codec
+   walls.
 
-Phases 2 and 3 also hold and time the int8 arm of flash decode, the
+Phases 2 and 3 also hold and time flash decode (both arms) at the
+resume forward's shape (n = 1280 rows over a 1281-slot cache; B = 1 and
+4), beside SDPA's causal forward and `flash_attention_fwd` there, the
+int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
 random and policy bitmaps, poisoned dead tiles) and the two paged kernels
 (page sizes 16-128, shuffled tables sharing pages, NaN-poisoned pools;
@@ -315,8 +337,10 @@ def device_ms(torch, fn, inputs, iters):
 DEVICE_ROWS = []
 
 
-def defer_device_time(row, fn, inputs, iters):
-    DEVICE_ROWS.append((row, fn, inputs, iters))
+def defer_device_time(row, fn, inputs, iters, prefix=""):
+    """Take fn's device time into row[prefix + "device_ms"] (and
+    "device_kernels") after the last timed phase."""
+    DEVICE_ROWS.append((row, fn, inputs, iters, prefix))
 
 
 # the flagship geometry's pattern layers, for the policy bitmaps of phase 2
@@ -776,6 +800,112 @@ def time_decode_variants(torch, F, peaks, smi, cases):
         live_positions=n_visible, length_skip_positions=sum(live),
         flash_decode_ms_same_inputs=dense_ms,
         library="SDPA with the bitmap-expanded boolean mask", card=smi, **row)))
+    return rows
+
+
+# ------------------------------------------------ the resume forward's shape
+
+# `DALLE.decode_resume`: text_len + image_seq_len - 1 query rows over a
+# fresh total_seq_len + 1 cache, every row causal over the prefix
+RESUME = dict(n=1280, cache=1281)
+
+
+def resume_inputs(torch, b, dtype, copies=1):
+    """`copies` (q, k, v, lengths) sets at the resume shape, B = `b`."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    h, d, n, s = MAIN["heads"], MAIN["dim_head"], RESUME["n"], RESUME["cache"]
+    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    return [
+        tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+              for shape in ((b, h, n, d), (b, h, s, d), (b, h, s, d))) + (lens,)
+        for _ in range(copies)
+    ]
+
+
+def check_resume_prefill(torch):
+    """Phase 2 at the resume shape: kernel 1 (bf16 and fp32) and its int8
+    arm (bf16 q) against their plain versions at B = 1 and 4, under
+    decode_tol. Returns {kernel: worst bf16 max_abs_err}."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst = {"flash_decode": 0.0, "flash_decode_int8": 0.0}
+    failures = []
+    for b in (1, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, lens = resume_inputs(torch, b, dtype)[0]
+            arms = [("flash_decode", ())]
+            if dtype == torch.bfloat16:
+                kq, vq, ks, vs = quantized(torch, k, v)
+                arms.append(("flash_decode_int8", (kq, vq, ks, vs)))
+            for kernel, int8 in arms:
+                kk, vv, sc = (int8[0], int8[1], int8[2:]) if int8 else (k, v, ())
+                out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
+                ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = decode_tol(torch, ref, dtype)
+                print(f"check {kernel} resume n={RESUME['n']} S={RESUME['cache']} B={b} "
+                      f"{str(dtype)[6:]}: max_abs_err {err:.3e} tol {tol:.3e}")
+                if not (err <= tol and torch.isfinite(out).all()):
+                    failures.append(f"{kernel} resume B={b} {dtype}: {err:.3e} over {tol:.3e}")
+                if dtype == torch.bfloat16:
+                    worst[kernel] = max(worst[kernel], err)
+            del q, k, v
+    if failures:
+        fail("; ".join(failures))
+    return worst
+
+
+def resume_bound(b, per_pos_bytes, peaks):
+    """(bound_ms, bound_by) of one resume-shape call: q read and out
+    written in bf16, n live cache positions a row read at `per_pos_bytes`
+    per position and head, lengths; 4*D flops per visible causal pair."""
+    h, d, n = MAIN["heads"], MAIN["dim_head"], RESUME["n"]
+    nbytes = 2 * b * h * n * d * 2 + b * h * n * per_pos_bytes + 4 * b
+    flops = 4 * d * b * h * n * (n + 1) // 2
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_resume_prefill(torch, F, peaks, smi):
+    """Phase 3 at the resume shape (bf16, B = 4, inputs rotating over
+    LAYERS copies): kernel 1 and its int8 arm, their plain versions,
+    SDPA's causal forward over the n live keys (the same function), and
+    row 6's kernel (`flash_attention_fwd`, causal) on those keys; the
+    kernels' device times are taken after phase 10."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    b, n, d = MAIN["batch"], RESUME["n"], MAIN["dim_head"]
+    inputs = resume_inputs(torch, b, torch.bfloat16, copies=LAYERS)
+    live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+    int8_in = []
+    for q, k, v, lens in inputs:
+        kq, vq, ks, vs = quantized(torch, k, v)
+        int8_in.append((q, kq, vq, lens, ks, vs))
+
+    def sdpa_causal(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    iters = 2 * LAYERS
+    library_ms = time_ms(torch, sdpa_causal, live, iters)
+    fwd_ms = time_ms(torch, fa.flash_attention_fwd, live, iters)
+    rows = {}
+    for kernel, args, per_pos in (("flash_decode", inputs, 2 * d * 2), ("flash_decode_int8", int8_in, 2 * d + 8)):
+        row = dict(
+            ms=time_ms(torch, fd.flash_decode_attention, args, iters),
+            plain_ms=time_ms(torch, fd.flash_decode_attention_plain, args, 6),
+            library_ms=library_ms,
+            flash_attention_fwd_ms=fwd_ms,
+        )
+        row["bound_ms"], row["bound_by"] = resume_bound(b, per_pos, peaks)
+        defer_device_time(row, fd.flash_decode_attention, args, iters)
+        rows[kernel] = row
+        print("time " + json.dumps(dict(
+            kernel=kernel, case="resume", q_dtype="bf16", B=b, H=MAIN["heads"], n=n, D=d,
+            S=RESUME["cache"], lengths=n, library="SDPA causal forward over the n live keys",
+            card=smi, **row)))
+    defer_device_time(rows["flash_decode"], fa.flash_attention_fwd, live, iters, prefix="flash_attention_fwd_")
     return rows
 
 
@@ -1466,7 +1596,7 @@ def first_layers(torch, model, depth):
 def run_continuous(torch, model, vae, specs, micro_tokens):
     """Phase 7: the four runs. Returns ({kernel: launches on its run}, the
     causal run's tokens, the patterned model and its policy + int8
-    tokens)."""
+    tokens, and the depth-cut model's causal and int8 runs' tokens)."""
     import copy
 
     import numpy as np
@@ -1560,7 +1690,7 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
           f"{detail['kv_tiles_read']}, skipped {detail['kv_tiles_skipped']} "
           f"({detail['kv_tiles_skipped'] / (detail['kv_tiles_read'] + detail['kv_tiles_skipped']):.3f})")
     out["block_sparse_flash_decode_int8"] = launches["block_sparse_flash_decode_int8"]
-    return out, toks1, patterned, toks4
+    return out, toks1, patterned, toks4, (toks_short, toks2)
 
 
 DECODE_COUNTERS = {
@@ -1669,15 +1799,17 @@ def check_paged_run(engine, toks, launches, waves, label, kernel, decode_kernel,
         fail(f"paged {label}: leak_check {leaks}")
 
 
-def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_tokens):
+def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_tokens, short_tokens):
     """Phase 8: the three runs of the flagship PagedContinuousEngine.
     Returns {kernel: launches on its run} for kernels 4 and 5."""
-    # 1. the reference's default impl: paged_gather + kernel 1
-    engine, toks1, launches, waves = serve_paged(torch, model, vae, specs, "gather causal",
-                                                 paged_decode_impl="gather")
-    check_paged_run(engine, toks1, launches, waves, "gather causal", "flash_decode", "flash_decode",
-                    causal_tokens)
-    del engine
+    # 1. the reference's default impl: paged_gather + kernel 1, on the
+    # model's first SHORT_DEPTH layers (a depth cut that holds the script's
+    # time), held to phase 7's causal run of that model
+    short = first_layers(torch, model, SHORT_DEPTH)
+    label = f"gather causal depth {SHORT_DEPTH}"
+    engine, toks1, launches, waves = serve_paged(torch, short, vae, specs, label, paged_decode_impl="gather")
+    check_paged_run(engine, toks1, launches, waves, label, "flash_decode", "flash_decode", short_tokens)
+    del engine, short
 
     # 2. kernel 4, with a pool of two rows' worst case beside the prefix
     # cache's four entries (8 full pages and a snapshot page each)
@@ -1687,7 +1819,7 @@ def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_toke
     engine, toks2, launches, waves = serve_paged(torch, model, vae, specs, "kernel causal, small pool",
                                                  paged_decode_impl="kernel", kv_pages=kv_pages)
     check_paged_run(engine, toks2, launches, waves, "kernel causal, small pool", "paged_flash_decode",
-                    "flash_decode", toks1[:4])
+                    "flash_decode", causal_tokens)
     held_back = max(w["live_rows"] for w in waves)
     print(f"check paged small pool ({kv_pages} pages): at most {held_back} rows live of "
           f"{CONTINUOUS['max_batch']} slots; every request completed")
@@ -1884,6 +2016,358 @@ def run_generation_cli(torch, vae):
     return launches, walls
 
 
+# phase 10: mid-decode resume and decode-state migration at flagship width
+DRAIN_AT = 512  # every row passes this image position before the drain
+PREVIEW_EVERY = 32  # request-level chunks between the streamed request's previews
+# the resumed rows' pending logits against the draining engine's at the
+# drain: half of ORACLE_MARGIN, so a token whose noised-score margin passes
+# ORACLE_MARGIN is drawn alike from either
+RESUME_LOGIT_TOL = ORACLE_MARGIN / 2
+# the resumed K/V of the positions below each row's k against the
+# draining engine's, per layer and row: ||err|| / ||ref||
+RESUME_KV_TOL = 2e-2
+
+
+def kv_rows(torch, engine, slots):
+    """[(k, v) per layer] of the engine's cache rows `slots` as fp32
+    copies [len(slots), H, total_seq_len + 1, D]: dequantized where the
+    cache is int8, gathered through the page table on a paged engine."""
+    from dalle_pytorch_tpu_torch.models.attention import _kv_dequantize
+    from dalle_pytorch_tpu_torch.ops.flash_decode import paged_gather
+
+    slots = [int(s) for s in slots]
+    length = engine.model.total_seq_len + 1
+    table = None
+    if hasattr(engine, "kv"):
+        table = torch.tensor(engine.kv.table[slots], dtype=torch.int32, device=engine.device)
+    out = []
+    for i in range(engine.model.depth):
+        attn = engine._state["cache"][f"layer_{i}"]["attn"]
+
+        def rows(name):
+            t = attn[name]
+            return paged_gather(t, table, length) if table is not None else t[slots]
+
+        k, v = rows("k"), rows("v")
+        if "k_scale" in attn:
+            k, v = _kv_dequantize(k, rows("k_scale")), _kv_dequantize(v, rows("v_scale"))
+        out.append((k.float().clone(), v.float().clone()))
+    return out
+
+
+def noised_margins(torch, model, specs, tokens):
+    """[R, image_seq_len] top-2 gaps of the noised sampling scores along an
+    uninterrupted run's tokens, from one teacher-forced uncached forward:
+    at each position the engine's keep count, temperature and (seed,
+    position) noise."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.models.dalle import NEG_MASK_VALUE
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise, keep_count, top_k_filter_per_row
+
+    dev = model.text_emb.weight.device
+    text = torch.tensor(np.stack([s.text_ids for s in specs]), device=dev)
+    seeds = [int(s.seed) & 0x7FFFFFFF for s in specs]
+    temps = torch.tensor([float(s.temperature) for s in specs], device=dev).clamp(min=1e-4)[:, None]
+    keep = [keep_count(min(max(float(s.top_k), 0.0), 1.0), model.total_tokens) for s in specs]
+    keep_t = torch.tensor(keep, dtype=torch.int32, device=dev)
+    blocked = (torch.arange(model.total_tokens, device=dev) < model.total_text_tokens)[None]
+    margins = torch.zeros(tokens.shape, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        _, out = model.trunk(text, torch.tensor(tokens, device=dev))
+        for p in range(model.image_seq_len):
+            row = model.to_logits(out[:, model.text_seq_len + p]).float().masked_fill(blocked, NEG_MASK_VALUE)
+            scores = top_k_filter_per_row(row, keep_t, k_max=max(keep)) / temps
+            top2 = torch.topk(scores + gumbel_noise(seeds, p, model.total_tokens, dev), 2, dim=-1).values
+            margins[:, p] = top2[:, 0] - top2[:, 1]
+    return margins.cpu().numpy()
+
+
+def check_stream(events, first_chunk, terminal, shape):
+    """A stream's events: progress chunks strictly rising from above
+    `first_chunk`, previews at PREVIEW_EVERY multiples of `shape` ([rows,
+    H, W, 3]) in [0, 1], and one `terminal` event, the last. Returns (in
+    order, progress chunks, preview chunks)."""
+    kinds = [t for _, t, _ in events]
+    progress = [d["chunk"] for _, t, d in events if t == "progress"]
+    previews = [d for _, t, d in events if t == "preview"]
+    ok = (
+        progress and progress[0] > first_chunk
+        and all(a < b for a, b in zip(progress, progress[1:]))
+        and kinds.count(terminal) == 1 and kinds[-1] == terminal
+        and sum(kinds.count(t) for t in ("result", "error", "migrated")) == 1
+        and all(d["chunk"] % PREVIEW_EVERY == 0 for d in previews)
+        and all(d["pixels"].shape == shape and 0.0 <= float(d["pixels"].min())
+                and float(d["pixels"].max()) <= 1.0 for d in previews)
+    )
+    return ok, progress, [d["chunk"] for d in previews]
+
+
+def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **options):
+    """Phase 10, one layout: a warmed engine with resume and previews
+    behind the ContinuousBatcher serves phase 7's four requests (two
+    first, two once 8 chunks have run; request 0 streamed); once every
+    row passes DRAIN_AT, `migrate_out` exports them, the checkpoints go
+    through encode -> to_wire -> from_wire -> validate (decode), and a
+    fresh engine over the same weights (equal fingerprint) resumes them.
+    Held: tokens against `reference` (the uninterrupted run) under the
+    margin rule, the resumed logits and K/V against the draining
+    engine's, launches counted exactly, the decoded-token counter, the
+    streams, `leak_check()`; one post-resume chunk under sync-debug
+    "error". Returns a summary (the resumed engine under "engine")."""
+    import warnings
+
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.serving.batcher import ContinuousBatcher
+    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine, PagedContinuousEngine
+    from dalle_pytorch_tpu_torch.serving.migrate import MigratedError, encode_checkpoint, from_wire, to_wire
+    from dalle_pytorch_tpu_torch.serving.streaming import RequestStream
+
+    cls = PagedContinuousEngine if paged else ContinuousEngine
+    if paged:
+        options = dict(options, page_size=PAGE)
+    depth = model.depth
+    int8 = options.get("kv_dtype") == "int8"
+    text_len, seq = model.text_seq_len + 1, model.image_seq_len
+    device = model.text_emb.weight.device
+    image = (1, vae.image_size, vae.image_size, 3)
+
+    def engine():
+        eng = cls(model, vae, **CONTINUOUS, tokenizer=ByteTokenizer(), device=device,
+                  resume_enabled=True, preview_enabled=True, **options)
+        eng.warmup()
+        return eng
+
+    # --- the draining engine, up to the drain
+    t0 = time.perf_counter()
+    eng_a = engine()
+    drained = {}
+    release = eng_a.release
+
+    def capturing_release(slots):  # the migration's release: state at the drain
+        if not drained:
+            torch.cuda.synchronize()
+            slots = [int(s) for s in slots]
+            seeds = [int(batcher_a._inflight[s][0].specs[batcher_a._inflight[s][1]].seed) for s in slots]
+            drained.update(
+                seeds=seeds, pos=[int(eng_a._state["host"]["img_pos"][s]) for s in slots],
+                row=eng_a._state["row"][slots].float().clone(), kv=kv_rows(torch, eng_a, slots),
+            )
+        release(slots)
+
+    eng_a.release = capturing_release
+    batcher_a = ContinuousBatcher(eng_a, preview_every=PREVIEW_EVERY)
+    stream_a = RequestStream(key="r0")
+    reqs = [batcher_a.submit([specs[0]], request_key="r0", stream=stream_a),
+            batcher_a.submit([specs[1]], request_key="r1")]
+    while eng_a.stats.chunks < 8 and not any(r.future.done() for r in reqs):
+        time.sleep(0.002)
+    reqs += [batcher_a.submit([sp], request_key=f"r{i}") for i, sp in enumerate(specs[2:], 2)]
+    host = eng_a._state["host"]
+    deadline = time.monotonic() + 600
+    while not (host["active"].sum() == 4 and host["img_pos"][host["active"]].min() >= DRAIN_AT):
+        if time.monotonic() > deadline or any(r.future.done() for r in reqs):
+            fail(f"{label}: the rows never all passed position {DRAIN_AT}")
+        time.sleep(0.002)
+    t_export = time.perf_counter()
+    cps = batcher_a.migrate_out(timeout_s=120)
+    export_s = time.perf_counter() - t_export
+    batcher_a.shutdown()
+    for req in reqs:
+        try:
+            req.future.result(0)
+            fail(f"{label}: a request finished instead of migrating")
+        except MigratedError:
+            pass
+    leaks_a = eng_a.kv.leak_check() if paged else []
+    fingerprint = eng_a.resume_fingerprint()
+    chunks_a = eng_a.stats.chunks
+    del eng_a, batcher_a
+    drain_s = time.perf_counter() - t0
+    if cps is None or len(cps) != 4 or sorted(cp.request_key for cp in cps) != ["r0", "r1", "r2", "r3"]:
+        fail(f"{label}: migrate_out gave {cps}")
+    cps = sorted(cps, key=lambda cp: cp.request_key)
+    ks = [cp.rows[0].pos for cp in cps]
+
+    # --- the wire: encode once, ship, decode and validate on the new engine
+    t_enc = time.perf_counter()
+    wires = [to_wire(encode_checkpoint(cp, fingerprint)) for cp in cps]
+    encode_s = time.perf_counter() - t_enc
+    eng_b = engine()
+    if eng_b.resume_fingerprint() != fingerprint:
+        fail(f"{label}: the resuming engine's fingerprint differs from the draining engine's")
+    counters = {name: (getattr(fd, fn), attr) for name, (fn, attr) in DECODE_COUNTERS.items()}
+    resume_kernel = "flash_decode_int8" if int8 else "flash_decode"
+    step_kernel = ("paged_flash_decode" if paged else "flash_decode") + ("_int8" if int8 else "")
+    resumed = {}
+    resume_slots = eng_b.resume_slots
+
+    def timed_resume(assignments):  # the resume dispatch: its wall, launches and state
+        fn, attr = counters[resume_kernel]
+        before = getattr(fn, attr)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resume_slots(assignments)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        slots = [int(s) for s, _ in assignments]
+        resumed.setdefault("walls", []).append(wall)
+        resumed.setdefault("launches", []).append(getattr(fn, attr) - before)
+        resumed.update(seeds=[int(sp.seed) for _, sp in assignments],
+                       row=eng_b._state["row"][slots].float().clone(), kv=kv_rows(torch, eng_b, slots))
+
+    eng_b.resume_slots = timed_resume
+    batcher_b = ContinuousBatcher(eng_b, preview_every=PREVIEW_EVERY)
+    t_dec = time.perf_counter()
+    valid = [batcher_b.validate_resume(w, [sp]) for w, sp in zip(wires, specs)]
+    decode_s = time.perf_counter() - t_dec
+    if any(cp is None for cp, _ in valid):
+        fail(f"{label}: a checkpoint did not validate on the resuming engine")
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    stream_b = RequestStream(key="r0")
+    t_run = time.perf_counter()
+    reqs = [batcher_b.submit([sp], request_key=f"r{i}", resume=cp, resume_bytes=size,
+                             stream=stream_b if i == 0 else None)
+            for i, (sp, (cp, size)) in enumerate(zip(specs, valid))]
+    outs = [r.future.result(timeout=900) for r in reqs]
+    resume_run_s = time.perf_counter() - t_run
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    batcher_b.shutdown()
+    toks = np.concatenate([o[0] for o in outs])
+    pixels = np.concatenate([o[1] for o in outs])
+
+    # --- tokens under the margin rule
+    margins = noised_margins(torch, model, specs, reference)
+    equal, first_low, first_diff = [], [], []
+    for r, k in enumerate(ks):
+        low = np.flatnonzero(margins[r, k:] < ORACLE_MARGIN)
+        diff = np.flatnonzero(toks[r] != reference[r])
+        first_low.append(int(k + low[0]) if low.size else None)
+        first_diff.append(int(diff[0]) if diff.size else None)
+        equal.append(int((toks[r] == reference[r]).sum()))
+    # --- logits and K/V of the resumed rows against the drain
+    order = [resumed["seeds"].index(sd) for sd in drained["seeds"]]
+    logit_err = (resumed["row"][order] - drained["row"]).abs().amax(dim=-1).tolist()
+    kv_err, kv_max = 0.0, 0.0
+    for (ka, va), (kb, vb) in zip(drained["kv"], resumed["kv"]):
+        for r, (slot_b, k) in enumerate(zip(order, drained["pos"])):
+            for a, b_ in ((ka[r], kb[slot_b]), (va[r], vb[slot_b])):
+                a, b_ = a[:, : text_len + k], b_[:, : text_len + k]
+                kv_err = max(kv_err, ((b_ - a).norm() / a.norm().clamp(min=1e-30)).item())
+                kv_max = max(kv_max, (b_ - a).abs().max().item())
+    decoded = int(batcher_b.registry.get("dalle_serving_decoded_tokens_total").value)
+    restored = int(batcher_b.registry.get("dalle_serving_resumed_tokens_total").value)
+    chunks, dispatches = eng_b.stats.chunks, eng_b.stats.resume_dispatches
+    expected = {step_kernel: depth * CONTINUOUS["chunk_tokens"] * chunks}
+    expected[resume_kernel] = expected.get(resume_kernel, 0) + depth * dispatches
+    others = {k: n for k, n in launches.items() if n and k not in expected}
+    ok_a, prog_a, prev_a = check_stream(stream_a.next_events(0, 0.0)[0], -1, "migrated", image)
+    ok_b, prog_b, prev_b = check_stream(stream_b.next_events(0, 0.0)[0], prog_a[-1] if prog_a else -1,
+                                        "result", image)
+    summary = dict(
+        run=label, drain_at=ks, chunks_before_drain=chunks_a, chunks_after=chunks,
+        drain_s=drain_s, export_s=export_s, encode_s=encode_s, decode_s=decode_s,
+        checkpoint_bytes=[size for _, size in valid], resume_run_s=resume_run_s,
+        resume_dispatch_walls_s=resumed["walls"], resume_dispatches=dispatches,
+        resume_launches=resumed["launches"], launches={k: n for k, n in launches.items() if n},
+        expected_launches=expected, decoded_tokens=decoded, resumed_tokens=restored,
+        logit_max_abs_err=logit_err, logit_tol=RESUME_LOGIT_TOL, kv_rel_err=kv_err,
+        kv_max_abs_err=kv_max, kv_tol=RESUME_KV_TOL, equal_tokens=equal, first_sub_margin=first_low,
+        first_divergence=first_diff, stream_a=dict(progress=prog_a[:3] + prog_a[-2:], previews=prev_a),
+        stream_b=dict(progress=prog_b[:3] + prog_b[-2:], previews=prev_b),
+    )
+    print("migrated " + json.dumps(summary))
+    if toks.shape != (4, seq) or pixels.shape != (4,) + image[1:] or not np.isfinite(pixels).all():
+        fail(f"{label}: tokens {toks.shape} or pixels {pixels.shape} wrong")
+    for r in range(4):
+        if first_diff[r] is not None and (first_low[r] is None or first_diff[r] < first_low[r]):
+            fail(f"{label}: row {r} diverged from the uninterrupted run at {first_diff[r]}, before "
+                 f"its first sub-margin position {first_low[r]}")
+        if first_diff[r] is not None and first_diff[r] < ks[r]:
+            fail(f"{label}: row {r} lost its restored prefix")
+    if max(logit_err) > RESUME_LOGIT_TOL or kv_err > RESUME_KV_TOL:
+        fail(f"{label}: resumed logits {logit_err} or K/V {kv_err} over tolerance")
+    if resumed["launches"] != [depth] * dispatches or dispatches != 1:
+        fail(f"{label}: resume dispatches {dispatches} launched {resumed['launches']}")
+    if any(launches[k] != n for k, n in expected.items()) or others:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    if decoded != sum(seq - k for k in ks) or restored != sum(ks):
+        fail(f"{label}: decoded {decoded}, restored {restored} for resume positions {ks}")
+    if not (ok_a and ok_b):
+        fail(f"{label}: stream events out of order: {prog_a} {prev_a} / {prog_b} {prev_b}")
+    if not np.array_equal(stream_b.next_events(0, 0.0)[0][-1][2]["tokens"], toks[:1]):
+        fail(f"{label}: the stream's result tokens differ from the request's")
+    if paged and (leaks_a or eng_b.kv.leak_check()):
+        fail(f"{label}: leak_check {leaks_a} / {eng_b.kv.leak_check()}")
+
+    # one resume, then a chunk under sync-debug "error": no host sync
+    spec0 = reqs[0].specs[0]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            resume_slots([(0, spec0)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    resume_syncs = [str(w.message).splitlines()[0][:160] for w in caught if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng_b.dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pos, act = eng_b.chunk_snapshot()
+    eng_b.release([0])
+    print(f"check migrated {label}: a chunk after a resume under sync-debug mode 'error': no host "
+          f"sync (slot 0 from {spec0.resume_pos} to {pos[0]}); the resume dispatch itself warned of "
+          f"{len(resume_syncs)} synchronizing calls {resume_syncs}")
+    if pos[0] != spec0.resume_pos + CONTINUOUS["chunk_tokens"] or not act[0]:
+        fail(f"{label}: the sync-debug chunk left slot 0 at {pos[0]}")
+    if paged and eng_b.kv.leak_check():
+        fail(f"{label}: leak_check after the sync-debug chunk {eng_b.kv.leak_check()}")
+    # the resume dispatch's device time, after the last timed phase
+    wave = [(s, r.specs[0]) for s, r in enumerate(reqs)]
+    summary["resume_dispatch_ms"] = 1e3 * float(np.median(resumed["walls"]))
+
+    def one_resume():
+        resume_slots(wave)
+        eng_b.release(range(4))
+
+    one_resume.__name__ = f"resume_slots ({label})"
+    defer_device_time(summary, one_resume, [()], 3, prefix="resume_dispatch_")
+    summary.update(engine=eng_b, launches_total=launches)
+    return summary
+
+
+def run_migration(torch, model, vae, specs, causal_tokens, int8_tokens):
+    """Phase 10: the slotted and the paged (kernel impl) engines at
+    flagship width, then int8 KV on phase 7's depth-4 model. Returns the
+    three summaries."""
+    slotted = serve_migrated(torch, model, vae, specs, causal_tokens, "slotted causal")
+    paged = serve_migrated(torch, model, vae, specs, causal_tokens, "paged kernel causal", paged=True,
+                           paged_decode_impl="kernel")
+    short = first_layers(torch, model, SHORT_DEPTH)
+    int8 = serve_migrated(torch, short, vae, specs, int8_tokens, f"slotted int8 depth {SHORT_DEPTH}",
+                          kv_dtype="int8")
+    return slotted, paged, int8
+
+
+def resume_fields(row, err, runs):
+    """The resume-shape entries of a kernel's line: phase 3's times at n =
+    1280 and phase 10's launches per resume dispatch and resume walls."""
+    out = {f"resume_{k}": v for k, v in row.items() if k != "device_kernels" and not k.endswith("_device_kernels")}
+    out["resume_max_abs_err"] = err
+    out["resume_launches"] = {r["run"]: r["resume_launches"] for r in runs}
+    out["resume_dispatch_ms"] = {r["run"]: r["resume_dispatch_ms"] for r in runs}
+    out["resume_dispatch_device_ms"] = {r["run"]: r.get("resume_dispatch_device_ms") for r in runs}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1990,6 +2474,9 @@ def main() -> int:
     t0 = time.perf_counter()
     attn_errs = check_attention(torch)
     print(f"phase 2 flash_attention checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resume_errs = check_resume_prefill(torch)
+    print(f"phase 2 resume-shape checks: {time.perf_counter() - t0:.1f} s")
 
     # 3. times ---------------------------------------------------------------
     def library(q, k, v, lens):
@@ -2025,6 +2512,7 @@ def main() -> int:
     est = LAYERS * (timings[("prefill", "bf16")]["ms"] + 1024 * step["ms"])
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
     variant_times = time_decode_variants(torch, F, peaks, smi, cases)
+    resume_times = time_resume_prefill(torch, F, peaks, smi)
     paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     time_attention(torch, F, peaks, torch.float32, "fp32", 4)
@@ -2087,20 +2575,26 @@ def main() -> int:
 
     # 7. continuous-serving path ---------------------------------------------------
     t0 = time.perf_counter()
-    continuous_launches, causal_toks, patterned, patterned_toks = run_continuous(
-        torch, model5, vae, specs, toks)
+    continuous_launches, causal_toks, patterned, patterned_toks, (short_toks, int8_toks) = (
+        run_continuous(torch, model5, vae, specs, toks))
     launches.update(continuous_launches)
     print(f"phase 7 continuous serving: {time.perf_counter() - t0:.1f} s")
 
     # 8. paged continuous serving with a prefix cache ---------------------------------
     t0 = time.perf_counter()
-    launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks))
+    launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks,
+                              short_toks))
     print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
 
     # 9. the generation CLI end to end ----------------------------------------------
     t0 = time.perf_counter()
     cli_launches, _ = run_generation_cli(torch, vae)
     print(f"phase 9 generation CLI: {time.perf_counter() - t0:.1f} s")
+
+    # 10. mid-decode resume and migration -------------------------------------------
+    t0 = time.perf_counter()
+    migrated = run_migration(torch, model5, vae, specs, causal_toks, int8_toks)
+    print(f"phase 10 resume and migration: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # device time per call of phase 3's kernel rows, and the kernel the
@@ -2109,10 +2603,12 @@ def main() -> int:
     # each launch after it
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
-    for row, fn, inputs, iters in DEVICE_ROWS:
-        row["device_ms"], row["device_kernels"] = device_ms(torch, fn, inputs, iters)
-        print(f"device time {fn.__name__}: {row['device_ms']:.5f} ms a call (event time "
-              f"{row['ms']:.5f}), kernels a call {json.dumps(row['device_kernels'])}")
+    for row, fn, inputs, iters, prefix in DEVICE_ROWS:
+        ms, kernels_called = device_ms(torch, fn, inputs, iters)
+        row[prefix + "device_ms"], row[prefix + "device_kernels"] = ms, kernels_called
+        label = fn.__name__ + (f" ({prefix.rstrip('_')})" if prefix else "")
+        print(f"device time {label}: {ms:.5f} ms a call (event time {row[prefix + 'ms']:.5f}), "
+              f"kernels a call {json.dumps(kernels_called)}")
     DEVICE_ROWS.clear()
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2144,11 +2640,15 @@ def main() -> int:
                 prefill_ms=timings[("prefill", "bf16")]["ms"],
                 prefill_device_ms=timings[("prefill", "bf16")]["device_ms"],
                 cli_launches=cli_launches["cli_flash_decode"],
+                **resume_fields(resume_times["flash_decode"], resume_errs["flash_decode"],
+                                migrated[:2]),
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]; "
-                "cli_launches: phase 9's generation CLI (2 prompts x one batch of 4)",
+                "cli_launches: phase 9's generation CLI (2 prompts x one batch of 4); resume_*: "
+                "bf16 n=1280 S=1281 B=4 lengths 1280, library SDPA causal, launches per resume "
+                "dispatch of phase 10 (slotted, paged)",
             )
         ] + [
             dict(
@@ -2179,9 +2679,12 @@ def main() -> int:
                 launches=launches["flash_decode_int8"],
                 max_abs_err=variant_errs["flash_decode_int8"],
                 **variant_times["flash_decode_int8"],
+                **resume_fields(resume_times["flash_decode_int8"], resume_errs["flash_decode_int8"],
+                                migrated[2:]),
                 timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
                 "[258, 700, 1024, 1281]; launches: phase 7 int8 run (depth 4); library_ms is "
-                "SDPA over the bf16 cache",
+                "SDPA over the bf16 cache; resume_*: n=1280 S=1281 B=4, launches per resume "
+                "dispatch of phase 10's int8 run (depth 4)",
             ),
             dict(
                 name="block_sparse_flash_decode",

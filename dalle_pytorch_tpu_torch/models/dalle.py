@@ -14,7 +14,8 @@ the continuous engine's slot ops (`init_slot_state`,
 `prefill_into_slots`, `release_slots`, `decode_image_chunk`) and their
 paged counterparts (`init_paged_slot_state`, `prefill_into_slots_paged`,
 `slice_prefix_sidecar`, `admit_cached_prefix`,
-`decode_image_chunk_paged`). Random
+`decode_image_chunk_paged`), and the mid-decode resume (`decode_resume`,
+`resume_into_slots`, `resume_into_slots_paged`). Random
 draws (null conditioning) come from an explicit `torch.Generator`, so
 they are not jax.random's bits; dropout uses torch's global generator.
 
@@ -160,6 +161,16 @@ class DALLE(nn.Module):
             self.logits_bias = nn.Parameter(torch.zeros(self.total_tokens))
         else:
             self.logits_dense = nn.Linear(dim, self.total_tokens)
+
+    def extra_repr(self) -> str:
+        """The decode-relevant settings the submodules' repr does not show
+        (a serving engine's resume fingerprint hashes the repr)."""
+        return (
+            f"attn_types={self.attn_types}, attn_impl={self.attn_impl!r}, "
+            f"stable={self.stable}, shift_tokens={self.shift_tokens}, "
+            f"rotary_emb={self.rotary_emb}, kv_dtype={self.kv_dtype!r}, "
+            f"decode_sparse_block={self.decode_sparse_block}, dtype={self.dtype}"
+        )
 
     @property
     def total_text_tokens(self) -> int:
@@ -379,6 +390,55 @@ class DALLE(nn.Module):
                 emb = emb + table[p][None, None]
         out = self.transformer(emb, cache)
         return self.to_logits(out)[:, 0].float(), cache
+
+    def decode_resume(self, text: torch.Tensor, image_tokens: torch.Tensor, image_pos, cache: dict):
+        """Teacher-forced re-prefill of prompt + generated image prefix in
+        one cached forward: a row resuming at image position k pays one
+        parallel prefill instead of k decode steps.
+
+        `image_tokens` [B, image_seq_len] holds each row's generated tokens
+        (zeros past its prefix), `image_pos` [B] the resume positions k
+        (a tensor or a sequence of ints). The forward runs the incremental
+        path's per-position math (embeddings as `decode_image_step`, the
+        batch token shift, causal cached attention from position 0) over
+        text_len + image_seq_len - 1 positions, from a fresh cache: the
+        last image token's K/V is never read. K/V past a row's k comes
+        from the zero padding; decode never reads past the index it stamps
+        and overwrites those positions as it advances. Shift rings are
+        rebuilt per row below text_len + k (`shift_ring_from_prefill_at`,
+        through each layer's "ring_end" entry, taken out again). Returns
+        (pending logits for each row's position k [B, V] float32, cache);
+        at k = 0 this is `decode_prefill`."""
+        _, tokens = self.embed_text(text)
+        text_len = tokens.shape[1]  # text_seq_len + 1 (<bos>)
+        img = self.image_emb(image_tokens[:, : self.image_seq_len - 1].long())
+        if not self.rotary_emb:
+            img = img + self.image_pos_emb()[None, : self.image_seq_len - 1]
+        seq = torch.cat([tokens, img.to(tokens.dtype)], dim=1)
+        image_pos = torch.as_tensor(image_pos, dtype=torch.long).to(seq.device)
+        _with_ring_end(cache, text_len + image_pos)
+        try:
+            out = self.transformer(seq, cache)
+        finally:
+            _without_ring_end(cache)
+        # the pending logits of position k are the output of feeding token
+        # k - 1, at sequence position text_len - 1 + k
+        rows = torch.arange(seq.shape[0], device=seq.device)
+        sel = out[rows, text_len - 1 + image_pos][:, None]
+        return self.to_logits(sel)[:, 0].float(), cache
+
+
+def _with_ring_end(cache: dict, ring_end: torch.Tensor) -> None:
+    """Put the per-row resume window `ring_end` [B] into every layer of a
+    decode cache, in place: `Transformer._shift` then rebuilds each row's
+    rings below its own end (`decode_resume`)."""
+    for layer in cache.values():
+        layer["ring_end"] = ring_end
+
+
+def _without_ring_end(cache: dict) -> None:
+    for layer in cache.values():
+        layer.pop("ring_end", None)
 
 
 def init_decode_cache(model: DALLE, batch: int, per_row: bool = False) -> dict:
@@ -735,25 +795,78 @@ def _extract_rings(cache: dict) -> dict:
     return out
 
 
-def _admit_slot_rows(state, idx, slots, rows, rings, seeds, temperatures, keep_ks) -> None:
+def _admit_slot_rows(
+    state, idx, slots, rows, rings, seeds, temperatures, keep_ks, img_tokens=None, img_pos=None
+) -> None:
     """Everything of an admission but K/V: per slot (idx the [R] slot
     tensor) the shift rings, pending logits and sampling state from row r
-    of `rows` [R, V] and `rings`, and the host mirrors."""
+    of `rows` [R, V] and `rings`, and the host mirrors. A resume also
+    gives each row's token buffer `img_tokens` [R, image_seq_len] and
+    position `img_pos` [R] (host arrays); a prefill starts at 0."""
     device = state["row"].device
     for name, layer_rings in rings.items():
         for key, src in layer_rings.items():
             state["cache"][name][key].index_copy_(0, idx, src.to(state["cache"][name][key].dtype))
     state["row"].index_copy_(0, idx, rows.float())
-    state["img_tokens"].index_fill_(0, idx, 0)
-    state["img_pos"].index_fill_(0, idx, 0)
+    if img_pos is None:
+        state["img_tokens"].index_fill_(0, idx, 0)
+        state["img_pos"].index_fill_(0, idx, 0)
+        img_pos = 0
+    else:
+        img_tokens = np.asarray(img_tokens, np.int32)
+        img_pos = np.asarray(img_pos, np.int64)
+        state["img_tokens"].index_copy_(0, idx, _to_device(img_tokens, device))
+        state["img_pos"].index_copy_(0, idx, _to_device(img_pos.astype(np.int32), device))
     state["active"].index_fill_(0, idx, True)
     state["temps"].index_copy_(0, idx, _to_device(np.asarray(temperatures, np.float32), device))
     state["keep_k"].index_copy_(0, idx, _to_device(np.asarray(keep_ks, np.int32), device))
     host = state["host"]
-    host["img_pos"][list(slots)] = 0
+    # padding rows repeat a real (slot, row) pair, so duplicates agree
+    host["img_pos"][list(slots)] = img_pos
     host["active"][list(slots)] = True
     host["seeds"][list(slots)] = seeds
     host["keep_k"][list(slots)] = keep_ks
+
+
+@torch.inference_mode()
+def resume_into_slots(
+    model: DALLE,
+    state: dict,
+    texts: np.ndarray,
+    img_tokens: np.ndarray,
+    img_pos: np.ndarray,
+    slots: Sequence[int],
+    seeds: Sequence[int],
+    temperatures: Sequence[float],
+    keep_ks: Sequence[int],
+) -> dict:
+    """Admit R mid-decode rows into their slots in one dispatch: like
+    `prefill_into_slots`, but each row arrives with its generated prefix,
+    `img_tokens` [R, image_seq_len] (zeros past the prefix) and resume
+    positions `img_pos` [R]. `DALLE.decode_resume` re-prefills prompt +
+    prefix in one teacher-forced forward, so K/V, shift rings, pending
+    logits and position land where the incremental decode would have
+    left them and the next chunk continues from each row's k. Padding and
+    copy semantics are `prefill_into_slots`' (`index` leaves not copied).
+    Returns `state`."""
+    device = state["row"].device
+    cache = init_decode_cache(model, len(texts))
+    rows, cache = model.decode_resume(
+        _to_device(np.asarray(texts), device),
+        _to_device(np.asarray(img_tokens, np.int32), device),
+        _to_device(np.asarray(img_pos, np.int64), device),
+        cache,
+    )
+    idx = _to_device(np.asarray(slots, np.int64), device)
+    for name, layer in state["cache"].items():
+        for key, leaf in layer["attn"].items():
+            if key != "index":
+                leaf.index_copy_(0, idx, cache[name]["attn"][key])
+    _admit_slot_rows(
+        state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks,
+        img_tokens=img_tokens, img_pos=img_pos,
+    )
+    return state
 
 
 @torch.inference_mode()
@@ -928,6 +1041,54 @@ def prefill_into_slots_paged(
     rings = _extract_rings(cache)
     _admit_slot_rows(state, idx, slots, rows, rings, seeds, temperatures, keep_ks)
     return {"row": rows.float(), "rings": rings}
+
+
+@torch.inference_mode()
+def resume_into_slots_paged(
+    model: DALLE,
+    state: dict,
+    texts: np.ndarray,
+    img_tokens: np.ndarray,
+    img_pos: np.ndarray,
+    slots: Sequence[int],
+    seeds: Sequence[int],
+    temperatures: Sequence[float],
+    keep_ks: Sequence[int],
+    page_rows: np.ndarray,
+    page_size: int,
+) -> dict:
+    """`resume_into_slots`' teacher-forced re-prefill on a paged state,
+    its K/V (+ scales) scattered into pages. `page_rows` [R,
+    pages_per_row] names row r's page for each block: real pages up to the
+    block covering its resume position, the garbage page (0) beyond, where
+    the writes of the blocks past the prefix land as released rows' stale
+    writes do (`ensure` maps real pages ahead of decode as usual). Resume
+    rows share no prefix-cache page: the dispatch rewrites every page it
+    maps (`PagedKVManager.admit_resume` gives fresh ones). Returns
+    `state`."""
+    device = state["row"].device
+    page_rows = np.asarray(page_rows, np.int64)
+    n_blocks = page_rows.shape[1]
+    cache = init_decode_cache(model, len(texts))
+    rows, cache = model.decode_resume(
+        _to_device(np.asarray(texts), device),
+        _to_device(np.asarray(img_tokens, np.int32), device),
+        _to_device(np.asarray(img_pos, np.int64), device),
+        cache,
+    )
+    pages = _to_device(page_rows.reshape(-1), device)
+    for name, layer in state["cache"].items():
+        for key, pool in layer["attn"].items():
+            if key == "index":
+                continue
+            blocks = _text_blocks(cache[name]["attn"][key], n_blocks, page_size)
+            pool.index_copy_(0, pages, blocks.reshape(-1, *pool.shape[1:]).to(pool.dtype))
+    idx = _to_device(np.asarray(slots, np.int64), device)
+    _admit_slot_rows(
+        state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks,
+        img_tokens=img_tokens, img_pos=img_pos,
+    )
+    return state
 
 
 def slice_prefix_sidecar(sidecar: dict, r: int) -> dict:

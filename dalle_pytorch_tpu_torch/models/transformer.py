@@ -48,6 +48,7 @@ from dalle_pytorch_tpu_torch.ops.masks import (
 from dalle_pytorch_tpu_torch.ops.rotary import build_dalle_rotary
 from dalle_pytorch_tpu_torch.ops.shift import (
     shift_ring_from_prefill,
+    shift_ring_from_prefill_at,
     shift_token_step,
     shift_tokens_dalle,
 )
@@ -162,8 +163,8 @@ class Transformer(nn.Module):
         if reversible and reversible_impl != "remat":
             raise NotImplementedError(
                 f"reversible_impl={reversible_impl!r} (the two-stream RevNet "
-                "executor) is not ported; it is ROADMAP Queue 1 item 5 "
-                "'revnet'. reversible_impl='remat' is"
+                "executor) is not ported yet (models/transformer.py's "
+                "_revnet in the JAX package); reversible_impl='remat' is"
             )
         self.depth = depth
         self.reversible = reversible
@@ -222,12 +223,18 @@ class Transformer(nn.Module):
 
     def _shift(self, h: torch.Tensor, lc: Optional[dict], ring_key: str, pos) -> torch.Tensor:
         """Token shift. Uncached: the whole sequence. Cached prefill (n > 1,
-        from position 0): batch shift and a fresh ring in lc[ring_key]; one
-        token: streaming shift against that ring at `pos`."""
+        from position 0): batch shift and a fresh ring in lc[ring_key],
+        built at each row's own end when the cache carries a [B]
+        "ring_end" (the decode resume); one token: streaming shift against
+        that ring at `pos`."""
         if lc is None:
             return shift_tokens_dalle(h, self.text_len, self.image_fmap_size)
         if h.shape[1] > 1:
-            lc[ring_key] = shift_ring_from_prefill(h, self.image_fmap_size)
+            ring_end = lc.get("ring_end")
+            if ring_end is None:
+                lc[ring_key] = shift_ring_from_prefill(h, self.image_fmap_size)
+            else:
+                lc[ring_key] = shift_ring_from_prefill_at(h, self.image_fmap_size, ring_end)
             return shift_tokens_dalle(h, self.text_len, self.image_fmap_size)
         h, lc[ring_key] = shift_token_step(
             h, lc[ring_key], pos, self.text_len, self.image_fmap_size

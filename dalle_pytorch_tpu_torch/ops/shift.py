@@ -13,7 +13,8 @@ holds h[p-1]. The decode position is a Python int (the micro-batch
 decode runs every row in lockstep; branches on it are host-side) or a [B]
 tensor (the continuous engine's slots, each row reading and writing its
 own ring slots; branches become selects). `shift_token_step` updates the
-ring in place.
+ring in place. `shift_ring_from_prefill_at` rebuilds each row's ring at
+its own resume position from one forward over a padded prefix.
 """
 
 from __future__ import annotations
@@ -58,6 +59,21 @@ def shift_ring_from_prefill(h: torch.Tensor, fmap: int) -> torch.Tensor:
     slots = torch.arange(start, n, device=h.device) % fmap
     ring[:, slots] = h[:, start:]
     return ring
+
+
+def shift_ring_from_prefill_at(h: torch.Tensor, fmap: int, end: torch.Tensor) -> torch.Tensor:
+    """Ring as if only positions 0..end[b]-1 of h [B, n, D] had been
+    prefilled, each row at its own `end` ([B] tensor): slot j holds h at
+    the largest position p < end[b] with p = j (mod fmap), zeros where
+    that p is negative. The decode resume runs one forward over the whole
+    padded prefix and rebuilds each row's ring at its resume position;
+    with end == n this equals `shift_ring_from_prefill`."""
+    n = h.shape[1]
+    slots = torch.arange(fmap, device=h.device)[None, :]
+    last = end.to(device=h.device, dtype=torch.long)[:, None] - 1
+    p = last - torch.remainder(last - slots, fmap)  # [B, fmap], p = slot (mod fmap)
+    vals = torch.gather(h, 1, p.clamp(0, n - 1)[..., None].expand(-1, -1, h.shape[-1]))
+    return torch.where((p >= 0)[..., None], vals, torch.zeros_like(vals))
 
 
 def shift_token_step(

@@ -23,8 +23,13 @@ and retires finished rows at chunk boundaries. Options: an int8 KV cache
 (`kv_dtype="int8"`) and policy decode sparsity (`decode_sparsity=
 "policy"`, `serving/sparsity.py`). The paged engine keeps K/V in a page
 pool with host page tables and a prefix cache (`serving/paging.py`).
-Not ported yet: resume and migration, previews, vitals, cost capture,
-fault injection, the compile cache, and the sharded engines.
+With `resume_enabled`, both continuous engines admit mid-decode rows at
+their own position (`resume_slots`, one teacher-forced re-prefill:
+decode-state migration, `serving/migrate.py`), and `resume_fingerprint`
+names the build a checkpoint must come from; with `preview_enabled`,
+`preview_pixels` decodes partial rows for streamed previews
+(`serving/streaming.py`). Not ported yet: vitals, cost capture, fault
+injection, the compile cache, and the sharded engines.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ from dalle_pytorch_tpu_torch.models.dalle import (
     prefill_into_slots,
     prefill_into_slots_paged,
     release_slots,
+    resume_into_slots,
+    resume_into_slots_paged,
     slice_prefix_sidecar,
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
@@ -65,6 +72,7 @@ from dalle_pytorch_tpu_torch.training.pipeline import (
     load_clip_checkpoint,
     load_dalle_checkpoint,
 )
+from dalle_pytorch_tpu_torch.utils.artifact import boot_fingerprint, device_kind
 from dalle_pytorch_tpu_torch.weights import load_dalle_params, load_dvae_params
 
 
@@ -85,12 +93,21 @@ def resolve_device(device) -> torch.device:
 @dataclass
 class SampleSpec:
     """One batch row: a tokenized prompt plus its sampling parameters.
-    `top_k` is the FRACTION of the vocabulary to drop (0.9 keeps 10%)."""
+    `top_k` is the FRACTION of the vocabulary to drop (0.9 keeps 10%).
+
+    `resume_tokens` / `resume_pos` carry a mid-decode prefix (decode-state
+    migration): with `resume_pos` > 0 on an engine with `resume_enabled`,
+    admission re-prefills the prefix in one teacher-forced dispatch and
+    decode continues from `resume_pos`. Other engines ignore them and
+    decode from 0, which gives the same tokens ((seed, position)-keyed
+    noise) at the cost of the re-decode."""
 
     text_ids: np.ndarray  # [text_seq_len] int32
     seed: int = 0
     temperature: float = 1.0
     top_k: float = 0.9
+    resume_tokens: Optional[np.ndarray] = None  # [resume_pos] int32
+    resume_pos: int = 0
 
 
 @dataclass
@@ -135,6 +152,39 @@ class GenerationEngine:
         self.cfg = cfg
         self._lock = threading.Lock()  # one generation on the device at a time
         self.stats = EngineStats()
+
+    def program_ladder(self) -> Tuple[str, ...]:
+        """Names of the dispatch shapes `warmup()` runs: the fixed-shape
+        surface the resume fingerprint hashes."""
+        return tuple(f"generate:{b}" for b in self.batch_shapes)
+
+    def resume_fingerprint(self) -> str:
+        """The build identity a decode-state checkpoint must match to
+        resume here (`serving/migrate.py`): `boot_fingerprint` over torch's
+        version, the device kind, the checkpoint config, the program
+        ladder and the model's repr (an engine built from a module has no
+        config, and two different models must not cross-resume).
+        Computed once: a checkpoint from any other build becomes a
+        counted clean restart, never a corrupt resume."""
+        if getattr(self, "_resume_fingerprint", None) is None:
+            self._resume_fingerprint = boot_fingerprint(
+                device=device_kind(self.device),
+                model_config=self.cfg,
+                programs=self.program_ladder(),
+                extra={"model": repr(self.model)},
+            )
+        return self._resume_fingerprint
+
+    def state_dump(self) -> dict:
+        """Host-side engine state for stall reports: lock-free reads of
+        host counters (a stalled engine holds its lock)."""
+        return {
+            "engine": type(self).__name__,
+            "batch_shapes": list(self.batch_shapes),
+            "batches": self.stats.batches,
+            "rows_generated": self.stats.rows_generated,
+            "warmup_batches": self.stats.warmup_batches,
+        }
 
     def pick_shape(self, n: int) -> int:
         """Smallest rung that fits n rows."""
@@ -284,8 +334,9 @@ class SlotAllocator:
 @dataclass
 class ContinuousStats(EngineStats):
     chunks: int = 0
-    prefills: int = 0  # rows admitted
-    prefill_dispatches: int = 0  # waves
+    prefills: int = 0  # rows admitted (resumed rows included)
+    prefill_dispatches: int = 0  # waves (resume waves included)
+    resume_dispatches: int = 0  # resume waves
     kv_tiles_read: int = 0  # block-sparse kernel tiles, summed over live rows and layers
     kv_tiles_skipped: int = 0  # tiles the policy skipped that the length skip would read
 
@@ -307,6 +358,13 @@ class ContinuousEngine(GenerationEngine):
     shallow copy of `model` (sharing its weights) with the attribute set,
     as the reference clones the module. Classifier-free guidance is not
     supported (cond_scale must be 1), as in the reference.
+
+    `resume_enabled` adds `resume_slots` (mid-decode admission, one
+    teacher-forced re-prefill of prompt + generated prefix; the resume
+    forward carries no policy bitmap, as in the reference) and
+    `preview_enabled` the streamed previews' fill + decode
+    (`preview_pixels`); each joins the warmup and the program ladder the
+    resume fingerprint hashes only when enabled.
     """
 
     def __init__(
@@ -321,6 +379,8 @@ class ContinuousEngine(GenerationEngine):
         kv_dtype: Optional[str] = None,
         decode_sparsity: str = "causal",
         device="cuda",
+        resume_enabled: bool = False,
+        preview_enabled: bool = False,
     ):
         if float(cond_scale) != 1.0:
             raise ValueError(
@@ -346,6 +406,9 @@ class ContinuousEngine(GenerationEngine):
             model, vae, batch_shapes=(int(max_batch),), tokenizer=tokenizer, device=device
         )
         self.stats = ContinuousStats()
+        self.resume_enabled = bool(resume_enabled)
+        self.preview_enabled = bool(preview_enabled)
+        self._preview_fill: Optional[int] = None
         self.decode_sparsity = decode_sparsity
         self.chunk_tokens = int(chunk_tokens)
         self.prefill_batch = max(1, min(int(prefill_batch), self.max_batch))
@@ -386,17 +449,7 @@ class ContinuousEngine(GenerationEngine):
         """Admit up to `prefill_batch` (slot, spec) pairs in one prefill;
         short waves are padded by repeating the first pair."""
         n = len(assignments)
-        if not 1 <= n <= self.prefill_batch:
-            raise ValueError(
-                f"{n} assignments outside [1, prefill_batch={self.prefill_batch}]; "
-                "the batcher splits admission waves"
-            )
-        rows = list(assignments) + [assignments[0]] * (self.prefill_batch - n)
-        texts, slots, seeds, temps, keep = _pack_prefill_rows(rows, self._keep_k)
-        if texts.shape != (self.prefill_batch, self.model.text_seq_len):
-            raise ValueError(
-                f"prompt rows must be [{self.model.text_seq_len}] token ids, got batch {texts.shape}"
-            )
+        _, (texts, slots, seeds, temps, keep) = self._padded_wave(assignments)
         bitmap = None if self._sparsity is None else self._sparsity.prefill_bitmaps(self.prefill_batch)
         with self._lock:
             self._run(lambda st: prefill_into_slots(
@@ -409,6 +462,78 @@ class ContinuousEngine(GenerationEngine):
     def prefill_slot(self, slot: int, spec: SampleSpec, _warmup: bool = False) -> None:
         """Admit one prompt: a one-row `prefill_slots` wave."""
         self.prefill_slots([(slot, spec)], _warmup=_warmup)
+
+    # ------------------------------------------------- mid-decode resume
+
+    @property
+    def supports_resume(self) -> bool:
+        """True when `resume_slots` may be called (the batcher's gate:
+        otherwise rows carrying a resume prefix decode from 0)."""
+        return self.resume_enabled
+
+    def _pack_resume_rows(self, rows):
+        """(token buffer [R, image_seq_len] with each row's prefix, zeros
+        beyond; positions [R]) of one padded wave. A position is clipped
+        to [0, image_seq_len - 1] and to the tokens given."""
+        img_tokens = np.zeros((len(rows), self.image_seq_len), np.int32)
+        img_pos = np.zeros(len(rows), np.int64)
+        for r, (_, spec) in enumerate(rows):
+            toks = spec.resume_tokens
+            if toks is None:
+                continue
+            toks = np.asarray(toks, np.int32)
+            k = min(max(0, int(spec.resume_pos or 0)), self.image_seq_len - 1, len(toks))
+            img_tokens[r, :k] = toks[:k]
+            img_pos[r] = k
+        return img_tokens, img_pos
+
+    def _check_wave(self, assignments) -> None:
+        if not 1 <= len(assignments) <= self.prefill_batch:
+            raise ValueError(
+                f"{len(assignments)} assignments outside [1, prefill_batch="
+                f"{self.prefill_batch}]; the batcher splits admission waves"
+            )
+
+    def _padded_wave(self, assignments):
+        """(rows, packed rows) of one dispatch wave of (slot, spec) pairs,
+        padded to `prefill_batch` by repeating the first pair."""
+        self._check_wave(assignments)
+        rows = list(assignments) + [assignments[0]] * (self.prefill_batch - len(assignments))
+        packed = _pack_prefill_rows(rows, self._keep_k)
+        if packed[0].shape != (self.prefill_batch, self.model.text_seq_len):
+            raise ValueError(
+                f"prompt rows must be [{self.model.text_seq_len}] token ids, got batch {packed[0].shape}"
+            )
+        return rows, packed
+
+    def _resume_rows(self, assignments):
+        """The padded wave of a resume: (texts, slots, seeds, temperatures,
+        keep counts, token buffer, positions)."""
+        if not self.supports_resume:
+            raise RuntimeError(
+                "resume_slots on an engine built without resume_enabled: the "
+                "resume dispatch is not in its warmup or its fingerprint"
+            )
+        rows, packed = self._padded_wave(assignments)
+        return packed + self._pack_resume_rows(rows)
+
+    def _count_resume(self, n: int, _warmup: bool) -> None:
+        if not _warmup:
+            self.stats.prefills += n
+            self.stats.prefill_dispatches += 1
+            self.stats.resume_dispatches += 1
+
+    def resume_slots(self, assignments: Sequence[Tuple[int, SampleSpec]], _warmup: bool = False) -> None:
+        """Admit up to `prefill_batch` mid-decode rows (specs carrying
+        `resume_tokens` / `resume_pos`) in one teacher-forced re-prefill
+        (`models/dalle.py:resume_into_slots`): decode continues from each
+        row's own position. Short waves are padded as `prefill_slots`'."""
+        texts, slots, seeds, temps, keep, img_tokens, img_pos = self._resume_rows(assignments)
+        with self._lock:
+            self._run(lambda st: resume_into_slots(
+                self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
+            ))
+            self._count_resume(len(assignments), _warmup)
 
     def _pre_chunk(self) -> None:
         """Host work before a chunk's dispatch (caller holds the lock)."""
@@ -433,6 +558,11 @@ class ContinuousEngine(GenerationEngine):
             if not _warmup:
                 self.stats.chunks += 1
                 self.stats.batches += 1
+
+    @property
+    def chunk_index(self) -> int:
+        """Chunks dispatched outside warmup (a checkpoint records it)."""
+        return self.stats.chunks
 
     def chunk_snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
         """The chunk-boundary (img_pos, active) host copy: the one designed
@@ -483,17 +613,97 @@ class ContinuousEngine(GenerationEngine):
                 outs.append(pixels.clamp(0.0, 1.0).cpu().numpy())
         return np.concatenate(outs)[:n]
 
+    # ----------------------------------------------------------- previews
+
+    def preview_fill_token(self) -> int:
+        """The codebook index that fills undecoded grid positions of a
+        preview: the entry nearest the mean codebook vector (a neutral
+        canvas), computed once on the host; 0 without a VAE."""
+        if self._preview_fill is None:
+            tok = 0
+            if self.vae is not None:
+                emb = self.vae.codebook.weight.detach().float().cpu().numpy()
+                tok = int(np.argmin(np.linalg.norm(emb - emb.mean(axis=0), axis=-1)))
+            self._preview_fill = tok
+        return self._preview_fill
+
+    def preview_pixels(self, tokens: np.ndarray, positions: np.ndarray) -> Optional[np.ndarray]:
+        """Progressive-preview pixels [n, H, W, 3] in [0, 1] of partial
+        token rows (`snapshot_rows`) at per-row decode positions: grid
+        positions from a row's position on take `preview_fill_token`, and
+        the grid decodes in batches of max_batch (padded), as
+        `decode_pixels`; None without a VAE."""
+        if self.vae is None:
+            return None
+        tokens = np.asarray(tokens, np.int32)
+        positions = np.asarray(positions, np.int64)
+        n = len(tokens)
+        pad = (-n) % self.max_batch
+        toks = np.concatenate([tokens, np.zeros((pad, tokens.shape[1]), np.int32)])
+        pos = np.concatenate([positions, np.zeros(pad, np.int64)])
+        fill = self.preview_fill_token()
+        outs = []
+        with self._lock, torch.inference_mode():
+            grid = torch.arange(self.image_seq_len, device=self.device)[None, :]
+            for i in range(0, len(toks), self.max_batch):
+                t = torch.from_numpy(toks[i : i + self.max_batch]).to(self.device)
+                p = torch.from_numpy(pos[i : i + self.max_batch]).to(self.device)
+                filled = torch.where(grid < p[:, None], t, torch.full_like(t, fill))
+                pixels = self.vae.decode(filled).float() * 0.5 + 0.5
+                outs.append(pixels.clamp(0.0, 1.0).cpu().numpy())
+        return np.concatenate(outs)[:n]
+
+    def _warmup_preview(self) -> None:
+        if self.preview_enabled and self.vae is not None:
+            self.preview_pixels(np.zeros((1, self.image_seq_len), np.int32), np.zeros(1, np.int64))
+
+    def _warmup_resume(self, slot: int) -> None:
+        dummy = SampleSpec(
+            np.zeros(self.model.text_seq_len, np.int32), seed=0,
+            resume_tokens=np.zeros(1, np.int32), resume_pos=1,
+        )
+        self.resume_slots([(slot, dummy)], _warmup=True)
+
     def warmup(self) -> None:
-        """One dummy wave, one chunk, a release and one pixel decode, then a
-        fresh state (counted in stats.warmup_batches only)."""
+        """One dummy wave, a resume wave (with `resume_enabled`), one chunk,
+        the releases, one pixel decode and one preview (with
+        `preview_enabled`), then a fresh state (counted in
+        stats.warmup_batches only)."""
         dummy = SampleSpec(np.zeros(self.model.text_seq_len, np.int32), seed=0)
         self.prefill_slot(0, dummy, _warmup=True)
+        if self.resume_enabled:
+            # slot 1 when there is one; a one-slot engine recycles slot 0
+            res_slot = 1 if self.max_batch > 1 else 0
+            if res_slot == 0:
+                self.release([0])
+            self._warmup_resume(res_slot)
         self.step_chunk(_warmup=True)
-        self.release([0])
+        self.release([s for s in (0, 1) if s < self.max_batch])
         self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32))
+        self._warmup_preview()
         with self._lock:
             self._state = self._fresh_state()
             self.stats.warmup_batches += 1
+
+    def program_ladder(self) -> Tuple[str, ...]:
+        out = ["prefill"] + (["resume"] if self.resume_enabled else []) + ["chunk", "release"]
+        if self.vae is not None:
+            out.append("decode_pixels")
+            if self.preview_enabled:
+                out.append("preview")
+        return tuple(out)
+
+    def state_dump(self) -> dict:
+        out = super().state_dump()
+        out.update(
+            max_batch=self.max_batch,
+            chunk_tokens=self.chunk_tokens,
+            prefill_batch=self.prefill_batch,
+            chunk_index=self.chunk_index,
+            resume_enabled=self.resume_enabled,
+            preview_enabled=self.preview_enabled,
+        )
+        return out
 
     def sparsity_detail(self) -> Optional[dict]:
         """The policy's summary and tile counters, or None on the causal
@@ -552,6 +762,8 @@ class PagedContinuousEngine(ContinuousEngine):
         decode_sparsity: str = "causal",
         paged_decode_impl: Optional[str] = None,
         device="cuda",
+        resume_enabled: bool = False,
+        preview_enabled: bool = False,
     ):
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -574,6 +786,7 @@ class PagedContinuousEngine(ContinuousEngine):
             model, vae, max_batch=max_batch, chunk_tokens=chunk_tokens,
             prefill_batch=prefill_batch, cond_scale=cond_scale, tokenizer=tokenizer,
             kv_dtype=kv_dtype, decode_sparsity=decode_sparsity, device=device,
+            resume_enabled=resume_enabled, preview_enabled=preview_enabled,
         )
         if self._sparsity is not None and impl == "kernel" and self._sparsity.block % self.page_size:
             raise ValueError(
@@ -616,8 +829,15 @@ class PagedContinuousEngine(ContinuousEngine):
         return self.kv.admission_headroom()
 
     def admission_demand(self, specs: Sequence[SampleSpec]) -> int:
-        """Worst-case page demand of one request's rows."""
-        return sum(self.kv.row_demand(self._ids(s)) for s in specs)
+        """Worst-case page demand of one request's rows. A resume row is
+        charged a full row even when its prompt is prefix-cached:
+        `admit_resume` gives it fresh pages (the resume dispatch rewrites
+        every page it maps with the row's own K/V)."""
+        return sum(
+            self.kv.pages_per_row if self.supports_resume and s.resume_pos
+            else self.kv.row_demand(self._ids(s))
+            for s in specs
+        )
 
     def can_ever_admit(self, specs: Sequence[SampleSpec]) -> bool:
         """False when the request could not fit an empty pool."""
@@ -678,11 +898,7 @@ class PagedContinuousEngine(ContinuousEngine):
         prefill that maps cached prefix blocks into their tables instead
         of allocating and registers fresh prompts in the cache."""
         n = len(assignments)
-        if not 1 <= n <= self.prefill_batch:
-            raise ValueError(
-                f"{n} assignments outside [1, prefill_batch={self.prefill_batch}]; "
-                "the batcher splits admission waves"
-            )
+        self._check_wave(assignments)
         stats = {
             "wave_rows": n, "prefix_hits": 0, "hit_slots": [],
             "prefix_blocks_reused": 0, "suffix_tokens_computed": 0, "dispatches": 0,
@@ -722,12 +938,7 @@ class PagedContinuousEngine(ContinuousEngine):
             stats["prefix_blocks_reused"] += self.kv.n_full_blocks
         if not misses:
             return
-        rows = list(misses) + [misses[0]] * (self.prefill_batch - len(misses))
-        texts, slots, seeds, temps, keep = _pack_prefill_rows(rows, self._keep_k)
-        if texts.shape != (self.prefill_batch, self.model.text_seq_len):
-            raise ValueError(
-                f"prompt rows must be [{self.model.text_seq_len}] token ids, got batch {texts.shape}"
-            )
+        _, (texts, slots, seeds, temps, keep) = self._padded_wave(misses)
         page_rows = np.zeros((self.prefill_batch, self.kv.n_text_pages), np.int32)
         partial_dst = np.zeros(self.prefill_batch, np.int32)
         pending = []  # (prefill row, registration token)
@@ -766,6 +977,30 @@ class PagedContinuousEngine(ContinuousEngine):
             self.kv.cache.misses += len(misses)
         stats["dispatches"] += 1
 
+    def resume_slots(self, assignments: Sequence[Tuple[int, SampleSpec]], _warmup: bool = False) -> None:
+        """Paged mid-decode admission: fresh pages cover each row's prompt
+        + generated prefix (`PagedKVManager.admit_resume`, no prefix
+        sharing), then one teacher-forced `resume_into_slots_paged`
+        writes them; blocks beyond the prefix stay on the garbage page
+        until `ensure` maps them ahead of decode."""
+        texts, slots, seeds, temps, keep, img_tokens, img_pos = self._resume_rows(assignments)
+        page_rows = np.zeros((self.prefill_batch, self.kv.pages_per_row), np.int32)
+        mapped: dict = {}  # slot -> its row of page_rows (padding repeats a real pair)
+        text_positions = self.model.text_seq_len + 1
+        for r, slot in enumerate(slots):
+            if slot not in mapped:
+                self.kv.admit_resume(slot, text_positions + int(img_pos[r]))
+                mapped[slot] = self.kv.table[slot].copy()
+            page_rows[r] = mapped[slot]
+        with self._lock:
+            # a failure rebuilds the state and (`_fresh_state`) the page
+            # tables, discarding these mappings
+            self._run(lambda st: resume_into_slots_paged(
+                self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
+                page_rows, self.page_size,
+            ))
+            self._count_resume(len(assignments), _warmup)
+
     def _pre_chunk(self) -> None:
         # lazy decode-page allocation: every live row's table covers its
         # writes of this chunk (reserved at admission: cannot fail)
@@ -796,8 +1031,10 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def warmup(self) -> None:
         """A miss wave, a deliberate full-prompt hit of the same prompt, a
-        chunk, the releases and one pixel decode, then a fresh state and
-        fresh page tables (counted in stats.warmup_batches only)."""
+        resume wave (with `resume_enabled`), a chunk, the releases, one
+        pixel decode and one preview (with `preview_enabled`), then a
+        fresh state and fresh page tables (counted in
+        stats.warmup_batches only)."""
         dummy = SampleSpec(np.zeros(self.model.text_seq_len, np.int32), seed=0)
         self.prefill_slots([(0, dummy)], _warmup=True)
         if self.kv.cache.enabled:
@@ -805,12 +1042,30 @@ class PagedContinuousEngine(ContinuousEngine):
             if hit_slot == 0:
                 self.release([0])
             self.prefill_slots([(hit_slot, dummy)], _warmup=True)
+        if self.resume_enabled:
+            # the next free slot; small engines recycle slot 0
+            res_slot = 2 if self.max_batch > 2 else 0
+            if res_slot == 0:
+                self.release([0])
+            self._warmup_resume(res_slot)
         self.step_chunk(_warmup=True)
-        self.release(range(min(2, self.max_batch)))
+        self.release(range(min(3, self.max_batch)))
         self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32))
+        self._warmup_preview()
         with self._lock:
             self._state = self._fresh_state()
             self.stats.warmup_batches += 1
+
+    def program_ladder(self) -> Tuple[str, ...]:
+        out = list(super().program_ladder())
+        if self.kv.cache.enabled:
+            out.insert(1, "admit_hit")
+        return tuple(out)
+
+    def state_dump(self) -> dict:
+        out = super().state_dump()
+        out["kv"] = self.kv.debug_dump()
+        return out
 
 
 def engine_from_checkpoint(
@@ -830,6 +1085,8 @@ def engine_from_checkpoint(
     paged_decode_impl: Optional[str] = None,
     mesh=None,
     clip_path: Optional[str] = None,
+    resume_enabled: Optional[bool] = None,
+    preview_enabled: Optional[bool] = None,
 ):
     """Build a serving engine from a reference single-file DALLE checkpoint
     (with its DiscreteVAE inside), in the checkpoint's dtype (bfloat16 when
@@ -845,7 +1102,10 @@ def engine_from_checkpoint(
     names (`build_tokenizer`: its flags, or the default vocabulary), and
     the model's text vocabulary its size: a text embedding of another
     size raises. `clip_path` loads a CLIP checkpoint for `rerank`. The
-    engine keeps the config as `cfg`.
+    engine keeps the config as `cfg`. A continuous engine serves
+    mid-decode resumes and previews unless `resume_enabled` /
+    `preview_enabled` is False (None means on, as the reference's serving
+    boots).
     """
     if mode not in ("micro", "continuous"):
         raise ValueError(f"unknown engine mode {mode!r}")
@@ -860,8 +1120,8 @@ def engine_from_checkpoint(
         raise ValueError("kv_layout='paged' needs the continuous engine (mode='continuous')")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the sharded continuous engine is not ported yet (ROADMAP "
-            "Queue 1 item 9, serving/sharded.py)"
+            "mesh: the sharded continuous engine (serving/sharded.py in the "
+            "JAX package) is not ported yet"
         )
     dev = resolve_device(device)
     config, dalle_tree, vae_tree, meta = load_dalle_checkpoint(dalle_path)
@@ -901,6 +1161,8 @@ def engine_from_checkpoint(
             chunk_tokens=chunk_tokens,
             prefill_batch=prefill_batch,
             decode_sparsity=decode_sparsity or "causal",
+            resume_enabled=True if resume_enabled is None else bool(resume_enabled),
+            preview_enabled=True if preview_enabled is None else bool(preview_enabled),
         )
         if kv_layout == "paged":
             engine = PagedContinuousEngine(

@@ -1,0 +1,304 @@
+"""Decode-state checkpoints: zero-lost-work drain and mid-decode migration.
+
+Counterpart of the JAX package's `serving/migrate.py` (host code, copied
+so the port imports nothing of that package). A checkpoint is one
+request's decode state at a chunk boundary, enough to finish it anywhere
+the same build runs, because decode noise is keyed by (seed, position):
+
+  * `RowCheckpoint` / `RequestCheckpoint`: prompt tokens, the tokens
+    generated so far per row (whole rows for finished ones), per-row
+    sampling parameters, the engine's chunk index and the request's
+    identity (priority, tenant, trace id, request key). Finished rows are
+    restored verbatim; unfinished ones re-enter admission and, on an
+    engine with `resume_enabled`, continue from their position through
+    one teacher-forced re-prefill (`models/dalle.py:decode_resume`).
+  * the codec: `encode_checkpoint` packs a JSON payload into the artifact
+    container of `utils/artifact.py` (MAGIC + header with format version,
+    boot fingerprint, payload length and sha256). `decode_checkpoint`
+    validates it: a fingerprint or format mismatch raises
+    `CheckpointMismatch` (another build: the consumer restarts the
+    request at position 0, counted), a truncated or garbled blob
+    `CheckpointCorrupt` (the same fallback, counted apart). A bad
+    checkpoint becomes a cold restart, never a corrupt resume. The bytes
+    are the reference's, so a blob opens in either package under the same
+    fingerprint string.
+  * `CheckpointSpool`: the crash beacon's bounded on-disk journal. Every
+    N chunks the batcher rewrites one JSONL file atomically with the
+    in-flight checkpoints, so a hard kill loses at most N chunks of
+    progress.
+
+On a wire (an HTTP body, the spool's lines) a blob travels as base64:
+`to_wire` / `from_wire`.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from dalle_pytorch_tpu_torch.utils.artifact import pack_artifact, unpack_artifact
+
+#: container format — bump on any layout change so an old checkpoint is a
+#: clean mismatch, not a parse error
+CKPT_FORMAT = 1
+CKPT_MAGIC = b"DALLECKPT\n"
+
+#: spool journal filename inside the spool directory
+SPOOL_FILE = "checkpoints.jsonl"
+
+
+class CheckpointMismatch(ValueError):
+    """Checkpoint from a different build (fingerprint/format drift).
+    Consumers MUST fall back to a clean position-0 restart — resuming
+    decode state across builds is exactly the corruption the fingerprint
+    exists to prevent."""
+
+
+class CheckpointCorrupt(ValueError):
+    """Checkpoint failed integrity validation (bad magic, truncated
+    payload, checksum mismatch, unparseable body). Same fallback as
+    `CheckpointMismatch`, counted separately so a sick spool volume is
+    distinguishable from a fleet rollout."""
+
+
+class MigratedError(RuntimeError):
+    """A request's in-flight decode state was exported at a chunk
+    boundary (`ContinuousBatcher.migrate_out`). Carries the
+    `RequestCheckpoint`, so the caller can re-submit the same request
+    elsewhere as a resume."""
+
+    def __init__(self, checkpoint: "RequestCheckpoint"):
+        super().__init__("request migrated out at a chunk boundary")
+        self.checkpoint = checkpoint
+
+
+@dataclass
+class RowCheckpoint:
+    """One batch row's decode state at a chunk boundary."""
+
+    row_index: int
+    prompt_ids: np.ndarray  # [text_seq_len] int32
+    tokens: np.ndarray  # [pos] int32 generated so far (whole row when done)
+    done: bool
+    seed: int
+    temperature: float = 1.0
+    top_k: float = 0.9
+
+    @property
+    def pos(self) -> int:
+        return int(len(self.tokens))
+
+
+@dataclass
+class RequestCheckpoint:
+    """One request's rows plus the identity a resume must preserve."""
+
+    rows: List[RowCheckpoint]
+    chunk_index: int = 0  # engine chunk index at snapshot (resumed_at_chunk)
+    priority: str = "normal"
+    tenant: str = ""
+    trace_id: Optional[str] = None
+    site: Optional[str] = None  # exporting replica (migrated_from)
+    request_key: Optional[str] = None  # the fleet's content key of the request
+    reason: str = "drain"  # drain | beacon
+    #: encode-once cache (not part of the wire payload): the exporting
+    #: batcher stamps the encoded blob here so its consumers do not each
+    #: re-serialize the token payload
+    encoded: Optional[bytes] = None
+
+    def done_tokens(self) -> int:
+        """Tokens of the completed rows, which a resume restores verbatim
+        (a partial row's prefix is restored only by an engine with
+        `resume_enabled`)."""
+        return sum(cp.pos for cp in self.rows if cp.done)
+
+
+def _row_to_json(cp: RowCheckpoint) -> Dict:
+    return {
+        "row": int(cp.row_index),
+        "prompt": np.asarray(cp.prompt_ids, np.int32).tolist(),
+        "tokens": np.asarray(cp.tokens, np.int32).tolist(),
+        "done": bool(cp.done),
+        "seed": int(cp.seed),
+        "temperature": float(cp.temperature),
+        "top_k": float(cp.top_k),
+    }
+
+
+def _row_from_json(obj: Dict) -> RowCheckpoint:
+    return RowCheckpoint(
+        row_index=int(obj["row"]),
+        prompt_ids=np.asarray(obj["prompt"], np.int32),
+        tokens=np.asarray(obj["tokens"], np.int32),
+        done=bool(obj["done"]),
+        seed=int(obj["seed"]),
+        temperature=float(obj.get("temperature", 1.0)),
+        top_k=float(obj.get("top_k", 0.9)),
+    )
+
+
+def encode_checkpoint(cp: RequestCheckpoint, fingerprint: str) -> bytes:
+    """RequestCheckpoint -> self-validating blob (`utils/artifact.py`'s
+    container)."""
+    payload = json.dumps(
+        {
+            "rows": [_row_to_json(r) for r in cp.rows],
+            "chunk_index": int(cp.chunk_index),
+            "priority": cp.priority,
+            "tenant": cp.tenant,
+            "trace_id": cp.trace_id,
+            "site": cp.site,
+            "request_key": cp.request_key,
+            "reason": cp.reason,
+        },
+        sort_keys=True,
+        separators=(",", ":"),
+    ).encode("utf-8")
+    return pack_artifact(
+        CKPT_MAGIC, fingerprint, payload, format_version=CKPT_FORMAT
+    )
+
+
+def decode_checkpoint(blob: bytes, fingerprint: str) -> RequestCheckpoint:
+    """Validate + decode one checkpoint blob against the CONSUMER's boot
+    fingerprint (`utils/artifact.unpack_artifact` validates the
+    container). Raises `CheckpointMismatch` for cross-build
+    snapshots (format or fingerprint drift — the "miss" verdict) and
+    `CheckpointCorrupt` for integrity failures (the "reject" verdict) —
+    callers map both to a clean position-0 restart, never to a
+    client-visible error or a resumed corrupt state."""
+    if not isinstance(blob, (bytes, bytearray)):
+        raise CheckpointCorrupt("checkpoint must be bytes")
+    status, reason, payload = unpack_artifact(
+        bytes(blob), CKPT_MAGIC, fingerprint, format_version=CKPT_FORMAT
+    )
+    if status == "miss":
+        raise CheckpointMismatch(
+            f"{reason} (checkpoint from a different build)"
+        )
+    if status != "hit":
+        raise CheckpointCorrupt(str(reason))
+    try:
+        obj = json.loads(payload)
+        rows = [_row_from_json(r) for r in obj["rows"]]
+    except Exception as exc:
+        raise CheckpointCorrupt(f"unparseable payload: {exc!r}") from None
+    return RequestCheckpoint(
+        rows=rows,
+        chunk_index=int(obj.get("chunk_index", 0)),
+        priority=str(obj.get("priority", "normal")),
+        tenant=str(obj.get("tenant", "")),
+        trace_id=obj.get("trace_id"),
+        site=obj.get("site"),
+        request_key=obj.get("request_key"),
+        reason=str(obj.get("reason", "drain")),
+    )
+
+
+def to_wire(blob: bytes) -> str:
+    """Blob -> JSON-safe ASCII (request bodies, stream events, the
+    spool's lines)."""
+    return base64.b64encode(bytes(blob)).decode("ascii")
+
+
+def from_wire(text) -> bytes:
+    """Inverse of `to_wire`; raises `CheckpointCorrupt` on garbage so
+    transport damage lands in the same counted reject path as disk
+    damage."""
+    if not isinstance(text, str):
+        raise CheckpointCorrupt("wire checkpoint must be a string")
+    try:
+        return base64.b64decode(text.encode("ascii"), validate=True)
+    except Exception as exc:
+        raise CheckpointCorrupt(f"bad base64: {exc!r}") from None
+
+
+class CheckpointSpool:
+    """Bounded atomic on-disk journal of in-flight checkpoints.
+
+    `write(bundle)` REPLACES the journal (tmp + rename — a crash mid-write
+    leaves the previous beacon intact, never a torn file) with one JSON
+    line per request: `{"key": ..., "blob": <base64>}`. The journal is
+    latest-state-only by design: each beacon supersedes the last, so the
+    spool's size is bounded by the replica's own in-flight set (plus
+    `max_bytes` as the hard cap — oversized bundles drop their LARGEST
+    entries first and count them, a half-spool beats no spool).
+
+    `read()` returns `{key: blob}` for every line that survives
+    validation; unparseable lines are skipped and counted. A `faults`
+    object with `on_artifact_load(kind, path)` (fault injection) may
+    damage the file on disk first, so the torn-write path is testable.
+    """
+
+    def __init__(self, directory, max_bytes: int = 8 << 20):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.dir / SPOOL_FILE
+        self.max_bytes = int(max_bytes)
+        #: fault-injection seam: None, or an object whose
+        #: on_artifact_load("spool", path) runs before every read
+        self.faults = None
+        self.writes = 0
+        self.dropped_entries = 0
+        self.skipped_lines = 0
+
+    def write(self, bundle: Dict[str, bytes]) -> None:
+        lines = []
+        total = 0
+        # biggest-first drop under the byte cap: keeping many small
+        # requests' progress beats keeping one huge one
+        for key, blob in sorted(bundle.items(), key=lambda kv: len(kv[1])):
+            line = json.dumps(
+                {"key": str(key), "blob": to_wire(blob), "ts": time.time()}
+            )
+            if total + len(line) + 1 > self.max_bytes:
+                self.dropped_entries += 1
+                continue
+            total += len(line) + 1
+            lines.append(line)
+        tmp = self.path.with_suffix(f".tmp{os.getpid()}")
+        tmp.write_bytes(("\n".join(lines) + "\n").encode() if lines else b"")
+        os.replace(tmp, self.path)
+        self.writes += 1
+
+    def read(self) -> Dict[str, bytes]:
+        if self.faults is not None:
+            self.faults.on_artifact_load("spool", self.path)
+        try:
+            raw = self.path.read_text()
+        except FileNotFoundError:
+            return {}
+        out: Dict[str, bytes] = {}
+        for line in raw.splitlines():
+            if not line.strip():
+                continue
+            try:
+                obj = json.loads(line)
+                out[str(obj["key"])] = from_wire(obj["blob"])
+            except Exception:
+                # torn tail / bit rot: that ENTRY is lost (its request
+                # restarts from scratch); the rest of the spool survives
+                self.skipped_lines += 1
+        return out
+
+    def clear(self) -> None:
+        try:
+            self.path.unlink()
+        except FileNotFoundError:
+            pass
+
+    def detail(self) -> Dict:
+        return {
+            "path": str(self.path),
+            "max_bytes": self.max_bytes,
+            "writes": self.writes,
+            "dropped_entries": self.dropped_entries,
+            "skipped_lines": self.skipped_lines,
+        }

@@ -464,6 +464,21 @@ class PagedKVManager:
         self._debt[slot] = self.pages_per_row - self.n_text_pages
         return partial_src, partial_dst
 
+    def admit_resume(self, slot: int, n_positions: int) -> None:
+        """Map fresh pages covering positions [0, n_positions) for a
+        mid-decode resume row. No prefix sharing: the resume dispatch
+        rewrites every page it maps with the row's own prompt + prefix
+        K/V, which must never land on a page the prefix cache or another
+        row maps; the row pays full pages, which is what the engine's
+        `admission_demand` charged it. The other blocks stay on the
+        garbage page until `ensure` maps them, covered by the row's
+        reservation like any other debt."""
+        assert not self._row_pages[slot], f"slot {slot} already mapped"
+        n_blocks = min(-(-int(n_positions) // self.page_size), self.pages_per_row)
+        for j in range(n_blocks):
+            self._map(slot, j, self._alloc_evicting())
+        self._debt[slot] = self.pages_per_row - n_blocks
+
     # ------------------------------------------------------- decode/release
 
     def ensure(self, slot: int, n_blocks: int) -> None:
@@ -533,3 +548,35 @@ class PagedKVManager:
         if free != should_be_free:
             problems.append(f"free list {free} != unreferenced pages {should_be_free}")
         return problems
+
+    def debug_dump(self) -> Dict:
+        """JSON-ready paging state for stall reports and the engine's
+        `state_dump`: per-row pages and reservations, live-page refcounts,
+        prefix-cache counts. Plain host reads of the worker-owned
+        structures: a point-in-time view."""
+        rows = [
+            {
+                "slot": slot,
+                "pages": [int(p) for p in pages],
+                "blocks_mapped": int(self._mapped[slot]),
+                "pages_reserved": int(self._debt[slot]),
+            }
+            for slot, pages in enumerate(self._row_pages)
+            if pages or self._debt[slot]
+        ]
+        return {
+            "page_size": self.page_size,
+            "pages_per_row": self.pages_per_row,
+            "blocks_total": self.pool.n_pages - 1,
+            "blocks_active": self.blocks_active,
+            "blocks_free": self.blocks_free,
+            "page_refcounts": self.pool.refcounts(),
+            "rows": rows,
+            "prefix_cache": {
+                "entries": len(self.cache),
+                "protected": len(self.cache._protected),
+                "hits": self.cache.hits,
+                "misses": self.cache.misses,
+                "evictions": self.cache.evictions,
+            },
+        }

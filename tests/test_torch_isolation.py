@@ -32,6 +32,7 @@ def test_the_scan_covers_every_port_script():
     assert {
         "chip_smoke.py", "torch_continuous_profile.py", "paging.py", "generate.py", "clip.py",
         "native_bpe.py", "tokenizer.py", "images.py", "wide_head.py", "torch_wide_head_probe.py",
+        "migrate.py", "streaming.py", "artifact.py", "metrics.py",
     } <= names
 
 
