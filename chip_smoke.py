@@ -9,8 +9,10 @@ Phases, each failing loudly (nonzero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel of the port from `dalle_pytorch_tpu_torch/csrc/` (one nvcc per
-   source, started together: flash_decode.cu, flash_attention.cu and
-   wide_head.cu, the head dims above 256);
+   source, started together: flash_decode.cu, flash_decode_tile.cu,
+   flash_attention.cu and wide_head.cu, the head dims above 256), with
+   ptxas's register and spill lines (no flash_decode_tile instance may
+   spill);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -86,8 +88,10 @@ Phases, each failing loudly (nonzero exit, no result line):
    a `ContinuousEngine` with resume and previews, then a
    `PagedContinuousEngine` (page 32, the paged kernel), then int8 KV on
    phase 7's depth-4 model, each behind the `ContinuousBatcher` with
-   phase 7's four requests (request 0 streamed): once every row passes
-   image position DRAIN_AT, `migrate_out` exports them, the checkpoints
+   phase 7's four requests (request 0 streamed; requests 2-3 admitted
+   after ADMIT_AFTER chunks): at the first chunk boundary at which every
+   row has passed image position DRAIN_AT (fixed chunk counts, not host
+   timing), `migrate_out` exports them, the checkpoints
    travel encode -> wire -> decode, and a fresh engine over the same
    weights (equal fingerprint) resumes them in one dispatch (12
    flash-decode launches at n = 1280 at depth 12). Held: tokens equal to
@@ -96,14 +100,21 @@ Phases, each failing loudly (nonzero exit, no result line):
    logits and K/V against the drained engine's (RESUME_LOGIT_TOL,
    RESUME_KV_TOL), every launch counted exactly, the decoded-token
    counter at the positions past each k, the streams' events in order,
-   `leak_check()` empty, a post-resume chunk under sync-debug "error";
+   `leak_check()` empty, a post-resume chunk under sync-debug "error",
+   each resume dispatch launching the tile arm once a layer;
    the resume dispatch's wall and device time, the export and codec
    walls.
 
-Phases 2 and 3 also hold and time flash decode (both arms) at the
-resume forward's shape (n = 1280 rows over a 1281-slot cache; B = 1 and
-4), beside SDPA's causal forward and `flash_attention_fwd` there, the
-int8 arm of flash decode, the
+Phases 2 and 3 also hold and time flash decode's tile arm
+(`flash_decode_tile.cu`: bf16 q at n > 4 rows, both cache arms) at the
+prefill chunk (n = 257) and the resume forward's shape (n = 1280 rows over
+a 1281-slot cache; B = 1 and 4), against the plain version and the tile
+model, on caches poisoned with NaN past each row's length, beside SDPA's
+causal forward and `flash_attention_fwd` over the live keys, and check
+that each such call launches the tile arm once (phase 5: 12 tile launches
+a generate(), phase 10: 12 a depth-12 resume dispatch); fp32 q at n > 4
+keeps flash_decode.cu's 4-row instance (held at the resume shape). They
+also hold the int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
 random and policy bitmaps, poisoned dead tiles) and the two paged kernels
 (page sizes 16-128, shuffled tables sharing pages, NaN-poisoned pools;
@@ -124,6 +135,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -379,6 +391,100 @@ def decode_tol(torch, ref, dtype):
     fp32 summation order only."""
     scale = max(1.0, ref.float().abs().max().item())
     return 2.0**-7 * scale if dtype == torch.bfloat16 else 2e-5 * scale
+
+
+# the flash-decode wrappers: each counts its launches at D <= 256, every arm
+# (`launches`, `int8_launches`), and of those the tile arm's (`tile_launches`,
+# `tile_int8_launches`)
+DECODE_FUNCTIONS = ("flash_decode_attention", "block_sparse_flash_decode_attention",
+                    "paged_flash_decode_attention", "block_sparse_paged_flash_decode_attention")
+
+
+def tile_launches():
+    """Launches of the tile arm so far, over the four wrappers and both arms."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    return sum(getattr(fd, f).tile_launches + getattr(fd, f).tile_int8_launches
+               for f in DECODE_FUNCTIONS)
+
+
+def poison_past_length(torch, k, v, lens, sc=()):
+    """The contiguous cache with NaN at every position past each row's
+    length (in the scales of an int8 cache, whose values hold no NaN)."""
+    dead = torch.arange(k.shape[2], device=k.device)[None, :] >= lens.long()[:, None]
+    if sc:
+        return k, v, tuple(t.masked_fill(dead[:, None], float("nan")) for t in sc)
+    dead = dead[:, None, :, None]
+    return k.masked_fill(dead, float("nan")), v.masked_fill(dead, float("nan")), ()
+
+
+def check_tile_arm(torch, cases):
+    """Phase 2 for the tile arm (`csrc/flash_decode_tile.cu`, bf16 q at n >
+    DECODE_ROWS): kernels 1 and 2 (int8) against the plain version and
+    against the tile model (`flash_decode_tile_plain`, which rounds P as
+    the kernel does), both under decode_tol, at the prefill shapes and the
+    resume shape (B = 1 and 4), each call launching the tile arm once; the
+    prefill_edges and resume-B=4 caches poisoned with NaN past each row's
+    length giving finite outputs bit-identical to the clean ones; fp32 q
+    at the resume shape (B = 1 and 4) launching flash_decode.cu's 4-row
+    instance, not the tile arm, within decode_tol of the plain version.
+    Returns {kernel: worst max_abs_err against the plain version}."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst = {"flash_decode_tile": 0.0, "flash_decode_tile_int8": 0.0}
+    failures = []
+    shapes = [(c, lambda c=c: flash_inputs(torch, *cases[c], torch.bfloat16)[0])
+              for c in ("prefill", "prefill_edges")]
+    shapes += [(f"resume B={b}", lambda b=b: resume_inputs(torch, b, torch.bfloat16)[0]) for b in (1, 4)]
+    for label, make in shapes:
+        q, k, v, lens = make()
+        kq, vq, ks, vs = quantized(torch, k, v)
+        for kernel, kk, vv, sc in (("flash_decode_tile", k, v, ()),
+                                   ("flash_decode_tile_int8", kq, vq, (ks, vs))):
+            before = tile_launches()
+            out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
+            ran = tile_launches() - before
+            ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
+            model = fd.flash_decode_tile_plain(q, kk, vv, lens, *sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            err_model = (out.float() - model.float()).abs().max().item()
+            tol = decode_tol(torch, ref, torch.bfloat16)
+            print(f"check {kernel} {label} n={q.shape[2]}: max_abs_err {err:.3e} vs plain, "
+                  f"{err_model:.3e} vs the tile model, tol {tol:.3e}; tile launches {ran}")
+            if not (err <= tol and err_model <= tol and torch.isfinite(out).all()) or ran != 1:
+                failures.append(f"{kernel} {label}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
+                                f"or {ran} tile launches")
+            worst[kernel] = max(worst[kernel], err)
+            if label in ("prefill_edges", "resume B=4"):
+                pk, pv, psc = poison_past_length(torch, kk, vv, lens, sc)
+                poisoned = fd.flash_decode_attention(q, pk, pv, lens, *psc)
+                same = torch.equal(out, poisoned) and bool(torch.isfinite(poisoned).all())
+                print(f"check {kernel} {label}: NaN past each row's length, finite and unchanged {same}")
+                if not same:
+                    failures.append(f"{kernel} {label}: NaN past the lengths changed the output")
+                del pk, pv, psc, poisoned
+            del out, ref, model
+        del q, k, v, kq, vq, ks, vs
+    # fp32 q at n > DECODE_ROWS stays on flash_decode.cu's 4-row instance
+    for b in (1, 4):
+        q, k, v, lens = resume_inputs(torch, b, torch.float32)[0]
+        before, before_all = tile_launches(), fd.flash_decode_attention.launches
+        out = fd.flash_decode_attention(q, k, v, lens)
+        ran = (tile_launches() - before, fd.flash_decode_attention.launches - before_all)
+        ref = fd.flash_decode_attention_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = decode_tol(torch, ref, torch.float32)
+        print(f"check flash_decode resume B={b} n={q.shape[2]} float32 (flash_decode.cu's 4-row "
+              f"instance): max_abs_err {err:.3e} tol {tol:.3e}; tile / all launches {ran}")
+        if not (err <= tol and torch.isfinite(out).all()) or ran != (0, 1):
+            failures.append(f"flash_decode resume B={b} float32: {err:.3e} over {tol:.3e} or "
+                            f"tile / all launches {ran}")
+        del q, k, v, out, ref
+    if failures:
+        fail("tile arm: " + "; ".join(failures))
+    return worst
 
 
 def check_decode_variants(torch, cases):
@@ -822,91 +928,75 @@ def resume_inputs(torch, b, dtype, copies=1):
     ]
 
 
-def check_resume_prefill(torch):
-    """Phase 2 at the resume shape: kernel 1 (bf16 and fp32) and its int8
-    arm (bf16 q) against their plain versions at B = 1 and 4, under
-    decode_tol. Returns {kernel: worst bf16 max_abs_err}."""
-    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
-
-    worst = {"flash_decode": 0.0, "flash_decode_int8": 0.0}
-    failures = []
-    for b in (1, 4):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, lens = resume_inputs(torch, b, dtype)[0]
-            arms = [("flash_decode", ())]
-            if dtype == torch.bfloat16:
-                kq, vq, ks, vs = quantized(torch, k, v)
-                arms.append(("flash_decode_int8", (kq, vq, ks, vs)))
-            for kernel, int8 in arms:
-                kk, vv, sc = (int8[0], int8[1], int8[2:]) if int8 else (k, v, ())
-                out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
-                ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = decode_tol(torch, ref, dtype)
-                print(f"check {kernel} resume n={RESUME['n']} S={RESUME['cache']} B={b} "
-                      f"{str(dtype)[6:]}: max_abs_err {err:.3e} tol {tol:.3e}")
-                if not (err <= tol and torch.isfinite(out).all()):
-                    failures.append(f"{kernel} resume B={b} {dtype}: {err:.3e} over {tol:.3e}")
-                if dtype == torch.bfloat16:
-                    worst[kernel] = max(worst[kernel], err)
-            del q, k, v
-    if failures:
-        fail("; ".join(failures))
-    return worst
-
-
-def resume_bound(b, per_pos_bytes, peaks):
-    """(bound_ms, bound_by) of one resume-shape call: q read and out
-    written in bf16, n live cache positions a row read at `per_pos_bytes`
-    per position and head, lengths; 4*D flops per visible causal pair."""
-    h, d, n = MAIN["heads"], MAIN["dim_head"], RESUME["n"]
-    nbytes = 2 * b * h * n * d * 2 + b * h * n * per_pos_bytes + 4 * b
-    flops = 4 * d * b * h * n * (n + 1) // 2
+def tile_bound(b, n, lengths, s_len, per_pos_bytes, peaks):
+    """(bound_ms, bound_by) of one tile-arm call at MAIN's heads and head
+    dim: q read and out written in bf16, each row's live cache positions
+    read once at `per_pos_bytes` per position and head, lengths; 4*D flops
+    per visible (query row, key) pair."""
+    h, d = MAIN["heads"], MAIN["dim_head"]
+    live = [min(max(x, 0), s_len) for x in lengths]
+    pairs = sum(max(0, min(x - n + i + 1, s_len)) for x in live for i in range(n))
+    nbytes = 2 * b * h * n * d * 2 + h * per_pos_bytes * sum(live) + 4 * b
+    flops = 4 * d * h * pairs
     t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_resume_prefill(torch, F, peaks, smi):
-    """Phase 3 at the resume shape (bf16, B = 4, inputs rotating over
-    LAYERS copies): kernel 1 and its int8 arm, their plain versions,
-    SDPA's causal forward over the n live keys (the same function), and
-    row 6's kernel (`flash_attention_fwd`, causal) on those keys; the
-    kernels' device times are taken after phase 10."""
+def time_tile_arm(torch, F, peaks, smi, cases):
+    """Phase 3 for the tile arm in bf16 (B = 4, inputs rotating over LAYERS
+    copies) at the prefill chunk (n = 257 over the 1281-slot cache,
+    lengths 257) and the resume forward (n = 1280, S = 1281, lengths
+    1280): kernels 1 and 2 (int8) through the tile arm, their plain
+    versions, SDPA's causal forward over the n live keys (the same
+    function: every length equals n) and row 6's kernel
+    (`flash_attention_fwd`, causal) on those keys; the device times of the
+    tile arm and of row 6's kernel are taken after phase 10. Returns
+    {"prefill" | "resume": {"flash_decode_tile" | "flash_decode_tile_int8": row}}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    b, n, d = MAIN["batch"], RESUME["n"], MAIN["dim_head"]
-    inputs = resume_inputs(torch, b, torch.bfloat16, copies=LAYERS)
-    live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
-    int8_in = []
-    for q, k, v, lens in inputs:
-        kq, vq, ks, vs = quantized(torch, k, v)
-        int8_in.append((q, kq, vq, lens, ks, vs))
+    b, d = MAIN["batch"], MAIN["dim_head"]
 
     def sdpa_causal(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    iters = 2 * LAYERS
-    library_ms = time_ms(torch, sdpa_causal, live, iters)
-    fwd_ms = time_ms(torch, fa.flash_attention_fwd, live, iters)
-    rows = {}
-    for kernel, args, per_pos in (("flash_decode", inputs, 2 * d * 2), ("flash_decode_int8", int8_in, 2 * d + 8)):
-        row = dict(
-            ms=time_ms(torch, fd.flash_decode_attention, args, iters),
-            plain_ms=time_ms(torch, fd.flash_decode_attention_plain, args, 6),
-            library_ms=library_ms,
-            flash_attention_fwd_ms=fwd_ms,
-        )
-        row["bound_ms"], row["bound_by"] = resume_bound(b, per_pos, peaks)
-        defer_device_time(row, fd.flash_decode_attention, args, iters)
-        rows[kernel] = row
-        print("time " + json.dumps(dict(
-            kernel=kernel, case="resume", q_dtype="bf16", B=b, H=MAIN["heads"], n=n, D=d,
-            S=RESUME["cache"], lengths=n, library="SDPA causal forward over the n live keys",
-            card=smi, **row)))
-    defer_device_time(rows["flash_decode"], fa.flash_attention_fwd, live, iters, prefix="flash_attention_fwd_")
-    return rows
+    out = {}
+    for shape in ("prefill", "resume"):
+        if shape == "prefill":
+            n, lengths = cases["prefill"]
+            s_len, iters = MAIN["cache"], 10 * LAYERS
+            inputs = flash_inputs(torch, n, lengths, torch.bfloat16, copies=LAYERS)
+        else:
+            n, s_len, iters = RESUME["n"], RESUME["cache"], 2 * LAYERS
+            lengths = [n] * b
+            inputs = resume_inputs(torch, b, torch.bfloat16, copies=LAYERS)
+        live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+        int8_in = []
+        for q, k, v, lens in inputs:
+            kq, vq, ks, vs = quantized(torch, k, v)
+            int8_in.append((q, kq, vq, lens, ks, vs))
+        library_ms = time_ms(torch, sdpa_causal, live, iters)
+        fwd_ms = time_ms(torch, fa.flash_attention_fwd, live, iters)
+        rows = {}
+        for kernel, args, per_pos in (("flash_decode_tile", inputs, 2 * d * 2),
+                                      ("flash_decode_tile_int8", int8_in, 2 * d + 8)):
+            row = dict(
+                ms=time_ms(torch, fd.flash_decode_attention, args, iters),
+                plain_ms=time_ms(torch, fd.flash_decode_attention_plain, args, 6),
+                library_ms=library_ms,
+                flash_attention_fwd_ms=fwd_ms,
+            )
+            row["bound_ms"], row["bound_by"] = tile_bound(b, n, lengths, s_len, per_pos, peaks)
+            defer_device_time(row, fd.flash_decode_attention, args, iters)
+            rows[kernel] = row
+            print("time " + json.dumps(dict(
+                kernel=kernel, case=shape, q_dtype="bf16", B=b, H=MAIN["heads"], n=n, D=d,
+                S=s_len, lengths=lengths[0], library="SDPA causal forward over the n live keys",
+                card=smi, **row)))
+        defer_device_time(rows["flash_decode_tile"], fa.flash_attention_fwd, live, iters,
+                          prefix="flash_attention_fwd_")
+        out[shape] = rows
+    return out
 
 
 # ------------------------------------------------------------ paged kernels
@@ -991,7 +1081,10 @@ def check_paged_variants(torch):
     cases = [(4, 16, 1, 64, 1281, [257, 700, 1024, 1281])]  # the flagship step
     cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 40, 48, 128, 256)]
     cases += [(4, 2, 1, d, 700, [1, 255, 256, 700]) for d in (40, 200)]  # split-K at other D
+    # the tile arm over several query and key tiles, one row's length below n
+    cases += [(4, 2, 130, 64, 300, [100, 131, 200, 300])]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tile_before = tile_launches()
     for b, h, n, d, vlen, lengths in cases:
         for page in PAGE_SIZES:
             n_pages = -(-vlen // page)
@@ -1029,7 +1122,10 @@ def check_paged_variants(torch):
                 print(f"check paged D={d} n={n} page={page} {str(dtype)[6:]} lengths={lengths}: "
                       f"max_abs_err kernel 4 / 5, plain and int8: " + ", ".join(f"{e:.2e}" for e in errs))
     torch.cuda.synchronize()
+    held["tile arm launches"] = tile_launches() - tile_before
     print("check paged bit identities (cases held): " + json.dumps(held))
+    if held["tile arm launches"] == 0:
+        failures.append("no call launched the tile arm")
     if failures:
         fail("paged kernels: " + "; ".join(failures[:10]))
     return worst, held
@@ -1549,6 +1645,7 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     }
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+        setattr(fn, "tile_" + attr, 0)
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(engine)
     t0 = time.perf_counter()
@@ -1560,6 +1657,8 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     wall = time.perf_counter() - t0
     batcher.shutdown()
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    # of those, the tile arm's (the prefill waves')
+    launches.update({name + "_tile": getattr(fn, "tile_" + attr) for name, (fn, attr) in counters.items()})
     chunks, waves = engine.stats.chunks, engine.stats.prefill_dispatches
     expected = engine.model.depth * (CONTINUOUS["chunk_tokens"] * chunks + waves)
     toks = np.concatenate([o[0] for o in outs])
@@ -1605,10 +1704,13 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
     from dalle_pytorch_tpu_torch.serving.engine import GenerationEngine
 
     def only(launches, kernel, expected, label):
-        others = {k: n for k, n in launches.items() if k != kernel and n}
-        if launches[kernel] != expected or others:
+        """`kernel` alone launched, `expected` times in all; of those one
+        tile-arm launch a layer for each prefill wave (n = 257)."""
+        others = {k: n for k, n in launches.items() if k != kernel and not k.endswith("_tile") and n}
+        tile = launches[kernel + "_tile"]
+        if launches[kernel] != expected or others or tile != engine.model.depth * engine.stats.prefill_dispatches:
             fail(f"continuous {label}: {kernel} launched {launches[kernel]} times "
-                 f"(expected {expected}), others {others}")
+                 f"(expected {expected}; tile arm {tile}), others {others}")
 
     # 1. causal: the micro engine's tokens, and a chunk with no host sync
     engine, toks1, _, launches, expected = serve_continuous(torch, model, vae, specs, "causal")
@@ -1654,7 +1756,7 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
         fail(f"int8 kv_bytes_per_slot ratio {ratio}")
     if causal_bytes != short_bytes * LAYERS // SHORT_DEPTH:
         fail(f"kv_bytes_per_slot {causal_bytes} at depth {LAYERS} vs {short_bytes} at {SHORT_DEPTH}")
-    out["flash_decode_int8"] = launches["flash_decode_int8"]
+    out["flash_decode_int8"] = launches["flash_decode_int8"] - launches["flash_decode_int8_tile"]
     del engine
 
     # 3. policy on the unpatterned model: all-ones bitmaps, same bits
@@ -1666,7 +1768,8 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
     if not same:
         fail("policy sparsity on full layers changed the tokens")
     only(launches, "block_sparse_flash_decode", expected, "policy")
-    out["block_sparse_flash_decode"] = launches["block_sparse_flash_decode"]
+    out["block_sparse_flash_decode"] = (launches["block_sparse_flash_decode"]
+                                        - launches["block_sparse_flash_decode_tile"])
     del engine, short
 
     # 4. policy + int8 on the patterned flagship
@@ -1689,7 +1792,8 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
           f"(dense pattern layers, int8 KV) {(toks4 == ref_toks).mean():.4f}; tiles read "
           f"{detail['kv_tiles_read']}, skipped {detail['kv_tiles_skipped']} "
           f"({detail['kv_tiles_skipped'] / (detail['kv_tiles_read'] + detail['kv_tiles_skipped']):.3f})")
-    out["block_sparse_flash_decode_int8"] = launches["block_sparse_flash_decode_int8"]
+    out["block_sparse_flash_decode_int8"] = (launches["block_sparse_flash_decode_int8"]
+                                             - launches["block_sparse_flash_decode_int8_tile"])
     return out, toks1, patterned, toks4, (toks_short, toks2)
 
 
@@ -2018,6 +2122,7 @@ def run_generation_cli(torch, vae):
 
 # phase 10: mid-decode resume and decode-state migration at flagship width
 DRAIN_AT = 512  # every row passes this image position before the drain
+ADMIT_AFTER = 8  # chunks the first two requests run before the other two are admitted
 PREVIEW_EVERY = 32  # request-level chunks between the streamed request's previews
 # the resumed rows' pending logits against the draining engine's at the
 # drain: half of ORACLE_MARGIN, so a token whose noised-score margin passes
@@ -2103,11 +2208,54 @@ def check_stream(events, first_chunk, terminal, shape):
     return ok, progress, [d["chunk"] for d in previews]
 
 
+def drain_at_fixed_chunks(engine, batcher, specs, stream, label):
+    """Phase 10's drain schedule: `batcher` (over `engine`) takes the four
+    single-row requests of `specs` (request 0 streamed to `stream`),
+    requests 0-1 in one admission wave and 2-3 once ADMIT_AFTER chunks
+    have run, and `migrate_out` exports them at the first chunk boundary
+    at which every row has passed DRAIN_AT. The worker is parked at both
+    points until the main thread has acted, so the positions do not
+    depend on host timing. Returns (requests, checkpoints, export wall s)."""
+    step, chunks_run = engine.step_chunk, [0]
+    at_admit, admit_go, at_drain, drain_go = (threading.Event() for _ in range(4))
+
+    def parking_step():
+        pos, act = step()
+        chunks_run[0] += 1
+        if chunks_run[0] == ADMIT_AFTER:
+            at_admit.set()
+            admit_go.wait(600)
+        elif not at_drain.is_set() and act.sum() == 4 and pos[act].min() >= DRAIN_AT:
+            at_drain.set()
+            drain_go.wait(600)
+        return pos, act
+
+    engine.step_chunk = parking_step
+    with batcher._cond:  # the worker admits requests 0 and 1 in one wave
+        reqs = [batcher.submit([specs[0]], request_key="r0", stream=stream),
+                batcher.submit([specs[1]], request_key="r1")]
+    if not at_admit.wait(600):
+        fail(f"{label}: the first two requests never ran {ADMIT_AFTER} chunks")
+    reqs += [batcher.submit([sp], request_key=f"r{i}") for i, sp in enumerate(specs[2:], 2)]
+    admit_go.set()
+    if not at_drain.wait(600) or any(r.future.done() for r in reqs):
+        fail(f"{label}: the rows never all passed position {DRAIN_AT}")
+    # the export, asked for while the worker is parked, is served at this boundary
+    t_export = time.perf_counter()
+    export = {}
+    exporter = threading.Thread(target=lambda: export.update(cps=batcher.migrate_out(timeout_s=120)))
+    exporter.start()
+    while batcher._migrate_request is None and exporter.is_alive():
+        time.sleep(0.001)
+    drain_go.set()
+    exporter.join(150)
+    return reqs, export.get("cps"), time.perf_counter() - t_export
+
+
 def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **options):
     """Phase 10, one layout: a warmed engine with resume and previews
-    behind the ContinuousBatcher serves phase 7's four requests (two
-    first, two once 8 chunks have run; request 0 streamed); once every
-    row passes DRAIN_AT, `migrate_out` exports them, the checkpoints go
+    behind the ContinuousBatcher serves phase 7's four requests and
+    exports them under `drain_at_fixed_chunks`' schedule, the checkpoints go
     through encode -> to_wire -> from_wire -> validate (decode), and a
     fresh engine over the same weights (equal fingerprint) resumes them.
     Held: tokens against `reference` (the uninterrupted run) under the
@@ -2161,20 +2309,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
     eng_a.release = capturing_release
     batcher_a = ContinuousBatcher(eng_a, preview_every=PREVIEW_EVERY)
     stream_a = RequestStream(key="r0")
-    reqs = [batcher_a.submit([specs[0]], request_key="r0", stream=stream_a),
-            batcher_a.submit([specs[1]], request_key="r1")]
-    while eng_a.stats.chunks < 8 and not any(r.future.done() for r in reqs):
-        time.sleep(0.002)
-    reqs += [batcher_a.submit([sp], request_key=f"r{i}") for i, sp in enumerate(specs[2:], 2)]
-    host = eng_a._state["host"]
-    deadline = time.monotonic() + 600
-    while not (host["active"].sum() == 4 and host["img_pos"][host["active"]].min() >= DRAIN_AT):
-        if time.monotonic() > deadline or any(r.future.done() for r in reqs):
-            fail(f"{label}: the rows never all passed position {DRAIN_AT}")
-        time.sleep(0.002)
-    t_export = time.perf_counter()
-    cps = batcher_a.migrate_out(timeout_s=120)
-    export_s = time.perf_counter() - t_export
+    reqs, cps, export_s = drain_at_fixed_chunks(eng_a, batcher_a, specs, stream_a, label)
     batcher_a.shutdown()
     for req in reqs:
         try:
@@ -2207,7 +2342,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
 
     def timed_resume(assignments):  # the resume dispatch: its wall, launches and state
         fn, attr = counters[resume_kernel]
-        before = getattr(fn, attr)
+        before, tile_before = getattr(fn, attr), getattr(fn, "tile_" + attr)
         torch.cuda.synchronize()
         t = time.perf_counter()
         resume_slots(assignments)
@@ -2216,6 +2351,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
         slots = [int(s) for s, _ in assignments]
         resumed.setdefault("walls", []).append(wall)
         resumed.setdefault("launches", []).append(getattr(fn, attr) - before)
+        resumed.setdefault("tile_launches", []).append(getattr(fn, "tile_" + attr) - tile_before)
         resumed.update(seeds=[int(sp.seed) for _, sp in assignments],
                        row=eng_b._state["row"][slots].float().clone(), kv=kv_rows(torch, eng_b, slots))
 
@@ -2273,7 +2409,8 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
         drain_s=drain_s, export_s=export_s, encode_s=encode_s, decode_s=decode_s,
         checkpoint_bytes=[size for _, size in valid], resume_run_s=resume_run_s,
         resume_dispatch_walls_s=resumed["walls"], resume_dispatches=dispatches,
-        resume_launches=resumed["launches"], launches={k: n for k, n in launches.items() if n},
+        resume_launches=resumed["launches"], resume_tile_launches=resumed["tile_launches"],
+        launches={k: n for k, n in launches.items() if n},
         expected_launches=expected, decoded_tokens=decoded, resumed_tokens=restored,
         logit_max_abs_err=logit_err, logit_tol=RESUME_LOGIT_TOL, kv_rel_err=kv_err,
         kv_max_abs_err=kv_max, kv_tol=RESUME_KV_TOL, equal_tokens=equal, first_sub_margin=first_low,
@@ -2293,6 +2430,8 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
         fail(f"{label}: resumed logits {logit_err} or K/V {kv_err} over tolerance")
     if resumed["launches"] != [depth] * dispatches or dispatches != 1:
         fail(f"{label}: resume dispatches {dispatches} launched {resumed['launches']}")
+    if resumed["tile_launches"] != [depth] * dispatches:  # n = 1280, bf16 q: the tile arm
+        fail(f"{label}: resume dispatches launched the tile arm {resumed['tile_launches']} times")
     if any(launches[k] != n for k, n in expected.items()) or others:
         fail(f"{label}: launches {launches}, expected {expected}")
     if decoded != sum(seq - k for k in ks) or restored != sum(ks):
@@ -2363,6 +2502,7 @@ def resume_fields(row, err, runs):
     out = {f"resume_{k}": v for k, v in row.items() if k != "device_kernels" and not k.endswith("_device_kernels")}
     out["resume_max_abs_err"] = err
     out["resume_launches"] = {r["run"]: r["resume_launches"] for r in runs}
+    out["resume_tile_launches"] = {r["run"]: r["resume_tile_launches"] for r in runs}
     out["resume_dispatch_ms"] = {r["run"]: r["resume_dispatch_ms"] for r in runs}
     out["resume_dispatch_device_ms"] = {r["run"]: r.get("resume_dispatch_device_ms") for r in runs}
     return out
@@ -2398,7 +2538,7 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     t_start = t0 = time.perf_counter()
-    kernels.build(["flash_decode", "flash_attention", "wide_head"])
+    kernels.build(["flash_decode", "flash_decode_tile", "flash_attention", "wide_head"])
     print(f"build: {time.perf_counter() - t0:.2f} s total")
     for name, info in kernels.build_log.items():
         print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
@@ -2410,6 +2550,9 @@ def main() -> int:
                 entry = (m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) if m else ""
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {entry}: {line.strip()}")
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if name == "flash_decode_tile" and spills and spills.group(0) != "0 bytes spill stores, 0 bytes spill loads":
+                    fail(f"a flash_decode_tile instance spills: {line.strip()}")
 
     # 2. kernel vs plain ---------------------------------------------------
     cases = {
@@ -2475,8 +2618,8 @@ def main() -> int:
     attn_errs = check_attention(torch)
     print(f"phase 2 flash_attention checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    resume_errs = check_resume_prefill(torch)
-    print(f"phase 2 resume-shape checks: {time.perf_counter() - t0:.1f} s")
+    tile_errs = check_tile_arm(torch, cases)
+    print(f"phase 2 tile-arm and resume-shape checks: {time.perf_counter() - t0:.1f} s")
 
     # 3. times ---------------------------------------------------------------
     def library(q, k, v, lens):
@@ -2512,7 +2655,7 @@ def main() -> int:
     est = LAYERS * (timings[("prefill", "bf16")]["ms"] + 1024 * step["ms"])
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
     variant_times = time_decode_variants(torch, F, peaks, smi, cases)
-    resume_times = time_resume_prefill(torch, F, peaks, smi)
+    tile_times = time_tile_arm(torch, F, peaks, smi, cases)
     paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     time_attention(torch, F, peaks, torch.float32, "fp32", 4)
@@ -2548,10 +2691,12 @@ def main() -> int:
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     flash_decode_attention.launches = 0
+    flash_decode_attention.tile_launches = 0
     t0 = time.perf_counter()
     toks, pixels = engine.generate(specs)
     wall = time.perf_counter() - t0
-    launches = {"flash_decode": flash_decode_attention.launches}
+    launches = {"flash_decode": flash_decode_attention.launches,
+                "flash_decode_tile": flash_decode_attention.tile_launches}
     expected = LAYERS * (1 + engine.image_seq_len)
     print(
         f"main path: {n_params / 1e6:.1f} M DALLE params bf16, warmup {warm_s:.2f} s, "
@@ -2560,6 +2705,8 @@ def main() -> int:
     )
     if launches["flash_decode"] != expected:
         fail(f"flash_decode launched {launches['flash_decode']} times, expected {expected}")
+    if launches["flash_decode_tile"] != LAYERS:  # the prefill, one call a layer
+        fail(f"the prefill launched the tile arm {launches['flash_decode_tile']} times, expected {LAYERS}")
     if toks.shape != (4, 1024) or toks.min() < 0 or toks.max() >= 8192:
         fail(f"tokens out of range or shape {toks.shape}")
     if pixels.shape != (4, 256, 256, 3) or not math.isfinite(float(pixels.sum())):
@@ -2631,25 +2778,42 @@ def main() -> int:
                 route="cuda",
                 source="dalle_pytorch_tpu_torch/csrc/flash_decode.cu",
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76",
-                launches=launches["flash_decode"],
-                max_abs_err=max(e for (c, d), e in errs.items() if d == torch.bfloat16),
+                launches=launches["flash_decode"] - launches["flash_decode_tile"],
+                max_abs_err=max(e for (c, d), e in errs.items() if d == torch.bfloat16 and c.startswith("step")),
                 ms=step["ms"],
                 plain_ms=step["plain_ms"],
                 device_ms=step["device_ms"],
                 device_kernels=step["device_kernels"],
-                prefill_ms=timings[("prefill", "bf16")]["ms"],
-                prefill_device_ms=timings[("prefill", "bf16")]["device_ms"],
                 cli_launches=cli_launches["cli_flash_decode"],
-                **resume_fields(resume_times["flash_decode"], resume_errs["flash_decode"],
-                                migrated[:2]),
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]; "
-                "cli_launches: phase 9's generation CLI (2 prompts x one batch of 4); resume_*: "
-                "bf16 n=1280 S=1281 B=4 lengths 1280, library SDPA causal, launches per resume "
-                "dispatch of phase 10 (slotted, paged)",
-            )
+                "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
+                "9's generation CLI (2 prompts x one batch of 4, prefill included)",
+            ),
+            dict(
+                name="flash_decode_tile",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode_tile.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                launches=launches["flash_decode_tile"],
+                max_abs_err=tile_errs["flash_decode_tile"],
+                **tile_times["prefill"]["flash_decode_tile"],
+                **{f"int8_{k}": v for k, v in tile_times["prefill"]["flash_decode_tile_int8"].items()},
+                int8_max_abs_err=tile_errs["flash_decode_tile_int8"],
+                **resume_fields(tile_times["resume"]["flash_decode_tile"], tile_errs["flash_decode_tile"],
+                                migrated[:2]),
+                **{f"int8_{k}": v for k, v in resume_fields(
+                    tile_times["resume"]["flash_decode_tile_int8"], tile_errs["flash_decode_tile_int8"],
+                    migrated[2:]).items()},
+                timed="bf16 q, prefill n=257 B=4 H=16 D=64 S=1281 lengths 257 (int8_*: int8 K/V + "
+                "fp32 scales); library_ms is SDPA's causal forward over the 257 live keys (the same "
+                "function); launches: phase 5's prefill (one a layer); resume_*: n=1280 S=1281 B=4 "
+                "lengths 1280, launches per resume dispatch of phase 10 (slotted, paged; int8_: "
+                "the int8 run at depth 4); max_abs_err: worst of prefill, prefill_edges, resume B=1 "
+                "and 4 against the plain version",
+            ),
         ] + [
             dict(
                 name=name,
@@ -2679,12 +2843,9 @@ def main() -> int:
                 launches=launches["flash_decode_int8"],
                 max_abs_err=variant_errs["flash_decode_int8"],
                 **variant_times["flash_decode_int8"],
-                **resume_fields(resume_times["flash_decode_int8"], resume_errs["flash_decode_int8"],
-                                migrated[2:]),
                 timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
-                "[258, 700, 1024, 1281]; launches: phase 7 int8 run (depth 4); library_ms is "
-                "SDPA over the bf16 cache; resume_*: n=1280 S=1281 B=4, launches per resume "
-                "dispatch of phase 10's int8 run (depth 4)",
+                "[258, 700, 1024, 1281]; launches: phase 7 int8 run's steps (depth 4; its "
+                "prefill is the tile arm's); library_ms is SDPA over the bf16 cache",
             ),
             dict(
                 name="block_sparse_flash_decode",
@@ -2696,7 +2857,8 @@ def main() -> int:
                 max_abs_err=variant_errs["block_sparse_flash_decode"],
                 **variant_times["block_sparse_flash_decode"],
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281, axial_row policy bitmap; launches: "
-                "phase 7 policy run (bf16 arm, depth 4) + policy+int8 patterned run (int8 arm); "
+                "phase 7 policy run's steps (bf16 arm, depth 4) + policy+int8 patterned run's "
+                "(int8 arm; both runs' prefills are the tile arm's); "
                 "library_ms is SDPA with the bitmap-expanded mask",
             ),
             dict(

@@ -50,8 +50,11 @@
 //     call, no memset, no host sync) merges the spans in span order. A
 //     span with no visible key writes m = -inf, l = 0 and adds no term. A
 //     row whose keys all lie in one span is written by its one block. For
-//     n > kRows (the prefill chunk) one block per query tile of kRows rows
-//     covers the whole cache and writes the output itself;
+//     n > kRows with fp32 q one block per query tile of kRows rows covers
+//     the whole cache and writes the output itself (bf16 q at n > kRows,
+//     the prefill chunk and the resume forward, runs the tensor-core tile
+//     arm of flash_decode_tile.cu instead; fp32 keeps fp32 arithmetic
+//     here, as the flash-attention forward keeps `fwd_kernel` for fp32);
 //   * every warp computes: a tile's keys are split across the 4 warps, and
 //     within a warp each key goes to a group of DMAX / 8 lanes holding 8
 //     channels each (at D <= 64, 4 keys a step), so a score is a butterfly
@@ -78,8 +81,9 @@
 //   * the softmax is one code path for every variant with explicit fmaf /
 //     expf, so an all-ones bitmap gives the plain variant's bits and the
 //     paged kernel gives the contiguous kernel's bits on the gathered view.
-// Not done: tensor cores (a step is 4 D flops per key read, far below the
-// card's ridge) and TMA bulk copies.
+// Not done: tensor cores here (a step is 4 D flops per key read, far below
+// the card's ridge; the multi-row bf16 calls, where every key serves many
+// rows, are flash_decode_tile.cu's) and TMA bulk copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

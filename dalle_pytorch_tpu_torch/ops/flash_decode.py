@@ -49,13 +49,26 @@ the same spans, tiles and summation order, see the source's header).
 `None` takes `PAGED_DECODE_IMPL`, read from $DALLE_PAGED_DECODE_IMPL,
 default "gather" as in the reference.
 
+The prefill chunk and the resume forward (n > `DECODE_ROWS` query rows)
+with bf16 q run the tile arm, `csrc/flash_decode_tile.cu`: flash
+attention's forward over the cache, one block per 128 query rows looping
+over 64-key tiles (`DECODE_TILE`) on bf16 tensor cores, P rounded to bf16
+before P V, int8 K/V widened to bf16 with the scales on S's and P's
+columns, every variant (int8, block-sparse, paged) in one body whose
+all-ones bitmap and paged layout give the plain contiguous bits
+(`flash_decode_tile_plain` is its arithmetic on the CPU). fp32 q at n >
+`DECODE_ROWS` keeps flash_decode.cu's CUDA-core 4-row instance.
+`decode_arm` is the dispatch rule.
+
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
 counts: `flash_decode_attention.launches` (plain arm) and
 `.int8_launches`, the same pair on `block_sparse_flash_decode_attention`,
 `paged_flash_decode_attention` and
-`block_sparse_paged_flash_decode_attention` (D <= 256; calls at larger D
-count in `wide_head.wide_decode.launches`).
+`block_sparse_paged_flash_decode_attention`, each counting every launch
+at D <= 256 whichever arm ran (calls at larger D count in
+`wide_head.wide_decode.launches`); `.tile_launches` and
+`.tile_int8_launches` count the ones of those that launched the tile arm.
 """
 
 from __future__ import annotations
@@ -72,6 +85,8 @@ from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, wide_decode
 MAX_KERNEL_HEAD_DIM = WIDE_ABOVE  # flash_decode.cu takes any D up to this (csrc dispatch_d)
 DECODE_ROWS = 4  # query rows per block (csrc kRows): n <= DECODE_ROWS splits the cache
 DECODE_SPAN = 128  # cache positions per split-K block (csrc kSpan, fixed from measurement)
+DECODE_TILE = 64  # keys per tile of the tile arm (csrc/flash_decode_tile.cu kBN)
+LOG2E = 1.4426950408889634  # the tile arm forms P in base 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PAGED_DECODE_IMPLS = ("gather", "kernel")
 PAGED_DECODE_IMPL = os.environ.get("DALLE_PAGED_DECODE_IMPL", "gather")
@@ -251,6 +266,72 @@ def flash_decode_split_plain(
     return out.to(q.dtype)
 
 
+def flash_decode_tile_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_bitmap: Optional[torch.Tensor] = None,
+    block_k: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The tile arm's arithmetic in plain PyTorch (a model for tests;
+    nothing on the main path calls it): an online softmax over tiles of
+    DECODE_TILE cache positions in order. Per tile, S = q . k in fp32 (int8 K
+    and V as their integer values), x = S * scale * log2(e) in fp32
+    (int8: S's column j times k_scale[j] * scale * log2(e)), invisible
+    scores -inf; m_new = max(m, max x), P = 2^(x - m_new) and the
+    correction 2^(m - m_new) (a row whose maximum is still -inf takes 0
+    in its place), l = l * corr + sum P, then P (int8: its column j times
+    v_scale[j]) rounded to q's dtype before acc = acc * corr + P V.
+    out = acc / l, zeros for a row with no visible key. Keys no row reads
+    enter as zeros, as the kernel zero-fills them. `block_bitmap` (with
+    `block_k`) arms block sparsity; `page_table` reads k/v (and the
+    scales) as pools [P, H, page, D] through it, the bitmap then one bit
+    per page."""
+    if page_table is not None:
+        page = k.shape[2]
+        vlen = page_table.shape[1] * page
+        k, v, k_scale, v_scale = _gathered(k, v, page_table, vlen, k_scale, v_scale)
+        block_k = page if block_bitmap is not None else block_k
+    b, h, n, d = q.shape
+    s_len = k.shape[2]
+    pos = torch.arange(s_len, device=q.device)
+    bound = lengths.to(torch.long).clamp(0, s_len)[:, None] - n + torch.arange(n, device=q.device)
+    visible = pos[None, None, :] <= bound[:, :, None]  # [B, n, S]
+    if block_bitmap is not None:
+        live = expand_bitmap(block_bitmap, clamp_block_k(block_k, s_len), s_len)
+        visible = visible & live[:, None, :]
+    read = visible.any(1)[:, None, :]  # [B, 1, S]: the keys some row reads
+    zero = torch.zeros((), device=q.device)
+    kf = torch.where(read[..., None], k.float(), zero)
+    vf = torch.where(read[..., None], v.float(), zero)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scale_log2 = torch.tensor(d**-0.5, **f32) * torch.tensor(LOG2E, **f32)  # fp32, as the kernel
+    col = scale_log2.expand(b, h, s_len) if k_scale is None else torch.where(read, k_scale, zero) * scale_log2
+    v_col = None if v_scale is None else torch.where(read, v_scale, zero)
+    qf = q.float()
+    m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, n, 1), device=q.device)
+    acc = torch.zeros((b, h, n, d), device=q.device)
+    for lo in range(0, s_len, DECODE_TILE):
+        sl = slice(lo, lo + DECODE_TILE)
+        x = torch.matmul(qf, kf[:, :, sl].transpose(-1, -2)) * col[:, :, None, sl]
+        x = x.masked_fill(~visible[:, None, :, sl], float("-inf"))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), zero, m_new)
+        corr = torch.exp2(m - m_use)
+        p = torch.exp2(x - m_use)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if v_col is not None:
+            p = p * v_col[:, :, None, sl]
+        acc = acc * corr + torch.matmul(p.to(q.dtype).float(), vf[:, :, sl])
+        m = m_new
+    return torch.where(l > 0, acc / l.clamp(min=1e-30), zero).to(q.dtype)
+
+
 def expand_bitmap(block_bitmap: torch.Tensor, block_k: int, s_len: int) -> torch.Tensor:
     """[B, nb] block bitmap -> [B, S] bool per-position liveness."""
     return (block_bitmap != 0).repeat_interleave(block_k, dim=1)[:, :s_len]
@@ -271,6 +352,19 @@ def block_sparse_flash_decode_attention_plain(
     s_len = k.shape[2]
     kv_live = expand_bitmap(block_bitmap, clamp_block_k(block_k, s_len), s_len)
     return _plain(q, k, v, lengths, k_scale, v_scale, kv_live)
+
+
+def _tile_library() -> ctypes.CDLL:
+    lib = kernels.library("flash_decode_tile")
+    fn = lib.flash_decode_tile_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        tail = [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + tail
+        paged = lib.paged_flash_decode_tile_launch
+        paged.restype = ctypes.c_int
+        paged.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + tail
+    return lib
 
 
 def _library() -> ctypes.CDLL:
@@ -307,15 +401,37 @@ def decode_kernel_source(d: int) -> str:
     return "flash_decode" if d <= MAX_KERNEL_HEAD_DIM else "wide_head"
 
 
+def decode_arm(n: int, dtype: torch.dtype, d: int) -> str:
+    """The kernel a call of n query rows in q's `dtype` at head dim `d`
+    launches on the card: "wide" above MAX_KERNEL_HEAD_DIM
+    (csrc/wide_head.cu); else flash_decode.cu's split-K instances at the
+    step ("step", n = 1) and up to DECODE_ROWS rows ("split"); above
+    DECODE_ROWS the tensor-core tile arm of flash_decode_tile.cu for
+    bf16 q ("tile") and flash_decode.cu's CUDA-core 4-row instance for
+    fp32 q ("rows")."""
+    if d > MAX_KERNEL_HEAD_DIM:
+        return "wide"
+    if n == 1:
+        return "step"
+    if n <= DECODE_ROWS:
+        return "split"
+    return "tile" if dtype == torch.bfloat16 else "rows"
+
+
 def _count(fn, q, k_scale) -> None:
-    """One launch of `fn`'s kernel (its int8 arm with scales); calls above
-    MAX_KERNEL_HEAD_DIM launched `wide_decode` and count there."""
-    if q.shape[-1] > MAX_KERNEL_HEAD_DIM:
+    """One launch of `fn`'s kernel (its int8 arm with scales), and of its
+    tile arm where that ran; calls above MAX_KERNEL_HEAD_DIM launched
+    `wide_decode` and count there."""
+    b, h, n, d = q.shape
+    arm = decode_arm(n, q.dtype, d)
+    if arm == "wide":
         return
     if k_scale is None:
         fn.launches += 1
+        fn.tile_launches += arm == "tile"
     else:
         fn.int8_launches += 1
+        fn.tile_int8_launches += arm == "tile"
 
 
 _counters = {}  # device -> int32 arrival counters, zero between calls
@@ -342,31 +458,49 @@ def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_tabl
     """One launch of the contiguous (`page_table` None) or paged kernel;
     `block_bitmap` picks the block-sparse variant."""
     b, h, n, d = q.shape
-    if decode_kernel_source(d) == "wide_head":
+    arm = decode_arm(n, q.dtype, d)
+    if arm == "wide":
         return wide_decode(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table)
     tensors = [q, k, v] + ([] if k_scale is None else [k_scale, v_scale])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and scales must be 16-byte aligned")
-    lib = _library()
     out = torch.empty_like(q)
     sparse = block_bitmap is not None
+    quant = int(k_scale is not None)
     s_len = k.shape[2] if page_table is None else page_table.shape[1] * k.shape[2]
-    workspace, counters = _split_scratch(lib, q, b, h, n, s_len, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (_ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths))
+    if arm == "tile":
+        lib = _tile_library()
+        with torch.cuda.device(q.device):
+            if page_table is None:
+                err = lib.flash_decode_tile_launch(
+                    *head, _ptr(block_bitmap), _ptr(out), b, h, n, s_len, d, quant,
+                    block_k if sparse else 0, d**-0.5, stream,
+                )
+            else:
+                err = lib.paged_flash_decode_tile_launch(
+                    *head, _ptr(page_table), _ptr(block_bitmap), _ptr(out), b, h, n,
+                    k.shape[0], k.shape[2], page_table.shape[1], d, quant, d**-0.5, stream,
+                )
+        if err != 0:
+            raise RuntimeError(f"flash_decode_tile kernel launch failed: CUDA error {err}")
+        return out
+    lib = _library()
+    workspace, counters = _split_scratch(lib, q, b, h, n, s_len, d)
     tail = (d**-0.5, stream, _ptr(workspace), _ptr(counters))
     with torch.cuda.device(q.device):
         if page_table is None:
             err = lib.flash_decode_launch(
                 *head, _ptr(block_bitmap), _ptr(out), b, h, n, s_len, d,
-                _DTYPE_CODE[q.dtype], int(k_scale is not None),
+                _DTYPE_CODE[q.dtype], quant,
                 block_bitmap.shape[1] if sparse else 0, block_k if sparse else 0, *tail,
             )
         else:
             err = lib.paged_flash_decode_launch(
                 *head, _ptr(page_table), _ptr(block_bitmap), _ptr(out), b, h, n,
-                k.shape[0], k.shape[2], page_table.shape[1], d, _DTYPE_CODE[q.dtype],
-                int(k_scale is not None), *tail,
+                k.shape[0], k.shape[2], page_table.shape[1], d, _DTYPE_CODE[q.dtype], quant,
+                *tail,
             )
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
@@ -400,6 +534,8 @@ def flash_decode_attention(
 
 flash_decode_attention.launches = 0
 flash_decode_attention.int8_launches = 0
+flash_decode_attention.tile_launches = 0
+flash_decode_attention.tile_int8_launches = 0
 
 
 def block_sparse_flash_decode_attention(
@@ -439,6 +575,8 @@ def block_sparse_flash_decode_attention(
 
 block_sparse_flash_decode_attention.launches = 0
 block_sparse_flash_decode_attention.int8_launches = 0
+block_sparse_flash_decode_attention.tile_launches = 0
+block_sparse_flash_decode_attention.tile_int8_launches = 0
 
 
 # ------------------------------------------------------------ paged cache
@@ -530,6 +668,8 @@ def paged_flash_decode_attention(
 
 paged_flash_decode_attention.launches = 0
 paged_flash_decode_attention.int8_launches = 0
+paged_flash_decode_attention.tile_launches = 0
+paged_flash_decode_attention.tile_int8_launches = 0
 
 
 def block_sparse_paged_flash_decode_attention(
@@ -567,6 +707,8 @@ def block_sparse_paged_flash_decode_attention(
 
 block_sparse_paged_flash_decode_attention.launches = 0
 block_sparse_paged_flash_decode_attention.int8_launches = 0
+block_sparse_paged_flash_decode_attention.tile_launches = 0
+block_sparse_paged_flash_decode_attention.tile_int8_launches = 0
 
 
 def page_bitmap(block_bitmap: torch.Tensor, sparse_block: int, page: int, n_pages: int) -> torch.Tensor:
