@@ -35,8 +35,11 @@ def dense_attention(
     """q, k, v: [..., n, d]; mask broadcastable to [..., n_q, n_k], True =
     attend. Returns [..., n_q, d] in v's dtype."""
     scale = q.shape[-1] ** -0.5
-    scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
-    if mask is not None:
-        scores = torch.where(mask, scores, NEG_INF)
-    attn = stable_softmax(scores) if stable else torch.softmax(scores, dim=-1)
+    # float32 scores under autocast too (it would recast the product to
+    # bf16, where NEG_INF overflows)
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+        if mask is not None:
+            scores = torch.where(mask, scores, NEG_INF)
+        attn = stable_softmax(scores) if stable else torch.softmax(scores, dim=-1)
     return torch.matmul(attn.to(v.dtype), v)

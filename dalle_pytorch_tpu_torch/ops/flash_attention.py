@@ -36,10 +36,12 @@ forward at 64, 128 and 256 only; on the card a D <= 256 between them is
 zero-padded along D to the kernel's next instance, run with the true D's
 scale (D ** -0.5 unless `sm_scale`), and cut back (`on_kernel_head_dim`):
 zero columns add nothing to q . k and give zero output columns, so lse is
-unchanged. D > 256 runs unpadded on the column-group kernels of
-`csrc/wide_head.cu` (`ops/wide_head.py`: each block owns at most 64
-output columns and loops the scores over all of D, so no D runs out of
-registers or shared memory).
+unchanged. D > 256 runs on the column-group kernels of
+`csrc/wide_head.cu` (`ops/wide_head.py`: each block owns some of the
+output columns and loops the scores over all of D in 64-channel chunks,
+so no D runs out of registers or shared memory; bfloat16 on tensor cores
+with the rounding described here, float32 on CUDA cores).
+`attention_kernels(D, dtype)` names the kernels a call launches.
 
 On the card the kernels are bound by operations at the training shapes:
 4 D flops per visible pair forward, 10 D backward (S and dP once, then
@@ -71,6 +73,8 @@ from dalle_pytorch_tpu_torch.ops.wide_head import (
     WIDE_ABOVE,
     wide_attention_bwd,
     wide_attention_fwd,
+    wide_attention_kernels,
+    wide_kernel_head_dim,
 )
 
 BLOCK = 64  # the kernels' query and key tile (csrc/flash_attention.cu kBlock)
@@ -294,6 +298,21 @@ def attention_kernel_source(d: int) -> str:
     return "flash_attention" if d <= WIDE_ABOVE else "wide_head"
 
 
+def attention_kernels(d: int, dtype: torch.dtype) -> dict:
+    """{"fwd": kernel, "bwd": (kernels...)}: the kernels a call at head dim
+    `d` and `dtype` launches on the card, as a profiler trace names them
+    (the bfloat16 backward's workspace memset and dq conversion aside)."""
+    if attention_kernel_source(d) == "wide_head":
+        return wide_attention_kernels(d, dtype)
+    if dtype == torch.bfloat16:
+        return {"fwd": f"fwd_wgmma_kernel<{kernel_head_dim(d, WGMMA_HEAD_DIMS)}>",
+                "bwd": (f"bwd_mma_kernel<{kernel_head_dim(d)}>",)}
+    if dtype == torch.float32:
+        kd = kernel_head_dim(d)
+        return {"fwd": f"fwd_kernel<{kd}>", "bwd": (f"dq_kernel<{kd}>", f"dkv_kernel<{kd}>")}
+    raise TypeError(f"no flash-attention kernel for {dtype}")
+
+
 def on_kernel_head_dim(fn, tensors, n_sliced: int, sm_scale=None, dims=KERNEL_HEAD_DIMS):
     """fn(*padded, scale): `tensors` ([..., D] each) zero-padded along D to
     `kernel_head_dim(D, dims)`, scale the true D's (D ** -0.5 unless
@@ -341,8 +360,11 @@ def flash_attention_fwd(q, k, v, mask: MaskLike = None, causal=True, sm_scale=No
     if q.device.type == "cpu":
         return flash_attention_forward_plain(q, k, v, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
-    if attention_kernel_source(q.shape[-1]) == "wide_head":
-        return wide_attention_fwd(q, k, v, mode, fm, _scale(q, sm_scale))
+    d = q.shape[-1]
+    if attention_kernel_source(d) == "wide_head":
+        return on_kernel_head_dim(
+            lambda q, k, v, scale: wide_attention_fwd(q, k, v, mode, fm, scale), (q, k, v), 1,
+            sm_scale, (wide_kernel_head_dim(d, q.dtype),))
 
     def launch(q, k, v, scale):
         o = torch.empty_like(q)
@@ -369,8 +391,11 @@ def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=T
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, mask, causal, sm_scale)
     mode, fm = _resolve(mask, causal, q, k)
-    if attention_kernel_source(q.shape[-1]) == "wide_head":
-        return wide_attention_bwd(q, k, v, do, lse, delta, mode, fm, _scale(q, sm_scale))
+    d = q.shape[-1]
+    if attention_kernel_source(d) == "wide_head":
+        return on_kernel_head_dim(
+            lambda q, k, v, do, scale: wide_attention_bwd(q, k, v, do, lse, delta, mode, fm, scale),
+            (q, k, v, do), 3, sm_scale, (wide_kernel_head_dim(d, q.dtype),))
 
     def launch(q, k, v, do, scale):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

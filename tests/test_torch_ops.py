@@ -117,6 +117,26 @@ def test_dense_attention(stable):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("stable", [False, True])
+def test_dense_attention_scores_stay_float32_under_bf16_autocast(stable):
+    """Under bf16 autocast (a training step's) the scores and softmax stay
+    float32, as without it: the masked output equals the one computed
+    outside autocast bit for bit, and equals the reference's on the same
+    bf16 inputs (1e-2: the output is bf16). Autocast used to recast the
+    score product to bf16, where the mask's fill value overflows."""
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(2, 3, 7, 16).astype(np.float32) for _ in range(3))
+    mask = np.tril(np.ones((7, 7), bool))[None, None]
+    tq, tk, tv = (_t(x).bfloat16() for x in (q, k, v))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out = attention_core.dense_attention(tq, tk, tv, mask=_t(mask), stable=stable)
+    plain = attention_core.dense_attention(tq, tk, tv, mask=_t(mask), stable=stable)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, plain)
+    ref = j_core.dense_attention(*(jnp.asarray(t.float().numpy()) for t in (tq, tk, tv)),
+                                 mask=jnp.asarray(mask), stable=stable)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref), atol=1e-2, rtol=0)
+
+
 def test_top_k_filter_per_row_keeps_ties():
     logits = np.array(
         [[1.0, 3.0, 3.0, 2.0, 3.0, 0.5],
