@@ -10,10 +10,11 @@ Phases, each failing loudly (nonzero exit, no result line):
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel of the port from `dalle_pytorch_tpu_torch/csrc/` (one nvcc per
    source, started together: flash_decode.cu, flash_decode_tile.cu,
-   flash_attention.cu and wide_head.cu, the head dims above 256), with
-   ptxas's register and spill lines (no flash_decode_tile instance may
-   spill; no tensor-core instance of wide_head.cu may spill, and
-   `cuobjdump -sass` must find HMMA in each);
+   flash_decode_tile_f32.cu, flash_attention.cu and wide_head.cu, the
+   head dims above 256), with ptxas's register and spill lines (no
+   instance of either tile source may spill; no tensor-core instance of
+   wide_head.cu may spill, and `cuobjdump -sass` must find HMMA in each;
+   no split-K decode instance of it may spill);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -27,7 +28,8 @@ Phases, each failing loudly (nonzero exit, no result line):
    D = 264, 300, 320 and 1024 must route to the wide kernels (bf16
    attention to the tensor-core ones), which are held at D = 264-1024
    (decode: the five functions, both arms, NaN-poisoned caches, the bit
-   identities at D = 320; attention: the causal, all-keys and static-mask
+   identities at D = 320, the split-K step at n = 1 and 3 with a span
+   left without a visible key, the 4-row kernel at n = 5; attention: the causal, all-keys and static-mask
    arms, forward and backward, and the causal arm at the training shapes
    at D = 320 and 512);
 3. times with CUDA events: each kernel, its plain version and one PyTorch
@@ -41,13 +43,17 @@ Phases, each failing loudly (nonzero exit, no result line):
    shorter), and the CUDA kernel the bf16 forward's row ran
    (`cuda_kernel`: the wgmma kernel at D = 64); the wide kernels at D =
    320 and 512, their traces naming the kernels `attention_kernels`
-   routes to; the fp32 arms beside SDPA in fp32 (flash decode's rows arm
-   at n = 257 and 1280, flash attention at D = 64 and 256);
+   routes to, and the 4-row wide decode at the resume shape at D = 320;
+   the fp32 arms beside SDPA in fp32 (flash decode's fp32 tile arm at n
+   = 257 and 1280, flash attention at D = 64 and 256); kernels 3-5
+   through the bf16 tile arm at the resume shape;
 4. a small float32 model on the card, through the kernels against the
-   same model through dense attention: its cached decode, and its training
-   loss and every gradient; again at dim_head 320 (the wide kernels, their
-   launches counted), there also the training step under bf16 autocast
-   (the tensor-core wide kernels) against dense attention under it;
+   same model through dense attention: its cached decode (the prefill
+   and a resume launching the fp32 tile arm), and its training loss and
+   every gradient; again at dim_head 320 (the wide kernels, their
+   launches counted: the steps on the split-K kernel, the prefill and
+   resume on the 4-row one), there also the training step under bf16
+   autocast (the tensor-core wide kernels) against dense attention under it;
 5. the generation path once: the micro `GenerationEngine` at the flagship
    width (DALLE dim 1024, depth 12, 16 heads of 64, 256 text + 1024 image
    tokens, 256 px dVAE; random weights from a seed; bfloat16; batch 4),
@@ -111,15 +117,15 @@ Phases, each failing loudly (nonzero exit, no result line):
    the resume dispatch's wall and device time, the export and codec
    walls.
 
-Phases 2 and 3 also hold and time flash decode's tile arm
-(`flash_decode_tile.cu`: bf16 q at n > 4 rows, both cache arms) at the
+Phases 2 and 3 also hold and time flash decode's tile arms
+(`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
+`flash_decode_tile_f32.cu`: fp32 q at n > 4; both cache arms) at the
 prefill chunk (n = 257) and the resume forward's shape (n = 1280 rows over
-a 1281-slot cache; B = 1 and 4), against the plain version and the tile
+a 1281-slot cache; B = 1 and 4), against the plain version and each arm's
 model, on caches poisoned with NaN past each row's length, beside SDPA's
-causal forward and `flash_attention_fwd` over the live keys, and check
-that each such call launches the tile arm once (phase 5: 12 tile launches
-a generate(), phase 10: 12 a depth-12 resume dispatch); fp32 q at n > 4
-keeps flash_decode.cu's 4-row instance (held at the resume shape). They
+causal forward (and, bf16, `flash_attention_fwd`) over the live keys, and
+check that each such call launches its arm once (phase 5: 12 tile
+launches a generate(), phase 10: 12 a depth-12 resume dispatch). They
 also hold the int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
 random and policy bitmaps, poisoned dead tiles) and the two paged kernels
@@ -406,11 +412,12 @@ DECODE_FUNCTIONS = ("flash_decode_attention", "block_sparse_flash_decode_attenti
                     "paged_flash_decode_attention", "block_sparse_paged_flash_decode_attention")
 
 
-def tile_launches():
-    """Launches of the tile arm so far, over the four wrappers and both arms."""
+def tile_launches(arm="tile"):
+    """Launches of the tile arm `arm` ("tile": bf16 q, "tile_f32": fp32 q)
+    so far, over the four wrappers and both cache arms."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    return sum(getattr(fd, f).tile_launches + getattr(fd, f).tile_int8_launches
+    return sum(getattr(getattr(fd, f), f"{arm}_launches") + getattr(getattr(fd, f), f"{arm}_int8_launches")
                for f in DECODE_FUNCTIONS)
 
 
@@ -425,71 +432,59 @@ def poison_past_length(torch, k, v, lens, sc=()):
 
 
 def check_tile_arm(torch, cases):
-    """Phase 2 for the tile arm (`csrc/flash_decode_tile.cu`, bf16 q at n >
-    DECODE_ROWS): kernels 1 and 2 (int8) against the plain version and
-    against the tile model (`flash_decode_tile_plain`, which rounds P as
-    the kernel does), both under decode_tol, at the prefill shapes and the
-    resume shape (B = 1 and 4), each call launching the tile arm once; the
+    """Phase 2 for the two tile arms (n > DECODE_ROWS): bf16 q on
+    `csrc/flash_decode_tile.cu`, fp32 q on `csrc/flash_decode_tile_f32.cu`.
+    Kernels 1 and 2 (int8) against the plain version and against the arm's
+    model (`flash_decode_tile_plain`, P as the bf16 pair the kernel
+    multiplies; `flash_decode_tile_f32_plain`), both under decode_tol in
+    q's dtype, at the prefill shapes and the resume shape (B = 1 and 4),
+    each call launching its arm once and the other arm never; the
     prefill_edges and resume-B=4 caches poisoned with NaN past each row's
-    length giving finite outputs bit-identical to the clean ones; fp32 q
-    at the resume shape (B = 1 and 4) launching flash_decode.cu's 4-row
-    instance, not the tile arm, within decode_tol of the plain version.
-    Returns {kernel: worst max_abs_err against the plain version}."""
+    length giving finite outputs bit-identical to the clean ones. Returns
+    {kernel: worst max_abs_err against the plain version}."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    worst = {"flash_decode_tile": 0.0, "flash_decode_tile_int8": 0.0}
+    worst = {}
     failures = []
-    shapes = [(c, lambda c=c: flash_inputs(torch, *cases[c], torch.bfloat16)[0])
-              for c in ("prefill", "prefill_edges")]
-    shapes += [(f"resume B={b}", lambda b=b: resume_inputs(torch, b, torch.bfloat16)[0]) for b in (1, 4)]
-    for label, make in shapes:
-        q, k, v, lens = make()
-        kq, vq, ks, vs = quantized(torch, k, v)
-        for kernel, kk, vv, sc in (("flash_decode_tile", k, v, ()),
-                                   ("flash_decode_tile_int8", kq, vq, (ks, vs))):
-            before = tile_launches()
-            out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
-            ran = tile_launches() - before
-            ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
-            model = fd.flash_decode_tile_plain(q, kk, vv, lens, *sc)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            err_model = (out.float() - model.float()).abs().max().item()
-            tol = decode_tol(torch, ref, torch.bfloat16)
-            print(f"check {kernel} {label} n={q.shape[2]}: max_abs_err {err:.3e} vs plain, "
-                  f"{err_model:.3e} vs the tile model, tol {tol:.3e}; tile launches {ran}")
-            if not (err <= tol and err_model <= tol and torch.isfinite(out).all()) or ran != 1:
-                failures.append(f"{kernel} {label}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
-                                f"or {ran} tile launches")
-            worst[kernel] = max(worst[kernel], err)
-            if label in ("prefill_edges", "resume B=4"):
-                pk, pv, psc = poison_past_length(torch, kk, vv, lens, sc)
-                poisoned = fd.flash_decode_attention(q, pk, pv, lens, *psc)
-                same = torch.equal(out, poisoned) and bool(torch.isfinite(poisoned).all())
-                print(f"check {kernel} {label}: NaN past each row's length, finite and unchanged {same}")
-                if not same:
-                    failures.append(f"{kernel} {label}: NaN past the lengths changed the output")
-                del pk, pv, psc, poisoned
-            del out, ref, model
-        del q, k, v, kq, vq, ks, vs
-    # fp32 q at n > DECODE_ROWS stays on flash_decode.cu's 4-row instance
-    for b in (1, 4):
-        q, k, v, lens = resume_inputs(torch, b, torch.float32)[0]
-        before, before_all = tile_launches(), fd.flash_decode_attention.launches
-        out = fd.flash_decode_attention(q, k, v, lens)
-        ran = (tile_launches() - before, fd.flash_decode_attention.launches - before_all)
-        ref = fd.flash_decode_attention_plain(q, k, v, lens)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = decode_tol(torch, ref, torch.float32)
-        print(f"check flash_decode resume B={b} n={q.shape[2]} float32 (flash_decode.cu's 4-row "
-              f"instance): max_abs_err {err:.3e} tol {tol:.3e}; tile / all launches {ran}")
-        if not (err <= tol and torch.isfinite(out).all()) or ran != (0, 1):
-            failures.append(f"flash_decode resume B={b} float32: {err:.3e} over {tol:.3e} or "
-                            f"tile / all launches {ran}")
-        del q, k, v, out, ref
+    arms = ((torch.bfloat16, "tile", "flash_decode_tile", fd.flash_decode_tile_plain),
+            (torch.float32, "tile_f32", "flash_decode_tile_f32", fd.flash_decode_tile_f32_plain))
+    for dtype, arm, name, model_fn in arms:
+        other = "tile_f32" if arm == "tile" else "tile"
+        shapes = [(c, lambda c=c: flash_inputs(torch, *cases[c], dtype)[0])
+                  for c in ("prefill", "prefill_edges")]
+        shapes += [(f"resume B={b}", lambda b=b: resume_inputs(torch, b, dtype)[0]) for b in (1, 4)]
+        for label, make in shapes:
+            q, k, v, lens = make()
+            kq, vq, ks, vs = quantized(torch, k, v)
+            for kernel, kk, vv, sc in ((name, k, v, ()), (name + "_int8", kq, vq, (ks, vs))):
+                before = (tile_launches(arm), tile_launches(other))
+                out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
+                ran = (tile_launches(arm) - before[0], tile_launches(other) - before[1])
+                ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
+                model = model_fn(q, kk, vv, lens, *sc)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                err_model = (out.float() - model.float()).abs().max().item()
+                tol = decode_tol(torch, ref, dtype)
+                print(f"check {kernel} {label} n={q.shape[2]} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                      f"vs plain, {err_model:.3e} vs the arm's model, tol {tol:.3e}; launches of "
+                      f"this arm / the other {ran}")
+                if not (err <= tol and err_model <= tol and torch.isfinite(out).all()) or ran != (1, 0):
+                    failures.append(f"{kernel} {label}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
+                                    f"or launches {ran}")
+                worst[kernel] = max(worst.get(kernel, 0.0), err)
+                if label in ("prefill_edges", "resume B=4"):
+                    pk, pv, psc = poison_past_length(torch, kk, vv, lens, sc)
+                    poisoned = fd.flash_decode_attention(q, pk, pv, lens, *psc)
+                    same = torch.equal(out, poisoned) and bool(torch.isfinite(poisoned).all())
+                    print(f"check {kernel} {label}: NaN past each row's length, finite and unchanged {same}")
+                    if not same:
+                        failures.append(f"{kernel} {label}: NaN past the lengths changed the output")
+                    del pk, pv, psc, poisoned
+                del out, ref, model
+            del q, k, v, kq, vq, ks, vs
     if failures:
-        fail("tile arm: " + "; ".join(failures))
+        fail("tile arms: " + "; ".join(failures))
     return worst
 
 
@@ -601,7 +596,8 @@ def check_wide_build(info):
     from ptxas's lines in `info` (a `kernels.build_log` entry), and, from
     `cuobjdump -sass` of the built library, the tensor-core instructions
     (HMMA) of each bf16 flash-attention kernel. Fails if a tensor-core
-    kernel (`*_mma_kernel`) spills or has no HMMA. Returns {kernel: {...}}."""
+    kernel (`*_mma_kernel`) spills or has no HMMA, or a split-K decode
+    kernel (`wide_split_kernel`) spills. Returns {kernel: {...}}."""
     from dalle_pytorch_tpu_torch import kernels
 
     out, entry = {}, None
@@ -630,6 +626,17 @@ def check_wide_build(info):
            or (info["ptxas"] and "spill_bytes" not in v)}
     if len(mma) != 6 or bad:  # forward 2 column counts, backward 1, each resident and streaming
         fail(f"wide_head's tensor-core kernels: expected 6 instances with HMMA and no spill, got {mma}")
+    # the split-K decode kernel's instances (template types, one name): each one's spills
+    split, raw = [], ""
+    for line in info["ptxas"].splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        raw = found.group(1) if found else raw
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and "wide_split_kernel" in raw:
+            split.append(int(spills.group(1)) + int(spills.group(2)))
+    out.setdefault("wide_split_kernel", {})["instance_spill_bytes"] = split
+    if any(split) or (info["ptxas"] and len(split) != 8):  # q fp32/bf16 x cache own/int8 x rows 1/4
+        fail(f"wide_head's split-K decode kernel: expected 8 instances without spills, got {split}")
     return out
 
 
@@ -670,11 +677,13 @@ WIDE_TIMED_DIMS = (320, 512)
 
 
 def check_wide_decode(torch):
-    """Phase 2 for the wide decode kernel (D > 256): kernels 1-5 (the
+    """Phase 2 for the wide decode kernels (D > 256): kernels 1-5 (the
     contiguous cache, block-sparse over 32-position blocks, paged with
     16-position pages through a shuffled table, block-sparse paged), each
     arm (the cache in q's dtype, int8) against its plain version under
-    decode_tol, at a one-row step and a 5-row chunk; every kernel's
+    decode_tol, at a one-row step and a 3-row chunk (the split-K kernel,
+    row 3's second span dead in the bitmaps) and a 5-row chunk (the 4-row
+    kernel), each launching there; every kernel's
     output unchanged and finite with NaN in every position no row may
     read (in the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for
     bit: the all-ones bitmap against kernels 1 and 4, kernel 4 against
@@ -702,18 +711,24 @@ def check_wide_decode(torch):
         dead = dead[:, None, :, None]
         return kk.masked_fill(dead, float("nan")), vv.masked_fill(dead, float("nan")), ()
 
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
     page, block, b, h, s_len = 16, 32, 4, 2, 300
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    before = (wh.wide_decode.launches, wh.wide_decode.split_launches)
     for d in WIDE_DECODE_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
-            for n, lengths in ((1, [1, 130, 257, 300]), (5, [5, 64, 200, 300])):
+            # n = 1 and 3: the split-K kernel (spans of 128 keys), n = 5 the 4-row kernel
+            for n, lengths in ((1, [1, 130, 257, 300]), (3, [3, 129, 256, 300]), (5, [5, 64, 200, 300])):
                 q, k, v, lens, table, live = paged_case(
                     torch, b, h, n, d, page, lengths, dtype, s_len, SEED + d + n)
                 n_pages = table.shape[1]
                 bm = (torch.rand((b, -(-s_len // block)), generator=g, device="cuda") < 0.5).to(torch.int32)
                 bm[:, 0] = 1
+                bm[3, 4:8] = 0  # row 3's second span (keys 128-255) has no visible key
                 pbm = (torch.rand((b, n_pages), generator=g, device="cuda") < 0.5).to(torch.int32)
                 pbm[:, :2] = 1  # the shared pages stay live
+                pbm[3, 8:16] = 0
                 sparse_live = paged_live(torch, table, lengths, page, k.shape[0], pbm.tolist())
                 in_len = torch.arange(s_len, device="cuda")[None, :] < lens[:, None]
                 kq, vq, ks, vs = quantized(torch, k, v)
@@ -776,7 +791,12 @@ def check_wide_decode(torch):
                 print(f"check wide decode D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
                       "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs))
     torch.cuda.synchronize()
+    held["4-row kernel launches"] = wh.wide_decode.launches - before[0] - (
+        wh.wide_decode.split_launches - before[1])
+    held["split-K kernel launches"] = wh.wide_decode.split_launches - before[1]
     print("check wide decode bit identities and poisoned caches (cases held): " + json.dumps(held))
+    if not (held["4-row kernel launches"] and held["split-K kernel launches"]):
+        failures.append("the split-K or the 4-row kernel never launched")
     if failures:
         fail("wide decode: " + "; ".join(failures[:10]))
     return worst, held
@@ -822,16 +842,19 @@ def check_wide_attention(torch):
 
 
 def time_wide_kernels(torch, F, peaks, smi):
-    """Phase 3 for the wide kernels at WIDE_TIMED_DIMS in bf16: decode at
-    the flagship step's geometry (B = 4, H = 16, S = 1281, n = 1, lengths
-    [258, 700, 1024, 1281]) and flash attention at TRAIN's causal shapes:
-    kernel, plain and SDPA times, the bound, and (after phase 8) the device
-    time. Returns {kernel: {D: row}}."""
+    """Phase 3 for the wide kernels at WIDE_TIMED_DIMS in bf16: the
+    split-K decode at the flagship step's geometry (B = 4, H = 16, S =
+    1281, n = 1, lengths [258, 700, 1024, 1281]) and flash attention at
+    TRAIN's causal shapes: kernel, plain and SDPA times, the bound, and
+    (after phase 8) the device time; and the 4-row decode kernel (n > 4)
+    at the resume shape at the first of them (n = 1280, S = 1281, lengths
+    1280, SDPA's causal forward over the live keys beside it). Returns
+    {kernel: {D: row}}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
-    rows = {"wide_decode": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
+    rows = {"wide_split": {}, "wide_decode": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
     b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
     lengths = [258, 700, 1024, 1281]
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -860,10 +883,12 @@ def time_wide_kernels(torch, F, peaks, smi):
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         defer_device_time(row, fd.flash_decode_attention, inputs, iters)
-        rows["wide_decode"][d] = row
-        print("time " + json.dumps(dict(kernel="wide_decode", case="step", dtype="bf16", D=d,
+        rows["wide_split"][d] = row
+        print("time " + json.dumps(dict(kernel="wide_split", case="step", dtype="bf16", D=d,
                                         lengths=lengths, card=smi, **row)))
         del inputs
+        if d == WIDE_TIMED_DIMS[0]:
+            rows["wide_decode"][d] = time_wide_rows(torch, F, peaks, smi, d, g)
 
         bt, ht, nt = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
         sets = []
@@ -899,6 +924,48 @@ def time_wide_kernels(torch, F, peaks, smi):
                                             H=ht, N=nt, D=d, causal=True, card=smi, **row)))
         del sets, fwd_in, lib_bwd_in
     return rows
+
+
+def time_wide_rows(torch, F, peaks, smi, d, g):
+    """Phase 3 for the 4-row wide decode kernel (`wide_decode_kernel`, n >
+    4 at D > 256) at the resume shape at head dim `d`, bf16 (B = 4, H = 16,
+    n = 1280, S = 1281, lengths 1280): kernel, plain, SDPA's causal forward
+    over the n live keys (the same function) and the bound; the device
+    time after phase 10. Returns the row."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    b, h, n, s_len = MAIN["batch"], MAIN["heads"], RESUME["n"], RESUME["cache"]
+    if fd.decode_arm(n, torch.bfloat16, d) != "wide":
+        fail(f"n = {n} at D = {d} does not take the 4-row wide kernel")
+    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    inputs = [tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                    for shape in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+              for _ in range(2)]
+    live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+
+    def sdpa_causal(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    row = dict(ms=time_ms(torch, fd.flash_decode_attention, inputs, 2),
+               plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, 2),
+               library_ms=time_ms(torch, sdpa_causal, live, 10))
+    row["bound_ms"], row["bound_by"] = wide_tile_bound(b, h, n, d, peaks)
+    defer_device_time(row, fd.flash_decode_attention, inputs, 2)
+    print("time " + json.dumps(dict(kernel="wide_decode", case="resume", dtype="bf16", B=b, H=h, n=n,
+                                    D=d, S=s_len, lengths=n,
+                                    library="SDPA causal forward over the n live keys", card=smi, **row)))
+    return row
+
+
+def wide_tile_bound(b, h, n, d, peaks):
+    """(bound_ms, bound_by) of a bf16 multi-row decode call of n rows over n
+    live keys each (every length n) at head dim `d`: q, K, V read and out
+    written once; 4*D flops per visible (row, key) pair, n (n + 1) / 2 of
+    them a (row, head)."""
+    nbytes = 4 * b * h * n * d * 2 + 4 * b
+    flops = 4 * d * b * h * n * (n + 1) / 2
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def decode_variant_bound(per_pos_bytes, positions, pairs, peaks):
@@ -1071,40 +1138,126 @@ def time_tile_arm(torch, F, peaks, smi, cases):
     return out
 
 
-def time_rows_arm(torch, F, peaks, smi):
-    """Phase 3 for flash decode's fp32 "rows" arm (fp32 q at n > 4,
-    `decode_arm`) at the resume shape (n = 1280, S = 1281, lengths 1280,
-    B = 4, inputs rotating over LAYERS copies): kernel 1, its plain
-    version, SDPA's causal forward in fp32 over the n live keys (the same
-    function) and the bound at the fp32 peak; the device time is taken
-    after phase 10. (The fp32 prefill at n = 257 is phase 3's fp32 prefill
-    row.) Returns the row."""
+def time_tile_variants(torch, F, peaks, smi):
+    """Phase 3 for kernels 3-5 through the bf16 tile arm at the resume shape
+    (n = 1280, S = 1281, lengths 1280, B = 4, H = 16, D = 64): kernel 3
+    with a random bitmap of 128-position blocks (block 0 and the last
+    live), kernel 4 over a shuffled pool of 32-position pages, kernel 5
+    with a random page bitmap (the first two pages live); each beside its
+    plain version and SDPA with the same mask (over the cache gathered
+    beforehand for 4 and 5), and its bound over the visible pairs; the
+    device times after phase 10. Returns {kernel: row}."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    b, d, n, s_len = MAIN["batch"], MAIN["dim_head"], RESUME["n"], RESUME["cache"]
-    if fd.decode_arm(n, torch.float32, d) != "rows":
-        fail(f"fp32 q at n = {n} does not take the rows arm")
-    inputs = resume_inputs(torch, b, torch.float32, copies=LAYERS)
-    live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+    b, h, d, n, s_len = MAIN["batch"], MAIN["heads"], MAIN["dim_head"], RESUME["n"], RESUME["cache"]
+    lengths, copies = [n] * b, 3  # three input sets rotating: 3 x 21 MB of K/V passes the L2
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    bm = (torch.rand((b, -(-s_len // 128)), generator=g, device="cuda") < 0.5).to(torch.int32)
+    bm[:, 0] = bm[:, -1] = 1
+    pbm = (torch.rand((b, -(-s_len // PAGE)), generator=g, device="cuda") < 0.5).to(torch.int32)
+    pbm[:, :2] = 1
+    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    causal = (torch.arange(s_len, device="cuda")[None, None, :]
+              <= (lens.long()[:, None] - n + torch.arange(n, device="cuda")[None, :])[:, :, None])
+    masks = {"block_sparse_flash_decode": causal & fd.expand_bitmap(bm, 128, s_len)[:, None, :],
+             "paged_flash_decode": causal,
+             "block_sparse_paged_flash_decode": causal & fd.expand_bitmap(pbm, PAGE, s_len)[:, None, :]}
+    sets = {name: ([], []) for name in masks}  # (kernel args, library args) per copy
+    for i, (q, k, v, _) in enumerate(resume_inputs(torch, b, torch.bfloat16, copies=copies)):
+        sets["block_sparse_flash_decode"][0].append((q, k, v, lens, bm, 128))
+        sets["block_sparse_flash_decode"][1].append((q, k, v, masks["block_sparse_flash_decode"]))
+        pq, pk, pv, _, table, _ = paged_case(torch, b, h, n, d, PAGE, lengths, torch.bfloat16, s_len,
+                                             SEED + 12 + i)
+        kg, vg = fd.paged_gather(pk, table, s_len), fd.paged_gather(pv, table, s_len)
+        sets["paged_flash_decode"][0].append((pq, pk, pv, lens, table))
+        sets["paged_flash_decode"][1].append((pq, kg, vg, masks["paged_flash_decode"]))
+        sets["block_sparse_paged_flash_decode"][0].append((pq, pk, pv, lens, table, pbm))
+        sets["block_sparse_paged_flash_decode"][1].append((pq, kg, vg, masks["block_sparse_paged_flash_decode"]))
+
+    def sdpa_masked(q_, k_, v_, mask):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask[:, None])
+
+    fns = {"block_sparse_flash_decode": (fd.block_sparse_flash_decode_attention,
+                                         fd.block_sparse_flash_decode_attention_plain),
+           "paged_flash_decode": (fd.paged_flash_decode_attention, fd.paged_flash_decode_attention_plain),
+           "block_sparse_paged_flash_decode": (fd.block_sparse_paged_flash_decode_attention,
+                                               fd.block_sparse_paged_flash_decode_attention_plain)}
+    rows = {}
+    for kernel, (fn, plain) in fns.items():
+        args, lib_args = sets[kernel]
+        before = tile_launches()
+        fn(*args[0])
+        if tile_launches() - before != 1:
+            fail(f"{kernel} at the resume shape did not launch the tile arm")
+        pairs = int(masks[kernel].sum())
+        live_keys = int(masks[kernel].any(1).sum())  # keys some row sees, over the batch rows
+        nbytes = 2 * b * h * n * d * 2 + h * 2 * d * 2 * live_keys + 4 * b
+        t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * pairs / peaks["bf16"]
+        row = dict(ms=time_ms(torch, fn, args, 2 * LAYERS), plain_ms=time_ms(torch, plain, args, 4),
+                   library_ms=time_ms(torch, sdpa_masked, lib_args, 2 * LAYERS),
+                   bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        defer_device_time(row, fn, args, 2 * LAYERS)
+        rows[kernel] = row
+        print("time " + json.dumps(dict(kernel=kernel, arm="tile", case="resume", q_dtype="bf16", B=b, H=h,
+                                        n=n, D=d, S=s_len, lengths=n, visible_pairs=pairs,
+                                        library="SDPA with the same boolean mask", card=smi, **row)))
+    return rows
+
+
+def time_tile_f32_arm(torch, F, peaks, smi, cases):
+    """Phase 3 for flash decode's fp32 tile arm (`csrc/flash_decode_tile_f32.cu`,
+    fp32 q at n > 4) at the prefill chunk (n = 257 over the 1281-slot
+    cache, lengths 257) and the resume shape (n = 1280, S = 1281, lengths
+    1280), B = 4, inputs rotating over LAYERS copies: kernels 1 and 2
+    (int8), their plain versions, SDPA's causal forward in fp32 over the n
+    live keys (the same function: every length equals n) and the bound at
+    the fp32 peak; the device times (the kernel's and SDPA's) are taken
+    after phase 10. Returns {"prefill" | "resume": {"flash_decode_tile_f32"
+    | "flash_decode_tile_f32_int8": row}}."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    b, d = MAIN["batch"], MAIN["dim_head"]
+    if fd.decode_arm(RESUME["n"], torch.float32, d) != "tile_f32":
+        fail(f"fp32 q at n = {RESUME['n']} does not take the fp32 tile arm")
 
     def sdpa_causal(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    lib_err = (sdpa_causal(*live[0]) - fd.flash_decode_attention_plain(*inputs[0])).abs().max().item()
-    row = dict(
-        ms=time_ms(torch, fd.flash_decode_attention, inputs, LAYERS),
-        plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, 4),
-        library_ms=time_ms(torch, sdpa_causal, live, LAYERS),
-    )
-    row["bound_ms"], row["bound_by"] = tile_bound(b, n, [n] * b, s_len, 2 * d * 4, peaks, 4, "fp32")
-    defer_device_time(row, fd.flash_decode_attention, inputs, LAYERS)
-    defer_device_time(row, sdpa_causal, live, LAYERS, prefix="library_")
-    print("time " + json.dumps(dict(
-        kernel="flash_decode", arm="rows", case="resume", q_dtype="fp32", B=b, H=MAIN["heads"], n=n,
-        D=d, S=s_len, lengths=n, library="SDPA causal forward in fp32 over the n live keys",
-        library_max_abs_err=lib_err, card=smi, **row)))
-    del inputs, live
-    return row
+    out = {}
+    for shape in ("prefill", "resume"):
+        if shape == "prefill":
+            n, _ = cases["prefill"]
+            s_len, iters = MAIN["cache"], 4 * LAYERS
+            inputs = flash_inputs(torch, n, [n] * b, torch.float32, copies=LAYERS)
+        else:
+            n, s_len, iters = RESUME["n"], RESUME["cache"], LAYERS
+            inputs = resume_inputs(torch, b, torch.float32, copies=LAYERS)
+        live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+        int8_in = []
+        for q, k, v, lens in inputs:
+            kq, vq, ks, vs = quantized(torch, k, v)
+            int8_in.append((q, kq, vq, lens, ks, vs))
+        lib_err = (sdpa_causal(*live[0]) - fd.flash_decode_attention_plain(*inputs[0])).abs().max().item()
+        library_ms = time_ms(torch, sdpa_causal, live, iters)
+        rows = {}
+        for kernel, args, per_pos in (("flash_decode_tile_f32", inputs, 2 * d * 4),
+                                      ("flash_decode_tile_f32_int8", int8_in, 2 * d + 8)):
+            row = dict(
+                ms=time_ms(torch, fd.flash_decode_attention, args, iters),
+                plain_ms=time_ms(torch, fd.flash_decode_attention_plain, args, 4),
+                library_ms=library_ms,
+            )
+            row["bound_ms"], row["bound_by"] = tile_bound(b, n, [n] * b, s_len, per_pos, peaks, 4, "fp32")
+            defer_device_time(row, fd.flash_decode_attention, args, iters)
+            rows[kernel] = row
+            print("time " + json.dumps(dict(
+                kernel=kernel, case=shape, q_dtype="fp32", B=b, H=MAIN["heads"], n=n, D=d, S=s_len,
+                lengths=n, library="SDPA causal forward in fp32 over the n live keys",
+                library_max_abs_err=lib_err, card=smi, **row)))
+        defer_device_time(rows["flash_decode_tile_f32"], sdpa_causal, live, iters, prefix="library_")
+        out[shape] = rows
+        del inputs, live, int8_in
+    return out
 
 
 # ------------------------------------------------------------ paged kernels
@@ -1189,10 +1342,11 @@ def check_paged_variants(torch):
     cases = [(4, 16, 1, 64, 1281, [257, 700, 1024, 1281])]  # the flagship step
     cases += [(4, 2, 5, d, 100, [5, 33, 65, 100]) for d in (16, 32, 40, 48, 128, 256)]
     cases += [(4, 2, 1, d, 700, [1, 255, 256, 700]) for d in (40, 200)]  # split-K at other D
-    # the tile arm over several query and key tiles, one row's length below n
+    # the tile arms over several query and key tiles, one row's length below n
     cases += [(4, 2, 130, 64, 300, [100, 131, 200, 300])]
+    cases += [(4, 2, 65, 200, 300, [60, 131, 200, 300])]  # fp32: 32-key tiles
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    tile_before = tile_launches()
+    tile_before = {arm: tile_launches(arm) for arm in ("tile", "tile_f32")}
     for b, h, n, d, vlen, lengths in cases:
         for page in PAGE_SIZES:
             n_pages = -(-vlen // page)
@@ -1230,10 +1384,11 @@ def check_paged_variants(torch):
                 print(f"check paged D={d} n={n} page={page} {str(dtype)[6:]} lengths={lengths}: "
                       f"max_abs_err kernel 4 / 5, plain and int8: " + ", ".join(f"{e:.2e}" for e in errs))
     torch.cuda.synchronize()
-    held["tile arm launches"] = tile_launches() - tile_before
+    held["tile arm launches"] = tile_launches() - tile_before["tile"]
+    held["fp32 tile arm launches"] = tile_launches("tile_f32") - tile_before["tile_f32"]
     print("check paged bit identities (cases held): " + json.dumps(held))
-    if held["tile arm launches"] == 0:
-        failures.append("no call launched the tile arm")
+    if held["tile arm launches"] == 0 or held["fp32 tile arm launches"] == 0:
+        failures.append("no call launched the tile arm or the fp32 tile arm")
     if failures:
         fail("paged kernels: " + "; ".join(failures[:10]))
     return worst, held
@@ -1532,7 +1687,8 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
 def check_small_model_decode(torch, dim_head):
     """Phase 4, decode: a small float32 DALLE (head dim `dim_head`) through
     the kernels and through dense attention, same weights: logits of the
-    prefill and 64 cached steps within 1e-4."""
+    prefill, 64 cached steps and a resume (`decode_resume` of both rows at
+    image positions 40 and 63, n = 80 query rows) within 1e-4."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE, init_decode_cache
 
     small = dict(
@@ -1559,9 +1715,13 @@ def check_small_model_decode(torch, dim_head):
                 for m, c in zip((flash_model, dense_model), caches)
             ]
             worst = max(worst, (rows[0] - rows[1]).abs().max().item())
+        pos = torch.tensor([40, 63], device="cuda")
+        rows = [m.decode_resume(text, img, pos, init_decode_cache(m, 2))[0]
+                for m in (flash_model, dense_model)]
+        worst = max(worst, (rows[0] - rows[1]).abs().max().item())
     print(
-        f"check model fp32 dim_head {dim_head} kernel-vs-dense logits over prefill + 64 steps: "
-        f"max_abs_err {worst:.3e} tol 1e-4"
+        f"check model fp32 dim_head {dim_head} kernel-vs-dense logits over prefill + 64 steps + "
+        f"resume: max_abs_err {worst:.3e} tol 1e-4"
     )
     if not worst <= 1e-4:
         fail("the small model's kernel path disagrees with its dense path")
@@ -2667,7 +2827,8 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     t_start = t0 = time.perf_counter()
-    kernels.build(["flash_decode", "flash_decode_tile", "flash_attention", "wide_head"])
+    kernels.build(["flash_decode", "flash_decode_tile", "flash_decode_tile_f32", "flash_attention",
+                   "wide_head"])
     print(f"build: {time.perf_counter() - t0:.2f} s total")
     for name, info in kernels.build_log.items():
         print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
@@ -2679,8 +2840,9 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {entry}: {line.strip()}")
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if name == "flash_decode_tile" and spills and spills.group(0) != "0 bytes spill stores, 0 bytes spill loads":
-                    fail(f"a flash_decode_tile instance spills: {line.strip()}")
+                if (name.startswith("flash_decode_tile") and spills
+                        and spills.group(0) != "0 bytes spill stores, 0 bytes spill loads"):
+                    fail(f"a {name} instance spills: {line.strip()}")
     wide_build = check_wide_build(kernels.build_log["wide_head"])
     print("wide_head kernels (ptxas, cuobjdump -sass): " + json.dumps(wide_build))
 
@@ -2786,7 +2948,8 @@ def main() -> int:
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
     variant_times = time_decode_variants(torch, F, peaks, smi, cases)
     tile_times = time_tile_arm(torch, F, peaks, smi, cases)
-    rows_resume = time_rows_arm(torch, F, peaks, smi)
+    tile_f32_times = time_tile_f32_arm(torch, F, peaks, smi, cases)
+    tile_variant_times = time_tile_variants(torch, F, peaks, smi)
     paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
     attn_fp32 = time_attention(torch, F, peaks, torch.float32, "fp32", 4)
@@ -2799,7 +2962,16 @@ def main() -> int:
     print(f"phase 3 wide head-dim times: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
+    # the fp32 model's prefill and resume (n > 4) run the fp32 tile arm
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    for f in DECODE_FUNCTIONS:
+        getattr(fd, f).tile_f32_launches = getattr(fd, f).tile_f32_int8_launches = 0
     check_small_model_decode(torch, 64)
+    f32_launches = tile_launches("tile_f32")
+    print(f"phase 4 fp32 model (dim_head 64): fp32 tile arm launches {f32_launches} (prefill + resume)")
+    if f32_launches == 0:
+        fail("the fp32 model's prefill and resume did not launch the fp32 tile arm")
     check_small_model_training(torch, 64)
     # the same at a head dim above 256: the wide kernels on the model's path
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
@@ -2809,13 +2981,18 @@ def main() -> int:
         c.launches = 0
     for c in wide_counters[1:]:
         c.mma_launches = 0
+    wh.wide_decode.split_launches = 0
     check_small_model_decode(torch, WIDE_IDENTITY_DIM)
     check_small_model_training(torch, WIDE_IDENTITY_DIM)
     check_small_model_training(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
     wide_launches = {c.__name__: c.launches for c in wide_counters}
     wide_launches.update({f"{c.__name__}_mma": c.mma_launches for c in wide_counters[1:]})
-    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide kernel launches (_mma: the bf16 "
-          f"tensor-core kernels, in the bf16 autocast run) {json.dumps(wide_launches)}")
+    # the steps (n = 1) run the split-K kernel, the prefill and resume the 4-row one
+    wide_launches["wide_split"] = wh.wide_decode.split_launches
+    wide_launches["wide_decode"] -= wide_launches["wide_split"]
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide kernel launches (wide_split: the split-K "
+          f"steps, wide_decode: the 4-row prefill and resume; _mma: the bf16 tensor-core kernels, "
+          f"in the bf16 autocast run) {json.dumps(wide_launches)}")
     for name, count in wide_launches.items():
         if count == 0:
             fail(f"{name} was not launched by the dim_head {WIDE_IDENTITY_DIM} model")
@@ -2933,14 +3110,28 @@ def main() -> int:
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
-                **{f"fp32_rows_prefill_{k}": v for k, v in timings[("prefill", "fp32")].items()},
-                **{f"fp32_rows_resume_{k}": v for k, v in rows_resume.items()},
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]; "
                 "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
-                "9's generation CLI (2 prompts x one batch of 4, prefill included); fp32_rows_*: "
-                "the fp32 rows arm (fp32 q, n > 4) at the prefill (n=257, lengths 257, library "
-                "SDPA with the length mask) and the resume shape (n=1280 S=1281 lengths 1280, "
-                "library SDPA causal over the live keys), bounds at the fp32 peak",
+                "9's generation CLI (2 prompts x one batch of 4, prefill included)",
+            ),
+            dict(
+                name="flash_decode_tile_f32",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_decode_tile_f32.cu",
+                replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                launches=f32_launches,
+                max_abs_err=tile_errs["flash_decode_tile_f32"],
+                **tile_f32_times["resume"]["flash_decode_tile_f32"],
+                int8_max_abs_err=tile_errs["flash_decode_tile_f32_int8"],
+                **{f"int8_{k}": v for k, v in tile_f32_times["resume"]["flash_decode_tile_f32_int8"].items()},
+                **{f"prefill_{k}": v for k, v in tile_f32_times["prefill"]["flash_decode_tile_f32"].items()},
+                **{f"prefill_int8_{k}": v
+                   for k, v in tile_f32_times["prefill"]["flash_decode_tile_f32_int8"].items()},
+                timed="fp32 q, resume n=1280 S=1281 B=4 H=16 D=64 lengths 1280 (int8_*: int8 K/V + "
+                "fp32 scales; prefill_*: n=257 over the 1281-slot cache, lengths 257); library_ms is "
+                "SDPA's causal forward in fp32 over the n live keys (the same function); bounds at "
+                "the fp32 peak; launches: phase 4's fp32 model (prefill and resume); max_abs_err: "
+                "worst of prefill, prefill_edges, resume B=1 and 4 against the plain version",
             ),
             dict(
                 name="flash_decode_tile",
@@ -3007,6 +3198,8 @@ def main() -> int:
                 + launches["block_sparse_flash_decode_int8"],
                 max_abs_err=variant_errs["block_sparse_flash_decode"],
                 **variant_times["block_sparse_flash_decode"],
+                **{f"tile_resume_{k}": v for k, v in tile_variant_times["block_sparse_flash_decode"].items()
+                   if k != "device_kernels"},
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281, axial_row policy bitmap; launches: "
                 "phase 7 policy run's steps (bf16 arm, depth 4) + policy+int8 patterned run's "
                 "(int8 arm; both runs' prefills are the tile arm's); "
@@ -3020,6 +3213,8 @@ def main() -> int:
                 launches=launches["paged_flash_decode"],
                 max_abs_err=paged_errs["paged_flash_decode"],
                 **paged_times["paged_flash_decode"],
+                **{f"tile_resume_{k}": v for k, v in tile_variant_times["paged_flash_decode"].items()
+                   if k != "device_kernels"},
                 timed="bf16 step n=1 B=4 H=16 D=64, page 32, 41-entry tables into a shuffled "
                 "206-page pool, lengths [258, 700, 1024, 1281]; launches: phase 8 kernel causal "
                 "run; library_ms is SDPA over the cache gathered beforehand (gather not timed)",
@@ -3032,6 +3227,8 @@ def main() -> int:
                 launches=launches["block_sparse_paged_flash_decode"],
                 max_abs_err=paged_errs["block_sparse_paged_flash_decode"],
                 **paged_times["block_sparse_paged_flash_decode"],
+                **{f"tile_resume_{k}": v for k, v in tile_variant_times["block_sparse_paged_flash_decode"].items()
+                   if k != "device_kernels"},
                 timed="bf16 step as paged_flash_decode, axial_row policy bitmap re-expanded to "
                 "pages; launches: phase 8 policy+int8 patterned run (int8 arm); library_ms is "
                 "SDPA with the page-expanded mask over the gathered cache",
@@ -3046,17 +3243,23 @@ def main() -> int:
                 **({"mma_launches": wide_launches[name + "_mma"]} if name + "_mma" in wide_launches else {}),
                 max_abs_err=err,
                 **wide_times[name][WIDE_TIMED_DIMS[0]],
-                **{f"d{d}_{field}": wide_times[name][d].get(field) for d in WIDE_TIMED_DIMS[1:]
+                **{f"d{d}_{field}": wide_times[name][d][field] for d in WIDE_TIMED_DIMS[1:]
                    for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "cuda_kernel")
-                   if field in wide_times[name][d]},
+                   if field in wide_times[name].get(d, {})},
                 timed=timed,
             )
             for name, replaces, err, timed in (
+                ("wide_split", "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                 wide_decode_err,
+                 f"kernels 1-5 at D > 256 and n <= 4 (split-K); bf16 step n=1 B=4 H=16 S=1281 "
+                 f"D={WIDE_TIMED_DIMS[0]} lengths [258, 700, 1024, 1281]; launches: phase 4's "
+                 f"dim_head {WIDE_IDENTITY_DIM} model (its steps)"),
                 ("wide_decode", "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                  wide_decode_err,
-                 f"kernels 1-5 at D > 256; bf16 step n=1 B=4 H=16 S=1281 D={WIDE_TIMED_DIMS[0]} "
-                 "lengths [258, 700, 1024, 1281]; launches: phase 4's dim_head "
-                 f"{WIDE_IDENTITY_DIM} model (decode)"),
+                 f"kernels 1-5 at D > 256 and n > 4 (the 4-row kernel); bf16 resume n=1280 S=1281 "
+                 f"B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280; library_ms is SDPA's causal forward "
+                 f"over the live keys; launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
+                 "(prefill and resume); max_abs_err: worst bf16 of phase 2's wide decode checks"),
                 ("wide_attention_fwd", "dalle_pytorch_tpu/ops/pallas_attention.py:129",
                  wide_attn_errs["wide_flash_attention_fwd"],
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]} on tensor cores (`cuda_kernel`, "

@@ -33,13 +33,15 @@
 //
 // What bounds it: at decode (n = 1) every cache element is used once, so
 // the kernel is bound by the bytes of live K/V it reads, 2*B*H*len*D*elt
-// per call (elt = 1 for int8, plus 8 bytes of scales per position); at the
-// prefill chunk each K/V tile serves kRows query rows. At the flagship step
+// per call (elt = 1 for int8, plus 8 bytes of scales per position). It
+// takes n <= kRows query rows (calls of more rows run the tile arms,
+// flash_decode_tile.cu for bf16 q and flash_decode_tile_f32.cu for fp32).
+// At the flagship step
 // (B*H = 64 rows of 258-1281 keys) one block per (row, head) leaves most
 // SMs idle and each block's tiles in series, so the design spreads the
 // cache over blocks and keeps every warp and the copy engine busy:
-//   * split-K over the cache (flash-decoding) when n <= kRows (one query
-//     tile): each (batch row, head) runs one block per span of kSpan = 128
+//   * split-K over the cache (flash-decoding): each (batch row, head) runs
+//     one block per span of kSpan = 128
 //     key positions (measured against 64, 256 and 512; a whole number of
 //     tiles, and of pages for pages of 16-128). Span
 //     boundaries depend on key positions only, never on S, the layout or
@@ -49,12 +51,7 @@
 //     (b, h) to arrive (an atomic counter it resets itself: one launch a
 //     call, no memset, no host sync) merges the spans in span order. A
 //     span with no visible key writes m = -inf, l = 0 and adds no term. A
-//     row whose keys all lie in one span is written by its one block. For
-//     n > kRows with fp32 q one block per query tile of kRows rows covers
-//     the whole cache and writes the output itself (bf16 q at n > kRows,
-//     the prefill chunk and the resume forward, runs the tensor-core tile
-//     arm of flash_decode_tile.cu instead; fp32 keeps fp32 arithmetic
-//     here, as the flash-attention forward keeps `fwd_kernel` for fp32);
+//     row whose keys all lie in one span is written by its one block;
 //   * every warp computes: a tile's keys are split across the 4 warps, and
 //     within a warp each key goes to a group of DMAX / 8 lanes holding 8
 //     channels each (at D <= 64, 4 keys a step), so a score is a butterfly
@@ -93,7 +90,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;            // query rows per block; n <= kRows splits the cache
+constexpr int kRows = 4;            // query rows a call may have (ops/flash_decode.py DECODE_ROWS)
 constexpr int kSpan = 128;          // cache positions per split-K block (ops/flash_decode.py DECODE_SPAN)
 constexpr int kStages = 3;          // cp.async ring depth
 constexpr int kStageBytes = 32768;  // K + V bytes of one tile, at most
@@ -180,8 +177,8 @@ __device__ __forceinline__ void load_vec(float (&out)[N], const KV* p) {
 // of the instance (D <= DMAX at run time); SPARSE: read the block bitmap;
 // PAGED: k/v/scales are pools read through page_table [B, S / page_size];
 // ROWS: the query rows a block holds in registers (1 at the step n = 1,
-// else kRows). Grid (B * H, query tiles, spans): spans > 1 only when n <=
-// kRows. At most 128 registers a thread at 64 channels (4 blocks an SM);
+// else kRows). Grid (B * H, spans). At most 128 registers a thread at 64
+// channels (4 blocks an SM);
 // wider instances hold 2 blocks an SM by shared memory or registers.
 template <typename T, typename KV, int DMAX, bool SPARSE, bool PAGED, int ROWS>
 __global__ void __launch_bounds__(kThreads, DMAX > 64 ? 2 : 4)
@@ -206,15 +203,14 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   __shared__ int last_block;
   __shared__ int table_s[PAGED ? kTableCache : 1];  // entries from page key0 / page_size on
 
-  const int bh = blockIdx.x, qtile = blockIdx.y, split = blockIdx.z, n_spans = gridDim.z;
+  const int bh = blockIdx.x, split = blockIdx.y, n_spans = gridDim.y;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LG, c0 = (lane % LG) * VPL;  // this lane's key of a step, its channels
   const int len = min(max(lengths[b], 0), S);
-  const int row0 = qtile * kRows;
-  const int nrows = min(ROWS, n - row0);
+  const int nrows = min(ROWS, n);
   // keys [key0, key1) of this block: up to the last one any of its rows sees
-  int key0 = 0, key1 = len - n + row0 + nrows;
+  int key0 = 0, key1 = len - n + nrows;
   int n_live = 1;  // spans of this (b, h) holding keys its rows may see
   if (n_spans > 1) {
     n_live = max(1, (key1 + kSpan - 1) / kSpan);
@@ -230,11 +226,11 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   int bound[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    bound[r] = len - n + row0 + r;
+    bound[r] = len - n + r;
 #pragma unroll
     for (int e = 0; e < VPL; ++e) {
       const int c = c0 + e;
-      qr[r][e] = r < nrows && c < D ? to_float(q[(bhs * n + row0 + r) * D + c]) * sm_scale : 0.f;
+      qr[r][e] = r < nrows && c < D ? to_float(q[(bhs * n + r) * D + c]) * sm_scale : 0.f;
     }
   }
   if (D < DMAX) {  // the channels past D stay zero (cp.async never writes them)
@@ -490,7 +486,7 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       }
     }
     if (direct) {
-      store(out + (bhs * n + row0 + r) * D + c, sum_l > 0.f ? sum_a / sum_l : 0.f);
+      store(out + (bhs * n + r) * D + c, sum_l > 0.f ? sum_a / sum_l : 0.f);
     } else {
       const size_t part = (bhs * n_spans + split) * kRows + r;
       ws_acc[part * D + c] = sum_a;
@@ -546,7 +542,7 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       }
       mx = m_new;
     }
-    store(out + (bhs * n + row0 + r) * D + c, sum_l > 0.f ? sum_a / sum_l : 0.f);
+    store(out + (bhs * n + r) * D + c, sum_l > 0.f ? sum_a / sum_l : 0.f);
   }
 }
 
@@ -558,8 +554,8 @@ struct Args {
   cudaStream_t stream;
 };
 
-// spans of the grid: one per kSpan cache positions at n <= kRows, else 1
-int grid_spans(int n, int S) { return n <= kRows ? (S + kSpan - 1) / kSpan : 1; }
+// spans of the grid: one per kSpan cache positions
+int grid_spans(int S) { return (S + kSpan - 1) / kSpan; }
 
 template <typename T, typename KV, int DMAX, bool SPARSE, bool PAGED>
 cudaError_t launch(const Args& a) {
@@ -568,7 +564,7 @@ cudaError_t launch(const Args& a) {
   constexpr int smem = smem_bytes<KV, DMAX>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.n + kRows - 1) / kRows, grid_spans(a.n, a.S));
+  const dim3 grid(a.B * a.H, grid_spans(a.S));
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
@@ -597,10 +593,10 @@ cudaError_t dispatch_layout(const Args& a) {
 cudaError_t dispatch(const Args& a, int dtype, int quantized) {
   if (a.D <= 0 || a.D > 256) return cudaErrorInvalidValue;
   if (quantized && (a.k_scale == nullptr || a.v_scale == nullptr)) return cudaErrorInvalidValue;
-  if (grid_spans(a.n, a.S) > 1 && (a.ws == nullptr || a.counters == nullptr))
+  if (a.n > kRows) return cudaErrorInvalidValue;  // more rows run a tile arm
+  if (grid_spans(a.S) > 1 && (a.ws == nullptr || a.counters == nullptr))
     return cudaErrorInvalidValue;
-  if ((long long)a.B * a.H > 2147483647LL || (a.n + kRows - 1) / kRows > 65535 ||
-      grid_spans(a.n, a.S) > 65535)
+  if ((long long)a.B * a.H > 2147483647LL || grid_spans(a.S) > 65535)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return quantized ? dispatch_layout<float, int8_t>(a) : dispatch_layout<float, float>(a);
@@ -613,13 +609,13 @@ cudaError_t dispatch(const Args& a, int dtype, int quantized) {
 }  // namespace
 
 // Floats of the split-K workspace a call needs (0: none).
-extern "C" long long flash_decode_workspace_floats(int B, int H, int n, int S, int D) {
-  const int spans = grid_spans(n, S);
+extern "C" long long flash_decode_workspace_floats(int B, int H, int S, int D) {
+  const int spans = grid_spans(S);
   return spans > 1 ? (long long)B * H * spans * kRows * (D + 2) : 0;
 }
 
 // q [B,H,n,D] and out [B,H,n,D] of `dtype` (0 = float32, 1 = bfloat16),
-// D <= 256; k/v [B,H,S,D] of that dtype, or int8 with `quantized` = 1 and
+// n <= 4, D <= 256; k/v [B,H,S,D] of that dtype, or int8 with `quantized` = 1 and
 // k_scale / v_scale [B,H,S] float32; lengths [B] int32; bitmap [B,
 // n_blocks] int32 over blocks of `block_k` positions, or null for none.
 // Contiguous, 16-byte aligned. `workspace` holds

@@ -1,9 +1,8 @@
 // Flash decode's tile arm for Hopper (sm_90a): cached attention of a query
 // chunk of n > 4 rows (the prefill chunk, the resume forward) over a KV
 // cache with per-row live lengths, on bf16 tensor cores. The step (n = 1)
-// and n = 2-4 stay with flash_decode.cu's split-K instances, and so do fp32
-// queries at n > 4 (its CUDA-core `ROWS = kRows` instance: fp32 keeps fp32
-// arithmetic, as the flash-attention forward keeps `fwd_kernel` for fp32).
+// and n = 2-4 stay with flash_decode.cu's split-K instances; fp32 queries
+// at n > 4 run flash_decode_tile_f32.cu (fp32 arithmetic on CUDA cores).
 //
 // Replaces, at n > 4 with bf16 q and D <= 256, the TPU kernels of
 // `dalle_pytorch_tpu/ops/pallas_decode.py`:
@@ -39,7 +38,8 @@
 //   * S = Q K^T and O += P V on bf16 tensor cores (mma.sync.m16n8k16, fp32
 //     accumulators), operands by ldmatrix from padded row-major tiles (V
 //     through .trans, so no transposed copy exists); Q's fragments stay in
-//     registers up to 128 channels and are read from shared memory at 256;
+//     registers at 128 channels and are read from shared memory at 64 and
+//     256 (at 64 two blocks an SM cap a thread at 128 registers);
 //   * tiles arrive by cp.async (16-byte chunks where the row's D * elt
 //     allows, else 8 or 4, else a plain element copy) into a two-stage ring
 //     (the next tile in flight while one computes), rows read through the
@@ -55,14 +55,18 @@
 //     reach the result;
 //   * the scale multiplies S in fp32 after the product (q stays bf16 as
 //     given); P is formed in base 2, 2^(s * scale * log2(e) - m) by
-//     ex2.approx, as the flash-attention forward does, and rounded to bf16
-//     before P V; the softmax state (m, l) and O stay fp32. The causal (and
+//     ex2.approx, as the flash-attention forward does, and enters P V as a
+//     pair of bf16 operands, hi = bf16(P) and lo = bf16(P - hi), two
+//     products into one fp32 accumulator: P carries ~16 bits into P V, as
+//     the reference's fp32 P does (one bf16 P, 8 bits, moved a resumed
+//     row's logits across a top-k threshold; ROADMAP Queue 3). The softmax
+//     state (m, l) and O stay fp32. The causal (and
 //     bitmap) select runs only on tiles a warp's bounds cut: wholly visible
 //     tiles skip it. A row whose maximum is still -inf takes 0 in its
 //     place, so it adds nothing and is written as zeros;
 //   * int8 K/V: an int8 value is exact in bf16, so each landed tile is
 //     widened to bf16 in shared memory, S's column j is multiplied by
-//     k_scale[j] and P's column j by v_scale[j] before P is rounded (the
+//     k_scale[j] and P's column j by v_scale[j] before P is split (the
 //     scales of rows no row sees are zero-filled with them);
 //   * D is a runtime argument up to 256, with instances for at most 64,
 //     128 and 256 channels; the channels past D are zero in shared memory.
@@ -205,7 +209,10 @@ flash_decode_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   constexpr bool QUANT = L::QUANT;
   constexpr int DC = L::DC, LDK = L::LDK, LDV = L::LDV, RK = L::RK, RV = L::RV;
   constexpr int GROUPS = DMAX / DC;
-  constexpr bool QREG = DMAX <= 128;  // Q's fragments in registers
+  // Q's fragments in registers at 128 channels; at 64 they are read from
+  // shared memory, as at 256, to hold P's bf16 pair within the 128
+  // registers two blocks an SM leave a thread
+  constexpr bool QREG = DMAX == 128;
   constexpr int KSTEPS = DMAX / 16;   // k-steps of S = Q K^T
   constexpr int NT = kBN / 8;         // 8-key column tiles of S
   constexpr int OT = DC / 8;          // 8-column tiles of O
@@ -416,22 +423,26 @@ flash_decode_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     for (int ot = 0; ot < OT; ++ot)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[ot][e] *= corr[e / 2];
-    uint32_t pa[kBN / 16][4];  // P (int8: times v_scale) in bf16, as A fragments of P V
+    // P (int8: times v_scale) as the A fragments of P V, in bf16 as a pair
+    // hi = bf16(P), lo = bf16(P - hi), both multiplied into the same fp32
+    // accumulator (P to ~16 bits, as the reference's fp32 P); fragment
+    // a_u of keys 16 kp..: S tile 2 kp + u / 2, elements 2 (u % 2) and + 1
+    uint32_t hi[kBN / 16][4], lo[kBN / 16][4];
 #pragma unroll
-    for (int kp = 0; kp < kBN / 16; ++kp) {
-      float p[2][4];
+    for (int kp = 0; kp < kBN / 16; ++kp)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
+      for (int u = 0; u < 4; ++u) {
+        float p[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 16 * kp + 8 * hf + 2 * (lane % 4) + (e % 2);
-          p[hf][e] = QUANT ? s[2 * kp + hf][e] * sc[kBN + c] : s[2 * kp + hf][e];
+        for (int e = 0; e < 2; ++e) {
+          const int c = 16 * kp + 8 * (u / 2) + 2 * (lane % 4) + e;
+          const float x = s[2 * kp + u / 2][2 * (u % 2) + e];
+          p[e] = QUANT ? x * sc[kBN + c] : x;
         }
-      pa[kp][0] = pack_bf16(p[0][0], p[0][1]);
-      pa[kp][1] = pack_bf16(p[0][2], p[0][3]);
-      pa[kp][2] = pack_bf16(p[1][0], p[1][1]);
-      pa[kp][3] = pack_bf16(p[1][2], p[1][3]);
-    }
+        hi[kp][u] = pack_bf16(p[0], p[1]);
+        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[kp][u]);
+        lo[kp][u] = pack_bf16(p[0] - __low2float(h), p[1] - __high2float(h));
+      }
     // O += P V
 #pragma unroll
     for (int kp = 0; kp < kBN / 16; ++kp) {
@@ -440,8 +451,10 @@ flash_decode_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
         if (cp * 16 >= dcols) break;
         uint32_t bv[4];
         ldsm_x4_t(bv, vt + (kp * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDV + cp * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * cp], pa[kp], bv[0], bv[1]);
-        mma_bf16(acc[2 * cp + 1], pa[kp], bv[2], bv[3]);
+        mma_bf16(acc[2 * cp], hi[kp], bv[0], bv[1]);
+        mma_bf16(acc[2 * cp + 1], hi[kp], bv[2], bv[3]);
+        mma_bf16(acc[2 * cp], lo[kp], bv[0], bv[1]);
+        mma_bf16(acc[2 * cp + 1], lo[kp], bv[2], bv[3]);
       }
     }
   };

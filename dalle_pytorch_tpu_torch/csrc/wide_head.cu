@@ -6,18 +6,43 @@
 // Replace, at D > 256, the TPU kernels of the JAX package:
 //   * `dalle_pytorch_tpu/ops/pallas_decode.py`: `_decode_kernel` (plain and
 //     int8 arms), `_sparse_decode_kernel`, `_paged_decode_kernel` and
-//     `_sparse_paged_decode_kernel` -- one decode kernel here, with runtime
-//     flags for the int8 cache (a template type), the block bitmap and the
-//     page table (null pointers when off);
+//     `_sparse_paged_decode_kernel` -- two decode kernels here (the split-K
+//     step and the 4-row kernel), each with runtime flags for the block
+//     bitmap and the page table (null pointers when off) and the int8
+//     cache as a template type;
 //   * `dalle_pytorch_tpu/ops/pallas_attention.py`: `_fwd_kernel` (forward),
 //     `_dq_kernel` and `_dkv_kernel` (backward), in their all / causal /
 //     static-mask arms.
 // The functions are those of flash_decode.cu and flash_attention.cu (see
 // their headers); D is a runtime argument with no upper limit.
 //
-// Design: column groups. A block owns at most kDecCols (decode) or kCols
-// (fp32 attention) or `cols` (bf16 attention, 128-256: the wrapper's plan)
-// output columns. It
+// Decode at the step (n <= 4 query rows, D <= kSplitMaxD = 1024) runs
+// `wide_split_kernel`: split-K over spans of 128 key positions, bound by
+// the bytes of live K/V it reads (2 B H len D elt), which it reads once:
+//   * one block per (batch row x head, span); span boundaries depend on
+//     key positions only, so every variant sums in the same order; blocks
+//     past a row's last visible key exit at once; each span writes (m, l,
+//     acc[D]) in fp32 to a workspace, and the last block of a (b, h) to
+//     arrive merges the spans in span order (a self-resetting arrival
+//     counter: one launch, no memset, no host sync), as flash_decode.cu;
+//   * a block owns every output column (no column groups), so K is read
+//     once, not once per group; its 4 x D accumulators are spread over the
+//     block's 128 threads, 4 columns a chunk, at most 2 chunks a thread;
+//   * K and V arrive by cp.async (16-byte chunks where D * elt allows) in
+//     tiles of up to 16 keys, sized so a stage's K and V rows stay within
+//     32 KB (16 keys at D = 320 and 512 in bf16, 8 at 1024), in a ring of 3
+//     stages; rows stay in their storage type and widen in registers with
+//     vector shared loads; keys no row may see are zero-filled by the copy
+//     itself, and a dead page's table entry is never followed;
+//   * scores: a group of 8 lanes per key (8 channels a lane, a butterfly
+//     sum), so every warp computes; one warp per query row runs the online
+//     softmax of the tile (a lane per key, expf); then every thread adds P V
+//     for its own columns. One code path for every variant.
+// n > 4 rows, and D > 1024, keep `wide_decode_kernel` (below).
+//
+// Design of the rest: column groups. A block owns at most kDecCols
+// (decode) or kCols (fp32 attention) or `cols` (bf16 attention, 128-256:
+// the wrapper's plan) output columns. It
 // forms the full scores (and, backward, the full dO . V^T) by looping over
 // all of D -- lanes over channels in decode, chunks of staged channels in
 // attention -- and accumulates only its own columns of o, dq, dk or dv.
@@ -29,9 +54,10 @@
 // bfloat16 attention runs on tensor cores (the second half of this file):
 // mma.sync with fp32 accumulators, 64-row tiles, operands staged as 64 x 64
 // tiles through a cp.async ring. The rest on CUDA cores in fp32:
-//   * decode: a block per (row, head) x 4 query rows x column group, keys
-//     in tiles of 32 (a lane per key in the softmax, a warp per key in the
-//     dot product); only keys some row of the block may see are read, a
+//   * decode at n > 4 (or D > 1024): a block per (row, head) x 4 query
+//     rows x column group, keys in tiles of 32 (a lane per key in the
+//     softmax, a warp per key in the dot product), K and V read from
+//     device memory unstaged; only keys some row of the block may see are read, a
 //     dead page's table entry is never followed, and a value no row sees
 //     is never loaded, so stale or poisoned bytes reach no result. The
 //     bitmap and page table only choose which keys are read and where from:
@@ -44,8 +70,8 @@
 //     key tile, each recomputing p = exp(s - lse) and dS = p (dP - delta)
 //     scale. No atomics: every output is bit-identical run to run.
 // What bounds it: the same work as the D <= 256 kernels (bytes in decode,
-// operations in attention), here times the column groups' recomputation;
-// decode and fp32 attention run on CUDA cores, without a split-K decode.
+// operations in attention), here times the column groups' recomputation in
+// all but the split-K step; decode and fp32 attention run on CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -240,6 +266,438 @@ cudaError_t launch_decode(const DecodeArgs& a) {
       static_cast<const int*>(a.lengths), static_cast<const int*>(a.bitmap),
       static_cast<const int*>(a.page_table), static_cast<T*>(a.out), a.H, a.n, a.S, a.D,
       a.n_blocks, a.block_k, a.page_size, a.n_pool, a.sm_scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- decode, split-K
+
+// The step (n <= kSplitRows query rows) at D in (256, kSplitMaxD]: split-K
+// over spans of kSplitSpan key positions, as flash_decode.cu does at D <=
+// 256, redesigned for wide rows. One block per (batch row x head, span);
+// blocks past a row's last visible key exit at once. No column groups: a
+// block owns every output column, so each live K/V byte is read once.
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitRows = 4;          // query rows a block holds (ops/flash_decode.py DECODE_ROWS)
+constexpr int kSplitSpan = 128;        // key positions a block (ops/flash_decode.py DECODE_SPAN)
+constexpr int kSplitStages = 3;        // cp.async ring depth
+constexpr int kSplitStageBytes = 32768;  // K + V bytes of one tile, at most
+constexpr int kSplitGroups = 16;       // key groups of 8 lanes: at most 16 keys a tile
+constexpr int kSplitMaxD = 1024;       // accumulators: 4 rows x 2 chunks of 4 columns a thread
+constexpr int kSplitChunks = kSplitMaxD / 4 / kSplitThreads;
+constexpr int kSplitTableCache = kSplitSpan + 1;  // a span's page-table entries (pages >= 1 position)
+
+// bytes of a staged K or V row: D rounded up to 8 channels (the score's
+// 8-channel loads), then to 16 bytes (cp.async chunks); the tail is zero
+__host__ __device__ inline int split_row_stride(int D, int elt) {
+  return ((D + 7) / 8 * 8 * elt + 15) / 16 * 16;
+}
+// keys a tile: the largest power of two up to kSplitGroups whose K and V
+// rows fit kSplitStageBytes (16 at D = 320 and 512 in bf16, 8 at 1024)
+__host__ __device__ inline int split_tile_keys(int D, int elt) {
+  int keys = kSplitGroups;
+  while (keys > 1 && 2 * keys * split_row_stride(D, elt) > kSplitStageBytes) keys /= 2;
+  return keys;
+}
+__host__ __device__ inline int split_stage_bytes(int D, int elt) {
+  const int keys = split_tile_keys(D, elt);
+  return 2 * keys * split_row_stride(D, elt) + (elt == 1 ? 2 * keys * 4 : 0);
+}
+// dynamic shared bytes: the ring, then q [ROWS][D rounded to 8] fp32
+__host__ __device__ inline int split_smem_bytes(int D, int elt, int rows) {
+  return kSplitStages * split_stage_bytes(D, elt) + rows * ((D + 7) / 8 * 8) * 4;
+}
+
+__device__ __forceinline__ uint32_t split_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// `unit` bytes global -> shared, zero-filled when !ok (cp.async with a source
+// size of 0 reads nothing); below 4 bytes a plain copy of one element
+__device__ __forceinline__ void split_copy(void* dst, const void* src, bool ok, int unit) {
+  const uint32_t d = split_smem_addr(dst);
+  if (unit == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
+  } else if (unit == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 8 : 0));
+  } else if (unit == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+  } else if (unit == 2) {
+    *static_cast<uint16_t*>(dst) = ok ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
+  } else {
+    *static_cast<uint8_t*>(dst) = ok ? *static_cast<const uint8_t*>(src) : (uint8_t)0;
+  }
+}
+__device__ __forceinline__ void split_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void split_wait() {  // all but the kSplitStages - 2 newest groups
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kSplitStages - 2) : "memory");
+}
+
+// N adjacent elements of type KV at p (aligned to N * sizeof(KV) bytes) as fp32
+template <typename KV, int N>
+__device__ __forceinline__ void split_load(float (&out)[N], const unsigned char* p) {
+  constexpr int BYTES = N * (int)sizeof(KV);
+  if constexpr (sizeof(KV) == 1) {  // int8: 4 values a char4 (no local copy to index)
+    static_assert(N == 4 || N == 8, "int8 vector");
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const char4 c = reinterpret_cast<const char4*>(p)[i];
+      out[4 * i] = c.x;
+      out[4 * i + 1] = c.y;
+      out[4 * i + 2] = c.z;
+      out[4 * i + 3] = c.w;
+    }
+  } else if constexpr (BYTES >= 16) {
+    uint4 raw[BYTES / 16];
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) raw[i] = reinterpret_cast<const uint4*>(p)[i];
+    const KV* e = reinterpret_cast<const KV*>(raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
+  } else if constexpr (BYTES == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
+  } else {
+    static_assert(BYTES == 4, "vector");
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
+  }
+}
+
+// The function of wide_decode_kernel at n <= kSplitRows (ROWS = 1 at the
+// step n = 1, else kSplitRows). Grid (B * H, spans). Per key tile: scores
+// by groups of 8 lanes (a key each, 8 channels a lane, a butterfly sum),
+// the online softmax of each row by one warp (a lane per key), then P V by
+// every thread over its own output columns; one softmax state per row, in
+// shared memory. Each span writes (m, l, acc[D]) to the workspace unless it
+// is its row's only live span; the last span block of a (b, h) to arrive
+// merges the spans in span order.
+template <typename T, typename KV, int ROWS>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                  const int* __restrict__ lengths, const int* __restrict__ bitmap,
+                  const int* __restrict__ page_table, T* __restrict__ out, float* __restrict__ ws,
+                  int* __restrict__ counters, int H, int n, int S, int D, int n_blocks,
+                  int block_k, int page_size, int n_pool, float sm_scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int ELT = (int)sizeof(KV);
+  extern __shared__ __align__(16) unsigned char split_smem[];  // the file's other kernels' smem is float
+  unsigned char* smem = split_smem;
+  __shared__ float p_s[kSplitRows][kSplitGroups];  // scores, then p (int8: times v_scale)
+  __shared__ float m_s[kSplitRows], l_s[kSplitRows], corr_s[kSplitRows];
+  __shared__ int table_s[kSplitTableCache];
+  __shared__ int last_block;
+
+  const int bh = blockIdx.x, split = blockIdx.y, n_spans = gridDim.y;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = min(max(lengths[b], 0), S);
+  const int nrows = min(ROWS, n);
+  // keys [key0, key1) of this block: the span's, up to the last one the last row sees
+  const int n_live = max(1, (len - n + nrows + kSplitSpan - 1) / kSplitSpan);
+  if (split >= n_live) return;  // block-uniform, before any barrier
+  const int key0 = split * kSplitSpan, key1 = min(len - n + nrows, key0 + kSplitSpan);
+  const size_t bhs = (size_t)bh;
+  const int* live_b = bitmap ? bitmap + (size_t)b * n_blocks : nullptr;
+  const int* table_b = page_table ? page_table + (size_t)b * (S / page_size) : nullptr;
+
+  const int LDB = split_row_stride(D, ELT), BN = split_tile_keys(D, ELT);
+  const int STAGE = split_stage_bytes(D, ELT);
+  const int DQ = (D + 7) / 8 * 8;
+  float* q_s = reinterpret_cast<float*>(smem + kSplitStages * STAGE);  // [ROWS][DQ], times the scale
+  if (D * ELT < LDB) {  // the row tails stay zero (the copies never write them)
+    for (int i = threadIdx.x; i < kSplitStages * STAGE / 16; i += kSplitThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int i = threadIdx.x; i < ROWS * DQ; i += kSplitThreads) {
+    const int r = i / DQ, c = i - r * DQ;
+    q_s[i] = r < nrows && c < D ? to_float(q[(bhs * n + r) * D + c]) * sm_scale : 0.f;
+  }
+  const int page0 = page_table ? key0 / page_size : 0;
+  if (page_table && key1 > key0) {
+    const int pages = min((key1 - 1) / page_size + 1 - page0, kSplitTableCache);
+    for (int i = threadIdx.x; i < pages; i += kSplitThreads) table_s[i] = table_b[page0 + i];
+  }
+  if (threadIdx.x < kSplitRows) {
+    m_s[threadIdx.x] = -INFINITY;
+    l_s[threadIdx.x] = 0.f;
+  }
+  __syncthreads();
+
+  const int t_begin = key0 / BN, t_end = key1 > key0 ? (key1 - 1) / BN + 1 : t_begin;
+  // with a bitmap: the first tile at or after t with a live key below key1
+  auto next_tile = [&](int t) {
+    if (live_b) {
+      for (; t < t_end; ++t) {
+        const int last = min(t * BN + BN, key1) - 1;
+        bool any = false;
+        for (int blk = (t * BN) / block_k; blk <= last / block_k && !any; ++blk)
+          any = live_b[blk] != 0;
+        if (any) break;
+      }
+    }
+    return t;
+  };
+  // the row of k/v (and of the scales) holding key `pos`, or -1 where no
+  // row of the block sees it
+  auto src_row = [&](int pos) -> long long {
+    if (pos < key0 || pos >= key1 || (live_b && live_b[pos / block_k] == 0)) return -1;
+    if (page_table) {
+      const int pi = pos / page_size;
+      const int page = pi - page0 < kSplitTableCache ? table_s[pi - page0] : table_b[pi];
+      if (page < 0 || page >= n_pool) __trap();  // a corrupt table faults loudly
+      return ((long long)page * H + h) * page_size + (pos - pi * page_size);
+    }
+    return (long long)bhs * S + pos;
+  };
+  // copies: the K and V rows of a tile, D * elt bytes each in chunks of
+  // `unit` bytes (16 where the row allows, else 8 or 4, else one element);
+  // keys no row sees are zero-filled
+  const int row_bytes = D * ELT;
+  const int unit = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : ELT;
+  const int cpr = row_bytes / unit;
+  const char* kbytes = reinterpret_cast<const char*>(k);
+  const char* vbytes = reinterpret_cast<const char*>(v);
+  auto fetch = [&](int t, int st) {
+    unsigned char* ks = smem + st * STAGE;
+    unsigned char* vs = ks + BN * LDB;
+    for (int i = threadIdx.x; i < BN * cpr; i += kSplitThreads) {
+      const int j = i / cpr, c = i - j * cpr;
+      const long long row = src_row(t * BN + j);
+      const size_t off = (row < 0 ? 0 : row * row_bytes) + c * unit;
+      split_copy(ks + j * LDB + c * unit, kbytes + off, row >= 0, unit);
+      split_copy(vs + j * LDB + c * unit, vbytes + off, row >= 0, unit);
+    }
+    if (QUANT) {
+      float* sc = reinterpret_cast<float*>(vs + BN * LDB);
+      for (int j = threadIdx.x; j < BN; j += kSplitThreads) {
+        const long long row = src_row(t * BN + j);
+        split_copy(sc + j, k_scale + (row < 0 ? 0 : row), row >= 0, 4);
+        split_copy(sc + BN + j, v_scale + (row < 0 ? 0 : row), row >= 0, 4);
+      }
+    }
+  };
+
+  float acc[ROWS][kSplitChunks][4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int u = 0; u < kSplitChunks; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][u][e] = 0.f;
+  const int grp = warp * 4 + lane / 8, sub = lane % 8;  // this lane's key of a tile, its channel chunks
+  const int n8 = DQ / 8, n4 = DQ / 4;
+
+  // key tile t, landed in stage st, into the rows' softmax states and acc
+  auto compute = [&](int t, int st) {
+    const unsigned char* kt = smem + st * STAGE;
+    const unsigned char* vt = kt + BN * LDB;
+    const float* sc = reinterpret_cast<const float*>(vt + BN * LDB);
+    // scores: key grp, 8 channels a lane, summed over the group's 8 lanes
+    float dot[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) dot[r] = 0.f;
+    if (grp < BN) {
+      for (int c8 = sub; c8 < n8; c8 += 8) {
+        float kv[8];
+        split_load<KV, 8>(kv, kt + grp * LDB + c8 * 8 * ELT);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 qa = *reinterpret_cast<const float4*>(q_s + r * DQ + c8 * 8);
+          const float4 qb = *reinterpret_cast<const float4*>(q_s + r * DQ + c8 * 8 + 4);
+          float x = dot[r];
+          x = fmaf(qa.x, kv[0], x); x = fmaf(qa.y, kv[1], x);
+          x = fmaf(qa.z, kv[2], x); x = fmaf(qa.w, kv[3], x);
+          x = fmaf(qb.x, kv[4], x); x = fmaf(qb.y, kv[5], x);
+          x = fmaf(qb.z, kv[6], x); x = fmaf(qb.w, kv[7], x);
+          dot[r] = x;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+    if (grp < BN && sub == 0) {
+      const int pos = t * BN + grp;
+      const bool live = pos < key1 && (live_b == nullptr || live_b[pos / block_k] != 0);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const bool vis = live && r < nrows && pos <= len - n + r;
+        p_s[r][grp] = vis ? (QUANT ? dot[r] * sc[grp] : dot[r]) : -INFINITY;
+      }
+    }
+    __syncthreads();
+    // the online softmax, a warp per query row and a lane per key
+    if (warp < nrows) {
+      const int r = warp;
+      const float s = lane < BN ? p_s[r][lane] : -INFINITY;
+      float tmax = s;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, tmax);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: add nothing
+      const float corr = expf(m_old - m_use);
+      float p = expf(s - m_use);  // 0 where unseen
+      float psum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      if (QUANT && lane < BN) p *= sc[BN + lane];
+      if (lane < BN) p_s[r][lane] = p;
+      if (lane == 0) {
+        l_s[r] = fmaf(l_s[r], corr, psum);
+        m_s[r] = m_new;
+        corr_s[r] = corr;
+      }
+    }
+    __syncthreads();
+    // P V over this thread's columns (chunks of 4): keys no row sees are
+    // zeros in the ring, and their p is 0
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float corr = r < nrows ? corr_s[r] : 1.f;
+#pragma unroll
+      for (int u = 0; u < kSplitChunks; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][u][e] *= corr;
+    }
+    for (int j = 0; j < BN; ++j) {
+#pragma unroll
+      for (int u = 0; u < kSplitChunks; ++u) {
+        const int ch = threadIdx.x + u * kSplitThreads;
+        if (ch >= n4) break;
+        float vv[4];
+        split_load<KV, 4>(vv, vt + j * LDB + ch * 4 * ELT);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float p = r < nrows ? p_s[r][j] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][u][e] = fmaf(p, vv[e], acc[r][u][e]);
+        }
+      }
+    }
+  };
+
+  // the ring: kSplitStages - 1 tiles in flight ahead of the one computing
+  int fetch_t = next_tile(t_begin), comp_t = fetch_t;
+#pragma unroll
+  for (int st = 0; st < kSplitStages - 1; ++st) {
+    if (fetch_t < t_end) {
+      fetch(fetch_t, st);
+      fetch_t = next_tile(fetch_t + 1);
+    }
+    split_commit();
+  }
+  for (int it = 0; comp_t < t_end; ++it) {
+    split_wait();     // this thread's copies of tile `it` landed
+    __syncthreads();  // everyone's; and stage it - 1 and p_s are consumed
+    if (fetch_t < t_end) {
+      fetch(fetch_t, (it + kSplitStages - 1) % kSplitStages);
+      fetch_t = next_tile(fetch_t + 1);
+    }
+    split_commit();
+    compute(comp_t, it % kSplitStages);
+    comp_t = next_tile(comp_t + 1);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // m_s and l_s are final
+
+  const bool direct = n_live == 1;  // this block writes the output itself
+  float* ws_acc = ws;                                                 // [B*H][spans][rows][D]
+  float* ws_ml = ws + (size_t)gridDim.x * n_spans * kSplitRows * D;  // [B*H][spans][rows][2]
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r >= nrows) break;
+    const float l = l_s[r];
+    const size_t part = (bhs * n_spans + split) * kSplitRows + r;
+#pragma unroll
+    for (int u = 0; u < kSplitChunks; ++u) {
+      const int ch = threadIdx.x + u * kSplitThreads;
+      if (ch >= n4) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = ch * 4 + e;
+        if (c >= D) break;
+        if (direct)
+          store(out + (bhs * n + r) * D + c, l > 0.f ? acc[r][u][e] / l : 0.f);
+        else
+          ws_acc[part * D + c] = acc[r][u][e];
+      }
+    }
+    if (!direct && threadIdx.x == 0) {
+      ws_ml[part * 2] = m_s[r];
+      ws_ml[part * 2 + 1] = l;
+    }
+  }
+  if (direct) return;
+
+  // the last span block of this (b, h) to arrive merges the spans in span
+  // order, each thread its elements, as flash_decode.cu does: per chunk of 8
+  // spans it loads every (m, l, acc) at once, rescales its running sums to
+  // the chunk's new maximum, then adds the spans' terms e^(m - M) in order
+  // (a span with no visible key has m = -inf, l = acc = 0: no term)
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last_block = atomicAdd(counters + bh, 1) == n_live - 1;
+    if (last_block) atomicExch(counters + bh, 0);  // ready for the next call
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  constexpr int kChunk = 8;
+  const size_t part0 = bhs * n_spans * kSplitRows;  // (span sp, row r) at part0 + sp * rows + r
+  for (int i = threadIdx.x; i < nrows * D; i += kSplitThreads) {
+    const int r = i / D, c = i - r * D;
+    float mx = -INFINITY, sum_l = 0.f, sum_a = 0.f;
+    for (int sp0 = 0; sp0 < n_live; sp0 += kChunk) {
+      float ms[kChunk], ls[kChunk], as[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const size_t part = part0 + (size_t)(sp0 + u) * kSplitRows + r;
+        const bool in = sp0 + u < n_live;
+        ms[u] = in ? __ldcg(ws_ml + part * 2) : -INFINITY;
+        ls[u] = in ? __ldcg(ws_ml + part * 2 + 1) : 0.f;
+        as[u] = in ? __ldcg(ws_acc + part * D + c) : 0.f;
+      }
+      float m_new = mx;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) m_new = fmaxf(m_new, ms[u]);
+      if (m_new == -INFINITY) continue;  // no visible key yet
+      const float corr = expf(mx - m_new);  // 0 while mx is -inf
+      sum_l *= corr;
+      sum_a *= corr;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const float w = expf(ms[u] - m_new);  // 0 for a span with no visible key
+        sum_l = fmaf(ls[u], w, sum_l);
+        sum_a = fmaf(as[u], w, sum_a);
+      }
+      mx = m_new;
+    }
+    store(out + (bhs * n + r) * D + c, sum_l > 0.f ? sum_a / sum_l : 0.f);
+  }
+}
+
+template <typename T, typename KV>
+cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
+  auto kernel = a.n == 1 ? wide_split_kernel<T, KV, 1> : wide_split_kernel<T, KV, kSplitRows>;
+  const int smem = split_smem_bytes(a.D, (int)sizeof(KV), a.n == 1 ? 1 : kSplitRows);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + kSplitSpan - 1) / kSplitSpan);
+  kernel<<<grid, kSplitThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.lengths), static_cast<const int*>(a.bitmap),
+      static_cast<const int*>(a.page_table), static_cast<T*>(a.out), static_cast<float*>(ws),
+      static_cast<int*>(counters), a.H, a.n, a.S, a.D, a.n_blocks, a.block_k, a.page_size,
+      a.n_pool, a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -1321,6 +1779,44 @@ extern "C" int wide_decode_launch(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return (int)(quantized ? launch_decode<__nv_bfloat16, int8_t>(a)
                            : launch_decode<__nv_bfloat16, __nv_bfloat16>(a));
+  return (int)cudaErrorInvalidValue;
+}
+
+// Floats of the split-K workspace wide_split_launch needs at (B, H, S, D).
+extern "C" long long wide_split_workspace_floats(int B, int H, int S, int D) {
+  return (long long)B * H * ((S + kSplitSpan - 1) / kSplitSpan) * kSplitRows * (D + 2);
+}
+
+// The decode step at n <= 4 query rows and 256 < D <= 1024 on the split-K
+// kernel: arguments as wide_decode_launch, plus `workspace` of
+// wide_split_workspace_floats() floats and `counters`, B*H int32 that are
+// zero before the first call and that every call leaves zero (shared with
+// flash_decode.cu's split-K calls: calls must not run concurrently).
+extern "C" int wide_split_launch(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale, const void* lengths,
+                                 const void* bitmap, const void* page_table, void* out, int B,
+                                 int H, int n, int S, int D, int n_blocks, int block_k,
+                                 int page_size, int n_pool, int dtype, int quantized,
+                                 float sm_scale, void* stream, void* workspace, void* counters) {
+  if (B <= 0 || H <= 0 || n <= 0 || n > kSplitRows || S <= 0 || D <= 0 || D > kSplitMaxD)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H > 2147483647LL || (S + kSplitSpan - 1) / kSplitSpan > 65535 ||
+      workspace == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (quantized && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
+  if (bitmap != nullptr && (block_k <= 0 || n_blocks < (S + block_k - 1) / block_k))
+    return (int)cudaErrorInvalidValue;
+  if (page_table != nullptr && (page_size <= 0 || S % page_size != 0 || n_pool <= 0))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{q, k, v, k_scale, v_scale, lengths, bitmap, page_table, out,
+                     B, H, n, S, D, n_blocks, block_k, page_size > 0 ? page_size : 1, n_pool,
+                     sm_scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0)
+    return (int)(quantized ? launch_split<float, int8_t>(a, workspace, counters)
+                           : launch_split<float, float>(a, workspace, counters));
+  if (dtype == 1)
+    return (int)(quantized ? launch_split<__nv_bfloat16, int8_t>(a, workspace, counters)
+                           : launch_split<__nv_bfloat16, __nv_bfloat16>(a, workspace, counters));
   return (int)cudaErrorInvalidValue;
 }
 

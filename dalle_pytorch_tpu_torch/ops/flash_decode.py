@@ -29,10 +29,12 @@ never read) with cp.async into a ring of shared-memory stages, splits each
 tile's keys over its four warps and keeps K/V in their storage type until
 registers; see the source's header. Head dims: any D, a cache never
 padded per call. On the card D <= `MAX_KERNEL_HEAD_DIM` (256) runs the
-kernels above and any larger D the column-group kernel of
-`csrc/wide_head.cu` (`ops/wide_head.py`), one body with runtime flags for
-the int8 cache, the bitmap and the page table, whose all-ones bitmap and
-paged layout give the plain contiguous bits as here.
+kernels above and any larger D the kernels of `csrc/wide_head.cu`
+(`ops/wide_head.py`): its split-K step up to DECODE_ROWS rows (the same
+spans and merge as here, so `flash_decode_split_plain` is its arithmetic
+too), its 4-row column-group kernel above; each one body with runtime
+flags for the bitmap and the page table, whose all-ones bitmap and paged
+layout give the plain contiguous bits as here.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -52,13 +54,16 @@ default "gather" as in the reference.
 The prefill chunk and the resume forward (n > `DECODE_ROWS` query rows)
 with bf16 q run the tile arm, `csrc/flash_decode_tile.cu`: flash
 attention's forward over the cache, one block per 128 query rows looping
-over 64-key tiles (`DECODE_TILE`) on bf16 tensor cores, P rounded to bf16
-before P V, int8 K/V widened to bf16 with the scales on S's and P's
-columns, every variant (int8, block-sparse, paged) in one body whose
-all-ones bitmap and paged layout give the plain contiguous bits
-(`flash_decode_tile_plain` is its arithmetic on the CPU). fp32 q at n >
-`DECODE_ROWS` keeps flash_decode.cu's CUDA-core 4-row instance.
-`decode_arm` is the dispatch rule.
+over 64-key tiles (`DECODE_TILE`) on bf16 tensor cores, P carried into
+P V as a bf16 pair (hi, lo), int8 K/V widened to bf16 with the scales on
+S's and P's columns, every variant (int8, block-sparse, paged) in one
+body whose all-ones bitmap and paged layout give the plain contiguous
+bits (`flash_decode_tile_plain` is its arithmetic on the CPU). fp32 q at
+n > `DECODE_ROWS` runs the fp32 tile arm, `csrc/flash_decode_tile_f32.cu`:
+one block per `DECODE_TILE_F32_ROWS` query rows over key tiles of
+`tile_f32_keys(D)`, fp32 arithmetic on CUDA cores, int8 dequantized in
+the kernel (`flash_decode_tile_f32_plain`). `decode_arm` is the dispatch
+rule.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
@@ -68,7 +73,8 @@ counts: `flash_decode_attention.launches` (plain arm) and
 `block_sparse_paged_flash_decode_attention`, each counting every launch
 at D <= 256 whichever arm ran (calls at larger D count in
 `wide_head.wide_decode.launches`); `.tile_launches` and
-`.tile_int8_launches` count the ones of those that launched the tile arm.
+`.tile_int8_launches` count the ones of those that launched the tile arm,
+`.tile_f32_launches` and `.tile_f32_int8_launches` the fp32 tile arm.
 """
 
 from __future__ import annotations
@@ -80,12 +86,13 @@ from typing import Optional
 import torch
 
 from dalle_pytorch_tpu_torch import kernels
-from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, wide_decode
+from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, split_scratch, wide_decode, wide_split_takes
 
 MAX_KERNEL_HEAD_DIM = WIDE_ABOVE  # flash_decode.cu takes any D up to this (csrc dispatch_d)
-DECODE_ROWS = 4  # query rows per block (csrc kRows): n <= DECODE_ROWS splits the cache
+DECODE_ROWS = 4  # query rows flash_decode.cu takes (csrc kRows); more run a tile arm
 DECODE_SPAN = 128  # cache positions per split-K block (csrc kSpan, fixed from measurement)
 DECODE_TILE = 64  # keys per tile of the tile arm (csrc/flash_decode_tile.cu kBN)
+DECODE_TILE_F32_ROWS = 64  # query rows per block of the fp32 tile arm (csrc/flash_decode_tile_f32.cu kBM)
 LOG2E = 1.4426950408889634  # the tile arm forms P in base 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PAGED_DECODE_IMPLS = ("gather", "kernel")
@@ -284,13 +291,51 @@ def flash_decode_tile_plain(
     (int8: S's column j times k_scale[j] * scale * log2(e)), invisible
     scores -inf; m_new = max(m, max x), P = 2^(x - m_new) and the
     correction 2^(m - m_new) (a row whose maximum is still -inf takes 0
-    in its place), l = l * corr + sum P, then P (int8: its column j times
-    v_scale[j]) rounded to q's dtype before acc = acc * corr + P V.
+    in its place), l = l * corr + sum P, then acc = acc * corr + P V with
+    P (int8: its column j times v_scale[j]) in bf16 as the pair hi =
+    bf16(P), lo = bf16(P - hi), two products summed (`_p_operands`; fp32
+    q keeps P as is).
     out = acc / l, zeros for a row with no visible key. Keys no row reads
     enter as zeros, as the kernel zero-fills them. `block_bitmap` (with
     `block_k`) arms block sparsity; `page_table` reads k/v (and the
     scales) as pools [P, H, page, D] through it, the bitmap then one bit
     per page."""
+    return _online_tiles(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table,
+                         DECODE_TILE, base2=True)
+
+
+def flash_decode_tile_f32_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_bitmap: Optional[torch.Tensor] = None,
+    block_k: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The fp32 tile arm's arithmetic (`csrc/flash_decode_tile_f32.cu`,
+    fp32 q at n > DECODE_ROWS) in plain PyTorch, a model for tests that
+    nothing on the main path calls: an online softmax over tiles of
+    `tile_f32_keys(D)` cache positions in order, all in fp32 as the
+    reference computes it. q is scaled by D^-0.5 before the product, an
+    int8 cache is dequantized first (k_int8 * k_scale, v_int8 * v_scale),
+    S = q . k with invisible scores -inf; m_new = max(m, max S), P =
+    e^(S - m_new) and the correction e^(m - m_new) (a row whose maximum
+    is still -inf takes 0 in its place), l = l * corr + sum P, acc = acc
+    * corr + P V. out = acc / l, zeros for a row with no visible key.
+    Keys no row reads enter as zeros, as the kernel zero-fills them.
+    `block_bitmap`, `block_k` and `page_table` as `flash_decode_tile_plain`."""
+    return _online_tiles(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table,
+                         tile_f32_keys(q.shape[3]), base2=False)
+
+
+def _online_tiles(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table, tile, base2):
+    """The two tile arms' online softmax over `tile`-key tiles: in base 2
+    with S scaled after the product and P as `_p_operands` gives it
+    (`base2`, the bf16 tile arm), else in base e over q scaled before the
+    product and the dequantized cache (the fp32 tile arm)."""
     if page_table is not None:
         page = k.shape[2]
         vlen = page_table.shape[1] * page
@@ -306,30 +351,59 @@ def flash_decode_tile_plain(
         visible = visible & live[:, None, :]
     read = visible.any(1)[:, None, :]  # [B, 1, S]: the keys some row reads
     zero = torch.zeros((), device=q.device)
-    kf = torch.where(read[..., None], k.float(), zero)
-    vf = torch.where(read[..., None], v.float(), zero)
+    kf, vf = k.float(), v.float()
     f32 = dict(dtype=torch.float32, device=q.device)
-    scale_log2 = torch.tensor(d**-0.5, **f32) * torch.tensor(LOG2E, **f32)  # fp32, as the kernel
-    col = scale_log2.expand(b, h, s_len) if k_scale is None else torch.where(read, k_scale, zero) * scale_log2
-    v_col = None if v_scale is None else torch.where(read, v_scale, zero)
-    qf = q.float()
+    scale = torch.tensor(d**-0.5, **f32)
+    qf, col, v_col = q.float(), None, None
+    if base2:
+        scale_log2 = scale * torch.tensor(LOG2E, **f32)  # fp32, as the kernel
+        col = scale_log2.expand(b, h, s_len) if k_scale is None else torch.where(read, k_scale, zero) * scale_log2
+        v_col = None if v_scale is None else torch.where(read, v_scale, zero)
+        exp = torch.exp2
+    else:
+        qf = qf * scale
+        if k_scale is not None:
+            kf, vf = kf * k_scale[..., None], vf * v_scale[..., None]
+        exp = torch.exp
+    kf = torch.where(read[..., None], kf, zero)
+    vf = torch.where(read[..., None], vf, zero)
     m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
     l = torch.zeros((b, h, n, 1), device=q.device)
     acc = torch.zeros((b, h, n, d), device=q.device)
-    for lo in range(0, s_len, DECODE_TILE):
-        sl = slice(lo, lo + DECODE_TILE)
-        x = torch.matmul(qf, kf[:, :, sl].transpose(-1, -2)) * col[:, :, None, sl]
+    for lo in range(0, s_len, tile):
+        sl = slice(lo, lo + tile)
+        x = torch.matmul(qf, kf[:, :, sl].transpose(-1, -2))
+        if col is not None:
+            x = x * col[:, :, None, sl]
         x = x.masked_fill(~visible[:, None, :, sl], float("-inf"))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         m_use = torch.where(m_new == float("-inf"), zero, m_new)
-        corr = torch.exp2(m - m_use)
-        p = torch.exp2(x - m_use)
+        corr = exp(m - m_use)
+        p = exp(x - m_use)
         l = l * corr + p.sum(-1, keepdim=True)
         if v_col is not None:
             p = p * v_col[:, :, None, sl]
-        acc = acc * corr + torch.matmul(p.to(q.dtype).float(), vf[:, :, sl])
+        operands = _p_operands(p, q.dtype) if base2 else (p,)
+        acc = acc * corr + sum(torch.matmul(part, vf[:, :, sl]) for part in operands)
         m = m_new
     return torch.where(l > 0, acc / l.clamp(min=1e-30), zero).to(q.dtype)
+
+
+def _p_operands(p: torch.Tensor, dtype: torch.dtype):
+    """P as the tile arm's P V takes it: in bf16 the pair hi = bf16(P), lo =
+    bf16(P - hi), whose two products sum into one fp32 accumulator (P to
+    ~16 bits); in fp32 P itself."""
+    if dtype != torch.bfloat16:
+        return (p,)
+    hi = p.to(dtype).float()
+    return hi, (p - hi).to(dtype).float()
+
+
+def tile_f32_keys(d: int) -> int:
+    """Keys per tile of the fp32 tile arm at head dim `d`
+    (csrc/flash_decode_tile_f32.cu `tile_keys`): 64, and 32 above 128
+    channels, where two stages of 64 fp32 keys pass the shared memory."""
+    return 64 if d <= 128 else 32
 
 
 def expand_bitmap(block_bitmap: torch.Tensor, block_k: int, s_len: int) -> torch.Tensor:
@@ -354,17 +428,22 @@ def block_sparse_flash_decode_attention_plain(
     return _plain(q, k, v, lengths, k_scale, v_scale, kv_live)
 
 
-def _tile_library() -> ctypes.CDLL:
-    lib = kernels.library("flash_decode_tile")
-    fn = lib.flash_decode_tile_launch
+# the tile arms' sources, each with the same C interface (`<name>_launch`,
+# `paged_<name>_launch`)
+TILE_SOURCES = {"tile": "flash_decode_tile", "tile_f32": "flash_decode_tile_f32"}
+
+
+def _tile_library(arm: str):
+    """(contiguous, paged) launch functions of the tile arm `arm`."""
+    name = TILE_SOURCES[arm]
+    lib = kernels.library(name)
+    fn, paged = getattr(lib, f"{name}_launch"), getattr(lib, f"paged_{name}_launch")
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
         tail = [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = paged.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + tail
-        paged = lib.paged_flash_decode_tile_launch
-        paged.restype = ctypes.c_int
         paged.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + tail
-    return lib
+    return fn, paged
 
 
 def _library() -> ctypes.CDLL:
@@ -379,7 +458,7 @@ def _library() -> ctypes.CDLL:
         paged.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + tail
         floats = lib.flash_decode_workspace_floats
         floats.restype = ctypes.c_longlong
-        floats.argtypes = [ctypes.c_int] * 5
+        floats.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -403,55 +482,39 @@ def decode_kernel_source(d: int) -> str:
 
 def decode_arm(n: int, dtype: torch.dtype, d: int) -> str:
     """The kernel a call of n query rows in q's `dtype` at head dim `d`
-    launches on the card: "wide" above MAX_KERNEL_HEAD_DIM
-    (csrc/wide_head.cu); else flash_decode.cu's split-K instances at the
-    step ("step", n = 1) and up to DECODE_ROWS rows ("split"); above
-    DECODE_ROWS the tensor-core tile arm of flash_decode_tile.cu for
-    bf16 q ("tile") and flash_decode.cu's CUDA-core 4-row instance for
-    fp32 q ("rows")."""
+    launches on the card. Above MAX_KERNEL_HEAD_DIM, csrc/wide_head.cu:
+    its split-K kernel ("wide_split", up to DECODE_ROWS rows and
+    `wide_head.WIDE_SPLIT_MAX_D` channels: `wide_split_takes`), else its
+    4-row kernel ("wide"). Up to MAX_KERNEL_HEAD_DIM: flash_decode.cu's split-K
+    instances at the step ("step", n = 1) and up to DECODE_ROWS rows
+    ("split"); above DECODE_ROWS the tensor-core tile arm of
+    flash_decode_tile.cu for bf16 q ("tile") and the CUDA-core tile arm
+    of flash_decode_tile_f32.cu for fp32 q ("tile_f32")."""
     if d > MAX_KERNEL_HEAD_DIM:
-        return "wide"
+        return "wide_split" if wide_split_takes(n, d) else "wide"
     if n == 1:
         return "step"
     if n <= DECODE_ROWS:
         return "split"
-    return "tile" if dtype == torch.bfloat16 else "rows"
+    return "tile" if dtype == torch.bfloat16 else "tile_f32"
 
 
 def _count(fn, q, k_scale) -> None:
     """One launch of `fn`'s kernel (its int8 arm with scales), and of its
-    tile arm where that ran; calls above MAX_KERNEL_HEAD_DIM launched
+    tile arms where one ran; calls above MAX_KERNEL_HEAD_DIM launched
     `wide_decode` and count there."""
     b, h, n, d = q.shape
     arm = decode_arm(n, q.dtype, d)
-    if arm == "wide":
+    if arm.startswith("wide"):
         return
     if k_scale is None:
         fn.launches += 1
         fn.tile_launches += arm == "tile"
+        fn.tile_f32_launches += arm == "tile_f32"
     else:
         fn.int8_launches += 1
         fn.tile_int8_launches += arm == "tile"
-
-
-_counters = {}  # device -> int32 arrival counters, zero between calls
-
-
-def _split_scratch(lib, q, b, h, n, s_len, d):
-    """(workspace, counters) of a split-K call, or (None, None) when the
-    call has one span: a float32 workspace for the spans' partial states
-    (fresh from the caching allocator) and int32 counters per (row, head),
-    zeroed once per device and left zero by every call, so a call needs no
-    memset. Calls on one device share the counters: they run on one stream
-    at a time."""
-    floats = lib.flash_decode_workspace_floats(b, h, n, s_len, d)
-    if floats == 0:
-        return None, None
-    counters = _counters.get(q.device)
-    if counters is None or counters.numel() < b * h:
-        counters = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=q.device)
-        _counters[q.device] = counters
-    return torch.empty(floats, dtype=torch.float32, device=q.device), counters
+        fn.tile_f32_int8_launches += arm == "tile_f32"
 
 
 def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table=None):
@@ -459,7 +522,7 @@ def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_tabl
     `block_bitmap` picks the block-sparse variant."""
     b, h, n, d = q.shape
     arm = decode_arm(n, q.dtype, d)
-    if arm == "wide":
+    if arm.startswith("wide"):
         return wide_decode(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table)
     tensors = [q, k, v] + ([] if k_scale is None else [k_scale, v_scale])
     if any(t.data_ptr() % 16 for t in tensors):
@@ -470,24 +533,24 @@ def _launch(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_tabl
     s_len = k.shape[2] if page_table is None else page_table.shape[1] * k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (_ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths))
-    if arm == "tile":
-        lib = _tile_library()
+    if arm in TILE_SOURCES:
+        contiguous, paged = _tile_library(arm)
         with torch.cuda.device(q.device):
             if page_table is None:
-                err = lib.flash_decode_tile_launch(
+                err = contiguous(
                     *head, _ptr(block_bitmap), _ptr(out), b, h, n, s_len, d, quant,
                     block_k if sparse else 0, d**-0.5, stream,
                 )
             else:
-                err = lib.paged_flash_decode_tile_launch(
+                err = paged(
                     *head, _ptr(page_table), _ptr(block_bitmap), _ptr(out), b, h, n,
                     k.shape[0], k.shape[2], page_table.shape[1], d, quant, d**-0.5, stream,
                 )
         if err != 0:
-            raise RuntimeError(f"flash_decode_tile kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"{TILE_SOURCES[arm]} kernel launch failed: CUDA error {err}")
         return out
     lib = _library()
-    workspace, counters = _split_scratch(lib, q, b, h, n, s_len, d)
+    workspace, counters = split_scratch(q.device, lib.flash_decode_workspace_floats(b, h, s_len, d), b * h)
     tail = (d**-0.5, stream, _ptr(workspace), _ptr(counters))
     with torch.cuda.device(q.device):
         if page_table is None:
@@ -536,6 +599,8 @@ flash_decode_attention.launches = 0
 flash_decode_attention.int8_launches = 0
 flash_decode_attention.tile_launches = 0
 flash_decode_attention.tile_int8_launches = 0
+flash_decode_attention.tile_f32_launches = 0
+flash_decode_attention.tile_f32_int8_launches = 0
 
 
 def block_sparse_flash_decode_attention(
@@ -577,6 +642,8 @@ block_sparse_flash_decode_attention.launches = 0
 block_sparse_flash_decode_attention.int8_launches = 0
 block_sparse_flash_decode_attention.tile_launches = 0
 block_sparse_flash_decode_attention.tile_int8_launches = 0
+block_sparse_flash_decode_attention.tile_f32_launches = 0
+block_sparse_flash_decode_attention.tile_f32_int8_launches = 0
 
 
 # ------------------------------------------------------------ paged cache
@@ -670,6 +737,8 @@ paged_flash_decode_attention.launches = 0
 paged_flash_decode_attention.int8_launches = 0
 paged_flash_decode_attention.tile_launches = 0
 paged_flash_decode_attention.tile_int8_launches = 0
+paged_flash_decode_attention.tile_f32_launches = 0
+paged_flash_decode_attention.tile_f32_int8_launches = 0
 
 
 def block_sparse_paged_flash_decode_attention(
@@ -709,6 +778,8 @@ block_sparse_paged_flash_decode_attention.launches = 0
 block_sparse_paged_flash_decode_attention.int8_launches = 0
 block_sparse_paged_flash_decode_attention.tile_launches = 0
 block_sparse_paged_flash_decode_attention.tile_int8_launches = 0
+block_sparse_paged_flash_decode_attention.tile_f32_launches = 0
+block_sparse_paged_flash_decode_attention.tile_f32_int8_launches = 0
 
 
 def page_bitmap(block_bitmap: torch.Tensor, sparse_block: int, page: int, n_pages: int) -> torch.Tensor:

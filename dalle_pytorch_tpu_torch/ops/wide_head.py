@@ -8,6 +8,11 @@ wrapper's, which takes any D. Nothing here runs on the CPU: the calling
 wrappers run their plain versions for CPU tensors before reaching this
 module.
 
+Decode (`wide_decode`) runs the split-K kernel `wide_split_kernel` up to
+WIDE_SPLIT_ROWS query rows (the step; spans of 128 keys merged by the last
+block to arrive, as flash_decode.cu's split-K body, through `split_scratch`)
+and the 4-row `wide_decode_kernel` above.
+
 Flash attention in bfloat16 runs on tensor cores, one column group of
 output columns a block (`wide_attention_plan`, which also sets each
 launch's shared memory and residency): the forward
@@ -32,6 +37,12 @@ from dalle_pytorch_tpu_torch import kernels
 
 WIDE_ABOVE = 256  # head dims above this run the kernels of this module
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# decode: the split-K kernel takes up to this many query rows (csrc
+# kSplitRows, ops/flash_decode.py DECODE_ROWS) at head dims up to
+# WIDE_SPLIT_MAX_D (csrc kSplitMaxD: its accumulators); other calls run the
+# 4-row kernel
+WIDE_SPLIT_ROWS = 4
+WIDE_SPLIT_MAX_D = 1024
 
 # the bf16 flash-attention kernels: output columns a block may own (their
 # instances), the most a plan gives a block (the forward's accumulator is
@@ -139,11 +150,42 @@ def _library() -> ctypes.CDLL:
     if lib.wide_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wide_decode_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p]
+        lib.wide_split_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p, p, p]
         lib.wide_attention_fwd.argtypes = [p] * 7 + [i] * 10 + [ctypes.c_float, p]
         lib.wide_attention_bwd.argtypes = [p] * 12 + [i] * 10 + [ctypes.c_float, p]
-        for fn in (lib.wide_decode_launch, lib.wide_attention_fwd, lib.wide_attention_bwd):
+        for fn in (lib.wide_decode_launch, lib.wide_split_launch, lib.wide_attention_fwd,
+                   lib.wide_attention_bwd):
             fn.restype = ctypes.c_int
+        lib.wide_split_workspace_floats.restype = ctypes.c_longlong
+        lib.wide_split_workspace_floats.argtypes = [i] * 4
     return lib
+
+
+_counters = {}  # device -> int32 arrival counters of the split-K kernels, zero between calls
+
+
+def split_scratch(device: torch.device, floats: int, rows: int):
+    """(workspace, counters) of a split-K decode call (flash_decode.cu's or
+    this module's), or (None, None) when it needs no workspace (`floats`
+    0): a float32 workspace of `floats` for the spans' partial states
+    (fresh from the caching allocator) and int32 arrival counters for
+    `rows` (batch row, head) pairs, zeroed once per device and left zero by
+    every call, so a call needs no memset. Calls on one device share the
+    counters: they run on one stream at a time."""
+    if floats == 0:
+        return None, None
+    counters = _counters.get(device)
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+        _counters[device] = counters
+    return torch.empty(floats, dtype=torch.float32, device=device), counters
+
+
+def wide_split_takes(n: int, d: int) -> bool:
+    """Whether a decode call of n query rows at head dim `d` > WIDE_ABOVE
+    runs the split-K kernel (`wide_split_kernel`): up to WIDE_SPLIT_ROWS
+    rows and WIDE_SPLIT_MAX_D channels; else the 4-row kernel."""
+    return n <= WIDE_SPLIT_ROWS and d <= WIDE_SPLIT_MAX_D
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -160,22 +202,33 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
     """The flash-decode function at any D (checked by the calling
     wrapper): the contiguous cache, or the pool read through `page_table`;
     `block_bitmap` over blocks of `block_k` positions (one per table entry
-    when paged); int8 K/V with their scales."""
+    when paged); int8 K/V with their scales. On the split-K kernel where
+    `wide_split_takes`, counted also in `.split_launches`; else on the
+    4-row kernel."""
     b, h, n, d = q.shape
     paged = page_table is not None
     s_len = page_table.shape[1] * k.shape[2] if paged else k.shape[2]
     out = torch.empty_like(q)
+    lib = _library()
+    split = wide_split_takes(n, d)
+    args = (
+        _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths),
+        _ptr(block_bitmap), _ptr(page_table), _ptr(out), b, h, n, s_len, d,
+        0 if block_bitmap is None else block_bitmap.shape[1], int(block_k),
+        k.shape[2] if paged else 0, k.shape[0] if paged else 0,
+        _DTYPE_CODE[q.dtype], int(k_scale is not None), d**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
     with torch.cuda.device(q.device):
-        err = _library().wide_decode_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths),
-            _ptr(block_bitmap), _ptr(page_table), _ptr(out), b, h, n, s_len, d,
-            0 if block_bitmap is None else block_bitmap.shape[1], int(block_k),
-            k.shape[2] if paged else 0, k.shape[0] if paged else 0,
-            _DTYPE_CODE[q.dtype], int(k_scale is not None), d**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _raise_on(err, "wide_decode")
+        if split:
+            workspace, counters = split_scratch(
+                q.device, lib.wide_split_workspace_floats(b, h, s_len, d), b * h)
+            err = lib.wide_split_launch(*args, _ptr(workspace), _ptr(counters))
+        else:
+            err = lib.wide_decode_launch(*args)
+    _raise_on(err, "wide_split" if split else "wide_decode")
     wide_decode.launches += 1
+    wide_decode.split_launches += split
     return out
 
 
@@ -235,6 +288,7 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
 
 
 wide_decode.launches = 0
+wide_decode.split_launches = 0  # of those, the split-K kernel's
 wide_attention_fwd.launches = 0
 wide_attention_bwd.launches = 0
 # the bf16 calls among .launches: the tensor-core kernels

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Flash decode's tile arm (`csrc/flash_decode_tile.cu`) on one GPU.
+"""Flash decode's tile arms (`csrc/flash_decode_tile.cu`, bf16 q, and
+`csrc/flash_decode_tile_f32.cu`, fp32 q) on one GPU.
 
-The tile arm runs flash decode for bf16 q at n > 4 query rows: the
-flagship prefill chunk (n = 257 over the 1281-slot cache, lengths 257) and
-the resume forward (n = 1280, S = 1281, lengths 1280), B = 4, H = 16, D =
-64. This script builds the kernels (printing ptxas's register and spill
-lines of flash_decode_tile.cu), runs `chip_smoke.py`'s phase-2 checks of
-the tile arm (against the plain version and the tile model, poisoned
-caches, launches) and of the paged variants, then times kernel 1 and its
-int8 arm at both shapes: CUDA events around back-to-back wrapper calls and
-device time per call from a torch.profiler trace of the same calls (12
-input copies rotating, as `chip_smoke.py` does), beside SDPA's causal
-forward over the live keys and the bound.
+The tile arms run flash decode at n > 4 query rows: the flagship prefill
+chunk (n = 257 over the 1281-slot cache, lengths 257) and the resume
+forward (n = 1280, S = 1281, lengths 1280), B = 4, H = 16, D = 64. This
+script builds the kernels (printing ptxas's register and spill lines of
+both tile sources), runs `chip_smoke.py`'s phase-2 checks of the tile arms
+(against the plain version and each arm's model, poisoned caches,
+launches) and of the paged variants, then times kernel 1 and its int8 arm
+at both shapes in bf16 and fp32: CUDA events around back-to-back wrapper
+calls and device time per call from a torch.profiler trace of the same
+calls (12 input copies rotating, as `chip_smoke.py` does), beside SDPA's
+causal forward over the live keys in the same dtype.
 
 Run from the repo root on the machine with the card:
 
@@ -70,50 +71,54 @@ def load_smoke():
 
 
 def build() -> None:
-    """Build this tree's kernels; print flash_decode_tile.cu's ptxas lines."""
+    """Build this tree's kernels; print the tile arms' ptxas lines."""
     from dalle_pytorch_tpu_torch import kernels
 
-    kernels.build(["flash_decode", "flash_decode_tile"])
-    info = kernels.build_log["flash_decode_tile"]
-    print(f"build flash_decode_tile: {info['seconds']:.2f} s")
-    entry = ""
-    for line in info["ptxas"].splitlines():
-        found = re.search(r"Compiling entry function '([^']+)'", line)
-        if found:
-            entry = found.group(1)
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas {entry}: {line.strip()}")
+    kernels.build(["flash_decode", "flash_decode_tile", "flash_decode_tile_f32"])
+    for name in ("flash_decode_tile", "flash_decode_tile_f32"):
+        info = kernels.build_log[name]
+        print(f"build {name}: {info['seconds']:.2f} s")
+        entry = ""
+        for line in info["ptxas"].splitlines():
+            found = re.search(r"Compiling entry function '([^']+)'", line)
+            if found:
+                entry = found.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {entry}: {line.strip()}")
 
 
-def timed_jobs(torch, cs):
+def timed_jobs(torch, cs, dtypes=("bf16", "fp32")):
     """{row: (fn, inputs, iters)}: kernel 1 and its int8 arm at the prefill
-    and resume shapes (bf16 q), and SDPA's causal forward over the live
-    keys."""
+    and resume shapes, for bf16 q (the tile arm) and fp32 q (the fp32 tile
+    arm; `_f32` rows), and SDPA's causal forward over the live keys in
+    each dtype."""
     import torch.nn.functional as F
 
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
     b, n_prefill = cs.MAIN["batch"], cs.MAIN["prefill"]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
     jobs = {}
-    for shape, n, inputs, iters in (
-        ("prefill", n_prefill,
-         cs.flash_inputs(torch, n_prefill, [n_prefill] * b, torch.bfloat16, copies=cs.LAYERS),
-         10 * cs.LAYERS),
-        ("resume", cs.RESUME["n"], cs.resume_inputs(torch, b, torch.bfloat16, copies=cs.LAYERS),
-         2 * cs.LAYERS),
-    ):
-        int8 = []
-        for q, k, v, lens in inputs:
-            kq, vq, ks, vs = cs.quantized(torch, k, v)
-            int8.append((q, kq, vq, lens, ks, vs))
-        live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
-
-        def sdpa(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-        jobs[f"{shape}_bf16"] = (fd.flash_decode_attention, inputs, iters)
-        jobs[f"{shape}_int8"] = (fd.flash_decode_attention, int8, iters)
-        jobs[f"{shape}_sdpa_causal"] = (sdpa, live, iters)
+    for key in dtypes:
+        dtype, suffix = (torch.bfloat16, "") if key == "bf16" else (torch.float32, "_f32")
+        for shape, n, inputs, iters in (
+            ("prefill", n_prefill,
+             cs.flash_inputs(torch, n_prefill, [n_prefill] * b, dtype, copies=cs.LAYERS),
+             10 * cs.LAYERS),
+            ("resume", cs.RESUME["n"], cs.resume_inputs(torch, b, dtype, copies=cs.LAYERS),
+             2 * cs.LAYERS),
+        ):
+            int8 = []
+            for q, k, v, lens in inputs:
+                kq, vq, ks, vs = cs.quantized(torch, k, v)
+                int8.append((q, kq, vq, lens, ks, vs))
+            live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
+            jobs[f"{shape}_{key}"] = (fd.flash_decode_attention, inputs, iters)
+            jobs[f"{shape}_int8{suffix}"] = (fd.flash_decode_attention, int8, iters)
+            jobs[f"{shape}_sdpa_causal{suffix}"] = (sdpa, live, iters)
     return jobs
 
 
@@ -161,7 +166,7 @@ def ablate(torch, cs) -> None:
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)), key=int)
         print(json.dumps({"ablate": name, "registers": regs, "spill_stores": spills}), flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    jobs = {k: job for k, job in timed_jobs(torch, cs).items() if "sdpa" not in k}
+    jobs = {k: job for k, job in timed_jobs(torch, cs, ("bf16",)).items() if "sdpa" not in k}
     def traced_ms(fn, inputs, iters):
         """Device ms a call; a trace that kept no kernel record is taken again
         (after a dozen traces in one process the profiler can drop them all)."""

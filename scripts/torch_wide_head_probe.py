@@ -23,9 +23,11 @@ of `csrc/wide_head.cu` that each change one part, and the other column
 plans (the forward at 128 or 192 columns a block, the backward at 64),
 device ms from a trace. With `--parent DIR` (an unpacked
 checkout of another commit under the git-ignored `build/`) only the timed
-flash-attention rows run, in separate processes in turns: DIR's kernels
-and wrappers, this tree's, this tree's, DIR's (this script's measuring
-code each time); a last JSON line gives each turn's device ms.
+rows run (the flash-attention forward and backward at the training shapes
+and the decode step, bf16, at D = 320 and 512, beside SDPA), in separate
+processes in turns: DIR's kernels and wrappers, this tree's, this tree's,
+DIR's (this script's measuring code each time); a last JSON line gives
+each turn's device ms.
 """
 
 from __future__ import annotations
@@ -68,13 +70,29 @@ def kernel_report(cs) -> None:
 
 def timed_jobs(torch, F):
     """{row: (fn, inputs, iters)}: the wide flash-attention forward and
-    backward (bf16, causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's."""
+    backward (bf16, causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's; the
+    decode step (bf16, n = 1, B = 4, H = 16, S = 1281, lengths [258, 700,
+    1024, 1281], three input sets rotating) at TIMED_DIMS, and SDPA over
+    the cache with the length mask."""
     import chip_smoke as cs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
     b, h, n = cs.TRAIN["batch"], cs.TRAIN["heads"], cs.TRAIN["n"]
+    s_len, lens = cs.MAIN["cache"], torch.tensor([258, 700, 1024, 1281], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s_len, device="cuda")[None, :] <= lens.long()[:, None] - 1)[:, None, None, :]
+
+    def sdpa_masked(q, k, v, lengths):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
     jobs = {}
+    for d in TIMED_DIMS:
+        steps = [tuple(torch.randn(shape, generator=g, device="cuda").bfloat16()
+                       for shape in ((b, cs.MAIN["heads"], 1, d), (b, cs.MAIN["heads"], s_len, d),
+                                     (b, cs.MAIN["heads"], s_len, d))) + (lens,) for _ in range(3)]
+        jobs[f"decode_d{d}"] = (fd.flash_decode_attention, steps, 60)
+        jobs[f"sdpa_decode_d{d}"] = (sdpa_masked, steps, 60)
     for d in TIMED_DIMS:
         sets = []
         for _ in range(2):
@@ -165,7 +183,7 @@ def ablate(torch, cs, F) -> None:
                           log)
         print(json.dumps({"ablate": name, "registers": {cs.mangled_kernel(k): int(r) for k, r in regs}}), flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    jobs = {k: job for k, job in timed_jobs(torch, F).items() if not k.startswith("sdpa")}
+    jobs = {k: job for k, job in timed_jobs(torch, F).items() if k.startswith(("fwd", "bwd"))}
 
     def traced_ms(fn, inputs, iters):
         """Device ms a call; a trace that kept no kernel record is taken again

@@ -2,9 +2,9 @@
 
 The card runs the tile arm for bf16 q at n > DECODE_ROWS query rows;
 `flash_decode_tile_plain` is its arithmetic in plain PyTorch (64-key
-tiles in order, S scaled in fp32, P formed in base 2 and rounded to q's
-dtype before P V, int8 K/V as integers with the scales on S's and P's
-columns, keys no row reads zeroed). Here the model meets the JAX
+tiles in order, S scaled in fp32, P formed in base 2 and multiplied into
+V as the bf16 pair hi = bf16(P), lo = bf16(P - hi), int8 K/V as integers
+with the scales on S's and P's columns, keys no row reads zeroed). Here the model meets the JAX
 package's Pallas kernels, run in interpret mode as the JAX tests run
 them, for every decode variant (plain, block-sparse, paged, block-sparse
 paged; each with its int8 arm), and itself for the bit identities the
@@ -14,8 +14,8 @@ the card by `chip_smoke.py` (phases 2, 3 and 10).
 Tolerances: float32 inputs 2e-5 absolute (summation order, and 2^x
 against e^x on the scaled scores); bfloat16 inputs 2^-7 * max(1, max
 |ref|), `chip_smoke.py`'s `decode_tol` for the card's decode kernels (the
-model rounds P and the output to bf16, the Pallas kernel the output
-only). A row that sees no key is zeros in the port (its contract), where
+model carries P as a bf16 pair and rounds the output to bf16, the Pallas
+kernel rounds the output only); and, for P's precision, P_PAIR_RMS. A row that sees no key is zeros in the port (its contract), where
 the Pallas kernel gives the mean of a V tile: such rows are compared with
 `flash_decode_attention_plain` only.
 """
@@ -169,9 +169,48 @@ def test_tile_model_matches_the_pallas_kernels(variant, n):
 
 @pytest.mark.parametrize("variant", ["plain", "int8", "block_sparse_int8", "block_sparse_paged"])
 def test_tile_model_in_bfloat16(variant):
-    """bf16 q (and cache) through the model, which rounds P to bf16 before
-    P V as the kernel does, against the Pallas kernel under decode_tol."""
+    """bf16 q (and cache) through the model, which carries P into P V as a
+    bf16 pair as the kernel does, against the Pallas kernel under
+    decode_tol."""
     _hold(variant, 65, 64, torch.bfloat16, seed=3)
+
+
+# the rms over the rows that see a key of (tile model - Pallas kernel), both
+# rounded to bf16 once at the end, on bf16 inputs
+P_PAIR_RMS = 1e-4
+
+
+@pytest.mark.parametrize("n,d,seed", [(130, 64, 3), (65, 40, 5), (130, 200, 7)])
+def test_tile_model_carries_p_as_the_reference_does(n, d, seed):
+    """P's precision in P V, the tile arm's departure behind ROADMAP Queue 3
+    item 1: the reference multiplies fp32 P into the upcast V, the tile
+    arm a bf16 pair hi = bf16(P), lo = bf16(P - hi) (two products into one
+    fp32 accumulator, ~16 bits of P). Against the Pallas kernel in
+    interpret mode, bf16 inputs, the rms of the difference over the rows
+    that see a key must stay within P_PAIR_RMS = 1e-4; the model with one
+    bf16 P (the arithmetic before the pair) must not. Readings at these
+    cases (n, D): the pair 2.1e-5 (130, 64), 1.3e-5 (65, 40), 2.0e-5
+    (130, 200); one bf16 P 4.0e-4, 4.6e-4, 4.1e-4; the share of outputs
+    that differ from the Pallas kernel's bits 0.2% against 36-37%."""
+    q, k, v, ks, vs, bm, table, pools = _case("plain", n, d, seed)
+    lengths = _lengths(n)
+    ref = np.asarray(_pallas("plain", q, k, v, ks, vs, lengths, bm, table, pools, torch.bfloat16)
+                     .astype(jnp.float32))
+    mask = np.broadcast_to(_visible_rows("plain", n, lengths, bm)[:, None, :, None], ref.shape)
+    args = (_t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16), _t(lengths))
+
+    def rms():
+        diff = (fd.flash_decode_tile_plain(*args).float().numpy() - ref)[mask]
+        return float(np.sqrt((diff**2).mean()))
+
+    pair = rms()
+    one_p = fd._p_operands
+    try:
+        fd._p_operands = lambda p, dtype: (p.to(dtype).float(),)
+        single = rms()
+    finally:
+        fd._p_operands = one_p
+    assert pair <= P_PAIR_RMS < single, (pair, single)
 
 
 @pytest.mark.parametrize("n", [5, 130])
@@ -226,7 +265,7 @@ def test_tile_model_never_reads_keys_no_row_sees(int8):
 
 
 def test_tile_model_float32_is_the_plain_function():
-    """In float32 (no rounding of P) the tiles, base 2 and zero-filled keys
+    """In float32 (P as is) the tiles, base 2 and zero-filled keys
     leave the plain version's function: 2e-6."""
     q, k, v, _, _, _, _, _ = _case("plain", 130, 40, seed=5)
     args = (_t(q), _t(k), _t(v), _t(_lengths(130)))
@@ -237,16 +276,19 @@ def test_tile_model_float32_is_the_plain_function():
 def test_decode_arm_is_the_dispatch_rule():
     """The kernel a call launches on the card: the split-K step at n = 1,
     split-K up to DECODE_ROWS rows, above that the tile arm for bf16 q and
-    flash_decode.cu's 4-row instance for fp32 q; the wide kernel above
-    256 channels whatever n."""
+    the fp32 tile arm for fp32 q; above 256 channels the wide kernels, the
+    split-K one up to DECODE_ROWS rows (to 1024 channels), the 4-row one
+    above."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fd.DECODE_ROWS == 4 and fd.DECODE_TILE == 64
     assert [fd.decode_arm(n, bf, 64) for n in (1, 2, 4, 5, 257, 1280)] == [
         "step", "split", "split", "tile", "tile", "tile"]
-    assert [fd.decode_arm(n, f32, 64) for n in (1, 3, 5, 1280)] == ["step", "split", "rows", "rows"]
+    assert [fd.decode_arm(n, f32, 64) for n in (1, 3, 5, 1280)] == ["step", "split", "tile_f32", "tile_f32"]
     assert [fd.decode_arm(5, bf, d) for d in (1, 40, 200, 256, 257, 1024)] == [
         "tile", "tile", "tile", "tile", "wide", "wide"]
-    assert fd.decode_arm(1, bf, 320) == "wide"
+    assert [fd.decode_arm(5, f32, d) for d in (8, 256, 257)] == ["tile_f32", "tile_f32", "wide"]
+    assert [fd.decode_arm(n, dt, 320) for n in (1, 4) for dt in (bf, f32)] == ["wide_split"] * 4
+    assert [fd.decode_arm(1, bf, d) for d in (257, 1024, 1025)] == ["wide_split", "wide_split", "wide"]
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_no_tile_launch():

@@ -1,10 +1,13 @@
-"""The head-dim > 256 flash attention of the port (`ops/wide_head.py`,
+"""The head-dim > 256 kernels of the port (`ops/wide_head.py`,
 `csrc/wide_head.cu`) on the CPU: which kernel a call launches on the card
 at (D, dtype), the bf16 kernels' launch plans at every D from 257 to 1024,
 and the arithmetic of the bf16 tensor-core kernels (the plain versions
 with `p_dtype=bfloat16`: P rounded per 64-key tile in base 2 forward, dS
 rounded once backward) against the JAX package's Pallas kernels in
-interpret mode at D = 264 and 320.
+interpret mode at D = 264 and 320; and the split-K decode step's
+arithmetic (`flash_decode_split_plain` with spans of DECODE_SPAN keys)
+against the Pallas decode kernels at D = 264 and 320 (2e-5, float32
+summation order).
 
 Tolerances: the rounding-matched plain versions against the exact Pallas
 function 2^-8 of the largest |reference| (bf16 rounds P and dS to 2^-9
@@ -21,6 +24,7 @@ import torch
 
 from dalle_pytorch_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
+from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 from dalle_pytorch_tpu_torch.ops import wide_head as wh
 from dalle_pytorch_tpu_torch.ops.flash_attention import (
     attention_kernels,
@@ -29,6 +33,8 @@ from dalle_pytorch_tpu_torch.ops.flash_attention import (
     flash_mask,
     on_kernel_head_dim,
 )
+
+from test_torch_decode_tile import S_LEN, VARIANTS, _case, _pallas, _t
 
 torch.set_num_threads(2)
 
@@ -156,3 +162,57 @@ def test_padding_to_the_kernels_alignment_is_the_unpadded_function(d):
     for got, want in zip(padded, grads):
         assert got.is_contiguous() and got.shape == want.shape
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("d", [264, 320])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_split_k_model_above_256_matches_the_pallas_kernels(variant, n, d):
+    """The split-K decode step at D > 256 (`wide_split_kernel`, n <= 4):
+    its arithmetic, `flash_decode_split_plain` with spans of DECODE_SPAN =
+    128 keys merged in span order, against the Pallas kernel of each
+    decode variant (plain, block-sparse, paged, block-sparse paged, each
+    with its int8 arm) in interpret mode, float32: a 200-position cache in
+    two spans, one row inside its first span, and a bitmap that leaves
+    row 2's first span with no visible key (its pages 0-3, or blocks 0-3,
+    dead). 2e-5."""
+    assert fd.decode_arm(n, torch.float32, d) == "wide_split"
+    q, k, v, ks, vs, bm, table, pools = _case(variant, n, d, seed=d + n)
+    lengths = np.asarray([n + 2, 150, S_LEN], np.int32)
+    if bm is not None:
+        bm[:2, 0] = 1  # rows 0 and 1 see a key in span 0
+        bm[2, :4] = 0  # row 2: no visible key before position 160 (pages) or 128 (blocks)
+        bm[2, 4:] = 1
+    ref = np.asarray(_pallas(variant, q, k, v, ks, vs, lengths, bm, table, pools, torch.float32))
+    paged = "paged" in variant
+    kk, vv, sk, sv = pools if paged else (k, v, ks, vs)
+    out = fd.flash_decode_split_plain(
+        _t(q), _t(kk), _t(vv), _t(lengths), _t(sk), _t(sv), block_bitmap=_t(bm),
+        block_k=None if paged else 32, page_table=_t(table), span=fd.DECODE_SPAN,
+    )
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+def test_split_k_takes_the_step_up_to_1024_channels():
+    """The split-K kernel takes n <= WIDE_SPLIT_ROWS (= DECODE_ROWS) rows at
+    257..1024 channels in either dtype; n > 4 and wider heads keep the
+    4-row kernel, as `decode_arm` names them; its spans are flash_decode's."""
+    assert wh.WIDE_SPLIT_ROWS == fd.DECODE_ROWS == 4 and wh.WIDE_SPLIT_MAX_D == 1024
+    assert all(wh.wide_split_takes(n, d) for n in (1, 4) for d in (257, 320, 512, 1024))
+    assert not any(wh.wide_split_takes(n, d) for n, d in ((5, 320), (1, 1025)))
+    for dtype in (torch.float32, torch.bfloat16):
+        assert [fd.decode_arm(n, dtype, 512) for n in (1, 2, 4, 5, 1280)] == [
+            "wide_split"] * 3 + ["wide"] * 2
+        assert fd.decode_arm(1, dtype, 2048) == "wide"
+
+
+def test_cpu_decode_above_256_counts_no_wide_launch():
+    """On CPU tensors the decode wrappers run their plain versions at D >
+    256, counting no launch of either wide decode kernel."""
+    q, k, v, _, _, _, _, _ = _case("plain", 1, 320, seed=1)
+    lengths = _t(np.asarray([3, 150, S_LEN], np.int32))
+    before = (wh.wide_decode.launches, wh.wide_decode.split_launches)
+    out = fd.flash_decode_attention(_t(q), _t(k), _t(v), lengths)
+    assert torch.equal(out, fd.flash_decode_attention_plain(_t(q), _t(k), _t(v), lengths))
+    assert (wh.wide_decode.launches, wh.wide_decode.split_launches) == before
