@@ -10,11 +10,12 @@ Phases, each failing loudly (nonzero exit, no result line):
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel of the port from `dalle_pytorch_tpu_torch/csrc/` (one nvcc per
    source, started together: flash_decode.cu, flash_decode_tile.cu,
-   flash_decode_tile_f32.cu, flash_attention.cu and wide_head.cu, the
-   head dims above 256), with ptxas's register and spill lines (no
-   instance of either tile source may spill; no tensor-core instance of
-   wide_head.cu may spill, and `cuobjdump -sass` must find HMMA in each;
-   no split-K decode instance of it may spill);
+   flash_decode_tile_f32.cu, flash_attention.cu, and wide_head.cu and
+   wide_decode_tile.cu, the head dims above 256), with ptxas's register
+   and spill lines (no instance of either tile source may spill; no
+   tensor-core instance of wide_head.cu or wide_decode_tile.cu may spill,
+   and `cuobjdump -sass` must find HMMA in each; no split-K decode
+   instance of wide_head.cu may spill);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -29,9 +30,13 @@ Phases, each failing loudly (nonzero exit, no result line):
    attention to the tensor-core ones), which are held at D = 264-1024
    (decode: the five functions, both arms, NaN-poisoned caches, the bit
    identities at D = 320, the split-K step at n = 1 and 3 with a span
-   left without a visible key, the 4-row kernel at n = 5; attention: the causal, all-keys and static-mask
-   arms, forward and backward, and the causal arm at the training shapes
-   at D = 320 and 512);
+   left without a visible key, the tile kernel (bf16) at n = 5, 65 and
+   130 and the resume shape, also against its model, and the 4-row
+   kernel (fp32) at n = 5; attention: the causal, all-keys and
+   static-mask arms, forward and backward, and the causal arm at the
+   training shapes at D = 320 and 512; at D = 300, which the bf16
+   kernels zero-pad, o and dv against the rounding-matched plain
+   version per tile to 1e-3 plus one rounding flip of that tile);
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
@@ -42,18 +47,22 @@ Phases, each failing loudly (nonzero exit, no result line):
    back-to-back calls read the wrapper's host time once the kernel is
    shorter), and the CUDA kernel the bf16 forward's row ran
    (`cuda_kernel`: the wgmma kernel at D = 64); the wide kernels at D =
-   320 and 512, their traces naming the kernels `attention_kernels`
-   routes to, and the 4-row wide decode at the resume shape at D = 320;
-   the fp32 arms beside SDPA in fp32 (flash decode's fp32 tile arm at n
-   = 257 and 1280, flash attention at D = 64 and 256); kernels 3-5
-   through the bf16 tile arm at the resume shape;
+   320 and 512 in bf16 and fp32 (the step, the multi-row decode at the
+   resume and prefill shapes, flash attention at the training shapes;
+   SDPA's device time beside), their traces naming the kernels
+   `attention_kernels` and `decode_arm` route to; the fp32 arms beside
+   SDPA in fp32 (flash decode's fp32 tile arm at n = 257 and 1280, flash
+   attention at D = 64 and 256); kernels 3-5 through the bf16 tile arm
+   at the resume shape, at D = 64 and (the wide tile kernel) 320;
 4. a small float32 model on the card, through the kernels against the
    same model through dense attention: its cached decode (the prefill
    and a resume launching the fp32 tile arm), and its training loss and
    every gradient; again at dim_head 320 (the wide kernels, their
-   launches counted: the steps on the split-K kernel, the prefill and
-   resume on the 4-row one), there also the training step under bf16
-   autocast (the tensor-core wide kernels) against dense attention under it;
+   launches counted exactly: the steps on the split-K kernel, the prefill
+   and resume on the 4-row one), there also the decode in bf16 (the
+   prefill and resume on the tensor-core tile kernel) and the training
+   step under bf16 autocast (the tensor-core wide kernels) against dense
+   attention in bf16;
 5. the generation path once: the micro `GenerationEngine` at the flagship
    width (DALLE dim 1024, depth 12, 16 heads of 64, 256 text + 1024 image
    tokens, 256 px dVAE; random weights from a seed; bfloat16; batch 4),
@@ -237,7 +246,9 @@ ATTN_TOL = {
     # differ only where a float32 difference flips a rounding (one bf16
     # ulp of that term). Per tile only: a flip of a row's dominant term is
     # a large share of that one element. o and dv (products of P): worst
-    # seen 6.1e-4
+    # seen 6.1e-4. At a D the wide kernels zero-pad, each tile's limit is
+    # this plus the size of one flip computed from that tile's own data
+    # (`flip_allowance`)
     "bf16_matched_p": (None, 1e-3),
     # dq and dk (products of dS = P (dP - delta)): where a row's P is
     # concentrated, dP - delta cancels, so the float32 difference between
@@ -250,9 +261,13 @@ ATTN_TOL = {
 }
 
 
-def attention_closeness(torch, out, ref):
+def attention_closeness(torch, out, ref, tile_limit=None):
     """(max |err|, worst element ratio, worst tile ratio) of out against
-    ref, both [B, H, N, D] or [B, H, N] (lse); tiles are 64 rows of N."""
+    ref, both [B, H, N, D] or [B, H, N] (lse); tiles are 64 rows of N.
+    With `tile_limit` ([B, H, tiles], each tile's own limit) the tile
+    ratio is taken where ratio - limit is largest, and returned with its
+    limit and with every tile's (ratio, limit) as a fourth and fifth
+    value."""
     import torch.nn.functional as F
 
     out, ref = out.float(), ref.float()
@@ -266,10 +281,55 @@ def attention_closeness(torch, out, ref):
     ref_sq = r.square().sum((-1, -2))
     rms = (ref_sq / (rows * d)).sqrt()[..., None, None]
     element = (err.abs() / (r.abs() + rms).clamp(min=1e-30)).amax().item()
-    tile = (err.square().sum((-1, -2)).sqrt() / ref_sq.sqrt().clamp(min=1e-30)).amax().item()
-    if not torch.isfinite(out).all():
-        element = tile = math.inf
-    return err.abs().max().item(), element, tile
+    ratios = err.square().sum((-1, -2)).sqrt() / ref_sq.sqrt().clamp(min=1e-30)
+    finite = bool(torch.isfinite(out).all())
+    if tile_limit is None:
+        tile = ratios.amax().item() if finite else math.inf
+        return err.abs().max().item(), element if finite else math.inf, tile
+    at = torch.argmax((ratios - tile_limit).flatten())
+    tile, limit = ratios.flatten()[at].item(), tile_limit.flatten()[at].item()
+    pairs = list(zip(ratios.flatten().tolist(), tile_limit.flatten().tolist()))
+    return err.abs().max().item(), element if finite else math.inf, tile if finite else math.inf, limit, pairs
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp of each positive x: 2^(floor(log2 x) - 7) (8 bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.clamp(min=1e-38))) - 7)
+
+
+def flip_allowance(torch, q, k, v, do, lse, mask, causal, o_ref, dv_ref):
+    """The size of one bf16 rounding flip of P in each 64-row tile of o and
+    of dv, over that tile's reference norm, from the tile's own data ([B,
+    H, tiles] each): one bf16 ulp of the tile's largest P (P = exp(s
+    scale - lse), normalized, over the tile's query rows for o and its
+    keys for dv) times the largest row norm of V (o) or of dO (dv) that
+    multiplies it, over ||ref tile||."""
+    import torch.nn.functional as F
+
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, h, n_q, d = q.shape
+    n_k = k.shape[2]
+    mode, fm = fa._resolve(None if mask is None else fa.flash_mask(mask, q.device), causal, q, k)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d**-0.5
+    visible = fa._visible(mode, fm, n_q, n_k, q.device)
+    if visible is not None:
+        s = s.masked_fill(~visible, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+
+    def tiles_max(x, n):  # [B, H, n, ...] -> the max over each 64-row tile of dim 2
+        x = F.pad(x.flatten(3).amax(-1), (0, (-n) % 64))
+        return x.view(b, h, -1, 64).amax(-1)
+
+    def ref_norm(r):
+        n = r.shape[2]
+        return F.pad(r.float().square().sum(-1), (0, (-n) % 64)).view(b, h, -1, 64).sum(-1).sqrt()
+
+    v_rows = v.float().norm(dim=-1).amax(-1)[..., None]  # [B, H, 1]
+    do_rows = do.float().norm(dim=-1).amax(-1)[..., None]
+    o_flip = bf16_ulp(torch, tiles_max(p, n_q)) * v_rows / ref_norm(o_ref).clamp(min=1e-30)
+    dv_flip = bf16_ulp(torch, tiles_max(p.transpose(-1, -2), n_k)) * do_rows / ref_norm(dv_ref).clamp(min=1e-30)
+    return o_flip, dv_flip
 
 
 def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
@@ -331,25 +391,29 @@ def device_ms(torch, fn, inputs, iters):
     time times its launches per call (at least one), summed. The trace
     may drop some launches' records (it kept 20-57% of the D = 64
     flash-attention calls' on an H100), so the means, not the sums, are
-    taken; `launches` reports what it kept. Traces slow the launches
-    after them, so these run after every other timed phase."""
+    taken; `launches` reports what it kept; a trace that kept no record
+    is taken again, up to three times. Traces slow the launches after
+    them, so these run after every other timed phase."""
     from torch.profiler import ProfilerActivity, profile
 
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for it in range(iters):
-            fn(*inputs[it % len(inputs)])
-        torch.cuda.synchronize()
     times = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
-            name = found.group(0) if found else evt.name[:60]
-            times.setdefault(name, []).append(evt.time_range.elapsed_us())
+    for _ in range(3):  # after dozens of traces in one process the profiler can drop a whole trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for it in range(iters):
+                fn(*inputs[it % len(inputs)])
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+                found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
+                name = found.group(0) if found else evt.name[:60]
+                times.setdefault(name, []).append(evt.time_range.elapsed_us())
+        if times:
+            break
     if not times:
-        fail(f"{getattr(fn, '__name__', fn)}: the trace holds no device activity")
+        fail(f"{getattr(fn, '__name__', fn)}: three traces held no device activity")
     total_us = sum(
         sum(us) / len(us) * max(1, round(len(us) / iters)) for us in times.values()
     )
@@ -591,20 +655,19 @@ def mangled_kernel(name: str) -> str:
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
-def check_wide_build(info):
-    """Phase 1 for `csrc/wide_head.cu`: each kernel's registers and spills
-    from ptxas's lines in `info` (a `kernels.build_log` entry), and, from
-    `cuobjdump -sass` of the built library, the tensor-core instructions
-    (HMMA) of each bf16 flash-attention kernel. Fails if a tensor-core
-    kernel (`*_mma_kernel`) spills or has no HMMA, or a split-K decode
-    kernel (`wide_split_kernel`) spills. Returns {kernel: {...}}."""
+def built_kernels(info, name=mangled_kernel):
+    """{kernel: {"registers", "spill_bytes", "hmma"}} of one built source:
+    registers and spills from ptxas's lines in `info` (a
+    `kernels.build_log` entry), the tensor-core instructions (HMMA) from
+    `cuobjdump -sass` of the built library; kernels keyed by `name` of
+    their mangled names."""
     from dalle_pytorch_tpu_torch import kernels
 
     out, entry = {}, None
     for line in info["ptxas"].splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            entry = mangled_kernel(found.group(1))
+            entry = name(found.group(1))
             out.setdefault(entry, {})
             continue
         regs = re.search(r"Used (\d+) registers", line)
@@ -617,14 +680,26 @@ def check_wide_build(info):
     sass = subprocess.run([str(cuobjdump), "-sass", info["path"]], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     for block in sass.split("Function : ")[1:]:
-        name = mangled_kernel(block.split(None, 1)[0])
-        out.setdefault(name, {})["hmma"] = len(re.findall(r"\bHMMA\.", block))
-    mma = {k: v for k, v in out.items() if "_mma_kernel" in k}
+        out.setdefault(name(block.split(None, 1)[0]), {})["hmma"] = len(re.findall(r"\bHMMA\.", block))
     if not info["ptxas"]:  # loaded from an earlier build: ptxas did not run here
-        print("note: wide_head was loaded from disk, so its ptxas lines (spills) are not checked")
-    bad = {k: v for k, v in mma.items() if v.get("spill_bytes", 0) or not v.get("hmma")
-           or (info["ptxas"] and "spill_bytes" not in v)}
-    if len(mma) != 6 or bad:  # forward 2 column counts, backward 1, each resident and streaming
+        print(f"note: {info['path']} was loaded from disk, so its ptxas lines (spills) are not checked")
+    return out
+
+
+def tensor_core_faults(info, found):
+    """The kernels of `found` (from built_kernels) that spill or have no HMMA."""
+    return {k: v for k, v in found.items() if v.get("spill_bytes", 0) or not v.get("hmma")
+            or (info["ptxas"] and "spill_bytes" not in v)}
+
+
+def check_wide_build(info):
+    """Phase 1 for `csrc/wide_head.cu` (`built_kernels`). Fails if a
+    tensor-core kernel (`*_mma_kernel`) spills or has no HMMA, or a
+    split-K decode kernel (`wide_split_kernel`) spills. Returns {kernel:
+    {...}}."""
+    out = built_kernels(info)
+    mma = {k: v for k, v in out.items() if "_mma_kernel" in k}
+    if len(mma) != 6 or tensor_core_faults(info, mma):  # forward 2 column counts, backward 1, each resident and streaming
         fail(f"wide_head's tensor-core kernels: expected 6 instances with HMMA and no spill, got {mma}")
     # the split-K decode kernel's instances (template types, one name): each one's spills
     split, raw = [], ""
@@ -637,6 +712,17 @@ def check_wide_build(info):
     out.setdefault("wide_split_kernel", {})["instance_spill_bytes"] = split
     if any(split) or (info["ptxas"] and len(split) != 8):  # q fp32/bf16 x cache own/int8 x rows 1/4
         fail(f"wide_head's split-K decode kernel: expected 8 instances without spills, got {split}")
+    return out
+
+
+def check_wide_tile_build(info):
+    """Phase 1 for `csrc/wide_decode_tile.cu` (`built_kernels`, each
+    instance by its mangled name). Fails unless there are 4 instances
+    (bf16 / int8 cache x Q resident / streamed), each with HMMA and
+    without a spill."""
+    out = built_kernels(info, name=lambda mangled: mangled)
+    if len(out) != 4 or tensor_core_faults(info, out):
+        fail(f"wide_decode_tile: expected 4 instances with HMMA and no spill, got {out}")
     return out
 
 
@@ -676,22 +762,33 @@ WIDE_IDENTITY_DIM = 320
 WIDE_TIMED_DIMS = (320, 512)
 
 
+WIDE_DECODE_CASES = (  # (n, lengths) over a 300-position cache; n = 65 and 130 in bf16 only
+    (1, [1, 130, 257, 300]), (3, [3, 129, 256, 300]), (5, [5, 64, 200, 300]),
+    (65, [65, 100, 200, 300]), (130, [130, 131, 257, 300]),
+)
+
+
 def check_wide_decode(torch):
     """Phase 2 for the wide decode kernels (D > 256): kernels 1-5 (the
     contiguous cache, block-sparse over 32-position blocks, paged with
     16-position pages through a shuffled table, block-sparse paged), each
     arm (the cache in q's dtype, int8) against its plain version under
     decode_tol, at a one-row step and a 3-row chunk (the split-K kernel,
-    row 3's second span dead in the bitmaps) and a 5-row chunk (the 4-row
-    kernel), each launching there; every kernel's
-    output unchanged and finite with NaN in every position no row may
-    read (in the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for
-    bit: the all-ones bitmap against kernels 1 and 4, kernel 4 against
-    kernel 1 and kernel 5 against kernel 3 on the gathered view. Returns
-    (worst bf16 max_abs_err, {identity: cases held})."""
+    row 3's second span dead in the bitmaps), and at 5 rows (bf16 also 65
+    and 130: the query tiles' edges) on the tile kernel (bf16, and there
+    also against its model `flash_decode_tile_plain` under decode_tol) or
+    the 4-row kernel (fp32), each launching there; every kernel's output
+    unchanged and finite with NaN in every position no row may read (in
+    the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for bit: the
+    all-ones bitmap against kernels 1 and 4, kernel 4 against kernel 1 and
+    kernel 5 against kernel 3 on the gathered view; and the tile kernel at
+    the resume shape at WIDE_IDENTITY_DIM (`check_wide_tile_resume`).
+    Returns ({arm: worst max_abs_err against the plain version}, {check:
+    cases held or launches})."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
-    worst, failures = 0.0, []
+    worst, failures = {}, []
     held = {"all-ones bitmap vs kernel 1": 0, "all-ones page bitmap vs kernel 4": 0,
             "kernel 4 vs kernel 1 on the gathered view": 0,
             "kernel 5 vs kernel 3 on the gathered view": 0, "poisoned cache unchanged": 0}
@@ -711,15 +808,16 @@ def check_wide_decode(torch):
         dead = dead[:, None, :, None]
         return kk.masked_fill(dead, float("nan")), vv.masked_fill(dead, float("nan")), ()
 
-    from dalle_pytorch_tpu_torch.ops import wide_head as wh
-
     page, block, b, h, s_len = 16, 32, 4, 2, 300
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    before = (wh.wide_decode.launches, wh.wide_decode.split_launches)
+    counters = (wh.wide_decode.launches, wh.wide_decode.split_launches, wh.wide_decode.tile_launches)
+    before = tuple(c for c in counters)
     for d in WIDE_DECODE_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
-            # n = 1 and 3: the split-K kernel (spans of 128 keys), n = 5 the 4-row kernel
-            for n, lengths in ((1, [1, 130, 257, 300]), (3, [3, 129, 256, 300]), (5, [5, 64, 200, 300])):
+            for n, lengths in WIDE_DECODE_CASES:
+                if n > 5 and dtype == torch.float32:
+                    continue
+                arm = fd.decode_arm(n, dtype, d)
                 q, k, v, lens, table, live = paged_case(
                     torch, b, h, n, d, page, lengths, dtype, s_len, SEED + d + n)
                 n_pages = table.shape[1]
@@ -732,11 +830,12 @@ def check_wide_decode(torch):
                 sparse_live = paged_live(torch, table, lengths, page, k.shape[0], pbm.tolist())
                 in_len = torch.arange(s_len, device="cuda")[None, :] < lens[:, None]
                 kq, vq, ks, vs = quantized(torch, k, v)
-                errs = []
-                for arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
-                    label = f"D={d} n={n} {str(dtype)[6:]}{arm}"
+                errs, model_errs = [], []
+                for cache_arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
+                    label = f"D={d} n={n} {str(dtype)[6:]}{cache_arm}"
                     kc, vc = fd.paged_gather(kk, table, s_len), fd.paged_gather(vv, table, s_len)
                     scc = tuple(fd.paged_gather(t, table, s_len) for t in sc)
+                    launched = wh.wide_decode.tile_launches
                     outs = {
                         "flash_decode": (fd.flash_decode_attention(q, kc, vc, lens, *scc),
                                          fd.flash_decode_attention_plain(q, kc, vc, lens, *scc)),
@@ -750,14 +849,32 @@ def check_wide_decode(torch):
                             fd.block_sparse_paged_flash_decode_attention_plain(
                                 q, kk, vv, lens, table, pbm, *sc)),
                     }
+                    if (wh.wide_decode.tile_launches - launched) != (4 if arm == "wide_tile" else 0):
+                        failures.append(f"{label}: {wh.wide_decode.tile_launches - launched} tile launches "
+                                        f"for 4 calls of the {arm} arm")
+                    models = {}
+                    if arm == "wide_tile":  # the kernel's arithmetic, each variant
+                        models = {
+                            "flash_decode": fd.flash_decode_tile_plain(q, kc, vc, lens, *scc),
+                            "block_sparse": fd.flash_decode_tile_plain(q, kc, vc, lens, *scc, block_bitmap=bm,
+                                                                       block_k=block),
+                            "paged": fd.flash_decode_tile_plain(q, kk, vv, lens, *sc, page_table=table),
+                            "block_sparse_paged": fd.flash_decode_tile_plain(
+                                q, kk, vv, lens, *sc, block_bitmap=pbm, page_table=table),
+                        }
                     for kernel, (out, ref) in outs.items():
                         err = (out.float() - ref.float()).abs().max().item()
                         tol = decode_tol(torch, ref, dtype)
                         errs.append(err)
                         if not (err <= tol and torch.isfinite(out).all()):
                             failures.append(f"{kernel} {label}: {err:.3e} over {tol:.3e}")
-                        if dtype == torch.bfloat16:
-                            worst = max(worst, err)
+                        if kernel in models:
+                            err_model = (out.float() - models[kernel].float()).abs().max().item()
+                            model_errs.append(err_model)
+                            if not err_model <= tol:
+                                failures.append(f"{kernel} {label}: {err_model:.3e} over {tol:.3e} "
+                                                "against the tile model")
+                        worst[arm] = max(worst.get(arm, 0.0), err)
                     # NaN wherever no row may read: kernels 1 and 3 on the
                     # contiguous cache, kernels 4 and 5 in the pool
                     pk, pv, psc = nan_where(kc, vc, scc, ~in_len)
@@ -788,18 +905,56 @@ def check_wide_decode(torch):
                         same("kernel 5 vs kernel 3 on the gathered view", label,
                              outs["block_sparse_paged"][0],
                              fd.block_sparse_flash_decode_attention(q, kc, vc, lens, pbm, page, *scc))
-                print(f"check wide decode D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
-                      "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs))
+                print(f"check wide decode ({arm}) D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
+                      "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs)
+                      + ("; against the tile model: " + ", ".join(f"{e:.2e}" for e in model_errs)
+                         if model_errs else ""))
+    worst["wide_tile"] = max(worst.get("wide_tile", 0.0), check_wide_tile_resume(torch, failures))
     torch.cuda.synchronize()
-    held["4-row kernel launches"] = wh.wide_decode.launches - before[0] - (
-        wh.wide_decode.split_launches - before[1])
-    held["split-K kernel launches"] = wh.wide_decode.split_launches - before[1]
+    split = wh.wide_decode.split_launches - before[1]
+    tile = wh.wide_decode.tile_launches - before[2]
+    held["4-row kernel launches"] = wh.wide_decode.launches - before[0] - split - tile
+    held["split-K kernel launches"] = split
+    held["tile kernel launches"] = tile
     print("check wide decode bit identities and poisoned caches (cases held): " + json.dumps(held))
-    if not (held["4-row kernel launches"] and held["split-K kernel launches"]):
-        failures.append("the split-K or the 4-row kernel never launched")
+    if not (held["4-row kernel launches"] and split and tile):
+        failures.append("the split-K, the tile or the 4-row kernel never launched")
     if failures:
         fail("wide decode: " + "; ".join(failures[:10]))
     return worst, held
+
+
+def check_wide_tile_resume(torch, failures):
+    """Phase 2 for the tile kernel at the resume shape (B = 4, H = 16, n =
+    1280, S = 1281, lengths 1280) at WIDE_IDENTITY_DIM, bf16, both cache
+    arms: against the plain version and the model under decode_tol, and
+    with NaN past each row's length unchanged. Appends to `failures`;
+    returns the worst max_abs_err against the plain version."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    q, k, v, lens = resume_inputs(torch, MAIN["batch"], torch.bfloat16, d=WIDE_IDENTITY_DIM)[0]
+    kq, vq, ks, vs = quantized(torch, k, v)
+    worst = 0.0
+    for cache_arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
+        out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
+        ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
+        model = fd.flash_decode_tile_plain(q, kk, vv, lens, *sc)
+        pk, pv, psc = poison_past_length(torch, kk, vv, lens, sc)
+        poisoned = fd.flash_decode_attention(q, pk, pv, lens, *psc)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_model = (out.float() - model.float()).abs().max().item()
+        tol = decode_tol(torch, ref, torch.bfloat16)
+        unchanged = torch.equal(out, poisoned) and bool(torch.isfinite(out).all())
+        print(f"check wide decode (wide_tile) resume D={WIDE_IDENTITY_DIM}{cache_arm} n={q.shape[2]} "
+              f"B={q.shape[0]}: max_abs_err {err:.3e} vs plain, {err_model:.3e} vs the model, tol "
+              f"{tol:.3e}; NaN past the lengths finite and unchanged {unchanged}")
+        if not (err <= tol and err_model <= tol and unchanged):
+            failures.append(f"wide_tile resume{cache_arm}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
+                            f"or poisoned output changed")
+        worst = max(worst, err)
+        del out, ref, model, pk, pv, psc, poisoned
+    return worst
 
 
 def check_wide_attention(torch):
@@ -809,14 +964,13 @@ def check_wide_attention(torch):
     shapes (20 query and key tiles) at WIDE_TIMED_DIMS, through
     `attention_case` (ATTN_TOL, dk and dv bit-identical over two runs). At a
     D the kernels zero-pad (300) the bf16 o and dv against the
-    rounding-matched plain version are printed, not held: one flipped
-    rounding of a P that few rows see exceeds that limit there (PERF.md
-    §7); the exact and the dS-matched limits hold. Returns {kernel: worst
-    bf16 max_abs_err}."""
+    rounding-matched plain version are held per tile to ATTN_TOL's limit
+    plus one bf16 rounding flip of that tile's largest P
+    (`flip_allowance`): one flipped rounding of a P that few rows see
+    exceeds 1e-3 alone there. Returns {kernel: worst bf16 max_abs_err}."""
     import numpy as np
 
     from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
-    from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
     n = 160  # 97 text + 8 x 8 image positions
     axial = np.tril(np.ones((n, n), bool)) & build_static_mask("axial_row", n, 8, 1)[:n, :n]
@@ -832,8 +986,7 @@ def check_wide_attention(torch):
     worst = {}
     for d, dtype, label, b, h, n_q, n_k, mask in cases:
         errs = attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=mask,
-                              causal=label != "wide all keys",
-                              hold_matched_p=wh.wide_kernel_head_dim(d, dtype) == d)
+                              causal=label != "wide all keys")
         if dtype == torch.bfloat16:
             for kernel, err in errs.items():
                 key = "wide_" + kernel
@@ -841,130 +994,179 @@ def check_wide_attention(torch):
     return worst
 
 
+WIDE_DTYPES = (("bf16", 2), ("fp32", 4))  # (peak key, bytes an element) of the timed wide rows
+WIDE_SHAPES = ("resume", "prefill")  # the multi-row decode's timed shapes
+
+
 def time_wide_kernels(torch, F, peaks, smi):
-    """Phase 3 for the wide kernels at WIDE_TIMED_DIMS in bf16: the
-    split-K decode at the flagship step's geometry (B = 4, H = 16, S =
-    1281, n = 1, lengths [258, 700, 1024, 1281]) and flash attention at
-    TRAIN's causal shapes: kernel, plain and SDPA times, the bound, and
-    (after phase 8) the device time; and the 4-row decode kernel (n > 4)
-    at the resume shape at the first of them (n = 1280, S = 1281, lengths
-    1280, SDPA's causal forward over the live keys beside it). Returns
-    {kernel: {D: row}}."""
-    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
-    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
-    from dalle_pytorch_tpu_torch.ops import wide_head as wh
-
-    rows = {"wide_split": {}, "wide_decode": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
-    b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
-    lengths = [258, 700, 1024, 1281]
+    """Phase 3 for the wide kernels at WIDE_TIMED_DIMS, bf16 and fp32: the
+    split-K decode step (B = 4, H = 16, S = 1281, n = 1, lengths [258,
+    700, 1024, 1281]; SDPA with the length mask beside it), the multi-row
+    decode at the resume and prefill shapes (`time_wide_rows`) and flash
+    attention forward and backward at TRAIN's causal shapes (SDPA's
+    forward and its whole backward beside them): kernel, plain and SDPA
+    times, the bound at the input type's peak, and (after the last timed
+    phase) the device time. Returns {kernel: {(D, "bf16" | "fp32", shape):
+    row}}, the multi-row decode under the arm that ran it
+    (`fd.decode_arm`)."""
+    rows = {"wide_split": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-
-    def library(q, k, v, lens):
-        bound = lens.long()[:, None] - n + torch.arange(n, device="cuda")[None, :]
-        mask = torch.arange(s_len, device="cuda")[None, None, :] <= bound[:, :, None]
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None])
-
     for d in WIDE_TIMED_DIMS:
-        inputs = [
-            tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                  for shape in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
-            for _ in range(3)
-        ]
-        iters = 60
-        row = dict(
-            ms=time_ms(torch, fd.flash_decode_attention, inputs, iters),
-            plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, iters),
-            library_ms=time_ms(torch, library, inputs, iters),
-        )
-        live = sum(lengths)
-        nbytes = 2 * b * h * d * 2 + 2 * h * d * 2 * live + 4 * b
-        t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * live / peaks["bf16"]
-        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        defer_device_time(row, fd.flash_decode_attention, inputs, iters)
-        rows["wide_split"][d] = row
-        print("time " + json.dumps(dict(kernel="wide_split", case="step", dtype="bf16", D=d,
-                                        lengths=lengths, card=smi, **row)))
-        del inputs
-        if d == WIDE_TIMED_DIMS[0]:
-            rows["wide_decode"][d] = time_wide_rows(torch, F, peaks, smi, d, g)
-
-        bt, ht, nt = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
-        sets = []
-        for _ in range(2):
-            q, k, v, do = (torch.randn(bt, ht, nt, d, generator=g, device="cuda").bfloat16()
-                           for _ in range(4))
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
-        fwd_in = [s[:3] for s in sets]
-        lib_bwd_in = []
-        for q, k, v, do, _, _ in sets:
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            lib_bwd_in.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do))
-
-        def lib_fwd(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-        def lib_bwd(out, q, k, v, do):
-            return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
-
-        for kind, fn, plain, lib, ins, lib_in in (
-            ("fwd", fa.flash_attention_fwd, fa.flash_attention_forward_plain, lib_fwd, fwd_in, fwd_in),
-            ("bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain, lib_bwd, sets, lib_bwd_in),
-        ):
-            row = dict(ms=time_ms(torch, fn, ins, 4), plain_ms=time_ms(torch, plain, ins, 2),
-                       library_ms=time_ms(torch, lib, lib_in, 10))
-            row["bound_ms"], row["bound_by"] = attention_bound(kind, 2, peaks, "bf16", d)
-            plan = wh.wide_attention_plan(d, kind)
-            row.update(cuda_kernel=plan.kernel, groups=plan.groups)
-            defer_device_time(row, fn, ins, 4)
-            rows[f"wide_attention_{kind}"][d] = row
-            print("time " + json.dumps(dict(kernel=f"wide_attention_{kind}", dtype="bf16", B=bt,
-                                            H=ht, N=nt, D=d, causal=True, card=smi, **row)))
-        del sets, fwd_in, lib_bwd_in
+        for key, elt in WIDE_DTYPES:
+            rows["wide_split"][(d, key, "step")] = time_wide_step(torch, F, peaks, smi, d, g, key, elt)
+            for shape in WIDE_SHAPES:
+                arm, row = time_wide_rows(torch, F, peaks, smi, d, g, key, shape)
+                rows.setdefault(arm, {})[(d, key, shape)] = row
+            for kind, row in time_wide_attention(torch, F, peaks, smi, d, g, key, elt).items():
+                rows[f"wide_attention_{kind}"][(d, key, "train")] = row
     return rows
 
 
-def time_wide_rows(torch, F, peaks, smi, d, g):
-    """Phase 3 for the 4-row wide decode kernel (`wide_decode_kernel`, n >
-    4 at D > 256) at the resume shape at head dim `d`, bf16 (B = 4, H = 16,
-    n = 1280, S = 1281, lengths 1280): kernel, plain, SDPA's causal forward
-    over the n live keys (the same function) and the bound; the device
-    time after phase 10. Returns the row."""
+def wide_fields(rows, main_case):
+    """A wide kernel's fields in the kernels line from phase 3's rows
+    {(D, dtype, shape): row}: the main case's as they are, every other
+    case's times and bound under the prefix d<D>_<dtype>_<shape>_."""
+    out = {k: v for k, v in rows[main_case].items() if k != "device_kernels"}
+    for case, row in rows.items():
+        if case != main_case:
+            out.update({"d%d_%s_%s_%s" % (*case, k): v for k, v in row.items()
+                        if k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                                 "bound_ms", "bound_by", "cuda_kernel")})
+    return out
+
+
+def wide_dtype(torch, key):
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[key]
+
+
+def time_wide_step(torch, F, peaks, smi, d, g, key, elt):
+    """The split-K decode step at head dim `d` in `key`'s type (three input
+    sets rotating); returns its row."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    b, h, n, s_len = MAIN["batch"], MAIN["heads"], RESUME["n"], RESUME["cache"]
-    if fd.decode_arm(n, torch.bfloat16, d) != "wide":
-        fail(f"n = {n} at D = {d} does not take the 4-row wide kernel")
+    b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
+    lengths = [258, 700, 1024, 1281]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s_len, device="cuda")[None, :] <= lens.long()[:, None] - n)[:, None, None, :]
+
+    def library(q, k, v, lens):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    dtype = wide_dtype(torch, key)
+    inputs = [
+        tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+              for shape in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+        for _ in range(3)
+    ]
+    iters = 60
+    row = dict(
+        ms=time_ms(torch, fd.flash_decode_attention, inputs, iters),
+        plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, iters),
+        library_ms=time_ms(torch, library, inputs, iters),
+    )
+    live = sum(lengths)
+    nbytes = 2 * b * h * d * elt + 2 * h * d * elt * live + 4 * b
+    t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * live / peaks[key]
+    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    defer_device_time(row, fd.flash_decode_attention, inputs, iters)
+    defer_device_time(row, library, inputs, iters, prefix="library_")
+    print("time " + json.dumps(dict(kernel="wide_split", case="step", dtype=key, D=d,
+                                    lengths=lengths, card=smi, **row)))
+    return row
+
+
+def time_wide_rows(torch, F, peaks, smi, d, g, key, shape):
+    """The multi-row wide decode (n > 4 at D > 256) at head dim `d` in
+    `key`'s type, B = 4, H = 16, S = 1281, at the resume shape (n = 1280,
+    lengths 1280) or the prefill shape (n = 257, lengths 257), two input
+    sets rotating: kernel, plain, SDPA's causal forward over the n live
+    keys (the same function: every length equals n) and the bound at the
+    type's peak; the device time after the last timed phase. Returns
+    (the arm that ran, row)."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    b, h, s_len = MAIN["batch"], MAIN["heads"], RESUME["cache"]
+    n = RESUME["n"] if shape == "resume" else MAIN["prefill"]
+    dtype = wide_dtype(torch, key)
+    arm = fd.decode_arm(n, dtype, d)
     lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
-    inputs = [tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                    for shape in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+    inputs = [tuple(torch.randn(sh, generator=g, device="cuda").to(dtype)
+                    for sh in ((b, h, n, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
               for _ in range(2)]
     live = [(q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()) for q, k, v, _ in inputs]
 
     def sdpa_causal(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    row = dict(ms=time_ms(torch, fd.flash_decode_attention, inputs, 2),
+    iters = 4 if shape == "resume" else 20
+    row = dict(ms=time_ms(torch, fd.flash_decode_attention, inputs, iters),
                plain_ms=time_ms(torch, fd.flash_decode_attention_plain, inputs, 2),
                library_ms=time_ms(torch, sdpa_causal, live, 10))
-    row["bound_ms"], row["bound_by"] = wide_tile_bound(b, h, n, d, peaks)
-    defer_device_time(row, fd.flash_decode_attention, inputs, 2)
-    print("time " + json.dumps(dict(kernel="wide_decode", case="resume", dtype="bf16", B=b, H=h, n=n,
-                                    D=d, S=s_len, lengths=n,
-                                    library="SDPA causal forward over the n live keys", card=smi, **row)))
-    return row
+    row["bound_ms"], row["bound_by"] = wide_tile_bound(b, h, n, d, peaks, key)
+    defer_device_time(row, fd.flash_decode_attention, inputs, iters)
+    defer_device_time(row, sdpa_causal, live, 10, prefix="library_")
+    print("time " + json.dumps(dict(kernel=arm, case=shape, dtype=key, B=b, H=h, n=n, D=d, S=s_len,
+                                    lengths=n, library="SDPA causal forward over the n live keys",
+                                    card=smi, **row)))
+    return arm, row
 
 
-def wide_tile_bound(b, h, n, d, peaks):
-    """(bound_ms, bound_by) of a bf16 multi-row decode call of n rows over n
-    live keys each (every length n) at head dim `d`: q, K, V read and out
-    written once; 4*D flops per visible (row, key) pair, n (n + 1) / 2 of
-    them a (row, head)."""
-    nbytes = 4 * b * h * n * d * 2 + 4 * b
+def time_wide_attention(torch, F, peaks, smi, d, g, key, elt):
+    """Flash attention's forward and backward at head dim `d` in `key`'s
+    type at TRAIN's causal shapes (two input sets rotating), SDPA's causal
+    forward and whole backward beside them. Returns {"fwd" | "bwd": row}."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
+    dtype = wide_dtype(torch, key)
+    bt, ht, nt = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
+    sets = []
+    for _ in range(2):
+        q, k, v, do = (torch.randn(bt, ht, nt, d, generator=g, device="cuda").to(dtype) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+    fwd_in = [s[:3] for s in sets]
+    lib_bwd_in = []
+    for q, k, v, do, _, _ in sets:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_bwd_in.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do))
+
+    def lib_fwd(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def lib_bwd(out, q, k, v, do):
+        return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+    named = wh.wide_attention_kernels(d, dtype)
+    out = {}
+    for kind, fn, plain, lib, ins, lib_in in (
+        ("fwd", fa.flash_attention_fwd, fa.flash_attention_forward_plain, lib_fwd, fwd_in, fwd_in),
+        ("bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain, lib_bwd, sets, lib_bwd_in),
+    ):
+        row = dict(ms=time_ms(torch, fn, ins, 4), plain_ms=time_ms(torch, plain, ins, 2),
+                   library_ms=time_ms(torch, lib, lib_in, 10))
+        row["bound_ms"], row["bound_by"] = attention_bound(kind, elt, peaks, key, d)
+        row["cuda_kernel"] = named[kind] if kind == "fwd" else " + ".join(named[kind])
+        if dtype == torch.bfloat16:
+            row["groups"] = wh.wide_attention_plan(d, kind).groups
+        defer_device_time(row, fn, ins, 4)
+        defer_device_time(row, lib, lib_in, 10, prefix="library_")
+        out[kind] = row
+        print("time " + json.dumps(dict(kernel=f"wide_attention_{kind}", dtype=key, B=bt, H=ht, N=nt,
+                                        D=d, causal=True, card=smi, **row)))
+    return out
+
+
+def wide_tile_bound(b, h, n, d, peaks, key="bf16"):
+    """(bound_ms, bound_by) of a multi-row decode call of n rows over n
+    live keys each (every length n) at head dim `d` in `key`'s type: q, K,
+    V read and out written once; 4*D flops per visible (row, key) pair, n
+    (n + 1) / 2 of them a (row, head), at the type's peak."""
+    elt = dict(WIDE_DTYPES)[key]
+    nbytes = 4 * b * h * n * d * elt + 4 * b
     flops = 4 * d * b * h * n * (n + 1) / 2
-    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks["bf16"]
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks[key]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1054,10 +1256,11 @@ def time_decode_variants(torch, F, peaks, smi, cases):
 RESUME = dict(n=1280, cache=1281)
 
 
-def resume_inputs(torch, b, dtype, copies=1):
-    """`copies` (q, k, v, lengths) sets at the resume shape, B = `b`."""
+def resume_inputs(torch, b, dtype, copies=1, d=MAIN["dim_head"]):
+    """`copies` (q, k, v, lengths) sets at the resume shape, B = `b`, head
+    dim `d`."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    h, d, n, s = MAIN["heads"], MAIN["dim_head"], RESUME["n"], RESUME["cache"]
+    h, n, s = MAIN["heads"], RESUME["n"], RESUME["cache"]
     lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
     return [
         tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1138,9 +1341,10 @@ def time_tile_arm(torch, F, peaks, smi, cases):
     return out
 
 
-def time_tile_variants(torch, F, peaks, smi):
-    """Phase 3 for kernels 3-5 through the bf16 tile arm at the resume shape
-    (n = 1280, S = 1281, lengths 1280, B = 4, H = 16, D = 64): kernel 3
+def time_tile_variants(torch, F, peaks, smi, d=MAIN["dim_head"]):
+    """Phase 3 for kernels 3-5 through the bf16 tile arm (at D = `d` > 256
+    the tile kernel of csrc/wide_decode_tile.cu) at the resume shape
+    (n = 1280, S = 1281, lengths 1280, B = 4, H = 16, D = `d`): kernel 3
     with a random bitmap of 128-position blocks (block 0 and the last
     live), kernel 4 over a shuffled pool of 32-position pages, kernel 5
     with a random page bitmap (the first two pages live); each beside its
@@ -1148,9 +1352,10 @@ def time_tile_variants(torch, F, peaks, smi):
     beforehand for 4 and 5), and its bound over the visible pairs; the
     device times after phase 10. Returns {kernel: row}."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
-    b, h, d, n, s_len = MAIN["batch"], MAIN["heads"], MAIN["dim_head"], RESUME["n"], RESUME["cache"]
-    lengths, copies = [n] * b, 3  # three input sets rotating: 3 x 21 MB of K/V passes the L2
+    b, h, n, s_len = MAIN["batch"], MAIN["heads"], RESUME["n"], RESUME["cache"]
+    lengths, copies = [n] * b, 3  # three input sets rotating: 3 x 21 MB of K/V (D = 64) passes the L2
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     bm = (torch.rand((b, -(-s_len // 128)), generator=g, device="cuda") < 0.5).to(torch.int32)
     bm[:, 0] = bm[:, -1] = 1
@@ -1163,7 +1368,7 @@ def time_tile_variants(torch, F, peaks, smi):
              "paged_flash_decode": causal,
              "block_sparse_paged_flash_decode": causal & fd.expand_bitmap(pbm, PAGE, s_len)[:, None, :]}
     sets = {name: ([], []) for name in masks}  # (kernel args, library args) per copy
-    for i, (q, k, v, _) in enumerate(resume_inputs(torch, b, torch.bfloat16, copies=copies)):
+    for i, (q, k, v, _) in enumerate(resume_inputs(torch, b, torch.bfloat16, copies=copies, d=d)):
         sets["block_sparse_flash_decode"][0].append((q, k, v, lens, bm, 128))
         sets["block_sparse_flash_decode"][1].append((q, k, v, masks["block_sparse_flash_decode"]))
         pq, pk, pv, _, table, _ = paged_case(torch, b, h, n, d, PAGE, lengths, torch.bfloat16, s_len,
@@ -1185,10 +1390,10 @@ def time_tile_variants(torch, F, peaks, smi):
     rows = {}
     for kernel, (fn, plain) in fns.items():
         args, lib_args = sets[kernel]
-        before = tile_launches()
+        before = tile_launches() + wh.wide_decode.tile_launches
         fn(*args[0])
-        if tile_launches() - before != 1:
-            fail(f"{kernel} at the resume shape did not launch the tile arm")
+        if tile_launches() + wh.wide_decode.tile_launches - before != 1:
+            fail(f"{kernel} at the resume shape (D = {d}) did not launch the tile arm")
         pairs = int(masks[kernel].sum())
         live_keys = int(masks[kernel].any(1).sum())  # keys some row sees, over the batch rows
         nbytes = 2 * b * h * n * d * 2 + h * 2 * d * 2 * live_keys + 4 * b
@@ -1198,7 +1403,8 @@ def time_tile_variants(torch, F, peaks, smi):
                    bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         defer_device_time(row, fn, args, 2 * LAYERS)
         rows[kernel] = row
-        print("time " + json.dumps(dict(kernel=kernel, arm="tile", case="resume", q_dtype="bf16", B=b, H=h,
+        print("time " + json.dumps(dict(kernel=kernel, arm=fd.decode_arm(n, torch.bfloat16, d), case="resume",
+                                        q_dtype="bf16", B=b, H=h,
                                         n=n, D=d, S=s_len, lengths=n, visible_pairs=pairs,
                                         library="SDPA with the same boolean mask", card=smi, **row)))
     return rows
@@ -1524,13 +1730,13 @@ def flagship_engine():
     return engine, specs, n_params
 
 
-def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED, causal=True,
-                   hold_matched_p=True):
+def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED, causal=True):
     """Each flash-attention kernel against its plain version on the same
     inputs (the kernels run first, so no buffer can hold a plain result),
     under ATTN_TOL; bf16 against both the exact and the rounding-matched
-    plain version (o and dv against the latter only printed where
-    `hold_matched_p` is false). The backward takes the kernel forward's lse and delta,
+    plain version (o and dv against the latter, at a D the wide kernels
+    zero-pad, per tile to ATTN_TOL's limit plus one rounding flip of that
+    tile, `flip_allowance`). The backward takes the kernel forward's lse and delta,
     and runs twice: dk and dv must be bit-identical (no atomics), dq's
     run-to-run difference (the order of its atomic adds) is printed.
     Returns {kernel: max_abs_err against the exact version}."""
@@ -1558,8 +1764,14 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
         }
 
     refs = {"exact": plain(None)}
+    flips = {}
     if dtype == torch.bfloat16:
+        from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
         refs["matched"] = plain(torch.bfloat16)
+        if d > wh.WIDE_ABOVE and wh.wide_kernel_head_dim(d, dtype) != d:
+            flips["o"], flips["dv"] = flip_allowance(torch, q, k, v, do, lse, mask, causal,
+                                                     refs["matched"]["fwd"][0], refs["matched"]["bwd"][2])
     errs, report, failures = {}, [], []
     for kind, outputs in outs.items():
         name = f"flash_attention_{kind}"
@@ -1572,14 +1784,19 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
                     tol_key = "bf16_exact"
                 else:
                     tol_key = "bf16_matched_p" if tensor in ("o", "dv") else "bf16_matched_ds"
-                err, element, tile = attention_closeness(torch, out, r)
                 el_tol, tile_tol = ATTN_TOL[tol_key]
-                held = hold_matched_p or tol_key != "bf16_matched_p"
-                report.append(f"{tensor}/{ref_kind} {element:.1e} {tile:.1e}" + ("" if held else " (printed)"))
-                if held and not ((el_tol is None or element <= el_tol) and tile <= tile_tol):
+                if tol_key == "bf16_matched_p" and tensor in flips:
+                    err, element, tile, tile_tol, pairs = attention_closeness(
+                        torch, out, r, tile_tol + flips[tensor])
+                    report.append(f"{tensor}/{ref_kind} {element:.1e}, each tile's ratio / limit (1e-3 + "
+                                  "one flip): " + " ".join(f"{x:.2e}/{y:.2e}" for x, y in pairs))
+                else:
+                    err, element, tile = attention_closeness(torch, out, r)
+                    report.append(f"{tensor}/{ref_kind} {element:.1e} {tile:.1e}")
+                if not ((el_tol is None or element <= el_tol) and tile <= tile_tol):
                     failures.append(
                         f"{name} {tensor} vs the {ref_kind} plain version: element "
-                        f"{element:.3e}, tile {tile:.3e} over {tol_key} {ATTN_TOL[tol_key]}"
+                        f"{element:.3e}, tile {tile:.3e} over {tol_key} ({el_tol}, {tile_tol:.3e})"
                     )
                 if ref_kind == "exact":
                     errs[name] = max(errs.get(name, 0.0), err)
@@ -1684,11 +1901,19 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
     return rows
 
 
-def check_small_model_decode(torch, dim_head):
-    """Phase 4, decode: a small float32 DALLE (head dim `dim_head`) through
-    the kernels and through dense attention, same weights: logits of the
-    prefill, 64 cached steps and a resume (`decode_resume` of both rows at
-    image positions 40 and 63, n = 80 query rows) within 1e-4."""
+# phase 4's bf16 decode check (both paths in bf16: the kernels round
+# their output once, dense attention its scores, softmax and output): the
+# logits within 2^-5 of max(1, the largest |logit|), a few bf16 roundings
+# (2^-8 each) through the depth-2 model
+BF16_DECODE_TOL = 2.0**-5
+
+
+def check_small_model_decode(torch, dim_head, dtype=None):
+    """Phase 4, decode: a small DALLE (head dim `dim_head`; float32, or
+    its weights cast to `dtype`) through the kernels and through dense
+    attention, same weights: logits of the prefill, 64 cached steps and a
+    resume (`decode_resume` of both rows at image positions 40 and 63, n =
+    80 query rows) within 1e-4 in float32, BF16_DECODE_TOL in bf16."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE, init_decode_cache
 
     small = dict(
@@ -1700,6 +1925,8 @@ def check_small_model_decode(torch, dim_head):
         flash_model = DALLE(**small, attn_impl="flash").eval()
         dense_model = DALLE(**small, attn_impl="dense").eval()
     dense_model.load_state_dict(flash_model.state_dict())
+    if dtype is not None:
+        flash_model, dense_model = flash_model.to(dtype), dense_model.to(dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     text = torch.randint(
         1, small["num_text_tokens"], (2, small["text_seq_len"]), generator=g, device="cuda"
@@ -1719,12 +1946,15 @@ def check_small_model_decode(torch, dim_head):
         rows = [m.decode_resume(text, img, pos, init_decode_cache(m, 2))[0]
                 for m in (flash_model, dense_model)]
         worst = max(worst, (rows[0] - rows[1]).abs().max().item())
+        largest = rows[1].float().abs().max().item()
+    tol = 1e-4 if dtype is None else BF16_DECODE_TOL * max(1.0, largest)
+    kind = "fp32" if dtype is None else str(dtype)[6:]
     print(
-        f"check model fp32 dim_head {dim_head} kernel-vs-dense logits over prefill + 64 steps + "
-        f"resume: max_abs_err {worst:.3e} tol 1e-4"
+        f"check model {kind} dim_head {dim_head} kernel-vs-dense logits over prefill + 64 steps + "
+        f"resume: max_abs_err {worst:.3e} tol {tol:.3e}"
     )
-    if not worst <= 1e-4:
-        fail("the small model's kernel path disagrees with its dense path")
+    if not worst <= tol:
+        fail(f"the small model's {kind} kernel path disagrees with its dense path")
 
 
 # phase 4's bf16 training check (bf16 autocast on both paths, which round
@@ -2828,7 +3058,7 @@ def main() -> int:
     # 1. build ---------------------------------------------------------
     t_start = t0 = time.perf_counter()
     kernels.build(["flash_decode", "flash_decode_tile", "flash_decode_tile_f32", "flash_attention",
-                   "wide_head"])
+                   "wide_head", "wide_decode_tile"])
     print(f"build: {time.perf_counter() - t0:.2f} s total")
     for name, info in kernels.build_log.items():
         print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
@@ -2845,6 +3075,8 @@ def main() -> int:
                     fail(f"a {name} instance spills: {line.strip()}")
     wide_build = check_wide_build(kernels.build_log["wide_head"])
     print("wide_head kernels (ptxas, cuobjdump -sass): " + json.dumps(wide_build))
+    tile_build = check_wide_tile_build(kernels.build_log["wide_decode_tile"])
+    print("wide_decode_tile instances (ptxas, cuobjdump -sass): " + json.dumps(tile_build))
 
     # 2. kernel vs plain ---------------------------------------------------
     cases = {
@@ -2897,7 +3129,7 @@ def main() -> int:
 
     check_head_dim_limit(torch)
     t0 = time.perf_counter()
-    wide_decode_err, _ = check_wide_decode(torch)
+    wide_decode_errs, _ = check_wide_decode(torch)
     wide_attn_errs = check_wide_attention(torch)
     print(f"phase 2 wide head-dim checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2960,6 +3192,9 @@ def main() -> int:
     t0 = time.perf_counter()
     wide_times = time_wide_kernels(torch, F, peaks, smi)
     print(f"phase 3 wide head-dim times: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_tile_variants = time_tile_variants(torch, F, peaks, smi, d=WIDE_IDENTITY_DIM)
+    print(f"phase 3 wide tile kernel's kernels 3-5 at D={WIDE_IDENTITY_DIM}: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
     # the fp32 model's prefill and resume (n > 4) run the fp32 tile arm
@@ -2981,18 +3216,33 @@ def main() -> int:
         c.launches = 0
     for c in wide_counters[1:]:
         c.mma_launches = 0
-    wh.wide_decode.split_launches = 0
+    wh.wide_decode.split_launches = wh.wide_decode.tile_launches = 0
+
+    def decode_counts():
+        """(4-row, split-K, tile) wide decode launches so far."""
+        d = wh.wide_decode
+        return (d.launches - d.split_launches - d.tile_launches, d.split_launches, d.tile_launches)
+
+    # the small model (depth 2): each run's prefill and resume are one
+    # multi-row call a layer (4), its 64 steps one split-K call a layer (128)
     check_small_model_decode(torch, WIDE_IDENTITY_DIM)
+    fp32_counts = decode_counts()
+    check_small_model_decode(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
+    bf16_counts = tuple(a - b for a, b in zip(decode_counts(), fp32_counts))
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide decode launches (4-row, split-K, tile) of the "
+          f"fp32 run {fp32_counts}, of the bf16 run {bf16_counts}")
+    if fp32_counts != (4, 128, 0) or bf16_counts != (0, 128, 4):
+        fail(f"the dim_head {WIDE_IDENTITY_DIM} model's decode launches: fp32 {fp32_counts}, bf16 "
+             f"{bf16_counts}, expected (4, 128, 0) and (0, 128, 4)")
     check_small_model_training(torch, WIDE_IDENTITY_DIM)
     check_small_model_training(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
-    wide_launches = {c.__name__: c.launches for c in wide_counters}
+    wide_launches = {c.__name__: c.launches for c in wide_counters[1:]}
     wide_launches.update({f"{c.__name__}_mma": c.mma_launches for c in wide_counters[1:]})
-    # the steps (n = 1) run the split-K kernel, the prefill and resume the 4-row one
-    wide_launches["wide_split"] = wh.wide_decode.split_launches
-    wide_launches["wide_decode"] -= wide_launches["wide_split"]
+    wide_launches.update(wide_decode=fp32_counts[0], wide_split=fp32_counts[1] + bf16_counts[1],
+                         wide_tile=bf16_counts[2])
     print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide kernel launches (wide_split: the split-K "
-          f"steps, wide_decode: the 4-row prefill and resume; _mma: the bf16 tensor-core kernels, "
-          f"in the bf16 autocast run) {json.dumps(wide_launches)}")
+          f"steps, wide_tile: the bf16 prefill and resume, wide_decode: the fp32 ones; _mma: the bf16 "
+          f"tensor-core kernels, in the bf16 autocast run) {json.dumps(wide_launches)}")
     for name, count in wide_launches.items():
         if count == 0:
             fail(f"{name} was not launched by the dim_head {WIDE_IDENTITY_DIM} model")
@@ -3087,9 +3337,12 @@ def main() -> int:
     for d in WIDE_TIMED_DIMS:
         named = fa.attention_kernels(d, torch.bfloat16)
         for pass_, want in (("fwd", [named["fwd"]]), ("bwd", list(named["bwd"]))):
-            seen = wide_times[f"wide_attention_{pass_}"][d].get("device_kernels", {})
+            seen = wide_times[f"wide_attention_{pass_}"][(d, "bf16", "train")].get("device_kernels", {})
             if any(k not in seen for k in want):
                 fail(f"wide attention {pass_} at D = {d}: the trace shows {list(seen)}, the routing {want}")
+        seen = wide_times["wide_tile"][(d, "bf16", "resume")].get("device_kernels", {})
+        if not any(k.startswith("wide_decode_tile_kernel<") for k in seen):
+            fail(f"the bf16 resume at D = {d}: the trace shows {list(seen)}, not the tile kernel")
     print(f"phase 3's bf16 forward launches {traced} (torch.profiler trace of one call)")
 
     # result -------------------------------------------------------------------
@@ -3237,40 +3490,58 @@ def main() -> int:
             dict(
                 name=name,
                 route="cuda",
-                source="dalle_pytorch_tpu_torch/csrc/wide_head.cu",
+                source=f"dalle_pytorch_tpu_torch/csrc/{source}.cu",
                 replaces=replaces,
                 launches=wide_launches[name],
                 **({"mma_launches": wide_launches[name + "_mma"]} if name + "_mma" in wide_launches else {}),
                 max_abs_err=err,
-                **wide_times[name][WIDE_TIMED_DIMS[0]],
-                **{f"d{d}_{field}": wide_times[name][d][field] for d in WIDE_TIMED_DIMS[1:]
-                   for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "cuda_kernel")
-                   if field in wide_times[name].get(d, {})},
+                **wide_fields(wide_times[arm], main_case),
+                **extra,
                 timed=timed,
             )
-            for name, replaces, err, timed in (
-                ("wide_split", "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
-                 wide_decode_err,
+            for name, arm, source, main_case, replaces, err, extra, timed in (
+                ("wide_split", "wide_split", "wide_head", (WIDE_TIMED_DIMS[0], "bf16", "step"),
+                 "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                 wide_decode_errs["wide_split"], {},
                  f"kernels 1-5 at D > 256 and n <= 4 (split-K); bf16 step n=1 B=4 H=16 S=1281 "
-                 f"D={WIDE_TIMED_DIMS[0]} lengths [258, 700, 1024, 1281]; launches: phase 4's "
-                 f"dim_head {WIDE_IDENTITY_DIM} model (its steps)"),
-                ("wide_decode", "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
-                 wide_decode_err,
-                 f"kernels 1-5 at D > 256 and n > 4 (the 4-row kernel); bf16 resume n=1280 S=1281 "
-                 f"B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280; library_ms is SDPA's causal forward "
-                 f"over the live keys; launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
-                 "(prefill and resume); max_abs_err: worst bf16 of phase 2's wide decode checks"),
-                ("wide_attention_fwd", "dalle_pytorch_tpu/ops/pallas_attention.py:129",
-                 wide_attn_errs["wide_flash_attention_fwd"],
+                 f"D={WIDE_TIMED_DIMS[0]} lengths [258, 700, 1024, 1281] (d<D>_<dtype>_step_*: the "
+                 f"other D and fp32, fp32 bound at the fp32 peak); launches: phase 4's dim_head "
+                 f"{WIDE_IDENTITY_DIM} model (its steps, fp32 and bf16 runs)"),
+                ("wide_tile", "wide_tile", "wide_decode_tile", (WIDE_TIMED_DIMS[0], "bf16", "resume"),
+                 "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                 wide_decode_errs["wide_tile"],
+                 {f"tile_resume_{kernel}_{k}": v for kernel, row in wide_tile_variants.items()
+                  for k, v in row.items() if k != "device_kernels"},
+                 f"kernels 1-5 at D > 256 and n > 4, bf16 q (tensor cores, P as a bf16 pair); resume "
+                 f"n=1280 S=1281 B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280 (d<D>_bf16_<shape>_*: "
+                 f"D={WIDE_TIMED_DIMS[1]} and the prefill n=257 lengths 257); library_ms is SDPA's "
+                 f"causal forward over the live keys; tile_resume_<kernel>_*: kernels 3-5 at the resume "
+                 f"shape at D={WIDE_IDENTITY_DIM}; launches: phase 4's bf16 dim_head "
+                 f"{WIDE_IDENTITY_DIM} model (prefill and resume); max_abs_err: worst of phase 2's "
+                 "wide decode checks on this kernel"),
+                ("wide_decode", "wide", "wide_head", (WIDE_TIMED_DIMS[0], "fp32", "resume"),
+                 "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
+                 wide_decode_errs["wide"], {},
+                 f"kernels 1-5 at D > 256 on the 4-row kernel: fp32 q at n > 4 (and n <= 4 above "
+                 f"D=1024); fp32 resume n=1280 S=1281 B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280 "
+                 f"(d<D>_fp32_<shape>_*: D={WIDE_TIMED_DIMS[1]} and the prefill), bound at the fp32 "
+                 f"peak; library_ms is SDPA's causal forward in fp32 over the live keys; launches: "
+                 f"phase 4's fp32 dim_head {WIDE_IDENTITY_DIM} model (prefill and resume)"),
+                ("wide_attention_fwd", "wide_attention_fwd", "wide_head",
+                 (WIDE_TIMED_DIMS[0], "bf16", "train"), "dalle_pytorch_tpu/ops/pallas_attention.py:129",
+                 wide_attn_errs["wide_flash_attention_fwd"], {},
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]} on tensor cores (`cuda_kernel`, "
-                 f"`groups` column groups); launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
+                 f"`groups` column groups; d<D>_<dtype>_train_*: the other D and fp32 on CUDA cores, "
+                 f"fp32 bound at the fp32 peak); launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
                  "(training, fp32 and bf16 autocast; `_mma` launches the bf16 ones)"),
-                ("wide_attention_bwd",
+                ("wide_attention_bwd", "wide_attention_bwd", "wide_head",
+                 (WIDE_TIMED_DIMS[0], "bf16", "train"),
                  "dalle_pytorch_tpu/ops/pallas_attention.py:274, dalle_pytorch_tpu/ops/pallas_attention.py:333",
-                 wide_attn_errs["wide_flash_attention_bwd"],
+                 wide_attn_errs["wide_flash_attention_bwd"], {},
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]}, one fused tensor-core kernel for "
-                 "dq, dk and dv (with the workspace memset and dq conversion); library_ms is SDPA's "
-                 f"whole backward; launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (training)"),
+                 "dq, dk and dv (with the workspace memset and dq conversion); fp32 two CUDA-core "
+                 "kernels; library_ms is SDPA's whole backward; launches: phase 4's dim_head "
+                 f"{WIDE_IDENTITY_DIM} model (training)"),
             )
         ]
     }

@@ -9,7 +9,8 @@
 //     `_sparse_paged_decode_kernel` -- two decode kernels here (the split-K
 //     step and the 4-row kernel), each with runtime flags for the block
 //     bitmap and the page table (null pointers when off) and the int8
-//     cache as a template type;
+//     cache as a template type (bf16 q at n > 4 runs the tensor-core tile
+//     kernel of wide_decode_tile.cu instead);
 //   * `dalle_pytorch_tpu/ops/pallas_attention.py`: `_fwd_kernel` (forward),
 //     `_dq_kernel` and `_dkv_kernel` (backward), in their all / causal /
 //     static-mask arms.
@@ -38,7 +39,9 @@
 //     sum), so every warp computes; one warp per query row runs the online
 //     softmax of the tile (a lane per key, expf); then every thread adds P V
 //     for its own columns. One code path for every variant.
-// n > 4 rows, and D > 1024, keep `wide_decode_kernel` (below).
+// bf16 q at n > 4 rows runs wide_decode_tile.cu's tensor-core tile kernel;
+// `wide_decode_kernel` (below) keeps what is left: fp32 q at n > 4, and the
+// step (n <= 4) above D = 1024.
 //
 // Design of the rest: column groups. A block owns at most kDecCols
 // (decode) or kCols (fp32 attention) or `cols` (bf16 attention, 128-256:
@@ -54,7 +57,8 @@
 // bfloat16 attention runs on tensor cores (the second half of this file):
 // mma.sync with fp32 accumulators, 64-row tiles, operands staged as 64 x 64
 // tiles through a cp.async ring. The rest on CUDA cores in fp32:
-//   * decode at n > 4 (or D > 1024): a block per (row, head) x 4 query
+//   * decode at n > 4 with fp32 q, or n <= 4 above D = 1024
+//     (`wide_decode_kernel`): a block per (row, head) x 4 query
 //     rows x column group, keys in tiles of 32 (a lane per key in the
 //     softmax, a warp per key in the dot product), K and V read from
 //     device memory unstaged; only keys some row of the block may see are read, a

@@ -32,9 +32,12 @@ padded per call. On the card D <= `MAX_KERNEL_HEAD_DIM` (256) runs the
 kernels above and any larger D the kernels of `csrc/wide_head.cu`
 (`ops/wide_head.py`): its split-K step up to DECODE_ROWS rows (the same
 spans and merge as here, so `flash_decode_split_plain` is its arithmetic
-too), its 4-row column-group kernel above; each one body with runtime
-flags for the bitmap and the page table, whose all-ones bitmap and paged
-layout give the plain contiguous bits as here.
+too), above that for bf16 q the tensor-core tile kernel of
+`csrc/wide_decode_tile.cu` (the tile arm's arithmetic at any D, so
+`flash_decode_tile_plain` is its model) and for fp32 q the 4-row
+column-group kernel; each one body with runtime flags for the bitmap and
+the page table, whose all-ones bitmap and paged layout give the plain
+contiguous bits as here.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -86,7 +89,13 @@ from typing import Optional
 import torch
 
 from dalle_pytorch_tpu_torch import kernels
-from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, split_scratch, wide_decode, wide_split_takes
+from dalle_pytorch_tpu_torch.ops.wide_head import (
+    WIDE_ABOVE,
+    split_scratch,
+    wide_decode,
+    wide_split_takes,
+    wide_tile_takes,
+)
 
 MAX_KERNEL_HEAD_DIM = WIDE_ABOVE  # flash_decode.cu takes any D up to this (csrc dispatch_d)
 DECODE_ROWS = 4  # query rows flash_decode.cu takes (csrc kRows); more run a tile arm
@@ -474,24 +483,32 @@ def check_kernel_head_dim(d: int) -> None:
 
 
 def decode_kernel_source(d: int) -> str:
-    """The source whose kernel a call at head dim `d` launches on the card:
-    "flash_decode" up to MAX_KERNEL_HEAD_DIM, "wide_head" above."""
+    """The source whose kernels take head dim `d` on the card:
+    "flash_decode" up to MAX_KERNEL_HEAD_DIM (with its tile arms' sources
+    above DECODE_ROWS rows), "wide_head" above (with csrc/wide_decode_tile.cu
+    for bf16 q above DECODE_ROWS rows); `decode_arm` names the kernel."""
     check_kernel_head_dim(d)
     return "flash_decode" if d <= MAX_KERNEL_HEAD_DIM else "wide_head"
 
 
 def decode_arm(n: int, dtype: torch.dtype, d: int) -> str:
     """The kernel a call of n query rows in q's `dtype` at head dim `d`
-    launches on the card. Above MAX_KERNEL_HEAD_DIM, csrc/wide_head.cu:
-    its split-K kernel ("wide_split", up to DECODE_ROWS rows and
-    `wide_head.WIDE_SPLIT_MAX_D` channels: `wide_split_takes`), else its
-    4-row kernel ("wide"). Up to MAX_KERNEL_HEAD_DIM: flash_decode.cu's split-K
+    launches on the card. Above MAX_KERNEL_HEAD_DIM: csrc/wide_head.cu's
+    split-K kernel ("wide_split", up to DECODE_ROWS rows and
+    `wide_head.WIDE_SPLIT_MAX_D` channels: `wide_split_takes`); above
+    DECODE_ROWS rows with bf16 q the tensor-core tile kernel of
+    csrc/wide_decode_tile.cu ("wide_tile", any D: `wide_tile_takes`);
+    else wide_head.cu's 4-row kernel ("wide": fp32 q above DECODE_ROWS
+    rows, and the step above WIDE_SPLIT_MAX_D channels). Up to
+    MAX_KERNEL_HEAD_DIM: flash_decode.cu's split-K
     instances at the step ("step", n = 1) and up to DECODE_ROWS rows
     ("split"); above DECODE_ROWS the tensor-core tile arm of
     flash_decode_tile.cu for bf16 q ("tile") and the CUDA-core tile arm
     of flash_decode_tile_f32.cu for fp32 q ("tile_f32")."""
     if d > MAX_KERNEL_HEAD_DIM:
-        return "wide_split" if wide_split_takes(n, d) else "wide"
+        if wide_split_takes(n, d):
+            return "wide_split"
+        return "wide_tile" if wide_tile_takes(n, dtype) else "wide"
     if n == 1:
         return "step"
     if n <= DECODE_ROWS:

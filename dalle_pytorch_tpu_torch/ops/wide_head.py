@@ -11,7 +11,13 @@ module.
 Decode (`wide_decode`) runs the split-K kernel `wide_split_kernel` up to
 WIDE_SPLIT_ROWS query rows (the step; spans of 128 keys merged by the last
 block to arrive, as flash_decode.cu's split-K body, through `split_scratch`)
-and the 4-row `wide_decode_kernel` above.
+and WIDE_SPLIT_MAX_D channels; above WIDE_SPLIT_ROWS rows with bf16 q the
+tensor-core tile kernel of `csrc/wide_decode_tile.cu`
+(`wide_decode_tile_kernel<KV, cols, resident>`: 64 query rows x a column
+group a block, S over all of D from 64-channel chunks through a cp.async
+ring, P as a bf16 pair; `wide_tile_plan`). The 4-row `wide_decode_kernel`
+keeps what is left: fp32 q above WIDE_SPLIT_ROWS rows, and the step above
+WIDE_SPLIT_MAX_D channels.
 
 Flash attention in bfloat16 runs on tensor cores, one column group of
 output columns a block (`wide_attention_plan`, which also sets each
@@ -56,6 +62,12 @@ MMA_ALIGN = 8  # D a multiple of this (16-byte rows)
 FWD_STAGES, FWD_RES_STAGES, BWD_STAGES = 3, 4, 3
 SMEM_SM, SMEM_RESERVED, SMEM_LIMIT = 233472, 1024, 232448  # an SM's, per block, a block's (227 KB)
 _TILE = 64 * 72  # bf16 elements of a staged 64 x 64 tile (rows padded to 72)
+# the decode tile kernel (csrc/wide_decode_tile.cu): the output columns a
+# block owns (kCols: a warp's O is 16 x 192 fp32 beside P's bf16 pair; 256
+# columns spilled) and its ring stages (kStages, kResStages)
+TILE_COLS = 192
+TILE_STAGES, TILE_RES_STAGES = 3, 4
+TILE_STATIC_SMEM = 128 * 4 + 2 * 64 * 8  # its static shared memory (kStaticSmem)
 
 
 def _resident_ld(d: int) -> int:
@@ -102,6 +114,8 @@ class WidePlan:
 
     @property
     def kernel(self) -> str:
+        if self.kind == "tile":  # the cache type is the first template argument
+            return f"wide_decode_tile_kernel<KV, {self.cols}, {str(self.resident).lower()}>"
         return f"wide_{self.kind}_mma_kernel<{self.cols}, {str(self.resident).lower()}>"
 
     def columns(self, group: int) -> range:
@@ -133,6 +147,26 @@ def wide_attention_plan(d: int, kind: str) -> WidePlan:
                     mma_smem(kind, cols, d_kernel, resident))
 
 
+def wide_tile_smem(d: int, resident: bool, quant: bool) -> int:
+    """Dynamic shared bytes a block of the decode tile kernel takes at head
+    dim `d`: the resident 64 x D query tile and a ring of 4 one-tile slots,
+    or a ring of 3 two-tile slots; int8 adds the slot's tiles widened to
+    bf16 and two key tiles' k and v scales (csrc `smem_bytes`)."""
+    tiles, stages = (1, TILE_RES_STAGES) if resident else (2, TILE_STAGES)
+    nbytes = 2 * (64 * _resident_ld(d) if resident else 0) + 2 * stages * tiles * _TILE
+    return nbytes + (2 * tiles * _TILE + 2 * 2 * 64 * 4 if quant else 0)
+
+
+def wide_tile_plan(d: int, quant: bool = False) -> WidePlan:
+    """The launch plan of the decode tile kernel at head dim `d` (any D,
+    the channels past D zero in shared memory; `quant`: an int8 cache):
+    groups of TILE_COLS output columns, each forming S over all of D's
+    64-channel chunks; Q resident while two blocks still fit an SM."""
+    resident = 2 * (wide_tile_smem(d, True, quant) + TILE_STATIC_SMEM + SMEM_RESERVED) <= SMEM_SM
+    return WidePlan("tile", d, TILE_COLS, -(-d // TILE_COLS), -(-d // 64), resident,
+                    wide_tile_smem(d, resident, quant))
+
+
 def wide_attention_kernels(d: int, dtype: torch.dtype) -> dict:
     """{"fwd": kernel, "bwd": (kernels...)} that flash attention launches on
     the card at head dim `d` > WIDE_ABOVE and `dtype` (the names a profiler
@@ -143,6 +177,15 @@ def wide_attention_kernels(d: int, dtype: torch.dtype) -> dict:
         return {"fwd": "wide_fwd_kernel<float>",
                 "bwd": ("wide_dq_kernel<float>", "wide_dkv_kernel<float>")}
     raise TypeError(f"no wide flash-attention kernel for {dtype}")
+
+
+def _tile_library() -> ctypes.CDLL:
+    lib = kernels.library("wide_decode_tile")
+    fn = lib.wide_decode_tile_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _library() -> ctypes.CDLL:
@@ -184,8 +227,15 @@ def split_scratch(device: torch.device, floats: int, rows: int):
 def wide_split_takes(n: int, d: int) -> bool:
     """Whether a decode call of n query rows at head dim `d` > WIDE_ABOVE
     runs the split-K kernel (`wide_split_kernel`): up to WIDE_SPLIT_ROWS
-    rows and WIDE_SPLIT_MAX_D channels; else the 4-row kernel."""
+    rows and WIDE_SPLIT_MAX_D channels."""
     return n <= WIDE_SPLIT_ROWS and d <= WIDE_SPLIT_MAX_D
+
+
+def wide_tile_takes(n: int, dtype: torch.dtype) -> bool:
+    """Whether a decode call of n query rows in q's `dtype` at a head dim
+    above WIDE_ABOVE runs the tensor-core tile kernel (csrc/
+    wide_decode_tile.cu): bf16 q above WIDE_SPLIT_ROWS rows, at any D."""
+    return dtype == torch.bfloat16 and n > WIDE_SPLIT_ROWS
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -203,32 +253,42 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
     wrapper): the contiguous cache, or the pool read through `page_table`;
     `block_bitmap` over blocks of `block_k` positions (one per table entry
     when paged); int8 K/V with their scales. On the split-K kernel where
-    `wide_split_takes`, counted also in `.split_launches`; else on the
-    4-row kernel."""
+    `wide_split_takes` (counted also in `.split_launches`), on the tile
+    kernel where `wide_tile_takes` (`.tile_launches`), else on the 4-row
+    kernel."""
     b, h, n, d = q.shape
     paged = page_table is not None
     s_len = page_table.shape[1] * k.shape[2] if paged else k.shape[2]
+    quant = k_scale is not None
+    split, tile = wide_split_takes(n, d), wide_tile_takes(n, q.dtype)
+    tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
+    if tile and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("q, k, v and scales must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = _library()
-    split = wide_split_takes(n, d)
     args = (
         _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(lengths),
         _ptr(block_bitmap), _ptr(page_table), _ptr(out), b, h, n, s_len, d,
         0 if block_bitmap is None else block_bitmap.shape[1], int(block_k),
         k.shape[2] if paged else 0, k.shape[0] if paged else 0,
-        _DTYPE_CODE[q.dtype], int(k_scale is not None), d**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if split:
+        if tile:
+            plan = wide_tile_plan(d, quant)
+            err = _tile_library().wide_decode_tile_launch(
+                *args, int(quant), plan.cols, int(plan.resident), plan.smem, d**-0.5, stream)
+        elif split:
+            lib = _library()
             workspace, counters = split_scratch(
                 q.device, lib.wide_split_workspace_floats(b, h, s_len, d), b * h)
-            err = lib.wide_split_launch(*args, _ptr(workspace), _ptr(counters))
+            err = lib.wide_split_launch(*args, _DTYPE_CODE[q.dtype], int(quant), d**-0.5, stream,
+                                        _ptr(workspace), _ptr(counters))
         else:
-            err = lib.wide_decode_launch(*args)
-    _raise_on(err, "wide_split" if split else "wide_decode")
+            err = _library().wide_decode_launch(*args, _DTYPE_CODE[q.dtype], int(quant), d**-0.5, stream)
+    _raise_on(err, "wide_tile" if tile else "wide_split" if split else "wide_decode")
     wide_decode.launches += 1
     wide_decode.split_launches += split
+    wide_decode.tile_launches += tile
     return out
 
 
@@ -289,6 +349,7 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
 
 wide_decode.launches = 0
 wide_decode.split_launches = 0  # of those, the split-K kernel's
+wide_decode.tile_launches = 0  # and the tensor-core tile kernel's
 wide_attention_fwd.launches = 0
 wide_attention_bwd.launches = 0
 # the bf16 calls among .launches: the tensor-core kernels

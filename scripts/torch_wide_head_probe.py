@@ -1,30 +1,41 @@
 #!/usr/bin/env python3
-"""Build, check and time the head-dim > 256 kernels (`csrc/wide_head.cu`)
-alone, on one NVIDIA GPU, from the root of a checkout:
+"""Build, check and time the head-dim > 256 kernels (`csrc/wide_head.cu`,
+`csrc/wide_decode_tile.cu`) alone, on one NVIDIA GPU, from the root of a
+checkout:
 
-    python3 scripts/torch_wide_head_probe.py [--time] [--ablate] [--parent DIR]
+    python3 scripts/torch_wide_head_probe.py [--time] [--ablate] [--ablate-tile] [--parent DIR]
 
-Builds `wide_head.cu` by itself and prints ptxas's registers, spills and
-shared memory of each kernel and the tensor-core instructions (HMMA) that
-`cuobjdump -sass` finds in each bf16 flash-attention kernel (it fails if
-one spills or has none). Then runs `chip_smoke.py`'s phase-2 checks of the
+Builds the two sources by themselves and prints ptxas's registers, spills
+and shared memory of each kernel and the tensor-core instructions (HMMA)
+that `cuobjdump -sass` finds in each bf16 flash-attention kernel and each
+decode tile instance (it fails if one spills or has none). Then runs
+`chip_smoke.py`'s phase-2 checks of the
 wide kernels (the routing of D = 264, 300, 320 and 1024; the five decode
 variants at D = 264-1024 with the bit identities at 320 and NaN-poisoned
-caches; flash attention forward and backward on the causal, all-keys and
+caches, the tile kernel at the resume shape; flash attention forward and
+backward on the causal, all-keys and
 static-mask arms at D = 264-1024, and causal at the training shapes at D =
 320 and 512) and phase 4's small models at dim_head 320 through the
-kernels against dense attention. About a minute of card time.
+kernels against dense attention (decode in fp32 and bf16). About a minute
+of card time.
 
-`--time` adds phase 3's times of the wide kernels at D = 320 and 512 (CUDA
-events, the plain version, SDPA, the bound, and the device time from a
-torch.profiler trace). `--ablate` times the bf16 flash-attention forward
-and backward at the training shapes through variants (`ABLATIONS`): copies
-of `csrc/wide_head.cu` that each change one part, and the other column
-plans (the forward at 128 or 192 columns a block, the backward at 64),
-device ms from a trace. With `--parent DIR` (an unpacked
+`--time` adds phase 3's times of the wide kernels at D = 320 and 512, bf16
+and fp32 (CUDA events, the plain version, SDPA, the bound at the input
+type's peak, and the device times of the kernel and of SDPA from
+torch.profiler traces): the decode step, the multi-row decode at the
+resume and prefill shapes, flash attention forward and backward at the
+training shapes. `--ablate` times the bf16 flash-attention forward and
+backward at the training shapes through variants (`ABLATIONS`): copies of
+`csrc/wide_head.cu` that each change one part, and the other column plans
+(the forward at 128 or 192 columns a block, the backward at 64), device
+ms from a trace. `--ablate-tile` does the same for the decode tile kernel
+of `csrc/wide_decode_tile.cu` at the resume shape (`TILE_ABLATIONS`: no
+copies, one P product where the kernel multiplies P's bf16 pair, no
+score products, a deeper ring, Q streamed at every D). With `--parent DIR` (an unpacked
 checkout of another commit under the git-ignored `build/`) only the timed
-rows run (the flash-attention forward and backward at the training shapes
-and the decode step, bf16, at D = 320 and 512, beside SDPA), in separate
+rows run (the flash-attention forward and backward at the training shapes,
+the decode step and the multi-row decode at the resume shape, bf16, at D =
+320 and 512, beside SDPA), in separate
 processes in turns: DIR's kernels and wrappers, this tree's, this tree's,
 DIR's (this script's measuring code each time); a last JSON line gives
 each turn's device ms.
@@ -55,17 +66,19 @@ def load_smoke():
 
 
 def kernel_report(cs) -> None:
-    """ptxas's lines and the HMMA count of each bf16 attention kernel."""
+    """ptxas's lines and the HMMA count of each tensor-core kernel."""
     from dalle_pytorch_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    kernels.build(["wide_head"])
-    info = kernels.build_log["wide_head"]
-    print(f"build wide_head: {time.perf_counter() - t0:.2f} s -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if re.search(r"Compiling entry|registers|spill|smem", line):
-            print("  ptxas " + line.strip())
-    print("wide_head checks " + json.dumps(cs.check_wide_build(info)))
+    kernels.build(["wide_head", "wide_decode_tile"])
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for name, check in (("wide_head", cs.check_wide_build), ("wide_decode_tile", cs.check_wide_tile_build)):
+        info = kernels.build_log[name]
+        print(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if re.search(r"Compiling entry|registers|spill|smem", line):
+                print("  ptxas " + line.strip())
+        print(f"{name} checks " + json.dumps(check(info)))
 
 
 def timed_jobs(torch, F):
@@ -73,7 +86,9 @@ def timed_jobs(torch, F):
     backward (bf16, causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's; the
     decode step (bf16, n = 1, B = 4, H = 16, S = 1281, lengths [258, 700,
     1024, 1281], three input sets rotating) at TIMED_DIMS, and SDPA over
-    the cache with the length mask."""
+    the cache with the length mask; the multi-row decode at the resume
+    shape (bf16, n = 1280, S = 1281, lengths 1280, two input sets) at
+    TIMED_DIMS, and SDPA's causal forward over the live keys."""
     import chip_smoke as cs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
@@ -93,6 +108,12 @@ def timed_jobs(torch, F):
                                      (b, cs.MAIN["heads"], s_len, d))) + (lens,) for _ in range(3)]
         jobs[f"decode_d{d}"] = (fd.flash_decode_attention, steps, 60)
         jobs[f"sdpa_decode_d{d}"] = (sdpa_masked, steps, 60)
+        resume = cs.resume_inputs(torch, b, torch.bfloat16, copies=2, d=d)
+        jobs[f"resume_d{d}"] = (fd.flash_decode_attention, resume, 4)
+        jobs[f"sdpa_resume_d{d}"] = (
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            [(q, k[:, :, :q.shape[2]].contiguous(), v[:, :, :q.shape[2]].contiguous()) for q, k, v, _ in resume],
+            10)
     for d in TIMED_DIMS:
         sets = []
         for _ in range(2):
@@ -151,20 +172,50 @@ ABLATIONS = (
 )
 
 
-def ablate(torch, cs, F) -> None:
-    """Device ms of the bf16 forward and backward at TIMED_DIMS through
-    each variant of `ABLATIONS` (a copy of `csrc/wide_head.cu` and the
-    wrapper's names it sets), two rounds in opposite order."""
+# the same for the decode tile kernel (`--ablate-tile`, csrc/wide_decode_tile.cu),
+# timed at the resume shape; "streaming" keeps the source and streams Q at
+# every D (`ablate` swaps the plan)
+TILE_STAGES = "constexpr int kStages = 3, kResStages = 4;"
+TILE_ABLATIONS = (
+    ("source", [], {}),
+    ("no_copies", [("        cp_async16(to + pass * ROWS * ld_bytes, ok ? from + row * (D * ELT) : from, ok);\n",
+                    "        (void)ok;\n")], {}),
+    ("one_p_product", [("      mma_bf16(c0, lo[kc], bf[0], bf[1]);\n      mma_bf16(c1, lo[kc], bf[2], bf[3]);\n", "")],
+     {}),
+    ("no_score_products", [("          chunk_product(s, qres + c * kT, ldq, r0, kt_tile, lane);\n", "          ;\n"),
+                           ("          chunk_product(s, st + kTileElems, kLdt, r0, kt_tile, lane);\n", "          ;\n")],
+     {}),
+    ("stages_plus_one", [(TILE_STAGES, "constexpr int kStages = 4, kResStages = 5;")],
+     {"TILE_STAGES": 4, "TILE_RES_STAGES": 5}),
+    ("streaming", [], {"wide_tile_plan": "streaming"}),
+    ("no_mask_select", [("      const bool full = key0 + kT - 1 <= wbound0 && live == ~0ull;\n",
+                         "      const bool full = live == ~0ull || true;\n")], {}),
+)
+
+
+def ablate(torch, cs, F, source="wide_head", variants=ABLATIONS, prefixes=("fwd", "bwd")) -> None:
+    """Device ms of the timed jobs named by `prefixes` (the bf16 forward and
+    backward at TIMED_DIMS; the resume-shape decode for the tile source)
+    through each variant of `variants` (a copy of `csrc/<source>.cu` and
+    the wrapper's names it sets), two rounds in opposite order."""
     import ctypes
 
     from dalle_pytorch_tpu_torch import kernels
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
-    src = (kernels.CSRC / "wide_head.cu").read_text()
-    out = REPO / "build" / "ablate_wide_head"
+    plan = wh.wide_tile_plan
+
+    def plan_streaming(d, quant=False):
+        full = plan(d, quant)
+        return wh.WidePlan("tile", d, full.cols, full.groups, full.chunks, False, wh.wide_tile_smem(d, False, quant))
+
+    variants = tuple((name, edits, {k: plan_streaming if v == "streaming" else v for k, v in patch.items()})
+                     for name, edits, patch in variants)
+    src = (kernels.CSRC / f"{source}.cu").read_text()
+    out = REPO / "build" / f"ablate_{source}"
     out.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.find_nvcc(), {}
-    for name, edits, _ in ABLATIONS:
+    for name, edits, _ in variants:
         if any(old not in src for old, _ in edits):
             raise RuntimeError(f"ablate {name}: its text is not in the source")
         variant = src
@@ -179,37 +230,32 @@ def ablate(torch, cs, F) -> None:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"ablate {name}: nvcc failed\n{log}")
-        regs = re.findall(r"Compiling entry function '([^']*_mma_kernel[^']*)'[^\n]*\n(?:[^\n]*\n){0,3}?[^\n]*Used (\d+) registers",
+        regs = re.findall(r"Compiling entry function '([^']*_kernel[^']*)'[^\n]*\n(?:[^\n]*\n){0,3}?[^\n]*Used (\d+) registers",
                           log)
-        print(json.dumps({"ablate": name, "registers": {cs.mangled_kernel(k): int(r) for k, r in regs}}), flush=True)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(json.dumps({"ablate": name, "registers": {cs.mangled_kernel(k): int(r) for k, r in regs},
+                          "spill_store_bytes": sum(map(int, spills))}), flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    jobs = {k: job for k, job in timed_jobs(torch, F).items() if k.startswith(("fwd", "bwd"))}
+    jobs = {k: job for k, job in timed_jobs(torch, F).items() if k.startswith(prefixes)}
 
-    def traced_ms(fn, inputs, iters):
-        """Device ms a call; a trace that kept no kernel record is taken again
-        (after a dozen traces in one process the profiler can drop them all)."""
-        for attempt in range(3):
-            try:
-                return cs.device_ms(torch, fn, inputs, iters)[0]
-            except RuntimeError:
-                if attempt == 2:
-                    raise
-
-    patches = {name: patch for name, _, patch in ABLATIONS}
+    patches = {name: patch for name, _, patch in variants}
     saved = {attr: getattr(wh, attr) for patch in patches.values() for attr in patch}
     names = list(libs)
     for rnd, order in enumerate((names, names[::-1])):
         for name in order:
-            kernels._libs["wide_head"] = libs[name]
+            kernels._libs[source] = libs[name]
             for attr, value in {**saved, **patches[name]}.items():
                 setattr(wh, attr, value)
-            plans = {f"{kind}_d{d}": wh.wide_attention_plan(d, kind).kernel
-                     for d in TIMED_DIMS for kind in ("fwd", "bwd")}
-            row = {job: traced_ms(fn, inputs, iters) for job, (fn, inputs, iters) in jobs.items()}
+            if source == "wide_head":
+                plans = {f"{kind}_d{d}": wh.wide_attention_plan(d, kind).kernel
+                         for d in TIMED_DIMS for kind in ("fwd", "bwd")}
+            else:
+                plans = {f"resume_d{d}": wh.wide_tile_plan(d).kernel for d in TIMED_DIMS}
+            row = {job: cs.device_ms(torch, fn, inputs, iters)[0] for job, (fn, inputs, iters) in jobs.items()}
             print(json.dumps({"ablate": name, "round": rnd, "device_ms": row, "plans": plans}), flush=True)
     for attr, value in saved.items():
         setattr(wh, attr, value)
-    kernels._libs.pop("wide_head")
+    kernels._libs.pop(source)
 
 
 def in_turns(parent: str) -> int:
@@ -235,6 +281,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--time", action="store_true", help="also time the wide kernels (phase 3)")
     p.add_argument("--ablate", action="store_true", help="time copies of the source without each part")
+    p.add_argument("--ablate-tile", action="store_true",
+                   help="the same for the decode tile kernel (csrc/wide_decode_tile.cu) at the resume shape")
     p.add_argument("--parent", default=None, help="checkout of another commit to time in turns")
     p.add_argument("--tree", default=None, help="time this checkout's kernels (used by --parent)")
     args = p.parse_args()
@@ -257,8 +305,11 @@ def main() -> int:
         rows = timed_rows(torch, cs, timed_jobs(torch, F))
         print(json.dumps({"card": smi, "rows": rows}))
         return 0
-    if args.ablate:
-        ablate(torch, cs, F)
+    if args.ablate or args.ablate_tile:
+        if args.ablate:
+            ablate(torch, cs, F)
+        if args.ablate_tile:
+            ablate(torch, cs, F, "wide_decode_tile", TILE_ABLATIONS, ("resume",))
         print(smi)
         return 0
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -269,15 +320,19 @@ def main() -> int:
     worst, held = cs.check_wide_decode(torch)
     attn = cs.check_wide_attention(torch)
     cs.check_small_model_decode(torch, cs.WIDE_IDENTITY_DIM)
+    cs.check_small_model_decode(torch, cs.WIDE_IDENTITY_DIM, torch.bfloat16)
     cs.check_small_model_training(torch, cs.WIDE_IDENTITY_DIM)
-    print(f"checks: {time.perf_counter() - t0:.1f} s; worst bf16 decode err {worst:.3e}, "
+    print(f"checks: {time.perf_counter() - t0:.1f} s; worst decode err by arm {json.dumps(worst)}, "
           f"attention {json.dumps(attn)}, identities {json.dumps(held)}")
     if args.time:
+        t0 = time.perf_counter()
         rows = cs.time_wide_kernels(torch, F, peaks, smi)
         for row, fn, inputs, iters, prefix in cs.DEVICE_ROWS:
             row[prefix + "device_ms"], row[prefix + "device_kernels"] = cs.device_ms(torch, fn, inputs, iters)
         cs.DEVICE_ROWS.clear()
-        print("wide times " + json.dumps(rows))
+        print(f"times: {time.perf_counter() - t0:.1f} s")
+        print("wide times " + json.dumps({kernel: {"/".join(map(str, case)): row for case, row in cases.items()}
+                                          for kernel, cases in rows.items()}))
     print(smi)
     print(json.dumps({"ok": True, "card": smi}))
     return 0

@@ -277,15 +277,16 @@ def test_decode_arm_is_the_dispatch_rule():
     """The kernel a call launches on the card: the split-K step at n = 1,
     split-K up to DECODE_ROWS rows, above that the tile arm for bf16 q and
     the fp32 tile arm for fp32 q; above 256 channels the wide kernels, the
-    split-K one up to DECODE_ROWS rows (to 1024 channels), the 4-row one
-    above."""
+    split-K one up to DECODE_ROWS rows (to 1024 channels), above that the
+    tensor-core tile kernel for bf16 q and the 4-row one for fp32 q (and
+    for the step above 1024 channels)."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fd.DECODE_ROWS == 4 and fd.DECODE_TILE == 64
     assert [fd.decode_arm(n, bf, 64) for n in (1, 2, 4, 5, 257, 1280)] == [
         "step", "split", "split", "tile", "tile", "tile"]
     assert [fd.decode_arm(n, f32, 64) for n in (1, 3, 5, 1280)] == ["step", "split", "tile_f32", "tile_f32"]
     assert [fd.decode_arm(5, bf, d) for d in (1, 40, 200, 256, 257, 1024)] == [
-        "tile", "tile", "tile", "tile", "wide", "wide"]
+        "tile", "tile", "tile", "tile", "wide_tile", "wide_tile"]
     assert [fd.decode_arm(5, f32, d) for d in (8, 256, 257)] == ["tile_f32", "tile_f32", "wide"]
     assert [fd.decode_arm(n, dt, 320) for n in (1, 4) for dt in (bf, f32)] == ["wide_split"] * 4
     assert [fd.decode_arm(1, bf, d) for d in (257, 1024, 1025)] == ["wide_split", "wide_split", "wide"]

@@ -194,17 +194,19 @@ def test_split_k_model_above_256_matches_the_pallas_kernels(variant, n, d):
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
 
 
-def test_split_k_takes_the_step_up_to_1024_channels():
+@pytest.mark.parametrize("dtype,multi_row", [(torch.float32, "wide"), (torch.bfloat16, "wide_tile")])
+def test_split_k_takes_the_step_up_to_1024_channels(dtype, multi_row):
     """The split-K kernel takes n <= WIDE_SPLIT_ROWS (= DECODE_ROWS) rows at
-    257..1024 channels in either dtype; n > 4 and wider heads keep the
-    4-row kernel, as `decode_arm` names them; its spans are flash_decode's."""
+    257..1024 channels in either dtype; n > 4 takes the multi-row arm of
+    q's dtype (the tensor-core tile kernel for bf16, the 4-row kernel for
+    fp32) and wider heads at the step keep the 4-row kernel, as
+    `decode_arm` names them; its spans are flash_decode's."""
     assert wh.WIDE_SPLIT_ROWS == fd.DECODE_ROWS == 4 and wh.WIDE_SPLIT_MAX_D == 1024
     assert all(wh.wide_split_takes(n, d) for n in (1, 4) for d in (257, 320, 512, 1024))
     assert not any(wh.wide_split_takes(n, d) for n, d in ((5, 320), (1, 1025)))
-    for dtype in (torch.float32, torch.bfloat16):
-        assert [fd.decode_arm(n, dtype, 512) for n in (1, 2, 4, 5, 1280)] == [
-            "wide_split"] * 3 + ["wide"] * 2
-        assert fd.decode_arm(1, dtype, 2048) == "wide"
+    assert [fd.decode_arm(n, dtype, 512) for n in (1, 2, 4, 5, 1280)] == [
+        "wide_split"] * 3 + [multi_row] * 2
+    assert fd.decode_arm(1, dtype, 2048) == "wide"
 
 
 def test_cpu_decode_above_256_counts_no_wide_launch():
