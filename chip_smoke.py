@@ -694,13 +694,17 @@ def tensor_core_faults(info, found):
 
 def check_wide_build(info):
     """Phase 1 for `csrc/wide_head.cu` (`built_kernels`). Fails if a
-    tensor-core kernel (`*_mma_kernel`) spills or has no HMMA, or a
-    split-K decode kernel (`wide_split_kernel`) spills. Returns {kernel:
-    {...}}."""
+    tensor-core kernel (`*_mma_kernel`) spills or has no HMMA, an fp32
+    backward pass (`*_fma_kernel`) spills, or a split-K decode kernel
+    (`wide_split_kernel`) spills. Returns {kernel: {...}}."""
     out = built_kernels(info)
     mma = {k: v for k, v in out.items() if "_mma_kernel" in k}
     if len(mma) != 6 or tensor_core_faults(info, mma):  # forward 2 column counts, backward 1, each resident and streaming
         fail(f"wide_head's tensor-core kernels: expected 6 instances with HMMA and no spill, got {mma}")
+    fma = {k: v for k, v in out.items() if "_fma_kernel" in k}
+    if len(fma) != 6 or any(v.get("spill_bytes", 0) or (info["ptxas"] and "spill_bytes" not in v)
+                            for v in fma.values()):  # dq and dk/dv passes x 192, 256, 320 columns
+        fail(f"wide_head's fp32 backward passes: expected 6 instances without spills, got {fma}")
     # the split-K decode kernel's instances (template types, one name): each one's spills
     split, raw = [], ""
     for line in info["ptxas"].splitlines():
@@ -758,6 +762,9 @@ def check_head_dim_limit(torch):
 # WIDE_TIMED_DIMS
 WIDE_DECODE_DIMS = (264, 320, 512, 1024)
 WIDE_ATTENTION_DIMS = (264, 300, 320, 512, 1024)
+# fp32 flash attention at D that are no multiple of 4: the fp32 backward's
+# 8-byte (330) and 4-byte (331) copy pieces
+WIDE_ODD_DIMS = (330, 331)
 WIDE_IDENTITY_DIM = 320
 WIDE_TIMED_DIMS = (320, 512)
 
@@ -960,37 +967,40 @@ def check_wide_tile_resume(torch, failures):
 def check_wide_attention(torch):
     """Phase 2 for the wide flash-attention forward and backward (D > 256):
     the causal, all-keys and static-mask (causal axial_row) arms at
-    WIDE_ATTENTION_DIMS, bf16 and fp32, and the bf16 causal arm at TRAIN's
-    shapes (20 query and key tiles) at WIDE_TIMED_DIMS, through
-    `attention_case` (ATTN_TOL, dk and dv bit-identical over two runs). At a
+    WIDE_ATTENTION_DIMS, bf16 and fp32, and in fp32 also at
+    WIDE_ODD_DIMS (no multiple of 4: the fp32 backward's narrow copies); the
+    causal arm at TRAIN's shapes (20 query and key tiles) at
+    WIDE_TIMED_DIMS, bf16 and fp32, through `attention_case` (ATTN_TOL, dk
+    and dv bit-identical over two runs, fp32 dq too). At a
     D the kernels zero-pad (300) the bf16 o and dv against the
     rounding-matched plain version are held per tile to ATTN_TOL's limit
     plus one bf16 rounding flip of that tile's largest P
     (`flip_allowance`): one flipped rounding of a P that few rows see
-    exceeds 1e-3 alone there. Returns {kernel: worst bf16 max_abs_err}."""
+    exceeds 1e-3 alone there. Returns {"bf16" | "fp32": {kernel: worst
+    max_abs_err}}."""
     import numpy as np
 
     from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
 
     n = 160  # 97 text + 8 x 8 image positions
     axial = np.tril(np.ones((n, n), bool)) & build_static_mask("axial_row", n, 8, 1)[:n, :n]
-    cases = [(d, dtype, label, b, h, n_q, n_k, mask)
-             for d in WIDE_ATTENTION_DIMS for dtype in (torch.bfloat16, torch.float32)
-             for label, b, h, n_q, n_k, mask in (
-                 ("wide causal", 2, 2, 100, 100, None),
-                 ("wide all keys", 2, 2, 100, 150, None),
-                 ("wide axial_row", 1, 2, n, n, axial),
-             )]
-    cases += [(d, torch.bfloat16, "wide causal, training shapes", TRAIN["batch"], TRAIN["heads"],
-               TRAIN["n"], TRAIN["n"], None) for d in WIDE_TIMED_DIMS]
+    arms = (("wide causal", 2, 2, 100, 100, None), ("wide all keys", 2, 2, 100, 150, None),
+            ("wide axial_row", 1, 2, n, n, axial))
+    cases = [(d, dtype, *arm) for d in WIDE_ATTENTION_DIMS for dtype in (torch.bfloat16, torch.float32)
+             for arm in arms]
+    cases += [(d, torch.float32, *arm) for d in WIDE_ODD_DIMS for arm in arms]
+    cases += [(d, dtype, "wide causal, training shapes", TRAIN["batch"], TRAIN["heads"], TRAIN["n"],
+               TRAIN["n"], None) for d in WIDE_TIMED_DIMS for dtype in (torch.bfloat16, torch.float32)]
     worst = {}
     for d, dtype, label, b, h, n_q, n_k, mask in cases:
+        t0 = time.perf_counter()
         errs = attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=mask,
                               causal=label != "wide all keys")
-        if dtype == torch.bfloat16:
-            for kernel, err in errs.items():
-                key = "wide_" + kernel
-                worst[key] = max(worst.get(key, 0.0), err)
+        if dtype == torch.float32 and (d in WIDE_ODD_DIMS or n_q == TRAIN["n"]):
+            print(f"  (that fp32 case took {time.perf_counter() - t0:.1f} s)")
+        worst_of = worst.setdefault("bf16" if dtype == torch.bfloat16 else "fp32", {})
+        for kernel, err in errs.items():
+            worst_of["wide_" + kernel] = max(worst_of.get("wide_" + kernel, 0.0), err)
     return worst
 
 
@@ -1031,7 +1041,7 @@ def wide_fields(rows, main_case):
         if case != main_case:
             out.update({"d%d_%s_%s_%s" % (*case, k): v for k, v in row.items()
                         if k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-                                 "bound_ms", "bound_by", "cuda_kernel")})
+                                 "bound_ms", "bound_by", "cuda_kernel", "library_cuda_kernel")})
     return out
 
 
@@ -1737,9 +1747,10 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     plain version (o and dv against the latter, at a D the wide kernels
     zero-pad, per tile to ATTN_TOL's limit plus one rounding flip of that
     tile, `flip_allowance`). The backward takes the kernel forward's lse and delta,
-    and runs twice: dk and dv must be bit-identical (no atomics), dq's
-    run-to-run difference (the order of its atomic adds) is printed.
-    Returns {kernel: max_abs_err against the exact version}."""
+    and runs twice: dk and dv must be bit-identical (no atomics), and dq in
+    float32 (each output written once); bf16 dq's run-to-run difference (the
+    order of its atomic adds) is printed. Returns {kernel: max_abs_err
+    against the exact version}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1755,6 +1766,8 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     dq_rerun = (grads[0].float() - again[0].float()).abs().max().item()
     if not (torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])):
         fail(f"flash_attention_bwd {label} {dtype}: dk or dv differ between two runs")
+    if dtype == torch.float32 and not torch.equal(grads[0], again[0]):
+        fail(f"flash_attention_bwd {label} {dtype}: dq differs between two runs")
 
     def plain(p_dtype):
         return {
@@ -1803,7 +1816,8 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     print(
         f"check flash_attention {label} {str(dtype)[6:]} B={b} H={h} nq={n_q} nk={n_k} D={d}: "
         + ", ".join(f"{k[16:]} {e:.3e}" for k, e in errs.items())
-        + f" max_abs_err; dk, dv bit-identical over two runs, dq run-to-run {dq_rerun:.3e}"
+        + f" max_abs_err; dk, dv{', dq' if dtype == torch.float32 else ''} bit-identical over two "
+        f"runs, dq run-to-run {dq_rerun:.3e}"
         + "; element, tile ratios: " + "; ".join(report)
     )
     if failures:
@@ -1962,6 +1976,9 @@ def check_small_model_decode(torch, dim_head, dtype=None):
 # output): the loss within 1e-2 relative and each gradient within 5e-2 of
 # the dense path's norm, ~6 roundings of bf16's 2^-8 over a depth-2 model
 BF16_MODEL_TOL = dict(loss=1e-2, grad=5e-2)
+# backward calls of one fp32 training check: one per attention layer (2)
+# per model call of the forward_reverse_partial objective (2)
+FP32_TRAINING_BWD = 4
 
 
 def check_small_model_training(torch, dim_head, autocast_dtype=None):
@@ -3193,8 +3210,8 @@ def main() -> int:
     wide_times = time_wide_kernels(torch, F, peaks, smi)
     print(f"phase 3 wide head-dim times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    wide_tile_variants = time_tile_variants(torch, F, peaks, smi, d=WIDE_IDENTITY_DIM)
-    print(f"phase 3 wide tile kernel's kernels 3-5 at D={WIDE_IDENTITY_DIM}: {time.perf_counter() - t0:.1f} s")
+    wide_tile_variants = {d: time_tile_variants(torch, F, peaks, smi, d=d) for d in WIDE_TIMED_DIMS}
+    print(f"phase 3 wide tile kernel's kernels 3-5 at D={WIDE_TIMED_DIMS}: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
     # the fp32 model's prefill and resume (n > 4) run the fp32 tile arm
@@ -3234,7 +3251,15 @@ def main() -> int:
     if fp32_counts != (4, 128, 0) or bf16_counts != (0, 128, 4):
         fail(f"the dim_head {WIDE_IDENTITY_DIM} model's decode launches: fp32 {fp32_counts}, bf16 "
              f"{bf16_counts}, expected (4, 128, 0) and (0, 128, 4)")
+    bwd = wh.wide_attention_bwd
+    before = bwd.launches - bwd.mma_launches
     check_small_model_training(torch, WIDE_IDENTITY_DIM)
+    fp32_bwd = bwd.launches - bwd.mma_launches - before
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: fp32 backward calls of the fp32 training run "
+          f"{fp32_bwd} (each the two passes {list(wh.wide_attention_kernels(WIDE_IDENTITY_DIM, torch.float32)['bwd'])})")
+    if fp32_bwd != FP32_TRAINING_BWD:
+        fail(f"the dim_head {WIDE_IDENTITY_DIM} fp32 training run called the fp32 backward {fp32_bwd} "
+             f"times, expected {FP32_TRAINING_BWD}")
     check_small_model_training(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
     wide_launches = {c.__name__: c.launches for c in wide_counters[1:]}
     wide_launches.update({f"{c.__name__}_mma": c.mma_launches for c in wide_counters[1:]})
@@ -3333,13 +3358,21 @@ def main() -> int:
                     row[f"d256_{key}_{field}"] = rows[name][field]
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
             row[f"fp32_{field}"] = attn_fp32[name][field]
-    # the wide rows' traces name the kernels the routing rule names
+    # the wide rows' traces name the kernels the routing rule names; the
+    # fp32 backward rows also name the kernels SDPA's backward ran
     for d in WIDE_TIMED_DIMS:
-        named = fa.attention_kernels(d, torch.bfloat16)
-        for pass_, want in (("fwd", [named["fwd"]]), ("bwd", list(named["bwd"]))):
-            seen = wide_times[f"wide_attention_{pass_}"][(d, "bf16", "train")].get("device_kernels", {})
-            if any(k not in seen for k in want):
-                fail(f"wide attention {pass_} at D = {d}: the trace shows {list(seen)}, the routing {want}")
+        for key in ("bf16", "fp32"):
+            named = fa.attention_kernels(d, wide_dtype(torch, key))
+            for pass_, want in (("fwd", [named["fwd"]]), ("bwd", list(named["bwd"]))):
+                row = wide_times[f"wide_attention_{pass_}"][(d, key, "train")]
+                seen = row.get("device_kernels", {})
+                if any(k not in seen for k in want):
+                    fail(f"wide attention {pass_} {key} at D = {d}: the trace shows {list(seen)}, the "
+                         f"routing {want}")
+                if pass_ == "bwd":
+                    row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
+            print(f"phase 3 at D = {d} {key}: SDPA's backward ran "
+                  f"{wide_times['wide_attention_bwd'][(d, key, 'train')]['library_cuda_kernel']}")
         seen = wide_times["wide_tile"][(d, "bf16", "resume")].get("device_kernels", {})
         if not any(k.startswith("wide_decode_tile_kernel<") for k in seen):
             fail(f"the bf16 resume at D = {d}: the trace shows {list(seen)}, not the tile kernel")
@@ -3510,13 +3543,15 @@ def main() -> int:
                 ("wide_tile", "wide_tile", "wide_decode_tile", (WIDE_TIMED_DIMS[0], "bf16", "resume"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                  wide_decode_errs["wide_tile"],
-                 {f"tile_resume_{kernel}_{k}": v for kernel, row in wide_tile_variants.items()
+                 {f"tile_resume_{'' if d == WIDE_TIMED_DIMS[0] else f'd{d}_'}{kernel}_{k}": v
+                  for d, rows in wide_tile_variants.items() for kernel, row in rows.items()
                   for k, v in row.items() if k != "device_kernels"},
                  f"kernels 1-5 at D > 256 and n > 4, bf16 q (tensor cores, P as a bf16 pair); resume "
                  f"n=1280 S=1281 B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280 (d<D>_bf16_<shape>_*: "
                  f"D={WIDE_TIMED_DIMS[1]} and the prefill n=257 lengths 257); library_ms is SDPA's "
                  f"causal forward over the live keys; tile_resume_<kernel>_*: kernels 3-5 at the resume "
-                 f"shape at D={WIDE_IDENTITY_DIM}; launches: phase 4's bf16 dim_head "
+                 f"shape at D={WIDE_TIMED_DIMS[0]} (tile_resume_d{WIDE_TIMED_DIMS[1]}_<kernel>_*: at "
+                 f"D={WIDE_TIMED_DIMS[1]}); launches: phase 4's bf16 dim_head "
                  f"{WIDE_IDENTITY_DIM} model (prefill and resume); max_abs_err: worst of phase 2's "
                  "wide decode checks on this kernel"),
                 ("wide_decode", "wide", "wide_head", (WIDE_TIMED_DIMS[0], "fp32", "resume"),
@@ -3529,7 +3564,8 @@ def main() -> int:
                  f"phase 4's fp32 dim_head {WIDE_IDENTITY_DIM} model (prefill and resume)"),
                 ("wide_attention_fwd", "wide_attention_fwd", "wide_head",
                  (WIDE_TIMED_DIMS[0], "bf16", "train"), "dalle_pytorch_tpu/ops/pallas_attention.py:129",
-                 wide_attn_errs["wide_flash_attention_fwd"], {},
+                 wide_attn_errs["bf16"]["wide_flash_attention_fwd"],
+                 {"fp32_max_abs_err": wide_attn_errs["fp32"]["wide_flash_attention_fwd"]},
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]} on tensor cores (`cuda_kernel`, "
                  f"`groups` column groups; d<D>_<dtype>_train_*: the other D and fp32 on CUDA cores, "
                  f"fp32 bound at the fp32 peak); launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
@@ -3537,11 +3573,20 @@ def main() -> int:
                 ("wide_attention_bwd", "wide_attention_bwd", "wide_head",
                  (WIDE_TIMED_DIMS[0], "bf16", "train"),
                  "dalle_pytorch_tpu/ops/pallas_attention.py:274, dalle_pytorch_tpu/ops/pallas_attention.py:333",
-                 wide_attn_errs["wide_flash_attention_bwd"], {},
+                 wide_attn_errs["bf16"]["wide_flash_attention_bwd"],
+                 {"fp32_max_abs_err": wide_attn_errs["fp32"]["wide_flash_attention_bwd"],
+                  "fp32_launches": fp32_bwd},
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]}, one fused tensor-core kernel for "
-                 "dq, dk and dv (with the workspace memset and dq conversion); fp32 two CUDA-core "
-                 "kernels; library_ms is SDPA's whole backward; launches: phase 4's dim_head "
-                 f"{WIDE_IDENTITY_DIM} model (training)"),
+                 "dq, dk and dv (with the workspace memset and dq conversion); fp32 (d<D>_fp32_train_*, "
+                 "D=" + " and ".join(map(str, WIDE_TIMED_DIMS)) + ", bound at the fp32 peak) two "
+                 "register-tiled CUDA-core passes, wide_dq_fma_kernel then wide_dkv_fma_kernel, S and "
+                 "dP formed once per column group (`cuda_kernel`; its device ms "
+                 + ", ".join(f"D={d} {wide_times['wide_attention_bwd'][(d, 'fp32', 'train')]['device_ms']:.3f}"
+                             f" against SDPA's {wide_times['wide_attention_bwd'][(d, 'fp32', 'train')]['library_device_ms']:.3f}"
+                             for d in WIDE_TIMED_DIMS)
+                 + "; SDPA's fp32 kernels in d<D>_fp32_train_library_cuda_kernel); library_ms is SDPA's "
+                 f"whole backward; launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (training; "
+                 f"fp32_launches: the fp32 run's calls, two kernels each)"),
             )
         ]
     }

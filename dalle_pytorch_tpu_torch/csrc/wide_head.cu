@@ -44,15 +44,16 @@
 // step (n <= 4) above D = 1024.
 //
 // Design of the rest: column groups. A block owns at most kDecCols
-// (decode) or kCols (fp32 attention) or `cols` (bf16 attention, 128-256:
-// the wrapper's plan) output columns. It
+// (decode) or kCols (the fp32 forward) or `cols` (bf16 attention, 128-256,
+// and the fp32 backward, 192-320: the wrapper's plan) output columns. It
 // forms the full scores (and, backward, the full dO . V^T) by looping over
 // all of D -- lanes over channels in decode, chunks of staged channels in
 // attention -- and accumulates only its own columns of o, dq, dk or dv.
 // Registers and shared memory are then bounded for every D, at the cost of
 // recomputing the scores once per column group (ceil(D / 256) groups in
-// decode, ceil(D / 64) in fp32 attention, ceil(D / 256) in the bf16
-// forward and ceil(D / 128) in the bf16 backward).
+// decode, ceil(D / 64) in the fp32 forward, ceil(D / 256) in the bf16
+// forward, ceil(D / 128) in the bf16 backward and ceil(D / 320) in the
+// fp32 backward).
 //
 // bfloat16 attention runs on tensor cores (the second half of this file):
 // mma.sync with fp32 accumulators, 64-row tiles, operands staged as 64 x 64
@@ -70,9 +71,12 @@
 //   * fp32 attention forward: a block per (32-row query tile, head, batch
 //     row, 64-column group) loops over 64-key tiles (the mask layout's and
 //     the plain versions' tile) with an online softmax in base 2;
-//   * fp32 attention backward: two passes, dq by query tile and dk/dv by
-//     key tile, each recomputing p = exp(s - lse) and dS = p (dP - delta)
-//     scale. No atomics: every output is bit-identical run to run.
+//   * fp32 attention backward (`wide_dq_fma_kernel`, `wide_dkv_fma_kernel`):
+//     two passes, dq by 64-row query tile and dk/dv by 32-key tile, each
+//     forming S and dP once per column group of up to 320 columns with
+//     register micro-tiles read as float4 from a cp.async ring, then p =
+//     exp(s scale - lse) and dS = p (dP - delta) scale (see the section).
+//     No atomics: every output is bit-identical run to run.
 // What bounds it: the same work as the D <= 256 kernels (bytes in decode,
 // operations in attention), here times the column groups' recomputation in
 // all but the split-K step; decode and fp32 attention run on CUDA cores.
@@ -707,8 +711,9 @@ cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
 
 // --------------------------------------------------------------- attention
 
-constexpr int kBM = 32;     // query rows (forward, dq) or keys (dk/dv) a block owns
-constexpr int kBN = 64;     // the tile looped over: keys (forward, dq) or query rows (dk/dv)
+// the fp32 forward's tiles (the fp32 backward's are kFma*, below)
+constexpr int kBM = 32;     // query rows a block owns
+constexpr int kBN = 64;     // keys a tile looped over
 constexpr int kChunk = 32;  // channels staged at a time for the scores
 constexpr int kCols = 64;   // output columns a block owns
 constexpr int kPer = kThreads / kBM;  // threads a row of the owned tile (8)
@@ -722,9 +727,10 @@ struct AttnArgs {
   void *o, *lse_out, *dq, *dk, *dv;
   float* dq_acc;  // bf16 backward: the fp32 dq workspace [B,H,nq,D]
   int B, H, nq, nk, D, mode;
-  int cols;      // bf16: output columns a block owns (an instance of the tensor-core kernels)
+  int cols;      // output columns a block owns (bf16 and the fp32 backward: an instance)
   bool resident;  // bf16: the block keeps its most re-read operand in shared memory
-  int smem;       // bf16: dynamic shared bytes a block takes (the wrapper's plan)
+  int smem;       // dynamic shared bytes a block takes (the wrapper's plan)
+  int unit;       // fp32 backward: bytes of a copy piece (set by attention_bwd_fp32)
   float scale;
   cudaStream_t stream;
 };
@@ -759,34 +765,22 @@ __device__ __forceinline__ void stage_cols(float* dst, const T* x, int r0, int r
 
 // the block's tile of x . y^T over all of D: a [kBM] x [kBN] product, this
 // thread's row `me` against columns (t % kPer) + kPer u; x rows [x0, x0 +
-// kBM) of nx, y rows [y0, y0 + kBN) of ny. Two products at once when x2/y2
-// are given (the backward's S and dP).
-template <typename T, bool TWO>
-__device__ __forceinline__ void tile_dots(float (&s)[kBN / kPer], float (&s2)[kBN / kPer],
-                                          float* xs, float* ys, float* xs2, float* ys2,
-                                          const T* x, const T* y, const T* x2, const T* y2,
-                                          int x0, int nx, int y0, int ny, int D) {
+// kBM) of nx, y rows [y0, y0 + kBN) of ny
+template <typename T>
+__device__ __forceinline__ void tile_dots(float (&s)[kBN / kPer], float* xs, float* ys, const T* x,
+                                          const T* y, int x0, int nx, int y0, int ny, int D) {
   const int me = threadIdx.x / kPer, sub = threadIdx.x % kPer;
 #pragma unroll
-  for (int u = 0; u < kBN / kPer; ++u) s[u] = s2[u] = 0.f;
+  for (int u = 0; u < kBN / kPer; ++u) s[u] = 0.f;
   for (int c0 = 0; c0 < D; c0 += kChunk) {
     __syncthreads();
     stage_chunk<T, kBM>(xs, x, x0, nx, c0, D);
     stage_chunk<T, kBN>(ys, y, y0, ny, c0, D);
-    if (TWO) {
-      stage_chunk<T, kBM>(xs2, x2, x0, nx, c0, D);
-      stage_chunk<T, kBN>(ys2, y2, y0, ny, c0, D);
-    }
     __syncthreads();
     for (int c = 0; c < kChunk; ++c) {
       const float xv = xs[me * kPad + c];
-      const float xv2 = TWO ? xs2[me * kPad + c] : 0.f;
 #pragma unroll
-      for (int u = 0; u < kBN / kPer; ++u) {
-        const int j = sub + kPer * u;
-        s[u] = fmaf(xv, ys[j * kPad + c], s[u]);
-        if (TWO) s2[u] = fmaf(xv2, ys2[j * kPad + c], s2[u]);
-      }
+      for (int u = 0; u < kBN / kPer; ++u) s[u] = fmaf(xv, ys[(sub + kPer * u) * kPad + c], s[u]);
     }
   }
 }
@@ -822,13 +816,12 @@ __global__ void __launch_bounds__(kThreads) wide_fwd_kernel(AttnArgs a) {
   const int n_kt = (a.nk + kBN - 1) / kBN;
   int kt_end = n_kt;
   if (a.mode == kModeCausal) kt_end = min(n_kt, (min(row0 + kBM, a.nq) - 1) / kBN + 1);
-  float m = -INFINITY, l = 0.f, acc[W], s[U], unused[U];
+  float m = -INFINITY, l = 0.f, acc[W], s[U];
 #pragma unroll
   for (int w = 0; w < W; ++w) acc[w] = 0.f;
   for (int kt = 0; kt < kt_end; ++kt) {
     if (a.mode == kModeMask && a.layout[(row0 / 64) * n_kt + kt] == 0) continue;  // block-uniform
-    tile_dots<T, false>(s, unused, qs, ks, nullptr, nullptr, q, k, nullptr, nullptr, row0, a.nq,
-                        kt * kBN, a.nk, a.D);
+    tile_dots<T>(s, qs, ks, q, k, row0, a.nq, kt * kBN, a.nk, a.D);
     float x[U], tmax = -INFINITY;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -868,127 +861,7 @@ __global__ void __launch_bounds__(kThreads) wide_fwd_kernel(AttnArgs a) {
     static_cast<float*>(a.lse_out)[(size_t)bh * a.nq + i] = (m + log2f(l)) * kLn2;
 }
 
-// dq: grid (ceil(nq / kBM), B * H, ceil(D / kCols)); a block per query tile
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_dq_kernel(AttnArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // [kBM][kPad]
-  float* ks = qs + kBM * kPad;        // [kBN][kPad]
-  float* dos = ks + kBN * kPad;       // [kBM][kPad]
-  float* vs = dos + kBM * kPad;       // [kBN][kPad]
-  float* dss = vs + kBN * kPad;       // [kBM][kBN + 1]
-  float* kg = dss + kBM * (kBN + 1);  // [kBN][kCols]
-  constexpr int U = kBN / kPer, W = kCols / kPer;
-  const int row0 = blockIdx.x * kBM, bh = blockIdx.y, g0 = blockIdx.z * kCols;
-  const int me = threadIdx.x / kPer, sub = threadIdx.x % kPer, i = row0 + me;
-  const size_t base_q = (size_t)bh * a.nq * a.D, base_k = (size_t)bh * a.nk * a.D;
-  const T* q = static_cast<const T*>(a.q) + base_q;
-  const T* dout = static_cast<const T*>(a.dout) + base_q;
-  const T* k = static_cast<const T*>(a.k) + base_k;
-  const T* v = static_cast<const T*>(a.v) + base_k;
-  const float lse = i < a.nq ? static_cast<const float*>(a.lse)[(size_t)bh * a.nq + i] : 0.f;
-  const float delta = i < a.nq ? static_cast<const float*>(a.delta)[(size_t)bh * a.nq + i] : 0.f;
-  const int n_kt = (a.nk + kBN - 1) / kBN;
-  int kt_end = n_kt;
-  if (a.mode == kModeCausal) kt_end = min(n_kt, (min(row0 + kBM, a.nq) - 1) / kBN + 1);
-  float acc[W], s[U], dp[U];
-#pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = 0.f;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (a.mode == kModeMask && a.layout[(row0 / 64) * n_kt + kt] == 0) continue;
-    tile_dots<T, true>(s, dp, qs, ks, dos, vs, q, k, dout, v, row0, a.nq, kt * kBN, a.nk, a.D);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = kt * kBN + sub + kPer * u;
-      const float p = visible(a, i, j) ? expf(s[u] * a.scale - lse) : 0.f;
-      dss[me * (kBN + 1) + sub + kPer * u] = p * (dp[u] - delta) * a.scale;
-    }
-    stage_cols<T, kBN>(kg, k, kt * kBN, a.nk, g0, a.D);
-    __syncthreads();
-    for (int j = 0; j < kBN; ++j) {
-      const float ds = dss[me * (kBN + 1) + j];
-#pragma unroll
-      for (int w = 0; w < W; ++w) acc[w] = fmaf(ds, kg[j * kCols + sub + kPer * w], acc[w]);
-    }
-  }
-  if (i >= a.nq) return;
-  T* dq = static_cast<T*>(a.dq) + base_q + (size_t)i * a.D;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const int c = g0 + sub + kPer * w;
-    if (c < a.D) store(dq + c, acc[w]);
-  }
-}
-
-// dk, dv: grid (ceil(nk / kBM), B * H, ceil(D / kCols)); a block per key
-// tile loops over the query tiles that may see it
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_dkv_kernel(AttnArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                    // [kBM][kPad] (this block's keys)
-  float* qs = ks + kBM * kPad;         // [kBN][kPad]
-  float* vs = qs + kBN * kPad;         // [kBM][kPad]
-  float* dos = vs + kBM * kPad;        // [kBN][kPad]
-  float* pss = dos + kBN * kPad;       // [kBM][kBN + 1]
-  float* dss = pss + kBM * (kBN + 1);  // [kBM][kBN + 1]
-  float* qg = dss + kBM * (kBN + 1);   // [kBN][kCols]
-  float* dog = qg + kBN * kCols;       // [kBN][kCols]
-  constexpr int U = kBN / kPer, W = kCols / kPer;
-  const int key0 = blockIdx.x * kBM, bh = blockIdx.y, g0 = blockIdx.z * kCols;
-  const int me = threadIdx.x / kPer, sub = threadIdx.x % kPer, j = key0 + me;
-  const size_t base_q = (size_t)bh * a.nq * a.D, base_k = (size_t)bh * a.nk * a.D;
-  const T* q = static_cast<const T*>(a.q) + base_q;
-  const T* dout = static_cast<const T*>(a.dout) + base_q;
-  const T* k = static_cast<const T*>(a.k) + base_k;
-  const T* v = static_cast<const T*>(a.v) + base_k;
-  const float* lse = static_cast<const float*>(a.lse) + (size_t)bh * a.nq;
-  const float* delta = static_cast<const float*>(a.delta) + (size_t)bh * a.nq;
-  const int n_qt = (a.nq + kBN - 1) / kBN, n_kt64 = (a.nk + 63) / 64;
-  const int qt_begin = a.mode == kModeCausal ? key0 / kBN : 0;
-  float dk[W], dv[W], s[U], dp[U];
-#pragma unroll
-  for (int w = 0; w < W; ++w) dk[w] = dv[w] = 0.f;
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
-    if (a.mode == kModeMask && a.layout[qt * n_kt64 + key0 / 64] == 0) continue;
-    tile_dots<T, true>(s, dp, ks, qs, vs, dos, k, q, v, dout, key0, a.nk, qt * kBN, a.nq, a.D);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = qt * kBN + sub + kPer * u;
-      const bool vis = visible(a, i, j);
-      const float p = vis ? expf(s[u] * a.scale - lse[i]) : 0.f;
-      const float ds = vis ? p * (dp[u] - delta[i]) * a.scale : 0.f;
-      pss[me * (kBN + 1) + sub + kPer * u] = p;
-      dss[me * (kBN + 1) + sub + kPer * u] = ds;
-    }
-    stage_cols<T, kBN>(qg, q, qt * kBN, a.nq, g0, a.D);
-    stage_cols<T, kBN>(dog, dout, qt * kBN, a.nq, g0, a.D);
-    __syncthreads();
-    for (int i = 0; i < kBN; ++i) {
-      const float p = pss[me * (kBN + 1) + i], ds = dss[me * (kBN + 1) + i];
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        dv[w] = fmaf(p, dog[i * kCols + sub + kPer * w], dv[w]);
-        dk[w] = fmaf(ds, qg[i * kCols + sub + kPer * w], dk[w]);
-      }
-    }
-  }
-  if (j >= a.nk) return;
-  T* dk_out = static_cast<T*>(a.dk) + base_k + (size_t)j * a.D;
-  T* dv_out = static_cast<T*>(a.dv) + base_k + (size_t)j * a.D;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const int c = g0 + sub + kPer * w;
-    if (c < a.D) {
-      store(dk_out + c, dk[w]);
-      store(dv_out + c, dv[w]);
-    }
-  }
-}
-
 constexpr int kFwdSmem = 4 * (kBM * kPad + kBN * kPad + kBM * (kBN + 1) + kBN * kCols);
-constexpr int kDqSmem = 4 * (2 * kBM * kPad + 2 * kBN * kPad + kBM * (kBN + 1) + kBN * kCols);
-constexpr int kDkvSmem =
-    4 * (2 * kBM * kPad + 2 * kBN * kPad + 2 * kBM * (kBN + 1) + 2 * kBN * kCols);
 
 template <typename K>
 cudaError_t launch_attn(K kernel, int smem, dim3 grid, const AttnArgs& a) {
@@ -998,21 +871,517 @@ cudaError_t launch_attn(K kernel, int smem, dim3 grid, const AttnArgs& a) {
   return cudaGetLastError();
 }
 
-
-// float32: the CUDA-core kernels above (the bf16 inputs take the
-// tensor-core kernels below; these have only float instances)
+// float32 forward: the CUDA-core kernel above (the bf16 inputs take the
+// tensor-core kernels below; it has only a float instance)
 cudaError_t attention_fwd_fp32(const AttnArgs& a) {
   const dim3 grid((a.nq + kBM - 1) / kBM, a.B * a.H, (a.D + kCols - 1) / kCols);
   return launch_attn(wide_fwd_kernel<float>, kFwdSmem, grid, a);
 }
 
-cudaError_t attention_bwd_fp32(const AttnArgs& a) {
-  const int groups = (a.D + kCols - 1) / kCols;
-  cudaError_t err = launch_attn(wide_dq_kernel<float>, kDqSmem,
-                                dim3((a.nq + kBM - 1) / kBM, a.B * a.H, groups), a);
+// ------------------------------------------- float32 backward, CUDA cores
+//
+// Two passes, as the TPU kernels `_dq_kernel` and `_dkv_kernel`, each
+// forming S = Q K^T and dP = dO V^T over all of D once per column group
+// (one group up to D = 320, two at D = 512: `ops/wide_head.py:
+// wide_fp32_bwd_plan`), with fp32 products on CUDA cores:
+//   * `wide_dq_fma_kernel<COLS>`: a block per (64 query rows, head and
+//     batch row, group of COLS output columns) loops over the live 64-key
+//     tiles (a causal block stops at the diagonal, a masked layout's dead
+//     tiles are skipped block-uniformly). Per key tile: warps 0-3 form S
+//     and warps 4-7 dP, a 4 x 8 micro-tile a thread; p = exp(s scale -
+//     lse) and dS = p (dP - delta) scale into shared memory; then every
+//     thread adds dS K into dQ for the group's columns, 4 rows x COLS / 16
+//     columns a thread in registers (80 at COLS 320);
+//   * `wide_dkv_fma_kernel<COLS>`: a block per (32 keys, head and batch
+//     row, group) loops over the query tiles that may see its keys. Per
+//     query tile: warps 0-3 form S^T and warps 4-7 dP^T (4 keys x 4
+//     queries a thread); P and dS into shared memory; then warps 0-3 add
+//     P^T dO into dV and warps 4-7 dS^T Q into dK for the group's columns,
+//     4 keys x COLS / 16 columns a thread.
+// What holds these loops is shared memory, not the FMA units: a warp's
+// float4 load takes four of its cycles even where lanes share addresses,
+// so a micro-tile of R x C reading float4 along the sum does 4 R C / (R +
+// C) FMAs a load. Splitting S from dP (and dV from dK) over the warps
+// gives each thread one product's tile at the registers two took: 8 FMAs
+// a load for S^T and dP^T (2 x 4 of both products gave 5.3) and 10.7 for
+// S and dP (8); a column item's float4 of P or dS serves 16 columns of dQ
+// (12.8 FMAs a load) or 8 of dK and dV (10.7).
+// Every operand streams through a ring of kFmaStages slots by cp.async, a
+// slot eight sub-tiles of 64 rows x 32 channels (rows padded to 36
+// floats): an S/dP item brings 64 channels of each of the four operands,
+// a column item up to 256 of the group's channels of K (dq) or 128 of Q
+// and of dO (dk/dv). The next item is in flight while one computes, one
+// __syncthreads an item. A piece past D or past the rows is zero-filled
+// by the copy itself (16-byte pieces where D and the pointers allow, else
+// 8 or 4), so ragged edges need no branch in the products and any D runs
+// in the same launch. Reads are conflict-free: a warp spans 4 rows of one
+// operand (stride 36 or 72 floats) and 8 of the other.
+// No atomics: dq, dk and dv are each written once, by one thread, and
+// come out bit-identical run to run.
+// What bounds them: operations, 10 D flops a visible pair at the card's
+// fp32 rate (2.5 ms at D = 320 for the training shapes); they do 14 D
+// (one group) and 4 D more for each further group, and re-read Q, dO, K
+// and V from L2 for every 64 x 64 tile pair (about 400 KB at D = 320).
+// Summation order is the only difference from the plain version
+// (flash_attention_bwd_plain).
+
+constexpr int kFmaChunk = 32;                // channels of a staged sub-tile
+constexpr int kFmaLd = kFmaChunk + 4;        // its row stride in floats
+constexpr int kFmaSub = 64 * kFmaLd;         // floats of a sub-tile (64 rows)
+constexpr int kFmaSlot = 8 * kFmaSub;        // floats of a ring slot: eight sub-tiles
+constexpr int kFmaStages = 2;
+constexpr int kFmaLdp = 64 + 8;              // row stride of the P and dS tiles
+constexpr int kFmaKeys = 32;                 // keys of a dk/dv block
+// dynamic shared bytes of either pass (ops/wide_head.py FMA_SMEM): the ring,
+// then dS and P [64 rows each] (dq) or P and dS [32 keys each] (dk/dv)
+constexpr int kFmaSmem = 4 * (kFmaStages * kFmaSlot + 2 * 64 * kFmaLdp);
+
+__device__ __forceinline__ void cp_async_piece(float* dst, const float* src, bool ok, int unit) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (unit == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
+  } else if (unit == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 8 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+  }
+}
+__device__ __forceinline__ void fma_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void fma_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// rows [r0, r0 + R) x channels [c0, c0 + kFmaChunk) of x [rows, D] into a
+// sub-tile slot, in pieces of `unit` bytes, zeros past `rows` and D
+template <int R>
+__device__ __forceinline__ void fetch_sub(float* dst, const float* x, int r0, int rows, int c0, int D,
+                                          int unit) {
+  if (unit == 16) {  // block-uniform: 8 pieces a row, R * 8 / kThreads a thread
+#pragma unroll
+    for (int k = 0; k < R * 8 / kThreads; ++k) {
+      const int e = threadIdx.x + k * kThreads, r = e >> 3, c = (e & 7) << 2;
+      const bool ok = r0 + r < rows && c0 + c < D;
+      cp_async_piece(dst + r * kFmaLd + c, ok ? x + (size_t)(r0 + r) * D + c0 + c : x, ok, 16);
+    }
+    return;
+  }
+  const int fl = unit / 4, per_row = kFmaChunk / fl;
+  for (int e = threadIdx.x; e < R * per_row; e += kThreads) {
+    const int r = e / per_row, c = (e - r * per_row) * fl;
+    const bool ok = r0 + r < rows && c0 + c < D;
+    cp_async_piece(dst + r * kFmaLd + c, ok ? x + (size_t)(r0 + r) * D + c0 + c : x, ok, unit);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float x) {
+  x = fmaf(a.x, b.x, x);
+  x = fmaf(a.y, b.y, x);
+  x = fmaf(a.z, b.z, x);
+  return fmaf(a.w, b.w, x);
+}
+__device__ __forceinline__ float comp4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+// acc[0..3] += w * x
+__device__ __forceinline__ void axpy4(float* acc, float w, const float4& x) {
+  acc[0] = fmaf(w, x.x, acc[0]);
+  acc[1] = fmaf(w, x.y, acc[1]);
+  acc[2] = fmaf(w, x.z, acc[2]);
+  acc[3] = fmaf(w, x.w, acc[3]);
+}
+
+// The ring: items 0, 1, ... of a block, each filling one slot, `fetch(item,
+// slot)` issuing its copies and `compute(item, slot)` consuming it; an item
+// is an (outer tile, step) pair that `next` advances, `done` ends.
+template <typename Item, typename Next, typename Done, typename Fetch, typename Compute>
+__device__ __forceinline__ void run_ring(float* ring, Item first, Next next, Done done, Fetch fetch,
+                                         Compute compute) {
+  Item f = first, c = first;
+#pragma unroll 1
+  for (int st = 0; st < kFmaStages - 1; ++st) {
+    if (!done(f)) {
+      fetch(f, ring + st * kFmaSlot);
+      f = next(f);
+    }
+    fma_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; !done(c); ++it) {
+    fma_wait<kFmaStages - 2>();  // this thread's copies of item `it` landed
+    __syncthreads();             // everyone's; and item it - 1's slot is consumed
+    if (!done(f)) {
+      fetch(f, ring + ((it + kFmaStages - 1) % kFmaStages) * kFmaSlot);
+      f = next(f);
+    }
+    fma_commit();
+    compute(c, ring + (it % kFmaStages) * kFmaSlot);
+    c = next(c);
+  }
+  fma_wait<0>();
+}
+
+struct FmaItem {
+  int tile, step;  // a key tile (dq) or query tile (dk/dv), and the item within it
+};
+
+// dq: grid (ceil(nq / 64), B * H, groups), the query tiles with the most
+// keys first
+template <int COLS>
+__global__ void __launch_bounds__(kThreads, 1) wide_dq_fma_kernel(AttnArgs a) {
+  constexpr int NG = COLS / 64, NU = (COLS + 255) / 256;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* ds_s = smem + kFmaStages * kFmaSlot;  // [64 rows][kFmaLdp]
+  float* p_s = ds_s + 64 * kFmaLdp;            // [64 rows][kFmaLdp]
+  // S/dP: warps 0-3 form S, 4-7 dP, a thread rows ty + 16 i x keys sx + 8 j;
+  // dQ: every thread rows ty + 16 i x columns 4 tx .. 4 tx + 3 of each 64
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, role = warp / 4;
+  const int ty = 4 * (warp % 4) + lane / 8, tx = 8 * (warp / 4) + lane % 8, sx = lane % 8;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * 64, bh = blockIdx.y, g0 = blockIdx.z * COLS;
+  const int D = a.D, unit = a.unit;
+  const size_t base_q = (size_t)bh * a.nq * D, base_k = (size_t)bh * a.nk * D;
+  const float* q = static_cast<const float*>(a.q) + base_q;
+  const float* dout = static_cast<const float*>(a.dout) + base_q;
+  const float* k = static_cast<const float*>(a.k) + base_k;
+  const float* v = static_cast<const float*>(a.v) + base_k;
+  float lse[4], delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    lse[i] = r < a.nq ? static_cast<const float*>(a.lse)[(size_t)bh * a.nq + r] : 0.f;
+    delta[i] = r < a.nq ? static_cast<const float*>(a.delta)[(size_t)bh * a.nq + r] : 0.f;
+  }
+  const int n_kt = (a.nk + 63) / 64;
+  const int kt_end = a.mode == kModeCausal ? min(n_kt, (min(row0 + 64, a.nq) - 1) / 64 + 1) : n_kt;
+  const int n_s = (D + 2 * kFmaChunk - 1) / (2 * kFmaChunk);  // S/dP items a key tile
+  const int n_g = (min(COLS, D - g0) + 255) / 256;           // the group's live column items
+  auto live = [&](int kt) {
+    if (a.mode == kModeMask)
+      while (kt < kt_end && a.layout[(row0 / 64) * n_kt + kt] == 0) ++kt;
+    return kt;
+  };
+  auto next = [&](FmaItem x) {
+    return ++x.step < n_s + n_g ? x : FmaItem{live(x.tile + 1), 0};
+  };
+  auto done = [&](FmaItem x) { return x.tile >= kt_end; };
+  // an S/dP item: 64 channels of Q, dO, K and V, two sub-tiles each; a
+  // column item: up to 256 of the group's channels of K
+  auto fetch = [&](FmaItem x, float* slot) {
+    const int key0 = x.tile * 64;
+    if (x.step < n_s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = (2 * x.step + h) * kFmaChunk;
+        fetch_sub<64>(slot + h * kFmaSub, q, row0, a.nq, c0, D, unit);
+        fetch_sub<64>(slot + (2 + h) * kFmaSub, dout, row0, a.nq, c0, D, unit);
+        fetch_sub<64>(slot + (4 + h) * kFmaSub, k, key0, a.nk, c0, D, unit);
+        fetch_sub<64>(slot + (6 + h) * kFmaSub, v, key0, a.nk, c0, D, unit);
+      }
+    } else {
+      const int u = x.step - n_s, subs = min(8, (COLS - 256 * u) / kFmaChunk);
+      for (int h = 0; h < subs; ++h)
+        fetch_sub<64>(slot + h * kFmaSub, k, key0, a.nk, g0 + 256 * u + h * kFmaChunk, D, unit);
+    }
+  };
+
+  float sc[4][8], acc[4][4 * NG];  // sc: S (role 0) or dP (role 1)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
+
+  auto compute = [&](FmaItem x, const float* slot) {
+    if (x.step < n_s) {
+      if (x.step == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+      }
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const float* xs = slot + (2 * role + h) * kFmaSub;      // Q or dO
+        const float* ys = slot + (4 + 2 * role + h) * kFmaSub;  // K or V
+#pragma unroll
+        for (int c = 0; c < kFmaChunk; c += 4) {
+          float4 xa[4], yb[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xa[i] = ld4(xs + (ty + 16 * i) * kFmaLd + c);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yb[j] = ld4(ys + (sx + 8 * j) * kFmaLd + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) sc[i][j] = dot4(xa[i], yb[j], sc[i][j]);
+        }
+      }
+      if (x.step == n_s - 1) {  // the scores are whole: P, then dS into shared memory
+        if (role == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int row = row0 + ty + 16 * i, key = x.tile * 64 + sx + 8 * j;
+              p_s[(ty + 16 * i) * kFmaLdp + sx + 8 * j] =
+                  visible(a, row, key) ? expf(sc[i][j] * a.scale - lse[i]) : 0.f;
+            }
+        }
+        __syncthreads();  // block-uniform: every thread computes the same item
+        if (role == 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int at = (ty + 16 * i) * kFmaLdp + sx + 8 * j;
+              ds_s[at] = p_s[at] * (sc[i][j] - delta[i]) * a.scale;
+            }
+        }
+      }
+      return;
+    }
+    // dQ += dS K over the item's columns: this thread's 4 of each 64 (tx),
+    // float4 f of the item from sub-tile 2 f + tx / 8
+    const int u = x.step - n_s;
+    const float* kc = slot + (tx / 8) * kFmaSub + 4 * (tx % 8);
+#pragma unroll
+    for (int uu = 0; uu < NU; ++uu) {
+      if (uu != u) continue;
+#pragma unroll 2
+      for (int key = 0; key < 64; key += 4) {
+        float4 w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = ld4(ds_s + (ty + 16 * i) * kFmaLdp + key);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            if (256 * uu + 64 * f >= COLS) continue;
+            const float4 kv = ld4(kc + 2 * f * kFmaSub + (key + kk) * kFmaLd);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (4 * uu + f)], comp4(w[i], kk), kv);
+          }
+      }
+    }
+  };
+  run_ring(ring, FmaItem{live(0), 0}, next, done, fetch, compute);
+
+  float* dq = static_cast<float*>(a.dq) + base_q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= a.nq) continue;
+#pragma unroll
+    for (int m = 0; m < NG; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = g0 + 64 * m + 4 * tx + c;
+        if (col < D) dq[(size_t)r * D + col] = acc[i][4 * m + c];
+      }
+  }
+}
+
+// dk, dv: grid (ceil(nk / kFmaKeys), B * H, groups); a block per 32 keys
+// loops over the 64-row query tiles that may see them. Warps 0-3 form S^T
+// and then dV, warps 4-7 dP^T and then dK, a thread keys kg + 8 i x
+// queries tx + 16 j, then those keys x columns 4 tx .. 4 tx + 3 of each 64
+template <int COLS>
+__global__ void __launch_bounds__(kThreads, 1) wide_dkv_fma_kernel(AttnArgs a) {
+  constexpr int NG = COLS / 64, NU = (COLS + 127) / 128;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* p_s = smem + kFmaStages * kFmaSlot;  // [kFmaKeys keys][kFmaLdp]
+  float* ds_s = p_s + kFmaKeys * kFmaLdp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, role = warp / 4, wr = warp % 4;
+  const int kg = 4 * (wr % 2) + lane / 8, tx = 8 * (wr / 2) + lane % 8;
+  const int key0 = blockIdx.x * kFmaKeys, bh = blockIdx.y, g0 = blockIdx.z * COLS;
+  const int D = a.D, unit = a.unit;
+  const size_t base_q = (size_t)bh * a.nq * D, base_k = (size_t)bh * a.nk * D;
+  const float* q = static_cast<const float*>(a.q) + base_q;
+  const float* dout = static_cast<const float*>(a.dout) + base_q;
+  const float* k = static_cast<const float*>(a.k) + base_k;
+  const float* v = static_cast<const float*>(a.v) + base_k;
+  const float* lse = static_cast<const float*>(a.lse) + (size_t)bh * a.nq;
+  const float* delta = static_cast<const float*>(a.delta) + (size_t)bh * a.nq;
+  const int n_qt = (a.nq + 63) / 64, n_kt64 = (a.nk + 63) / 64;
+  const int n_s = (D + 2 * kFmaChunk - 1) / (2 * kFmaChunk);
+  const int n_g = (min(COLS, D - g0) + 127) / 128;
+  auto live = [&](int qt) {
+    if (a.mode == kModeMask)
+      while (qt < n_qt && a.layout[qt * n_kt64 + key0 / 64] == 0) ++qt;
+    return qt;
+  };
+  auto next = [&](FmaItem x) {
+    return ++x.step < n_s + n_g ? x : FmaItem{live(x.tile + 1), 0};
+  };
+  auto done = [&](FmaItem x) { return x.tile >= n_qt; };
+  // an S/dP item: 64 channels of K, V, Q and dO, two sub-tiles each; a
+  // column item: up to 128 of the group's channels of Q (sub-tiles 0-3)
+  // and of dO (4-7)
+  auto fetch = [&](FmaItem x, float* slot) {
+    const int q0 = x.tile * 64;
+    if (x.step < n_s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = (2 * x.step + h) * kFmaChunk;
+        fetch_sub<kFmaKeys>(slot + h * kFmaSub, k, key0, a.nk, c0, D, unit);
+        fetch_sub<kFmaKeys>(slot + (2 + h) * kFmaSub, v, key0, a.nk, c0, D, unit);
+        fetch_sub<64>(slot + (4 + h) * kFmaSub, q, q0, a.nq, c0, D, unit);
+        fetch_sub<64>(slot + (6 + h) * kFmaSub, dout, q0, a.nq, c0, D, unit);
+      }
+    } else {
+      const int u = x.step - n_s, subs = min(4, (COLS - 128 * u) / kFmaChunk);
+      for (int h = 0; h < subs; ++h) {
+        const int c0 = g0 + 128 * u + h * kFmaChunk;
+        fetch_sub<64>(slot + h * kFmaSub, q, q0, a.nq, c0, D, unit);
+        fetch_sub<64>(slot + (4 + h) * kFmaSub, dout, q0, a.nq, c0, D, unit);
+      }
+    }
+  };
+
+  float sc[4][4], acc[4][4 * NG];  // S^T or dP^T; dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
+
+  auto compute = [&](FmaItem x, const float* slot) {
+    if (x.step < n_s) {
+      if (x.step == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+      }
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const float* xs = slot + (2 * role + h) * kFmaSub;      // K or V
+        const float* ys = slot + (4 + 2 * role + h) * kFmaSub;  // Q or dO
+#pragma unroll
+        for (int c = 0; c < kFmaChunk; c += 4) {
+          float4 xa[4], yb[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            xa[i] = ld4(xs + (kg + 8 * i) * kFmaLd + c);
+            yb[i] = ld4(ys + (tx + 16 * i) * kFmaLd + c);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sc[i][j] = dot4(yb[j], xa[i], sc[i][j]);
+        }
+      }
+      if (x.step == n_s - 1) {  // the scores are whole: P, then dS into shared memory
+        if (role == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int key = key0 + kg + 8 * i, row = x.tile * 64 + tx + 16 * j;
+              p_s[(kg + 8 * i) * kFmaLdp + tx + 16 * j] =
+                  visible(a, row, key) ? expf(sc[i][j] * a.scale - lse[row]) : 0.f;
+            }
+        }
+        __syncthreads();  // block-uniform: every thread computes the same item
+        if (role == 1) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = x.tile * 64 + tx + 16 * j;
+            const float dl = row < a.nq ? delta[row] : 0.f;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int at = (kg + 8 * i) * kFmaLdp + tx + 16 * j;
+              ds_s[at] = p_s[at] * (sc[i][j] - dl) * a.scale;
+            }
+          }
+        }
+      }
+      return;
+    }
+    // dV += P^T dO (role 0) or dK += dS^T Q (role 1) over the item's
+    // columns: this thread's 4 of each 64 (tx), float4 f of the item from
+    // sub-tile 2 f + tx / 8 of its operand
+    const int u = x.step - n_s;
+    const float* w_s = role == 0 ? p_s : ds_s;
+    const float* oc = slot + (role == 0 ? 4 : 0) * kFmaSub + (tx / 8) * kFmaSub + 4 * (tx % 8);
+#pragma unroll
+    for (int uu = 0; uu < NU; ++uu) {
+      if (uu != u) continue;
+#pragma unroll 2
+      for (int r = 0; r < 64; r += 4) {
+        float4 w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = ld4(w_s + (kg + 8 * i) * kFmaLdp + r);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            if (128 * uu + 64 * f >= COLS) continue;
+            const float4 ov = ld4(oc + 2 * f * kFmaSub + (r + rr) * kFmaLd);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (2 * uu + f)], comp4(w[i], rr), ov);
+          }
+      }
+    }
+  };
+  const int qt_begin = a.mode == kModeCausal ? key0 / 64 : 0;
+  run_ring(ring, FmaItem{live(qt_begin), 0}, next, done, fetch, compute);
+
+  float* out = static_cast<float*>(role == 0 ? a.dv : a.dk) + base_k;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + kg + 8 * i;
+    if (key >= a.nk) continue;
+#pragma unroll
+    for (int m = 0; m < NG; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = g0 + 64 * m + 4 * tx + c;
+        if (col < D) out[(size_t)key * D + col] = acc[i][4 * m + c];
+      }
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// the two passes of one column width; the shared-memory cap is set once
+// per kernel and device
+template <int COLS>
+cudaError_t launch_bwd_fma(const AttnArgs& a) {
+  static bool capped[2][kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return launch_attn(wide_dkv_kernel<float>, kDkvSmem,
-                     dim3((a.nk + kBM - 1) / kBM, a.B * a.H, groups), a);
+  const int groups = (a.D + COLS - 1) / COLS;
+  void (*const passes[2])(AttnArgs) = {wide_dq_fma_kernel<COLS>, wide_dkv_fma_kernel<COLS>};
+  const dim3 grids[2] = {dim3((a.nq + 63) / 64, a.B * a.H, groups),
+                         dim3((a.nk + kFmaKeys - 1) / kFmaKeys, a.B * a.H, groups)};
+  for (int p = 0; p < 2; ++p) {
+    if (dev >= kMaxDevices || !capped[p][dev]) {
+      err = cudaFuncSetAttribute(passes[p], cudaFuncAttributeMaxDynamicSharedMemorySize, kFmaSmem);
+      if (err != cudaSuccess) return err;
+      if (dev < kMaxDevices) capped[p][dev] = true;
+    }
+    passes[p]<<<grids[p], kThreads, kFmaSmem, a.stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// float32 backward: the wrapper's plan passes the column width (`cols`)
+// and the shared bytes (`smem`, checked against kFmaSmem)
+cudaError_t attention_bwd_fp32(AttnArgs a) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
+  if (ptrs % 4 != 0 || a.smem != kFmaSmem) return cudaErrorInvalidValue;
+  a.unit = 16;  // the widest copy piece D and the pointers allow
+  while (a.unit > 4 && ((a.D * 4) % a.unit != 0 || ptrs % a.unit != 0)) a.unit /= 2;
+  switch (a.cols) {
+    case 192: return launch_bwd_fma<192>(a);
+    case 256: return launch_bwd_fma<256>(a);
+    case 320: return launch_bwd_fma<320>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1852,8 +2221,10 @@ extern "C" int wide_attention_fwd(const void* q, const void* k, const void* v, c
 // [B,H,nq]. bfloat16 (D a multiple of 8): `dq_acc`, a float32 [B,H,nq,D]
 // workspace, is zeroed, `wide_bwd_mma_kernel<cols, resident>` (cols = 128,
 // `smem` dynamic shared bytes a block) adds dq into it and a last kernel
-// converts it into dq. float32: two launches (dq, then dk/dv), no
-// workspace.
+// converts it into dq. float32 (any D): two launches,
+// `wide_dq_fma_kernel<cols>` then `wide_dkv_fma_kernel<cols>` (cols = 192,
+// 256 or 320 output columns a block, `smem` their shared bytes, both from
+// `ops/wide_head.py:wide_fp32_bwd_plan`), no workspace; `resident` unused.
 extern "C" int wide_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, const void* mask,
                                   const void* layout, void* dq, void* dk, void* dv, void* dq_acc,

@@ -26,16 +26,19 @@ launch's shared memory and residency): the forward
 fused `wide_bwd_mma_kernel<cols, resident>` (cols 128) between zeroing a
 float32 dq workspace and converting it. The
 caller zero-pads a D that is not a multiple of 8 to one
-(`wide_kernel_head_dim`; the true D's scale, outputs cut back). float32 keeps
-the CUDA-core kernels (`wide_fwd_kernel`; `wide_dq_kernel` and
-`wide_dkv_kernel`).
+(`wide_kernel_head_dim`; the true D's scale, outputs cut back). float32
+runs on CUDA cores at any D, unpadded: the forward `wide_fwd_kernel`, the
+backward two register-tiled passes, `wide_dq_fma_kernel<cols>` (64 query
+rows a block) then `wide_dkv_fma_kernel<cols>` (32 keys a block), each
+forming S and dP once per group of up to 320 output columns
+(`wide_fp32_bwd_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +71,14 @@ _TILE = 64 * 72  # bf16 elements of a staged 64 x 64 tile (rows padded to 72)
 TILE_COLS = 192
 TILE_STAGES, TILE_RES_STAGES = 3, 4
 TILE_STATIC_SMEM = 128 * 4 + 2 * 64 * 8  # its static shared memory (kStaticSmem)
+# the fp32 backward's passes (csrc `wide_dq_fma_kernel`, `wide_dkv_fma_kernel`):
+# their column instances (dQ is 4 rows x cols / 16 registers a thread, dK and
+# dV 2 keys x cols / 16 each), the rows a block owns, and the shared memory
+# of either (kFmaSmem: a ring of 2 slots of eight 64 x 32 fp32 sub-tiles,
+# rows padded to 36, then 64 rows of P and of dS, padded to 72)
+FMA_COLS = (192, 256, 320)
+FMA_ROWS = {"dq": 64, "dkv": 32}
+FMA_SMEM = 4 * (2 * 8 * 64 * 36 + 2 * 64 * 72)
 
 
 def _resident_ld(d: int) -> int:
@@ -147,6 +158,43 @@ def wide_attention_plan(d: int, kind: str) -> WidePlan:
                     mma_smem(kind, cols, d_kernel, resident))
 
 
+class Fp32BwdPlan(NamedTuple):
+    """A launch of one pass (`kind` "dq" or "dkv") of the fp32 backward at
+    head dim `d`: blocks of `rows` query rows (dq) or keys (dkv), `groups`
+    of them per row tile, group g owning output columns [g cols, min((g +
+    1) cols, d)), each forming S and dP over all of D; `smem` dynamic
+    shared bytes a block."""
+
+    kind: str
+    d: int
+    rows: int
+    cols: int
+    groups: int
+    smem: int
+
+    @property
+    def kernel(self) -> str:
+        return f"wide_{self.kind}_fma_kernel<{self.cols}>"
+
+    def columns(self, group: int) -> range:
+        return range(group * self.cols, min((group + 1) * self.cols, self.d))
+
+
+def wide_fp32_bwd_plan(d: int, kind: str) -> Fp32BwdPlan:
+    """The plan of the fp32 backward's pass `kind` ("dq" or "dkv") at head
+    dim `d` > WIDE_ABOVE: as few column groups as the widest instance
+    (max(FMA_COLS) columns) allows, D's 64-column chunks spread evenly over
+    them, so S and dP are formed once up to D = 320 and twice up to 640.
+    Both passes take the same columns, so one `cols` goes to the launch."""
+    if d <= WIDE_ABOVE:
+        raise ValueError(f"head dim {d} is not above {WIDE_ABOVE}")
+    chunks = -(-d // 64)
+    cols = 64 * -(-chunks // -(-chunks // (max(FMA_COLS) // 64)))
+    if cols not in FMA_COLS:
+        raise ValueError(f"no fp32 backward instance owns {cols} columns")
+    return Fp32BwdPlan(kind, d, FMA_ROWS[kind], cols, -(-d // cols), FMA_SMEM)
+
+
 def wide_tile_smem(d: int, resident: bool, quant: bool) -> int:
     """Dynamic shared bytes a block of the decode tile kernel takes at head
     dim `d`: the resident 64 x D query tile and a ring of 4 one-tile slots,
@@ -175,7 +223,7 @@ def wide_attention_kernels(d: int, dtype: torch.dtype) -> dict:
         return {"fwd": wide_attention_plan(d, "fwd").kernel, "bwd": (wide_attention_plan(d, "bwd").kernel,)}
     if dtype == torch.float32:
         return {"fwd": "wide_fwd_kernel<float>",
-                "bwd": ("wide_dq_kernel<float>", "wide_dkv_kernel<float>")}
+                "bwd": tuple(wide_fp32_bwd_plan(d, kind).kernel for kind in ("dq", "dkv"))}
     raise TypeError(f"no wide flash-attention kernel for {dtype}")
 
 
@@ -297,9 +345,13 @@ def _masks(fm):
 
 
 def _launch_plan(d: int, dtype: torch.dtype, kind: str):
-    """(cols, resident, smem) a launch passes: the bf16 plan's, zeros in fp32."""
+    """(cols, resident, smem) a launch passes: the bf16 plan's; in fp32 the
+    backward's (`wide_fp32_bwd_plan`, one for both passes), zeros forward."""
     if dtype != torch.bfloat16:
-        return 0, 0, 0
+        if kind == "fwd":
+            return 0, 0, 0
+        plan = wide_fp32_bwd_plan(d, "dq")
+        return plan.cols, 0, plan.smem
     plan = wide_attention_plan(d, kind)
     return plan.cols, int(plan.resident), plan.smem
 
@@ -328,7 +380,8 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
     """(dq, dk, dv) of the flash-attention backward at any D (bf16: a
     multiple of MMA_ALIGN): bf16 one fused kernel by `wide_attention_plan(D,
     "bwd")` (dq through a float32 workspace allocated here), float32 two
-    kernels (dq, then dk/dv)."""
+    register-tiled CUDA-core passes by `wide_fp32_bwd_plan` (dq, then
+    dk/dv; no workspace, every output bit-identical run to run)."""
     b, h, n_q, d = q.shape
     plan = _launch_plan(d, q.dtype, "bwd")
     workspace = None
@@ -343,7 +396,7 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
         )
     _raise_on(err, "wide_attention_bwd")
     wide_attention_bwd.launches += 1
-    wide_attention_bwd.mma_launches += int(plan[0] > 0)
+    wide_attention_bwd.mma_launches += int(q.dtype == torch.bfloat16)
     return dq, dk, dv
 
 

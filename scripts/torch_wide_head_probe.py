@@ -3,7 +3,8 @@
 `csrc/wide_decode_tile.cu`) alone, on one NVIDIA GPU, from the root of a
 checkout:
 
-    python3 scripts/torch_wide_head_probe.py [--time] [--ablate] [--ablate-tile] [--parent DIR]
+    python3 scripts/torch_wide_head_probe.py [--time] [--ablate] [--ablate-tile] [--ablate-fp32]
+                                             [--parent DIR]
 
 Builds the two sources by themselves and prints ptxas's registers, spills
 and shared memory of each kernel and the tensor-core instructions (HMMA)
@@ -31,14 +32,23 @@ backward at the training shapes through variants (`ABLATIONS`): copies of
 ms from a trace. `--ablate-tile` does the same for the decode tile kernel
 of `csrc/wide_decode_tile.cu` at the resume shape (`TILE_ABLATIONS`: no
 copies, one P product where the kernel multiplies P's bf16 pair, no
-score products, a deeper ring, Q streamed at every D). With `--parent DIR` (an unpacked
-checkout of another commit under the git-ignored `build/`) only the timed
-rows run (the flash-attention forward and backward at the training shapes,
-the decode step and the multi-row decode at the resume shape, bf16, at D =
-320 and 512, beside SDPA), in separate
-processes in turns: DIR's kernels and wrappers, this tree's, this tree's,
-DIR's (this script's measuring code each time); a last JSON line gives
-each turn's device ms.
+score products, a deeper ring, Q streamed at every D). `--ablate-fp32`
+times the fp32 backward (`wide_dq_fma_kernel` + `wide_dkv_fma_kernel`,
+causal, training shapes, D = 320 and 512) through `FP32_ABLATIONS`:
+copies of `csrc/wide_head.cu` without the staging copies, without the
+dS K product (dq pass), without the P^T dO and dS^T Q products (dk/dv
+pass), without the S and dP products, with the generic (not the 16-byte)
+copy path, without the ring's barrier a slot, without the softmax's
+exponentials, and under the narrower column plans (at most 256 or 192
+columns a group); each row also gives each pass's device ms. With
+`--parent DIR` (an unpacked checkout of another commit under the
+git-ignored `build/`) only the timed rows run (the flash-attention forward
+and backward at the training shapes, the decode step and the multi-row
+decode at the resume shape, bf16, and the fp32 backward at the training
+shapes, at D = 320 and 512, beside SDPA), in separate processes in turns:
+DIR's kernels and wrappers, this tree's, this tree's, DIR's (this
+script's measuring code each time); a last JSON line gives each turn's
+device ms.
 """
 
 from __future__ import annotations
@@ -88,7 +98,9 @@ def timed_jobs(torch, F):
     1024, 1281], three input sets rotating) at TIMED_DIMS, and SDPA over
     the cache with the length mask; the multi-row decode at the resume
     shape (bf16, n = 1280, S = 1281, lengths 1280, two input sets) at
-    TIMED_DIMS, and SDPA's causal forward over the live keys."""
+    TIMED_DIMS, and SDPA's causal forward over the live keys; the fp32
+    backward (causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's whole fp32
+    backward."""
     import chip_smoke as cs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
@@ -127,6 +139,20 @@ def timed_jobs(torch, F):
         jobs[f"fwd_d{d}"] = (fa.flash_attention_fwd, [s[:3] for s in sets], 4)
         jobs[f"bwd_d{d}"] = (fa.flash_attention_bwd, sets, 4)
         jobs[f"sdpa_fwd_d{d}"] = (sdpa, [s[:3] for s in sets], 10)
+    for d in TIMED_DIMS:
+        sets, lib = [], []
+        for _ in range(2):
+            q, k, v, do = (torch.randn(b, h, n, d, generator=g, device="cuda") for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            sets.append((q, k, v, do, lse, (do * o).sum(-1)))
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do))
+
+        def sdpa_bwd(out, q, k, v, do):
+            return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+        jobs[f"fp32_bwd_d{d}"] = (fa.flash_attention_bwd, sets, 4)
+        jobs[f"sdpa_fp32_bwd_d{d}"] = (sdpa_bwd, lib, 10)
     return jobs
 
 
@@ -193,11 +219,54 @@ TILE_ABLATIONS = (
 )
 
 
+# the same for the fp32 backward (`--ablate-fp32`), timed at the training
+# shapes; the plans' column cap moves the wrapper's FMA_COLS
+FMA_DS_K = "            for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (4 * uu + f)], comp4(w[i], kk), kv);\n"
+FMA_DKV = "            for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (2 * uu + f)], comp4(w[i], rr), ov);\n"
+FP32_ABLATIONS = (
+    ("source", [], {}),
+    ("no_copies", [("    cp_async_piece(dst + r * kFmaLd + c, ok ? x + (size_t)(r0 + r) * D + c0 + c : x, ok, unit);\n",
+                    "    (void)ok;\n"),
+                   ("      cp_async_piece(dst + r * kFmaLd + c, ok ? x + (size_t)(r0 + r) * D + c0 + c : x, ok, 16);\n",
+                    "      (void)ok;\n")], {}),
+    ("no_ds_k_product", [(FMA_DS_K, "")], {}),
+    ("no_dkv_products", [(FMA_DKV, "")], {}),
+    ("no_score_products", [("            for (int j = 0; j < 8; ++j) sc[i][j] = dot4(xa[i], yb[j], sc[i][j]);\n",
+                            "            ;\n"),
+                           ("            for (int j = 0; j < 4; ++j) sc[i][j] = dot4(yb[j], xa[i], sc[i][j]);\n",
+                            "            ;\n")], {}),
+    ("copies_generic", [("  if (unit == 16) {  // block-uniform", "  if (false) {  // block-uniform")], {}),
+    ("no_item_barrier", [("    __syncthreads();             // everyone's; and item it - 1's slot is consumed\n", "")], {}),
+    ("no_exp", [("expf(sc[i][j] * a.scale - lse[i])", "(sc[i][j] * a.scale - lse[i])"),
+                ("expf(sc[i][j] * a.scale - lse[row])", "(sc[i][j] * a.scale - lse[row])")], {}),
+    ("plan_cols256", [], {"FMA_COLS": (192, 256)}),
+    ("plan_cols192", [], {"FMA_COLS": (192,)}),
+)
+
+
+def kernel_ms(torch, fn, inputs, iters) -> dict:
+    """{kernel: mean device ms a launch} of `iters` calls from one
+    torch.profiler trace (the passes of the fp32 backward apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for it in range(iters):
+            fn(*inputs[it % len(inputs)])
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and "_kernel<" in evt.name:
+            name = re.search(r"\w+_kernel<[^<>]*>", evt.name).group(0)
+            times.setdefault(name, []).append(evt.time_range.elapsed_us() / 1e3)
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
 def ablate(torch, cs, F, source="wide_head", variants=ABLATIONS, prefixes=("fwd", "bwd")) -> None:
     """Device ms of the timed jobs named by `prefixes` (the bf16 forward and
-    backward at TIMED_DIMS; the resume-shape decode for the tile source)
-    through each variant of `variants` (a copy of `csrc/<source>.cu` and
-    the wrapper's names it sets), two rounds in opposite order."""
+    backward at TIMED_DIMS, or the fp32 backward; the resume-shape decode
+    for the tile source) through each variant of `variants` (a copy of
+    `csrc/<source>.cu` and the wrapper's names it sets), two rounds in
+    opposite order."""
     import ctypes
 
     from dalle_pytorch_tpu_torch import kernels
@@ -246,13 +315,21 @@ def ablate(torch, cs, F, source="wide_head", variants=ABLATIONS, prefixes=("fwd"
             kernels._libs[source] = libs[name]
             for attr, value in {**saved, **patches[name]}.items():
                 setattr(wh, attr, value)
-            if source == "wide_head":
+            if prefixes == ("fp32_bwd",):
+                plans = {f"{kind}_d{d}": wh.wide_fp32_bwd_plan(d, kind).kernel
+                         for d in TIMED_DIMS for kind in ("dq", "dkv")}
+            elif source == "wide_head":
                 plans = {f"{kind}_d{d}": wh.wide_attention_plan(d, kind).kernel
                          for d in TIMED_DIMS for kind in ("fwd", "bwd")}
             else:
                 plans = {f"resume_d{d}": wh.wide_tile_plan(d).kernel for d in TIMED_DIMS}
-            row = {job: cs.device_ms(torch, fn, inputs, iters)[0] for job, (fn, inputs, iters) in jobs.items()}
-            print(json.dumps({"ablate": name, "round": rnd, "device_ms": row, "plans": plans}), flush=True)
+            row, split = {}, {}
+            for job, (fn, inputs, iters) in jobs.items():
+                row[job] = cs.device_ms(torch, fn, inputs, iters)[0]
+                if prefixes == ("fp32_bwd",):
+                    split[job] = kernel_ms(torch, fn, inputs, iters)
+            print(json.dumps({"ablate": name, "round": rnd, "device_ms": row, "plans": plans,
+                              **({"kernel_ms": split} if split else {})}), flush=True)
     for attr, value in saved.items():
         setattr(wh, attr, value)
     kernels._libs.pop(source)
@@ -283,6 +360,8 @@ def main() -> int:
     p.add_argument("--ablate", action="store_true", help="time copies of the source without each part")
     p.add_argument("--ablate-tile", action="store_true",
                    help="the same for the decode tile kernel (csrc/wide_decode_tile.cu) at the resume shape")
+    p.add_argument("--ablate-fp32", action="store_true",
+                   help="the same for the fp32 backward (wide_dq_fma_kernel, wide_dkv_fma_kernel)")
     p.add_argument("--parent", default=None, help="checkout of another commit to time in turns")
     p.add_argument("--tree", default=None, help="time this checkout's kernels (used by --parent)")
     args = p.parse_args()
@@ -305,11 +384,13 @@ def main() -> int:
         rows = timed_rows(torch, cs, timed_jobs(torch, F))
         print(json.dumps({"card": smi, "rows": rows}))
         return 0
-    if args.ablate or args.ablate_tile:
+    if args.ablate or args.ablate_tile or args.ablate_fp32:
         if args.ablate:
             ablate(torch, cs, F)
         if args.ablate_tile:
             ablate(torch, cs, F, "wide_decode_tile", TILE_ABLATIONS, ("resume",))
+        if args.ablate_fp32:
+            ablate(torch, cs, F, variants=FP32_ABLATIONS, prefixes=("fp32_bwd",))
         print(smi)
         return 0
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))

@@ -90,12 +90,13 @@ def test_causal_matches_the_pallas_kernels(n):
     _compare(n, n, 16)
 
 
-@pytest.mark.parametrize("d", [8, 48, 192, 320])
+@pytest.mark.parametrize("d", [8, 48, 192, 320, 330])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "all"])
 def test_any_head_dim_matches_the_pallas_kernels(d, causal):
     """Head dims outside the kernels' instances (16, 32, 64, 128, 256; 192
-    runs the 256 instance on the card, 320 the wide kernels): the forward and the autograd
-    backward equal the reference's at any D."""
+    runs the 256 instance on the card, 320 and 330 the wide kernels, 330 no
+    multiple of 4): the forward and the autograd backward equal the
+    reference's at any D."""
     _compare(40, 40, d, causal=causal, seed=12)
 
 

@@ -1,6 +1,7 @@
 """The head-dim > 256 kernels of the port (`ops/wide_head.py`,
 `csrc/wide_head.cu`) on the CPU: which kernel a call launches on the card
-at (D, dtype), the bf16 kernels' launch plans at every D from 257 to 1024,
+at (D, dtype), the bf16 kernels' and the fp32 backward's launch plans at
+every D from 257 to 1024,
 and the arithmetic of the bf16 tensor-core kernels (the plain versions
 with `p_dtype=bfloat16`: P rounded per 64-key tile in base 2 forward, dS
 rounded once backward) against the JAX package's Pallas kernels in
@@ -42,14 +43,17 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("d", [264, 320, 512, 1024])
 def test_bf16_above_256_routes_to_the_tensor_core_kernels(d):
     """bf16 at D > 256 names the tensor-core kernels (one fused backward),
-    fp32 the CUDA-core ones (two backward kernels), D <= 256 the tuned
-    kernels of flash_attention.cu."""
+    fp32 the CUDA-core ones (the backward's two register-tiled passes at
+    their plan's column width), D <= 256 the tuned kernels of
+    flash_attention.cu."""
     bf16 = attention_kernels(d, torch.bfloat16)
     assert bf16["fwd"].startswith("wide_fwd_mma_kernel<") and len(bf16["bwd"]) == 1
     assert bf16["bwd"][0].startswith("wide_bwd_mma_kernel<")
     assert bf16["fwd"] == wh.wide_attention_plan(d, "fwd").kernel
+    cols = wh.wide_fp32_bwd_plan(d, "dq").cols
     assert attention_kernels(d, torch.float32) == {
-        "fwd": "wide_fwd_kernel<float>", "bwd": ("wide_dq_kernel<float>", "wide_dkv_kernel<float>")}
+        "fwd": "wide_fwd_kernel<float>",
+        "bwd": (f"wide_dq_fma_kernel<{cols}>", f"wide_dkv_fma_kernel<{cols}>")}
     small = d // 4 if d // 4 <= 256 else 256
     assert attention_kernels(small, torch.bfloat16)["fwd"].startswith("fwd_wgmma_kernel<")
     assert attention_kernels(small, torch.float32)["bwd"][0].startswith("dq_kernel<")
@@ -88,6 +92,37 @@ def test_plans_own_each_column_once_and_fit_shared_memory(kind):
     assert wh.wide_attention_plan(320, kind).groups == {"fwd": 2, "bwd": 3}[kind]
     with pytest.raises(ValueError):
         wh.wide_attention_plan(256, kind)
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_fp32_backward_plans_own_each_column_once_and_fit_shared_memory(kind):
+    """The fp32 backward's passes at every D in 257..1024 (unpadded): each
+    output column owned by exactly one group, no group empty, `groups` as
+    the launcher counts them (ceil(D / cols)), an instance's column count,
+    the same columns in both passes (one `cols` reaches the launch), and a
+    block's shared memory within 227 KB; S and dP formed once at D = 320
+    and at most twice at D = 512; every instance some D's plan."""
+    used = set()
+    for d in range(257, 1025):
+        plan = wh.wide_fp32_bwd_plan(d, kind)
+        used.add(plan.cols)
+        owned = np.zeros(d, int)
+        for g in range(plan.groups):
+            cols = plan.columns(g)
+            assert len(cols) > 0
+            owned[cols.start:cols.stop] += 1
+        assert (owned == 1).all(), d
+        assert plan.groups == -(-d // plan.cols)
+        assert plan.cols in wh.FMA_COLS and plan.rows == wh.FMA_ROWS[kind]
+        assert plan.cols == wh.wide_fp32_bwd_plan(d, "dq").cols
+        assert plan.smem == wh.FMA_SMEM <= wh.SMEM_LIMIT
+        assert plan.kernel == f"wide_{kind}_fma_kernel<{plan.cols}>"
+    assert used == set(wh.FMA_COLS)  # every instance the library builds is reachable
+    assert wh.wide_fp32_bwd_plan(320, kind).groups == 1
+    assert wh.wide_fp32_bwd_plan(512, kind).groups <= 2
+    assert wh._launch_plan(320, torch.float32, "bwd") == (320, 0, wh.FMA_SMEM)
+    with pytest.raises(ValueError):
+        wh.wide_fp32_bwd_plan(256, kind)
 
 
 def _inputs(b, h, n, d, seed):
