@@ -15,7 +15,8 @@ Phases, each failing loudly (nonzero exit, no result line):
    and spill lines (no instance of either tile source may spill; no
    tensor-core instance of wide_head.cu or wide_decode_tile.cu may spill,
    and `cuobjdump -sass` must find HMMA in each; no split-K decode
-   instance of wide_head.cu may spill);
+   instance and no fp32 forward, multi-row decode or backward instance of
+   wide_head.cu may spill, and each has its fixed count of instances);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -30,11 +31,13 @@ Phases, each failing loudly (nonzero exit, no result line):
    attention to the tensor-core ones), which are held at D = 264-1024
    (decode: the five functions, both arms, NaN-poisoned caches, the bit
    identities at D = 320, the split-K step at n = 1 and 3 with a span
-   left without a visible key, the tile kernel (bf16) at n = 5, 65 and
-   130 and the resume shape, also against its model, and the 4-row
-   kernel (fp32) at n = 5; attention: the causal, all-keys and
-   static-mask arms, forward and backward, and the causal arm at the
-   training shapes at D = 320 and 512; at D = 300, which the bf16
+   left without a visible key, the tile kernel (bf16) and
+   `wide_decode_fma_kernel` (fp32) at n = 5, 65 and 130 and the resume
+   shape, each also against its model, the fp32 one bit-identical over
+   two runs, and the 4-row kernel at the step at D = 1032; attention:
+   the causal, all-keys and static-mask arms, forward and backward, and
+   the causal arm at the training shapes at D = 320 and 512, the fp32
+   forward's o and lse bit-identical over two runs; at D = 300, which the bf16
    kernels zero-pad, o and dv against the rounding-matched plain
    version per tile to 1e-3 plus one rounding flip of that tile);
 3. times with CUDA events: each kernel, its plain version and one PyTorch
@@ -53,13 +56,16 @@ Phases, each failing loudly (nonzero exit, no result line):
    `attention_kernels` and `decode_arm` route to; the fp32 arms beside
    SDPA in fp32 (flash decode's fp32 tile arm at n = 257 and 1280, flash
    attention at D = 64 and 256); kernels 3-5 through the bf16 tile arm
-   at the resume shape, at D = 64 and (the wide tile kernel) 320;
+   at the resume shape, at D = 64 and (the wide tile kernel) 320 and
+   512, and kernels 2-5 through `wide_decode_fma_kernel` (fp32) at 320
+   and 512, each beside SDPA with the same mask;
 4. a small float32 model on the card, through the kernels against the
    same model through dense attention: its cached decode (the prefill
    and a resume launching the fp32 tile arm), and its training loss and
    every gradient; again at dim_head 320 (the wide kernels, their
    launches counted exactly: the steps on the split-K kernel, the prefill
-   and resume on the 4-row one), there also the decode in bf16 (the
+   and resume on `wide_decode_fma_kernel`, the training run's forward and
+   backward calls), there also the decode in bf16 (the
    prefill and resume on the tensor-core tile kernel) and the training
    step under bf16 autocast (the tensor-core wide kernels) against dense
    attention in bf16;
@@ -692,30 +698,47 @@ def tensor_core_faults(info, found):
             or (info["ptxas"] and "spill_bytes" not in v)}
 
 
+def instance_builds(info, kernel):
+    """[(registers, spill bytes)] of each instance of `kernel`, a kernel
+    whose template arguments are types (its instances share one name in
+    `built_kernels`), from ptxas's lines in `info`."""
+    found, raw, spill = [], "", None
+    for line in info["ptxas"].splitlines():  # an entry's spill line comes before its registers
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        raw, spill = (entry.group(1), None) if entry else (raw, spill)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and kernel in raw:
+            spill = (spill or 0) + int(spills.group(1)) + int(spills.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel in raw:
+            found.append([int(used.group(1)), spill])
+    return found
+
+
 def check_wide_build(info):
     """Phase 1 for `csrc/wide_head.cu` (`built_kernels`). Fails if a
-    tensor-core kernel (`*_mma_kernel`) spills or has no HMMA, an fp32
-    backward pass (`*_fma_kernel`) spills, or a split-K decode kernel
-    (`wide_split_kernel`) spills. Returns {kernel: {...}}."""
+    tensor-core kernel (`*_mma_kernel`) spills or has no HMMA, or if an
+    fp32 kernel (the forward `wide_fwd_fma_kernel`, the backward's passes,
+    the multi-row decode `wide_decode_fma_kernel`) or a split-K decode
+    kernel (`wide_split_kernel`) spills, or if any of them has not its
+    fixed count of instances. Returns {kernel: {...}}."""
     out = built_kernels(info)
     mma = {k: v for k, v in out.items() if "_mma_kernel" in k}
     if len(mma) != 6 or tensor_core_faults(info, mma):  # forward 2 column counts, backward 1, each resident and streaming
         fail(f"wide_head's tensor-core kernels: expected 6 instances with HMMA and no spill, got {mma}")
-    fma = {k: v for k, v in out.items() if "_fma_kernel" in k}
-    if len(fma) != 6 or any(v.get("spill_bytes", 0) or (info["ptxas"] and "spill_bytes" not in v)
-                            for v in fma.values()):  # dq and dk/dv passes x 192, 256, 320 columns
-        fail(f"wide_head's fp32 backward passes: expected 6 instances without spills, got {fma}")
-    # the split-K decode kernel's instances (template types, one name): each one's spills
-    split, raw = [], ""
-    for line in info["ptxas"].splitlines():
-        found = re.search(r"Compiling entry function '([^']+)'", line)
-        raw = found.group(1) if found else raw
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spills and "wide_split_kernel" in raw:
-            split.append(int(spills.group(1)) + int(spills.group(2)))
-    out.setdefault("wide_split_kernel", {})["instance_spill_bytes"] = split
-    if any(split) or (info["ptxas"] and len(split) != 8):  # q fp32/bf16 x cache own/int8 x rows 1/4
-        fail(f"wide_head's split-K decode kernel: expected 8 instances without spills, got {split}")
+    for prefixes, count, what in ((("wide_dq_fma", "wide_dkv_fma"), 6, "fp32 backward passes"),
+                                  (("wide_fwd_fma",), 3, "fp32 forward")):  # x 192, 256, 320 columns
+        fma = {k: v for k, v in out.items() if k.startswith(prefixes)}
+        if len(fma) != count or any(v.get("spill_bytes", 0) or (info["ptxas"] and "spill_bytes" not in v)
+                                    for v in fma.values()):
+            fail(f"wide_head's {what}: expected {count} instances without spills, got {fma}")
+    # the kernels with type template arguments (one name): each instance's spills
+    for kernel, count in (("wide_split_kernel", 8),  # q fp32/bf16 x cache own/int8 x rows 1/4
+                          ("wide_decode_fma_kernel", 6)):  # cache fp32/int8 x 192, 256, 320 columns
+        builds = instance_builds(info, kernel)
+        out.setdefault(kernel, {})["instance_registers_spill_bytes"] = builds
+        if any(spill != 0 for _, spill in builds) or (info["ptxas"] and len(builds) != count):
+            fail(f"wide_head's {kernel}: expected {count} instances without spills, got {builds}")
     return out
 
 
@@ -767,9 +790,11 @@ WIDE_ATTENTION_DIMS = (264, 300, 320, 512, 1024)
 WIDE_ODD_DIMS = (330, 331)
 WIDE_IDENTITY_DIM = 320
 WIDE_TIMED_DIMS = (320, 512)
+# the step above WIDE_SPLIT_MAX_D channels: the 4-row wide_decode_kernel
+WIDE_STEP_DIM = 1032
 
 
-WIDE_DECODE_CASES = (  # (n, lengths) over a 300-position cache; n = 65 and 130 in bf16 only
+WIDE_DECODE_CASES = (  # (n, lengths) over a 300-position cache
     (1, [1, 130, 257, 300]), (3, [3, 129, 256, 300]), (5, [5, 64, 200, 300]),
     (65, [65, 100, 200, 300]), (130, [130, 131, 257, 300]),
 )
@@ -781,24 +806,27 @@ def check_wide_decode(torch):
     16-position pages through a shuffled table, block-sparse paged), each
     arm (the cache in q's dtype, int8) against its plain version under
     decode_tol, at a one-row step and a 3-row chunk (the split-K kernel,
-    row 3's second span dead in the bitmaps), and at 5 rows (bf16 also 65
-    and 130: the query tiles' edges) on the tile kernel (bf16, and there
-    also against its model `flash_decode_tile_plain` under decode_tol) or
-    the 4-row kernel (fp32), each launching there; every kernel's output
+    row 3's second span dead in the bitmaps; at WIDE_STEP_DIM the 4-row
+    kernel), and at 5, 65 and 130 rows (the query tiles' edges) on the
+    tile kernel (bf16) or `wide_decode_fma_kernel` (fp32), each launching
+    there and held also against its model (`flash_decode_tile_plain`,
+    `flash_decode_tile_f32_plain`) under decode_tol; every kernel's output
     unchanged and finite with NaN in every position no row may read (in
     the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for bit: the
     all-ones bitmap against kernels 1 and 4, kernel 4 against kernel 1 and
-    kernel 5 against kernel 3 on the gathered view; and the tile kernel at
-    the resume shape at WIDE_IDENTITY_DIM (`check_wide_tile_resume`).
-    Returns ({arm: worst max_abs_err against the plain version}, {check:
-    cases held or launches})."""
+    kernel 5 against kernel 3 on the gathered view, and (fp32 multi-row)
+    kernel 5's output over two runs; and both multi-row kernels at the
+    resume shape at WIDE_IDENTITY_DIM (`check_wide_tile_resume`). Returns
+    ({arm: worst max_abs_err against the plain version}, {check: cases
+    held or launches})."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
     worst, failures = {}, []
     held = {"all-ones bitmap vs kernel 1": 0, "all-ones page bitmap vs kernel 4": 0,
             "kernel 4 vs kernel 1 on the gathered view": 0,
-            "kernel 5 vs kernel 3 on the gathered view": 0, "poisoned cache unchanged": 0}
+            "kernel 5 vs kernel 3 on the gathered view": 0, "poisoned cache unchanged": 0,
+            "the same bits over two runs": 0}
 
     def same(name, label, a, b):
         if torch.equal(a, b) and bool(torch.isfinite(a).all()):
@@ -817,12 +845,13 @@ def check_wide_decode(torch):
 
     page, block, b, h, s_len = 16, 32, 4, 2, 300
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    counters = (wh.wide_decode.launches, wh.wide_decode.split_launches, wh.wide_decode.tile_launches)
-    before = tuple(c for c in counters)
-    for d in WIDE_DECODE_DIMS:
+    wd = wh.wide_decode
+    before = (wd.launches, wd.split_launches, wd.tile_launches, wd.tile_f32_launches)
+    models = {"wide_tile": fd.flash_decode_tile_plain, "wide_tile_f32": fd.flash_decode_tile_f32_plain}
+    for d in WIDE_DECODE_DIMS + (WIDE_STEP_DIM,):
         for dtype in (torch.bfloat16, torch.float32):
             for n, lengths in WIDE_DECODE_CASES:
-                if n > 5 and dtype == torch.float32:
+                if d == WIDE_STEP_DIM and n > 4:
                     continue
                 arm = fd.decode_arm(n, dtype, d)
                 q, k, v, lens, table, live = paged_case(
@@ -842,7 +871,7 @@ def check_wide_decode(torch):
                     label = f"D={d} n={n} {str(dtype)[6:]}{cache_arm}"
                     kc, vc = fd.paged_gather(kk, table, s_len), fd.paged_gather(vv, table, s_len)
                     scc = tuple(fd.paged_gather(t, table, s_len) for t in sc)
-                    launched = wh.wide_decode.tile_launches
+                    launched = (wd.tile_launches, wd.tile_f32_launches)
                     outs = {
                         "flash_decode": (fd.flash_decode_attention(q, kc, vc, lens, *scc),
                                          fd.flash_decode_attention_plain(q, kc, vc, lens, *scc)),
@@ -856,18 +885,19 @@ def check_wide_decode(torch):
                             fd.block_sparse_paged_flash_decode_attention_plain(
                                 q, kk, vv, lens, table, pbm, *sc)),
                     }
-                    if (wh.wide_decode.tile_launches - launched) != (4 if arm == "wide_tile" else 0):
-                        failures.append(f"{label}: {wh.wide_decode.tile_launches - launched} tile launches "
-                                        f"for 4 calls of the {arm} arm")
-                    models = {}
-                    if arm == "wide_tile":  # the kernel's arithmetic, each variant
-                        models = {
-                            "flash_decode": fd.flash_decode_tile_plain(q, kc, vc, lens, *scc),
-                            "block_sparse": fd.flash_decode_tile_plain(q, kc, vc, lens, *scc, block_bitmap=bm,
-                                                                       block_k=block),
-                            "paged": fd.flash_decode_tile_plain(q, kk, vv, lens, *sc, page_table=table),
-                            "block_sparse_paged": fd.flash_decode_tile_plain(
-                                q, kk, vv, lens, *sc, block_bitmap=pbm, page_table=table),
+                    ran = (wd.tile_launches - launched[0], wd.tile_f32_launches - launched[1])
+                    if ran != (4 * (arm == "wide_tile"), 4 * (arm == "wide_tile_f32")):
+                        failures.append(f"{label}: {ran} (tile, fp32 multi-row) launches for 4 calls of "
+                                        f"the {arm} arm")
+                    arm_models = {}
+                    if arm in models:  # the kernel's arithmetic, each variant
+                        model = models[arm]
+                        arm_models = {
+                            "flash_decode": model(q, kc, vc, lens, *scc),
+                            "block_sparse": model(q, kc, vc, lens, *scc, block_bitmap=bm, block_k=block),
+                            "paged": model(q, kk, vv, lens, *sc, page_table=table),
+                            "block_sparse_paged": model(q, kk, vv, lens, *sc, block_bitmap=pbm,
+                                                        page_table=table),
                         }
                     for kernel, (out, ref) in outs.items():
                         err = (out.float() - ref.float()).abs().max().item()
@@ -875,12 +905,12 @@ def check_wide_decode(torch):
                         errs.append(err)
                         if not (err <= tol and torch.isfinite(out).all()):
                             failures.append(f"{kernel} {label}: {err:.3e} over {tol:.3e}")
-                        if kernel in models:
-                            err_model = (out.float() - models[kernel].float()).abs().max().item()
+                        if kernel in arm_models:
+                            err_model = (out.float() - arm_models[kernel].float()).abs().max().item()
                             model_errs.append(err_model)
                             if not err_model <= tol:
                                 failures.append(f"{kernel} {label}: {err_model:.3e} over {tol:.3e} "
-                                                "against the tile model")
+                                                f"against the {arm} model")
                         worst[arm] = max(worst.get(arm, 0.0), err)
                     # NaN wherever no row may read: kernels 1 and 3 on the
                     # contiguous cache, kernels 4 and 5 in the pool
@@ -912,52 +942,63 @@ def check_wide_decode(torch):
                         same("kernel 5 vs kernel 3 on the gathered view", label,
                              outs["block_sparse_paged"][0],
                              fd.block_sparse_flash_decode_attention(q, kc, vc, lens, pbm, page, *scc))
+                        if arm == "wide_tile_f32":
+                            same("the same bits over two runs", label + " kernel 5",
+                                 fd.block_sparse_paged_flash_decode_attention(q, kk, vv, lens, table, pbm, *sc),
+                                 outs["block_sparse_paged"][0])
                 print(f"check wide decode ({arm}) D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
                       "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs)
-                      + ("; against the tile model: " + ", ".join(f"{e:.2e}" for e in model_errs)
+                      + (f"; against the {arm} model: " + ", ".join(f"{e:.2e}" for e in model_errs)
                          if model_errs else ""))
-    worst["wide_tile"] = max(worst.get("wide_tile", 0.0), check_wide_tile_resume(torch, failures))
+    for dtype, arm in ((torch.bfloat16, "wide_tile"), (torch.float32, "wide_tile_f32")):
+        worst[arm] = max(worst.get(arm, 0.0), check_wide_tile_resume(torch, failures, dtype))
     torch.cuda.synchronize()
-    split = wh.wide_decode.split_launches - before[1]
-    tile = wh.wide_decode.tile_launches - before[2]
-    held["4-row kernel launches"] = wh.wide_decode.launches - before[0] - split - tile
+    split = wd.split_launches - before[1]
+    tile = wd.tile_launches - before[2]
+    tile_f32 = wd.tile_f32_launches - before[3]
+    held["4-row kernel launches"] = wd.launches - before[0] - split - tile - tile_f32
     held["split-K kernel launches"] = split
     held["tile kernel launches"] = tile
+    held["fp32 multi-row kernel launches"] = tile_f32
     print("check wide decode bit identities and poisoned caches (cases held): " + json.dumps(held))
-    if not (held["4-row kernel launches"] and split and tile):
-        failures.append("the split-K, the tile or the 4-row kernel never launched")
+    if not (held["4-row kernel launches"] and split and tile and tile_f32):
+        failures.append("the split-K, the tile, the fp32 multi-row or the 4-row kernel never launched")
     if failures:
         fail("wide decode: " + "; ".join(failures[:10]))
     return worst, held
 
 
-def check_wide_tile_resume(torch, failures):
-    """Phase 2 for the tile kernel at the resume shape (B = 4, H = 16, n =
-    1280, S = 1281, lengths 1280) at WIDE_IDENTITY_DIM, bf16, both cache
-    arms: against the plain version and the model under decode_tol, and
-    with NaN past each row's length unchanged. Appends to `failures`;
-    returns the worst max_abs_err against the plain version."""
+def check_wide_tile_resume(torch, failures, dtype=None):
+    """Phase 2 for a multi-row wide decode kernel at the resume shape (B =
+    4, H = 16, n = 1280, S = 1281, lengths 1280) at WIDE_IDENTITY_DIM, q in
+    `dtype` (bf16: the tile kernel, fp32: `wide_decode_fma_kernel`), both
+    cache arms: against the plain version and the kernel's model under
+    decode_tol, with NaN past each row's length unchanged. Appends to
+    `failures`; returns the worst max_abs_err against the plain version."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
-    q, k, v, lens = resume_inputs(torch, MAIN["batch"], torch.bfloat16, d=WIDE_IDENTITY_DIM)[0]
+    dtype = dtype or torch.bfloat16
+    q, k, v, lens = resume_inputs(torch, MAIN["batch"], dtype, d=WIDE_IDENTITY_DIM)[0]
+    arm = fd.decode_arm(q.shape[2], dtype, WIDE_IDENTITY_DIM)
+    model_of = fd.flash_decode_tile_plain if dtype == torch.bfloat16 else fd.flash_decode_tile_f32_plain
     kq, vq, ks, vs = quantized(torch, k, v)
     worst = 0.0
     for cache_arm, kk, vv, sc in (("", k, v, ()), (" int8", kq, vq, (ks, vs))):
         out = fd.flash_decode_attention(q, kk, vv, lens, *sc)
         ref = fd.flash_decode_attention_plain(q, kk, vv, lens, *sc)
-        model = fd.flash_decode_tile_plain(q, kk, vv, lens, *sc)
+        model = model_of(q, kk, vv, lens, *sc)
         pk, pv, psc = poison_past_length(torch, kk, vv, lens, sc)
         poisoned = fd.flash_decode_attention(q, pk, pv, lens, *psc)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         err_model = (out.float() - model.float()).abs().max().item()
-        tol = decode_tol(torch, ref, torch.bfloat16)
+        tol = decode_tol(torch, ref, dtype)
         unchanged = torch.equal(out, poisoned) and bool(torch.isfinite(out).all())
-        print(f"check wide decode (wide_tile) resume D={WIDE_IDENTITY_DIM}{cache_arm} n={q.shape[2]} "
+        print(f"check wide decode ({arm}) resume D={WIDE_IDENTITY_DIM}{cache_arm} n={q.shape[2]} "
               f"B={q.shape[0]}: max_abs_err {err:.3e} vs plain, {err_model:.3e} vs the model, tol "
               f"{tol:.3e}; NaN past the lengths finite and unchanged {unchanged}")
         if not (err <= tol and err_model <= tol and unchanged):
-            failures.append(f"wide_tile resume{cache_arm}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
+            failures.append(f"{arm} resume{cache_arm}: {err:.3e} / {err_model:.3e} over {tol:.3e} "
                             f"or poisoned output changed")
         worst = max(worst, err)
         del out, ref, model, pk, pv, psc, poisoned
@@ -1351,19 +1392,25 @@ def time_tile_arm(torch, F, peaks, smi, cases):
     return out
 
 
-def time_tile_variants(torch, F, peaks, smi, d=MAIN["dim_head"]):
-    """Phase 3 for kernels 3-5 through the bf16 tile arm (at D = `d` > 256
-    the tile kernel of csrc/wide_decode_tile.cu) at the resume shape
-    (n = 1280, S = 1281, lengths 1280, B = 4, H = 16, D = `d`): kernel 3
-    with a random bitmap of 128-position blocks (block 0 and the last
-    live), kernel 4 over a shuffled pool of 32-position pages, kernel 5
-    with a random page bitmap (the first two pages live); each beside its
-    plain version and SDPA with the same mask (over the cache gathered
-    beforehand for 4 and 5), and its bound over the visible pairs; the
-    device times after phase 10. Returns {kernel: row}."""
+def time_tile_variants(torch, F, peaks, smi, d=MAIN["dim_head"], dtype=None):
+    """Phase 3 for kernels 3-5 through the multi-row arm of q's `dtype`
+    (bf16: the tile arm, at D = `d` > 256 the tile kernel of
+    csrc/wide_decode_tile.cu; fp32 at D > 256: `wide_decode_fma_kernel`,
+    with kernel 2, the int8 cache, beside) at the resume shape (n = 1280,
+    S = 1281, lengths 1280, B = 4, H = 16, D = `d`): kernel 3 with a random
+    bitmap of 128-position blocks (block 0 and the last live), kernel 4
+    over a shuffled pool of 32-position pages, kernel 5 with a random page
+    bitmap (the first two pages live); each beside its plain version and
+    SDPA with the same mask (over the cache gathered beforehand for 4 and
+    5; kernel 2's over the cache it quantizes), and its bound over the
+    visible pairs at the type's peak; the device times after phase 10.
+    Returns {kernel: row}."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
+    dtype = dtype or torch.bfloat16
+    key, elt = ("bf16", 2) if dtype == torch.bfloat16 else ("fp32", 4)
+    arm = fd.decode_arm(RESUME["n"], dtype, d)
     b, h, n, s_len = MAIN["batch"], MAIN["heads"], RESUME["n"], RESUME["cache"]
     lengths, copies = [n] * b, 3  # three input sets rotating: 3 x 21 MB of K/V (D = 64) passes the L2
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -1377,11 +1424,17 @@ def time_tile_variants(torch, F, peaks, smi, d=MAIN["dim_head"]):
     masks = {"block_sparse_flash_decode": causal & fd.expand_bitmap(bm, 128, s_len)[:, None, :],
              "paged_flash_decode": causal,
              "block_sparse_paged_flash_decode": causal & fd.expand_bitmap(pbm, PAGE, s_len)[:, None, :]}
+    if dtype == torch.float32:
+        masks = {"flash_decode_int8": causal, **masks}
     sets = {name: ([], []) for name in masks}  # (kernel args, library args) per copy
-    for i, (q, k, v, _) in enumerate(resume_inputs(torch, b, torch.bfloat16, copies=copies, d=d)):
+    for i, (q, k, v, _) in enumerate(resume_inputs(torch, b, dtype, copies=copies, d=d)):
+        if "flash_decode_int8" in sets:
+            kq, vq, ks, vs = quantized(torch, k, v)
+            sets["flash_decode_int8"][0].append((q, kq, vq, lens, ks, vs))
+            sets["flash_decode_int8"][1].append((q, k, v, masks["flash_decode_int8"]))
         sets["block_sparse_flash_decode"][0].append((q, k, v, lens, bm, 128))
         sets["block_sparse_flash_decode"][1].append((q, k, v, masks["block_sparse_flash_decode"]))
-        pq, pk, pv, _, table, _ = paged_case(torch, b, h, n, d, PAGE, lengths, torch.bfloat16, s_len,
+        pq, pk, pv, _, table, _ = paged_case(torch, b, h, n, d, PAGE, lengths, dtype, s_len,
                                              SEED + 12 + i)
         kg, vg = fd.paged_gather(pk, table, s_len), fd.paged_gather(pv, table, s_len)
         sets["paged_flash_decode"][0].append((pq, pk, pv, lens, table))
@@ -1392,29 +1445,37 @@ def time_tile_variants(torch, F, peaks, smi, d=MAIN["dim_head"]):
     def sdpa_masked(q_, k_, v_, mask):
         return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask[:, None])
 
-    fns = {"block_sparse_flash_decode": (fd.block_sparse_flash_decode_attention,
+    fns = {"flash_decode_int8": (fd.flash_decode_attention, fd.flash_decode_attention_plain),
+           "block_sparse_flash_decode": (fd.block_sparse_flash_decode_attention,
                                          fd.block_sparse_flash_decode_attention_plain),
            "paged_flash_decode": (fd.paged_flash_decode_attention, fd.paged_flash_decode_attention_plain),
            "block_sparse_paged_flash_decode": (fd.block_sparse_paged_flash_decode_attention,
                                                fd.block_sparse_paged_flash_decode_attention_plain)}
+
+    def arm_launches():
+        if arm == "wide_tile_f32":
+            return wh.wide_decode.tile_f32_launches
+        return tile_launches() + wh.wide_decode.tile_launches
+
     rows = {}
-    for kernel, (fn, plain) in fns.items():
+    for kernel in masks:
+        fn, plain = fns[kernel]
         args, lib_args = sets[kernel]
-        before = tile_launches() + wh.wide_decode.tile_launches
+        before = arm_launches()
         fn(*args[0])
-        if tile_launches() + wh.wide_decode.tile_launches - before != 1:
-            fail(f"{kernel} at the resume shape (D = {d}) did not launch the tile arm")
+        if arm_launches() - before != 1:
+            fail(f"{kernel} at the resume shape (D = {d}, {key}) did not launch the {arm} arm")
         pairs = int(masks[kernel].sum())
         live_keys = int(masks[kernel].any(1).sum())  # keys some row sees, over the batch rows
-        nbytes = 2 * b * h * n * d * 2 + h * 2 * d * 2 * live_keys + 4 * b
-        t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * pairs / peaks["bf16"]
+        per_key = 2 * d + 8 if kernel.endswith("int8") else 2 * d * elt  # K and V (int8: and scales)
+        nbytes = 2 * b * h * n * d * elt + h * per_key * live_keys + 4 * b
+        t_bytes, t_ops = nbytes / peaks["bytes"], 4 * d * h * pairs / peaks[key]
         row = dict(ms=time_ms(torch, fn, args, 2 * LAYERS), plain_ms=time_ms(torch, plain, args, 4),
                    library_ms=time_ms(torch, sdpa_masked, lib_args, 2 * LAYERS),
                    bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         defer_device_time(row, fn, args, 2 * LAYERS)
         rows[kernel] = row
-        print("time " + json.dumps(dict(kernel=kernel, arm=fd.decode_arm(n, torch.bfloat16, d), case="resume",
-                                        q_dtype="bf16", B=b, H=h,
+        print("time " + json.dumps(dict(kernel=kernel, arm=arm, case="resume", q_dtype=key, B=b, H=h,
                                         n=n, D=d, S=s_len, lengths=n, visible_pairs=pairs,
                                         library="SDPA with the same boolean mask", card=smi, **row)))
     return rows
@@ -1749,8 +1810,9 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     tile, `flip_allowance`). The backward takes the kernel forward's lse and delta,
     and runs twice: dk and dv must be bit-identical (no atomics), and dq in
     float32 (each output written once); bf16 dq's run-to-run difference (the
-    order of its atomic adds) is printed. Returns {kernel: max_abs_err
-    against the exact version}."""
+    order of its atomic adds) is printed. In float32 above 256 channels the
+    forward runs twice too: o and lse must be bit-identical. Returns
+    {kernel: max_abs_err against the exact version}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1758,6 +1820,11 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     k, v = (torch.randn(b, h, n_k, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     fm = None if mask is None else fa.flash_mask(mask, "cuda")
     o, lse = fa.flash_attention_fwd(q, k, v, fm, causal)
+    fwd_twice = dtype == torch.float32 and fa.attention_kernel_source(d) == "wide_head"
+    if fwd_twice:
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, fm, causal)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"flash_attention_fwd {label} {dtype} D={d}: o or lse differ between two runs")
     delta = (do.float() * o.float()).sum(-1)
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm, causal)
     again = fa.flash_attention_bwd(q, k, v, do, lse, delta, fm, causal)
@@ -1816,8 +1883,8 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     print(
         f"check flash_attention {label} {str(dtype)[6:]} B={b} H={h} nq={n_q} nk={n_k} D={d}: "
         + ", ".join(f"{k[16:]} {e:.3e}" for k, e in errs.items())
-        + f" max_abs_err; dk, dv{', dq' if dtype == torch.float32 else ''} bit-identical over two "
-        f"runs, dq run-to-run {dq_rerun:.3e}"
+        + f" max_abs_err; {'o, lse, ' if fwd_twice else ''}dk, dv{', dq' if dtype == torch.float32 else ''} "
+        f"bit-identical over two runs, dq run-to-run {dq_rerun:.3e}"
         + "; element, tile ratios: " + "; ".join(report)
     )
     if failures:
@@ -1976,9 +2043,9 @@ def check_small_model_decode(torch, dim_head, dtype=None):
 # output): the loss within 1e-2 relative and each gradient within 5e-2 of
 # the dense path's norm, ~6 roundings of bf16's 2^-8 over a depth-2 model
 BF16_MODEL_TOL = dict(loss=1e-2, grad=5e-2)
-# backward calls of one fp32 training check: one per attention layer (2)
-# per model call of the forward_reverse_partial objective (2)
-FP32_TRAINING_BWD = 4
+# forward and backward calls of one fp32 training check: one per attention
+# layer (2) per model call of the forward_reverse_partial objective (2)
+FP32_TRAINING_FWD = FP32_TRAINING_BWD = 4
 
 
 def check_small_model_training(torch, dim_head, autocast_dtype=None):
@@ -3212,6 +3279,10 @@ def main() -> int:
     t0 = time.perf_counter()
     wide_tile_variants = {d: time_tile_variants(torch, F, peaks, smi, d=d) for d in WIDE_TIMED_DIMS}
     print(f"phase 3 wide tile kernel's kernels 3-5 at D={WIDE_TIMED_DIMS}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_f32_variants = {d: time_tile_variants(torch, F, peaks, smi, d=d, dtype=torch.float32)
+                         for d in WIDE_TIMED_DIMS}
+    print(f"phase 3 fp32 multi-row kernel's kernels 2-5 at D={WIDE_TIMED_DIMS}: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
     # the fp32 model's prefill and resume (n > 4) run the fp32 tile arm
@@ -3233,12 +3304,13 @@ def main() -> int:
         c.launches = 0
     for c in wide_counters[1:]:
         c.mma_launches = 0
-    wh.wide_decode.split_launches = wh.wide_decode.tile_launches = 0
+    wh.wide_decode.split_launches = wh.wide_decode.tile_launches = wh.wide_decode.tile_f32_launches = 0
 
     def decode_counts():
-        """(4-row, split-K, tile) wide decode launches so far."""
+        """(4-row, split-K, tile, fp32 multi-row) wide decode launches so far."""
         d = wh.wide_decode
-        return (d.launches - d.split_launches - d.tile_launches, d.split_launches, d.tile_launches)
+        return (d.launches - d.split_launches - d.tile_launches - d.tile_f32_launches, d.split_launches,
+                d.tile_launches, d.tile_f32_launches)
 
     # the small model (depth 2): each run's prefill and resume are one
     # multi-row call a layer (4), its 64 steps one split-K call a layer (128)
@@ -3246,27 +3318,30 @@ def main() -> int:
     fp32_counts = decode_counts()
     check_small_model_decode(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
     bf16_counts = tuple(a - b for a, b in zip(decode_counts(), fp32_counts))
-    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide decode launches (4-row, split-K, tile) of the "
-          f"fp32 run {fp32_counts}, of the bf16 run {bf16_counts}")
-    if fp32_counts != (4, 128, 0) or bf16_counts != (0, 128, 4):
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide decode launches (4-row, split-K, tile, fp32 "
+          f"multi-row) of the fp32 run {fp32_counts}, of the bf16 run {bf16_counts}")
+    if fp32_counts != (0, 128, 0, 4) or bf16_counts != (0, 128, 4, 0):
         fail(f"the dim_head {WIDE_IDENTITY_DIM} model's decode launches: fp32 {fp32_counts}, bf16 "
-             f"{bf16_counts}, expected (4, 128, 0) and (0, 128, 4)")
-    bwd = wh.wide_attention_bwd
-    before = bwd.launches - bwd.mma_launches
+             f"{bf16_counts}, expected (0, 128, 0, 4) and (0, 128, 4, 0)")
+    fwd, bwd = wh.wide_attention_fwd, wh.wide_attention_bwd
+    before = (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches)
     check_small_model_training(torch, WIDE_IDENTITY_DIM)
-    fp32_bwd = bwd.launches - bwd.mma_launches - before
-    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: fp32 backward calls of the fp32 training run "
-          f"{fp32_bwd} (each the two passes {list(wh.wide_attention_kernels(WIDE_IDENTITY_DIM, torch.float32)['bwd'])})")
-    if fp32_bwd != FP32_TRAINING_BWD:
-        fail(f"the dim_head {WIDE_IDENTITY_DIM} fp32 training run called the fp32 backward {fp32_bwd} "
-             f"times, expected {FP32_TRAINING_BWD}")
+    fp32_fwd = fwd.launches - fwd.mma_launches - before[0]
+    fp32_bwd = bwd.launches - bwd.mma_launches - before[1]
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: fp32 forward calls of the fp32 training run "
+          f"{fp32_fwd} ({wh.wide_attention_kernels(WIDE_IDENTITY_DIM, torch.float32)['fwd']}), backward "
+          f"calls {fp32_bwd} (each the two passes "
+          f"{list(wh.wide_attention_kernels(WIDE_IDENTITY_DIM, torch.float32)['bwd'])})")
+    if (fp32_fwd, fp32_bwd) != (FP32_TRAINING_FWD, FP32_TRAINING_BWD):
+        fail(f"the dim_head {WIDE_IDENTITY_DIM} fp32 training run called the fp32 forward {fp32_fwd} and "
+             f"backward {fp32_bwd} times, expected {FP32_TRAINING_FWD} and {FP32_TRAINING_BWD}")
     check_small_model_training(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
     wide_launches = {c.__name__: c.launches for c in wide_counters[1:]}
     wide_launches.update({f"{c.__name__}_mma": c.mma_launches for c in wide_counters[1:]})
-    wide_launches.update(wide_decode=fp32_counts[0], wide_split=fp32_counts[1] + bf16_counts[1],
-                         wide_tile=bf16_counts[2])
+    wide_launches.update(wide_split=fp32_counts[1] + bf16_counts[1], wide_tile=bf16_counts[2],
+                         wide_tile_f32=fp32_counts[3])
     print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide kernel launches (wide_split: the split-K "
-          f"steps, wide_tile: the bf16 prefill and resume, wide_decode: the fp32 ones; _mma: the bf16 "
+          f"steps, wide_tile: the bf16 prefill and resume, wide_tile_f32: the fp32 ones; _mma: the bf16 "
           f"tensor-core kernels, in the bf16 autocast run) {json.dumps(wide_launches)}")
     for name, count in wide_launches.items():
         if count == 0:
@@ -3358,8 +3433,8 @@ def main() -> int:
                     row[f"d256_{key}_{field}"] = rows[name][field]
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
             row[f"fp32_{field}"] = attn_fp32[name][field]
-    # the wide rows' traces name the kernels the routing rule names; the
-    # fp32 backward rows also name the kernels SDPA's backward ran
+    # the wide rows' traces name the kernels the routing rule names, and
+    # the kernels SDPA ran beside them
     for d in WIDE_TIMED_DIMS:
         for key in ("bf16", "fp32"):
             named = fa.attention_kernels(d, wide_dtype(torch, key))
@@ -3369,13 +3444,14 @@ def main() -> int:
                 if any(k not in seen for k in want):
                     fail(f"wide attention {pass_} {key} at D = {d}: the trace shows {list(seen)}, the "
                          f"routing {want}")
-                if pass_ == "bwd":
-                    row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
-            print(f"phase 3 at D = {d} {key}: SDPA's backward ran "
-                  f"{wide_times['wide_attention_bwd'][(d, key, 'train')]['library_cuda_kernel']}")
-        seen = wide_times["wide_tile"][(d, "bf16", "resume")].get("device_kernels", {})
-        if not any(k.startswith("wide_decode_tile_kernel<") for k in seen):
-            fail(f"the bf16 resume at D = {d}: the trace shows {list(seen)}, not the tile kernel")
+                row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
+                print(f"phase 3 at D = {d} {key}: SDPA's {pass_} ran {row['library_cuda_kernel']}")
+        for arm, key, kernel in (("wide_tile", "bf16", "wide_decode_tile_kernel<"),
+                                 ("wide_tile_f32", "fp32", "wide_decode_fma_kernel<")):
+            for shape in WIDE_SHAPES:
+                seen = wide_times[arm][(d, key, shape)].get("device_kernels", {})
+                if not any(k.startswith(kernel) for k in seen):
+                    fail(f"the {key} {shape} at D = {d}: the trace shows {list(seen)}, not {kernel}>")
     print(f"phase 3's bf16 forward launches {traced} (torch.profiler trace of one call)")
 
     # result -------------------------------------------------------------------
@@ -3554,22 +3630,40 @@ def main() -> int:
                  f"D={WIDE_TIMED_DIMS[1]}); launches: phase 4's bf16 dim_head "
                  f"{WIDE_IDENTITY_DIM} model (prefill and resume); max_abs_err: worst of phase 2's "
                  "wide decode checks on this kernel"),
-                ("wide_decode", "wide", "wide_head", (WIDE_TIMED_DIMS[0], "fp32", "resume"),
+                ("wide_tile_f32", "wide_tile_f32", "wide_head", (WIDE_TIMED_DIMS[0], "fp32", "resume"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
-                 wide_decode_errs["wide"], {},
-                 f"kernels 1-5 at D > 256 on the 4-row kernel: fp32 q at n > 4 (and n <= 4 above "
-                 f"D=1024); fp32 resume n=1280 S=1281 B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280 "
-                 f"(d<D>_fp32_<shape>_*: D={WIDE_TIMED_DIMS[1]} and the prefill), bound at the fp32 "
-                 f"peak; library_ms is SDPA's causal forward in fp32 over the live keys; launches: "
-                 f"phase 4's fp32 dim_head {WIDE_IDENTITY_DIM} model (prefill and resume)"),
+                 wide_decode_errs["wide_tile_f32"],
+                 {f"tile_resume_{'' if d == WIDE_TIMED_DIMS[0] else f'd{d}_'}{kernel}_{k}": v
+                  for d, rows in wide_f32_variants.items() for kernel, row in rows.items()
+                  for k, v in row.items() if k != "device_kernels"},
+                 f"kernels 1-5 at D > 256 and n > 4, fp32 q: wide_decode_fma_kernel<KV, cols> "
+                 f"(register-tiled CUDA-core kernel, S once per column group); fp32 resume n=1280 "
+                 f"S=1281 B=4 H=16 D={WIDE_TIMED_DIMS[0]} lengths 1280 (d<D>_fp32_<shape>_*: "
+                 f"D={WIDE_TIMED_DIMS[1]} and the prefill n=257), bound at the fp32 peak; device ms "
+                 + ", ".join(f"D={d} {shape} {wide_times['wide_tile_f32'][(d, 'fp32', shape)]['device_ms']:.3f}"
+                             f" against SDPA's {wide_times['wide_tile_f32'][(d, 'fp32', shape)]['library_device_ms']:.3f}"
+                             for d in WIDE_TIMED_DIMS for shape in WIDE_SHAPES)
+                 + f"; library_ms is SDPA's causal forward in fp32 over the live keys; tile_resume_"
+                 f"<kernel>_*: kernels 2-5 at the resume shape (SDPA with the same mask) at "
+                 f"D={WIDE_TIMED_DIMS[0]} (tile_resume_d{WIDE_TIMED_DIMS[1]}_<kernel>_*: at "
+                 f"D={WIDE_TIMED_DIMS[1]}); launches: phase 4's fp32 dim_head {WIDE_IDENTITY_DIM} model "
+                 "(prefill and resume); max_abs_err: worst of phase 2's wide decode checks on this kernel "
+                 "(the 4-row wide_decode_kernel keeps only the step above D=1024, held in phase 2)"),
                 ("wide_attention_fwd", "wide_attention_fwd", "wide_head",
                  (WIDE_TIMED_DIMS[0], "bf16", "train"), "dalle_pytorch_tpu/ops/pallas_attention.py:129",
                  wide_attn_errs["bf16"]["wide_flash_attention_fwd"],
-                 {"fp32_max_abs_err": wide_attn_errs["fp32"]["wide_flash_attention_fwd"]},
+                 {"fp32_max_abs_err": wide_attn_errs["fp32"]["wide_flash_attention_fwd"],
+                  "fp32_launches": fp32_fwd},
                  f"bf16 causal B=4 H=16 N=1280 D={WIDE_TIMED_DIMS[0]} on tensor cores (`cuda_kernel`, "
-                 f"`groups` column groups; d<D>_<dtype>_train_*: the other D and fp32 on CUDA cores, "
-                 f"fp32 bound at the fp32 peak); launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model "
-                 "(training, fp32 and bf16 autocast; `_mma` launches the bf16 ones)"),
+                 f"`groups` column groups; d<D>_<dtype>_train_*: the other D and fp32, fp32 bound at the "
+                 f"fp32 peak); fp32 on the register-tiled CUDA-core wide_fwd_fma_kernel<cols>, S once "
+                 f"per column group (device ms "
+                 + ", ".join(f"D={d} {wide_times['wide_attention_fwd'][(d, 'fp32', 'train')]['device_ms']:.3f}"
+                             f" against SDPA's {wide_times['wide_attention_fwd'][(d, 'fp32', 'train')]['library_device_ms']:.3f}"
+                             for d in WIDE_TIMED_DIMS)
+                 + "; SDPA's fp32 kernels in d<D>_fp32_train_library_cuda_kernel); launches: phase 4's "
+                 f"dim_head {WIDE_IDENTITY_DIM} model (training, fp32 and bf16 autocast; `_mma` launches "
+                 "the bf16 ones, fp32_launches the fp32 run's)"),
                 ("wide_attention_bwd", "wide_attention_bwd", "wide_head",
                  (WIDE_TIMED_DIMS[0], "bf16", "train"),
                  "dalle_pytorch_tpu/ops/pallas_attention.py:274, dalle_pytorch_tpu/ops/pallas_attention.py:333",

@@ -6,11 +6,11 @@
 // Replace, at D > 256, the TPU kernels of the JAX package:
 //   * `dalle_pytorch_tpu/ops/pallas_decode.py`: `_decode_kernel` (plain and
 //     int8 arms), `_sparse_decode_kernel`, `_paged_decode_kernel` and
-//     `_sparse_paged_decode_kernel` -- two decode kernels here (the split-K
-//     step and the 4-row kernel), each with runtime flags for the block
-//     bitmap and the page table (null pointers when off) and the int8
-//     cache as a template type (bf16 q at n > 4 runs the tensor-core tile
-//     kernel of wide_decode_tile.cu instead);
+//     `_sparse_paged_decode_kernel` -- three decode kernels here (the
+//     split-K step, the fp32 multi-row kernel and the 4-row kernel), each
+//     with runtime flags for the block bitmap and the page table (null
+//     pointers when off) and the int8 cache as a template type (bf16 q at
+//     n > 4 runs the tensor-core tile kernel of wide_decode_tile.cu);
 //   * `dalle_pytorch_tpu/ops/pallas_attention.py`: `_fwd_kernel` (forward),
 //     `_dq_kernel` and `_dkv_kernel` (backward), in their all / causal /
 //     static-mask arms.
@@ -39,47 +39,50 @@
 //     sum), so every warp computes; one warp per query row runs the online
 //     softmax of the tile (a lane per key, expf); then every thread adds P V
 //     for its own columns. One code path for every variant.
-// bf16 q at n > 4 rows runs wide_decode_tile.cu's tensor-core tile kernel;
-// `wide_decode_kernel` (below) keeps what is left: fp32 q at n > 4, and the
-// step (n <= 4) above D = 1024.
+// bf16 q at n > 4 rows runs wide_decode_tile.cu's tensor-core tile kernel,
+// fp32 q at n > 4 `wide_decode_fma_kernel` (below, with the fp32 forward);
+// `wide_decode_kernel` keeps what is left: the step (n <= 4) above D =
+// 1024.
 //
 // Design of the rest: column groups. A block owns at most kDecCols
-// (decode) or kCols (the fp32 forward) or `cols` (bf16 attention, 128-256,
-// and the fp32 backward, 192-320: the wrapper's plan) output columns. It
-// forms the full scores (and, backward, the full dO . V^T) by looping over
-// all of D -- lanes over channels in decode, chunks of staged channels in
-// attention -- and accumulates only its own columns of o, dq, dk or dv.
-// Registers and shared memory are then bounded for every D, at the cost of
-// recomputing the scores once per column group (ceil(D / 256) groups in
-// decode, ceil(D / 64) in the fp32 forward, ceil(D / 256) in the bf16
-// forward, ceil(D / 128) in the bf16 backward and ceil(D / 320) in the
-// fp32 backward).
+// (the step above 1024) or `cols` (bf16 attention, 128-256, and the fp32
+// forward, multi-row decode and backward, 192-320: the wrapper's plan)
+// output columns. It forms the full scores (and, backward, the full dO .
+// V^T) by looping over all of D -- lanes over channels in the step, staged
+// chunks of channels elsewhere -- and accumulates only its own columns of
+// o, dq, dk or dv. Registers and shared memory are then bounded for every
+// D, at the cost of recomputing the scores once per column group
+// (ceil(D / 256) groups in the step above 1024, ceil(D / 256) in the bf16
+// forward, ceil(D / 128) in the bf16 backward and ceil(D / 320) in fp32).
 //
 // bfloat16 attention runs on tensor cores (the second half of this file):
 // mma.sync with fp32 accumulators, 64-row tiles, operands staged as 64 x 64
 // tiles through a cp.async ring. The rest on CUDA cores in fp32:
-//   * decode at n > 4 with fp32 q, or n <= 4 above D = 1024
-//     (`wide_decode_kernel`): a block per (row, head) x 4 query
-//     rows x column group, keys in tiles of 32 (a lane per key in the
-//     softmax, a warp per key in the dot product), K and V read from
-//     device memory unstaged; only keys some row of the block may see are read, a
-//     dead page's table entry is never followed, and a value no row sees
-//     is never loaded, so stale or poisoned bytes reach no result. The
-//     bitmap and page table only choose which keys are read and where from:
-//     an all-ones bitmap and the paged layout run the same sums in the same
-//     order as the plain contiguous cache (bit-identical outputs);
-//   * fp32 attention forward: a block per (32-row query tile, head, batch
-//     row, 64-column group) loops over 64-key tiles (the mask layout's and
-//     the plain versions' tile) with an online softmax in base 2;
+//   * the step above D = 1024 (`wide_decode_kernel`): a block per (row,
+//     head) x 4 query rows x column group, keys in tiles of 32 (a lane per
+//     key in the softmax, a warp per key in the dot product), K and V read
+//     from device memory unstaged; only keys some row of the block may see
+//     are read, a dead page's table entry is never followed, and a value no
+//     row sees is never loaded, so stale or poisoned bytes reach no result.
+//     The bitmap and page table only choose which keys are read and where
+//     from: an all-ones bitmap and the paged layout run the same sums in
+//     the same order as the plain contiguous cache (bit-identical outputs);
+//   * fp32 attention forward and fp32 decode at n > 4
+//     (`wide_fwd_fma_kernel`, `wide_decode_fma_kernel`): a block per (64
+//     query rows, head and batch row, group of up to 320 columns) over the
+//     live 64-key tiles, S formed once per group as 4 x 4 register
+//     micro-tiles on all eight warps from a cp.async ring, then the online
+//     softmax and O += P V (see the section);
 //   * fp32 attention backward (`wide_dq_fma_kernel`, `wide_dkv_fma_kernel`):
 //     two passes, dq by 64-row query tile and dk/dv by 32-key tile, each
 //     forming S and dP once per column group of up to 320 columns with
 //     register micro-tiles read as float4 from a cp.async ring, then p =
 //     exp(s scale - lse) and dS = p (dP - delta) scale (see the section).
 //     No atomics: every output is bit-identical run to run.
-// What bounds it: the same work as the D <= 256 kernels (bytes in decode,
-// operations in attention), here times the column groups' recomputation in
-// all but the split-K step; decode and fp32 attention run on CUDA cores.
+// What bounds it: the same work as the D <= 256 kernels (bytes at the
+// decode step, operations in the multi-row decode and attention), here
+// times the column groups' recomputation in all but the split-K step; the
+// fp32 kernels run on CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -711,13 +714,6 @@ cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
 
 // --------------------------------------------------------------- attention
 
-// the fp32 forward's tiles (the fp32 backward's are kFma*, below)
-constexpr int kBM = 32;     // query rows a block owns
-constexpr int kBN = 64;     // keys a tile looped over
-constexpr int kChunk = 32;  // channels staged at a time for the scores
-constexpr int kCols = 64;   // output columns a block owns
-constexpr int kPer = kThreads / kBM;  // threads a row of the owned tile (8)
-constexpr int kPad = kChunk + 1;
 enum { kModeAll = 0, kModeCausal = 1, kModeMask = 2 };
 
 struct AttnArgs {
@@ -727,10 +723,10 @@ struct AttnArgs {
   void *o, *lse_out, *dq, *dk, *dv;
   float* dq_acc;  // bf16 backward: the fp32 dq workspace [B,H,nq,D]
   int B, H, nq, nk, D, mode;
-  int cols;      // output columns a block owns (bf16 and the fp32 backward: an instance)
+  int cols;      // output columns a block owns (an instance)
   bool resident;  // bf16: the block keeps its most re-read operand in shared memory
   int smem;       // dynamic shared bytes a block takes (the wrapper's plan)
-  int unit;       // fp32 backward: bytes of a copy piece (set by attention_bwd_fp32)
+  int unit;       // fp32: bytes of a copy piece (set by attention_fwd_fp32 / attention_bwd_fp32)
   float scale;
   cudaStream_t stream;
 };
@@ -742,148 +738,12 @@ __device__ __forceinline__ bool visible(const AttnArgs& a, int i, int j) {
   return true;
 }
 
-// rows [r0, r0 + R) x channels [c0, c0 + kChunk) of x [rows, D] -> dst
-// [R][kPad] as fp32, zeros outside
-template <typename T, int R>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* x, int r0, int rows, int c0, int D) {
-  for (int e = threadIdx.x; e < R * kChunk; e += kThreads) {
-    const int r = e / kChunk, c = e % kChunk;
-    const bool in = r0 + r < rows && c0 + c < D;
-    dst[r * kPad + c] = in ? to_float(x[(size_t)(r0 + r) * D + c0 + c]) : 0.f;
-  }
-}
-
-// rows [r0, r0 + R) x the block's columns [g0, g0 + kCols) -> dst [R][kCols]
-template <typename T, int R>
-__device__ __forceinline__ void stage_cols(float* dst, const T* x, int r0, int rows, int g0, int D) {
-  for (int e = threadIdx.x; e < R * kCols; e += kThreads) {
-    const int r = e / kCols, c = e % kCols;
-    const bool in = r0 + r < rows && g0 + c < D;
-    dst[e] = in ? to_float(x[(size_t)(r0 + r) * D + g0 + c]) : 0.f;
-  }
-}
-
-// the block's tile of x . y^T over all of D: a [kBM] x [kBN] product, this
-// thread's row `me` against columns (t % kPer) + kPer u; x rows [x0, x0 +
-// kBM) of nx, y rows [y0, y0 + kBN) of ny
-template <typename T>
-__device__ __forceinline__ void tile_dots(float (&s)[kBN / kPer], float* xs, float* ys, const T* x,
-                                          const T* y, int x0, int nx, int y0, int ny, int D) {
-  const int me = threadIdx.x / kPer, sub = threadIdx.x % kPer;
-#pragma unroll
-  for (int u = 0; u < kBN / kPer; ++u) s[u] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += kChunk) {
-    __syncthreads();
-    stage_chunk<T, kBM>(xs, x, x0, nx, c0, D);
-    stage_chunk<T, kBN>(ys, y, y0, ny, c0, D);
-    __syncthreads();
-    for (int c = 0; c < kChunk; ++c) {
-      const float xv = xs[me * kPad + c];
-#pragma unroll
-      for (int u = 0; u < kBN / kPer; ++u) s[u] = fmaf(xv, ys[(sub + kPer * u) * kPad + c], s[u]);
-    }
-  }
-}
-
-// the row's reduction over its kPer threads (consecutive lanes)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = kPer / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = kPer / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// forward: grid (ceil(nq / kBM), B * H, ceil(D / kCols))
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_fwd_kernel(AttnArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [kBM][kPad]
-  float* ks = qs + kBM * kPad;       // [kBN][kPad]
-  float* ps = ks + kBN * kPad;       // [kBM][kBN + 1]
-  float* vs = ps + kBM * (kBN + 1);  // [kBN][kCols]
-  constexpr int U = kBN / kPer, W = kCols / kPer;
-  const int row0 = blockIdx.x * kBM, bh = blockIdx.y, g0 = blockIdx.z * kCols;
-  const int me = threadIdx.x / kPer, sub = threadIdx.x % kPer, i = row0 + me;
-  const size_t base_q = (size_t)bh * a.nq * a.D, base_k = (size_t)bh * a.nk * a.D;
-  const T* q = static_cast<const T*>(a.q) + base_q;
-  const T* k = static_cast<const T*>(a.k) + base_k;
-  const T* v = static_cast<const T*>(a.v) + base_k;
-  const float scale2 = a.scale * kLog2e;  // fl(scale log2(e)), as the plain version forms it
-  const int n_kt = (a.nk + kBN - 1) / kBN;
-  int kt_end = n_kt;
-  if (a.mode == kModeCausal) kt_end = min(n_kt, (min(row0 + kBM, a.nq) - 1) / kBN + 1);
-  float m = -INFINITY, l = 0.f, acc[W], s[U];
-#pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = 0.f;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (a.mode == kModeMask && a.layout[(row0 / 64) * n_kt + kt] == 0) continue;  // block-uniform
-    tile_dots<T>(s, qs, ks, q, k, row0, a.nq, kt * kBN, a.nk, a.D);
-    float x[U], tmax = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = kt * kBN + sub + kPer * u;
-      x[u] = j >= a.nk ? -INFINITY : visible(a, i, j) ? s[u] * scale2 : kMasked;
-      tmax = fmaxf(tmax, x[u]);
-    }
-    const float m_new = fmaxf(m, group_max(tmax));
-    const float corr = exp2f(m - m_new);  // 0 on the first tile
-    float psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float p = exp2f(x[u] - m_new);
-      psum += p;
-      ps[me * (kBN + 1) + sub + kPer * u] = p;
-    }
-    l = fmaf(l, corr, group_sum(psum));
-    m = m_new;
-    stage_cols<T, kBN>(vs, v, kt * kBN, a.nk, g0, a.D);
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] *= corr;
-    for (int j = 0; j < kBN; ++j) {
-      const float p = ps[me * (kBN + 1) + j];
-#pragma unroll
-      for (int w = 0; w < W; ++w) acc[w] = fmaf(p, vs[j * kCols + sub + kPer * w], acc[w]);
-    }
-  }
-  if (i >= a.nq) return;
-  T* o = static_cast<T*>(a.o) + base_q + (size_t)i * a.D;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const int c = g0 + sub + kPer * w;
-    if (c < a.D) store(o + c, acc[w] / l);
-  }
-  if (blockIdx.z == 0 && sub == 0)
-    static_cast<float*>(a.lse_out)[(size_t)bh * a.nq + i] = (m + log2f(l)) * kLn2;
-}
-
-constexpr int kFwdSmem = 4 * (kBM * kPad + kBN * kPad + kBM * (kBN + 1) + kBN * kCols);
-
-template <typename K>
-cudaError_t launch_attn(K kernel, int smem, dim3 grid, const AttnArgs& a) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, a.stream>>>(a);
-  return cudaGetLastError();
-}
-
-// float32 forward: the CUDA-core kernel above (the bf16 inputs take the
-// tensor-core kernels below; it has only a float instance)
-cudaError_t attention_fwd_fp32(const AttnArgs& a) {
-  const dim3 grid((a.nq + kBM - 1) / kBM, a.B * a.H, (a.D + kCols - 1) / kCols);
-  return launch_attn(wide_fwd_kernel<float>, kFwdSmem, grid, a);
-}
-
 // ------------------------------------------- float32 backward, CUDA cores
 //
 // Two passes, as the TPU kernels `_dq_kernel` and `_dkv_kernel`, each
 // forming S = Q K^T and dP = dO V^T over all of D once per column group
 // (one group up to D = 320, two at D = 512: `ops/wide_head.py:
-// wide_fp32_bwd_plan`), with fp32 products on CUDA cores:
+// wide_fp32_plan`), with fp32 products on CUDA cores:
 //   * `wide_dq_fma_kernel<COLS>`: a block per (64 query rows, head and
 //     batch row, group of COLS output columns) loops over the live 64-key
 //     tiles (a causal block stops at the diagonal, a masked layout's dead
@@ -990,17 +850,19 @@ __device__ __forceinline__ void axpy4(float* acc, float w, const float4& x) {
   acc[3] = fmaf(w, x.w, acc[3]);
 }
 
-// The ring: items 0, 1, ... of a block, each filling one slot, `fetch(item,
-// slot)` issuing its copies and `compute(item, slot)` consuming it; an item
-// is an (outer tile, step) pair that `next` advances, `done` ends.
-template <typename Item, typename Next, typename Done, typename Fetch, typename Compute>
+// The ring: items 0, 1, ... of a block, each filling one slot of SLOT
+// floats, `fetch(item, slot)` issuing its copies and `compute(item, slot)`
+// consuming it; an item is an (outer tile, step) pair that `next`
+// advances, `done` ends.
+template <int SLOT = kFmaSlot, typename Item, typename Next, typename Done, typename Fetch,
+          typename Compute>
 __device__ __forceinline__ void run_ring(float* ring, Item first, Next next, Done done, Fetch fetch,
                                          Compute compute) {
   Item f = first, c = first;
 #pragma unroll 1
   for (int st = 0; st < kFmaStages - 1; ++st) {
     if (!done(f)) {
-      fetch(f, ring + st * kFmaSlot);
+      fetch(f, ring + st * SLOT);
       f = next(f);
     }
     fma_commit();
@@ -1010,11 +872,11 @@ __device__ __forceinline__ void run_ring(float* ring, Item first, Next next, Don
     fma_wait<kFmaStages - 2>();  // this thread's copies of item `it` landed
     __syncthreads();             // everyone's; and item it - 1's slot is consumed
     if (!done(f)) {
-      fetch(f, ring + ((it + kFmaStages - 1) % kFmaStages) * kFmaSlot);
+      fetch(f, ring + ((it + kFmaStages - 1) % kFmaStages) * SLOT);
       f = next(f);
     }
     fma_commit();
-    compute(c, ring + (it % kFmaStages) * kFmaSlot);
+    compute(c, ring + (it % kFmaStages) * SLOT);
     c = next(c);
   }
   fma_wait<0>();
@@ -1343,24 +1205,37 @@ __global__ void __launch_bounds__(kThreads, 1) wide_dkv_fma_kernel(AttnArgs a) {
 
 constexpr int kMaxDevices = 64;
 
-// the two passes of one column width; the shared-memory cap is set once
-// per kernel and device
+// the widest copy piece (16, 8, 4, 2 or 1 bytes, at least `least`) that
+// divides a row's bytes and every pointer or-ed into `ptrs`; 0 if none
+int piece_unit(uintptr_t ptrs, long long row_bytes, int least) {
+  for (int unit = 16; unit >= least; unit /= 2)
+    if (row_bytes % unit == 0 && ptrs % unit == 0) return unit;
+  return 0;
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize of `kernel`, set once per
+// device (`capped` is the caller's, one per kernel instance)
+template <typename K>
+cudaError_t cap_smem_once(K kernel, int smem, bool (&capped)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && capped[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < kMaxDevices) capped[dev] = true;
+  return err;
+}
+
+// the two passes of one column width
 template <int COLS>
 cudaError_t launch_bwd_fma(const AttnArgs& a) {
   static bool capped[2][kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   const int groups = (a.D + COLS - 1) / COLS;
   void (*const passes[2])(AttnArgs) = {wide_dq_fma_kernel<COLS>, wide_dkv_fma_kernel<COLS>};
   const dim3 grids[2] = {dim3((a.nq + 63) / 64, a.B * a.H, groups),
                          dim3((a.nk + kFmaKeys - 1) / kFmaKeys, a.B * a.H, groups)};
   for (int p = 0; p < 2; ++p) {
-    if (dev >= kMaxDevices || !capped[p][dev]) {
-      err = cudaFuncSetAttribute(passes[p], cudaFuncAttributeMaxDynamicSharedMemorySize, kFmaSmem);
-      if (err != cudaSuccess) return err;
-      if (dev < kMaxDevices) capped[p][dev] = true;
-    }
+    cudaError_t err = cap_smem_once(passes[p], kFmaSmem, capped[p]);
+    if (err != cudaSuccess) return err;
     passes[p]<<<grids[p], kThreads, kFmaSmem, a.stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1373,13 +1248,531 @@ cudaError_t launch_bwd_fma(const AttnArgs& a) {
 cudaError_t attention_bwd_fp32(AttnArgs a) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
                          reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
-  if (ptrs % 4 != 0 || a.smem != kFmaSmem) return cudaErrorInvalidValue;
-  a.unit = 16;  // the widest copy piece D and the pointers allow
-  while (a.unit > 4 && ((a.D * 4) % a.unit != 0 || ptrs % a.unit != 0)) a.unit /= 2;
+  a.unit = piece_unit(ptrs, (long long)a.D * 4, 4);  // the widest copy piece D and the pointers allow
+  if (a.unit == 0 || a.smem != kFmaSmem) return cudaErrorInvalidValue;
   switch (a.cols) {
     case 192: return launch_bwd_fma<192>(a);
     case 256: return launch_bwd_fma<256>(a);
     case 320: return launch_bwd_fma<320>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------- float32 forward and multi-row decode, CUDA cores
+//
+// Two kernels on the backward's machinery (run_ring, fetch_sub, 64 x 32
+// sub-tiles in 2-slot rings), each the online softmax of a block of 64
+// query rows over the live 64-key tiles, forming S = Q K^T once per column
+// group (one group up to D = 320, two at 512: `ops/wide_head.py:
+// wide_fp32_plan`), fp32 products on CUDA cores, no TF32:
+//   * `wide_fwd_fma_kernel<COLS>` replaces `_fwd_kernel`
+//     (`dalle_pytorch_tpu/ops/pallas_attention.py:129`): o and lse of the
+//     flash-attention forward, all / causal (top-left) / static mask;
+//   * `wide_decode_fma_kernel<KV, COLS>` replaces the decode kernels
+//     (`dalle_pytorch_tpu/ops/pallas_decode.py` `_decode_kernel` and its int8
+//     arm, `_sparse_decode_kernel`, `_paged_decode_kernel`,
+//     `_sparse_paged_decode_kernel`) for fp32 q at n > 4 rows: the function
+//     of wide_decode_kernel, over keys j <= len - n + i, cut by the bitmap,
+//     read through the page table.
+// A block is 256 threads in a 16 x 16 grid per (column group, head and
+// batch row, 64 query rows); a thread owns rows ty + 16 i (i < 4), keys tx +
+// 16 j of S (j < 4) and columns 4 tx .. 4 tx + 3 of each 64 of the group.
+// The query tiles with the most key tiles launch first (grid y reversed). A
+// causal block stops at the diagonal, the decode at its last row's bound;
+// a masked layout's or a bitmap's dead tiles are skipped block-uniformly.
+// Per key tile, items through the ring:
+//   * S items: 128 channels of Q (sub-tiles 0-3 of a slot) and of K (4-7);
+//     S += Q K^T as a 4 x 4 micro-tile a thread on all eight warps, Q and K
+//     read as float4 (8 FMAs a load; every thread forms S alone, as there is
+//     no dP beside it);
+//   * after the last S item, each row's online softmax over the 16 lanes of
+//     its half-warp, P into shared memory, O rescaled in registers;
+//   * column items: up to 256 of the group's channels of V, O += P V with a
+//     float4 of P serving 16 columns (12.8-13.3 FMAs a load); O is COLS / 4
+//     registers a thread.
+// Arithmetic: the forward's of the kernel it replaced and the plain version
+// (base 2, x = s fl(scale log2 e) for a visible pair, kMasked for a masked
+// one inside a live tile, -inf past nk, lse = (m + log2 l) ln 2); the
+// decode's that of the fp32 tile arm (flash_decode_tile_f32.cu) and the
+// reference: q times the scale in fp32 before the product (as Q is read),
+// P = e^(S - m) by expf, fp32 P into P V, an int8 cache dequantized (k_int8
+// * k_scale, v_int8 * v_scale into the slot's fp32 sub-tiles: cp.async
+// cannot convert, so int8 rows land in a raw area of the slot first), a
+// row with no visible key written as zeros. Only keys some row of the
+// block may see are copied; every other K or V row, and every channel past
+// D, is zero-filled by the copy itself, and a dead page's table entry is
+// never followed. Tile boundaries depend on key positions only and every
+// variant runs one code path: an all-ones bitmap gives the plain
+// variant's bits, the paged kernel the contiguous kernel's on the gathered
+// view. No atomics: every output is written once, by one thread, and is
+// bit-identical run to run. `flash_decode_tile_f32_plain` with 64-key tiles
+// is the decode's model on the CPU.
+// What bounds them: operations, 4 D flops a visible pair (1.00 ms at D =
+// 320 for the training shapes at the card's fp32 rate); they do that at one
+// group and 2 D more for each further group, read Q, K and V from L2 once
+// per 64 x 64 tile pair, and are held by shared-memory loads (see the
+// backward's note: 8 and 13 FMAs a float4 load against the 16 that would
+// feed the FMA units).
+
+constexpr int kFwdFmaSmem = 4 * (kFmaStages * kFmaSlot + 64 * kFmaLdp);  // the ring, then P
+// an int8 decode slot adds a raw area: 64 rows of up to 256 int8 channels
+// (rows 288 bytes apart: the dequantizing reads are conflict-free), then
+// the rows' scales
+constexpr int kRawLd = 288;
+constexpr int kRawFloats = (64 * kRawLd + 64 * 4) / 4;
+constexpr int kDecTableCache = 128;  // page-table entries a paged block stages in shared memory
+__host__ __device__ constexpr int decode_fma_slot(bool quant) { return kFmaSlot + (quant ? kRawFloats : 0); }
+// dynamic shared bytes of the decode (ops/wide_head.py fma_smem)
+__host__ __device__ constexpr int decode_fma_smem(bool quant) {
+  return 4 * (kFmaStages * decode_fma_slot(quant) + 64 * kFmaLdp);
+}
+
+// reductions over the 16 lanes of a half-warp (the threads of one ty)
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// S += Q K^T over `subs` 32-channel sub-tiles of an S item's slot (Q in
+// sub-tiles 0-3, K in 4-7): rows ty + 16 i against keys tx + 16 j; with
+// SCALE_Q each Q element times `qs` as it is read, as the reference scales q
+template <bool SCALE_Q>
+__device__ __forceinline__ void s_product(float (&sc)[4][4], const float* slot, int subs, int ty, int tx,
+                                          float qs) {
+#pragma unroll 1
+  for (int h = 0; h < subs; ++h) {
+    const float* xs = slot + h * kFmaSub;
+    const float* ys = slot + (4 + h) * kFmaSub;
+#pragma unroll
+    for (int c = 0; c < kFmaChunk; c += 4) {
+      float4 xa[4], yb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xa[i] = ld4(xs + (ty + 16 * i) * kFmaLd + c);
+        if (SCALE_Q) {
+          xa[i].x *= qs;
+          xa[i].y *= qs;
+          xa[i].z *= qs;
+          xa[i].w *= qs;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yb[j] = ld4(ys + (tx + 16 * j) * kFmaLd + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = dot4(xa[i], yb[j], sc[i][j]);
+    }
+  }
+}
+
+// O += P V over column item u (V sub-tiles 0-7 of the slot: the group's
+// channels from 256 u): rows ty + 16 i, columns 4 tx .. 4 tx + 3 of each 64,
+// float4 f of the item from sub-tile 2 f + tx / 8
+template <int COLS>
+__device__ __forceinline__ void pv_product(float (&acc)[4][COLS / 16], const float* p_s, const float* slot,
+                                           int u, int ty, int tx) {
+  constexpr int NU = (COLS + 255) / 256;
+  const float* vc = slot + (tx / 8) * kFmaSub + 4 * (tx % 8);
+#pragma unroll
+  for (int uu = 0; uu < NU; ++uu) {
+    if (uu != u) continue;
+#pragma unroll 2
+    for (int key = 0; key < 64; key += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = ld4(p_s + (ty + 16 * i) * kFmaLdp + key);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          if (256 * uu + 64 * f >= COLS) continue;
+          const float4 vv = ld4(vc + 2 * f * kFmaSub + (key + kk) * kFmaLd);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (4 * uu + f)], comp4(w[i], kk), vv);
+        }
+    }
+  }
+}
+
+// 32-channel sub-tiles an item holds from channel c0: S items at most 4,
+// column items at most 8 (COLS - 256 u channels of the group)
+__device__ __forceinline__ int s_subs(int D, int c0) { return min(4, (D - c0 + kFmaChunk - 1) / kFmaChunk); }
+template <int COLS>
+__device__ __forceinline__ int v_subs(int u) { return min(8, (COLS - 256 * u) / kFmaChunk); }
+
+// forward: grid (groups * B * H, ceil(nq / 64))
+template <int COLS>
+__global__ void __launch_bounds__(kThreads, 1) wide_fwd_fma_kernel(AttnArgs a) {
+  constexpr int NC = COLS / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* p_s = smem + kFmaStages * kFmaSlot;  // [64 rows][kFmaLdp]
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int D = a.D, unit = a.unit, groups = (D + COLS - 1) / COLS;
+  const int bh = blockIdx.x / groups, g0 = (blockIdx.x % groups) * COLS;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const size_t base_q = (size_t)bh * a.nq * D, base_k = (size_t)bh * a.nk * D;
+  const float* q = static_cast<const float*>(a.q) + base_q;
+  const float* k = static_cast<const float*>(a.k) + base_k;
+  const float* v = static_cast<const float*>(a.v) + base_k;
+  const float scale2 = a.scale * kLog2e;  // fl(scale log2(e)), as the plain version forms it
+  const int n_kt = (a.nk + 63) / 64;
+  const int kt_end = a.mode == kModeCausal ? min(n_kt, (min(row0 + 64, a.nq) - 1) / 64 + 1) : n_kt;
+  const int n_s = (D + 127) / 128;                  // S items a key tile
+  const int n_g = (min(COLS, D - g0) + 255) / 256;  // the group's live column items
+  auto live = [&](int kt) {
+    if (a.mode == kModeMask)
+      while (kt < kt_end && a.layout[(row0 / 64) * n_kt + kt] == 0) ++kt;
+    return kt;
+  };
+  auto next = [&](FmaItem x) { return ++x.step < n_s + n_g ? x : FmaItem{live(x.tile + 1), 0}; };
+  auto done = [&](FmaItem x) { return x.tile >= kt_end; };
+  auto fetch = [&](FmaItem x, float* slot) {
+    const int key0 = x.tile * 64;
+    if (x.step < n_s) {
+      const int c0 = 128 * x.step, subs = s_subs(D, c0);
+      for (int h = 0; h < subs; ++h) {
+        fetch_sub<64>(slot + h * kFmaSub, q, row0, a.nq, c0 + h * kFmaChunk, D, unit);
+        fetch_sub<64>(slot + (4 + h) * kFmaSub, k, key0, a.nk, c0 + h * kFmaChunk, D, unit);
+      }
+    } else {
+      const int u = x.step - n_s, subs = v_subs<COLS>(u);
+      for (int h = 0; h < subs; ++h)
+        fetch_sub<64>(slot + h * kFmaSub, v, key0, a.nk, g0 + 256 * u + h * kFmaChunk, D, unit);
+    }
+  };
+
+  float m[4], l[4], sc[4][4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  auto compute = [&](FmaItem x, const float* slot) {
+    if (x.step >= n_s) {
+      pv_product<COLS>(acc, p_s, slot, x.step - n_s, ty, tx);
+      return;
+    }
+    if (x.step == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    }
+    s_product<false>(sc, slot, s_subs(D, 128 * x.step), ty, tx, 1.f);
+    if (x.step < n_s - 1) return;
+    // the scores are whole: the online softmax in base 2, P into shared
+    // memory (read by the column items, after the ring's next barrier)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty + 16 * i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = x.tile * 64 + tx + 16 * j;
+        sc[i][j] = key >= a.nk ? -INFINITY : visible(a, row, key) ? sc[i][j] * scale2 : kMasked;
+        tmax = fmaxf(tmax, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(tmax));  // finite: a live tile holds a key below nk
+      const float corr = exp2f(m[i] - m_new);            // 0 on the first tile
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(sc[i][j] - m_new);
+        psum += p;
+        p_s[(ty + 16 * i) * kFmaLdp + tx + 16 * j] = p;
+      }
+      l[i] = fmaf(l[i], corr, half_sum(psum));
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+  };
+  run_ring(ring, FmaItem{live(0), 0}, next, done, fetch, compute);
+
+  float* o = static_cast<float*>(a.o) + base_q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= a.nq) continue;
+#pragma unroll
+    for (int mm = 0; mm < COLS / 64; ++mm)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = g0 + 64 * mm + 4 * tx + c;
+        if (col < D) o[(size_t)r * D + col] = acc[i][4 * mm + c] / l[i];
+      }
+    if (g0 == 0 && tx == 0)
+      static_cast<float*>(a.lse_out)[(size_t)bh * a.nq + r] = (m[i] + log2f(l[i])) * kLn2;
+  }
+}
+
+// decode: grid (groups * B * H, ceil(n / 64)); q_unit and kv_unit are the
+// bytes of a copy piece of q and of the cache
+template <typename KV, int COLS>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_decode_fma_kernel(const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                       const int* __restrict__ lengths, const int* __restrict__ bitmap,
+                       const int* __restrict__ page_table, float* __restrict__ out, int H, int n, int S,
+                       int D, int n_blocks, int block_k, int page_size, int n_pool, int q_unit,
+                       int kv_unit, float sm_scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int ELT = (int)sizeof(KV), NC = COLS / 16;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int table_s[kDecTableCache];
+  float* ring = smem;
+  float* p_s = smem + kFmaStages * decode_fma_slot(QUANT);  // [64 rows][kFmaLdp]
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int groups = (D + COLS - 1) / COLS;
+  const int bh = blockIdx.x / groups, g0 = (blockIdx.x % groups) * COLS;
+  const int b = bh / H, h = bh % H;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int len = min(max(lengths[b], 0), S);
+  const int key1 = max(len - n + min(row0 + 64, n), 0);  // keys [0, key1): the last row's
+  const int* live_b = bitmap ? bitmap + (size_t)b * n_blocks : nullptr;
+  const int* table_b = page_table ? page_table + (size_t)b * (S / page_size) : nullptr;
+  const float* qb = q + (size_t)bh * n * D;
+  // the table entries of the block's pages, read once (an entry is only
+  // checked and followed where a live key is copied from its page)
+  if (table_b && key1 > 0) {
+    const int pages = min((key1 - 1) / page_size + 1, kDecTableCache);
+    for (int i = threadIdx.x; i < pages; i += kThreads) table_s[i] = table_b[i];
+  }
+  __syncthreads();
+
+  const int t_end = (key1 + 63) / 64;
+  const int n_s = (D + 127) / 128;
+  const int n_g = (min(COLS, D - g0) + 255) / 256;
+  // with a bitmap: the first tile at or after t with a live key below key1
+  auto live = [&](int t) {
+    if (live_b) {
+      for (; t < t_end; ++t) {
+        const int last = min(t * 64 + 64, key1) - 1;
+        bool any = false;
+        for (int blk = t * 64 / block_k; blk <= last / block_k && !any; ++blk) any = live_b[blk] != 0;
+        if (any) break;
+      }
+    }
+    return t;
+  };
+  auto next = [&](FmaItem x) { return ++x.step < n_s + n_g ? x : FmaItem{live(x.tile + 1), 0}; };
+  auto done = [&](FmaItem x) { return x.tile >= t_end; };
+  // the row of k/v (and of the scales) holding key `pos`, or -1 where no
+  // row of the block sees it
+  auto src_row = [&](int pos) -> long long {
+    if (pos >= key1 || (live_b && live_b[pos / block_k] == 0)) return -1;
+    if (table_b) {
+      const int pi = pos / page_size;
+      const int page = pi < kDecTableCache ? table_s[pi] : table_b[pi];
+      if (page < 0 || page >= n_pool) __trap();  // a corrupt table faults loudly
+      return ((long long)page * H + h) * page_size + (pos - pi * page_size);
+    }
+    return (long long)bh * S + pos;
+  };
+  // K or V channels [c0, c0 + 32 subs) of key tile t: fp32 into the slot's
+  // sub-tiles from sub0, int8 into its raw rows (and the rows' scales), in
+  // pieces of kv_unit bytes; zeros for keys no row sees and past D
+  auto fetch_kv = [&](const KV* x, const float* scale, int t, int c0, int subs, float* slot, int sub0) {
+    unsigned char* raw = reinterpret_cast<unsigned char*>(slot + kFmaSlot);
+    const char* xb = reinterpret_cast<const char*>(x);
+    auto piece = [&](long long row, int hh, int j, int off) {  // `off` bytes into sub-tile hh's row
+      const int c = c0 + hh * kFmaChunk + off / ELT;
+      const bool ok = row >= 0 && c < D;
+      void* dst = QUANT ? static_cast<void*>(raw + j * kRawLd + hh * kFmaChunk + off)
+                        : static_cast<void*>(reinterpret_cast<unsigned char*>(
+                              slot + (sub0 + hh) * kFmaSub + j * kFmaLd) + off);
+      split_copy(dst, ok ? xb + (row * D + c) * ELT : xb, ok, kv_unit);
+    };
+    if (kv_unit == 16) {  // block-uniform: a thread's rows found once an item
+      constexpr int PPS = kFmaChunk * ELT / 16;     // pieces a sub-tile row: 8 fp32, 2 int8
+      constexpr int RPP = kThreads / PPS;           // rows a pass: 32, or 128 (two sub-tiles)
+      constexpr int NR = RPP >= 64 ? 1 : 64 / RPP;  // rows a thread
+      constexpr int HS = RPP > 64 ? RPP / 64 : 1;   // sub-tiles a pass
+      const int j0 = (threadIdx.x / PPS) % 64, off = (threadIdx.x % PPS) * 16;
+      const int h0 = (threadIdx.x / PPS) / 64;
+      long long rows[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) rows[r] = src_row(t * 64 + j0 + r * RPP);
+      for (int hh = h0; hh < subs; hh += HS)
+#pragma unroll
+        for (int r = 0; r < NR; ++r) piece(rows[r], hh, j0 + r * RPP, off);
+    } else {
+      const int pps = kFmaChunk * ELT / kv_unit;
+      for (int e = threadIdx.x; e < 64 * pps * subs; e += kThreads) {
+        const int hh = e / (64 * pps), j = (e / pps) % 64;
+        piece(src_row(t * 64 + j), hh, j, (e % pps) * kv_unit);
+      }
+    }
+    if (QUANT) {
+      float* sc = reinterpret_cast<float*>(raw + 64 * kRawLd);
+      for (int j = threadIdx.x; j < 64; j += kThreads) {
+        const long long row = src_row(t * 64 + j);
+        split_copy(sc + j, scale + (row < 0 ? 0 : row), row >= 0, 4);
+      }
+    }
+  };
+  auto fetch = [&](FmaItem x, float* slot) {
+    if (x.step < n_s) {
+      const int c0 = 128 * x.step, subs = s_subs(D, c0);
+      for (int hh = 0; hh < subs; ++hh)
+        fetch_sub<64>(slot + hh * kFmaSub, qb, row0, n, c0 + hh * kFmaChunk, D, q_unit);
+      fetch_kv(k, k_scale, x.tile, c0, subs, slot, 4);
+    } else {
+      const int u = x.step - n_s;
+      fetch_kv(v, v_scale, x.tile, g0 + 256 * u, v_subs<COLS>(u), slot, 0);
+    }
+  };
+  // int8: the slot's raw rows of `subs` sub-tiles times their scales into
+  // its fp32 sub-tiles from sub0 (keys no row sees: zero rows, zero scales)
+  auto dequantize = [&](float* slot, int subs, int sub0) {
+    const unsigned char* raw = reinterpret_cast<const unsigned char*>(slot + kFmaSlot);
+    const float* sc = reinterpret_cast<const float*>(raw + 64 * kRawLd);
+    for (int e = threadIdx.x; e < 64 * 8 * subs; e += kThreads) {
+      const int hh = e / 512, j = (e / 8) % 64, c = 4 * (e % 8);
+      const char4 r = *reinterpret_cast<const char4*>(raw + j * kRawLd + hh * kFmaChunk + c);
+      const float s = sc[j];
+      *reinterpret_cast<float4*>(slot + (sub0 + hh) * kFmaSub + j * kFmaLd + c) =
+          make_float4(r.x * s, r.y * s, r.z * s, r.w * s);
+    }
+    __syncthreads();  // block-uniform: every thread computes the same item
+  };
+
+  float m[4], l[4], sc[4][4], acc[4][NC];
+  int bound[4];  // this thread's rows' last visible key (rows past n see nothing)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    const int r = row0 + ty + 16 * i;
+    bound[i] = r < n ? len - n + r : -1;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  auto compute = [&](FmaItem x, float* slot) {
+    if (x.step >= n_s) {
+      const int u = x.step - n_s;
+      if (QUANT) dequantize(slot, v_subs<COLS>(u), 0);
+      pv_product<COLS>(acc, p_s, slot, u, ty, tx);
+      return;
+    }
+    const int subs = s_subs(D, 128 * x.step);
+    if (QUANT) dequantize(slot, subs, 4);
+    if (x.step == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    }
+    s_product<true>(sc, slot, subs, ty, tx, sm_scale);
+    if (x.step < n_s - 1) return;
+    // the scores are whole: the online softmax in base e, P into shared memory
+    bool key_live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int pos = x.tile * 64 + tx + 16 * j;
+      key_live[j] = pos < key1 && (live_b == nullptr || live_b[pos / block_k] != 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!(key_live[j] && x.tile * 64 + tx + 16 * j <= bound[i])) sc[i][j] = -INFINITY;
+        tmax = fmaxf(tmax, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(tmax));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: add nothing
+      const float corr = expf(m[i] - m_use);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_use);  // 0 where unseen
+        psum += p;
+        p_s[(ty + 16 * i) * kFmaLdp + tx + 16 * j] = p;
+      }
+      l[i] = fmaf(l[i], corr, half_sum(psum));
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+  };
+  run_ring<decode_fma_slot(QUANT)>(ring, FmaItem{live(0), 0}, next, done, fetch, compute);
+
+  // O / l for this thread's rows; a row with no visible key is zeros
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= n) continue;
+    float* o = out + ((size_t)bh * n + r) * D;
+#pragma unroll
+    for (int mm = 0; mm < COLS / 64; ++mm)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = g0 + 64 * mm + 4 * tx + c;
+        if (col < D) o[col] = l[i] > 0.f ? acc[i][4 * mm + c] / l[i] : 0.f;
+      }
+  }
+}
+
+template <int COLS>
+cudaError_t launch_fwd_fma(const AttnArgs& a) {
+  static bool capped[kMaxDevices] = {};
+  const long long blocks = (long long)((a.D + COLS - 1) / COLS) * a.B * a.H;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  cudaError_t err = cap_smem_once(wide_fwd_fma_kernel<COLS>, kFwdFmaSmem, capped);
+  if (err != cudaSuccess) return err;
+  wide_fwd_fma_kernel<COLS><<<dim3((unsigned)blocks, (a.nq + 63) / 64), kThreads, kFwdFmaSmem, a.stream>>>(a);
+  return cudaGetLastError();
+}
+
+// float32 forward: the wrapper's plan passes the column width (`cols`) and
+// the shared bytes (`smem`, checked against kFwdFmaSmem)
+cudaError_t attention_fwd_fp32(AttnArgs a) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  a.unit = piece_unit(ptrs, (long long)a.D * 4, 4);
+  if (a.unit == 0 || a.smem != kFwdFmaSmem) return cudaErrorInvalidValue;
+  switch (a.cols) {
+    case 192: return launch_fwd_fma<192>(a);
+    case 256: return launch_fwd_fma<256>(a);
+    case 320: return launch_fwd_fma<320>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename KV, int COLS>
+cudaError_t launch_decode_fma(const DecodeArgs& a, int q_unit, int kv_unit) {
+  static bool capped[kMaxDevices] = {};
+  constexpr int smem = decode_fma_smem(sizeof(KV) == 1);
+  const long long blocks = (long long)((a.D + COLS - 1) / COLS) * a.B * a.H;
+  if (blocks > 2147483647LL || (a.n + 63) / 64 > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cap_smem_once(wide_decode_fma_kernel<KV, COLS>, smem, capped);
+  if (err != cudaSuccess) return err;
+  wide_decode_fma_kernel<KV, COLS><<<dim3((unsigned)blocks, (a.n + 63) / 64), kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.lengths), static_cast<const int*>(a.bitmap),
+      static_cast<const int*>(a.page_table), static_cast<float*>(a.out), a.H, a.n, a.S, a.D,
+      a.n_blocks, a.block_k, a.page_size, a.n_pool, q_unit, kv_unit, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t decode_fma_cols(const DecodeArgs& a, int cols, int q_unit, int kv_unit) {
+  switch (cols) {
+    case 192: return launch_decode_fma<KV, 192>(a, q_unit, kv_unit);
+    case 256: return launch_decode_fma<KV, 256>(a, q_unit, kv_unit);
+    case 320: return launch_decode_fma<KV, 320>(a, q_unit, kv_unit);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2108,7 +2501,7 @@ cudaError_t attention_bwd_bf16(const AttnArgs& a) {
 bool attn_args_ok(const AttnArgs& a) {
   return a.B > 0 && a.H > 0 && a.nq > 0 && a.nk > 0 && a.D > 0 && a.mode >= 0 && a.mode <= 2 &&
          (a.mode != kModeMask || (a.mask != nullptr && a.layout != nullptr)) &&
-         (long long)a.B * a.H <= 65535 && (a.D + kCols - 1) / kCols <= 65535 &&
+         (long long)a.B * a.H <= 65535 && (a.D + 63) / 64 <= 65535 &&  // groups of >= 64 columns
          (a.nq + kT - 1) / kT <= 65535 && (a.nk + kT - 1) / kT <= 65535;
 }
 
@@ -2128,16 +2521,16 @@ bool mma_args_ok(const AttnArgs& a) {
 // [n_pool, H, page_size, D] (an entry out of range traps); `bitmap` [B,
 // n_blocks] int32 over blocks of `block_k` positions (one per page-table
 // entry when paged), or null; lengths [B] int32. Contiguous. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
+// `stream` and returns cudaGetLastError() (0 = launched). This entry runs
+// `wide_decode_kernel`, the step (n <= 4 rows) above kSplitMaxD channels.
 extern "C" int wide_decode_launch(const void* q, const void* k, const void* v,
                                   const void* k_scale, const void* v_scale, const void* lengths,
                                   const void* bitmap, const void* page_table, void* out, int B,
                                   int H, int n, int S, int D, int n_blocks, int block_k,
                                   int page_size, int n_pool, int dtype, int quantized,
                                   float sm_scale, void* stream) {
-  if (B <= 0 || H <= 0 || n <= 0 || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  if ((long long)B * H > 2147483647LL || (n + kDecRows - 1) / kDecRows > 65535 ||
-      (D + kDecCols - 1) / kDecCols > 65535)
+  if (B <= 0 || H <= 0 || n <= 0 || n > kDecRows || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H > 2147483647LL || (D + kDecCols - 1) / kDecCols > 65535)
     return (int)cudaErrorInvalidValue;
   if (quantized && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (bitmap != nullptr && (block_k <= 0 || n_blocks < (S + block_k - 1) / block_k))
@@ -2153,6 +2546,38 @@ extern "C" int wide_decode_launch(const void* q, const void* k, const void* v,
     return (int)(quantized ? launch_decode<__nv_bfloat16, int8_t>(a)
                            : launch_decode<__nv_bfloat16, __nv_bfloat16>(a));
   return (int)cudaErrorInvalidValue;
+}
+
+// The multi-row decode of fp32 q (n > 4 rows) at any D on
+// `wide_decode_fma_kernel<KV, cols>`: arguments as wide_decode_launch (q,
+// out and a cache that is not int8 float32), plus `cols` (192, 256 or 320
+// output columns a block) and `smem` (its dynamic shared bytes), both from
+// `ops/wide_head.py:wide_fp32_plan(D, "decode", quantized)`. Any alignment
+// of the elements' own size.
+extern "C" int wide_decode_fma_launch(const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale, const void* lengths,
+                                      const void* bitmap, const void* page_table, void* out, int B,
+                                      int H, int n, int S, int D, int n_blocks, int block_k,
+                                      int page_size, int n_pool, int quantized, int cols, int smem,
+                                      float sm_scale, void* stream) {
+  if (B <= 0 || H <= 0 || n <= 0 || S <= 0 || D <= 0 || smem != decode_fma_smem(quantized != 0))
+    return (int)cudaErrorInvalidValue;
+  if (quantized && (k_scale == nullptr || v_scale == nullptr || reinterpret_cast<uintptr_t>(k_scale) % 4 ||
+                    reinterpret_cast<uintptr_t>(v_scale) % 4))
+    return (int)cudaErrorInvalidValue;
+  if (bitmap != nullptr && (block_k <= 0 || n_blocks < (S + block_k - 1) / block_k))
+    return (int)cudaErrorInvalidValue;
+  if (page_table != nullptr && (page_size <= 0 || S % page_size != 0 || n_pool <= 0))
+    return (int)cudaErrorInvalidValue;
+  const int q_unit = piece_unit(reinterpret_cast<uintptr_t>(q), (long long)D * 4, 4);
+  const int kv_unit = piece_unit(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v),
+                                 (long long)D * (quantized ? 1 : 4), quantized ? 1 : 4);
+  if (q_unit == 0 || kv_unit == 0) return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{q, k, v, k_scale, v_scale, lengths, bitmap, page_table, out,
+                     B, H, n, S, D, n_blocks, block_k, page_size > 0 ? page_size : 1, n_pool,
+                     sm_scale, static_cast<cudaStream_t>(stream)};
+  return (int)(quantized ? decode_fma_cols<int8_t>(a, cols, q_unit, kv_unit)
+                         : decode_fma_cols<float>(a, cols, q_unit, kv_unit));
 }
 
 // Floats of the split-K workspace wide_split_launch needs at (B, H, S, D).
@@ -2198,7 +2623,9 @@ extern "C" int wide_split_launch(const void* q, const void* k, const void* v,
 // for mode 2 (else null); o [B,H,nq,D] of `dtype`, lse [B,H,nq] float32.
 // bfloat16 (D a multiple of 8) runs `wide_fwd_mma_kernel<cols, resident>`
 // (cols = 192 or 256 output columns a block) with `smem` dynamic shared
-// bytes a block; float32 ignores `cols`, `resident` and `smem`.
+// bytes a block; float32 (any D) `wide_fwd_fma_kernel<cols>` (cols = 192,
+// 256 or 320, `smem` its shared bytes, both from `ops/wide_head.py:
+// wide_fp32_plan`); `resident` unused.
 extern "C" int wide_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                   const void* layout, void* o, void* lse, int B, int H, int nq,
                                   int nk, int D, int dtype, int mode, int cols, int resident,

@@ -34,10 +34,12 @@ kernels above and any larger D the kernels of `csrc/wide_head.cu`
 spans and merge as here, so `flash_decode_split_plain` is its arithmetic
 too), above that for bf16 q the tensor-core tile kernel of
 `csrc/wide_decode_tile.cu` (the tile arm's arithmetic at any D, so
-`flash_decode_tile_plain` is its model) and for fp32 q the 4-row
-column-group kernel; each one body with runtime flags for the bitmap and
-the page table, whose all-ones bitmap and paged layout give the plain
-contiguous bits as here.
+`flash_decode_tile_plain` is its model) and for fp32 q the register-tiled
+`wide_decode_fma_kernel` of `csrc/wide_head.cu` (the fp32 tile arm's
+arithmetic over 64-key tiles, so `flash_decode_tile_f32_plain` is its
+model); the 4-row column-group kernel keeps the step above 1024 channels;
+each one body with runtime flags for the bitmap and the page table, whose
+all-ones bitmap and paged layout give the plain contiguous bits as here.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -65,8 +67,8 @@ bits (`flash_decode_tile_plain` is its arithmetic on the CPU). fp32 q at
 n > `DECODE_ROWS` runs the fp32 tile arm, `csrc/flash_decode_tile_f32.cu`:
 one block per `DECODE_TILE_F32_ROWS` query rows over key tiles of
 `tile_f32_keys(D)`, fp32 arithmetic on CUDA cores, int8 dequantized in
-the kernel (`flash_decode_tile_f32_plain`). `decode_arm` is the dispatch
-rule.
+the kernel (`flash_decode_tile_f32_plain`; above 256 channels the model of
+`wide_decode_fma_kernel` too). `decode_arm` is the dispatch rule.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
@@ -89,13 +91,7 @@ from typing import Optional
 import torch
 
 from dalle_pytorch_tpu_torch import kernels
-from dalle_pytorch_tpu_torch.ops.wide_head import (
-    WIDE_ABOVE,
-    split_scratch,
-    wide_decode,
-    wide_split_takes,
-    wide_tile_takes,
-)
+from dalle_pytorch_tpu_torch.ops.wide_head import WIDE_ABOVE, split_scratch, wide_arm, wide_decode
 
 MAX_KERNEL_HEAD_DIM = WIDE_ABOVE  # flash_decode.cu takes any D up to this (csrc dispatch_d)
 DECODE_ROWS = 4  # query rows flash_decode.cu takes (csrc kRows); more run a tile arm
@@ -325,15 +321,17 @@ def flash_decode_tile_f32_plain(
     page_table: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The fp32 tile arm's arithmetic (`csrc/flash_decode_tile_f32.cu`,
-    fp32 q at n > DECODE_ROWS) in plain PyTorch, a model for tests that
-    nothing on the main path calls: an online softmax over tiles of
-    `tile_f32_keys(D)` cache positions in order, all in fp32 as the
-    reference computes it. q is scaled by D^-0.5 before the product, an
-    int8 cache is dequantized first (k_int8 * k_scale, v_int8 * v_scale),
-    S = q . k with invisible scores -inf; m_new = max(m, max S), P =
-    e^(S - m_new) and the correction e^(m - m_new) (a row whose maximum
-    is still -inf takes 0 in its place), l = l * corr + sum P, acc = acc
-    * corr + P V. out = acc / l, zeros for a row with no visible key.
+    fp32 q at n > DECODE_ROWS; above MAX_KERNEL_HEAD_DIM channels
+    `wide_decode_fma_kernel` of csrc/wide_head.cu) in plain PyTorch, a
+    model for tests that nothing on the main path calls: an online
+    softmax over tiles of `tile_f32_keys(D)` cache positions in order,
+    all in fp32 as the reference computes it. q is scaled by D^-0.5
+    before the product, an int8 cache is dequantized first (k_int8 *
+    k_scale, v_int8 * v_scale), S = q . k with invisible scores -inf;
+    m_new = max(m, max S), P = e^(S - m_new) and the correction e^(m -
+    m_new) (a row whose maximum is still -inf takes 0 in its place), l =
+    l * corr + sum P, acc = acc * corr + P V. out = acc / l, zeros for a
+    row with no visible key.
     Keys no row reads enter as zeros, as the kernel zero-fills them.
     `block_bitmap`, `block_k` and `page_table` as `flash_decode_tile_plain`."""
     return _online_tiles(q, k, v, lengths, k_scale, v_scale, block_bitmap, block_k, page_table,
@@ -409,10 +407,12 @@ def _p_operands(p: torch.Tensor, dtype: torch.dtype):
 
 
 def tile_f32_keys(d: int) -> int:
-    """Keys per tile of the fp32 tile arm at head dim `d`
-    (csrc/flash_decode_tile_f32.cu `tile_keys`): 64, and 32 above 128
-    channels, where two stages of 64 fp32 keys pass the shared memory."""
-    return 64 if d <= 128 else 32
+    """Keys per tile of the fp32 multi-row kernel at head dim `d`: the fp32
+    tile arm's (csrc/flash_decode_tile_f32.cu `tile_keys`) 64, and 32 above
+    128 channels, where two stages of 64 fp32 keys pass the shared memory;
+    above MAX_KERNEL_HEAD_DIM `wide_decode_fma_kernel`'s 64 (its ring holds
+    channel slices of a tile)."""
+    return 64 if d <= 128 or d > MAX_KERNEL_HEAD_DIM else 32
 
 
 def expand_bitmap(block_bitmap: torch.Tensor, block_k: int, s_len: int) -> torch.Tensor:
@@ -493,22 +493,20 @@ def decode_kernel_source(d: int) -> str:
 
 def decode_arm(n: int, dtype: torch.dtype, d: int) -> str:
     """The kernel a call of n query rows in q's `dtype` at head dim `d`
-    launches on the card. Above MAX_KERNEL_HEAD_DIM: csrc/wide_head.cu's
-    split-K kernel ("wide_split", up to DECODE_ROWS rows and
-    `wide_head.WIDE_SPLIT_MAX_D` channels: `wide_split_takes`); above
-    DECODE_ROWS rows with bf16 q the tensor-core tile kernel of
-    csrc/wide_decode_tile.cu ("wide_tile", any D: `wide_tile_takes`);
-    else wide_head.cu's 4-row kernel ("wide": fp32 q above DECODE_ROWS
-    rows, and the step above WIDE_SPLIT_MAX_D channels). Up to
+    launches on the card. Above MAX_KERNEL_HEAD_DIM (`wide_head.wide_arm`):
+    csrc/wide_head.cu's split-K kernel ("wide_split", up to DECODE_ROWS rows
+    and `wide_head.WIDE_SPLIT_MAX_D` channels); above DECODE_ROWS rows the
+    tensor-core tile kernel of csrc/wide_decode_tile.cu for bf16 q
+    ("wide_tile") and wide_head.cu's `wide_decode_fma_kernel` for fp32 q
+    ("wide_tile_f32"), at any D; else wide_head.cu's 4-row kernel ("wide":
+    the step above WIDE_SPLIT_MAX_D channels). Up to
     MAX_KERNEL_HEAD_DIM: flash_decode.cu's split-K
     instances at the step ("step", n = 1) and up to DECODE_ROWS rows
     ("split"); above DECODE_ROWS the tensor-core tile arm of
     flash_decode_tile.cu for bf16 q ("tile") and the CUDA-core tile arm
     of flash_decode_tile_f32.cu for fp32 q ("tile_f32")."""
     if d > MAX_KERNEL_HEAD_DIM:
-        if wide_split_takes(n, d):
-            return "wide_split"
-        return "wide_tile" if wide_tile_takes(n, dtype) else "wide"
+        return wide_arm(n, dtype, d)
     if n == 1:
         return "step"
     if n <= DECODE_ROWS:

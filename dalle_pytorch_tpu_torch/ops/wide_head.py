@@ -8,16 +8,19 @@ wrapper's, which takes any D. Nothing here runs on the CPU: the calling
 wrappers run their plain versions for CPU tensors before reaching this
 module.
 
-Decode (`wide_decode`) runs the split-K kernel `wide_split_kernel` up to
-WIDE_SPLIT_ROWS query rows (the step; spans of 128 keys merged by the last
-block to arrive, as flash_decode.cu's split-K body, through `split_scratch`)
-and WIDE_SPLIT_MAX_D channels; above WIDE_SPLIT_ROWS rows with bf16 q the
-tensor-core tile kernel of `csrc/wide_decode_tile.cu`
-(`wide_decode_tile_kernel<KV, cols, resident>`: 64 query rows x a column
-group a block, S over all of D from 64-channel chunks through a cp.async
-ring, P as a bf16 pair; `wide_tile_plan`). The 4-row `wide_decode_kernel`
-keeps what is left: fp32 q above WIDE_SPLIT_ROWS rows, and the step above
-WIDE_SPLIT_MAX_D channels.
+Decode (`wide_decode`, its kernel named by `wide_arm`) runs the split-K
+kernel `wide_split_kernel` up to WIDE_SPLIT_ROWS query rows (the step;
+spans of 128 keys merged by the last block to arrive, as flash_decode.cu's
+split-K body, through `split_scratch`) and WIDE_SPLIT_MAX_D channels; above
+WIDE_SPLIT_ROWS rows with bf16 q the tensor-core tile kernel of
+`csrc/wide_decode_tile.cu` (`wide_decode_tile_kernel<KV, cols, resident>`:
+64 query rows x a column group a block, S over all of D from 64-channel
+chunks through a cp.async ring, P as a bf16 pair; `wide_tile_plan`), with
+fp32 q the CUDA-core `wide_decode_fma_kernel<KV, cols>` (64 query rows x a
+group of up to 320 columns a block, S formed once a group as register
+micro-tiles, the fp32 tile arm's arithmetic over 64-key tiles;
+`wide_fp32_plan(d, "decode", quant)`). The 4-row `wide_decode_kernel`
+keeps what is left: the step above WIDE_SPLIT_MAX_D channels.
 
 Flash attention in bfloat16 runs on tensor cores, one column group of
 output columns a block (`wide_attention_plan`, which also sets each
@@ -27,11 +30,11 @@ fused `wide_bwd_mma_kernel<cols, resident>` (cols 128) between zeroing a
 float32 dq workspace and converting it. The
 caller zero-pads a D that is not a multiple of 8 to one
 (`wide_kernel_head_dim`; the true D's scale, outputs cut back). float32
-runs on CUDA cores at any D, unpadded: the forward `wide_fwd_kernel`, the
-backward two register-tiled passes, `wide_dq_fma_kernel<cols>` (64 query
-rows a block) then `wide_dkv_fma_kernel<cols>` (32 keys a block), each
-forming S and dP once per group of up to 320 output columns
-(`wide_fp32_bwd_plan`).
+runs on CUDA cores at any D, unpadded, in register-tiled kernels that form
+S (and dP) once per group of up to 320 output columns (`wide_fp32_plan`):
+the forward `wide_fwd_fma_kernel<cols>` (64 query rows a block), the
+backward two passes, `wide_dq_fma_kernel<cols>` (64 query rows a block)
+then `wide_dkv_fma_kernel<cols>` (32 keys a block).
 """
 
 from __future__ import annotations
@@ -71,14 +74,20 @@ _TILE = 64 * 72  # bf16 elements of a staged 64 x 64 tile (rows padded to 72)
 TILE_COLS = 192
 TILE_STAGES, TILE_RES_STAGES = 3, 4
 TILE_STATIC_SMEM = 128 * 4 + 2 * 64 * 8  # its static shared memory (kStaticSmem)
-# the fp32 backward's passes (csrc `wide_dq_fma_kernel`, `wide_dkv_fma_kernel`):
-# their column instances (dQ is 4 rows x cols / 16 registers a thread, dK and
-# dV 2 keys x cols / 16 each), the rows a block owns, and the shared memory
-# of either (kFmaSmem: a ring of 2 slots of eight 64 x 32 fp32 sub-tiles,
-# rows padded to 36, then 64 rows of P and of dS, padded to 72)
+# the fp32 kernels (csrc `wide_fwd_fma_kernel`, `wide_decode_fma_kernel`, the
+# backward's `wide_dq_fma_kernel` and `wide_dkv_fma_kernel`): their column
+# instances (O and dQ are 4 rows x cols / 16 registers a thread, dK and dV 2
+# keys x cols / 16 each), the rows a block owns, and their shared memory: a
+# ring of 2 slots of eight 64 x 32 fp32 sub-tiles (rows padded to 36), then
+# 64 rows of P (padded to 72), and of dS in the backward (kFmaSmem,
+# kFwdFmaSmem); an int8 decode slot adds 64 raw rows of up to 256 int8
+# channels (288 bytes apart) and their scales (csrc decode_fma_smem)
 FMA_COLS = (192, 256, 320)
-FMA_ROWS = {"dq": 64, "dkv": 32}
+FMA_ROWS = {"fwd": 64, "decode": 64, "dq": 64, "dkv": 32}
 FMA_SMEM = 4 * (2 * 8 * 64 * 36 + 2 * 64 * 72)
+FWD_FMA_SMEM = 4 * (2 * 8 * 64 * 36 + 64 * 72)
+RAW_SLOT = 64 * 288 + 64 * 4
+DECODE_STATIC_SMEM = 128 * 4  # the decode's staged page-table entries (kDecTableCache)
 
 
 def _resident_ld(d: int) -> int:
@@ -158,12 +167,12 @@ def wide_attention_plan(d: int, kind: str) -> WidePlan:
                     mma_smem(kind, cols, d_kernel, resident))
 
 
-class Fp32BwdPlan(NamedTuple):
-    """A launch of one pass (`kind` "dq" or "dkv") of the fp32 backward at
-    head dim `d`: blocks of `rows` query rows (dq) or keys (dkv), `groups`
-    of them per row tile, group g owning output columns [g cols, min((g +
-    1) cols, d)), each forming S and dP over all of D; `smem` dynamic
-    shared bytes a block."""
+class Fp32Plan(NamedTuple):
+    """A launch of the fp32 kernel `kind` ("fwd", "decode", or the
+    backward's passes "dq" and "dkv") at head dim `d`: blocks of `rows`
+    query rows (keys for dkv), `groups` of them per row tile, group g
+    owning output columns [g cols, min((g + 1) cols, d)), each forming S
+    (and dP) over all of D; `smem` dynamic shared bytes a block."""
 
     kind: str
     d: int
@@ -174,25 +183,35 @@ class Fp32BwdPlan(NamedTuple):
 
     @property
     def kernel(self) -> str:
+        if self.kind == "decode":  # the cache type is the first template argument
+            return f"wide_decode_fma_kernel<KV, {self.cols}>"
         return f"wide_{self.kind}_fma_kernel<{self.cols}>"
 
     def columns(self, group: int) -> range:
         return range(group * self.cols, min((group + 1) * self.cols, self.d))
 
 
-def wide_fp32_bwd_plan(d: int, kind: str) -> Fp32BwdPlan:
-    """The plan of the fp32 backward's pass `kind` ("dq" or "dkv") at head
-    dim `d` > WIDE_ABOVE: as few column groups as the widest instance
-    (max(FMA_COLS) columns) allows, D's 64-column chunks spread evenly over
-    them, so S and dP are formed once up to D = 320 and twice up to 640.
-    Both passes take the same columns, so one `cols` goes to the launch."""
+def fma_smem(kind: str, quant: bool = False) -> int:
+    """Dynamic shared bytes a block of the fp32 kernel `kind` takes (an
+    int8 cache: `quant`)."""
+    if kind in ("dq", "dkv"):
+        return FMA_SMEM
+    return FWD_FMA_SMEM + (2 * RAW_SLOT if kind == "decode" and quant else 0)
+
+
+def wide_fp32_plan(d: int, kind: str, quant: bool = False) -> Fp32Plan:
+    """The plan of the fp32 kernel `kind` (FMA_ROWS' keys) at head dim `d` >
+    WIDE_ABOVE: as few column groups as the widest instance (max(FMA_COLS)
+    columns) allows, D's 64-column chunks spread evenly over them, so S is
+    formed once up to D = 320 and twice up to 640. The backward's passes
+    take the same columns, so one `cols` goes to their launch."""
     if d <= WIDE_ABOVE:
         raise ValueError(f"head dim {d} is not above {WIDE_ABOVE}")
     chunks = -(-d // 64)
     cols = 64 * -(-chunks // -(-chunks // (max(FMA_COLS) // 64)))
     if cols not in FMA_COLS:
-        raise ValueError(f"no fp32 backward instance owns {cols} columns")
-    return Fp32BwdPlan(kind, d, FMA_ROWS[kind], cols, -(-d // cols), FMA_SMEM)
+        raise ValueError(f"no fp32 {kind} instance owns {cols} columns")
+    return Fp32Plan(kind, d, FMA_ROWS[kind], cols, -(-d // cols), fma_smem(kind, quant))
 
 
 def wide_tile_smem(d: int, resident: bool, quant: bool) -> int:
@@ -222,8 +241,8 @@ def wide_attention_kernels(d: int, dtype: torch.dtype) -> dict:
     if dtype == torch.bfloat16:
         return {"fwd": wide_attention_plan(d, "fwd").kernel, "bwd": (wide_attention_plan(d, "bwd").kernel,)}
     if dtype == torch.float32:
-        return {"fwd": "wide_fwd_kernel<float>",
-                "bwd": tuple(wide_fp32_bwd_plan(d, kind).kernel for kind in ("dq", "dkv"))}
+        return {"fwd": wide_fp32_plan(d, "fwd").kernel,
+                "bwd": tuple(wide_fp32_plan(d, kind).kernel for kind in ("dq", "dkv"))}
     raise TypeError(f"no wide flash-attention kernel for {dtype}")
 
 
@@ -242,10 +261,11 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wide_decode_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p]
         lib.wide_split_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p, p, p]
+        lib.wide_decode_fma_launch.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, p]
         lib.wide_attention_fwd.argtypes = [p] * 7 + [i] * 10 + [ctypes.c_float, p]
         lib.wide_attention_bwd.argtypes = [p] * 12 + [i] * 10 + [ctypes.c_float, p]
-        for fn in (lib.wide_decode_launch, lib.wide_split_launch, lib.wide_attention_fwd,
-                   lib.wide_attention_bwd):
+        for fn in (lib.wide_decode_launch, lib.wide_split_launch, lib.wide_decode_fma_launch,
+                   lib.wide_attention_fwd, lib.wide_attention_bwd):
             fn.restype = ctypes.c_int
         lib.wide_split_workspace_floats.restype = ctypes.c_longlong
         lib.wide_split_workspace_floats.argtypes = [i] * 4
@@ -286,6 +306,19 @@ def wide_tile_takes(n: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and n > WIDE_SPLIT_ROWS
 
 
+def wide_arm(n: int, dtype: torch.dtype, d: int) -> str:
+    """The kernel a decode call of n query rows in q's `dtype` at head dim
+    `d` > WIDE_ABOVE launches: "wide_split" (`wide_split_takes`),
+    "wide_tile" (`wide_tile_takes`), "wide_tile_f32" (fp32 q above
+    WIDE_SPLIT_ROWS rows, any D: `wide_decode_fma_kernel`), else "wide"
+    (the 4-row `wide_decode_kernel`: the step above WIDE_SPLIT_MAX_D)."""
+    if wide_split_takes(n, d):
+        return "wide_split"
+    if wide_tile_takes(n, dtype):
+        return "wide_tile"
+    return "wide_tile_f32" if n > WIDE_SPLIT_ROWS else "wide"
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -300,17 +333,17 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
     """The flash-decode function at any D (checked by the calling
     wrapper): the contiguous cache, or the pool read through `page_table`;
     `block_bitmap` over blocks of `block_k` positions (one per table entry
-    when paged); int8 K/V with their scales. On the split-K kernel where
-    `wide_split_takes` (counted also in `.split_launches`), on the tile
-    kernel where `wide_tile_takes` (`.tile_launches`), else on the 4-row
-    kernel."""
+    when paged); int8 K/V with their scales. On the kernel `wide_arm`
+    names: the split-K kernel (counted also in `.split_launches`), the
+    tensor-core tile kernel (`.tile_launches`), the fp32 multi-row kernel
+    (`.tile_f32_launches`) or the 4-row kernel."""
     b, h, n, d = q.shape
     paged = page_table is not None
     s_len = page_table.shape[1] * k.shape[2] if paged else k.shape[2]
     quant = k_scale is not None
-    split, tile = wide_split_takes(n, d), wide_tile_takes(n, q.dtype)
+    arm = wide_arm(n, q.dtype, d)
     tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
-    if tile and any(t.data_ptr() % 16 for t in tensors):
+    if arm == "wide_tile" and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and scales must be 16-byte aligned")
     out = torch.empty_like(q)
     args = (
@@ -321,11 +354,14 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if tile:
+        if arm == "wide_tile":
             plan = wide_tile_plan(d, quant)
             err = _tile_library().wide_decode_tile_launch(
                 *args, int(quant), plan.cols, int(plan.resident), plan.smem, d**-0.5, stream)
-        elif split:
+        elif arm == "wide_tile_f32":
+            plan = wide_fp32_plan(d, "decode", quant)
+            err = _library().wide_decode_fma_launch(*args, int(quant), plan.cols, plan.smem, d**-0.5, stream)
+        elif arm == "wide_split":
             lib = _library()
             workspace, counters = split_scratch(
                 q.device, lib.wide_split_workspace_floats(b, h, s_len, d), b * h)
@@ -333,10 +369,11 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
                                         _ptr(workspace), _ptr(counters))
         else:
             err = _library().wide_decode_launch(*args, _DTYPE_CODE[q.dtype], int(quant), d**-0.5, stream)
-    _raise_on(err, "wide_tile" if tile else "wide_split" if split else "wide_decode")
+    _raise_on(err, arm)
     wide_decode.launches += 1
-    wide_decode.split_launches += split
-    wide_decode.tile_launches += tile
+    wide_decode.split_launches += arm == "wide_split"
+    wide_decode.tile_launches += arm == "wide_tile"
+    wide_decode.tile_f32_launches += arm == "wide_tile_f32"
     return out
 
 
@@ -345,12 +382,10 @@ def _masks(fm):
 
 
 def _launch_plan(d: int, dtype: torch.dtype, kind: str):
-    """(cols, resident, smem) a launch passes: the bf16 plan's; in fp32 the
-    backward's (`wide_fp32_bwd_plan`, one for both passes), zeros forward."""
+    """(cols, resident, smem) a launch passes: the bf16 plan's; in fp32
+    `wide_fp32_plan`'s (the backward's one for both passes)."""
     if dtype != torch.bfloat16:
-        if kind == "fwd":
-            return 0, 0, 0
-        plan = wide_fp32_bwd_plan(d, "dq")
+        plan = wide_fp32_plan(d, "fwd" if kind == "fwd" else "dq")
         return plan.cols, 0, plan.smem
     plan = wide_attention_plan(d, kind)
     return plan.cols, int(plan.resident), plan.smem
@@ -359,7 +394,8 @@ def _launch_plan(d: int, dtype: torch.dtype, kind: str):
 def wide_attention_fwd(q, k, v, mode: int, fm, scale: float):
     """(o, lse) of the flash-attention forward at any D (bf16: a multiple of
     MMA_ALIGN); `mode` and the prepared mask `fm` as `ops/flash_attention.py`
-    resolves them; bf16 by `wide_attention_plan(D, "fwd")`."""
+    resolves them; bf16 by `wide_attention_plan(D, "fwd")`, fp32 on the
+    register-tiled `wide_fwd_fma_kernel` by `wide_fp32_plan(D, "fwd")`."""
     b, h, n_q, d = q.shape
     plan = _launch_plan(d, q.dtype, "fwd")
     o = torch.empty_like(q)
@@ -372,7 +408,7 @@ def wide_attention_fwd(q, k, v, mode: int, fm, scale: float):
         )
     _raise_on(err, "wide_attention_fwd")
     wide_attention_fwd.launches += 1
-    wide_attention_fwd.mma_launches += int(plan[0] > 0)
+    wide_attention_fwd.mma_launches += int(q.dtype == torch.bfloat16)
     return o, lse
 
 
@@ -380,7 +416,7 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
     """(dq, dk, dv) of the flash-attention backward at any D (bf16: a
     multiple of MMA_ALIGN): bf16 one fused kernel by `wide_attention_plan(D,
     "bwd")` (dq through a float32 workspace allocated here), float32 two
-    register-tiled CUDA-core passes by `wide_fp32_bwd_plan` (dq, then
+    register-tiled CUDA-core passes by `wide_fp32_plan` (dq, then
     dk/dv; no workspace, every output bit-identical run to run)."""
     b, h, n_q, d = q.shape
     plan = _launch_plan(d, q.dtype, "bwd")
@@ -403,6 +439,7 @@ def wide_attention_bwd(q, k, v, do, lse, delta, mode: int, fm, scale: float):
 wide_decode.launches = 0
 wide_decode.split_launches = 0  # of those, the split-K kernel's
 wide_decode.tile_launches = 0  # and the tensor-core tile kernel's
+wide_decode.tile_f32_launches = 0  # and the fp32 multi-row kernel's
 wide_attention_fwd.launches = 0
 wide_attention_bwd.launches = 0
 # the bf16 calls among .launches: the tensor-core kernels

@@ -13,12 +13,12 @@ decode tile instance (it fails if one spills or has none). Then runs
 `chip_smoke.py`'s phase-2 checks of the
 wide kernels (the routing of D = 264, 300, 320 and 1024; the five decode
 variants at D = 264-1024 with the bit identities at 320 and NaN-poisoned
-caches, the tile kernel at the resume shape; flash attention forward and
-backward on the causal, all-keys and
+caches, the step at D = 1032, both multi-row kernels at the resume shape;
+flash attention forward and backward on the causal, all-keys and
 static-mask arms at D = 264-1024, and causal at the training shapes at D =
 320 and 512) and phase 4's small models at dim_head 320 through the
-kernels against dense attention (decode in fp32 and bf16). About a minute
-of card time.
+kernels against dense attention (decode in fp32 and bf16, fp32 training).
+About two minutes of card time.
 
 `--time` adds phase 3's times of the wide kernels at D = 320 and 512, bf16
 and fp32 (CUDA events, the plain version, SDPA, the bound at the input
@@ -40,13 +40,17 @@ dS K product (dq pass), without the P^T dO and dS^T Q products (dk/dv
 pass), without the S and dP products, with the generic (not the 16-byte)
 copy path, without the ring's barrier a slot, without the softmax's
 exponentials, and under the narrower column plans (at most 256 or 192
-columns a group); each row also gives each pass's device ms. With
+columns a group); each row also gives each pass's device ms. It then
+times the fp32 forward (`wide_fwd_fma_kernel`, the same shapes) through
+`FWD_ABLATIONS`: no staging copies, no S product, no P V product, and the
+narrower column plans. With
 `--parent DIR` (an unpacked checkout of another commit under the
 git-ignored `build/`) only the timed rows run (the flash-attention forward
 and backward at the training shapes, the decode step and the multi-row
-decode at the resume shape, bf16, and the fp32 backward at the training
-shapes, at D = 320 and 512, beside SDPA), in separate processes in turns:
-DIR's kernels and wrappers, this tree's, this tree's, DIR's (this
+decode at the resume shape, bf16; the fp32 forward and backward at the
+training shapes and the fp32 multi-row decode at the resume and prefill
+shapes; each at D = 320 and 512, beside SDPA), in separate processes in
+turns: DIR's kernels and wrappers, this tree's, this tree's, DIR's (this
 script's measuring code each time); a last JSON line gives each turn's
 device ms.
 """
@@ -99,8 +103,11 @@ def timed_jobs(torch, F):
     the cache with the length mask; the multi-row decode at the resume
     shape (bf16, n = 1280, S = 1281, lengths 1280, two input sets) at
     TIMED_DIMS, and SDPA's causal forward over the live keys; the fp32
-    backward (causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's whole fp32
-    backward."""
+    forward and backward (causal, TRAIN's shapes) at TIMED_DIMS, and SDPA's
+    fp32 forward and whole fp32 backward; the fp32 multi-row decode at the
+    resume and prefill shapes (n = 1280 or 257 over S = 1281, lengths n,
+    two input sets) at TIMED_DIMS, and SDPA's fp32 causal forward over the
+    live keys."""
     import chip_smoke as cs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
@@ -153,6 +160,17 @@ def timed_jobs(torch, F):
 
         jobs[f"fp32_bwd_d{d}"] = (fa.flash_attention_bwd, sets, 4)
         jobs[f"sdpa_fp32_bwd_d{d}"] = (sdpa_bwd, lib, 10)
+        jobs[f"fp32_fwd_d{d}"] = (fa.flash_attention_fwd, [s_[:3] for s_ in sets], 4)
+        jobs[f"sdpa_fp32_fwd_d{d}"] = (sdpa, [s_[:3] for s_ in sets], 10)
+    for d in TIMED_DIMS:
+        for shape, n_rows in (("resume", cs.RESUME["n"]), ("prefill", cs.MAIN["prefill"])):
+            lens = torch.full((b,), n_rows, dtype=torch.int32, device="cuda")
+            rows = [tuple(torch.randn(sh, generator=g, device="cuda")
+                          for sh in ((b, h, n_rows, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+                    for _ in range(2)]
+            jobs[f"fp32_{shape}_d{d}"] = (fd.flash_decode_attention, rows, 4 if shape == "resume" else 20)
+            jobs[f"sdpa_fp32_{shape}_d{d}"] = (
+                sdpa, [(q, k[:, :, :n_rows].contiguous(), v[:, :, :n_rows].contiguous()) for q, k, v, _ in rows], 10)
     return jobs
 
 
@@ -242,6 +260,17 @@ FP32_ABLATIONS = (
     ("plan_cols256", [], {"FMA_COLS": (192, 256)}),
     ("plan_cols192", [], {"FMA_COLS": (192,)}),
 )
+# the same for the fp32 forward (`--ablate-fp32` too), timed at the training shapes
+FWD_ABLATIONS = (
+    ("source", [], {}),
+    FP32_ABLATIONS[1],  # no_copies: fetch_sub is the forward's too
+    ("no_s_product", [("        for (int j = 0; j < 4; ++j) sc[i][j] = dot4(xa[i], yb[j], sc[i][j]);\n",
+                       "        ;\n")], {}),
+    ("no_pv_product", [("          for (int i = 0; i < 4; ++i) axpy4(&acc[i][4 * (4 * uu + f)], comp4(w[i], kk), vv);\n",
+                        "")], {}),
+    ("plan_cols256", [], {"FMA_COLS": (192, 256)}),
+    ("plan_cols192", [], {"FMA_COLS": (192,)}),
+)
 
 
 def kernel_ms(torch, fn, inputs, iters) -> dict:
@@ -315,9 +344,9 @@ def ablate(torch, cs, F, source="wide_head", variants=ABLATIONS, prefixes=("fwd"
             kernels._libs[source] = libs[name]
             for attr, value in {**saved, **patches[name]}.items():
                 setattr(wh, attr, value)
-            if prefixes == ("fp32_bwd",):
-                plans = {f"{kind}_d{d}": wh.wide_fp32_bwd_plan(d, kind).kernel
-                         for d in TIMED_DIMS for kind in ("dq", "dkv")}
+            if prefixes[0].startswith("fp32_"):
+                kinds = ("dq", "dkv") if prefixes == ("fp32_bwd",) else ("fwd",)
+                plans = {f"{kind}_d{d}": wh.wide_fp32_plan(d, kind).kernel for d in TIMED_DIMS for kind in kinds}
             elif source == "wide_head":
                 plans = {f"{kind}_d{d}": wh.wide_attention_plan(d, kind).kernel
                          for d in TIMED_DIMS for kind in ("fwd", "bwd")}
@@ -391,6 +420,7 @@ def main() -> int:
             ablate(torch, cs, F, "wide_decode_tile", TILE_ABLATIONS, ("resume",))
         if args.ablate_fp32:
             ablate(torch, cs, F, variants=FP32_ABLATIONS, prefixes=("fp32_bwd",))
+            ablate(torch, cs, F, variants=FWD_ABLATIONS, prefixes=("fp32_fwd",))
         print(smi)
         return 0
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -403,6 +433,12 @@ def main() -> int:
     cs.check_small_model_decode(torch, cs.WIDE_IDENTITY_DIM)
     cs.check_small_model_decode(torch, cs.WIDE_IDENTITY_DIM, torch.bfloat16)
     cs.check_small_model_training(torch, cs.WIDE_IDENTITY_DIM)
+    from dalle_pytorch_tpu_torch.ops import wide_head as wh
+
+    print("launches " + json.dumps({
+        "wide_decode": [wh.wide_decode.launches, wh.wide_decode.split_launches, wh.wide_decode.tile_launches,
+                        wh.wide_decode.tile_f32_launches],
+        "wide_attention_fwd": [wh.wide_attention_fwd.launches, wh.wide_attention_fwd.mma_launches]}))
     print(f"checks: {time.perf_counter() - t0:.1f} s; worst decode err by arm {json.dumps(worst)}, "
           f"attention {json.dumps(attn)}, identities {json.dumps(held)}")
     if args.time:

@@ -1,8 +1,10 @@
-"""Flash decode's fp32 tile arm (`csrc/flash_decode_tile_f32.cu`) on the CPU.
+"""Flash decode's fp32 multi-row kernels on the CPU: the fp32 tile arm
+(`csrc/flash_decode_tile_f32.cu`, D <= 256) and, above 256 channels,
+`wide_decode_fma_kernel` (`csrc/wide_head.cu`).
 
-The card runs the fp32 tile arm for fp32 q at n > DECODE_ROWS query rows
-(the prefill chunk and the resume forward of a model served in fp32);
-`flash_decode_tile_f32_plain` is its arithmetic in plain PyTorch (tiles
+The card runs them for fp32 q at n > DECODE_ROWS query rows (the prefill
+chunk and the resume forward of a model served in fp32);
+`flash_decode_tile_f32_plain` is their arithmetic in plain PyTorch (tiles
 of `tile_f32_keys(D)` keys in order, q scaled before the product, P = e^(S
 - m) in fp32, an int8 cache dequantized first, keys no row reads zeroed).
 Here the model meets the JAX package's Pallas kernels, run in interpret
@@ -76,6 +78,28 @@ def test_f32_tile_model_matches_the_pallas_kernels(variant, n):
     assert (got[~mask] == 0).all() and (plain[~mask] == 0).all()
 
 
+@pytest.mark.parametrize("d", [264, 320])
+@pytest.mark.parametrize("n", [5, 65])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_f32_tile_model_above_256_matches_the_pallas_kernels(variant, n, d):
+    """The model of `wide_decode_fma_kernel` (fp32 q at n > 4 above 256
+    channels: `flash_decode_tile_f32_plain` with 64-key tiles) against the
+    Pallas kernel of each decode variant, both arms, at D = 264 and 320, n
+    = 5 and 65 (one and two 64-row query tiles), on the cases of the test
+    above. 2e-5."""
+    assert fd.decode_arm(n, torch.float32, d) == "wide_tile_f32" and fd.tile_f32_keys(d) == 64
+    q, k, v, ks, vs, bm, table, pools = _case(variant, n, d, seed=11 * n + d)
+    lengths = _lengths(n)
+    out = _model(variant, q, k, v, ks, vs, lengths, bm, table, pools)
+    assert out.shape == (B, 2, n, d) and out.dtype == torch.float32 and torch.isfinite(out).all()
+    ref = np.asarray(_pallas(variant, q, k, v, ks, vs, lengths, bm, table, pools, torch.float32))
+    seen = _visible_rows(variant, n, lengths, bm)
+    got = out.numpy()
+    mask = np.broadcast_to(seen[:, None, :, None], got.shape)
+    np.testing.assert_allclose(got[mask], ref[mask], atol=2e-5, rtol=0)
+    assert (got[~mask] == 0).all()
+
+
 @pytest.mark.parametrize("variant", ["plain", "int8"])
 @pytest.mark.parametrize("d", [40, 200])
 def test_f32_tile_model_is_the_plain_function(d, variant):
@@ -96,8 +120,19 @@ def test_f32_tile_model_bit_identities(int8, n):
     all-ones bitmap gives the plain variant's bits (contiguous and paged),
     and the paged variants give the contiguous ones' bits on the gathered
     view, bitmap or not."""
+    _hold_bit_identities(int8, n, 64)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_f32_tile_model_bit_identities_above_256(int8):
+    """The same identities at D = 320 (`wide_decode_fma_kernel`'s model,
+    64-key tiles), n = 65."""
+    _hold_bit_identities(int8, 65, 320)
+
+
+def _hold_bit_identities(int8, n, d):
     variant = "block_sparse_paged" + ("_int8" if int8 else "")
-    q, k, v, ks, vs, bm, table, pools = _case(variant, n, 64, seed=n + 1)
+    q, k, v, ks, vs, bm, table, pools = _case(variant, n, d, seed=n + 1)
     lengths = _t(_lengths(n))
     tq, kp, vp = _t(q), _t(pools[0]), _t(pools[1])
     sc = () if ks is None else tuple(_t(x) for x in pools[2:])
@@ -121,8 +156,18 @@ def test_f32_tile_model_never_reads_keys_no_row_sees(int8):
     block (in the scales of an int8 cache) leaves the model's output
     finite and unchanged: those keys enter as zeros, as the kernel
     zero-fills them."""
+    _hold_poisoned_cache(int8, 64)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_f32_tile_model_never_reads_keys_no_row_sees_above_256(int8):
+    """The same at D = 320 (`wide_decode_fma_kernel`'s model)."""
+    _hold_poisoned_cache(int8, 320)
+
+
+def _hold_poisoned_cache(int8, d):
     variant = "block_sparse" + ("_int8" if int8 else "")
-    q, k, v, ks, vs, bm, _, _ = _case(variant, 65, 64, seed=12)
+    q, k, v, ks, vs, bm, _, _ = _case(variant, 65, d, seed=12)
     tq, tk, tv, tl, tb = _t(q), _t(k), _t(v), _t(_lengths(65)), _t(bm)
     sc = () if ks is None else (_t(ks), _t(vs))
     clean = fd.flash_decode_tile_f32_plain(tq, tk, tv, tl, *sc, block_bitmap=tb, block_k=BLOCK_K)
@@ -138,8 +183,10 @@ def test_f32_tile_model_never_reads_keys_no_row_sees(int8):
 def test_f32_tile_keys_shrink_above_128_channels():
     """64 keys a tile up to D = 128 and 32 above (two fp32 stages of 64
     keys beside the Q tile pass a block's shared memory at 256); query
-    tiles of 64 rows."""
+    tiles of 64 rows. Above 256 channels `wide_decode_fma_kernel` takes
+    64-key tiles again (its ring holds channel slices of a tile)."""
     assert [fd.tile_f32_keys(d) for d in (1, 64, 128, 129, 200, 256)] == [64, 64, 64, 32, 32, 32]
+    assert [fd.tile_f32_keys(d) for d in (257, 320, 512, 1024, 2048)] == [64] * 5
     assert fd.DECODE_TILE_F32_ROWS == 64
 
 

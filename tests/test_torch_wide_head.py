@@ -1,7 +1,7 @@
 """The head-dim > 256 kernels of the port (`ops/wide_head.py`,
 `csrc/wide_head.cu`) on the CPU: which kernel a call launches on the card
-at (D, dtype), the bf16 kernels' and the fp32 backward's launch plans at
-every D from 257 to 1024,
+at (D, dtype), the bf16 kernels' and the fp32 kernels' (forward,
+multi-row decode, backward) launch plans at every D from 257 to 1024,
 and the arithmetic of the bf16 tensor-core kernels (the plain versions
 with `p_dtype=bfloat16`: P rounded per 64-key tile in base 2 forward, dS
 rounded once backward) against the JAX package's Pallas kernels in
@@ -43,16 +43,16 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("d", [264, 320, 512, 1024])
 def test_bf16_above_256_routes_to_the_tensor_core_kernels(d):
     """bf16 at D > 256 names the tensor-core kernels (one fused backward),
-    fp32 the CUDA-core ones (the backward's two register-tiled passes at
-    their plan's column width), D <= 256 the tuned kernels of
-    flash_attention.cu."""
+    fp32 the CUDA-core ones (the register-tiled forward and the backward's
+    two register-tiled passes, at their plan's column width), D <= 256 the
+    tuned kernels of flash_attention.cu."""
     bf16 = attention_kernels(d, torch.bfloat16)
     assert bf16["fwd"].startswith("wide_fwd_mma_kernel<") and len(bf16["bwd"]) == 1
     assert bf16["bwd"][0].startswith("wide_bwd_mma_kernel<")
     assert bf16["fwd"] == wh.wide_attention_plan(d, "fwd").kernel
-    cols = wh.wide_fp32_bwd_plan(d, "dq").cols
+    cols = wh.wide_fp32_plan(d, "dq").cols
     assert attention_kernels(d, torch.float32) == {
-        "fwd": "wide_fwd_kernel<float>",
+        "fwd": f"wide_fwd_fma_kernel<{cols}>",
         "bwd": (f"wide_dq_fma_kernel<{cols}>", f"wide_dkv_fma_kernel<{cols}>")}
     small = d // 4 if d // 4 <= 256 else 256
     assert attention_kernels(small, torch.bfloat16)["fwd"].startswith("fwd_wgmma_kernel<")
@@ -104,7 +104,7 @@ def test_fp32_backward_plans_own_each_column_once_and_fit_shared_memory(kind):
     and at most twice at D = 512; every instance some D's plan."""
     used = set()
     for d in range(257, 1025):
-        plan = wh.wide_fp32_bwd_plan(d, kind)
+        plan = wh.wide_fp32_plan(d, kind)
         used.add(plan.cols)
         owned = np.zeros(d, int)
         for g in range(plan.groups):
@@ -114,15 +114,50 @@ def test_fp32_backward_plans_own_each_column_once_and_fit_shared_memory(kind):
         assert (owned == 1).all(), d
         assert plan.groups == -(-d // plan.cols)
         assert plan.cols in wh.FMA_COLS and plan.rows == wh.FMA_ROWS[kind]
-        assert plan.cols == wh.wide_fp32_bwd_plan(d, "dq").cols
+        assert plan.cols == wh.wide_fp32_plan(d, "dq").cols
         assert plan.smem == wh.FMA_SMEM <= wh.SMEM_LIMIT
         assert plan.kernel == f"wide_{kind}_fma_kernel<{plan.cols}>"
     assert used == set(wh.FMA_COLS)  # every instance the library builds is reachable
-    assert wh.wide_fp32_bwd_plan(320, kind).groups == 1
-    assert wh.wide_fp32_bwd_plan(512, kind).groups <= 2
+    assert wh.wide_fp32_plan(320, kind).groups == 1
+    assert wh.wide_fp32_plan(512, kind).groups <= 2
     assert wh._launch_plan(320, torch.float32, "bwd") == (320, 0, wh.FMA_SMEM)
     with pytest.raises(ValueError):
-        wh.wide_fp32_bwd_plan(256, kind)
+        wh.wide_fp32_plan(256, kind)
+
+
+@pytest.mark.parametrize("kind,quant", [("fwd", False), ("decode", False), ("decode", True)])
+def test_fp32_forward_and_decode_plans_own_each_column_once_and_fit_shared_memory(kind, quant):
+    """The fp32 forward (`wide_fwd_fma_kernel`) and multi-row decode
+    (`wide_decode_fma_kernel`, fp32 or int8 cache) at every D in
+    257..1024 (unpadded): each output column owned by exactly one group,
+    no group empty, `groups` as the launcher counts them, an instance's
+    column count (the backward's columns), 64 query rows a block, and a
+    block's shared memory, dynamic and static, within 227 KB; S formed
+    once at D = 320 and at most twice at D = 512; every instance some D's
+    plan; the forward's launch passes its plan."""
+    used = set()
+    for d in range(257, 1025):
+        plan = wh.wide_fp32_plan(d, kind, quant)
+        used.add(plan.cols)
+        owned = np.zeros(d, int)
+        for g in range(plan.groups):
+            cols = plan.columns(g)
+            assert len(cols) > 0
+            owned[cols.start:cols.stop] += 1
+        assert (owned == 1).all(), d
+        assert plan.groups == -(-d // plan.cols)
+        assert plan.cols in wh.FMA_COLS and plan.cols == wh.wide_fp32_plan(d, "dq").cols
+        assert plan.rows == 64
+        assert plan.smem == wh.fma_smem(kind, quant)
+        assert plan.smem + (wh.DECODE_STATIC_SMEM if kind == "decode" else 0) <= wh.SMEM_LIMIT
+    assert used == set(wh.FMA_COLS)
+    assert wh.wide_fp32_plan(320, kind, quant).groups == 1
+    assert wh.wide_fp32_plan(512, kind, quant).groups == 2
+    assert wh.wide_fp32_plan(320, kind).kernel == (
+        "wide_fwd_fma_kernel<320>" if kind == "fwd" else "wide_decode_fma_kernel<KV, 320>")
+    assert wh.fma_smem("decode", True) > wh.fma_smem("decode") == wh.fma_smem("fwd") < wh.FMA_SMEM
+    if kind == "fwd":
+        assert wh._launch_plan(512, torch.float32, "fwd") == (256, 0, wh.fma_smem("fwd"))
 
 
 def _inputs(b, h, n, d, seed):
@@ -229,13 +264,14 @@ def test_split_k_model_above_256_matches_the_pallas_kernels(variant, n, d):
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("dtype,multi_row", [(torch.float32, "wide"), (torch.bfloat16, "wide_tile")])
+@pytest.mark.parametrize("dtype,multi_row", [(torch.float32, "wide_tile_f32"), (torch.bfloat16, "wide_tile")])
 def test_split_k_takes_the_step_up_to_1024_channels(dtype, multi_row):
     """The split-K kernel takes n <= WIDE_SPLIT_ROWS (= DECODE_ROWS) rows at
     257..1024 channels in either dtype; n > 4 takes the multi-row arm of
-    q's dtype (the tensor-core tile kernel for bf16, the 4-row kernel for
-    fp32) and wider heads at the step keep the 4-row kernel, as
-    `decode_arm` names them; its spans are flash_decode's."""
+    q's dtype (the tensor-core tile kernel for bf16, the register-tiled
+    `wide_decode_fma_kernel` for fp32) and wider heads at the step keep the
+    4-row kernel, as `decode_arm` (`wide_arm`) names them; its spans are
+    flash_decode's."""
     assert wh.WIDE_SPLIT_ROWS == fd.DECODE_ROWS == 4 and wh.WIDE_SPLIT_MAX_D == 1024
     assert all(wh.wide_split_takes(n, d) for n in (1, 4) for d in (257, 320, 512, 1024))
     assert not any(wh.wide_split_takes(n, d) for n, d in ((5, 320), (1, 1025)))
@@ -246,10 +282,15 @@ def test_split_k_takes_the_step_up_to_1024_channels(dtype, multi_row):
 
 def test_cpu_decode_above_256_counts_no_wide_launch():
     """On CPU tensors the decode wrappers run their plain versions at D >
-    256, counting no launch of either wide decode kernel."""
-    q, k, v, _, _, _, _, _ = _case("plain", 1, 320, seed=1)
-    lengths = _t(np.asarray([3, 150, S_LEN], np.int32))
-    before = (wh.wide_decode.launches, wh.wide_decode.split_launches)
-    out = fd.flash_decode_attention(_t(q), _t(k), _t(v), lengths)
-    assert torch.equal(out, fd.flash_decode_attention_plain(_t(q), _t(k), _t(v), lengths))
-    assert (wh.wide_decode.launches, wh.wide_decode.split_launches) == before
+    256, at the step and at n > 4 in fp32, counting no launch of any wide
+    decode kernel."""
+    wd = wh.wide_decode
+    counts = lambda: (wd.launches, wd.split_launches, wd.tile_launches, wd.tile_f32_launches)  # noqa: E731
+    before = counts()
+    for n in (1, 65):
+        assert fd.decode_arm(n, torch.float32, 320) == ("wide_split" if n == 1 else "wide_tile_f32")
+        q, k, v, _, _, _, _, _ = _case("plain", n, 320, seed=1)
+        lengths = _t(np.asarray([n + 2, 150, S_LEN], np.int32))
+        out = fd.flash_decode_attention(_t(q), _t(k), _t(v), lengths)
+        assert torch.equal(out, fd.flash_decode_attention_plain(_t(q), _t(k), _t(v), lengths))
+    assert counts() == before

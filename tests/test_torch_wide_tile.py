@@ -109,13 +109,14 @@ def test_wide_tile_plans_own_each_column_once_and_fit_shared_memory(quant):
 
 def test_wide_tile_is_the_multi_row_arm_above_256_and_cpu_calls_count_no_launch():
     """bf16 q above DECODE_ROWS rows at any D > 256 names the tile kernel
-    ("wide_tile"); fp32 q there keeps the 4-row kernel ("wide"); the step
-    keeps split-K. On CPU tensors the wrappers run their plain versions
-    and count no launch of any wide decode kernel."""
+    ("wide_tile"); fp32 q there runs `wide_decode_fma_kernel`
+    ("wide_tile_f32"); the step keeps split-K. On CPU tensors the wrappers
+    run their plain versions and count no launch of any wide decode
+    kernel."""
     bf, f32 = torch.bfloat16, torch.float32
     for d in (257, 264, 300, 320, 512, 1024, 2048):
         assert [fd.decode_arm(n, bf, d) for n in (5, 65, 257, 1280)] == ["wide_tile"] * 4
-        assert [fd.decode_arm(n, f32, d) for n in (5, 1280)] == ["wide"] * 2
+        assert [fd.decode_arm(n, f32, d) for n in (5, 1280)] == ["wide_tile_f32"] * 2
         assert wh.wide_tile_takes(5, bf) and not wh.wide_tile_takes(4, bf)
         assert not wh.wide_tile_takes(5, f32)
     assert fd.decode_arm(4, bf, 320) == "wide_split"
