@@ -16,7 +16,9 @@ Phases, each failing loudly (nonzero exit, no result line):
    tensor-core instance of wide_head.cu or wide_decode_tile.cu may spill,
    and `cuobjdump -sass` must find HMMA in each; no split-K decode
    instance and no fp32 forward, multi-row decode or backward instance of
-   wide_head.cu may spill, and each has its fixed count of instances);
+   wide_head.cu may spill, and each has its fixed count of instances; the
+   fp32 backward's TF32 passes of flash_attention.cu, `dq_tf32_kernel` and
+   `dkv_tf32_kernel`, must have HMMA and no spill at each head dim);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -39,7 +41,11 @@ Phases, each failing loudly (nonzero exit, no result line):
    the causal arm at the training shapes at D = 320 and 512, the fp32
    forward's o and lse bit-identical over two runs; at D = 300, which the bf16
    kernels zero-pad, o and dv against the rounding-matched plain
-   version per tile to 1e-3 plus one rounding flip of that tile);
+   version per tile to 1e-3 plus one rounding flip of that tile); the fp32
+   backward at D <= 256 (its TF32 passes) held to the exact plain version
+   under ATTN_TOL["fp32"], dq, dk and dv bit-identical over two runs, and
+   its distance from the split's model (`flash_attention_bwd_tf32x3_plain`)
+   printed;
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
@@ -55,7 +61,10 @@ Phases, each failing loudly (nonzero exit, no result line):
    SDPA's device time beside), their traces naming the kernels
    `attention_kernels` and `decode_arm` route to; the fp32 arms beside
    SDPA in fp32 (flash decode's fp32 tile arm at n = 257 and 1280, flash
-   attention at D = 64 and 256); kernels 3-5 through the bf16 tile arm
+   attention at D = 64 and 256, each with its own and SDPA's device time;
+   the fp32 decode step with SDPA's device time); the step above the
+   split-K kernel's channels (D = 1032, the 4-row kernel) in bf16 and fp32
+   beside SDPA, each kernel named from its trace; kernels 3-5 through the bf16 tile arm
    at the resume shape, at D = 64 and (the wide tile kernel) 320 and
    512, and kernels 2-5 through `wide_decode_fma_kernel` (fp32) at 320
    and 512, each beside SDPA with the same mask;
@@ -65,7 +74,8 @@ Phases, each failing loudly (nonzero exit, no result line):
    every gradient; again at dim_head 320 (the wide kernels, their
    launches counted exactly: the steps on the split-K kernel, the prefill
    and resume on `wide_decode_fma_kernel`, the training run's forward and
-   backward calls), there also the decode in bf16 (the
+   backward calls; at dim_head 64 the fp32 backward's calls, and after
+   phase 10 a trace of one call naming its TF32 passes), there also the decode in bf16 (the
    prefill and resume on the tensor-core tile kernel) and the training
    step under bf16 autocast (the tensor-core wide kernels) against dense
    attention in bf16;
@@ -81,6 +91,11 @@ Phases, each failing loudly (nonzero exit, no result line):
    fall; then `save_dalle_checkpoint`, `engine_from_checkpoint` and one
    `generate()` from it (train -> checkpoint -> serve; the model has the
    default vocabulary's text embedding, which its config implies);
+   6b. the same DALLE trained in float32 (no autocast, `attn_impl="auto"`:
+   the fp32 flash forward and the fp32 backward's TF32 passes): one warmup
+   step, then FP32_TRAIN_STEPS Adam steps on one batch, ms a step by CUDA
+   events, the flash-attention calls counted (12 a step each), the
+   kernels named, the loss finite and falling;
 7. the continuous-serving path: phase 5's model behind a `ContinuousEngine`
    (4 slots, prefill waves of 4, chunks of 4 tokens) driven by the
    `ContinuousBatcher` with phase 5's four prompts, two of them admitted
@@ -180,12 +195,12 @@ FLAGSHIP = dict(
     shift_tokens=True, rotary_emb=True, attn_types=("full",),
 )
 REPO = Path(__file__).resolve().parent
-# published peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 and fp32
-# (non-tensor-core) flop/s
+# published peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16, fp32
+# (non-tensor-core) and TF32 (tensor-core) flop/s
 PEAKS = {
-    "H100 SXM": dict(bytes=3.35e12, bf16=989e12, fp32=67e12),
-    "H100 PCIe": dict(bytes=2.0e12, bf16=756e12, fp32=51e12),
-    "H100 NVL": dict(bytes=3.9e12, bf16=835e12, fp32=60e12),
+    "H100 SXM": dict(bytes=3.35e12, bf16=989e12, fp32=67e12, tf32=495e12),
+    "H100 PCIe": dict(bytes=2.0e12, bf16=756e12, fp32=51e12, tf32=378e12),
+    "H100 NVL": dict(bytes=3.9e12, bf16=835e12, fp32=60e12, tf32=417.5e12),
 }
 
 
@@ -342,14 +357,17 @@ def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
     """(bound_ms, bound_by) of one flash-attention pass at TRAIN's causal
     shapes (head dim `d`): each input read once and each output written
     once; 4*D (fwd: S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per
-    visible (query, key) pair."""
+    visible (query, key) pair at `dtype_key`'s peak; "tf32x3" (the fp32
+    backward's kernels at D <= 256: three TF32 products each) is three
+    times those flops at the TF32 peak."""
     b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
     rows, pairs = b * h * n, b * h * n * (n + 1) // 2
     nbytes, flops = {
         "fwd": (4 * rows * d * elt + 4 * rows, 4 * d * pairs),    # q,k,v,o + lse
         "bwd": (7 * rows * d * elt + 8 * rows, 10 * d * pairs),   # q,k,v,do,dq,dk,dv + lse,delta
     }[kind]
-    t_bytes, t_ops = nbytes / peaks["bytes"], flops / peaks[dtype_key]
+    rate = peaks["tf32"] / 3 if dtype_key == "tf32x3" else peaks[dtype_key]
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -652,13 +670,19 @@ def check_decode_variants(torch, cases):
 
 def mangled_kernel(name: str) -> str:
     """A kernel's mangled name as a trace names it, "kernel<192, true>"
-    (its int and bool template arguments; "kernel" where they are types)."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)(I((?:L[a-z]\d+E)+)E)?", name)
-    if not m:
-        return name[:60]
-    args = [("true" if v == "1" else "false") if t == "b" else v
-            for t, v in re.findall(r"L([a-z])(\d+)E", m.group(3) or "")]
-    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+    (its int and bool template arguments; "kernel" where they are types).
+    The kernel's identifier is the `<length><name>` whose name ends in
+    "_kernel"; the length is found among the suffixes of each digit run,
+    since a namespace's hash digits may run into it."""
+    for run in re.finditer(r"\d+", name):
+        for start in range(run.start(), run.end()):
+            ident = name[run.end():run.end() + int(name[start:run.end()])]
+            if re.fullmatch(r"[a-z]\w*_kernel", ident):
+                m = re.match(r"I((?:L[a-z]\d+E)+)E", name[run.end() + len(ident):])
+                args = [("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in re.findall(r"L([a-z])(\d+)E", m.group(1) if m else "")]
+                return ident + (f"<{', '.join(args)}>" if args else "")
+    return name[:60]
 
 
 def built_kernels(info, name=mangled_kernel):
@@ -739,6 +763,19 @@ def check_wide_build(info):
         out.setdefault(kernel, {})["instance_registers_spill_bytes"] = builds
         if any(spill != 0 for _, spill in builds) or (info["ptxas"] and len(builds) != count):
             fail(f"wide_head's {kernel}: expected {count} instances without spills, got {builds}")
+    return out
+
+
+def check_tf32_build(info):
+    """Phase 1 for the fp32 backward's two TF32 passes of
+    `csrc/flash_attention.cu` (`built_kernels`): fails unless
+    `dq_tf32_kernel` and `dkv_tf32_kernel` have one instance at each of the
+    kernels' head dims (16, 32, 64, 128, 256), each with HMMA (the TF32
+    mma.sync) and without a spill. Returns {kernel: {...}}."""
+    out = {k: v for k, v in built_kernels(info).items()
+           if k.startswith(("dq_tf32_kernel", "dkv_tf32_kernel"))}
+    if len(out) != 10 or tensor_core_faults(info, out):
+        fail(f"flash_attention's fp32 backward: expected 10 TF32 instances with HMMA and no spill, got {out}")
     return out
 
 
@@ -1057,8 +1094,9 @@ def time_wide_kernels(torch, F, peaks, smi):
     attention forward and backward at TRAIN's causal shapes (SDPA's
     forward and its whole backward beside them): kernel, plain and SDPA
     times, the bound at the input type's peak, and (after the last timed
-    phase) the device time. Returns {kernel: {(D, "bf16" | "fp32", shape):
-    row}}, the multi-row decode under the arm that ran it
+    phase) the device time; then the step at WIDE_STEP_DIM (the 4-row
+    kernel, "wide") in both types. Returns {kernel: {(D, "bf16" | "fp32",
+    shape): row}}, the multi-row decode under the arm that ran it
     (`fd.decode_arm`)."""
     rows = {"wide_split": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1070,6 +1108,13 @@ def time_wide_kernels(torch, F, peaks, smi):
                 rows.setdefault(arm, {})[(d, key, shape)] = row
             for kind, row in time_wide_attention(torch, F, peaks, smi, d, g, key, elt).items():
                 rows[f"wide_attention_{kind}"][(d, key, "train")] = row
+    # the step above the split-K kernel's channels: the 4-row wide_decode_kernel
+    t0 = time.perf_counter()
+    rows["wide"] = {(WIDE_STEP_DIM, key, "step"):
+                    time_wide_step(torch, F, peaks, smi, WIDE_STEP_DIM, g, key, elt)
+                    for key, elt in WIDE_DTYPES}
+    print(f"phase 3 step at D = {WIDE_STEP_DIM} (4-row kernel), bf16 and fp32: "
+          f"{time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1091,8 +1136,9 @@ def wide_dtype(torch, key):
 
 
 def time_wide_step(torch, F, peaks, smi, d, g, key, elt):
-    """The split-K decode step at head dim `d` in `key`'s type (three input
-    sets rotating); returns its row."""
+    """The decode step at head dim `d` in `key`'s type (three input sets
+    rotating): the split-K kernel up to WIDE_SPLIT_MAX_D, the 4-row
+    `wide_decode_kernel` above (`fd.decode_arm`); returns its row."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
     b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
@@ -1122,7 +1168,7 @@ def time_wide_step(torch, F, peaks, smi, d, g, key, elt):
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     defer_device_time(row, fd.flash_decode_attention, inputs, iters)
     defer_device_time(row, library, inputs, iters, prefix="library_")
-    print("time " + json.dumps(dict(kernel="wide_split", case="step", dtype=key, D=d,
+    print("time " + json.dumps(dict(kernel=fd.decode_arm(n, dtype, d), case="step", dtype=key, D=d,
                                     lengths=lengths, card=smi, **row)))
     return row
 
@@ -1811,10 +1857,14 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     and runs twice: dk and dv must be bit-identical (no atomics), and dq in
     float32 (each output written once); bf16 dq's run-to-run difference (the
     order of its atomic adds) is printed. In float32 above 256 channels the
-    forward runs twice too: o and lse must be bit-identical. Returns
-    {kernel: max_abs_err against the exact version}."""
+    forward runs twice too: o and lse must be bit-identical. In float32 at
+    D <= 256 the backward is also set beside its TF32 split's model
+    (`flash_attention_bwd_tf32x3_plain`; printed, "split_model", with the
+    model's own distance from the exact version). Returns {kernel:
+    max_abs_err against the exact version}."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
+    errs = {}
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn(b, h, n_q, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(b, h, n_k, d, generator=g, device="cuda").to(dtype) for _ in range(2))
@@ -1845,6 +1895,11 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
 
     refs = {"exact": plain(None)}
     flips = {}
+    if dtype == torch.float32 and d <= 256:  # the TF32 passes: their arithmetic's model, printed
+        model = fa.flash_attention_bwd_tf32x3_plain(q, k, v, do, lse, delta, fm, causal)
+        errs["split_model"] = max((a - b).abs().max().item() for a, b in zip(grads, model))
+        errs["split_model_vs_exact"] = max((a - b).abs().max().item()
+                                           for a, b in zip(model, refs["exact"]["bwd"]))
     if dtype == torch.bfloat16:
         from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
@@ -1852,7 +1907,7 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
         if d > wh.WIDE_ABOVE and wh.wide_kernel_head_dim(d, dtype) != d:
             flips["o"], flips["dv"] = flip_allowance(torch, q, k, v, do, lse, mask, causal,
                                                      refs["matched"]["fwd"][0], refs["matched"]["bwd"][2])
-    errs, report, failures = {}, [], []
+    report, failures = [], []
     for kind, outputs in outs.items():
         name = f"flash_attention_{kind}"
         for ref_kind, ref in refs.items():
@@ -1882,7 +1937,7 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
                     errs[name] = max(errs.get(name, 0.0), err)
     print(
         f"check flash_attention {label} {str(dtype)[6:]} B={b} H={h} nq={n_q} nk={n_k} D={d}: "
-        + ", ".join(f"{k[16:]} {e:.3e}" for k, e in errs.items())
+        + ", ".join(f"{k.removeprefix('flash_attention_')} {e:.3e}" for k, e in errs.items())
         + f" max_abs_err; {'o, lse, ' if fwd_twice else ''}dk, dv{', dq' if dtype == torch.float32 else ''} "
         f"bit-identical over two runs, dq run-to-run {dq_rerun:.3e}"
         + "; element, tile ratios: " + "; ".join(report)
@@ -1893,7 +1948,8 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
 
 
 def check_attention(torch):
-    """Phase 2 for flash attention; returns {kernel: worst bf16 error}."""
+    """Phase 2 for flash attention; returns {"bf16" | "fp32": {kernel:
+    worst error}} (fp32 also the worst distance from the split's model)."""
     import numpy as np
 
     from dalle_pytorch_tpu_torch.models.transformer import build_static_mask
@@ -1901,7 +1957,7 @@ def check_attention(torch):
     b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
     axial = np.tril(np.ones((n, n), bool)) & build_static_mask("axial_row", n, 32, 1)[:n, :n]
     print(f"check flash_attention limits (element, tile): {json.dumps(ATTN_TOL)}")
-    worst = {}
+    worst = {"bf16": {}, "fp32": {}}
     for dtype in (torch.bfloat16, torch.float32):
         cases = [
             ("causal", b, h, n, n, d, None),
@@ -1913,9 +1969,13 @@ def check_attention(torch):
         for label, *shape, mask in cases:
             errs = attention_case(torch, label, *shape, dtype, mask=mask,
                                   causal=label != "all keys")
-            if dtype == torch.bfloat16:
-                for kernel, err in errs.items():
-                    worst[kernel] = max(worst.get(kernel, 0.0), err)
+            of = worst["bf16" if dtype == torch.bfloat16 else "fp32"]
+            for kernel, err in errs.items():
+                of[kernel] = max(of.get(kernel, 0.0), err)
+    print("check flash_attention fp32 backward (TF32 passes) worst |kernel - split model| "
+          f"{worst['fp32']['split_model']:.3e}, |split model - exact| "
+          f"{worst['fp32']['split_model_vs_exact']:.3e}, |kernel - exact| "
+          f"{worst['fp32']['flash_attention_bwd']:.3e}")
     return worst
 
 
@@ -1925,8 +1985,9 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
     computes dq, dk and dv in one call, its own delta included, so beside
     the backward kernel the row also times the port's whole backward as
     the autograd Function runs it (delta, then the wrapper: workspace
-    zeroing, the kernel, dq's conversion). The bf16 rows' device times are
-    taken after phase 8."""
+    zeroing, the kernel, dq's conversion). The device times of the kernels
+    and of SDPA (`device_ms`, `library_device_ms`), both dtypes, are taken
+    after the last timed phase."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
@@ -1967,12 +2028,17 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
             whole_backward_ms=time_ms(torch, whole_bwd, whole_in, 30),
         ),
     }
-    if dtype == torch.bfloat16:
-        defer_device_time(rows["flash_attention_fwd"], fa.flash_attention_fwd, fwd_in, 30)
-        defer_device_time(rows["flash_attention_bwd"], fa.flash_attention_bwd, sets, 30)
+    for name, fn, lib, ins, lib_in in (
+        ("flash_attention_fwd", fa.flash_attention_fwd, lib_fwd, fwd_in, fwd_in),
+        ("flash_attention_bwd", fa.flash_attention_bwd, lib_bwd, sets, lib_bwd_in),
+    ):
+        defer_device_time(rows[name], fn, ins, 30)
+        defer_device_time(rows[name], lib, lib_in, 30, prefix="library_")
     for name, row in rows.items():
-        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, key, d)
-        print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True, **row)))
+        bound_key = "tf32x3" if key == "fp32" and name.endswith("bwd") and d <= 256 else key
+        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, bound_key, d)
+        print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True,
+                                        bound_at=bound_key, **row)))
     bwd = rows["flash_attention_bwd"]
     print(
         f"time flash_attention backward {key}: kernel {bwd['ms']:.4f} ms, whole backward "
@@ -1980,6 +2046,48 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
         f"bound {bwd['bound_ms']:.4f} ms"
     )
     return rows
+
+
+def sdpa_over_lengths(q, k, v, lens):
+    """SDPA computing flash decode's function: q's n rows as the last n
+    positions of each row's `lens`, causal over the cache."""
+    import torch
+    import torch.nn.functional as F
+
+    n, s = q.shape[2], k.shape[2]
+    bound = lens.long()[:, None] - n + torch.arange(n, device=q.device)[None, :]
+    mask = torch.arange(s, device=q.device)[None, None, :] <= bound[:, :, None]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None])
+
+
+def time_decode(torch, peaks, dtype, key, elt, case, n, lengths):
+    """Phase 3 for flash decode at D <= 256 (MAIN's shapes, LAYERS input
+    sets rotating): kernel, plain and SDPA (`sdpa_over_lengths`) times and
+    the bound; the device times of the kernel, and at the step of SDPA,
+    after the last timed phase. Returns the row."""
+    from dalle_pytorch_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_attention_plain,
+    )
+
+    inputs = flash_inputs(torch, n, lengths, dtype, copies=LAYERS)
+    iters = 10 * LAYERS if case == "prefill" else 40 * LAYERS
+    lib_err = (sdpa_over_lengths(*inputs[0]).float()
+               - flash_decode_attention_plain(*inputs[0]).float()).abs().max().item()
+    row = dict(
+        ms=time_ms(torch, flash_decode_attention, inputs, iters),
+        plain_ms=time_ms(torch, flash_decode_attention_plain, inputs, iters),
+        library_ms=time_ms(torch, sdpa_over_lengths, inputs, iters),
+    )
+    row["bound_ms"], row["bound_by"] = flash_bound(n, lengths, elt, peaks, key)
+    defer_device_time(row, flash_decode_attention, inputs, iters)
+    if case == "step":
+        defer_device_time(row, sdpa_over_lengths, inputs, iters, prefix="library_")
+    print("time " + json.dumps(dict(
+        kernel="flash_decode", case=case, dtype=key, n=n, lengths=lengths,
+        library_max_abs_err=lib_err, **row,
+    )))
+    return row
 
 
 # phase 4's bf16 decode check (both paths in bf16: the kernels round
@@ -2217,6 +2325,51 @@ def run_training(torch, vae, specs):
     if pixels.shape != (4, 256, 256, 3) or not math.isfinite(float(pixels.sum())):
         fail(f"trained checkpoint pixels not finite or shape {pixels.shape}")
     return launches, summary
+
+
+FP32_TRAIN_STEPS = 3
+
+
+def run_fp32_training(torch):
+    """Phase 6b: the flagship DALLE trained in float32 (float32
+    parameters, no autocast, attn_impl "auto": N = 1280 takes the flash
+    kernels, the fp32 forward and the fp32 backward's TF32 passes), one
+    warmup step, then FP32_TRAIN_STEPS Adam steps on the same batch: ms a
+    step by CUDA events, the flash-attention calls counted from zero around
+    them (LAYERS a step each), the kernels they launch named by
+    `attention_kernels`; the loss must be finite and fall. Returns the
+    summary."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.training.steps import make_dalle_train_step, make_optimizer
+
+    model, batch = flagship_training()
+    opt = make_optimizer(model.parameters(), 3e-4, clip_grad_norm=0.5)
+    step = make_dalle_train_step(model, opt, mode="forward_only", autocast_dtype=None)
+    step(batch)
+    torch.cuda.synchronize()
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = [step(batch) for _ in range(FP32_TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    losses = [m["loss"].item() for m in metrics]
+    summary = dict(ms_per_step=start.elapsed_time(end) / FP32_TRAIN_STEPS, losses=losses,
+                   launches=launches, kernels=fa.attention_kernels(FLAGSHIP["dim_head"], torch.float32),
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print("fp32 training " + json.dumps(summary))
+    del model, opt, step
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"the fp32 training loss is not finite or did not fall: {losses}")
+    for name, n in launches.items():
+        if n != LAYERS * FP32_TRAIN_STEPS:
+            fail(f"{name} launched {n} times in {FP32_TRAIN_STEPS} fp32 steps, expected "
+                 f"{LAYERS * FP32_TRAIN_STEPS}")
+    return summary
 
 
 CONTINUOUS = dict(max_batch=4, prefill_batch=4, chunk_tokens=4)
@@ -3161,6 +3314,8 @@ def main() -> int:
     print("wide_head kernels (ptxas, cuobjdump -sass): " + json.dumps(wide_build))
     tile_build = check_wide_tile_build(kernels.build_log["wide_decode_tile"])
     print("wide_decode_tile instances (ptxas, cuobjdump -sass): " + json.dumps(tile_build))
+    tf32_build = check_tf32_build(kernels.build_log["flash_attention"])
+    print("flash_attention fp32 backward passes (ptxas, cuobjdump -sass): " + json.dumps(tf32_build))
 
     # 2. kernel vs plain ---------------------------------------------------
     cases = {
@@ -3230,35 +3385,10 @@ def main() -> int:
     print(f"phase 2 tile-arm and resume-shape checks: {time.perf_counter() - t0:.1f} s")
 
     # 3. times ---------------------------------------------------------------
-    def library(q, k, v, lens):
-        n, s = q.shape[2], k.shape[2]
-        bound = lens.long()[:, None] - n + torch.arange(n, device="cuda")[None, :]
-        mask = torch.arange(s, device="cuda")[None, None, :] <= bound[:, :, None]
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None])
-
     timings = {}
     for dtype, key, elt in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4)):
         for case in ("prefill", "step"):
-            n, lengths = cases[case]
-            inputs = flash_inputs(torch, n, lengths, dtype, copies=LAYERS)
-            iters = 10 * LAYERS if case == "prefill" else 40 * LAYERS
-            lib_err = (
-                library(*inputs[0]).float() - flash_decode_attention_plain(*inputs[0]).float()
-            ).abs().max().item()
-            row = dict(
-                ms=time_ms(torch, flash_decode_attention, inputs, iters),
-                plain_ms=time_ms(torch, flash_decode_attention_plain, inputs, iters),
-                library_ms=time_ms(torch, library, inputs, iters),
-            )
-            row["bound_ms"], row["bound_by"] = flash_bound(n, lengths, elt, peaks, key)
-            timings[(case, key)] = row
-            if key == "bf16":
-                defer_device_time(row, flash_decode_attention, inputs, iters)
-            print("time " + json.dumps(dict(
-                kernel="flash_decode", case=case, dtype=key, n=n, lengths=lengths,
-                library_max_abs_err=lib_err, **row,
-            )))
-            del inputs
+            timings[(case, key)] = time_decode(torch, peaks, dtype, key, elt, case, *cases[case])
     step = timings[("step", "bf16")]
     est = LAYERS * (timings[("prefill", "bf16")]["ms"] + 1024 * step["ms"])
     print(f"flash_decode per main-path batch (bf16, from the timed shapes): ~{est:.1f} ms")
@@ -3295,7 +3425,15 @@ def main() -> int:
     print(f"phase 4 fp32 model (dim_head 64): fp32 tile arm launches {f32_launches} (prefill + resume)")
     if f32_launches == 0:
         fail("the fp32 model's prefill and resume did not launch the fp32 tile arm")
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    before = fa.flash_attention_bwd.launches
     check_small_model_training(torch, 64)
+    small_bwd = fa.flash_attention_bwd.launches - before
+    print(f"phase 4 fp32 model (dim_head 64): fp32 backward calls {small_bwd} (each the TF32 passes "
+          f"{list(fa.attention_kernels(64, torch.float32)['bwd'])}; a trace names them after phase 10)")
+    if small_bwd != FP32_TRAINING_BWD:
+        fail(f"the fp32 training run called the fp32 backward {small_bwd} times, expected {FP32_TRAINING_BWD}")
     # the same at a head dim above 256: the wide kernels on the model's path
     from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
@@ -3382,6 +3520,9 @@ def main() -> int:
     del engine
     train_launches, _ = run_training(torch, vae, specs)
     launches.update(train_launches)
+    t0 = time.perf_counter()
+    fp32_train = run_fp32_training(torch)
+    print(f"phase 6b fp32 training: {time.perf_counter() - t0:.1f} s")
 
     # 7. continuous-serving path ---------------------------------------------------
     t0 = time.perf_counter()
@@ -3413,12 +3554,15 @@ def main() -> int:
     # each launch after it
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
+    t_traces = time.perf_counter()
     for row, fn, inputs, iters, prefix in DEVICE_ROWS:
+        t0 = time.perf_counter()
         ms, kernels_called = device_ms(torch, fn, inputs, iters)
         row[prefix + "device_ms"], row[prefix + "device_kernels"] = ms, kernels_called
         label = fn.__name__ + (f" ({prefix.rstrip('_')})" if prefix else "")
         print(f"device time {label}: {ms:.5f} ms a call (event time {row[prefix + 'ms']:.5f}), "
-              f"kernels a call {json.dumps(kernels_called)}")
+              f"kernels a call {json.dumps(kernels_called)} ({time.perf_counter() - t0:.1f} s)")
+    print(f"device times of phase 3's {len(DEVICE_ROWS)} rows: {time.perf_counter() - t_traces:.1f} s")
     DEVICE_ROWS.clear()
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3428,10 +3572,11 @@ def main() -> int:
     attn_times["flash_attention_fwd"]["cuda_kernel"] = traced
     for name, row in attn_times.items():
         for key, rows in attn_d256.items():
-            for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+            for field in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms"):
                 if field in rows[name]:
                     row[f"d256_{key}_{field}"] = rows[name][field]
-        for field in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        for field in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                      "bound_by"):
             row[f"fp32_{field}"] = attn_fp32[name][field]
     # the wide rows' traces name the kernels the routing rule names, and
     # the kernels SDPA ran beside them
@@ -3453,6 +3598,32 @@ def main() -> int:
                 if not any(k.startswith(kernel) for k in seen):
                     fail(f"the {key} {shape} at D = {d}: the trace shows {list(seen)}, not {kernel}>")
     print(f"phase 3's bf16 forward launches {traced} (torch.profiler trace of one call)")
+    # phases 4 and 6b's fp32 backward: a trace of one call names the kernels attention_kernels names
+    small = [torch.randn(2, 2, 80, 64, generator=g, device="cuda") for _ in range(4)]
+    o, lse = fa.flash_attention_fwd(*small[:3])
+    _, seen = device_ms(torch, fa.flash_attention_bwd,
+                        [(*small, lse, (small[3] * o).sum(-1))], 1)
+    named = fa.attention_kernels(64, torch.float32)["bwd"]
+    print(f"phase 4 and 6b's fp32 backward launches {json.dumps(seen)} (torch.profiler trace of one call)")
+    if sorted(seen) != sorted(named):
+        fail(f"the fp32 backward's trace shows {list(seen)}, attention_kernels names {list(named)}")
+    for name, row in attn_times.items():
+        print(f"phase 3 {name} fp32 device ms (kernel / SDPA): D=64 {row['fp32_device_ms']:.4f} / "
+              f"{row['fp32_library_device_ms']:.4f}, D=256 {row['d256_fp32_device_ms']:.4f} / "
+              f"{row['d256_fp32_library_device_ms']:.4f}; kernels a call "
+              f"{json.dumps(attn_fp32[name]['device_kernels'])}")
+    for key in ("bf16", "fp32"):
+        row = timings[("step", key)]
+        print(f"phase 3 flash_decode step {key} device ms {row['device_ms']:.5f}, SDPA "
+              f"{row['library_device_ms']:.5f} ({' + '.join(row['library_device_kernels'])})")
+    for (d, key, _), row in wide_times["wide"].items():
+        seen = row.get("device_kernels", {})
+        if not any(k.startswith("wide_decode_kernel") for k in seen):
+            fail(f"the {key} step at D = {d}: the trace shows {list(seen)}, not wide_decode_kernel")
+        row["cuda_kernel"] = " + ".join(seen)
+        row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
+        print(f"phase 3 step at D = {d} {key}: {row['cuda_kernel']} device {row['device_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f}, SDPA {row['library_device_ms']:.4f} ({row['library_cuda_kernel']})")
 
     # result -------------------------------------------------------------------
     kernels_line = {
@@ -3472,7 +3643,10 @@ def main() -> int:
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
-                timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281]; "
+                library_device_ms=step["library_device_ms"],
+                **{f"fp32_{k}": v for k, v in timings[("step", "fp32")].items() if "kernels" not in k},
+                timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281] (fp32_*: "
+                "the same step with fp32 q and cache, bound at the fp32 peak); "
                 "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
                 "9's generation CLI (2 prompts x one batch of 4, prefill included)",
             ),
@@ -3524,7 +3698,7 @@ def main() -> int:
                 source="dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
                 replaces=f"dalle_pytorch_tpu/ops/pallas_attention.py:{line}",
                 launches=launches[name],
-                max_abs_err=attn_errs[name],
+                max_abs_err=attn_errs["bf16"][name],
                 **attn_times[name],
                 **({"oracle_launches": cli_launches["oracle_flash_attention_fwd"]}
                    if name.endswith("fwd") else {}),
@@ -3537,6 +3711,34 @@ def main() -> int:
             for name, line in (
                 ("flash_attention_fwd", "129"),
                 ("flash_attention_bwd", "274, dalle_pytorch_tpu/ops/pallas_attention.py:333"),
+            )
+        ] + [
+            dict(
+                name=f"{name}_fp32",
+                route="cuda",
+                source="dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+                replaces=f"dalle_pytorch_tpu/ops/pallas_attention.py:{line}",
+                launches=fp32_train["launches"][name],
+                max_abs_err=attn_errs["fp32"][name],
+                **({"split_model_max_abs_err": attn_errs["fp32"]["split_model"]} if name.endswith("bwd") else {}),
+                cuda_kernel=" + ".join(kernel if isinstance(kernel, tuple) else (kernel,)),
+                **{k: v for k, v in attn_fp32[name].items() if "kernels" not in k},
+                **{f"d256_{k}": v for k, v in attn_d256["fp32"][name].items() if "kernels" not in k},
+                train_ms_per_step=fp32_train["ms_per_step"],
+                timed=f"fp32 causal B=4 H=16 N=1280 D=64 (d256_*: D=256); {what}; launches: phase 6b's "
+                f"{FP32_TRAIN_STEPS} fp32 training steps of the flagship (one call a layer a step"
+                + (", each the two passes" if name.endswith("bwd") else "") + "); library_ms is SDPA's "
+                + ("forward" if name.endswith("fwd") else "whole backward") + " in fp32",
+            )
+            for name, line, kernel, what in (
+                ("flash_attention_fwd", "129", fa.attention_kernels(64, torch.float32)["fwd"],
+                 "the CUDA-core forward, bound at the fp32 peak"),
+                ("flash_attention_bwd", "274, dalle_pytorch_tpu/ops/pallas_attention.py:333",
+                 fa.attention_kernels(64, torch.float32)["bwd"],
+                 "dq then dk/dv on tensor cores, every product three TF32 products (bound: three times "
+                 "10 D flops a visible pair at the TF32 peak); max_abs_err against the exact fp32 plain "
+                 "version, split_model_max_abs_err against flash_attention_bwd_tf32x3_plain (worst of "
+                 "phase 2's fp32 cases)"),
             )
         ] + [
             dict(
@@ -3611,11 +3813,14 @@ def main() -> int:
             for name, arm, source, main_case, replaces, err, extra, timed in (
                 ("wide_split", "wide_split", "wide_head", (WIDE_TIMED_DIMS[0], "bf16", "step"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
-                 wide_decode_errs["wide_split"], {},
+                 wide_decode_errs["wide_split"],
+                 {"d%d_%s_%s_%s" % (*case, k): v for case, row in wide_times["wide"].items()
+                  for k, v in row.items() if "kernels" not in k},
                  f"kernels 1-5 at D > 256 and n <= 4 (split-K); bf16 step n=1 B=4 H=16 S=1281 "
                  f"D={WIDE_TIMED_DIMS[0]} lengths [258, 700, 1024, 1281] (d<D>_<dtype>_step_*: the "
-                 f"other D and fp32, fp32 bound at the fp32 peak); launches: phase 4's dim_head "
-                 f"{WIDE_IDENTITY_DIM} model (its steps, fp32 and bf16 runs)"),
+                 f"other D and fp32, fp32 bound at the fp32 peak; d{WIDE_STEP_DIM}_*: the step above "
+                 f"the split-K kernel's channels, on the 4-row wide_decode_kernel, `cuda_kernel`); "
+                 f"launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (its steps, fp32 and bf16 runs)"),
                 ("wide_tile", "wide_tile", "wide_decode_tile", (WIDE_TIMED_DIMS[0], "bf16", "resume"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                  wide_decode_errs["wide_tile"],

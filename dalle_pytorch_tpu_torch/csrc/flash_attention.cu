@@ -43,18 +43,19 @@
 //     (forward, dv) and dS (dq, dk) are rounded to bf16
 //     before their second product, as FlashAttention does -- dS once, for
 //     both dk and dq; the softmax state (m, l, lse) and every sum stay fp32;
-//   * float32 inputs keep fp32 arithmetic on CUDA cores (256 threads,
-//     each owning a 4 x 4 patch of the 64 x 64 score tile and a 4 x D/16
-//     patch of the accumulator; tiles staged as fp32 with rows padded to
-//     D + 4 so float4 reads are conflict-free); the online softmax reduces
-//     over the 16 lanes of a half-warp; the backward is two passes, dq (by
-//     query tile) and dk/dv (by key tile), each recomputing p;
+//   * the float32 forward keeps fp32 arithmetic on CUDA cores (256
+//     threads, each owning a 4 x 4 patch of the 64 x 64 score tile and a 4
+//     x D/16 patch of the accumulator; tiles staged as fp32 with rows
+//     padded to D + 4 so float4 reads are conflict-free); the online
+//     softmax reduces over the 16 lanes of a half-warp;
+//   * the float32 backward is two passes on tensor cores, dq (by query
+//     tile) and dk/dv (by key tile), each recomputing p, every product in
+//     TF32 split three ways so it keeps ~21 bits (the section before the
+//     host code);
 //   * head dims: instances at D = 16, 32, 64, 128 and 256 (the wrapper
-//     zero-pads any other D <= 256 to the next). At 256 the fp32 dq and
-//     dk/dv kernels would pass the shared-memory limit with four staged
-//     tiles, so K and V share one buffer in turn (dk/dv restages its key
-//     tile for each query tile), and the fused bf16 backward splits the
-//     output columns over two blocks (`bwd_out_cols`).
+//     zero-pads any other D <= 256 to the next). At 256 the fused bf16
+//     backward splits the output columns over two blocks (`bwd_out_cols`),
+//     and the fp32 backward streams D in 64-channel chunks.
 // Not done yet: wgmma and TMA in the backward.
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime, no -lcuda)
@@ -267,211 +268,6 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     if (tx == 0) lse[bh * nq + r] = m[i] + logf(safe_l);
   }
 }
-
-// D > 128: four staged tiles pass the shared-memory limit, so K and V share
-// one buffer in turn (V for dP, then K for S and dq += dS K) and the dk/dv
-// kernel restages its key tile's K and V for each query tile
-template <int D>
-__host__ __device__ constexpr bool kv_shared() { return D > 128; }
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, const uint8_t* __restrict__ mask,
-          const int* __restrict__ layout, float* __restrict__ dq, int H, int nq, int nk, int mode,
-          float scale) {
-  constexpr int LD = D + 4, DJ = D / 16;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBlock * LD;
-  float* ks = dos + kBlock * LD;
-  float* vs = kv_shared<D>() ? ks : ks + kBlock * LD;
-  float* dss = vs + kBlock * LD;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t bh = (size_t)b * H + h;
-  const float* kb = k + bh * nk * D;
-  const float* vb = v + bh * nk * D;
-  const int q0 = qt * kBlock;
-  const int ktiles = (nk + kBlock - 1) / kBlock;
-  const int kend = mode == 1 ? min(ktiles, (q0 + kBlock - 1) / kBlock + 1) : ktiles;
-
-  stage_tile<D>(qs, q + bh * nq * D, q0, nq, 1.f);
-  stage_tile<D>(dos, dout + bh * nq * D, q0, nq, 1.f);
-  float row_lse[4], row_delta[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    row_lse[i] = r < nq ? lse[bh * nq + r] : 0.f;
-    row_delta[i] = r < nq ? delta[bh * nq + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kt = 0; kt < kend; ++kt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;
-    const int k0 = kt * kBlock;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    __syncthreads();
-    if constexpr (kv_shared<D>()) {
-      stage_tile<D>(vs, vb, k0, nk, 1.f);
-      __syncthreads();
-      tile_dot<D>(dp, dos, vs, ty, tx);
-      __syncthreads();
-      stage_tile<D>(ks, kb, k0, nk, 1.f);
-      __syncthreads();
-      tile_dot<D>(s, qs, ks, ty, tx);
-    } else {
-      stage_tile<D>(ks, kb, k0, nk, 1.f);
-      stage_tile<D>(vs, vb, k0, nk, 1.f);
-      __syncthreads();
-      tile_dot<D>(s, qs, ks, ty, tx);
-      tile_dot<D>(dp, dos, vs, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(r, k0 + tx + 16 * j, nq, nk, mode, mask)
-                            ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        dss[(ty + 16 * i) * kPLD + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * scale;
-      }
-    }
-    __syncwarp();
-    tile_acc<D>(acc, dss, ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= nq) continue;
-    float* row = dq + (bh * nq + r) * D + tx * DJ;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[j] = acc[i][j];
-  }
-}
-
-// here a thread's score patch is transposed: rows ty + 16 i are KEYS of
-// this block's tile, columns tx + 16 j are QUERY rows of the streamed tile
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, const uint8_t* __restrict__ mask,
-           const int* __restrict__ layout, float* __restrict__ dk, float* __restrict__ dv, int H,
-           int nq, int nk, int mode, float scale) {
-  constexpr int LD = D + 4, DJ = D / 16;
-  extern __shared__ float4 smem4[];
-  constexpr bool SHARED = kv_shared<D>();  // K and V, and P^T and dS^T, share buffers
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = SHARED ? ks : ks + kBlock * LD;
-  float* qs = vs + kBlock * LD;
-  float* dos = qs + kBlock * LD;
-  float* pts = dos + kBlock * LD;
-  float* dsts = SHARED ? pts : pts + kBlock * kPLD;
-  float* lse_s = dsts + kBlock * kPLD;
-  float* delta_s = lse_s + kBlock;
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t bh = (size_t)b * H + h;
-  const float* qb = q + bh * nq * D;
-  const float* db = dout + bh * nq * D;
-  const int k0 = kt * kBlock;
-  const int ktiles = (nk + kBlock - 1) / kBlock;
-  const int qtiles = (nq + kBlock - 1) / kBlock;
-  // causal: the first query tile whose rows reach key k0 (empty when
-  // nk > nq puts the whole key tile past the last query)
-  const int qbegin = mode == 1 ? k0 / kBlock : 0;
-
-  const float* kb = k + bh * nk * D;
-  const float* vb = v + bh * nk * D;
-  if constexpr (!SHARED) {
-    stage_tile<D>(ks, kb, k0, nk, 1.f);
-    stage_tile<D>(vs, vb, k0, nk, 1.f);
-  }
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int qt = qbegin; qt < qtiles; ++qt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;
-    const int q0 = qt * kBlock;
-    __syncthreads();
-    stage_tile<D>(qs, qb, q0, nq, 1.f);
-    stage_tile<D>(dos, db, q0, nq, 1.f);
-    for (int r = threadIdx.x; r < kBlock; r += kThreads) {
-      lse_s[r] = q0 + r < nq ? lse[bh * nq + q0 + r] : 0.f;
-      delta_s[r] = q0 + r < nq ? delta[bh * nq + q0 + r] : 0.f;
-    }
-    if constexpr (SHARED) stage_tile<D>(ks, kb, k0, nk, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, ks, qs, ty, tx);
-    if constexpr (SHARED) {
-      __syncthreads();
-      stage_tile<D>(vs, vb, k0, nk, 1.f);
-      __syncthreads();
-    }
-    tile_dot<D>(dp, vs, dos, ty, tx);
-    float ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rl = tx + 16 * j;
-        // padded query rows (>= nq) are dropped here: their lse never
-        // reaches dk/dv
-        const float p = visible(q0 + rl, c, nq, nk, mode, mask)
-                            ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
-        ds[i][j] = p * (dp[i][j] - delta_s[rl]) * scale;
-        pts[(ty + 16 * i) * kPLD + rl] = p;
-        if constexpr (!SHARED) dsts[(ty + 16 * i) * kPLD + rl] = ds[i][j];
-      }
-    }
-    __syncwarp();
-    tile_acc<D>(dv_acc, pts, dos, ty, tx);
-    if constexpr (SHARED) {  // dS^T replaces P^T (rows of one half-warp each)
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dsts[(ty + 16 * i) * kPLD + tx + 16 * j] = ds[i][j];
-      __syncwarp();
-    }
-    tile_acc<D>(dk_acc, dsts, qs, ty, tx);
-  }
-
-  // every block writes its rows, zeros when no query tile was live
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= nk) continue;
-    float* krow = dk + (bh * nk + c) * D + tx * DJ;
-    float* vrow = dv + (bh * nk + c) * D + tx * DJ;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      krow[j] = dk_acc[i][j];
-      vrow[j] = dv_acc[i][j];
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Tensor-core path for bfloat16 inputs: bf16 operands, fp32 accumulators.
@@ -1257,22 +1053,609 @@ __global__ void dq_convert_kernel(const float4* __restrict__ src, __nv_bfloat162
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 backward on tensor cores: two passes, as the TPU kernels
+// `_dq_kernel` and `_dkv_kernel` do, every product on mma.sync
+// (m16n8k8, TF32 operands, fp32 accumulators) with each fp32 operand x
+// split into hi = rna(x) and lo = rna(x - hi), TF32 values both, and each
+// product formed as lo.hi + hi.lo + hi.hi, small terms first (the
+// arithmetic of CUTLASS's OpMultiplyAddFastF32, which SDPA's fp32 kernels
+// run): a product keeps ~21 of fp32's 24 bits, and P and dS are split from
+// their fp32 values, never rounded to bf16. p, dS and every sum stay fp32.
+//   * `dq_tf32_kernel<D>`: a block per (batch row and head, 64-query tile),
+//     the tiles with the most keys first, loops over the live 64-key
+//     tiles; dq by query tile, written once;
+//   * `dkv_tf32_kernel<D>`: a block per (batch row and head, 64-key tile)
+//     loops over the query tiles that see its keys; dk and dv written once
+//     (at D = 256 two blocks a key tile, each owning half of dK's and dV's
+//     columns and forming S^T and dP^T itself: 128 accumulator registers a
+//     thread beside the rest spilled).
+// No atomics: dq, dk and dv are bit-identical run to run. A block is 8
+// warps: four groups of 16 rows (queries in the dq pass, keys in the dk/dv
+// pass) times two roles. Role 0 forms S (S^T), role 1 dP (dP^T), each a
+// 16 x 64 accumulator fragment a warp, over all of D; role 0 turns S into
+// P = 2^(S scale log2(e) - lse log2(e)) in fp32 (ex2.approx of one FMA;
+// the arm's mask only on tiles that need it: the causal diagonal, edges
+// past nq or nk, every live static-mask tile) and hands it to its partner
+// warp through shared memory, which forms dS = P (dP - delta) scale. Then
+// the dq pass hands dS back, and each role adds dS K into its half of
+// dQ's columns; in the dk/dv pass
+// role 0 adds P^T dO into dV and role 1 dS^T Q into dK, over all columns.
+// P and dS enter those products from registers: a thread's accumulator
+// columns 2t, 2t + 1 of a k-step are taken as its A fragment's k = t, t +
+// 4, so B is read at rows 2t and 2t + 1 (scalar loads, conflict-free at a
+// row stride of 4 mod 8 floats). S and dP read both operands with
+// ldmatrix (8 x 4 fp32 blocks: a 32-bit element a thread).
+// Operands: the block's own 64 rows of its two fixed operands (Q and dO;
+// K and V) stay in shared memory, loaded once; the streamed ones arrive by
+// cp.async through a ring of STAGES slots, one item a slot: an S/dP item
+// is a chunk (64 channels, 32 at D = 256) of both streamed operands (K
+// and V; Q, dO, lse and delta), so S and dP accumulate over D in chunks
+// and no buffer is shared or restaged; at D > 64 the second products need
+// the streamed operand's other chunks again (K; Q and dO), which column
+// items bring after the last S/dP item (its own chunk is still in its
+// slot). The next item is in flight while one computes (at D <= 64 the
+// next two); rows past nq or nk are zero-filled by the copy. A landed item
+// is split into hi and lo once for the block (`split_slot`), so the warps
+// split only their A operands. Two __syncthreads an item.
+// What bounds it: operations. 14 D flops a visible pair (S and dP in both
+// passes, then dQ, dV, dK; 18 D at D = 256, whose two dk/dv blocks each
+// form S and dP), three TF32 products each: 42 D a pair on a
+// 495 TF/s TF32 peak, against a bound of 10 D a pair (3 x 10 D at that
+// peak with the split). Shared memory: 227 KB at D = 64 (3 stages), 224 KB
+// at 128 and 256 (2): one block an SM.
+
+constexpr int kTfThreads = 256;
+constexpr int kMaxDevices = 64;
+
 template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * (3 * kBlock * (D + 4) + kBlock * kPLD); }
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((kv_shared<D>() ? 3 : 4) * kBlock * (D + 4) + kBlock * kPLD);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * ((kv_shared<D>() ? 3 : 4) * kBlock * (D + 4) +
-                          (kv_shared<D>() ? 1 : 2) * kBlock * kPLD + 2 * kBlock);
+struct TfPlan {
+  static constexpr int CH = D < 64 ? D : D > 128 ? 32 : 64;  // channels of a streamed chunk
+  static constexpr int NC = D / CH;                    // chunks over D
+  static constexpr int LDR = D + 4;                    // a resident tile's row stride (floats)
+  static constexpr int LDC = CH + 4;                   // a chunk tile's
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  static constexpr int CHUNK = kBlock * LDC;           // floats of a chunk tile
+  static constexpr int SLOT = 2 * CHUNK + 2 * kBlock;  // two chunk tiles, then lse and delta
+  static constexpr int SPLIT = 4 * CHUNK;              // a slot's tiles split: two hi, two lo
+  static constexpr int XCHG = 4 * 8 * 32 * 4;          // a 16 x 64 fragment for each row group
+  // dk/dv blocks a key tile: at D = 256 two, each owning half of dK's and
+  // dV's columns (their 128 accumulator registers a thread would spill)
+  static constexpr int KV_SPLIT = D > 128 ? 2 : 1;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * kBlock * LDR + STAGES * SLOT + SPLIT + XCHG);
+  static_assert(D % 16 == 0 && D <= 256 && SMEM <= 232448, "an instance's shared memory");
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// dynamic shared memory above 48 KB must be opted into once per kernel
+// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b over one k-step of 8 from the split operands: the small terms lo.hi
+// + hi.lo into `small`, first, and hi.hi into `big`
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// four 8 x 4 fp32 blocks; lanes 8i..8i+7 give the row addresses of block i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A landed slot's two chunk tiles split once for the whole block, into
+// `buf`: hi of tile 0 and of tile 1, then lo of each (TF32 values in fp32
+// registers' bits), so the products read both halves of a B operand and
+// split only their A operands (four warps of a role read the same B).
+template <int CHUNK>
+__device__ __forceinline__ void split_slot(float* buf, const float* slot) {
+  const float4* x4 = reinterpret_cast<const float4*>(slot);
+  float4* hi = reinterpret_cast<float4*>(buf);
+  float4* lo = reinterpret_cast<float4*>(buf + 2 * CHUNK);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < CHUNK / 2; i += kTfThreads) {  // 2 CHUNK floats, 4 a step
+    const float4 x = x4[i];
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                        __uint_as_float(h[3]));
+    lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                        __uint_as_float(l[3]));
+  }
+}
+
+// the two warps of row group `grp` (roles 0 and 1) meet
+__device__ __forceinline__ void pair_sync(int grp) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + grp) : "memory");
+}
+
+// rows [row0, row0 + 64) x channels [c0, c0 + W) of a row-major [n, D]
+// float matrix into shared memory at row stride LD, by cp.async in 16-byte
+// pieces (rows >= n zero-filled)
+template <int W, int LD, int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ src, int row0, int n,
+                                          int c0) {
+  constexpr int PER_ROW = W / 4;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBlock * PER_ROW; e += kTfThreads) {
+    const int r = e / PER_ROW, c = (e % PER_ROW) * 4;
+    const bool ok = row0 + r < n;
+    cp_async16(smem_addr(dst + r * LD + c), src + (size_t)(ok ? row0 + r : 0) * D + c0 + c, ok);
+  }
+}
+
+// The tensor cores' fp32 accumulation drops the bits below the sum's
+// last place (toward zero) at every mma, so a long chain of mma into one
+// accumulator shrinks it by ~2^-24 a step: ~3e-5 after the 480 mma of a
+// dV over 1280 queries. So each tile's (and each chunk's) partial sum runs
+// in fresh accumulators, hi.hi in one (one mma a k-step) and the small
+// terms in another (two a k-step, at ~2^-11 of the partial, so their
+// dropped bits are that much smaller), and big + small is added into the
+// running fp32 sum with ordinary (round-to-nearest) adds.
+
+// s[nb] (+)= X Y^T for this warp: X's 16 rows at x (row stride LDX), Y's
+// 64 rows at y (a split chunk tile's hi, its lo LO floats on; stride LDY),
+// over CH channels from each pointer; s[nb] holds columns 8 nb .. 8 nb + 7
+// in the accumulator layout.
+// FIRST: s is zero and takes the chunk's products directly; else the
+// chunk's partial forms in fresh accumulators, GN column tiles at a time,
+// and is added into s.
+template <int CH, int LDX, int LDY, int LO, bool FIRST, int GN>
+__device__ __forceinline__ void score_product(float (&s)[8][4], const float* x, const float* y,
+                                              int lane) {
+  constexpr int G = FIRST ? 8 : GN;  // column tiles a pass
+  const float* xa = x + (lane & 15) * LDX + (lane >> 4) * 4;
+  const float* yb = y + (((lane >> 4) << 3) + (lane & 7)) * LDY + ((lane >> 3) & 1) * 4;
+#pragma unroll
+  for (int n0 = 0; n0 < 8; n0 += G) {
+    float t[G][4], u[G][4];  // hi.hi and the small terms
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[i][e] = u[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < CH / 8; ++ks) {
+      uint32_t a[4], ah[4], al[4];
+      ldsm_x4(a, xa + ks * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+      for (int np = 0; np < G / 2; ++np) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, yb + (n0 / 2 + np) * 16 * LDY + ks * 8);
+        ldsm_x4(bl, yb + LO + (n0 / 2 + np) * 16 * LDY + ks * 8);
+        mma_3xtf32(t[2 * np], u[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_3xtf32(t[2 * np + 1], u[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float part = __fadd_rn(t[i][e], u[i][e]);
+        s[n0 + i][e] = FIRST ? part : __fadd_rn(s[n0 + i][e], part);
+      }
+  }
+}
+
+// acc[off + nt] += F Y[:, 8 nt .. 8 nt + 8) for nt < NT: F this warp's 16 x
+// 64 fragment (accumulator layout; its k-step kk is columns 8 kk .. 8 kk +
+// 7, a thread's columns 2t and 2t + 1 taken as k = t and t + 4), Y 64 rows
+// at y (a split chunk tile's hi, its lo LO floats on; stride LDY)
+// This tile's partial of each column tile forms in fresh accumulators,
+// GN column tiles at a time, and is added into acc.
+template <int NT, int LDY, int LO, int GN, int NACC>
+__device__ __forceinline__ void frag_product(float (&acc)[NACC][4], int off, const float (&f)[8][4],
+                                             const float* y, int lane) {
+  constexpr int G = NT < GN ? NT : GN;  // column tiles a pass
+  const float* yb = y + 2 * (lane & 3) * LDY + (lane >> 2);
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += G) {
+    float t[G][4], u[G][4];  // hi.hi and the small terms
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[i][e] = u[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(f[kk][0], ah[0], al[0]);
+      split_tf32(f[kk][2], ah[1], al[1]);
+      split_tf32(f[kk][1], ah[2], al[2]);
+      split_tf32(f[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const float* b = yb + 8 * kk * LDY + 8 * (n0 + i);
+        const uint32_t bh0 = __float_as_uint(b[0]), bh1 = __float_as_uint(b[LDY]);
+        const uint32_t bl0 = __float_as_uint(b[LO]), bl1 = __float_as_uint(b[LO + LDY]);
+        mma_3xtf32(t[i], u[i], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[off + n0 + i][e] = __fadd_rn(acc[off + n0 + i][e], __fadd_rn(t[i][e], u[i][e]));
+  }
+}
+
+// the row group's 16 x 64 fragment through shared memory ([8][32 lanes]
+// float4s a group: conflict-free)
+__device__ __forceinline__ void put_frag(float* xchg, int grp, int lane, const float (&f)[8][4]) {
+  float4* w = reinterpret_cast<float4*>(xchg) + grp * 8 * 32 + lane;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) w[nb * 32] = make_float4(f[nb][0], f[nb][1], f[nb][2], f[nb][3]);
+}
+__device__ __forceinline__ void get_frag(const float* xchg, int grp, int lane, float (&f)[8][4]) {
+  const float4* w = reinterpret_cast<const float4*>(xchg) + grp * 8 * 32 + lane;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const float4 x = w[nb * 32];
+    f[nb][0] = x.x; f[nb][1] = x.y; f[nb][2] = x.z; f[nb][3] = x.w;
+  }
+}
+
+// dS = P (dP - delta) scale, as the plain version rounds it
+__device__ __forceinline__ float ds_of(float p, float dp, float delta, float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+struct TfItem {
+  int tile, step;  // a key tile (dq) or query tile (dk/dv), and the item within it
+};
+
+// The ring: items 0, 1, ... of a block, each filling one of STAGES slots
+// of SLOT floats, `fetch(item, slot)` issuing its copies (cp.async issued
+// before the call join the first item's group) and `compute(item, slot)`
+// consuming it; `next` advances an item, `done` ends.
+template <int STAGES, int SLOT, typename Next, typename Done, typename Fetch, typename Compute>
+__device__ __forceinline__ void tf_ring(float* ring, TfItem first, Next next, Done done, Fetch fetch,
+                                        Compute compute) {
+  TfItem f = first, c = first;
+#pragma unroll 1
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (!done(f)) {
+      fetch(f, ring + st * SLOT);
+      f = next(f);
+    }
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; !done(c); ++it) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of item `it` landed
+    __syncthreads();              // everyone's; and item it - 1's slot is consumed
+    if (!done(f)) {
+      fetch(f, ring + ((it + STAGES - 1) % STAGES) * SLOT);
+      f = next(f);
+    }
+    cp_async_commit();
+    compute(c, ring + (it % STAGES) * SLOT);
+    c = next(c);
+  }
+  cp_async_wait<0>();
+}
+
+// dq: grid (B * H, ceil(nq / 64)), the query tile the slowest index and
+// reversed, so the causal blocks with the most key tiles start first
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const uint8_t* __restrict__ mask, const int* __restrict__ layout,
+               float* __restrict__ dq, int nq, int nk, int mode, float scale) {
+  using P = TfPlan<D>;
+  constexpr int CH = P::CH, NC = P::NC, LDR = P::LDR, LDC = P::LDC;
+  constexpr int NT = CH / 16;   // a role's column tiles of a chunk: half its columns
+  constexpr int NCOL = NC / 2;  // column items: K's chunks below the last, two a slot
+  constexpr int GN = 4;         // column tiles of a fresh partial
+  constexpr int LO = 2 * P::CHUNK;  // a split tile's lo, from its hi
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][LDR], resident
+  float* dos = qs + kBlock * LDR;
+  float* ring = dos + kBlock * LDR;
+  float* buf = ring + P::STAGES * P::SLOT;  // the computing slot's tiles, split
+  float* xchg = buf + P::SPLIT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, role = warp / 4, grp = warp % 4;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * grp;
+  const size_t bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * kBlock;
+  const int ktiles = (nk + kBlock - 1) / kBlock;
+  const int kend = key_tile_end(mode, q0, nk);
+  const float* kb = k + bh * nk * D;
+  const float* vb = v + bh * nk * D;
+
+  copy_rows<D, LDR, D>(qs, q + bh * nq * D, q0, nq, 0);
+  copy_rows<D, LDR, D>(dos, dout + bh * nq * D, q0, nq, 0);
+  // P = 2^(s scale log2(e) - lse log2(e)): ex2.approx of one FMA (within
+  // ~1e-6 relative of expf(s scale - lse), at a fifth of its instructions)
+  const float scale_log2 = scale * kLog2e;
+  float row_lse[2], row_delta[2];  // lse in base 2
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + r0 + g + 8 * hh;
+    row_lse[hh] = r < nq ? lse[bh * nq + r] * kLog2e : 0.f;
+    row_delta[hh] = r < nq ? delta[bh * nq + r] : 0.f;
+  }
+
+  auto next = [&](TfItem x) {
+    return ++x.step < NC + NCOL ? x
+                                : TfItem{next_key_tile(x.tile + 1, kend, mode, layout, qt, ktiles), 0};
+  };
+  auto done = [&](TfItem x) { return x.tile >= kend; };
+  auto fetch = [&](TfItem x, float* slot) {
+    const int key0 = x.tile * kBlock;
+    if (x.step < NC) {  // chunk `step` of K and of V
+      copy_rows<CH, LDC, D>(slot, kb, key0, nk, x.step * CH);
+      copy_rows<CH, LDC, D>(slot + P::CHUNK, vb, key0, nk, x.step * CH);
+    } else {  // K's chunks c and c + 1, below the last
+      const int c = 2 * (x.step - NC);
+      copy_rows<CH, LDC, D>(slot, kb, key0, nk, c * CH);
+      if (c + 1 < NC - 1) copy_rows<CH, LDC, D>(slot + P::CHUNK, kb, key0, nk, (c + 1) * CH);
+    }
+  };
+
+  float s[8][4], acc[NC * NT][4];  // s: S (role 0) or dP (role 1), then dS
+#pragma unroll
+  for (int i = 0; i < NC * NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const float* xs = (role == 0 ? qs : dos) + r0 * LDR;
+  const int half = role * (CH / 2);  // this role's columns of each chunk
+
+  auto compute = [&](TfItem x, const float* slot) {
+    split_slot<P::CHUNK>(buf, slot);
+    __syncthreads();  // block-uniform: every thread computes the same item
+    if (x.step < NC) {
+      if (x.step == 0) {
+        score_product<CH, LDR, LDC, LO, true, GN>(s, xs, buf + role * P::CHUNK, lane);
+      } else if constexpr (NC > 1) {
+        score_product<CH, LDR, LDC, LO, false, GN>(s, xs + x.step * CH, buf + role * P::CHUNK, lane);
+      }
+      if (x.step < NC - 1) return;
+      // the scores are whole: P (role 0), then dS (role 1), shared by the pair
+      const int k0 = x.tile * kBlock;
+      const bool full = tile_full(mode, q0, k0, nq, nk);
+      if (role == 0) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(__fmaf_rn(s[nb][e], scale_log2, -row_lse[e / 2]));
+            if (!full && !visible(q0 + r0 + g + 8 * (e / 2), k0 + 8 * nb + 2 * t + (e % 2), nq, nk,
+                                  mode, mask))
+              p = 0.f;
+            s[nb][e] = p;
+          }
+        put_frag(xchg, grp, lane, s);
+      }
+      pair_sync(grp);
+      if (role == 1) {
+        const float4* pw = reinterpret_cast<const float4*>(xchg) + grp * 8 * 32 + lane;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float4 p = pw[nb * 32];
+          s[nb][0] = ds_of(p.x, s[nb][0], row_delta[0], scale);
+          s[nb][1] = ds_of(p.y, s[nb][1], row_delta[0], scale);
+          s[nb][2] = ds_of(p.z, s[nb][2], row_delta[1], scale);
+          s[nb][3] = ds_of(p.w, s[nb][3], row_delta[1], scale);
+        }
+        put_frag(xchg, grp, lane, s);
+      }
+      pair_sync(grp);
+      if (role == 0) get_frag(xchg, grp, lane, s);
+      // dQ += dS K over the last chunk, still in this slot
+      frag_product<NT, LDC, LO, GN>(acc, (NC - 1) * NT, s, buf + half, lane);
+      return;
+    }
+    const int c = 2 * (x.step - NC);
+#pragma unroll
+    for (int cc = 0; cc < NC - 1; ++cc) {
+      if (cc == c) frag_product<NT, LDC, LO, GN>(acc, cc * NT, s, buf + half, lane);
+      if (cc == c + 1) frag_product<NT, LDC, LO, GN>(acc, cc * NT, s, buf + P::CHUNK + half, lane);
+    }
+  };
+  tf_ring<P::STAGES, P::SLOT>(ring, TfItem{next_key_tile(0, kend, mode, layout, qt, ktiles), 0}, next,
+                              done, fetch, compute);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + r0 + g + 8 * hh;
+    if (r >= nq) continue;
+    float* row = dq + (bh * nq + r) * D + half + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(row + c * CH + 8 * nt) =
+            make_float2(acc[c * NT + nt][2 * hh], acc[c * NT + nt][2 * hh + 1]);
+  }
+}
+
+// dk, dv: grid (B * H, ceil(nk / 64), KV_SPLIT), the key tile the
+// slowest index but one (causal key tile 0, which the most query tiles
+// see, first); blockIdx.z picks the block's share of dK's and dV's
+// columns (S^T and dP^T are formed over all of D by each). Here a warp's
+// fragment is transposed: rows are keys, columns queries.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const uint8_t* __restrict__ mask, const int* __restrict__ layout,
+                float* __restrict__ dk, float* __restrict__ dv, int nq, int nk, int mode,
+                float scale) {
+  using P = TfPlan<D>;
+  constexpr int CH = P::CH, NC = P::NC, LDR = P::LDR, LDC = P::LDC;
+  constexpr int NT = CH / 8;                   // column tiles of a chunk: all its columns
+  constexpr int NCO = NC / P::KV_SPLIT;        // chunks whose dK and dV columns this block owns
+  constexpr int GN = NCO * NT >= 16 ? 2 : 4;   // column tiles of a fresh partial (2 beside 64
+                                               // accumulator registers)
+  constexpr int LO = 2 * P::CHUNK;             // a split tile's lo, from its hi
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [64][LDR], resident
+  float* vs = ks + kBlock * LDR;
+  float* ring = vs + kBlock * LDR;
+  float* buf = ring + P::STAGES * P::SLOT;  // the computing slot's tiles, split
+  float* xchg = buf + P::SPLIT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, role = warp / 4, grp = warp % 4;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * grp;
+  const size_t bh = blockIdx.x;
+  const int kt = blockIdx.y, k0 = kt * kBlock;
+  const int ktiles = (nk + kBlock - 1) / kBlock, qtiles = (nq + kBlock - 1) / kBlock;
+  // owned chunks [c0, c0 + NCO); the last S/dP item's chunk (NC - 1) is
+  // taken from its own slot when owned, the others by column items
+  const int c0 = blockIdx.z * NCO;
+  const bool owns_last = c0 + NCO == NC;
+  const int n_items = NC + NCO - (owns_last ? 1 : 0);
+  const float* qb = q + bh * nq * D;
+  const float* db = dout + bh * nq * D;
+  const float* lb = lse + bh * nq;
+  const float* deb = delta + bh * nq;
+
+  copy_rows<D, LDR, D>(ks, k + bh * nk * D, k0, nk, 0);
+  copy_rows<D, LDR, D>(vs, v + bh * nk * D, k0, nk, 0);
+
+  auto live = [&](int qt) {
+    if (mode == 2)
+      while (qt < qtiles && layout[qt * ktiles + kt] == 0) ++qt;
+    return qt;
+  };
+  auto next = [&](TfItem x) { return ++x.step < n_items ? x : TfItem{live(x.tile + 1), 0}; };
+  auto done = [&](TfItem x) { return x.tile >= qtiles; };
+  // an S/dP item: chunk `step` of Q and dO (the last also lse and delta); a
+  // column item: owned chunk c0 + step - NC of Q and dO again
+  auto fetch = [&](TfItem x, float* slot) {
+    const int q0 = x.tile * kBlock, c = x.step < NC ? x.step : c0 + x.step - NC;
+    copy_rows<CH, LDC, D>(slot, qb, q0, nq, c * CH);
+    copy_rows<CH, LDC, D>(slot + P::CHUNK, db, q0, nq, c * CH);
+    if (x.step == NC - 1 && threadIdx.x < 2 * kBlock) {
+      const int r = threadIdx.x % kBlock;
+      const bool ok = q0 + r < nq;
+      cp_async4(slot + 2 * P::CHUNK + threadIdx.x, (threadIdx.x < kBlock ? lb : deb) + (ok ? q0 + r : 0),
+                ok);
+    }
+  };
+
+  float s[8][4], acc[NCO * NT][4];  // s: S^T (role 0, then P^T) or dP^T (role 1, then dS^T);
+#pragma unroll                      // acc: dV (role 0) or dK (role 1), the owned columns
+  for (int i = 0; i < NCO * NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const float* xs = (role == 0 ? ks : vs) + r0 * LDR;
+  const float scale_log2 = scale * kLog2e;  // P in base 2, as the dq pass forms it
+  // the second product's operand in a slot: dO (role 0) or Q (role 1)
+  const int other = role == 0 ? P::CHUNK : 0;
+
+  auto compute = [&](TfItem x, const float* slot) {
+    split_slot<P::CHUNK>(buf, slot);
+    __syncthreads();  // block-uniform: every thread computes the same item
+    if (x.step < NC) {
+      if (x.step == 0) {
+        score_product<CH, LDR, LDC, LO, true, GN>(s, xs, buf + role * P::CHUNK, lane);
+      } else if constexpr (NC > 1) {
+        score_product<CH, LDR, LDC, LO, false, GN>(s, xs + x.step * CH, buf + role * P::CHUNK, lane);
+      }
+      if (x.step < NC - 1) return;
+      // the scores are whole: P^T (role 0), then dS^T (role 1)
+      const int q0 = x.tile * kBlock;
+      const bool full = tile_full(mode, q0, k0, nq, nk);
+      const float* lse_s = slot + 2 * P::CHUNK;
+      const float* delta_s = lse_s + kBlock;
+      if (role == 0) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * nb + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(__fmaf_rn(s[nb][e], scale_log2, -(e % 2 ? l2.y : l2.x) * kLog2e));
+            // padded query rows (>= nq) are dropped here: their lse never reaches dk/dv
+            if (!full && !visible(q0 + 8 * nb + 2 * t + (e % 2), k0 + r0 + g + 8 * (e / 2), nq, nk,
+                                  mode, mask))
+              p = 0.f;
+            s[nb][e] = p;
+          }
+        }
+        put_frag(xchg, grp, lane, s);
+      }
+      pair_sync(grp);
+      if (role == 1) {
+        const float4* pw = reinterpret_cast<const float4*>(xchg) + grp * 8 * 32 + lane;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * nb + 2 * t);
+          const float4 p = pw[nb * 32];
+          s[nb][0] = ds_of(p.x, s[nb][0], d2.x, scale);
+          s[nb][1] = ds_of(p.y, s[nb][1], d2.y, scale);
+          s[nb][2] = ds_of(p.z, s[nb][2], d2.x, scale);
+          s[nb][3] = ds_of(p.w, s[nb][3], d2.y, scale);
+        }
+      }
+      // dV += P^T dO (role 0), dK += dS^T Q (role 1) over the last chunk
+      if (owns_last) frag_product<NT, LDC, LO, GN>(acc, (NCO - 1) * NT, s, buf + other, lane);
+      return;
+    }
+    const int c = x.step - NC;  // the owned chunk's index among the block's
+#pragma unroll
+    for (int cc = 0; cc < NCO; ++cc)
+      if (cc == c) frag_product<NT, LDC, LO, GN>(acc, cc * NT, s, buf + other, lane);
+  };
+  tf_ring<P::STAGES, P::SLOT>(ring, TfItem{live(mode == 1 ? k0 / kBlock : 0), 0}, next, done, fetch,
+                              compute);
+
+  // every block writes its keys' rows, zeros when no query tile was live
+  float* out = (role == 0 ? dv : dk) + bh * nk * D + c0 * CH + 2 * t;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + r0 + g + 8 * hh;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < NCO * NT; ++i)
+      *reinterpret_cast<float2*>(out + (size_t)key * D + 8 * i) =
+          make_float2(acc[i][2 * hh], acc[i][2 * hh + 1]);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_smem() { return sizeof(float) * (3 * kBlock * (D + 4) + kBlock * kPLD); }
+
+// dynamic shared memory above 48 KB is opted into once per kernel instance
+// and device (`capped` is the caller's flag for that instance)
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&capped)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && capped[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) capped[dev] = true;
+  return err;
 }
 
 struct Args {
@@ -1285,10 +1668,11 @@ struct Args {
 
 enum Pass { kFwd, kBwd };
 
-// float32 inputs: the CUDA-core kernels (the backward as two launches, dq
-// and dk/dv)
+// float32 inputs: the CUDA-core forward; the backward as two tensor-core
+// launches, dq and dk/dv
 template <int D>
-cudaError_t run_cuda_cores(Pass pass, const Args& a) {
+cudaError_t run_fp32(Pass pass, const Args& a) {
+  static bool capped[3][kMaxDevices] = {};  // fwd_kernel, dq_tf32_kernel, dkv_tf32_kernel
   const auto* q = static_cast<const float*>(a.q);
   const auto* k = static_cast<const float*>(a.k);
   const auto* v = static_cast<const float*>(a.v);
@@ -1297,25 +1681,26 @@ cudaError_t run_cuda_cores(Pass pass, const Args& a) {
   const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const uint8_t*>(a.mask);
   const auto* layout = static_cast<const int*>(a.layout);
-  const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
   cudaError_t err;
   if (pass == kFwd) {
-    if ((err = allow_smem(fwd_kernel<D>, fwd_smem<D>())) != cudaSuccess) return err;
+    const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
+    if ((err = allow_smem(fwd_kernel<D>, fwd_smem<D>(), capped[0])) != cudaSuccess) return err;
     fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), a.stream>>>(
         q, k, v, mask, layout, static_cast<float*>(a.o), static_cast<float*>(a.lse_out), a.H,
         a.nq, a.nk, a.mode, a.scale);
     return cudaGetLastError();
   }
-  if ((err = allow_smem(dq_kernel<D>, dq_smem<D>())) != cudaSuccess) return err;
-  dq_kernel<D><<<grid, kThreads, dq_smem<D>(), a.stream>>>(
-      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dq), a.H, a.nq, a.nk,
-      a.mode, a.scale);
+  constexpr size_t smem = TfPlan<D>::SMEM;
+  if ((err = allow_smem(dq_tf32_kernel<D>, smem, capped[1])) != cudaSuccess) return err;
+  dq_tf32_kernel<D><<<dim3(a.B * a.H, (a.nq + kBlock - 1) / kBlock), kTfThreads, smem, a.stream>>>(
+      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dq), a.nq, a.nk, a.mode,
+      a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(dkv_kernel<D>, dkv_smem<D>())) != cudaSuccess) return err;
-  const dim3 kgrid((a.nk + kBlock - 1) / kBlock, a.H, a.B);
-  dkv_kernel<D><<<kgrid, kThreads, dkv_smem<D>(), a.stream>>>(
-      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.H, a.nq, a.nk, a.mode, a.scale);
+  if ((err = allow_smem(dkv_tf32_kernel<D>, smem, capped[2])) != cudaSuccess) return err;
+  const dim3 kgrid(a.B * a.H, (a.nk + kBlock - 1) / kBlock, TfPlan<D>::KV_SPLIT);
+  dkv_tf32_kernel<D><<<kgrid, kTfThreads, smem, a.stream>>>(
+      q, k, v, dout, lse, delta, mask, layout, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.nq, a.nk, a.mode, a.scale);
   return cudaGetLastError();
 }
 
@@ -1323,6 +1708,7 @@ cudaError_t run_cuda_cores(Pass pass, const Args& a) {
 // kernel between zeroing the dq workspace and converting it)
 template <int D>
 cudaError_t run_tensor_cores(Pass pass, const Args& a) {
+  static bool capped[2][kMaxDevices] = {};  // fwd_wgmma_kernel, bwd_mma_kernel
   const auto* q = static_cast<const bf16*>(a.q);
   const auto* k = static_cast<const bf16*>(a.k);
   const auto* v = static_cast<const bf16*>(a.v);
@@ -1340,7 +1726,8 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
       if (!tile_map<D>(&maps[0], q, bh, a.nq) || !tile_map<D>(&maps[1], k, bh, a.nk) ||
           !tile_map<D>(&maps[2], v, bh, a.nk))
         return cudaErrorInvalidValue;
-      if ((err = allow_smem(fwd_wgmma_kernel<D>, fwd_wgmma_smem<D>())) != cudaSuccess) return err;
+      if ((err = allow_smem(fwd_wgmma_kernel<D>, fwd_wgmma_smem<D>(), capped[0])) != cudaSuccess)
+        return err;
       fwd_wgmma_kernel<D><<<grid, kMmaThreads, fwd_wgmma_smem<D>(), a.stream>>>(
           maps[0], maps[1], maps[2], mask, layout, o, lse, a.nq, a.nk, a.mode, a.scale);
     } else {
@@ -1351,7 +1738,7 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
   const size_t n = (size_t)a.B * a.H * a.nq * D;
   auto* dq_acc = static_cast<float*>(a.dq_acc);
   if ((err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), a.stream)) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd_mma_kernel<D>, bwd_mma_smem<D>())) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd_mma_kernel<D>, bwd_mma_smem<D>(), capped[1])) != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.nk + kBlock - 1) / kBlock, D / bwd_out_cols<D>());
   bwd_mma_kernel<D><<<grid, kMmaThreads, bwd_mma_smem<D>(), a.stream>>>(
       q, k, v, static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
@@ -1367,7 +1754,7 @@ cudaError_t run_tensor_cores(Pass pass, const Args& a) {
 
 template <int D>
 cudaError_t run(Pass pass, int dtype, const Args& a) {
-  return dtype == 1 ? run_tensor_cores<D>(pass, a) : run_cuda_cores<D>(pass, a);
+  return dtype == 1 ? run_tensor_cores<D>(pass, a) : run_fp32<D>(pass, a);
 }
 
 int dispatch(Pass pass, int D, int dtype, const Args& a) {

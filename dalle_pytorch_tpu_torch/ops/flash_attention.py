@@ -22,8 +22,12 @@ kernels, as the reference does. Accumulation is float32 whatever the input
 type (float32 or bfloat16); o, dq, dk, dv come out in the input type, lse
 in float32 [B, H, n_q]. On the card, bfloat16 inputs run on tensor cores
 and round P and dS to bfloat16 before their second products, as
-FlashAttention does (dS once, for both dk and dq); float32 inputs keep
-float32 arithmetic throughout. The plain versions round P and dS only when
+FlashAttention does (dS once, for both dk and dq); the float32 forward
+keeps float32 arithmetic throughout, and the float32 backward (D <= 256)
+forms each product as three TF32 tensor-core products of operands split
+into TF32 (hi, lo) pairs, ~21 of float32's 24 bits
+(`flash_attention_bwd_tf32x3_plain` is that arithmetic; the card holds the
+kernels to the exact plain version). The plain versions round P and dS only when
 asked (`p_dtype`): then they form and round them as the tensor-core
 kernels do, the forward's P per 64-key tile against the running row
 maximum and in base 2, 2^(fl(s scale log2(e)) - m), as the bfloat16
@@ -50,7 +54,8 @@ backward is one fused kernel
 (FlashAttention-2's one pass: a block per key tile loops over the query
 tiles, dq added into a float32 workspace with atomics, so dq's last bits
 may change from run to run while dk and dv are bit-identical); the float32
-backward is two CUDA-core kernels, dq and dk/dv (see the source's header).
+backward is two tensor-core passes, dq and dk/dv, with no atomics (see the
+source's header).
 Each wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors, by the tensor's device alone, never as a fallback, and counts
 passes launched on the card in `.launches` (D <= 256; calls at larger D
@@ -218,14 +223,14 @@ def flash_attention_forward_plain(
     return o.to(q.dtype), lse
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, mode, fm, scale):
+def _probs_and_ds(q, k, v, do, lse, delta, mode, fm, scale, matmul=torch.matmul):
     """float32 p = exp(s - lse) over visible pairs and ds = p (dp - delta) scale."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
     keep = _visible(mode, fm, q.shape[2], k.shape[2], q.device)
     if keep is not None:
         p = p.masked_fill(~keep, 0.0)
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dp = matmul(do.float(), v.float().transpose(-1, -2))
     return p, p * (dp - delta[..., None]) * scale
 
 
@@ -270,6 +275,51 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero, as `cvt.rna.tf32.f32` rounds: half a unit of the
+    13 dropped bits added to the magnitude, then those bits cleared (a
+    carry into the exponent is the correct rounding; past the largest TF32
+    it gives infinity); infinities and NaN pass through."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x.float())
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo): TF32 values with hi = round_tf32(x), lo = round_tf32(x - hi)."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x.float() - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the float32 backward's kernels form it: each operand split
+    into TF32 (hi, lo), three exact products lo.hi + hi.lo + hi.hi summed
+    in float32, the small terms first (the products of two TF32 values are
+    exact in float32, so with float32 sums this is the split's arithmetic
+    up to summation order)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def flash_attention_bwd_tf32x3_plain(
+    q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None
+):
+    """(dq, dk, dv) in float32 as the float32 backward's kernels compute
+    them: `flash_attention_bwd_plain` with every product (S, dP, dq, dk,
+    dv) in three TF32 products (`tf32x3_matmul`), P and dS split from their
+    float32 values. A model of the kernels' arithmetic for tests and the
+    card's checks; no caller's path runs it."""
+    mode, fm = _resolve(mask, causal, q, k)
+    with torch.autocast(q.device.type, enabled=False):
+        p, ds = _probs_and_ds(q, k, v, do, lse, delta, mode, fm, _scale(q, sm_scale), tf32x3_matmul)
+        dq = tf32x3_matmul(ds, k.float())
+        dk = tf32x3_matmul(ds.transpose(-1, -2), q.float())
+        dv = tf32x3_matmul(p.transpose(-1, -2), do.float())
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -309,7 +359,7 @@ def attention_kernels(d: int, dtype: torch.dtype) -> dict:
                 "bwd": (f"bwd_mma_kernel<{kernel_head_dim(d)}>",)}
     if dtype == torch.float32:
         kd = kernel_head_dim(d)
-        return {"fwd": f"fwd_kernel<{kd}>", "bwd": (f"dq_kernel<{kd}>", f"dkv_kernel<{kd}>")}
+        return {"fwd": f"fwd_kernel<{kd}>", "bwd": (f"dq_tf32_kernel<{kd}>", f"dkv_tf32_kernel<{kd}>")}
     raise TypeError(f"no flash-attention kernel for {dtype}")
 
 
@@ -384,8 +434,8 @@ def flash_attention_bwd(q, k, v, do, lse, delta, mask: MaskLike = None, causal=T
     padded to the next of KERNEL_HEAD_DIMS):
     bfloat16 launches the fused kernel (between zeroing a float32 [B, H,
     n_q, D] dq workspace, allocated here, and converting it into dq),
-    float32 the two CUDA-core kernels; CPU tensors run
-    `flash_attention_bwd_plain`."""
+    float32 the two TF32 tensor-core passes (dq, then dk and dv); CPU
+    tensors run `flash_attention_bwd_plain`."""
     _check(q, k, v, do, lse, delta)
     _check_backward(q, do, lse, delta)
     if q.device.type == "cpu":

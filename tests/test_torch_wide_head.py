@@ -56,7 +56,7 @@ def test_bf16_above_256_routes_to_the_tensor_core_kernels(d):
         "bwd": (f"wide_dq_fma_kernel<{cols}>", f"wide_dkv_fma_kernel<{cols}>")}
     small = d // 4 if d // 4 <= 256 else 256
     assert attention_kernels(small, torch.bfloat16)["fwd"].startswith("fwd_wgmma_kernel<")
-    assert attention_kernels(small, torch.float32)["bwd"][0].startswith("dq_kernel<")
+    assert attention_kernels(small, torch.float32)["bwd"][0].startswith("dq_tf32_kernel<")
     with pytest.raises(TypeError):
         attention_kernels(d, torch.float16)
 
