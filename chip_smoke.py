@@ -17,8 +17,9 @@ Phases, each failing loudly (nonzero exit, no result line):
    and `cuobjdump -sass` must find HMMA in each; no split-K decode
    instance and no fp32 forward, multi-row decode or backward instance of
    wide_head.cu may spill, and each has its fixed count of instances; the
-   fp32 backward's TF32 passes of flash_attention.cu, `dq_tf32_kernel` and
-   `dkv_tf32_kernel`, must have HMMA and no spill at each head dim);
+   fp32 kernels of flash_attention.cu, the forward `fwd_tf32_kernel` and
+   the backward's TF32 passes `dq_tf32_kernel` and `dkv_tf32_kernel`, must
+   have HMMA and no spill at each head dim);
 2. each kernel against its plain PyTorch version at the main paths'
    shapes, in bfloat16 and float32, with the tolerance stated (and at
    small shapes for the other head dims: the decode kernels at D = 8 to
@@ -36,16 +37,19 @@ Phases, each failing loudly (nonzero exit, no result line):
    left without a visible key, the tile kernel (bf16) and
    `wide_decode_fma_kernel` (fp32) at n = 5, 65 and 130 and the resume
    shape, each also against its model, the fp32 one bit-identical over
-   two runs, and the 4-row kernel at the step at D = 1032; attention:
+   two runs, and the split-K step at D = 1032 (its wide instance) and
+   4104 (two column groups) with the bit identities; attention:
    the causal, all-keys and static-mask arms, forward and backward, and
    the causal arm at the training shapes at D = 320 and 512, the fp32
    forward's o and lse bit-identical over two runs; at D = 300, which the bf16
    kernels zero-pad, o and dv against the rounding-matched plain
    version per tile to 1e-3 plus one rounding flip of that tile); the fp32
-   backward at D <= 256 (its TF32 passes) held to the exact plain version
-   under ATTN_TOL["fp32"], dq, dk and dv bit-identical over two runs, and
-   its distance from the split's model (`flash_attention_bwd_tf32x3_plain`)
-   printed;
+   forward and backward at D <= 256 (their TF32 kernels) held to the exact
+   plain version under ATTN_TOL["fp32"] (the forward in all three arms at
+   D = 48, 64 and 256), o, lse, dq, dk and dv bit-identical over two runs,
+   the forward also held to its split's model
+   (`flash_attention_forward_tf32x3_plain`) and the backward's distance
+   from its model (`flash_attention_bwd_tf32x3_plain`) printed;
 3. times with CUDA events: each kernel, its plain version and one PyTorch
    library call computing the same function, beside the kernel's bound
    (the larger of bytes over memory bandwidth and flops over peak rate
@@ -63,8 +67,9 @@ Phases, each failing loudly (nonzero exit, no result line):
    SDPA in fp32 (flash decode's fp32 tile arm at n = 257 and 1280, flash
    attention at D = 64 and 256, each with its own and SDPA's device time;
    the fp32 decode step with SDPA's device time); the step above the
-   split-K kernel's channels (D = 1032, the 4-row kernel) in bf16 and fp32
-   beside SDPA, each kernel named from its trace; kernels 3-5 through the bf16 tile arm
+   split-K kernel's narrow instance (D = 1032, its wide instance) in bf16
+   and fp32 beside SDPA, each kernel named from its trace (the fp32
+   forward's too); kernels 3-5 through the bf16 tile arm
    at the resume shape, at D = 64 and (the wide tile kernel) 320 and
    512, and kernels 2-5 through `wide_decode_fma_kernel` (fp32) at 320
    and 512, each beside SDPA with the same mask;
@@ -189,6 +194,7 @@ TRAIN = dict(batch=4, heads=16, n=1280, dim_head=64)  # flash attention's shapes
 # card: 36 and 38 take the 4-byte and plain copies of int8 rows)
 DECODE_OTHER_DIMS = (8, 16, 32, 36, 38, 40, 48, 72, 80, 96, 112, 128, 200, 256)
 ATTENTION_OTHER_DIMS = (16, 32, 48, 128, 192, 256)  # flash attention's, small shapes
+ATTENTION_ARM_DIMS = (48, 256)  # fp32 flash attention's all-keys and static-mask arms, small shapes
 FLAGSHIP = dict(
     dim=1024, depth=LAYERS, heads=16, dim_head=64, num_image_tokens=8192,
     image_fmap_size=32, num_text_tokens=10000, text_seq_len=256,
@@ -358,8 +364,8 @@ def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
     shapes (head dim `d`): each input read once and each output written
     once; 4*D (fwd: S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per
     visible (query, key) pair at `dtype_key`'s peak; "tf32x3" (the fp32
-    backward's kernels at D <= 256: three TF32 products each) is three
-    times those flops at the TF32 peak."""
+    kernels at D <= 256: three TF32 products each) is three times those
+    flops at the TF32 peak."""
     b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
     rows, pairs = b * h * n, b * h * n * (n + 1) // 2
     nbytes, flops = {
@@ -757,7 +763,7 @@ def check_wide_build(info):
                                     for v in fma.values()):
             fail(f"wide_head's {what}: expected {count} instances without spills, got {fma}")
     # the kernels with type template arguments (one name): each instance's spills
-    for kernel, count in (("wide_split_kernel", 8),  # q fp32/bf16 x cache own/int8 x rows 1/4
+    for kernel, count in (("wide_split_kernel", 24),  # q fp32/bf16 x cache own/int8 x rows 1/4 x (2, 8, 8 in pieces)
                           ("wide_decode_fma_kernel", 6)):  # cache fp32/int8 x 192, 256, 320 columns
         builds = instance_builds(info, kernel)
         out.setdefault(kernel, {})["instance_registers_spill_bytes"] = builds
@@ -767,15 +773,16 @@ def check_wide_build(info):
 
 
 def check_tf32_build(info):
-    """Phase 1 for the fp32 backward's two TF32 passes of
-    `csrc/flash_attention.cu` (`built_kernels`): fails unless
-    `dq_tf32_kernel` and `dkv_tf32_kernel` have one instance at each of the
-    kernels' head dims (16, 32, 64, 128, 256), each with HMMA (the TF32
-    mma.sync) and without a spill. Returns {kernel: {...}}."""
+    """Phase 1 for the fp32 kernels of `csrc/flash_attention.cu`
+    (`built_kernels`): fails unless the forward `fwd_tf32_kernel` and the
+    backward's two passes `dq_tf32_kernel` and `dkv_tf32_kernel` have one
+    instance at each of the kernels' head dims (16, 32, 64, 128, 256), each
+    with HMMA (the TF32 mma.sync) and without a spill. Returns {kernel:
+    {...}}."""
     out = {k: v for k, v in built_kernels(info).items()
-           if k.startswith(("dq_tf32_kernel", "dkv_tf32_kernel"))}
-    if len(out) != 10 or tensor_core_faults(info, out):
-        fail(f"flash_attention's fp32 backward: expected 10 TF32 instances with HMMA and no spill, got {out}")
+           if k.startswith(("fwd_tf32_kernel", "dq_tf32_kernel", "dkv_tf32_kernel"))}
+    if len(out) != 15 or tensor_core_faults(info, out):
+        fail(f"flash_attention's fp32 kernels: expected 15 TF32 instances with HMMA and no spill, got {out}")
     return out
 
 
@@ -827,8 +834,11 @@ WIDE_ATTENTION_DIMS = (264, 300, 320, 512, 1024)
 WIDE_ODD_DIMS = (330, 331)
 WIDE_IDENTITY_DIM = 320
 WIDE_TIMED_DIMS = (320, 512)
-# the step above WIDE_SPLIT_MAX_D channels: the 4-row wide_decode_kernel
+# the step above the split-K kernel's narrow instance (1024 channels): its
+# wide instance, one column group; and above the wide instance's 4096
+# columns: two column groups, K staged in 4096-channel pieces
 WIDE_STEP_DIM = 1032
+WIDE_GROUP_DIM = 4104
 
 
 WIDE_DECODE_CASES = (  # (n, lengths) over a 300-position cache
@@ -843,13 +853,15 @@ def check_wide_decode(torch):
     16-position pages through a shuffled table, block-sparse paged), each
     arm (the cache in q's dtype, int8) against its plain version under
     decode_tol, at a one-row step and a 3-row chunk (the split-K kernel,
-    row 3's second span dead in the bitmaps; at WIDE_STEP_DIM the 4-row
-    kernel), and at 5, 65 and 130 rows (the query tiles' edges) on the
+    row 3's second span dead in the bitmaps; also at WIDE_STEP_DIM, its
+    wide instance, and WIDE_GROUP_DIM, its column groups), and at 5, 65 and
+    130 rows (the query tiles' edges) on the
     tile kernel (bf16) or `wide_decode_fma_kernel` (fp32), each launching
     there and held also against its model (`flash_decode_tile_plain`,
     `flash_decode_tile_f32_plain`) under decode_tol; every kernel's output
     unchanged and finite with NaN in every position no row may read (in
-    the scales of an int8 cache); at WIDE_IDENTITY_DIM bit for bit: the
+    the scales of an int8 cache); at WIDE_IDENTITY_DIM (and the split-K
+    steps at WIDE_STEP_DIM and WIDE_GROUP_DIM) bit for bit: the
     all-ones bitmap against kernels 1 and 4, kernel 4 against kernel 1 and
     kernel 5 against kernel 3 on the gathered view, and (fp32 multi-row)
     kernel 5's output over two runs; and both multi-row kernels at the
@@ -885,11 +897,13 @@ def check_wide_decode(torch):
     wd = wh.wide_decode
     before = (wd.launches, wd.split_launches, wd.tile_launches, wd.tile_f32_launches)
     models = {"wide_tile": fd.flash_decode_tile_plain, "wide_tile_f32": fd.flash_decode_tile_f32_plain}
-    for d in WIDE_DECODE_DIMS + (WIDE_STEP_DIM,):
+    for d in WIDE_DECODE_DIMS + (WIDE_STEP_DIM, WIDE_GROUP_DIM):
+        step_only = d in (WIDE_STEP_DIM, WIDE_GROUP_DIM)
         for dtype in (torch.bfloat16, torch.float32):
             for n, lengths in WIDE_DECODE_CASES:
-                if d == WIDE_STEP_DIM and n > 4:
+                if step_only and n > 4:
                     continue
+                t_case = time.perf_counter()
                 arm = fd.decode_arm(n, dtype, d)
                 q, k, v, lens, table, live = paged_case(
                     torch, b, h, n, d, page, lengths, dtype, s_len, SEED + d + n)
@@ -966,7 +980,7 @@ def check_wide_decode(torch):
                     same("poisoned cache unchanged", label + " kernel 5",
                          fd.block_sparse_paged_flash_decode_attention(q, pk, pv, lens, table, pbm, *psc),
                          outs["block_sparse_paged"][0])
-                    if d == WIDE_IDENTITY_DIM:
+                    if d == WIDE_IDENTITY_DIM or step_only:
                         ones, pones = torch.ones_like(bm), torch.ones_like(pbm)
                         same("all-ones bitmap vs kernel 1", label,
                              fd.block_sparse_flash_decode_attention(q, kc, vc, lens, ones, block, *scc),
@@ -986,20 +1000,22 @@ def check_wide_decode(torch):
                 print(f"check wide decode ({arm}) D={d} n={n} {str(dtype)[6:]} lengths={lengths}: max_abs_err "
                       "kernels 1, 3, 4, 5 then their int8 arms: " + ", ".join(f"{e:.2e}" for e in errs)
                       + (f"; against the {arm} model: " + ", ".join(f"{e:.2e}" for e in model_errs)
-                         if model_errs else ""))
+                         if model_errs else "")
+                      + (f" ({time.perf_counter() - t_case:.1f} s)" if step_only else ""))
     for dtype, arm in ((torch.bfloat16, "wide_tile"), (torch.float32, "wide_tile_f32")):
         worst[arm] = max(worst.get(arm, 0.0), check_wide_tile_resume(torch, failures, dtype))
     torch.cuda.synchronize()
     split = wd.split_launches - before[1]
     tile = wd.tile_launches - before[2]
     tile_f32 = wd.tile_f32_launches - before[3]
-    held["4-row kernel launches"] = wd.launches - before[0] - split - tile - tile_f32
     held["split-K kernel launches"] = split
     held["tile kernel launches"] = tile
     held["fp32 multi-row kernel launches"] = tile_f32
     print("check wide decode bit identities and poisoned caches (cases held): " + json.dumps(held))
-    if not (held["4-row kernel launches"] and split and tile and tile_f32):
-        failures.append("the split-K, the tile, the fp32 multi-row or the 4-row kernel never launched")
+    if wd.launches - before[0] != split + tile + tile_f32:
+        failures.append(f"{wd.launches - before[0]} wide decode launches, {split + tile + tile_f32} counted by arm")
+    if not (split and tile and tile_f32):
+        failures.append("the split-K, the tile or the fp32 multi-row kernel never launched")
     if failures:
         fail("wide decode: " + "; ".join(failures[:10]))
     return worst, held
@@ -1094,8 +1110,8 @@ def time_wide_kernels(torch, F, peaks, smi):
     attention forward and backward at TRAIN's causal shapes (SDPA's
     forward and its whole backward beside them): kernel, plain and SDPA
     times, the bound at the input type's peak, and (after the last timed
-    phase) the device time; then the step at WIDE_STEP_DIM (the 4-row
-    kernel, "wide") in both types. Returns {kernel: {(D, "bf16" | "fp32",
+    phase) the device time; then the step at WIDE_STEP_DIM (the split-K
+    kernel's wide instance, "wide_step") in both types. Returns {kernel: {(D, "bf16" | "fp32",
     shape): row}}, the multi-row decode under the arm that ran it
     (`fd.decode_arm`)."""
     rows = {"wide_split": {}, "wide_attention_fwd": {}, "wide_attention_bwd": {}}
@@ -1108,12 +1124,12 @@ def time_wide_kernels(torch, F, peaks, smi):
                 rows.setdefault(arm, {})[(d, key, shape)] = row
             for kind, row in time_wide_attention(torch, F, peaks, smi, d, g, key, elt).items():
                 rows[f"wide_attention_{kind}"][(d, key, "train")] = row
-    # the step above the split-K kernel's channels: the 4-row wide_decode_kernel
+    # the step above the split-K kernel's narrow instance: its wide instance
     t0 = time.perf_counter()
-    rows["wide"] = {(WIDE_STEP_DIM, key, "step"):
-                    time_wide_step(torch, F, peaks, smi, WIDE_STEP_DIM, g, key, elt)
-                    for key, elt in WIDE_DTYPES}
-    print(f"phase 3 step at D = {WIDE_STEP_DIM} (4-row kernel), bf16 and fp32: "
+    rows["wide_step"] = {(WIDE_STEP_DIM, key, "step"):
+                         time_wide_step(torch, F, peaks, smi, WIDE_STEP_DIM, g, key, elt)
+                         for key, elt in WIDE_DTYPES}
+    print(f"phase 3 step at D = {WIDE_STEP_DIM} (split-K, wide instance), bf16 and fp32: "
           f"{time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1137,8 +1153,7 @@ def wide_dtype(torch, key):
 
 def time_wide_step(torch, F, peaks, smi, d, g, key, elt):
     """The decode step at head dim `d` in `key`'s type (three input sets
-    rotating): the split-K kernel up to WIDE_SPLIT_MAX_D, the 4-row
-    `wide_decode_kernel` above (`fd.decode_arm`); returns its row."""
+    rotating) on the split-K kernel (`fd.decode_arm`); returns its row."""
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
     b, h, s_len, n = MAIN["batch"], MAIN["heads"], MAIN["cache"], 1
@@ -1856,9 +1871,11 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     tile, `flip_allowance`). The backward takes the kernel forward's lse and delta,
     and runs twice: dk and dv must be bit-identical (no atomics), and dq in
     float32 (each output written once); bf16 dq's run-to-run difference (the
-    order of its atomic adds) is printed. In float32 above 256 channels the
-    forward runs twice too: o and lse must be bit-identical. In float32 at
-    D <= 256 the backward is also set beside its TF32 split's model
+    order of its atomic adds) is printed. In float32 the forward runs twice
+    too: o and lse must be bit-identical. In float32 at D <= 256 the
+    forward is also held to its TF32 split's model
+    (`flash_attention_forward_tf32x3_plain`) under ATTN_TOL["fp32"]
+    ("split_model_fwd"), and the backward set beside its model
     (`flash_attention_bwd_tf32x3_plain`; printed, "split_model", with the
     model's own distance from the exact version). Returns {kernel:
     max_abs_err against the exact version}."""
@@ -1870,7 +1887,7 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
     k, v = (torch.randn(b, h, n_k, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     fm = None if mask is None else fa.flash_mask(mask, "cuda")
     o, lse = fa.flash_attention_fwd(q, k, v, fm, causal)
-    fwd_twice = dtype == torch.float32 and fa.attention_kernel_source(d) == "wide_head"
+    fwd_twice = dtype == torch.float32
     if fwd_twice:
         o2, lse2 = fa.flash_attention_fwd(q, k, v, fm, causal)
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
@@ -1895,11 +1912,19 @@ def attention_case(torch, label, b, h, n_q, n_k, d, dtype, mask=None, seed=SEED,
 
     refs = {"exact": plain(None)}
     flips = {}
-    if dtype == torch.float32 and d <= 256:  # the TF32 passes: their arithmetic's model, printed
+    if dtype == torch.float32 and d <= 256:  # the TF32 kernels: their arithmetic's model
         model = fa.flash_attention_bwd_tf32x3_plain(q, k, v, do, lse, delta, fm, causal)
         errs["split_model"] = max((a - b).abs().max().item() for a, b in zip(grads, model))
         errs["split_model_vs_exact"] = max((a - b).abs().max().item()
                                            for a, b in zip(model, refs["exact"]["bwd"]))
+        errs["split_model_fwd"] = 0.0
+        el_tol, tile_tol = ATTN_TOL["fp32"]
+        for name, out, ref in zip(("o", "lse"), (o, lse), fa.flash_attention_forward_tf32x3_plain(q, k, v, fm, causal)):
+            err, element, tile = attention_closeness(torch, out, ref)
+            errs["split_model_fwd"] = max(errs["split_model_fwd"], err)
+            if not (element <= el_tol and tile <= tile_tol):
+                fail(f"flash_attention_fwd {label} D={d}: {name} against the split model: element "
+                     f"{element:.3e}, tile {tile:.3e} over fp32 ({el_tol}, {tile_tol})")
     if dtype == torch.bfloat16:
         from dalle_pytorch_tpu_torch.ops import wide_head as wh
 
@@ -1956,6 +1981,9 @@ def check_attention(torch):
 
     b, h, n, d = TRAIN["batch"], TRAIN["heads"], TRAIN["n"], TRAIN["dim_head"]
     axial = np.tril(np.ones((n, n), bool)) & build_static_mask("axial_row", n, 32, 1)[:n, :n]
+    small_n = 160  # 97 text + 8 x 8 image positions
+    small_axial = np.tril(np.ones((small_n, small_n), bool)) & build_static_mask(
+        "axial_row", small_n, 8, 1)[:small_n, :small_n]
     print(f"check flash_attention limits (element, tile): {json.dumps(ATTN_TOL)}")
     worst = {"bf16": {}, "fp32": {}}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1966,16 +1994,25 @@ def check_attention(torch):
             ("nk>nq", 2, 2, 70, 150, d, None),
             ("all keys", 2, 2, 100, 150, d, None),  # the arm without causality or mask
         ] + [("small", 2, 2, 100, 100, dd, None) for dd in ATTENTION_OTHER_DIMS]
+        # fp32: the other two arms at a padded D and the widest instance
+        cases += [(arm, *shape, dd, mask) for dd in ATTENTION_ARM_DIMS if dtype == torch.float32
+                  for arm, *shape, mask in (("all keys", 2, 2, 100, 150, None),
+                                            ("axial_row", 1, 2, small_n, small_n, small_axial))]
         for label, *shape, mask in cases:
+            t_case = time.perf_counter()
             errs = attention_case(torch, label, *shape, dtype, mask=mask,
                                   causal=label != "all keys")
+            if shape[-1] in ATTENTION_ARM_DIMS and label != "small":
+                print(f"  (that case took {time.perf_counter() - t_case:.1f} s)")
             of = worst["bf16" if dtype == torch.bfloat16 else "fp32"]
             for kernel, err in errs.items():
                 of[kernel] = max(of.get(kernel, 0.0), err)
     print("check flash_attention fp32 backward (TF32 passes) worst |kernel - split model| "
           f"{worst['fp32']['split_model']:.3e}, |split model - exact| "
           f"{worst['fp32']['split_model_vs_exact']:.3e}, |kernel - exact| "
-          f"{worst['fp32']['flash_attention_bwd']:.3e}")
+          f"{worst['fp32']['flash_attention_bwd']:.3e}; fp32 forward (fwd_tf32_kernel) worst "
+          f"|kernel - split model| {worst['fp32']['split_model_fwd']:.3e}, |kernel - exact| "
+          f"{worst['fp32']['flash_attention_fwd']:.3e}")
     return worst
 
 
@@ -2035,7 +2072,7 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
         defer_device_time(rows[name], fn, ins, 30)
         defer_device_time(rows[name], lib, lib_in, 30, prefix="library_")
     for name, row in rows.items():
-        bound_key = "tf32x3" if key == "fp32" and name.endswith("bwd") and d <= 256 else key
+        bound_key = "tf32x3" if key == "fp32" and d <= 256 else key
         row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, bound_key, d)
         print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True,
                                         bound_at=bound_key, **row)))
@@ -3445,10 +3482,9 @@ def main() -> int:
     wh.wide_decode.split_launches = wh.wide_decode.tile_launches = wh.wide_decode.tile_f32_launches = 0
 
     def decode_counts():
-        """(4-row, split-K, tile, fp32 multi-row) wide decode launches so far."""
+        """(all, split-K, tile, fp32 multi-row) wide decode launches so far."""
         d = wh.wide_decode
-        return (d.launches - d.split_launches - d.tile_launches - d.tile_f32_launches, d.split_launches,
-                d.tile_launches, d.tile_f32_launches)
+        return (d.launches, d.split_launches, d.tile_launches, d.tile_f32_launches)
 
     # the small model (depth 2): each run's prefill and resume are one
     # multi-row call a layer (4), its 64 steps one split-K call a layer (128)
@@ -3456,11 +3492,11 @@ def main() -> int:
     fp32_counts = decode_counts()
     check_small_model_decode(torch, WIDE_IDENTITY_DIM, torch.bfloat16)
     bf16_counts = tuple(a - b for a, b in zip(decode_counts(), fp32_counts))
-    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide decode launches (4-row, split-K, tile, fp32 "
+    print(f"phase 4 at dim_head {WIDE_IDENTITY_DIM}: wide decode launches (all, split-K, tile, fp32 "
           f"multi-row) of the fp32 run {fp32_counts}, of the bf16 run {bf16_counts}")
-    if fp32_counts != (0, 128, 0, 4) or bf16_counts != (0, 128, 4, 0):
+    if fp32_counts != (132, 128, 0, 4) or bf16_counts != (132, 128, 4, 0):
         fail(f"the dim_head {WIDE_IDENTITY_DIM} model's decode launches: fp32 {fp32_counts}, bf16 "
-             f"{bf16_counts}, expected (0, 128, 0, 4) and (0, 128, 4, 0)")
+             f"{bf16_counts}, expected (132, 128, 0, 4) and (132, 128, 4, 0)")
     fwd, bwd = wh.wide_attention_fwd, wh.wide_attention_bwd
     before = (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches)
     check_small_model_training(torch, WIDE_IDENTITY_DIM)
@@ -3607,6 +3643,10 @@ def main() -> int:
     print(f"phase 4 and 6b's fp32 backward launches {json.dumps(seen)} (torch.profiler trace of one call)")
     if sorted(seen) != sorted(named):
         fail(f"the fp32 backward's trace shows {list(seen)}, attention_kernels names {list(named)}")
+    for d, rows in ((64, attn_fp32), (256, attn_d256["fp32"])):  # the fp32 forward's traces
+        seen, want = rows["flash_attention_fwd"]["device_kernels"], fa.attention_kernels(d, torch.float32)["fwd"]
+        if want not in seen:
+            fail(f"the fp32 forward at D = {d}: the trace shows {list(seen)}, attention_kernels names {want}")
     for name, row in attn_times.items():
         print(f"phase 3 {name} fp32 device ms (kernel / SDPA): D=64 {row['fp32_device_ms']:.4f} / "
               f"{row['fp32_library_device_ms']:.4f}, D=256 {row['d256_fp32_device_ms']:.4f} / "
@@ -3616,10 +3656,10 @@ def main() -> int:
         row = timings[("step", key)]
         print(f"phase 3 flash_decode step {key} device ms {row['device_ms']:.5f}, SDPA "
               f"{row['library_device_ms']:.5f} ({' + '.join(row['library_device_kernels'])})")
-    for (d, key, _), row in wide_times["wide"].items():
+    for (d, key, _), row in wide_times["wide_step"].items():
         seen = row.get("device_kernels", {})
-        if not any(k.startswith("wide_decode_kernel") for k in seen):
-            fail(f"the {key} step at D = {d}: the trace shows {list(seen)}, not wide_decode_kernel")
+        if not any(k.startswith("wide_split_kernel") for k in seen):
+            fail(f"the {key} step at D = {d}: the trace shows {list(seen)}, not wide_split_kernel")
         row["cuda_kernel"] = " + ".join(seen)
         row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
         print(f"phase 3 step at D = {d} {key}: {row['cuda_kernel']} device {row['device_ms']:.4f} ms, "
@@ -3706,7 +3746,8 @@ def main() -> int:
                 + ("" if name.endswith("fwd") else "; one fused kernel for dq, dk and dv; "
                    "library_ms is SDPA's whole backward, whole_backward_ms the port's (delta "
                    "+ workspace zeroing + kernel + dq conversion)")
-                + "; fp32_*: the same shapes in fp32 (the CUDA-core kernels), bound at the fp32 peak",
+                + "; fp32_*: the same shapes in fp32 (the 3xTF32 tensor-core kernels), bound at three "
+                "times the flops at the TF32 peak",
             )
             for name, line in (
                 ("flash_attention_fwd", "129"),
@@ -3720,7 +3761,7 @@ def main() -> int:
                 replaces=f"dalle_pytorch_tpu/ops/pallas_attention.py:{line}",
                 launches=fp32_train["launches"][name],
                 max_abs_err=attn_errs["fp32"][name],
-                **({"split_model_max_abs_err": attn_errs["fp32"]["split_model"]} if name.endswith("bwd") else {}),
+                split_model_max_abs_err=attn_errs["fp32"]["split_model" if name.endswith("bwd") else "split_model_fwd"],
                 cuda_kernel=" + ".join(kernel if isinstance(kernel, tuple) else (kernel,)),
                 **{k: v for k, v in attn_fp32[name].items() if "kernels" not in k},
                 **{f"d256_{k}": v for k, v in attn_d256["fp32"][name].items() if "kernels" not in k},
@@ -3732,7 +3773,10 @@ def main() -> int:
             )
             for name, line, kernel, what in (
                 ("flash_attention_fwd", "129", fa.attention_kernels(64, torch.float32)["fwd"],
-                 "the CUDA-core forward, bound at the fp32 peak"),
+                 "one pass on tensor cores, every product three TF32 products (bound: three times 4 D "
+                 "flops a visible pair at the TF32 peak); max_abs_err against the exact fp32 plain "
+                 "version, split_model_max_abs_err against flash_attention_forward_tf32x3_plain (worst "
+                 "of phase 2's fp32 cases)"),
                 ("flash_attention_bwd", "274, dalle_pytorch_tpu/ops/pallas_attention.py:333",
                  fa.attention_kernels(64, torch.float32)["bwd"],
                  "dq then dk/dv on tensor cores, every product three TF32 products (bound: three times "
@@ -3814,13 +3858,14 @@ def main() -> int:
                 ("wide_split", "wide_split", "wide_head", (WIDE_TIMED_DIMS[0], "bf16", "step"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                  wide_decode_errs["wide_split"],
-                 {"d%d_%s_%s_%s" % (*case, k): v for case, row in wide_times["wide"].items()
+                 {"d%d_%s_%s_%s" % (*case, k): v for case, row in wide_times["wide_step"].items()
                   for k, v in row.items() if "kernels" not in k},
-                 f"kernels 1-5 at D > 256 and n <= 4 (split-K); bf16 step n=1 B=4 H=16 S=1281 "
+                 f"kernels 1-5 at D > 256 and n <= 4 (split-K, any D); bf16 step n=1 B=4 H=16 S=1281 "
                  f"D={WIDE_TIMED_DIMS[0]} lengths [258, 700, 1024, 1281] (d<D>_<dtype>_step_*: the "
                  f"other D and fp32, fp32 bound at the fp32 peak; d{WIDE_STEP_DIM}_*: the step above "
-                 f"the split-K kernel's channels, on the 4-row wide_decode_kernel, `cuda_kernel`); "
-                 f"launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (its steps, fp32 and bf16 runs)"),
+                 f"1024 channels, the kernel's wide instance (8 chunks of 4 columns a thread), "
+                 f"`cuda_kernel`); launches: phase 4's dim_head {WIDE_IDENTITY_DIM} model (its steps, "
+                 "fp32 and bf16 runs)"),
                 ("wide_tile", "wide_tile", "wide_decode_tile", (WIDE_TIMED_DIMS[0], "bf16", "resume"),
                  "dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                  wide_decode_errs["wide_tile"],
@@ -3852,8 +3897,7 @@ def main() -> int:
                  f"<kernel>_*: kernels 2-5 at the resume shape (SDPA with the same mask) at "
                  f"D={WIDE_TIMED_DIMS[0]} (tile_resume_d{WIDE_TIMED_DIMS[1]}_<kernel>_*: at "
                  f"D={WIDE_TIMED_DIMS[1]}); launches: phase 4's fp32 dim_head {WIDE_IDENTITY_DIM} model "
-                 "(prefill and resume); max_abs_err: worst of phase 2's wide decode checks on this kernel "
-                 "(the 4-row wide_decode_kernel keeps only the step above D=1024, held in phase 2)"),
+                 "(prefill and resume); max_abs_err: worst of phase 2's wide decode checks on this kernel"),
                 ("wide_attention_fwd", "wide_attention_fwd", "wide_head",
                  (WIDE_TIMED_DIMS[0], "bf16", "train"), "dalle_pytorch_tpu/ops/pallas_attention.py:129",
                  wide_attn_errs["bf16"]["wide_flash_attention_fwd"],

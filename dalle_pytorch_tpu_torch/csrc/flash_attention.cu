@@ -29,9 +29,9 @@
 //     looping over its own 64-wide key tiles, so Pallas's sequential grid
 //     axis becomes an in-block loop and nothing crosses blocks; causal
 //     blocks stop at the last live key tile, mask blocks skip the tiles the
-//     layout marks empty; in bfloat16 on wgmma with TMA tiles (D = 64,
-//     128, 256; the wrapper pads other D to the next), see the tensor-core
-//     section;
+//     layout marks empty; the query tiles with the most key tiles start
+//     first; in bfloat16 on wgmma with TMA tiles (D = 64, 128, 256; the
+//     wrapper pads other D to the next), see the tensor-core section;
 //   * backward in bfloat16: one fused pass, FlashAttention-2's (second
 //     half of this file): a block per (64-key tile, head, batch row) loops
 //     over the query tiles that see its keys, computes S and dP once per
@@ -43,19 +43,15 @@
 //     (forward, dv) and dS (dq, dk) are rounded to bf16
 //     before their second product, as FlashAttention does -- dS once, for
 //     both dk and dq; the softmax state (m, l, lse) and every sum stay fp32;
-//   * the float32 forward keeps fp32 arithmetic on CUDA cores (256
-//     threads, each owning a 4 x 4 patch of the 64 x 64 score tile and a 4
-//     x D/16 patch of the accumulator; tiles staged as fp32 with rows
-//     padded to D + 4 so float4 reads are conflict-free); the online
-//     softmax reduces over the 16 lanes of a half-warp;
-//   * the float32 backward is two passes on tensor cores, dq (by query
-//     tile) and dk/dv (by key tile), each recomputing p, every product in
-//     TF32 split three ways so it keeps ~21 bits (the section before the
-//     host code);
+//   * float32 inputs run on tensor cores too, every product in TF32 split
+//     three ways so it keeps ~21 of fp32's 24 bits, P and dS split from
+//     their fp32 values and never rounded (the section before the host
+//     code): the forward as one pass (`fwd_tf32_kernel`), the backward as
+//     two, dq (by query tile) and dk/dv (by key tile), each recomputing p;
 //   * head dims: instances at D = 16, 32, 64, 128 and 256 (the wrapper
 //     zero-pads any other D <= 256 to the next). At 256 the fused bf16
 //     backward splits the output columns over two blocks (`bwd_out_cols`),
-//     and the fp32 backward streams D in 64-channel chunks.
+//     and the fp32 kernels stream D in 32-channel chunks.
 // Not done yet: wgmma and TMA in the backward.
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime, no -lcuda)
@@ -66,111 +62,7 @@
 namespace {
 
 constexpr int kBlock = 64;     // query and key tile
-constexpr int kThreads = 256;  // 16 x 16: tx over columns, ty over rows
-constexpr int kPLD = kBlock + 4;
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// reductions over the 16 lanes of a half-warp (the threads of one ty)
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// rows [row0, row0 + kBlock) of a row-major [n, D] float matrix -> shared
-// memory, row stride D + 4, times `mul`; rows >= n are zero
-template <int D>
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int row0,
-                                           int n, float mul) {
-  constexpr int CHUNKS = D / 4;
-  constexpr int LD = D + 4;
-  for (int c = threadIdx.x; c < kBlock * CHUNKS; c += kThreads) {
-    const int r = c / CHUNKS, d0 = (c % CHUNKS) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + d0);
-      v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + d0) = v;
-  }
-}
-
-// acc[i][j] += sum_d a[ty + 16 i][d] * b[tx + 16 j][d]  (both stride D + 4)
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* a, const float* b,
-                                         int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(av[i].x, bv[j].x, s);
-        s = fmaf(av[i].y, bv[j].y, s);
-        s = fmaf(av[i].z, bv[j].z, s);
-        s = fmaf(av[i].w, bv[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(float (&out)[N], const float* src) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N / 4; ++k) {
-      const float4 t = reinterpret_cast<const float4*>(src)[k];
-      out[4 * k] = t.x; out[4 * k + 1] = t.y; out[4 * k + 2] = t.z; out[4 * k + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) out[k] = src[k];
-  }
-}
-
-// acc[i][j] += sum_c p[ty + 16 i][c] * m[c][tx * D/16 + j]
-// (p stride kBlock + 4, m stride D + 4)
-template <int D>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* p, const float* m,
-                                         int ty, int tx) {
-  constexpr int LD = D + 4, DJ = D / 16;
-#pragma unroll 2
-  for (int c = 0; c < kBlock; c += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kPLD + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float mv[DJ];
-      load_vec<DJ>(mv, m + (c + cc) * LD + tx * DJ);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pc = comp(pv[i], cc);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pc, mv[j], acc[i][j]);
-      }
-    }
-  }
-}
 
 // whether (query row r, key c) is attended: bounds, then the arm
 __device__ __forceinline__ bool visible(int r, int c, int nq, int nk, int mode,
@@ -181,101 +73,13 @@ __device__ __forceinline__ bool visible(int r, int c, int nq, int nk, int mode,
   return true;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const uint8_t* __restrict__ mask, const int* __restrict__ layout,
-           float* __restrict__ o, float* __restrict__ lse, int H, int nq, int nk, int mode,
-           float scale) {
-  constexpr int LD = D + 4, DJ = D / 16;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBlock * LD;
-  float* vs = ks + kBlock * LD;
-  float* ps = vs + kBlock * LD;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t bh = (size_t)b * H + h;
-  const float* kb = k + bh * nk * D;
-  const float* vb = v + bh * nk * D;
-  const int q0 = qt * kBlock;
-  const int ktiles = (nk + kBlock - 1) / kBlock;
-  // causal: the last key tile any row of this tile sees
-  const int kend = mode == 1 ? min(ktiles, (q0 + kBlock - 1) / kBlock + 1) : ktiles;
-
-  stage_tile<D>(qs, q + bh * nq * D, q0, nq, scale);
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kt = 0; kt < kend; ++kt) {
-    if (mode == 2 && layout[qt * ktiles + kt] == 0) continue;  // block-uniform
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    stage_tile<D>(ks, kb, k0, nk, 1.f);
-    stage_tile<D>(vs, vb, k0, nk, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_dot<D>(s, qs, ks, ty, tx);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float tmax = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!visible(r, k0 + tx + 16 * j, nq, nk, mode, mask)) s[i][j] = kNeg;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(tmax));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kPLD + tx + 16 * j] = p;
-        psum += p;
-      }
-      l[i] = l[i] * corr + half_warp_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncwarp();  // a row of P is written and read by the same 16 lanes
-    tile_acc<D>(acc, ps, vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= nq) continue;
-    const float safe_l = fmaxf(l[i], 1e-30f);
-    float* orow = o + (bh * nq + r) * D + tx * DJ;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[j] = acc[i][j] / safe_l;
-    if (tx == 0) lse[bh * nq + r] = m[i] + logf(safe_l);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Tensor-core path for bfloat16 inputs: bf16 operands, fp32 accumulators.
 // A block is one warpgroup (4 warps, 128 threads) owning a 64-row tile, 16
 // rows per warp. The score / probability tile stays in the accumulator
 // registers: its rows reduce over the 4 lanes of a quad, and it becomes the
 // A operand of the second product in place, rounded to bf16 (P for o and
-// dv, dS for dq and dk) -- the one rounding the CUDA-core path does not
+// dv, dS for dq and dk) -- the one rounding the float32 path does not
 // have. Fragment layouts (PTX ISA, mma.m16n8k16; a wgmma warp's 16 rows of
 // its m64 tile are laid out the same): g = lane / 4, t = lane % 4;
 //   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
@@ -1054,14 +858,19 @@ __global__ void dq_convert_kernel(const float4* __restrict__ src, __nv_bfloat162
 }
 
 // ---------------------------------------------------------------------------
-// The float32 backward on tensor cores: two passes, as the TPU kernels
-// `_dq_kernel` and `_dkv_kernel` do, every product on mma.sync
+// float32 on tensor cores: the forward as one pass, as the TPU kernel
+// `_fwd_kernel` does, and the backward as two, as `_dq_kernel` and
+// `_dkv_kernel` do, every product on mma.sync
 // (m16n8k8, TF32 operands, fp32 accumulators) with each fp32 operand x
 // split into hi = rna(x) and lo = rna(x - hi), TF32 values both, and each
 // product formed as lo.hi + hi.lo + hi.hi, small terms first (the
 // arithmetic of CUTLASS's OpMultiplyAddFastF32, which SDPA's fp32 kernels
 // run): a product keeps ~21 of fp32's 24 bits, and P and dS are split from
 // their fp32 values, never rounded to bf16. p, dS and every sum stay fp32.
+//   * `fwd_tf32_kernel<D>`: a block per (batch row and head, 64-query
+//     tile), the tiles with the most keys first, loops over the live 64-key
+//     tiles with the online softmax; o and lse written once (see its own
+//     comment);
 //   * `dq_tf32_kernel<D>`: a block per (batch row and head, 64-query tile),
 //     the tiles with the most keys first, loops over the live 64-key
 //     tiles; dq by query tile, written once;
@@ -1070,8 +879,8 @@ __global__ void dq_convert_kernel(const float4* __restrict__ src, __nv_bfloat162
 //     (at D = 256 two blocks a key tile, each owning half of dK's and dV's
 //     columns and forming S^T and dP^T itself: 128 accumulator registers a
 //     thread beside the rest spilled).
-// No atomics: dq, dk and dv are bit-identical run to run. A block is 8
-// warps: four groups of 16 rows (queries in the dq pass, keys in the dk/dv
+// No atomics: o, lse, dq, dk and dv are bit-identical run to run. The
+// backward's block is 8 warps: four groups of 16 rows (queries in the dq pass, keys in the dk/dv
 // pass) times two roles. Role 0 forms S (S^T), role 1 dP (dP^T), each a
 // 16 x 64 accumulator fragment a warp, over all of D; role 0 turns S into
 // P = 2^(S scale log2(e) - lse log2(e)) in fp32 (ex2.approx of one FMA;
@@ -1124,7 +933,14 @@ struct TfPlan {
   static constexpr int KV_SPLIT = D > 128 ? 2 : 1;
   static constexpr size_t SMEM =
       sizeof(float) * (2 * kBlock * LDR + STAGES * SLOT + SPLIT + XCHG);
-  static_assert(D % 16 == 0 && D <= 256 && SMEM <= 232448, "an instance's shared memory");
+  // the forward: Q resident, the ring (deeper at D = 256, whose items are
+  // 32-channel chunks), its split, and two fragments a row group (the S
+  // halves of both roles)
+  static constexpr int FWD_STAGES = D > 128 ? 4 : STAGES;
+  static constexpr size_t FWD_SMEM =
+      sizeof(float) * (kBlock * LDR + FWD_STAGES * SLOT + SPLIT + 2 * XCHG);
+  static_assert(D % 16 == 0 && D <= 256 && SMEM <= 232448 && FWD_SMEM <= 232448,
+                "an instance's shared memory");
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -1218,18 +1034,17 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ 
 // dropped bits are that much smaller), and big + small is added into the
 // running fp32 sum with ordinary (round-to-nearest) adds.
 
-// s[nb] (+)= X Y^T for this warp: X's 16 rows at x (row stride LDX), Y's
+// s[nb] (+)= X Y^T for this warp: X's 16 rows, its split A fragments of
+// k-step ks (channels 8 ks .. 8 ks + 7) given by `a_frag(ks, hi, lo)`; Y's
 // 64 rows at y (a split chunk tile's hi, its lo LO floats on; stride LDY),
-// over CH channels from each pointer; s[nb] holds columns 8 nb .. 8 nb + 7
-// in the accumulator layout.
+// over CH channels; s[nb] holds columns 8 nb .. 8 nb + 7 in the accumulator
+// layout.
 // FIRST: s is zero and takes the chunk's products directly; else the
 // chunk's partial forms in fresh accumulators, GN column tiles at a time,
 // and is added into s.
-template <int CH, int LDX, int LDY, int LO, bool FIRST, int GN>
-__device__ __forceinline__ void score_product(float (&s)[8][4], const float* x, const float* y,
-                                              int lane) {
+template <int CH, int LDY, int LO, bool FIRST, int GN, typename AFrag>
+__device__ __forceinline__ void score_product_by(float (&s)[8][4], AFrag a_frag, const float* y, int lane) {
   constexpr int G = FIRST ? 8 : GN;  // column tiles a pass
-  const float* xa = x + (lane & 15) * LDX + (lane >> 4) * 4;
   const float* yb = y + (((lane >> 4) << 3) + (lane & 7)) * LDY + ((lane >> 3) & 1) * 4;
 #pragma unroll
   for (int n0 = 0; n0 < 8; n0 += G) {
@@ -1240,10 +1055,8 @@ __device__ __forceinline__ void score_product(float (&s)[8][4], const float* x, 
       for (int e = 0; e < 4; ++e) t[i][e] = u[i][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < CH / 8; ++ks) {
-      uint32_t a[4], ah[4], al[4];
-      ldsm_x4(a, xa + ks * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+      uint32_t ah[4], al[4];
+      a_frag(ks, ah, al);
 #pragma unroll
       for (int np = 0; np < G / 2; ++np) {
         uint32_t bh[4], bl[4];
@@ -1263,15 +1076,36 @@ __device__ __forceinline__ void score_product(float (&s)[8][4], const float* x, 
   }
 }
 
-// acc[off + nt] += F Y[:, 8 nt .. 8 nt + 8) for nt < NT: F this warp's 16 x
+// the A fragments of k-step ks of X's 16 rows at x (row stride LDX), read
+// by ldmatrix and split into hi and lo
+template <int LDX>
+__device__ __forceinline__ void x_frag(const float* x, int ks, int lane, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  uint32_t a[4];
+  ldsm_x4(a, x + (lane & 15) * LDX + (lane >> 4) * 4 + ks * 8);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+}
+
+// score_product_by with X's 16 rows at x (row stride LDX), split as they
+// are read
+template <int CH, int LDX, int LDY, int LO, bool FIRST, int GN>
+__device__ __forceinline__ void score_product(float (&s)[8][4], const float* x, const float* y,
+                                              int lane) {
+  score_product_by<CH, LDY, LO, FIRST, GN>(
+      s, [&](int ks, uint32_t (&ah)[4], uint32_t (&al)[4]) { x_frag<LDX>(x, ks, lane, ah, al); }, y, lane);
+}
+
+// acc[off + nt] += F Y[:, 8 nt .. 8 nt + 8) for nt < NT: F a warp's 16 x
 // 64 fragment (accumulator layout; its k-step kk is columns 8 kk .. 8 kk +
-// 7, a thread's columns 2t and 2t + 1 taken as k = t and t + 4), Y 64 rows
-// at y (a split chunk tile's hi, its lo LO floats on; stride LDY)
+// 7, a thread's columns 2t and 2t + 1 taken as k = t and t + 4), its split
+// A fragments of k-step kk given by `a_frag(kk, hi, lo)`; Y 64 rows at y (a
+// split chunk tile's hi, its lo LO floats on; stride LDY).
 // This tile's partial of each column tile forms in fresh accumulators,
 // GN column tiles at a time, and is added into acc.
-template <int NT, int LDY, int LO, int GN, int NACC>
-__device__ __forceinline__ void frag_product(float (&acc)[NACC][4], int off, const float (&f)[8][4],
-                                             const float* y, int lane) {
+template <int NT, int LDY, int LO, int GN, int NACC, typename AFrag>
+__device__ __forceinline__ void frag_product_by(float (&acc)[NACC][4], int off, AFrag a_frag,
+                                                const float* y, int lane) {
   constexpr int G = NT < GN ? NT : GN;  // column tiles a pass
   const float* yb = y + 2 * (lane & 3) * LDY + (lane >> 2);
 #pragma unroll
@@ -1284,10 +1118,7 @@ __device__ __forceinline__ void frag_product(float (&acc)[NACC][4], int off, con
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       uint32_t ah[4], al[4];
-      split_tf32(f[kk][0], ah[0], al[0]);
-      split_tf32(f[kk][2], ah[1], al[1]);
-      split_tf32(f[kk][1], ah[2], al[2]);
-      split_tf32(f[kk][3], ah[3], al[3]);
+      a_frag(kk, ah, al);
 #pragma unroll
       for (int i = 0; i < G; ++i) {
         const float* b = yb + 8 * kk * LDY + 8 * (n0 + i);
@@ -1302,6 +1133,21 @@ __device__ __forceinline__ void frag_product(float (&acc)[NACC][4], int off, con
       for (int e = 0; e < 4; ++e)
         acc[off + n0 + i][e] = __fadd_rn(acc[off + n0 + i][e], __fadd_rn(t[i][e], u[i][e]));
   }
+}
+
+// frag_product_by with F in this thread's registers, split as it is read
+template <int NT, int LDY, int LO, int GN, int NACC>
+__device__ __forceinline__ void frag_product(float (&acc)[NACC][4], int off, const float (&f)[8][4],
+                                             const float* y, int lane) {
+  frag_product_by<NT, LDY, LO, GN>(
+      acc, off,
+      [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+        split_tf32(f[kk][0], ah[0], al[0]);
+        split_tf32(f[kk][2], ah[1], al[1]);
+        split_tf32(f[kk][1], ah[2], al[2]);
+        split_tf32(f[kk][3], ah[3], al[3]);
+      },
+      y, lane);
 }
 
 // the row group's 16 x 64 fragment through shared memory ([8][32 lanes]
@@ -1643,8 +1489,243 @@ dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The forward: o = softmax(S) V and lse, S = Q K^T scale, for a block's
+// 64 query rows. Grid (B * H, ceil(nq / 64)), the query tile the slowest
+// index and reversed, so the causal blocks with the most key tiles start
+// first. 8 warps: four groups of 16 rows times two roles, as the backward's
+// passes; here the roles split each product's work in halves:
+//   * S = Q K^T: role r forms the partial over its half of each K chunk's
+//     channels (a 16 x 64 fragment over D / 2 channels), the two halves
+//     are traded through shared memory (one pair barrier a key tile) and
+//     added, and both warps of the pair run the same online softmax on the
+//     whole S (the same bits), so neither waits for the other's P;
+//   * the softmax in base 2: m the running row maximum of fl(S scale
+//     log2(e)), P = 2^(S scale log2(e) - m) by ex2.approx of one FMA, the
+//     arm's mask only on tiles that need it (the causal diagonal, edges past
+//     nq or nk, every live static-mask tile), masked P exactly 0; O and l
+//     rescaled by 2^(m_old - m);
+//   * O += P V: role r owns the same half of each V chunk's columns, so its
+//     O is 16 x D / 2 (D / 4 accumulator registers a thread: 64 at D = 256);
+//     where V takes several items (D > 64), P's A fragments are split into
+//     hi and lo once a key tile, half by each warp of the pair, into shared
+//     memory over the traded S halves, and read from there by every P V.
+// Q stays resident, loaded once (at D <= 64 each warp splits its A
+// fragments of S once into registers; above, as it reads them); K and V
+// stream through the ring in 64-channel chunks (32 at
+// D = 256), two chunks a slot (at D <= 64 K's and V's one chunk each
+// share a slot): the K items first, then the V items, the next item (at D
+// <= 64 two, at 256 three) in flight while one computes, each landed slot
+// split into hi and lo once for the block (`split_slot`). Accumulation: the tensor cores truncate their
+// fp32 sums at every mma, so each S half and each tile's P V partial forms
+// in fresh accumulators (hi.hi in one, the small terms in another,
+// `score_product` and `frag_product`), and the P V partial joins the
+// running O by a rounding add after O is rescaled in fp32.
+// What bounds it: operations, 4 D flops a visible pair, three TF32 products
+// each (3 x 4 D a pair on the 495 TF/s TF32 peak); shared memory 225,792
+// bytes at D = 64 (3 stages), 206,848 at 128 (2), 215,968 at 256 (4)
+// (`TfPlan::FWD_SMEM`): one block an SM.
 template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * (3 * kBlock * (D + 4) + kBlock * kPLD); }
+__global__ void __launch_bounds__(kTfThreads, 1)
+fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                const int* __restrict__ layout, float* __restrict__ o, float* __restrict__ lse,
+                int nq, int nk, int mode, float scale) {
+  using P = TfPlan<D>;
+  constexpr int CH = P::CH, NC = P::NC, LDR = P::LDR, LDC = P::LDC;
+  constexpr int NT = CH / 16;                 // a role's column tiles of a chunk: half its columns
+  constexpr int KI = NC == 1 ? 1 : NC / 2;    // the items of a key tile that bring K (two chunks a slot)
+  constexpr int GN = 4;                       // column tiles of a fresh partial
+  constexpr int LO = 2 * P::CHUNK;            // a split tile's lo, from its hi
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][LDR], resident
+  float* ring = qs + kBlock * LDR;
+  float* buf = ring + P::FWD_STAGES * P::SLOT;  // the computing slot's tiles, split
+  float* xchg = buf + P::SPLIT;                 // each role's S halves, a fragment a row group
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, role = warp / 4, grp = warp % 4;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * grp;
+  const size_t bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * kBlock;
+  const int ktiles = (nk + kBlock - 1) / kBlock;
+  const int kend = key_tile_end(mode, q0, nk);
+  const float* kb = k + bh * nk * D;
+  const float* vb = v + bh * nk * D;
+
+  copy_rows<D, LDR, D>(qs, q + bh * nq * D, q0, nq, 0);
+  const float scale_log2 = scale * kLog2e;
+
+  auto next = [&](TfItem x) {
+    return ++x.step < NC ? x : TfItem{next_key_tile(x.tile + 1, kend, mode, layout, qt, ktiles), 0};
+  };
+  auto done = [&](TfItem x) { return x.tile >= kend; };
+  // item `step` of a key tile: K's chunks 2 step and 2 step + 1, then V's
+  // (at NC = 1 K's and V's only chunk)
+  auto fetch = [&](TfItem x, float* slot) {
+    const int key0 = x.tile * kBlock;
+    if constexpr (NC == 1) {
+      copy_rows<CH, LDC, D>(slot, kb, key0, nk, 0);
+      copy_rows<CH, LDC, D>(slot + P::CHUNK, vb, key0, nk, 0);
+    } else {
+      const float* src = x.step < KI ? kb : vb;
+      const int c = 2 * (x.step < KI ? x.step : x.step - KI);
+      copy_rows<CH, LDC, D>(slot, src, key0, nk, c * CH);
+      copy_rows<CH, LDC, D>(slot + P::CHUNK, src, key0, nk, (c + 1) * CH);
+    }
+  };
+
+  float s[8][4], acc[NC * NT][4];  // s: this role's half of S, then the whole S, then P
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows g and g + 8; m in base 2
+#pragma unroll
+  for (int i = 0; i < NC * NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const float* xs = qs + r0 * LDR;
+  const int half = role * (CH / 2);  // this role's channels (S) and columns (O) of each chunk
+  const float4* other = reinterpret_cast<const float4*>(xchg + (1 - role) * P::XCHG) + grp * 8 * 32 + lane;
+  // at NC > 1, P's split A fragments over the pair's S halves (hi, lo)
+  float4* p_hi = reinterpret_cast<float4*>(xchg) + grp * 8 * 32 + lane;
+  float4* p_lo = reinterpret_cast<float4*>(xchg + P::XCHG) + grp * 8 * 32 + lane;
+
+  // at NC = 1 this warp's A fragments of S (its 16 rows of Q over its CH / 2
+  // channels) are split once, at the first item (Q has landed), and kept
+  // in registers: D / 2 of them (32 at D = 64)
+  constexpr int QKS = NC == 1 ? CH / 16 : 1;
+  uint32_t qh[QKS][4], ql[QKS][4];
+  bool q_split = false;
+
+  auto compute = [&](TfItem x, const float* slot) {
+    split_slot<P::CHUNK>(buf, slot);
+    __syncthreads();  // block-uniform: every thread computes the same item
+    if (x.step < KI) {
+      if constexpr (NC == 1) {
+        if (!q_split) {
+#pragma unroll
+          for (int ks = 0; ks < QKS; ++ks) x_frag<LDR>(xs + half, ks, lane, qh[ks], ql[ks]);
+          q_split = true;
+        }
+        score_product_by<CH / 2, LDC, LO, true, GN>(
+            s,
+            [&](int ks, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                ah[i] = qh[ks][i];
+                al[i] = ql[ks][i];
+              }
+            },
+            buf + half, lane);
+      } else if (x.step == 0) {
+        score_product<CH / 2, LDR, LDC, LO, true, GN>(s, xs + half, buf + half, lane);
+      } else {
+        score_product<CH / 2, LDR, LDC, LO, false, GN>(s, xs + 2 * x.step * CH + half, buf + half, lane);
+      }
+      if constexpr (NC > 1)
+        score_product<CH / 2, LDR, LDC, LO, false, GN>(s, xs + (2 * x.step + 1) * CH + half,
+                                                       buf + P::CHUNK + half, lane);
+      if (x.step < KI - 1) return;
+      // S whole: this role's half plus the partner's (one rounding add, the
+      // same bits in both warps)
+      put_frag(xchg + role * P::XCHG, grp, lane, s);
+      pair_sync(grp);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float4 w = other[nb * 32];
+        s[nb][0] = __fadd_rn(s[nb][0], w.x);
+        s[nb][1] = __fadd_rn(s[nb][1], w.y);
+        s[nb][2] = __fadd_rn(s[nb][2], w.z);
+        s[nb][3] = __fadd_rn(s[nb][3], w.w);
+      }
+      // the online softmax of rows r0 + g and r0 + g + 8 over this key tile
+      const int k0 = x.tile * kBlock;
+      const bool full = tile_full(mode, q0, k0, nq, nk);
+      float tmax[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!full && !visible(q0 + r0 + g + 8 * (e / 2), k0 + 8 * nb + 2 * t + (e % 2), nq, nk, mode,
+                                mask))
+            s[nb][e] = -INFINITY;  // P = 2^-inf = 0
+          tmax[e / 2] = fmaxf(tmax[e / 2], s[nb][e]);
+        }
+      float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m[hh], __fmul_rn(quad_max(tmax[hh]), scale_log2));
+        corr[hh] = ex2(m[hh] - m_new);
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nb][e] = ex2(__fmaf_rn(s[nb][e], scale_log2, -m[e / 2]));
+          psum[e / 2] += s[nb][e];
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + quad_sum(psum[hh]);
+      scale_rows(acc, corr);
+      if constexpr (NC > 1) {
+        // V arrives in the next items, for all of which P is split once:
+        // once the partner has read this warp's S half (the pair barrier),
+        // each warp writes the split A fragments of its half of P's
+        // k-steps over the pair's two S halves, hi in role 0's, lo in role
+        // 1's ([k-step][lane] float4s); the next item's barrier orders them
+        // before any read
+        pair_sync(grp);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          if (kk / 4 != role) continue;
+          uint32_t h[4], o[4];
+          split_tf32(s[kk][0], h[0], o[0]);
+          split_tf32(s[kk][2], h[1], o[1]);
+          split_tf32(s[kk][1], h[2], o[2]);
+          split_tf32(s[kk][3], h[3], o[3]);
+          p_hi[kk * 32] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                                      __uint_as_float(h[3]));
+          p_lo[kk * 32] = make_float4(__uint_as_float(o[0]), __uint_as_float(o[1]), __uint_as_float(o[2]),
+                                      __uint_as_float(o[3]));
+        }
+        return;
+      }
+    }
+    // O += P V over this role's columns of the item's V chunks
+    if constexpr (NC == 1) {
+      frag_product<NT, LDC, LO, GN>(acc, 0, s, buf + P::CHUNK + half, lane);
+    } else {
+      auto p_split = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+        const float4 h = p_hi[kk * 32], o = p_lo[kk * 32];
+        ah[0] = __float_as_uint(h.x); ah[1] = __float_as_uint(h.y);
+        ah[2] = __float_as_uint(h.z); ah[3] = __float_as_uint(h.w);
+        al[0] = __float_as_uint(o.x); al[1] = __float_as_uint(o.y);
+        al[2] = __float_as_uint(o.z); al[3] = __float_as_uint(o.w);
+      };
+      const int c = 2 * (x.step - KI);
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        if (cc == c) frag_product_by<NT, LDC, LO, GN>(acc, cc * NT, p_split, buf + half, lane);
+        if (cc == c + 1) frag_product_by<NT, LDC, LO, GN>(acc, cc * NT, p_split, buf + P::CHUNK + half, lane);
+      }
+    }
+  };
+  tf_ring<P::FWD_STAGES, P::SLOT>(ring, TfItem{next_key_tile(0, kend, mode, layout, qt, ktiles), 0}, next,
+                                  done, fetch, compute);
+
+  // o = O / l, lse = m ln(2) + log(l) (m in base 2)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + r0 + g + 8 * hh;
+    if (r >= nq) continue;
+    const float safe_l = fmaxf(l[hh], 1e-30f);
+    float* row = o + (bh * nq + r) * D + half + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(row + c * CH + 8 * nt) =
+            make_float2(acc[c * NT + nt][2 * hh] / safe_l, acc[c * NT + nt][2 * hh + 1] / safe_l);
+    if (role == 0 && t == 0) lse[bh * nq + r] = m[hh] * kLn2 + logf(safe_l);
+  }
+}
 
 // dynamic shared memory above 48 KB is opted into once per kernel instance
 // and device (`capped` is the caller's flag for that instance)
@@ -1668,11 +1749,11 @@ struct Args {
 
 enum Pass { kFwd, kBwd };
 
-// float32 inputs: the CUDA-core forward; the backward as two tensor-core
+// float32 inputs: the tensor-core forward; the backward as two tensor-core
 // launches, dq and dk/dv
 template <int D>
 cudaError_t run_fp32(Pass pass, const Args& a) {
-  static bool capped[3][kMaxDevices] = {};  // fwd_kernel, dq_tf32_kernel, dkv_tf32_kernel
+  static bool capped[3][kMaxDevices] = {};  // fwd_tf32_kernel, dq_tf32_kernel, dkv_tf32_kernel
   const auto* q = static_cast<const float*>(a.q);
   const auto* k = static_cast<const float*>(a.k);
   const auto* v = static_cast<const float*>(a.v);
@@ -1683,11 +1764,11 @@ cudaError_t run_fp32(Pass pass, const Args& a) {
   const auto* layout = static_cast<const int*>(a.layout);
   cudaError_t err;
   if (pass == kFwd) {
-    const dim3 grid((a.nq + kBlock - 1) / kBlock, a.H, a.B);
-    if ((err = allow_smem(fwd_kernel<D>, fwd_smem<D>(), capped[0])) != cudaSuccess) return err;
-    fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), a.stream>>>(
-        q, k, v, mask, layout, static_cast<float*>(a.o), static_cast<float*>(a.lse_out), a.H,
-        a.nq, a.nk, a.mode, a.scale);
+    constexpr size_t smem = TfPlan<D>::FWD_SMEM;
+    if ((err = allow_smem(fwd_tf32_kernel<D>, smem, capped[0])) != cudaSuccess) return err;
+    fwd_tf32_kernel<D><<<dim3(a.B * a.H, (a.nq + kBlock - 1) / kBlock), kTfThreads, smem, a.stream>>>(
+        q, k, v, mask, layout, static_cast<float*>(a.o), static_cast<float*>(a.lse_out), a.nq, a.nk,
+        a.mode, a.scale);
     return cudaGetLastError();
   }
   constexpr size_t smem = TfPlan<D>::SMEM;

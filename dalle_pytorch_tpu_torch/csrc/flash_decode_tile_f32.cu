@@ -24,8 +24,9 @@
 // slots, D = 64) it is bound by operations at the card's fp32 rate (~13
 // GFLOP against ~42 MB of fp32 K/V). The arm it replaces (flash_decode.cu's
 // 4-row instance) read every K/V tile from L2 into shared memory once per 4
-// query rows, 320 times over at n = 1280. The design, the fp32 flash-
-// attention forward (flash_attention.cu `fwd_kernel`) over a cache:
+// query rows, 320 times over at n = 1280. The design, that of the CUDA-core
+// fp32 flash-attention forward flash_attention.cu had before its TF32
+// kernel, over a cache:
 //   * one block per (batch row x head, tile of 64 query rows), 256 threads
 //     in a 16 x 16 grid; the block loops over key tiles from key 0 up to
 //     the last key its last row sees (len - n + row0 + 63), so a K/V tile

@@ -22,8 +22,8 @@
 // What bounds it: every visible (row, key) pair costs 4 D flops and every
 // key serves up to n rows, so at the resume forward (n = 1280 over 1281
 // slots, D = 320) it is bound by operations (~67 GFLOP against ~105 MB of
-// q, K, V and out). The kernel it replaces (wide_head.cu's 4-row
-// `wide_decode_kernel`) held 4 query rows a block on CUDA cores and read K
+// q, K, V and out). The kernel it replaced (wide_head.cu's 4-row decode
+// kernel, since deleted) held 4 query rows a block on CUDA cores and read K
 // and V unstaged, so every K/V row crossed from L2 once per 4 query rows
 // and per 256-column group (640 times at n = 1280, D = 320). The design
 // joins two kernels of the port:

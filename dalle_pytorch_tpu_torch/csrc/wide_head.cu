@@ -6,67 +6,64 @@
 // Replace, at D > 256, the TPU kernels of the JAX package:
 //   * `dalle_pytorch_tpu/ops/pallas_decode.py`: `_decode_kernel` (plain and
 //     int8 arms), `_sparse_decode_kernel`, `_paged_decode_kernel` and
-//     `_sparse_paged_decode_kernel` -- three decode kernels here (the
-//     split-K step, the fp32 multi-row kernel and the 4-row kernel), each
-//     with runtime flags for the block bitmap and the page table (null
-//     pointers when off) and the int8 cache as a template type (bf16 q at
-//     n > 4 runs the tensor-core tile kernel of wide_decode_tile.cu);
+//     `_sparse_paged_decode_kernel` -- two decode kernels here (the
+//     split-K step and the fp32 multi-row kernel), each with runtime flags
+//     for the block bitmap and the page table (null pointers when off) and
+//     the int8 cache as a template type (bf16 q at n > 4 runs the
+//     tensor-core tile kernel of wide_decode_tile.cu);
 //   * `dalle_pytorch_tpu/ops/pallas_attention.py`: `_fwd_kernel` (forward),
 //     `_dq_kernel` and `_dkv_kernel` (backward), in their all / causal /
 //     static-mask arms.
 // The functions are those of flash_decode.cu and flash_attention.cu (see
 // their headers); D is a runtime argument with no upper limit.
 //
-// Decode at the step (n <= 4 query rows, D <= kSplitMaxD = 1024) runs
-// `wide_split_kernel`: split-K over spans of 128 key positions, bound by
-// the bytes of live K/V it reads (2 B H len D elt), which it reads once:
-//   * one block per (batch row x head, span); span boundaries depend on
-//     key positions only, so every variant sums in the same order; blocks
-//     past a row's last visible key exit at once; each span writes (m, l,
-//     acc[D]) in fp32 to a workspace, and the last block of a (b, h) to
-//     arrive merges the spans in span order (a self-resetting arrival
-//     counter: one launch, no memset, no host sync), as flash_decode.cu;
-//   * a block owns every output column (no column groups), so K is read
-//     once, not once per group; its 4 x D accumulators are spread over the
-//     block's 128 threads, 4 columns a chunk, at most 2 chunks a thread;
+// Decode at the step (n <= 4 query rows, any D) runs `wide_split_kernel`:
+// split-K over spans of 128 key positions, bound by the bytes of live K/V
+// it reads (2 B H len D elt), which it reads once up to D = 4096:
+//   * one block per (batch row x head, span, column group); span
+//     boundaries depend on key positions only, so every variant sums in the
+//     same order; blocks past a row's last visible key exit at once; each
+//     span writes (m, l, acc[D]) in fp32 to a workspace, and the last block
+//     of a (b, h, group) to arrive merges the spans in span order (a
+//     self-resetting arrival counter: one launch, no memset, no host sync),
+//     as flash_decode.cu;
+//   * a block owns every output column up to D = 4096 (no column groups),
+//     so K is read once, not once per group: its 4 x D accumulators are
+//     spread over the block's 128 threads, 4 columns a chunk, 2 chunks a
+//     thread up to D = 1024 and 8 above; above 4096, groups of 4096
+//     columns, each forming the whole scores from K in 4096-channel pieces
+//     (a third instance, `PIECES`, so the others carry no branch for it);
 //   * K and V arrive by cp.async (16-byte chunks where D * elt allows) in
 //     tiles of up to 16 keys, sized so a stage's K and V rows stay within
-//     32 KB (16 keys at D = 320 and 512 in bf16, 8 at 1024), in a ring of 3
-//     stages; rows stay in their storage type and widen in registers with
-//     vector shared loads; keys no row may see are zero-filled by the copy
-//     itself, and a dead page's table entry is never followed;
-//   * scores: a group of 8 lanes per key (8 channels a lane, a butterfly
-//     sum), so every warp computes; one warp per query row runs the online
-//     softmax of the tile (a lane per key, expf); then every thread adds P V
-//     for its own columns. One code path for every variant.
+//     32 KB (16 keys at D = 320 and 512 in bf16, 8 at 1024, 4 at 1032, 1 at
+//     4096 in fp32), in a ring of 3 stages; rows stay in their storage type
+//     and widen in registers with vector shared loads; keys no row may see
+//     (and, in pieces, the channels past a piece) are zero-filled by the
+//     copy itself, and a dead page's table entry is never followed;
+//   * scores: 128 / keys lanes a key (8 channels a lane at a time, a
+//     butterfly sum, across warps through shared memory above 32 lanes), so
+//     every lane computes at any width; one warp per query row runs the
+//     online softmax of the tile (a lane per key, expf); then every thread
+//     adds P V for its own columns. One code path for every variant: the
+//     bitmap and page table only choose which keys are read and where from,
+//     so an all-ones bitmap and the paged layout run the same sums in the
+//     same order as the plain contiguous cache (bit-identical outputs).
 // bf16 q at n > 4 rows runs wide_decode_tile.cu's tensor-core tile kernel,
-// fp32 q at n > 4 `wide_decode_fma_kernel` (below, with the fp32 forward);
-// `wide_decode_kernel` keeps what is left: the step (n <= 4) above D =
-// 1024.
+// fp32 q at n > 4 `wide_decode_fma_kernel` (below, with the fp32 forward).
 //
-// Design of the rest: column groups. A block owns at most kDecCols
-// (the step above 1024) or `cols` (bf16 attention, 128-256, and the fp32
-// forward, multi-row decode and backward, 192-320: the wrapper's plan)
-// output columns. It forms the full scores (and, backward, the full dO .
-// V^T) by looping over all of D -- lanes over channels in the step, staged
-// chunks of channels elsewhere -- and accumulates only its own columns of
-// o, dq, dk or dv. Registers and shared memory are then bounded for every
-// D, at the cost of recomputing the scores once per column group
-// (ceil(D / 256) groups in the step above 1024, ceil(D / 256) in the bf16
-// forward, ceil(D / 128) in the bf16 backward and ceil(D / 320) in fp32).
+// Design of the rest: column groups. A block owns at most `cols` (bf16
+// attention, 128-256, and the fp32 forward, multi-row decode and backward,
+// 192-320: the wrapper's plan) output columns. It forms the full scores
+// (and, backward, the full dO . V^T) by looping over all of D in staged
+// chunks of channels, and accumulates only its own columns of o, dq, dk
+// or dv. Registers and shared memory are then bounded for every D, at the
+// cost of recomputing the scores once per column group (ceil(D / 256)
+// groups in the bf16 forward, ceil(D / 128) in the bf16 backward and
+// ceil(D / 320) in fp32).
 //
 // bfloat16 attention runs on tensor cores (the second half of this file):
 // mma.sync with fp32 accumulators, 64-row tiles, operands staged as 64 x 64
 // tiles through a cp.async ring. The rest on CUDA cores in fp32:
-//   * the step above D = 1024 (`wide_decode_kernel`): a block per (row,
-//     head) x 4 query rows x column group, keys in tiles of 32 (a lane per
-//     key in the softmax, a warp per key in the dot product), K and V read
-//     from device memory unstaged; only keys some row of the block may see
-//     are read, a dead page's table entry is never followed, and a value no
-//     row sees is never loaded, so stale or poisoned bytes reach no result.
-//     The bitmap and page table only choose which keys are read and where
-//     from: an all-ones bitmap and the paged layout run the same sums in
-//     the same order as the plain contiguous cache (bit-identical outputs);
 //   * fp32 attention forward and fp32 decode at n > 4
 //     (`wide_fwd_fma_kernel`, `wide_decode_fma_kernel`): a block per (64
 //     query rows, head and batch row, group of up to 320 columns) over the
@@ -81,8 +78,8 @@
 //     No atomics: every output is bit-identical run to run.
 // What bounds it: the same work as the D <= 256 kernels (bytes at the
 // decode step, operations in the multi-row decode and attention), here
-// times the column groups' recomputation in all but the split-K step; the
-// fp32 kernels run on CUDA cores.
+// times the column groups' recomputation in all but the split-K step up to
+// D = 4096; the fp32 kernels run on CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +89,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked = -1e30f;  // a masked attention score (finite, as the reference's)
@@ -103,162 +99,7 @@ __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // ------------------------------------------------------------------ decode
-
-constexpr int kDecRows = 4;    // query rows a block holds
-constexpr int kDecKeys = 32;   // keys a tile: one lane each in the softmax
-constexpr int kDecCols = kThreads;  // output columns a block owns, one a thread
-
-// out[b,h,i,:] = softmax_j(q[b,h,i] . k[b,h,j] * scale) @ v[b,h,j] over
-// j <= lengths[b] - n + i (lengths clipped to [0, S]) and, with a bitmap,
-// bitmap[b, j / block_k] != 0; with a page table key j of row b is at pool
-// page page_table[b, j / page_size], offset j % page_size. Grid (B * H,
-// ceil(n / kDecRows), ceil(D / kDecCols)).
-template <typename T, typename KV>
-__global__ void __launch_bounds__(kThreads)
-wide_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
-                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                   const int* __restrict__ lengths, const int* __restrict__ bitmap,
-                   const int* __restrict__ page_table, T* __restrict__ out, int H, int n, int S,
-                   int D, int n_blocks, int block_k, int page_size, int n_pool, float sm_scale) {
-  constexpr bool QUANT = sizeof(KV) == 1;
-  __shared__ size_t row_s[kDecKeys];      // the key's row in k / v (and the scales)
-  __shared__ int live_s[kDecKeys];        // some row of the block may see the key: it is read
-  __shared__ int seen_s[kDecKeys];        // some row sees it: its value is read
-  __shared__ float p_s[kDecRows][kDecKeys];  // scores, then p (int8: times the value's scale)
-  __shared__ float corr_s[kDecRows], m_s[kDecRows], l_s[kDecRows];
-
-  const int bh = blockIdx.x, row0 = blockIdx.y * kDecRows;
-  const int col = blockIdx.z * kDecCols + threadIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = min(max(lengths[b], 0), S);
-  const int nrows = min(kDecRows, n - row0);
-  const int key1 = len - n + row0 + nrows;  // keys [0, key1): the last row's
-  const int* live_b = bitmap ? bitmap + (size_t)b * n_blocks : nullptr;
-  const int* table_b = page_table ? page_table + (size_t)b * (S / page_size) : nullptr;
-  const T* qb = q + ((size_t)bh * n + row0) * D;
-  if (threadIdx.x < kDecRows) {
-    m_s[threadIdx.x] = -INFINITY;
-    l_s[threadIdx.x] = 0.f;
-  }
-  float acc[kDecRows];
-#pragma unroll
-  for (int r = 0; r < kDecRows; ++r) acc[r] = 0.f;
-
-  const int n_tiles = key1 > 0 ? (key1 + kDecKeys - 1) / kDecKeys : 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int key0 = t * kDecKeys;
-    if (live_b) {  // a tile with no live block is skipped (block-uniform)
-      const int last = min(key0 + kDecKeys, key1) - 1;
-      bool any = false;
-      for (int blk = key0 / block_k; blk <= last / block_k && !any; ++blk) any = live_b[blk] != 0;
-      if (!any) continue;
-    }
-    __syncthreads();  // the previous tile's shared state is consumed
-    if (threadIdx.x < kDecKeys) {
-      const int pos = key0 + threadIdx.x;
-      const bool live = pos < key1 && (live_b == nullptr || live_b[pos / block_k] != 0);
-      size_t row = 0;
-      if (live) {
-        if (table_b) {
-          const int pi = pos / page_size;
-          const int page = table_b[pi];
-          if (page < 0 || page >= n_pool) __trap();  // a corrupt table faults loudly
-          row = ((size_t)page * H + h) * page_size + (pos - pi * page_size);
-        } else {
-          row = (size_t)bh * S + pos;
-        }
-      }
-      live_s[threadIdx.x] = live;
-      row_s[threadIdx.x] = row;
-    }
-    __syncthreads();
-    // scores: a warp per key, lanes over channels, a butterfly sum
-    for (int jj = warp; jj < kDecKeys; jj += kWarps) {
-      if (!live_s[jj]) {  // warp-uniform
-        if (lane < kDecRows) p_s[lane][jj] = -INFINITY;
-        if (lane == 0) seen_s[jj] = 0;
-        continue;
-      }
-      const KV* kr = k + row_s[jj] * D;
-      float dot[kDecRows];
-#pragma unroll
-      for (int r = 0; r < kDecRows; ++r) dot[r] = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float kv = to_float(kr[c]);
-#pragma unroll
-        for (int r = 0; r < kDecRows; ++r)
-          if (r < nrows) dot[r] = fmaf(to_float(qb[(size_t)r * D + c]) * sm_scale, kv, dot[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kDecRows; ++r) dot[r] = warp_sum(dot[r]);
-      if (lane == 0) {
-        const float ksc = QUANT ? k_scale[row_s[jj]] : 1.f;
-        int seen = 0;
-#pragma unroll
-        for (int r = 0; r < kDecRows; ++r) {
-          const bool vis = r < nrows && key0 + jj <= len - n + row0 + r;
-          p_s[r][jj] = vis ? (QUANT ? dot[r] * ksc : dot[r]) : -INFINITY;
-          seen |= vis;
-        }
-        seen_s[jj] = seen;
-      }
-    }
-    __syncthreads();
-    // the online softmax, a warp per query row and a lane per key
-    if (warp < kDecRows) {
-      const int r = warp;
-      const float s = p_s[r][lane];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      float p = 0.f, corr = 1.f;
-      if (m_new > -INFINITY) {  // warp-uniform: the row has seen a key
-        corr = expf(m_old - m_new);  // 0 on the row's first visible key
-        p = expf(s - m_new);         // 0 where unseen
-      }
-      const float psum = warp_sum(p);
-      if (QUANT && p > 0.f) p *= v_scale[row_s[lane]];
-      __syncwarp();
-      p_s[r][lane] = p;
-      if (lane == 0) {
-        l_s[r] = fmaf(l_s[r], corr, psum);
-        m_s[r] = m_new;
-        corr_s[r] = corr;
-      }
-    }
-    __syncthreads();
-    // P . V for this thread's column; values no row sees are never loaded
-    if (col < D) {
-#pragma unroll
-      for (int r = 0; r < kDecRows; ++r) acc[r] *= corr_s[r];
-      for (int jj = 0; jj < kDecKeys; ++jj) {
-        if (!seen_s[jj]) continue;
-        const float vv = to_float(v[row_s[jj] * D + col]);
-#pragma unroll
-        for (int r = 0; r < kDecRows; ++r) acc[r] = fmaf(p_s[r][jj], vv, acc[r]);
-      }
-    }
-  }
-  __syncthreads();
-  if (col < D) {
-    for (int r = 0; r < nrows; ++r) {
-      const float l = l_s[r];
-      store(out + ((size_t)bh * n + row0 + r) * D + col, l > 0.f ? acc[r] / l : 0.f);
-    }
-  }
-}
 
 struct DecodeArgs {
   const void *q, *k, *v, *k_scale, *v_scale, *lengths, *bitmap, *page_table;
@@ -268,55 +109,53 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename T, typename KV>
-cudaError_t launch_decode(const DecodeArgs& a) {
-  const dim3 grid(a.B * a.H, (a.n + kDecRows - 1) / kDecRows, (a.D + kDecCols - 1) / kDecCols);
-  wide_decode_kernel<T, KV><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
-      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
-      static_cast<const int*>(a.lengths), static_cast<const int*>(a.bitmap),
-      static_cast<const int*>(a.page_table), static_cast<T*>(a.out), a.H, a.n, a.S, a.D,
-      a.n_blocks, a.block_k, a.page_size, a.n_pool, a.sm_scale);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------- decode, split-K
-
-// The step (n <= kSplitRows query rows) at D in (256, kSplitMaxD]: split-K
-// over spans of kSplitSpan key positions, as flash_decode.cu does at D <=
-// 256, redesigned for wide rows. One block per (batch row x head, span);
-// blocks past a row's last visible key exit at once. No column groups: a
-// block owns every output column, so each live K/V byte is read once.
+// The step (n <= kSplitRows query rows) at D > 256: split-K over spans of
+// kSplitSpan key positions, as flash_decode.cu does at D <= 256,
+// redesigned for wide rows. One block per (batch row x head, span, column
+// group); blocks past a row's last visible key exit at once. A block owns
+// CHUNKS x 4 columns a thread (`split_chunks`: 2 up to 1024 channels, 8
+// above, so 512 or 4096 columns a block); up to 4096 channels that is every
+// output column, so each live K/V byte is read once; above, column groups
+// of 4096 (`split_groups`), each forming the whole scores (the only place
+// the scores are recomputed).
 constexpr int kSplitThreads = 128;
-constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kSplitRows = 4;          // query rows a block holds (ops/flash_decode.py DECODE_ROWS)
 constexpr int kSplitSpan = 128;        // key positions a block (ops/flash_decode.py DECODE_SPAN)
 constexpr int kSplitStages = 3;        // cp.async ring depth
 constexpr int kSplitStageBytes = 32768;  // K + V bytes of one tile, at most
-constexpr int kSplitGroups = 16;       // key groups of 8 lanes: at most 16 keys a tile
-constexpr int kSplitMaxD = 1024;       // accumulators: 4 rows x 2 chunks of 4 columns a thread
-constexpr int kSplitChunks = kSplitMaxD / 4 / kSplitThreads;
+constexpr int kSplitKeys = 16;         // keys a tile, at most (each scored by 128 / keys lanes)
+constexpr int kSplitWideChunks = 8;    // the chunks above 1024 channels
 constexpr int kSplitTableCache = kSplitSpan + 1;  // a span's page-table entries (pages >= 1 position)
 
-// bytes of a staged K or V row: D rounded up to 8 channels (the score's
-// 8-channel loads), then to 16 bytes (cp.async chunks); the tail is zero
-__host__ __device__ inline int split_row_stride(int D, int elt) {
-  return ((D + 7) / 8 * 8 * elt + 15) / 16 * 16;
+// chunks of 4 columns a thread: 2 up to 1024 channels, else kSplitWideChunks
+__host__ __device__ inline int split_chunks(int D) { return D <= 1024 ? 2 : kSplitWideChunks; }
+__host__ __device__ inline int split_group_cols(int D) { return split_chunks(D) * 4 * kSplitThreads; }
+// column groups a (row, head, span): one up to 4096 channels
+__host__ __device__ inline int split_groups(int D) { return (D + split_group_cols(D) - 1) / split_group_cols(D); }
+// channels of a staged K or V piece: all of D in one group, a group's above
+__host__ __device__ inline int split_piece(int D) { return split_groups(D) == 1 ? D : split_group_cols(D); }
+// bytes of a staged K or V row of `W` channels: W rounded up to 8 channels
+// (the score's 8-channel loads), then to 16 bytes (cp.async chunks); the
+// tail is zero
+__host__ __device__ inline int split_row_stride(int W, int elt) {
+  return ((W + 7) / 8 * 8 * elt + 15) / 16 * 16;
 }
-// keys a tile: the largest power of two up to kSplitGroups whose K and V
-// rows fit kSplitStageBytes (16 at D = 320 and 512 in bf16, 8 at 1024)
-__host__ __device__ inline int split_tile_keys(int D, int elt) {
-  int keys = kSplitGroups;
-  while (keys > 1 && 2 * keys * split_row_stride(D, elt) > kSplitStageBytes) keys /= 2;
+// keys a tile: the largest power of two up to kSplitKeys whose K and V
+// rows fit kSplitStageBytes (16 at D = 320 and 512 in bf16, 8 at 1024, 4
+// at 1032, 1 at 4096 in fp32)
+__host__ __device__ inline int split_tile_keys(int W, int elt) {
+  int keys = kSplitKeys;
+  while (keys > 1 && 2 * keys * split_row_stride(W, elt) > kSplitStageBytes) keys /= 2;
   return keys;
 }
-__host__ __device__ inline int split_stage_bytes(int D, int elt) {
-  const int keys = split_tile_keys(D, elt);
-  return 2 * keys * split_row_stride(D, elt) + (elt == 1 ? 2 * keys * 4 : 0);
+__host__ __device__ inline int split_stage_bytes(int W, int elt) {
+  const int keys = split_tile_keys(W, elt);
+  return 2 * keys * split_row_stride(W, elt) + (elt == 1 ? 2 * keys * 4 : 0);
 }
-// dynamic shared bytes: the ring, then q [ROWS][D rounded to 8] fp32
+// dynamic shared bytes: the ring, then q [rows][piece rounded to 8] fp32
 __host__ __device__ inline int split_smem_bytes(int D, int elt, int rows) {
-  return kSplitStages * split_stage_bytes(D, elt) + rows * ((D + 7) / 8 * 8) * 4;
+  const int W = split_piece(D);
+  return kSplitStages * split_stage_bytes(W, elt) + rows * ((W + 7) / 8 * 8) * 4;
 }
 
 __device__ __forceinline__ uint32_t split_smem_addr(const void* p) {
@@ -378,15 +217,69 @@ __device__ __forceinline__ void split_load(float (&out)[N], const unsigned char*
   }
 }
 
-// The function of wide_decode_kernel at n <= kSplitRows (ROWS = 1 at the
-// step n = 1, else kSplitRows). Grid (B * H, spans). Per key tile: scores
-// by groups of 8 lanes (a key each, 8 channels a lane, a butterfly sum),
-// the online softmax of each row by one warp (a lane per key), then P V by
-// every thread over its own output columns; one softmax state per row, in
-// shared memory. Each span writes (m, l, acc[D]) to the workspace unless it
-// is its row's only live span; the last span block of a (b, h) to arrive
-// merges the spans in span order.
-template <typename T, typename KV, int ROWS>
+template <int N>
+struct Lanes {
+  static constexpr int value = N;
+};
+
+// dot[r] += q_s[r] . this lane's 8-channel octets of its key's staged row
+// (L lanes a key, octet sub, sub + L, ... below n8): q and K widened to fp32
+template <typename KV, int ROWS, int L>
+__device__ __forceinline__ void split_dots(float (&dot)[ROWS], const unsigned char* krow,
+                                           const float* q_s, int dq, int sub, int n8) {
+  constexpr int ELT = (int)sizeof(KV);
+  for (int c8 = sub; c8 < n8; c8 += L) {
+    float kv[8];
+    split_load<KV, 8>(kv, krow + c8 * 8 * ELT);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_s + r * dq + c8 * 8);
+      const float4 qb = *reinterpret_cast<const float4*>(q_s + r * dq + c8 * 8 + 4);
+      float y = dot[r];
+      y = fmaf(qa.x, kv[0], y); y = fmaf(qa.y, kv[1], y);
+      y = fmaf(qa.z, kv[2], y); y = fmaf(qa.w, kv[3], y);
+      y = fmaf(qb.x, kv[4], y); y = fmaf(qb.y, kv[5], y);
+      y = fmaf(qb.z, kv[6], y); y = fmaf(qb.w, kv[7], y);
+      dot[r] = y;
+    }
+  }
+}
+
+// a key's L lanes summed: a butterfly within the warp, then slot
+// threadIdx / min(L, 32) of part_s holds a lane group's or a warp's sum
+template <int ROWS, int L>
+__device__ __forceinline__ void split_sum(float (&dot)[ROWS], float (&part_s)[kSplitRows][kSplitKeys],
+                                          int lane) {
+  constexpr int LW = L < 32 ? L : 32;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int o = LW / 2; o > 0; o >>= 1) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+  if (lane % LW == 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) part_s[r][threadIdx.x / LW] = dot[r];
+  }
+}
+
+// out[b,h,i,:] = softmax_j(q[b,h,i] . k[b,h,j] * scale) @ v[b,h,j] over
+// j <= lengths[b] - n + i (lengths clipped to [0, S]) and, with a bitmap,
+// bitmap[b, j / block_k] != 0; with a page table key j of row b is at pool
+// page page_table[b, j / page_size], offset j % page_size. ROWS = 1 at the
+// step n = 1, else kSplitRows; PIECES: more than one column group (D >
+// 4096). Grid (B * H, spans, split_groups(D)).
+// Per key tile of up to kSplitKeys keys: scores by 128 / keys lanes a key
+// (8 channels a lane at a time, summed by a butterfly and, above 32 lanes a
+// key, across warps through shared memory), so every lane scores whatever
+// the tile's width; the online softmax of each row by one warp (a lane per
+// key); then P V by every thread over its own output columns of the
+// block's group. One softmax state per row, in shared memory. The ring's
+// items: one a key tile (its K and V rows, all of D) in one group; with
+// column groups, a tile's K in split_groups(D) pieces of 4096 channels
+// (the scores summed over them, q's piece restaged for each), then the V
+// columns of the block's group. Each span writes (m, l, acc[D]) to the
+// workspace unless it is its row's only live span; the last span block of
+// a (b, h, group) to arrive merges the spans in span order.
+template <typename T, typename KV, int ROWS, int CHUNKS, bool PIECES>
 __global__ void __launch_bounds__(kSplitThreads, 1)
 wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
@@ -396,14 +289,17 @@ wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* _
                   int block_k, int page_size, int n_pool, float sm_scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int ELT = (int)sizeof(KV);
+  constexpr int GC = CHUNKS * 4 * kSplitThreads;  // columns a block owns, at most
   extern __shared__ __align__(16) unsigned char split_smem[];  // the file's other kernels' smem is float
   unsigned char* smem = split_smem;
-  __shared__ float p_s[kSplitRows][kSplitGroups];  // scores, then p (int8: times v_scale)
+  __shared__ float part_s[kSplitRows][kSplitKeys];  // scores: a key's partial sums (a slot a lane group)
+  __shared__ float p_s[kSplitRows][kSplitKeys];     // p of a tile's keys (int8: times v_scale)
   __shared__ float m_s[kSplitRows], l_s[kSplitRows], corr_s[kSplitRows];
   __shared__ int table_s[kSplitTableCache];
   __shared__ int last_block;
 
   const int bh = blockIdx.x, split = blockIdx.y, n_spans = gridDim.y;
+  const int G = PIECES ? gridDim.z : 1, group = PIECES ? blockIdx.z : 0;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int len = min(max(lengths[b], 0), S);
@@ -416,17 +312,28 @@ wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* _
   const int* live_b = bitmap ? bitmap + (size_t)b * n_blocks : nullptr;
   const int* table_b = page_table ? page_table + (size_t)b * (S / page_size) : nullptr;
 
-  const int LDB = split_row_stride(D, ELT), BN = split_tile_keys(D, ELT);
-  const int STAGE = split_stage_bytes(D, ELT);
-  const int DQ = (D + 7) / 8 * 8;
+  // a staged row holds W channels: all of D (one group) or a 4096-channel piece
+  const int W = PIECES ? GC : D;
+  const int col0 = group * GC, GW = min(D - col0, GC);  // this block's output columns
+  const int n_items = PIECES ? G + 1 : 1;  // a key tile's items: K pieces, then V
+  const int LDB = split_row_stride(W, ELT), BN = split_tile_keys(W, ELT);
+  const int STAGE = split_stage_bytes(W, ELT);
+  const int DQ = (W + 7) / 8 * 8;
+  const int L = kSplitThreads / BN;  // lanes a key
   float* q_s = reinterpret_cast<float*>(smem + kSplitStages * STAGE);  // [ROWS][DQ], times the scale
-  if (D * ELT < LDB) {  // the row tails stay zero (the copies never write them)
-    for (int i = threadIdx.x; i < kSplitStages * STAGE / 16; i += kSplitThreads)
-      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
-  }
-  for (int i = threadIdx.x; i < ROWS * DQ; i += kSplitThreads) {
-    const int r = i / DQ, c = i - r * DQ;
-    q_s[i] = r < nrows && c < D ? to_float(q[(bhs * n + r) * D + c]) * sm_scale : 0.f;
+  // q's channels [c0, c0 + w) into q_s (zero past them)
+  auto stage_q = [&](int c0, int w) {
+    for (int i = threadIdx.x; i < ROWS * DQ; i += kSplitThreads) {
+      const int r = i / DQ, c = i - r * DQ;
+      q_s[i] = r < nrows && c < w ? to_float(q[(bhs * n + r) * D + c0 + c]) * sm_scale : 0.f;
+    }
+  };
+  if (!PIECES) {
+    stage_q(0, D);
+    if (D * ELT < LDB) {  // the row tails stay zero (the copies never write them)
+      for (int i = threadIdx.x; i < kSplitStages * STAGE / 16; i += kSplitThreads)
+        reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+    }
   }
   const int page0 = page_table ? key0 / page_size : 0;
   if (page_table && key1 > key0) {
@@ -465,121 +372,153 @@ wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* _
     }
     return (long long)bhs * S + pos;
   };
-  // copies: the K and V rows of a tile, D * elt bytes each in chunks of
-  // `unit` bytes (16 where the row allows, else 8 or 4, else one element);
-  // keys no row sees are zero-filled
+  // copies: each staged row in chunks of `unit` bytes (16 where D's rows
+  // allow, else 8 or 4, else one element), the keys no row sees zero-filled
+  // by the copy itself; in one group a row's D * elt bytes (its tail zeroed
+  // once, above), with pieces a row's LDB bytes, the channels past the
+  // piece zero-filled by the copy too
   const int row_bytes = D * ELT;
   const int unit = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : ELT;
-  const int cpr = row_bytes / unit;
+  const int cpr = (PIECES ? LDB : row_bytes) / unit;
   const char* kbytes = reinterpret_cast<const char*>(k);
   const char* vbytes = reinterpret_cast<const char*>(v);
-  auto fetch = [&](int t, int st) {
+  struct Item {
+    int t, p;  // a key tile, and its item: K piece p < G (all of K and V at G = 1), or V (p = G)
+  };
+  // item x's rows: K's channels [kc0, kc0 + kw) (all of D at G = 1, piece
+  // p above) and V's of the block's group, each where the item brings it
+  auto fetch = [&](Item x, int st) {
     unsigned char* ks = smem + st * STAGE;
     unsigned char* vs = ks + BN * LDB;
-    for (int i = threadIdx.x; i < BN * cpr; i += kSplitThreads) {
-      const int j = i / cpr, c = i - j * cpr;
-      const long long row = src_row(t * BN + j);
-      const size_t off = (row < 0 ? 0 : row * row_bytes) + c * unit;
-      split_copy(ks + j * LDB + c * unit, kbytes + off, row >= 0, unit);
-      split_copy(vs + j * LDB + c * unit, vbytes + off, row >= 0, unit);
+    const bool kpart = !PIECES || x.p < G, vpart = !PIECES || x.p == G;
+    if constexpr (!PIECES) {
+      for (int i = threadIdx.x; i < BN * cpr; i += kSplitThreads) {
+        const int j = i / cpr, c = i - j * cpr;
+        const long long row = src_row(x.t * BN + j);
+        const size_t off = (row < 0 ? 0 : row * row_bytes) + c * unit;
+        split_copy(ks + j * LDB + c * unit, kbytes + off, row >= 0, unit);
+        split_copy(vs + j * LDB + c * unit, vbytes + off, row >= 0, unit);
+      }
+    } else {
+      const int kc0 = x.p * W, kwb = min(W, D - kc0) * ELT, vwb = GW * ELT;
+      for (int i = threadIdx.x; i < BN * cpr; i += kSplitThreads) {
+        const int j = i / cpr, c = i - j * cpr;
+        const long long row = src_row(x.t * BN + j);
+        const long long off = row * row_bytes + c * unit;
+        if (kpart) {
+          const bool ok = row >= 0 && c * unit < kwb;
+          split_copy(ks + j * LDB + c * unit, kbytes + (ok ? off + (long long)kc0 * ELT : 0), ok, unit);
+        }
+        if (vpart) {
+          const bool ok = row >= 0 && c * unit < vwb;
+          split_copy(vs + j * LDB + c * unit, vbytes + (ok ? off + (long long)col0 * ELT : 0), ok, unit);
+        }
+      }
     }
-    if (QUANT) {
+    if (QUANT && kpart) {
       float* sc = reinterpret_cast<float*>(vs + BN * LDB);
       for (int j = threadIdx.x; j < BN; j += kSplitThreads) {
-        const long long row = src_row(t * BN + j);
+        const long long row = src_row(x.t * BN + j);
         split_copy(sc + j, k_scale + (row < 0 ? 0 : row), row >= 0, 4);
         split_copy(sc + BN + j, v_scale + (row < 0 ? 0 : row), row >= 0, 4);
       }
     }
   };
 
-  float acc[ROWS][kSplitChunks][4];
+  float acc[ROWS][CHUNKS][4];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int u = 0; u < kSplitChunks; ++u)
+    for (int u = 0; u < CHUNKS; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[r][u][e] = 0.f;
-  const int grp = warp * 4 + lane / 8, sub = lane % 8;  // this lane's key of a tile, its channel chunks
-  const int n8 = DQ / 8, n4 = DQ / 4;
+  const int key = threadIdx.x / L, sub = threadIdx.x % L;  // this lane's key of a tile, its channel octets
+  const int n4 = (GW + 7) / 8 * 2;  // 4-column chunks of the block's group
+  float dot[ROWS];
 
-  // key tile t, landed in stage st, into the rows' softmax states and acc
-  auto compute = [&](int t, int st) {
+  // item x, landed in stage st, into the scores, the rows' softmax states and acc
+  auto compute = [&](Item x, int st) {
     const unsigned char* kt = smem + st * STAGE;
     const unsigned char* vt = kt + BN * LDB;
     const float* sc = reinterpret_cast<const float*>(vt + BN * LDB);
-    // scores: key grp, 8 channels a lane, summed over the group's 8 lanes
-    float dot[ROWS];
+    const bool kpart = !PIECES || x.p < G, vpart = !PIECES || x.p == G;
+    if (kpart) {
+      const int kw = PIECES ? min(W, D - x.p * W) : D;
+      if (PIECES) {  // q's piece (the previous item's reads of q_s are done: the ring's barrier)
+        stage_q(x.p * W, kw);
+        __syncthreads();
+      }
+      if (x.p == 0) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) dot[r] = 0.f;
-    if (grp < BN) {
-      for (int c8 = sub; c8 < n8; c8 += 8) {
-        float kv[8];
-        split_load<KV, 8>(kv, kt + grp * LDB + c8 * 8 * ELT);
+        for (int r = 0; r < ROWS; ++r) dot[r] = 0.f;
+      }
+      // scores: this lane's octets of its key (the stride, L, a constant in
+      // each case), then the key's lanes summed once its last piece is in
+      const unsigned char* krow = kt + key * LDB;
+      const int n8 = (kw + 7) / 8;
+      const bool last = !PIECES || x.p == G - 1;
+      auto score = [&](auto lanes) {
+        constexpr int LK = decltype(lanes)::value;
+        split_dots<KV, ROWS, LK>(dot, krow, q_s, DQ, sub, n8);
+        if (last) split_sum<ROWS, LK>(dot, part_s, lane);
+      };
+      switch (L) {  // block-uniform
+        case 8: score(Lanes<8>{}); break;
+        case 16: score(Lanes<16>{}); break;
+        case 32: score(Lanes<32>{}); break;
+        case 64: score(Lanes<64>{}); break;
+        default: score(Lanes<128>{});
+      }
+      if (!last) return;  // the scores go on in the next piece
+      __syncthreads();
+      // the online softmax, a warp per query row and a lane per key (its
+      // L / 32 slots summed in order above 32 lanes a key)
+      if (warp < nrows) {
+        const int r = warp, parts = L > 32 ? L / 32 : 1;
+        const int pos = x.t * BN + lane;
+        float s = -INFINITY;
+        if (lane < BN) {
+          s = part_s[r][lane * parts];
+          for (int i = 1; i < parts; ++i) s += part_s[r][lane * parts + i];
+          const bool vis = pos < key1 && (live_b == nullptr || live_b[pos / block_k] != 0) &&
+                           pos <= len - n + r;
+          s = vis ? (QUANT ? s * sc[lane] : s) : -INFINITY;
+        }
+        float tmax = s;
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float4 qa = *reinterpret_cast<const float4*>(q_s + r * DQ + c8 * 8);
-          const float4 qb = *reinterpret_cast<const float4*>(q_s + r * DQ + c8 * 8 + 4);
-          float x = dot[r];
-          x = fmaf(qa.x, kv[0], x); x = fmaf(qa.y, kv[1], x);
-          x = fmaf(qa.z, kv[2], x); x = fmaf(qa.w, kv[3], x);
-          x = fmaf(qb.x, kv[4], x); x = fmaf(qb.y, kv[5], x);
-          x = fmaf(qb.z, kv[6], x); x = fmaf(qb.w, kv[7], x);
-          dot[r] = x;
+        for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+        const float m_old = m_s[r];
+        const float m_new = fmaxf(m_old, tmax);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: add nothing
+        const float corr = expf(m_old - m_use);
+        float p = expf(s - m_use);  // 0 where unseen
+        float psum = p;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+        if (QUANT && lane < BN) p *= sc[BN + lane];
+        if (lane < BN) p_s[r][lane] = p;
+        if (lane == 0) {
+          l_s[r] = fmaf(l_s[r], corr, psum);
+          m_s[r] = m_new;
+          corr_s[r] = corr;
         }
       }
+      __syncthreads();
+      if (!vpart) return;  // V arrives in the next item
     }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
-    if (grp < BN && sub == 0) {
-      const int pos = t * BN + grp;
-      const bool live = pos < key1 && (live_b == nullptr || live_b[pos / block_k] != 0);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const bool vis = live && r < nrows && pos <= len - n + r;
-        p_s[r][grp] = vis ? (QUANT ? dot[r] * sc[grp] : dot[r]) : -INFINITY;
-      }
-    }
-    __syncthreads();
-    // the online softmax, a warp per query row and a lane per key
-    if (warp < nrows) {
-      const int r = warp;
-      const float s = lane < BN ? p_s[r][lane] : -INFINITY;
-      float tmax = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, tmax);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: add nothing
-      const float corr = expf(m_old - m_use);
-      float p = expf(s - m_use);  // 0 where unseen
-      float psum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      if (QUANT && lane < BN) p *= sc[BN + lane];
-      if (lane < BN) p_s[r][lane] = p;
-      if (lane == 0) {
-        l_s[r] = fmaf(l_s[r], corr, psum);
-        m_s[r] = m_new;
-        corr_s[r] = corr;
-      }
-    }
-    __syncthreads();
-    // P V over this thread's columns (chunks of 4): keys no row sees are
-    // zeros in the ring, and their p is 0
+    // P V over this thread's columns of the group (chunks of 4): keys no
+    // row sees are zeros in the ring, and their p is 0
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const float corr = r < nrows ? corr_s[r] : 1.f;
 #pragma unroll
-      for (int u = 0; u < kSplitChunks; ++u)
+      for (int u = 0; u < CHUNKS; ++u)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[r][u][e] *= corr;
     }
     for (int j = 0; j < BN; ++j) {
 #pragma unroll
-      for (int u = 0; u < kSplitChunks; ++u) {
+      for (int u = 0; u < CHUNKS; ++u) {
         const int ch = threadIdx.x + u * kSplitThreads;
         if (ch >= n4) break;
         float vv[4];
@@ -594,86 +533,91 @@ wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* _
     }
   };
 
-  // the ring: kSplitStages - 1 tiles in flight ahead of the one computing
-  int fetch_t = next_tile(t_begin), comp_t = fetch_t;
+  // the ring: kSplitStages - 1 items in flight ahead of the one computing
+  auto advance = [&](Item x) { return ++x.p < n_items ? x : Item{next_tile(x.t + 1), 0}; };
+  Item fetch_x{next_tile(t_begin), 0}, comp_x = fetch_x;
 #pragma unroll
   for (int st = 0; st < kSplitStages - 1; ++st) {
-    if (fetch_t < t_end) {
-      fetch(fetch_t, st);
-      fetch_t = next_tile(fetch_t + 1);
+    if (fetch_x.t < t_end) {
+      fetch(fetch_x, st);
+      fetch_x = advance(fetch_x);
     }
     split_commit();
   }
-  for (int it = 0; comp_t < t_end; ++it) {
-    split_wait();     // this thread's copies of tile `it` landed
-    __syncthreads();  // everyone's; and stage it - 1 and p_s are consumed
-    if (fetch_t < t_end) {
-      fetch(fetch_t, (it + kSplitStages - 1) % kSplitStages);
-      fetch_t = next_tile(fetch_t + 1);
+  for (int it = 0; comp_x.t < t_end; ++it) {
+    split_wait();     // this thread's copies of item `it` landed
+    __syncthreads();  // everyone's; and stage it - 1, p_s and q_s are consumed
+    if (fetch_x.t < t_end) {
+      fetch(fetch_x, (it + kSplitStages - 1) % kSplitStages);
+      fetch_x = advance(fetch_x);
     }
     split_commit();
-    compute(comp_t, it % kSplitStages);
-    comp_t = next_tile(comp_t + 1);
+    compute(comp_x, it % kSplitStages);
+    comp_x = advance(comp_x);
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();  // m_s and l_s are final
 
   const bool direct = n_live == 1;  // this block writes the output itself
-  float* ws_acc = ws;                                                 // [B*H][spans][rows][D]
-  float* ws_ml = ws + (size_t)gridDim.x * n_spans * kSplitRows * D;  // [B*H][spans][rows][2]
+  float* ws_acc = ws;  // [B*H][spans][rows][D]
+  float* ws_ml = ws + (size_t)gridDim.x * n_spans * kSplitRows * D;  // [B*H][groups][spans][rows][2]
+  const size_t ml0 = (bhs * G + group) * n_spans * kSplitRows;  // (span sp, row r) at ml0 + sp * rows + r
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (r >= nrows) break;
     const float l = l_s[r];
     const size_t part = (bhs * n_spans + split) * kSplitRows + r;
 #pragma unroll
-    for (int u = 0; u < kSplitChunks; ++u) {
+    for (int u = 0; u < CHUNKS; ++u) {
       const int ch = threadIdx.x + u * kSplitThreads;
       if (ch >= n4) break;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = ch * 4 + e;
-        if (c >= D) break;
+        if (c >= GW) break;
         if (direct)
-          store(out + (bhs * n + r) * D + c, l > 0.f ? acc[r][u][e] / l : 0.f);
+          store(out + (bhs * n + r) * D + col0 + c, l > 0.f ? acc[r][u][e] / l : 0.f);
         else
-          ws_acc[part * D + c] = acc[r][u][e];
+          ws_acc[part * D + col0 + c] = acc[r][u][e];
       }
     }
     if (!direct && threadIdx.x == 0) {
-      ws_ml[part * 2] = m_s[r];
-      ws_ml[part * 2 + 1] = l;
+      ws_ml[(ml0 + split * kSplitRows + r) * 2] = m_s[r];
+      ws_ml[(ml0 + split * kSplitRows + r) * 2 + 1] = l;
     }
   }
   if (direct) return;
 
-  // the last span block of this (b, h) to arrive merges the spans in span
-  // order, each thread its elements, as flash_decode.cu does: per chunk of 8
-  // spans it loads every (m, l, acc) at once, rescales its running sums to
-  // the chunk's new maximum, then adds the spans' terms e^(m - M) in order
-  // (a span with no visible key has m = -inf, l = acc = 0: no term)
+  // the last span block of this (b, h, group) to arrive merges the spans in
+  // span order, each thread its elements, as flash_decode.cu does: per
+  // chunk of 8 spans it loads every (m, l, acc) at once, rescales its
+  // running sums to the chunk's new maximum, then adds the spans' terms
+  // e^(m - M) in order (a span with no visible key has m = -inf, l = acc =
+  // 0: no term)
   __threadfence();
   __syncthreads();
+  int* counter = counters + bhs * G + group;
   if (threadIdx.x == 0) {
-    last_block = atomicAdd(counters + bh, 1) == n_live - 1;
-    if (last_block) atomicExch(counters + bh, 0);  // ready for the next call
+    last_block = atomicAdd(counter, 1) == n_live - 1;
+    if (last_block) atomicExch(counter, 0);  // ready for the next call
   }
   __syncthreads();
   if (!last_block) return;
   __threadfence();
   constexpr int kChunk = 8;
   const size_t part0 = bhs * n_spans * kSplitRows;  // (span sp, row r) at part0 + sp * rows + r
-  for (int i = threadIdx.x; i < nrows * D; i += kSplitThreads) {
-    const int r = i / D, c = i - r * D;
+  for (int i = threadIdx.x; i < nrows * GW; i += kSplitThreads) {
+    const int r = i / GW, c = col0 + i - r * GW;
     float mx = -INFINITY, sum_l = 0.f, sum_a = 0.f;
     for (int sp0 = 0; sp0 < n_live; sp0 += kChunk) {
       float ms[kChunk], ls[kChunk], as[kChunk];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
         const size_t part = part0 + (size_t)(sp0 + u) * kSplitRows + r;
+        const size_t ml = ml0 + (size_t)(sp0 + u) * kSplitRows + r;
         const bool in = sp0 + u < n_live;
-        ms[u] = in ? __ldcg(ws_ml + part * 2) : -INFINITY;
-        ls[u] = in ? __ldcg(ws_ml + part * 2 + 1) : 0.f;
+        ms[u] = in ? __ldcg(ws_ml + ml * 2) : -INFINITY;
+        ls[u] = in ? __ldcg(ws_ml + ml * 2 + 1) : 0.f;
         as[u] = in ? __ldcg(ws_acc + part * D + c) : 0.f;
       }
       float m_new = mx;
@@ -695,13 +639,14 @@ wide_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* _
   }
 }
 
-template <typename T, typename KV>
-cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
-  auto kernel = a.n == 1 ? wide_split_kernel<T, KV, 1> : wide_split_kernel<T, KV, kSplitRows>;
+template <typename T, typename KV, int CHUNKS, bool PIECES>
+cudaError_t launch_split_chunks(const DecodeArgs& a, void* ws, void* counters) {
+  auto kernel = a.n == 1 ? wide_split_kernel<T, KV, 1, CHUNKS, PIECES>
+                         : wide_split_kernel<T, KV, kSplitRows, CHUNKS, PIECES>;
   const int smem = split_smem_bytes(a.D, (int)sizeof(KV), a.n == 1 ? 1 : kSplitRows);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + kSplitSpan - 1) / kSplitSpan);
+  const dim3 grid(a.B * a.H, (a.S + kSplitSpan - 1) / kSplitSpan, split_groups(a.D));
   kernel<<<grid, kSplitThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
@@ -710,6 +655,15 @@ cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
       static_cast<int*>(counters), a.H, a.n, a.S, a.D, a.n_blocks, a.block_k, a.page_size,
       a.n_pool, a.sm_scale);
   return cudaGetLastError();
+}
+
+// the instance of D: 2 chunks up to 1024 channels, 8 above, in pieces
+// above 4096 (three instances a type pair and row count)
+template <typename T, typename KV>
+cudaError_t launch_split(const DecodeArgs& a, void* ws, void* counters) {
+  if (split_chunks(a.D) == 2) return launch_split_chunks<T, KV, 2, false>(a, ws, counters);
+  return split_groups(a.D) == 1 ? launch_split_chunks<T, KV, kSplitWideChunks, false>(a, ws, counters)
+                                : launch_split_chunks<T, KV, kSplitWideChunks, true>(a, ws, counters);
 }
 
 // --------------------------------------------------------------- attention
@@ -1272,7 +1226,7 @@ cudaError_t attention_bwd_fp32(AttnArgs a) {
 //     (`dalle_pytorch_tpu/ops/pallas_decode.py` `_decode_kernel` and its int8
 //     arm, `_sparse_decode_kernel`, `_paged_decode_kernel`,
 //     `_sparse_paged_decode_kernel`) for fp32 q at n > 4 rows: the function
-//     of wide_decode_kernel, over keys j <= len - n + i, cut by the bitmap,
+//     of wide_split_kernel, over keys j <= len - n + i, cut by the bitmap,
 //     read through the page table.
 // A block is 256 threads in a 16 x 16 grid per (column group, head and
 // batch row, 64 query rows); a thread owns rows ty + 16 i (i < 4), keys tx +
@@ -2514,42 +2468,8 @@ bool mma_args_ok(const AttnArgs& a) {
 
 }  // namespace
 
-// The decode family at any D: q/out [B,H,n,D] of `dtype` (0 = float32, 1 =
-// bfloat16); k/v [B,H,S,D] of that dtype, or int8 with `quantized` = 1 and
-// k_scale / v_scale [B,H,S] float32; with `page_table` [B, S / page_size]
-// int32 of pool pages in [0, n_pool), k/v (and the scales) are pools
-// [n_pool, H, page_size, D] (an entry out of range traps); `bitmap` [B,
-// n_blocks] int32 over blocks of `block_k` positions (one per page-table
-// entry when paged), or null; lengths [B] int32. Contiguous. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched). This entry runs
-// `wide_decode_kernel`, the step (n <= 4 rows) above kSplitMaxD channels.
-extern "C" int wide_decode_launch(const void* q, const void* k, const void* v,
-                                  const void* k_scale, const void* v_scale, const void* lengths,
-                                  const void* bitmap, const void* page_table, void* out, int B,
-                                  int H, int n, int S, int D, int n_blocks, int block_k,
-                                  int page_size, int n_pool, int dtype, int quantized,
-                                  float sm_scale, void* stream) {
-  if (B <= 0 || H <= 0 || n <= 0 || n > kDecRows || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  if ((long long)B * H > 2147483647LL || (D + kDecCols - 1) / kDecCols > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (quantized && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
-  if (bitmap != nullptr && (block_k <= 0 || n_blocks < (S + block_k - 1) / block_k))
-    return (int)cudaErrorInvalidValue;
-  if (page_table != nullptr && (page_size <= 0 || S % page_size != 0 || n_pool <= 0))
-    return (int)cudaErrorInvalidValue;
-  const DecodeArgs a{q, k, v, k_scale, v_scale, lengths, bitmap, page_table, out,
-                     B, H, n, S, D, n_blocks, block_k, page_size > 0 ? page_size : 1, n_pool,
-                     sm_scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0)
-    return (int)(quantized ? launch_decode<float, int8_t>(a) : launch_decode<float, float>(a));
-  if (dtype == 1)
-    return (int)(quantized ? launch_decode<__nv_bfloat16, int8_t>(a)
-                           : launch_decode<__nv_bfloat16, __nv_bfloat16>(a));
-  return (int)cudaErrorInvalidValue;
-}
-
 // The multi-row decode of fp32 q (n > 4 rows) at any D on
-// `wide_decode_fma_kernel<KV, cols>`: arguments as wide_decode_launch (q,
+// `wide_decode_fma_kernel<KV, cols>`: arguments as wide_split_launch (q,
 // out and a cache that is not int8 float32), plus `cols` (192, 256 or 320
 // output columns a block) and `smem` (its dynamic shared bytes), both from
 // `ops/wide_head.py:wide_fp32_plan(D, "decode", quantized)`. Any alignment
@@ -2580,26 +2500,42 @@ extern "C" int wide_decode_fma_launch(const void* q, const void* k, const void* 
                          : decode_fma_cols<float>(a, cols, q_unit, kv_unit));
 }
 
-// Floats of the split-K workspace wide_split_launch needs at (B, H, S, D).
+// Floats of the split-K workspace wide_split_launch needs at (B, H, S, D):
+// each span's rows' accumulators, then each column group's (m, l).
 extern "C" long long wide_split_workspace_floats(int B, int H, int S, int D) {
-  return (long long)B * H * ((S + kSplitSpan - 1) / kSplitSpan) * kSplitRows * (D + 2);
+  const long long spans = (S + kSplitSpan - 1) / kSplitSpan;
+  return (long long)B * H * spans * kSplitRows * ((long long)D + 2 * split_groups(D));
 }
 
-// The decode step at n <= 4 query rows and 256 < D <= 1024 on the split-K
-// kernel: arguments as wide_decode_launch, plus `workspace` of
-// wide_split_workspace_floats() floats and `counters`, B*H int32 that are
-// zero before the first call and that every call leaves zero (shared with
-// flash_decode.cu's split-K calls: calls must not run concurrently).
+// The decode family's step (n <= 4 query rows) at any D > 256 on the
+// split-K kernel: q/out [B,H,n,D] of `dtype` (0 = float32, 1 = bfloat16);
+// k/v [B,H,S,D] of that dtype, or int8 with `quantized` = 1 and k_scale /
+// v_scale [B,H,S] float32; with `page_table` [B, S / page_size] int32 of
+// pool pages in [0, n_pool), k/v (and the scales) are pools [n_pool, H,
+// page_size, D] (an entry out of range traps); `bitmap` [B, n_blocks]
+// int32 over blocks of `block_k` positions (one per page-table entry when
+// paged), or null; lengths [B] int32. Contiguous. `chunks` and `smem` are
+// the plan's (`ops/wide_head.py:wide_split_plan`; a launch whose numbers
+// differ from this file's is refused),
+// `workspace` holds wide_split_workspace_floats() floats and `counters`
+// B*H*groups int32 that are zero before the first call and that every call
+// leaves zero (shared with flash_decode.cu's split-K calls: calls must not
+// run concurrently). Launches on `stream` and returns cudaGetLastError()
+// (0 = launched).
 extern "C" int wide_split_launch(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale, const void* lengths,
                                  const void* bitmap, const void* page_table, void* out, int B,
                                  int H, int n, int S, int D, int n_blocks, int block_k,
-                                 int page_size, int n_pool, int dtype, int quantized,
-                                 float sm_scale, void* stream, void* workspace, void* counters) {
-  if (B <= 0 || H <= 0 || n <= 0 || n > kSplitRows || S <= 0 || D <= 0 || D > kSplitMaxD)
+                                 int page_size, int n_pool, int dtype, int quantized, int chunks,
+                                 int smem, float sm_scale, void* stream, void* workspace,
+                                 void* counters) {
+  if (B <= 0 || H <= 0 || n <= 0 || n > kSplitRows || S <= 0 || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int elt = quantized ? 1 : dtype == 0 ? 4 : 2;
+  if (chunks != split_chunks(D) || smem != split_smem_bytes(D, elt, n == 1 ? 1 : kSplitRows))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 2147483647LL || (S + kSplitSpan - 1) / kSplitSpan > 65535 ||
-      workspace == nullptr || counters == nullptr)
+      split_groups(D) > 65535 || workspace == nullptr || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   if (quantized && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (bitmap != nullptr && (block_k <= 0 || n_blocks < (S + block_k - 1) / block_k))

@@ -22,11 +22,11 @@ kernels, as the reference does. Accumulation is float32 whatever the input
 type (float32 or bfloat16); o, dq, dk, dv come out in the input type, lse
 in float32 [B, H, n_q]. On the card, bfloat16 inputs run on tensor cores
 and round P and dS to bfloat16 before their second products, as
-FlashAttention does (dS once, for both dk and dq); the float32 forward
-keeps float32 arithmetic throughout, and the float32 backward (D <= 256)
-forms each product as three TF32 tensor-core products of operands split
-into TF32 (hi, lo) pairs, ~21 of float32's 24 bits
-(`flash_attention_bwd_tf32x3_plain` is that arithmetic; the card holds the
+FlashAttention does (dS once, for both dk and dq); in float32 (D <= 256)
+the forward and the backward form each product as three TF32 tensor-core
+products of operands split into TF32 (hi, lo) pairs, ~21 of float32's 24
+bits (`flash_attention_forward_tf32x3_plain` and
+`flash_attention_bwd_tf32x3_plain` are that arithmetic; the card holds the
 kernels to the exact plain version). The plain versions round P and dS only when
 asked (`p_dtype`): then they form and round them as the tensor-core
 kernels do, the forward's P per 64-key tile against the running row
@@ -54,8 +54,8 @@ backward is one fused kernel
 (FlashAttention-2's one pass: a block per key tile loops over the query
 tiles, dq added into a float32 workspace with atomics, so dq's last bits
 may change from run to run while dk and dv are bit-identical); the float32
-backward is two tensor-core passes, dq and dk/dv, with no atomics (see the
-source's header).
+forward is one tensor-core pass and the float32 backward two, dq and dk/dv,
+with no atomics (see the source's header).
 Each wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors, by the tensor's device alone, never as a fallback, and counts
 passes launched on the card in `.launches` (D <= 256; calls at larger D
@@ -86,6 +86,7 @@ BLOCK = 64  # the kernels' query and key tile (csrc/flash_attention.cu kBlock)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, WIDE_ABOVE)  # the instances; other D <= 256 pad up
 WGMMA_HEAD_DIMS = (64, 128, 256)  # the bfloat16 forward's (whole 64-column panels)
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MODE_ALL, MODE_CAUSAL, MODE_MASK = 0, 1, 2
@@ -303,6 +304,39 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
 
 
+def flash_attention_forward_tf32x3_plain(q, k, v, mask: MaskLike = None, causal=True, sm_scale=None):
+    """(o, lse) in float32 as the float32 forward kernel computes them: S
+    = Q K^T by three TF32 products (`tf32x3_matmul`), P in base 2 per
+    BLOCK-wide key tile, 2^(fl(S fl(scale log2(e))) - m_t) with m_t the
+    running row maximum through tile t (masked P 0), each tile's P V by
+    three TF32 products from P's float32 values, the tiles' partials
+    rescaled by 2^(m_t - m) to the final maximum m and summed; l likewise,
+    lse = m ln(2) + log(l). A model of the kernel's arithmetic (the sums in
+    another order) for tests and the card's checks; no caller's path runs
+    it."""
+    mode, fm = _resolve(mask, causal, q, k)
+    scale = _scale(q, sm_scale)
+    with torch.autocast(q.device.type, enabled=False):
+        x = tf32x3_matmul(q.float(), k.float().transpose(-1, -2)) * float(np.float32(scale) * np.float32(LOG2E))
+        keep = _visible(mode, fm, q.shape[2], k.shape[2], q.device)
+        if keep is not None:
+            x = x.masked_fill(~keep, NEG_INF)
+        m_t = _running_tile_max(x)
+        p = torch.exp2(x - m_t)
+        if keep is not None:
+            p = p.masked_fill(~keep, 0.0)
+        m = x.amax(dim=-1, keepdim=True)
+        pad = (-k.shape[2]) % BLOCK
+        weight = torch.exp2(m_t[..., ::BLOCK] - m)  # [B, H, n_q, tiles]
+        tiles = F.pad(p, (0, pad)).unflatten(-1, (-1, BLOCK)).movedim(-2, -3)  # [B, H, tiles, n_q, BLOCK]
+        v_tiles = F.pad(v.float(), (0, 0, 0, pad)).unflatten(-2, (-1, BLOCK))  # [B, H, tiles, BLOCK, D]
+        partials = tf32x3_matmul(tiles, v_tiles) * weight.movedim(-1, -2)[..., None]
+        safe_l = (p * torch.exp2(m_t - m)).sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        o = partials.sum(dim=-3) / safe_l
+        lse = (m * LN2 + torch.log(safe_l))[..., 0]
+    return o, lse
+
+
 def flash_attention_bwd_tf32x3_plain(
     q, k, v, do, lse, delta, mask: MaskLike = None, causal=True, sm_scale=None
 ):
@@ -359,7 +393,7 @@ def attention_kernels(d: int, dtype: torch.dtype) -> dict:
                 "bwd": (f"bwd_mma_kernel<{kernel_head_dim(d)}>",)}
     if dtype == torch.float32:
         kd = kernel_head_dim(d)
-        return {"fwd": f"fwd_kernel<{kd}>", "bwd": (f"dq_tf32_kernel<{kd}>", f"dkv_tf32_kernel<{kd}>")}
+        return {"fwd": f"fwd_tf32_kernel<{kd}>", "bwd": (f"dq_tf32_kernel<{kd}>", f"dkv_tf32_kernel<{kd}>")}
     raise TypeError(f"no flash-attention kernel for {dtype}")
 
 

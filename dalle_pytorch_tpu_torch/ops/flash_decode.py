@@ -30,16 +30,16 @@ tile's keys over its four warps and keeps K/V in their storage type until
 registers; see the source's header. Head dims: any D, a cache never
 padded per call. On the card D <= `MAX_KERNEL_HEAD_DIM` (256) runs the
 kernels above and any larger D the kernels of `csrc/wide_head.cu`
-(`ops/wide_head.py`): its split-K step up to DECODE_ROWS rows (the same
-spans and merge as here, so `flash_decode_split_plain` is its arithmetic
-too), above that for bf16 q the tensor-core tile kernel of
+(`ops/wide_head.py`): its split-K step up to DECODE_ROWS rows at any D
+(the same spans and merge as here, so `flash_decode_split_plain` is its
+arithmetic too), above that for bf16 q the tensor-core tile kernel of
 `csrc/wide_decode_tile.cu` (the tile arm's arithmetic at any D, so
 `flash_decode_tile_plain` is its model) and for fp32 q the register-tiled
 `wide_decode_fma_kernel` of `csrc/wide_head.cu` (the fp32 tile arm's
 arithmetic over 64-key tiles, so `flash_decode_tile_f32_plain` is its
-model); the 4-row column-group kernel keeps the step above 1024 channels;
-each one body with runtime flags for the bitmap and the page table, whose
-all-ones bitmap and paged layout give the plain contiguous bits as here.
+model); each one body with runtime flags for the bitmap and the page
+table, whose all-ones bitmap and paged layout give the plain contiguous
+bits as here.
 
 Paged cache (`_paged_decode_kernel`, `_sparse_paged_decode_kernel`):
 K/V live in a pool [P, H, page, D] (int8 scales [P, H, page]) shared by
@@ -494,12 +494,10 @@ def decode_kernel_source(d: int) -> str:
 def decode_arm(n: int, dtype: torch.dtype, d: int) -> str:
     """The kernel a call of n query rows in q's `dtype` at head dim `d`
     launches on the card. Above MAX_KERNEL_HEAD_DIM (`wide_head.wide_arm`):
-    csrc/wide_head.cu's split-K kernel ("wide_split", up to DECODE_ROWS rows
-    and `wide_head.WIDE_SPLIT_MAX_D` channels); above DECODE_ROWS rows the
-    tensor-core tile kernel of csrc/wide_decode_tile.cu for bf16 q
-    ("wide_tile") and wide_head.cu's `wide_decode_fma_kernel` for fp32 q
-    ("wide_tile_f32"), at any D; else wide_head.cu's 4-row kernel ("wide":
-    the step above WIDE_SPLIT_MAX_D channels). Up to
+    csrc/wide_head.cu's split-K kernel ("wide_split", up to DECODE_ROWS
+    rows); above DECODE_ROWS rows the tensor-core tile kernel of
+    csrc/wide_decode_tile.cu for bf16 q ("wide_tile") and wide_head.cu's
+    `wide_decode_fma_kernel` for fp32 q ("wide_tile_f32"); each at any D. Up to
     MAX_KERNEL_HEAD_DIM: flash_decode.cu's split-K
     instances at the step ("step", n = 1) and up to DECODE_ROWS rows
     ("split"); above DECODE_ROWS the tensor-core tile arm of

@@ -9,18 +9,18 @@ wrappers run their plain versions for CPU tensors before reaching this
 module.
 
 Decode (`wide_decode`, its kernel named by `wide_arm`) runs the split-K
-kernel `wide_split_kernel` up to WIDE_SPLIT_ROWS query rows (the step;
-spans of 128 keys merged by the last block to arrive, as flash_decode.cu's
-split-K body, through `split_scratch`) and WIDE_SPLIT_MAX_D channels; above
-WIDE_SPLIT_ROWS rows with bf16 q the tensor-core tile kernel of
-`csrc/wide_decode_tile.cu` (`wide_decode_tile_kernel<KV, cols, resident>`:
-64 query rows x a column group a block, S over all of D from 64-channel
-chunks through a cp.async ring, P as a bf16 pair; `wide_tile_plan`), with
-fp32 q the CUDA-core `wide_decode_fma_kernel<KV, cols>` (64 query rows x a
-group of up to 320 columns a block, S formed once a group as register
-micro-tiles, the fp32 tile arm's arithmetic over 64-key tiles;
-`wide_fp32_plan(d, "decode", quant)`). The 4-row `wide_decode_kernel`
-keeps what is left: the step above WIDE_SPLIT_MAX_D channels.
+kernel `wide_split_kernel` up to WIDE_SPLIT_ROWS query rows (the step, at
+any D: spans of 128 keys merged by the last block to arrive, as
+flash_decode.cu's split-K body, through `split_scratch`; `wide_split_plan`
+gives its chunks of columns a thread, column groups, keys a tile and
+shared bytes); above WIDE_SPLIT_ROWS rows with bf16 q the tensor-core tile
+kernel of `csrc/wide_decode_tile.cu` (`wide_decode_tile_kernel<KV, cols,
+resident>`: 64 query rows x a column group a block, S over all of D from
+64-channel chunks through a cp.async ring, P as a bf16 pair;
+`wide_tile_plan`), with fp32 q the CUDA-core `wide_decode_fma_kernel<KV,
+cols>` (64 query rows x a group of up to 320 columns a block, S formed
+once a group as register micro-tiles, the fp32 tile arm's arithmetic over
+64-key tiles; `wide_fp32_plan(d, "decode", quant)`).
 
 Flash attention in bfloat16 runs on tensor cores, one column group of
 output columns a block (`wide_attention_plan`, which also sets each
@@ -50,11 +50,18 @@ from dalle_pytorch_tpu_torch import kernels
 WIDE_ABOVE = 256  # head dims above this run the kernels of this module
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # decode: the split-K kernel takes up to this many query rows (csrc
-# kSplitRows, ops/flash_decode.py DECODE_ROWS) at head dims up to
-# WIDE_SPLIT_MAX_D (csrc kSplitMaxD: its accumulators); other calls run the
-# 4-row kernel
+# kSplitRows, ops/flash_decode.py DECODE_ROWS) at any head dim; its launch
+# plan (csrc/wide_head.cu `split_chunks`, `split_groups`, `split_piece`,
+# `split_tile_keys`, `split_smem_bytes`): 128 threads, each owning SPLIT_CHUNKS
+# chunks of 4 output columns (the first up to SPLIT_NARROW_D channels),
+# groups of the widest instance's columns above it, key tiles within
+# SPLIT_STAGE_BYTES of K + V rows, a ring of SPLIT_STAGES stages, and its
+# static shared memory (two score arrays, the softmax state, the page-table
+# cache, a flag)
 WIDE_SPLIT_ROWS = 4
-WIDE_SPLIT_MAX_D = 1024
+SPLIT_THREADS, SPLIT_STAGES, SPLIT_STAGE_BYTES, SPLIT_KEYS = 128, 3, 32768, 16
+SPLIT_CHUNKS, SPLIT_NARROW_D = (2, 8), 1024
+SPLIT_STATIC_SMEM = 4 * (2 * WIDE_SPLIT_ROWS * SPLIT_KEYS + 3 * WIDE_SPLIT_ROWS + 129 + 1)
 
 # the bf16 flash-attention kernels: output columns a block may own (their
 # instances), the most a plan gives a block (the forward's accumulator is
@@ -214,6 +221,49 @@ def wide_fp32_plan(d: int, kind: str, quant: bool = False) -> Fp32Plan:
     return Fp32Plan(kind, d, FMA_ROWS[kind], cols, -(-d // cols), fma_smem(kind, quant))
 
 
+class SplitPlan(NamedTuple):
+    """A launch of the split-K step at head dim `d` with a cache of `elt`
+    bytes an element and `rows` (1 or WIDE_SPLIT_ROWS) query rows a block:
+    `chunks` chunks of 4 output columns a thread, `groups` column groups
+    (each a block per span; the scores formed in each), `piece` channels of
+    a staged K or V row (all of D in one group), `tile_keys` keys a stage,
+    `smem` dynamic shared bytes a block."""
+
+    d: int
+    chunks: int
+    groups: int
+    piece: int
+    tile_keys: int
+    smem: int
+
+    def columns(self, group: int) -> range:
+        cols = self.chunks * 4 * SPLIT_THREADS
+        return range(group * cols, min((group + 1) * cols, self.d))
+
+
+def _split_row_stride(w: int, elt: int) -> int:
+    return ((w + 7) // 8 * 8 * elt + 15) // 16 * 16
+
+
+def wide_split_plan(d: int, elt: int, rows: int = WIDE_SPLIT_ROWS) -> SplitPlan:
+    """The split-K step's plan at head dim `d` (csrc/wide_head.cu computes
+    the same and refuses a launch whose chunks or shared bytes differ): the
+    narrow instance up to SPLIT_NARROW_D channels, the wide one above; one
+    column group up to the wide instance's columns (every K byte read
+    once), ceil(D / its columns) above; the largest power of two of keys up
+    to SPLIT_KEYS whose K and V rows fit SPLIT_STAGE_BYTES."""
+    chunks = SPLIT_CHUNKS[0] if d <= SPLIT_NARROW_D else SPLIT_CHUNKS[1]
+    group_cols = chunks * 4 * SPLIT_THREADS
+    groups = -(-d // group_cols)
+    piece = d if groups == 1 else group_cols
+    keys = SPLIT_KEYS
+    while keys > 1 and 2 * keys * _split_row_stride(piece, elt) > SPLIT_STAGE_BYTES:
+        keys //= 2
+    stage = 2 * keys * _split_row_stride(piece, elt) + (2 * keys * 4 if elt == 1 else 0)
+    smem = SPLIT_STAGES * stage + rows * (-(-piece // 8) * 8) * 4
+    return SplitPlan(d, chunks, groups, piece, keys, smem)
+
+
 def wide_tile_smem(d: int, resident: bool, quant: bool) -> int:
     """Dynamic shared bytes a block of the decode tile kernel takes at head
     dim `d`: the resident 64 x D query tile and a ring of 4 one-tile slots,
@@ -257,14 +307,13 @@ def _tile_library() -> ctypes.CDLL:
 
 def _library() -> ctypes.CDLL:
     lib = kernels.library("wide_head")
-    if lib.wide_decode_launch.argtypes is None:
+    if lib.wide_split_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wide_decode_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p]
-        lib.wide_split_launch.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p, p, p]
+        lib.wide_split_launch.argtypes = [p] * 9 + [i] * 13 + [ctypes.c_float, p, p, p]
         lib.wide_decode_fma_launch.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, p]
         lib.wide_attention_fwd.argtypes = [p] * 7 + [i] * 10 + [ctypes.c_float, p]
         lib.wide_attention_bwd.argtypes = [p] * 12 + [i] * 10 + [ctypes.c_float, p]
-        for fn in (lib.wide_decode_launch, lib.wide_split_launch, lib.wide_decode_fma_launch,
+        for fn in (lib.wide_split_launch, lib.wide_decode_fma_launch,
                    lib.wide_attention_fwd, lib.wide_attention_bwd):
             fn.restype = ctypes.c_int
         lib.wide_split_workspace_floats.restype = ctypes.c_longlong
@@ -280,7 +329,7 @@ def split_scratch(device: torch.device, floats: int, rows: int):
     this module's), or (None, None) when it needs no workspace (`floats`
     0): a float32 workspace of `floats` for the spans' partial states
     (fresh from the caching allocator) and int32 arrival counters for
-    `rows` (batch row, head) pairs, zeroed once per device and left zero by
+    `rows` (batch row, head[, column group]) merges, zeroed once per device and left zero by
     every call, so a call needs no memset. Calls on one device share the
     counters: they run on one stream at a time."""
     if floats == 0:
@@ -292,11 +341,11 @@ def split_scratch(device: torch.device, floats: int, rows: int):
     return torch.empty(floats, dtype=torch.float32, device=device), counters
 
 
-def wide_split_takes(n: int, d: int) -> bool:
-    """Whether a decode call of n query rows at head dim `d` > WIDE_ABOVE
+def wide_split_takes(n: int) -> bool:
+    """Whether a decode call of n query rows at a head dim above WIDE_ABOVE
     runs the split-K kernel (`wide_split_kernel`): up to WIDE_SPLIT_ROWS
-    rows and WIDE_SPLIT_MAX_D channels."""
-    return n <= WIDE_SPLIT_ROWS and d <= WIDE_SPLIT_MAX_D
+    rows, at any D."""
+    return n <= WIDE_SPLIT_ROWS
 
 
 def wide_tile_takes(n: int, dtype: torch.dtype) -> bool:
@@ -308,15 +357,12 @@ def wide_tile_takes(n: int, dtype: torch.dtype) -> bool:
 
 def wide_arm(n: int, dtype: torch.dtype, d: int) -> str:
     """The kernel a decode call of n query rows in q's `dtype` at head dim
-    `d` > WIDE_ABOVE launches: "wide_split" (`wide_split_takes`),
-    "wide_tile" (`wide_tile_takes`), "wide_tile_f32" (fp32 q above
-    WIDE_SPLIT_ROWS rows, any D: `wide_decode_fma_kernel`), else "wide"
-    (the 4-row `wide_decode_kernel`: the step above WIDE_SPLIT_MAX_D)."""
-    if wide_split_takes(n, d):
+    `d` > WIDE_ABOVE launches: "wide_split" (`wide_split_takes`, any D),
+    "wide_tile" (`wide_tile_takes`), else "wide_tile_f32" (fp32 q above
+    WIDE_SPLIT_ROWS rows, any D: `wide_decode_fma_kernel`)."""
+    if wide_split_takes(n):
         return "wide_split"
-    if wide_tile_takes(n, dtype):
-        return "wide_tile"
-    return "wide_tile_f32" if n > WIDE_SPLIT_ROWS else "wide"
+    return "wide_tile" if wide_tile_takes(n, dtype) else "wide_tile_f32"
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -335,8 +381,8 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
     `block_bitmap` over blocks of `block_k` positions (one per table entry
     when paged); int8 K/V with their scales. On the kernel `wide_arm`
     names: the split-K kernel (counted also in `.split_launches`), the
-    tensor-core tile kernel (`.tile_launches`), the fp32 multi-row kernel
-    (`.tile_f32_launches`) or the 4-row kernel."""
+    tensor-core tile kernel (`.tile_launches`) or the fp32 multi-row kernel
+    (`.tile_f32_launches`)."""
     b, h, n, d = q.shape
     paged = page_table is not None
     s_len = page_table.shape[1] * k.shape[2] if paged else k.shape[2]
@@ -361,14 +407,13 @@ def wide_decode(q, k, v, lengths, k_scale=None, v_scale=None, block_bitmap=None,
         elif arm == "wide_tile_f32":
             plan = wide_fp32_plan(d, "decode", quant)
             err = _library().wide_decode_fma_launch(*args, int(quant), plan.cols, plan.smem, d**-0.5, stream)
-        elif arm == "wide_split":
-            lib = _library()
-            workspace, counters = split_scratch(
-                q.device, lib.wide_split_workspace_floats(b, h, s_len, d), b * h)
-            err = lib.wide_split_launch(*args, _DTYPE_CODE[q.dtype], int(quant), d**-0.5, stream,
-                                        _ptr(workspace), _ptr(counters))
         else:
-            err = _library().wide_decode_launch(*args, _DTYPE_CODE[q.dtype], int(quant), d**-0.5, stream)
+            lib = _library()
+            plan = wide_split_plan(d, k.element_size(), 1 if n == 1 else WIDE_SPLIT_ROWS)
+            workspace, counters = split_scratch(
+                q.device, lib.wide_split_workspace_floats(b, h, s_len, d), b * h * plan.groups)
+            err = lib.wide_split_launch(*args, _DTYPE_CODE[q.dtype], int(quant), plan.chunks, plan.smem,
+                                        d**-0.5, stream, _ptr(workspace), _ptr(counters))
     _raise_on(err, arm)
     wide_decode.launches += 1
     wide_decode.split_launches += arm == "wide_split"

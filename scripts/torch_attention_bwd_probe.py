@@ -33,11 +33,13 @@ and P by expf in base e (the design before base 2). The fp32 backward's
 (`--dtype fp32`): no copies, no S, no dP, no second products, one TF32
 product of three, no exp, no split pass, and two design variants whose
 results are right (one dk/dv block a key tile at D = 256; each build's
-registers and spills are printed); --only picks some. With --rows it times
-only the rows no earlier run had traced (fp32 flash attention at D = 64
-and 256, kernel and SDPA; the fp32 decode step at D = 64 beside SDPA; the
-step at D = 1032, bf16 and fp32, on the 4-row kernel beside SDPA) and
-exits.
+registers and spills are printed). The fp32 forward's (`--pass fwd
+--dtype fp32`): no copies, no S product, no P V product, one TF32 product
+of three, no exp, no split pass, no trade of the S halves; --only picks
+some. With --rows it times only the fp32 flash attention at D = 64 and
+256 (kernel and SDPA), the fp32 decode step at D = 64 beside SDPA and the
+step at D = 1032 (the split-K kernel's wide instance), bf16 and fp32,
+beside SDPA, and exits.
 """
 
 from __future__ import annotations
@@ -91,6 +93,29 @@ ABLATIONS = {
             ("s[nb][e] = ex2(__fsub_rn(s[nb][e], m[e / 2]));", "s[nb][e] = expf(__fsub_rn(s[nb][e], m[e / 2]));"),
             ("lse[row] = m[hh] * kLn2 + logf(safe_l);", "lse[row] = m[hh] + logf(safe_l);"),
         ), None),
+    ),
+    # the fp32 forward (fwd_tf32_kernel)
+    "fwd_fp32": (
+        ("full", "", ""),
+        ("no_copies", (
+            ("      fetch(f, ring + st * SLOT);\n", ""),
+            ("      fetch(f, ring + ((it + STAGES - 1) % STAGES) * SLOT);\n", ""),
+        ), None),
+        ("no_s", (
+            ("score_product<CH / 2, LDR, LDC, ", "if (mode == 7) score_product<CH / 2, LDR, LDC, "),
+            ("        score_product_by<CH / 2, LDC, LO, true, GN>(", "        if (mode == 7) score_product_by<CH / 2, LDC, LO, true, GN>("),
+        ), None),
+        ("no_pv", (
+            ("      frag_product<NT, LDC, LO, GN>(acc, 0, s, buf + P::CHUNK + half, lane);",
+             "      if (mode == 7) frag_product<NT, LDC, LO, GN>(acc, 0, s, buf + P::CHUNK + half, lane);"),
+            ("        if (cc == c) frag_product_by<", "        if (mode == 7 && cc == c) frag_product_by<"),
+            ("        if (cc == c + 1) frag_product_by<", "        if (mode == 7 && cc == c + 1) frag_product_by<"),
+        ), None),
+        ("one_tf32_product", "  mma_tf32(small, al, bh0, bh1);\n  mma_tf32(small, ah, bl0, bl1);\n", ""),
+        ("no_exp", "s[nb][e] = ex2(__fmaf_rn(s[nb][e], scale_log2, -m[e / 2]));",
+         "s[nb][e] = (__fmaf_rn(s[nb][e], scale_log2, -m[e / 2]));"),
+        ("no_split_pass", "    split_slot<P::CHUNK>(buf, slot);\n", ""),
+        ("no_trade", "      put_frag(xchg + role * P::XCHG, grp, lane, s);\n      pair_sync(grp);\n", ""),
     ),
     # the fp32 backward's two TF32 passes (dq_tf32_kernel, dkv_tf32_kernel)
     "bwd_fp32": (
@@ -155,7 +180,7 @@ def ablate(torch, pass_: str, key: str, d: int, only=None) -> None:
     out = REPO / "build" / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.find_nvcc(), {}
-    table = ABLATIONS[pass_ + ("_fp32" if key == "fp32" and pass_ == "bwd" else "")]
+    table = ABLATIONS[pass_ + ("_fp32" if key == "fp32" else "")]
     for name, old, new in table:
         if only and name != "full" and name not in only:
             continue
@@ -204,10 +229,10 @@ def ablate(torch, pass_: str, key: str, d: int, only=None) -> None:
 
 
 def untimed_rows(torch, F) -> None:
-    """The rows no earlier run traced: fp32 flash attention at D = 64 and
-    256 (kernel and SDPA, forward and backward), the fp32 decode step at
-    MAIN's shape beside SDPA, and the step at WIDE_STEP_DIM on the 4-row
-    kernel in bf16 and fp32 beside SDPA; device ms from torch.profiler."""
+    """fp32 flash attention at D = 64 and 256 (kernel and SDPA, forward and
+    backward), the fp32 decode step at MAIN's shape beside SDPA, and the
+    step at WIDE_STEP_DIM on the split-K kernel in bf16 and fp32 beside
+    SDPA; device ms from torch.profiler."""
     import time
 
     import chip_smoke as cs
@@ -244,7 +269,7 @@ def main() -> int:
                     help="the timed rows' head dims")
     ap.add_argument("--ablate", action="store_true", help="time variants without each part")
     ap.add_argument("--only", default="", help="comma-separated ABLATIONS names to build (with full)")
-    ap.add_argument("--rows", action="store_true", help="time only the rows no earlier run traced")
+    ap.add_argument("--rows", action="store_true", help="time only the fp32 attention rows and the D = 1032 step")
     args = ap.parse_args()
 
     import torch
@@ -278,7 +303,7 @@ def main() -> int:
         for line in info["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "error", "wgmma", "Performance")):
                 print(f"  ptxas {line.strip()}")
-    print("fp32 backward passes (ptxas, cuobjdump -sass): "
+    print("fp32 kernels (ptxas, cuobjdump -sass): "
           + json.dumps(check_tf32_build(kernels.build_log["flash_attention"])), flush=True)
     dtype_name, elt = DTYPES[args.dtype]
     if args.parent is None:

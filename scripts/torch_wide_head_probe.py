@@ -4,7 +4,7 @@
 checkout:
 
     python3 scripts/torch_wide_head_probe.py [--time] [--ablate] [--ablate-tile] [--ablate-fp32]
-                                             [--parent DIR]
+                                             [--parent DIR [--step]]
 
 Builds the two sources by themselves and prints ptxas's registers, spills
 and shared memory of each kernel and the tensor-core instructions (HMMA)
@@ -13,7 +13,7 @@ decode tile instance (it fails if one spills or has none). Then runs
 `chip_smoke.py`'s phase-2 checks of the
 wide kernels (the routing of D = 264, 300, 320 and 1024; the five decode
 variants at D = 264-1024 with the bit identities at 320 and NaN-poisoned
-caches, the step at D = 1032, both multi-row kernels at the resume shape;
+caches, the steps at D = 1032 and 4104, both multi-row kernels at the resume shape;
 flash attention forward and backward on the causal, all-keys and
 static-mask arms at D = 264-1024, and causal at the training shapes at D =
 320 and 512) and phase 4's small models at dim_head 320 through the
@@ -52,7 +52,10 @@ training shapes and the fp32 multi-row decode at the resume and prefill
 shapes; each at D = 320 and 512, beside SDPA), in separate processes in
 turns: DIR's kernels and wrappers, this tree's, this tree's, DIR's (this
 script's measuring code each time); a last JSON line gives each turn's
-device ms.
+device ms. With `--step` the turns time only the decode step at D = 320,
+512 and 1032 (`chip_smoke.WIDE_STEP_DIM`, the split-K kernel's wide
+instance; the same B, H, S and lengths), bf16 and fp32, beside SDPA over
+the cache with the length mask.
 """
 
 from __future__ import annotations
@@ -93,6 +96,33 @@ def kernel_report(cs) -> None:
             if re.search(r"Compiling entry|registers|spill|smem", line):
                 print("  ptxas " + line.strip())
         print(f"{name} checks " + json.dumps(check(info)))
+
+
+def step_jobs(torch, F):
+    """{row: (fn, inputs, iters)}: the decode step (n = 1, B = 4, H = 16, S =
+    1281, lengths [258, 700, 1024, 1281], three input sets rotating) at
+    TIMED_DIMS and WIDE_STEP_DIM, bf16 and fp32, and SDPA over the cache
+    with the length mask."""
+    import chip_smoke as cs
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+    b, h, s_len = cs.MAIN["batch"], cs.MAIN["heads"], cs.MAIN["cache"]
+    lens = torch.tensor([258, 700, 1024, 1281], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s_len, device="cuda")[None, :] <= lens.long()[:, None] - 1)[:, None, None, :]
+
+    def sdpa_masked(q, k, v, lengths):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    jobs = {}
+    for d in TIMED_DIMS + (cs.WIDE_STEP_DIM,):
+        for key, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            steps = [tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                           for shape in ((b, h, 1, d), (b, h, s_len, d), (b, h, s_len, d))) + (lens,)
+                     for _ in range(3)]
+            jobs[f"{key}_step_d{d}"] = (fd.flash_decode_attention, steps, 60)
+            jobs[f"sdpa_{key}_step_d{d}"] = (sdpa_masked, steps, 60)
+    return jobs
 
 
 def timed_jobs(torch, F):
@@ -364,13 +394,15 @@ def ablate(torch, cs, F, source="wide_head", variants=ABLATIONS, prefixes=("fwd"
     kernels._libs.pop(source)
 
 
-def in_turns(parent: str) -> int:
-    """The timed rows of DIR's kernels and this tree's, in turns."""
+def in_turns(parent: str, step: bool = False) -> int:
+    """The timed rows of DIR's kernels and this tree's (with `step`, the
+    steps' only), in turns."""
     turns = []
     for label, tree in (("parent", Path(parent).resolve()), ("change", REPO), ("change", REPO),
                         ("parent", Path(parent).resolve())):
         print(f"--- {label} ({tree})", flush=True)
-        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree", str(tree)],
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree", str(tree)]
+                             + (["--step"] if step else []),
                              cwd=tree, capture_output=True, text=True, timeout=900)
         print(res.stdout, end="", flush=True)
         if res.returncode != 0:
@@ -393,9 +425,10 @@ def main() -> int:
                    help="the same for the fp32 backward (wide_dq_fma_kernel, wide_dkv_fma_kernel)")
     p.add_argument("--parent", default=None, help="checkout of another commit to time in turns")
     p.add_argument("--tree", default=None, help="time this checkout's kernels (used by --parent)")
+    p.add_argument("--step", action="store_true", help="with --parent: time only the steps (D = 320, 512, 1032)")
     args = p.parse_args()
     if args.parent is not None:
-        return in_turns(args.parent)
+        return in_turns(args.parent, args.step)
     sys.path.insert(0, str(Path(args.tree).resolve() if args.tree else REPO))
 
     import torch
@@ -410,7 +443,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     if args.tree is not None:  # one turn of --parent: the timed rows only
-        rows = timed_rows(torch, cs, timed_jobs(torch, F))
+        rows = timed_rows(torch, cs, (step_jobs if args.step else timed_jobs)(torch, F))
         print(json.dumps({"card": smi, "rows": rows}))
         return 0
     if args.ablate or args.ablate_tile or args.ablate_fp32:

@@ -277,10 +277,10 @@ def test_decode_arm_is_the_dispatch_rule():
     """The kernel a call launches on the card: the split-K step at n = 1,
     split-K up to DECODE_ROWS rows, above that the tile arm for bf16 q and
     the fp32 tile arm for fp32 q; above 256 channels the wide kernels, the
-    split-K one up to DECODE_ROWS rows (to 1024 channels), above that the
+    split-K one up to DECODE_ROWS rows (at any D), above that the
     tensor-core tile kernel for bf16 q and the register-tiled
-    `wide_decode_fma_kernel` for fp32 q, and the 4-row one for the step
-    above 1024 channels."""
+    `wide_decode_fma_kernel` for fp32 q, and the split-K one for the step
+    at any width above 256 channels."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fd.DECODE_ROWS == 4 and fd.DECODE_TILE == 64
     assert [fd.decode_arm(n, bf, 64) for n in (1, 2, 4, 5, 257, 1280)] == [
@@ -291,7 +291,7 @@ def test_decode_arm_is_the_dispatch_rule():
     assert [fd.decode_arm(5, f32, d) for d in (8, 256, 257, 2048)] == [
         "tile_f32", "tile_f32", "wide_tile_f32", "wide_tile_f32"]
     assert [fd.decode_arm(n, dt, 320) for n in (1, 4) for dt in (bf, f32)] == ["wide_split"] * 4
-    assert [fd.decode_arm(1, bf, d) for d in (257, 1024, 1025)] == ["wide_split", "wide_split", "wide"]
+    assert [fd.decode_arm(1, bf, d) for d in (257, 1024, 1025)] == ["wide_split", "wide_split", "wide_split"]
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_no_tile_launch():

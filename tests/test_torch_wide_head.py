@@ -267,17 +267,18 @@ def test_split_k_model_above_256_matches_the_pallas_kernels(variant, n, d):
 @pytest.mark.parametrize("dtype,multi_row", [(torch.float32, "wide_tile_f32"), (torch.bfloat16, "wide_tile")])
 def test_split_k_takes_the_step_up_to_1024_channels(dtype, multi_row):
     """The split-K kernel takes n <= WIDE_SPLIT_ROWS (= DECODE_ROWS) rows at
-    257..1024 channels in either dtype; n > 4 takes the multi-row arm of
-    q's dtype (the tensor-core tile kernel for bf16, the register-tiled
-    `wide_decode_fma_kernel` for fp32) and wider heads at the step keep the
-    4-row kernel, as `decode_arm` (`wide_arm`) names them; its spans are
-    flash_decode's."""
-    assert wh.WIDE_SPLIT_ROWS == fd.DECODE_ROWS == 4 and wh.WIDE_SPLIT_MAX_D == 1024
-    assert all(wh.wide_split_takes(n, d) for n in (1, 4) for d in (257, 320, 512, 1024))
-    assert not any(wh.wide_split_takes(n, d) for n, d in ((5, 320), (1, 1025)))
+    257..1024 channels in either dtype, and at every wider head too (its
+    wide instance and column groups: the 4-row kernel is gone); n > 4
+    takes the multi-row arm of q's dtype (the tensor-core tile kernel for
+    bf16, the register-tiled `wide_decode_fma_kernel` for fp32), as
+    `decode_arm` (`wide_arm`) names them; its spans are flash_decode's."""
+    assert wh.WIDE_SPLIT_ROWS == fd.DECODE_ROWS == 4 and wh.SPLIT_NARROW_D == 1024
+    assert all(wh.wide_split_takes(n) for n in (1, 4))
+    assert not wh.wide_split_takes(5)
+    assert [wh.wide_split_plan(d, 2).chunks for d in (257, 320, 512, 1024, 1025)] == [2] * 4 + [8]
     assert [fd.decode_arm(n, dtype, 512) for n in (1, 2, 4, 5, 1280)] == [
         "wide_split"] * 3 + [multi_row] * 2
-    assert fd.decode_arm(1, dtype, 2048) == "wide"
+    assert fd.decode_arm(1, dtype, 2048) == "wide_split"
 
 
 def test_cpu_decode_above_256_counts_no_wide_launch():
