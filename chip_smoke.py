@@ -150,7 +150,24 @@ Phases, each failing loudly (nonzero exit, no result line):
    `leak_check()` empty, a post-resume chunk under sync-debug "error",
    each resume dispatch launching the tile arm once a layer;
    the resume dispatch's wall and device time, the export and codec
-   walls.
+   walls (the streams' terminal events are written from the resolved
+   requests as the HTTP server's reader writes them, `end_stream`);
+11. the serving front end over HTTP (the port's `ServingServer` on
+   127.0.0.1, port 0, in-process; `urllib` only): (a) phase 5's warmed
+   micro engine behind it, phase 5's four prompts and seeds posted in
+   order and coalesced into one batch: tokens identical to phase 5's,
+   12,300 flash-decode launches, PNGs decoded to 256x256x3, /healthz
+   200, the HTTP wall beside phase 5's `generate()` wall; (b) phase 7's
+   depth-4 model behind a `ContinuousEngine` (resume and previews on):
+   four low requests (request 0 over SSE) under a chunk failed by a
+   `FaultInjector` (all four retried from position 0) and, after
+   QOS_HIGH_AT chunks, a high one repeating request 1 that preempts the
+   youngest low, which resumes at its position (tokens identical to
+   phase 7's depth-4 run, the preempted one by the margin rule; the
+   stream's events; launches exact); a drain with migration past
+   DRAIN_AT (409s with checkpoints, /healthz 503, then 200 resumes by the
+   margin rule with `usage.resumed_tokens` at each position); a request
+   timing out mid-decode (504, its slot freed).
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -2410,6 +2427,9 @@ def run_fp32_training(torch):
 
 
 CONTINUOUS = dict(max_batch=4, prefill_batch=4, chunk_tokens=4)
+# phases 7, 8 and 10 drive the batcher directly: no request of theirs may
+# time out or be shed (the batcher's default timeout is the server's 120 s)
+BATCH_TIMEOUT_S = 3600.0
 
 
 def serve_continuous(torch, model, vae, specs, label, **options):
@@ -2442,10 +2462,10 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(engine)
     t0 = time.perf_counter()
-    reqs = [batcher.submit([sp]) for sp in specs[:2]]
+    reqs = [batcher.submit([sp], timeout_s=BATCH_TIMEOUT_S) for sp in specs[:2]]
     while engine.stats.chunks < 8 and not all(r.future.done() for r in reqs):
         time.sleep(0.002)
-    reqs += [batcher.submit([sp]) for sp in specs[2:]]
+    reqs += [batcher.submit([sp], timeout_s=BATCH_TIMEOUT_S) for sp in specs[2:]]
     outs = [r.future.result(timeout=600) for r in reqs]
     wall = time.perf_counter() - t0
     batcher.shutdown()
@@ -2635,10 +2655,10 @@ def serve_paged(torch, model, vae, specs, label, **options):
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(engine)
     t0 = time.perf_counter()
-    reqs = [batcher.submit([sp]) for sp in specs[:2]]
+    reqs = [batcher.submit([sp], timeout_s=BATCH_TIMEOUT_S) for sp in specs[:2]]
     while engine.stats.chunks < 8 and not all(r.future.done() for r in reqs):
         time.sleep(0.002)
-    reqs += [batcher.submit([sp]) for sp in specs[2:] + specs[:2]]
+    reqs += [batcher.submit([sp], timeout_s=BATCH_TIMEOUT_S) for sp in specs[2:] + specs[:2]]
     outs = [r.future.result(900) for r in reqs]
     wall = time.perf_counter() - t0
     batcher.shutdown()
@@ -3001,6 +3021,25 @@ def check_stream(events, first_chunk, terminal, shape):
     return ok, progress, [d["chunk"] for d in previews]
 
 
+def end_stream(stream, req):
+    """The terminal event of a stream the batcher fed, written from the
+    resolved request as the HTTP server's reader writes it (phase 11 holds
+    the server's own): "migrated" with the checkpoint, or "result" with
+    the tokens."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.serving.migrate import MigratedError, to_wire
+
+    try:
+        tokens, _ = req.future.result(0)
+    except MigratedError as exc:
+        cp = exc.checkpoint  # the batcher encoded it once, at the export
+        stream.finish("migrated", checkpoint=to_wire(cp.encoded), resumed_at_chunk=int(cp.chunk_index),
+                      migrated_from=cp.site)
+        return
+    stream.finish("result", num_images=req.rows, tokens=np.asarray(tokens).tolist())
+
+
 def drain_at_fixed_chunks(engine, batcher, specs, stream, label):
     """Phase 10's drain schedule: `batcher` (over `engine`) takes the four
     single-row requests of `specs` (request 0 streamed to `stream`),
@@ -3025,11 +3064,12 @@ def drain_at_fixed_chunks(engine, batcher, specs, stream, label):
 
     engine.step_chunk = parking_step
     with batcher._cond:  # the worker admits requests 0 and 1 in one wave
-        reqs = [batcher.submit([specs[0]], request_key="r0", stream=stream),
-                batcher.submit([specs[1]], request_key="r1")]
+        reqs = [batcher.submit([specs[0]], request_key="r0", stream=stream, timeout_s=BATCH_TIMEOUT_S),
+                batcher.submit([specs[1]], request_key="r1", timeout_s=BATCH_TIMEOUT_S)]
     if not at_admit.wait(600):
         fail(f"{label}: the first two requests never ran {ADMIT_AFTER} chunks")
-    reqs += [batcher.submit([sp], request_key=f"r{i}") for i, sp in enumerate(specs[2:], 2)]
+    reqs += [batcher.submit([sp], request_key=f"r{i}", timeout_s=BATCH_TIMEOUT_S)
+             for i, sp in enumerate(specs[2:], 2)]
     admit_go.set()
     if not at_drain.wait(600) or any(r.future.done() for r in reqs):
         fail(f"{label}: the rows never all passed position {DRAIN_AT}")
@@ -3110,6 +3150,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
             fail(f"{label}: a request finished instead of migrating")
         except MigratedError:
             pass
+    end_stream(stream_a, reqs[0])
     leaks_a = eng_a.kv.leak_check() if paged else []
     fingerprint = eng_a.resume_fingerprint()
     chunks_a = eng_a.stats.chunks
@@ -3160,10 +3201,11 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
     stream_b = RequestStream(key="r0")
     t_run = time.perf_counter()
     reqs = [batcher_b.submit([sp], request_key=f"r{i}", resume=cp, resume_bytes=size,
-                             stream=stream_b if i == 0 else None)
+                             stream=stream_b if i == 0 else None, timeout_s=BATCH_TIMEOUT_S)
             for i, (sp, (cp, size)) in enumerate(zip(specs, valid))]
     outs = [r.future.result(timeout=900) for r in reqs]
     resume_run_s = time.perf_counter() - t_run
+    end_stream(stream_b, reqs[0])
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
     batcher_b.shutdown()
     toks = np.concatenate([o[0] for o in outs])
@@ -3287,6 +3329,429 @@ def run_migration(torch, model, vae, specs, causal_tokens, int8_tokens):
     int8 = serve_migrated(torch, short, vae, specs, int8_tokens, f"slotted int8 depth {SHORT_DEPTH}",
                           kv_dtype="int8")
     return slotted, paged, int8
+
+
+# --------------------------------------------------------------- phase 11
+
+SERVE_TIMEOUT_S = 600.0  # phase 11's servers' request_timeout_s (each request's default)
+MICRO_DELAY_MS = 20000.0  # the micro server's flush deadline: its four posts coalesce first
+POST_STAGGER_S = 0.25  # phase 11a's posts arrive in phase 5's order, this far apart
+QOS_HIGH_AT = 128  # phase 11b: the chunk after which the high request arrives
+RETRY_FAIL_CHUNK = 12  # phase 11b: the chunk dispatch, counted from the first request, that fails
+REQUEST_TIMEOUT_S = 2.0  # phase 11b: a timeout that expires mid-decode
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=SERVE_TIMEOUT_S + 60):
+    """(status, headers, JSON or text) of one request to the local server,
+    urllib only; an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (json.dumps(body).encode() if isinstance(body, dict) else body)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as err:
+        resp = err
+    with resp:
+        raw = resp.read()
+        kind = resp.headers.get("Content-Type", "")
+        return resp.status, dict(resp.headers), json.loads(raw) if kind.startswith("application/json") else raw.decode()
+
+
+def http_metric(port, name):
+    """One unlabeled sample of GET /metrics (0.0 when absent)."""
+    _, _, text = http_call(port, "GET", "/metrics")
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return 0.0
+
+
+def http_stage_sums(port):
+    """{stage: seconds} of the server's `dalle_serving_stage_seconds` sums."""
+    _, _, text = http_call(port, "GET", "/metrics")
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'dalle_serving_stage_seconds_sum\{stage="(\w+)"\} (\S+)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def stage_delta(before, after):
+    """Seconds each stage took between two `http_stage_sums` reads."""
+    return {k: round(v - before.get(k, 0.0), 3) for k, v in sorted(after.items()) if v - before.get(k, 0.0) > 0}
+
+
+def post_async(port, body, headers=None):
+    """POST /generate on a thread: (thread, its result holder)."""
+    out = {}
+    thread = threading.Thread(
+        target=lambda: out.update(r=http_call(port, "POST", "/generate", body, headers)), daemon=True
+    )
+    thread.start()
+    return thread, out
+
+
+def post_result(posted, label):
+    thread, out = posted
+    thread.join(SERVE_TIMEOUT_S + 120)
+    if "r" not in out:
+        fail(f"{label}: no reply")
+    return out["r"]
+
+
+def wait_accepted(port, n, label):
+    """Until the server's queue has accepted `n` requests in all."""
+    deadline = time.monotonic() + 120
+    while http_metric(port, "dalle_serving_requests_total") < n:
+        if time.monotonic() > deadline:
+            fail(f"{label}: request {n} was never accepted")
+        time.sleep(0.005)
+
+
+def png_shapes(payload):
+    """Shapes of a payload's images, decoded with zlib."""
+    import base64
+
+    from dalle_pytorch_tpu_torch.utils.images import decode_png
+
+    return [decode_png(base64.b64decode(b)).shape for b in payload.get("images_png_b64", [])]
+
+
+def sse_collect(port, body, out):
+    """A streamed POST /generate read to its end: out["status"], and
+    out["events"] as (type, data, seq) from the port's SSE parser."""
+    import urllib.request
+
+    from dalle_pytorch_tpu_torch.serving.streaming import SSEParser
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", method="POST",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S + 60) as resp:
+        out["status"] = resp.status
+        parser, events = SSEParser(), out.setdefault("events", [])
+        for line in resp:
+            events.extend(parser.feed(line))
+
+
+def margin_rule(margins, row, tokens, reference, k):
+    """Phase 10's rule: (ok, first divergence, first sub-margin position
+    from k). The row must equal `reference` up to its first position at or
+    past k whose noised-score margin is under ORACLE_MARGIN, and below k."""
+    import numpy as np
+
+    low = np.flatnonzero(margins[row, k:] < ORACLE_MARGIN)
+    diff = np.flatnonzero(np.asarray(tokens) != reference[row])
+    first_low = int(k + low[0]) if low.size else None
+    first_diff = int(diff[0]) if diff.size else None
+    ok = first_diff is None or (first_diff >= k and first_low is not None and first_diff >= first_low)
+    return ok, first_diff, first_low
+
+
+def run_micro_server(torch, engine, tokens5, wall5):
+    """Phase 11a: phase 5's warmed micro engine (depth 12, bf16, batch 4)
+    behind the port's ServingServer, no second warmup. Phase 5's four
+    prompts and seeds arrive as four POST /generate, in order, and
+    coalesce into one batch. Held: one batch of 4 rows (/metrics), tokens
+    identical to phase 5's, each PNG 256x256x3, 12,300 flash-decode
+    launches (12 of them the prefill's tile arm), /healthz 200. Printed:
+    the HTTP wall from the post that completes the batch, the batch's
+    `generate()` wall inside the server (`dalle_serving_batch_seconds`)
+    and phase 5's; their difference is the server's cost."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention as fda
+    from dalle_pytorch_tpu_torch.serving.server import ServingServer
+
+    server = ServingServer(engine, port=0, max_delay_ms=MICRO_DELAY_MS, request_timeout_s=SERVE_TIMEOUT_S).start()
+    try:
+        port = server.port
+        fda.launches = fda.tile_launches = 0
+        t0 = time.perf_counter()
+        posted = []
+        for i, prompt in enumerate(PROMPTS):
+            if i:
+                time.sleep(POST_STAGGER_S)
+            t_last = time.perf_counter()
+            posted.append(post_async(port, {"prompt": prompt, "seed": 100 + i, "temperature": 1.0, "top_k": 0.9}))
+        replies = [post_result(p, "micro server") for p in posted]
+        t_end = time.perf_counter()
+        launches = {"flash_decode": fda.launches, "flash_decode_tile": fda.tile_launches}
+        health, _, _ = http_call(port, "GET", "/healthz")
+        batches = http_metric(port, "dalle_serving_batches_total")
+        rows = http_metric(port, "dalle_serving_batch_occupancy_rows_sum")
+        engine_s = http_metric(port, "dalle_serving_batch_seconds_sum")  # generate() inside the server
+    finally:
+        server.shutdown()
+    statuses = [status for status, _, _ in replies]
+    same = [status == 200 and np.array_equal(np.asarray(p["tokens"]), tokens5[i : i + 1])
+            for i, (status, _, p) in enumerate(replies)]
+    shapes = [png_shapes(p) if status == 200 else [] for status, _, p in replies]
+    size, depth = engine.vae.image_size, engine.model.depth
+    summary = dict(
+        statuses=statuses, tokens_identical_to_phase5=same, png_shapes=[[list(s) for s in x] for x in shapes],
+        launches=launches, batches=batches, occupancy_rows=rows, healthz=health,
+        http_wall_s=t_end - t0, http_wall_from_last_post_s=t_end - t_last, phase5_generate_wall_s=wall5,
+        generate_in_server_s=engine_s, server_cost_s=(t_end - t_last) - engine_s,
+        http_minus_phase5_s=(t_end - t_last) - wall5,
+    )
+    print("micro server " + json.dumps(summary))
+    if statuses != [200] * 4 or not all(same):
+        fail(f"micro server: statuses {statuses}, tokens identical to phase 5's {same}")
+    if any(x != [(size, size, 3)] for x in shapes):
+        fail(f"micro server: PNG shapes {shapes}")
+    if launches != {"flash_decode": depth * (1 + engine.image_seq_len), "flash_decode_tile": depth}:
+        fail(f"micro server: launches {launches}")
+    if (batches, rows, health) != (1, 4, 200):
+        fail(f"micro server: {batches} batches of {rows} rows, /healthz {health}")
+    return summary
+
+
+def run_continuous_server(torch, model, vae, specs, reference):
+    """Phase 11b: phase 7's depth-4 model behind a ContinuousEngine (4
+    slots, chunks of 4, resume and previews on) and the port's
+    ServingServer, driven over HTTP in three parts:
+
+    QoS and retry: four low requests (phase 7's prompts and seeds;
+    request 0 over SSE) fill the slots; a FaultInjector fails the
+    RETRY_FAIL_CHUNK-th chunk, so all four are retried from position 0
+    (re-admitted in one wave); after QOS_HIGH_AT chunks a high request
+    repeating request 1 under another tenant arrives and preempts the
+    youngest low (the one whose prefill began last), which re-admits
+    through `resume_slots` at its position. Held: the other low requests'
+    and the high one's tokens identical to phase 7's depth-4 causal run
+    (`reference`), the victim's by the margin rule from its preempted
+    position; one failed chunk, four retries; the stream's progress in
+    order, previews, one terminal `result` with a buffered payload's keys;
+    one preemption, one resumption, one resume dispatch; launches exact.
+    (Two parts in one decode: the script's time.)
+    Drain: two requests; once both passed DRAIN_AT, `POST
+    /admin/drain?migrate=1`: 409 with a checkpoint each, /healthz 503
+    draining; after undrain both re-POSTed at once with their "resume":
+    200, tokens by the margin rule, `usage.resumed_tokens` = the position.
+    Each part prints its wall, chunks and the server's stage seconds
+    (`dalle_serving_stage_seconds`: queue, prefill, chunk, harvest,
+    preview, respond).
+    Timeout: a request whose timeout expires mid-decode gets 504 and its
+    slot is freed (`dalle_serving_slots_active` back to 0)."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
+    from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention as fda
+    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine
+    from dalle_pytorch_tpu_torch.serving.faults import FaultInjector
+    from dalle_pytorch_tpu_torch.serving.migrate import decode_checkpoint, from_wire
+    from dalle_pytorch_tpu_torch.serving.server import ServingServer
+
+    short = first_layers(torch, model, SHORT_DEPTH)
+    depth, seq = short.depth, short.image_seq_len
+    engine = ContinuousEngine(short, vae, **CONTINUOUS, tokenizer=ByteTokenizer(),
+                              device=short.text_emb.weight.device, resume_enabled=True, preview_enabled=True)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    # park the worker after the first chunk at which park["when"](pos, act) holds
+    park = {"when": None, "at": threading.Event(), "go": threading.Event(), "pos": None}
+    step = engine.step_chunk
+
+    def parking_step(*args, **kw):
+        pos, act = step(*args, **kw)
+        when = park["when"]
+        if when is not None and when(pos, act):
+            park.update(when=None, pos=pos.copy())
+            park["at"].set()
+            park["go"].wait(600)
+        return pos, act
+
+    def arm(when):
+        park["at"].clear()
+        park["go"].clear()
+        park["when"] = when
+
+    engine.step_chunk = parking_step
+    margins = noised_margins(torch, short, specs, reference)
+    image = [1, vae.image_size, vae.image_size, 3]
+
+    def body(i, **kw):
+        return {"prompt": PROMPTS[i], "seed": 100 + i, "temperature": 1.0, "top_k": 0.9, **kw}
+
+    server = ServingServer(engine, port=0, request_timeout_s=SERVE_TIMEOUT_S, preview_every=PREVIEW_EVERY).start()
+    port, accepted, walls = server.port, 0, {}
+    summary = dict(warmup_s=warm_s)
+    try:
+        # --- QoS and retry: four low requests; a chunk fails under them, so
+        # all four are retried from 0; a high one then preempts the youngest
+        t0, stages0 = time.perf_counter(), http_stage_sums(port)
+        fda.launches = fda.tile_launches = 0
+        chunks0, waves0, resumes0 = engine.stats.chunks, engine.stats.prefill_dispatches, engine.stats.resume_dispatches
+        retries0 = http_metric(port, "dalle_serving_dispatch_retries_total")
+        engine.faults = FaultInjector().fail_nth("chunk", RETRY_FAIL_CHUNK)
+        arm(lambda pos, act: engine.stats.chunks - chunks0 >= QOS_HIGH_AT)
+        sse = {}
+        sse_thread = threading.Thread(target=sse_collect, args=(port, body(0, priority="low"), sse), daemon=True)
+        sse_thread.start()
+        accepted += 1
+        wait_accepted(port, accepted, "qos")
+        lows = []
+        for i in (1, 2, 3):
+            lows.append(post_async(port, body(i, priority="low")))
+            accepted += 1
+            wait_accepted(port, accepted, "qos")
+        if not park["at"].wait(600):
+            fail(f"qos: {QOS_HIGH_AT} chunks never ran")
+        _, _, state = http_call(port, "GET", "/debug/state")
+        slots = state["batcher"]["slots_inflight"]
+        at_park = {v["trace_id"]: int(park["pos"][int(s)]) for s, v in slots.items()}
+        high = post_async(port, body(1, priority="high", tenant="vip"))
+        accepted += 1
+        wait_accepted(port, accepted, "qos")
+        park["go"].set()
+        replies = [post_result(p, "qos") for p in lows] + [post_result(high, "qos high")]
+        sse_thread.join(SERVE_TIMEOUT_S + 120)
+        fired, engine.faults = engine.faults.fired, None
+        walls["qos_s"] = time.perf_counter() - t0
+        stages = stage_delta(stages0, http_stage_sums(port))
+        chunks, waves = engine.stats.chunks - chunks0, engine.stats.prefill_dispatches - waves0
+        resumes = engine.stats.resume_dispatches - resumes0
+        qos_launches = {"flash_decode": fda.launches, "flash_decode_tile": fda.tile_launches}
+        retried = http_metric(port, "dalle_serving_dispatch_retries_total") - retries0
+        preemptions = http_metric(port, 'dalle_serving_preemptions_total{reason="priority"}')
+        resumptions = http_metric(port, 'dalle_serving_resumptions_total{reason="priority"}')
+        retry_resumptions = http_metric(port, 'dalle_serving_resumptions_total{reason="dispatch_retry"}')
+        if len(slots) != 4 or any(s["rows"] != 1 for s in slots.values()):
+            fail(f"qos: {len(slots)} requests in flight at the high request's arrival: {slots}")
+        statuses = [sse.get("status")] + [r[0] for r in replies]
+        if statuses != [200] * 5:
+            fail(f"qos: statuses {statuses}")
+        events = sse.get("events", [])
+        kinds = [t for t, _, _ in events]
+        result = events[-1][1] if kinds and kinds[-1] == "result" else {}
+        payloads = [result] + [r[2] for r in replies]  # requests 0-3, then the high one
+        # the victim: the low request whose trace holds a `preempted` span
+        # for priority (the retry's suspensions are spans of that name too);
+        # the youngest: its (last) prefill span began last
+        spans = {}
+        for i, p in enumerate(payloads[:4]):
+            _, _, tr = http_call(port, "GET", f"/debug/traces?trace_id={p.get('trace_id')}")
+            spans[i] = [e for e in tr.get("traceEvents", []) if e.get("ph") == "X"]
+        victims = [i for i in range(4)
+                   if any(e["name"] == "preempted" and e["args"].get("reason") == "priority" for e in spans[i])]
+        last_prefill = {i: max(e["ts"] for e in spans[i] if e["name"] == "prefill") for i in range(4)}
+        youngest = max(last_prefill, key=last_prefill.get)
+        if victims != [youngest]:
+            fail(f"qos: preempted {victims}, the youngest admitted low request is {youngest}")
+        victim = victims[0]
+        k = at_park[payloads[victim]["trace_id"]]
+        exact = {f"request {i}": np.array_equal(np.asarray(p["tokens"][0]), reference[i])
+                 for i, p in enumerate(payloads[:4]) if i != victim}
+        exact["high (request 1's)"] = np.array_equal(np.asarray(payloads[4]["tokens"][0]), reference[1])
+        ok_v, diff_v, low_v = margin_rule(margins, victim, payloads[victim]["tokens"][0], reference, k)
+        progress = [d["chunk"] for t, d, _ in events if t == "progress"]
+        previews = [d for t, d, _ in events if t == "preview"]
+        stream_ok = (
+            kinds[:1] == ["open"] and kinds[-1:] == ["result"]
+            and sum(kinds.count(t) for t in ("result", "error", "migrated")) == 1
+            and progress and all(a < b for a, b in zip(progress, progress[1:]))
+            and previews and all(d["chunk"] % PREVIEW_EVERY == 0 for d in previews)
+            and all(png_shapes({"images_png_b64": d["previews_png_b64"]}) == [tuple(image[1:])] for d in previews)
+            and sorted(result) == sorted(payloads[1]) and result.get("shape") == image
+        )
+        expected = {"flash_decode": depth * (CONTINUOUS["chunk_tokens"] * chunks + waves),
+                    "flash_decode_tile": depth * waves}
+        summary["qos"] = dict(
+            wall_s=walls["qos_s"], chunks=chunks, ms_per_chunk=1e3 * walls["qos_s"] / chunks,
+            stage_seconds=stages, prefill_waves=waves, resume_dispatches=resumes,
+            fired=[f["program"] + f"#{f['nth']}" for f in fired], retried=retried,
+            retry_resumptions=retry_resumptions, positions_at_high_arrival=sorted(at_park.values()),
+            preempted=victim, preempted_at=k, preemptions=preemptions, resumptions=resumptions,
+            tokens_identical=exact, preempted_first_divergence=diff_v, preempted_first_sub_margin=low_v,
+            stream=dict(progress=progress[:3] + progress[-2:], previews=[d["chunk"] for d in previews],
+                        terminal=kinds[-1:]),
+            launches=qos_launches, expected_launches=expected,
+        )
+        print("served qos " + json.dumps(summary["qos"]))
+        if not all(exact.values()) or not ok_v:
+            fail(f"qos: tokens identical {exact}; the preempted request {victim} from {k}: first divergence "
+                 f"{diff_v}, first sub-margin position {low_v}")
+        if len(fired) != 1 or retried != 4 or retry_resumptions != 4:
+            fail(f"qos: fired {fired}, retried {retried}, re-admitted after the retry {retry_resumptions}")
+        if (preemptions, resumptions, resumes) != (1, 1, 1):
+            fail(f"qos: preemptions {preemptions}, resumptions {resumptions}, resume dispatches {resumes}")
+        if not stream_ok:
+            fail(f"qos: the stream's events {kinds[:4]}...{kinds[-3:]}, progress {progress[:4]}, "
+                 f"previews {[d['chunk'] for d in previews]}")
+        if qos_launches != expected:
+            fail(f"qos: launches {qos_launches}, expected {expected}")
+
+        # --- drain with migration, then the resumes
+        t0, stages0, chunks0 = time.perf_counter(), http_stage_sums(port), engine.stats.chunks
+        arm(lambda pos, act: act.sum() == 2 and pos[act].min() >= DRAIN_AT)
+        posted = []
+        for i in (0, 1):
+            posted.append(post_async(port, body(i), headers={"x-dalle-request-key": f"d{i}"}))
+            accepted += 1
+            wait_accepted(port, accepted, "drain")
+        if not park["at"].wait(600):
+            fail(f"drain: the rows never passed {DRAIN_AT}")
+        drained = {}
+        drainer = threading.Thread(target=lambda: drained.update(
+            r=http_call(port, "POST", "/admin/drain?migrate=1", b"")), daemon=True)
+        drainer.start()
+        deadline = time.monotonic() + 60
+        while server.batcher._migrate_request is None and time.monotonic() < deadline:
+            time.sleep(0.001)
+        park["go"].set()
+        drainer.join(120)
+        replies = [post_result(p, "drain") for p in posted]
+        health, _, health_body = http_call(port, "GET", "/healthz")
+        undrain, _, _ = http_call(port, "POST", "/admin/undrain", b"")
+        cps = [decode_checkpoint(from_wire(r[2]["checkpoint"]), server.resume_fingerprint) if r[0] == 409 else None
+               for r in replies]
+        if [r[0] for r in replies] != [409, 409] or drained.get("r", (None,))[0] != 200:
+            fail(f"drain: replies {[r[0] for r in replies]}, drain {drained.get('r', (None,))[0]}")
+        if (health, health_body.get("draining"), undrain) != (503, True, 200):
+            fail(f"drain: /healthz {health} {health_body.get('status')}, undrain {undrain}")
+        posted = [post_async(port, body(i, resume=r[2]["checkpoint"])) for i, r in enumerate(replies)]
+        resumed = [post_result(p, "resume") for p in posted]
+        walls["drain_s"] = time.perf_counter() - t0
+        ks = [cp.rows[0].pos for cp in cps]
+        rules = [margin_rule(margins, i, r[2]["tokens"][0], reference, k) if r[0] == 200 else (False, None, None)
+                 for i, (r, k) in enumerate(zip(resumed, ks))]
+        usage = [r[2].get("usage") for r in resumed]
+        summary["drain"] = dict(wall_s=walls["drain_s"], chunks=engine.stats.chunks - chunks0,
+                                stage_seconds=stage_delta(stages0, http_stage_sums(port)),
+                                drained_at=ks, statuses=[r[0] for r in resumed],
+                                usage=usage, first_divergence=[x[1] for x in rules],
+                                first_sub_margin=[x[2] for x in rules])
+        print("served drain " + json.dumps(summary["drain"]))
+        if not all(x[0] for x in rules) or [u and u["resumed_tokens"] for u in usage] != ks or min(ks) < DRAIN_AT:
+            fail(f"drain: resumes {summary['drain']}")
+
+        # --- a timeout mid-decode (under the shed's estimate: shedding off for it)
+        t0 = time.perf_counter()
+        server.batcher.deadline_shed = False
+        status, _, _ = post_result(post_async(port, body(2, timeout_s=REQUEST_TIMEOUT_S)), "timeout")
+        server.batcher.deadline_shed = True
+        deadline = time.monotonic() + 30
+        while http_metric(port, "dalle_serving_slots_active") != 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        walls["timeout_s"] = time.perf_counter() - t0
+        slots_after = http_metric(port, "dalle_serving_slots_active")
+        timeouts = http_metric(port, "dalle_serving_timeouts_total")
+        summary["timeout"] = dict(wall_s=walls["timeout_s"], status=status, slots_active_after=slots_after,
+                                  timeouts=timeouts)
+        print("served timeout " + json.dumps(summary["timeout"]))
+        if (status, slots_after, timeouts) != (504, 0, 1):
+            fail(f"timeout: {summary['timeout']}")
+    finally:
+        park["go"].set()
+        server.shutdown()
+    summary["walls"] = walls
+    return summary
 
 
 def resume_fields(row, err, runs):
@@ -3553,6 +4018,7 @@ def main() -> int:
 
     # 6. training path, then its checkpoint served -------------------------------
     vae, model5 = engine.vae, engine.model
+    micro_engine, tokens5, wall5 = engine, toks, wall  # served again, warm, in phase 11
     del engine
     train_launches, _ = run_training(torch, vae, specs)
     launches.update(train_launches)
@@ -3582,6 +4048,16 @@ def main() -> int:
     t0 = time.perf_counter()
     migrated = run_migration(torch, model5, vae, specs, causal_toks, int8_toks)
     print(f"phase 10 resume and migration: {time.perf_counter() - t0:.1f} s")
+
+    # 11. the serving front end over HTTP ---------------------------------------------
+    t0 = time.perf_counter()
+    served_micro = run_micro_server(torch, micro_engine, tokens5, wall5)
+    t_micro = time.perf_counter() - t0
+    del micro_engine
+    served = run_continuous_server(torch, model5, vae, specs, short_toks)
+    print(f"phase 11 serving over HTTP ({smi}): {time.perf_counter() - t0:.1f} s (micro server "
+          f"{t_micro:.1f} s; continuous server warmup {served['warmup_s']:.1f} s, "
+          + ", ".join(f"{k} {v:.1f}" for k, v in served["walls"].items()) + ")")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # device time per call of phase 3's kernel rows, and the kernel the
@@ -3680,6 +4156,8 @@ def main() -> int:
                 device_ms=step["device_ms"],
                 device_kernels=step["device_kernels"],
                 cli_launches=cli_launches["cli_flash_decode"],
+                served_launches={"micro_server": served_micro["launches"]["flash_decode"],
+                                 "continuous_server_qos": served["qos"]["launches"]["flash_decode"]},
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
@@ -3688,7 +4166,9 @@ def main() -> int:
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281 lengths [258, 700, 1024, 1281] (fp32_*: "
                 "the same step with fp32 q and cache, bound at the fp32 peak); "
                 "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
-                "9's generation CLI (2 prompts x one batch of 4, prefill included)",
+                "9's generation CLI (2 prompts x one batch of 4, prefill included); served_launches: "
+                "phase 11's HTTP runs, all arms (the micro server's batch of 4 at depth 12; the "
+                "continuous server's QoS run at depth 4, its prefill and resume waves included)",
             ),
             dict(
                 name="flash_decode_tile_f32",

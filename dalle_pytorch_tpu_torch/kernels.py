@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+from dalle_pytorch_tpu_torch.utils import compile_guard
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -94,6 +96,7 @@ def build(names: Sequence[str]) -> None:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     for name in todo:
         _libs[name] = ctypes.CDLL(str(_target(name)))
+        compile_guard.record_build(name, build_log[name]["seconds"], built=name in procs)
 
 
 def library(name: str) -> ctypes.CDLL:

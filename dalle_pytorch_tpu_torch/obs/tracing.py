@@ -1,0 +1,384 @@
+"""Lock-safe in-process span tracer with Perfetto export.
+
+Counterpart of the JAX package's `obs/tracing.py` (host code, copied so
+the port imports nothing of that package). One `Trace` per served
+request, minted at HTTP ingress and carried on the `GenRequest` through
+the batcher's worker, so every stage of a request (queue wait, prefill
+wave, each decode chunk, harvest, preview, response encoding) is a `Span`
+on one tree. Spans record wall time plus dispatch metadata (wave size,
+chunk index) and, from `utils/compile_guard`, the number of kernel
+libraries built or loaded while the span was open (`compiles=`;
+process-wide attribution).
+
+Threading: a trace is written by the HTTP handler (root and respond
+spans) and the batcher's worker (the stages), never concurrently on one
+span; its span list has a per-trace lock, the finished-trace ring the
+tracer's lock.
+
+Off costs nothing: a disabled tracer returns the shared `NULL_TRACE`,
+whose `begin` / `end` / `span` / `finish` are no-ops returning the shared
+`NULL_SPAN`, and `Tracer.spans_created` counts every real span, so the
+contract is checked by a counter.
+
+Export is Chrome/Perfetto `trace_event` JSON: one complete (`ph: "X"`)
+event per closed span, one track per trace. `start_trace` accepts a
+propagated `trace_id` and `parent_uid` (the `x-dalle-trace` header,
+`obs/aggregate.py`), so a caller's trace and this server's join on one
+ID. The tracer's `exporter` hook is the shared no-op until a fleet
+exporter attaches (the port has none yet).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional
+
+from dalle_pytorch_tpu_torch.utils import compile_guard
+
+
+class Span:
+    """One timed stage. `args` carries dispatch metadata into the export."""
+
+    __slots__ = ("name", "span_id", "parent_id", "t0", "t1", "args", "_c0")
+
+    def __init__(self, name: str, span_id: int, parent_id: Optional[int],
+                 args: Dict):
+        self.name = name
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.t0 = time.monotonic()
+        self.t1: Optional[float] = None
+        self.args = args
+        self._c0 = compile_guard.compile_count()
+
+    @property
+    def closed(self) -> bool:
+        return self.t1 is not None
+
+    @property
+    def duration_s(self) -> float:
+        return (self.t1 if self.t1 is not None else time.monotonic()) - self.t0
+
+
+class _NullSpan:
+    """Shared do-nothing span: the disabled-tracer (and error-path) stand-in.
+    Also a context manager so `with trace.span(...)` costs nothing off."""
+
+    __slots__ = ()
+    name = ""
+    closed = True
+    duration_s = 0.0
+    args: Dict = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _NullTrace:
+    """Shared do-nothing trace. Falsy, so call sites can gate extra work
+    (exemplar lookups, log fields) with a plain `if trace:`."""
+
+    __slots__ = ()
+    trace_id = ""
+    outcome = None
+    parent_uid = None
+    spans: List = []
+
+    def __bool__(self) -> bool:
+        return False
+
+    def begin(self, name, **args):
+        return NULL_SPAN
+
+    def end(self, span, **args) -> None:
+        pass
+
+    def span(self, name, **args):
+        return NULL_SPAN
+
+    def finish(self, outcome="ok", **args) -> None:
+        pass
+
+    def stage_seconds(self) -> Dict[str, float]:
+        return {}
+
+    def complete(self) -> bool:
+        return True
+
+    @property
+    def duration_s(self) -> float:
+        return 0.0
+
+
+class _NullExporter:
+    """Shared no-op exporter: the off path of cross-process trace export
+    (the JAX package's `TraceExporter`, not ported yet). Counter-gated like NULL_TRACE — a
+    tracer without an exporter attached serializes zero spans and buffers
+    zero traces, whatever traffic flows past it."""
+
+    __slots__ = ()
+    enabled = False
+    spans_serialized = 0
+    dropped = 0
+
+    def __bool__(self) -> bool:
+        return False
+
+    def export(self, trace) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+NULL_TRACE = _NullTrace()
+NULL_EXPORTER = _NullExporter()
+
+
+class Trace:
+    """A request's span tree. Constructed via `Tracer.start_trace`; the
+    root span opens immediately and closes at `finish()`."""
+
+    def __init__(self, tracer: "Tracer", name: str, trace_id: str,
+                 args: Dict, parent_uid: Optional[str] = None):
+        self._tracer = tracer
+        self.trace_id = trace_id
+        #: globally-unique span reference of the REMOTE span this trace's
+        #: root parents into (parsed off the x-dalle-trace header); the
+        #: exporter ships it so the collector stitches the cross-process
+        #: tree. None for locally-minted traces.
+        self.parent_uid = parent_uid
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self.spans: List[Span] = []
+        self.outcome: Optional[str] = None
+        self.root = self._new_span(name, None, args)
+
+    def _new_span(self, name: str, parent_id: Optional[int],
+                  args: Dict) -> Span:
+        with self._lock:
+            sid = self._next_id
+            self._next_id += 1
+            span = Span(name, sid, parent_id, args)
+            self.spans.append(span)
+        self._tracer._count_span()
+        return span
+
+    # ------------------------------------------------------------- spans
+
+    def begin(self, name: str, **args) -> Span:
+        """Open a child span of the root. Explicit begin/end (rather than
+        only a context manager) because serving stages cross threads: the
+        queue span begins in the HTTP handler and ends in the worker."""
+        return self._new_span(name, self.root.span_id, args)
+
+    def end(self, span: Span, **args) -> None:
+        if span is NULL_SPAN:
+            return
+        t1 = time.monotonic()
+        dc = compile_guard.compile_count() - span._c0
+        # close under the trace lock: finish() on the HTTP thread (a
+        # timed-out request being abandoned) can race the worker's own
+        # end() of the same still-open span — first closer wins, the
+        # loser's args are dropped whole. t1 is the publication point:
+        # exporters treat a non-None t1 as "this span is frozen", so
+        # every args mutation lands before it.
+        with self._lock:
+            if span.closed:
+                return
+            if dc > 0:
+                # process-wide attribution, like compile_guard itself: a
+                # compile on another thread during the span counts too
+                span.args["compiles"] = dc
+            if args:
+                span.args.update(args)
+            span.t1 = t1
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args) -> Iterator[Span]:
+        s = self.begin(name, **args)
+        try:
+            yield s
+        finally:
+            self.end(s)
+
+    # ----------------------------------------------------------- finish
+
+    def finish(self, outcome: str = "ok", **args) -> None:
+        """Close the trace and push it into the tracer's ring buffer.
+        Any span left open (error paths abandon spans mid-stage) is
+        closed here so exported traces are always complete."""
+        with self._lock:
+            if self.outcome is not None:
+                return  # finish is one-shot; late double-finishes are no-ops
+            self.outcome = outcome
+            open_spans = [s for s in self.spans if not s.closed]
+        for s in open_spans:
+            if s is not self.root:
+                self.end(s, abandoned=True)
+        self.end(self.root, outcome=outcome, **args)
+        self._tracer._record(self)
+
+    # ------------------------------------------------------------ views
+
+    def complete(self) -> bool:
+        with self._lock:
+            return self.outcome is not None and all(
+                s.closed for s in self.spans
+            )
+
+    def closed_spans(self) -> List[Span]:
+        """Consistent snapshot for exporters: the spans list is copied
+        under the trace lock, and only frozen (closed) spans are
+        returned — a worker can still be opening/closing late spans on a
+        finished trace (e.g. rows of a 504'd request still decoding)."""
+        with self._lock:
+            return [s for s in self.spans if s.closed]
+
+    def stage_seconds(self) -> Dict[str, float]:
+        """Total seconds per stage name (closed non-root spans, summed —
+        a request sees one queue span but many chunk spans)."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            spans = list(self.spans)
+        for s in spans:
+            if s is self.root or not s.closed:
+                continue
+            out[s.name] = out.get(s.name, 0.0) + s.duration_s
+        return out
+
+    @property
+    def duration_s(self) -> float:
+        return self.root.duration_s
+
+
+class Tracer:
+    """Mints traces, owns the finished-trace ring buffer, exports Perfetto.
+
+    `max_traces` bounds memory: a long-lived server keeps only the most
+    recent N request traces, not one per request forever. A trace's size
+    scales with its span count — continuous decode opens one chunk span
+    per dispatched chunk, so a small-`chunk_tokens` config over long
+    image sequences holds hundreds of spans per trace; size `max_traces`
+    (and use `/debug/traces?n=`) accordingly.
+    """
+
+    def __init__(self, enabled: bool = True, max_traces: int = 256):
+        self.enabled = bool(enabled)
+        self._ring: deque = deque(maxlen=int(max_traces))
+        self._lock = threading.Lock()
+        #: real Span objects constructed through this tracer — the
+        #: zero-overhead-when-off contract is `spans_created == 0` for a
+        #: disabled tracer, whatever traffic flowed past it
+        self.spans_created = 0
+        #: cross-process export hook; the shared no-op singleton until
+        #: an exporter attaches itself
+        self.exporter = NULL_EXPORTER
+        # paired epoch reads: monotonic timestamps convert to unix wall
+        # clock (to_unix), the time base spans from several processes
+        # share
+        self._epoch_mono = time.monotonic()
+        self._epoch_unix = time.time()
+
+    # ------------------------------------------------------------ minting
+
+    def start_trace(self, name: str = "request", trace_id: Optional[str] = None,
+                    parent_uid: Optional[str] = None, **args):
+        """Mint a trace. `trace_id`/`parent_uid` carry a propagated
+        x-dalle-trace context (validated by the caller —
+        `aggregate.parse_trace_header` is the gate); both default to a
+        locally-minted root context."""
+        if not self.enabled:
+            return NULL_TRACE
+        return Trace(
+            self, name, trace_id or uuid.uuid4().hex[:16], args,
+            parent_uid=parent_uid,
+        )
+
+    def to_unix(self, t_mono: float) -> float:
+        """Monotonic span timestamp -> unix seconds (the exporter's wire
+        time base; mutually consistent within this process)."""
+        return self._epoch_unix + (t_mono - self._epoch_mono)
+
+    def _count_span(self) -> None:
+        with self._lock:
+            self.spans_created += 1
+
+    def _record(self, trace: Trace) -> None:
+        with self._lock:
+            self._ring.append(trace)
+        # outside the ring lock: export() is a bounded-deque append (or
+        # the shared no-op) and must never couple to the tracer lock
+        self.exporter.export(trace)
+
+    # ------------------------------------------------------------- views
+
+    def recent(self, n: Optional[int] = None) -> List[Trace]:
+        """Most recent finished traces, oldest first."""
+        with self._lock:
+            traces = list(self._ring)
+        return traces if n is None else traces[-n:]
+
+    def find(self, trace_id: str) -> Optional[Trace]:
+        """Exact-ID lookup in the retained ring (newest first — a reused
+        ID, which uuid4 makes cosmically unlikely, resolves to the most
+        recent trace). None once evicted: the ring is bounded, and the
+        HTTP layer turns that into a 404 rather than pretending."""
+        with self._lock:
+            for trace in reversed(self._ring):
+                if trace.trace_id == trace_id:
+                    return trace
+        return None
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    # ------------------------------------------------------------ export
+
+    def trace_events(self, n: Optional[int] = None,
+                     traces: Optional[List[Trace]] = None) -> Dict:
+        """Chrome/Perfetto `trace_event` JSON object for the ring buffer.
+
+        One `ph: "X"` (complete) event per closed span; each trace gets
+        its own synthetic thread id plus a `thread_name` metadata event,
+        so concurrent requests render as parallel tracks with the trace
+        ID as the row label. Timestamps are microseconds since the
+        tracer's epoch (Perfetto only needs them mutually consistent).
+        `traces` overrides the ring selection (the `?trace_id=` exact
+        lookup exports a single trace through the same serializer).
+        """
+        pid = os.getpid()
+        events: List[Dict] = []
+        selected = self.recent(n) if traces is None else traces
+        for tid, trace in enumerate(selected, start=1):
+            events.append({
+                "ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                "args": {"name": f"req {trace.trace_id}"},
+            })
+            for s in trace.closed_spans():
+                events.append({
+                    "name": s.name,
+                    "cat": "serving",
+                    "ph": "X",
+                    "ts": round((s.t0 - self._epoch_mono) * 1e6, 1),
+                    "dur": round((s.t1 - s.t0) * 1e6, 1),
+                    "pid": pid,
+                    "tid": tid,
+                    "args": {"trace_id": trace.trace_id, **s.args},
+                })
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def dump(self, path) -> Path:
+        """Write the ring buffer as a Perfetto-loadable JSON file."""
+        out = Path(path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(self.trace_events()), encoding="utf-8")
+        return out

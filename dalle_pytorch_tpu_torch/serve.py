@@ -1,0 +1,242 @@
+"""Serve a trained DALL-E checkpoint over HTTP, on the card (the port's twin
+of the repository's `serve.py`).
+
+    python -m dalle_pytorch_tpu_torch.serve --dalle_path dalle.npz --port 8000 \\
+        [--engine continuous] [--device cpu]
+    curl -s localhost:8000/generate -d '{"prompt": "small red circle"}'
+    curl -s localhost:8000/metrics
+
+Loads the checkpoint through `serving/engine.py:engine_from_checkpoint`
+(the micro `GenerationEngine`, or with `--engine continuous` the
+`ContinuousEngine`, paged with `--kv_layout paged`), warms it up, and
+serves it with `serving/server.py:ServingServer` (the wire protocol is
+there). Prints `[serve] listening on http://HOST:PORT ...` once ready; the
+first SIGTERM or SIGINT drains the queue and exits 0, a second exits at
+once. Lifecycle events and one line per request go to stdout as JSON
+(`obs/logging.py`). Runs on the card unless `--device cpu`.
+
+Not offered, so the argument parser refuses them: the reference's router
+and supervisor (`--router`, `--replicas`, `--supervise`,
+`--spool_notify`), `--mesh`, `--compile_cache`, the vitals and SLO flags
+(`--no_vitals`, `--vitals_interval_s`, `--no_program_costs`,
+`--slo_*`), `--profile_dir` and `--trace_export`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+from typing import Optional, Sequence
+
+
+def parse_tenant_weights(text):
+    """'a=4,b=1' -> {"a": 4.0, "b": 1.0}; raises ValueError on junk."""
+    out = {}
+    for pair in (text or "").split(","):
+        if not pair:
+            continue
+        tenant, sep, weight = pair.partition("=")
+        if not sep or not tenant:
+            raise ValueError(f"expected tenant=weight, got {pair!r}")
+        w = float(weight)
+        if w <= 0:
+            raise ValueError(f"tenant {tenant!r} weight must be > 0")
+        out[tenant] = w
+    return out
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter, allow_abbrev=False
+    )
+    p.add_argument("--dalle_path", type=str, required=True, help="DALL-E checkpoint to serve")
+    p.add_argument("--clip_path", type=str, default=None, help="CLIP checkpoint enabling rerank=true requests")
+    p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000, help="0 picks a free port")
+    p.add_argument("--batch_shapes", type=str, default="1,4,8",
+                   help="comma-separated batch sizes; a micro-batch is padded up to the nearest "
+                   "(continuous: the slot count is the largest)")
+    p.add_argument("--max_delay_ms", type=float, default=25.0,
+                   help="micro-batch flush deadline from the oldest request")
+    p.add_argument("--engine", choices=("micro", "continuous"), default="micro",
+                   help="micro: padded micro-batches, one whole decode per flush; continuous: "
+                   "admission at chunk boundaries over cache slots (cond_scale must be 1)")
+    p.add_argument("--chunk_tokens", type=int, default=4, help="continuous: tokens per chunk dispatch")
+    p.add_argument("--prefill_batch", type=int, default=4,
+                   help="continuous: prompts admitted per prefill dispatch (clamped to the slots)")
+    p.add_argument("--kv_layout", choices=("slot", "paged"), default="slot",
+                   help="continuous cache layout: one full-length lane per slot, or a page pool "
+                   "with page tables and a prefix cache")
+    p.add_argument("--page_size", type=int, default=32, help="paged: tokens per KV page")
+    p.add_argument("--kv_pages", type=int, default=None,
+                   help="paged: pages in the pool (default: the slotted worst case plus one row "
+                   "of prefix-cache room; fewer pages make admission wait for free pages)")
+    p.add_argument("--prefix_entries", type=int, default=64,
+                   help="paged: prompts kept in the prefix cache (0 turns it off)")
+    p.add_argument("--kv_dtype", choices=("model", "int8"), default="model",
+                   help="KV-cache storage: the model's dtype, or int8 with per-(position, head) "
+                   "fp32 scales")
+    p.add_argument("--decode_sparsity", choices=("causal", "policy"), default="causal",
+                   help="continuous: dense-causal flash decode, or block-sparse decode from the "
+                   "model's static attention layouts")
+    p.add_argument("--max_queue", type=int, default=64, help="queue bound in rows; beyond it 503")
+    p.add_argument("--request_timeout_s", type=float, default=120.0)
+    p.add_argument("--no_preempt", action="store_true",
+                   help="continuous: no decode-time priority preemption")
+    p.add_argument("--no_shed", action="store_true",
+                   help="continuous: no deadline shedding at admission")
+    p.add_argument("--tenant_quota_rows", type=int, default=None,
+                   help="per-tenant cap on queued rows; past it 429 + Retry-After")
+    p.add_argument("--tenant_weights", type=str, default=None, metavar="T=W,...",
+                   help="per-tenant admission shares within each class, e.g. 'a=4,b=1'")
+    p.add_argument("--reserve_slots", type=int, default=0,
+                   help="continuous: cache slots only the high class may use")
+    p.add_argument("--replica_quarantine_after", type=int, default=2,
+                   help="a request in flight for this many consecutive failed dispatches gets a "
+                   "terminal 422 with the incident ids (0 turns it off)")
+    p.add_argument("--cond_scale", type=float, default=1.0)
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip the warmup (the first request pays the kernel builds)")
+    p.add_argument("--no_resume", action="store_true",
+                   help="continuous: preempted and migrated rows decode again from 0 instead of "
+                   "resuming at their position")
+    p.add_argument("--checkpoint_spool", type=str, default=None, metavar="DIR",
+                   help="continuous: journal in-flight decode-state checkpoints to DIR every "
+                   "--spool_every chunks")
+    p.add_argument("--spool_every", type=int, default=8, help="chunks between spool writes")
+    p.add_argument("--preview_every", type=int, default=4,
+                   help="streamed /generate: chunks between preview events (0: none)")
+    p.add_argument("--verbose", action="store_true", help="HTTP access logs")
+    p.add_argument("--trace_dump", "--trace-dump", dest="trace_dump", type=str, default=None, metavar="PATH",
+                   help="write the request-trace ring as Perfetto JSON to PATH at shutdown")
+    p.add_argument("--trace_ring", type=int, default=256, help="recent request traces kept in memory")
+    p.add_argument("--no_tracing", action="store_true", help="no request span tracer")
+    p.add_argument("--trace_site", type=str, default=None, metavar="NAME",
+                   help="process identity of traces and log lines (default: the hostname)")
+    p.add_argument("--no_request_log", action="store_true", help="no JSON line per request")
+    p.add_argument("--request_log_path", type=str, default=None, metavar="FILE",
+                   help="write the JSON lines to FILE (appended) instead of stdout")
+    p.add_argument("--request_log_max_mb", type=float, default=None, metavar="MB",
+                   help="rotate --request_log_path to FILE.1 past MB megabytes")
+    args = p.parse_args(argv)
+    if args.checkpoint_spool is not None and args.engine != "continuous":
+        p.error("--checkpoint_spool needs --engine continuous (the micro engine holds no decode state)")
+    if args.spool_every < 1:
+        p.error("--spool_every must be >= 1")
+    if args.preview_every < 0:
+        p.error("--preview_every must be >= 0 (0 turns previews off)")
+    if args.request_log_max_mb is not None:
+        if args.request_log_path is None:
+            p.error("--request_log_max_mb rotates a log file; it needs --request_log_path")
+        if args.request_log_max_mb <= 0:
+            p.error("--request_log_max_mb must be > 0")
+    try:
+        args.tenant_weights = parse_tenant_weights(args.tenant_weights) or None
+    except ValueError as exc:
+        p.error(f"bad --tenant_weights: {exc}")
+    if args.tenant_quota_rows is not None and args.tenant_quota_rows < 1:
+        p.error("--tenant_quota_rows must be >= 1 (omit it for no quota)")
+    if args.replica_quarantine_after < 0:
+        p.error("--replica_quarantine_after must be >= 0 (0 turns it off)")
+    try:
+        args.batch_shapes = tuple(int(b) for b in args.batch_shapes.split(",") if b)
+    except ValueError:
+        p.error(f"bad --batch_shapes {args.batch_shapes!r}")
+    if not args.batch_shapes:
+        p.error("--batch_shapes names no batch size")
+    if not 0 <= args.reserve_slots < max(args.batch_shapes):
+        p.error(f"--reserve_slots must be in [0, {max(args.batch_shapes) - 1}]: every class keeps a slot")
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
+    from dalle_pytorch_tpu_torch.obs.tracing import Tracer
+    from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
+    from dalle_pytorch_tpu_torch.serving.server import ServingServer
+    from dalle_pytorch_tpu_torch.utils import compile_guard
+
+    log = StructuredLog(site=args.trace_site, path=args.request_log_path, max_mb=args.request_log_max_mb)
+    engine = engine_from_checkpoint(
+        args.dalle_path,
+        clip_path=args.clip_path,
+        batch_shapes=args.batch_shapes,
+        cond_scale=args.cond_scale,
+        device=args.device,
+        mode=args.engine,
+        chunk_tokens=args.chunk_tokens,
+        prefill_batch=args.prefill_batch,
+        kv_dtype=args.kv_dtype,
+        decode_sparsity=args.decode_sparsity,
+        kv_layout=args.kv_layout,
+        page_size=args.page_size,
+        kv_pages=args.kv_pages,
+        prefix_entries=args.prefix_entries,
+        resume_enabled=not args.no_resume,
+        # previews off drops the preview decode from the warmup
+        preview_enabled=args.preview_every > 0,
+    )
+    if not args.no_warmup:
+        log.event("warmup_start", batch_shapes=list(engine.batch_shapes), device=str(engine.device))
+        engine.warmup()
+        log.event("warmup_done", kernel_builds=compile_guard.recent_events())
+
+    server = ServingServer(
+        engine,
+        host=args.host,
+        port=args.port,
+        max_delay_ms=args.max_delay_ms,
+        max_queue_rows=args.max_queue,
+        request_timeout_s=args.request_timeout_s,
+        verbose=args.verbose,
+        tracer=Tracer(enabled=not args.no_tracing, max_traces=args.trace_ring),
+        log=log,
+        log_requests=not args.no_request_log,
+        trace_dump_path=args.trace_dump,
+        tenant_quota_rows=args.tenant_quota_rows,
+        tenant_weights=args.tenant_weights,
+        preempt=not args.no_preempt,
+        deadline_shed=not args.no_shed,
+        reserve_slots=args.reserve_slots,
+        quarantine_after=args.replica_quarantine_after,
+        checkpoint_spool=args.checkpoint_spool,
+        spool_every=args.spool_every,
+        preview_every=args.preview_every,
+    )
+    stopped, stopping = threading.Event(), threading.Event()
+
+    def _shutdown():
+        server.shutdown()  # serves the queue, then stops the listener
+        stopped.set()
+
+    def _stop(signum, frame):
+        if stopping.is_set():  # a second signal: the drain is stuck
+            print("[serve] second signal: exiting immediately", flush=True)
+            os._exit(1)
+        stopping.set()
+        print(f"[serve] signal {signum}: draining queue and shutting down", flush=True)
+        # shutdown() waits for the serve loop, which runs on this thread
+        threading.Thread(target=_shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGINT, _stop)
+    signal.signal(signal.SIGTERM, _stop)
+    # the readiness line orchestrators and tests wait for
+    print(
+        f"[serve] listening on http://{args.host}:{server.port} (engine={args.engine}, "
+        f"device={engine.device}, shapes={engine.batch_shapes}, max_delay_ms={args.max_delay_ms}, "
+        f"max_queue={args.max_queue})",
+        flush=True,
+    )
+    server.serve_forever()
+    stopped.wait(timeout=60)
+    print("[serve] shutdown complete", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,8 +13,11 @@ With a CLIP model, `rerank` orders one prompt's images best-first.
 
 PyTorch runs eagerly, so there is nothing to compile per shape; `warmup`
 runs one dummy batch per rung so the first request pays no one-time cost
-(kernel build, library handles, allocator growth). Vitals, cost tables,
-the compile cache and fault injection are not ported yet.
+(kernel build, library handles, allocator growth). Every dispatch calls
+`_fault_point(program)` with the reference's program names, a no-op until
+a `serving/faults.FaultInjector` is attached as `engine.faults`; an
+injected failure takes a real failure's path. Vitals, cost tables and the
+compile cache are not ported yet.
 
 The continuous engine keeps one decode state of `max_batch` cache slots
 and advances every live slot by `chunk_tokens` per chunk; the
@@ -28,8 +31,11 @@ their own position (`resume_slots`, one teacher-forced re-prefill:
 decode-state migration, `serving/migrate.py`), and `resume_fingerprint`
 names the build a checkpoint must come from; with `preview_enabled`,
 `preview_pixels` decodes partial rows for streamed previews
-(`serving/streaming.py`). Not ported yet: vitals, cost capture, fault
-injection, the compile cache, and the sharded engines.
+(`serving/streaming.py`). A failed slot dispatch (an injected fault
+included: it fires inside the same `try`, before the dispatch touches the
+state) leaves a rebuilt, empty state, which the batcher's retry re-admits
+into. Not ported yet: vitals, cost capture, the compile cache, and the
+sharded engines.
 """
 
 from __future__ import annotations
@@ -152,6 +158,14 @@ class GenerationEngine:
         self.cfg = cfg
         self._lock = threading.Lock()  # one generation on the device at a time
         self.stats = EngineStats()
+        #: fault-injection seam (serving/faults.py): None, or a
+        #: FaultInjector whose rules fail, stall or crash named dispatches
+        self.faults = None
+
+    def _fault_point(self, name: str) -> None:
+        """Dispatch-site hook of the fault injector (inert without one)."""
+        if self.faults is not None:
+            self.faults.on_dispatch(name)
 
     def program_ladder(self) -> Tuple[str, ...]:
         """Names of the dispatch shapes `warmup()` runs: the fixed-shape
@@ -262,6 +276,7 @@ class GenerationEngine:
         keep = torch.tensor([self._keep_k(s.top_k) for s in rows], dtype=torch.int32)
 
         with self._lock:
+            self._fault_point(f"generate:{shape}")
             out = generate_images_cached_batched(
                 self.model,
                 torch.from_numpy(text).to(self.device),
@@ -421,12 +436,15 @@ class ContinuousEngine(GenerationEngine):
     def _fresh_state(self) -> dict:
         return init_slot_state(self.model, self.max_batch)
 
-    def _run(self, op) -> None:
+    def _run(self, op, fault_tag: str) -> None:
         """Run one state-changing dispatch (caller holds the lock). The
         state is updated in place, so a failure leaves it half-written:
-        rebuild a clean one before re-raising (the batcher fails the
-        in-flight requests)."""
+        rebuild a clean one before re-raising (the batcher retries or fails
+        the in-flight requests). The fault point `fault_tag` fires first,
+        inside the same `try`, so an injected failure rebuilds the state
+        as a real one does."""
         try:
+            self._fault_point(fault_tag)
             op(self._state)
         except BaseException:
             self._state = self._fresh_state()
@@ -454,7 +472,7 @@ class ContinuousEngine(GenerationEngine):
         with self._lock:
             self._run(lambda st: prefill_into_slots(
                 self.model, st, texts, slots, seeds, temps, keep, block_bitmap=bitmap
-            ))
+            ), "prefill")
             if not _warmup:
                 self.stats.prefills += n
                 self.stats.prefill_dispatches += 1
@@ -532,7 +550,7 @@ class ContinuousEngine(GenerationEngine):
         with self._lock:
             self._run(lambda st: resume_into_slots(
                 self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
-            ))
+            ), "resume")
             self._count_resume(len(assignments), _warmup)
 
     def _pre_chunk(self) -> None:
@@ -554,7 +572,7 @@ class ContinuousEngine(GenerationEngine):
                     read, skipped = self._sparsity.count_tiles(pos, act)
                     self.stats.kv_tiles_read += read
                     self.stats.kv_tiles_skipped += skipped
-            self._run(lambda st: self._chunk_op(st, bitmap))
+            self._run(lambda st: self._chunk_op(st, bitmap), "chunk")
             if not _warmup:
                 self.stats.chunks += 1
                 self.stats.batches += 1
@@ -586,6 +604,7 @@ class ContinuousEngine(GenerationEngine):
 
     def harvest(self, slots: Sequence[int]) -> np.ndarray:
         """Finished slots' tokens (host copy), counted as generated rows."""
+        self._fault_point("harvest")
         toks = self.snapshot_rows(slots)
         with self._lock:
             self.stats.rows_generated += len(toks)
@@ -594,11 +613,12 @@ class ContinuousEngine(GenerationEngine):
     def release(self, slots: Sequence[int]) -> None:
         """Deactivate `slots`, after harvest or on an error reset."""
         with self._lock:
-            self._run(lambda st: release_slots(st, slots))
+            self._run(lambda st: release_slots(st, slots), "release")
 
     def decode_pixels(self, tokens: np.ndarray) -> Optional[np.ndarray]:
         """Pixels [n, H, W, 3] in [0, 1] of harvested token rows, decoded
         in batches of max_batch (padded), or None without a VAE."""
+        self._fault_point("decode_pixels")
         if self.vae is None:
             return None
         tokens = np.asarray(tokens, np.int32)
@@ -633,6 +653,7 @@ class ContinuousEngine(GenerationEngine):
         positions from a row's position on take `preview_fill_token`, and
         the grid decodes in batches of max_batch (padded), as
         `decode_pixels`; None without a VAE."""
+        self._fault_point("preview")
         if self.vae is None:
             return None
         tokens = np.asarray(tokens, np.int32)
@@ -930,7 +951,7 @@ class PagedContinuousEngine(ContinuousEngine):
             with self._lock:
                 self._run(lambda st: admit_cached_prefix(
                     self.model, st, slot, entry.sidecar, seed, temp, keep, src, dst, self.page_size
-                ))
+                ), "admit_hit")
             if not _warmup:
                 self.kv.cache.hits += 1
             stats["prefix_hits"] += 1
@@ -967,7 +988,7 @@ class PagedContinuousEngine(ContinuousEngine):
             self._run(lambda st: wave.update(sidecar=prefill_into_slots_paged(
                 self.model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
                 self.page_size, block_bitmap=bitmap,
-            )))
+            )), "prefill")
             if not _warmup:
                 self.stats.prefills += len(misses)
                 self.stats.prefill_dispatches += 1
@@ -998,7 +1019,7 @@ class PagedContinuousEngine(ContinuousEngine):
             self._run(lambda st: resume_into_slots_paged(
                 self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
                 page_rows, self.page_size,
-            ))
+            ), "resume")
             self._count_resume(len(assignments), _warmup)
 
     def _pre_chunk(self) -> None:

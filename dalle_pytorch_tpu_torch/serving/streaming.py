@@ -123,6 +123,7 @@ class RequestStream:
         self._dropped = 0
         self.max_events = max(8, int(max_events))
         self._finished = False
+        self._woken = False  # a wake not yet seen by the reader
         self._gen = 0  # reader attachment generation
         self._orphaned = False  # current reader's socket died
         # monotonic high-water marks: request-level chunk indices already
@@ -190,8 +191,13 @@ class RequestStream:
             return True
 
     def wake(self) -> None:
-        """Nudge the reader without an event (future resolved)."""
+        """Nudge the reader without an event (its request's future
+        resolved): its `next_events` returns at once, empty, so it can
+        write the terminal event. Sticky: a wake before the reader waits
+        ends that wait. (The reference's `wake` only notifies, so a reader
+        sleeps out its keep-alive timeout before finishing.)"""
         with self._cond:
+            self._woken = True
             self._cond.notify_all()
 
     def _append(self, etype: str, data: dict) -> None:
@@ -256,6 +262,9 @@ class RequestStream:
                 drained = self._finished and not batch
                 if batch or drained:
                     return list(batch), drained
+                if self._woken:
+                    self._woken = False
+                    return [], False
                 if deadline is not None:
                     remain = deadline - time.monotonic()
                     if remain <= 0:

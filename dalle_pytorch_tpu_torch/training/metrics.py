@@ -3,19 +3,22 @@
 Counterpart of the registry half of the JAX package's
 `training/metrics.py`: `Counter`, `Gauge`, `Histogram`, the one-label
 `Family` and `MetricsRegistry`, which renders the Prometheus text
-exposition. Stdlib only and thread-safe: the batcher's worker and the
-callers' threads observe concurrently. The instrument names the serving
-layer registers are the reference's (`dalle_serving_*`). The training
-loggers, throughput meter and profiler hook of that module are not ported
-yet.
+exposition and, with `render(exemplars=True)`, the OpenMetrics flavour
+whose histogram buckets carry the trace ID of their most recent
+exemplar-carrying observation (`GET /metrics?exemplars=1`). Stdlib only
+and thread-safe: the batcher's worker and the HTTP handlers observe
+concurrently. The instrument names the serving layer registers are the
+reference's (`dalle_serving_*`). The training loggers, throughput meter,
+profiler hook and exposition parser of that module are not ported yet.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from collections import deque
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 def _fmt(v: float) -> str:
@@ -42,10 +45,13 @@ class Counter:
     def value(self) -> float:
         return self._value
 
-    def render(self) -> List[str]:
+    def render(self, exemplars: bool = False) -> List[str]:
+        # OpenMetrics reserves the _total suffix for the sample: the
+        # family name drops it there, the classic text keeps it
+        fam = self.name[: -len("_total")] if exemplars and self.name.endswith("_total") else self.name
         return [
-            f"# HELP {self.name} {self.help}",
-            f"# TYPE {self.name} counter",
+            f"# HELP {fam} {self.help}",
+            f"# TYPE {fam} counter",
             f"{self.name} {_fmt(self._value)}",
         ]
 
@@ -73,7 +79,7 @@ class Gauge:
     def value(self) -> float:
         return self._value
 
-    def render(self) -> List[str]:
+    def render(self, exemplars: bool = False) -> List[str]:
         return [
             f"# HELP {self.name} {self.help}",
             f"# TYPE {self.name} gauge",
@@ -87,7 +93,8 @@ _DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.
 
 class Histogram:
     """Cumulative-bucket histogram plus a reservoir of the last
-    `reservoir_size` observations for ready-made percentiles."""
+    `reservoir_size` observations for ready-made percentiles, and the most
+    recent observation that carried an exemplar (a trace ID)."""
 
     def __init__(
         self,
@@ -102,15 +109,19 @@ class Histogram:
         self._sum = 0.0
         self._count = 0
         self._recent: deque = deque(maxlen=reservoir_size)
+        #: (value, trace ID, unix time) of the last exemplar observation
+        self._exemplar = None
         self._lock = threading.Lock()
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar: Optional[str] = None) -> None:
         v = float(value)
         with self._lock:
             self._counts[bisect.bisect_left(self.buckets, v)] += 1
             self._sum += v
             self._count += 1
             self._recent.append(v)
+            if exemplar:
+                self._exemplar = (v, str(exemplar), time.time())
 
     @property
     def count(self) -> int:
@@ -132,14 +143,22 @@ class Histogram:
         with self._lock:
             return self._sum / self._count if self._count else 0.0
 
-    def render(self) -> List[str]:
+    def render(self, exemplars: bool = False) -> List[str]:
         with self._lock:
             lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+            # an exemplar annotates the one bucket its value falls in
+            ex_idx, ex_suffix = None, ""
+            if exemplars and self._exemplar is not None:
+                ev, etid, ets = self._exemplar
+                ex_idx = bisect.bisect_left(self.buckets, ev)
+                ex_suffix = f' # {{trace_id="{etid}"}} {_fmt(ev)} {round(ets, 3)}'
             cum = 0
-            for bound, n in zip(self.buckets, self._counts):
+            for i, (bound, n) in enumerate(zip(self.buckets, self._counts)):
                 cum += n
-                lines.append(f'{self.name}_bucket{{le="{_fmt(bound)}"}} {cum}')
-            lines.append(f'{self.name}_bucket{{le="+Inf"}} {self._count}')
+                suffix = ex_suffix if i == ex_idx else ""
+                lines.append(f'{self.name}_bucket{{le="{_fmt(bound)}"}} {cum}{suffix}')
+            suffix = ex_suffix if ex_idx == len(self.buckets) else ""
+            lines.append(f'{self.name}_bucket{{le="+Inf"}} {self._count}{suffix}')
             lines.append(f"{self.name}_sum {_fmt(self._sum)}")
             lines.append(f"{self.name}_count {self._count}")
         for q, suffix in ((0.5, "p50"), (0.95, "p95")):
@@ -174,12 +193,17 @@ class Family:
         with self._lock:
             return sorted(self._children.items())
 
-    def render(self) -> List[str]:
+    def render(self, exemplars: bool = False) -> List[str]:
         kind = {Counter: "counter", Gauge: "gauge", Histogram: "histogram"}[self.cls]
-        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {kind}"]
+        fam = (
+            self.name[: -len("_total")]
+            if exemplars and self.cls is Counter and self.name.endswith("_total")
+            else self.name
+        )
+        lines = [f"# HELP {fam} {self.help}", f"# TYPE {fam} {kind}"]
         for key, child in self.items():
             label = f'{self.label_name}="{key}"'
-            for line in child.render():
+            for line in child.render(exemplars=exemplars):
                 name, _, value = line.partition(" ")
                 if line.startswith("#") or "_p50" in name or "_p95" in name:
                     continue
@@ -219,25 +243,46 @@ class MetricsRegistry:
     def histogram(self, name: str, help: str = "", buckets: Sequence[float] = _DEFAULT_BUCKETS) -> Histogram:
         return self._get_or_create(Histogram, name, help, buckets=buckets)
 
-    def counter_family(self, name: str, help: str = "", label_name: str = "name") -> Family:
-        """Labeled counter series (events by type, resumptions by reason)."""
+    def _family(self, cls, name: str, help: str, label_name: str, **kw) -> Family:
         with self._lock:
             inst = self._instruments.get(name)
             if inst is None:
-                inst = Family(Counter, name, help, label_name)
+                inst = Family(cls, name, help, label_name, **kw)
                 self._instruments[name] = inst
-        if not (isinstance(inst, Family) and inst.cls is Counter):
+        if not (isinstance(inst, Family) and inst.cls is cls):
             raise TypeError(f"metric {name!r} already registered as {type(inst).__name__}")
         return inst
+
+    def counter_family(self, name: str, help: str = "", label_name: str = "name") -> Family:
+        """Labeled counter series (events by type, resumptions by reason)."""
+        return self._family(Counter, name, help, label_name)
+
+    def gauge_family(self, name: str, help: str = "", label_name: str = "name") -> Family:
+        """Labeled gauge series (queue depth by priority class)."""
+        return self._family(Gauge, name, help, label_name)
+
+    def histogram_family(
+        self, name: str, help: str = "", label_name: str = "shape",
+        buckets: Sequence[float] = _DEFAULT_BUCKETS,
+    ) -> Family:
+        """Labeled histogram series (wall time by stage, occupancy by batch
+        shape); its children render no p50 / p95 gauges."""
+        return self._family(Histogram, name, help, label_name, buckets=buckets)
 
     def get(self, name: str):
         return self._instruments.get(name)
 
-    def render(self) -> str:
-        """Prometheus text exposition of every instrument."""
+    def render(self, exemplars: bool = False) -> str:
+        """Prometheus text exposition of every instrument. `exemplars=True`
+        gives the OpenMetrics flavour: exemplar annotations (`#
+        {trace_id="..."}`) on the histogram buckets that recorded one and
+        the closing `# EOF` (serve it as `application/openmetrics-text`;
+        classic text parsers reject it)."""
         with self._lock:
             instruments = sorted(self._instruments.items())
         lines: List[str] = []
         for _, inst in instruments:
-            lines.extend(inst.render())
+            lines.extend(inst.render(exemplars=exemplars))
+        if exemplars:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"

@@ -3,9 +3,9 @@ library's `zlib` and `struct` and no imaging package.
 
 Counterpart of the JAX package's `utils/images.py` (`to_uint8`,
 `save_image_grid`), which writes through PIL; the card's machine has
-none. `write_png` writes 8-bit grayscale, RGB or RGBA, every row with
-filter 0; `read_png` reads those back (and any 8-bit non-interlaced PNG,
-all five row filters), for checks.
+none. `encode_png` / `write_png` write 8-bit grayscale, RGB or RGBA,
+every row with filter 0; `decode_png` / `read_png` read those back (and
+any 8-bit non-interlaced PNG, all five row filters), for checks.
 """
 
 from __future__ import annotations
@@ -59,11 +59,15 @@ def _paeth(a: int, b: int, c: int) -> int:
 
 
 def read_png(path) -> np.ndarray:
-    """An 8-bit, non-interlaced grayscale / RGB / RGBA PNG -> uint8 [H, W,
-    C]."""
-    data = Path(path).read_bytes()
+    """An 8-bit, non-interlaced grayscale / RGB / RGBA PNG file -> uint8
+    [H, W, C]."""
+    return decode_png(Path(path).read_bytes(), name=str(path))
+
+
+def decode_png(data: bytes, name: str = "data") -> np.ndarray:
+    """`read_png` of PNG bytes (a served image's, say)."""
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path} is not a PNG file")
+        raise ValueError(f"{name} is not a PNG file")
     pos, idat, header = 8, b"", None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
@@ -77,7 +81,7 @@ def read_png(path) -> np.ndarray:
             break
     w, h, depth, color, _, _, interlace = header
     if depth != 8 or interlace != 0 or color not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray / RGB / RGBA PNGs are read")
+        raise ValueError(f"{name}: only 8-bit non-interlaced gray / RGB / RGBA PNGs are read")
     c = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
     out = np.zeros((h, w * c), np.uint8)

@@ -32,7 +32,9 @@ def test_the_scan_covers_every_port_script():
     assert {
         "chip_smoke.py", "torch_continuous_profile.py", "paging.py", "generate.py", "clip.py",
         "native_bpe.py", "tokenizer.py", "images.py", "wide_head.py", "torch_wide_head_probe.py",
-        "migrate.py", "streaming.py", "artifact.py", "metrics.py",
+        "migrate.py", "streaming.py", "artifact.py", "metrics.py", "qos.py", "faults.py",
+        "server.py", "serve.py", "batcher.py", "tracing.py", "logging.py", "aggregate.py",
+        "vitals.py", "router.py", "compile_guard.py",
     } <= names
 
 

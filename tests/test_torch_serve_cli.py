@@ -1,0 +1,164 @@
+"""The port's serving command line end to end (CPU), as
+`tests/test_serving_e2e.py::TestServeCliEndToEnd` drives the reference's.
+
+A tiny checkpoint written by the port (`training/pipeline.py:
+save_dalle_checkpoint`, its dVAE inside; the config names no vocabulary,
+so the default one serves) is served by `python -m
+dalle_pytorch_tpu_torch.serve --device cpu --port 0`: the readiness line,
+/healthz, two concurrent /generate requests coalesced into one batch, the
+trace dump and a clean exit 0 on SIGTERM. Without `--device cpu` and with
+no card it fails and names the card; the reference's flags the port does
+not offer are refused by the parser.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from dalle_pytorch_tpu_torch.data.tokenizer import get_tokenizer
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.serve import parse_args
+from dalle_pytorch_tpu_torch.training.pipeline import dalle_config, dvae_hparams, save_dalle_checkpoint
+from dalle_pytorch_tpu_torch.weights import export_dvae_params
+
+REPO = Path(__file__).resolve().parent.parent
+VAE = dict(image_size=32, num_layers=3, num_tokens=32, codebook_dim=16, hidden_dim=8)
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    torch.manual_seed(0)
+    vocab = get_tokenizer().vocab_size
+    model = DALLE(dim=32, depth=1, heads=2, dim_head=16, num_image_tokens=32, image_fmap_size=4,
+                  num_text_tokens=vocab, text_seq_len=8, attn_impl="flash")
+    vae = DiscreteVAE(**VAE)
+    path = tmp_path_factory.mktemp("serve") / "dalle.npz"
+    save_dalle_checkpoint(str(path), dalle_config(model, bf16=False), model,
+                          vae_params=export_dvae_params(vae), vae_hparams=dvae_hparams(vae))
+    return path
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _post(port, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _scrape(text, name):
+    return float(next(ln for ln in text.splitlines() if ln.startswith(name + " ")).split()[1])
+
+
+def _serve(checkpoint, *flags, cwd):
+    return subprocess.Popen(
+        [sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--dalle_path", str(checkpoint), *flags],
+        cwd=cwd, env={**os.environ, "PYTHONPATH": str(REPO)}, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+
+
+def test_serve_cli_on_the_cpu(checkpoint, tmp_path):
+    trace_dump = tmp_path / "traces.json"
+    proc = _serve(checkpoint, "--device", "cpu", "--port", "0", "--batch_shapes", "1,2",
+                  "--max_delay_ms", "2000", "--trace_dump", str(trace_dump), cwd=tmp_path)
+    try:
+        lines, port = [], None
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "listening on" in line:
+                port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+                break
+        assert port is not None, "".join(lines)
+        assert "engine=micro" in lines[-1] and "device=cpu" in lines[-1]
+        assert any('"event": "warmup_done"' in ln for ln in lines)
+        status, body = _get(port, "/healthz")
+        assert status == 200 and json.loads(body)["status"] == "ok"
+
+        results = {}
+        threads = [
+            threading.Thread(target=lambda s=s: results.setdefault(s, _post(port, {"prompt": "red", "seed": s})))
+            for s in (1, 2)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        for s in (1, 2):
+            status, payload = results[s]
+            assert status == 200 and payload["shape"] == [1, 32, 32, 3] and len(payload["tokens"][0]) == 16
+        status, text = _get(port, "/metrics")
+        assert _scrape(text, "dalle_serving_requests_total") == 2
+        assert _scrape(text, "dalle_serving_batches_total") == 1  # coalesced
+        assert _scrape(text, "dalle_serving_batch_occupancy_rows_sum") == 2
+        status, body = _get(port, "/debug/traces")
+        live = json.loads(body)
+        assert any(e.get("name") == "generate" for e in live["traceEvents"])
+
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+        assert "draining queue and shutting down" in out and "[serve] shutdown complete" in out
+        requests = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        assert sum(1 for r in requests if r.get("event") == "request" and r["status"] == 200) == 2
+        dumped = json.loads(trace_dump.read_text())
+        assert len(dumped["traceEvents"]) >= len(live["traceEvents"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="holds the failure on a machine with no card")
+def test_serve_cli_without_a_card_names_it(checkpoint, tmp_path):
+    proc = _serve(checkpoint, "--port", "0", cwd=tmp_path)
+    out, _ = proc.communicate(timeout=240)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in out and "NVIDIA GPU" in out
+    assert "listening on" not in out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--router"], ["--replicas", "http://a"], ["--supervise"], ["--mesh", "dp=1,tp=4"],
+    ["--compile_cache", "cache"], ["--no_vitals"], ["--slo_ttft_ms", "500"], ["--trace_export", "http://c"],
+    ["--profile_dir", "p"], ["--no_program_costs"],
+])
+def test_flags_not_offered_are_refused(flags, capsys):
+    with pytest.raises(SystemExit) as err:
+        parse_args(["--dalle_path", "x.npz", *flags])
+    assert err.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--checkpoint_spool", "d"], "needs --engine continuous"),
+    (["--reserve_slots", "8"], "--reserve_slots must be in"),
+    (["--tenant_weights", "a=0"], "bad --tenant_weights"),
+    (["--request_log_max_mb", "5"], "needs --request_log_path"),
+])
+def test_flag_checks(flags, message, capsys):
+    with pytest.raises(SystemExit):
+        parse_args(["--dalle_path", "x.npz", *flags])
+    assert message in capsys.readouterr().err
+    args = parse_args(["--dalle_path", "x.npz", "--tenant_weights", "a=4,b=1", "--batch_shapes", "1,4"])
+    assert args.device == "cuda" and args.tenant_weights == {"a": 4.0, "b": 1.0} and args.batch_shapes == (1, 4)

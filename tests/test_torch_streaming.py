@@ -11,9 +11,10 @@ and stream events from a real tiny engine.
   its pixels within 1e-5 (the same dVAE weights, float32).
 * Through the `ContinuousBatcher`: progress events rise chunk by chunk,
   previews arrive every `preview_every` chunks as [n, H, W, 3] in [0,
-  1], one terminal "result" carries tokens equal to a non-streamed run;
-  a migrated stream ends with one "migrated" event carrying the
-  checkpoint.
+  1], the future's tokens equal a non-streamed run's, and the batcher
+  writes no terminal event (the stream's reader does, from the future:
+  `tests/test_torch_server.py` holds the HTTP server's); a migrated
+  stream's future carries the checkpoint its terminal event ships.
 """
 
 import threading
@@ -28,7 +29,7 @@ from dalle_pytorch_tpu.serving.streaming import encode_sse as j_encode_sse
 from dalle_pytorch_tpu.training.metrics import MetricsRegistry as JMetricsRegistry
 from dalle_pytorch_tpu_torch.serving.batcher import ContinuousBatcher
 from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine, PagedContinuousEngine, SampleSpec
-from dalle_pytorch_tpu_torch.serving.migrate import decode_checkpoint, from_wire
+from dalle_pytorch_tpu_torch.serving.migrate import MigratedError, decode_checkpoint
 from dalle_pytorch_tpu_torch.serving.streaming import (
     TERMINAL_TYPES,
     RequestStream,
@@ -106,6 +107,19 @@ def test_terminal_wins_once_and_seals_the_stream():
     assert [t for _s, t, _d in events] == ["result"] and not drained
     events, drained = s.next_events(s.end_seq(), timeout=0.0)
     assert events == [] and drained
+
+
+def test_wake_ends_the_readers_wait():
+    s = RequestStream(key="k")
+    s.wake()  # before the reader waits: sticky
+    t0 = time.monotonic()
+    assert s.next_events(0, timeout=5.0) == ([], False)
+    waker = threading.Timer(0.05, s.wake)
+    waker.start()
+    assert s.next_events(0, timeout=5.0) == ([], False)
+    waker.join(5)
+    assert time.monotonic() - t0 < 2.0
+    assert s.next_events(0, timeout=0.01) == ([], False)  # a wake is seen once
 
 
 def test_ring_is_bounded_with_absolute_seqs():
@@ -237,9 +251,9 @@ def test_stream_events_from_a_real_engine(models, paged):
     for d in previews:
         assert d["rows"] == [0, 1] and d["pixels"].shape == (2, size, size, 3)
         assert 0.0 <= d["pixels"].min() and d["pixels"].max() <= 1.0
-    assert len(terminal) == 1 and terminal[0][0] == "result" and events[-1][0] == "result"
-    assert terminal[0][1]["tokens"] == toks.tolist() and terminal[0][1]["num_images"] == 2
-    assert stream.finished and not drained
+    # the terminal event is the reader's, written from the resolved future
+    assert terminal == [] and events[-1][0] == "progress"
+    assert not stream.finished and not drained
     counts = {k: int(c.value) for k, c in b.registry.get("dalle_serving_stream_events_total").items()}
     assert counts == {"progress": N_CHUNKS, "preview": len(previews)}
     assert pixels.shape == (2, size, size, 3)
@@ -255,15 +269,18 @@ def test_a_migrated_stream_ends_with_its_checkpoint(models):
     b = ContinuousBatcher(eng, preview_every=1)
     stream = RequestStream(key="m1")
     try:
-        b.submit(_specs(1, seed=80), request_key="m1", stream=stream)
+        req = b.submit(_specs(1, seed=80), request_key="m1", stream=stream)
         assert reached.wait(30)
         cps = _export(b, gate)
     finally:
         b.shutdown()
     events, _ = _events(stream)
-    assert [t for t, _ in events] == ["progress", "preview", "progress", "preview", "migrated"]
-    data = events[-1][1]
-    assert data["resumed_at_chunk"] == 2
-    back = decode_checkpoint(from_wire(data["checkpoint"]), b.checkpoint_fingerprint)
+    assert [t for t, _ in events] == ["progress", "preview", "progress", "preview"]
+    assert not stream.finished  # the reader ends it with the "migrated" event
+    with pytest.raises(MigratedError) as err:
+        req.future.result(0)
+    cp = err.value.checkpoint
+    assert cp.chunk_index == 2 and cp.request_key == "m1"
+    back = decode_checkpoint(cp.encoded, b.checkpoint_fingerprint)  # encoded once, shipped as is
     np.testing.assert_array_equal(back.rows[0].tokens, cps[0].rows[0].tokens)
     assert back.rows[0].pos == 2 * CHUNK
