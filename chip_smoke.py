@@ -167,7 +167,19 @@ Phases, each failing loudly (nonzero exit, no result line):
    stream's events; launches exact); a drain with migration past
    DRAIN_AT (409s with checkpoints, /healthz 503, then 200 resumes by the
    margin rule with `usage.resumed_tokens` at each position); a request
-   timing out mid-decode (504, its slot freed).
+   timing out mid-decode (504, its slot freed);
+12. the trainer (`python -m dalle_pytorch_tpu_torch.train_dalle`, run
+   in-process) at the flagship width, depth TRAINER_DEPTH (2; a cut that holds its time)
+   (forward_reverse_partial, bf16 autocast, batch 4 of rainbow:32): a
+   seeded 256 px dVAE checkpoint, its encode on the card held to its CPU
+   run (VAE_ENCODE_TOL); run A (one epoch: the in-step encode, step
+   checkpoints at 4 and 8, one sample at step 5), run B (`--resume
+   --epochs 2`: step 8, Adam count 8 and the plateau state restored,
+   steps 9-16); flash-attention launches counted exactly around each run
+   (2 x depth a step each way), the sample's flash-decode launches, the
+   losses finite, the final export served by `engine_from_checkpoint`;
+   ms a step, samples a second, MFU, input wait, checkpoint and export
+   seconds and peak memory printed.
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -3754,6 +3766,197 @@ def run_continuous_server(torch, model, vae, specs, reference):
     return summary
 
 
+# phase 12: the trainer end to end at flagship width
+TRAINER_DEPTH = 2  # a depth cut that holds the phase's time; the width is the flagship's
+TRAINER_SAMPLES = 32  # rainbow:32 at batch 4: 8 steps an epoch
+TRAINER_SAVE_EVERY = 4  # run A's step checkpoints: step 4 (mid-epoch) and 8
+# the dVAE encode's fp32 logits on the card against its plain CPU run
+# (absolute; the logits are O(1) and each sums 1024 products in another order)
+VAE_ENCODE_TOL = 1e-4
+
+
+def trainer_args(run_dir, vae_path, *extra):
+    """The trainer's flags for phase 12: the flagship's width (dim 1024,
+    16 heads of 64, 256 text tokens, shift and rotary) at TRAINER_DEPTH,
+    forward_reverse_partial, bf16 autocast, attn_impl "auto" (N = 1280
+    takes the flash kernels), the plateau scheduler on, step checkpoints
+    every TRAINER_SAVE_EVERY steps, the newest kept."""
+    return [
+        "--device", "cuda", "--image_text_folder", f"rainbow:{TRAINER_SAMPLES}",
+        "--vae_path", str(vae_path), "--batch_size", "4", "--exp", "r",
+        "--set", "model.dim=1024", "--set", f"model.depth={TRAINER_DEPTH}",
+        "--set", "model.heads=16", "--set", "model.dim_head=64", "--set", "model.text_seq_len=256",
+        "--set", "model.shift_tokens=true", "--set", "model.rotary_emb=true",
+        "--set", "lr_decay=true", "--set", f"save_every_n_steps={TRAINER_SAVE_EVERY}",
+        "--set", "keep_n_checkpoints=1", "--set", f"output_dir={run_dir}", *extra,
+    ]
+
+
+def check_vae_encode(torch, vae_path):
+    """Phase 12: the dVAE's encode (the in-step encode's function) on the
+    card against its plain CPU run on the same four rainbow images at
+    256 px: logits within VAE_ENCODE_TOL, tokens identical wherever the
+    CPU run's top-2 gap exceeds twice it. Returns (max abs error, share
+    of identical tokens)."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.rainbow import RainbowDataset
+    from dalle_pytorch_tpu_torch.training.pipeline import load_vae_checkpoint
+
+    ds = RainbowDataset(num_samples=TRAINER_SAMPLES, image_size=256)
+    images = torch.from_numpy(np.stack([ds.image(i) for i in range(4)]))
+    vae = load_vae_checkpoint(str(vae_path)).eval()
+    with torch.no_grad():
+        ref = vae.encode_logits(images)
+        got = vae.cuda().encode_logits(images.cuda()).cpu()
+    err = (got - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * VAE_ENCODE_TOL
+    same = got.argmax(-1) == ref.argmax(-1)
+    share = same.float().mean().item()
+    print(f"check dVAE encode on the card vs CPU (4 x 256 px, 8192 codes): max abs err {err:.3g} "
+          f"(tol {VAE_ENCODE_TOL}), identical tokens {share:.6f}, clear of the tolerance "
+          f"{clear.float().mean().item():.6f}")
+    if not err <= VAE_ENCODE_TOL:
+        fail(f"the dVAE encode on the card is {err} from its CPU run")
+    if not bool(same[clear].all()):
+        fail("the dVAE encode on the card picked another token where the top-2 gap is clear")
+    return err, share
+
+
+def _npz_entries(path, *keys):
+    """Single entries of an npz (read lazily) and its JSON metadata."""
+    import numpy as np
+
+    with np.load(path) as z:
+        return json.loads(str(z["__metadata__"])), [z[k] for k in keys]
+
+
+def run_trainer(torch, smi):
+    """Phase 12: the trainer twin (`dalle_pytorch_tpu_torch.train_dalle.main`,
+    in-process) on the card. A seeded dVAE checkpoint at the flagship
+    geometry (256 px, 3 layers, 8192 codes: 1024 image tokens), its encode
+    held to its CPU run; run A, `--epochs 1` on rainbow:32 at batch 4 (8
+    steps, the in-step encode, step checkpoints at 4 and 8, one sample at
+    step 5 through the cached sampler and the dVAE decode); run B,
+    `--resume --epochs 2` from run A's directory (restores step 8, its
+    Adam count and plateau state; steps 9-16). The flash-attention
+    launches are read from zero around each run: 2 x depth a step each
+    for the forward and the backward (two objectives); flash decode
+    depth x 1025 for the sample. The final export loads through
+    `engine_from_checkpoint`. The phase runs under torch's default
+    precision settings (cuDNN may use TF32), as the CLI runs, not the
+    script's TF32-free ones, so the encode check holds the encode's own
+    float32 pin. ms_per_step is the mean of run B's eight steps, each
+    timed by a CUDA event pair around it (exports, step checkpoints and
+    cadence reads fall between steps); the throughput meter's reading
+    (the host's clock over its last interval) is printed beside it. Peak
+    memory is the runs' own, above what earlier phases still hold. The
+    run directory (exports and step
+    checkpoints of ~1.4 GB with the Adam state) is removed at the end.
+    Returns the summary."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention
+    from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
+    from dalle_pytorch_tpu_torch.training.pipeline import save_vae_checkpoint
+    from dalle_pytorch_tpu_torch.utils.flops import mfu
+
+    run_dir = REPO / "build" / "chip_smoke" / "trainer"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, flash_decode_attention)
+    runs = {}
+    script_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    # torch's defaults, as `python -m dalle_pytorch_tpu_torch.train_dalle` runs
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        torch.manual_seed(SEED)
+        vae_path = run_dir / "vae.npz"
+        save_vae_checkpoint(str(vae_path), DiscreteVAE(
+            image_size=256, num_layers=3, num_tokens=8192, codebook_dim=512, hidden_dim=64))
+        encode_err, encode_share = check_vae_encode(torch, vae_path)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        for label, extra in (("A", ["--epochs", "1", "--set", "log_images_freq=5"]),
+                             ("B", ["--epochs", "2", "--resume", "--set", "log_images_freq=0"])):
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            summary = train_dalle.main(trainer_args(run_dir, vae_path, *extra))
+            torch.cuda.synchronize()
+            summary["wall_s"] = time.perf_counter() - t0
+            summary["launches"] = {c.__name__: c.launches for c in counters}
+            runs[label] = summary
+            if label == "A":
+                step_meta, (count,) = _npz_entries(run_dir / "dalle_ckpt" / "step_00000008.npz",
+                                                   "opt/0002")
+        peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+        a, b = runs["A"], runs["B"]
+        final_meta, (final_count,) = _npz_entries(b["out_file"], "opt/0002")
+        t0 = time.perf_counter()
+        engine = engine_from_checkpoint(b["out_file"], batch_shapes=(1,), device="cuda")
+        engine_s = time.perf_counter() - t0
+        engine_depth = engine.model.depth
+        del engine
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    steps = TRAINER_SAMPLES // 4
+    attn = 2 * TRAINER_DEPTH * steps
+    expect = {
+        "A": {"flash_attention_fwd": attn, "flash_attention_bwd": attn,
+              "flash_decode_attention": TRAINER_DEPTH * (1 + 1024)},
+        "B": {"flash_attention_fwd": attn, "flash_attention_bwd": attn, "flash_decode_attention": 0},
+    }
+    rate = b["rates"][0] if b["rates"] else {}
+    step_ms = b["step_ms"]
+    ms_per_step = sum(step_ms) / len(step_ms) if step_ms else float("nan")
+    result = dict(
+        depth=TRAINER_DEPTH, launches={k: r["launches"] for k, r in runs.items()},
+        run_wall_s={k: r["wall_s"] for k, r in runs.items()},
+        ms_per_step=ms_per_step, median_ms_per_step=sorted(step_ms)[len(step_ms) // 2] if step_ms else None,
+        step_ms={k: r["step_ms"] for k, r in runs.items()},
+        sample_per_sec=4e3 / ms_per_step,
+        mfu=mfu(4e3 / ms_per_step, b["flops_per_sample"], b["device_name"]),
+        input_wait_frac=rate.get("input_wait_frac"),
+        meter_sample_per_sec=rate.get("sample_per_sec"), meter_mfu=rate.get("mfu"),
+        meter_ms_per_step=1e3 * 4 / rate["sample_per_sec"] if rate else None,
+        step_checkpoint_host_s=a["save_s"] + b["save_s"], export_s=a["export_s"] + b["export_s"],
+        restore_s=b["load_s"], engine_load_s=engine_s, peak_memory_gib=peak_gib,
+        held_by_earlier_phases_gib=held / 2**30,
+        losses=b["losses"], last_loss={k: r["last_loss"] for k, r in runs.items()},
+        encode_max_abs_err=encode_err, encode_identical_share=encode_share, card=smi,
+    )
+    print("trainer " + json.dumps(result))
+    for label, want in expect.items():
+        if runs[label]["launches"] != want:
+            fail(f"trainer run {label} launched {runs[label]['launches']}, expected {want}")
+    if a["global_step"] != steps or step_meta.get("step") != steps or int(count) != steps:
+        fail(f"run A's step checkpoint: step {step_meta.get('step')}, Adam count {count}")
+    if (b["resumed_step"], b["resumed_adam_count"]) != (steps, steps) or (
+            b["resumed_plateau"] is None or b["resumed_plateau"] != step_meta.get("plateau")):
+        fail(f"run B restored step {b['resumed_step']}, Adam count {b['resumed_adam_count']}, "
+             f"plateau {b['resumed_plateau']} (checkpoint: {step_meta.get('plateau')})")
+    if b["global_step"] != 2 * steps or final_meta["train"]["global_step"] != 2 * steps or (
+            int(final_count) != 2 * steps):
+        fail(f"run B ended at step {b['global_step']}, Adam count {final_count}")
+    if not all(math.isfinite(r["last_loss"]) for r in runs.values()) or not b["losses"]:
+        fail(f"trainer losses not finite: {result['last_loss']}, {b['losses']}")
+    toks = a.get("sample_tokens")
+    if toks is None or toks.shape != (1, 1024) or toks.min() < 0 or toks.max() >= 8192:
+        fail("run A took no in-loop sample of 1024 tokens in range")
+    if not rate or engine_depth != TRAINER_DEPTH:
+        fail(f"run B logged no rate ({rate}) or the export served depth {engine_depth}")
+    if [len(r["step_ms"]) for r in runs.values()] != [steps, steps] or not math.isfinite(ms_per_step):
+        fail(f"the trainer timed {[len(r['step_ms']) for r in runs.values()]} steps, expected {steps} a run")
+    return result
+
+
 def resume_fields(row, err, runs):
     """The resume-shape entries of a kernel's line: phase 3's times at n =
     1280 and phase 10's launches per resume dispatch and resume walls."""
@@ -4058,6 +4261,11 @@ def main() -> int:
     print(f"phase 11 serving over HTTP ({smi}): {time.perf_counter() - t0:.1f} s (micro server "
           f"{t_micro:.1f} s; continuous server warmup {served['warmup_s']:.1f} s, "
           + ", ".join(f"{k} {v:.1f}" for k, v in served["walls"].items()) + ")")
+    # 12. the trainer end to end --------------------------------------------------------
+    t0 = time.perf_counter()
+    trainer = run_trainer(torch, smi)
+    print(f"phase 12 the trainer ({smi}): {time.perf_counter() - t0:.1f} s (run A "
+          f"{trainer['run_wall_s']['A']:.1f} s, run B {trainer['run_wall_s']['B']:.1f} s)")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # device time per call of phase 3's kernel rows, and the kernel the
@@ -4158,6 +4366,7 @@ def main() -> int:
                 cli_launches=cli_launches["cli_flash_decode"],
                 served_launches={"micro_server": served_micro["launches"]["flash_decode"],
                                  "continuous_server_qos": served["qos"]["launches"]["flash_decode"]},
+                trainer_sample_launches=trainer["launches"]["A"]["flash_decode_attention"],
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
@@ -4168,7 +4377,8 @@ def main() -> int:
                 "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
                 "9's generation CLI (2 prompts x one batch of 4, prefill included); served_launches: "
                 "phase 11's HTTP runs, all arms (the micro server's batch of 4 at depth 12; the "
-                "continuous server's QoS run at depth 4, its prefill and resume waves included)",
+                "continuous server's QoS run at depth 4, its prefill and resume waves included); "
+                "trainer_sample_launches: phase 12's in-loop sample (fp32, all arms, prefill included)",
             ),
             dict(
                 name="flash_decode_tile_f32",
@@ -4222,12 +4432,14 @@ def main() -> int:
                 **attn_times[name],
                 **({"oracle_launches": cli_launches["oracle_flash_attention_fwd"]}
                    if name.endswith("fwd") else {}),
+                trainer_launches={run: n[name] for run, n in trainer["launches"].items()},
                 timed="bf16 causal B=4 H=16 N=1280 D=64"
                 + ("" if name.endswith("fwd") else "; one fused kernel for dq, dk and dv; "
                    "library_ms is SDPA's whole backward, whole_backward_ms the port's (delta "
                    "+ workspace zeroing + kernel + dq conversion)")
                 + "; fp32_*: the same shapes in fp32 (the 3xTF32 tensor-core kernels), bound at three "
-                "times the flops at the TF32 peak",
+                "times the flops at the TF32 peak; trainer_launches: phase 12's trainer runs A and B "
+                f"(8 steps each at depth {TRAINER_DEPTH}, two objectives a step)",
             )
             for name, line in (
                 ("flash_attention_fwd", "129"),

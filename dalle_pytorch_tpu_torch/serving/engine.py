@@ -1145,7 +1145,7 @@ def engine_from_checkpoint(
             "JAX package) is not ported yet"
         )
     dev = resolve_device(device)
-    config, dalle_tree, vae_tree, meta = load_dalle_checkpoint(dalle_path)
+    config, dalle_tree, vae_tree, meta, _ = load_dalle_checkpoint(dalle_path, opt=False)
     if meta.get("vae_class_name") != "DiscreteVAE" or vae_tree is None:
         raise NotImplementedError(
             f"checkpoint VAE {meta.get('vae_class_name')!r}: only a DiscreteVAE "

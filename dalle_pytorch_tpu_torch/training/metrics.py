@@ -1,23 +1,33 @@
-"""Prometheus-style metric instruments for the serving layer.
+"""Prometheus-style metric instruments for the serving layer, and the
+trainer's logger, throughput meter and profiler hook.
 
-Counterpart of the registry half of the JAX package's
-`training/metrics.py`: `Counter`, `Gauge`, `Histogram`, the one-label
-`Family` and `MetricsRegistry`, which renders the Prometheus text
-exposition and, with `render(exemplars=True)`, the OpenMetrics flavour
-whose histogram buckets carry the trace ID of their most recent
-exemplar-carrying observation (`GET /metrics?exemplars=1`). Stdlib only
-and thread-safe: the batcher's worker and the HTTP handlers observe
-concurrently. The instrument names the serving layer registers are the
-reference's (`dalle_serving_*`). The training loggers, throughput meter,
-profiler hook and exposition parser of that module are not ported yet.
+Counterpart of the JAX package's `training/metrics.py`:
+
+* `Counter`, `Gauge`, `Histogram`, the one-label `Family` and
+  `MetricsRegistry`, which renders the Prometheus text exposition and,
+  with `render(exemplars=True)`, the OpenMetrics flavour whose histogram
+  buckets carry the trace ID of their most recent exemplar-carrying
+  observation (`GET /metrics?exemplars=1`). Stdlib only and thread-safe:
+  the batcher's worker and the HTTP handlers observe concurrently. The
+  instrument names the serving layer registers are the reference's
+  (`dalle_serving_*`).
+* `MetricsLogger`: scalars and images to wandb when it imports, else to
+  `<out_dir>/metrics.jsonl` and PNG grids (`utils/images.py`, no PIL);
+  `ThroughputMeter`: samples a second over interval crossings;
+  `ProfilerHook`: a `torch.profiler` trace of one step, written as a
+  Chrome trace, after which the trainer stops.
+
+The exposition parser of that module is not ported yet.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import threading
 import time
 from collections import deque
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 
@@ -286,3 +296,153 @@ class MetricsRegistry:
         if exemplars:
             lines.append("# EOF")
         return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------------------ training logs
+
+
+class MetricsLogger:
+    """The trainer's scalars and sample images: to a wandb run when wandb
+    imports and starts (disabled under `debug`), else to
+    `<out_dir>/metrics.jsonl` (one JSON object a `log`) and
+    `<out_dir>/<name>_<step>.png` grids. Nothing when not `enabled`."""
+
+    def __init__(
+        self,
+        project: str,
+        config: Optional[dict] = None,
+        enabled: bool = True,
+        debug: bool = False,
+        run_name: Optional[str] = None,
+        out_dir: str = "logs",
+        entity: Optional[str] = None,
+    ):
+        self.enabled = enabled
+        self.out_dir = Path(out_dir)
+        self.run = None
+        self._jsonl = None
+        if not enabled:
+            return
+        try:
+            import wandb
+
+            self.run = wandb.init(
+                project=project, name=run_name, entity=entity, config=config or {},
+                mode="disabled" if debug else "online",
+            )
+        except Exception:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(self.out_dir / "metrics.jsonl", "a")
+
+    def log(self, data: dict, step: Optional[int] = None) -> None:
+        if not self.enabled:
+            return
+        scalars = {
+            k: (float(v) if hasattr(v, "item") or isinstance(v, (int, float)) else v)
+            for k, v in data.items()
+        }
+        if self.run is not None:
+            self.run.log(scalars, step=step)
+        elif self._jsonl is not None:
+            self._jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
+            self._jsonl.flush()
+
+    def log_images(self, images, caption: str, name: str, step: int) -> None:
+        """`images` [H, W, C] or [N, H, W, C], about [0, 1]."""
+        if not self.enabled:
+            return
+        if self.run is not None:
+            import wandb
+
+            self.run.log({name: wandb.Image(images, caption=caption)}, step=step)
+            return
+        import numpy as np
+
+        from dalle_pytorch_tpu_torch.utils.images import save_image_grid
+
+        imgs = np.asarray(images)
+        if imgs.ndim == 3:
+            imgs = imgs[None]
+        save_image_grid(imgs, self.out_dir / f"{name}_{step}.png")
+
+    def log_model_artifact(self, path, name: str = "trained-dalle") -> None:
+        """Upload a checkpoint as a run artifact; nothing without a live
+        wandb run (the file is on disk already)."""
+        if not self.enabled or self.run is None:
+            return
+        try:
+            import wandb
+
+            art = wandb.Artifact(name, type="model")
+            art.add_file(str(path))
+            self.run.log_artifact(art)
+        except Exception as e:  # an upload must never stop training
+            print(f"[metrics] artifact upload failed: {e}")
+
+    def finish(self) -> None:
+        if self.run is not None:
+            self.run.finish()
+        if self._jsonl is not None:
+            self._jsonl.close()
+
+
+class ThroughputMeter:
+    """Samples a second, at each crossing of a multiple of `interval`
+    steps, over the true step delta (a window may advance several)."""
+
+    def __init__(self, interval: int = 10):
+        self.interval = interval
+        self._t0 = None
+        self._step0 = None
+
+    def update(self, step: int, batch_size: int) -> Optional[float]:
+        if self._t0 is None:  # starts at the first call, whatever its step
+            self._t0 = time.time()
+            self._step0 = step
+            return None
+        if step // self.interval > self._step0 // self.interval:
+            now = time.time()
+            rate = batch_size * (step - self._step0) / (now - self._t0)
+            self._t0 = now
+            self._step0 = step
+            return rate
+        return None
+
+
+class ProfilerHook:
+    """A `torch.profiler` trace (CPU and, on a card, CUDA activity) of the
+    first step at or after `profile_step`, written to
+    `<out_dir>/trace_step_<step>.json`; `after_step` then says stop."""
+
+    def __init__(self, enabled: bool, profile_step: int = 200, out_dir: str = "profiles"):
+        self.enabled = enabled
+        self.profile_step = profile_step
+        self.out_dir = out_dir
+        self._prof = None
+        self._done = False
+
+    def before_step(self, step: int) -> None:
+        if self.enabled and not self._done and self._prof is None and step >= self.profile_step:
+            import torch
+
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.__enter__()
+
+    def after_step(self, step: int) -> bool:
+        """True when training should stop (the trace is written)."""
+        if self._prof is not None:
+            import torch
+
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self._prof.__exit__(None, None, None)
+            Path(self.out_dir).mkdir(parents=True, exist_ok=True)
+            path = Path(self.out_dir) / f"trace_step_{step}.json"
+            self._prof.export_chrome_trace(str(path))
+            self._prof = None
+            self._done = True
+            print(f"[profiler] trace for step {step} written to {path}")
+        return self.enabled and self._done

@@ -1,21 +1,26 @@
-"""Models and tokenizers from a checkpoint's metadata, and the DALLE and
-CLIP checkpoint writers and loaders.
+"""Models, tokenizers and datasets from a config, and the DALLE, dVAE
+and CLIP checkpoint writers and loaders.
 
 Counterparts of the JAX package's `training/pipeline.py:build_tokenizer`,
-`dalle_from_config`, `dvae_from_hparams`, `save_dalle_checkpoint`,
-`load_dalle_checkpoint`, `clip_hparams`, `save_clip_checkpoint` and
-`load_clip_checkpoint`,
-with the plain dicts stored in the checkpoint's metadata (the `config`
-dict of the training config, the `vae_hparams` dict) in place of config
-dataclasses. `dalle_config` builds that dict from a port DALLE, with only
-keys the reference's config knows, so a checkpoint written here loads in
-the JAX package's `load_dalle_checkpoint` as well as in the port.
+`build_dataset`, `vae_from_config`, `dvae_hparams`, `dvae_from_hparams`,
+`save_vae_checkpoint`, `load_vae_checkpoint`, `build_vae`,
+`dalle_from_config`, `save_dalle_checkpoint`, `load_dalle_checkpoint`,
+`restore_opt_state`, `clip_hparams`, `save_clip_checkpoint` and
+`load_clip_checkpoint`. The model builders take the plain dicts a
+checkpoint's metadata stores (the `config` dict of the training config,
+`training/config.py:config_to_dict`, and the `vae_hparams` dict) in
+place of config dataclasses. `dalle_config` builds that dict from a port
+DALLE, with only keys the reference's config knows, so a checkpoint
+written here loads in the JAX package's `load_dalle_checkpoint` as well
+as in the port. The port's modules hold their weights: the loaders
+return modules, and the writers read the weights from them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch import __version__
@@ -24,7 +29,15 @@ from dalle_pytorch_tpu_torch.models.clip import CLIP
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz, save_params_npz
-from dalle_pytorch_tpu_torch.weights import export_clip_params, export_dalle_params, load_clip_params
+from dalle_pytorch_tpu_torch.weights import (
+    dalle_opt_shapes,
+    export_clip_params,
+    export_dalle_params,
+    export_dvae_params,
+    load_clip_params,
+    load_dalle_opt_state,
+    load_dvae_params,
+)
 
 
 def _csv(spec) -> Tuple[str, ...]:
@@ -44,6 +57,63 @@ def build_tokenizer(config: dict):
         chinese=config.get("chinese", False), yttm=config.get("yttm", False),
         native=config.get("native", False),
     )
+
+
+def build_dataset(cfg, tokenizer, image_size: int):
+    """The dataset `cfg` names (a `TrainConfig`): tar shards with
+    `cfg.wds` ("image_key,text_key"), the seeded rainbow set for
+    "rainbow[:N]" (N samples, 1024 by default; also when no folder is
+    given), else a `TextImageDataset` over the folder."""
+    if cfg.wds:
+        from dalle_pytorch_tpu_torch.data.webdataset import TarImageTextDataset
+
+        cols = [c.strip() for c in cfg.wds.split(",")]
+        img_key, txt_key = (cols + ["jpg", "txt"])[:2]
+        if not cfg.image_text_folder:
+            raise ValueError("--image_text_folder must point at the tar shards")
+        return TarImageTextDataset(
+            cfg.image_text_folder,
+            image_key=img_key,
+            text_key=txt_key,
+            text_len=cfg.model.text_seq_len,
+            image_size=image_size,
+            truncate_captions=cfg.truncate_captions,
+            resize_ratio=cfg.resize_ratio,
+            tokenizer=tokenizer,
+        )
+    folder = cfg.image_text_folder or "rainbow"
+    if folder.startswith("rainbow"):
+        n = int(folder.split(":")[1]) if ":" in folder else 1024
+        return RainbowBatches(n, image_size, tokenizer, cfg.model.text_seq_len)
+    from dalle_pytorch_tpu_torch.data.loader import TextImageDataset
+
+    return TextImageDataset(
+        folder,
+        text_len=cfg.model.text_seq_len,
+        image_size=image_size,
+        truncate_captions=cfg.truncate_captions,
+        resize_ratio=cfg.resize_ratio,
+        tokenizer=tokenizer,
+        class_name_json=cfg.class_name_json,
+    )
+
+
+class RainbowBatches:
+    """A `RainbowDataset` with the datasets' `batches` signature (its
+    tokenizer and text length bound)."""
+
+    def __init__(self, num_samples: int, image_size: int, tokenizer, text_seq_len: int):
+        from dalle_pytorch_tpu_torch.data.rainbow import RainbowDataset
+
+        self.ds = RainbowDataset(num_samples=num_samples, image_size=image_size)
+        self.tokenizer, self.text_seq_len = tokenizer, text_seq_len
+
+    def __len__(self):
+        return len(self.ds)
+
+    def batches(self, batch_size, shuffle_seed=None, shard=(0, 1), **kw):
+        return self.ds.batches(batch_size, self.tokenizer, self.text_seq_len,
+                               shuffle_seed=shuffle_seed, shard=shard, **kw)
 
 
 def dalle_from_config(
@@ -142,15 +212,19 @@ def save_dalle_checkpoint(
     vae_class_name: str = "DiscreteVAE",
     vae_hparams: Optional[dict] = None,
     train_meta: Optional[dict] = None,
+    opt_state: Optional[Sequence[np.ndarray]] = None,
 ) -> None:
     """Write `model` as the reference's single-file DALLE checkpoint: the
     DALLE tree (and `vae_params`, a reference dVAE tree, when given) with
     the metadata {type, version, epoch, vae_class_name, vae_hparams,
-    config, train}. The optimizer state is not written (the reference's
-    optional `opt` leaves follow optax's layout)."""
+    config, train}; `opt_state`, the optimizer's leaves
+    (`weights.py:export_dalle_opt_state`), goes in as the `opt` tree, as
+    the reference writes it."""
     trees = {"dalle": export_dalle_params(model)}
     if vae_params is not None:
         trees["vae"] = vae_params
+    if opt_state is not None:
+        trees["opt"] = opt_tree(opt_state)
     save_params_npz(
         path,
         trees,
@@ -166,37 +240,114 @@ def save_dalle_checkpoint(
     )
 
 
+def opt_tree(leaves: Sequence[np.ndarray]) -> dict:
+    """Optimizer leaves -> the checkpoint's `opt` tree ("0000", "0001", ...)."""
+    return {f"{i:04d}": np.asarray(leaf) for i, leaf in enumerate(leaves)}
+
+
+def opt_leaves(tree: dict) -> List[np.ndarray]:
+    """The checkpoint's `opt` tree -> its leaves, in numeric order."""
+    return [tree[k] for k in sorted(tree, key=int)]
+
+
+_DVAE_TRAIN_HPARAMS = ("smooth_l1_loss", "temperature", "straight_through", "reinmax",
+                       "kl_div_loss_weight")
+
+
 def dvae_hparams(vae: DiscreteVAE) -> dict:
-    """The checkpoint `vae_hparams` dict of a port DiscreteVAE."""
-    return {
-        "image_size": vae.image_size,
-        "num_tokens": vae.num_tokens,
-        "codebook_dim": vae.codebook.embedding_dim,
-        "num_layers": vae.num_layers,
-        "num_resnet_blocks": vae.num_resnet_blocks,
-        "hidden_dim": vae.dec_head.in_channels,
-        "channels": vae.dec_head.out_channels,
-    }
+    """The checkpoint `vae_hparams` dict of a port DiscreteVAE (the
+    reference's keys)."""
+    keys = ("image_size", "num_tokens", "codebook_dim", "num_layers", "num_resnet_blocks",
+            "hidden_dim", "channels") + _DVAE_TRAIN_HPARAMS
+    return {k: getattr(vae, k) for k in keys}
 
 
 def dvae_from_hparams(h: dict) -> DiscreteVAE:
+    defaults = dict(num_resnet_blocks=0, channels=3, smooth_l1_loss=False, temperature=0.9,
+                    straight_through=False, reinmax=False, kl_div_loss_weight=0.0)
+    return DiscreteVAE(**{**defaults, **h})
+
+
+def vae_from_config(vcfg) -> DiscreteVAE:
+    """A DiscreteVAE from a `VaeConfig` (random weights)."""
     return DiscreteVAE(
-        image_size=h["image_size"],
-        num_tokens=h["num_tokens"],
-        codebook_dim=h["codebook_dim"],
-        num_layers=h["num_layers"],
-        num_resnet_blocks=h.get("num_resnet_blocks", 0),
-        hidden_dim=h["hidden_dim"],
-        channels=h.get("channels", 3),
+        image_size=vcfg.image_size,
+        num_tokens=vcfg.num_tokens,
+        codebook_dim=vcfg.codebook_dim,
+        num_layers=vcfg.num_layers,
+        num_resnet_blocks=vcfg.num_resnet_blocks,
+        hidden_dim=vcfg.hidden_dim,
+        channels=vcfg.channels,
+        smooth_l1_loss=vcfg.smooth_l1_loss,
+        temperature=vcfg.temperature,
+        straight_through=vcfg.straight_through,
+        reinmax=vcfg.reinmax,
+        kl_div_loss_weight=vcfg.kl_loss_weight,
     )
 
 
-def load_dalle_checkpoint(path: str):
-    """Returns (config dict, dalle tree, vae tree or None, metadata)."""
+def save_vae_checkpoint(path: str, vae: DiscreteVAE, epoch: int = 0) -> None:
+    """The reference's single-file dVAE checkpoint: the tree and
+    {type, version, epoch, hparams}."""
+    save_params_npz(
+        path,
+        export_dvae_params(vae),
+        metadata={"type": "DiscreteVAE", "version": __version__, "epoch": epoch,
+                  "hparams": dvae_hparams(vae)},
+    )
+
+
+def load_vae_checkpoint(path: str) -> DiscreteVAE:
+    """A float32 DiscreteVAE with the checkpoint's weights, on the CPU."""
     params, meta = load_params_npz(path)
+    if meta.get("type") != "DiscreteVAE":
+        raise ValueError(f"{path} is not a dVAE checkpoint")
+    return load_dvae_params(dvae_from_hparams(meta["hparams"]), params)
+
+
+def build_vae(cfg) -> DiscreteVAE:
+    """The trainer's VAE: the trained dVAE at `cfg.vae_path`. The VQGAN
+    (`--taming`) and the OpenAI dVAE (the reference's default when no path
+    is given) are pretrained wrappers that are not ported (ROADMAP Queue
+    1 item 7), and no weights for them are here."""
+    if cfg.vae_path:
+        return load_vae_checkpoint(cfg.vae_path)
+    which = "the VQGAN (--taming)" if cfg.taming else "the OpenAI dVAE (the default without --vae_path)"
+    raise NotImplementedError(
+        f"{which} is a pretrained VAE wrapper, not ported yet (ROADMAP Queue 1 item 7); "
+        "train from a DiscreteVAE checkpoint with --vae_path"
+    )
+
+
+def load_dalle_checkpoint(path: str, opt: bool = True):
+    """Returns (config dict, dalle tree, vae tree or None, metadata,
+    optimizer leaves or None); `restore_opt_state` takes the leaves.
+    `opt=False` leaves the optimizer state unread (None)."""
+    params, meta = load_params_npz(path, skip=() if opt else ("opt",))
     if meta.get("type") != "DALLE":
         raise ValueError(f"{path} is not a DALLE checkpoint")
-    return meta["config"], params["dalle"], params.get("vae"), meta
+    leaves = opt_leaves(params["opt"]) if "opt" in params else None
+    return meta["config"], params["dalle"], params.get("vae"), meta, leaves
+
+
+def restore_opt_state(model: DALLE, optimizer, leaves) -> bool:
+    """Load saved optimizer leaves into `optimizer` (over `model`'s
+    parameters). On a mismatch of count or shapes (the optimizer config
+    changed) the optimizer stays fresh, with a warning, as the reference's
+    `restore_opt_state` leaves it. Returns whether the state was loaded."""
+    if leaves is None:
+        return False
+    shapes = dalle_opt_shapes(model)
+    if len(shapes) != len(leaves) or any(
+        shape != np.shape(leaf) for shape, leaf in zip(shapes, leaves)
+    ):
+        print(
+            "WARNING: checkpoint optimizer state does not match the current "
+            "optimizer (config changed?) — starting with a fresh optimizer"
+        )
+        return False
+    load_dalle_opt_state(model, optimizer, leaves)
+    return True
 
 
 def clip_hparams(clip: CLIP) -> dict:

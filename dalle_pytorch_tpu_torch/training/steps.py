@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's `training/steps.py` (`make_optimizer`,
 `get_learning_rate` / `set_learning_rate`, `make_dalle_train_step` with
-its `_accumulate` / `_microbatch`), for a batch of precomputed image
-tokens: {"text": [B, T] ids, "image_tokens": [B, N] ids}, the route
-`train_dalle.py --tokens_path` takes. The in-step dVAE encode and the
-pipeline-parallel trunk are not ported.
+its `_accumulate` / `_microbatch` and the in-step dVAE encode,
+`make_multi_step`, `window_keys`, `stack_batches`, `window_iter`). A
+batch is {"text": [B, T] ids, "image_tokens": [B, N] ids}, or with a
+frozen `vae` {"text", "images": [B, H, W, C] in [0, 1]}: the step then
+encodes the images to tokens first, without gradient, in the VAE's
+float32 and outside autocast. The pipeline-parallel trunk is not ported.
 
 Objective modes (`MODES`): forward_only is the text -> image loss;
 forward_forward adds the inverse (image -> text) loss in the same layer
@@ -19,7 +21,18 @@ The optimizer is optax's chain of `clip_by_global_norm` and `adam`
 (b1 0.9, b2 0.999, eps 1e-8): the clip scales every gradient by
 c / max(||g||, c) over the global norm, with no epsilon (not
 `clip_grad_norm_`'s c / (||g|| + 1e-6)), and the Adam update is
-torch's, the same formula. The learning rate is mutable.
+torch's, the same formula. The learning rate is mutable and held at
+float32 precision, as optax's injected hyperparameter is, so that it
+survives a checkpoint's float32 leaf exactly.
+
+`steps_per_dispatch` (`make_multi_step`): a window of T batches runs as T
+steps in turn and reports their mean metrics; each step takes its own
+key from `window_keys`, a pure function of (seed, global step), so a
+window, an epoch tail and a resumed run all draw what an uninterrupted
+one-step-at-a-time run draws. The window's batches stay separate: with
+no capture of the window as one CUDA graph (not done yet) there is
+nothing to gain from one copy, and `stack_batches` is the layout such a
+capture would take.
 
 Mixed precision: the reference keeps float32 parameters and computes in
 bfloat16 through flax's `dtype`, which also makes its residual stream
@@ -32,9 +45,12 @@ different places; losses agree closely, not bitwise.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
+
+from dalle_pytorch_tpu_torch.ops.sampling import row_seed
 
 MODES = ("forward_only", "forward_forward", "forward_reverse_partial", "reverse_only")
 
@@ -46,7 +62,7 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         self.clip_grad_norm = clip_grad_norm
         self.adam = torch.optim.Adam(
-            self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
+            self.params, lr=_f32(learning_rate), betas=(0.9, 0.999), eps=1e-8
         )
 
     @torch.no_grad()
@@ -65,6 +81,10 @@ class Optimizer:
         return norm
 
 
+def _f32(lr: float) -> float:
+    return float(np.float32(lr))
+
+
 def make_optimizer(params, learning_rate: float, clip_grad_norm: Optional[float] = None) -> Optimizer:
     """Adam with optional global-norm clipping; the learning rate is
     mutable (`set_learning_rate`)."""
@@ -77,7 +97,7 @@ def get_learning_rate(opt: Optimizer) -> float:
 
 def set_learning_rate(opt: Optimizer, lr: float) -> Optimizer:
     for group in opt.adam.param_groups:
-        group["lr"] = float(lr)
+        group["lr"] = _f32(lr)
     return opt
 
 
@@ -158,6 +178,14 @@ def accumulate_gradients(
     return {k: v / grad_accum for k, v in totals.items()}
 
 
+def encode_images(vae, images: torch.Tensor) -> torch.Tensor:
+    """The frozen dVAE's codebook indices of `images` [B, H, W, C]: no
+    gradient, in the VAE's float32 (without TF32: `encode_logits`),
+    outside any autocast."""
+    with torch.no_grad(), torch.autocast(images.device.type, enabled=False):
+        return vae.get_codebook_indices(images.float())
+
+
 def make_dalle_train_step(
     model,
     optimizer: Optimizer,
@@ -165,13 +193,19 @@ def make_dalle_train_step(
     grad_accum: int = 1,
     null_cond_prob: float = 0.0,
     autocast_dtype: Optional[torch.dtype] = torch.bfloat16,
+    vae=None,
 ) -> Callable:
     """step(batch, generator=None) -> metrics: one optimizer step on a
-    batch of {"text", "image_tokens"} (same device as the model).
+    batch (same device as the model) of {"text", "image_tokens"}, or of
+    {"text", "images"} when a frozen `vae` is given (the in-step encode).
     `autocast_dtype` None computes in the parameters' dtype."""
     loss_fn = make_dalle_loss(model, mode, null_cond_prob)
+    if vae is not None:
+        vae.eval().requires_grad_(False)
 
     def step(batch, generator: Optional[torch.Generator] = None):
+        if vae is not None and "image_tokens" not in batch:
+            batch = {"text": batch["text"], "image_tokens": encode_images(vae, batch["images"])}
         metrics = accumulate_gradients(
             model, loss_fn, batch, grad_accum, generator, autocast_dtype
         )
@@ -181,3 +215,54 @@ def make_dalle_train_step(
         return metrics
 
     return step
+
+
+def make_multi_step(step_fn: Callable, n_steps: int) -> Callable:
+    """multi(batches, keys) -> mean metrics: `step_fn(batch, key)` for
+    each of the window's `n_steps` batches in turn (a list of per-step
+    batches), batch i with key `keys[i]` (from `window_keys`)."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+
+    def multi(batches: Sequence[Dict[str, torch.Tensor]], keys: Sequence[int]):
+        if len(batches) != n_steps or len(keys) != n_steps:
+            raise ValueError(f"a window of {n_steps} steps got {len(batches)} batches, {len(keys)} keys")
+        totals: Dict[str, torch.Tensor] = {}
+        for batch, key in zip(batches, keys):
+            metrics = step_fn(batch, key)
+            for k, v in metrics.items():
+                totals[k] = totals[k] + v if k in totals else v
+        return {k: v / n_steps for k, v in totals.items()}
+
+    return multi
+
+
+def step_key(seed: int, global_step: int) -> int:
+    """The key of optimizer step `global_step` of a run seeded `seed`."""
+    return row_seed(seed, global_step)
+
+
+def window_keys(seed: int, start_step: int, n: int) -> List[int]:
+    """The keys of steps start_step .. start_step + n - 1 (`step_key`)."""
+    return [step_key(seed, start_step + i) for i in range(n)]
+
+
+def stack_batches(batches: list) -> Dict[str, np.ndarray]:
+    """Per-step host batches -> one window with a leading [n_steps] axis
+    on every leaf: the reference's window layout (one host-to-device copy
+    a window), for a captured window; the trainer's loop keeps them
+    apart."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def window_iter(it, n: int):
+    """Group an iterator into lists of `n` (the last may be shorter: an
+    epoch tail, which the trainer runs one step at a time)."""
+    buf = []
+    for b in it:
+        buf.append(b)
+        if len(buf) == n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf

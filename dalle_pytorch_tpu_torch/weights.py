@@ -4,9 +4,9 @@ back out.
 A tree is the reference's flax parameter tree (`variables["params"]`) as
 nested dicts of numpy arrays, the layout `save_dalle_checkpoint` writes.
 `export_dalle_params` is the exact inverse of `load_dalle_params` (float32
-leaves, whatever the module's dtype), as is `export_clip_params` of
-`load_clip_params`; `export_dvae_params` writes the decoder and carries
-encoder leaves through. Mappings:
+leaves, whatever the module's dtype), as are `export_clip_params` of
+`load_clip_params` and `export_dvae_params` of `load_dvae_params` (the
+encoder and the decoder). Mappings:
 
   * Dense kernel [in, out] -> Linear.weight [out, in];
   * Conv kernel HWIO -> Conv2d.weight OIHW;
@@ -15,13 +15,20 @@ encoder leaves through. Mappings:
   * LayerNorm scale -> weight.
 
 Every leaf must be consumed and every port parameter filled: a missing or
-extra leaf raises, naming it. The dVAE encoder leaves are checked by name
-and not loaded (the port has the decoder only).
+extra leaf raises, naming it.
+
+The DALLE optimizer's state travels as the reference's `opt` leaves
+(`export_dalle_opt_state`, `load_dalle_opt_state`): the optax state of
+`inject_hyperparams(chain(clip_by_global_norm, adam))` flattened in
+`jax.tree_util` order, which is the update count (int32), the learning
+rate (float32), Adam's count (int32), then Adam's first moments `mu` and
+second moments `nu`, each over the DALLE tree in sorted-key order. Each
+moment takes its weight's layout conversion.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +38,10 @@ from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.models.transformer import Transformer
 
-_Target = Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]
+_Target = Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]
+
+# the mappings (reference layout -> port layout) act on tensors, on the
+# parameter's device, so a card transposes its own weights
 
 
 def _same(a):
@@ -39,24 +49,37 @@ def _same(a):
 
 
 def _dense_t(a):
-    return a.T
+    return a.t()
 
 
 def _conv_oihw(a):
-    return a.transpose(3, 2, 0, 1)
+    return a.permute(3, 2, 0, 1)
 
 
 def _conv_transpose(a):
-    return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    return a.flip(0, 1).permute(2, 3, 0, 1)
 
 
 #: each mapping's inverse, for export (port layout -> reference layout)
 _INVERSE = {
     _same: _same,
     _dense_t: _dense_t,
-    _conv_oihw: lambda a: a.transpose(2, 3, 1, 0),
-    _conv_transpose: lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+    _conv_oihw: lambda a: a.permute(2, 3, 1, 0),
+    _conv_transpose: lambda a: a.permute(2, 3, 0, 1).flip(0, 1),
 }
+
+
+def _to_port(leaf: np.ndarray, param: torch.Tensor, fn) -> torch.Tensor:
+    """A reference-layout leaf in `param`'s layout, on its device."""
+    return fn(torch.tensor(np.asarray(leaf)).to(param.device))
+
+
+def _to_reference(tensor: torch.Tensor, fn) -> np.ndarray:
+    """A port-layout tensor as a float32 reference-layout numpy leaf: a
+    copy, never a view of the tensor (a checkpoint written in the
+    background must not see the next step's updates)."""
+    leaf = _INVERSE[fn](tensor.detach().float()).contiguous()
+    return leaf.to("cpu", copy=True).numpy()
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -80,13 +103,13 @@ def _assign(targets: Dict[str, _Target], flat: Dict[str, np.ndarray], what: str)
         )
     with torch.no_grad():
         for path, (param, fn) in targets.items():
-            arr = np.array(fn(flat[path]), copy=True)  # writable, contiguous
-            if tuple(arr.shape) != tuple(param.shape):
+            value = _to_port(flat[path], param, fn)
+            if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(
-                    f"{what} leaf {path}: shape {arr.shape} does not fit "
+                    f"{what} leaf {path}: shape {tuple(value.shape)} does not fit "
                     f"{tuple(param.shape)}"
                 )
-            param.copy_(torch.from_numpy(arr))
+            param.copy_(value)
 
 
 def _linear(prefix, lin, targets, bias=True):
@@ -118,10 +141,7 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 def _export_flat(targets: Dict[str, _Target]) -> Dict[str, np.ndarray]:
     """Inverse of `_assign`: every leaf in the reference layout, float32."""
-    return {
-        path: np.array(_INVERSE[fn](param.detach().float().cpu().numpy()), order="C")
-        for path, (param, fn) in targets.items()
-    }
+    return {path: _to_reference(param, fn) for path, (param, fn) in targets.items()}
 
 
 def _dalle_targets(model: DALLE) -> Dict[str, _Target]:
@@ -179,29 +199,17 @@ def export_dalle_params(model: DALLE) -> dict:
     return _unflatten(_export_flat(_dalle_targets(model)))
 
 
-def _encoder_shapes(vae: DiscreteVAE) -> Dict[str, tuple]:
-    """The reference encoder's leaves (flax HWIO kernels) and shapes."""
-    hid, chans = vae.dec_head.in_channels, vae.dec_head.out_channels
-    shapes = {}
-    for i in range(vae.num_layers):
-        shapes[f"enc_convs_{i}/kernel"] = (4, 4, chans if i == 0 else hid, hid)
-        shapes[f"enc_convs_{i}/bias"] = (hid,)
-    for i in range(vae.num_resnet_blocks):
-        for j, k in enumerate((3, 3, 1)):
-            shapes[f"enc_res_{i}/Conv_{j}/kernel"] = (k, k, hid, hid)
-            shapes[f"enc_res_{i}/Conv_{j}/bias"] = (hid,)
-    shapes["enc_head/kernel"] = (1, 1, hid, vae.num_tokens)
-    shapes["enc_head/bias"] = (vae.num_tokens,)
-    return shapes
-
-
-def _dvae_decoder_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
+def _dvae_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
     t: Dict[str, _Target] = {"codebook/embedding": (vae.codebook.weight, _same)}
+    for i, conv in enumerate(vae.enc_convs):
+        _conv(f"enc_convs_{i}", conv, t)
+    for prefix, blocks in (("enc_res", vae.enc_res), ("dec_res", vae.dec_res)):
+        for i, blk in enumerate(blocks):
+            for j, conv in enumerate((blk.conv_0, blk.conv_1, blk.conv_2)):
+                _conv(f"{prefix}_{i}/Conv_{j}", conv, t)
+    _conv("enc_head", vae.enc_head, t)
     if vae.dec_proj is not None:
         _conv("dec_proj", vae.dec_proj, t)
-    for i, blk in enumerate(vae.dec_res):
-        for j, conv in enumerate((blk.conv_0, blk.conv_1, blk.conv_2)):
-            _conv(f"dec_res_{i}/Conv_{j}", conv, t)
     for i, conv in enumerate(vae.dec_convs):
         _conv(f"dec_convs_{i}", conv, t, fn=_conv_transpose)
     _conv("dec_head", vae.dec_head, t)
@@ -209,31 +217,72 @@ def _dvae_decoder_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
 
 
 def load_dvae_params(vae: DiscreteVAE, tree: dict) -> DiscreteVAE:
-    """Load a reference DiscreteVAE parameter tree's decoder into `vae` in
-    place (encoder leaves must be present and are left unused)."""
-    flat = _flatten(tree)
-    for name in _encoder_shapes(vae):
-        if name not in flat:
-            raise ValueError(f"DiscreteVAE tree lacks encoder leaf {name}")
-        del flat[name]
-    _assign(_dvae_decoder_targets(vae), flat, "DiscreteVAE")
+    """Load a reference DiscreteVAE parameter tree (encoder and decoder)
+    into `vae` in place; returns it."""
+    _assign(_dvae_targets(vae), _flatten(tree), "DiscreteVAE")
     return vae
 
 
-def export_dvae_params(vae: DiscreteVAE, encoder: Optional[dict] = None) -> dict:
-    """A reference DiscreteVAE tree: the port's decoder, plus the encoder
-    leaves of `encoder` (a tree holding them, e.g. the one the decoder was
-    loaded from). The port has no encoder, so without one the encoder
-    leaves are written as zeros of the reference's shapes: such a tree
-    decodes, and cannot encode."""
-    flat = _export_flat(_dvae_decoder_targets(vae))
-    given = _flatten(encoder) if encoder is not None else {}
-    for name, shape in _encoder_shapes(vae).items():
-        leaf = given.get(name, np.zeros(shape, np.float32))
-        if tuple(leaf.shape) != shape:
-            raise ValueError(f"encoder leaf {name}: shape {leaf.shape} != {shape}")
-        flat[name] = leaf
-    return _unflatten(flat)
+def export_dvae_params(vae: DiscreteVAE) -> dict:
+    """The reference DiscreteVAE parameter tree of `vae`."""
+    return _unflatten(_export_flat(_dvae_targets(vae)))
+
+
+def _sorted_targets(model: DALLE) -> List[Tuple[str, _Target]]:
+    """The DALLE targets in `jax.tree_util`'s leaf order (keys sorted at
+    every level)."""
+    return sorted(_dalle_targets(model).items(), key=lambda kv: tuple(kv[0].split("/")))
+
+
+def dalle_opt_shapes(model: DALLE) -> List[tuple]:
+    """The shapes of the optimizer leaves of `model` (as exported)."""
+    moments = [
+        tuple(_INVERSE[fn](torch.empty(param.shape, device="meta")).shape)
+        for _, (param, fn) in _sorted_targets(model)
+    ]
+    return [(), (), ()] + moments + moments
+
+
+def export_dalle_opt_state(model: DALLE, optimizer) -> List[np.ndarray]:
+    """The reference's optimizer leaves of `optimizer` (a
+    `training/steps.py:Optimizer` over `model`'s parameters)."""
+    from dalle_pytorch_tpu_torch.training.steps import get_learning_rate
+
+    state = optimizer.adam.state
+    targets = _sorted_targets(model)
+    count = max((int(state[p]["step"]) for _, (p, _) in targets if p in state), default=0)
+    moments = []
+    for key in ("exp_avg", "exp_avg_sq"):
+        for _, (param, fn) in targets:
+            m = state[param][key] if param in state else torch.zeros_like(param)
+            moments.append(_to_reference(m, fn))
+    return [np.asarray(count, np.int32), np.asarray(get_learning_rate(optimizer), np.float32),
+            np.asarray(count, np.int32)] + moments
+
+
+def load_dalle_opt_state(model: DALLE, optimizer, leaves: Sequence[np.ndarray]) -> None:
+    """Set `optimizer`'s Adam state and learning rate from the reference's
+    optimizer leaves (the inverse of `export_dalle_opt_state`)."""
+    from dalle_pytorch_tpu_torch.training.steps import set_learning_rate
+
+    targets = _sorted_targets(model)
+    if len(leaves) != 3 + 2 * len(targets):
+        raise ValueError(f"{len(leaves)} optimizer leaves, expected {3 + 2 * len(targets)}")
+    count = int(leaves[2])
+    set_learning_rate(optimizer, float(leaves[1]))
+    optimizer.adam.state.clear()
+    if count == 0:
+        return
+    mu, nu = leaves[3 : 3 + len(targets)], leaves[3 + len(targets) :]
+    for (path, (param, fn)), m, v in zip(targets, mu, nu):
+        entry = {"step": torch.tensor(float(count), dtype=torch.float32)}
+        for key, leaf in (("exp_avg", m), ("exp_avg_sq", v)):
+            value = _to_port(np.asarray(leaf, np.float32), param, fn)
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"optimizer leaf {key} of {path}: shape {tuple(value.shape)} "
+                                 f"does not fit {tuple(param.shape)}")
+            entry[key] = value.to(param.dtype).contiguous()
+        optimizer.adam.state[param] = entry
 
 
 def _clip_targets(clip: CLIP) -> Dict[str, _Target]:

@@ -34,7 +34,8 @@ def test_the_scan_covers_every_port_script():
         "native_bpe.py", "tokenizer.py", "images.py", "wide_head.py", "torch_wide_head_probe.py",
         "migrate.py", "streaming.py", "artifact.py", "metrics.py", "qos.py", "faults.py",
         "server.py", "serve.py", "batcher.py", "tracing.py", "logging.py", "aggregate.py",
-        "vitals.py", "router.py", "compile_guard.py",
+        "vitals.py", "router.py", "compile_guard.py", "train_dalle.py", "precompute_tokens.py",
+        "loader.py", "rainbow.py", "webdataset.py", "prefetch.py", "config.py", "lr.py", "flops.py",
     } <= names
 
 
