@@ -179,7 +179,31 @@ Phases, each failing loudly (nonzero exit, no result line):
    (2 x depth a step each way), the sample's flash-decode launches, the
    losses finite, the final export served by `engine_from_checkpoint`;
    ms a step, samples a second, MFU, input wait, checkpoint and export
-   seconds and peak memory printed.
+   seconds and peak memory printed;
+13. the rest of training, at phase 12's model (flagship width, depth
+   REST_DEPTH, the 8k native vocabulary, bf16 autocast,
+   forward_reverse_partial): (a) the trainer with
+   `model.reversible_impl=revnet` (5 steps) and the same run with
+   `revnet_naive`, flash-attention launches counted exactly (the RevNet:
+   each objective's forward plus its backward's recompute, one backward a
+   layer and objective), ms a step and peak memory of both; (b) on one
+   batch the RevNet's gradients against revnet_naive's in float32 and
+   bf16 (REVNET_GRAD_TOL), the losses identical, and (last, after the
+   timed parts) a trace of the bf16 RevNet step naming
+   fwd_wgmma_kernel<64> and bwd_mma_kernel; (c) the RevNet export
+   served by `engine_from_checkpoint` (its two-stream cached branch:
+   flash decode once a layer a step, the prefill on the tile arm), its
+   greedy tokens held to a teacher-forced uncached oracle's on the first
+   REST_ORACLE_POSITIONS positions wherever its top-2 gap is at least
+   ORACLE_MARGIN; (d) a 2-step run
+   with `model.executor=scan`, `--dalle_path` resuming its scan export
+   (Adam count 2) and `engine_from_checkpoint` loading it; (e)
+   `train_vae` at 256 px (straight-through, ReinMax; its encode held to
+   its CPU run) and `train_clip` at its defaults (its scores held to its
+   CPU run, CLIP_SCORE_TOL); (f) the OpenAI dVAE and VQGAN wrappers from
+   synthetic checkpoints at the released geometries (the VQGAN config
+   written as JSON), each held to its CPU run (WRAPPER_SCORE_TOL,
+   WRAPPER_DECODE_TOL); each part's wall printed.
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -3957,6 +3981,569 @@ def run_trainer(torch, smi):
     return result
 
 
+# phase 13: the rest of training
+REST_DEPTH = TRAINER_DEPTH  # the flagship width at phase 12's depth cut
+REST_SAMPLES = 20  # rainbow:20 at batch 4: 5 steps a RevNet run (the first two warm up)
+REST_SCAN_SAMPLES = 8  # the scan run: 2 steps
+# an 8k native BPE (the shipped smaller vocabulary) keeps the exports small
+REST_VOCAB = "dalle_pytorch_tpu_torch/data/default_bpe_8k.model"
+REST_PROMPT = "a red cube on a blue sphere"
+REST_ORACLE_POSITIONS = 16  # the greedy decode held to the uncached oracle
+# the RevNet's gradients (its custom backward) against autograd through
+# the same forward (`revnet_naive`), worst parameter's ||g - g_naive|| /
+# ||g_naive|| on one batch. The backward rebuilds each layer's inputs as
+# x2 = y2 - g(y1), x1 = y1 - f(x2): one float32 rounding each, where the
+# naive run keeps the inputs. In fp32 (the 3xTF32 kernels) that stays at
+# the attention kernels' own fp32 level (an H100: 4.8e-7; ATTN_TOL["fp32"]
+# is 1e-5 a tile); under bf16 autocast the rebuilt input can round to
+# another bf16 value in the recompute's products, one bf16 ulp (2^-8) on a
+# few elements (an H100: 2.0e-3). Limits 20x and 10x those
+REVNET_GRAD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+# CLIP's scores on the card (float32, no TF32) against its CPU run
+CLIP_SCORE_TOL = 1e-4
+# the wrappers' scores (logits, negated distances) on the card against
+# their CPU runs, relative to the largest |score| of the image; indices
+# must agree wherever the CPU run's top-2 gap exceeds twice it (relative).
+# Both sides are float32 without TF32; an H100 gave 1.6e-6 for the OpenAI
+# logits and 2.7e-5 for the VQGAN's |z|^2 - 2 z.e + |e|^2, whose terms
+# cancel to the much smaller gaps between codes
+WRAPPER_SCORE_TOL = 1e-4
+# decoded pixels (in [0, 1]) absolute; seen 1.2e-7 and 8.6e-6
+WRAPPER_DECODE_TOL = 1e-4
+# `configs/vqgan_imagenet_f16_16384.yaml` (model.params), as JSON: the
+# card's machine has no PyYAML
+VQGAN_F16 = dict(
+    ddconfig=dict(double_z=False, z_channels=256, resolution=256, in_channels=3, out_ch=3, ch=128,
+                  ch_mult=[1, 1, 2, 2, 4], num_res_blocks=2, attn_resolutions=[16], dropout=0.0),
+    n_embed=16384, embed_dim=256,
+)
+# the OpenAI dVAE's released geometry (dall_e's Encoder / Decoder defaults)
+OPENAI_RELEASED = dict(n_hid=256, n_init=128, vocab=8192, groups=4, blocks=2)
+
+
+def rest_trainer_args(run_dir, vae_path, samples, *extra):
+    """Phase 13's trainer flags: phase 12's model (the flagship width at
+    REST_DEPTH, shift and rotary, bf16 autocast, forward_reverse_partial)
+    with the 8k vocabulary, one epoch of rainbow:`samples` at batch 4."""
+    return [
+        "--device", "cuda", "--image_text_folder", f"rainbow:{samples}",
+        "--vae_path", str(vae_path), "--batch_size", "4", "--exp", "r", "--epochs", "1",
+        "--set", "model.dim=1024", "--set", f"model.depth={REST_DEPTH}",
+        "--set", "model.heads=16", "--set", "model.dim_head=64", "--set", "model.text_seq_len=256",
+        "--set", "model.shift_tokens=true", "--set", "model.rotary_emb=true",
+        "--set", "native=true", "--set", f"bpe_path={REPO / REST_VOCAB}",
+        "--set", f"output_dir={run_dir}", *extra,
+    ]
+
+
+def attention_counters():
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_fwd, fa.flash_attention_bwd
+
+
+def run_revnet_trainers(torch, run_dir, vae_path):
+    """Phase 13a: the trainer with `model.reversible_impl=revnet`, then the
+    same run with `revnet_naive`; each run's flash-attention launches, ms
+    a step (CUDA events; the median of the steps after the first two,
+    which meet the process's first autotuning and allocations) and peak
+    memory above what was held before it."""
+    from dalle_pytorch_tpu_torch import train_dalle
+
+    runs = {}
+    for impl in ("revnet", "revnet_naive"):
+        for c in attention_counters():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        s = train_dalle.main(rest_trainer_args(
+            run_dir / impl, vae_path, REST_SAMPLES,
+            "--set", "model.reversible=true", "--set", f"model.reversible_impl={impl}"))
+        torch.cuda.synchronize()
+        runs[impl] = dict(
+            wall_s=time.perf_counter() - t0, step_ms=s["step_ms"],
+            ms_per_step=sorted(s["step_ms"][2:])[len(s["step_ms"][2:]) // 2],  # median, warm steps
+            peak_memory_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+            launches={c.__name__: c.launches for c in attention_counters()},
+            last_loss=s["last_loss"], global_step=s["global_step"], out_file=s["out_file"],
+        )
+    steps = REST_SAMPLES // 4
+    per_pass = 2 * REST_DEPTH * steps  # two objectives a step, one call a layer
+    want = {"revnet": {"flash_attention_fwd": 2 * per_pass, "flash_attention_bwd": per_pass},
+            "revnet_naive": {"flash_attention_fwd": per_pass, "flash_attention_bwd": per_pass}}
+    for impl, run in runs.items():
+        if run["launches"] != want[impl]:
+            fail(f"the {impl} trainer run launched {run['launches']}, expected {want[impl]} "
+                 "(the RevNet's forward plus its recompute; one backward a layer and objective)")
+        if run["global_step"] != steps or not math.isfinite(run["last_loss"]):
+            fail(f"the {impl} run ended at step {run['global_step']}, loss {run['last_loss']}")
+    return runs
+
+
+def kernel_names(torch, fn):
+    """The device kernels one call fn() launches, as a torch.profiler trace
+    names them ("fwd_wgmma_kernel<64>", ...), with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
+            name = found.group(0) if found else evt.name[:60]
+            names[name] = names.get(name, 0) + 1
+    return names
+
+
+def check_revnet_gradients(torch, export):
+    """Phase 13b: on one fixed batch (4 rows, seeded), the RevNet's
+    gradients (its custom backward) against `revnet_naive`'s (autograd
+    through the same forward), float32 (the 3xTF32 kernels) and bf16
+    autocast (the tensor-core kernels); a trace of the bf16 RevNet step
+    names the kernels it launched. Returns (the comparison, the trace to
+    take after the phase's timed parts)."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.training.pipeline import dalle_from_config, load_dalle_checkpoint
+    from dalle_pytorch_tpu_torch.training.steps import accumulate_gradients, make_dalle_loss
+    from dalle_pytorch_tpu_torch.weights import load_dalle_params
+
+    config, tree, _, _, _ = load_dalle_checkpoint(export, opt=False)
+    vocab = tree["text_emb"]["embedding"].shape[0] - config["model"]["text_seq_len"]
+    with torch.device("cuda"):
+        model, _ = dalle_from_config(config, num_image_tokens=8192, image_fmap_size=32,
+                                     vocab_size=vocab)
+    load_dalle_params(model, tree)
+    rng = np.random.RandomState(SEED)
+    text = rng.randint(1, vocab, (4, 256))
+    text[:, 40:] = 0
+    batch = {"text": torch.tensor(text, device="cuda"),
+             "image_tokens": torch.tensor(rng.randint(0, 8192, (4, 1024)), device="cuda")}
+    loss_fn = make_dalle_loss(model, "forward_reverse_partial")
+    result = {}
+    for key, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        grads, losses = {}, {}
+        for impl in ("revnet", "revnet_naive"):
+            model.transformer.reversible_impl = impl
+            metrics = accumulate_gradients(model, loss_fn, batch, autocast_dtype=dtype)
+            grads[impl] = [p.grad.float().clone() for p in model.parameters()]
+            losses[impl] = metrics["loss"].item()
+        rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+               for a, b in zip(grads["revnet"], grads["revnet_naive"])]
+        num = sum(((a - b) ** 2).sum() for a, b in zip(grads["revnet"], grads["revnet_naive"]))
+        den = sum((b**2).sum() for b in grads["revnet_naive"])
+        result[key] = dict(worst_param_rel=max(rel), global_rel=(num / den).sqrt().item(),
+                           loss=losses, limit=REVNET_GRAD_TOL[key])
+        print(f"check RevNet gradients ({key}) vs revnet_naive: worst parameter relative norm "
+              f"{max(rel):.3g} (limit {REVNET_GRAD_TOL[key]}), global {result[key]['global_rel']:.3g}, "
+              f"losses {losses}")
+        if not max(rel) <= REVNET_GRAD_TOL[key]:
+            fail(f"the RevNet's {key} gradients are {max(rel)} from revnet_naive's")
+        if losses["revnet"] != losses["revnet_naive"]:
+            fail(f"the RevNet's {key} loss {losses} differs from revnet_naive's on the same forward")
+    model.transformer.reversible_impl = "revnet"
+
+    def trace():
+        """The attention kernels of one bf16 RevNet step, from a
+        torch.profiler trace (taken last: a trace slows the launches after
+        it): fwd_wgmma_kernel<64> and bwd_mma_kernel, no fp32 kernel."""
+        names = kernel_names(torch, lambda: accumulate_gradients(
+            model, loss_fn, batch, autocast_dtype=torch.bfloat16))
+        attn = {k: v for k, v in names.items() if "mma" in k or "tf32" in k}
+        print(f"the bf16 RevNet step's attention kernels (torch.profiler trace): {json.dumps(attn)}")
+        if "fwd_wgmma_kernel<64>" not in names or not any(k.startswith("bwd_mma_kernel") for k in names):
+            fail(f"the bf16 RevNet step did not launch fwd_wgmma_kernel<64> and bwd_mma_kernel: {attn}")
+        if any("tf32" in k for k in names):
+            fail(f"the bf16 RevNet step launched fp32 attention kernels: {attn}")
+        return attn
+
+    return result, trace
+
+
+def greedy_positions(torch, model, text_ids, tokens, n):
+    """(oracle tokens, top-2 logit gaps) at image positions 0..n-1 of a
+    teacher-forced uncached forward over `tokens` [1, image_seq_len]."""
+    from dalle_pytorch_tpu_torch.models.dalle import NEG_MASK_VALUE
+
+    dev = model.text_emb.weight.device
+    blocked = (torch.arange(model.total_tokens, device=dev) < model.total_text_tokens)[None]
+    with torch.inference_mode():
+        _, out = model.trunk(torch.tensor(text_ids[None], device=dev), torch.tensor(tokens, device=dev))
+        rows = torch.stack([model.to_logits(out[:, model.text_seq_len + p]).float() for p in range(n)], 1)
+        rows = rows.masked_fill(blocked[:, None], NEG_MASK_VALUE)
+        top2 = rows.topk(2, dim=-1)
+    gaps = (top2.values[..., 0] - top2.values[..., 1])[0].cpu().numpy()
+    return (top2.indices[..., 0][0] - model.total_text_tokens).cpu().numpy(), gaps
+
+
+def serve_revnet(torch, export):
+    """Phase 13c: the RevNet export through `engine_from_checkpoint`: one
+    greedy image (top_k 1.0 keeps one logit) decoded by the two-stream
+    cached branch (flash decode once a layer a step, the prefill on the
+    tile arm), held to the uncached oracle's greedy tokens on the first
+    REST_ORACLE_POSITIONS positions by the margin rule: the oracle is one
+    teacher-forced uncached forward over the engine's tokens, so each
+    position is compared on the same prefix, and every position whose
+    top-2 logit gap is at least ORACLE_MARGIN must agree (random weights
+    leave many near-ties: a bf16 logit's step is 2^-6 at these sizes)."""
+    from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention
+    from dalle_pytorch_tpu_torch.serving.engine import SampleSpec, engine_from_checkpoint
+
+    engine = engine_from_checkpoint(export, batch_shapes=(1,), device="cuda")
+    if not (engine.model.transformer.revnet and engine.model.depth == REST_DEPTH):
+        fail("the RevNet export did not load as a RevNet")
+    text_ids = engine.tokenize(REST_PROMPT)
+    flash_decode_attention.launches = flash_decode_attention.tile_launches = 0
+    t0 = time.perf_counter()
+    toks, pixels = engine.generate([SampleSpec(text_ids, seed=SEED, temperature=1.0, top_k=1.0)])
+    wall = time.perf_counter() - t0
+    launches = dict(flash_decode=flash_decode_attention.launches,
+                    flash_decode_tile=flash_decode_attention.tile_launches)
+    oracle, gaps = greedy_positions(torch, engine.model, text_ids, toks, REST_ORACLE_POSITIONS)
+    held = 0
+    for p in range(REST_ORACLE_POSITIONS):
+        if gaps[p] < ORACLE_MARGIN:
+            continue
+        if oracle[p] != toks[0, p]:
+            fail(f"the RevNet's cached decode picked {toks[0, p]} at image position {p}, the "
+                 f"uncached oracle {oracle[p]} (top-2 gap {gaps[p]:.3g})")
+        held += 1
+    summary = dict(generate_s=wall, launches=launches, oracle_positions_held=held,
+                   min_gap=float(gaps[:REST_ORACLE_POSITIONS].min()))
+    print(f"RevNet serving: {json.dumps(summary)}")
+    if launches["flash_decode"] != REST_DEPTH * (1 + engine.image_seq_len):
+        fail(f"the RevNet engine launched flash_decode {launches['flash_decode']} times")
+    if launches["flash_decode_tile"] != REST_DEPTH:
+        fail(f"the RevNet engine's prefill launched the tile arm {launches['flash_decode_tile']} times")
+    if held == 0 or pixels.shape != (1, 256, 256, 3) or not math.isfinite(float(pixels.sum())):
+        fail(f"the RevNet engine: {held} oracle positions held, pixels {pixels.shape}")
+    return summary
+
+
+def run_scan_trainer(torch, run_dir, vae_path):
+    """Phase 13d: a 2-step trainer run with `model.executor=scan` (its
+    export in the scan layout, the Adam moments stacked), `--dalle_path`
+    resuming it (Adam count 2 read back; the epoch is done, so no step),
+    and `engine_from_checkpoint` loading it."""
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
+
+    for c in attention_counters():
+        c.launches = 0
+    first = train_dalle.main(rest_trainer_args(run_dir / "scan", vae_path, REST_SCAN_SAMPLES,
+                                               "--set", "model.executor=scan"))
+    launches = {c.__name__: c.launches for c in attention_counters()}
+    again = train_dalle.main(rest_trainer_args(run_dir / "scan_resumed", vae_path, REST_SCAN_SAMPLES,
+                                               "--dalle_path", first["out_file"]))
+    meta, (count, stacked) = _npz_entries(
+        again["out_file"], "opt/0002", "dalle/transformer/scan_stack/layers/attn/to_qkv/kernel")
+    engine = engine_from_checkpoint(again["out_file"], batch_shapes=(1,), device="cuda")
+    steps = REST_SCAN_SAMPLES // 4
+    summary = dict(launches=launches, resumed_adam_count=int(count), stacked_shape=list(stacked.shape),
+                   executor=meta["config"]["model"]["executor"], served_depth=engine.model.depth)
+    print(f"scan layout: {json.dumps(summary)}")
+    del engine
+    want = 2 * REST_DEPTH * steps
+    if launches != {"flash_attention_fwd": want, "flash_attention_bwd": want}:
+        fail(f"the scan run launched {launches}, expected {want} each")
+    if int(count) != steps or again["global_step"] != steps or summary["executor"] != "scan":
+        fail(f"the scan export resumed with Adam count {count} at step {again['global_step']}")
+    if stacked.shape[0] != REST_DEPTH or summary["served_depth"] != REST_DEPTH:
+        fail(f"the scan export's stacked kernel {stacked.shape}, served depth {summary['served_depth']}")
+    return summary
+
+
+def run_vae_clip_trainers(torch, run_dir):
+    """Phase 13e: `train_vae` at 256 px (8192 codes, straight-through with
+    ReinMax) for 2 steps, its export's encode on the card held to its CPU
+    run (`check_vae_encode`); `train_clip` at its defaults (dim 256, depth
+    4, 128 px, batch 64, the default vocabulary) for 2 steps, its export's
+    scores on the card held to its CPU run on 8 seeded pairs."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch import train_clip, train_vae
+    from dalle_pytorch_tpu_torch.models.clip import clip_scores
+    from dalle_pytorch_tpu_torch.training.pipeline import load_clip_checkpoint
+
+    vae_out = run_dir / "vae_trained.npz"
+    t0 = time.perf_counter()
+    sv = train_vae.main(["--device", "cuda", "--image_folder", "rainbow:8", "--batch_size", "4",
+                         "--epochs", "1", "--output", str(vae_out), "--set", f"output_dir={run_dir}",
+                         "--set", "vae.image_size=256", "--set", "vae.straight_through=true",
+                         "--set", "vae.reinmax=true"])
+    vae_s = time.perf_counter() - t0
+    if sv["global_step"] != 2 or not math.isfinite(sv["last_loss"]):
+        fail(f"train_vae ended at step {sv['global_step']}, loss {sv['last_loss']}")
+    encode_err, encode_share = check_vae_encode(torch, vae_out)
+
+    clip_out = run_dir / "clip.npz"
+    t0 = time.perf_counter()
+    sc = train_clip.main(["--device", "cuda", "--image_text_folder", "rainbow:128",
+                          "--output", str(clip_out), "--epochs", "1"])
+    clip_s = time.perf_counter() - t0
+    if sc["global_step"] != 2 or not math.isfinite(sc["last_loss"]):
+        fail(f"train_clip ended at step {sc['global_step']}, loss {sc['last_loss']}")
+    clip = load_clip_checkpoint(str(clip_out))
+    rng = np.random.RandomState(SEED)
+    text = torch.tensor(rng.randint(1, clip.num_text_tokens, (8, clip.text_seq_len)))
+    images = torch.tensor(rng.rand(8, 128, 128, 3).astype(np.float32))
+    ref = clip_scores(clip, text, images)
+    got = clip_scores(clip.cuda(), text.cuda(), images.cuda()).cpu()
+    clip_err = (got - ref).abs().max().item()
+    summary = dict(vae_wall_s=vae_s, vae_step_ms=sv["step_ms"], vae_loss=sv["last_loss"],
+                   vae_encode_max_abs_err=encode_err, vae_encode_identical_share=encode_share,
+                   clip_wall_s=clip_s, clip_step_ms=sc["step_ms"], clip_loss=sc["last_loss"],
+                   clip_score_max_abs_err=clip_err)
+    print(f"dVAE and CLIP trainers: {json.dumps(summary)}")
+    if not clip_err <= CLIP_SCORE_TOL:
+        fail(f"the trained CLIP's scores on the card are {clip_err} from its CPU run")
+    return summary
+
+
+def openai_vae_states(torch, n_hid, n_init, vocab, groups, blocks, device, channels=3):
+    """Seeded state dicts (encoder, decoder) in the dall_e package's layout
+    (`.w` / `.b` convs in `blocks.group_g.block_i`), its widths: encoder
+    groups n_hid x (1, 2, 4, ...), decoder n_hid x (..., 4, 2, 1) after an
+    input 1x1 conv from the codes to n_init channels."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    enc, dec = {}, {}
+
+    def conv(state, key, n_in, n_out, kw):
+        state[f"{key}.w"] = torch.randn(n_out, n_in, kw, kw, generator=g, device=device) / math.sqrt(n_in * kw * kw)
+        state[f"{key}.b"] = 0.01 * torch.randn(n_out, generator=g, device=device)
+
+    def block(state, key, n_in, n_out, kernels):
+        hid = n_out // 4
+        if n_in != n_out:
+            conv(state, f"{key}.id_path", n_in, n_out, 1)
+        for i, (a, b, kw) in enumerate(zip((n_in, hid, hid, hid), (hid, hid, hid, n_out), kernels), 1):
+            conv(state, f"{key}.res_path.conv_{i}", a, b, kw)
+
+    for state, widths, first, kernels, n_out in (
+        (enc, [1] + [2 ** (i - 1) for i in range(1, groups + 1)], channels, (3, 3, 3, 1), vocab),
+        (dec, [2 ** (groups - 1)] + [2 ** (groups - i) for i in range(1, groups + 1)], vocab,
+         (1, 3, 3, 3), 2 * channels),
+    ):
+        width0 = widths[1] * n_hid if state is enc else n_init
+        conv(state, "blocks.input", first, width0, 7 if state is enc else 1)
+        for gi in range(1, groups + 1):
+            for bi in range(1, blocks + 1):
+                n_in = width0 if (gi == 1 and bi == 1) else widths[gi if bi > 1 else gi - 1] * n_hid
+                block(state, f"blocks.group_{gi}.block_{bi}", n_in, widths[gi] * n_hid, kernels)
+        conv(state, "blocks.output.conv", widths[groups] * n_hid, n_out, 1)
+    return enc, dec
+
+
+def vqgan_state(torch, dd, n_embed, embed_dim, device):
+    """A seeded state dict in taming's VQModel layout for `dd` (the
+    ddconfig): GroupNorms at identity, convs scaled by their fan-in."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    state = {}
+
+    def conv(key, n_in, n_out, k):
+        state[f"{key}.weight"] = torch.randn(n_out, n_in, k, k, generator=g, device=device) / math.sqrt(n_in * k * k)
+        state[f"{key}.bias"] = 0.01 * torch.randn(n_out, generator=g, device=device)
+
+    def norm(key, c):
+        state[f"{key}.weight"] = torch.ones(c, device=device)
+        state[f"{key}.bias"] = torch.zeros(c, device=device)
+
+    def resnet(key, cin, cout):
+        norm(f"{key}.norm1", cin)
+        conv(f"{key}.conv1", cin, cout, 3)
+        norm(f"{key}.norm2", cout)
+        conv(f"{key}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{key}.nin_shortcut", cin, cout, 1)
+
+    def attn(key, c):
+        norm(f"{key}.norm", c)
+        for name in ("q", "k", "v", "proj_out"):
+            conv(f"{key}.{name}", c, c, 1)
+
+    ch, chans, nres, z = dd["ch"], [dd["ch"] * m for m in dd["ch_mult"]], dd["num_res_blocks"], dd["z_channels"]
+    conv("encoder.conv_in", dd["in_channels"], ch, 3)
+    cin, res = ch, dd["resolution"]
+    for i, cout in enumerate(chans):
+        for j in range(nres):
+            resnet(f"encoder.down.{i}.block.{j}", cin if j == 0 else cout, cout)
+        if res in dd["attn_resolutions"]:
+            for j in range(nres):
+                attn(f"encoder.down.{i}.attn.{j}", cout)
+        if i != len(chans) - 1:
+            conv(f"encoder.down.{i}.downsample.conv", cout, cout, 3)
+            res //= 2
+        cin = cout
+    for name in ("encoder.mid.block_1", "encoder.mid.block_2"):
+        resnet(name, cin, cin)
+    attn("encoder.mid.attn_1", cin)
+    norm("encoder.norm_out", cin)
+    conv("encoder.conv_out", cin, 2 * z if dd.get("double_z") else z, 3)
+    conv("quant_conv", z, embed_dim, 1)
+    state["quantize.embedding.weight"] = torch.randn(n_embed, embed_dim, generator=g, device=device)
+    conv("post_quant_conv", embed_dim, z, 1)
+    conv("decoder.conv_in", z, chans[-1], 3)
+    for name in ("decoder.mid.block_1", "decoder.mid.block_2"):
+        resnet(name, chans[-1], chans[-1])
+    attn("decoder.mid.attn_1", chans[-1])
+    cin, res = chans[-1], dd["resolution"] // 2 ** (len(chans) - 1)
+    for i in reversed(range(len(chans))):
+        cout = chans[i]
+        for j in range(nres + 1):
+            resnet(f"decoder.up.{i}.block.{j}", cin if j == 0 else cout, cout)
+        if res in dd["attn_resolutions"]:
+            for j in range(nres + 1):
+                attn(f"decoder.up.{i}.attn.{j}", cout)
+        if i != 0:
+            conv(f"decoder.up.{i}.upsample.conv", cout, cout, 3)
+            res *= 2
+        cin = cout
+    norm("decoder.norm_out", chans[0])
+    conv("decoder.conv_out", chans[0], dd["out_ch"], 3)
+    return state
+
+
+def hold_wrapper(torch, label, cpu_vae, images):
+    """A wrapper on the card against its CPU run on `images`: scores within
+    WRAPPER_SCORE_TOL of the largest |score| (relative), indices identical
+    wherever the CPU run's top-2 gap exceeds twice that, and the decode of
+    the CPU run's indices within WRAPPER_DECODE_TOL (both in full float32)."""
+    import copy
+
+    from dalle_pytorch_tpu_torch.models.dvae import exact_float32
+
+    card = copy.deepcopy(cpu_vae).cuda()
+    with torch.no_grad():
+        ref = cpu_vae.encode_scores(images)
+        got = card.encode_scores(images.cuda()).cpu()
+        scale = ref.abs().amax(dim=-1, keepdim=True)
+        err = ((got - ref).abs() / scale).max().item()
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * WRAPPER_SCORE_TOL * scale[..., 0]
+        idx = ref.argmax(-1)
+        same = got.argmax(-1) == idx
+        pixels = cpu_vae.decode(idx)
+        with exact_float32():
+            card_pixels = card.decode(idx.cuda()).cpu()
+    decode_err = (card_pixels - pixels).abs().max().item()
+    out = dict(score_rel_err=err, identical_share=same.float().mean().item(),
+               clear_share=clear.float().mean().item(), decode_max_abs_err=decode_err,
+               geometry=[cpu_vae.image_size, cpu_vae.num_layers, cpu_vae.num_tokens])
+    print(f"{label} on the card vs CPU: {json.dumps(out)}")
+    if not err <= WRAPPER_SCORE_TOL or not bool(same[clear].all()):
+        fail(f"{label}: scores {err} from the CPU run, or another index where the gap is clear")
+    if not decode_err <= WRAPPER_DECODE_TOL or tuple(card_pixels.shape[1:]) != (256, 256, 3):
+        fail(f"{label}: decode {decode_err} from the CPU run, shape {tuple(card_pixels.shape)}")
+    return out
+
+
+def check_pretrained_wrappers(torch, run_dir):
+    """Phase 13f: synthetic checkpoints at the released geometries (no
+    released weights are here): the OpenAI dVAE's pickles (256 px, f/8,
+    8192 codes) and a VQGAN from `configs/vqgan_imagenet_f16_16384.yaml`'s
+    ddconfig (f/16, 16384 codes) with its config written as JSON; each
+    wrapper held to its CPU run on one rainbow image."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.rainbow import RainbowDataset
+    from dalle_pytorch_tpu_torch.models.vae_io import OpenAIDiscreteVAE, VQGanVAE
+
+    image = torch.from_numpy(np.stack([RainbowDataset(num_samples=4, image_size=256).image(1)]))
+    openai_dir = run_dir / "openai"
+    openai_dir.mkdir()
+    enc, dec = openai_vae_states(torch, device="cuda", **OPENAI_RELEASED)
+    torch.save({k: v.cpu() for k, v in enc.items()}, openai_dir / "encoder.pkl")
+    torch.save({k: v.cpu() for k, v in dec.items()}, openai_dir / "decoder.pkl")
+    del enc, dec
+    openai = OpenAIDiscreteVAE(openai_dir)
+    if (openai.num_tokens, openai.num_layers, openai.fmap_size) != (8192, 3, 32):
+        fail(f"the OpenAI wrapper read {openai.num_tokens} codes, {openai.num_layers} layers")
+    result = {"openai": hold_wrapper(torch, "OpenAI dVAE", openai, image)}
+    del openai
+
+    state = vqgan_state(torch, VQGAN_F16["ddconfig"], VQGAN_F16["n_embed"], VQGAN_F16["embed_dim"], "cuda")
+    torch.save({"state_dict": {k: v.cpu() for k, v in state.items()}}, run_dir / "vqgan.ckpt")
+    del state
+    config = {"model": {"target": "taming.models.vqgan.VQModel", "params": VQGAN_F16}}
+    (run_dir / "vqgan.json").write_text(json.dumps(config))
+    vqgan = VQGanVAE(str(run_dir / "vqgan.ckpt"), str(run_dir / "vqgan.json"))
+    if (vqgan.num_tokens, vqgan.num_layers, vqgan.fmap_size) != (16384, 4, 16):
+        fail(f"the VQGAN wrapper read {vqgan.num_tokens} codes, {vqgan.num_layers} layers")
+    result["vqgan"] = hold_wrapper(torch, "VQGAN f/16", vqgan, image)
+    return result
+
+
+def run_rest_of_training(torch, smi):
+    """Phase 13: (a) RevNet training through the trainer twin and its
+    revnet_naive twin run, (b) the RevNet's gradients against
+    revnet_naive's on the card with the kernels traced, (c) the RevNet
+    export served, (d) the scan layout trained, resumed and loaded, (e)
+    the dVAE and CLIP trainers, (f) the pretrained VAE wrappers. Under
+    torch's default precision settings (as the CLIs run) for (a), (d) and
+    (e); the run directory is removed at the end. Returns the summary,
+    with each part's wall."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.training.pipeline import save_vae_checkpoint
+
+    run_dir = REPO / "build" / "chip_smoke" / "rest"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    script_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    walls, result = {}, {"card": smi}
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        torch.manual_seed(SEED)
+        vae_path = run_dir / "vae.npz"
+        save_vae_checkpoint(str(vae_path), DiscreteVAE(
+            image_size=256, num_layers=3, num_tokens=8192, codebook_dim=512, hidden_dim=64))
+        t0 = time.perf_counter()
+        result["revnet_runs"] = run_revnet_trainers(torch, run_dir, vae_path)
+        walls["a_revnet_trainers"] = time.perf_counter() - t0
+        export = result["revnet_runs"]["revnet"]["out_file"]
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+        t0 = time.perf_counter()
+        result["revnet_gradients"], trace = check_revnet_gradients(torch, export)
+        walls["b_revnet_gradients"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["revnet_serving"] = serve_revnet(torch, export)
+        walls["c_revnet_serving"] = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        t0 = time.perf_counter()
+        result["scan"] = run_scan_trainer(torch, run_dir, vae_path)
+        walls["d_scan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["vae_clip"] = run_vae_clip_trainers(torch, run_dir)
+        walls["e_vae_clip"] = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+        t0 = time.perf_counter()
+        result["wrappers"] = check_pretrained_wrappers(torch, run_dir)
+        walls["f_wrappers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["revnet_gradients"]["bf16_trace"] = trace()
+        walls["b_trace"] = time.perf_counter() - t0
+        del trace
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+        shutil.rmtree(run_dir, ignore_errors=True)
+    result["walls"] = walls
+    runs = result["revnet_runs"]
+    print("rest of training " + json.dumps({
+        "revnet_ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()},
+        "revnet_peak_memory_gib": {k: r["peak_memory_gib"] for k, r in runs.items()},
+        "revnet_step_ms": {k: r["step_ms"] for k, r in runs.items()},
+        "revnet_launches": {k: r["launches"] for k, r in runs.items()},
+        "walls": walls, "card": smi,
+    }))
+    return result
+
+
 def resume_fields(row, err, runs):
     """The resume-shape entries of a kernel's line: phase 3's times at n =
     1280 and phase 10's launches per resume dispatch and resume walls."""
@@ -4266,6 +4853,11 @@ def main() -> int:
     trainer = run_trainer(torch, smi)
     print(f"phase 12 the trainer ({smi}): {time.perf_counter() - t0:.1f} s (run A "
           f"{trainer['run_wall_s']['A']:.1f} s, run B {trainer['run_wall_s']['B']:.1f} s)")
+    # 13. the rest of training ----------------------------------------------------------
+    t0 = time.perf_counter()
+    rest = run_rest_of_training(torch, smi)
+    print(f"phase 13 the rest of training ({smi}): {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in rest["walls"].items()) + ")")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after the build started")
 
     # device time per call of phase 3's kernel rows, and the kernel the
@@ -4367,6 +4959,8 @@ def main() -> int:
                 served_launches={"micro_server": served_micro["launches"]["flash_decode"],
                                  "continuous_server_qos": served["qos"]["launches"]["flash_decode"]},
                 trainer_sample_launches=trainer["launches"]["A"]["flash_decode_attention"],
+                rest_launches=(rest["revnet_serving"]["launches"]["flash_decode"]
+                               - rest["revnet_serving"]["launches"]["flash_decode_tile"]),
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
@@ -4378,7 +4972,8 @@ def main() -> int:
                 "9's generation CLI (2 prompts x one batch of 4, prefill included); served_launches: "
                 "phase 11's HTTP runs, all arms (the micro server's batch of 4 at depth 12; the "
                 "continuous server's QoS run at depth 4, its prefill and resume waves included); "
-                "trainer_sample_launches: phase 12's in-loop sample (fp32, all arms, prefill included)",
+                "trainer_sample_launches: phase 12's in-loop sample (fp32, all arms, prefill included); "
+                "rest_launches: phase 13's RevNet engine (its steps, through the two-stream cached branch)",
             ),
             dict(
                 name="flash_decode_tile_f32",
@@ -4405,6 +5000,7 @@ def main() -> int:
                 source="dalle_pytorch_tpu_torch/csrc/flash_decode_tile.cu",
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                 launches=launches["flash_decode_tile"],
+                rest_launches=rest["revnet_serving"]["launches"]["flash_decode_tile"],
                 max_abs_err=tile_errs["flash_decode_tile"],
                 **tile_times["prefill"]["flash_decode_tile"],
                 **{f"int8_{k}": v for k, v in tile_times["prefill"]["flash_decode_tile_int8"].items()},
@@ -4416,7 +5012,8 @@ def main() -> int:
                     migrated[2:]).items()},
                 timed="bf16 q, prefill n=257 B=4 H=16 D=64 S=1281 lengths 257 (int8_*: int8 K/V + "
                 "fp32 scales); library_ms is SDPA's causal forward over the 257 live keys (the same "
-                "function); launches: phase 5's prefill (one a layer); resume_*: n=1280 S=1281 B=4 "
+                "function); launches: phase 5's prefill (one a layer; rest_launches: phase 13's RevNet "
+                "engine's prefill); resume_*: n=1280 S=1281 B=4 "
                 "lengths 1280, launches per resume dispatch of phase 10 (slotted, paged; int8_: "
                 "the int8 run at depth 4); max_abs_err: worst of prefill, prefill_edges, resume B=1 "
                 "and 4 against the plain version",
@@ -4433,13 +5030,20 @@ def main() -> int:
                 **({"oracle_launches": cli_launches["oracle_flash_attention_fwd"]}
                    if name.endswith("fwd") else {}),
                 trainer_launches={run: n[name] for run, n in trainer["launches"].items()},
+                rest_launches={**{run: r["launches"][name] for run, r in rest["revnet_runs"].items()},
+                               "scan": rest["scan"]["launches"][name]},
+                rest_trace=rest["revnet_gradients"]["bf16_trace"],
                 timed="bf16 causal B=4 H=16 N=1280 D=64"
                 + ("" if name.endswith("fwd") else "; one fused kernel for dq, dk and dv; "
                    "library_ms is SDPA's whole backward, whole_backward_ms the port's (delta "
                    "+ workspace zeroing + kernel + dq conversion)")
                 + "; fp32_*: the same shapes in fp32 (the 3xTF32 tensor-core kernels), bound at three "
                 "times the flops at the TF32 peak; trainer_launches: phase 12's trainer runs A and B "
-                f"(8 steps each at depth {TRAINER_DEPTH}, two objectives a step)",
+                f"(8 steps each at depth {TRAINER_DEPTH}, two objectives a step); rest_launches: phase "
+                f"13's trainer runs ({REST_SAMPLES // 4} steps of the RevNet and of revnet_naive, "
+                f"{REST_SCAN_SAMPLES // 4} of the scan run, depth {REST_DEPTH}, two objectives a step; "
+                "the RevNet's forward calls include its backward's recompute); rest_trace: the "
+                "attention kernels of one bf16 RevNet step (a torch.profiler trace)",
             )
             for name, line in (
                 ("flash_attention_fwd", "129"),

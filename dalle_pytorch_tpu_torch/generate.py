@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch.models.dalle import generate_images, generate_texts
+from dalle_pytorch_tpu_torch.models.vae_io import decode_unit
 from dalle_pytorch_tpu_torch.ops.sampling import row_seed
 from dalle_pytorch_tpu_torch.serving.engine import SampleSpec, engine_from_checkpoint
 from dalle_pytorch_tpu_torch.utils.images import save_image_grid, to_uint8, write_png
@@ -115,8 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     cond_scale=args.cond_scale,
                 )
                 with torch.inference_mode():
-                    pixels = engine.vae.decode(toks)
-                images.append(pixels.float().cpu().numpy() * 0.5 + 0.5)  # un-normalize
+                    images.append(decode_unit(engine.vae, toks).cpu().numpy())
                 tokens.append(toks.to(torch.int32).cpu().numpy())
                 continue
             specs = [

@@ -39,10 +39,17 @@ class CLIP(nn.Module):
         visual_image_size: int = 256,
         visual_patch_size: int = 32,
         channels: int = 3,
+        executor: str = "unrolled",
     ):
         """Arguments as the reference's fields (`num_visual_tokens` is kept
-        for the checkpoint's hparams; the image encoder reads pixels)."""
+        for the checkpoint's hparams; the image encoder reads pixels).
+        `executor` ("unrolled" or "scan") is the parameter layout of the
+        checkpoints the CLIP is written to: the modules are the unrolled
+        executor's either way."""
         super().__init__()
+        if executor not in ("unrolled", "scan"):
+            raise ValueError(f"unknown executor {executor!r}; valid: unrolled, scan")
+        self.executor = executor
         if visual_image_size % visual_patch_size:
             raise ValueError(
                 f"visual_image_size {visual_image_size} must be a multiple of "

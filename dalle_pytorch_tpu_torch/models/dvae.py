@@ -1,4 +1,5 @@
-"""Discrete VAE: the frozen encoder and the pixel decoder.
+"""Discrete VAE: the encoder, the Gumbel-softmax codebook sampling, the
+pixel decoder and the training losses.
 
 Counterpart of the JAX package's `models/dvae.py:DiscreteVAE`:
 
@@ -9,12 +10,16 @@ Counterpart of the JAX package's `models/dvae.py:DiscreteVAE`:
   and `precompute_tokens`' offline one;
 * decoder (`decode`): codebook lookup -> [1x1 projection + ResBlocks when
   num_resnet_blocks > 0] -> `num_layers` stride-2 4x4 transposed convs
-  with ReLU -> 1x1 head.
-
-The gumbel-softmax forward and the training losses are not ported yet;
-the constructor keeps their settings (`smooth_l1_loss`, `temperature`,
-`straight_through`, `reinmax`, `kl_div_loss_weight`) so that a
-checkpoint's hyperparameters round-trip.
+  with ReLU -> 1x1 head (`decode_embeds` from the embeddings);
+* training forward (`forward`, the JAX `__call__`): the logits, a
+  Gumbel-softmax sample over the codebook axis at temperature `temp`
+  (hard with the straight-through gradient when `straight_through`,
+  ReinMax when `reinmax` too; `ops/gumbel.py`), its product with the
+  codebook and the decode; with `return_loss` the reconstruction loss
+  against the normalized input (`smooth_l1_loss` or `mse_loss`, in
+  float32) plus `kl_div_loss_weight` times the KL divergence of the
+  codes' distribution from the uniform one (float32, summed over
+  positions and codes, divided by the batch).
 
 Precision: the encode runs in full float32 wherever it runs
 (`exact_float32`: no TF32 in cuDNN's convolutions or cuBLAS's products,
@@ -36,9 +41,13 @@ from __future__ import annotations
 import contextlib
 import math
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dalle_pytorch_tpu_torch.ops.gumbel import gumbel_noise, gumbel_softmax
 
 NORMALIZATION = ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5))  # per-channel (means, stds)
 
@@ -53,6 +62,16 @@ def exact_float32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The reference's smooth L1 (beta 1, mean over every element)."""
+    diff = (pred - target).abs()
+    return torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5).mean()
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred - target) ** 2).mean()
 
 
 class ResBlock(nn.Module):
@@ -156,7 +175,11 @@ class DiscreteVAE(nn.Module):
         emb = self.codebook(img_seq.long())
         b, n, d = emb.shape
         hw = math.isqrt(n)
-        x = emb.reshape(b, hw, hw, d).permute(0, 3, 1, 2)
+        return self.decode_embeds(emb.reshape(b, hw, hw, d))
+
+    def decode_embeds(self, emb: torch.Tensor) -> torch.Tensor:
+        """[B, h, w, codebook_dim] embeddings -> [B, H, W, C] image."""
+        x = emb.permute(0, 3, 1, 2)
         if self.dec_proj is not None:
             x = self.dec_proj(x)
         for blk in self.dec_res:
@@ -164,3 +187,44 @@ class DiscreteVAE(nn.Module):
         for conv in self.dec_convs:
             x = F.relu(conv(x))
         return self.dec_head(x).permute(0, 2, 3, 1)
+
+    def forward(
+        self,
+        img: torch.Tensor,
+        return_loss: bool = False,
+        return_recons: bool = False,
+        return_logits: bool = False,
+        temp: Optional[float] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """img [B, H, W, C] in [0, 1]. Returns the logits (`return_logits`),
+        else the reconstruction [B, H, W, C] from a Gumbel-softmax sample
+        at `temp` (the model's `temperature` when None), or with
+        `return_loss` the loss (and the reconstruction with
+        `return_recons`). The Gumbel noise is `noise` ([B, h, w,
+        num_tokens]) or drawn from `generator`."""
+        logits = self.encode_logits(img)
+        if return_logits:
+            return logits
+        temp = self.temperature if temp is None else temp
+        if noise is None:
+            noise = gumbel_noise(logits.shape, generator, logits.device, logits.dtype)
+        one_hot = gumbel_softmax(
+            logits, noise, tau=temp, hard=self.straight_through,
+            reinmax=self.straight_through and self.reinmax,
+        )
+        sampled = one_hot @ self.codebook.weight.to(one_hot.dtype)
+        out = self.decode_embeds(sampled)
+        if not return_loss:
+            return out
+        loss_fn = smooth_l1_loss if self.smooth_l1_loss else mse_loss
+        recon_loss = loss_fn(self.norm(img).float(), out.float())
+        b = logits.shape[0]
+        log_qy = F.log_softmax(logits.float(), dim=-1)
+        log_uniform = -math.log(float(self.num_tokens))
+        kl_div = (log_qy.exp() * (log_qy - log_uniform)).sum() / b
+        loss = recon_loss + kl_div * self.kl_div_loss_weight
+        if not return_recons:
+            return loss
+        return loss, out

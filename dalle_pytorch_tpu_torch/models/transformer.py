@@ -1,5 +1,6 @@
 """The DALLE transformer trunk, unrolled executor: cached decode and the
-uncached (training) forward.
+uncached (training) forward, and the conversions to and from the JAX
+package's scan-executor parameter layout.
 
 Counterpart of the JAX package's `models/transformer.py:Transformer` with
 `executor="unrolled"` (`_half_attn`, `_half_ff`, `_layer`, `__call__`):
@@ -8,9 +9,19 @@ LayerScale, then the same around the GEGLU feed-forward. Cached decode
 shifts against a ring; the uncached forward shifts the whole sequence,
 runs the layers in reverse order under `reverse_model`, applies attention
 and feed-forward dropout in training mode, and with `reversible=True`
-recomputes each layer in the backward pass (`torch.utils.checkpoint`, the
-reference's `reversible_impl="remat"`; its RNG state is restored, so
-dropout masks match). `reversible_impl="revnet"` is not ported.
+either recomputes each layer in the backward pass (`torch.utils.checkpoint`,
+the reference's `reversible_impl="remat"`; its RNG state is restored, so
+dropout masks match) or, with `reversible_impl="revnet"`, runs the
+two-stream RevNet: x1 = x1 + f_i(x2), x2 = x2 + g_i(x1) over the layers
+from x1 = x2 = x, returning (y1 + y2) / 2, where f_i is layer i's attention
+half and g_i its feed-forward half. Its backward (`_RevNetFunction`) keeps
+only y1 and y2 and rebuilds each layer's inputs from its outputs (x2 = y2
+- g(y1), x1 = y1 - f(x2)) while it walks the layers back, so activation
+memory does not grow with depth. `reversible_impl="revnet_naive"` is the
+same forward differentiated by autograd, the tests' oracle. The RevNet
+refuses a key mask and dropout in training mode, as the reference does;
+its cached decode advances the same two streams through the cached
+halves.
 Supported: attention-type cycling over {full, axial_row, axial_col,
 conv_like, sparse} (static pattern masks), cross-layer sharing
 (`shared_attn_ids` / `shared_ff_ids`), LayerScale init by depth, sandwich
@@ -30,7 +41,7 @@ from __future__ import annotations
 
 import math
 from itertools import cycle, islice
-from typing import Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +63,9 @@ from dalle_pytorch_tpu_torch.ops.shift import (
     shift_token_step,
     shift_tokens_dalle,
 )
+
+
+REVERSIBLE_IMPLS = ("remat", "revnet", "revnet_naive")
 
 
 def layerscale_init(layer_index: int) -> float:
@@ -160,14 +174,15 @@ class Transformer(nn.Module):
         super().__init__()
         if (shift_tokens or rotary_emb) and image_fmap_size is None:
             raise ValueError("shift_tokens / rotary_emb need image_fmap_size")
-        if reversible and reversible_impl != "remat":
-            raise NotImplementedError(
-                f"reversible_impl={reversible_impl!r} (the two-stream RevNet "
-                "executor) is not ported yet (models/transformer.py's "
-                "_revnet in the JAX package); reversible_impl='remat' is"
+        if reversible_impl not in REVERSIBLE_IMPLS:
+            raise ValueError(
+                f"unknown reversible_impl {reversible_impl!r}; one of {REVERSIBLE_IMPLS}"
             )
         self.depth = depth
         self.reversible = reversible
+        self.reversible_impl = reversible_impl
+        self.revnet = reversible and reversible_impl != "remat"
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.image_fmap_size = image_fmap_size
         self.shift_tokens = shift_tokens
         self.sandwich_norm = sandwich_norm
@@ -176,6 +191,11 @@ class Transformer(nn.Module):
         )
 
         types = list(islice(cycle(tuple(attn_types) if attn_types else ("full",)), depth))
+        # what decides whether the JAX scan executor runs this stack
+        self.scan_config = dict(
+            attn_types=tuple(types), attn_impl=attn_impl, shared_attn_ids=shared_attn_ids,
+            shared_ff_ids=shared_ff_ids, reversible=reversible, reversible_impl=reversible_impl,
+        )
         self.attn_ids = list(islice(cycle(shared_attn_ids or range(depth)), depth))
         self.ff_ids = list(islice(cycle(shared_ff_ids or range(depth)), depth))
         self.attn = nn.ModuleDict()
@@ -269,6 +289,51 @@ class Transformer(nn.Module):
         x = x + self._half_attn(i, x, lc, pos, key_mask)
         return x + self._half_ff(i, x, lc, pos)
 
+    def _rev_streams(self, x1, x2, order):
+        """The RevNet's two streams: f_i is layer i's attention half, g_i its
+        feed-forward half."""
+        for i in order:
+            x1 = x1 + self._half_attn(i, x2)
+            x2 = x2 + self._half_ff(i, x1)
+        return x1, x2
+
+    def _half_params(self, i: int):
+        """(f_i's parameters, g_i's parameters)."""
+        f = [*self.attn[str(self.attn_ids[i])].parameters(), *self.attn_norms[i].parameters(),
+             self.attn_scales[i]]
+        g = [*self.ff[str(self.ff_ids[i])].parameters(), *self.ff_norms[i].parameters(),
+             self.ff_scales[i]]
+        if self.sandwich_norm:
+            f += list(self.attn_norms_out[i].parameters())
+            g += list(self.ff_norms_out[i].parameters())
+        return f, g
+
+    def _revnet(self, x: torch.Tensor, order, key_mask) -> torch.Tensor:
+        if key_mask is not None:
+            raise ValueError("the revnet executor has no key-mask path")
+        if self.training and (self.attn_dropout > 0 or self.ff_dropout > 0):
+            raise ValueError(
+                "the revnet executor requires deterministic execution (no dropout); "
+                "use reversible_impl='remat' for dropout training"
+            )
+        if self.reversible_impl == "revnet_naive" or not torch.is_grad_enabled():
+            y1, y2 = self._rev_streams(x, x, order)
+            return (y1 + y2) / 2
+        params = list(self.parameters())
+        return _RevNetFunction.apply(self, tuple(order), x, *params)
+
+    def _revnet_cached(self, x: torch.Tensor, cache: dict, order) -> torch.Tensor:
+        """Cached decode of the two-stream function: the attention half
+        reads x2 and updates `shift_attn`, the feed-forward half reads x1
+        and updates `shift_ff`, both at the position before this call."""
+        x1 = x2 = x
+        for i in order:
+            lc = cache[f"layer_{i}"]
+            pos = lc["attn"]["index"]  # before attention advances it
+            x1 = x1 + self._half_attn(i, x2, lc, pos)
+            x2 = x2 + self._half_ff(i, x1, lc, pos)
+        return (x1 + x2) / 2
+
     def forward(
         self,
         x: torch.Tensor,
@@ -279,17 +344,75 @@ class Transformer(nn.Module):
         """x [B, n, dim]. With a cache: at the cache's position, updating it
         in place. Without: the whole sequence from position 0, layers in
         reverse order under `reverse_model`, key-padding mask [B, n]."""
+        order = range(self.depth - 1, -1, -1) if reverse_model else range(self.depth)
         if cache is not None:
+            if self.revnet:
+                return self._revnet_cached(x, cache, order)
             for i in range(self.depth):
                 x = self._layer(i, x, lc=cache[f"layer_{i}"])
             return x
-        order = range(self.depth - 1, -1, -1) if reverse_model else range(self.depth)
+        if self.revnet:
+            return self._revnet(x, order, key_mask)
         for i in order:
             if self.reversible and torch.is_grad_enabled():
                 x = checkpoint(self._layer, i, x, key_mask, use_reentrant=False)
             else:
                 x = self._layer(i, x, key_mask)
         return x
+
+
+class _RevNetFunction(torch.autograd.Function):
+    """The RevNet's memory-saving backward: the forward keeps only the
+    streams' outputs y1, y2; the backward walks the layers back and, for
+    each, recomputes g(y1), rebuilds x2 = y2 - g(y1), recomputes f(x2) and
+    rebuilds x1 = y1 - f(x2), taking the gradients of the input halves and
+    of that layer's parameters with `torch.autograd.grad`. The parameters
+    are inputs of `apply` and their gradients outputs of `backward` (summed
+    over the layers that share them), so `.grad` is written by autograd
+    alone. The backward re-enters the forward's autocast state, as
+    `torch.amp.custom_fwd` / `custom_bwd` do, for the input's device type
+    (cuda or cpu): the bf16 recompute then rounds as the forward did."""
+
+    @staticmethod
+    def forward(ctx, tr, order, x, *params):
+        dev = x.device.type
+        ctx.autocast = (dev, torch.is_autocast_enabled(dev), torch.get_autocast_dtype(dev))
+        ctx.tr, ctx.order = tr, order
+        y1, y2 = tr._rev_streams(x, x, order)
+        ctx.save_for_backward(y1, y2)
+        return (y1 + y2) / 2
+
+    @staticmethod
+    def backward(ctx, dy):
+        tr, order = ctx.tr, ctx.order
+        y1, y2 = ctx.saved_tensors
+        dy1 = dy2 = dy / 2
+        slot = {id(p): k for k, p in enumerate(tr.parameters())}
+        grads: Dict[int, torch.Tensor] = {}
+
+        def grad_of(out, h, params, d_out):
+            res = torch.autograd.grad(out, (h, *params), d_out, allow_unused=True)
+            for p, g in zip(params, res[1:]):
+                if g is not None:
+                    k = slot[id(p)]
+                    grads[k] = g if k not in grads else grads[k] + g
+            return res[0]
+
+        dev, enabled, dtype = ctx.autocast
+        with torch.enable_grad(), torch.autocast(dev, dtype=dtype, enabled=enabled):
+            for i in reversed(order):
+                f_params, g_params = tr._half_params(i)
+                h = y1.detach().requires_grad_()
+                g_out = tr._half_ff(i, h)
+                x2 = y2 - g_out.detach()
+                dy1 = dy1 + grad_of(g_out, h, g_params, dy2)
+                h = x2.detach().requires_grad_()
+                f_out = tr._half_attn(i, h)
+                x1 = y1 - f_out.detach()
+                dy2 = dy2 + grad_of(f_out, h, f_params, dy1)
+                y1, y2 = x1, x2
+        n = len(slot)
+        return (None, None, dy1 + dy2) + tuple(grads.get(k) for k in range(n))
 
 
 def _kv_store_dtype(dtype, kv_dtype):
@@ -399,3 +522,105 @@ def set_decode_cache_index(cache: dict, pos: torch.Tensor) -> None:
     pos = pos.to(torch.int32)
     for layer in cache.values():
         layer["attn"]["index"] = pos
+
+
+def scan_unsupported(
+    attn_types: Optional[Sequence[str]] = None,
+    attn_impl: str = "auto",
+    shared_attn_ids: Optional[Sequence[int]] = None,
+    shared_ff_ids: Optional[Sequence[int]] = None,
+    reversible: bool = False,
+    reversible_impl: str = "remat",
+) -> Optional[str]:
+    """None if the JAX package's scan executor runs this configuration,
+    else its reason (the JAX `Transformer._scan_supported`): the port
+    refuses a scan-layout export of such a model, since the JAX package
+    could not load it."""
+    if attn_types and any(t != "full" for t in attn_types):
+        if attn_impl in ("flash", "lib_flash"):
+            return (
+                f'attn_impl="{attn_impl}" with masked attn_types '
+                "(scanned pattern masks are traced; use dense/auto)"
+            )
+    if shared_attn_ids or shared_ff_ids:
+        return "cross-layer weight sharing"
+    if reversible and reversible_impl != "remat":
+        return "revnet reversible executor"
+    if attn_impl == "ring":
+        return "ring attention / sp mesh"
+    return None
+
+
+def check_scan_supported(**config) -> None:
+    """Raise ValueError, with the JAX package's words, for a configuration
+    its scan executor does not run (`scan_unsupported`)."""
+    why = scan_unsupported(**config)
+    if why is not None:
+        raise ValueError(
+            f'executor="scan" does not support {why}; use the default unrolled executor'
+        )
+
+
+def _take(a, i):
+    return a[i]
+
+
+def _map_tree(fn: Callable, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _stack_trees(trees, stack: Callable):
+    first = trees[0]
+    return {
+        k: _stack_trees([t[k] for t in trees], stack) if isinstance(first[k], dict)
+        else stack([t[k] for t in trees])
+        for k in first
+    }
+
+
+def scan_params_to_unrolled(tparams: dict, depth: int, take: Callable = _take) -> dict:
+    """A scan-executor Transformer parameter subtree (the reference tree
+    under ".../transformer": `scan_stack/layers` with [depth, ...] leaves
+    and the stacked LayerScale vectors) as the unrolled executor's
+    (`attn_{i}`, `ff_{i}`, norms and scales per layer). `take(leaf, i)`
+    slices layer i (numpy indexing by default)."""
+    layers = tparams["scan_stack"]["layers"]
+    out = {}
+    for i in range(depth):
+        layer = lambda tree: _map_tree(lambda a: take(a, i), tree)
+        out[f"attn_{i}"] = layer(layers["attn"])
+        out[f"ff_{i}"] = layer(layers["ff"])
+        out[f"attn_norms_{i}"] = layer(layers["norm_attn"])
+        out[f"ff_norms_{i}"] = layer(layers["norm_ff"])
+        if "norm_attn_out" in layers:
+            out[f"attn_norms_out_{i}"] = layer(layers["norm_attn_out"])
+            out[f"ff_norms_out_{i}"] = layer(layers["norm_ff_out"])
+        out[f"attn_scale_{i}"] = take(tparams["attn_scale_stack"], i)
+        out[f"ff_scale_{i}"] = take(tparams["ff_scale_stack"], i)
+    return out
+
+
+def unrolled_params_to_scan(tparams: dict, depth: int, stack: Callable = np.stack) -> dict:
+    """The inverse of `scan_params_to_unrolled` (configurations without
+    cross-layer sharing): `stack(leaves)` stacks the layers' leaves."""
+
+    def stacked(fmt):
+        trees = [tparams[fmt.format(i)] for i in range(depth)]
+        if not isinstance(trees[0], dict):
+            return stack(trees)
+        return _stack_trees(trees, stack)
+
+    layers = {
+        "attn": stacked("attn_{}"),
+        "ff": stacked("ff_{}"),
+        "norm_attn": stacked("attn_norms_{}"),
+        "norm_ff": stacked("ff_norms_{}"),
+    }
+    if "attn_norms_out_0" in tparams:
+        layers["norm_attn_out"] = stacked("attn_norms_out_{}")
+        layers["norm_ff_out"] = stacked("ff_norms_out_{}")
+    return {
+        "scan_stack": {"layers": layers},
+        "attn_scale_stack": stacked("attn_scale_{}"),
+        "ff_scale_stack": stacked("ff_scale_{}"),
+    }

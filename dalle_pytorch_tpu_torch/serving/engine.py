@@ -67,12 +67,14 @@ from dalle_pytorch_tpu_torch.models.dalle import (
     slice_prefix_sidecar,
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.models.vae_io import decode_unit, is_pretrained, to_unit
 from dalle_pytorch_tpu_torch.ops.flash_decode import PAGED_DECODE_IMPL, PAGED_DECODE_IMPLS
 from dalle_pytorch_tpu_torch.ops.sampling import keep_count
 from dalle_pytorch_tpu_torch.serving.paging import PagedKVManager
 from dalle_pytorch_tpu_torch.serving.sparsity import DecodeSparsityPolicy
 from dalle_pytorch_tpu_torch.training.pipeline import (
     build_tokenizer,
+    build_vae,
     dalle_from_config,
     dvae_from_hparams,
     load_clip_checkpoint,
@@ -288,7 +290,7 @@ class GenerationEngine:
                 toks, pixels = out, None
             else:
                 toks, pixels = out
-                pixels = (pixels[:n].float() * 0.5 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+                pixels = to_unit(self.vae, pixels[:n]).cpu().numpy()
             toks = toks[:n].to(torch.int32).cpu().numpy()
             if _warmup:
                 self.stats.warmup_batches += 1
@@ -629,8 +631,7 @@ class ContinuousEngine(GenerationEngine):
         with self._lock, torch.inference_mode():
             for i in range(0, len(padded), self.max_batch):
                 batch = torch.from_numpy(padded[i : i + self.max_batch]).to(self.device)
-                pixels = self.vae.decode(batch).float() * 0.5 + 0.5
-                outs.append(pixels.clamp(0.0, 1.0).cpu().numpy())
+                outs.append(decode_unit(self.vae, batch).cpu().numpy())
         return np.concatenate(outs)[:n]
 
     # ----------------------------------------------------------- previews
@@ -641,7 +642,7 @@ class ContinuousEngine(GenerationEngine):
         canvas), computed once on the host; 0 without a VAE."""
         if self._preview_fill is None:
             tok = 0
-            if self.vae is not None:
+            if self.vae is not None and not is_pretrained(self.vae):
                 emb = self.vae.codebook.weight.detach().float().cpu().numpy()
                 tok = int(np.argmin(np.linalg.norm(emb - emb.mean(axis=0), axis=-1)))
             self._preview_fill = tok
@@ -670,8 +671,7 @@ class ContinuousEngine(GenerationEngine):
                 t = torch.from_numpy(toks[i : i + self.max_batch]).to(self.device)
                 p = torch.from_numpy(pos[i : i + self.max_batch]).to(self.device)
                 filled = torch.where(grid < p[:, None], t, torch.full_like(t, fill))
-                pixels = self.vae.decode(filled).float() * 0.5 + 0.5
-                outs.append(pixels.clamp(0.0, 1.0).cpu().numpy())
+                outs.append(decode_unit(self.vae, filled).cpu().numpy())
         return np.concatenate(outs)[:n]
 
     def _warmup_preview(self) -> None:
@@ -1110,8 +1110,9 @@ def engine_from_checkpoint(
     preview_enabled: Optional[bool] = None,
 ):
     """Build a serving engine from a reference single-file DALLE checkpoint
-    (with its DiscreteVAE inside), in the checkpoint's dtype (bfloat16 when
-    it was trained with bf16).
+    (with its DiscreteVAE inside, or, for a model trained with a pretrained
+    wrapper, the wrapper rebuilt from the config's paths by `build_vae`),
+    in the checkpoint's dtype (bfloat16 when it was trained with bf16).
 
     `mode="micro"` gives a `GenerationEngine`; `mode="continuous"` a
     `ContinuousEngine` whose slot count is the largest of `batch_shapes`,
@@ -1146,13 +1147,16 @@ def engine_from_checkpoint(
         )
     dev = resolve_device(device)
     config, dalle_tree, vae_tree, meta, _ = load_dalle_checkpoint(dalle_path, opt=False)
-    if meta.get("vae_class_name") != "DiscreteVAE" or vae_tree is None:
-        raise NotImplementedError(
-            f"checkpoint VAE {meta.get('vae_class_name')!r}: only a DiscreteVAE "
-            "stored in the checkpoint is ported; the pretrained VAE wrappers "
-            "are not"
+    if vae_tree is None:
+        # trained with a pretrained wrapper: rebuilt from the config's paths
+        vae = build_vae(config)
+    elif meta.get("vae_class_name") != "DiscreteVAE" or not meta.get("vae_hparams"):
+        raise ValueError(
+            f"{dalle_path}: VAE weights of class {meta.get('vae_class_name')!r} without "
+            "DiscreteVAE hyperparameters"
         )
-    vae = load_dvae_params(dvae_from_hparams(meta["vae_hparams"]), vae_tree)
+    else:
+        vae = load_dvae_params(dvae_from_hparams(meta["vae_hparams"]), vae_tree)
     tokenizer = build_tokenizer(config)
     vocab = max(tokenizer.vocab_size, 1)
     text_rows = dalle_tree["text_emb"]["embedding"].shape[0]

@@ -16,9 +16,18 @@ field, and `--config` reads a YAML file (which needs PyYAML). The flow:
 * up front, before any model is built, it refuses what the port does not
   run: `ga_steps` not dividing `batch_size`, a mesh other than one
   device (`mesh.dp` / `fsdp` / `tp` / `sp` other than 1, `mesh.pp` above
-  1; ROADMAP Queue 1 item 8), `model.executor="scan"` and
-  `model.reversible_impl="revnet"` (item 6), and a VAE other than a
-  DiscreteVAE checkpoint (`--taming`, or no `--vae_path`; item 7);
+  1; ROADMAP Queue 1 item 8), `--taming` without both VQGAN paths, and,
+  with `model.executor="scan"`, a model the JAX scan executor does not
+  run (its reason);
+* the VAE is the trained dVAE at `--vae_path`, else the VQGAN
+  (`--taming`), else the OpenAI dVAE from its cache directory
+  (`build_vae`); the pretrained wrappers encode in the step as the dVAE
+  does, and the exports then carry no VAE weights, as the reference's;
+* `model.reversible_impl="revnet"` trains the two-stream RevNet
+  (`models/transformer.py`); `model.executor="scan"` trains the same
+  unrolled modules and writes every export and step checkpoint (weights
+  and Adam moments) in the JAX scan executor's layout, which
+  `--dalle_path` and `--resume` read back;
 * batches come from the dataset `build_dataset` names (rainbow, a folder,
   tar shards) through a `Prefetcher` thread that lays them out in pinned
   host memory; the main thread copies them to the card and the step
@@ -67,7 +76,8 @@ import torch
 from dalle_pytorch_tpu_torch.data.loader import TokenDataset
 from dalle_pytorch_tpu_torch.data.prefetch import Prefetcher, host_tensors, to_device
 from dalle_pytorch_tpu_torch.models.dalle import generate_images_cached
-from dalle_pytorch_tpu_torch.models.dvae import exact_float32
+from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE, exact_float32
+from dalle_pytorch_tpu_torch.models.vae_io import decode_unit
 from dalle_pytorch_tpu_torch.ops.sampling import row_seed
 from dalle_pytorch_tpu_torch.serving.engine import resolve_device
 from dalle_pytorch_tpu_torch.training.checkpoint import CheckpointManager
@@ -79,11 +89,17 @@ from dalle_pytorch_tpu_torch.training.config import (
     load_config,
 )
 from dalle_pytorch_tpu_torch.training.lr import ReduceLROnPlateau
-from dalle_pytorch_tpu_torch.training.metrics import MetricsLogger, ProfilerHook, ThroughputMeter
+from dalle_pytorch_tpu_torch.training.metrics import (
+    MetricsLogger,
+    ProfilerHook,
+    StepTimer,
+    ThroughputMeter,
+)
 from dalle_pytorch_tpu_torch.training.pipeline import (
     build_dataset,
     build_tokenizer,
     build_vae,
+    checkpoint_layout,
     dalle_from_config,
     dvae_hparams,
     load_dalle_checkpoint,
@@ -105,6 +121,7 @@ from dalle_pytorch_tpu_torch.training.steps import (
 )
 from dalle_pytorch_tpu_torch.utils.flops import dalle_train_flops_per_sample, mfu
 from dalle_pytorch_tpu_torch.weights import (
+    dalle_tree_layout,
     export_dalle_opt_state,
     export_dalle_params,
     export_dvae_params,
@@ -157,20 +174,17 @@ def check_config(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             'model.attn_impl="ring" is sequence-parallel over a mesh: ROADMAP Queue 1 item 8'
         )
-    if cfg.model.executor != "unrolled":
-        raise NotImplementedError(
-            f"model.executor={cfg.model.executor!r}: the port runs the unrolled layer "
-            "executor only; the scan layout is ROADMAP Queue 1 item 6"
-        )
-    if cfg.model.reversible_impl == "revnet":
-        raise NotImplementedError(
-            'model.reversible_impl="revnet" is not ported (ROADMAP Queue 1 item 6); '
-            '"remat" is'
-        )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; one of {MODES}")
-    if not cfg.vae_path:
-        build_vae(cfg)  # raises, naming the pretrained wrapper
+    m = cfg.model
+    if m.reversible and m.reversible_impl != "remat" and (m.attn_dropout or m.ff_dropout):
+        raise ValueError(
+            "the revnet executor requires deterministic execution (no dropout); "
+            "use reversible_impl='remat' for dropout training"
+        )
+    if not cfg.vae_path and cfg.taming and not (cfg.vqgan_model_path and cfg.vqgan_config_path):
+        raise ValueError("--taming needs vqgan_model_path and vqgan_config_path (--set ...)")
+    checkpoint_layout(config_to_dict(cfg))
 
 
 def _config(args) -> tuple:
@@ -203,9 +217,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg, resume = _config(args)
     check_config(cfg)
 
+    layout = checkpoint_layout(config_to_dict(cfg))
     tokenizer = build_tokenizer(config_to_dict(cfg))
     vae = build_vae(cfg)
-    if resume is not None and resume["vae"] is not None:
+    trained_vae = isinstance(vae, DiscreteVAE)
+    if resume is not None and resume["vae"] is not None and trained_vae:
         load_dvae_params(vae, resume["vae"])
     image_fmap_size = vae.fmap_size
     if cfg.tokens_path:
@@ -245,7 +261,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     resume_meta = resume["meta"] if resume is not None else {}
     resume_train = resume_meta.get("train", {})
     if resume is not None:
-        restore_opt_state(model, opt, resume["opt"])
+        restore_opt_state(model, opt, resume["opt"], dalle_tree_layout(resume["dalle"]))
 
     in_step_encode = not cfg.tokens_path
     raw_step = make_dalle_train_step(
@@ -255,20 +271,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     )
 
     on_card = device.type == "cuda"
-    step_spans = []  # each step's (start, end): CUDA events on the card, else seconds
+    timer = StepTimer(on_card)
 
     def keyed_step(host_batch, key: int):
         """One step on a host batch, keyed and timed."""
-        start = torch.cuda.Event(enable_timing=True) if on_card else time.perf_counter()
-        if on_card:
-            start.record()
+        timer.start()
         torch.manual_seed(row_seed(key, 1))  # this step's dropout masks
         metrics = raw_step(to_device(host_batch, device),
                            torch.Generator().manual_seed(row_seed(key, 0)))
-        end = torch.cuda.Event(enable_timing=True) if on_card else time.perf_counter()
-        if on_card:
-            end.record()
-        step_spans.append((start, end))
+        timer.stop()
         return metrics
 
     steps_per_dispatch = max(1, int(cfg.steps_per_dispatch))
@@ -285,7 +296,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if restored is not None:
             leaves = opt_leaves(restored["opt"])
             load_dalle_params(model, restored["dalle"])
-            load_dalle_opt_state(model, opt, leaves)
+            load_dalle_opt_state(model, opt, leaves, dalle_tree_layout(restored["dalle"]))
             summary.update(resumed_step=rstep, load_s=time.perf_counter() - t0,
                            resumed_adam_count=int(leaves[2]),
                            resumed_plateau=step_meta.get("plateau"))
@@ -303,7 +314,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     plateau = ReduceLROnPlateau() if cfg.lr_decay else None
     if plateau is not None and resume_train.get("plateau"):
         plateau.load_state_dict(resume_train["plateau"])
-    vae_tree = export_dvae_params(vae) if in_step_encode else None
+    # a trained dVAE travels in the export; a pretrained wrapper does not
+    keep_vae = in_step_encode and trained_vae
+    vae_tree = export_dvae_params(vae) if keep_vae else None
 
     exported = {}
 
@@ -312,10 +325,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         exported.update(epoch=epoch, step=global_step)
         save_dalle_checkpoint(
             str(path), config_to_dict(cfg), model, vae_tree, epoch, type(vae).__name__,
-            vae_hparams=dvae_hparams(vae) if in_step_encode else None,
+            vae_hparams=dvae_hparams(vae) if keep_vae else None,
             train_meta={"global_step": global_step,
                         "plateau": plateau.state_dict() if plateau else None},
-            opt_state=export_dalle_opt_state(model, opt),
+            opt_state=export_dalle_opt_state(model, opt, layout),
         )
         summary["export_s"].append(time.perf_counter() - t0)
 
@@ -398,8 +411,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         t0 = time.perf_counter()
                         ckpt.save(
                             global_step,
-                            {"dalle": export_dalle_params(model),
-                             "opt": opt_tree(export_dalle_opt_state(model, opt))},
+                            {"dalle": export_dalle_params(model, layout),
+                             "opt": opt_tree(export_dalle_opt_state(model, opt, layout))},
                             metadata={
                                 "epoch": epoch, "step": global_step, "epoch_batch": epoch_batch,
                                 "epoch_losses": epoch_losses,
@@ -416,7 +429,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         toks = generate_images_cached(model, text, sample_key, filter_thres=0.9)
                         model.train()
                         with torch.no_grad(), exact_float32():
-                            image = vae.decode(toks).float().cpu().numpy() * 0.5 + 0.5
+                            image = decode_unit(vae, toks).cpu().numpy()
                         caption = (captions or [None])[0] or tokenizer.decode(text_head[0])
                         logger.log_images(image, caption, "image", global_step)
                         summary["sample_tokens"] = toks.cpu().numpy()
@@ -460,7 +473,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         last_loss=None if last_loss is None else float(last_loss),
         input_wait_frac=batch_iter.wait_fraction if batch_iter is not None else None,
         learning_rate=get_learning_rate(opt),
-        step_ms=[a.elapsed_time(b) if on_card else 1e3 * (b - a) for a, b in step_spans],
+        step_ms=timer.step_ms(),
         flops_per_sample=flops_per_sample, device_name=device_name,
         plateau=plateau.state_dict() if plateau else None,
     )

@@ -386,6 +386,35 @@ class MetricsLogger:
             self._jsonl.close()
 
 
+class StepTimer:
+    """The time of each optimizer step: CUDA event pairs on a card (read
+    once, after the run's last synchronize), host-clock spans elsewhere.
+    `start()` before a step, `stop()` after it."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self._spans = []
+        self._start = None
+
+    def _mark(self):
+        if not self.on_card:
+            return time.perf_counter()
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self) -> None:
+        self._start = self._mark()
+
+    def stop(self) -> None:
+        self._spans.append((self._start, self._mark()))
+
+    def step_ms(self) -> list:
+        return [a.elapsed_time(b) if self.on_card else 1e3 * (b - a) for a, b in self._spans]
+
+
 class ThroughputMeter:
     """Samples a second, at each crossing of a multiple of `interval`
     steps, over the true step delta (a window may advance several)."""

@@ -25,9 +25,11 @@ import torch
 
 from dalle_pytorch_tpu_torch import __version__
 from dalle_pytorch_tpu_torch.data.tokenizer import get_tokenizer
+from dalle_pytorch_tpu_torch.models import vae_io
 from dalle_pytorch_tpu_torch.models.clip import CLIP
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.models.transformer import check_scan_supported
 from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz, save_params_npz
 from dalle_pytorch_tpu_torch.weights import (
     dalle_opt_shapes,
@@ -126,10 +128,13 @@ def dalle_from_config(
     reference's library kernel: the port trains such a model through its
     own flash kernels and decodes it dense, as the reference decodes it;
     see `models/attention.py`). The sequence-parallel "ring" (a multi-card
-    training layout) maps to "auto". `reversible_impl="revnet"` is not
-    ported and raises.
+    training layout) maps to "auto". `reversible_impl` "remat", "revnet"
+    and "revnet_naive" build their executors. `executor="scan"` names the
+    layout of the checkpoints (`checkpoint_layout`): the port's modules
+    are the unrolled executor's either way.
     """
     m = config["model"]
+    checkpoint_layout(config)
     attn_impl = m.get("attn_impl", "auto")
     attn_impl = "auto" if attn_impl == "ring" else attn_impl
     model = DALLE(
@@ -164,9 +169,27 @@ def dalle_from_config(
     return model, torch.bfloat16 if config.get("bf16", True) else torch.float32
 
 
+def checkpoint_layout(config: dict) -> str:
+    """The parameter layout a checkpoint of `config` is written in: its
+    `model.executor`, "unrolled" or "scan". A model the JAX scan executor
+    does not run is refused under "scan", with the JAX package's reason."""
+    m = config["model"]
+    executor = m.get("executor", "unrolled")
+    if executor not in ("unrolled", "scan"):
+        raise ValueError(f"unknown model.executor {executor!r}; valid: unrolled, scan")
+    if executor == "scan":
+        check_scan_supported(
+            attn_types=_csv(m.get("attn_types", "full")), attn_impl=m.get("attn_impl", "auto"),
+            shared_attn_ids=_ids(m.get("shared_attn_ids")), shared_ff_ids=_ids(m.get("shared_ff_ids")),
+            reversible=m.get("reversible", False), reversible_impl=m.get("reversible_impl", "remat"),
+        )
+    return executor
+
+
 def dalle_config(model: DALLE, bf16: bool = True, mode: str = "forward_only") -> dict:
     """The checkpoint `config` dict describing `model`, in the reference
-    config's key names (a subset of its `TrainConfig`)."""
+    config's key names (a subset of its `TrainConfig`), its checkpoints in
+    the unrolled layout."""
     tr = model.transformer
     return {
         "mode": mode,
@@ -191,6 +214,8 @@ def dalle_config(model: DALLE, bf16: bool = True, mode: str = "forward_only") ->
             "shared_attn_ids": _join(model.shared_attn_ids),
             "shared_ff_ids": _join(model.shared_ff_ids),
             "reversible": tr.reversible,
+            "reversible_impl": tr.reversible_impl,
+            "executor": "unrolled",
             "attn_dropout": model.attn_dropout,
             "ff_dropout": model.ff_dropout,
             "fused_ce": model.fused_ce,
@@ -217,10 +242,11 @@ def save_dalle_checkpoint(
     """Write `model` as the reference's single-file DALLE checkpoint: the
     DALLE tree (and `vae_params`, a reference dVAE tree, when given) with
     the metadata {type, version, epoch, vae_class_name, vae_hparams,
-    config, train}; `opt_state`, the optimizer's leaves
+    config, train}, in the layout `config` names (`checkpoint_layout`);
+    `opt_state`, the optimizer's leaves in that layout
     (`weights.py:export_dalle_opt_state`), goes in as the `opt` tree, as
     the reference writes it."""
-    trees = {"dalle": export_dalle_params(model)}
+    trees = {"dalle": export_dalle_params(model, checkpoint_layout(config))}
     if vae_params is not None:
         trees["vae"] = vae_params
     if opt_state is not None:
@@ -305,18 +331,22 @@ def load_vae_checkpoint(path: str) -> DiscreteVAE:
     return load_dvae_params(dvae_from_hparams(meta["hparams"]), params)
 
 
-def build_vae(cfg) -> DiscreteVAE:
-    """The trainer's VAE: the trained dVAE at `cfg.vae_path`. The VQGAN
-    (`--taming`) and the OpenAI dVAE (the reference's default when no path
-    is given) are pretrained wrappers that are not ported (ROADMAP Queue
-    1 item 7), and no weights for them are here."""
-    if cfg.vae_path:
-        return load_vae_checkpoint(cfg.vae_path)
-    which = "the VQGAN (--taming)" if cfg.taming else "the OpenAI dVAE (the default without --vae_path)"
-    raise NotImplementedError(
-        f"{which} is a pretrained VAE wrapper, not ported yet (ROADMAP Queue 1 item 7); "
-        "train from a DiscreteVAE checkpoint with --vae_path"
-    )
+def build_vae(cfg):
+    """The trainer's VAE, in the reference's order: the trained dVAE at
+    `vae_path`, else the VQGAN (`taming`, from `vqgan_model_path` and
+    `vqgan_config_path`), else OpenAI's pretrained dVAE from
+    `models/vae_io.py:CACHE_PATH`. `cfg` is a `TrainConfig` or a
+    checkpoint's config dict."""
+    def field(name):
+        return cfg.get(name) if isinstance(cfg, dict) else getattr(cfg, name)
+
+    if field("vae_path"):
+        return load_vae_checkpoint(field("vae_path"))
+    if field("taming"):
+        if not (field("vqgan_model_path") and field("vqgan_config_path")):
+            raise ValueError("the VQGAN (--taming) needs vqgan_model_path and vqgan_config_path")
+        return vae_io.VQGanVAE(field("vqgan_model_path"), field("vqgan_config_path"))
+    return vae_io.OpenAIDiscreteVAE()
 
 
 def load_dalle_checkpoint(path: str, opt: bool = True):
@@ -330,14 +360,15 @@ def load_dalle_checkpoint(path: str, opt: bool = True):
     return meta["config"], params["dalle"], params.get("vae"), meta, leaves
 
 
-def restore_opt_state(model: DALLE, optimizer, leaves) -> bool:
-    """Load saved optimizer leaves into `optimizer` (over `model`'s
-    parameters). On a mismatch of count or shapes (the optimizer config
-    changed) the optimizer stays fresh, with a warning, as the reference's
-    `restore_opt_state` leaves it. Returns whether the state was loaded."""
+def restore_opt_state(model: DALLE, optimizer, leaves, layout: str = "unrolled") -> bool:
+    """Load saved optimizer leaves (their moments in `layout`) into
+    `optimizer` (over `model`'s parameters). On a mismatch of count or
+    shapes (the optimizer config changed) the optimizer stays fresh, with a
+    warning, as the reference's `restore_opt_state` leaves it. Returns
+    whether the state was loaded."""
     if leaves is None:
         return False
-    shapes = dalle_opt_shapes(model)
+    shapes = dalle_opt_shapes(model, layout)
     if len(shapes) != len(leaves) or any(
         shape != np.shape(leaf) for shape, leaf in zip(shapes, leaves)
     ):
@@ -346,13 +377,13 @@ def restore_opt_state(model: DALLE, optimizer, leaves) -> bool:
             "optimizer (config changed?) — starting with a fresh optimizer"
         )
         return False
-    load_dalle_opt_state(model, optimizer, leaves)
+    load_dalle_opt_state(model, optimizer, leaves, layout)
     return True
 
 
 def clip_hparams(clip: CLIP) -> dict:
     """The checkpoint `clip_hparams` dict of a port CLIP (the reference's
-    keys; the port's layers are the unrolled executor's)."""
+    keys; `executor` is the layout of its checkpoints)."""
     return {
         "dim_text": clip.dim_text,
         "dim_image": clip.dim_image,
@@ -367,24 +398,19 @@ def clip_hparams(clip: CLIP) -> dict:
         "visual_image_size": clip.visual_image_size,
         "visual_patch_size": clip.visual_patch_size,
         "channels": clip.channels,
-        "executor": "unrolled",
+        "executor": clip.executor,
     }
 
 
 def save_clip_checkpoint(path: str, clip: CLIP) -> None:
-    """The reference's single-file CLIP checkpoint: the CLIP tree and the
-    `clip_hparams` metadata."""
-    save_params_npz(path, export_clip_params(clip), metadata={"clip_hparams": clip_hparams(clip)})
+    """The reference's single-file CLIP checkpoint: the CLIP tree, in the
+    layout `clip.executor` names, and the `clip_hparams` metadata."""
+    save_params_npz(path, export_clip_params(clip, clip.executor),
+                    metadata={"clip_hparams": clip_hparams(clip)})
 
 
 def load_clip_checkpoint(path: str) -> CLIP:
-    """A float32 CLIP with the checkpoint's weights, on the CPU."""
+    """A float32 CLIP with the checkpoint's weights (either layout), on
+    the CPU."""
     params, metadata = load_params_npz(path)
-    hparams = dict(metadata["clip_hparams"])
-    executor = hparams.pop("executor", "unrolled")
-    if executor != "unrolled":
-        raise ValueError(
-            f"CLIP checkpoint of executor {executor!r}: the port loads the unrolled "
-            "layout only (ROADMAP Queue 1, scan-layout checkpoints)"
-        )
-    return load_clip_params(CLIP(**hparams), params)
+    return load_clip_params(CLIP(**metadata["clip_hparams"]), params)

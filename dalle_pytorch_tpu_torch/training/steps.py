@@ -1,9 +1,11 @@
-"""The DALLE training step: loss, gradients and the Adam update.
+"""The DALLE, dVAE and CLIP training steps: loss, gradients and the Adam
+update.
 
 Counterpart of the JAX package's `training/steps.py` (`make_optimizer`,
 `get_learning_rate` / `set_learning_rate`, `make_dalle_train_step` with
 its `_accumulate` / `_microbatch` and the in-step dVAE encode,
-`make_multi_step`, `window_keys`, `stack_batches`, `window_iter`). A
+`make_vae_train_step`, `make_clip_train_step`, `make_multi_step`,
+`window_keys`, `stack_batches`, `window_iter`). A
 batch is {"text": [B, T] ids, "image_tokens": [B, N] ids}, or with a
 frozen `vae` {"text", "images": [B, H, W, C] in [0, 1]}: the step then
 encodes the images to tokens first, without gradient, in the VAE's
@@ -102,7 +104,7 @@ def set_learning_rate(opt: Optimizer, lr: float) -> Optimizer:
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], accum: int):
-    b = batch["text"].shape[0]
+    b = next(iter(batch.values())).shape[0]
     if b % accum:
         raise ValueError(f"batch {b} is not divisible by grad_accum {accum}")
     size = b // accum
@@ -212,6 +214,43 @@ def make_dalle_train_step(
         norm = optimizer.step()
         if norm is not None:
             metrics["grad_norm"] = norm
+        return metrics
+
+    return step
+
+
+def make_vae_train_step(vae, optimizer: Optimizer, grad_accum: int = 1) -> Callable:
+    """step(batch, temp, generator=None) -> metrics: one optimizer step of
+    the dVAE on {"images": [B, H, W, C] in [0, 1]} at Gumbel temperature
+    `temp` (the trainer anneals it), in float32. The batch may carry its
+    Gumbel "noise" [B, h, w, num_tokens]; else each microbatch draws its
+    own from `generator`."""
+
+    def step(batch, temp: float, generator: Optional[torch.Generator] = None):
+        def loss_fn(mb, gen):
+            loss = vae(mb["images"], return_loss=True, temp=temp, noise=mb.get("noise"),
+                       generator=gen)
+            return loss, {"loss": loss}
+
+        metrics = accumulate_gradients(vae, loss_fn, batch, grad_accum, generator)
+        optimizer.step()
+        return metrics
+
+    return step
+
+
+def make_clip_train_step(clip, optimizer: Optimizer, grad_accum: int = 1) -> Callable:
+    """step(batch, generator=None) -> metrics: one optimizer step of CLIP's
+    contrastive loss on {"text", "images"[, "text_mask"]}, in float32."""
+
+    def loss_fn(batch, generator=None):
+        loss = clip(batch["text"], batch["images"], text_mask=batch.get("text_mask"),
+                    return_loss=True)
+        return loss, {"loss": loss}
+
+    def step(batch, generator: Optional[torch.Generator] = None):
+        metrics = accumulate_gradients(clip, loss_fn, batch, grad_accum, generator)
+        optimizer.step()
         return metrics
 
     return step

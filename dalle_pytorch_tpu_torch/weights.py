@@ -17,13 +17,22 @@ encoder and the decoder). Mappings:
 Every leaf must be consumed and every port parameter filled: a missing or
 extra leaf raises, naming it.
 
+Layouts: a DALLE or CLIP tree comes in the unrolled executor's layout
+(`attn_{i}`, `ff_{i}`, ... per layer) or in the scan executor's
+(`scan_stack/layers/...` with [depth, ...] leaves; the JAX package's
+`executor="scan"`). The loaders take either, converting the scan layout
+(`models/transformer.py:scan_params_to_unrolled`); the exporters write
+`layout="unrolled"` (the default) or `layout="scan"`, which they refuse,
+with the JAX package's reason, for a model its scan executor does not run.
+
 The DALLE optimizer's state travels as the reference's `opt` leaves
 (`export_dalle_opt_state`, `load_dalle_opt_state`): the optax state of
 `inject_hyperparams(chain(clip_by_global_norm, adam))` flattened in
 `jax.tree_util` order, which is the update count (int32), the learning
 rate (float32), Adam's count (int32), then Adam's first moments `mu` and
 second moments `nu`, each over the DALLE tree in sorted-key order. Each
-moment takes its weight's layout conversion.
+moment takes its weight's layout conversion, and in the scan layout the
+moments are stacked as the weights are and follow the scan tree's order.
 """
 
 from __future__ import annotations
@@ -36,7 +45,14 @@ import torch
 from dalle_pytorch_tpu_torch.models.clip import CLIP
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
-from dalle_pytorch_tpu_torch.models.transformer import Transformer
+from dalle_pytorch_tpu_torch.models.transformer import (
+    Transformer,
+    check_scan_supported,
+    scan_params_to_unrolled,
+    unrolled_params_to_scan,
+)
+
+LAYOUTS = ("unrolled", "scan")
 
 _Target = Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -82,15 +98,57 @@ def _to_reference(tensor: torch.Tensor, fn) -> np.ndarray:
     return leaf.to("cpu", copy=True).numpy()
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "", leaf=np.asarray) -> Dict[str, np.ndarray]:
     out = {}
     for key, val in tree.items():
         path = f"{prefix}{key}"
         if isinstance(val, dict):
-            out.update(_flatten(val, path + "/"))
+            out.update(_flatten(val, path + "/", leaf))
         else:
-            out[path] = np.asarray(val)
+            out[path] = leaf(val)
     return out
+
+
+def _path_key(path: str) -> tuple:
+    """`jax.tree_util`'s leaf order of a tree: keys sorted at every level."""
+    return tuple(path.split("/"))
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
+
+
+def _is_scan(tree: dict, transformers: Dict[str, Transformer]) -> bool:
+    return any("scan_stack" in tree.get(k, {}) for k in transformers)
+
+
+def _unrolled(tree: dict, transformers: Dict[str, Transformer]) -> dict:
+    """`tree` with each transformer subtree in the unrolled layout."""
+    if not _is_scan(tree, transformers):
+        return tree
+    out = dict(tree)
+    for key, tr in transformers.items():
+        out[key] = scan_params_to_unrolled(tree[key], tr.depth)
+    return out
+
+
+def _in_layout(tree: dict, transformers: Dict[str, Transformer], layout: str,
+               stack=np.stack) -> dict:
+    """An unrolled `tree` in `layout`; the scan layout is refused, with the
+    JAX package's reason, for a stack its scan executor does not run."""
+    _check_layout(layout)
+    if layout == "unrolled":
+        return tree
+    out = dict(tree)
+    for key, tr in transformers.items():
+        check_scan_supported(**tr.scan_config)
+        out[key] = unrolled_params_to_scan(tree[key], tr.depth, stack)
+    return out
+
+
+def _stack_shapes(shapes):
+    return (len(shapes),) + tuple(shapes[0])
 
 
 def _assign(targets: Dict[str, _Target], flat: Dict[str, np.ndarray], what: str) -> None:
@@ -181,22 +239,27 @@ def _transformer_targets(prefix: str, tr: Transformer, t: Dict[str, _Target]) ->
         t[f"{prefix}/ff_scale_{i}"] = (tr.ff_scales[i], _same)
 
 
+def _dalle_stacks(model: DALLE) -> Dict[str, Transformer]:
+    return {"transformer": model.transformer}
+
+
 def load_dalle_params(model: DALLE, tree: dict) -> DALLE:
-    """Load a reference DALLE parameter tree (unrolled executor layout)
-    into `model` in place; returns the model."""
-    if "scan_stack" in tree.get("transformer", {}):
-        raise ValueError(
-            "scan-layout DALLE tree (executor='scan'): the port loads the "
-            "unrolled layout only; scan-layout checkpoints are the ROADMAP "
-            "Queue 1 item 'scan-layout checkpoint loading'"
-        )
+    """Load a reference DALLE parameter tree (either layout) into `model`
+    in place; returns the model."""
+    tree = _unrolled(tree, _dalle_stacks(model))
     _assign(_dalle_targets(model), _flatten(tree), "DALLE")
     return model
 
 
-def export_dalle_params(model: DALLE) -> dict:
-    """The reference DALLE parameter tree (unrolled layout) of `model`."""
-    return _unflatten(_export_flat(_dalle_targets(model)))
+def dalle_tree_layout(tree: dict) -> str:
+    """The layout of a reference DALLE tree: "scan" or "unrolled"."""
+    return "scan" if "scan_stack" in tree.get("transformer", {}) else "unrolled"
+
+
+def export_dalle_params(model: DALLE, layout: str = "unrolled") -> dict:
+    """The reference DALLE parameter tree of `model` in `layout`."""
+    tree = _unflatten(_export_flat(_dalle_targets(model)))
+    return _in_layout(tree, _dalle_stacks(model), layout)
 
 
 def _dvae_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
@@ -228,56 +291,71 @@ def export_dvae_params(vae: DiscreteVAE) -> dict:
     return _unflatten(_export_flat(_dvae_targets(vae)))
 
 
-def _sorted_targets(model: DALLE) -> List[Tuple[str, _Target]]:
-    """The DALLE targets in `jax.tree_util`'s leaf order (keys sorted at
-    every level)."""
-    return sorted(_dalle_targets(model).items(), key=lambda kv: tuple(kv[0].split("/")))
+def _opt_paths(model: DALLE, layout: str) -> List[Tuple[str, tuple]]:
+    """(path, shape) of each moment leaf of `model` in `layout`, in
+    `jax.tree_util`'s leaf order."""
+    shapes = {
+        path: tuple(_INVERSE[fn](torch.empty(param.shape, device="meta")).shape)
+        for path, (param, fn) in _dalle_targets(model).items()
+    }
+    tree = _in_layout(_unflatten(shapes), _dalle_stacks(model), layout, stack=_stack_shapes)
+    return sorted(_flatten(tree, leaf=tuple).items(), key=lambda kv: _path_key(kv[0]))
 
 
-def dalle_opt_shapes(model: DALLE) -> List[tuple]:
-    """The shapes of the optimizer leaves of `model` (as exported)."""
-    moments = [
-        tuple(_INVERSE[fn](torch.empty(param.shape, device="meta")).shape)
-        for _, (param, fn) in _sorted_targets(model)
-    ]
+def dalle_opt_shapes(model: DALLE, layout: str = "unrolled") -> List[tuple]:
+    """The shapes of the optimizer leaves of `model` (as exported in
+    `layout`)."""
+    moments = [shape for _, shape in _opt_paths(model, layout)]
     return [(), (), ()] + moments + moments
 
 
-def export_dalle_opt_state(model: DALLE, optimizer) -> List[np.ndarray]:
+def export_dalle_opt_state(model: DALLE, optimizer, layout: str = "unrolled") -> List[np.ndarray]:
     """The reference's optimizer leaves of `optimizer` (a
-    `training/steps.py:Optimizer` over `model`'s parameters)."""
+    `training/steps.py:Optimizer` over `model`'s parameters), its moments
+    in `layout`."""
     from dalle_pytorch_tpu_torch.training.steps import get_learning_rate
 
     state = optimizer.adam.state
-    targets = _sorted_targets(model)
-    count = max((int(state[p]["step"]) for _, (p, _) in targets if p in state), default=0)
+    targets = _dalle_targets(model)
+    count = max((int(state[p]["step"]) for p, _ in targets.values() if p in state), default=0)
     moments = []
     for key in ("exp_avg", "exp_avg_sq"):
-        for _, (param, fn) in targets:
-            m = state[param][key] if param in state else torch.zeros_like(param)
-            moments.append(_to_reference(m, fn))
+        flat = {
+            path: _to_reference(state[param][key] if param in state else torch.zeros_like(param), fn)
+            for path, (param, fn) in targets.items()
+        }
+        tree = _in_layout(_unflatten(flat), _dalle_stacks(model), layout)
+        moments += [leaf for _, leaf in sorted(_flatten(tree).items(), key=lambda kv: _path_key(kv[0]))]
     return [np.asarray(count, np.int32), np.asarray(get_learning_rate(optimizer), np.float32),
             np.asarray(count, np.int32)] + moments
 
 
-def load_dalle_opt_state(model: DALLE, optimizer, leaves: Sequence[np.ndarray]) -> None:
+def load_dalle_opt_state(
+    model: DALLE, optimizer, leaves: Sequence[np.ndarray], layout: str = "unrolled"
+) -> None:
     """Set `optimizer`'s Adam state and learning rate from the reference's
-    optimizer leaves (the inverse of `export_dalle_opt_state`)."""
+    optimizer leaves, their moments in `layout` (the inverse of
+    `export_dalle_opt_state`)."""
     from dalle_pytorch_tpu_torch.training.steps import set_learning_rate
 
-    targets = _sorted_targets(model)
-    if len(leaves) != 3 + 2 * len(targets):
-        raise ValueError(f"{len(leaves)} optimizer leaves, expected {3 + 2 * len(targets)}")
+    paths = [path for path, _ in _opt_paths(model, layout)]
+    n = len(paths)
+    if len(leaves) != 3 + 2 * n:
+        raise ValueError(f"{len(leaves)} optimizer leaves, expected {3 + 2 * n}")
     count = int(leaves[2])
     set_learning_rate(optimizer, float(leaves[1]))
     optimizer.adam.state.clear()
     if count == 0:
         return
-    mu, nu = leaves[3 : 3 + len(targets)], leaves[3 + len(targets) :]
-    for (path, (param, fn)), m, v in zip(targets, mu, nu):
+    stacks = _dalle_stacks(model)
+    mu, nu = (
+        _flatten(_unrolled(_unflatten(dict(zip(paths, part))), stacks))
+        for part in (leaves[3 : 3 + n], leaves[3 + n :])
+    )
+    for path, (param, fn) in _dalle_targets(model).items():
         entry = {"step": torch.tensor(float(count), dtype=torch.float32)}
-        for key, leaf in (("exp_avg", m), ("exp_avg_sq", v)):
-            value = _to_port(np.asarray(leaf, np.float32), param, fn)
+        for key, moments in (("exp_avg", mu), ("exp_avg_sq", nu)):
+            value = _to_port(np.asarray(moments[path], np.float32), param, fn)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"optimizer leaf {key} of {path}: shape {tuple(value.shape)} "
                                  f"does not fit {tuple(param.shape)}")
@@ -300,18 +378,19 @@ def _clip_targets(clip: CLIP) -> Dict[str, _Target]:
     return t
 
 
+def _clip_stacks(clip: CLIP) -> Dict[str, Transformer]:
+    return {"text_transformer": clip.text_transformer,
+            "visual_transformer": clip.visual_transformer}
+
+
 def load_clip_params(clip: CLIP, tree: dict) -> CLIP:
-    """Load a reference CLIP parameter tree (unrolled layout) into `clip`
-    in place; returns it."""
-    if any("scan_stack" in tree.get(k, {}) for k in ("text_transformer", "visual_transformer")):
-        raise ValueError(
-            "scan-layout CLIP tree (executor='scan'): the port loads the unrolled "
-            "layout only (ROADMAP Queue 1, scan-layout checkpoints)"
-        )
+    """Load a reference CLIP parameter tree (either layout) into `clip` in
+    place; returns it."""
+    tree = _unrolled(tree, _clip_stacks(clip))
     _assign(_clip_targets(clip), _flatten(tree), "CLIP")
     return clip
 
 
-def export_clip_params(clip: CLIP) -> dict:
-    """The reference CLIP parameter tree (unrolled layout) of `clip`."""
-    return _unflatten(_export_flat(_clip_targets(clip)))
+def export_clip_params(clip: CLIP, layout: str = "unrolled") -> dict:
+    """The reference CLIP parameter tree of `clip` in `layout`."""
+    return _in_layout(_unflatten(_export_flat(_clip_targets(clip))), _clip_stacks(clip), layout)

@@ -9,7 +9,9 @@ package, and the port's rematerialized layers.
   (its config rebuilds the same model: logits 1e-4) and in the port's
   `engine_from_checkpoint`.
 * `reversible=True` (recompute in the backward pass) gives the gradients
-  of the plain stack.
+  of the plain stack; `reversible_impl="revnet"` (the two-stream RevNet,
+  rebuilding its inputs in the backward pass) gives those of autograd
+  through its own forward (1e-5).
 """
 
 import jax
@@ -219,6 +221,16 @@ def test_remat_gives_the_gradients_of_the_plain_stack():
         torch.testing.assert_close(a, b, atol=1e-7, rtol=0)
 
 
-def test_revnet_is_not_ported():
-    with pytest.raises(NotImplementedError, match="revnet"):
-        DALLE(**TINY, reversible=True, reversible_impl="revnet")
+def test_revnet_gives_the_gradients_of_autograd_through_its_forward():
+    tree = _jax_params(TINY, seed=9)
+    text, img = _batch(seed=3)
+    batch = {"text": torch.from_numpy(text), "image_tokens": torch.from_numpy(img)}
+    grads = []
+    for impl in ("revnet", "revnet_naive"):
+        model = load_dalle_params(
+            DALLE(**TINY, attn_impl="flash", reversible=True, reversible_impl=impl), tree
+        )
+        accumulate_gradients(model, make_dalle_loss(model, "forward_reverse_partial"), batch)
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

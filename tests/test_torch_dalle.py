@@ -24,6 +24,7 @@ from dalle_pytorch_tpu.models.dalle import init_decode_cache as j_init_cache
 from dalle_pytorch_tpu.models.dvae import DiscreteVAE as JDVAE
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, init_decode_cache
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+from dalle_pytorch_tpu_torch.models.transformer import unrolled_params_to_scan
 from dalle_pytorch_tpu_torch.weights import load_dalle_params, load_dvae_params
 
 torch.set_num_threads(2)
@@ -142,9 +143,15 @@ def test_weight_loader_names_mismatched_leaves():
     del missing["logits_dense"]["bias"]
     with pytest.raises(ValueError, match="logits_dense/bias"):
         load_dalle_params(pm, missing)
+    # the scan layout of the same tree loads the same weights; a scan tree
+    # without a leaf raises, naming it in the unrolled layout
     scan = copy.deepcopy(tree)
-    scan["transformer"] = {"scan_stack": {}}
-    with pytest.raises(ValueError, match="scan-layout"):
+    scan["transformer"] = unrolled_params_to_scan(tree["transformer"], TINY["depth"])
+    again = load_dalle_params(DALLE(**TINY, attn_impl="flash"), scan)
+    for a, b in zip(again.state_dict().values(), pm.state_dict().values()):
+        assert torch.equal(a, b)
+    del scan["transformer"]["scan_stack"]["layers"]["ff"]["Dense_1"]["bias"]
+    with pytest.raises(ValueError, match="transformer/ff_0/Dense_1/bias"):
         load_dalle_params(pm, scan)
     bad_shape = copy.deepcopy(tree)
     bad_shape["text_emb"]["embedding"] = bad_shape["text_emb"]["embedding"][:-1]

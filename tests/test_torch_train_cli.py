@@ -22,7 +22,12 @@ float32, JAX at matmul precision "highest". Held:
 * the windows of `steps_per_dispatch`: `window_iter` and `stack_batches`
   equal to JAX's, and `make_multi_step` running its batches in turn,
   each with its key, to their mean metrics;
-* the trainer's up-front refusals;
+* the trainer's up-front refusals (a scan-layout export of a model the
+  JAX scan executor does not run, a RevNet with dropout, `--taming`
+  without the VQGAN's paths), and the runs it takes: a RevNet trained
+  in both layer orders and a scan-layout run, whose exports load in the
+  JAX package (logits 1e-4, Adam count) and, for the scan run, resume
+  through `--dalle_path`;
 * FLOPs a sample equal to JAX's in every mode; MFU only on an H100;
 * the `precompute_tokens` twin's artifact equal to the JAX CLI's on the
   same dataset and dVAE (tokens identical at gaps above 2e-5, asserted
@@ -314,10 +319,11 @@ def test_trainer_export_loads_in_the_reference_and_the_engine(tmp_path, monkeypa
     ("dp", ["--set", "mesh.dp=2"], (NotImplementedError, "item 8")),
     ("pp", ["--set", "mesh.pp=2"], (NotImplementedError, "item 8")),
     ("ring", ["--set", "model.attn_impl=ring"], (NotImplementedError, "item 8")),
-    ("scan", ["--set", "model.executor=scan"], (NotImplementedError, "item 6")),
-    ("revnet", ["--set", "model.reversible=true", "--set", "model.reversible_impl=revnet"],
-     (NotImplementedError, "item 6")),
-    ("taming", ["--taming"], (NotImplementedError, "item 7")),
+    ("scan", ["--set", "model.executor=scan", "--set", "model.shared_attn_ids=0,0"],
+     (ValueError, 'executor="scan" does not support cross-layer weight sharing')),
+    ("revnet", ["--set", "model.reversible=true", "--set", "model.reversible_impl=revnet",
+                "--set", "model.ff_dropout=0.1"], (ValueError, "no dropout")),
+    ("taming", ["--taming"], (ValueError, "vqgan_model_path")),
 ])
 def test_trainer_refuses_up_front(tmp_path, monkeypatch, name, extra, error):
     def never(*a, **k):
@@ -331,6 +337,52 @@ def test_trainer_refuses_up_front(tmp_path, monkeypatch, name, extra, error):
     kind, match = error
     with pytest.raises(kind, match=match):
         train_dalle.main(args)
+
+
+@pytest.mark.parametrize("name", ["scan", "revnet"])
+def test_trainer_runs_scan_and_revnet_models(tmp_path, monkeypatch, capsys, name):
+    _byte_default_vocabulary(monkeypatch)
+    vae_path = _vae_file(tmp_path)
+    extra = {
+        "scan": ["--set", "model.executor=scan", "--set", "model.shift_tokens=true",
+                 "--set", "model.rotary_emb=true"],
+        "revnet": ["--set", "model.reversible=true", "--set", "model.reversible_impl=revnet",
+                   "--exp", "r", "--set", "model.shift_tokens=true"],
+    }[name]
+    args = trainer_args(tmp_path / "run", vae_path, "--epochs", "1",
+                        "--image_text_folder", "rainbow:8", *extra)
+    summary = train_dalle.main(args)
+    assert summary["global_step"] == 2 and np.isfinite(summary["last_loss"])
+
+    cfg, jparams, _, meta, leaves = jpipeline.load_dalle_checkpoint(summary["out_file"])
+    assert ("scan_stack" in jparams["transformer"]) == (name == "scan")
+    fresh = train_state.TrainState.create(
+        apply_fn=None, params=jparams,
+        tx=jsteps.make_optimizer(cfg.learning_rate, clip_grad_norm=cfg.clip_grad_norm))
+    capsys.readouterr()
+    restored = jpipeline.restore_opt_state(fresh.opt_state, leaves)
+    assert "WARNING" not in capsys.readouterr().out and int(restored.count) == 2
+    vocab = jparams["text_emb"]["embedding"].shape[0] - 8
+    jmodel = jpipeline.dalle_from_config(cfg, num_image_tokens=32, image_fmap_size=4, vocab_size=vocab)
+    config, tree, _, _, _ = load_dalle_checkpoint(summary["out_file"])
+    model, _ = dalle_from_config(config, 32, 4, vocab)
+    load_dalle_params(model, tree)
+    text, img = _text(8, b=2) % vocab, _tokens(8, b=2)
+    for reverse_model in (False, True):
+        ref = jmodel.apply({"params": jparams}, jnp.asarray(text), jnp.asarray(img),
+                           reverse_model=reverse_model)
+        with torch.no_grad():
+            logits = model.eval()(torch.from_numpy(text), torch.from_numpy(img),
+                                  reverse_model=reverse_model)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+
+    if name == "scan":  # the scan export resumes, with its Adam state
+        again = train_dalle.main(trainer_args(
+            tmp_path / "run2", vae_path, "--epochs", "2", "--image_text_folder", "rainbow:8",
+            "--dalle_path", summary["out_file"]))
+        assert again["global_step"] == 4
+        _, _, _, meta, leaves = load_dalle_checkpoint(again["out_file"])
+        assert int(leaves[2]) == 4 and meta["config"]["model"]["executor"] == "scan"
 
 
 def test_trainer_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
