@@ -203,7 +203,28 @@ Phases, each failing loudly (nonzero exit, no result line):
    CPU run, CLIP_SCORE_TOL); (f) the OpenAI dVAE and VQGAN wrappers from
    synthetic checkpoints at the released geometries (the VQGAN config
    written as JSON), each held to its CPU run (WRAPPER_SCORE_TOL,
-   WRAPPER_DECODE_TOL); each part's wall printed.
+   WRAPPER_DECODE_TOL); each part's wall printed;
+14. (run between phases 12 and 13: phase 13 ends with a profiler trace,
+   which would stay attached to phase 14's launches) tensor-parallel
+   serving (`serving/sharded.py`) at the flagship width
+   on the model's first SHORT_DEPTH layers, with tp = 2 shards both on
+   the one card (devices [cuda:0, cuda:0]), so every kernel launches at
+   H = 8: (a) kernels 1-5, bf16 and int8 K/V, at the step (n = 1), the
+   prefill (n = 257) and the resume (n = 1280) shapes, the two shards'
+   H = 8 launches joined by head `torch.equal` to the H = 16 launch and
+   each shard within decode_tol of its plain version, the device ms of an
+   H = 8 and an H = 16 step of kernels 1 and 4; (b) tp = 1 sharded slotted
+   and paged engines on cuda:0, tokens bit-identical to phase 7's depth-4
+   causal run; tp = 2 sharded slotted and paged (paged kernel, one
+   prefix-cache hit, one resume) engines, tokens equal to that run's up to
+   each row's first position whose noised-score margin is under
+   ORACLE_MARGIN, first-position logits within TP_LOGIT_TOL, every decode
+   launch at H = 8 and each kernel's count twice the unsharded run's; (c)
+   `python -m dalle_pytorch_tpu_torch.serve --engine continuous --mesh
+   tp=1` on a depth-SHORT_DEPTH checkpoint (started first, it loads while
+   (a) and (b) run): one request answered over HTTP, /healthz with the
+   mesh block; `--mesh tp=2` on the one card exits nonzero with "needs 2
+   devices".
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -430,6 +451,35 @@ def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# traces of one call or row taken before it fails: the profiler can drop a
+# whole trace after dozens of traces in one process, and more often after
+# many launches made with the tracer attached
+TRACE_ATTEMPTS = 3
+# [traces taken, [(call, attempts) of each trace that needed more than one]],
+# printed at the end (`trace_attempts_line`)
+TRACE_LOG = [0, []]
+
+
+def traced(name, attempt_fn):
+    """Run `attempt_fn()` (one trace; it returns what it kept, falsy when
+    the profiler dropped the whole trace) up to TRACE_ATTEMPTS times;
+    returns the last result and logs the attempts into TRACE_LOG."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        kept = attempt_fn()
+        if kept:
+            break
+    TRACE_LOG[0] += 1
+    if attempt > 1:
+        TRACE_LOG[1].append((name, attempt))
+    return kept
+
+
+def trace_attempts_line():
+    retried = TRACE_LOG[1]
+    return (f"profiler traces: {TRACE_LOG[0]} taken, {len(retried)} retried (limit {TRACE_ATTEMPTS} attempts)"
+            + (": " + ", ".join(f"{n} {a} attempts" for n, a in retried) if retried else ""))
+
+
 def launched_kernel(torch, fn, args):
     """The device kernel that one call fn(*args) launches, as a
     torch.profiler trace of that call names it ("fwd_wgmma_kernel<64>");
@@ -437,13 +487,17 @@ def launched_kernel(torch, fn, args):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    names = [
-        evt.name for evt in prof.events()
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation
-    ]
+
+    def attempt():  # a trace the profiler dropped whole is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        return [
+            evt.name for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation
+        ]
+
+    names = traced(fn.__name__, attempt)
     if len(names) != 1:
         fail(f"{fn.__name__}: expected one device kernel in its trace, saw {names}")
     found = re.search(r"\w+_kernel<[^<>]*>", names[0])
@@ -475,15 +529,16 @@ def device_ms(torch, fn, inputs, iters):
     may drop some launches' records (it kept 20-57% of the D = 64
     flash-attention calls' on an H100), so the means, not the sums, are
     taken; `launches` reports what it kept; a trace that kept no record
-    is taken again, up to three times. Traces slow the launches after
+    is taken again, up to TRACE_ATTEMPTS times. Traces slow the launches after
     them, so these run after every other timed phase."""
     from torch.profiler import ProfilerActivity, profile
 
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
-    times = {}
-    for _ in range(3):  # after dozens of traces in one process the profiler can drop a whole trace
+
+    def attempt():
+        times = {}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for it in range(iters):
                 fn(*inputs[it % len(inputs)])
@@ -493,10 +548,11 @@ def device_ms(torch, fn, inputs, iters):
                 found = re.search(r"\w+_kernel<[^<>]*>|\w+_kernel\b", evt.name)
                 name = found.group(0) if found else evt.name[:60]
                 times.setdefault(name, []).append(evt.time_range.elapsed_us())
-        if times:
-            break
+        return times
+
+    times = traced(getattr(fn, "__name__", str(fn)), attempt)
     if not times:
-        fail(f"{getattr(fn, '__name__', fn)}: three traces held no device activity")
+        fail(f"{getattr(fn, '__name__', fn)}: {TRACE_ATTEMPTS} traces of {iters} calls held no device activity")
     total_us = sum(
         sum(us) / len(us) * max(1, round(len(us) / iters)) for us in times.values()
     )
@@ -2996,7 +3052,7 @@ def kv_rows(torch, engine, slots):
         table = torch.tensor(engine.kv.table[slots], dtype=torch.int32, device=engine.device)
     out = []
     for i in range(engine.model.depth):
-        attn = engine._state["cache"][f"layer_{i}"]["attn"]
+        attn = engine._state["shards"][0]["cache"][f"layer_{i}"]["attn"]
 
         def rows(name):
             t = attn[name]
@@ -3171,7 +3227,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
             seeds = [int(batcher_a._inflight[s][0].specs[batcher_a._inflight[s][1]].seed) for s in slots]
             drained.update(
                 seeds=seeds, pos=[int(eng_a._state["host"]["img_pos"][s]) for s in slots],
-                row=eng_a._state["row"][slots].float().clone(), kv=kv_rows(torch, eng_a, slots),
+                row=eng_a._state["shards"][0]["row"][slots].float().clone(), kv=kv_rows(torch, eng_a, slots),
             )
         release(slots)
 
@@ -3223,7 +3279,7 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
         resumed.setdefault("launches", []).append(getattr(fn, attr) - before)
         resumed.setdefault("tile_launches", []).append(getattr(fn, "tile_" + attr) - tile_before)
         resumed.update(seeds=[int(sp.seed) for _, sp in assignments],
-                       row=eng_b._state["row"][slots].float().clone(), kv=kv_rows(torch, eng_b, slots))
+                       row=eng_b._state["shards"][0]["row"][slots].float().clone(), kv=kv_rows(torch, eng_b, slots))
 
     eng_b.resume_slots = timed_resume
     batcher_b = ContinuousBatcher(eng_b, preview_every=PREVIEW_EVERY)
@@ -4544,6 +4600,444 @@ def run_rest_of_training(torch, smi):
     return result
 
 
+# --------------------------------------------------------------- phase 14
+# tensor-parallel serving at the flagship width, depth SHORT_DEPTH, both
+# shards on the one card (cuda:0 named twice): every kernel launches at the
+# split head count
+TP = 2
+TP_CASES = {"step": (1, [258, 700, 1024, 1281]), "prefill": (257, [257] * 4), "resume": (1280, [1280] * 4)}
+TP_ADMIT_AFTER = 8  # chunks before the second admission
+TP_RESUME_AFTER = 64  # chunks before the paged run preempts slot 1 and resumes it
+# the bf16 logit tolerance at tp > 1: the first-position logits of the
+# shards' row-parallel sums against the unsharded product (the same bound
+# phase 10 holds a resume's logits to); tokens are held by the margin rule,
+# ORACLE_MARGIN (twice this) the gap under which a flip is allowed
+TP_LOGIT_TOL = RESUME_LOGIT_TOL
+TP_TIMED_ITERS = 48
+
+
+def tp_kernel_cases(torch, shape, int8):
+    """{row name: (fn, plain fn, args at H = 16, split-head dim of each arg
+    or None, sharded)} of kernels 1 and 3-5 (int8 K/V with `int8`: kernel 2
+    is kernel 1's int8 arm) at one of TP_CASES's shapes; `sharded(parts)`
+    runs the head-split wrapper the serving path calls
+    (`sharded_flash_decode_attention`, `sharded_paged_decode_attention`
+    with the paged kernel, a page bitmap as blocks of one page) on the
+    shards' argument tuples, each argument given one per shard."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    n, lengths = TP_CASES[shape]
+    q, k, v, lens = flash_inputs(torch, n, lengths, torch.bfloat16)[0]
+    bitmap = torch.ones((q.shape[0], -(-MAIN["cache"] // 128)), dtype=torch.int32, device="cuda")
+    bitmap[:, 1::3] = 0  # every third 128-key block dead, block 0 alive
+    pq, pk, pv, plens, table, _ = paged_case(torch, q.shape[0], q.shape[1], n, q.shape[3], PAGE, lengths,
+                                             torch.bfloat16, MAIN["cache"], SEED + 14)
+    page_bm = torch.ones(table.shape, dtype=torch.int32, device="cuda")
+    page_bm[:, 2::5] = 0
+    sc = pscale = ()
+    if int8:
+        k, v, *sc = quantized(torch, k, v)
+        pk, pv, *pscale = quantized(torch, pk, pv)
+    heads, kv = 1, (1, 1)
+    vlen = table.shape[1] * PAGE
+
+    def each(parts, i):
+        return [p[i] for p in parts] if len(parts[0]) > i else None
+
+    def flash(parts, bm=None):
+        scales = len(parts[0]) - (5 if bm else 4)
+        return fd.sharded_flash_decode_attention(
+            *(each(parts, i) for i in range(4)), *(each(parts, len(parts[0]) - scales + j) for j in range(scales)),
+            block_bitmap=each(parts, 4) if bm else None, sparse_block=128 if bm else None)
+
+    def paged(parts, bm=None):
+        scales = len(parts[0]) - (6 if bm else 5)
+        return fd.sharded_paged_decode_attention(
+            *(each(parts, i) for i in range(5)), vlen, "kernel",
+            *(each(parts, len(parts[0]) - scales + j) for j in range(scales)),
+            block_bitmap=each(parts, 5) if bm else None, sparse_block=PAGE if bm else None)
+
+    return {
+        "flash_decode": (fd.flash_decode_attention, fd.flash_decode_attention_plain,
+                         (q, k, v, lens, *sc), (heads, *kv, None) + (1,) * len(sc), flash),
+        "block_sparse_flash_decode": (
+            lambda *a: fd.block_sparse_flash_decode_attention(*a[:5], 128, *a[5:]),
+            lambda *a: fd.block_sparse_flash_decode_attention_plain(*a[:5], 128, *a[5:]),
+            (q, k, v, lens, bitmap, *sc), (heads, *kv, None, None) + (1,) * len(sc),
+            lambda parts: flash(parts, bm=True)),
+        "paged_flash_decode": (fd.paged_flash_decode_attention, fd.paged_flash_decode_attention_plain,
+                               (pq, pk, pv, plens, table, *pscale), (heads, *kv, None, None) + (1,) * len(pscale),
+                               paged),
+        "block_sparse_paged_flash_decode": (
+            fd.block_sparse_paged_flash_decode_attention, fd.block_sparse_paged_flash_decode_attention_plain,
+            (pq, pk, pv, plens, table, page_bm, *pscale), (heads, *kv, None, None, None) + (1,) * len(pscale),
+            lambda parts: paged(parts, bm=True)),
+    }
+
+
+def tp_shard_args(args, dims, s):
+    """Shard s's arguments: its half of the heads of each split one."""
+    return tuple(a if d is None else a.chunk(TP, d)[s].contiguous() for a, d in zip(args, dims))
+
+
+def check_head_split(torch):
+    """Phase 14a: kernels 1-5 (bf16 and int8 K/V) at the step, the prefill
+    and the resume shapes: the two shards' launches at H = 8, made by the
+    head-split wrappers (`sharded_flash_decode_attention`,
+    `sharded_paged_decode_attention`) on per-shard lists of arguments,
+    joined by head must be `torch.equal` to the H = 16 launch, and each
+    shard within decode_tol of its plain version. Queues the device time of an H = 8 and an H = 16
+    launch of kernels 1 and 4 at the step. Returns ({kernel: worst
+    max_abs_err}, {kernel: {"h16": row, "h8": row}})."""
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    worst, timed, failures = {}, {}, []
+    for shape in TP_CASES:
+        for int8 in (False, True):
+            for name, (fn, plain, args, dims, sharded) in tp_kernel_cases(torch, shape, int8).items():
+                label = name + ("_int8" if int8 else "")
+                whole = fn(*args)
+                parts = [tp_shard_args(args, dims, s) for s in range(TP)]
+                outs = sharded(parts)
+                joined = torch.cat(outs, dim=1)
+                same = torch.equal(joined, whole)
+                errs = []
+                for p, o in zip(parts, outs):
+                    ref = plain(*p)
+                    errs.append(((o.float() - ref.float()).abs().max().item(), decode_tol(torch, ref, torch.bfloat16)))
+                    del ref
+                ok = same and all(e <= t for e, t in errs) and bool(torch.isfinite(joined).all())
+                print(f"check tp{TP} {label} {shape} n={args[0].shape[2]}: shards at H = {outs[0].shape[1]} joined "
+                      f"by head torch.equal to the H = {whole.shape[1]} launch {same}; per shard max_abs_err vs "
+                      f"plain " + ", ".join(f"{e:.3e}" for e, _ in errs) + f" (tol {errs[0][1]:.3e})")
+                if not ok:
+                    failures.append(f"{label} {shape}: equal {same}, errs {errs}")
+                worst[label] = max([worst.get(label, 0.0)] + [e for e, _ in errs])
+                if shape == "step" and not int8 and name in ("flash_decode", "paged_flash_decode"):
+                    rows = {"h16": {}, "h8": {}}
+                    for key, a in (("h16", args), ("h8", parts[0])):
+                        rows[key]["ms"] = time_ms(torch, fn, [a], TP_TIMED_ITERS)
+                        defer_device_time(rows[key], fn, [a], TP_TIMED_ITERS)
+                    timed[name] = rows
+                del whole, parts, outs, joined
+    torch.cuda.synchronize()
+    if failures:
+        fail("head split: " + "; ".join(failures))
+    return worst, timed
+
+
+def tp_pending(engine):
+    """An engine's pending logits [S, V] (over its shards, gathered)."""
+    return engine.tp_model.gather_logits([st["row"] for st in engine._state["shards"]])
+
+
+def tp_serve(torch, engine, specs, hit=False, resume=False):
+    """Phase 14, one run driven slot by slot: specs 0 and 1 in one wave;
+    after TP_ADMIT_AFTER chunks spec 2 and, in a second wave, spec 3 (or
+    with `hit` a repeat of spec 0, a full-prompt prefix-cache hit); with
+    `resume`, slot 1 preempted after TP_RESUME_AFTER chunks and resumed at
+    its position (one resume dispatch); then chunks until every row is
+    done. Returns (tokens [4, 1024] by slot, the spec index of each slot,
+    the first wave's pending logits [2, V], {"wall_s", "resumed_at"})."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.serving.engine import SampleSpec
+
+    seq = engine.image_seq_len
+    t0 = time.perf_counter()
+    engine.prefill_slots([(0, specs[0]), (1, specs[1])])
+    first = tp_pending(engine)[:2].float().cpu()
+    order = [0, 1, 2, 0 if hit else 3]
+    done = resumed_at = None
+    for chunk in range(1, 10**4):
+        pos, act = engine.step_chunk()
+        if chunk == TP_ADMIT_AFTER:
+            engine.prefill_slots([(2, specs[2]), (3, specs[order[3]])])
+            pos, act = engine.chunk_snapshot()
+        if resume and chunk == TP_RESUME_AFTER:
+            k = int(pos[1])
+            prefix = engine.snapshot_rows([1])[0][:k].copy()
+            engine.release([1])
+            s = specs[1]
+            engine.resume_slots([(1, SampleSpec(s.text_ids, seed=s.seed, temperature=s.temperature, top_k=s.top_k,
+                                                resume_tokens=prefix, resume_pos=k))])
+            resumed_at = k
+            pos, act = engine.chunk_snapshot()
+        if chunk > TP_ADMIT_AFTER and act.all() and (pos >= seq).all():
+            done = chunk
+            break
+    if done is None:
+        fail("a tensor-parallel run never finished")
+    toks = engine.harvest([0, 1, 2, 3])
+    engine.release([0, 1, 2, 3])
+    return toks, order, first, dict(wall_s=time.perf_counter() - t0, resumed_at=resumed_at)
+
+
+def tp_counting(fd):
+    """(the (kernel, H) of every counted launch from now on, undo): wraps
+    the decode wrappers' counter."""
+    seen = []
+    count = fd._count
+
+    def counting(fn, q, k_scale):
+        seen.append((fn.__name__, int(q.shape[1])))
+        count(fn, q, k_scale)
+
+    fd._count = counting
+    return seen, lambda: setattr(fd, "_count", count)
+
+
+def tp_run(torch, label, make, specs, reference, margins, tp, **drive):
+    """One phase-14 engine run: `make()` builds the engine (warmed up
+    here), the decode counters are read from zero around `tp_serve`.
+    tp = 1: tokens bit-identical to `reference` (the unsharded depth-4
+    run's); tp = 2: each row equal to its reference row up to its first
+    position whose noised-score margin in the unsharded run is under
+    ORACLE_MARGIN (`margin_rule`), every counted launch at H = 8 and each
+    kernel's count twice the unsharded run's for this run's chunks and
+    dispatches. Returns the run's record."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.ops import flash_decode as fd
+
+    engine = make()
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    for fn, attr in DECODE_COUNTERS.values():
+        setattr(getattr(fd, fn), attr, 0)
+        setattr(getattr(fd, fn), "tile_" + attr, 0)
+    seen, undo = tp_counting(fd)
+    try:
+        toks, order, first, info = tp_serve(torch, engine, specs, **drive)
+    finally:
+        undo()
+    launches = {name: getattr(getattr(fd, fn), attr) for name, (fn, attr) in DECODE_COUNTERS.items()}
+    launches = {k: n for k, n in launches.items() if n}
+    tile = fd.flash_decode_attention.tile_launches
+    ref = np.stack([reference[i] for i in order])
+    depth, chunks, waves = engine.model.depth, engine.stats.chunks, engine.stats.prefill_dispatches
+    step_kernel = "paged_flash_decode" if hasattr(engine, "kv") and engine.paged_decode_impl == "kernel" else "flash_decode"
+    unsharded = {step_kernel: depth * CONTINUOUS["chunk_tokens"] * chunks}
+    unsharded["flash_decode"] = unsharded.get("flash_decode", 0) + depth * waves
+    expected = {k: tp * n for k, n in unsharded.items()}
+    heads = sorted({h for _, h in seen})
+    record = dict(run=label, tp=tp, wall_s=info["wall_s"], warmup_s=warm_s, chunks=chunks, dispatches=waves,
+                  ms_per_chunk=1e3 * info["wall_s"] / chunks, launches=launches, tile_launches=tile,
+                  unsharded_launches=unsharded, expected_launches=expected, heads_launched=heads,
+                  resumed_at=info["resumed_at"], kv_bytes_per_slot=engine.kv_bytes_per_slot())
+    bad = []
+    if launches != expected or tile != tp * depth * waves:
+        bad.append(f"launches {launches} (tile {tile}), expected {expected} (tile {tp * depth * waves})")
+    if heads != [FLAGSHIP["heads"] // tp]:
+        bad.append(f"launches at H = {heads}, expected {FLAGSHIP['heads'] // tp}")
+    if tp == 1:
+        same = np.array_equal(toks, ref)
+        record["tokens_identical"] = same
+        if not same:
+            bad.append(f"tokens differ from the unsharded run's (agreement {(toks == ref).mean():.6f})")
+    else:
+        rows = []
+        for r, i in enumerate(order):
+            ok, first_diff, first_low = margin_rule(margins, i, toks[r], reference, 0)
+            rows.append(dict(slot=r, spec=i, ok=ok, first_divergence=first_diff, first_low_margin=first_low,
+                             low_margin_positions=int((margins[i] < ORACLE_MARGIN).sum())))
+            if not ok:
+                bad.append(f"slot {r}: first divergence {first_diff} before the first low margin {first_low}")
+        record["rows"] = rows
+        record["agreement"] = float((toks == ref).mean())
+    record["first_logits"] = first
+    print(f"tp run {label}: " + json.dumps({k: v for k, v in record.items() if k != "first_logits"}))
+    if toks.shape != (4, 1024) or toks.min() < 0 or toks.max() >= FLAGSHIP["num_image_tokens"]:
+        bad.append(f"tokens out of range or shape {toks.shape}")
+    if hasattr(engine, "kv") and engine.kv.leak_check():
+        bad.append(f"leak_check {engine.kv.leak_check()}")
+    if bad:
+        fail(f"tensor-parallel run {label}: " + "; ".join(bad))
+    return record
+
+
+def start_mesh_servers(torch, vae):
+    """Phase 14c, started first: a depth-SHORT_DEPTH flagship-width
+    checkpoint of the default vocabulary written, then two processes of
+    `python -m dalle_pytorch_tpu_torch.serve --engine continuous`, one
+    with `--mesh tp=1` (it loads and warms up while the engine runs of
+    phase 14b go on) and one with `--mesh tp=2`, which on this one-card
+    machine must exit with the "needs 2 devices" error before it loads
+    the checkpoint. Returns the two processes."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.training.pipeline import dalle_config, dvae_hparams, save_dalle_checkpoint
+    from dalle_pytorch_tpu_torch.weights import export_dvae_params
+
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "dalle_tp.npz"
+    torch.manual_seed(SEED + 14)
+    with torch.device("cuda"):
+        model = DALLE(**{**FLAGSHIP, "depth": SHORT_DEPTH, "num_text_tokens": default_vocab()}).to(torch.bfloat16)
+    save_dalle_checkpoint(str(path), dalle_config(model, bf16=True), model, vae_params=export_dvae_params(vae),
+                          vae_hparams=dvae_hparams(vae))
+    del model
+    cmd = [sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--dalle_path", str(path), "--engine",
+           "continuous", "--batch_shapes", "4", "--port", "0", "--preview_every", "0", "--no_resume"]
+    one = subprocess.Popen(cmd + ["--mesh", "tp=1"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    two = subprocess.Popen(cmd + ["--mesh", "tp=2"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    return one, two
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def finish_mesh_servers(torch, one, two, t_start):
+    """Phase 14c's checks: the tp = 1 server answers one request over HTTP
+    (200, the grid's 1024 tokens, a PNG) and its /healthz carries the mesh
+    block, then drains on SIGTERM and exits 0; the tp = 2 one exited
+    nonzero with "needs 2 devices" and never listened. Returns the
+    record."""
+    import base64
+    import signal
+
+    out = {}
+    lines, port = [], None
+    while True:
+        line = one.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        if "listening on" in line:
+            port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+            break
+    if port is None:
+        fail("serve --mesh tp=1 did not start:\n" + "".join(lines[-30:]))
+    out["ready_s_after_start"] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    status, _, body = http_call(port, "POST", "/generate", {"prompt": "a red cube", "seed": 7})
+    out["request_s"] = time.perf_counter() - t0
+    hstatus, _, health = http_call(port, "GET", "/healthz")
+    png = base64.b64decode(body["images_png_b64"][0]) if status == 200 else b""
+    out.update(status=status, healthz=hstatus, mesh=health.get("mesh"),
+               tokens=len(body["tokens"][0]) if status == 200 else None, png_bytes=len(png))
+    one.send_signal(signal.SIGTERM)
+    one.communicate(timeout=120)
+    out["exit"] = one.returncode
+    print("serve --mesh tp=1 " + json.dumps(out))
+    if (status, hstatus, out["exit"]) != (200, 200, 0) or out["tokens"] != 1024 or not png.startswith(b"\x89PNG"):
+        fail(f"serve --mesh tp=1: {out}")
+    if not out["mesh"] or out["mesh"]["axes"]["tp"] != 1 or out["mesh"]["devices"] != 1:
+        fail(f"serve --mesh tp=1: /healthz mesh block {out['mesh']}")
+    stdout, stderr = two.communicate(timeout=300)
+    needs = "needs 2 devices" in stderr
+    print(f"serve --mesh tp=2 on {torch.cuda.device_count()} card: exit {two.returncode}, 'needs 2 devices' in its "
+          f"error {needs}: {stderr.strip().splitlines()[-1:]}")
+    if two.returncode == 0 or not needs or "listening on" in stdout:
+        fail(f"serve --mesh tp=2 on one card: exit {two.returncode}\n{stderr[-2000:]}")
+    out["tp2_exit"] = two.returncode
+    return out
+
+
+def run_tensor_parallel(torch, model, vae, specs, reference, smi):
+    """Phase 14: tensor-parallel serving on the card. (c) first: the two
+    `serve.py --mesh` processes start (`start_mesh_servers`); (a) the head
+    split of kernels 1-5 (`check_head_split`); (b) at the flagship width on
+    the model's first SHORT_DEPTH layers, `reference` being phase 7's
+    causal run of that model: a tp = 1 `ShardedContinuousEngine` and
+    `ShardedPagedContinuousEngine` (the paged kernel) on cuda:0, tokens
+    bit-identical to `reference`; the same at tp = 2 on devices [cuda:0,
+    cuda:0] (the paged run with a prefix-cache hit and a resume), tokens by
+    the margin rule, first-position logits within TP_LOGIT_TOL of the
+    unsharded model's, launches twice the unsharded run's, at H = 8; then
+    (c)'s checks (`finish_mesh_servers`). Returns the phase's record."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
+    from dalle_pytorch_tpu_torch.models.dalle import init_decode_cache
+    from dalle_pytorch_tpu_torch.serving.sharded import ShardedContinuousEngine, ShardedPagedContinuousEngine
+
+    walls = {}
+    t_start = time.perf_counter()
+    one, two = start_mesh_servers(torch, vae)
+    walls["checkpoint written"] = time.perf_counter() - t_start
+    try:
+        t0 = time.perf_counter()
+        errs, timed = check_head_split(torch)
+        walls["head_split"] = time.perf_counter() - t0
+        short = first_layers(torch, model, SHORT_DEPTH)
+        margins = noised_margins(torch, short, specs, reference)
+        texts = torch.tensor(np.stack([specs[i].text_ids for i in (0, 1, 0, 0)]), device="cuda")
+        with torch.inference_mode():
+            unsharded_first, _ = short.decode_prefill(texts, init_decode_cache(short, 4))
+        unsharded_first = unsharded_first[:2].float().cpu()
+        kw = dict(**CONTINUOUS, tokenizer=ByteTokenizer(), device="cuda")
+        paged_kw = dict(page_size=PAGE, paged_decode_impl="kernel")
+        runs = {}
+        for tp in (1, TP):
+            mesh = {"tp": 1} if tp == 1 else build_mesh(["cuda:0"] * tp)
+            for layout, make in (
+                ("slot", lambda: ShardedContinuousEngine(short, vae, mesh=mesh, **kw)),
+                ("paged", lambda: ShardedPagedContinuousEngine(short, vae, mesh=mesh, resume_enabled=tp > 1,
+                                                               **kw, **paged_kw)),
+            ):
+                t0 = time.perf_counter()
+                drive = dict(hit=True, resume=True) if (tp > 1 and layout == "paged") else {}
+                label = f"tp={tp} {layout}" + (" (prefix hit, resume)" if drive else "")
+                record = tp_run(torch, label, make, specs, reference, margins, tp, **drive)
+                err = (record.pop("first_logits") - unsharded_first).abs().max().item()
+                record["first_logits_max_abs_err"] = err
+                print(f"check {label}: first-position logits vs the unsharded model's max_abs_err {err:.4e} "
+                      f"(tol {TP_LOGIT_TOL} at tp > 1)")
+                if tp > 1 and not err <= TP_LOGIT_TOL:
+                    fail(f"tensor-parallel run {label}: first-position logits off by {err}")
+                runs[label] = record
+                walls[label] = time.perf_counter() - t0
+        del short
+        t0 = time.perf_counter()
+        served = finish_mesh_servers(torch, one, two, t_start)
+        walls["serve --mesh"] = time.perf_counter() - t0
+    finally:
+        stop_process(one)
+        stop_process(two)
+    return dict(errs=errs, timed=timed, runs=runs, served=served, walls=walls)
+
+
+def tp_fields(tp, name):
+    """Phase 14's entries of a decode kernel's line: the head split's worst
+    per-shard error (bf16 K/V, and `tp_int8_` the int8 arm), the launches
+    of the tensor-parallel engine runs (per shard: each is that run's total
+    / the shard count; the tile arm's are the prefill and resume waves'),
+    and for kernels 1 and 4 the device ms of an H = 8 and an H = 16 step."""
+    runs = tp["runs"]
+    out = {}
+    for key, label in (("", name), ("int8_", name + "_int8")):
+        if label in tp["errs"]:
+            out[f"tp_{key}head_split_max_abs_err"] = tp["errs"][label]
+    counts = {}
+    for run, record in runs.items():
+        n = record["launches"].get("flash_decode" if name == "flash_decode_tile" else name, 0)
+        n = record["tile_launches"] if name == "flash_decode_tile" else n - (
+            record["tile_launches"] if name == "flash_decode" else 0)
+        if n:
+            counts[run] = {"total": n, "per_shard": n // record["tp"]}
+    if counts:
+        out["tp_launches"] = counts
+    if name in tp["timed"]:
+        for h in ("h8", "h16"):
+            out[f"tp_step_{h}_ms"] = tp["timed"][name][h]["ms"]
+            out[f"tp_step_{h}_device_ms"] = tp["timed"][name][h]["device_ms"]
+    return out
+
+
+def build_mesh(devices):
+    """A tp mesh over explicit devices (one card may be named twice)."""
+    from dalle_pytorch_tpu_torch.serving.sharded import build_serving_mesh
+
+    return build_serving_mesh({"tp": len(devices)}, devices=devices)
+
+
 def resume_fields(row, err, runs):
     """The resume-shape entries of a kernel's line: phase 3's times at n =
     1280 and phase 10's launches per resume dispatch and resume walls."""
@@ -4853,6 +5347,14 @@ def main() -> int:
     trainer = run_trainer(torch, smi)
     print(f"phase 12 the trainer ({smi}): {time.perf_counter() - t0:.1f} s (run A "
           f"{trainer['run_wall_s']['A']:.1f} s, run B {trainer['run_wall_s']['B']:.1f} s)")
+    # 14. tensor-parallel serving, run before phase 13: phase 13 ends with a
+    # torch.profiler trace, and every launch after a trace goes through the
+    # tracer, which phase 14's millions of launches leave dropping records
+    # (and with its serve processes, whole traces) in the traces at the end
+    t0 = time.perf_counter()
+    tp = run_tensor_parallel(torch, model5, vae, specs, short_toks, smi)
+    print(f"phase 14 tensor-parallel serving ({smi}): {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in tp["walls"].items()) + ")")
     # 13. the rest of training ----------------------------------------------------------
     t0 = time.perf_counter()
     rest = run_rest_of_training(torch, smi)
@@ -4932,6 +5434,10 @@ def main() -> int:
         row = timings[("step", key)]
         print(f"phase 3 flash_decode step {key} device ms {row['device_ms']:.5f}, SDPA "
               f"{row['library_device_ms']:.5f} ({' + '.join(row['library_device_kernels'])})")
+    for name, rows in tp["timed"].items():
+        print(f"phase 14 {name} step bf16 at H = 8 (one shard of tp = {TP}) device ms "
+              f"{rows['h8']['device_ms']:.5f} (events {rows['h8']['ms']:.5f}), at H = 16 "
+              f"{rows['h16']['device_ms']:.5f} (events {rows['h16']['ms']:.5f}) ({smi})")
     for (d, key, _), row in wide_times["wide_step"].items():
         seen = row.get("device_kernels", {})
         if not any(k.startswith("wide_split_kernel") for k in seen):
@@ -4940,6 +5446,8 @@ def main() -> int:
         row["library_cuda_kernel"] = " + ".join(row.get("library_device_kernels", {}))
         print(f"phase 3 step at D = {d} {key}: {row['cuda_kernel']} device {row['device_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f}, SDPA {row['library_device_ms']:.4f} ({row['library_cuda_kernel']})")
+
+    print(trace_attempts_line())
 
     # result -------------------------------------------------------------------
     kernels_line = {
@@ -4956,6 +5464,7 @@ def main() -> int:
                 device_ms=step["device_ms"],
                 device_kernels=step["device_kernels"],
                 cli_launches=cli_launches["cli_flash_decode"],
+                **tp_fields(tp, "flash_decode"),
                 served_launches={"micro_server": served_micro["launches"]["flash_decode"],
                                  "continuous_server_qos": served["qos"]["launches"]["flash_decode"]},
                 trainer_sample_launches=trainer["launches"]["A"]["flash_decode_attention"],
@@ -5001,6 +5510,7 @@ def main() -> int:
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                 launches=launches["flash_decode_tile"],
                 rest_launches=rest["revnet_serving"]["launches"]["flash_decode_tile"],
+                **tp_fields(tp, "flash_decode_tile"),
                 max_abs_err=tile_errs["flash_decode_tile"],
                 **tile_times["prefill"]["flash_decode_tile"],
                 **{f"int8_{k}": v for k, v in tile_times["prefill"]["flash_decode_tile_int8"].items()},
@@ -5088,6 +5598,7 @@ def main() -> int:
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:85",
                 launches=launches["flash_decode_int8"],
                 max_abs_err=variant_errs["flash_decode_int8"],
+                **tp_fields(tp, "flash_decode_int8"),
                 **variant_times["flash_decode_int8"],
                 timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
                 "[258, 700, 1024, 1281]; launches: phase 7 int8 run's steps (depth 4; its "
@@ -5101,6 +5612,7 @@ def main() -> int:
                 launches=launches["block_sparse_flash_decode"]
                 + launches["block_sparse_flash_decode_int8"],
                 max_abs_err=variant_errs["block_sparse_flash_decode"],
+                **tp_fields(tp, "block_sparse_flash_decode"),
                 **variant_times["block_sparse_flash_decode"],
                 **{f"tile_resume_{k}": v for k, v in tile_variant_times["block_sparse_flash_decode"].items()
                    if k != "device_kernels"},
@@ -5116,6 +5628,7 @@ def main() -> int:
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:446",
                 launches=launches["paged_flash_decode"],
                 max_abs_err=paged_errs["paged_flash_decode"],
+                **tp_fields(tp, "paged_flash_decode"),
                 **paged_times["paged_flash_decode"],
                 **{f"tile_resume_{k}": v for k, v in tile_variant_times["paged_flash_decode"].items()
                    if k != "device_kernels"},
@@ -5130,6 +5643,7 @@ def main() -> int:
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:552",
                 launches=launches["block_sparse_paged_flash_decode"],
                 max_abs_err=paged_errs["block_sparse_paged_flash_decode"],
+                **tp_fields(tp, "block_sparse_paged_flash_decode"),
                 **paged_times["block_sparse_paged_flash_decode"],
                 **{f"tile_resume_{k}": v for k, v in tile_variant_times["block_sparse_paged_flash_decode"].items()
                    if k != "device_kernels"},

@@ -32,6 +32,14 @@ the dense arm reads `paged_gather` views. Released rows' tables point at
 the garbage page, so their writes land there; duplicate scatter targets
 (many rows on page 0) then race, harmlessly.
 
+The cached branch runs in two steps over the shards of a layer (one
+shard, the module itself, unless the model is split by head,
+`parallel/tensor_parallel.py`): `write_cached` on each shard
+(projections, rotary, its heads' K/V writes, the index advance), then
+`read_cached` of all shards at once, the flash arm through the head-split
+wrappers (`sharded_flash_decode_attention`,
+`sharded_paged_decode_attention`), the dense arm per shard.
+
 Uncached branch (training, a whole sequence from position 0): rotary
 rows [:n] on q, k and v, then `use_flash` as the reference's `_use_flash`:
 "flash" forces the flash-attention kernels, "auto" takes them from
@@ -63,12 +71,11 @@ from torch import nn
 from dalle_pytorch_tpu_torch.ops.attention_core import dense_attention
 from dalle_pytorch_tpu_torch.ops.flash_attention import FlashMask, flash_attention, flash_mask
 from dalle_pytorch_tpu_torch.ops.flash_decode import (
-    block_sparse_flash_decode_attention,
     clamp_block_k,
     expand_bitmap,
-    flash_decode_attention,
-    paged_decode_attention,
     paged_gather,
+    sharded_flash_decode_attention,
+    sharded_paged_decode_attention,
 )
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary
 
@@ -152,6 +159,9 @@ class Attention(nn.Module):
         self.attn_impl = attn_impl
         self.dropout = dropout
         self._flash_masks: Dict[tuple, FlashMask] = {}
+        #: set on the shards of a tensor-parallel model whose heads are
+        #: split: `to_out` is then row-parallel (`parallel/tensor_parallel.py`)
+        self.row_parallel = False
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Linear(inner, dim)
@@ -226,17 +236,25 @@ class Attention(nn.Module):
         updated in place. Without: positions 0..n-1, with an optional
         key-padding mask [B, n] (True = valid key)."""
         b, n, _ = x.shape
-        h, dh = self.heads, self.dim_head
-        q, k, v = (
-            t.reshape(b, n, h, dh).transpose(1, 2)
+        if cache is None:
+            out = _merge_heads(self._attend_uncached(*self._project(x), rotary, key_mask))
+        else:
+            out = read_cached([self], [self.write_cached(x, cache, rotary)])[0]
+        return F.dropout(self.to_out(out), self.dropout, self.training)
+
+    def _project(self, x: torch.Tensor):
+        """(q, k, v) [B, H, n, dim_head] of x [B, n, dim]."""
+        b, n, _ = x.shape
+        return tuple(
+            t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
             for t in self.to_qkv(x).chunk(3, dim=-1)
         )
-        if cache is None:
-            out = self._attend_uncached(q, k, v, rotary, key_mask)
-        else:
-            out = self._attend_cached(q, k, v, cache, rotary)
-        out = self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
-        return F.dropout(out, self.dropout, self.training)
+
+    def write_cached(self, x: torch.Tensor, cache: dict, rotary: Optional[torch.Tensor] = None) -> dict:
+        """The cached branch up to the read, for x [B, n, dim]: the
+        projections, rotary, the K/V writes and the index advance; returns
+        what the read needs (`read_cached`)."""
+        return self._write_cached(*self._project(x), cache, rotary)
 
     def _attend_uncached(self, q, k, v, rotary, key_mask):
         n = q.shape[2]
@@ -267,8 +285,8 @@ class Attention(nn.Module):
             return pm[_row_positions(index, n, pm.shape[0])][:, None]
         return pm[index : index + n][None, None]
 
-    def _attend_cached(self, q, k, v, cache, rotary):
-        b, _, n, _ = q.shape
+    def _write_cached(self, q, k, v, cache, rotary) -> dict:
+        n = q.shape[2]
         index = cache["index"]
         per_row = torch.is_tensor(index)
         ck, cv = cache["k"], cache["v"]
@@ -317,39 +335,79 @@ class Attention(nn.Module):
         bitmap = cache.get("block_bitmap")
         sparse = bitmap is not None
         block = clamp_block_k(cache.get("sparse_block", DECODE_SPARSE_BLOCK), max_len)
-        if self.use_flash_decode(max_len, sparse=sparse):
-            if per_row:
-                lengths = (index + n).to(torch.int32)
-            else:
-                lengths = torch.full((b,), index + n, dtype=torch.int32, device=q.device)
-            if pt is not None:
-                out = paged_decode_attention(
-                    q.contiguous(), ck, cv, lengths, pt, max_len, cache.get("paged_impl"),
-                    *scales, block_bitmap=bitmap, sparse_block=block if sparse else None,
-                )
-            elif sparse:
-                out = block_sparse_flash_decode_attention(
-                    q.contiguous(), ck, cv, lengths, bitmap, block, *scales
-                )
-            else:
-                out = flash_decode_attention(q.contiguous(), ck, cv, lengths, *scales)
-        else:
-            gk, gv = ck, cv
-            gscales = scales
-            if pt is not None:
-                gk, gv = paged_gather(ck, pt, max_len), paged_gather(cv, pt, max_len)
-                if quant:
-                    gscales = tuple(paged_gather(t, pt, max_len) for t in scales)
-            if quant:
-                gk, gv = _kv_dequantize(gk, gscales[0]), _kv_dequantize(gv, gscales[1])
-            offsets = torch.arange(n, device=q.device)
-            qpos = index[:, None] + offsets if per_row else index + offsets  # [B, n] or [n]
-            mask = torch.arange(max_len, device=q.device) <= qpos[..., None]
-            mask = mask[:, None] if per_row else mask[None, None]  # [B or 1, 1, n, L]
-            if sparse:
-                mask = mask & expand_bitmap(bitmap, block, max_len)[:, None, None, :]
-            elif self.static_mask is not None:
-                mask = mask & self._pattern_rows(index, n, max_len)
-            out = dense_attention(q, gk, gv, mask=mask, stable=self.stable).to(q.dtype)
         cache["index"] = index + n
-        return out
+        return dict(
+            q=q, k=ck, v=cv, scales=scales, index=index,
+            page_table=pt, paged_impl=cache.get("paged_impl"), max_len=max_len,
+            bitmap=bitmap, block=block if sparse else None,
+            flash=self.use_flash_decode(max_len, sparse=sparse),
+        )
+
+    def _read_dense(self, r: dict) -> torch.Tensor:
+        """The dense arm of `read_cached` for this module's `write_cached`
+        result: attention over the causal + pattern (or bitmap) mask."""
+        q, ck, cv, scales, pt, max_len = r["q"], r["k"], r["v"], r["scales"], r["page_table"], r["max_len"]
+        bitmap = r["bitmap"]
+        index = r["index"]
+        per_row = torch.is_tensor(index)
+        n = q.shape[2]
+        gk, gv, gscales = ck, cv, scales
+        if pt is not None:
+            gk, gv = paged_gather(ck, pt, max_len), paged_gather(cv, pt, max_len)
+            if scales[0] is not None:
+                gscales = tuple(paged_gather(t, pt, max_len) for t in scales)
+        if scales[0] is not None:
+            gk, gv = _kv_dequantize(gk, gscales[0]), _kv_dequantize(gv, gscales[1])
+        offsets = torch.arange(n, device=q.device)
+        qpos = index[:, None] + offsets if per_row else index + offsets  # [B, n] or [n]
+        mask = torch.arange(max_len, device=q.device) <= qpos[..., None]
+        mask = mask[:, None] if per_row else mask[None, None]  # [B or 1, 1, n, L]
+        if bitmap is not None:
+            mask = mask & expand_bitmap(bitmap, r["block"], max_len)[:, None, None, :]
+        elif self.static_mask is not None:
+            mask = mask & self._pattern_rows(index, n, max_len)
+        return dense_attention(q, gk, gv, mask=mask, stable=self.stable).to(q.dtype)
+
+
+def _lengths(r: dict) -> torch.Tensor:
+    """The [B] int32 live lengths of a cached read: each row's index + n."""
+    q, index = r["q"], r["index"]
+    b, _, n, _ = q.shape
+    if torch.is_tensor(index):
+        return (index + n).to(torch.int32)
+    return torch.full((b,), index + n, dtype=torch.int32, device=q.device)
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """[B, H, n, D] -> [B, n, H * D]."""
+    b, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(b, n, h * d)
+
+
+def read_cached(attns, reads) -> list:
+    """The cached read of one layer's shards (`attns[s]` the shard's
+    module, `reads[s]` its `write_cached` result, heads split or whole):
+    the flash arm through the sharded kernel wrappers, which launch each
+    shard's kernel on its own heads (one shard: the unsplit launch); the
+    dense arm per shard. Returns each shard's [B, n, heads_s * dim_head]."""
+    r0 = reads[0]
+    if not r0["flash"]:
+        outs = [a._read_dense(r) for a, r in zip(attns, reads)]
+    else:
+        q = [r["q"].contiguous() for r in reads]
+        k, v = [r["k"] for r in reads], [r["v"] for r in reads]
+        lengths = [_lengths(r) for r in reads]
+        scales = None if r0["scales"][0] is None else [r["scales"] for r in reads]
+        k_scales = None if scales is None else [sc[0] for sc in scales]
+        v_scales = None if scales is None else [sc[1] for sc in scales]
+        bitmaps = None if r0["bitmap"] is None else [r["bitmap"] for r in reads]
+        if r0["page_table"] is not None:
+            outs = sharded_paged_decode_attention(
+                q, k, v, lengths, [r["page_table"] for r in reads], r0["max_len"], r0["paged_impl"],
+                k_scales, v_scales, block_bitmap=bitmaps, sparse_block=r0["block"],
+            )
+        else:
+            outs = sharded_flash_decode_attention(
+                q, k, v, lengths, k_scales, v_scales, block_bitmap=bitmaps, sparse_block=r0["block"]
+            )
+    return [_merge_heads(o) for o in outs]

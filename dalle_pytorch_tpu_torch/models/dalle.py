@@ -15,7 +15,10 @@ the continuous engine's slot ops (`init_slot_state`,
 paged counterparts (`init_paged_slot_state`, `prefill_into_slots_paged`,
 `slice_prefix_sidecar`, `admit_cached_prefix`,
 `decode_image_chunk_paged`), and the mid-decode resume (`decode_resume`,
-`resume_into_slots`, `resume_into_slots_paged`). Random
+`resume_into_slots`, `resume_into_slots_paged`). The cached decode runs
+over a list of shards (`prefill_shards`, `image_step_shards`,
+`resume_shards`): the model itself, or a tensor-parallel model's shards
+(`parallel/tensor_parallel.py`), and every slot op takes either. Random
 draws (null conditioning) come from an explicit `torch.Generator`, so
 they are not jax.random's bits; dropout uses torch's global generator.
 
@@ -39,6 +42,7 @@ from dalle_pytorch_tpu_torch.models.attention import DECODE_SPARSE_BLOCK
 from dalle_pytorch_tpu_torch.models.transformer import (
     LayerNorm,
     Transformer,
+    cached_forward,
     make_decode_cache,
     make_paged_decode_cache,
     set_decode_cache_index,
@@ -52,6 +56,7 @@ from dalle_pytorch_tpu_torch.ops.sampling import (
     top_k_filter,
     top_k_filter_per_row,
 )
+from dalle_pytorch_tpu_torch.parallel.tensor_parallel import TensorParallelDALLE
 
 NEG_MASK_VALUE = -float(np.finfo(np.float32).max)
 
@@ -107,7 +112,10 @@ class DALLE(nn.Module):
         gives decode caches an int8 K/V store; `decode_sparse_block` is the
         KV block width of decode-sparsity bitmaps (None: the attention
         module's DECODE_SPARSE_BLOCK)."""
+        kwargs = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         super().__init__()
+        #: the constructor's arguments (a tensor-parallel shard is built from them)
+        self.init_kwargs = kwargs
         self.dim, self.depth = dim, depth
         self.heads, self.dim_head = heads, dim_head
         self.num_text_tokens = num_text_tokens
@@ -201,6 +209,19 @@ class DALLE(nn.Module):
         """Unique-pad remap + <bos>: (ids [B, T+1], embeddings [B, T+1, dim]).
         With `null_cond_prob` > 0 each row's text is blanked (all pad) with
         that probability, drawn from `generator`."""
+        text = self.text_ids(text, null_cond_prob, generator)
+        tokens = self.text_emb(text)
+        if not self.rotary_emb:
+            tokens = tokens + self.text_pos_emb.weight[None]
+        return text, tokens
+
+    def text_ids(
+        self,
+        text: torch.Tensor,
+        null_cond_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The ids `embed_text` looks up: [B, T + 1], pads remapped, <bos>."""
         if text.shape[-1] != self.text_seq_len:
             raise ValueError(
                 f"text length {text.shape[-1]} != text_seq_len {self.text_seq_len}"
@@ -213,11 +234,7 @@ class DALLE(nn.Module):
             self.total_text_tokens - self.text_seq_len
         )
         text = torch.where(text == 0, text_range, text)
-        text = F.pad(text, (1, 0))  # <bos> = 0
-        tokens = self.text_emb(text)
-        if not self.rotary_emb:
-            tokens = tokens + self.text_pos_emb.weight[None]
-        return text, tokens
+        return F.pad(text, (1, 0))  # <bos> = 0
 
     def _divide_max(self, out: torch.Tensor) -> torch.Tensor:
         return out / out.amax(dim=-1, keepdim=True).detach()
@@ -371,25 +388,27 @@ class DALLE(nn.Module):
     def decode_prefill(self, text: torch.Tensor, cache: dict):
         """Run bos + text through the trunk, filling the cache from position
         0. Returns (logits for image position 0 [B, V] float32, cache)."""
-        _, tokens = self.embed_text(text)
-        out = self.transformer(tokens, cache)
-        return self.to_logits(out[:, -1:])[:, 0].float(), cache
+        rows = prefill_shards(TensorParallelDALLE(self), text, [cache])
+        return rows[0], cache
 
     def decode_image_step(self, img_token: torch.Tensor, image_pos, cache: dict):
         """Feed one image token at grid index `image_pos` (a Python int, or
         a [B] tensor of per-row positions with a per-row cache); returns
         (logits for the next position [B, V] float32, cache)."""
-        emb = self.image_emb(img_token[:, None].long())
-        if not self.rotary_emb:
-            table = self.image_pos_emb()
-            if torch.is_tensor(image_pos):
-                rows = image_pos.to(torch.long).clamp(0, self.image_seq_len - 1)
-                emb = emb + table[rows][:, None]
-            else:
-                p = min(max(int(image_pos), 0), self.image_seq_len - 1)
-                emb = emb + table[p][None, None]
-        out = self.transformer(emb, cache)
-        return self.to_logits(out)[:, 0].float(), cache
+        rows = image_step_shards(TensorParallelDALLE(self), img_token, [image_pos], [cache])
+        return rows[0], cache
+
+    def image_position(self, emb: torch.Tensor, image_pos) -> torch.Tensor:
+        """One image token's embeddings [B, 1, dim] plus the axial positional
+        embedding at `image_pos` (an int or a [B] tensor), without rotary."""
+        if self.rotary_emb:
+            return emb
+        table = self.image_pos_emb()
+        if torch.is_tensor(image_pos):
+            rows = image_pos.to(torch.long).clamp(0, self.image_seq_len - 1)
+            return emb + table[rows][:, None]
+        p = min(max(int(image_pos), 0), self.image_seq_len - 1)
+        return emb + table[p][None, None]
 
     def decode_resume(self, text: torch.Tensor, image_tokens: torch.Tensor, image_pos, cache: dict):
         """Teacher-forced re-prefill of prompt + generated image prefix in
@@ -409,23 +428,80 @@ class DALLE(nn.Module):
         through each layer's "ring_end" entry, taken out again). Returns
         (pending logits for each row's position k [B, V] float32, cache);
         at k = 0 this is `decode_prefill`."""
-        _, tokens = self.embed_text(text)
-        text_len = tokens.shape[1]  # text_seq_len + 1 (<bos>)
-        img = self.image_emb(image_tokens[:, : self.image_seq_len - 1].long())
-        if not self.rotary_emb:
-            img = img + self.image_pos_emb()[None, : self.image_seq_len - 1]
-        seq = torch.cat([tokens, img.to(tokens.dtype)], dim=1)
-        image_pos = torch.as_tensor(image_pos, dtype=torch.long).to(seq.device)
-        _with_ring_end(cache, text_len + image_pos)
-        try:
-            out = self.transformer(seq, cache)
-        finally:
+        rows = resume_shards(TensorParallelDALLE(self), text, image_tokens, image_pos, [cache])
+        return rows[0], cache
+
+
+# ------------------------------------------------------------ cached decode
+#
+# The cached decode ops over the shards of a `TensorParallelDALLE`
+# (`parallel/tensor_parallel.py`): the model itself as its one shard (the
+# `DALLE.decode_*` methods above and every slot op given a DALLE), or a
+# tensor-parallel model's shards (heads, FF hidden units and vocabularies
+# split, the rest whole on every shard), the counterpart of the JAX
+# package's sharded serving programs. Each shard keeps a decode cache (its
+# heads' K/V); the embeddings are vocabulary-parallel and sum exactly, the
+# residual stream is the same on every shard, and each returns its columns
+# of the logits (`TensorParallelDALLE.gather_logits` joins them).
+
+
+def _text_tokens(tp, text: torch.Tensor) -> list:
+    """Unique-pad remap + <bos> of `text`, embedded on every shard."""
+    tokens = tp.embed("text_emb", tp.shards[0].text_ids(text))
+    if not tp.shards[0].rotary_emb:
+        tokens = [t + sh.text_pos_emb.weight[None] for sh, t in zip(tp.shards, tokens)]
+    return tokens
+
+
+def _shard_logits(tp, outs) -> list:
+    return [sh.to_logits(o)[:, 0].float() for sh, o in zip(tp.shards, outs)]
+
+
+def _trunk(tp, xs, caches) -> list:
+    return cached_forward([sh.transformer for sh in tp.shards], xs, caches)
+
+
+def prefill_shards(tp, text: torch.Tensor, caches: list) -> list:
+    """`DALLE.decode_prefill` over the shards: bos + text through the trunk
+    into every shard's cache from position 0. Returns each shard's logits
+    columns for image position 0 [B, V_s] float32."""
+    outs = _trunk(tp, _text_tokens(tp, text), caches)
+    return _shard_logits(tp, [o[:, -1:] for o in outs])
+
+
+def image_step_shards(tp, img_token: torch.Tensor, image_pos: list, caches: list) -> list:
+    """`DALLE.decode_image_step` over the shards: one image token per row,
+    image_pos[s] the positions on shard s (ints or [B] tensors)."""
+    embs = tp.embed("image_emb", img_token[:, None].long())
+    embs = [sh.image_position(e, p) for sh, e, p in zip(tp.shards, embs, image_pos)]
+    return _shard_logits(tp, _trunk(tp, embs, caches))
+
+
+def resume_shards(tp, text: torch.Tensor, image_tokens: torch.Tensor, image_pos, caches: list) -> list:
+    """`DALLE.decode_resume` over the shards: prompt + generated prefix in
+    one teacher-forced cached forward into every shard's fresh cache."""
+    sh0 = tp.shards[0]
+    seq_len = sh0.image_seq_len
+    tokens = _text_tokens(tp, text)
+    text_len = tokens[0].shape[1]  # text_seq_len + 1 (<bos>)
+    imgs = tp.embed("image_emb", image_tokens[:, : seq_len - 1].long())
+    if not sh0.rotary_emb:
+        imgs = [i + sh.image_pos_emb()[None, : seq_len - 1] for sh, i in zip(tp.shards, imgs)]
+    seqs = [torch.cat([t, i.to(t.dtype)], dim=1) for t, i in zip(tokens, imgs)]
+    image_pos = torch.as_tensor(image_pos, dtype=torch.long)
+    positions = [image_pos.to(sq.device) for sq in seqs]
+    for cache, p in zip(caches, positions):
+        _with_ring_end(cache, text_len + p)
+    try:
+        outs = _trunk(tp, seqs, caches)
+    finally:
+        for cache in caches:
             _without_ring_end(cache)
-        # the pending logits of position k are the output of feeding token
-        # k - 1, at sequence position text_len - 1 + k
-        rows = torch.arange(seq.shape[0], device=seq.device)
-        sel = out[rows, text_len - 1 + image_pos][:, None]
-        return self.to_logits(sel)[:, 0].float(), cache
+    # the pending logits of position k are the output of feeding token
+    # k - 1, at sequence position text_len - 1 + k
+    sel = [o[torch.arange(o.shape[0], device=o.device), text_len - 1 + p][:, None]
+           for o, p in zip(outs, positions)]
+    return _shard_logits(tp, sel)
 
 
 def _with_ring_end(cache: dict, ring_end: torch.Tensor) -> None:
@@ -441,10 +517,11 @@ def _without_ring_end(cache: dict) -> None:
         layer.pop("ring_end", None)
 
 
-def init_decode_cache(model: DALLE, batch: int, per_row: bool = False) -> dict:
+def init_decode_cache(model: DALLE, batch: int, per_row: bool = False, device=None) -> dict:
     """Fixed-shape cache of total_seq_len + 1 positions, in the model's
-    dtype (K/V in `model.kv_dtype` when set) and on its device (the final
-    image token is fed too; its write lands in the spare slot)."""
+    dtype (K/V in `model.kv_dtype` when set) and on its device or `device`
+    (the final image token is fed too; its write lands in the spare
+    slot)."""
     return make_decode_cache(
         depth=model.depth,
         batch=batch,
@@ -455,7 +532,7 @@ def init_decode_cache(model: DALLE, batch: int, per_row: bool = False) -> dict:
         image_fmap_size=model.image_fmap_size,
         shift_tokens=model.shift_tokens,
         dtype=model.dtype,
-        device=model.text_emb.weight.device,
+        device=model.text_emb.weight.device if device is None else device,
         per_row=per_row,
         kv_dtype=model.kv_dtype,
     )
@@ -690,19 +767,20 @@ def generate_texts(
 
 
 @torch.inference_mode()
-def init_slot_state(model: DALLE, max_batch: int) -> dict:
-    """Empty decode state for `max_batch` slots on the model's device.
-    Free slots hold zeros; `prefill_into_slots` overwrites an admitted
-    slot wholesale (every cache position), so nothing leaks between the
-    occupants of a slot, and `active` gates which rows advance."""
-    cache = init_decode_cache(model, max_batch, per_row=True)
-    return {"cache": cache, **_slot_control(model, max_batch)}
+def init_slot_state(model: DALLE, max_batch: int, device=None) -> dict:
+    """Empty decode state for `max_batch` slots on the model's device (or
+    `device`). Free slots hold zeros; `prefill_into_slots` overwrites an
+    admitted slot wholesale (every cache position), so nothing leaks
+    between the occupants of a slot, and `active` gates which rows
+    advance."""
+    cache = init_decode_cache(model, max_batch, per_row=True, device=device)
+    return {"cache": cache, **_slot_control(model, max_batch, device)}
 
 
-def _slot_control(model: DALLE, max_batch: int) -> dict:
+def _slot_control(model: DALLE, max_batch: int, device=None) -> dict:
     """The per-slot decode state beside the cache, and its host mirrors."""
     s = int(max_batch)
-    device = model.text_emb.weight.device
+    device = model.text_emb.weight.device if device is None else device
     return {
         # pending next-position logits per slot: what the next sample draws
         # from, written by prefill and refreshed every decode step
@@ -767,20 +845,62 @@ def prefill_into_slots(
     prompt) row: the duplicates write the same slot with the same content.
     `block_bitmap` ([depth, R, nb] int32, all ones from the policy) sends
     the prefill through the block-sparse kernel. `index` leaves are not
-    copied: the chunk stamps them from `img_pos`. Returns `state`."""
-    device = state["row"].device
-    r = len(texts)
-    cache = init_decode_cache(model, r)
+    copied: the chunk stamps them from `img_pos`. `model` and `state` may
+    be a `TensorParallelDALLE` and the state it placed (every slot op
+    takes either pair, `_shards_of`). Returns `state`."""
+    tp, states = _shards_of(model, state)
+    caches = _wave_caches(tp, len(texts), block_bitmap)
+    rows = prefill_shards(tp, _to_device(np.asarray(texts), tp.devices[0]), caches)
+    for st, cache, row in zip(states, caches, rows):
+        idx = _to_device(np.asarray(slots, np.int64), st["row"].device)
+        _copy_kv(st["cache"], cache, idx)
+        _admit_slot_rows(st, idx, slots, row, _extract_rings(cache), seeds, temperatures, keep_ks)
+    return state
+
+
+def shard_states(state: dict) -> list:
+    """The per-shard states of a slot state: a placed state's
+    ("shards"), or the one state itself."""
+    return state["shards"] if "shards" in state else [state]
+
+
+def _shards_of(model, state: dict):
+    """(the shards, their states) of a slot op's model and state: a DALLE
+    and its state (one shard, the model itself), or a `TensorParallelDALLE`
+    and the {"shards", "host"} state of its `place_state`."""
+    tp = model if isinstance(model, TensorParallelDALLE) else TensorParallelDALLE(model)
+    return tp, shard_states(state)
+
+
+def _wave_caches(tp, r: int, block_bitmap=None) -> list:
+    """Fresh decode caches of a wave of `r` rows, one per shard on its
+    device, with the policy's bitmaps in place."""
+    caches = [init_decode_cache(sh, r) for sh in tp.shards]
     if block_bitmap is not None:
-        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
-    rows, cache = model.decode_prefill(_to_device(np.asarray(texts), device), cache)
-    idx = _to_device(np.asarray(slots, np.int64), device)
-    for name, layer in state["cache"].items():
+        for sh, dev, cache in zip(tp.shards, tp.devices, caches):
+            _with_block_bitmap(cache, _to_device(block_bitmap, dev), sh)
+    return caches
+
+
+def _resume_wave(tp, texts, img_tokens, img_pos):
+    """`resume_shards` of a resume wave into fresh caches: (each shard's
+    pending logits, caches)."""
+    dev = tp.devices[0]
+    caches = _wave_caches(tp, len(texts))
+    rows = resume_shards(
+        tp, _to_device(np.asarray(texts), dev), _to_device(np.asarray(img_tokens, np.int32), dev),
+        _to_device(np.asarray(img_pos, np.int64), dev), caches,
+    )
+    return rows, caches
+
+
+def _copy_kv(slot_cache: dict, cache: dict, idx: torch.Tensor) -> None:
+    """Copy a wave's K/V (+ scales) rows into slots `idx` of the slot cache
+    (`index` leaves are not copied: the chunk stamps them)."""
+    for name, layer in slot_cache.items():
         for key, leaf in layer["attn"].items():
             if key != "index":
                 leaf.index_copy_(0, idx, cache[name]["attn"][key])
-    _admit_slot_rows(state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks)
-    return state
 
 
 def _extract_rings(cache: dict) -> dict:
@@ -849,33 +969,25 @@ def resume_into_slots(
     left them and the next chunk continues from each row's k. Padding and
     copy semantics are `prefill_into_slots`' (`index` leaves not copied).
     Returns `state`."""
-    device = state["row"].device
-    cache = init_decode_cache(model, len(texts))
-    rows, cache = model.decode_resume(
-        _to_device(np.asarray(texts), device),
-        _to_device(np.asarray(img_tokens, np.int32), device),
-        _to_device(np.asarray(img_pos, np.int64), device),
-        cache,
-    )
-    idx = _to_device(np.asarray(slots, np.int64), device)
-    for name, layer in state["cache"].items():
-        for key, leaf in layer["attn"].items():
-            if key != "index":
-                leaf.index_copy_(0, idx, cache[name]["attn"][key])
-    _admit_slot_rows(
-        state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks,
-        img_tokens=img_tokens, img_pos=img_pos,
-    )
+    tp, states = _shards_of(model, state)
+    rows, caches = _resume_wave(tp, texts, img_tokens, img_pos)
+    for st, cache, row in zip(states, caches, rows):
+        idx = _to_device(np.asarray(slots, np.int64), st["row"].device)
+        _copy_kv(st["cache"], cache, idx)
+        _admit_slot_rows(st, idx, slots, row, _extract_rings(cache), seeds, temperatures, keep_ks,
+                         img_tokens=img_tokens, img_pos=img_pos)
     return state
 
 
 @torch.inference_mode()
 def release_slots(state: dict, slots: Sequence[int]) -> dict:
-    """Deactivate `slots`: the chunk stops advancing them. Returns `state`."""
+    """Deactivate `slots` (on every shard): the chunk stops advancing them.
+    Returns `state`."""
     slots = list(slots)
     if slots:
-        idx = _to_device(np.asarray(slots, np.int64), state["active"].device)
-        state["active"].index_fill_(0, idx, False)
+        for st in shard_states(state):
+            idx = _to_device(np.asarray(slots, np.int64), st["active"].device)
+            st["active"].index_fill_(0, idx, False)
         state["host"]["active"][slots] = False
     return state
 
@@ -901,39 +1013,67 @@ def decode_image_chunk(
     arms decode sparsity for the chunk; `page_table` ([max_batch,
     n_pages] int32 host array) reads and writes a paged state's pools
     through it, with `paged_impl` the `paged_decode_attention` impl.
-    Launches work only: no device value is read back. Returns `state`."""
-    text_len = model.text_seq_len + 1  # <bos> + text prefix
-    seq = model.image_seq_len
+    Launches work only: no device value is read back. Over shards, each
+    step gathers the pending rows' vocabulary slices to shard 0, draws
+    there once, hands the tokens to every shard, and every shard advances
+    its copy of the per-row state alike. Returns `state`."""
+    tp, states = _shards_of(model, state)
+    sh0, st0 = tp.shards[0], states[0]
+    seq = sh0.image_seq_len
     host = state["host"]
-    cache = state["cache"]
-    device = state["row"].device
-    blocked = (torch.arange(model.total_tokens, device=device) < model.total_text_tokens)[None]
+    blocked = (torch.arange(sh0.total_tokens, device=tp.devices[0]) < sh0.total_text_tokens)[None]
     k_max = int(host["keep_k"].max())
     seeds = [int(s) for s in host["seeds"]]
-    if block_bitmap is not None:
-        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
-    if page_table is not None:
-        _with_page_table(cache, _to_device(np.asarray(page_table, np.int32), device), paged_impl)
+    caches = [st["cache"] for st in states]
+    for sh, dev, cache in zip(tp.shards, tp.devices, caches):
+        if block_bitmap is not None:
+            _with_block_bitmap(cache, _to_device(block_bitmap, dev), sh)
+        if page_table is not None:
+            _with_page_table(cache, _to_device(np.asarray(page_table, np.int32), dev), paged_impl)
     try:
         for _ in range(int(chunk)):
-            img_pos = state["img_pos"]
-            live = state["active"] & (img_pos < seq)
-            masked = state["row"].masked_fill(blocked, NEG_MASK_VALUE)
-            filtered = top_k_filter_per_row(masked, state["keep_k"], k_max=k_max)
-            noise = gumbel_noise(seeds, [int(p) for p in host["img_pos"]], model.total_tokens, device)
-            sample = gumbel_sample_per_row(filtered, state["temps"], noise) - model.total_text_tokens
-            col = img_pos.to(torch.long).clamp(0, seq - 1)[:, None]
-            written = state["img_tokens"].scatter(1, col, sample[:, None].to(torch.int32))
-            state["img_tokens"] = torch.where(live[:, None], written, state["img_tokens"])
-            set_decode_cache_index(cache, img_pos + text_len)
-            new_row, _ = model.decode_image_step(sample, img_pos, cache)
-            state["row"] = torch.where(live[:, None], new_row, state["row"])
-            state["img_pos"] = torch.where(live, img_pos + 1, img_pos)
+            row = tp.gather_logits([st["row"] for st in states])
+            sample = _draw(sh0, st0, row, seeds, k_max, blocked)
+            steps = [_write_sample(sh0, st, sample.to(dev)) for st, dev in zip(states, tp.devices)]
+            new_rows = image_step_shards(tp, sample, [p for p, _ in steps], caches)
+            for st, new_row, (img_pos, live) in zip(states, new_rows, steps):
+                _advance(st, new_row, img_pos, live)
             host["img_pos"] += host["active"] & (host["img_pos"] < seq)
     finally:
-        _without_block_bitmap(cache)
-        _without_page_table(cache)
+        for cache in caches:
+            _without_block_bitmap(cache)
+            _without_page_table(cache)
     return state
+
+
+def _draw(model: DALLE, state: dict, row: torch.Tensor, seeds, k_max: int, blocked) -> torch.Tensor:
+    """One token per slot from the pending logits `row` [S, V]: each row's
+    keep count and temperature, its noise keyed by (seed, image position)
+    from the host mirrors. Returns codebook ids [S]."""
+    masked = row.masked_fill(blocked, NEG_MASK_VALUE)
+    filtered = top_k_filter_per_row(masked, state["keep_k"], k_max=k_max)
+    positions = [int(p) for p in state["host"]["img_pos"]]
+    noise = gumbel_noise(seeds, positions, model.total_tokens, row.device)
+    return gumbel_sample_per_row(filtered, state["temps"], noise) - model.total_text_tokens
+
+
+def _write_sample(model: DALLE, state: dict, sample: torch.Tensor):
+    """Write live rows' samples at their image positions and stamp the
+    cache index for the step. Returns (img_pos, live) before the step."""
+    seq = model.image_seq_len
+    img_pos = state["img_pos"]
+    live = state["active"] & (img_pos < seq)
+    col = img_pos.to(torch.long).clamp(0, seq - 1)[:, None]
+    written = state["img_tokens"].scatter(1, col, sample[:, None].to(torch.int32))
+    state["img_tokens"] = torch.where(live[:, None], written, state["img_tokens"])
+    set_decode_cache_index(state["cache"], img_pos + model.text_seq_len + 1)
+    return img_pos, live
+
+
+def _advance(state: dict, new_row: torch.Tensor, img_pos: torch.Tensor, live: torch.Tensor) -> None:
+    """Live rows take the step's logits and move one position on."""
+    state["row"] = torch.where(live[:, None], new_row, state["row"])
+    state["img_pos"] = torch.where(live, img_pos + 1, img_pos)
 
 
 # ------------------------------------------------------------ paged cache
@@ -963,10 +1103,12 @@ def _without_page_table(cache: dict) -> None:
 
 
 @torch.inference_mode()
-def init_paged_slot_state(model: DALLE, max_batch: int, n_pages: int, page_size: int) -> dict:
+def init_paged_slot_state(model: DALLE, max_batch: int, n_pages: int, page_size: int, device=None) -> dict:
     """Empty paged decode state: `init_slot_state`'s per-slot control
     state, with K/V in pools of `n_pages` pages of `page_size` positions
-    (page 0 is the serving layer's garbage page, never allocated)."""
+    (page 0 is the serving layer's garbage page, never allocated), on the
+    model's device or `device`."""
+    device = model.text_emb.weight.device if device is None else device
     cache = make_paged_decode_cache(
         depth=model.depth,
         batch=int(max_batch),
@@ -978,10 +1120,10 @@ def init_paged_slot_state(model: DALLE, max_batch: int, n_pages: int, page_size:
         image_fmap_size=model.image_fmap_size,
         shift_tokens=model.shift_tokens,
         dtype=model.dtype,
-        device=model.text_emb.weight.device,
+        device=device,
         kv_dtype=model.kv_dtype,
     )
-    return {"cache": cache, **_slot_control(model, max_batch)}
+    return {"cache": cache, **_slot_control(model, max_batch, device)}
 
 
 def _text_blocks(leaf: torch.Tensor, n_blocks: int, page_size: int) -> torch.Tensor:
@@ -994,6 +1136,24 @@ def _text_blocks(leaf: torch.Tensor, n_blocks: int, page_size: int) -> torch.Ten
         leaf = F.pad(leaf, pad)
     blocks = leaf[:, :, :need].reshape(r, h, n_blocks, page_size, *leaf.shape[3:])
     return blocks.transpose(1, 2)
+
+
+def _scatter_pages(pool_cache: dict, cache: dict, page_rows, page_size: int, partial_dst=None) -> None:
+    """Scatter a wave's K/V (+ scales) into the page pools: row r's block j
+    to page page_rows[r, j] ([R, n_blocks] host ints), and with
+    `partial_dst` ([R]) its last block also to that page."""
+    page_rows = np.asarray(page_rows, np.int64)
+    device = next(iter(pool_cache.values()))["attn"]["k"].device
+    pages = _to_device(page_rows.reshape(-1), device)
+    snap = None if partial_dst is None else _to_device(np.asarray(partial_dst, np.int64), device)
+    for name, layer in pool_cache.items():
+        for key, pool in layer["attn"].items():
+            if key == "index":
+                continue
+            blocks = _text_blocks(cache[name]["attn"][key], page_rows.shape[1], page_size)
+            pool.index_copy_(0, pages, blocks.reshape(-1, *pool.shape[1:]).to(pool.dtype))
+            if snap is not None:
+                pool.index_copy_(0, snap, blocks[:, -1].to(pool.dtype))
 
 
 @torch.inference_mode()
@@ -1019,28 +1179,20 @@ def prefill_into_slots_paged(
     text block, the prefix cache's snapshot of the divergence block
     (page 0, the garbage page, for rows not registering). Returns the
     sidecar {"row": [R, V] pending logits, "rings": {layer: {ring: [R,
-    fmap, dim]}}} a later full-prompt hit restores."""
-    device = state["row"].device
-    r = len(texts)
-    page_rows = np.asarray(page_rows, np.int64)
-    n_text_pages = page_rows.shape[1]
-    cache = init_decode_cache(model, r)
-    if block_bitmap is not None:
-        _with_block_bitmap(cache, _to_device(block_bitmap, device), model)
-    rows, cache = model.decode_prefill(_to_device(np.asarray(texts), device), cache)
-    pages = _to_device(page_rows.reshape(-1), device)
-    snap = _to_device(np.asarray(partial_dst, np.int64), device)
-    for name, layer in state["cache"].items():
-        for key, pool in layer["attn"].items():
-            if key == "index":
-                continue
-            blocks = _text_blocks(cache[name]["attn"][key], n_text_pages, page_size)
-            pool.index_copy_(0, pages, blocks.reshape(-1, *pool.shape[1:]).to(pool.dtype))
-            pool.index_copy_(0, snap, blocks[:, -1].to(pool.dtype))
-    idx = _to_device(np.asarray(slots, np.int64), device)
-    rings = _extract_rings(cache)
-    _admit_slot_rows(state, idx, slots, rows, rings, seeds, temperatures, keep_ks)
-    return {"row": rows.float(), "rings": rings}
+    fmap, dim]}}} a later full-prompt hit restores; over shards (a placed
+    `state`) {"shards": [one sidecar per shard]}, each its columns of the
+    pending logits and its copy of the rings."""
+    tp, states = _shards_of(model, state)
+    caches = _wave_caches(tp, len(texts), block_bitmap)
+    rows = prefill_shards(tp, _to_device(np.asarray(texts), tp.devices[0]), caches)
+    sidecars = []
+    for st, cache, row in zip(states, caches, rows):
+        _scatter_pages(st["cache"], cache, page_rows, page_size, partial_dst)
+        idx = _to_device(np.asarray(slots, np.int64), st["row"].device)
+        rings = _extract_rings(cache)
+        _admit_slot_rows(st, idx, slots, row, rings, seeds, temperatures, keep_ks)
+        sidecars.append({"row": row.float(), "rings": rings})
+    return {"shards": sidecars} if "shards" in state else sidecars[0]
 
 
 @torch.inference_mode()
@@ -1066,34 +1218,21 @@ def resume_into_slots_paged(
     rows share no prefix-cache page: the dispatch rewrites every page it
     maps (`PagedKVManager.admit_resume` gives fresh ones). Returns
     `state`."""
-    device = state["row"].device
-    page_rows = np.asarray(page_rows, np.int64)
-    n_blocks = page_rows.shape[1]
-    cache = init_decode_cache(model, len(texts))
-    rows, cache = model.decode_resume(
-        _to_device(np.asarray(texts), device),
-        _to_device(np.asarray(img_tokens, np.int32), device),
-        _to_device(np.asarray(img_pos, np.int64), device),
-        cache,
-    )
-    pages = _to_device(page_rows.reshape(-1), device)
-    for name, layer in state["cache"].items():
-        for key, pool in layer["attn"].items():
-            if key == "index":
-                continue
-            blocks = _text_blocks(cache[name]["attn"][key], n_blocks, page_size)
-            pool.index_copy_(0, pages, blocks.reshape(-1, *pool.shape[1:]).to(pool.dtype))
-    idx = _to_device(np.asarray(slots, np.int64), device)
-    _admit_slot_rows(
-        state, idx, slots, rows, _extract_rings(cache), seeds, temperatures, keep_ks,
-        img_tokens=img_tokens, img_pos=img_pos,
-    )
+    tp, states = _shards_of(model, state)
+    rows, caches = _resume_wave(tp, texts, img_tokens, img_pos)
+    for st, cache, row in zip(states, caches, rows):
+        _scatter_pages(st["cache"], cache, page_rows, page_size)
+        idx = _to_device(np.asarray(slots, np.int64), st["row"].device)
+        _admit_slot_rows(st, idx, slots, row, _extract_rings(cache), seeds, temperatures, keep_ks,
+                         img_tokens=img_tokens, img_pos=img_pos)
     return state
 
 
 def slice_prefix_sidecar(sidecar: dict, r: int) -> dict:
-    """Row `r` of a wave's sidecar, as tensors of its own (a cached entry
-    does not keep the whole wave's alive)."""
+    """Row `r` of a wave's sidecar (each shard's, over shards), as tensors
+    of its own (a cached entry does not keep the whole wave's alive)."""
+    if "shards" in sidecar:
+        return {"shards": [slice_prefix_sidecar(one, r) for one in sidecar["shards"]]}
     return {
         "row": sidecar["row"][r].clone(),
         "rings": {
@@ -1122,18 +1261,21 @@ def admit_cached_prefix(
     divergence block (`partial_src`) to the row's private page
     (`partial_dst`) — skipped when the text ends on a page boundary —
     and restores the sidecar's pending logits and shift rings and the
-    slot's sampling state. Returns `state`."""
-    if (model.text_seq_len + 1) % page_size:
-        for layer in state["cache"].values():
-            for key, pool in layer["attn"].items():
-                if key != "index":
-                    pool[int(partial_dst)].copy_(pool[int(partial_src)])
-    idx = _to_device(np.asarray([slot], np.int64), state["row"].device)
-    rings = {
-        name: {key: t[None] for key, t in layer_rings.items()}
-        for name, layer_rings in sidecar["rings"].items()
-    }
-    _admit_slot_rows(state, idx, [slot], sidecar["row"][None], rings, [seed], [temperature], [keep_k])
+    slot's sampling state (on each shard from its own sidecar). Returns
+    `state`."""
+    tp, states = _shards_of(model, state)
+    for st, one in zip(states, shard_states(sidecar)):
+        if (tp.shards[0].text_seq_len + 1) % page_size:
+            for layer in st["cache"].values():
+                for key, pool in layer["attn"].items():
+                    if key != "index":
+                        pool[int(partial_dst)].copy_(pool[int(partial_src)])
+        idx = _to_device(np.asarray([slot], np.int64), st["row"].device)
+        rings = {
+            name: {key: t[None] for key, t in layer_rings.items()}
+            for name, layer_rings in one["rings"].items()
+        }
+        _admit_slot_rows(st, idx, [slot], one["row"][None], rings, [seed], [temperature], [keep_k])
     return state
 
 

@@ -30,6 +30,11 @@ norm, stable softmax, token shift and rotary each on or off.
 Parity notes: flax's `nn.gelu` is the tanh approximation and flax's
 LayerNorm uses eps 1e-6 and normalizes in float32.
 
+Cached decode has one path, `cached_forward`, over a list of shards:
+the stack itself (`Transformer.forward` with a cache) or the shard stacks
+of a tensor-parallel model (`parallel/tensor_parallel.py`), whose
+attention and FF outputs are summed across shards (`row_parallel`).
+
 The decode cache mirrors the reference's tree — {"layer_{i}": {"attn":
 {"k", "v", "index"[, "k_scale", "v_scale"]}, "shift_attn", "shift_ff"}}
 — with the index a Python int, or a [B] tensor for per-row slots; it is
@@ -49,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dalle_pytorch_tpu_torch.models.attention import Attention
+from dalle_pytorch_tpu_torch.models.attention import Attention, read_cached
 from dalle_pytorch_tpu_torch.ops.masks import (
     axial_static_mask,
     block_layout_to_token_mask,
@@ -63,6 +68,7 @@ from dalle_pytorch_tpu_torch.ops.shift import (
     shift_token_step,
     shift_tokens_dalle,
 )
+from dalle_pytorch_tpu_torch.parallel.tensor_parallel import row_parallel
 
 
 REVERSIBLE_IMPLS = ("remat", "revnet", "revnet_naive")
@@ -98,17 +104,25 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward: Linear(dim, 2*hidden) -> x * gelu_tanh(gates)
     -> dropout -> Linear(hidden, dim)."""
 
-    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0):
+    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0, hidden: Optional[int] = None):
+        """`hidden` (default int(dim * mult)) sets the width directly: a
+        tensor-parallel shard holds hidden / tp units."""
         super().__init__()
-        hidden = int(dim * mult)
+        hidden = int(dim * mult) if hidden is None else int(hidden)
         self.dropout = dropout
+        #: set on the shards of a tensor-parallel model whose hidden units
+        #: are split: `dense_1` is then row-parallel
+        self.row_parallel = False
         self.dense_0 = nn.Linear(dim, hidden * 2)
         self.dense_1 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense_1(self.hidden_units(x))
+
+    def hidden_units(self, x: torch.Tensor) -> torch.Tensor:
+        """The GEGLU activations before `dense_1`."""
         x, gates = self.dense_0(x).chunk(2, dim=-1)
-        x = F.dropout(x * F.gelu(gates, approximate="tanh"), self.dropout, self.training)
-        return self.dense_1(x)
+        return F.dropout(x * F.gelu(gates, approximate="tanh"), self.dropout, self.training)
 
 
 def build_static_mask(
@@ -261,33 +275,24 @@ class Transformer(nn.Module):
         )
         return h
 
-    def _half_attn(self, i: int, x, lc=None, pos=None, key_mask=None) -> torch.Tensor:
-        """Attention half-block: norm -> shift -> attn -> [sandwich] ->
-        LayerScale; returns the residual branch. `lc` is the layer's decode
-        cache (None uncached), `pos` its position before this call."""
+    def _half_attn(self, i: int, x, key_mask=None) -> torch.Tensor:
+        """Uncached attention half-block: norm -> shift -> attn ->
+        [sandwich] -> LayerScale; returns the residual branch."""
         h = self.attn_norms[i](x)
         if self.shift_tokens:
-            h = self._shift(h, lc, "shift_attn", pos)
-        h = self.attn[str(self.attn_ids[i])](
-            h, None if lc is None else lc["attn"], rotary=self.rotary_table, key_mask=key_mask
-        )
-        if self.sandwich_norm:
-            h = self.attn_norms_out[i](h)
-        return h * self.attn_scales[i].to(h.dtype)
+            h = self._shift(h, None, "shift_attn", None)
+        h = self.attn[str(self.attn_ids[i])](h, rotary=self.rotary_table, key_mask=key_mask)
+        return _finish(self, "attn", i, h)
 
-    def _half_ff(self, i: int, x, lc=None, pos=None) -> torch.Tensor:
+    def _half_ff(self, i: int, x) -> torch.Tensor:
         h = self.ff_norms[i](x)
         if self.shift_tokens:
-            h = self._shift(h, lc, "shift_ff", pos)
-        h = self.ff[str(self.ff_ids[i])](h)
-        if self.sandwich_norm:
-            h = self.ff_norms_out[i](h)
-        return h * self.ff_scales[i].to(h.dtype)
+            h = self._shift(h, None, "shift_ff", None)
+        return _finish(self, "ff", i, self.ff[str(self.ff_ids[i])](h))
 
-    def _layer(self, i: int, x, key_mask=None, lc=None) -> torch.Tensor:
-        pos = None if lc is None else lc["attn"]["index"]  # before attention advances it
-        x = x + self._half_attn(i, x, lc, pos, key_mask)
-        return x + self._half_ff(i, x, lc, pos)
+    def _layer(self, i: int, x, key_mask=None) -> torch.Tensor:
+        x = x + self._half_attn(i, x, key_mask)
+        return x + self._half_ff(i, x)
 
     def _rev_streams(self, x1, x2, order):
         """The RevNet's two streams: f_i is layer i's attention half, g_i its
@@ -322,18 +327,6 @@ class Transformer(nn.Module):
         params = list(self.parameters())
         return _RevNetFunction.apply(self, tuple(order), x, *params)
 
-    def _revnet_cached(self, x: torch.Tensor, cache: dict, order) -> torch.Tensor:
-        """Cached decode of the two-stream function: the attention half
-        reads x2 and updates `shift_attn`, the feed-forward half reads x1
-        and updates `shift_ff`, both at the position before this call."""
-        x1 = x2 = x
-        for i in order:
-            lc = cache[f"layer_{i}"]
-            pos = lc["attn"]["index"]  # before attention advances it
-            x1 = x1 + self._half_attn(i, x2, lc, pos)
-            x2 = x2 + self._half_ff(i, x1, lc, pos)
-        return (x1 + x2) / 2
-
     def forward(
         self,
         x: torch.Tensor,
@@ -342,15 +335,12 @@ class Transformer(nn.Module):
         key_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x [B, n, dim]. With a cache: at the cache's position, updating it
-        in place. Without: the whole sequence from position 0, layers in
-        reverse order under `reverse_model`, key-padding mask [B, n]."""
-        order = range(self.depth - 1, -1, -1) if reverse_model else range(self.depth)
+        in place (`cached_forward`, this stack as its one shard). Without:
+        the whole sequence from position 0, key-padding mask [B, n]. Either
+        runs the layers in reverse order under `reverse_model`."""
         if cache is not None:
-            if self.revnet:
-                return self._revnet_cached(x, cache, order)
-            for i in range(self.depth):
-                x = self._layer(i, x, lc=cache[f"layer_{i}"])
-            return x
+            return cached_forward([self], [x], [cache], reverse_model)[0]
+        order = range(self.depth - 1, -1, -1) if reverse_model else range(self.depth)
         if self.revnet:
             return self._revnet(x, order, key_mask)
         for i in order:
@@ -359,6 +349,78 @@ class Transformer(nn.Module):
             else:
                 x = self._layer(i, x, key_mask)
         return x
+
+
+def cached_forward(
+    shards: Sequence[Transformer], xs: Sequence[torch.Tensor], caches: Sequence[dict],
+    reverse_model: bool = False,
+) -> list:
+    """The cached forward of a trunk held as shards: `shards[s]` is shard
+    s's stack (the whole stack when there is one shard; else its heads and
+    hidden units, `parallel/tensor_parallel.py`), xs[s] the input on its
+    device (the same values on every shard) and caches[s] its decode
+    cache, at the cache's position and updated in place; the layers in
+    reverse order under `reverse_model`. Per layer: each shard's norm and
+    token shift (against its own copy of the rings), its heads' K/V writes,
+    the read of all shards (`read_cached`, the sharded kernel wrappers),
+    then `to_out` row-parallel (the partial products summed, the bias
+    added once), sandwich norm and LayerScale; the same around the GEGLU,
+    `dense_1` row-parallel. A layer that is not split runs whole on every
+    shard. The RevNet advances its two streams through the same halves:
+    the attention half reads x2, the feed-forward half x1, both at the
+    position before the layer. Returns the outputs, one per shard (equal
+    values)."""
+    first = shards[0]
+    order = range(first.depth - 1, -1, -1) if reverse_model else range(first.depth)
+    x1 = x2 = xs = list(xs)
+    for i in order:
+        lcs = [c[f"layer_{i}"] for c in caches]
+        pos = [lc["attn"]["index"] for lc in lcs]  # before attention advances it
+        if first.revnet:
+            x1 = _add(x1, _cached_half_attn(shards, i, x2, lcs, pos))
+            x2 = _add(x2, _cached_half_ff(shards, i, x1, lcs, pos))
+        else:
+            xs = _add(xs, _cached_half_attn(shards, i, xs, lcs, pos))
+            xs = _add(xs, _cached_half_ff(shards, i, xs, lcs, pos))
+    if first.revnet:
+        return [(a + b) / 2 for a, b in zip(x1, x2)]
+    return xs
+
+
+def _add(xs, hs):
+    return [x + h for x, h in zip(xs, hs)]
+
+
+def _cached_half_attn(shards, i, xs, lcs, pos):
+    attns = [tr.attn[str(tr.attn_ids[i])] for tr in shards]
+    reads = []
+    for tr, attn, x, lc, p in zip(shards, attns, xs, lcs, pos):
+        h = tr.attn_norms[i](x)
+        if tr.shift_tokens:
+            h = tr._shift(h, lc, "shift_attn", p)
+        reads.append(attn.write_cached(h, lc["attn"], tr.rotary_table))
+    outs = row_parallel([a.to_out for a in attns], read_cached(attns, reads), attns[0].row_parallel)
+    return [_finish(tr, "attn", i, F.dropout(o, a.dropout, a.training))
+            for tr, a, o in zip(shards, attns, outs)]
+
+
+def _cached_half_ff(shards, i, xs, lcs, pos):
+    ffs = [tr.ff[str(tr.ff_ids[i])] for tr in shards]
+    hs = []
+    for tr, ff, x, lc, p in zip(shards, ffs, xs, lcs, pos):
+        h = tr.ff_norms[i](x)
+        if tr.shift_tokens:
+            h = tr._shift(h, lc, "shift_ff", p)
+        hs.append(ff.hidden_units(h))
+    outs = row_parallel([ff.dense_1 for ff in ffs], hs, ffs[0].row_parallel)
+    return [_finish(tr, "ff", i, o) for tr, o in zip(shards, outs)]
+
+
+def _finish(tr: Transformer, half: str, i: int, h: torch.Tensor) -> torch.Tensor:
+    """The end of a half block: the sandwich norm and LayerScale."""
+    if tr.sandwich_norm:
+        h = getattr(tr, f"{half}_norms_out")[i](h)
+    return h * getattr(tr, f"{half}_scales")[i].to(h.dtype)
 
 
 class _RevNetFunction(torch.autograd.Function):

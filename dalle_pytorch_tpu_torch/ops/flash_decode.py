@@ -70,6 +70,11 @@ one block per `DECODE_TILE_F32_ROWS` query rows over key tiles of
 the kernel (`flash_decode_tile_f32_plain`; above 256 channels the model of
 `wide_decode_fma_kernel` too). `decode_arm` is the dispatch rule.
 
+`sharded_flash_decode_attention` and `sharded_paged_decode_attention`
+(the reference's head-split wrappers) take one q, K/V and scale tensor per
+shard of the heads and run the wrappers above on each shard: the outputs
+joined by head are the unsharded call's bits.
+
 Each wrapper runs the kernel for CUDA tensors and the plain version for
 CPU tensors — by the tensor's device alone, never as a fallback. Launch
 counts: `flash_decode_attention.launches` (plain arm) and
@@ -86,7 +91,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -853,3 +858,77 @@ def paged_decode_attention(
             q, k_pages, v_pages, lengths, page_table, bm, k_scale, v_scale
         )
     return paged_flash_decode_attention(q, k_pages, v_pages, lengths, page_table, k_scale, v_scale)
+
+
+# ------------------------------------------------------ head-split shards
+
+
+def _shard_arg(arg, s: int, device):
+    """Shard s's copy of an argument given once for all shards (a tensor,
+    put on the shard's device) or as one per shard (a list)."""
+    if arg is None:
+        return None
+    if isinstance(arg, (list, tuple)):
+        return arg[s]
+    return arg.to(device)
+
+
+def sharded_flash_decode_attention(
+    qs: Sequence[torch.Tensor],
+    ks: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    lengths,
+    k_scales: Optional[Sequence[torch.Tensor]] = None,
+    v_scales: Optional[Sequence[torch.Tensor]] = None,
+    block_bitmap=None,
+    sparse_block: Optional[int] = None,
+) -> List[torch.Tensor]:
+    """`flash_decode_attention` over shards split by head (the reference's
+    `sharded_flash_decode_attention`): qs/ks/vs and the int8 scales are one
+    tensor per shard, each shard's slice of the heads on its own device;
+    `lengths` and `block_bitmap` (with `sparse_block`, for
+    `block_sparse_flash_decode_attention`) are the same for every shard,
+    given once or one per shard. Each shard runs the unchanged wrapper on
+    its heads, so the outputs joined by head are the unsharded call's bits.
+    A shard holding every head (a head count the axis does not divide) runs
+    the unsplit kernel. Returns one output per shard."""
+    outs = []
+    for s, (q, k, v) in enumerate(zip(qs, ks, vs)):
+        lens = _shard_arg(lengths, s, q.device)
+        ksc, vsc = _shard_arg(k_scales, s, q.device), _shard_arg(v_scales, s, q.device)
+        if block_bitmap is None:
+            outs.append(flash_decode_attention(q, k, v, lens, ksc, vsc))
+        else:
+            bm = _shard_arg(block_bitmap, s, q.device)
+            outs.append(block_sparse_flash_decode_attention(q, k, v, lens, bm, sparse_block, ksc, vsc))
+    return outs
+
+
+def sharded_paged_decode_attention(
+    qs: Sequence[torch.Tensor],
+    k_pages: Sequence[torch.Tensor],
+    v_pages: Sequence[torch.Tensor],
+    lengths,
+    page_table,
+    vlen: int,
+    impl: Optional[str] = None,
+    k_scales: Optional[Sequence[torch.Tensor]] = None,
+    v_scales: Optional[Sequence[torch.Tensor]] = None,
+    block_bitmap=None,
+    sparse_block: Optional[int] = None,
+) -> List[torch.Tensor]:
+    """`paged_decode_attention` over shards split by head (the reference's
+    `sharded_paged_decode_attention`): each shard's pool holds its heads of
+    every page, and the page table, lengths and bitmap are the same on
+    every shard (pages never split: the table addresses them globally).
+    Each shard runs the unchanged dispatch on its heads. Returns one output
+    per shard."""
+    outs = []
+    for s, (q, kp, vp) in enumerate(zip(qs, k_pages, v_pages)):
+        dev = q.device
+        outs.append(paged_decode_attention(
+            q, kp, vp, _shard_arg(lengths, s, dev), _shard_arg(page_table, s, dev), vlen, impl,
+            _shard_arg(k_scales, s, dev), _shard_arg(v_scales, s, dev),
+            block_bitmap=_shard_arg(block_bitmap, s, dev), sparse_block=sparse_block,
+        ))
+    return outs

@@ -8,7 +8,9 @@ of the repository's `serve.py`).
 
 Loads the checkpoint through `serving/engine.py:engine_from_checkpoint`
 (the micro `GenerationEngine`, or with `--engine continuous` the
-`ContinuousEngine`, paged with `--kv_layout paged`), warms it up, and
+`ContinuousEngine`, paged with `--kv_layout paged`, and with `--mesh tp=N`
+its tensor-parallel twin over N devices, `serving/sharded.py`), warms it
+up, and
 serves it with `serving/server.py:ServingServer` (the wire protocol is
 there). Prints `[serve] listening on http://HOST:PORT ...` once ready; the
 first SIGTERM or SIGINT drains the queue and exits 0, a second exits at
@@ -17,7 +19,7 @@ once. Lifecycle events and one line per request go to stdout as JSON
 
 Not offered, so the argument parser refuses them: the reference's router
 and supervisor (`--router`, `--replicas`, `--supervise`,
-`--spool_notify`), `--mesh`, `--compile_cache`, the vitals and SLO flags
+`--spool_notify`), `--compile_cache`, the vitals and SLO flags
 (`--no_vitals`, `--vitals_interval_s`, `--no_program_costs`,
 `--slo_*`), `--profile_dir` and `--trace_export`.
 """
@@ -83,6 +85,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--decode_sparsity", choices=("causal", "policy"), default="causal",
                    help="continuous: dense-causal flash decode, or block-sparse decode from the "
                    "model's static attention layouts")
+    p.add_argument("--mesh", type=str, default=None, metavar="AXES",
+                   help="continuous: serve one engine sharded over a device mesh, axis=size pairs "
+                   "over dp/fsdp/tp/sp (e.g. 'tp=2'; one size may be -1 for the remaining devices): "
+                   "heads, FF hidden units and vocabularies split over tp; dp, fsdp and sp must be 1")
     p.add_argument("--max_queue", type=int, default=64, help="queue bound in rows; beyond it 503")
     p.add_argument("--request_timeout_s", type=float, default=120.0)
     p.add_argument("--no_preempt", action="store_true",
@@ -123,6 +129,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--request_log_max_mb", type=float, default=None, metavar="MB",
                    help="rotate --request_log_path to FILE.1 past MB megabytes")
     args = p.parse_args(argv)
+    if args.mesh is not None:
+        # at parse time, not after the checkpoint loads
+        if args.engine != "continuous":
+            p.error("--mesh needs --engine continuous")
+        from dalle_pytorch_tpu_torch.serving.sharded import check_served, parse_mesh_shape
+
+        try:
+            check_served(parse_mesh_shape(args.mesh))
+        except (ValueError, NotImplementedError) as exc:
+            p.error(f"bad --mesh {args.mesh!r}: {exc}")
     if args.checkpoint_spool is not None and args.engine != "continuous":
         p.error("--checkpoint_spool needs --engine continuous (the micro engine holds no decode state)")
     if args.spool_every < 1:
@@ -162,6 +178,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from dalle_pytorch_tpu_torch.utils import compile_guard
 
     log = StructuredLog(site=args.trace_site, path=args.request_log_path, max_mb=args.request_log_max_mb)
+    mesh = None
+    if args.mesh is not None:  # the devices are counted before the checkpoint loads
+        from dalle_pytorch_tpu_torch.serving.engine import resolve_device
+        from dalle_pytorch_tpu_torch.serving.sharded import build_serving_mesh
+
+        mesh = build_serving_mesh(args.mesh, device=resolve_device(args.device))
     engine = engine_from_checkpoint(
         args.dalle_path,
         clip_path=args.clip_path,
@@ -177,6 +199,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         page_size=args.page_size,
         kv_pages=args.kv_pages,
         prefix_entries=args.prefix_entries,
+        mesh=mesh,
         resume_enabled=not args.no_resume,
         # previews off drops the preview decode from the warmup
         preview_enabled=args.preview_every > 0,
@@ -229,7 +252,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(
         f"[serve] listening on http://{args.host}:{server.port} (engine={args.engine}, "
         f"device={engine.device}, shapes={engine.batch_shapes}, max_delay_ms={args.max_delay_ms}, "
-        f"max_queue={args.max_queue})",
+        f"max_queue={args.max_queue}"
+        + ("" if mesh is None else f", mesh={dict(mesh.shape)}") + ")",
         flush=True,
     )
     server.serve_forever()

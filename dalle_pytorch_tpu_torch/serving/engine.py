@@ -34,8 +34,9 @@ names the build a checkpoint must come from; with `preview_enabled`,
 (`serving/streaming.py`). A failed slot dispatch (an injected fault
 included: it fires inside the same `try`, before the dispatch touches the
 state) leaves a rebuilt, empty state, which the batcher's retry re-admits
-into. Not ported yet: vitals, cost capture, the compile cache, and the
-sharded engines.
+into. The continuous engines' tensor-parallel twins over a mesh are in
+`serving/sharded.py`. Not ported yet: vitals, cost capture and the
+compile cache.
 """
 
 from __future__ import annotations
@@ -64,12 +65,14 @@ from dalle_pytorch_tpu_torch.models.dalle import (
     release_slots,
     resume_into_slots,
     resume_into_slots_paged,
+    shard_states,
     slice_prefix_sidecar,
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.models.vae_io import decode_unit, is_pretrained, to_unit
 from dalle_pytorch_tpu_torch.ops.flash_decode import PAGED_DECODE_IMPL, PAGED_DECODE_IMPLS
 from dalle_pytorch_tpu_torch.ops.sampling import keep_count
+from dalle_pytorch_tpu_torch.parallel.tensor_parallel import TensorParallelDALLE
 from dalle_pytorch_tpu_torch.serving.paging import PagedKVManager
 from dalle_pytorch_tpu_torch.serving.sparsity import DecodeSparsityPolicy
 from dalle_pytorch_tpu_torch.training.pipeline import (
@@ -150,7 +153,7 @@ class GenerationEngine:
         self.device = resolve_device(device)
         if not batch_shapes or min(int(b) for b in batch_shapes) < 1:
             raise ValueError(f"batch_shapes must be positive sizes, got {batch_shapes}")
-        self.model = model.to(self.device).eval()
+        self.model = self._placed_model(model)
         self.vae = None if vae is None else vae.to(self.device).eval()
         self.batch_shapes = tuple(sorted(set(int(b) for b in batch_shapes)))
         self.max_batch = self.batch_shapes[-1]
@@ -163,6 +166,10 @@ class GenerationEngine:
         #: fault-injection seam (serving/faults.py): None, or a
         #: FaultInjector whose rules fail, stall or crash named dispatches
         self.faults = None
+
+    def _placed_model(self, model: DALLE) -> DALLE:
+        """The model the engine runs: `model` on the engine's device."""
+        return model.to(self.device).eval()
 
     def _fault_point(self, name: str) -> None:
         """Dispatch-site hook of the fault injector (inert without one)."""
@@ -358,6 +365,19 @@ class ContinuousStats(EngineStats):
     kv_tiles_skipped: int = 0  # tiles the policy skipped that the length skip would read
 
 
+def with_cache_options(model: DALLE, kv_dtype: Optional[str], decode_sparsity: str) -> DALLE:
+    """`model`, or a shallow copy sharing its weights, with the continuous
+    engine's cache options set: `kv_dtype` (unless the model has one) and,
+    under the "policy" decode sparsity, the bitmap block width."""
+    if kv_dtype is not None and model.kv_dtype is None:
+        model = copy.copy(model)
+        model.kv_dtype = str(kv_dtype)
+    if decode_sparsity == "policy" and model.decode_sparse_block is None:
+        model = copy.copy(model)
+        model.decode_sparse_block = DECODE_SPARSE_BLOCK
+    return model
+
+
 class ContinuousEngine(GenerationEngine):
     """Continuous batching: token-boundary admission over cache slots.
 
@@ -413,12 +433,7 @@ class ContinuousEngine(GenerationEngine):
                 "dense-causal flash default) or 'policy' (block-sparse flash "
                 "from the model's static attention layouts)"
             )
-        if kv_dtype is not None and model.kv_dtype is None:
-            model = copy.copy(model)
-            model.kv_dtype = str(kv_dtype)
-        if decode_sparsity == "policy" and model.decode_sparse_block is None:
-            model = copy.copy(model)
-            model.decode_sparse_block = DECODE_SPARSE_BLOCK
+        model = with_cache_options(model, kv_dtype, decode_sparsity)
         super().__init__(
             model, vae, batch_shapes=(int(max_batch),), tokenizer=tokenizer, device=device
         )
@@ -433,10 +448,18 @@ class ContinuousEngine(GenerationEngine):
             DecodeSparsityPolicy(self.model, self.chunk_tokens, self.max_batch)
             if decode_sparsity == "policy" else None
         )
+        if self.tp_model is None:
+            self.tp_model = TensorParallelDALLE(self.model)
         self._state = self._fresh_state()
 
+    #: the shards every slot op runs over: the model itself as its one
+    #: shard, or the sharded engines' tensor-parallel model
+    tp_model: Optional[TensorParallelDALLE] = None
+
     def _fresh_state(self) -> dict:
-        return init_slot_state(self.model, self.max_batch)
+        """A clean state {"shards": [one per shard], "host": mirrors}."""
+        whole = init_slot_state(self.model, self.max_batch, device=self.tp_model.state_device)
+        return self.tp_model.place_state(whole)
 
     def _run(self, op, fault_tag: str) -> None:
         """Run one state-changing dispatch (caller holds the lock). The
@@ -456,7 +479,8 @@ class ContinuousEngine(GenerationEngine):
         """K/V (+ scale) bytes of the whole cache."""
         return sum(
             leaf.numel() * leaf.element_size()
-            for layer in self._state["cache"].values()
+            for st in self._state["shards"]
+            for layer in st["cache"].values()
             for key, leaf in layer["attn"].items()
             if key in ("k", "v", "k_scale", "v_scale")
         )
@@ -473,7 +497,7 @@ class ContinuousEngine(GenerationEngine):
         bitmap = None if self._sparsity is None else self._sparsity.prefill_bitmaps(self.prefill_batch)
         with self._lock:
             self._run(lambda st: prefill_into_slots(
-                self.model, st, texts, slots, seeds, temps, keep, block_bitmap=bitmap
+                self.tp_model, st, texts, slots, seeds, temps, keep, block_bitmap=bitmap
             ), "prefill")
             if not _warmup:
                 self.stats.prefills += n
@@ -551,7 +575,7 @@ class ContinuousEngine(GenerationEngine):
         texts, slots, seeds, temps, keep, img_tokens, img_pos = self._resume_rows(assignments)
         with self._lock:
             self._run(lambda st: resume_into_slots(
-                self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
+                self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
             ), "resume")
             self._count_resume(len(assignments), _warmup)
 
@@ -559,7 +583,7 @@ class ContinuousEngine(GenerationEngine):
         """Host work before a chunk's dispatch (caller holds the lock)."""
 
     def _chunk_op(self, state: dict, bitmap: Optional[np.ndarray]) -> None:
-        decode_image_chunk(self.model, state, self.chunk_tokens, block_bitmap=bitmap)
+        decode_image_chunk(self.tp_model, state, self.chunk_tokens, block_bitmap=bitmap)
 
     def dispatch_chunk(self, _warmup: bool = False) -> None:
         """Launch one chunk's device work: every live slot advances by
@@ -588,7 +612,8 @@ class ContinuousEngine(GenerationEngine):
         """The chunk-boundary (img_pos, active) host copy: the one designed
         device->host transfer of the decode loop."""
         with self._lock:
-            both = torch.cat([self._state["img_pos"], self._state["active"].to(torch.int32)])
+            state = shard_states(self._state)[0]
+            both = torch.cat([state["img_pos"], state["active"].to(torch.int32)])
             both = both.cpu().numpy()
         return both[: self.max_batch].astype(np.int64), both[self.max_batch :].astype(bool)
 
@@ -601,7 +626,7 @@ class ContinuousEngine(GenerationEngine):
     def snapshot_rows(self, slots: Sequence[int]) -> np.ndarray:
         """Host copy of `slots`' token rows [len(slots), image_seq_len]."""
         with self._lock:
-            toks = self._state["img_tokens"].cpu().numpy()
+            toks = shard_states(self._state)[0]["img_tokens"].cpu().numpy()
         return toks[list(slots)].astype(np.int32)
 
     def harvest(self, slots: Sequence[int]) -> np.ndarray:
@@ -831,7 +856,10 @@ class PagedContinuousEngine(ContinuousEngine):
             n_pages=self.kv_pages,
             max_entries=self.prefix_entries,
         )
-        return init_paged_slot_state(self.model, self.max_batch, self.kv_pages, self.page_size)
+        whole = init_paged_slot_state(
+            self.model, self.max_batch, self.kv_pages, self.page_size, device=self.tp_model.state_device
+        )
+        return self.tp_model.place_state(whole)
 
     # --------------------------------------------------------- admission
 
@@ -950,7 +978,7 @@ class PagedContinuousEngine(ContinuousEngine):
             seed, temp, keep = int(spec.seed) & 0x7FFFFFFF, float(spec.temperature), self._keep_k(spec.top_k)
             with self._lock:
                 self._run(lambda st: admit_cached_prefix(
-                    self.model, st, slot, entry.sidecar, seed, temp, keep, src, dst, self.page_size
+                    self.tp_model, st, slot, entry.sidecar, seed, temp, keep, src, dst, self.page_size
                 ), "admit_hit")
             if not _warmup:
                 self.kv.cache.hits += 1
@@ -986,7 +1014,7 @@ class PagedContinuousEngine(ContinuousEngine):
         wave = {}
         with self._lock:
             self._run(lambda st: wave.update(sidecar=prefill_into_slots_paged(
-                self.model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
+                self.tp_model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
                 self.page_size, block_bitmap=bitmap,
             )), "prefill")
             if not _warmup:
@@ -1017,7 +1045,7 @@ class PagedContinuousEngine(ContinuousEngine):
             # a failure rebuilds the state and (`_fresh_state`) the page
             # tables, discarding these mappings
             self._run(lambda st: resume_into_slots_paged(
-                self.model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
+                self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
                 page_rows, self.page_size,
             ), "resume")
             self._count_resume(len(assignments), _warmup)
@@ -1036,7 +1064,7 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _chunk_op(self, state: dict, bitmap: Optional[np.ndarray]) -> None:
         decode_image_chunk_paged(
-            self.model, state, self.chunk_tokens, self.kv.table, block_bitmap=bitmap,
+            self.tp_model, state, self.chunk_tokens, self.kv.table, block_bitmap=bitmap,
             paged_impl=self.paged_decode_impl,
         )
 
@@ -1117,7 +1145,12 @@ def engine_from_checkpoint(
     `mode="micro"` gives a `GenerationEngine`; `mode="continuous"` a
     `ContinuousEngine` whose slot count is the largest of `batch_shapes`,
     and with `kv_layout="paged"` a `PagedContinuousEngine` (`page_size`,
-    `kv_pages`, `prefix_entries` and `paged_decode_impl` as there).
+    `kv_pages`, `prefix_entries` and `paged_decode_impl` as there). `mesh`
+    (a `serving/sharded.py:parse_mesh_shape` string, a dict or a built
+    `DeviceMesh`) picks the continuous engine's tensor-parallel twin,
+    `ShardedContinuousEngine` or `ShardedPagedContinuousEngine`, the
+    mesh built over the visible devices of `device`'s type; the model is
+    then cut into its shards from the host and never whole on a card.
     `kv_dtype="int8"` quantizes the KV cache in either mode (None or
     "model" keeps the model dtype); `decode_sparsity="policy"` needs the
     continuous engine. The tokenizer is the one the checkpoint's config
@@ -1140,12 +1173,16 @@ def engine_from_checkpoint(
         raise ValueError(f"unknown kv_layout {kv_layout!r} ('slot' or 'paged')")
     if kv_layout == "paged" and mode != "continuous":
         raise ValueError("kv_layout='paged' needs the continuous engine (mode='continuous')")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded continuous engine (serving/sharded.py in the "
-            "JAX package) is not ported yet"
-        )
+    if mesh is not None and mode != "continuous":
+        raise ValueError("mesh needs the continuous engine (mode='continuous')")
     dev = resolve_device(device)
+    if mesh is not None:
+        from dalle_pytorch_tpu_torch.serving import sharded
+
+        if isinstance(mesh, (str, dict)):
+            shape = sharded.parse_mesh_shape(mesh) if isinstance(mesh, str) else dict(mesh)
+            sharded.check_served(shape)  # before the checkpoint loads
+            mesh = sharded.build_serving_mesh(shape, device=dev)
     config, dalle_tree, vae_tree, meta, _ = load_dalle_checkpoint(dalle_path, opt=False)
     if vae_tree is None:
         # trained with a pretrained wrapper: rebuilt from the config's paths
@@ -1189,13 +1226,16 @@ def engine_from_checkpoint(
             resume_enabled=True if resume_enabled is None else bool(resume_enabled),
             preview_enabled=True if preview_enabled is None else bool(preview_enabled),
         )
-        if kv_layout == "paged":
-            engine = PagedContinuousEngine(
-                model.to(dtype), vae.to(dtype), page_size=page_size, kv_pages=kv_pages,
-                prefix_entries=prefix_entries, paged_decode_impl=paged_decode_impl, **common,
-            )
+        paged = kv_layout == "paged"
+        if mesh is not None:
+            cls = sharded.ShardedPagedContinuousEngine if paged else sharded.ShardedContinuousEngine
+            common["mesh"] = mesh
         else:
-            engine = ContinuousEngine(model.to(dtype), vae.to(dtype), **common)
+            cls = PagedContinuousEngine if paged else ContinuousEngine
+        if paged:
+            common.update(page_size=page_size, kv_pages=kv_pages, prefix_entries=prefix_entries,
+                          paged_decode_impl=paged_decode_impl)
+        engine = cls(model.to(dtype), vae.to(dtype), **common)
         engine.clip = None if clip is None else clip.to(dev).eval()
         engine.cfg = config
         return engine

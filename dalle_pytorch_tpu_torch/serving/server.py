@@ -910,6 +910,10 @@ class ServingServer:
             kv_detail = getattr(self.engine, "kv_detail", None)
             if kv_detail is not None:
                 detail["kv"] = kv_detail()
+            mesh_detail = getattr(self.engine, "mesh_detail", None)
+            if mesh_detail is not None:
+                # a sharded engine: the axes and each shard's bytes
+                detail["mesh"] = mesh_detail()
             sparsity_detail = getattr(self.engine, "sparsity_detail", None)
             sp = sparsity_detail() if sparsity_detail is not None else None
             if sp is not None:

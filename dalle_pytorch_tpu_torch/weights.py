@@ -262,6 +262,22 @@ def export_dalle_params(model: DALLE, layout: str = "unrolled") -> dict:
     return _in_layout(tree, _dalle_stacks(model), layout)
 
 
+def shard_dalle_params(model: DALLE, mesh, model_axis: str = "tp") -> List[Dict[str, torch.Tensor]]:
+    """A DALLE's parameters (as `load_dalle_params` put them into it) cut
+    into one {name: tensor} per shard along `model_axis` of `mesh`, by
+    `parallel/partition.py`'s rules: a split tensor gives each shard its
+    piece (a view), a replicated one the whole tensor."""
+    from dalle_pytorch_tpu_torch.parallel.partition import partition_params, split_tensor
+
+    n = len(mesh.axis_devices(model_axis))
+    placements = partition_params(model, mesh)
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+    for name, tensor in model.state_dict().items():
+        for s, piece in enumerate(split_tensor(tensor, placements[name], n, model_axis)):
+            out[s][name] = piece
+    return out
+
+
 def _dvae_targets(vae: DiscreteVAE) -> Dict[str, _Target]:
     t: Dict[str, _Target] = {"codebook/embedding": (vae.codebook.weight, _same)}
     for i, conv in enumerate(vae.enc_convs):

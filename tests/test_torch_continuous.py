@@ -479,8 +479,10 @@ def test_continuous_engine_from_a_reference_checkpoint(tmp_path, monkeypatch):
     )
     assert isinstance(paged, PagedContinuousEngine) and paged.paged_decode_impl == "kernel"
     assert paged.model.kv_dtype == "int8" and paged.kv_detail()["page_size"] == 4
-    with pytest.raises(NotImplementedError, match="mesh"):
-        engine_from_checkpoint(str(path), device="cpu", mode="continuous", mesh="tp=2")
+    sharded = engine_from_checkpoint(str(path), device="cpu", mode="continuous", mesh="tp=2")
+    assert type(sharded).__name__ == "ShardedContinuousEngine" and sharded.mesh.shape["tp"] == 2
+    with pytest.raises(NotImplementedError, match="mesh"):  # tp is the one axis served
+        engine_from_checkpoint(str(path), device="cpu", mode="continuous", mesh="dp=2,tp=2")
 
 
 def test_error_probes(pair):

@@ -36,7 +36,8 @@ def test_the_scan_covers_every_port_script():
         "server.py", "serve.py", "batcher.py", "tracing.py", "logging.py", "aggregate.py",
         "vitals.py", "router.py", "compile_guard.py", "train_dalle.py", "precompute_tokens.py",
         "loader.py", "rainbow.py", "webdataset.py", "prefetch.py", "config.py", "lr.py", "flops.py",
-        "train_vae.py", "train_clip.py", "gumbel.py", "vae_io.py",
+        "train_vae.py", "train_clip.py", "gumbel.py", "vae_io.py", "mesh.py", "partition.py",
+        "serving_partition.py", "tensor_parallel.py", "sharded.py",
     } <= names
 
 

@@ -140,7 +140,7 @@ def test_serve_cli_without_a_card_names_it(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--router"], ["--replicas", "http://a"], ["--supervise"], ["--mesh", "dp=1,tp=4"],
+    ["--router"], ["--replicas", "http://a"], ["--supervise"], ["--spool_notify", "http://n"],
     ["--compile_cache", "cache"], ["--no_vitals"], ["--slo_ttft_ms", "500"], ["--trace_export", "http://c"],
     ["--profile_dir", "p"], ["--no_program_costs"],
 ])
@@ -162,3 +162,27 @@ def test_flag_checks(flags, message, capsys):
     assert message in capsys.readouterr().err
     args = parse_args(["--dalle_path", "x.npz", "--tenant_weights", "a=4,b=1", "--batch_shapes", "1,4"])
     assert args.device == "cuda" and args.tenant_weights == {"a": 4.0, "b": 1.0} and args.batch_shapes == (1, 4)
+
+
+@pytest.mark.parametrize("mesh", ["tp=2", "dp=1,tp=4", "tp=-1", " tp=1 ", "fsdp=1,tp=2,sp=1"])
+def test_mesh_shapes_accepted(mesh):
+    args = parse_args(["--dalle_path", "x.npz", "--engine", "continuous", "--mesh", mesh])
+    assert args.mesh == mesh
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--mesh", "tp=2"], "--mesh needs --engine continuous"),
+    (["--engine", "continuous", "--mesh", "pp=2"], "unknown mesh axis 'pp'"),
+    (["--engine", "continuous", "--mesh", "2,4"], "must be axis=size"),
+    (["--engine", "continuous", "--mesh", "tp=0"], "sizes must be >= 1"),
+    (["--engine", "continuous", "--mesh", "tp=-2"], "sizes must be >= 1"),
+    (["--engine", "continuous", "--mesh", "dp=2,tp=2"], "ROADMAP.md Queue 1 item 8"),
+    (["--engine", "continuous", "--mesh", "fsdp=2"], "ROADMAP.md Queue 1 item 8"),
+    (["--engine", "continuous", "--mesh", "sp=4"], "ROADMAP.md Queue 1 item 8"),
+])
+def test_mesh_flag_checks(flags, message, capsys):
+    """The reference's parse-time checks (`serve.py:330-341`), and the axes
+    the sharded engines do not serve yet."""
+    with pytest.raises(SystemExit) as err:
+        parse_args(["--dalle_path", "x.npz", *flags])
+    assert err.value.code == 2 and message in capsys.readouterr().err
