@@ -101,47 +101,48 @@ Phases, each failing loudly (nonzero exit, no result line):
    step, then FP32_TRAIN_STEPS Adam steps on one batch, ms a step by CUDA
    events, the flash-attention calls counted (12 a step each), the
    kernels named, the loss finite and falling;
-7. the continuous-serving path: phase 5's model behind a `ContinuousEngine`
+7. the continuous-serving path: phase 5's model's first 2 layers (a
+   depth cut that holds the script's time) behind a `ContinuousEngine`
    (4 slots, prefill waves of 4, chunks of 4 tokens) driven by the
    `ContinuousBatcher` with phase 5's four prompts, two of them admitted
-   mid-flight: causal (tokens identical to phase 5's, one chunk run under
-   CUDA's sync-debug "error" mode); on the model's first 4 layers (a
-   depth cut that holds the script's time) causal, int8 KV and policy
-   sparsity (tokens identical to that causal run); and policy + int8 on
-   a model whose layers cycle full / axial_row / axial_col / conv_like;
+   mid-flight: causal (tokens identical to a `GenerationEngine`'s over
+   the same layers, one chunk run under CUDA's sync-debug "error" mode),
+   int8 KV and policy sparsity (tokens identical to that causal run); a
+   slot's KV bytes at depth 12 six times depth 2's; and policy + int8 on
+   a model of 4 layers, full / axial_row / axial_col / conv_like;
    each run's kernel launches counted exactly;
-8. the paged-serving path: phase 5's model behind a `PagedContinuousEngine`
-   (4 slots, page 32, prefill waves of 4, chunks of 4) and the
-   `ContinuousBatcher`, with phase 7's four requests and repeats of the
-   first two (full-prompt prefix hits, no prefill dispatch), three times:
-   the gather impl on the model's first 4 layers (a depth cut that holds
-   the script's time; tokens identical to phase 7's causal run of that
-   model), the paged
+8. the paged-serving path: phase 7's depth-2 model behind a
+   `PagedContinuousEngine` (4 slots, page 32, prefill waves of 4, chunks
+   of 4) and the `ContinuousBatcher`, with phase 7's four requests and
+   repeats of the first two (full-prompt prefix hits, no prefill
+   dispatch), three times: the gather impl (tokens identical to phase 7's
+   causal run of that model), the paged
    kernel with a pool of two rows' worst case beside the prefix cache
    (the batcher holds requests back; tokens identical again; one chunk
    under sync-debug "error"), and the block-sparse paged kernel's int8 arm
    under policy + int8 on phase 7's patterned model (tokens identical to
    phase 7's run of it); launches counted exactly, `leak_check()` empty;
 9. the generation CLI (`python -m dalle_pytorch_tpu_torch.generate`, run
-   in-process) on a flagship checkpoint of the default 32k vocabulary
+   in-process) on a flagship-width checkpoint (depth 2, a cut that holds
+   the script's time) of the default 32k vocabulary
    with a CLIP checkpoint at the reference defaults: two prompts of 4
-   images with CLIP reranking (PNGs read back with zlib, 12,300
+   images with CLIP reranking (PNGs read back with zlib, 2,050
    flash-decode launches per batch, scores best first), one `--gentxt`
    run, and the uncached `generate_images` oracle primed with the cached
-   run's first 1008 tokens (12 flash-attention forwards per sampled
+   run's first 1008 tokens (2 flash-attention forwards per sampled
    position, the cached tokens wherever the noised-score margin passes
    ORACLE_MARGIN); the wall of each stage;
-10. mid-decode resume and decode-state migration: phase 5's model behind
-   a `ContinuousEngine` with resume and previews, then a
-   `PagedContinuousEngine` (page 32, the paged kernel), then int8 KV on
-   phase 7's depth-4 model, each behind the `ContinuousBatcher` with
+10. mid-decode resume and decode-state migration: phase 7's depth-2
+   model behind a `ContinuousEngine` with resume and previews, then a
+   `PagedContinuousEngine` (page 32, the paged kernel), then int8 KV,
+   each behind the `ContinuousBatcher` with
    phase 7's four requests (request 0 streamed; requests 2-3 admitted
    after ADMIT_AFTER chunks): at the first chunk boundary at which every
    row has passed image position DRAIN_AT (fixed chunk counts, not host
    timing), `migrate_out` exports them, the checkpoints
    travel encode -> wire -> decode, and a fresh engine over the same
-   weights (equal fingerprint) resumes them in one dispatch (12
-   flash-decode launches at n = 1280 at depth 12). Held: tokens equal to
+   weights (equal fingerprint) resumes them in one dispatch (a
+   flash-decode launch a layer at n = 1280). Held: tokens equal to
    the uninterrupted run (phase 7's) up to each row's first position
    whose noised-score margin is under ORACLE_MARGIN, the resumed pending
    logits and K/V against the drained engine's (RESUME_LOGIT_TOL,
@@ -158,12 +159,12 @@ Phases, each failing loudly (nonzero exit, no result line):
    order and coalesced into one batch: tokens identical to phase 5's,
    12,300 flash-decode launches, PNGs decoded to 256x256x3, /healthz
    200, the HTTP wall beside phase 5's `generate()` wall; (b) phase 7's
-   depth-4 model behind a `ContinuousEngine` (resume and previews on):
+   depth-2 model behind a `ContinuousEngine` (resume and previews on):
    four low requests (request 0 over SSE) under a chunk failed by a
    `FaultInjector` (all four retried from position 0) and, after
    QOS_HIGH_AT chunks, a high one repeating request 1 that preempts the
    youngest low, which resumes at its position (tokens identical to
-   phase 7's depth-4 run, the preempted one by the margin rule; the
+   phase 7's depth-2 run, the preempted one by the margin rule; the
    stream's events; launches exact); a drain with migration past
    DRAIN_AT (409s with checkpoints, /healthz 503, then 200 resumes by the
    margin rule with `usage.resumed_tokens` at each position); a request
@@ -214,7 +215,7 @@ Phases, each failing loudly (nonzero exit, no result line):
    H = 8 launches joined by head `torch.equal` to the H = 16 launch and
    each shard within decode_tol of its plain version, the device ms of an
    H = 8 and an H = 16 step of kernels 1 and 4; (b) tp = 1 sharded slotted
-   and paged engines on cuda:0, tokens bit-identical to phase 7's depth-4
+   and paged engines on cuda:0, tokens bit-identical to phase 7's depth-2
    causal run; tp = 2 sharded slotted and paged (paged kernel, one
    prefix-cache hit, one resume) engines, tokens equal to that run's up to
    each row's first position whose noised-score margin is under
@@ -226,6 +227,24 @@ Phases, each failing loudly (nonzero exit, no result line):
    mesh block; `--mesh tp=2` on the one card exits nonzero with "needs 2
    devices".
 
+15. (run after phase 14, before phase 13's trace) multi-process training
+   through the launch twin (`python -m dalle_pytorch_tpu_torch.launch
+   --nproc_per_host 2 -- chip_smoke.py --train-rank ...`, each rank the
+   trainer twin in-process), two ranks on the one card over Gloo, phase
+   13's model (flagship width, depth TRAINER_DEPTH, bf16 autocast, a
+   global batch of 4, 3 steps): fsdp = 2 (the flash-attention kernels on
+   each rank, one in-loop sample on both over the gathered parameters)
+   against one process, then in the same launch sp = 2 with
+   `attn_impl="ring"` (the ring's hops staged through host memory and
+   counted) against the one-process ring; per-step losses within
+   MULTI_LOSS_RTOL, the first averaged gradient within MULTI_GRAD_RTOL and
+   the export's change over the run within MULTI_UPDATE_RTOL (the worst
+   parameter's relative 2-norm; limits set between sound and
+   planted-fault readings on the card,
+   `scripts/torch_multi_fault_probe.py`); then a one-rank NCCL group
+   in this process runs each call of `parallel/collectives.py` once on a
+   CUDA tensor.
+
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
 `flash_decode_tile_f32.cu`: fp32 q at n > 4; both cache arms) at the
@@ -234,7 +253,7 @@ a 1281-slot cache; B = 1 and 4), against the plain version and each arm's
 model, on caches poisoned with NaN past each row's length, beside SDPA's
 causal forward (and, bf16, `flash_attention_fwd`) over the live keys, and
 check that each such call launches its arm once (phase 5: 12 tile
-launches a generate(), phase 10: 12 a depth-12 resume dispatch). They
+launches a generate(), phase 10: one a layer per resume dispatch). They
 also hold the int8 arm of flash decode, the
 block-sparse kernel (all-ones bitmaps bit-identical to flash decode,
 random and policy bitmaps, poisoned dead tiles) and the two paged kernels
@@ -251,9 +270,12 @@ checkout, it exits nonzero before any result.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -286,6 +308,45 @@ PEAKS = {
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# The script's own deadline, under the 1200 s a run of it may take: past
+# it the watchdog writes every thread's stack to stderr, kills the
+# process groups of the children it started (`CHILDREN`) and exits 1, so
+# a hang names where it hung instead of running out the clock.
+DEADLINE_S = 1140.0
+CHILDREN = []  # Popen objects, each the leader of its own process group
+PROGRESS = [time.perf_counter(), "start"]  # the watchdog's clock and the phase under way
+
+
+def progress(phase: str) -> None:
+    """Mark `phase` as begun, on stderr (flushed: the end of stderr names
+    the phase a run that was stopped was in)."""
+    PROGRESS[1] = phase
+    print(f"chip_smoke: {phase} at {time.perf_counter() - PROGRESS[0]:.1f} s", file=sys.stderr, flush=True)
+
+
+def kill_group(proc) -> None:
+    """SIGKILL `proc`'s process group (started with start_new_session)."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def start_watchdog() -> None:
+    def expire():
+        print(f"chip_smoke: past its {DEADLINE_S:.0f} s deadline in {PROGRESS[1]}; the stacks:",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for proc in list(CHILDREN):
+            kill_group(proc)
+        sys.stderr.flush()
+        os._exit(1)
+
+    timer = threading.Timer(DEADLINE_S - (time.perf_counter() - PROGRESS[0]), expire)
+    timer.daemon = True
+    timer.start()
 
 
 def card_peaks(name: str):
@@ -2582,7 +2643,8 @@ def serve_continuous(torch, model, vae, specs, label, **options):
     return engine, toks, pixels, launches, expected
 
 
-SHORT_DEPTH = 4  # phase 7's int8 and policy runs: depth cut to hold the script's time
+SHORT_DEPTH = 2  # phases 7-11 and 14 (bar phase 11a): a depth cut that holds the script's time
+PATTERNED_DEPTH = len(PATTERNED)  # the patterned model: each attention type once
 
 
 def first_layers(torch, model, depth):
@@ -2597,16 +2659,17 @@ def first_layers(torch, model, depth):
     return short.to(torch.bfloat16).eval()
 
 
-def run_continuous(torch, model, vae, specs, micro_tokens):
+def run_continuous(torch, model, vae, specs):
     """Phase 7: the four runs. Returns ({kernel: launches on its run}, the
-    causal run's tokens, the patterned model and its policy + int8
-    tokens, and the depth-cut model's causal and int8 runs' tokens)."""
+    patterned model and its policy + int8 tokens, and the depth-cut
+    model's causal and int8 runs' tokens)."""
     import copy
 
     import numpy as np
 
+    from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
-    from dalle_pytorch_tpu_torch.serving.engine import GenerationEngine
+    from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine, GenerationEngine
 
     def only(launches, kernel, expected, label):
         """`kernel` alone launched, `expected` times in all; of those one
@@ -2617,15 +2680,20 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
             fail(f"continuous {label}: {kernel} launched {launches[kernel]} times "
                  f"(expected {expected}; tile arm {tile}), others {others}")
 
-    # 1. causal: the micro engine's tokens, and a chunk with no host sync
-    engine, toks1, _, launches, expected = serve_continuous(torch, model, vae, specs, "causal")
-    same = np.array_equal(toks1, micro_tokens)
-    print(f"check continuous causal tokens identical to phase 5's micro engine: {same} "
-          f"(agreement {(toks1 == micro_tokens).mean():.6f})")
+    # 1. causal on the model's first SHORT_DEPTH layers (a depth cut that
+    # holds the script's time): the micro engine's tokens over the same
+    # layers, and a chunk with no host sync
+    short = first_layers(torch, model, SHORT_DEPTH)
+    micro_tokens, _ = GenerationEngine(short, vae, batch_shapes=(4,), device="cuda").generate(specs)
+    label = f"causal depth {SHORT_DEPTH}"
+    engine, toks_short, _, launches, expected = serve_continuous(torch, short, vae, specs, label)
+    same = np.array_equal(toks_short, micro_tokens)
+    print(f"check continuous {label} tokens identical to the micro engine's over the same layers: {same} "
+          f"(agreement {(toks_short == micro_tokens).mean():.6f})")
     if not same:
         fail("the continuous engine's tokens differ from the micro engine's")
-    only(launches, "flash_decode", expected, "causal")
-    causal_bytes = engine.kv_bytes_per_slot()
+    only(launches, "flash_decode", expected, label)
+    short_bytes = engine.kv_bytes_per_slot()
     engine.prefill_slots([(0, specs[0])])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2639,15 +2707,12 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
     if pos[0] != CONTINUOUS["chunk_tokens"] or not act[0]:
         fail(f"the synced-debug chunk left slot 0 at {pos[0]}, active {act[0]}")
     del engine
+    # the KV bytes of a slot scale with depth: the flagship's engine, built, not served
+    causal_bytes = ContinuousEngine(model, vae, **CONTINUOUS, tokenizer=ByteTokenizer(),
+                                    device="cuda").kv_bytes_per_slot()
     out = {}
 
-    # 2-3. int8 KV and policy on the model's first SHORT_DEPTH layers, held
-    # against a causal run of that model
-    short = first_layers(torch, model, SHORT_DEPTH)
-    engine, toks_short, _, _, _ = serve_continuous(
-        torch, short, vae, specs, f"causal depth {SHORT_DEPTH}")
-    short_bytes = engine.kv_bytes_per_slot()
-    del engine
+    # 2-3. int8 KV and policy on the same layers, held against their causal run
     engine, toks2, _, launches, expected = serve_continuous(
         torch, short, vae, specs, f"int8 depth {SHORT_DEPTH}", kv_dtype="int8")
     only(launches, "flash_decode_int8", expected, "int8")
@@ -2677,10 +2742,11 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
                                         - launches["block_sparse_flash_decode_tile"])
     del engine, short
 
-    # 4. policy + int8 on the patterned flagship
+    # 4. policy + int8 on the patterned model (flagship width, PATTERNED_DEPTH)
     torch.manual_seed(SEED)
     with torch.device("cuda"):
-        patterned = DALLE(**{**FLAGSHIP, "attn_types": PATTERNED}).to(torch.bfloat16).eval()
+        patterned = DALLE(**{**FLAGSHIP, "depth": PATTERNED_DEPTH, "attn_types": PATTERNED})
+        patterned = patterned.to(torch.bfloat16).eval()
     engine, toks4, _, launches, expected = serve_continuous(
         torch, patterned, vae, specs, "policy+int8 patterned",
         decode_sparsity="policy", kv_dtype="int8")
@@ -2699,7 +2765,7 @@ def run_continuous(torch, model, vae, specs, micro_tokens):
           f"({detail['kv_tiles_skipped'] / (detail['kv_tiles_read'] + detail['kv_tiles_skipped']):.3f})")
     out["block_sparse_flash_decode_int8"] = (launches["block_sparse_flash_decode_int8"]
                                              - launches["block_sparse_flash_decode_int8_tile"])
-    return out, toks1, patterned, toks4, (toks_short, toks2)
+    return out, patterned, toks4, (toks_short, toks2)
 
 
 DECODE_COUNTERS = {
@@ -2808,27 +2874,27 @@ def check_paged_run(engine, toks, launches, waves, label, kernel, decode_kernel,
         fail(f"paged {label}: leak_check {leaks}")
 
 
-def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_tokens, short_tokens):
-    """Phase 8: the three runs of the flagship PagedContinuousEngine.
-    Returns {kernel: launches on its run} for kernels 4 and 5."""
-    # 1. the reference's default impl: paged_gather + kernel 1, on the
-    # model's first SHORT_DEPTH layers (a depth cut that holds the script's
-    # time), held to phase 7's causal run of that model
+def run_paged(torch, model, patterned, vae, specs, patterned_tokens, short_tokens):
+    """Phase 8: the three runs of the PagedContinuousEngine at the flagship
+    width. Returns {kernel: launches on its run} for kernels 4 and 5."""
+    # 1-2. on the model's first SHORT_DEPTH layers (a depth cut that holds
+    # the script's time), held to phase 7's causal run of that model:
+    # 1. the reference's default impl, paged_gather + kernel 1
     short = first_layers(torch, model, SHORT_DEPTH)
     label = f"gather causal depth {SHORT_DEPTH}"
     engine, toks1, launches, waves = serve_paged(torch, short, vae, specs, label, paged_decode_impl="gather")
     check_paged_run(engine, toks1, launches, waves, label, "flash_decode", "flash_decode", short_tokens)
-    del engine, short
+    del engine
 
     # 2. kernel 4, with a pool of two rows' worst case beside the prefix
     # cache's four entries (8 full pages and a snapshot page each)
     per_row = -(-(FLAGSHIP["text_seq_len"] + 1024 + 1) // PAGE)  # 41
     text_pages = -(-(FLAGSHIP["text_seq_len"] + 1) // PAGE)  # 9: 8 full and the snapshot
     kv_pages = 1 + 2 * per_row + len(PROMPTS) * text_pages
-    engine, toks2, launches, waves = serve_paged(torch, model, vae, specs, "kernel causal, small pool",
+    label = f"kernel causal depth {SHORT_DEPTH}, small pool"
+    engine, toks2, launches, waves = serve_paged(torch, short, vae, specs, label,
                                                  paged_decode_impl="kernel", kv_pages=kv_pages)
-    check_paged_run(engine, toks2, launches, waves, "kernel causal, small pool", "paged_flash_decode",
-                    "flash_decode", causal_tokens)
+    check_paged_run(engine, toks2, launches, waves, label, "paged_flash_decode", "flash_decode", short_tokens)
     held_back = max(w["live_rows"] for w in waves)
     print(f"check paged small pool ({kv_pages} pages): at most {held_back} rows live of "
           f"{CONTINUOUS['max_batch']} slots; every request completed")
@@ -2848,7 +2914,7 @@ def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_toke
     print(f"check paged chunk under sync-debug mode 'error': no host sync (slot 0 at {pos[0]})")
     if pos[0] != CONTINUOUS["chunk_tokens"] or not act[0] or engine.kv.leak_check():
         fail(f"the synced-debug paged chunk left slot 0 at {pos[0]}, active {act[0]}")
-    del engine
+    del engine, short
 
     # 3. kernel 5's int8 arm with real holes on the patterned model
     engine, toks3, launches, waves = serve_paged(
@@ -2864,6 +2930,7 @@ def run_paged(torch, model, patterned, vae, specs, causal_tokens, patterned_toke
 
 
 # phase 9: the generation CLI at flagship width
+CLI_DEPTH = SHORT_DEPTH  # a depth cut that holds the script's time
 CLI_PROMPTS = "a red cube|a blue sphere"
 CLI_IMAGES = 4  # per prompt, one batch of 4
 ORACLE_PRIMED = 1008  # the oracle samples the last 16 image positions
@@ -2875,15 +2942,16 @@ ORACLE_MARGIN = 0.1
 
 def run_generation_cli(torch, vae):
     """Phase 9: the generation CLI (`dalle_pytorch_tpu_torch.generate.main`,
-    in-process) on a flagship checkpoint whose config names no vocabulary
-    (the default 32k native BPE), random weights from SEED, bf16, with
-    `vae` inside, and a CLIP checkpoint at the reference defaults: two
-    prompts x 4 images with CLIP reranking (4 PNGs and a grid per prompt
-    read back with zlib, 12,300 flash-decode launches per batch, scores
-    best first), one `--gentxt` run, and the uncached `generate_images`
-    oracle primed with the cached run's first ORACLE_PRIMED tokens of
-    prompt 0 (the same row seeds, so the last 16 positions sample the same
-    noise): 12 flash-attention forwards a sampled position, tokens equal
+    in-process) on a flagship-width checkpoint of depth CLI_DEPTH whose
+    config names no vocabulary (the default 32k native BPE), random
+    weights from SEED, bf16, with `vae` inside, and a CLIP checkpoint at
+    the reference defaults: two prompts x 4 images with CLIP reranking (4
+    PNGs and a grid per prompt read back with zlib, CLI_DEPTH x 1025
+    flash-decode launches per batch, scores best first), one `--gentxt`
+    run, and the uncached `generate_images` oracle primed with the cached
+    run's first ORACLE_PRIMED tokens of prompt 0 (the same row seeds, so
+    the last 16 positions sample the same noise): CLI_DEPTH
+    flash-attention forwards a sampled position, tokens equal
     to the cached run's wherever the noised-score margin passes
     ORACLE_MARGIN. Returns {counter: launches}."""
     import numpy as np
@@ -2914,7 +2982,7 @@ def run_generation_cli(torch, vae):
     t0 = time.perf_counter()
     torch.manual_seed(SEED + 9)
     with torch.device("cuda"):
-        model = DALLE(**{**FLAGSHIP, "num_text_tokens": vocab}).to(torch.bfloat16).eval()
+        model = DALLE(**{**FLAGSHIP, "depth": CLI_DEPTH, "num_text_tokens": vocab}).to(torch.bfloat16).eval()
         clip = CLIP(num_text_tokens=vocab)
     save_dalle_checkpoint(
         str(dalle_path), dalle_config(model, bf16=True), model,
@@ -2939,7 +3007,7 @@ def run_generation_cli(torch, vae):
     print(f"phase 9 CLI: {wall:.1f} s; stage walls (s) " + json.dumps(
         {k: round(v, 3) for k, v in walls.items()}) + f"; flash_decode launches {launches}")
     prompts = [p.strip() for p in CLI_PROMPTS.split("|")]
-    expected = len(prompts) * LAYERS * (1 + FLAGSHIP["image_fmap_size"] ** 2)
+    expected = len(prompts) * CLI_DEPTH * (1 + FLAGSHIP["image_fmap_size"] ** 2)
     if launches["cli_flash_decode"] != expected:
         fail(f"the CLI launched flash_decode {launches['cli_flash_decode']} times, expected {expected}")
     for entry in summary["prompts"]:
@@ -3012,9 +3080,9 @@ def run_generation_cli(torch, vae):
           + json.dumps([(int(r), int(p) + ORACLE_PRIMED, round(float(margins[r, p]), 4))
                         for r, p in differ])
           + f"; smallest margin {float(np.nanmin(margins)):.4f}, ORACLE_MARGIN {ORACLE_MARGIN}")
-    if launches["oracle_flash_attention_fwd"] != LAYERS * sampled:
+    if launches["oracle_flash_attention_fwd"] != CLI_DEPTH * sampled:
         fail(f"the oracle launched flash_attention_fwd {launches['oracle_flash_attention_fwd']} "
-             f"times, expected {LAYERS * sampled}")
+             f"times, expected {CLI_DEPTH * sampled}")
     if not 2 * logit_diff < ORACLE_MARGIN:
         fail(f"cached and uncached logits differ by {logit_diff:.3e}: ORACLE_MARGIN "
              f"{ORACLE_MARGIN} does not cover twice that")
@@ -3410,14 +3478,14 @@ def serve_migrated(torch, model, vae, specs, reference, label, paged=False, **op
     return summary
 
 
-def run_migration(torch, model, vae, specs, causal_tokens, int8_tokens):
-    """Phase 10: the slotted and the paged (kernel impl) engines at
-    flagship width, then int8 KV on phase 7's depth-4 model. Returns the
-    three summaries."""
-    slotted = serve_migrated(torch, model, vae, specs, causal_tokens, "slotted causal")
-    paged = serve_migrated(torch, model, vae, specs, causal_tokens, "paged kernel causal", paged=True,
-                           paged_decode_impl="kernel")
+def run_migration(torch, model, vae, specs, short_tokens, int8_tokens):
+    """Phase 10: the slotted and the paged (kernel impl) engines, then int8
+    KV, each on phase 7's depth-SHORT_DEPTH model (the flagship width).
+    Returns the three summaries."""
     short = first_layers(torch, model, SHORT_DEPTH)
+    slotted = serve_migrated(torch, short, vae, specs, short_tokens, f"slotted causal depth {SHORT_DEPTH}")
+    paged = serve_migrated(torch, short, vae, specs, short_tokens, f"paged kernel causal depth {SHORT_DEPTH}",
+                           paged=True, paged_decode_impl="kernel")
     int8 = serve_migrated(torch, short, vae, specs, int8_tokens, f"slotted int8 depth {SHORT_DEPTH}",
                           kv_dtype="int8")
     return slotted, paged, int8
@@ -3604,7 +3672,7 @@ def run_micro_server(torch, engine, tokens5, wall5):
 
 
 def run_continuous_server(torch, model, vae, specs, reference):
-    """Phase 11b: phase 7's depth-4 model behind a ContinuousEngine (4
+    """Phase 11b: phase 7's depth-2 model behind a ContinuousEngine (4
     slots, chunks of 4, resume and previews on) and the port's
     ServingServer, driven over HTTP in three parts:
 
@@ -3615,7 +3683,7 @@ def run_continuous_server(torch, model, vae, specs, reference):
     repeating request 1 under another tenant arrives and preempts the
     youngest low (the one whose prefill began last), which re-admits
     through `resume_slots` at its position. Held: the other low requests'
-    and the high one's tokens identical to phase 7's depth-4 causal run
+    and the high one's tokens identical to phase 7's depth-2 causal run
     (`reference`), the victim's by the margin rule from its preempted
     position; one failed chunk, four retries; the stream's progress in
     order, previews, one terminal `result` with a buffered payload's keys;
@@ -4790,7 +4858,7 @@ def tp_counting(fd):
 def tp_run(torch, label, make, specs, reference, margins, tp, **drive):
     """One phase-14 engine run: `make()` builds the engine (warmed up
     here), the decode counters are read from zero around `tp_serve`.
-    tp = 1: tokens bit-identical to `reference` (the unsharded depth-4
+    tp = 1: tokens bit-identical to `reference` (the unsharded depth-2
     run's); tp = 2: each row equal to its reference row up to its first
     position whose noised-score margin in the unsharded run is under
     ORACLE_MARGIN (`margin_rule`), every counted launch at H = 8 and each
@@ -4881,16 +4949,18 @@ def start_mesh_servers(torch, vae):
     cmd = [sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--dalle_path", str(path), "--engine",
            "continuous", "--batch_shapes", "4", "--port", "0", "--preview_every", "0", "--no_resume"]
     one = subprocess.Popen(cmd + ["--mesh", "tp=1"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True)
+                           text=True, start_new_session=True)
     two = subprocess.Popen(cmd + ["--mesh", "tp=2"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+                           text=True, start_new_session=True)
+    CHILDREN.extend((one, two))
     return one, two
 
 
 def stop_process(proc):
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait(timeout=30)
+    """Kill what is left of `proc`'s process group and reap it."""
+    kill_group(proc)
+    proc.wait(timeout=30)
+    CHILDREN.remove(proc)
 
 
 def finish_mesh_servers(torch, one, two, t_start):
@@ -5031,6 +5101,478 @@ def tp_fields(tp, name):
     return out
 
 
+# --------------------------------------------------------------- phase 15
+# multi-process training through the launch twin: two ranks on the one
+# card over Gloo (NCCL refuses two ranks on one GPU)
+MULTI_SAMPLES = 12  # rainbow:12 at a global batch of 4: 3 steps
+MULTI_LAUNCH_TIMEOUT_S = 180  # the launch takes ~55 s
+# A sharded run against its one-process run (`multi_readings`). Each limit
+# lies near the geometric mean of the sound runs' largest reading on the
+# card and the smallest reading there of a planted fault that moves the
+# number (`scripts/torch_multi_fault_probe.py`, NVIDIA H100 80GB HBM3,
+# 700 W; the readings in PERF.md):
+# each step's loss, relative: sound <= 4.2e-6, half the batch 1.6e-4
+MULTI_LOSS_RTOL = 2.5e-5
+# the first step's averaged gradient before clipping, the worst
+# parameter's relative 2-norm: sound <= 4.6e-3, no all-reduce 0.50
+MULTI_GRAD_RTOL = 5e-2
+# the export's change over the run, the worst parameter's relative
+# 2-norm: sound <= 5.2e-3, no all-reduce 0.17
+MULTI_UPDATE_RTOL = 3e-2
+
+
+def multi_trainer_args(run_dir, vae_path, rows, *extra):
+    """Phase 15's trainer flags: phase 13's model (the flagship width at
+    TRAINER_DEPTH, shift and rotary, the 8k vocabulary, bf16 autocast,
+    forward_reverse_partial), one epoch of rainbow:MULTI_SAMPLES, `rows`
+    rows a data rank, no step checkpoints."""
+    return [
+        "--device", "cuda", "--image_text_folder", f"rainbow:{MULTI_SAMPLES}",
+        "--vae_path", str(vae_path), "--batch_size", str(rows), "--exp", "r", "--epochs", "1",
+        "--set", "model.dim=1024", "--set", f"model.depth={TRAINER_DEPTH}",
+        "--set", "model.heads=16", "--set", "model.dim_head=64", "--set", "model.text_seq_len=256",
+        "--set", "model.shift_tokens=true", "--set", "model.rotary_emb=true",
+        "--set", "native=true", "--set", f"bpe_path={REPO / REST_VOCAB}",
+        "--set", "save_every_n_steps=0", "--set", f"output_dir={run_dir}", *extra,
+    ]
+
+
+def multi_counters():
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops.flash_decode import flash_decode_attention
+
+    return fa.flash_attention_fwd, fa.flash_attention_bwd, flash_decode_attention
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as {"a/b/c": array} (the npz names)."""
+    import numpy as np
+
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat_tree(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(val)
+    return out
+
+
+class capture_updates:
+    """Inside the block the trainer's optimizer, at its first step, puts
+    in `store` the averaged gradient of every parameter before clipping
+    (`grad`: one float32 vector in parameter order, fsdp pieces gathered
+    whole: a collective every rank runs; `grad_sizes`: each parameter's
+    name and size in it) and, with `start`, the parameters then under the
+    export's names (`start`)."""
+
+    def __init__(self, store, start=False):
+        self.store, self.start = store, start
+
+    def __enter__(self):
+        import torch
+
+        from dalle_pytorch_tpu_torch import train_dalle
+        from dalle_pytorch_tpu_torch.parallel.fsdp import fsdp_of
+        from dalle_pytorch_tpu_torch.weights import export_dalle_params
+
+        self.trainer, self.made = train_dalle, train_dalle.make_dalle_train_step
+        store, start, made = self.store, self.start, self.made
+
+        def making(model, optimizer, *args, **kwargs):
+            step = made(model, optimizer, *args, **kwargs)
+            fsdp = fsdp_of(model)
+            pieces = {id(e.param): e for e in fsdp.entries} if fsdp is not None else {}
+            stepping = optimizer.step
+
+            def first_step(*a, **kw):
+                optimizer.step = stepping
+                with torch.no_grad():
+                    parts, sizes = [], []
+                    for name, p in model.named_parameters():
+                        g = p.grad if p.grad is not None else torch.zeros_like(p)
+                        if id(p) in pieces:
+                            g = fsdp.gather(pieces[id(p)], g, torch.float32)
+                        parts.append(g.float().reshape(-1).cpu())
+                        sizes.append((name, parts[-1].numel()))
+                    store["grad"], store["grad_sizes"] = torch.cat(parts).numpy(), sizes
+                    if start:
+                        store["start"] = flat_tree(export_dalle_params(model), "dalle/")
+                return stepping(*a, **kw)
+
+            optimizer.step = first_step
+            return step
+
+        train_dalle.make_dalle_train_step = making
+        return store
+
+    def __exit__(self, *exc):
+        self.trainer.make_dalle_train_step = self.made
+
+
+def train_rank(argv, plant=None):
+    """One rank of phase 15, started by the launch twin as `chip_smoke.py
+    --train-rank OUT_DIR -- <trainer flags> [--then <trainer flags> ...]`:
+    each run of the trainer in-process in turn in one process group
+    (joined here, as the trainer joins it), its kernel launches counted
+    from zero around it;
+    run i's summary goes to OUT_DIR/run<i>/rank<r>.json, and rank 0 writes
+    the run's first averaged gradient (`capture_updates`) to
+    OUT_DIR/run<i>/grad.npy. `plant(i)`, a context manager, wraps run i
+    (the fault probe's planted faults)."""
+    from contextlib import nullcontext
+
+    import numpy as np
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.parallel.mesh import initialize_distributed, rank_device
+
+    out, runs = Path(argv[0]), [[]]
+    for arg in argv[2:]:
+        if arg == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    initialize_distributed(device=rank_device(runs[0][runs[0].index("--device") + 1]))
+    counters = multi_counters()
+    ready_at = time.time()  # the process is up, the port imported
+    for i, trainer_argv in enumerate(runs):
+        for c in counters:
+            c.launches = 0
+        store = {}
+        t0 = time.perf_counter()
+        with capture_updates(store), (plant(i) if plant is not None else nullcontext()):
+            summary = train_dalle.main(trainer_argv)
+        wall = time.perf_counter() - t0
+        run_out = out / f"run{i}"
+        run_out.mkdir(parents=True, exist_ok=True)
+        if summary["rank"] == 0:
+            np.save(run_out / "grad.npy", store["grad"])
+        keep = ("rank", "backend", "mesh", "global_step", "step_losses", "step_ms", "export_s",
+                "sample_s", "staged_calls", "collective_calls", "collective_bytes", "out_file")
+        record = {k: summary[k] for k in keep}
+        record.update(wall_s=wall, ready_at=ready_at, end_at=time.time(),
+                      launches={c.__name__: c.launches for c in counters},
+                      sample_shape=list(np.shape(summary["sample_tokens"])) if "sample_tokens" in summary else None)
+        (run_out / f"rank{summary['rank']}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_ranks(out, runs, rank_cmd=None, timeout=MULTI_LAUNCH_TIMEOUT_S):
+    """The trainer runs `runs` (flag lists) one after the other on each of
+    two ranks of the one card, through one `python -m
+    dalle_pytorch_tpu_torch.launch --nproc_per_host 2`; `rank_cmd` is each
+    rank's command before its "--" (default `chip_smoke.py --train-rank
+    OUT`). Returns each run's rank records."""
+    out.mkdir(parents=True, exist_ok=True)
+    argv = []
+    for i, args in enumerate(runs):
+        argv += (["--then"] if i else []) + list(args)
+    rank_cmd = rank_cmd or [str(REPO / "chip_smoke.py"), "--train-rank", str(out)]
+    started = time.time()
+    # its own process group, so that a timeout kills the ranks with it (a
+    # rank left alive would hold the pipes open); Gloo over the loopback
+    # device, as the rendezvous is on 127.0.0.1
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dalle_pytorch_tpu_torch.launch", "--nproc_per_host", "2", "--",
+         *rank_cmd, "--", *argv],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env={**os.environ, "GLOO_SOCKET_IFNAME": "lo"},
+    )
+    CHILDREN.append(proc)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_group(proc)
+        stdout, stderr = proc.communicate()
+        fail(f"the launch twin ran past {timeout} s; its ranks were killed: {stderr[-3000:]}")
+    finally:
+        kill_group(proc)
+        CHILDREN.remove(proc)
+    for line in stdout.splitlines():
+        if line.startswith("rank "):
+            print(f"phase 15 {line}")
+    if proc.returncode != 0:
+        fail(f"the launch twin exited {proc.returncode}: {stderr[-3000:]}")
+    done = time.time()
+    records = [[json.loads((out / f"run{i}" / f"rank{r}.json").read_text()) for r in range(2)]
+               for i in range(len(runs))]
+    for r in records[0]:
+        r["started_s"] = r["ready_at"] - started
+    for r in records[-1]:
+        r["exited_s"] = done - r["end_at"]
+    print("phase 15 launch: ranks up (the port imported) after "
+          + ", ".join(f"{r['started_s']:.1f}" for r in records[0]) + " s, the trainer runs "
+          + "; ".join(", ".join(f"{r['wall_s']:.1f}" for r in run) for run in records)
+          + " s, the launch over " + ", ".join(f"{r['exited_s']:.1f}" for r in records[-1]) + " s after")
+    for i, run in enumerate(records):
+        for r in run:
+            r["grad_file"] = str(out / f"run{i}" / "grad.npy")
+    return records
+
+
+def export_params(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k.startswith("dalle/")}, int(z["opt/0002"])
+
+
+def multi_readings(ref, ranks):
+    """A sharded run's readings against its one-process run `ref` (the
+    trainer's summary with `capture_updates`' `grad`, `grad_sizes` and
+    `start`): each step's loss (relative), the first step's averaged
+    gradient and the export's change over the run (the change being the
+    export less `start`) as relative 2-norms ||sharded - one|| / ||one||,
+    over all parameters and for the worst one, and the export's largest
+    difference. Summed in float64 on the card."""
+    import numpy as np
+    import torch
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+
+    def on(x):
+        return torch.from_numpy(np.asarray(x)).to(dev, torch.float64)
+
+    def rel(pairs):
+        """(over all, the worst one's name, the worst one) of relative
+        2-norms from (||difference||^2, ||reference||^2) by name."""
+        num, den = (sum(p[i] for p in pairs.values()) for i in (0, 1))
+        each = {k: math.sqrt(d / r) for k, (d, r) in pairs.items() if r > 0}
+        worst = max(each, key=each.get)
+        return math.sqrt(num / den), worst, each[worst]
+
+    losses = ranks[0]["step_losses"]
+    grad, g_ref, edges, g_pairs = on(np.load(ranks[0]["grad_file"])), on(ref["grad"]), 0, {}
+    for name, size in ref["grad_sizes"]:
+        g, r = grad[edges:edges + size], g_ref[edges:edges + size]
+        g_pairs[name] = (float((g - r).square().sum()), float(r.square().sum()))
+        edges += size
+    params, count = export_params(ranks[0]["out_file"])
+    want, want_count = export_params(ref["out_file"])
+    same_names = sorted(params) == sorted(want)
+    diffs, u_pairs = {}, {}
+    for k in want if same_names else []:
+        w = on(want[k])
+        d = on(params[k]) - w
+        diffs[k] = float(d.abs().max())
+        u_pairs[k] = (float(d.square().sum()), float((w - on(ref["start"][k])).square().sum()))
+    worst = max(diffs, key=diffs.get) if diffs else None
+    g_all, g_worst, g_worst_rel = rel(g_pairs)
+    u_all, u_worst, u_worst_rel = rel(u_pairs) if u_pairs else (None, None, None)
+    return dict(
+        losses=losses, ref_losses=ref["step_losses"],
+        ranks_agree=all(r["step_losses"] == losses for r in ranks),
+        loss_max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["step_losses"])),
+        grad_rel_diff=g_all, grad_worst_rel_diff=g_worst_rel, grad_worst=g_worst,
+        update_rel_diff=u_all, update_worst_rel_diff=u_worst_rel, update_worst=u_worst,
+        param_max_abs_diff=diffs.get(worst), param_worst=worst, same_names=same_names,
+        adam_count=count, ref_adam_count=want_count,
+    )
+
+
+def hold_multi(label, out):
+    """Phase 15's limits on a sharded run's `multi_readings`."""
+    print(f"phase 15 {label} against one process: " + json.dumps(out))
+    steps, losses = MULTI_SAMPLES // 4, out["losses"]
+    if not out["ranks_agree"]:
+        fail(f"phase 15 {label}: the ranks report different losses")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or out["loss_max_rel_diff"] > MULTI_LOSS_RTOL:
+        fail(f"phase 15 {label}: losses {losses} against {out['ref_losses']} (rtol {MULTI_LOSS_RTOL})")
+    if not out["grad_worst_rel_diff"] <= MULTI_GRAD_RTOL:
+        fail(f"phase 15 {label}: the first gradient of {out['grad_worst']} off by "
+             f"{out['grad_worst_rel_diff']:.3e} relative (limit {MULTI_GRAD_RTOL})")
+    if not out["same_names"] or not out["update_worst_rel_diff"] <= MULTI_UPDATE_RTOL \
+            or (out["adam_count"], out["ref_adam_count"]) != (steps, steps):
+        fail(f"phase 15 {label}: the export's change of {out['update_worst']} off by "
+             f"{out['update_worst_rel_diff']} relative (limit {MULTI_UPDATE_RTOL}), same names "
+             f"{out['same_names']}, Adam count {out['adam_count']} against {out['ref_adam_count']}")
+
+
+class cli_precision:
+    """Torch's default precision settings (TF32 off for matmuls, on for
+    cuDNN), as the CLI runs, inside the block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.kept = b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = True, False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.kept
+
+
+def multi_setup(torch, run_dir):
+    """A fresh `run_dir` holding phase 15's dVAE (the trainer's in-step
+    encoder); returns its path."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.training.pipeline import save_vae_checkpoint
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    torch.manual_seed(SEED)
+    vae_path = run_dir / "vae.npz"
+    save_vae_checkpoint(str(vae_path), DiscreteVAE(
+        image_size=256, num_layers=3, num_tokens=8192, codebook_dim=512, hidden_dim=64))
+    return vae_path
+
+
+def multi_one_process(torch, args):
+    """The trainer in this process on `args`: its summary with its kernel
+    launches, `capture_updates`' `grad` and `start`, and its wall."""
+    from dalle_pytorch_tpu_torch import train_dalle
+
+    counters = multi_counters()
+    for c in counters:
+        c.launches = 0
+    store = {}
+    t0 = time.perf_counter()
+    with capture_updates(store, start=True):
+        summary = train_dalle.main(args)
+    torch.cuda.synchronize()
+    summary.update(store, wall_s=time.perf_counter() - t0,
+                   launches={c.__name__: c.launches for c in counters})
+    return summary
+
+
+def check_nccl_collectives(torch):
+    """A one-rank NCCL group in this process: each call of
+    `parallel/collectives.py` once on a CUDA tensor (the ring's hop as a
+    send to itself), the values checked, nothing staged."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dalle_pytorch_tpu_torch.parallel.collectives import Collectives
+
+    store_dir = REPO / "build" / "chip_smoke"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    store = store_dir / "nccl_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"), timeout=datetime.timedelta(seconds=120))
+    try:
+        comm, world = Collectives("nccl", "cuda:0"), dist.group.WORLD
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        got = {
+            "all_reduce": comm.all_reduce(x.clone(), world),
+            "all_gather": comm.all_gather(x, world, 0),
+            "reduce_scatter": comm.reduce_scatter(x, world, 0),
+            "broadcast": comm.broadcast(x.clone(), world, [0]),
+            "ring_shift": comm.ring_shift(x, world, [0], 0),
+        }
+        torch.cuda.synchronize()
+        bad = [k for k, v in got.items() if not (v.is_cuda and torch.equal(v, x))]
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    print(f"phase 15 NCCL, one rank on cuda:0: calls {dict(comm.calls)}, staged {dict(comm.staged)}")
+    if bad or comm.staged or set(comm.calls) != set(got):
+        fail(f"phase 15 NCCL collectives: wrong values {bad}, staged {dict(comm.staged)}")
+    return dict(comm.calls)
+
+
+def run_multi_process_training(torch, smi):
+    """Phase 15: DALLE training over two processes on the one card,
+    through `python -m dalle_pytorch_tpu_torch.launch --nproc_per_host 2
+    -- ... train_dalle`, at the flagship width (depth TRAINER_DEPTH, bf16
+    autocast, a global batch of 4, MULTI_SAMPLES // 4 steps): (a) one
+    process (in-process, the reference); (b) fsdp = 2, two rows a rank,
+    one in-loop sample at step 3 on both ranks over the gathered
+    parameters; (c) sp = 2 with `attn_impl="ring"`, all four rows on both
+    ranks, held to (c1) the same ring run in one process; (b) and (c) run
+    in turn in one launch. Each sharded run's per-step losses, first
+    averaged gradient and export held to its one-process run
+    (`hold_multi`), the flash-attention kernels (rows 6-8) launched on
+    each fsdp rank (2 x depth a step each way), the ring's hops staged
+    through host memory under Gloo and counted, the other collectives not
+    staged; then the NCCL check. Under torch's default precision
+    settings, as the CLI runs. Returns the summary."""
+    import shutil
+
+    run_dir = REPO / "build" / "chip_smoke" / "multi"
+    steps = MULTI_SAMPLES // 4
+    walls, result = {}, {"card": smi}
+
+    def args(label, rows, *extra):
+        return multi_trainer_args(run_dir / label, vae_path, rows, *extra)
+
+    try:
+        with cli_precision(torch):
+            vae_path = multi_setup(torch, run_dir)
+            world1 = multi_one_process(torch, args("a_world1", 4, "--set", "log_images_freq=0"))
+            ring1 = multi_one_process(torch, args("c1_ring_world1", 4, "--set", "model.attn_impl=ring",
+                                                  "--set", "log_images_freq=0"))
+            t0 = time.perf_counter()
+            fsdp, ring = launch_ranks(run_dir / "ranks", [
+                args("b_fsdp2", 2, "--set", "mesh.fsdp=2", "--set", f"log_images_freq={steps}"),
+                args("c_ring_sp2", 4, "--set", "model.attn_impl=ring", "--set", "mesh.sp=2",
+                     "--set", "log_images_freq=0"),
+            ])
+            walls.update(a_world1=world1["wall_s"], c1_ring_world1=ring1["wall_s"],
+                         bc_launch=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            result["fsdp2"] = multi_readings(world1, fsdp)
+            result["ring_sp2"] = multi_readings(ring1, ring)
+            walls["readings"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["nccl_calls"] = check_nccl_collectives(torch)
+        walls["d_nccl"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    attn = 2 * TRAINER_DEPTH * steps
+    want = {"flash_attention_fwd": attn, "flash_attention_bwd": attn}
+    launches = {"world1": world1["launches"], **{f"fsdp2_rank{r['rank']}": r["launches"] for r in fsdp},
+                "ring_world1": ring1["launches"], **{f"ring_sp2_rank{r['rank']}": r["launches"] for r in ring}}
+    result.update(
+        launches=launches, walls=walls,
+        backends={"fsdp2": [r["backend"] for r in fsdp], "ring_sp2": [r["backend"] for r in ring]},
+        staged={"fsdp2": [r["staged_calls"] for r in fsdp], "ring_sp2": [r["staged_calls"] for r in ring]},
+        collective_calls={"fsdp2": fsdp[0]["collective_calls"], "ring_sp2": ring[0]["collective_calls"]},
+        collective_mib={k: {c: b / 2**20 for c, b in runs[0]["collective_bytes"].items()}
+                        for k, runs in (("fsdp2", fsdp), ("ring_sp2", ring))},
+        sample_s={"fsdp2": [r["sample_s"] for r in fsdp]},
+        rank_walls={"fsdp2": [r["wall_s"] for r in fsdp], "ring_sp2": [r["wall_s"] for r in ring]},
+        rank_started_s=[r["started_s"] for r in fsdp], rank_exited_s=[r["exited_s"] for r in ring],
+        step_ms={"world1": world1["step_ms"], "fsdp2": [r["step_ms"] for r in fsdp],
+                 "ring_world1": ring1["step_ms"], "ring_sp2": [r["step_ms"] for r in ring]},
+        export_s={"world1": world1["export_s"], "fsdp2": fsdp[0]["export_s"]},
+        tolerances={"loss_rtol": MULTI_LOSS_RTOL, "grad_rtol": MULTI_GRAD_RTOL,
+                    "update_rtol": MULTI_UPDATE_RTOL},
+    )
+    print("multi-process training " + json.dumps(result))
+    hold_multi("(b) fsdp = 2", result["fsdp2"])
+    hold_multi("(c) ring, sp = 2", result["ring_sp2"])
+    hops = 2 * TRAINER_DEPTH * steps * (2 * 2 - 1)  # two objectives: 1 hop forward, 2 backward
+    for r in fsdp:
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            fail(f"phase 15 fsdp rank {r['rank']} launched {got}, expected {want}")
+        if r["launches"]["flash_decode_attention"] != TRAINER_DEPTH * (1 + 1024) or r["sample_shape"] != [1, 1024]:
+            fail(f"phase 15 fsdp rank {r['rank']}: the in-loop sample launched flash decode "
+                 f"{r['launches']['flash_decode_attention']} times, tokens {r['sample_shape']}")
+        if r["backend"] != "gloo" or r["staged_calls"]:
+            fail(f"phase 15 fsdp rank {r['rank']}: backend {r['backend']}, staged {r['staged_calls']}")
+    if {k: world1["launches"][k] for k in want} != want:
+        fail(f"phase 15 one-process run launched {world1['launches']}, expected {want}")
+    for r in ring:
+        if r["backend"] != "gloo" or r["staged_calls"] != {"ring_shift": hops}:
+            fail(f"phase 15 ring rank {r['rank']}: backend {r['backend']}, staged {r['staged_calls']}, "
+                 f"expected {hops} ring hops")
+    return result
+
+
 def build_mesh(devices):
     """A tp mesh over explicit devices (one card may be named twice)."""
     from dalle_pytorch_tpu_torch.serving.sharded import build_serving_mesh
@@ -5064,6 +5606,8 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
+    sys.stdout.reconfigure(line_buffering=True)
+    start_watchdog()
     from dalle_pytorch_tpu_torch.models.dalle import DALLE, init_decode_cache
     from dalle_pytorch_tpu_torch.ops.flash_decode import (
         flash_decode_attention,
@@ -5079,6 +5623,7 @@ def main() -> int:
     print(f"peaks ({model_name}): {json.dumps(peaks)}")
 
     # 1. build ---------------------------------------------------------
+    progress("phase 1")
     t_start = t0 = time.perf_counter()
     kernels.build(["flash_decode", "flash_decode_tile", "flash_decode_tile_f32", "flash_attention",
                    "wide_head", "wide_decode_tile"])
@@ -5104,6 +5649,7 @@ def main() -> int:
     print("flash_attention fp32 backward passes (ptxas, cuobjdump -sass): " + json.dumps(tf32_build))
 
     # 2. kernel vs plain ---------------------------------------------------
+    progress("phase 2")
     cases = {
         "prefill": (MAIN["prefill"], [257, 257, 257, 257]),
         "prefill_edges": (MAIN["prefill"], [257, 320, 1024, 1281]),
@@ -5171,6 +5717,7 @@ def main() -> int:
     print(f"phase 2 tile-arm and resume-shape checks: {time.perf_counter() - t0:.1f} s")
 
     # 3. times ---------------------------------------------------------------
+    progress("phase 3")
     timings = {}
     for dtype, key, elt in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4)):
         for case in ("prefill", "step"):
@@ -5201,6 +5748,7 @@ def main() -> int:
     print(f"phase 3 fp32 multi-row kernel's kernels 2-5 at D={WIDE_TIMED_DIMS}: {time.perf_counter() - t0:.1f} s")
 
     # 4. model on the card: kernel path vs dense path ----------------------
+    progress("phase 4")
     # the fp32 model's prefill and resume (n > 4) run the fp32 tile arm
     from dalle_pytorch_tpu_torch.ops import flash_decode as fd
 
@@ -5271,6 +5819,7 @@ def main() -> int:
             fail(f"{name} was not launched by the dim_head {WIDE_IDENTITY_DIM} model")
 
     # 5. generation path -------------------------------------------------------
+    progress("phase 5")
     engine, specs, n_params = flagship_engine()
     t0 = time.perf_counter()
     engine.warmup()
@@ -5301,6 +5850,7 @@ def main() -> int:
         fail("all four prompts sampled the same tokens")
 
     # 6. training path, then its checkpoint served -------------------------------
+    progress("phase 6")
     vae, model5 = engine.vae, engine.model
     micro_engine, tokens5, wall5 = engine, toks, wall  # served again, warm, in phase 11
     del engine
@@ -5311,29 +5861,33 @@ def main() -> int:
     print(f"phase 6b fp32 training: {time.perf_counter() - t0:.1f} s")
 
     # 7. continuous-serving path ---------------------------------------------------
+    progress("phase 7")
     t0 = time.perf_counter()
-    continuous_launches, causal_toks, patterned, patterned_toks, (short_toks, int8_toks) = (
-        run_continuous(torch, model5, vae, specs, toks))
+    continuous_launches, patterned, patterned_toks, (short_toks, int8_toks) = (
+        run_continuous(torch, model5, vae, specs))
     launches.update(continuous_launches)
     print(f"phase 7 continuous serving: {time.perf_counter() - t0:.1f} s")
 
     # 8. paged continuous serving with a prefix cache ---------------------------------
+    progress("phase 8")
     t0 = time.perf_counter()
-    launches.update(run_paged(torch, model5, patterned, vae, specs, causal_toks, patterned_toks,
-                              short_toks))
+    launches.update(run_paged(torch, model5, patterned, vae, specs, patterned_toks, short_toks))
     print(f"phase 8 paged serving: {time.perf_counter() - t0:.1f} s")
 
     # 9. the generation CLI end to end ----------------------------------------------
+    progress("phase 9")
     t0 = time.perf_counter()
     cli_launches, _ = run_generation_cli(torch, vae)
     print(f"phase 9 generation CLI: {time.perf_counter() - t0:.1f} s")
 
     # 10. mid-decode resume and migration -------------------------------------------
+    progress("phase 10")
     t0 = time.perf_counter()
-    migrated = run_migration(torch, model5, vae, specs, causal_toks, int8_toks)
+    migrated = run_migration(torch, model5, vae, specs, short_toks, int8_toks)
     print(f"phase 10 resume and migration: {time.perf_counter() - t0:.1f} s")
 
     # 11. the serving front end over HTTP ---------------------------------------------
+    progress("phase 11")
     t0 = time.perf_counter()
     served_micro = run_micro_server(torch, micro_engine, tokens5, wall5)
     t_micro = time.perf_counter() - t0
@@ -5343,6 +5897,7 @@ def main() -> int:
           f"{t_micro:.1f} s; continuous server warmup {served['warmup_s']:.1f} s, "
           + ", ".join(f"{k} {v:.1f}" for k, v in served["walls"].items()) + ")")
     # 12. the trainer end to end --------------------------------------------------------
+    progress("phase 12")
     t0 = time.perf_counter()
     trainer = run_trainer(torch, smi)
     print(f"phase 12 the trainer ({smi}): {time.perf_counter() - t0:.1f} s (run A "
@@ -5351,11 +5906,20 @@ def main() -> int:
     # torch.profiler trace, and every launch after a trace goes through the
     # tracer, which phase 14's millions of launches leave dropping records
     # (and with its serve processes, whole traces) in the traces at the end
+    progress("phase 14")
     t0 = time.perf_counter()
     tp = run_tensor_parallel(torch, model5, vae, specs, short_toks, smi)
     print(f"phase 14 tensor-parallel serving ({smi}): {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in tp["walls"].items()) + ")")
+    # 15. multi-process training, run before phase 13's trace too: its
+    # one-process reference runs launch in this process
+    progress("phase 15")
+    t0 = time.perf_counter()
+    multi = run_multi_process_training(torch, smi)
+    print(f"phase 15 multi-process training ({smi}): {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in multi["walls"].items()) + ")")
     # 13. the rest of training ----------------------------------------------------------
+    progress("phase 13")
     t0 = time.perf_counter()
     rest = run_rest_of_training(torch, smi)
     print(f"phase 13 the rest of training ({smi}): {time.perf_counter() - t0:.1f} s ("
@@ -5368,6 +5932,7 @@ def main() -> int:
     # each launch after it
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
+    progress("the device-time traces")
     t_traces = time.perf_counter()
     for row, fn, inputs, iters, prefix in DEVICE_ROWS:
         t0 = time.perf_counter()
@@ -5448,6 +6013,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f}, SDPA {row['library_device_ms']:.4f} ({row['library_cuda_kernel']})")
 
     print(trace_attempts_line())
+    progress("the result lines")
 
     # result -------------------------------------------------------------------
     kernels_line = {
@@ -5468,6 +6034,8 @@ def main() -> int:
                 served_launches={"micro_server": served_micro["launches"]["flash_decode"],
                                  "continuous_server_qos": served["qos"]["launches"]["flash_decode"]},
                 trainer_sample_launches=trainer["launches"]["A"]["flash_decode_attention"],
+                multi_process_sample_launches={run: n["flash_decode_attention"]
+                                               for run, n in multi["launches"].items() if "fsdp" in run},
                 rest_launches=(rest["revnet_serving"]["launches"]["flash_decode"]
                                - rest["revnet_serving"]["launches"]["flash_decode_tile"]),
                 bound_ms=step["bound_ms"],
@@ -5480,8 +6048,9 @@ def main() -> int:
                 "launches: phase 5's steps (its prefill is the tile arm's); cli_launches: phase "
                 "9's generation CLI (2 prompts x one batch of 4, prefill included); served_launches: "
                 "phase 11's HTTP runs, all arms (the micro server's batch of 4 at depth 12; the "
-                "continuous server's QoS run at depth 4, its prefill and resume waves included); "
+                f"continuous server's QoS run at depth {SHORT_DEPTH}, its prefill and resume waves included); "
                 "trainer_sample_launches: phase 12's in-loop sample (fp32, all arms, prefill included); "
+                "multi_process_sample_launches: phase 15's in-loop sample on each fsdp rank (the same); "
                 "rest_launches: phase 13's RevNet engine (its steps, through the two-stream cached branch)",
             ),
             dict(
@@ -5525,7 +6094,7 @@ def main() -> int:
                 "function); launches: phase 5's prefill (one a layer; rest_launches: phase 13's RevNet "
                 "engine's prefill); resume_*: n=1280 S=1281 B=4 "
                 "lengths 1280, launches per resume dispatch of phase 10 (slotted, paged; int8_: "
-                "the int8 run at depth 4); max_abs_err: worst of prefill, prefill_edges, resume B=1 "
+                f"the int8 run; all three at depth {SHORT_DEPTH}); max_abs_err: worst of prefill, prefill_edges, resume B=1 "
                 "and 4 against the plain version",
             ),
         ] + [
@@ -5540,6 +6109,7 @@ def main() -> int:
                 **({"oracle_launches": cli_launches["oracle_flash_attention_fwd"]}
                    if name.endswith("fwd") else {}),
                 trainer_launches={run: n[name] for run, n in trainer["launches"].items()},
+                multi_process_launches={run: n[name] for run, n in multi["launches"].items()},
                 rest_launches={**{run: r["launches"][name] for run, r in rest["revnet_runs"].items()},
                                "scan": rest["scan"]["launches"][name]},
                 rest_trace=rest["revnet_gradients"]["bf16_trace"],
@@ -5553,7 +6123,10 @@ def main() -> int:
                 f"13's trainer runs ({REST_SAMPLES // 4} steps of the RevNet and of revnet_naive, "
                 f"{REST_SCAN_SAMPLES // 4} of the scan run, depth {REST_DEPTH}, two objectives a step; "
                 "the RevNet's forward calls include its backward's recompute); rest_trace: the "
-                "attention kernels of one bf16 RevNet step (a torch.profiler trace)",
+                "attention kernels of one bf16 RevNet step (a torch.profiler trace); "
+                f"multi_process_launches: phase 15's runs ({MULTI_SAMPLES // 4} steps at depth "
+                f"{TRAINER_DEPTH}, two objectives a step: one process, each of the two fsdp ranks, "
+                "and the ring runs, whose attention is the plain ring)",
             )
             for name, line in (
                 ("flash_attention_fwd", "129"),
@@ -5601,7 +6174,7 @@ def main() -> int:
                 **tp_fields(tp, "flash_decode_int8"),
                 **variant_times["flash_decode_int8"],
                 timed="bf16 q, int8 K/V + fp32 scales, step n=1 B=4 H=16 D=64 S=1281 lengths "
-                "[258, 700, 1024, 1281]; launches: phase 7 int8 run's steps (depth 4; its "
+                f"[258, 700, 1024, 1281]; launches: phase 7 int8 run's steps (depth {SHORT_DEPTH}; its "
                 "prefill is the tile arm's); library_ms is SDPA over the bf16 cache",
             ),
             dict(
@@ -5617,8 +6190,8 @@ def main() -> int:
                 **{f"tile_resume_{k}": v for k, v in tile_variant_times["block_sparse_flash_decode"].items()
                    if k != "device_kernels"},
                 timed="bf16 step n=1 B=4 H=16 D=64 S=1281, axial_row policy bitmap; launches: "
-                "phase 7 policy run's steps (bf16 arm, depth 4) + policy+int8 patterned run's "
-                "(int8 arm; both runs' prefills are the tile arm's); "
+                f"phase 7 policy run's steps (bf16 arm, depth {SHORT_DEPTH}) + policy+int8 patterned run's "
+                f"(int8 arm, depth {PATTERNED_DEPTH}; both runs' prefills are the tile arm's); "
                 "library_ms is SDPA with the bitmap-expanded mask",
             ),
             dict(
@@ -5753,4 +6326,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank(sys.argv[2:]))
     sys.exit(main())

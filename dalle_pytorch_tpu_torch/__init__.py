@@ -7,8 +7,10 @@ piece's counterpart is easy to find.
 
 Ported so far: text->image generation from a checkpoint, end to end
 through the `generate` CLI (tokenizers, the micro `GenerationEngine`,
-the cached and uncached samplers, CLIP rerank, PNG output); the DALLE
-training step; the continuous and paged serving engines; and a
+the cached and uncached samplers, CLIP rerank, PNG output); training
+(the DALLE, dVAE and CLIP trainers), on one GPU or, for the DALLE, over
+several processes (dp, fsdp and ring attention over sp; `launch`); the
+continuous and paged serving engines, tensor-parallel among them; and a
 hand-written CUDA kernel for every TPU kernel of the JAX package
 (`csrc/`: flash decode, flash attention, and the head dims above 256).
 ROADMAP.md lists what is left.

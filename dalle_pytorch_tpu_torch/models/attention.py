@@ -53,6 +53,15 @@ masks (the cached branch is always causal: decode feeds a prefix). Output dropou
 follows `to_out`, active in training mode. Both thresholds are the
 reference's; choosing them for the H100 is later work.
 
+"ring" (`sp_mesh`: a `TrainMesh`) runs the uncached branch as ring
+attention over the mesh's sp ranks (`parallel/ring.py:
+ring_attention_sharded`): every sp rank holds the whole sequence, takes
+its block of q, k and v, and all-gathers the outputs. The JAX module's
+four refusals are ValueErrors here: no sp_mesh, a static or key-padding
+mask, `stable`, or a length the sp axis does not divide. The cached branch
+never runs the ring: it stays dense under "ring", as the reference's
+`_use_flash_decode` keeps it (ring is a training layout).
+
 "lib_flash" names the reference's library TPU kernel. The port has no
 library kernel: it runs the port's own flash-attention kernels where the
 reference runs the library one (uncached, plain causal layers only) and
@@ -78,10 +87,11 @@ from dalle_pytorch_tpu_torch.ops.flash_decode import (
     sharded_paged_decode_attention,
 )
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary
+from dalle_pytorch_tpu_torch.parallel.ring import ring_attention_sharded
 
 AUTO_FLASH_MIN_SEQ = 1024
 AUTO_FLASH_DECODE_MIN_LEN = 512
-ATTN_IMPLS = ("auto", "flash", "dense", "lib_flash")
+ATTN_IMPLS = ("auto", "flash", "dense", "lib_flash", "ring")
 # KV block width of the decode-sparsity bitmaps (the reference's choice;
 # a cache's "sparse_block" entry overrides it)
 DECODE_SPARSE_BLOCK = 128
@@ -146,10 +156,14 @@ class Attention(nn.Module):
         dropout: float = 0.0,
         seq_len: Optional[int] = None,
         causal: bool = True,
+        sp_mesh=None,
     ):
         """`seq_len` (the model's total_seq_len) bounds a paged cache's
-        virtual length at seq_len + 1, as the slotted cache's length."""
+        virtual length at seq_len + 1, as the slotted cache's length;
+        `sp_mesh` (a `TrainMesh`) is the ring's mesh under
+        attn_impl="ring"."""
         super().__init__()
+        self.sp_mesh = sp_mesh
         self.causal = causal
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
@@ -261,6 +275,8 @@ class Attention(nn.Module):
         if rotary is not None:
             rot = rotary[:n][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        if self.attn_impl == "ring":
+            return self._attend_ring(q, k, v, key_mask)
         if self.use_flash(n, key_mask):
             mask = None if self.static_mask is None else self._flash_mask(n, q.device)
             return flash_attention(q, k, v, mask=mask, causal=self.causal)
@@ -272,6 +288,24 @@ class Attention(nn.Module):
             keys = key_mask[:, None, None, :].bool()
             mask = keys if mask is None else mask & keys
         return dense_attention(q, k, v, mask=mask, stable=self.stable)
+
+    def _attend_ring(self, q, k, v, key_mask):
+        """Sequence-parallel exact attention over `sp_mesh`'s sp ranks,
+        with the reference's refusals."""
+        if self.sp_mesh is None:
+            raise ValueError('attn_impl="ring" needs sp_mesh')
+        if self.static_mask is not None or key_mask is not None:
+            raise ValueError("ring attention supports plain causal/full attention only")
+        if self.stable:
+            raise ValueError('attn_impl="ring" does not take stable=')
+        n, sp = q.shape[2], self.sp_mesh.shape["sp"]
+        if n % sp:
+            raise ValueError(
+                f"sequence length {n} must be divisible by the sp axis ({sp}); note the "
+                "uncached generate_images() re-forwards growing prefixes: use the "
+                "KV-cached decode path with ring models"
+            )
+        return ring_attention_sharded(self.sp_mesh, q, k, v, causal=self.causal)
 
     def _pattern_rows(self, index, n: int, max_len: int) -> torch.Tensor:
         """The static pattern's rows at the chunk's positions, cropped (or

@@ -18,9 +18,10 @@ paged counterparts (`init_paged_slot_state`, `prefill_into_slots_paged`,
 `resume_into_slots`, `resume_into_slots_paged`). The cached decode runs
 over a list of shards (`prefill_shards`, `image_step_shards`,
 `resume_shards`): the model itself, or a tensor-parallel model's shards
-(`parallel/tensor_parallel.py`), and every slot op takes either. Random
-draws (null conditioning) come from an explicit `torch.Generator`, so
-they are not jax.random's bits; dropout uses torch's global generator.
+(`parallel/tensor_parallel.py`), and every slot op takes either. Null
+conditioning is all-pad text, which the caller passes: the training loss
+draws the blanked rows (`training/steps.py:make_dalle_loss`), guidance
+blanks every row; dropout uses torch's global generator.
 
 The port holds its weights in the module (the reference keeps them in a
 separate parameter tree; `weights.py` carries a tree across). A model's
@@ -31,7 +32,7 @@ positions; the KV cache is updated in place.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,8 +106,10 @@ class DALLE(nn.Module):
         fused_ce: bool = False,
         kv_dtype: Optional[str] = None,
         decode_sparse_block: Optional[int] = None,
+        sp_mesh=None,
     ):
-        """Arguments as the reference's fields. `img_loss_coeff` None takes
+        """Arguments as the reference's fields (`sp_mesh`, a `TrainMesh`, is
+        the mesh of attn_impl="ring"). `img_loss_coeff` None takes
         `loss_img_weight`; `fused_ce` computes the loss without
         materializing [B, N, V] logits (`ops/losses.py`). `kv_dtype="int8"`
         gives decode caches an int8 K/V store; `decode_sparse_block` is the
@@ -163,6 +166,7 @@ class DALLE(nn.Module):
             ff_dropout=ff_dropout,
             reversible=reversible,
             reversible_impl=reversible_impl,
+            sp_mesh=sp_mesh,
         )
         self.logits_norm = LayerNorm(dim)
         if share_input_output_emb:
@@ -200,36 +204,21 @@ class DALLE(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.text_emb.weight.dtype
 
-    def embed_text(
-        self,
-        text: torch.Tensor,
-        null_cond_prob: float = 0.0,
-        generator: Optional[torch.Generator] = None,
-    ):
-        """Unique-pad remap + <bos>: (ids [B, T+1], embeddings [B, T+1, dim]).
-        With `null_cond_prob` > 0 each row's text is blanked (all pad) with
-        that probability, drawn from `generator`."""
-        text = self.text_ids(text, null_cond_prob, generator)
+    def embed_text(self, text: torch.Tensor):
+        """Unique-pad remap + <bos>: (ids [B, T+1], embeddings [B, T+1, dim])."""
+        text = self.text_ids(text)
         tokens = self.text_emb(text)
         if not self.rotary_emb:
             tokens = tokens + self.text_pos_emb.weight[None]
         return text, tokens
 
-    def text_ids(
-        self,
-        text: torch.Tensor,
-        null_cond_prob: float = 0.0,
-        generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+    def text_ids(self, text: torch.Tensor) -> torch.Tensor:
         """The ids `embed_text` looks up: [B, T + 1], pads remapped, <bos>."""
         if text.shape[-1] != self.text_seq_len:
             raise ValueError(
                 f"text length {text.shape[-1]} != text_seq_len {self.text_seq_len}"
             )
         text = text.long()
-        if null_cond_prob > 0:
-            draw = torch.rand((text.shape[0], 1), generator=generator, device=text.device)
-            text = torch.where(draw < null_cond_prob, torch.zeros_like(text), text)
         text_range = torch.arange(self.text_seq_len, device=text.device) + (
             self.total_text_tokens - self.text_seq_len
         )
@@ -245,6 +234,17 @@ class DALLE(nn.Module):
             kernel = torch.cat([self.text_emb.weight, self.image_emb.weight], dim=0).t()
             return kernel, self.logits_bias
         return self.logits_dense.weight.t(), self.logits_dense.bias
+
+    def weights_read_outside_modules(self) -> Tuple[str, ...]:
+        """The parameters this model reads outside their own module's
+        forward, where a hook around that forward (`parallel/fsdp.py`) does
+        not see the read: the text positions (`embed_text`) and the logits
+        head's kernel where `_logits_kernel` reads it (the tied embeddings,
+        or the dense head of the fused loss)."""
+        names = () if self.rotary_emb else ("text_pos_emb.weight",)
+        if self.share_input_output_emb:
+            return names + ("text_emb.weight", "image_emb.weight")
+        return names + (("logits_dense.weight",) if self.fused_ce else ())
 
     def to_logits(self, out: torch.Tensor) -> torch.Tensor:
         if self.stable:
@@ -272,17 +272,13 @@ class DALLE(nn.Module):
         return_loss: bool = False,
         inverse_mapping: bool = False,
         reverse_model: bool = False,
-        null_cond_prob: float = 0.0,
-        generator: Optional[torch.Generator] = None,
     ):
         """text [B, text_seq_len] ids; image [B, <= image_seq_len] codebook
         ids. Returns masked float32 logits [B, N, V], or with `return_loss`
         (loss, accuracy): the split cross-entropy of the forward (text ->
         image) or, with `inverse_mapping`, the inverse (image first) objective
         and its 3-token accuracy (None for the forward one)."""
-        text, out = self.trunk(
-            text, image, inverse_mapping, reverse_model, null_cond_prob, generator
-        )
+        text, out = self.trunk(text, image, inverse_mapping, reverse_model)
         seq_len = out.shape[1]
         if return_loss and image is None:
             raise ValueError("when training, image must be supplied")
@@ -322,12 +318,10 @@ class DALLE(nn.Module):
         image: Optional[torch.Tensor] = None,
         inverse_mapping: bool = False,
         reverse_model: bool = False,
-        null_cond_prob: float = 0.0,
-        generator: Optional[torch.Generator] = None,
     ):
         """The uncached trunk of `forward`: (text ids with <bos> [B, T + 1],
         the final hidden states [B, N, dim]), N = min(tokens, total_seq_len)."""
-        text, tokens = self.embed_text(text, null_cond_prob, generator)
+        text, tokens = self.embed_text(text)
         if image is not None and image.shape[1] > 0:
             image_emb = self.image_emb(image.long())
             if not self.rotary_emb:
@@ -656,7 +650,7 @@ def forward_with_cond_scale(
     logits = model(text, image)
     if cond_scale == 1:
         return logits
-    null = model(text, image, null_cond_prob=1.0)
+    null = model(torch.zeros_like(text), image)
     return null + (logits - null) * cond_scale
 
 
@@ -665,14 +659,14 @@ def _logits_at(model: DALLE, text, image, pos: int, blocked, cond_scale: float) 
     full uncached forwards (guidance-blended), computing the head at that
     position only."""
 
-    def one(null_cond_prob):
-        _, out = model.trunk(text, image, null_cond_prob=null_cond_prob)
+    def one(text):
+        _, out = model.trunk(text, image)
         return model.to_logits(out[:, pos]).float().masked_fill(blocked, NEG_MASK_VALUE)
 
-    row = one(0.0)
+    row = one(text)
     if cond_scale == 1:
         return row
-    null = one(1.0)
+    null = one(torch.zeros_like(text))
     return null + (row - null) * cond_scale
 
 

@@ -184,7 +184,10 @@ class Transformer(nn.Module):
         reversible: bool = False,
         reversible_impl: str = "remat",
         causal: bool = True,
+        sp_mesh=None,
     ):
+        """`sp_mesh` (a `TrainMesh`) is the ring's mesh under
+        attn_impl="ring" (`models/attention.py`)."""
         super().__init__()
         if (shift_tokens or rotary_emb) and image_fmap_size is None:
             raise ValueError("shift_tokens / rotary_emb need image_fmap_size")
@@ -231,6 +234,7 @@ class Transformer(nn.Module):
                 dropout=attn_dropout,
                 seq_len=seq_len,
                 causal=causal,
+                sp_mesh=sp_mesh,
             )
         self.ff = nn.ModuleDict(
             {str(i): FeedForward(dim, ff_mult, ff_dropout) for i in dict.fromkeys(self.ff_ids)}

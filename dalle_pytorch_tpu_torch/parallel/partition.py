@@ -28,6 +28,13 @@ column-parallel layer is read by each shard at its own columns
 `_divisible` drops an axis whose size (times the parts and the unit) does
 not divide the dimension: the parameter is then replicated, and its layer
 runs whole on every shard.
+
+Training (`state_shardings`' twin, `fsdp_dims`): a parameter's fsdp
+dimension is the one its spec names "fsdp" (after `_divisible` over the
+training mesh's shape), and each of its Adam moments follows it. Rank i
+of the fsdp axis holds the i-th of the axis's equal pieces of that
+dimension (`fsdp_shard`); the all-gather over fsdp
+(`parallel/collectives.py`) joins them back in rank order.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from dalle_pytorch_tpu_torch.parallel.mesh import DeviceMesh
 
 #: the axis tensor parallelism splits over (the JAX table's "tp")
 MODEL_AXIS = "tp"
+#: the axis fully sharded data parallelism splits parameters over
+FSDP_AXIS = "fsdp"
 
 Spec = Tuple[Optional[str], ...]
 
@@ -106,8 +115,9 @@ def _divisible(spec: Sequence, shape: Sequence[int], mesh: DeviceMesh, parts: in
     return _strip(fixed)
 
 
-def partition_params(model: torch.nn.Module, mesh: DeviceMesh) -> Dict[str, Placement]:
-    """{parameter name: Placement} of a DALLE's parameters over `mesh`."""
+def partition_params(model: torch.nn.Module, mesh) -> Dict[str, Placement]:
+    """{parameter name: Placement} of a DALLE's parameters over `mesh` (a
+    `DeviceMesh`, or anything with its `shape`: a `TrainMesh`)."""
     dim_head = model.dim_head
     out = {}
     for name, tensor in model.state_dict().items():
@@ -127,4 +137,22 @@ def split_tensor(t: torch.Tensor, placement: Placement, n: int, axis: str = MODE
     pieces = [part.chunk(n, dim) for part in t.chunk(placement.parts, dim)]
     return [torch.cat([p[i] for p in pieces], dim) if placement.parts > 1 else pieces[0][i]
             for i in range(n)]
+
+
+
+def fsdp_dims(model: torch.nn.Module, mesh) -> Dict[str, Optional[int]]:
+    """{parameter name: the dimension split over fsdp, or None (whole on
+    every rank)} of a DALLE's parameters over a training mesh: the JAX
+    `state_shardings`' rule, whose Adam moments take their parameter's."""
+    names = dict(model.named_parameters())
+    return {name: placement.split_dim(FSDP_AXIS)
+            for name, placement in partition_params(model, mesh).items() if name in names}
+
+
+def fsdp_shard(t: torch.Tensor, dim: Optional[int], index: int, n: int) -> torch.Tensor:
+    """Rank `index`'s piece of `t` along `dim` (a contiguous copy), of `n`
+    equal pieces; `t` itself when `dim` is None."""
+    if dim is None or n == 1:
+        return t
+    return t.chunk(n, dim)[index].contiguous()
 

@@ -8,17 +8,34 @@
 
 The flags are the reference CLI's, plus `--device` (the card unless
 `--device cpu`); `--set key=value` overrides any `training/config.py`
-field, and `--config` reads a YAML file (which needs PyYAML). The flow:
+field, and `--config` reads a YAML file (which needs PyYAML). Several
+GPUs train through the launcher, one process a GPU:
+
+    python -m dalle_pytorch_tpu_torch.launch [--nproc_per_host 2] -- \
+        -m dalle_pytorch_tpu_torch.train_dalle ... --set mesh.fsdp=2
+
+The flow:
 
 * `--dalle_path` resumes weights, the Adam state, the config, the epoch,
   the global step and the plateau scheduler from a single-file export
   (`--set` overrides apply on top of its config);
 * up front, before any model is built, it refuses what the port does not
-  run: `ga_steps` not dividing `batch_size`, a mesh other than one
-  device (`mesh.dp` / `fsdp` / `tp` / `sp` other than 1, `mesh.pp` above
-  1; ROADMAP Queue 1 item 8), `--taming` without both VQGAN paths, and,
-  with `model.executor="scan"`, a model the JAX scan executor does not
-  run (its reason);
+  run: `ga_steps` not dividing `batch_size`, `mesh.tp` or `mesh.pp` above
+  1 and fsdp with the revnet executor (ROADMAP Queue 1 item 8),
+  `--taming` without both VQGAN paths, and, with `model.executor="scan"`,
+  a model the JAX scan executor does not run (its reason);
+* the process joins the launcher's process group
+  (`parallel/mesh.py:initialize_distributed`; nothing at one process, on
+  `cuda:{LOCAL_RANK % device_count}`, Gloo or NCCL by `process_backend`;
+  a group the caller joined already is used and left open at the end)
+  and builds the training mesh from `mesh.dp` / `fsdp` / `sp` (dp = -1
+  takes the ranks left); `batch_size` is a data rank's rows (the global
+  batch is `batch_size` x dp x fsdp: the JAX trainer's per-process
+  batch), each data rank reads its shard of the dataset, the sp ranks of
+  a data coordinate the same rows; `model.attn_impl="ring"` runs
+  attention as ring attention over the sp ranks; the model and its Adam
+  state are split over fsdp (`parallel/fsdp.py`) after any resume has
+  loaded them whole;
 * the VAE is the trained dVAE at `--vae_path`, else the VQGAN
   (`--taming`), else the OpenAI dVAE from its cache directory
   (`build_vae`); the pretrained wrappers encode in the step as the dVAE
@@ -36,8 +53,9 @@ field, and `--config` reads a YAML file (which needs PyYAML). The flow:
   tokens;
 * every optimizer step draws from its own key, `step_key(seed,
   global_step)`: the null-conditioning generator and the dropout masks
-  (torch's global generators are seeded from it), so a resumed run
-  draws what an uninterrupted one draws; `steps_per_dispatch` groups
+  (torch's global generators are seeded from it, a data rank other than
+  the first from its own seed, `dropout_seed`), so a resumed run draws
+  what an uninterrupted one draws; `steps_per_dispatch` groups
   the steps into windows of that many (`make_multi_step`), each step with
   its own key and its own batch, whose cadences are checked once, after
   the window's last step, on the window's mean metrics (an epoch tail
@@ -51,10 +69,17 @@ field, and `--config` reads a YAML file (which needs PyYAML). The flow:
 * at `log_images_freq` one image is sampled from the batch's first
   caption (`generate_images_cached` over the float32 parameters, outside
   autocast, where the reference samples in its compute dtype) and
-  decoded by the dVAE into `<output_dir>/logs/` (or wandb);
-* `sample_per_sec`, `input_wait_frac` and `mfu` (None away from an H100)
-  are logged every 10 steps (and each step's time, from a CUDA event
-  pair around it on the card, is in the summary `main` returns), the plateau scheduler steps once an epoch
+  decoded by the dVAE into `<output_dir>/logs/` (or wandb); every rank
+  samples, over the gathered parameters, and only rank 0 logs;
+* exports and step checkpoints gather the full parameters and Adam
+  moments on every rank (a collective) and rank 0 writes them: one npz of
+  full tensors whatever the mesh, so a run saved at one world size
+  resumes at another;
+* `sample_per_sec` (this process's rows), `input_wait_frac` and `mfu`
+  (None away from an H100; the rate over the sp ranks sharing the rows)
+  are logged by rank 0 every 10 steps; each step's time (a CUDA event
+  pair around it on the card) and its loss (read once at the end) are in
+  the summary `main` returns; the plateau scheduler steps once an epoch
   (`lr_decay`), and `<output_dir>/<dalle_output_file_name>.npz` is
   written at the start, after every epoch and at the end (unless the last
   epoch's export is that file already), with the Adam state and the
@@ -72,6 +97,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dalle_pytorch_tpu_torch.data.loader import TokenDataset
 from dalle_pytorch_tpu_torch.data.prefetch import Prefetcher, host_tensors, to_device
@@ -79,6 +105,14 @@ from dalle_pytorch_tpu_torch.models.dalle import generate_images_cached
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE, exact_float32
 from dalle_pytorch_tpu_torch.models.vae_io import decode_unit
 from dalle_pytorch_tpu_torch.ops.sampling import row_seed
+from dalle_pytorch_tpu_torch.parallel.fsdp import gathered
+from dalle_pytorch_tpu_torch.parallel.mesh import (
+    host_barrier,
+    initialize_distributed,
+    is_root,
+    make_train_mesh,
+    rank_device,
+)
 from dalle_pytorch_tpu_torch.serving.engine import resolve_device
 from dalle_pytorch_tpu_torch.training.checkpoint import CheckpointManager
 from dalle_pytorch_tpu_torch.training.config import (
@@ -165,14 +199,20 @@ def check_config(cfg: TrainConfig) -> None:
             "each gradient-accumulation step takes batch_size // ga_steps rows"
         )
     m = cfg.mesh
-    if m.dp not in (1, -1) or m.fsdp != 1 or m.tp != 1 or m.sp != 1 or m.pp > 1:
+    if m.tp != 1:
         raise NotImplementedError(
-            f"mesh dp={m.dp} fsdp={m.fsdp} tp={m.tp} sp={m.sp} pp={m.pp}: the port trains "
-            "on one device; multi-GPU meshes are ROADMAP Queue 1 item 8"
+            f"mesh.tp={m.tp}: tensor-parallel training (the row-parallel backward) is not "
+            "ported; ROADMAP Queue 1 item 8"
         )
-    if cfg.model.attn_impl == "ring":
+    if m.pp > 1:
         raise NotImplementedError(
-            'model.attn_impl="ring" is sequence-parallel over a mesh: ROADMAP Queue 1 item 8'
+            f"mesh.pp={m.pp}: pipeline parallelism (parallel/gpipe.py) is not ported; "
+            "ROADMAP Queue 1 item 8"
+        )
+    if m.fsdp > 1 and cfg.model.reversible and cfg.model.reversible_impl != "remat":
+        raise NotImplementedError(
+            "mesh.fsdp > 1 with the revnet executor, whose backward takes the parameters "
+            "themselves, is not ported; ROADMAP Queue 1 item 8"
         )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; one of {MODES}")
@@ -211,11 +251,29 @@ def _config(args) -> tuple:
     return cfg.resolve(), resume
 
 
+def dropout_seed(key: int, data_rank: int) -> int:
+    """The seed of a step's dropout masks on data rank `data_rank`: the
+    one-device run's (`row_seed(key, 1)`) on the first, its own on each
+    other (the sp ranks of a data coordinate share it)."""
+    seed = row_seed(key, 1)
+    return seed if data_rank == 0 else row_seed(seed, data_rank)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg, resume = _config(args)
     check_config(cfg)
+    device = rank_device(device)
+    joined = dist.is_initialized()  # the caller's group: the caller closes it
+    backend = initialize_distributed(device=device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    m = cfg.mesh
+    mesh = make_train_mesh(dp=m.dp, fsdp=m.fsdp, tp=m.tp, sp=m.sp, device=device)
+    if mesh.world > 1:
+        print(f"rank {mesh.rank} of {mesh.world}: mesh {mesh.shape}, coordinates {mesh.coords}, "
+              f"device {device}, backend {backend}")
 
     layout = checkpoint_layout(config_to_dict(cfg))
     tokenizer = build_tokenizer(config_to_dict(cfg))
@@ -251,6 +309,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         model, _ = dalle_from_config(
             config_to_dict(cfg), num_image_tokens=vae.num_tokens,
             image_fmap_size=image_fmap_size, vocab_size=max(tokenizer.vocab_size, 1),
+            sp_mesh=mesh,
         )
     if resume is not None:
         load_dalle_params(model, resume["dalle"])
@@ -264,32 +323,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         restore_opt_state(model, opt, resume["opt"], dalle_tree_layout(resume["dalle"]))
 
     in_step_encode = not cfg.tokens_path
-    raw_step = make_dalle_train_step(
-        model, opt, mode=cfg.mode, grad_accum=cfg.ga_steps, null_cond_prob=cfg.null_cond_prob,
-        autocast_dtype=torch.bfloat16 if cfg.bf16 else None,
-        vae=vae if in_step_encode else None,
-    )
-
-    on_card = device.type == "cuda"
-    timer = StepTimer(on_card)
-
-    def keyed_step(host_batch, key: int):
-        """One step on a host batch, keyed and timed."""
-        timer.start()
-        torch.manual_seed(row_seed(key, 1))  # this step's dropout masks
-        metrics = raw_step(to_device(host_batch, device),
-                           torch.Generator().manual_seed(row_seed(key, 0)))
-        timer.stop()
-        return metrics
-
-    steps_per_dispatch = max(1, int(cfg.steps_per_dispatch))
-    # a full window, and each step of an epoch tail shorter than one
-    run_steps = {n: make_multi_step(keyed_step, n) for n in {1, steps_per_dispatch}}
-
     run_dir = Path(cfg.output_dir)
     ckpt = CheckpointManager(run_dir / "dalle_ckpt", keep_n=cfg.keep_n_checkpoints)
     step_meta = None
-    summary = dict(resumed_step=None, losses=[], rates=[], save_s=[], export_s=[], load_s=0.0)
+    summary = dict(resumed_step=None, losses=[], rates=[], save_s=[], export_s=[], sample_s=[], load_s=0.0,
+                   mesh=dict(mesh.shape), rank=mesh.rank, backend=backend)
     if args.resume:
         t0 = time.perf_counter()
         restored, step_meta, rstep = ckpt.restore()
@@ -303,8 +341,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print(f"resumed full train state from step checkpoint {rstep}")
         else:
             print("no step checkpoint found in output_dir; starting fresh")
+
+    # the whole model and Adam state are loaded: split them over the mesh
+    raw_step = make_dalle_train_step(
+        model, opt, mode=cfg.mode, grad_accum=cfg.ga_steps, null_cond_prob=cfg.null_cond_prob,
+        autocast_dtype=torch.bfloat16 if cfg.bf16 else None,
+        vae=vae if in_step_encode else None, mesh=mesh,
+    )
+
+    on_card = device.type == "cuda"
+    timer = StepTimer(on_card)
+
+    def keyed_step(host_batch, key: int):
+        """One step on a host batch, keyed and timed."""
+        timer.start()
+        torch.manual_seed(dropout_seed(key, mesh.data_rank))  # this step's dropout masks
+        metrics = raw_step(to_device(host_batch, device),
+                           torch.Generator().manual_seed(row_seed(key, 0)))
+        timer.stop()
+        return metrics
+
+    steps_per_dispatch = max(1, int(cfg.steps_per_dispatch))
+    # a full window, and each step of an epoch tail shorter than one
+    run_steps = {n: make_multi_step(keyed_step, n) for n in {1, steps_per_dispatch}}
+
+    root = is_root()
     logger = MetricsLogger(
-        project=cfg.wandb_name, config={"cli": "train_dalle"}, debug=cfg.debug,
+        project=cfg.wandb_name, config={"cli": "train_dalle"}, enabled=root, debug=cfg.debug,
         out_dir=str(run_dir / "logs"), entity=cfg.wandb_entity,
     )
     flops_per_sample = dalle_train_flops_per_sample(model, mode=cfg.mode)
@@ -321,15 +384,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     exported = {}
 
     def export(path: Path, epoch: int):
+        """The export: full tensors gathered on every rank, written by
+        rank 0."""
         t0 = time.perf_counter()
         exported.update(epoch=epoch, step=global_step)
-        save_dalle_checkpoint(
-            str(path), config_to_dict(cfg), model, vae_tree, epoch, type(vae).__name__,
-            vae_hparams=dvae_hparams(vae) if keep_vae else None,
-            train_meta={"global_step": global_step,
-                        "plateau": plateau.state_dict() if plateau else None},
-            opt_state=export_dalle_opt_state(model, opt, layout),
-        )
+        with gathered(model, opt):
+            if root:
+                save_dalle_checkpoint(
+                    str(path), config_to_dict(cfg), model, vae_tree, epoch, type(vae).__name__,
+                    vae_hparams=dvae_hparams(vae) if keep_vae else None,
+                    train_meta={"global_step": global_step,
+                                "plateau": plateau.state_dict() if plateau else None},
+                    opt_state=export_dalle_opt_state(model, opt, layout),
+                )
         summary["export_s"].append(time.perf_counter() - t0)
 
     out_file = run_dir / f"{cfg.dalle_output_file_name}.npz"
@@ -345,6 +412,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # a mid-epoch resume skips the batches the checkpointed run took
     skip_batches = int((step_meta or {}).get("epoch_batch", 0))
     batch_iter, last_loss = None, None
+    step_losses = []  # each step's (window's) loss, read once at the end
     for epoch in range(resume_epoch, cfg.epochs):
         if stop:
             break
@@ -360,7 +428,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             return host, batch.get("captions"), np.asarray(batch["text"][:1])
 
         raw_batches = dataset.batches(
-            cfg.batch_size, shuffle_seed=cfg.seed + epoch, shard=(0, 1),
+            cfg.batch_size, shuffle_seed=cfg.seed + epoch, shard=(mesh.data_rank, mesh.data_world),
             start_batch=skip_batches if epoch == resume_epoch else 0,
         )
         batch_iter = Prefetcher(window_iter(raw_batches, steps_per_dispatch),
@@ -393,6 +461,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         return bool(interval) and global_step // interval > prev_step // interval
 
                     last_loss = metrics["loss"]  # a device scalar: no sync here
+                    step_losses.append(last_loss)
                     log = {}
                     if crossed(10):
                         step_loss = float(last_loss)
@@ -405,43 +474,53 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         )
                         if "accuracy" in metrics:
                             log["accuracy"] = float(metrics["accuracy"])
-                        print(epoch, global_step, f"loss - {step_loss:.5f}")
+                        if root:
+                            print(epoch, global_step, f"loss - {step_loss:.5f}")
 
                     if crossed(cfg.save_every_n_steps):
                         t0 = time.perf_counter()
-                        ckpt.save(
-                            global_step,
-                            {"dalle": export_dalle_params(model, layout),
-                             "opt": opt_tree(export_dalle_opt_state(model, opt, layout))},
-                            metadata={
-                                "epoch": epoch, "step": global_step, "epoch_batch": epoch_batch,
-                                "epoch_losses": epoch_losses,
-                                "last_loss": float(last_loss) if last_loss is not None else None,
-                                "plateau": plateau.state_dict() if plateau else None,
-                            },
-                        )
+                        with gathered(model, opt):  # every rank gathers, rank 0 writes
+                            if root:
+                                ckpt.save(
+                                    global_step,
+                                    {"dalle": export_dalle_params(model, layout),
+                                     "opt": opt_tree(export_dalle_opt_state(model, opt, layout))},
+                                    metadata={
+                                        "epoch": epoch, "step": global_step,
+                                        "epoch_batch": epoch_batch, "epoch_losses": epoch_losses,
+                                        "last_loss": float(last_loss) if last_loss is not None else None,
+                                        "plateau": plateau.state_dict() if plateau else None,
+                                    },
+                                )
                         summary["save_s"].append(time.perf_counter() - t0)
 
                     if crossed(cfg.log_images_freq):
+                        # every rank samples (over the gathered parameters);
+                        # the logger writes on rank 0 only
+                        t0 = time.perf_counter()
                         sample_key = row_seed(step_key(cfg.seed, global_step), 2)
                         text = torch.as_tensor(text_head, device=device)
                         model.eval()
-                        toks = generate_images_cached(model, text, sample_key, filter_thres=0.9)
+                        with gathered(model):
+                            toks = generate_images_cached(model, text, sample_key, filter_thres=0.9)
                         model.train()
                         with torch.no_grad(), exact_float32():
                             image = decode_unit(vae, toks).cpu().numpy()
                         caption = (captions or [None])[0] or tokenizer.decode(text_head[0])
                         logger.log_images(image, caption, "image", global_step)
                         summary["sample_tokens"] = toks.cpu().numpy()
+                        summary["sample_s"].append(time.perf_counter() - t0)
 
                     rate = meter.update(global_step, cfg.batch_size)
                     if rate is not None:
-                        log["sample_per_sec"] = rate
+                        log["sample_per_sec"] = rate  # this process's rows
                         log["input_wait_frac"] = round(batch_iter.wait_fraction, 4)
-                        util = mfu(rate, flops_per_sample, device_name)
+                        # the sp ranks of a data coordinate share its rows
+                        util = mfu(rate, flops_per_sample, device_name, mesh.shape["sp"])
                         log["mfu"] = None if util is None else round(util, 4)
                         summary["rates"].append({k: log[k] for k in ("sample_per_sec", "input_wait_frac", "mfu")})
-                        print(epoch, global_step, f"sample_per_sec - {rate:.2f}")
+                        if root:
+                            print(epoch, global_step, f"sample_per_sec - {rate:.2f}")
                     if log:
                         logger.log(log, step=global_step)
                     if profiler.after_step(global_step):
@@ -467,7 +546,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if on_card:
         torch.cuda.synchronize()  # the steps' end events
     logger.finish()
-    print(f"final checkpoint -> {out_file}")
+    if root:
+        print(f"final checkpoint -> {out_file}")
+    summary["step_losses"] = [float(x) for x in step_losses]
+    summary["staged_calls"] = dict(mesh.comm.staged)
+    summary["collective_calls"] = dict(mesh.comm.calls)
+    summary["collective_bytes"] = dict(mesh.comm.bytes)
+    if backend is not None:
+        host_barrier()
+        if not joined:
+            dist.destroy_process_group()
     summary.update(
         global_step=global_step, out_file=str(out_file),
         last_loss=None if last_loss is None else float(last_loss),

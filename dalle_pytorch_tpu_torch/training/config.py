@@ -11,8 +11,9 @@ checkpoint's config loads in both packages.
 
 `import yaml` stays inside `load_config`: a YAML file needs PyYAML, and a
 machine without it raises there, naming the package; `--set` overrides
-need nothing. The port trains on one card: `mesh` keeps its fields for
-the metadata, and the trainer refuses any but the trivial mesh. A bad
+need nothing. `mesh` sizes the trainer's process grid (one process a
+GPU): dp, fsdp and sp train (`parallel/fsdp.py`, `parallel/ring.py`);
+the trainer refuses tp and pp above 1 (ROADMAP Queue 1 item 8). A bad
 `exp` preset or an override without "=" raises ValueError (the
 reference asserts).
 """
@@ -39,8 +40,9 @@ class MeshConfig:
     fsdp: int = 1
     tp: int = 1
     sp: int = 1
-    # pipeline parallelism (parallel/gpipe.py GPipe schedule over the
-    # transformer trunk). pp > 1 requires executor="scan", zero dropout
+    # pipeline parallelism (the JAX parallel/gpipe.py GPipe schedule over
+    # the transformer trunk; not ported: the port's trainer refuses
+    # pp > 1). There pp > 1 requires executor="scan", zero dropout
     # (the pp trunk is deterministic by design — models/dalle.py), a mode
     # without reversed layer order, and dp/fsdp/tp/sp all 1 (pure-pp
     # mesh; compose dp x pp via parallel/gpipe.pipeline_layers directly)

@@ -119,7 +119,7 @@ class RainbowBatches:
 
 
 def dalle_from_config(
-    config: dict, num_image_tokens: int, image_fmap_size: int, vocab_size: int
+    config: dict, num_image_tokens: int, image_fmap_size: int, vocab_size: int, sp_mesh=None
 ) -> Tuple[DALLE, torch.dtype]:
     """(DALLE, its dtype) from a checkpoint's `config` dict, for decoding or
     training.
@@ -128,7 +128,8 @@ def dalle_from_config(
     reference's library kernel: the port trains such a model through its
     own flash kernels and decodes it dense, as the reference decodes it;
     see `models/attention.py`). The sequence-parallel "ring" (a multi-card
-    training layout) maps to "auto". `reversible_impl` "remat", "revnet"
+    training layout) runs over `sp_mesh` (the trainer's `TrainMesh`); with
+    none (decoding a ring-trained checkpoint) it maps to "auto". `reversible_impl` "remat", "revnet"
     and "revnet_naive" build their executors. `executor="scan"` names the
     layout of the checkpoints (`checkpoint_layout`): the port's modules
     are the unrolled executor's either way.
@@ -136,7 +137,7 @@ def dalle_from_config(
     m = config["model"]
     checkpoint_layout(config)
     attn_impl = m.get("attn_impl", "auto")
-    attn_impl = "auto" if attn_impl == "ring" else attn_impl
+    attn_impl = "auto" if attn_impl == "ring" and sp_mesh is None else attn_impl
     model = DALLE(
         dim=m["dim"],
         depth=m["depth"],
@@ -165,6 +166,7 @@ def dalle_from_config(
         text_loss_coeff_inv=config.get("text_loss_coeff_inv", 7.0),
         img_loss_coeff_inv=config.get("img_loss_coeff_inv", 1.0),
         fused_ce=m.get("fused_ce", False),
+        sp_mesh=sp_mesh if attn_impl == "ring" else None,
     )
     return model, torch.bfloat16 if config.get("bf16", True) else torch.float32
 

@@ -36,6 +36,18 @@ no capture of the window as one CUDA graph (not done yet) there is
 nothing to gain from one copy, and `stack_batches` is the layout such a
 capture would take.
 
+Over a training mesh (`make_dalle_train_step(..., mesh=)`, a `TrainMesh`
+of more than one rank) each data rank (a dp x fsdp coordinate) steps on
+its own rows: the global batch is the data ranks' rows in `data_rank`
+order (the batch the JAX `put_host_batch` assembles), and
+`parallel/fsdp.py:FSDP` splits the parameters over fsdp, averages the gradients over dp x fsdp,
+takes the global gradient norm and averages the metrics. The
+null-conditioning draw is made for the global microbatch from the step's
+key and sliced by rank, so with `grad_accum` = 1 a row draws what it
+draws on one device (microbatch i of the global step is each data rank's
+microbatch i in rank order). The sp ranks of a data coordinate hold the
+same rows and compute the same step.
+
 Mixed precision: the reference keeps float32 parameters and computes in
 bfloat16 through flax's `dtype`, which also makes its residual stream
 bfloat16. Here `autocast_dtype=torch.bfloat16` runs the step under
@@ -47,12 +59,14 @@ different places; losses agree closely, not bitwise.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch.ops.sampling import row_seed
+from dalle_pytorch_tpu_torch.parallel.fsdp import FSDP, fsdp_of
 
 MODES = ("forward_only", "forward_forward", "forward_reverse_partial", "reverse_only")
 
@@ -68,13 +82,15 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def step(self) -> Optional[torch.Tensor]:
+    def step(self, grad_norm: Optional[Callable] = None) -> Optional[torch.Tensor]:
         """Clip the parameters' .grad in place and take one Adam step.
-        Returns the global gradient norm before clipping (None unclipped)."""
+        Returns the global gradient norm before clipping (None unclipped):
+        `grad_norm(grads)` when given (the norm over a mesh's ranks,
+        `parallel/fsdp.py`), else the local one."""
         norm = None
         if self.clip_grad_norm is not None:
             grads = [p.grad for p in self.params if p.grad is not None]
-            norm = torch.nn.utils.get_total_norm(grads, 2.0)
+            norm = (grad_norm or (lambda gs: torch.nn.utils.get_total_norm(gs, 2.0)))(grads)
             c = self.clip_grad_norm
             factor = c / torch.clamp(norm, min=c)
             for g in grads:
@@ -118,20 +134,22 @@ def make_dalle_loss(model, mode: str = "forward_only", null_cond_prob: float = 0
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
-    def loss_fn(batch, generator: Optional[torch.Generator] = None):
+    def loss_fn(batch, generator: Optional[torch.Generator] = None, rows=None):
+        """`rows` (offset, total): the batch is rows [offset, offset + B)
+        of a global batch of `total` rows, whose null-conditioning draw is
+        made whole and sliced (None: the batch is the whole of it)."""
         text, tokens = batch["text"], batch["image_tokens"]
-        seed = None
         if null_cond_prob > 0:  # one draw shared by both objectives
             seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+            gen = torch.Generator(device=text.device).manual_seed(seed)
+            offset, total = rows or (0, text.shape[0])
+            draw = torch.rand((total, 1), generator=gen, device=text.device)
+            # null conditioning: these rows' text all pad
+            text = torch.where(draw[offset : offset + text.shape[0]] < null_cond_prob,
+                               torch.zeros_like(text), text)
 
         def apply(**kw):
-            gen = None
-            if seed is not None:
-                gen = torch.Generator(device=text.device).manual_seed(seed)
-            return model(
-                text, tokens, return_loss=True, null_cond_prob=null_cond_prob,
-                generator=gen, **kw,
-            )
+            return model(text, tokens, return_loss=True, **kw)
 
         metrics = {}
         if mode == "reverse_only":
@@ -159,20 +177,29 @@ def accumulate_gradients(
     grad_accum: int = 1,
     generator: Optional[torch.Generator] = None,
     autocast_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Set every parameter's .grad to the microbatch-averaged gradient of
-    `loss_fn` and return the averaged metrics (detached tensors)."""
+    `loss_fn` and return the averaged metrics (detached tensors). Over a
+    training `mesh` the batch is this data rank's rows: `loss_fn` gets
+    their place in the global microbatch, and each forward runs under the
+    model's `FSDP` saved-tensor hooks."""
     model.train()
     for p in model.parameters():
         p.grad = None
     device_type = next(model.parameters()).device.type
+    fsdp = fsdp_of(model)
     totals: Dict[str, torch.Tensor] = {}
     for mb in _microbatches(batch, grad_accum):
+        extra = {}
+        if mesh is not None:
+            b = next(iter(mb.values())).shape[0]
+            extra["rows"] = (mesh.data_rank * b, mesh.data_world * b)
         with torch.autocast(
             device_type, dtype=autocast_dtype or torch.bfloat16,
             enabled=autocast_dtype is not None,
-        ):
-            loss, metrics = loss_fn(mb, generator)
+        ), (fsdp.saving() if fsdp is not None else nullcontext()):
+            loss, metrics = loss_fn(mb, generator, **extra)
         (loss / grad_accum).backward()
         for k, v in metrics.items():
             v = v.detach().float()
@@ -196,22 +223,33 @@ def make_dalle_train_step(
     null_cond_prob: float = 0.0,
     autocast_dtype: Optional[torch.dtype] = torch.bfloat16,
     vae=None,
+    mesh=None,
 ) -> Callable:
     """step(batch, generator=None) -> metrics: one optimizer step on a
     batch (same device as the model) of {"text", "image_tokens"}, or of
     {"text", "images"} when a frozen `vae` is given (the in-step encode).
-    `autocast_dtype` None computes in the parameters' dtype."""
+    `autocast_dtype` None computes in the parameters' dtype. With a
+    training `mesh` of more than one rank the batch is this data rank's
+    rows, the model is split by `FSDP` (its parameters and `optimizer`'s
+    Adam state, in place; `parallel/fsdp.py:fsdp_of(model)`), and the
+    metrics are the global batch's."""
     loss_fn = make_dalle_loss(model, mode, null_cond_prob)
     if vae is not None:
         vae.eval().requires_grad_(False)
+    if mesh is not None and mesh.world == 1:
+        mesh = None
+    fsdp = FSDP(model, mesh, optimizer) if mesh is not None else None
 
     def step(batch, generator: Optional[torch.Generator] = None):
         if vae is not None and "image_tokens" not in batch:
             batch = {"text": batch["text"], "image_tokens": encode_images(vae, batch["images"])}
         metrics = accumulate_gradients(
-            model, loss_fn, batch, grad_accum, generator, autocast_dtype
+            model, loss_fn, batch, grad_accum, generator, autocast_dtype, mesh
         )
-        norm = optimizer.step()
+        if fsdp is not None:
+            fsdp.reduce_gradients()
+            metrics = fsdp.mean_metrics(metrics)
+        norm = optimizer.step() if fsdp is None else optimizer.step(fsdp.grad_norm)
         if norm is not None:
             metrics["grad_norm"] = norm
         return metrics

@@ -257,7 +257,9 @@ def dalle_tree_layout(tree: dict) -> str:
 
 
 def export_dalle_params(model: DALLE, layout: str = "unrolled") -> dict:
-    """The reference DALLE parameter tree of `model` in `layout`."""
+    """The reference DALLE parameter tree of `model` in `layout` (a model
+    split over fsdp: inside `parallel/fsdp.py:gathered(model)`, a
+    collective, so the tree holds full tensors at any world size)."""
     tree = _unflatten(_export_flat(_dalle_targets(model)))
     return _in_layout(tree, _dalle_stacks(model), layout)
 
@@ -328,7 +330,9 @@ def dalle_opt_shapes(model: DALLE, layout: str = "unrolled") -> List[tuple]:
 def export_dalle_opt_state(model: DALLE, optimizer, layout: str = "unrolled") -> List[np.ndarray]:
     """The reference's optimizer leaves of `optimizer` (a
     `training/steps.py:Optimizer` over `model`'s parameters), its moments
-    in `layout`."""
+    in `layout`. A model split over fsdp exports its full moments inside
+    `parallel/fsdp.py:gathered(model, optimizer)` (a collective; rank 0
+    writes)."""
     from dalle_pytorch_tpu_torch.training.steps import get_learning_rate
 
     state = optimizer.adam.state

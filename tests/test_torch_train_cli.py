@@ -315,10 +315,16 @@ def test_trainer_export_loads_in_the_reference_and_the_engine(tmp_path, monkeypa
 
 @pytest.mark.parametrize("name, extra, error", [
     ("ga_steps", ["--set", "ga_steps=3"], (ValueError, "ga_steps=3 must divide")),
-    ("fsdp", ["--set", "mesh.fsdp=2"], (NotImplementedError, "item 8")),
-    ("dp", ["--set", "mesh.dp=2"], (NotImplementedError, "item 8")),
+    # dp, fsdp and sp (the ring) train over processes (tests/test_torch_launch.py,
+    # test_torch_parallel_train.py, test_torch_ring.py); refused: fsdp with the revnet,
+    # tp and pp, and a mesh the run's processes do not fill
+    ("fsdp", ["--set", "mesh.fsdp=2", "--set", "model.reversible=true",
+              "--set", "model.reversible_impl=revnet"], (NotImplementedError, "item 8")),
+    ("dp", ["--set", "mesh.dp=2"], (ValueError, r"mesh 2x1x1x1 != 1 processes")),
     ("pp", ["--set", "mesh.pp=2"], (NotImplementedError, "item 8")),
-    ("ring", ["--set", "model.attn_impl=ring"], (NotImplementedError, "item 8")),
+    ("ring", ["--set", "model.attn_impl=ring", "--set", "mesh.sp=2"],
+     (ValueError, r"1 processes not divisible by fsdp\*tp\*sp=2")),
+    ("tp", ["--set", "mesh.tp=2"], (NotImplementedError, "row-parallel backward")),
     ("scan", ["--set", "model.executor=scan", "--set", "model.shared_attn_ids=0,0"],
      (ValueError, 'executor="scan" does not support cross-layer weight sharing')),
     ("revnet", ["--set", "model.reversible=true", "--set", "model.reversible_impl=revnet",
