@@ -236,14 +236,21 @@ Phases, each failing loudly (nonzero exit, no result line):
    each rank, one in-loop sample on both over the gathered parameters)
    against one process, then in the same launch sp = 2 with
    `attn_impl="ring"` (the ring's hops staged through host memory and
-   counted) against the one-process ring; per-step losses within
+   counted) against the one-process ring, tp = 2 (each rank at heads /
+   2, FF hidden / 2 and vocabulary / 2; rows 6-8 at H = 8, tp's
+   all-reduces not staged) against the first one-process run, and pp = 2
+   (`--exp ff`, the scan executor, MULTI_PP_MICRO microbatches: each
+   stage its layers per microbatch, the pipeline's hops staged and
+   counted) against the same flags in one process, and the dVAE trainer
+   (`train_vae`, phase 15's dVAE) at fsdp = 2, nothing staged, against
+   its global batches stepped again in one process; per-step losses within
    MULTI_LOSS_RTOL, the first averaged gradient within MULTI_GRAD_RTOL and
    the export's change over the run within MULTI_UPDATE_RTOL (the worst
    parameter's relative 2-norm; limits set between sound and
    planted-fault readings on the card,
    `scripts/torch_multi_fault_probe.py`); then a one-rank NCCL group
    in this process runs each call of `parallel/collectives.py` once on a
-   CUDA tensor.
+   CUDA tensor, the pipeline's hop among them.
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -494,14 +501,14 @@ def flip_allowance(torch, q, k, v, do, lse, mask, causal, o_ref, dv_ref):
     return o_flip, dv_flip
 
 
-def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"]):
+def attention_bound(kind, elt, peaks, dtype_key, d=TRAIN["dim_head"], h=TRAIN["heads"]):
     """(bound_ms, bound_by) of one flash-attention pass at TRAIN's causal
-    shapes (head dim `d`): each input read once and each output written
-    once; 4*D (fwd: S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops per
-    visible (query, key) pair at `dtype_key`'s peak; "tf32x3" (the fp32
-    kernels at D <= 256: three TF32 products each) is three times those
-    flops at the TF32 peak."""
-    b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
+    shapes (head dim `d`, `h` heads): each input read once and each output
+    written once; 4*D (fwd: S, P.V) or 10*D (bwd: S, dP, dV, dK, dQ) flops
+    per visible (query, key) pair at `dtype_key`'s peak; "tf32x3" (the
+    fp32 kernels at D <= 256: three TF32 products each) is three times
+    those flops at the TF32 peak."""
+    b, n = TRAIN["batch"], TRAIN["n"]
     rows, pairs = b * h * n, b * h * n * (n + 1) // 2
     nbytes, flops = {
         "fwd": (4 * rows * d * elt + 4 * rows, 4 * d * pairs),    # q,k,v,o + lse
@@ -2186,9 +2193,10 @@ def check_attention(torch):
     return worst
 
 
-def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
+def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"], h=TRAIN["heads"]):
     """Kernel, plain and library times of the two passes at TRAIN's causal
-    shapes (head dim `d`; inputs rotate over 3 copies). SDPA's backward
+    shapes (head dim `d`, `h` heads: 8 is a tp = 2 rank's shard of the
+    flagship's 16; inputs rotate over 3 copies). SDPA's backward
     computes dq, dk and dv in one call, its own delta included, so beside
     the backward kernel the row also times the port's whole backward as
     the autograd Function runs it (delta, then the wrapper: workspace
@@ -2197,7 +2205,7 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
     after the last timed phase."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
-    b, h, n = TRAIN["batch"], TRAIN["heads"], TRAIN["n"]
+    b, n = TRAIN["batch"], TRAIN["n"]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     sets, whole_in = [], []
     for _ in range(3):
@@ -2243,7 +2251,7 @@ def time_attention(torch, F, peaks, dtype, key, elt, d=TRAIN["dim_head"]):
         defer_device_time(rows[name], lib, lib_in, 30, prefix="library_")
     for name, row in rows.items():
         bound_key = "tf32x3" if key == "fp32" and d <= 256 else key
-        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, bound_key, d)
+        row["bound_ms"], row["bound_by"] = attention_bound(name[16:], elt, peaks, bound_key, d, h)
         print("time " + json.dumps(dict(kernel=name, dtype=key, B=b, H=h, N=n, D=d, causal=True,
                                         bound_at=bound_key, **row)))
     bwd = rows["flash_attention_bwd"]
@@ -5105,7 +5113,8 @@ def tp_fields(tp, name):
 # multi-process training through the launch twin: two ranks on the one
 # card over Gloo (NCCL refuses two ranks on one GPU)
 MULTI_SAMPLES = 12  # rainbow:12 at a global batch of 4: 3 steps
-MULTI_LAUNCH_TIMEOUT_S = 180  # the launch takes ~55 s
+MULTI_LAUNCH_TIMEOUT_S = 300  # the launch of five runs
+MULTI_PP_MICRO = 2  # run (e)'s GPipe microbatches: 2 rows each
 # A sharded run against its one-process run (`multi_readings`). Each limit
 # lies near the geometric mean of the sound runs' largest reading on the
 # card and the smallest reading there of a planted fault that moves the
@@ -5119,6 +5128,27 @@ MULTI_GRAD_RTOL = 5e-2
 # the export's change over the run, the worst parameter's relative
 # 2-norm: sound <= 5.2e-3, no all-reduce 0.17
 MULTI_UPDATE_RTOL = 3e-2
+
+
+#: run (e)'s objective and executor (pp refuses forward_reverse_partial and
+#: runs the scan layout), and its one-process reference (e1)'s
+MULTI_PP_FLAGS = ("--exp", "ff", "--set", "model.executor=scan")
+#: the first flag of a run of the dVAE trainer (`train_vae`) in a launch
+MULTI_VAE_RUN = "--vae-trainer"
+
+
+def multi_vae_args(run_dir, rows, *extra):
+    """Run (f)'s dVAE trainer flags: phase 15's dVAE (the flagship's
+    encoder: 256 px, 3 layers, 8192 codes of 512), one epoch of
+    rainbow:MULTI_SAMPLES, `rows` rows a data rank, float32."""
+    return [
+        MULTI_VAE_RUN, "--device", "cuda", "--image_folder", f"rainbow:{MULTI_SAMPLES}",
+        "--batch_size", str(rows), "--epochs", "1", "--output", str(run_dir / "vae.npz"),
+        "--set", "vae.image_size=256", "--set", "vae.num_layers=3", "--set", "vae.num_tokens=8192",
+        "--set", "vae.codebook_dim=512", "--set", "vae.hidden_dim=64",
+        "--set", "native=true", "--set", f"bpe_path={REPO / REST_VOCAB}",
+        "--set", f"output_dir={run_dir}", *extra,
+    ]
 
 
 def multi_trainer_args(run_dir, vae_path, rows, *extra):
@@ -5160,28 +5190,38 @@ def flat_tree(tree, prefix=""):
 class capture_updates:
     """Inside the block the trainer's optimizer, at its first step, puts
     in `store` the averaged gradient of every parameter before clipping
-    (`grad`: one float32 vector in parameter order, fsdp pieces gathered
-    whole: a collective every rank runs; `grad_sizes`: each parameter's
+    (`grad`: one float32 vector in parameter order, fsdp pieces and tp
+    shards gathered whole: a collective every rank runs; `grad_sizes`: each parameter's
     name and size in it) and, with `start`, the parameters then under the
-    export's names (`start`)."""
+    export's names in the export's `layout` (`start`). With `vae` it is
+    the dVAE trainer's (`train_vae`) optimizer, and its step records in
+    `store` the dVAE's initial parameters before any split (`start`,
+    export names), its learning rate (`lr`) and each call's (this rank's
+    images, temperature, generator seed) (`steps`): what
+    `multi_vae_replay` steps again in one process."""
 
-    def __init__(self, store, start=False):
-        self.store, self.start = store, start
+    def __init__(self, store, start=False, layout="unrolled", vae=False):
+        self.store, self.start, self.layout, self.vae = store, start, layout, vae
 
     def __enter__(self):
         import torch
 
-        from dalle_pytorch_tpu_torch import train_dalle
+        from dalle_pytorch_tpu_torch import train_dalle, train_vae
         from dalle_pytorch_tpu_torch.parallel.fsdp import fsdp_of
-        from dalle_pytorch_tpu_torch.weights import export_dalle_params
+        from dalle_pytorch_tpu_torch.training.steps import get_learning_rate
+        from dalle_pytorch_tpu_torch.weights import export_dalle_params, export_dvae_params
 
-        self.trainer, self.made = train_dalle, train_dalle.make_dalle_train_step
-        store, start, made = self.store, self.start, self.made
+        self.trainer, self.factory = ((train_vae, "make_vae_train_step") if self.vae
+                                      else (train_dalle, "make_dalle_train_step"))
+        self.made = getattr(self.trainer, self.factory)
+        store, start, made, layout, vae = self.store, self.start, self.made, self.layout, self.vae
 
         def making(model, optimizer, *args, **kwargs):
+            if vae:
+                store.update(start=flat_tree(export_dvae_params(model)),
+                             lr=get_learning_rate(optimizer), steps=[])
             step = made(model, optimizer, *args, **kwargs)
             fsdp = fsdp_of(model)
-            pieces = {id(e.param): e for e in fsdp.entries} if fsdp is not None else {}
             stepping = optimizer.step
 
             def first_step(*a, **kw):
@@ -5189,24 +5229,32 @@ class capture_updates:
                 with torch.no_grad():
                     parts, sizes = [], []
                     for name, p in model.named_parameters():
-                        g = p.grad if p.grad is not None else torch.zeros_like(p)
-                        if id(p) in pieces:
-                            g = fsdp.gather(pieces[id(p)], g, torch.float32)
-                        parts.append(g.float().reshape(-1).cpu())
+                        g = (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                        if fsdp is not None:  # fsdp pieces and tp shards joined whole
+                            g = fsdp.full(p, g)
+                        parts.append(g.reshape(-1).cpu())
                         sizes.append((name, parts[-1].numel()))
                     store["grad"], store["grad_sizes"] = torch.cat(parts).numpy(), sizes
                     if start:
-                        store["start"] = flat_tree(export_dalle_params(model), "dalle/")
+                        store["start"] = flat_tree(export_dalle_params(model, layout), "dalle/")
                 return stepping(*a, **kw)
 
             optimizer.step = first_step
-            return step
+            if not vae:
+                return step
 
-        train_dalle.make_dalle_train_step = making
+            def recorded(batch, temp, generator=None):
+                seed = generator.initial_seed() if generator is not None else None
+                store["steps"].append((batch["images"].cpu().numpy(), float(temp), seed))
+                return step(batch, temp, generator)
+
+            return recorded
+
+        setattr(self.trainer, self.factory, making)
         return store
 
     def __exit__(self, *exc):
-        self.trainer.make_dalle_train_step = self.made
+        setattr(self.trainer, self.factory, self.made)
 
 
 def train_rank(argv, plant=None):
@@ -5226,7 +5274,7 @@ def train_rank(argv, plant=None):
     import torch.distributed as dist
 
     sys.path.insert(0, str(REPO))
-    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch import train_dalle, train_vae
     from dalle_pytorch_tpu_torch.parallel.mesh import initialize_distributed, rank_device
 
     out, runs = Path(argv[0]), [[]]
@@ -5242,17 +5290,24 @@ def train_rank(argv, plant=None):
         for c in counters:
             c.launches = 0
         store = {}
+        vae = trainer_argv[0] == MULTI_VAE_RUN
         t0 = time.perf_counter()
-        with capture_updates(store), (plant(i) if plant is not None else nullcontext()):
-            summary = train_dalle.main(trainer_argv)
+        with capture_updates(store, vae=vae), (plant(i) if plant is not None else nullcontext()):
+            summary = train_vae.main(trainer_argv[1:]) if vae else train_dalle.main(trainer_argv)
         wall = time.perf_counter() - t0
         run_out = out / f"run{i}"
         run_out.mkdir(parents=True, exist_ok=True)
         if summary["rank"] == 0:
             np.save(run_out / "grad.npy", store["grad"])
+        if vae:  # each rank's rows of each step, and the initial parameters
+            images, temps, seeds = zip(*store["steps"])
+            np.savez(run_out / f"steps_rank{summary['rank']}.npz", images=np.stack(images),
+                     **{f"start/{k}": v for k, v in store["start"].items()})
+            summary.update(temps=temps, seeds=seeds, lr=store["lr"])
         keep = ("rank", "backend", "mesh", "global_step", "step_losses", "step_ms", "export_s",
-                "sample_s", "staged_calls", "collective_calls", "collective_bytes", "out_file")
-        record = {k: summary[k] for k in keep}
+                "sample_s", "staged_calls", "collective_calls", "collective_bytes", "out_file",
+                "temps", "seeds", "lr")
+        record = {k: summary.get(k) for k in keep}
         record.update(wall_s=wall, ready_at=ready_at, end_at=time.time(),
                       launches={c.__name__: c.launches for c in counters},
                       sample_shape=list(np.shape(summary["sample_tokens"])) if "sample_tokens" in summary else None)
@@ -5311,14 +5366,20 @@ def launch_ranks(out, runs, rank_cmd=None, timeout=MULTI_LAUNCH_TIMEOUT_S):
     for i, run in enumerate(records):
         for r in run:
             r["grad_file"] = str(out / f"run{i}" / "grad.npy")
+            r["steps_file"] = str(out / f"run{i}" / f"steps_rank{r['rank']}.npz")
     return records
 
 
 def export_params(path):
+    """(the export's parameters by npz name, its Adam count): a DALLE
+    export's "dalle/" tree and "opt/0002", or a dVAE checkpoint's tree and
+    None (it keeps no optimizer state)."""
     import numpy as np
 
     with np.load(path) as z:
-        return {k: z[k] for k in z.files if k.startswith("dalle/")}, int(z["opt/0002"])
+        if "opt/0002" in z.files:
+            return {k: z[k] for k in z.files if k.startswith("dalle/")}, int(z["opt/0002"])
+        return {k: z[k] for k in z.files if k != "__metadata__"}, None
 
 
 def multi_readings(ref, ranks):
@@ -5374,8 +5435,10 @@ def multi_readings(ref, ranks):
     )
 
 
-def hold_multi(label, out):
-    """Phase 15's limits on a sharded run's `multi_readings`."""
+def hold_multi(label, out, adam=True):
+    """Phase 15's limits on a sharded run's `multi_readings`; `adam`: the
+    exports hold the optimizer's step count (a DALLE's; a dVAE checkpoint
+    holds none)."""
     print(f"phase 15 {label} against one process: " + json.dumps(out))
     steps, losses = MULTI_SAMPLES // 4, out["losses"]
     if not out["ranks_agree"]:
@@ -5386,8 +5449,9 @@ def hold_multi(label, out):
     if not out["grad_worst_rel_diff"] <= MULTI_GRAD_RTOL:
         fail(f"phase 15 {label}: the first gradient of {out['grad_worst']} off by "
              f"{out['grad_worst_rel_diff']:.3e} relative (limit {MULTI_GRAD_RTOL})")
+    counts = (steps, steps) if adam else (None, None)
     if not out["same_names"] or not out["update_worst_rel_diff"] <= MULTI_UPDATE_RTOL \
-            or (out["adam_count"], out["ref_adam_count"]) != (steps, steps):
+            or (out["adam_count"], out["ref_adam_count"]) != counts:
         fail(f"phase 15 {label}: the export's change of {out['update_worst']} off by "
              f"{out['update_worst_rel_diff']} relative (limit {MULTI_UPDATE_RTOL}), same names "
              f"{out['same_names']}, Adam count {out['adam_count']} against {out['ref_adam_count']}")
@@ -5437,7 +5501,8 @@ def multi_one_process(torch, args):
         c.launches = 0
     store = {}
     t0 = time.perf_counter()
-    with capture_updates(store, start=True):
+    layout = "scan" if "model.executor=scan" in args else "unrolled"
+    with capture_updates(store, start=True, layout=layout):
         summary = train_dalle.main(args)
     torch.cuda.synchronize()
     summary.update(store, wall_s=time.perf_counter() - t0,
@@ -5445,10 +5510,64 @@ def multi_one_process(torch, args):
     return summary
 
 
+def multi_vae_replay(torch, ranks, out_file, device="cuda"):
+    """Run (f)'s one-process reference: the global batch of each step (the
+    two data ranks' recorded rows in rank order, the JAX `put_host_batch`
+    order) stepped by `make_vae_train_step` in this process from the
+    recorded initial parameters, with each step's temperature and the
+    Gumbel noise its generator seed draws for the global batch, its
+    checkpoint written to `out_file`. (A one-process trainer run reads
+    the same rows in another order, and the noise follows a row's place
+    in the global batch.) Each rank's rows are one microbatch, so every
+    conv runs at a rank's shape: at the global batch's shape cuDNN's TF32
+    convs round differently, and Adam's first update, about lr * sign(g),
+    turns that into a worst update off by 0.13 (`PERF.md` §6). Returns
+    what `multi_readings` takes of a reference."""
+    import numpy as np
+
+    from dalle_pytorch_tpu_torch import train_vae
+    from dalle_pytorch_tpu_torch.ops.gumbel import gumbel_noise
+    from dalle_pytorch_tpu_torch.training.checkpoint import load_params_npz
+    from dalle_pytorch_tpu_torch.training.pipeline import dvae_from_hparams, save_vae_checkpoint
+    from dalle_pytorch_tpu_torch.training.steps import make_optimizer
+    from dalle_pytorch_tpu_torch.weights import load_dvae_params
+
+    hparams = load_params_npz(ranks[0]["out_file"])[1]["hparams"]
+    steps = []
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        with np.load(r["steps_file"]) as z:
+            steps.append({k: z[k] for k in z.files})
+    start = {k[len("start/"):]: v for k, v in steps[0].items() if k.startswith("start/")}
+    tree = {}
+    for k, v in start.items():  # the export's nested tree from its npz names
+        node = tree
+        *path, leaf = k.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    with torch.device(device):
+        vae = load_dvae_params(dvae_from_hparams(hparams), tree)
+    store = {}
+    with capture_updates(store, vae=True):  # its first averaged gradient
+        step = train_vae.make_vae_train_step(vae, make_optimizer(vae.parameters(), ranks[0]["lr"]),
+                                             grad_accum=len(steps))
+    losses = []
+    h = vae.fmap_size
+    for k, (temp, seed) in enumerate(zip(ranks[0]["temps"], ranks[0]["seeds"])):
+        images = torch.from_numpy(np.concatenate([s["images"][k] for s in steps])).to(device)
+        noise = gumbel_noise((images.shape[0], h, h, vae.num_tokens),
+                             torch.Generator(device=device).manual_seed(seed), device, torch.float32)
+        losses.append(step({"images": images, "noise": noise}, temp)["loss"])
+    save_vae_checkpoint(str(out_file), vae, 1)
+    return dict(step_losses=[float(x) for x in losses], grad=store["grad"],
+                grad_sizes=store["grad_sizes"], start=start, out_file=str(out_file))
+
+
 def check_nccl_collectives(torch):
     """A one-rank NCCL group in this process: each call of
-    `parallel/collectives.py` once on a CUDA tensor (the ring's hop as a
-    send to itself), the values checked, nothing staged."""
+    `parallel/collectives.py` once on a CUDA tensor (the ring's and the
+    pipeline's hops as a send to itself), the values checked, nothing
+    staged."""
     import datetime
 
     import torch.distributed as dist
@@ -5470,6 +5589,7 @@ def check_nccl_collectives(torch):
             "reduce_scatter": comm.reduce_scatter(x, world, 0),
             "broadcast": comm.broadcast(x.clone(), world, [0]),
             "ring_shift": comm.ring_shift(x, world, [0], 0),
+            "pipe_shift": comm.pipe_shift(x, world, dst=0, src=0, like=x),
         }
         torch.cuda.synchronize()
         bad = [k for k, v in got.items() if not (v.is_cuda and torch.equal(v, x))]
@@ -5490,12 +5610,21 @@ def run_multi_process_training(torch, smi):
     process (in-process, the reference); (b) fsdp = 2, two rows a rank,
     one in-loop sample at step 3 on both ranks over the gathered
     parameters; (c) sp = 2 with `attn_impl="ring"`, all four rows on both
-    ranks, held to (c1) the same ring run in one process; (b) and (c) run
-    in turn in one launch. Each sharded run's per-step losses, first
+    ranks, held to (c1) the same ring run in one process; (d) tp = 2, all
+    four rows on both ranks, each rank at heads / 2, FF hidden / 2 and
+    vocabulary / 2, held to (a); (e) pp = 2 (`--exp ff`,
+    `model.executor=scan`, MULTI_PP_MICRO microbatches), all four rows on
+    both stages, held to (e1) the same flags in one process; (f) the dVAE
+    trainer (`train_vae`, phase 15's dVAE, float32) at fsdp = 2, two rows
+    a rank, held to (f1) its global batches stepped again in this process
+    (`multi_vae_replay`), nothing staged; (b)-(f) run in turn in one
+    launch. Each sharded run's per-step losses, first
     averaged gradient and export held to its one-process run
     (`hold_multi`), the flash-attention kernels (rows 6-8) launched on
-    each fsdp rank (2 x depth a step each way), the ring's hops staged
-    through host memory under Gloo and counted, the other collectives not
+    each fsdp and tp rank (2 x depth a step each way) and each pp stage
+    (2 x its depth / 2 layers x the microbatches a step), the ring's and
+    the pipeline's hops staged through host memory under Gloo and
+    counted, the other collectives (tp's all-reduces among them) not
     staged; then the NCCL check. Under torch's default precision
     settings, as the CLI runs. Returns the summary."""
     import shutil
@@ -5513,17 +5642,30 @@ def run_multi_process_training(torch, smi):
             world1 = multi_one_process(torch, args("a_world1", 4, "--set", "log_images_freq=0"))
             ring1 = multi_one_process(torch, args("c1_ring_world1", 4, "--set", "model.attn_impl=ring",
                                                   "--set", "log_images_freq=0"))
+            pp1 = multi_one_process(torch, args("e1_pp_world1", 4, *MULTI_PP_FLAGS, "--set", "log_images_freq=0"))
             t0 = time.perf_counter()
-            fsdp, ring = launch_ranks(run_dir / "ranks", [
+            fsdp, ring, tp, pp, vae2 = launch_ranks(run_dir / "ranks", [
                 args("b_fsdp2", 2, "--set", "mesh.fsdp=2", "--set", f"log_images_freq={steps}"),
                 args("c_ring_sp2", 4, "--set", "model.attn_impl=ring", "--set", "mesh.sp=2",
                      "--set", "log_images_freq=0"),
+                args("d_tp2", 4, "--set", "mesh.tp=2", "--set", "log_images_freq=0"),
+                args("e_pp2", 4, *MULTI_PP_FLAGS, "--set", "mesh.pp=2",
+                     "--set", f"mesh.pp_micro={MULTI_PP_MICRO}", "--set", "log_images_freq=0"),
+                multi_vae_args(run_dir / "f_vae_fsdp2", 2, "--set", "mesh.fsdp=2"),
             ])
             walls.update(a_world1=world1["wall_s"], c1_ring_world1=ring1["wall_s"],
-                         bc_launch=time.perf_counter() - t0)
+                         e1_pp_world1=pp1["wall_s"], bcdef_launch=time.perf_counter() - t0,
+                         **{f"{k}_rank_max": max(r["wall_s"] for r in runs)
+                            for k, runs in (("b", fsdp), ("c", ring), ("d", tp), ("e", pp), ("f", vae2))})
+            t0 = time.perf_counter()
+            vae1 = multi_vae_replay(torch, vae2, run_dir / "f1_vae_replay.npz")
+            walls["f1_vae_replay"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             result["fsdp2"] = multi_readings(world1, fsdp)
             result["ring_sp2"] = multi_readings(ring1, ring)
+            result["tp2"] = multi_readings(world1, tp)
+            result["pp2"] = multi_readings(pp1, pp)
+            result["vae_fsdp2"] = multi_readings(vae1, vae2)
             walls["readings"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         result["nccl_calls"] = check_nccl_collectives(torch)
@@ -5533,27 +5675,40 @@ def run_multi_process_training(torch, smi):
 
     attn = 2 * TRAINER_DEPTH * steps
     want = {"flash_attention_fwd": attn, "flash_attention_bwd": attn}
-    launches = {"world1": world1["launches"], **{f"fsdp2_rank{r['rank']}": r["launches"] for r in fsdp},
-                "ring_world1": ring1["launches"], **{f"ring_sp2_rank{r['rank']}": r["launches"] for r in ring}}
+    # a stage: two objectives a step, its depth / 2 layers, each microbatch
+    stage_attn = 2 * steps * (TRAINER_DEPTH // 2) * MULTI_PP_MICRO
+    want_stage = {"flash_attention_fwd": stage_attn, "flash_attention_bwd": stage_attn}
+    sharded = (("fsdp2", fsdp), ("ring_sp2", ring), ("tp2", tp), ("pp2", pp))
+    launches = {"world1": world1["launches"], "ring_world1": ring1["launches"], "pp_world1": pp1["launches"],
+                **{f"{k}_rank{r['rank']}": r["launches"] for k, runs in sharded for r in runs}}
     result.update(
         launches=launches, walls=walls,
-        backends={"fsdp2": [r["backend"] for r in fsdp], "ring_sp2": [r["backend"] for r in ring]},
-        staged={"fsdp2": [r["staged_calls"] for r in fsdp], "ring_sp2": [r["staged_calls"] for r in ring]},
-        collective_calls={"fsdp2": fsdp[0]["collective_calls"], "ring_sp2": ring[0]["collective_calls"]},
+        backends={k: [r["backend"] for r in runs] for k, runs in (*sharded, ("vae_fsdp2", vae2))},
+        staged={k: [r["staged_calls"] for r in runs] for k, runs in (*sharded, ("vae_fsdp2", vae2))},
+        collective_calls={k: runs[0]["collective_calls"] for k, runs in (*sharded, ("vae_fsdp2", vae2))},
         collective_mib={k: {c: b / 2**20 for c, b in runs[0]["collective_bytes"].items()}
-                        for k, runs in (("fsdp2", fsdp), ("ring_sp2", ring))},
+                        for k, runs in (*sharded, ("vae_fsdp2", vae2))},
         sample_s={"fsdp2": [r["sample_s"] for r in fsdp]},
-        rank_walls={"fsdp2": [r["wall_s"] for r in fsdp], "ring_sp2": [r["wall_s"] for r in ring]},
-        rank_started_s=[r["started_s"] for r in fsdp], rank_exited_s=[r["exited_s"] for r in ring],
-        step_ms={"world1": world1["step_ms"], "fsdp2": [r["step_ms"] for r in fsdp],
-                 "ring_world1": ring1["step_ms"], "ring_sp2": [r["step_ms"] for r in ring]},
-        export_s={"world1": world1["export_s"], "fsdp2": fsdp[0]["export_s"]},
+        rank_walls={k: [r["wall_s"] for r in runs] for k, runs in sharded},
+        rank_started_s=[r["started_s"] for r in fsdp], rank_exited_s=[r["exited_s"] for r in vae2],
+        step_ms={"world1": world1["step_ms"], "ring_world1": ring1["step_ms"], "pp_world1": pp1["step_ms"],
+                 **{k: [r["step_ms"] for r in runs] for k, runs in (*sharded, ("vae_fsdp2", vae2))}},
+        export_s={"world1": world1["export_s"], "fsdp2": fsdp[0]["export_s"], "tp2": tp[0]["export_s"],
+                  "pp2": pp[0]["export_s"]},
         tolerances={"loss_rtol": MULTI_LOSS_RTOL, "grad_rtol": MULTI_GRAD_RTOL,
                     "update_rtol": MULTI_UPDATE_RTOL},
     )
     print("multi-process training " + json.dumps(result))
     hold_multi("(b) fsdp = 2", result["fsdp2"])
     hold_multi("(c) ring, sp = 2", result["ring_sp2"])
+    hold_multi("(d) tp = 2", result["tp2"])
+    hold_multi("(e) pp = 2", result["pp2"])
+    hold_multi("(f) dVAE, fsdp = 2", result["vae_fsdp2"], adam=False)
+    for r in vae2:  # Gloo takes the data axes' CUDA tensors: nothing staged
+        if r["backend"] != "gloo" or r["staged_calls"] or r["mesh"]["fsdp"] != 2 \
+                or not {"all_gather", "reduce_scatter", "all_reduce"} <= set(r["collective_calls"]):
+            fail(f"phase 15 dVAE rank {r['rank']}: backend {r['backend']}, mesh {r['mesh']}, staged "
+                 f"{r['staged_calls']}, calls {r['collective_calls']}")
     hops = 2 * TRAINER_DEPTH * steps * (2 * 2 - 1)  # two objectives: 1 hop forward, 2 backward
     for r in fsdp:
         got = {k: r["launches"][k] for k in want}
@@ -5570,6 +5725,21 @@ def run_multi_process_training(torch, smi):
         if r["backend"] != "gloo" or r["staged_calls"] != {"ring_shift": hops}:
             fail(f"phase 15 ring rank {r['rank']}: backend {r['backend']}, staged {r['staged_calls']}, "
                  f"expected {hops} ring hops")
+    for r in tp:  # rows 6-8 at H = 8 on each rank; tp's all-reduces are not staged
+        got = {k: r["launches"][k] for k in want}
+        if got != want or r["backend"] != "gloo" or r["staged_calls"] \
+                or not r["collective_calls"].get("all_reduce"):
+            fail(f"phase 15 tp rank {r['rank']}: launched {got} (expected {want}), backend "
+                 f"{r['backend']}, staged {r['staged_calls']}, calls {r['collective_calls']}")
+    if {k: pp1["launches"][k] for k in want} != want:
+        fail(f"phase 15 one-process pp reference launched {pp1['launches']}, expected {want}")
+    # each stage: one hop a microbatch each way, two objectives a step
+    pp_hops = 2 * steps * 2 * MULTI_PP_MICRO
+    for r in pp:
+        got = {k: r["launches"][k] for k in want_stage}
+        if got != want_stage or r["backend"] != "gloo" or r["staged_calls"] != {"pipe_shift": pp_hops}:
+            fail(f"phase 15 pp stage {r['rank']}: launched {got} (expected {want_stage}), backend "
+                 f"{r['backend']}, staged {r['staged_calls']} (expected {pp_hops} pipeline hops)")
     return result
 
 
@@ -5731,6 +5901,8 @@ def main() -> int:
     tile_variant_times = time_tile_variants(torch, F, peaks, smi)
     paged_times = time_paged_variants(torch, F, peaks, smi, cases)
     attn_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2)
+    # a tp = 2 rank's shard of the same layer (phase 15's run (d)): H = 8
+    attn_tp_times = time_attention(torch, F, peaks, torch.bfloat16, "bf16", 2, h=TRAIN["heads"] // 2)
     attn_fp32 = time_attention(torch, F, peaks, torch.float32, "fp32", 4)
     # the largest head dim the kernels take (the 256 instances: bf16 backward
     # in two column halves, fp32 dq / dk-dv with K and V sharing a buffer)
@@ -6110,6 +6282,7 @@ def main() -> int:
                    if name.endswith("fwd") else {}),
                 trainer_launches={run: n[name] for run, n in trainer["launches"].items()},
                 multi_process_launches={run: n[name] for run, n in multi["launches"].items()},
+                **{f"tp_shard_{k}": v for k, v in attn_tp_times[name].items()},
                 rest_launches={**{run: r["launches"][name] for run, r in rest["revnet_runs"].items()},
                                "scan": rest["scan"]["launches"][name]},
                 rest_trace=rest["revnet_gradients"]["bf16_trace"],
@@ -6126,7 +6299,10 @@ def main() -> int:
                 "attention kernels of one bf16 RevNet step (a torch.profiler trace); "
                 f"multi_process_launches: phase 15's runs ({MULTI_SAMPLES // 4} steps at depth "
                 f"{TRAINER_DEPTH}, two objectives a step: one process, each of the two fsdp ranks, "
-                "and the ring runs, whose attention is the plain ring)",
+                "the ring runs, whose attention is the plain ring, each tp = 2 rank at H = 8, and "
+                f"the pp = 2 runs, each stage its {TRAINER_DEPTH // 2} layer(s) in "
+                f"{MULTI_PP_MICRO} microbatches); tp_shard_*: the same pass at a tp = 2 rank's "
+                f"shape, B={TRAIN['batch']} H={TRAIN['heads'] // 2} N={TRAIN['n']} D=64 bf16",
             )
             for name, line in (
                 ("flash_attention_fwd", "129"),

@@ -272,13 +272,19 @@ class DALLE(nn.Module):
         return_loss: bool = False,
         inverse_mapping: bool = False,
         reverse_model: bool = False,
+        trunk_fn=None,
     ):
         """text [B, text_seq_len] ids; image [B, <= image_seq_len] codebook
         ids. Returns masked float32 logits [B, N, V], or with `return_loss`
         (loss, accuracy): the split cross-entropy of the forward (text ->
         image) or, with `inverse_mapping`, the inverse (image first) objective
-        and its 3-token accuracy (None for the forward one)."""
-        text, out = self.trunk(text, image, inverse_mapping, reverse_model)
+        and its 3-token accuracy (None for the forward one). `trunk_fn`
+        (tokens [B, N, dim] -> hidden states) runs in place of the
+        transformer: embeddings, then `trunk_fn`, then the head (the JAX
+        `trunk_fn`, e.g. the pipeline-parallel trunk of
+        `models/transformer.py:make_pipeline_trunk`); it owns the layer
+        order, so `reverse_model` is refused with it."""
+        text, out = self.trunk(text, image, inverse_mapping, reverse_model, trunk_fn)
         seq_len = out.shape[1]
         if return_loss and image is None:
             raise ValueError("when training, image must be supplied")
@@ -318,9 +324,13 @@ class DALLE(nn.Module):
         image: Optional[torch.Tensor] = None,
         inverse_mapping: bool = False,
         reverse_model: bool = False,
+        trunk_fn=None,
     ):
         """The uncached trunk of `forward`: (text ids with <bos> [B, T + 1],
-        the final hidden states [B, N, dim]), N = min(tokens, total_seq_len)."""
+        the final hidden states [B, N, dim]), N = min(tokens, total_seq_len);
+        the transformer, or `trunk_fn` in its place."""
+        if trunk_fn is not None and reverse_model:
+            raise ValueError("trunk_fn owns the layer order: reverse_model is not taken with it")
         text, tokens = self.embed_text(text)
         if image is not None and image.shape[1] > 0:
             image_emb = self.image_emb(image.long())
@@ -332,6 +342,8 @@ class DALLE(nn.Module):
         tokens = tokens[:, :seq_len]  # drop the final token's input slot
         if self.stable:
             tokens = tokens * 0.1 + tokens.detach() * 0.9
+        if trunk_fn is not None:
+            return text, trunk_fn(tokens)
         return text, self.transformer(tokens, reverse_model=reverse_model)
 
     def _fused_head(self, out: torch.Tensor):

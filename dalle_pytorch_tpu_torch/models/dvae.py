@@ -143,6 +143,12 @@ class DiscreteVAE(nn.Module):
     def fmap_size(self) -> int:
         return self.image_size // (2**self.num_layers)
 
+    def weights_read_outside_modules(self):
+        """The parameters the forward reads outside their own module's
+        forward (`parallel/fsdp.py` gathers them around the whole forward):
+        the codebook, multiplied by the Gumbel-softmax sample."""
+        return ("codebook.weight",)
+
     def norm(self, images: torch.Tensor) -> torch.Tensor:
         """[..., C] images -> (images - means) / stds per channel."""
         means = images.new_tensor(NORMALIZATION[0][: self.channels])

@@ -30,6 +30,13 @@ norm, stable softmax, token shift and rotary each on or off.
 Parity notes: flax's `nn.gelu` is the tanh approximation and flax's
 LayerNorm uses eps 1e-6 and normalizes in float32.
 
+`make_pipeline_trunk` is the JAX `make_pipeline_trunk` over the
+unrolled layers: the trunk run pipeline-parallel over a mesh's pp stages
+(`parallel/gpipe.py`), each stage its slice of the layers with their
+attention types and the rotary table, deterministic only, each layer
+recomputed in the backward under `reversible` (the remat executor's
+policy); `DALLE.forward(..., trunk_fn=)` takes it.
+
 Cached decode has one path, `cached_forward`, over a list of shards:
 the stack itself (`Transformer.forward` with a cache) or the shard stacks
 of a tensor-parallel model (`parallel/tensor_parallel.py`), whose
@@ -479,6 +486,57 @@ class _RevNetFunction(torch.autograd.Function):
                 y1, y2 = x1, x2
         n = len(slot)
         return (None, None, dy1 + dy2) + tuple(grads.get(k) for k in range(n))
+
+
+class PipelineTrunk:
+    """A Transformer's trunk run pipeline-parallel over the pp stages of
+    `mesh` in `n_micro` microbatches (`make_pipeline_trunk`): call it as
+    `trunk(x, key_mask=None)` on every stage together; after the backward,
+    `reduce_gradients()` sums each layer's gradient over the stages."""
+
+    def __init__(self, transformer: "Transformer", mesh, n_micro: int):
+        from dalle_pytorch_tpu_torch.parallel.gpipe import StagePipe
+
+        self.transformer, self.mesh, self.n_micro = transformer, mesh, int(n_micro)
+        self.pipe = StagePipe(mesh)
+
+    def _layer(self, i: int, h: torch.Tensor, key_mask) -> torch.Tensor:
+        tr = self.transformer
+        if tr.reversible and torch.is_grad_enabled():
+            return checkpoint(tr._layer, i, h, key_mask, use_reentrant=False)
+        return tr._layer(i, h, key_mask)
+
+    def _params(self, i: int):
+        f, g = self.transformer._half_params(i)
+        return [*f, *g]
+
+    def __call__(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from dalle_pytorch_tpu_torch.parallel.gpipe import gpipe_apply
+
+        return gpipe_apply(self.pipe, self._layer, self.transformer.depth, x, self.n_micro,
+                           aux=key_mask, layer_params=self._params)
+
+    def reduce_gradients(self) -> None:
+        from dalle_pytorch_tpu_torch.parallel.gpipe import reduce_stage_gradients
+
+        reduce_stage_gradients(self.transformer.parameters(), self.mesh)
+
+
+def make_pipeline_trunk(transformer: Transformer, mesh, n_micro: int) -> PipelineTrunk:
+    """`fn(x, key_mask=None)` running this Transformer's trunk pipeline-
+    parallel over `mesh`'s pp axis (the JAX `make_pipeline_trunk`):
+    numerically its uncached deterministic forward, the attention-type
+    cycle riding with each stage's layers. Refuses what the JAX scan
+    executor does not run and dropout."""
+    why = scan_unsupported(**transformer.scan_config)
+    if why is not None:
+        raise ValueError(f"unsupported config for pipelining: {why}")
+    if transformer.attn_dropout or transformer.ff_dropout:
+        raise ValueError(
+            "the pipeline trunk is deterministic only: set attn_dropout=ff_dropout=0, or "
+            "train under dp/fsdp/tp instead"
+        )
+    return PipelineTrunk(transformer, mesh, n_micro)
 
 
 def _kv_store_dtype(dtype, kv_dtype):

@@ -35,9 +35,22 @@ biases, scales, the axial positions) are whole on every rank.
 At fsdp = 1 nothing is split and the object only averages gradients over
 the data ranks (plain data parallelism). Initial parameters are broadcast
 from rank 0 at construction, so every rank starts from the same ones.
+
+Over tp > 1 the caller hands in the model's tp shard
+(`parallel/tensor_parallel.py:TrainingShards`, built on the whole model),
+which is cut after the broadcast, and fsdp then cuts each tp shard into
+its pieces (the JAX `P("tp", "fsdp")`): the fsdp dimensions are taken on
+the whole tensors before the tp cut.
 Gradients are never summed over sp or tp: the sequence-parallel ranks
-compute the same gradients (`models/attention.py`), and tp > 1 is not
-trained.
+compute the same gradients (`models/attention.py`), a tp shard's gradient
+is its own, and a leaf tp keeps whole has the same gradient on every tp
+rank (Megatron's f sums the partial input gradients). The global norm
+adds each tp shard's squares once (a sum over tp), and `gathered()` joins
+the tp shards after the fsdp pieces, so exports and Adam state are whole
+tensors whatever the mesh.
+
+The dVAE's data mesh takes the same object with its own fsdp dimensions
+(`dims=parallel/partition.py:vae_fsdp_dims`); it has no tp split.
 """
 
 from __future__ import annotations
@@ -89,21 +102,32 @@ class _Gather(torch.autograd.Function):
 
 
 class FSDP:
-    """The data-parallel state of a DALLE on one rank of `mesh`: splits
-    its parameters (and any Adam state `optimizer` already holds) over
-    fsdp, in place, and installs the gathering hooks."""
+    """The data-parallel state of a model on one rank of `mesh`: cuts it
+    into its tp shard `tp` (a `TrainingShards`, where tp > 1), splits its
+    parameters (and any Adam state `optimizer` already holds) over fsdp,
+    in place, and installs the gathering hooks. `dims` ({parameter name:
+    fsdp dimension or None}) defaults to the DALLE's `fsdp_dims`."""
 
-    def __init__(self, model: nn.Module, mesh: TrainMesh, optimizer=None):
+    def __init__(self, model: nn.Module, mesh: TrainMesh, optimizer=None,
+                 dims: Optional[Dict[str, Optional[int]]] = None, tp=None):
         if any(getattr(m, "revnet", False) for m in model.modules()) and mesh.shape["fsdp"] > 1:
             raise ValueError("fsdp > 1 does not run the revnet executor, whose backward takes the "
                              "parameters themselves (ROADMAP.md Queue 1 item 8)")
+        if (tp is not None) != (mesh.shape["tp"] > 1):
+            raise ValueError(f"a mesh of tp = {mesh.shape['tp']} takes its TrainingShards, got {tp}")
         self.model, self.mesh, self.comm = model, mesh, mesh.comm
         self.group = mesh.group("fsdp")
         self.n, self.index = mesh.shape["fsdp"], mesh.coords["fsdp"]
         self._whole = False  # full parameters in place (`gathered`): hooks idle
         self._live: Dict[int, tuple] = {}  # storage pointer of a gathered weight -> (entry, dtype)
         self._broadcast_initial()
-        dims = fsdp_dims(model, mesh) if self.n > 1 else {}
+        if dims is None:
+            dims = fsdp_dims(model, mesh) if self.n > 1 else {}
+        # the tp cut, after the fsdp dimensions are read off the whole tensors
+        self.tp = tp
+        if tp is not None:
+            tp.cut(optimizer)
+        self._tp_split = tp.split if tp is not None else {}
         modules = dict(model.named_modules())
         outside = set(model.weights_read_outside_modules())
         self.entries: List[_Entry] = []
@@ -122,6 +146,7 @@ class FSDP:
             self.entries.append(entry)
             by_user.setdefault(model if name in outside else entry.owner, []).append(entry)
         self._split = {id(e.param) for e in self.entries}
+        self._entry_of = {id(e.param): e for e in self.entries}
         for user, entries in by_user.items():
             user.register_forward_pre_hook(lambda module, args, es=entries: self._gather_for(es))
             user.register_forward_hook(lambda module, args, out, es=entries: self._drop(es))
@@ -216,19 +241,21 @@ class FSDP:
     @torch.no_grad()
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global 2-norm of the gradients `grads` (this rank's .grad
-        tensors): the pieces' squares summed over fsdp, the whole leaves'
+        tensors): the squares of fsdp pieces summed over fsdp, those of tp
+        shards over tp (a piece of a tp shard over both), the whole leaves'
         counted once."""
-        split_ids = {id(e.param.grad) for e in self.entries if e.param.grad is not None}
-        dev = grads[0].device
-        sq_split = torch.zeros((), dtype=torch.float32, device=dev)
-        sq_whole = torch.zeros((), dtype=torch.float32, device=dev)
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        fsdp_ids = {id(p.grad) for p in params if id(p) in self._split}
+        tp_ids = {id(p.grad) for p in params if id(p) in self._tp_split}
+        # the squares by (split over fsdp, split over tp): [fsdp only, both, tp only, whole]
+        slot = {(True, False): 0, (True, True): 1, (False, True): 2, (False, False): 3}
+        sq = torch.zeros(4, dtype=torch.float32, device=grads[0].device)
         for g in grads:
-            sq = g.float().pow(2).sum()
-            if id(g) in split_ids:
-                sq_split += sq
-            else:
-                sq_whole += sq
-        return (self.comm.all_reduce(sq_split, self.group) + sq_whole).sqrt()
+            sq[slot[id(g) in fsdp_ids, id(g) in tp_ids]] += g.float().pow(2).sum()
+        sq[:2] = self.comm.all_reduce(sq[:2].clone(), self.group)
+        if self.tp is not None:
+            sq[1:3] = self.comm.all_reduce(sq[1:3].clone(), self.tp.group)
+        return sq.sum().sqrt()
 
     def mean_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Step metrics (this rank's means) as means over the data ranks."""
@@ -241,27 +268,45 @@ class FSDP:
 
     # --- full state --------------------------------------------------------
 
+    def full(self, param: nn.Parameter, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of `t`, this rank's piece of `param` or of one
+        of its moments or its gradient: the fsdp pieces joined, then the tp
+        shards (collectives every rank of those axes runs)."""
+        entry = self._entry_of.get(id(param))
+        if entry is not None:
+            t = self.gather(entry, t, t.dtype)
+        placement = self._tp_split.get(id(param))
+        return t if placement is None else self.tp.full(t, placement)
+
     @contextmanager
     def gathered(self, optimizer=None):
         """Full parameters (and, with `optimizer`, full Adam moments) in
-        place of the pieces inside the block; a collective on every rank."""
+        place of the pieces and tp shards inside the block, the plain
+        model's forwards in place of the shard's; a collective on every
+        rank."""
         kept = []
         self._whole = True
         try:
             with torch.no_grad():
-                for e in self.entries:
-                    piece = e.param.data
-                    state = optimizer.adam.state.get(e.param, {}) if optimizer is not None else {}
+                for p in self.model.parameters():
+                    if id(p) not in self._split and id(p) not in self._tp_split:
+                        continue
+                    piece = p.data
+                    state = optimizer.adam.state.get(p, {}) if optimizer is not None else {}
                     moments = {k: state[k] for k in MOMENTS if k in state}
-                    kept.append((e, piece, state, moments))
-                    e.param.data = self.gather(e, piece, piece.dtype)
+                    kept.append((p, piece, state, moments))
+                    p.data = self.full(p, piece)
                     for k, m in moments.items():
-                        state[k] = self.gather(e, m, m.dtype)
+                        state[k] = self.full(p, m)
+            if self.tp is not None:
+                self.tp.whole(True)
             yield
         finally:
-            for e, piece, state, moments in kept:
-                e.param.data = piece
+            for p, piece, state, moments in kept:
+                p.data = piece
                 state.update(moments)
+            if self.tp is not None:
+                self.tp.whole(False)
             self._whole = False
 
 

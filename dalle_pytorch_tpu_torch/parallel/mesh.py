@@ -19,12 +19,14 @@ halves of the port.
   them visible: the analogue of the JAX tests' virtual host devices.
 * `TrainMesh` (training): one process a GPU, the PyTorch idiom where the
   JAX trainer runs one controller a host and GSPMD inserts the
-  collectives. The mesh is a grid of `torch.distributed` ranks (rank =
-  the row-major index of its (dp, fsdp, tp, sp) coordinates); each rank
-  knows its coordinates and holds a process group for each trained axis
-  (dp, fsdp, sp) of size above 1, and one for the data axes (dp and fsdp together, the batch's
-  axes: `batch_spec`). `make_train_mesh` resolves dp = -1 as `make_mesh`
-  does.
+  collectives. The mesh is a grid of `torch.distributed` ranks over
+  `TRAIN_AXES`, the four axes and `pp` (pipeline stages: the JAX
+  trainer's `MESH_AXES + ("pp",)`), rank = the row-major index of its
+  (dp, fsdp, tp, sp, pp) coordinates; each rank knows its coordinates and
+  holds a process group for each axis of size above 1, and one for the
+  data axes (dp and fsdp together, the batch's axes: `batch_spec`).
+  `make_train_mesh` resolves dp = -1 as `make_mesh` does; a pure-pp mesh
+  (every other axis 1) is `parallel/gpipe.py:make_pp_mesh`.
 
 The process helpers of the JAX module: `initialize_distributed` (the
 launcher's `DALLE_TPU_*` variables, or torch's `RANK` / `WORLD_SIZE` /
@@ -52,6 +54,8 @@ import torch.distributed as dist
 from dalle_pytorch_tpu_torch.parallel.collectives import Collectives
 
 MESH_AXES = ("dp", "fsdp", "tp", "sp")
+#: the axes of a training mesh: the four and the pipeline's stages
+TRAIN_AXES = MESH_AXES + ("pp",)
 
 #: devices a CPU mesh may use (the JAX tests force 8 virtual host devices)
 CPU_MESH_DEVICES = 8
@@ -219,7 +223,7 @@ def host_barrier() -> None:
 
 
 class TrainMesh:
-    """The ranks of a training run as a (dp, fsdp, tp, sp) grid, and this
+    """The ranks of a training run as a (dp, fsdp, tp, sp, pp) grid, and this
     rank's place in it: its coordinates, its device, the process group of
     each axis (None where the axis has one rank) and the collectives over
     them (`comm`, `parallel/collectives.py`). Built without groups (a
@@ -228,13 +232,15 @@ class TrainMesh:
 
     def __init__(self, dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1, rank: int = 0,
                  device="cpu", backend: Optional[str] = None,
-                 groups: Optional[Dict[Tuple[str, ...], Tuple[object, List[int]]]] = None):
-        self.shape = dict(zip(MESH_AXES, (dp, fsdp, tp, sp)))
-        self.world = dp * fsdp * tp * sp
+                 groups: Optional[Dict[Tuple[str, ...], Tuple[object, List[int]]]] = None,
+                 pp: int = 1):
+        sizes = (dp, fsdp, tp, sp, pp)
+        self.shape = dict(zip(TRAIN_AXES, sizes))
+        self.world = int(np.prod(sizes))
         if not 0 <= rank < self.world:
             raise ValueError(f"rank {rank} outside a mesh of {self.world}")
         self.rank = rank
-        self.coords = dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(rank, (dp, fsdp, tp, sp)))))
+        self.coords = dict(zip(TRAIN_AXES, (int(c) for c in np.unravel_index(rank, sizes))))
         self.device = torch.device(device)
         self.backend = backend
         self.comm = Collectives(backend, self.device)
@@ -266,32 +272,32 @@ class TrainMesh:
                 f"device={self.device}, backend={self.backend})")
 
 
-#: the groups a training mesh holds: each trained axis, and the data axes
-#: together (tp is not trained)
-TRAIN_GROUPS = (("dp",), ("fsdp",), ("sp",), ("dp", "fsdp"))
+#: the groups a training mesh holds: each axis, and the data axes together
+TRAIN_GROUPS = (("dp",), ("fsdp",), ("tp",), ("sp",), ("pp",), ("dp", "fsdp"))
 
 
-def make_train_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, device="cpu") -> TrainMesh:
+def make_train_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, device="cpu",
+                    pp: int = 1) -> TrainMesh:
     """The training mesh over this run's processes (one without a process
     group); dp = -1 absorbs the remaining ranks. Every rank makes the same
     `dist.new_group` calls in the same order."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    fixed = fsdp * tp * sp
+    fixed = fsdp * tp * sp * pp
     if dp == -1:
         if fixed < 1 or world % fixed:
-            raise ValueError(f"{world} processes not divisible by fsdp*tp*sp={fixed}")
+            raise ValueError(f"{world} processes not divisible by fsdp*tp*sp*pp={fixed}")
         dp = world // fixed
     if dp * fixed != world:
-        raise ValueError(f"mesh {dp}x{fsdp}x{tp}x{sp} != {world} processes")
-    shape = (dp, fsdp, tp, sp)
+        raise ValueError(f"mesh {dp}x{fsdp}x{tp}x{sp}x{pp} != {world} processes")
+    shape = (dp, fsdp, tp, sp, pp)
     grid = np.arange(world).reshape(shape)
     groups = {}
     for axes in TRAIN_GROUPS:
-        if world == 1 or all(shape[MESH_AXES.index(a)] == 1 for a in axes):
+        if world == 1 or all(shape[TRAIN_AXES.index(a)] == 1 for a in axes):
             continue
-        keep = [MESH_AXES.index(a) for a in axes]
-        rest = [k for k in range(len(MESH_AXES)) if k not in keep]
+        keep = [TRAIN_AXES.index(a) for a in axes]
+        rest = [k for k in range(len(TRAIN_AXES)) if k not in keep]
         # one row of ranks for each coordinate of the other axes
         rows = grid.transpose(rest + keep).reshape(-1, int(np.prod([shape[k] for k in keep])))
         for row in rows:
@@ -300,5 +306,5 @@ def make_train_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, devic
             if rank in ranks:
                 groups[axes] = (group, ranks)
     backend = dist.get_backend() if dist.is_initialized() else None
-    return TrainMesh(dp, fsdp, tp, sp, rank=rank, device=device, backend=backend, groups=groups)
+    return TrainMesh(dp, fsdp, tp, sp, rank=rank, device=device, backend=backend, groups=groups, pp=pp)
 

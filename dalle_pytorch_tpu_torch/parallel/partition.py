@@ -29,12 +29,26 @@ column-parallel layer is read by each shard at its own columns
 not divide the dimension: the parameter is then replicated, and its layer
 runs whole on every shard.
 
-Training (`state_shardings`' twin, `fsdp_dims`): a parameter's fsdp
-dimension is the one its spec names "fsdp" (after `_divisible` over the
-training mesh's shape), and each of its Adam moments follows it. Rank i
-of the fsdp axis holds the i-th of the axis's equal pieces of that
-dimension (`fsdp_shard`); the all-gather over fsdp
-(`parallel/collectives.py`) joins them back in rank order.
+Training (`state_shardings`' twin, `fsdp_dims` and `tp_dims`): a
+parameter's fsdp dimension is the one its spec names "fsdp" and its tp
+dimension the one it names "tp" (each after `_divisible` over the
+training mesh's shape, on the whole tensor), and each of its Adam moments
+follows it. A parameter is split over tp first, in whole units
+(`split_tensor`), then its tp shard is cut into fsdp pieces (the JAX
+`P("tp", "fsdp")` / `P("fsdp", "tp")`): rank i of the fsdp axis holds the
+i-th of the axis's equal pieces of the fsdp dimension (`fsdp_shard`); the
+all-gather over fsdp (`parallel/collectives.py`) joins them back in rank
+order, and `join_tensor` joins the tp shards. In training the bias of a
+column-parallel layer (the GEGLU's `dense_0`, the logits head) follows
+its weight's split, so that a shard's gradient is its own; the JAX table
+keeps 1-D leaves whole, and serving reads the whole bias at a shard's
+columns (`parallel/tensor_parallel.py`).
+
+The dVAE (`vae_fsdp_dims`): the JAX rule for a rank-4 conv kernel cuts
+its output channels over fsdp (`P(None, None, None, "fsdp")`: dimension
+0 of a torch `Conv2d` weight [O, I, kh, kw], dimension 1 of a
+`ConvTranspose2d` weight [I, O, kh, kw]) and the codebook, an
+`embedding`, its second dimension (`P("tp", "fsdp")`); biases stay whole.
 """
 
 from __future__ import annotations
@@ -156,3 +170,63 @@ def fsdp_shard(t: torch.Tensor, dim: Optional[int], index: int, n: int) -> torch
         return t
     return t.chunk(n, dim)[index].contiguous()
 
+
+#: the column-parallel biases that follow their weight's tp split in training
+_BIAS_FOLLOWS = {r"\.dense_0\.bias$": ".dense_0.weight", r"^logits_dense\.bias$": "logits_dense.weight"}
+
+
+def tp_placements(model: torch.nn.Module, mesh) -> Dict[str, Placement]:
+    """{parameter name: Placement} of a DALLE's parameters split over tp
+    on a training mesh (the others are whole on every tp rank), computed on
+    the whole tensors: `partition_params`' placements whose spec names tp,
+    and the column-parallel biases beside their weights."""
+    placements = partition_params(model, mesh)
+    out = {}
+    for name, _ in model.named_parameters():
+        source = name
+        for pattern, weight in _BIAS_FOLLOWS.items():
+            source = re.sub(pattern, weight, source)
+        placement = placements.get(source)
+        if placement is None or placement.split_dim(MODEL_AXIS) is None:
+            continue
+        out[name] = Placement((MODEL_AXIS,), placement.parts) if source != name else placement
+    return out
+
+
+def tp_dims(model: torch.nn.Module, mesh) -> Dict[str, Optional[int]]:
+    """{parameter name: the dimension split over tp, or None (whole on
+    every tp rank)} of a DALLE's parameters over a training mesh
+    (`tp_placements`), the counterpart of `fsdp_dims`."""
+    split = tp_placements(model, mesh)
+    return {name: split[name].split_dim(MODEL_AXIS) if name in split else None
+            for name, _ in model.named_parameters()}
+
+
+def join_tensor(shards: Sequence[torch.Tensor], placement: Placement, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The inverse of `split_tensor`: the whole tensor from its shards in
+    shard order, each of the placement's parts joined on its own."""
+    dim = placement.split_dim(axis)
+    if dim is None or len(shards) == 1:
+        return shards[0]
+    if placement.parts == 1:
+        return torch.cat(list(shards), dim)
+    pieces = [s.chunk(placement.parts, dim) for s in shards]
+    return torch.cat([torch.cat([p[j] for p in pieces], dim) for j in range(placement.parts)], dim)
+
+
+def vae_fsdp_dims(vae: torch.nn.Module, mesh) -> Dict[str, Optional[int]]:
+    """{parameter name: the dimension split over fsdp, or None} of a
+    DiscreteVAE's parameters over a training mesh: conv kernels by their
+    output channels, the codebook by its channels, where fsdp divides."""
+    n = mesh.shape[FSDP_AXIS]
+    modules = dict(vae.named_modules())
+    out = {}
+    for name, p in vae.named_parameters():
+        owner = modules[name.rpartition(".")[0]]
+        dim = None
+        if name.endswith(".weight") and p.dim() == 4:
+            dim = 1 if isinstance(owner, torch.nn.ConvTranspose2d) else 0
+        elif name.endswith(".weight") and isinstance(owner, torch.nn.Embedding):
+            dim = 1
+        out[name] = dim if dim is not None and n > 1 and p.shape[dim] % n == 0 else None
+    return out

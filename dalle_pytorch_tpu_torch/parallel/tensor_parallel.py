@@ -21,15 +21,63 @@ model axis.
 Copies between shards are plain `Tensor.to(device)`: the same code serves
 shards on two cards and one card named twice. Shards run in order on each
 device's current stream.
+
+Training over processes (`TrainingShards`, one tp shard a rank of a
+`TrainMesh`; built by `training/steps.py:make_dalle_train_step`, which
+hands it to `parallel/fsdp.py:FSDP` to cut after the initial broadcast):
+the rank's DALLE is cut in place to heads / tp, FF hidden / tp and vocabulary / tp by
+`parallel/partition.py:tp_placements` (whole units: q, k and v apart, the
+GEGLU halves apart, whole heads; a parameter `_divisible` drops stays
+whole and its layer runs whole), with any Adam moments cut alike, and the
+split Linears and embeddings get a forward of their kind:
+
+* column-parallel (`to_qkv`, `dense_0`): f (`parallel/collectives.py:
+  copy_to_group`) on the input, then this shard's columns and bias;
+* row-parallel (`to_out`, `dense_1`): this shard's product, then g
+  (`reduce_from_group`: the sum over tp), then the bias, once;
+* vocabulary-parallel embeddings: each rank looks up the ids in its row
+  range, zeros elsewhere, then g (exact: one part is nonzero);
+* the logits head: f, this shard's vocabulary columns, then the logits
+  all-gathered over tp in vocabulary order (`gather_from_group`, whose
+  backward keeps this shard's columns of the gradient). The loss then
+  runs on the whole logits on every tp rank, as on one device: the
+  gather costs [B, N, V] on each rank, no vocabulary-parallel
+  cross-entropy. Where the DALLE reads the head's weights itself (tied
+  embeddings, the fused loss: `DALLE._logits_kernel`) the shard installs
+  its own `_logits_kernel` on the model, which reads them gathered over
+  tp, the gradient again sliced.
+
+Every tp rank holds the same rows and computes the same replicated
+activations, so a replicated leaf's gradient is the same on every tp
+rank (f sums the partial input gradients) and a split one's is its own:
+nothing is summed over tp after the backward. Dropout draws per shard:
+the masks of split hidden units are the shard's own draws, not a slice
+of the one-device mask, and replicated masks agree across tp ranks
+because every rank draws the same shapes from the same seed.
+`whole(True)` puts the plain forwards, head counts and `_logits_kernel`
+back (the full parameters in place: `FSDP.gathered`), `whole(False)` the
+shard's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dalle_pytorch_tpu_torch.parallel.collectives import (
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+)
+from dalle_pytorch_tpu_torch.parallel.partition import (
+    Placement,
+    join_tensor,
+    split_tensor,
+    tp_placements,
+)
 
 
 def shard_sum(parts: Sequence[torch.Tensor], bias: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -230,3 +278,147 @@ class TensorParallelDALLE:
                          else (self.image_ranges, self.split_image))
         return vocab_parallel_embed([getattr(sh, table) for sh in self.shards],
                                     [lo for lo, _ in ranges], ids, split)
+
+
+class TrainingShards:
+    """This rank's tp shard of a DALLE being trained over a `TrainMesh`
+    with tp > 1 (module docstring). Built on the whole model, which it
+    leaves whole: `cut(optimizer)` cuts the parameters (and the Adam
+    moments `optimizer` already holds) in place and installs the split
+    layers' forwards. `placements` maps each split parameter's name to its
+    `Placement`; `split` maps id(parameter) to it."""
+
+    def __init__(self, model, mesh):
+        if any(getattr(m, "revnet", False) for m in model.modules()):
+            raise ValueError("tp > 1 does not run the revnet executor, whose backward takes the "
+                             "parameters themselves (ROADMAP.md Queue 1 item 8)")
+        self.model, self.mesh = model, mesh
+        self.comm, self.group = mesh.comm, mesh.group("tp")
+        self.n, self.index = mesh.shape["tp"], mesh.coords["tp"]
+        self.placements: Dict[str, Placement] = tp_placements(model, mesh)
+        params = dict(model.named_parameters())
+        self.split: Dict[int, Placement] = {id(params[k]): pl for k, pl in self.placements.items()}
+        self._forwards: Dict[nn.Module, object] = {}
+        self._heads: Dict[nn.Module, Tuple[int, int]] = {}
+        self._plan()
+
+    def cut(self, optimizer=None) -> None:
+        """Cut the model (and `optimizer`'s Adam moments) into this rank's
+        shard, in place, and run the shard's forwards."""
+        params = dict(self.model.named_parameters())
+        state = optimizer.adam.state if optimizer is not None else {}
+        with torch.no_grad():
+            for name, pl in self.placements.items():
+                p = params[name]
+                p.data = self.shard(p.data, pl)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    if key in state.get(p, {}):
+                        state[p][key] = self.shard(state[p][key], pl)
+        self.whole(False)
+
+    def shard(self, t: torch.Tensor, placement: Placement) -> torch.Tensor:
+        """This rank's shard of the whole tensor `t` (a contiguous copy)."""
+        return split_tensor(t, placement, self.n)[self.index].contiguous()
+
+    def full(self, t: torch.Tensor, placement: Placement) -> torch.Tensor:
+        """The whole tensor of this rank's shard `t` (an all-gather over
+        tp: a collective every tp rank runs)."""
+        dim = placement.split_dim()
+        parts = self.comm.all_gather(t.contiguous(), self.group, dim).chunk(self.n, dim)
+        return join_tensor(parts, placement)
+
+    def _split(self, name: str) -> bool:
+        return name in self.placements
+
+    def _plan(self) -> None:
+        """The forward of each split module (`_forwards`) and the head
+        counts of each split attention module (`_heads`)."""
+        model, comm, group, n = self.model, self.comm, self.group, self.n
+        for key, attn in model.transformer.attn.items():
+            prefix = f"transformer.attn.{key}"
+            if self._split(f"{prefix}.to_qkv.weight"):
+                self._heads[attn] = (attn.heads, attn.heads // n)
+                self._forwards[attn.to_qkv] = _column(attn.to_qkv, comm, group)
+                self._forwards[attn.to_out] = _row(attn.to_out, comm, group)
+        for key, ff in model.transformer.ff.items():
+            if self._split(f"transformer.ff.{key}.dense_0.weight"):
+                self._forwards[ff.dense_0] = _column(ff.dense_0, comm, group)
+                self._forwards[ff.dense_1] = _row(ff.dense_1, comm, group)
+        for name in ("text_emb", "image_emb"):
+            if self._split(f"{name}.weight"):
+                table = getattr(model, name)
+                rows = table.num_embeddings // n
+                self._forwards[table] = _vocab(table, self.index * rows, rows, comm, group)
+        if not model.share_input_output_emb and self._split("logits_dense.weight"):
+            self._forwards[model.logits_dense] = _column(model.logits_dense, comm, group,
+                                                         gather_index=self.index)
+
+    def _gathered(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """`t`, the value of parameter `name`, gathered over tp when it is
+        split (the slice of the gradient backward)."""
+        if not self._split(name):
+            return t
+        return gather_from_group(t, self.comm, self.group, self.index, 0)
+
+    def _logits_kernel(self):
+        """`DALLE._logits_kernel` on the shard: (kernel [D, V], bias [V] or
+        None) of the whole logits head, its split weights gathered."""
+        m = self.model
+        if m.share_input_output_emb:
+            kernel = torch.cat([self._gathered(m.text_emb.weight, "text_emb.weight"),
+                                self._gathered(m.image_emb.weight, "image_emb.weight")], dim=0).t()
+            return kernel, m.logits_bias
+        return (self._gathered(m.logits_dense.weight, "logits_dense.weight").t(),
+                self._gathered(m.logits_dense.bias, "logits_dense.bias"))
+
+    def whole(self, on: bool) -> None:
+        """The plain model's forwards, head counts and `_logits_kernel`
+        (`on`), or the shard's."""
+        for module, forward in self._forwards.items():
+            if on:
+                module.__dict__.pop("forward", None)
+            else:
+                module.forward = forward
+        if on:
+            self.model.__dict__.pop("_logits_kernel", None)
+        else:
+            self.model._logits_kernel = self._logits_kernel
+        for attn, (whole, shard) in self._heads.items():
+            attn.heads = whole if on else shard
+
+
+def _column(lin: nn.Linear, comm, group, gather_index: Optional[int] = None):
+    """A column-parallel Linear's forward: f, then this shard's columns;
+    with `gather_index`, the outputs all-gathered along the last
+    dimension (the logits head)."""
+
+    def forward(x):
+        y = F.linear(copy_to_group(x, comm, group), lin.weight, lin.bias)
+        return y if gather_index is None else gather_from_group(y, comm, group, gather_index, -1)
+
+    return forward
+
+
+def _row(lin: nn.Linear, comm, group):
+    """A row-parallel Linear's forward: this shard's product, g, then the
+    bias once."""
+
+    def forward(x):
+        y = reduce_from_group(F.linear(x, lin.weight), comm, group)
+        return y if lin.bias is None else y + lin.bias.to(y.dtype)
+
+    return forward
+
+
+def _vocab(table: nn.Embedding, start: int, rows: int, comm, group):
+    """A vocabulary-parallel embedding's forward over rows [start, start +
+    rows): the lookups in range, zeros elsewhere, then g."""
+
+    def forward(ids):
+        local = ids - start
+        hit = (local >= 0) & (local < rows)
+        vec = F.embedding(local.clamp(0, rows - 1), table.weight)
+        vec = torch.where(hit[..., None], vec, torch.zeros((), dtype=vec.dtype, device=vec.device))
+        return reduce_from_group(vec, comm, group)
+
+    return forward

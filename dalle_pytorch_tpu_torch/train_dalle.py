@@ -20,22 +20,28 @@ The flow:
   the global step and the plateau scheduler from a single-file export
   (`--set` overrides apply on top of its config);
 * up front, before any model is built, it refuses what the port does not
-  run: `ga_steps` not dividing `batch_size`, `mesh.tp` or `mesh.pp` above
-  1 and fsdp with the revnet executor (ROADMAP Queue 1 item 8),
-  `--taming` without both VQGAN paths, and, with `model.executor="scan"`,
-  a model the JAX scan executor does not run (its reason);
+  run: `ga_steps` not dividing `batch_size`, fsdp or tp with the revnet
+  executor (ROADMAP Queue 1 item 8), the JAX trainer's checks of
+  `mesh.pp` above 1 (`check_pipeline`), `--taming` without both VQGAN
+  paths, and, with `model.executor="scan"`, a model the JAX scan executor
+  does not run (its reason);
 * the process joins the launcher's process group
   (`parallel/mesh.py:initialize_distributed`; nothing at one process, on
   `cuda:{LOCAL_RANK % device_count}`, Gloo or NCCL by `process_backend`;
   a group the caller joined already is used and left open at the end)
-  and builds the training mesh from `mesh.dp` / `fsdp` / `sp` (dp = -1
-  takes the ranks left); `batch_size` is a data rank's rows (the global
-  batch is `batch_size` x dp x fsdp: the JAX trainer's per-process
-  batch), each data rank reads its shard of the dataset, the sp ranks of
-  a data coordinate the same rows; `model.attn_impl="ring"` runs
-  attention as ring attention over the sp ranks; the model and its Adam
-  state are split over fsdp (`parallel/fsdp.py`) after any resume has
-  loaded them whole;
+  and builds the training mesh from `mesh.dp` / `fsdp` / `tp` / `sp` (dp
+  = -1 takes the ranks left) / `pp` (pure-pp: every other axis 1,
+  `check_pipeline`); `batch_size` is a data rank's rows
+  (the global batch is `batch_size` x dp x fsdp: the JAX trainer's
+  per-process batch), each data rank reads its shard of the dataset, the
+  tp, sp and pp ranks of a data coordinate the same rows;
+  `model.attn_impl="ring"` runs attention as ring attention over the sp
+  ranks; the model and its Adam state are cut into tp shards (heads,
+  FF hidden units and vocabulary, `parallel/tensor_parallel.py`) and
+  split over fsdp (`parallel/fsdp.py`) after any resume has loaded them
+  whole; under pp the trunk runs as a GPipe schedule over the stages in
+  `mesh.pp_micro` microbatches (`models/transformer.py:
+  make_pipeline_trunk`);
 * the VAE is the trained dVAE at `--vae_path`, else the VQGAN
   (`--taming`), else the OpenAI dVAE from its cache directory
   (`build_vae`); the pretrained wrappers encode in the step as the dVAE
@@ -76,7 +82,8 @@ The flow:
   full tensors whatever the mesh, so a run saved at one world size
   resumes at another;
 * `sample_per_sec` (this process's rows), `input_wait_frac` and `mfu`
-  (None away from an H100; the rate over the sp ranks sharing the rows)
+  (None away from an H100; the rate over the tp, sp and pp ranks sharing
+  the rows)
   are logged by rank 0 every 10 steps; each step's time (a CUDA event
   pair around it on the card) and its loss (read once at the end) are in
   the summary `main` returns; the plateau scheduler steps once an epoch
@@ -199,21 +206,14 @@ def check_config(cfg: TrainConfig) -> None:
             "each gradient-accumulation step takes batch_size // ga_steps rows"
         )
     m = cfg.mesh
-    if m.tp != 1:
-        raise NotImplementedError(
-            f"mesh.tp={m.tp}: tensor-parallel training (the row-parallel backward) is not "
-            "ported; ROADMAP Queue 1 item 8"
-        )
     if m.pp > 1:
-        raise NotImplementedError(
-            f"mesh.pp={m.pp}: pipeline parallelism (parallel/gpipe.py) is not ported; "
-            "ROADMAP Queue 1 item 8"
-        )
-    if m.fsdp > 1 and cfg.model.reversible and cfg.model.reversible_impl != "remat":
-        raise NotImplementedError(
-            "mesh.fsdp > 1 with the revnet executor, whose backward takes the parameters "
-            "themselves, is not ported; ROADMAP Queue 1 item 8"
-        )
+        check_pipeline(cfg)
+    for axis in ("fsdp", "tp"):
+        if getattr(m, axis) > 1 and cfg.model.reversible and cfg.model.reversible_impl != "remat":
+            raise NotImplementedError(
+                f"mesh.{axis} > 1 with the revnet executor, whose backward takes the parameters "
+                "themselves, is not ported; ROADMAP Queue 1 item 8"
+            )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; one of {MODES}")
     m = cfg.model
@@ -225,6 +225,43 @@ def check_config(cfg: TrainConfig) -> None:
     if not cfg.vae_path and cfg.taming and not (cfg.vqgan_model_path and cfg.vqgan_config_path):
         raise ValueError("--taming needs vqgan_model_path and vqgan_config_path (--set ...)")
     checkpoint_layout(config_to_dict(cfg))
+
+
+def check_pipeline(cfg: TrainConfig) -> None:
+    """The JAX trainer's checks of mesh.pp > 1, in its words: the scan
+    executor, no dropout, no forward_reverse_partial, a depth the stages
+    divide, `pp_micro` dividing a gradient-accumulation step's rows, and a
+    pure-pp mesh."""
+    pp = cfg.mesh.pp
+    if cfg.model.executor != "scan":
+        raise ValueError(
+            "mesh.pp > 1 requires model.executor=scan (the pipeline runs the depth-stacked "
+            "scan layout)"
+        )
+    if cfg.model.attn_dropout or cfg.model.ff_dropout:
+        raise ValueError(
+            "mesh.pp > 1 requires attn_dropout=ff_dropout=0: the pp trunk is deterministic by "
+            "design (models/dalle.py); use dp/fsdp/tp for dropout training"
+        )
+    if cfg.mode == "forward_reverse_partial":
+        raise ValueError(
+            "mesh.pp > 1 cannot run forward_reverse_partial (the pipeline owns the layer order; "
+            "reversed-order execution is a sequential-trunk feature)"
+        )
+    if cfg.model.depth % pp:
+        raise ValueError(f"model.depth={cfg.model.depth} not divisible by mesh.pp={pp}")
+    micro = max(1, int(cfg.mesh.pp_micro))
+    if (cfg.batch_size // max(1, cfg.ga_steps)) % micro:
+        raise ValueError(
+            f"mesh.pp_micro={micro} must divide the per-accum-step batch "
+            f"({cfg.batch_size}//{cfg.ga_steps}); lower pp_micro or raise batch_size"
+        )
+    m = cfg.mesh
+    if m.fsdp != 1 or m.tp != 1 or m.sp != 1 or m.dp not in (1, -1):
+        raise ValueError(
+            "mesh.pp > 1 is a pure-pp mesh: set dp/fsdp/tp/sp to 1 (pp composed with the other "
+            "axes is not ported; ROADMAP Queue 1 item 8)"
+        )
 
 
 def _config(args) -> tuple:
@@ -270,7 +307,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     m = cfg.mesh
-    mesh = make_train_mesh(dp=m.dp, fsdp=m.fsdp, tp=m.tp, sp=m.sp, device=device)
+    mesh = make_train_mesh(dp=m.dp, fsdp=m.fsdp, tp=m.tp, sp=m.sp, pp=m.pp, device=device)
     if mesh.world > 1:
         print(f"rank {mesh.rank} of {mesh.world}: mesh {mesh.shape}, coordinates {mesh.coords}, "
               f"device {device}, backend {backend}")
@@ -346,7 +383,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     raw_step = make_dalle_train_step(
         model, opt, mode=cfg.mode, grad_accum=cfg.ga_steps, null_cond_prob=cfg.null_cond_prob,
         autocast_dtype=torch.bfloat16 if cfg.bf16 else None,
-        vae=vae if in_step_encode else None, mesh=mesh,
+        vae=vae if in_step_encode else None, mesh=mesh, pp_micro=max(1, int(m.pp_micro)),
     )
 
     on_card = device.type == "cuda"
@@ -515,8 +552,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     if rate is not None:
                         log["sample_per_sec"] = rate  # this process's rows
                         log["input_wait_frac"] = round(batch_iter.wait_fraction, 4)
-                        # the sp ranks of a data coordinate share its rows
-                        util = mfu(rate, flops_per_sample, device_name, mesh.shape["sp"])
+                        # the tp, sp and pp ranks of a data coordinate share its rows
+                        sharing = mesh.shape["tp"] * mesh.shape["sp"] * mesh.shape["pp"]
+                        util = mfu(rate, flops_per_sample, device_name, sharing)
                         log["mfu"] = None if util is None else round(util, 4)
                         summary["rates"].append({k: log[k] for k in ("sample_per_sec", "input_wait_frac", "mfu")})
                         if root:

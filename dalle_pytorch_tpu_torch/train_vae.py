@@ -30,6 +30,25 @@ field (the `vae.*` section is the model), `--config` reads a YAML file
 * `--output` is written after every epoch and at the end
   (`save_vae_checkpoint`: the JAX `load_vae_checkpoint` reads it).
 
+Several GPUs train through the launcher, one process a GPU, over the
+data axes of the JAX trainer's mesh (`mesh.dp`, `mesh.fsdp`; dp = -1
+takes the ranks left):
+
+    python -m dalle_pytorch_tpu_torch.launch --nproc_per_host 2 -- \
+        -m dalle_pytorch_tpu_torch.train_vae ... --set mesh.fsdp=2
+
+`batch_size` is then a data rank's rows and each rank reads its block of
+the dataset (the JAX trainer's `shard=(process_index, process_count)`);
+the Gumbel noise is the step key's draw for the global batch, sliced by
+rank; under fsdp each conv's output channels and the codebook's channels
+are split (`parallel/partition.py:vae_fsdp_dims`, the JAX rank-4 conv
+rule), with their Adam moments; gradients and the loss are averaged over
+the data ranks (`parallel/fsdp.py`). The recon grid and the checkpoints
+read the gathered parameters (a collective every rank runs) and rank 0
+writes them. The JAX dVAE runs `mesh.tp` and `mesh.sp` above 1 as
+replicated compute, no rule splitting anything over them: the port
+refuses them (and `mesh.pp`), since replicas would only repeat the work.
+
 `main(argv)` runs in-process and returns a summary of the run.
 """
 
@@ -42,8 +61,17 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dalle_pytorch_tpu_torch.data.prefetch import Prefetcher, host_tensors, to_device
+from dalle_pytorch_tpu_torch.parallel.fsdp import gathered
+from dalle_pytorch_tpu_torch.parallel.mesh import (
+    host_barrier,
+    initialize_distributed,
+    is_root,
+    make_train_mesh,
+    rank_device,
+)
 from dalle_pytorch_tpu_torch.serving.engine import resolve_device
 from dalle_pytorch_tpu_torch.training.config import config_to_dict, load_config
 from dalle_pytorch_tpu_torch.training.lr import ExponentialDecay
@@ -84,6 +112,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def check_mesh(cfg) -> None:
+    """The dVAE trains over the data axes only: refuse tp, sp and pp above
+    1 (replicated compute in the JAX dVAE)."""
+    m = cfg.mesh
+    for axis in ("tp", "sp", "pp"):
+        if getattr(m, axis) > 1:
+            raise ValueError(
+                f"mesh.{axis}={getattr(m, axis)}: the dVAE has no {axis} split (the JAX rules name "
+                "none; it would only replicate the work); train it over mesh.dp / mesh.fsdp"
+            )
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -96,6 +136,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg.image_text_folder = args.image_folder
     if args.debug:
         cfg.debug = True
+    check_mesh(cfg)
+    device = rank_device(device)
+    joined = dist.is_initialized()  # the caller's group: the caller closes it
+    backend = initialize_distributed(device=device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_train_mesh(dp=cfg.mesh.dp, fsdp=cfg.mesh.fsdp, device=device)
+    root = is_root()
 
     tokenizer = build_tokenizer(config_to_dict(cfg))
     dataset = build_dataset(cfg, tokenizer, image_size=cfg.vae.image_size)
@@ -105,7 +153,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     with device:  # initialized where it trains
         vae = vae_from_config(cfg.vae)
     opt = make_optimizer(vae.parameters(), cfg.learning_rate)
-    raw_step = make_vae_train_step(vae, opt, grad_accum=cfg.ga_steps)
+    raw_step = make_vae_train_step(vae, opt, grad_accum=cfg.ga_steps, mesh=mesh)
     on_card = device.type == "cuda"
     timer = StepTimer(on_card)
     temp = cfg.vae.temperature
@@ -123,14 +171,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     run_steps = {n: make_multi_step(keyed_step, n) for n in {1, steps_per_dispatch}}
 
     logger = MetricsLogger(
-        project=cfg.project, config={"cli": "train_vae"}, debug=cfg.debug,
+        project=cfg.project, config={"cli": "train_vae"}, enabled=root, debug=cfg.debug,
         out_dir=str(Path(cfg.output_dir) / "vae_logs"),
     )
     meter = ThroughputMeter()
     sched = ExponentialDecay(gamma=args.lr_decay_rate) if cfg.lr_decay else None
-    summary = dict(losses=[], temperatures=[], learning_rates=[], usage=[])
+    summary = dict(losses=[], temperatures=[], learning_rates=[], usage=[], mesh=dict(mesh.shape),
+                   rank=mesh.rank, backend=backend)
+
+    def save(epoch: int) -> None:
+        with gathered(vae, opt):  # every rank gathers, rank 0 writes
+            if root:
+                save_vae_checkpoint(args.output, vae, epoch)
     global_step = 0
     batch_iter = None
+    step_losses = []  # each step's (window's) loss, read once at the end
 
     def assemble(batch):
         """(host tensors of the step's images, pinned on a card; the first
@@ -138,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return host_tensors({"images": batch["images"]}, on_card), np.asarray(batch["images"][:4])
 
     for epoch in range(cfg.epochs):
-        raw_batches = dataset.batches(cfg.batch_size, shuffle_seed=epoch, shard=(0, 1))
+        raw_batches = dataset.batches(cfg.batch_size, shuffle_seed=epoch,
+                                      shard=(mesh.data_rank, mesh.data_world))
         batch_iter = Prefetcher(window_iter(raw_batches, steps_per_dispatch),
                                 transform=lambda win: [assemble(b) for b in win],
                                 depth=cfg.prefetch_depth)
@@ -151,6 +207,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     metrics = run_steps[len(part)](
                         [host for host, _ in part], window_keys(cfg.seed, global_step, len(part)))
                     global_step += len(part)
+                    step_losses.append(metrics["loss"])  # a device scalar: no sync here
                 r = step_key(cfg.seed, global_step - 1)  # the last step's key
                 images_head = window[0][1] if len(window) == steps_per_dispatch else window[-1][1]
 
@@ -160,7 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 log = {}
                 if crossed(100):
                     head = torch.as_tensor(images_head, device=device)
-                    with torch.no_grad():
+                    with torch.no_grad(), gathered(vae):
                         soft = vae(head, temp=temp, generator=generator(r))
                         codes = vae.get_codebook_indices(head)
                         hard = vae.decode(codes)
@@ -187,24 +244,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 if crossed(10):
                     log["loss"] = float(metrics["loss"])
                     summary["losses"].append((global_step, log["loss"]))
-                    print(epoch, global_step, f"loss - {log['loss']:.5f}")
+                    if root:
+                        print(epoch, global_step, f"loss - {log['loss']:.5f}")
                 if log:
                     logger.log(log, step=global_step)
         finally:
             batch_iter.close()
 
-        save_vae_checkpoint(args.output, vae, epoch)
-        print(f"epoch {epoch} done; checkpoint -> {args.output}")
+        save(epoch)
+        if root:
+            print(f"epoch {epoch} done; checkpoint -> {args.output}")
         logger.log_model_artifact(args.output, "trained-vae")
 
-    save_vae_checkpoint(args.output, vae, cfg.epochs)
+    save(cfg.epochs)
     if on_card:
         torch.cuda.synchronize()
     logger.finish()
+    summary.update(staged_calls=dict(mesh.comm.staged), collective_calls=dict(mesh.comm.calls),
+                   collective_bytes=dict(mesh.comm.bytes))
+    if backend is not None:
+        host_barrier()
+        if not joined:
+            dist.destroy_process_group()
     summary.update(global_step=global_step, out_file=args.output, temperature=temp,
                    step_ms=timer.step_ms(),
                    learning_rate=get_learning_rate(opt),
-                   last_loss=float(metrics["loss"]) if global_step else None)
+                   last_loss=float(metrics["loss"]) if global_step else None,
+                   step_losses=[float(x) for x in step_losses])
     return summary
 
 

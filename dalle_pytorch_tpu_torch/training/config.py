@@ -40,12 +40,11 @@ class MeshConfig:
     fsdp: int = 1
     tp: int = 1
     sp: int = 1
-    # pipeline parallelism (the JAX parallel/gpipe.py GPipe schedule over
-    # the transformer trunk; not ported: the port's trainer refuses
-    # pp > 1). There pp > 1 requires executor="scan", zero dropout
-    # (the pp trunk is deterministic by design — models/dalle.py), a mode
-    # without reversed layer order, and dp/fsdp/tp/sp all 1 (pure-pp
-    # mesh; compose dp x pp via parallel/gpipe.pipeline_layers directly)
+    # pipeline parallelism (parallel/gpipe.py's GPipe schedule over the
+    # transformer trunk, the JAX one's twin): pp > 1 requires
+    # executor="scan", zero dropout (the pp trunk is deterministic), a
+    # mode without reversed layer order, and dp/fsdp/tp/sp all 1 (a
+    # pure-pp mesh; pp composed with other axes is ROADMAP Queue 1 item 8)
     pp: int = 1
     pp_micro: int = 4  # GPipe microbatches per step (batch % pp_micro == 0)
 

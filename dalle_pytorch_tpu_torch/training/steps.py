@@ -9,7 +9,7 @@ its `_accumulate` / `_microbatch` and the in-step dVAE encode,
 batch is {"text": [B, T] ids, "image_tokens": [B, N] ids}, or with a
 frozen `vae` {"text", "images": [B, H, W, C] in [0, 1]}: the step then
 encodes the images to tokens first, without gradient, in the VAE's
-float32 and outside autocast. The pipeline-parallel trunk is not ported.
+float32 and outside autocast.
 
 Objective modes (`MODES`): forward_only is the text -> image loss;
 forward_forward adds the inverse (image -> text) loss in the same layer
@@ -46,7 +46,19 @@ null-conditioning draw is made for the global microbatch from the step's
 key and sliced by rank, so with `grad_accum` = 1 a row draws what it
 draws on one device (microbatch i of the global step is each data rank's
 microbatch i in rank order). The sp ranks of a data coordinate hold the
-same rows and compute the same step.
+same rows and compute the same step, and so do the tp ranks, each over
+its shard of the model (`parallel/tensor_parallel.py:TrainingShards`,
+built here and cut by `FSDP`), drawing the rows its data rank draws.
+
+A pure-pp mesh (`mesh.shape["pp"]` > 1: every other axis 1) runs the
+transformer trunk pipeline-parallel (`models/transformer.py:
+make_pipeline_trunk`, `pp_micro` microbatches a GPipe schedule): every
+stage holds the whole batch and the whole model, runs the embeddings,
+the head and the loss on the trunk's output, and after the backward the
+trunk's gradients are summed over the stages. The pp trunk runs
+deterministic, with the null-conditioning draw still made (it acts on the
+text before the trunk), and refuses forward_reverse_partial: the
+pipeline owns the layer order.
 
 Mixed precision: the reference keeps float32 parameters and computes in
 bfloat16 through flax's `dtype`, which also makes its residual stream
@@ -65,8 +77,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch.models.transformer import make_pipeline_trunk
+from dalle_pytorch_tpu_torch.ops.gumbel import gumbel_noise
 from dalle_pytorch_tpu_torch.ops.sampling import row_seed
 from dalle_pytorch_tpu_torch.parallel.fsdp import FSDP, fsdp_of
+from dalle_pytorch_tpu_torch.parallel.partition import vae_fsdp_dims
+from dalle_pytorch_tpu_torch.parallel.tensor_parallel import TrainingShards
 
 MODES = ("forward_only", "forward_forward", "forward_reverse_partial", "reverse_only")
 
@@ -127,12 +143,20 @@ def _microbatches(batch: Dict[str, torch.Tensor], accum: int):
     return [{k: v[i * size : (i + 1) * size] for k, v in batch.items()} for i in range(accum)]
 
 
-def make_dalle_loss(model, mode: str = "forward_only", null_cond_prob: float = 0.0) -> Callable:
+def make_dalle_loss(model, mode: str = "forward_only", null_cond_prob: float = 0.0,
+                    trunk_fn: Optional[Callable] = None) -> Callable:
     """loss_fn(batch, generator) -> (loss, metrics), the reference step's
     loss composition for `mode`. `generator` (a CPU torch.Generator, the
-    global one when None) seeds the step's null-conditioning draw."""
+    global one when None) seeds the step's null-conditioning draw.
+    `trunk_fn` runs in place of the transformer (`DALLE.forward`)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if trunk_fn is not None and mode == "forward_reverse_partial":
+        raise ValueError(
+            "pipeline parallelism cannot run reversed layer order (trunk_fn owns the layer "
+            "order); use forward_only / forward_forward / reverse_only"
+        )
+    trunk = {} if trunk_fn is None else {"trunk_fn": trunk_fn}
 
     def loss_fn(batch, generator: Optional[torch.Generator] = None, rows=None):
         """`rows` (offset, total): the batch is rows [offset, offset + B)
@@ -149,7 +173,7 @@ def make_dalle_loss(model, mode: str = "forward_only", null_cond_prob: float = 0
                                torch.zeros_like(text), text)
 
         def apply(**kw):
-            return model(text, tokens, return_loss=True, **kw)
+            return model(text, tokens, return_loss=True, **trunk, **kw)
 
         metrics = {}
         if mode == "reverse_only":
@@ -224,6 +248,7 @@ def make_dalle_train_step(
     autocast_dtype: Optional[torch.dtype] = torch.bfloat16,
     vae=None,
     mesh=None,
+    pp_micro: int = 1,
 ) -> Callable:
     """step(batch, generator=None) -> metrics: one optimizer step on a
     batch (same device as the model) of {"text", "image_tokens"}, or of
@@ -231,14 +256,23 @@ def make_dalle_train_step(
     `autocast_dtype` None computes in the parameters' dtype. With a
     training `mesh` of more than one rank the batch is this data rank's
     rows, the model is split by `FSDP` (its parameters and `optimizer`'s
-    Adam state, in place; `parallel/fsdp.py:fsdp_of(model)`), and the
-    metrics are the global batch's."""
-    loss_fn = make_dalle_loss(model, mode, null_cond_prob)
-    if vae is not None:
-        vae.eval().requires_grad_(False)
+    Adam state, in place, over tp and fsdp; `parallel/fsdp.py:
+    fsdp_of(model)`), and the metrics are the global batch's; a pp mesh
+    runs the trunk in `pp_micro` microbatches through its stages."""
     if mesh is not None and mesh.world == 1:
         mesh = None
-    fsdp = FSDP(model, mesh, optimizer) if mesh is not None else None
+    trunk = None
+    if mesh is not None and mesh.shape["pp"] > 1:
+        if mesh.world != mesh.shape["pp"]:
+            raise ValueError(f"mesh.pp > 1 is a pure-pp mesh, got {mesh.shape}")
+        trunk = make_pipeline_trunk(model.transformer, mesh, pp_micro)
+    loss_fn = make_dalle_loss(model, mode, null_cond_prob, trunk_fn=trunk)
+    if vae is not None:
+        vae.eval().requires_grad_(False)
+    fsdp = None
+    if mesh is not None:
+        tp = TrainingShards(model, mesh) if mesh.shape["tp"] > 1 else None
+        fsdp = FSDP(model, mesh, optimizer, tp=tp)
 
     def step(batch, generator: Optional[torch.Generator] = None):
         if vae is not None and "image_tokens" not in batch:
@@ -246,6 +280,8 @@ def make_dalle_train_step(
         metrics = accumulate_gradients(
             model, loss_fn, batch, grad_accum, generator, autocast_dtype, mesh
         )
+        if trunk is not None:
+            trunk.reduce_gradients()
         if fsdp is not None:
             fsdp.reduce_gradients()
             metrics = fsdp.mean_metrics(metrics)
@@ -257,20 +293,38 @@ def make_dalle_train_step(
     return step
 
 
-def make_vae_train_step(vae, optimizer: Optimizer, grad_accum: int = 1) -> Callable:
+def make_vae_train_step(vae, optimizer: Optimizer, grad_accum: int = 1, mesh=None) -> Callable:
     """step(batch, temp, generator=None) -> metrics: one optimizer step of
     the dVAE on {"images": [B, H, W, C] in [0, 1]} at Gumbel temperature
     `temp` (the trainer anneals it), in float32. The batch may carry its
     Gumbel "noise" [B, h, w, num_tokens]; else each microbatch draws its
-    own from `generator`."""
+    own from `generator`. Over a training `mesh` of data ranks (dp x fsdp;
+    tp and sp 1) the batch is this data rank's rows: the noise is drawn
+    for the global microbatch and sliced by rank, the parameters and Adam
+    state are split over fsdp by `vae_fsdp_dims` (`FSDP`), and the
+    gradients and metrics are averaged over the data ranks."""
+    if mesh is not None and mesh.world == 1:
+        mesh = None
+    if mesh is not None and mesh.data_world != mesh.world:
+        raise ValueError(f"the dVAE trains over data ranks only (dp, fsdp), got {mesh.shape}")
+    fsdp = FSDP(vae, mesh, optimizer, dims=vae_fsdp_dims(vae, mesh)) if mesh is not None else None
 
     def step(batch, temp: float, generator: Optional[torch.Generator] = None):
-        def loss_fn(mb, gen):
-            loss = vae(mb["images"], return_loss=True, temp=temp, noise=mb.get("noise"),
-                       generator=gen)
+        def loss_fn(mb, gen, rows=None):
+            noise = mb.get("noise")
+            if noise is None and rows is not None:
+                images = mb["images"]
+                h = vae.fmap_size
+                offset, total = rows
+                noise = gumbel_noise((total, h, h, vae.num_tokens), gen, images.device,
+                                     torch.float32)[offset: offset + images.shape[0]]
+            loss = vae(mb["images"], return_loss=True, temp=temp, noise=noise, generator=gen)
             return loss, {"loss": loss}
 
-        metrics = accumulate_gradients(vae, loss_fn, batch, grad_accum, generator)
+        metrics = accumulate_gradients(vae, loss_fn, batch, grad_accum, generator, mesh=mesh)
+        if fsdp is not None:
+            fsdp.reduce_gradients()
+            metrics = fsdp.mean_metrics(metrics)
         optimizer.step()
         return metrics
 

@@ -5,11 +5,16 @@ a sound sharded run reads and what a broken one reads.
 
     python3 scripts/torch_multi_fault_probe.py [--out chiprun_out/multi_fault_probe.json]
 
-Needs one CUDA card. It runs phase 15's two one-process references (the
-flash model and the ring model) in this process, then one launch of two
-ranks on the card (`python -m dalle_pytorch_tpu_torch.launch
---nproc_per_host 2`) whose ranks run, in turn, the sound fsdp = 2 and
-ring sp = 2 runs and one run for each planted fault:
+    python3 scripts/torch_multi_fault_probe.py --runs vae_fsdp2   # the dVAE's runs only
+
+Needs one CUDA card. It runs phase 15's three one-process references
+(the flash model, the ring model and the pipeline's `--exp ff` scan
+model) in this process, then one launch of two ranks on the card
+(`python -m dalle_pytorch_tpu_torch.launch --nproc_per_host 2`) whose
+ranks run, in turn, the sound fsdp = 2, ring sp = 2, tp = 2, pp = 2 and
+dVAE fsdp = 2 runs and one run for each planted fault (`--runs` keeps
+the named runs only; a dVAE run's reference is its own global batches
+stepped again in this process, `chip_smoke.multi_vae_replay`):
 
   no_div       the gradients summed over the data ranks, not averaged
   unreduced    no gradient all-reduce after the backward (the whole
@@ -18,6 +23,17 @@ ring sp = 2 runs and one run for each planted fault:
   sign         the averaged gradient negated
   no_last_hop  the ring's backward leaves each dk / dv block one rank
                short of home
+  no_g         tp: the row-parallel outputs and the embeddings not summed
+               over tp (Megatron's g skipped)
+  no_f_back    tp: the input gradient of a column-parallel layer not
+               summed over tp (f's backward skipped)
+  bias_twice   tp: a row-parallel layer's bias added twice
+  pipe_drop    pp: the last hop of each pass of the schedule arrives as
+               zeros
+  pipe_order   pp: the first stage feeds the microbatches in reverse
+               order
+  noise_swap   the dVAE: each data rank takes the other rank's rows of
+               the global batch's Gumbel noise
 
 A fault is planted in the rank process by patching one function of the
 port for the length of its run; nothing in the package changes. Each
@@ -116,11 +132,88 @@ def no_last_hop():
     return patched(Collectives, "ring_shift", make)
 
 
+def no_g():
+    from dalle_pytorch_tpu_torch.parallel import tensor_parallel
+
+    return patched(tensor_parallel, "reduce_from_group", lambda reduce: lambda x, comm, group: x)
+
+
+@contextmanager
+def no_f_back():
+    from dalle_pytorch_tpu_torch.parallel.collectives import _CopyToGroup
+
+    kept = _CopyToGroup.__dict__["backward"]
+    _CopyToGroup.backward = staticmethod(lambda ctx, grad: (grad, None, None))
+    try:
+        yield
+    finally:
+        _CopyToGroup.backward = kept
+
+
+def bias_twice():
+    from dalle_pytorch_tpu_torch.parallel import tensor_parallel
+
+    def make(row):
+        def _row(lin, comm, group):
+            forward = row(lin, comm, group)
+            return lambda x: (lambda y: y + lin.bias.to(y.dtype))(forward(x))
+
+        return _row
+
+    return patched(tensor_parallel, "_row", make)
+
+
+def pipe_drop():
+    import torch
+
+    from dalle_pytorch_tpu_torch.parallel.collectives import Collectives
+
+    got = [0]
+
+    def make(shift):
+        def pipe_shift(self, t, group, dst=None, src=None, like=None, **kw):
+            out = shift(self, t, group, dst=dst, src=src, like=like, **kw)
+            if out is not None:
+                got[0] += 1
+                if got[0] % cs_pp_micro() == 0:  # each pass's last receive
+                    return torch.zeros_like(out)
+            return out
+
+        return pipe_shift
+
+    return patched(Collectives, "pipe_shift", make)
+
+
+def pipe_order():
+    from dalle_pytorch_tpu_torch.parallel import gpipe
+
+    return patched(gpipe, "_slot", lambda slot: lambda t, n: slot(t, n)[::-1])
+
+
+def noise_swap():
+    from dalle_pytorch_tpu_torch.training import steps
+
+    # the global draw's halves swapped: each rank's slice is the other's rows
+    return patched(steps, "gumbel_noise",
+                   lambda draw: lambda shape, *a, **kw: draw(shape, *a, **kw).roll(shape[0] // 2, 0))
+
+
+def cs_pp_micro():
+    import chip_smoke as cs
+
+    return cs.MULTI_PP_MICRO
+
+
 PLANTS = {"none": nullcontext, "no_div": no_div, "unreduced": unreduced, "half_batch": half_batch,
-          "sign": sign, "no_last_hop": no_last_hop}
+          "sign": sign, "no_last_hop": no_last_hop, "no_g": no_g, "no_f_back": no_f_back,
+          "bias_twice": bias_twice, "pipe_drop": pipe_drop, "pipe_order": pipe_order,
+          "noise_swap": noise_swap}
 #: (the sharded run, the planted fault), in the launch's order
-RUNS = [("fsdp2", "none"), ("ring_sp2", "none"), ("fsdp2", "no_div"), ("fsdp2", "unreduced"),
-        ("fsdp2", "half_batch"), ("fsdp2", "sign"), ("ring_sp2", "no_last_hop")]
+RUNS = [("fsdp2", "none"), ("ring_sp2", "none"), ("tp2", "none"), ("pp2", "none"), ("vae_fsdp2", "none"),
+        ("fsdp2", "no_div"), ("fsdp2", "unreduced"), ("fsdp2", "half_batch"), ("fsdp2", "sign"),
+        ("ring_sp2", "no_last_hop"), ("tp2", "no_g"), ("tp2", "no_f_back"), ("tp2", "bias_twice"),
+        ("pp2", "pipe_drop"), ("pp2", "pipe_order"), ("vae_fsdp2", "unreduced"),
+        ("vae_fsdp2", "noise_swap")]
 
 
 def train_rank(argv):
@@ -134,8 +227,11 @@ def train_rank(argv):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "multi_fault_probe.json"))
-    ap.add_argument("--timeout", type=float, default=900)
+    ap.add_argument("--timeout", type=float, default=1500)
+    ap.add_argument("--runs", default=None, help="comma-separated run names to keep (default: all)")
     opts = ap.parse_args()
+    chosen = [(name, plant) for name, plant in RUNS
+              if opts.runs is None or name in opts.runs.split(",")]
 
     import torch
 
@@ -149,28 +245,41 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     run_dir = REPO / "build" / "multi_fault_probe"
     steps = cs.MULTI_SAMPLES // 4
+    pp = list(cs.MULTI_PP_FLAGS)
     flags = {
         "fsdp2": (2, ["--set", "mesh.fsdp=2"], []),
         "ring_sp2": (4, ["--set", "mesh.sp=2", "--set", "model.attn_impl=ring"],
                      ["--set", "model.attn_impl=ring"]),
+        "tp2": (4, ["--set", "mesh.tp=2"], []),
+        "pp2": (4, [*pp, "--set", "mesh.pp=2", "--set", f"mesh.pp_micro={cs.MULTI_PP_MICRO}"], pp),
     }
+    refs_of = {"fsdp2": "fsdp2", "ring_sp2": "ring_sp2", "tp2": "fsdp2", "pp2": "pp2"}
+    used = {refs_of[name] for name, _ in chosen if name in refs_of}
     t0 = time.perf_counter()
     try:
         with cs.cli_precision(torch):
             vae_path = cs.multi_setup(torch, run_dir)
             refs = {name: cs.multi_one_process(torch, cs.multi_trainer_args(
                 run_dir / f"ref_{name}", vae_path, 4, *ref, "--set", "log_images_freq=0"))
-                for name, (_, _, ref) in flags.items()}
-            runs = [cs.multi_trainer_args(run_dir / f"{i}_{name}_{plant}", vae_path, flags[name][0],
-                                          *flags[name][1], "--set", "log_images_freq=0")
-                    for i, (name, plant) in enumerate(RUNS)]
+                for name, (_, _, ref) in flags.items() if name in used}
+
+            def args(i, name, plant):
+                if name == "vae_fsdp2":
+                    return cs.multi_vae_args(run_dir / f"{i}_{name}_{plant}", 2, "--set", "mesh.fsdp=2")
+                return cs.multi_trainer_args(run_dir / f"{i}_{name}_{plant}", vae_path, flags[name][0],
+                                             *flags[name][1], "--set", "log_images_freq=0")
+
+            runs = [args(i, name, plant) for i, (name, plant) in enumerate(chosen)]
             out = run_dir / "ranks"
             records = cs.launch_ranks(
                 out, runs, rank_cmd=[str(Path(__file__).resolve()), "--train-rank", str(out), "--plants",
-                                     ",".join(plant for _, plant in RUNS)],
+                                     ",".join(plant for _, plant in chosen)],
                 timeout=opts.timeout)
-            readings = [dict(run=name, plant=plant, **cs.multi_readings(refs[name], ranks))
-                        for (name, plant), ranks in zip(RUNS, records)]
+            readings = []
+            for i, ((name, plant), ranks) in enumerate(zip(chosen, records)):
+                ref = (cs.multi_vae_replay(torch, ranks, run_dir / f"{i}_replay.npz")
+                       if name == "vae_fsdp2" else refs[refs_of[name]])
+                readings.append(dict(run=name, plant=plant, **cs.multi_readings(ref, ranks)))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     keys = ("loss_max_rel_diff", "grad_rel_diff", "grad_worst_rel_diff", "update_rel_diff",

@@ -315,16 +315,17 @@ def test_trainer_export_loads_in_the_reference_and_the_engine(tmp_path, monkeypa
 
 @pytest.mark.parametrize("name, extra, error", [
     ("ga_steps", ["--set", "ga_steps=3"], (ValueError, "ga_steps=3 must divide")),
-    # dp, fsdp and sp (the ring) train over processes (tests/test_torch_launch.py,
-    # test_torch_parallel_train.py, test_torch_ring.py); refused: fsdp with the revnet,
-    # tp and pp, and a mesh the run's processes do not fill
+    # dp, fsdp, tp, sp (the ring) and pp train over processes (tests/test_torch_launch.py,
+    # test_torch_parallel_train.py, test_torch_ring.py, test_torch_tp_pp_train.py); refused:
+    # fsdp with the revnet, the JAX trainer's pp checks (the scan executor first), and a
+    # mesh the run's processes do not fill
     ("fsdp", ["--set", "mesh.fsdp=2", "--set", "model.reversible=true",
               "--set", "model.reversible_impl=revnet"], (NotImplementedError, "item 8")),
-    ("dp", ["--set", "mesh.dp=2"], (ValueError, r"mesh 2x1x1x1 != 1 processes")),
-    ("pp", ["--set", "mesh.pp=2"], (NotImplementedError, "item 8")),
+    ("dp", ["--set", "mesh.dp=2"], (ValueError, r"mesh 2x1x1x1x1 != 1 processes")),
+    ("pp", ["--set", "mesh.pp=2"], (ValueError, "mesh.pp > 1 requires model.executor=scan")),
     ("ring", ["--set", "model.attn_impl=ring", "--set", "mesh.sp=2"],
-     (ValueError, r"1 processes not divisible by fsdp\*tp\*sp=2")),
-    ("tp", ["--set", "mesh.tp=2"], (NotImplementedError, "row-parallel backward")),
+     (ValueError, r"1 processes not divisible by fsdp\*tp\*sp\*pp=2")),
+    ("tp", ["--set", "mesh.tp=2"], (ValueError, r"1 processes not divisible by fsdp\*tp\*sp\*pp=2")),
     ("scan", ["--set", "model.executor=scan", "--set", "model.shared_attn_ids=0,0"],
      (ValueError, 'executor="scan" does not support cross-layer weight sharing')),
     ("revnet", ["--set", "model.reversible=true", "--set", "model.reversible_impl=revnet",
