@@ -252,6 +252,27 @@ Phases, each failing loudly (nonzero exit, no result line):
    in this process runs each call of `parallel/collectives.py` once on a
    CUDA tensor, the pipeline's hop among them.
 
+16. (run after phase 14, before phase 15) the replica fleet
+   (`run_fleet`, which starts, drives and stops its processes):
+   a depth-SHORT_DEPTH flagship-width checkpoint served by two subprocess
+   replicas of `python -m dalle_pytorch_tpu_torch.serve --engine
+   continuous` (4 slots, chunks of 4, vitals and the cost table on, a
+   crash spool every 2 chunks), B under `--supervise --spool_notify`,
+   behind `serve --router`: (a) four seeded requests direct to A and
+   through the router, tokens `torch.equal`, both replicas serving; (b)
+   the four again with B's child SIGKILLed once its spool holds a beacon:
+   all 200, each re-dispatched request resumed on A at its journaled
+   chunk (tokens held as phase 10 holds a resume), the supervisor's exit,
+   restart and hand-off, B healthy again through its half-open trial;
+   (c) the four under a drain of A with `propagate=1`: no client error,
+   the requests after it on B, then undrain; (d) `/fleet/metrics`,
+   `/debug/fleet`'s MFU headroom and `/debug/usage`; (e) each replica's
+   `/debug/programs`: counted FLOPs equal to `fleet_flops`, MFU in (0,
+   1] and the counted FLOPs over the EMA wall at most the card's peak,
+   depth x 4 step launches a chunk, the tile arm in prefill and
+   resume; (f) no CUDA context in the router or the supervisor
+   (nvidia-smi and /proc/<pid>/maps).
+
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
 `flash_decode_tile_f32.cu`: fp32 q at n > 4; both cache arms) at the
@@ -339,6 +360,7 @@ def kill_group(proc) -> None:
         os.killpg(proc.pid, signal.SIGKILL)
     except ProcessLookupError:
         pass
+
 
 
 def start_watchdog() -> None:
@@ -5109,6 +5131,586 @@ def tp_fields(tp, name):
     return out
 
 
+# --------------------------------------------------------------- phase 16
+# the replica fleet: two subprocess replicas of the serve twin (B under the
+# crash-fast supervisor) behind the router, on the one card
+FLEET_SLOTS = 4  # each replica's slots, prefill wave and chunk tokens
+FLEET_SPOOL_EVERY = 2  # chunk boundaries between B's crash beacons
+FLEET_TIMEOUT_S = 300.0  # the router's and the replicas' request timeout
+FLEET_MIGRATE_WAIT_S = 180.0  # a crashed request's wait for the spool hand-off
+FLEET_READY_S = 420.0  # a replica's boot, the kernels' load included
+FLEET_PROMPTS = ("a red cube", "a blue sphere on grass", "a green pyramid", "a yellow torus at night")
+FLEET_TENANTS = ("studio", "lab")
+
+
+def reserve_port():
+    """A socket bound to a free loopback port and held, so that neither a
+    bind to port 0 nor a connection's ephemeral port takes the port until
+    the socket is closed. Returns (socket, port)."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    return sock, sock.getsockname()[1]
+
+
+def free_port() -> int:
+    sock, port = reserve_port()
+    sock.close()
+    return port
+
+
+def fleet_checkpoint(torch, vae, work):
+    """The replicas' checkpoint, as phase 14c's: the flagship width at
+    depth SHORT_DEPTH in bf16 with the default vocabulary, random weights
+    from a seed. Returns (path, the model's config, the model): the
+    model stays for the margins of the resumed rows (`noised_margins`)."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.training.pipeline import dalle_config, dvae_hparams, save_dalle_checkpoint
+    from dalle_pytorch_tpu_torch.weights import export_dvae_params
+
+    path = work / "dalle_fleet.npz"
+    cfg = {**FLAGSHIP, "depth": SHORT_DEPTH, "num_text_tokens": default_vocab()}
+    torch.manual_seed(SEED + 16)
+    with torch.device("cuda"):
+        model = DALLE(**cfg).to(torch.bfloat16)
+    save_dalle_checkpoint(str(path), dalle_config(model, bf16=True), model, vae_params=export_dvae_params(vae),
+                          vae_hparams=dvae_hparams(vae))
+    return path, cfg, model.eval()
+
+
+def fleet_flops(cfg, slots=FLEET_SLOTS):
+    """The phase's own count of the replicas' programs at their warmup
+    shapes, from the model's configuration alone, for each of "prefill",
+    "resume" and "chunk": each layer's matrix products (2 flops a weight a
+    position: qkv, out, the GEGLU's two), 4 * dim_head flops a head for
+    each visible (query, key) pair, 2 * dim * vocabulary for each logits
+    row. The warmup prefills slot 0 and resumes slot 1 at image position 1
+    (the rest idle at 0), then runs one chunk; a prefill and a resume are
+    `slots` rows from an empty cache."""
+    dim, depth, heads, dh = cfg["dim"], cfg["depth"], cfg["heads"], cfg["dim_head"]
+    inner, hidden = heads * dh, 4 * dim
+    text = cfg["text_seq_len"] + 1
+    seq = cfg["image_fmap_size"] ** 2
+    vocab = cfg["num_text_tokens"] + cfg["text_seq_len"] + cfg["num_image_tokens"]
+    per_token = depth * 2 * (dim * 3 * inner + inner * dim + dim * 2 * hidden + hidden * dim)
+    per_pair = depth * 4 * dh * heads
+    per_logit = 2 * dim * vocab
+
+    def forward(n, rows):  # rows of n positions from an empty cache, causal
+        return rows * (n * per_token + n * (n + 1) // 2 * per_pair + per_logit)
+
+    chunk = 0
+    for t in range(slots):
+        positions = [t, 1 + t] + [0] * (slots - 2)
+        chunk += slots * (per_token + per_logit) + sum(text + p + 1 for p in positions) * per_pair
+    return {"prefill": forward(text, slots), "resume": forward(text + seq - 1, slots), "chunk": chunk}
+
+
+def log_lines(path):
+    """The JSON lines of a log file written so far."""
+    out = []
+    if not Path(path).exists():
+        return out
+    for line in Path(path).read_text().splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def wait_for(cond, timeout, label, interval=0.05):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            fail(f"{label}: not within {timeout:.0f} s")
+        time.sleep(interval)
+
+
+def fleet_command(name, path, work, ports):
+    """The command of the fleet's process `name`: "a" (a plain serve twin
+    replica on a port of its own choosing), "b" (the same under
+    --supervise on `ports["b"]`, handing its spool to the router) or
+    "router" (on `ports["router"]`, before A's and B's ports)."""
+    base = [
+        sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--dalle_path", str(path), "--engine",
+        "continuous", "--batch_shapes", str(FLEET_SLOTS), "--chunk_tokens", str(FLEET_SLOTS),
+        "--prefill_batch", str(FLEET_SLOTS), "--preview_every", "0", "--request_timeout_s", str(FLEET_TIMEOUT_S),
+        "--spool_every", str(FLEET_SPOOL_EVERY), "--vitals_interval_s", "0.5",
+        "--checkpoint_spool", str(work / f"spool_{name}"), "--trace_site", f"replica-{name}",
+        "--request_log_path", str(work / f"{name}.jsonl"),
+    ]
+    if name == "a":
+        return base + ["--port", "0"]
+    if name == "b":
+        return base + ["--port", str(ports["b"]), "--supervise", "--spool_notify",
+                       f"http://127.0.0.1:{ports['router']}"]
+    return [
+        sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--router", "--port", str(ports["router"]),
+        "--replicas", f"a=http://127.0.0.1:{ports['a']},b=http://127.0.0.1:{ports['b']}",
+        "--migrate_wait_s", str(FLEET_MIGRATE_WAIT_S), "--request_timeout_s", str(FLEET_TIMEOUT_S),
+        "--attempt_timeout_s", str(FLEET_TIMEOUT_S), "--probe_interval_s", "0.5",
+        "--fleet_scrape_interval_s", "1", "--trace_site", "router", "--request_log_path", str(work / "router.jsonl"),
+    ]
+
+
+def start_fleet_process(name, cmd, work, procs):
+    """Start one process of the fleet, the leader of its own process group,
+    its output in `work`/<name>.out; put it in `procs` and `CHILDREN`."""
+    out = work / f"{name}.out"
+    with open(out, "w") as sink:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=sink, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+    CHILDREN.append(proc)
+    procs[name] = (proc, out)
+
+
+def wait_output(procs, name, test, timeout):
+    """Wait for the first line of process `name`'s output that `test`
+    accepts (its output file, so that the wait makes no connection);
+    returns what `test` returned. Fails if the process exits first."""
+    proc, out = procs[name]
+
+    def seen():
+        for line in Path(out).read_text(errors="replace").splitlines():
+            got = test(line)
+            if got:
+                return got
+        if proc.poll() is not None:
+            fail(f"phase 16: {name} exited {proc.returncode}:\n{Path(out).read_text()[-3000:]}")
+        return None
+
+    return wait_for(seen, timeout, f"phase 16: {name} ready", interval=0.25)
+
+
+def listening_port(prefix):
+    """A readiness-line test: the port of a line "<prefix>http://127.0.0.1:<port> ..."."""
+    def test(line):
+        if line.startswith(prefix + "http://127.0.0.1:"):
+            return int(line[len(prefix) + len("http://127.0.0.1:"):].split()[0])
+        return None
+
+    return test
+
+
+def log_event(event):
+    """A line test: the JSON log line of `event`."""
+    def test(line):
+        if not line.startswith("{"):
+            return None
+        try:
+            return json.loads(line).get("event") == event
+        except ValueError:
+            return None
+
+    return test
+
+
+def start_fleet(path, work, procs):
+    """Phase 16's processes, each in `procs`: replicas A and B started
+    together, then the router once both serve (a probe that meets a
+    booting replica ejects it into the probe backoff). B's --spool_notify
+    names the router's port, so that port is held by a bound socket from
+    before B's start until just before the router's; B's port is picked
+    as B starts, A's is its own (--port 0). No connection is made while
+    they start: readiness is read from the processes' output. Returns the
+    ports {"a", "b", "router"}."""
+    held, router_port = reserve_port()
+    try:
+        ports = {"b": free_port(), "router": router_port}
+        start_fleet_process("a", fleet_command("a", path, work, ports), work, procs)
+        start_fleet_process("b", fleet_command("b", path, work, ports), work, procs)
+        ports["a"] = wait_output(procs, "a", listening_port("[serve] listening on "), FLEET_READY_S)
+        wait_output(procs, "b", log_event("replica_ready"), FLEET_READY_S)
+    finally:
+        held.close()
+    start_fleet_process("router", fleet_command("router", path, work, ports), work, procs)
+    bound = wait_output(procs, "router", listening_port("[router] listening on "), 60)
+    if bound != router_port:
+        fail(f"phase 16: the router listens on {bound}, not its port {router_port}")
+    return ports
+
+
+def fleet_post(port, body):
+    """(wall s, status, headers, payload) of one POST /generate."""
+    t0 = time.perf_counter()
+    status, headers, payload = http_call(port, "POST", "/generate", body, timeout=FLEET_TIMEOUT_S + 120)
+    return time.perf_counter() - t0, status, headers, payload
+
+
+def fleet_wave(port, bodies, during=None):
+    """The bodies posted concurrently; `during()` runs once they are
+    out. Returns their (wall, status, headers, payload) in order."""
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = fleet_post(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    extra = during() if during is not None else None
+    for t in threads:
+        t.join(FLEET_TIMEOUT_S + 180)
+    if any(r is None for r in results):
+        fail("phase 16: a request got no reply")
+    return results, extra
+
+
+def fleet_tokens(torch, results, label):
+    """[n, image_seq_len] tokens of a wave that must be all 200s."""
+    bad = [(r[1], r[3]) for r in results if r[1] != 200]
+    if bad:
+        fail(f"phase 16 {label}: client errors {bad[:2]}")
+    return torch.tensor([r[3]["tokens"][0] for r in results])
+
+
+def served_by(results):
+    return [r[2].get("x-dalle-replica") for r in results]
+
+
+def replica_line(work, trace_id):
+    """The serving replica's request log line of a trace (A's or B's)."""
+    for name in ("a", "b"):
+        for line in log_lines(work / f"{name}.jsonl"):
+            if line.get("event") == "request" and line.get("trace_id") == trace_id:
+                return name, line
+    return None, None
+
+
+def cuda_context_pids():
+    """PIDs with a CUDA context, by nvidia-smi (the host's PIDs where the
+    card's machine runs in its own PID namespace), and its raw output."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    pids = {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+    return pids, out.stdout.strip()
+
+
+def maps_card(pid):
+    """Whether a process has mapped the card's device files or the CUDA
+    driver (what creating a CUDA context does), from /proc/<pid>/maps."""
+    try:
+        maps = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return None
+    return "/dev/nvidia" in maps or "libcuda.so" in maps
+
+
+def run_fleet(torch, vae, smi):
+    """Phase 16: text-to-image requests through the router to two replicas
+    of the port on the card, B supervised (`fleet_checkpoint`,
+    `start_fleet`). (a) four seeded requests direct
+    to A, then the same through the router: tokens `torch.equal`, both
+    replicas serving; (b) the same four again, B's child SIGKILLed from
+    outside once its spool holds a beacon of a request in flight: every
+    request 200 with the reference's tokens, each re-dispatched one resumed
+    on the other replica at its journaled chunk (> 0), the supervisor's
+    abnormal exit, restart and spool hand-off in its log, the router's
+    spool counter, B healthy again through the half-open trial; (c) the
+    four again under a drain of A (`propagate=1`): no client error, the
+    requests after it on B, then undrain; (d) `/fleet/metrics` carries both
+    replicas' `dalle_serving_*` families and the `:fleet_sum` rollups,
+    `/debug/fleet` a per-replica MFU headroom, `/debug/usage` the tenants;
+    (e) each replica's `/debug/programs` rows of prefill, chunk and resume:
+    FLOPs equal to `fleet_flops`, MFU in (0, 1] and the counted FLOPs over
+    the EMA wall at the card's peak (unclamped) too, the chunk's step launches
+    depth x chunk tokens a dispatch, the tile arm in prefill and resume; the
+    device cuda and the card's name; (f) neither the router nor the
+    supervisor holds a CUDA context. Returns the phase's record."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch.serving.migrate import CheckpointSpool
+    from dalle_pytorch_tpu_torch.training.metrics import parse_exposition
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke" / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    walls, procs, record = {}, {}, {"smi": smi}
+    try:
+        t0 = time.perf_counter()
+        path, cfg, model = fleet_checkpoint(torch, vae, work)
+        depth = cfg["depth"]
+        walls["checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ports = start_fleet(path, work, procs)
+        pa, pb, pr = ports["a"], ports["b"], ports["router"]
+        wait_for(lambda: all(r["state"] == "healthy" for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]),
+                 60, "phase 16: both replicas healthy at the router")
+        walls["boot"] = time.perf_counter() - t0
+        bodies = [{"prompt": p, "seed": 1600 + i, "tenant": FLEET_TENANTS[i % 2]} for i, p in enumerate(FLEET_PROMPTS)]
+
+        # (a) the reference: direct to A, then routed ----------------------
+        t0 = time.perf_counter()
+        direct, _ = fleet_wave(pa, bodies)
+        reference = fleet_tokens(torch, direct, "direct to A")
+        routed, _ = fleet_wave(pr, bodies)
+        tokens = fleet_tokens(torch, routed, "routed")
+        if not torch.equal(tokens, reference):
+            fail("phase 16 (a): routed tokens differ from the direct run's")
+        if sorted(set(served_by(routed))) != ["a", "b"]:
+            fail(f"phase 16 (a): the router sent the wave to {served_by(routed)}, not both replicas")
+        # a resumed row is held as phase 10 holds one: equal below its
+        # resume position, and past it up to the first position whose
+        # noised-score margin is under ORACLE_MARGIN (the resume's
+        # re-prefill runs the tile arm, the uninterrupted decode the step);
+        # the margins are computed only for a row that is not equal
+        import numpy as np
+
+        from dalle_pytorch_tpu_torch.data.tokenizer import get_tokenizer
+        from dalle_pytorch_tpu_torch.serving.engine import SampleSpec
+
+        def margins_of(i):
+            tok = get_tokenizer()
+            spec = SampleSpec(np.asarray(tok.tokenize(bodies[i]["prompt"], cfg["text_seq_len"],
+                                                      truncate_text=True)[0], np.int32), seed=bodies[i]["seed"])
+            return noised_margins(torch, model, [spec], reference[i : i + 1].numpy())
+        record["direct_wall_s"] = [round(r[0], 3) for r in direct]
+        record["routed_wall_s"] = [round(r[0], 3) for r in routed]
+        print(f"phase 16 (a) ({smi}): 4 requests direct to A, walls {record['direct_wall_s']} s; through the "
+              f"router {record['routed_wall_s']} s (served by {served_by(routed)}); tokens equal")
+        walls["reference"] = time.perf_counter() - t0
+
+        # (b) B's child killed mid-decode -------------------------------------
+        t0 = time.perf_counter()
+        spool_b = CheckpointSpool(work / "spool_b")
+        kill = {}
+
+        t_wave = time.time()
+
+        def crash():
+            # a beacon of this wave (B's last one of (a) stays on disk) that
+            # journals every request the router has on B: a request admitted
+            # after the last beacon has no checkpoint and would wait out
+            # --migrate_wait_s before going again from position 0
+            def journaled():
+                b = next(r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"] if r["name"] == "b")
+                try:
+                    fresh = spool_b.path.stat().st_mtime > t_wave
+                except FileNotFoundError:
+                    return None
+                beacon = spool_b.read() if fresh else {}
+                return beacon if b["inflight"] and len(beacon) == b["inflight"] else None
+
+            beacon = wait_for(journaled, 120, "phase 16 (b): B's requests in its spool", interval=0.01)
+            starts = [ln for ln in log_lines(procs["b"][1]) if ln.get("event") == "replica_start"]
+            pid = starts[-1]["pid"]
+            os.kill(pid, signal.SIGKILL)
+            kill.update(pid=pid, t=time.time(), keys=sorted(beacon))
+            return kill
+
+        crashed, _ = fleet_wave(pr, bodies, during=crash)
+        tokens = fleet_tokens(torch, crashed, "through the SIGKILL")
+        router_lines = {ln.get("trace_id"): ln for ln in log_lines(work / "router.jsonl")
+                        if ln.get("event") == "request"}
+        resumed = []
+        for i, r in enumerate(crashed):
+            trace_id = r[3].get("trace_id")
+            line = router_lines.get(trace_id, {})
+            if line.get("resume") != "crash":
+                if not torch.equal(tokens[i], reference[i]):
+                    fail(f"phase 16 (b): request {i}, not re-dispatched, differs from the reference")
+                continue
+            name, rline = replica_line(work, trace_id)
+            if rline is None or not (rline.get("resumed_at_chunk") or 0) > 0:
+                fail(f"phase 16 (b): a re-dispatched request did not resume at a journaled chunk: {rline}")
+            if r[3]["usage"]["resumed_tokens"] <= 0 or name != r[2].get("x-dalle-replica"):
+                fail(f"phase 16 (b): resumed request's usage {r[3]['usage']} on {name}")
+            k = r[3]["usage"]["resumed_tokens"]
+            exact = bool(torch.equal(tokens[i], reference[i]))
+            ok, first_diff, first_low = (True, None, None) if exact else margin_rule(
+                margins_of(i), 0, tokens[i].numpy(), reference[i : i + 1].numpy(), k)
+            if not ok:
+                fail(f"phase 16 (b): resumed request {i} (at position {k}) first differs at {first_diff}, "
+                     f"its first sub-margin position {first_low}")
+            resumed.append(dict(request=i, replica=name, attempt=rline.get("attempt"),
+                                resumed_at_chunk=rline["resumed_at_chunk"],
+                                checkpoint_bytes=rline.get("checkpoint_bytes"), resumed_tokens=k,
+                                tokens_equal=exact, first_divergence=first_diff, wall_s=round(r[0], 3)))
+        del model
+        if not resumed:
+            fail(f"phase 16 (b): no request was re-dispatched from the spool (beacon keys {kill.get('keys')})")
+        spooled = http_metric(pr, "dalle_router_spool_checkpoints_total")
+        if spooled < 1:
+            fail(f"phase 16 (b): dalle_router_spool_checkpoints_total {spooled}")
+        sup = log_lines(procs["b"][1])
+        events = [ln.get("event") for ln in sup]
+        exits = [ln for ln in sup if ln.get("event") == "replica_exit"]
+        readies = [ln for ln in sup if ln.get("event") == "replica_ready" and ln.get("restarts") == 1]
+        handoffs = [ln for ln in sup if ln.get("event") == "spool_handoff"]
+        if not (exits and exits[0].get("code") == -signal.SIGKILL and readies and handoffs):
+            fail(f"phase 16 (b): the supervisor's log shows {events}")
+        record["kill_to_ready_s"] = round(readies[0]["ts"] - kill["t"], 3)
+        record["resumed"] = resumed
+        record["spool_checkpoints"] = spooled
+        # B comes back through the half-open trial: the next request is its
+        trial = wait_for(
+            lambda: next((r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]
+                          if r["name"] == "b" and r["state"] in ("half_open", "healthy")), None),
+            120, "phase 16 (b): B probed back")
+        t_wall, status, headers, payload = fleet_post(pr, bodies[0])
+        b_state = next(r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"] if r["name"] == "b")
+        if (status, headers.get("x-dalle-replica"), b_state["state"]) != (200, "b", "healthy") \
+                or payload["tokens"][0] != reference[0].tolist() or b_state["restarts"] < 1:
+            fail(f"phase 16 (b): the trial went to {headers.get('x-dalle-replica')} ({status}); B is "
+                 f"{b_state['state']} after {b_state['restarts']} restarts (was {trial['state']})")
+        print(f"phase 16 (b) ({smi}): B's child (pid {kill['pid']}) SIGKILLed with {len(kill['keys'])} "
+              f"request(s) in its beacon; B ready {record['kill_to_ready_s']} s after the kill; resumed "
+              f"{json.dumps(resumed)}; router spool checkpoints {spooled:.0f}; supervisor events {events}; "
+              f"B healthy again through its trial ({t_wall:.2f} s)")
+        walls["crash"] = time.perf_counter() - t0
+
+        # (c) a drain of A under load -------------------------------------------
+        t0 = time.perf_counter()
+
+        def drain():
+            wait_for(lambda: next(r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]
+                                  if r["name"] == "a")["inflight"] > 0, 60, "phase 16 (c): A busy")
+            status, _, detail = http_call(pr, "POST", "/admin/drain?replica=a&propagate=1", b"")
+            healthz = http_call(pa, "GET", "/healthz")[0]
+            after, _ = fleet_wave(pr, bodies[:2])
+            return status, detail, healthz, after
+
+        drained, (d_status, d_detail, a_healthz, after) = fleet_wave(pr, bodies, during=drain)
+        tokens = fleet_tokens(torch, drained, "under the drain")
+        if not torch.equal(tokens, reference):
+            fail("phase 16 (c): tokens under the drain differ from the reference")
+        after_tokens = fleet_tokens(torch, after, "after the drain")
+        if d_status != 200 or a_healthz != 503 or served_by(after) != ["b", "b"] \
+                or not torch.equal(after_tokens, reference[:2]):
+            fail(f"phase 16 (c): drain {d_status} {d_detail.get('state')}, A's /healthz {a_healthz}, the requests "
+                 f"after it served by {served_by(after)}")
+        u_status, _, u_detail = http_call(pr, "POST", "/admin/undrain?replica=a&propagate=1", b"")
+        wait_for(lambda: http_call(pa, "GET", "/healthz")[0] == 200, 30, "phase 16 (c): A's intake back")
+        # back in rotation at half-open: the next request to it is its trial
+        if u_status != 200 or (u_detail["mode"], u_detail["state"]) != ("active", "half_open"):
+            fail(f"phase 16 (c): undrain {u_status} {u_detail}")
+        print(f"phase 16 (c) ({smi}): drain of A under 4 requests (served by {served_by(drained)}): no client "
+              f"error, A's /healthz {a_healthz} while drained, the 2 after it on {served_by(after)}; undrained")
+        walls["drain"] = time.perf_counter() - t0
+
+        # (d) the fleet telemetry plane -------------------------------------------
+        t0 = time.perf_counter()
+        wait_for(lambda: all(r.get("mfu_headroom") is not None and not r["stale"]
+                             for r in http_call(pr, "GET", "/debug/fleet")[2]["capacity"]["replicas"].values()),
+                 30, "phase 16 (d): a fresh scrape with both replicas' MFU headroom")
+        _, _, fleet = http_call(pr, "GET", "/debug/fleet")
+        _, _, text = http_call(pr, "GET", "/fleet/metrics")
+        families = parse_exposition(text)
+        serving = {n: f for n, f in families.items() if n.startswith("dalle_serving_")}
+        labelled = {s.labels["replica"] for f in serving.values() for s in f.samples if "replica" in s.labels}
+        rollups = [n for n in families if n.endswith(":fleet_sum")]
+        _, _, usage = http_call(pr, "GET", "/debug/usage")
+        tenants = {row["tenant"] for row in usage["tenants"]}
+        headroom = {n: r.get("mfu_headroom") for n, r in fleet["capacity"]["replicas"].items()}
+        if not ({"a", "b"} <= labelled and rollups and set(FLEET_TENANTS) <= tenants):
+            fail(f"phase 16 (d): replica labels {labelled}, rollups {rollups[:3]}, tenants {tenants}")
+        record["fleet"] = dict(serving_families=len(serving), rollups=len(rollups), headroom=headroom,
+                               goodput=fleet["capacity"]["goodput"], tenants=sorted(tenants),
+                               flops_per_chip_second=usage["flops_per_chip_second"])
+        print(f"phase 16 (d) ({smi}): /fleet/metrics {len(serving)} dalle_serving_* families labelled "
+              f"{sorted(labelled)}, {len(rollups)} :fleet_sum rollups; MFU headroom {headroom}; goodput "
+              f"{json.dumps(fleet['capacity']['goodput'])}; usage tenants {sorted(tenants)}, FLOP/s a card "
+              f"{usage['flops_per_chip_second']:.4g}")
+        walls["telemetry"] = time.perf_counter() - t0
+
+        # (e) the cost rows ----------------------------------------------------------
+        want = fleet_flops(cfg)
+        kind = torch.cuda.get_device_name(0)
+        peak = card_peaks(kind)[1]["bf16"]
+        programs, memory = {}, {}
+        for name, port in (("a", pa), ("b", pb)):
+            _, _, detail = http_call(port, "GET", "/debug/programs")
+            rows = {r["program"]: r for r in detail["programs"]}
+            errors = [r for r in detail["programs"] if "error" in r]
+            _, _, vitals = http_call(port, "GET", "/debug/vitals?n=1")
+            if errors or vitals["device"] != {"type": "cuda", "name": kind}:
+                fail(f"phase 16 (e): replica {name}: cost errors {errors}, device {vitals['device']}")
+            for prog in ("prefill", "chunk", "resume"):
+                row = rows.get(prog)
+                if row is None or row["flops"] != want[prog]:
+                    fail(f"phase 16 (e): replica {name}'s {prog} row {row and row['flops']} FLOPs, counted "
+                         f"{want[prog]}")
+                # the row's MFU is clamped at 1 (as the reference's), so the
+                # count over the EMA wall is held to the card's peak too
+                mfu = row.get("mfu")
+                ratio = row["flops"] / (row["wall_ema_ms"] * 1e-3 * peak) if row.get("wall_ema_ms") else None
+                if mfu is not None and not (0.0 < mfu <= 1.0 and ratio is not None and 0.0 < ratio <= 1.0):
+                    fail(f"phase 16 (e): replica {name}'s {prog} MFU {mfu}, counted FLOPs over its EMA wall "
+                         f"{ratio} of the peak")
+            chunk = rows["chunk"]["launches_per_dispatch"]
+            step = chunk.get("flash_decode_attention.launches", 0) - chunk.get("flash_decode_attention.tile_launches", 0)
+            tiles = {p: rows[p]["launches_per_dispatch"].get("flash_decode_attention.tile_launches", 0)
+                     for p in ("prefill", "resume")}
+            if (step != depth * FLEET_SLOTS or rows["chunk"].get("mfu") is None
+                            or tiles != {"prefill": depth, "resume": depth}):
+                fail(f"phase 16 (e): replica {name}: chunk step launches {step} a dispatch (want "
+                     f"{depth * FLEET_SLOTS}), chunk MFU {rows['chunk'].get('mfu')}, tile launches {tiles}")
+            programs[name] = {p: {k: rows[p].get(k) for k in ("flops", "bytes_accessed", "dispatches", "wall_ema_ms",
+                                                              "mfu", "hbm_gbps", "launches", "memory")}
+                              for p in ("prefill", "chunk", "resume")}
+            memory[name] = (vitals["samples"][-1].get("memory_stats") or {}) if vitals["samples"] else {}
+        ran = [p for p in programs.values() if p["resume"]["dispatches"]]
+        if not ran:
+            fail("phase 16 (e): no replica ran a resume dispatch")
+        record["programs"], record["memory"] = programs, memory
+        for name, rows in programs.items():
+            c = rows["chunk"]
+            print(f"phase 16 (e) ({smi}) replica {name}: chunk EMA wall {c['wall_ema_ms']} ms, MFU {c['mfu']}, "
+                  f"{c['hbm_gbps']} GB/s over {c['dispatches']} dispatches, launches {json.dumps(c['launches'])}; "
+                  f"resume dispatches {rows['resume']['dispatches']} (EMA wall {rows['resume']['wall_ema_ms']} ms, "
+                  f"launches {json.dumps(rows['resume']['launches'])}); prefill launches "
+                  f"{json.dumps(rows['prefill']['launches'])}; device memory {json.dumps(memory[name])}")
+        for r in resumed:
+            print(f"phase 16 (e) ({smi}): the resume on {r['replica']}: checkpoint {r['checkpoint_bytes']} bytes, "
+                  f"resumed_at_chunk {r['resumed_at_chunk']}, the resume dispatch's EMA wall "
+                  f"{programs[r['replica']]['resume']['wall_ema_ms']} ms")
+
+        # (f) no CUDA in the router or the supervisor ------------------------------
+        pids, raw = cuda_context_pids()
+        b_child = [ln for ln in log_lines(procs["b"][1]) if ln.get("event") == "replica_start"][-1]["pid"]
+        host = {"router": procs["router"][0].pid, "supervisor": procs["b"][0].pid}
+        replicas = {"a": procs["a"][0].pid, "b": b_child}
+        mapped = {name: maps_card(pid) for name, pid in {**host, **replicas}.items()}
+        if any(pid in pids for pid in host.values()) or any(mapped[n] for n in host):
+            fail(f"phase 16 (f): a CUDA context in the router or supervisor: nvidia-smi {raw!r}, maps {mapped}")
+        if not all(mapped[n] for n in replicas):
+            fail(f"phase 16 (f): the replicas' maps show no card {mapped}: the check reads nothing")
+        record["cuda"] = dict(smi_pids=sorted(pids), maps=mapped, pids={**host, **replicas})
+        print(f"phase 16 (f) ({smi}): compute apps by nvidia-smi {sorted(pids)}; the card mapped (/proc/<pid>/maps) "
+              f"{json.dumps(mapped)} for pids {json.dumps({**host, **replicas})}")
+        record["launches"] = {
+            name: {"flash_decode": sum(rows[p]["launches"].get("flash_decode_attention.launches", 0)
+                                       - rows[p]["launches"].get("flash_decode_attention.tile_launches", 0)
+                                       for p in rows),
+                   "flash_decode_tile": sum(rows[p]["launches"].get("flash_decode_attention.tile_launches", 0)
+                                            for p in rows)}
+            for name, rows in programs.items()
+        }
+    finally:
+        for name in procs:
+            proc = procs[name][0]
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name in procs:
+            proc = procs[name][0]
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+            stop_process(proc)
+    record["exits"] = {name: procs[name][0].returncode for name in procs}
+    walls["total"] = time.perf_counter() - t_phase
+    record["walls"] = {k: round(v, 1) for k, v in walls.items()}
+    return record
+
+
 # --------------------------------------------------------------- phase 15
 # multi-process training through the launch twin: two ranks on the one
 # card over Gloo (NCCL refuses two ranks on one GPU)
@@ -6083,6 +6685,13 @@ def main() -> int:
     tp = run_tensor_parallel(torch, model5, vae, specs, short_toks, smi)
     print(f"phase 14 tensor-parallel serving ({smi}): {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in tp["walls"].items()) + ")")
+    # 16. the replica fleet: subprocess replicas behind the router, which a
+    # profiler trace in this process does not reach; before phase 13's too
+    progress("phase 16")
+    t0 = time.perf_counter()
+    fleet = run_fleet(torch, vae, smi)
+    print(f"phase 16 the replica fleet ({smi}): {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in fleet["walls"].items()) + ")")
     # 15. multi-process training, run before phase 13's trace too: its
     # one-process reference runs launch in this process
     progress("phase 15")
@@ -6210,6 +6819,7 @@ def main() -> int:
                                                for run, n in multi["launches"].items() if "fsdp" in run},
                 rest_launches=(rest["revnet_serving"]["launches"]["flash_decode"]
                                - rest["revnet_serving"]["launches"]["flash_decode_tile"]),
+                fleet_launches={name: n["flash_decode"] for name, n in fleet["launches"].items()},
                 bound_ms=step["bound_ms"],
                 bound_by=step["bound_by"],
                 library_ms=step["library_ms"],
@@ -6223,7 +6833,9 @@ def main() -> int:
                 f"continuous server's QoS run at depth {SHORT_DEPTH}, its prefill and resume waves included); "
                 "trainer_sample_launches: phase 12's in-loop sample (fp32, all arms, prefill included); "
                 "multi_process_sample_launches: phase 15's in-loop sample on each fsdp rank (the same); "
-                "rest_launches: phase 13's RevNet engine (its steps, through the two-stream cached branch)",
+                "rest_launches: phase 13's RevNet engine (its steps, through the two-stream cached branch); "
+                f"fleet_launches: phase 16's replicas A and B (their steps after warmup, depth {SHORT_DEPTH}, "
+                "from each replica's /debug/programs; B's restarted child's only)",
             ),
             dict(
                 name="flash_decode_tile_f32",
@@ -6251,6 +6863,7 @@ def main() -> int:
                 replaces="dalle_pytorch_tpu/ops/pallas_decode.py:76, :292, :446, :552",
                 launches=launches["flash_decode_tile"],
                 rest_launches=rest["revnet_serving"]["launches"]["flash_decode_tile"],
+                fleet_launches={name: n["flash_decode_tile"] for name, n in fleet["launches"].items()},
                 **tp_fields(tp, "flash_decode_tile"),
                 max_abs_err=tile_errs["flash_decode_tile"],
                 **tile_times["prefill"]["flash_decode_tile"],
@@ -6264,7 +6877,8 @@ def main() -> int:
                 timed="bf16 q, prefill n=257 B=4 H=16 D=64 S=1281 lengths 257 (int8_*: int8 K/V + "
                 "fp32 scales); library_ms is SDPA's causal forward over the 257 live keys (the same "
                 "function); launches: phase 5's prefill (one a layer; rest_launches: phase 13's RevNet "
-                "engine's prefill); resume_*: n=1280 S=1281 B=4 "
+                "engine's prefill; fleet_launches: phase 16's replicas' prefill and resume dispatches "
+                "after warmup, from their /debug/programs); resume_*: n=1280 S=1281 B=4 "
                 "lengths 1280, launches per resume dispatch of phase 10 (slotted, paged; int8_: "
                 f"the int8 run; all three at depth {SHORT_DEPTH}); max_abs_err: worst of prefill, prefill_edges, resume B=1 "
                 "and 4 against the plain version",

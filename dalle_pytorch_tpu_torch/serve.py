@@ -6,6 +6,12 @@ of the repository's `serve.py`).
     curl -s localhost:8000/generate -d '{"prompt": "small red circle"}'
     curl -s localhost:8000/metrics
 
+    # a fleet: replicas, one of them supervised, behind a router
+    python -m dalle_pytorch_tpu_torch.serve --dalle_path dalle.npz --engine continuous \\
+        --port 8001 --checkpoint_spool spool_b --supervise --spool_notify http://127.0.0.1:8100
+    python -m dalle_pytorch_tpu_torch.serve --router --port 8100 \\
+        --replicas a=http://127.0.0.1:8000,b=http://127.0.0.1:8001 --migrate_wait_s 60
+
 Loads the checkpoint through `serving/engine.py:engine_from_checkpoint`
 (the micro `GenerationEngine`, or with `--engine continuous` the
 `ContinuousEngine`, paged with `--kv_layout paged`, and with `--mesh tp=N`
@@ -17,11 +23,20 @@ first SIGTERM or SIGINT drains the queue and exits 0, a second exits at
 once. Lifecycle events and one line per request go to stdout as JSON
 (`obs/logging.py`). Runs on the card unless `--device cpu`.
 
-Not offered, so the argument parser refuses them: the reference's router
-and supervisor (`--router`, `--replicas`, `--supervise`,
-`--spool_notify`), `--compile_cache`, the vitals and SLO flags
-(`--no_vitals`, `--vitals_interval_s`, `--no_program_costs`,
-`--slo_*`), `--profile_dir` and `--trace_export`.
+The vitals sampler, stall watchdog and per-program cost table
+(`obs/vitals.py`: `/debug/vitals`, `/debug/programs`) are on unless
+`--no_vitals` / `--no_program_costs`; `--slo_ttft_ms` / `--slo_request_ms`
+add SLO burn tracking. `--router` runs the fleet router
+(`serving/router.py`) in front of `--replicas` instead of a replica, and
+`--supervise` runs this replica under the crash-fast supervisor
+(`serving/supervisor.py`), which hands its `--checkpoint_spool` to the
+router at `--spool_notify` after a restart. Both dispatch before torch is
+imported: those processes never touch the card. `DALLE_SERVE_CRASH=
+program:nth` in the environment aborts the replica at the nth dispatch of
+`program` (restart drills).
+
+Refused, each naming the later slice that brings it: `--compile_cache`,
+`--profile_dir` and `--trace_export`.
 """
 
 from __future__ import annotations
@@ -50,11 +65,27 @@ def parse_tenant_weights(text):
     return out
 
 
+#: flags of the reference's serve.py the port does not offer yet, each with
+#: the reason the parser gives
+LATER_SLICE = {
+    "compile_cache": "the persistent compile cache comes in a later slice of the port, with CUDA graphs",
+    "profile_dir": "on-demand profiling (/debug/profile) comes in a later slice of the port",
+    "trace_export": "the fleet trace exporter and its collector come in a later slice of the port",
+}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    from dalle_pytorch_tpu_torch.serving.router import add_router_args
+
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter, allow_abbrev=False
     )
-    p.add_argument("--dalle_path", type=str, required=True, help="DALL-E checkpoint to serve")
+    p.add_argument("--dalle_path", type=str, default=None,
+                   help="DALL-E checkpoint to serve (required unless --router)")
+    p.add_argument("--router", action="store_true",
+                   help="run the replica fleet router in front of --replicas instead of a replica "
+                   "(no checkpoint, no torch, no card)")
+    add_router_args(p, require_replicas=False)
     p.add_argument("--clip_path", type=str, default=None, help="CLIP checkpoint enabling rerank=true requests")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--host", type=str, default="127.0.0.1")
@@ -128,7 +159,58 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="write the JSON lines to FILE (appended) instead of stdout")
     p.add_argument("--request_log_max_mb", type=float, default=None, metavar="MB",
                    help="rotate --request_log_path to FILE.1 past MB megabytes")
+    p.add_argument("--supervise", action="store_true",
+                   help="run this replica under the crash-fast supervisor: restarted on an abnormal "
+                   "exit with capped exponential backoff and crash-loop hold-down, readiness gated on "
+                   "its /healthz (needs an explicit --port)")
+    p.add_argument("--spool_notify", type=str, default=None, metavar="URL",
+                   help="with --supervise: the router's base URL the supervisor POSTs the crash "
+                   "spool to (/admin/spool) once the restarted replica is ready")
+    p.add_argument("--no_vitals", action="store_true",
+                   help="no vitals sampler (and with it no stall watchdog or SLO burn)")
+    p.add_argument("--vitals_interval_s", type=float, default=1.0,
+                   help="seconds between vitals samples and watchdog checks")
+    p.add_argument("--no_program_costs", action="store_true",
+                   help="no per-program cost table (/debug/programs and the MFU gauges stay empty)")
+    p.add_argument("--slo_ttft_ms", type=float, default=None,
+                   help="time-to-first-token SLO target in ms (continuous engine)")
+    p.add_argument("--slo_request_ms", type=float, default=None, help="request latency SLO target in ms")
+    p.add_argument("--slo_objective", type=float, default=0.99,
+                   help="fraction of requests that must meet each SLO target")
+    p.add_argument("--slo_window_s", type=float, default=300.0, help="rolling window of the SLO burn rate")
+    for flag, why in LATER_SLICE.items():
+        p.add_argument(f"--{flag}", type=str, default=None, metavar="VALUE", help=f"refused: {why}")
     args = p.parse_args(argv)
+    for flag, why in LATER_SLICE.items():
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag} is not offered: {why}")
+    if args.supervise:
+        if args.router:
+            p.error("--supervise supervises an engine replica; run the router under its own process manager")
+        if args.port == 0:
+            p.error("--supervise needs an explicit --port (the supervisor probes http://host:port/healthz "
+                    "for readiness; port 0 would pick a fresh one per restart)")
+    if args.spool_notify is not None and not args.supervise:
+        p.error("--spool_notify is the supervisor's hand-off hook; it needs --supervise")
+    if args.spool_notify is not None and args.checkpoint_spool is None:
+        p.error("--spool_notify needs --checkpoint_spool (nothing to hand over otherwise)")
+    if args.router:
+        if not args.replicas:
+            p.error("--router needs --replicas URL[,URL...]")
+        if args.dalle_path is not None:
+            p.error("--router does not load a checkpoint; drop --dalle_path (replicas load their own)")
+        if args.checkpoint_spool is not None:
+            p.error("--checkpoint_spool needs --engine continuous (the router holds no decode state)")
+        return args
+    if args.dalle_path is None:
+        p.error("--dalle_path is required (unless running --router)")
+    if args.replicas is not None:
+        p.error("--replicas only applies with --router")
+    if args.no_vitals and (args.slo_ttft_ms is not None or args.slo_request_ms is not None):
+        # the sampler drives the SLO updates: without it the burn stays 0
+        p.error("--slo_ttft_ms/--slo_request_ms need the vitals sampler; drop --no_vitals")
+    if not 0.0 < args.slo_objective < 1.0:
+        p.error("--slo_objective must be in (0, 1)")
     if args.mesh is not None:
         # at parse time, not after the checkpoint loads
         if args.engine != "continuous":
@@ -169,12 +251,70 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def run_router(args) -> int:
+    """`--router`: the fleet router in front of the replicas; stdlib HTTP
+    only, no checkpoint and no torch. One run loop with `python -m
+    dalle_pytorch_tpu_torch.serving.router`."""
+    from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
+    from dalle_pytorch_tpu_torch.serving.router import run_router_server
+
+    log = StructuredLog(component="dalle.router", site=args.trace_site, path=args.request_log_path,
+                        max_mb=args.request_log_max_mb)
+    return run_router_server(args, log=log)
+
+
+def build_vitals(args, registry, log):
+    """The replica's `EngineVitals`: the sampler, a stall watchdog whose
+    queue-head budget is half the request timeout, and the SLO tracker of
+    the `--slo_*` targets (off with `--no_vitals`)."""
+    from dalle_pytorch_tpu_torch.obs.vitals import EngineVitals, SLOTarget, SLOTracker, StallWatchdog
+
+    targets = []
+    if args.slo_ttft_ms is not None:
+        targets.append(SLOTarget("ttft", args.slo_ttft_ms / 1000.0, histogram="dalle_serving_ttft_seconds",
+                                 objective=args.slo_objective))
+    if args.slo_request_ms is not None:
+        targets.append(SLOTarget("request", args.slo_request_ms / 1000.0,
+                                 histogram="dalle_serving_request_latency_seconds", objective=args.slo_objective))
+    return EngineVitals(
+        enabled=not args.no_vitals,
+        interval_s=args.vitals_interval_s,
+        registry=registry,
+        log=log,
+        watchdog=StallWatchdog(registry=registry, queue_age_budget_s=args.request_timeout_s / 2.0),
+        slo=SLOTracker(targets, registry=registry, window_s=args.slo_window_s) if targets else None,
+    )
+
+
+def arm_crash(engine, log) -> None:
+    """Restart drills: `DALLE_SERVE_CRASH=program:nth` aborts this replica
+    at the nth dispatch of a named program (e.g. `chunk:3`)."""
+    spec = os.environ.get("DALLE_SERVE_CRASH")
+    if not spec:
+        return
+    from dalle_pytorch_tpu_torch.serving.faults import FaultInjector
+
+    prog, _, nth = spec.partition(":")
+    engine.faults = FaultInjector().crash_nth(prog, int(nth or 1))
+    log.event("chaos_crash_armed", program=prog, nth=int(nth or 1))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    if args.router:
+        return run_router(args)
+    if args.supervise:
+        # before torch: the supervisor only spawns and probes, and the
+        # child pays for the runtime (again after each restart)
+        from dalle_pytorch_tpu_torch.serving.supervisor import supervise_serve
+
+        return supervise_serve(args, argv)
     from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
     from dalle_pytorch_tpu_torch.obs.tracing import Tracer
+    from dalle_pytorch_tpu_torch.obs.vitals import ProgramCostTable
     from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
     from dalle_pytorch_tpu_torch.serving.server import ServingServer
+    from dalle_pytorch_tpu_torch.training.metrics import MetricsRegistry
     from dalle_pytorch_tpu_torch.utils import compile_guard
 
     log = StructuredLog(site=args.trace_site, path=args.request_log_path, max_mb=args.request_log_max_mb)
@@ -204,10 +344,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # previews off drops the preview decode from the warmup
         preview_enabled=args.preview_every > 0,
     )
+    engine.registry = registry = MetricsRegistry()
+    if not args.no_program_costs:
+        # attached before warmup, which counts each program at its shape
+        import torch
+
+        name = torch.cuda.get_device_name(engine.device) if engine.device.type == "cuda" else None
+        engine.cost_table = ProgramCostTable(registry=registry, device_name=name)
     if not args.no_warmup:
         log.event("warmup_start", batch_shapes=list(engine.batch_shapes), device=str(engine.device))
         engine.warmup()
         log.event("warmup_done", kernel_builds=compile_guard.recent_events())
+    arm_crash(engine, log)
 
     server = ServingServer(
         engine,
@@ -221,6 +369,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         log=log,
         log_requests=not args.no_request_log,
         trace_dump_path=args.trace_dump,
+        vitals=build_vitals(args, registry, log),
         tenant_quota_rows=args.tenant_quota_rows,
         tenant_weights=args.tenant_weights,
         preempt=not args.no_preempt,

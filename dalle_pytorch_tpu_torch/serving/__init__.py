@@ -1,42 +1,55 @@
-"""Serving: the engines (`engine.py`), the batchers (`batcher.py`), QoS
-(`qos.py`), fault injection (`faults.py`), decode-state migration
-(`migrate.py`), streaming (`streaming.py`) and the HTTP server
-(`server.py`); counterparts of the JAX package's modules of those names.
-`python -m dalle_pytorch_tpu_torch.serve` is the command line."""
+"""Serving: the engines (`engine.py`, tensor-parallel in `sharded.py`), the
+batchers (`batcher.py`), QoS (`qos.py`), fault injection (`faults.py`),
+decode-state migration (`migrate.py`), streaming (`streaming.py`), the
+HTTP server (`server.py`) and the replica fleet in front of it: the router
+(`router.py`) and the crash-fast supervisor (`supervisor.py`);
+counterparts of the JAX package's modules of those names.
+`python -m dalle_pytorch_tpu_torch.serve` is the command line.
 
-from dalle_pytorch_tpu_torch.serving.batcher import (
-    ContinuousBatcher,
-    MicroBatcher,
-    QueueFullError,
-    RequestCancelled,
-    RequestTimeout,
-    ShuttingDownError,
-)
-from dalle_pytorch_tpu_torch.serving.engine import (
-    ContinuousEngine,
-    GenerationEngine,
-    PagedContinuousEngine,
-    SampleSpec,
-    SlotAllocator,
-    engine_from_checkpoint,
-)
-from dalle_pytorch_tpu_torch.serving.faults import FaultInjector, InjectedFault
-from dalle_pytorch_tpu_torch.serving.migrate import (
-    CheckpointCorrupt,
-    CheckpointMismatch,
-    CheckpointSpool,
-    MigratedError,
-    RequestCheckpoint,
-    RowCheckpoint,
-)
-from dalle_pytorch_tpu_torch.serving.qos import PRIORITY_CLASSES, ShedError, TenantQuotaError, WeightedFairQueue
-from dalle_pytorch_tpu_torch.serving.server import ServingServer
+The names below load on first use, so importing the router or the
+supervisor (`serve --router`, `serve --supervise`) does not import torch:
+those processes never touch the card.
+"""
 
-__all__ = [
-    "CheckpointCorrupt", "CheckpointMismatch", "CheckpointSpool", "ContinuousBatcher",
-    "ContinuousEngine", "FaultInjector", "GenerationEngine", "InjectedFault", "MicroBatcher",
-    "MigratedError", "PRIORITY_CLASSES", "PagedContinuousEngine", "QueueFullError",
-    "RequestCancelled", "RequestCheckpoint", "RequestTimeout", "RowCheckpoint", "SampleSpec",
-    "ServingServer", "ShedError", "ShuttingDownError", "SlotAllocator", "TenantQuotaError",
-    "WeightedFairQueue", "engine_from_checkpoint",
-]
+from importlib import import_module
+
+_EXPORTS = {
+    "batcher": (
+        "ContinuousBatcher", "MicroBatcher", "QueueFullError", "RequestCancelled",
+        "RequestTimeout", "ShuttingDownError",
+    ),
+    "engine": (
+        "ContinuousEngine", "GenerationEngine", "PagedContinuousEngine", "SampleSpec",
+        "SlotAllocator", "engine_from_checkpoint",
+    ),
+    "faults": ("FaultInjector", "InjectedFault"),
+    "migrate": (
+        "CheckpointCorrupt", "CheckpointMismatch", "CheckpointSpool", "MigratedError",
+        "RequestCheckpoint", "RowCheckpoint", "decode_checkpoint", "encode_checkpoint",
+        "from_wire", "to_wire",
+    ),
+    "qos": ("PRIORITY_CLASSES", "ShedError", "TenantQuotaError", "WeightedFairQueue"),
+    "router": ("FleetRouter", "QuarantineTracker", "RetryBudget", "RouterServer", "request_fingerprint"),
+    "server": ("ServingServer",),
+    "sharded": (
+        "ShardedContinuousEngine", "ShardedPagedContinuousEngine", "build_serving_mesh",
+        "parse_mesh_shape",
+    ),
+    "supervisor": ("ReplicaSupervisor",),
+}
+_MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name):
+    mod = _MODULE_OF.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

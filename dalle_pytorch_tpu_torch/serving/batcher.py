@@ -64,9 +64,11 @@ once the future resolves.
 
 Each request's trace (`obs/tracing.py`) gets a span per stage: queue,
 prefill, chunk, harvest, preview, preempted (micro: queue, generate), and
-`registry` the reference's instruments (`dalle_serving_*`). The SLO-burn
-factor of the reference's shed and victim policy stays 1.0: the port has
-no SLO tracker yet.
+`registry` the reference's instruments (`dalle_serving_*`). The
+continuous batcher's `slo_burn` hook (the server wires the vitals'
+`SLOTracker.max_burn` into it) tightens the deadline shed and switches
+the preemption victim to the least-progressed request while an SLO burns
+its error budget, as the reference's does.
 """
 
 from __future__ import annotations
@@ -609,6 +611,13 @@ class MicroBatcher:
         with self._cond:
             return self._queue.class_depths()
 
+    def head_age_s(self) -> Optional[float]:
+        """Age of the oldest queued request (None when empty): the vitals
+        sampler's queue-staleness signal."""
+        with self._cond:
+            oldest = self._queue.oldest_enqueued_at()
+        return None if oldest is None else time.monotonic() - oldest
+
     def state_summary(self) -> dict:
         """Queue-side state for `/debug/state`."""
         with self._cond:
@@ -832,6 +841,10 @@ class ContinuousBatcher(MicroBatcher):
         self.preview_every = max(0, int(preview_every))
         self.preempt = bool(preempt)
         self.deadline_shed = bool(deadline_shed)
+        #: a callable giving the SLO tracker's max burn rate (the server
+        #: wires it); above 1 the deadline shed tightens and preemption
+        #: evicts the least-progressed victim. None: burn-blind
+        self.slo_burn = None
         self.reserve_slots = int(reserve_slots)
         self.spool = spool
         self.spool_every = max(1, int(spool_every))
@@ -1373,24 +1386,40 @@ class ContinuousBatcher(MicroBatcher):
         wait = self._est_wait_s()
         return 1.0 if wait is None else min(max(1.0, wait), 60.0)
 
+    def _burn_factor(self) -> float:
+        """The SLO-burn pessimism of the `slo_burn` hook: 1 at or under
+        budget (or unwired), the burn rate above it, capped at 4 so a burn
+        spike cannot shed every request."""
+        fn = self.slo_burn
+        if fn is None:
+            return 1.0
+        try:
+            burn = float(fn())
+        except Exception:
+            return 1.0  # a broken burn source must not break admission
+        return max(1.0, min(burn, 4.0))
+
     def _shed_check(self, req) -> Optional[ShedError]:
         """Deadline shed: when the backlog estimate says `req` cannot finish
         inside its own timeout, refuse it now (503 + Retry-After) instead
-        of queueing it to a certain 504. (The reference tightens this by
-        an SLO burn factor; without an SLO tracker the factor is 1.)"""
+        of queueing it to a certain 504. While an SLO burns its budget the
+        margin tightens by the burn factor (reason `slo_burn`)."""
         if not self.deadline_shed:
             return None
         wait, image_time = self._est_wait_s(), self._image_time_s()
         if wait is None or image_time is None:
             return None  # no measured basis yet: admit
         est = wait + image_time
-        if est <= req.timeout_s:
+        factor = self._burn_factor()
+        budget_s = req.timeout_s / factor
+        if est <= budget_s:
             return None
         return ShedError(
-            f"estimated completion {est:.1f}s exceeds the timeout {req.timeout_s:.1f}s "
-            f"({self._queue.rows} rows queued, {self.allocator.n_active} decoding)",
-            retry_after_s=min(max(1.0, est - req.timeout_s), 60.0),
-            reason="deadline",
+            f"estimated completion {est:.1f}s exceeds the admission budget {budget_s:.1f}s "
+            f"(timeout {req.timeout_s:.1f}s / burn factor {factor:.2f}; "
+            f"{self._queue.rows} rows queued, {self.allocator.n_active} decoding)",
+            retry_after_s=min(max(1.0, est - budget_s), 60.0),
+            reason="deadline" if est > req.timeout_s else "slo_burn",
         )
 
     def _suspend_host(self, req, inflight, partial, reason: str) -> None:
@@ -1457,7 +1486,15 @@ class ContinuousBatcher(MicroBatcher):
         victims = {req for req, _ in inflight.values() if req.klass > head.klass}
         if not victims:
             return False
-        victim = max(victims, key=lambda r: r.admitted_seq)
+        if self._burn_factor() > 1.0 and img_pos is not None:
+            # a burning SLO budget: evict the least-progressed victim, the
+            # cheapest redo (ties: the youngest, the default's pick)
+            def progress(r):
+                return sum(int(img_pos[s]) for s, (rr, _) in inflight.items() if rr is r)
+
+            victim = min(victims, key=lambda r: (progress(r), -r.admitted_seq))
+        else:
+            victim = max(victims, key=lambda r: r.admitted_seq)
         slot_rows = {s: idx for s, (r, idx) in inflight.items() if r is victim}
         slots = list(slot_rows)
         # the generated-so-far prefix, before the slots are released

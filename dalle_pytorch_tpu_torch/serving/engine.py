@@ -16,8 +16,15 @@ runs one dummy batch per rung so the first request pays no one-time cost
 (kernel build, library handles, allocator growth). Every dispatch calls
 `_fault_point(program)` with the reference's program names, a no-op until
 a `serving/faults.FaultInjector` is attached as `engine.faults`; an
-injected failure takes a real failure's path. Vitals, cost tables and the
-compile cache are not ported yet.
+injected failure takes a real failure's path. Every dispatch also runs
+inside a vitals bracket (`_bracket`, the reference's placement): the
+dispatch clock of `engine.vitals` (`obs/vitals.py`; the inert
+`NULL_VITALS` until an `EngineVitals` binds itself) and, with a
+`ProgramCostTable` attached as `engine.cost_table` before `warmup()`, the
+program's counted cost at its warmup shape, the kernel launches each
+dispatch made, and its measured wall (only walls that end in a host copy,
+the chunk boundary's among them, feed MFU). The micro engine's
+`generate:<shape>` runs the clock only: it has no cost row.
 
 The continuous engine keeps one decode state of `max_batch` cache slots
 and advances every live slot by `chunk_tokens` per chunk; the
@@ -35,14 +42,16 @@ names the build a checkpoint must come from; with `preview_enabled`,
 included: it fires inside the same `try`, before the dispatch touches the
 state) leaves a rebuilt, empty state, which the batcher's retry re-admits
 into. The continuous engines' tensor-parallel twins over a mesh are in
-`serving/sharded.py`. Not ported yet: vitals, cost capture and the
-compile cache.
+`serving/sharded.py`; they share these dispatch paths, brackets included.
+Not ported yet: the compile cache.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -70,6 +79,7 @@ from dalle_pytorch_tpu_torch.models.dalle import (
 )
 from dalle_pytorch_tpu_torch.models.dvae import DiscreteVAE
 from dalle_pytorch_tpu_torch.models.vae_io import decode_unit, is_pretrained, to_unit
+from dalle_pytorch_tpu_torch.obs.vitals import NULL_VITALS, kernel_launch_counts, launch_delta
 from dalle_pytorch_tpu_torch.ops.flash_decode import PAGED_DECODE_IMPL, PAGED_DECODE_IMPLS
 from dalle_pytorch_tpu_torch.ops.sampling import keep_count
 from dalle_pytorch_tpu_torch.parallel.tensor_parallel import TensorParallelDALLE
@@ -84,6 +94,7 @@ from dalle_pytorch_tpu_torch.training.pipeline import (
     load_dalle_checkpoint,
 )
 from dalle_pytorch_tpu_torch.utils.artifact import boot_fingerprint, device_kind
+from dalle_pytorch_tpu_torch.utils.flops import DecodeWork, decode_work, forward_cost
 from dalle_pytorch_tpu_torch.weights import load_dalle_params, load_dvae_params
 
 
@@ -166,6 +177,11 @@ class GenerationEngine:
         #: fault-injection seam (serving/faults.py): None, or a
         #: FaultInjector whose rules fail, stall or crash named dispatches
         self.faults = None
+        #: device-telemetry seams (obs/vitals.py), both inert by default:
+        #: the dispatch clock the vitals sampler reads, and a
+        #: ProgramCostTable that warmup fills (attach it before warmup())
+        self.vitals = NULL_VITALS
+        self.cost_table = None
 
     def _placed_model(self, model: DALLE) -> DALLE:
         """The model the engine runs: `model` on the engine's device."""
@@ -180,6 +196,59 @@ class GenerationEngine:
         """Names of the dispatch shapes `warmup()` runs: the fixed-shape
         surface the resume fingerprint hashes."""
         return tuple(f"generate:{b}" for b in self.batch_shapes)
+
+    # -------------------------------------------------------------- vitals
+
+    @contextlib.contextmanager
+    def _bracket(self, name: str, _warmup: bool = False):
+        """The vitals bracket of one dispatch: the dispatch clock the
+        sampler reads and, with a cost table attached, the kernel launches
+        the dispatch made and (at warmup, on the card) the allocator's
+        readings around it. Yields a dict that holds "wall", "launches"
+        and "memory" once the dispatch ends."""
+        out: dict = {}
+        counting = self.cost_table is not None
+        counts0 = kernel_launch_counts() if counting else None
+        watch_memory = counting and _warmup and self.device.type == "cuda"
+        if watch_memory:
+            torch.cuda.reset_peak_memory_stats(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+        t0 = time.perf_counter()
+        self.vitals.dispatch_begin(name)
+        try:
+            yield out
+        finally:
+            out["wall"] = time.perf_counter() - t0
+            self.vitals.dispatch_end(name, out["wall"])
+            if counting:
+                out["launches"] = launch_delta(counts0, kernel_launch_counts())
+            if watch_memory:
+                peak = torch.cuda.max_memory_allocated(self.device)
+                out["memory"] = {
+                    "allocated_before_bytes": int(before),
+                    "allocated_after_bytes": int(torch.cuda.memory_allocated(self.device)),
+                    "peak_allocated_bytes": int(peak),
+                    "temp_size_in_bytes": int(peak - before),
+                }
+
+    def _account(self, name: str, dispatch: dict, _warmup: bool, synced: bool, count_fn=None) -> None:
+        """Feed one bracketed dispatch to the cost table: at warmup the
+        program's counted (FLOPs, bytes) from `count_fn`, with the
+        dispatch's launches and memory; afterwards its wall (MFU-grade
+        only when `synced`: the wall ends in a host copy) and launches. A
+        failed count is recorded on the table, not raised."""
+        table = self.cost_table
+        if table is None:
+            return
+        if not _warmup:
+            table.record_wall(name, dispatch["wall"], synced=synced, launches=dispatch.get("launches"))
+        elif count_fn is not None and not table.has(name):
+            try:
+                flops, nbytes = count_fn()
+            except Exception as exc:
+                table.record_error(name, exc)
+                return
+            table.add(name, flops, nbytes, memory=dispatch.get("memory"), launches=dispatch.get("launches"))
 
     def resume_fingerprint(self) -> str:
         """The build identity a decode-state checkpoint must match to
@@ -284,7 +353,7 @@ class GenerationEngine:
         temps = torch.tensor([float(s.temperature) for s in rows], dtype=torch.float32)
         keep = torch.tensor([self._keep_k(s.top_k) for s in rows], dtype=torch.int32)
 
-        with self._lock:
+        with self._lock, self._bracket(f"generate:{shape}", _warmup):
             self._fault_point(f"generate:{shape}")
             out = generate_images_cached_batched(
                 self.model,
@@ -489,6 +558,73 @@ class ContinuousEngine(GenerationEngine):
         """K/V (+ scale) bytes backing one slot."""
         return self._kv_cache_bytes() // self.max_batch
 
+    # ------------------------------------------------------- counted work
+
+    def decode_work(self) -> DecodeWork:
+        """The per-forward constants of the cost count
+        (`utils/flops.decode_work`), from the model's configuration."""
+        if getattr(self, "_decode_work", None) is None:
+            m, depth = self.model, self.model.depth
+            self._decode_work = decode_work(
+                m.dim, depth, m.heads, m.dim_head, m.total_tokens,
+                dtype_bytes=torch.empty((), dtype=m.dtype).element_size(), kv_int8=m.kv_dtype == "int8",
+                attn_layers=len(set(m.shared_attn_ids or range(depth))),
+                ff_layers=len(set(m.shared_ff_ids or range(depth))),
+            )
+        return self._decode_work
+
+    @property
+    def text_positions(self) -> int:
+        """Positions of a prompt in the cache: the text and <bos>."""
+        return self.model.text_seq_len + 1
+
+    def prefill_cost(self):
+        """(FLOPs, bytes) of one prefill dispatch: `prefill_batch` rows of
+        the prompt's positions from an empty cache, one logits row each."""
+        rows = [(self.text_positions, 0)] * self.prefill_batch
+        return forward_cost(self.decode_work(), rows, self.prefill_batch)
+
+    def resume_cost(self):
+        """(FLOPs, bytes) of one resume dispatch: `prefill_batch` rows of
+        prompt + image_seq_len - 1 positions (the teacher-forced forward's
+        fixed length) from an empty cache, one logits row each."""
+        rows = [(self.text_positions + self.image_seq_len - 1, 0)] * self.prefill_batch
+        return forward_cost(self.decode_work(), rows, self.prefill_batch)
+
+    def chunk_cost(self, img_pos, active):
+        """(FLOPs, bytes) of one chunk dispatch from the host mirrors
+        `img_pos` / `active` at its start: `chunk_tokens` steps of every
+        slot, one position each at cache index text_positions + its image
+        position (live rows advance a step, stopping at image_seq_len;
+        free slots compute along at their own), one logits row each."""
+        seq, work = self.image_seq_len, self.decode_work()
+        flops = nbytes = 0.0
+        for t in range(self.chunk_tokens):
+            pos = [min(int(p) + t, seq) if a else int(p) for p, a in zip(img_pos, active)]
+            f, b = forward_cost(work, [(1, self.text_positions + p) for p in pos], len(pos))
+            flops, nbytes = flops + f, nbytes + b
+        return flops, nbytes
+
+    def _vae_counter(self, name: str, _warmup: bool):
+        """A `torch.utils.flop_counter.FlopCounterMode` around the warmup
+        dispatch of a dVAE decode program that the cost table has no row
+        of yet (it sees the decode's convolutions), else a null context."""
+        if not (_warmup and self.cost_table is not None and not self.cost_table.has(name)):
+            return contextlib.nullcontext()
+        from torch.utils.flop_counter import FlopCounterMode
+
+        return FlopCounterMode(display=False)
+
+    def _vae_cost(self, counter, rows: int):
+        """(FLOPs, bytes) of one dVAE decode dispatch of `rows` token rows:
+        the counted convolution FLOPs, the decoder's weights, the tokens in
+        and the float32 pixels out, each once."""
+        params = sum(p.numel() * p.element_size() for p in self.vae.parameters())
+        size = self.vae.image_size
+        return float(counter.get_total_flops()), float(
+            params + rows * self.image_seq_len * 4 + rows * size * size * 3 * 4
+        )
+
     def prefill_slots(self, assignments: Sequence[Tuple[int, SampleSpec]], _warmup: bool = False) -> None:
         """Admit up to `prefill_batch` (slot, spec) pairs in one prefill;
         short waves are padded by repeating the first pair."""
@@ -496,9 +632,12 @@ class ContinuousEngine(GenerationEngine):
         _, (texts, slots, seeds, temps, keep) = self._padded_wave(assignments)
         bitmap = None if self._sparsity is None else self._sparsity.prefill_bitmaps(self.prefill_batch)
         with self._lock:
-            self._run(lambda st: prefill_into_slots(
-                self.tp_model, st, texts, slots, seeds, temps, keep, block_bitmap=bitmap
-            ), "prefill")
+            with self._bracket("prefill", _warmup) as dispatch:
+                self._run(lambda st: prefill_into_slots(
+                    self.tp_model, st, texts, slots, seeds, temps, keep, block_bitmap=bitmap
+                ), "prefill")
+            # an asynchronous launch: its wall is host time, never MFU
+            self._account("prefill", dispatch, _warmup, synced=False, count_fn=self.prefill_cost)
             if not _warmup:
                 self.stats.prefills += n
                 self.stats.prefill_dispatches += 1
@@ -574,9 +713,11 @@ class ContinuousEngine(GenerationEngine):
         row's own position. Short waves are padded as `prefill_slots`'."""
         texts, slots, seeds, temps, keep, img_tokens, img_pos = self._resume_rows(assignments)
         with self._lock:
-            self._run(lambda st: resume_into_slots(
-                self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
-            ), "resume")
+            with self._bracket("resume", _warmup) as dispatch:
+                self._run(lambda st: resume_into_slots(
+                    self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep
+                ), "resume")
+            self._account("resume", dispatch, _warmup, synced=False, count_fn=self.resume_cost)
             self._count_resume(len(assignments), _warmup)
 
     def _pre_chunk(self) -> None:
@@ -619,30 +760,44 @@ class ContinuousEngine(GenerationEngine):
 
     def step_chunk(self, _warmup: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """Advance all live slots by `chunk_tokens`; returns the post-chunk
-        (img_pos, active) snapshot the batcher retires against."""
-        self.dispatch_chunk(_warmup=_warmup)
-        return self.chunk_snapshot()
+        (img_pos, active) snapshot the batcher retires against. The vitals
+        bracket spans the launch and the snapshot's host copy, so its wall
+        is the chunk's device time (MFU-grade)."""
+        host = self._state["host"]
+        start = (host["img_pos"].copy(), host["active"].copy()) if _warmup else None
+        with self._bracket("chunk", _warmup) as dispatch:
+            self.dispatch_chunk(_warmup=_warmup)
+            snapshot = self.chunk_snapshot()
+        self._account("chunk", dispatch, _warmup, synced=True,
+                      count_fn=None if start is None else lambda: self.chunk_cost(*start))
+        return snapshot
 
-    def snapshot_rows(self, slots: Sequence[int]) -> np.ndarray:
-        """Host copy of `slots`' token rows [len(slots), image_seq_len]."""
-        with self._lock:
+    def _read_rows(self, slots: Sequence[int], fault: bool) -> np.ndarray:
+        """Host copy of `slots`' token rows (the one transfer harvest and
+        the preemption snapshot share), under the "harvest" bracket."""
+        with self._lock, self._bracket("harvest"):
+            if fault:
+                self._fault_point("harvest")
             toks = shard_states(self._state)[0]["img_tokens"].cpu().numpy()
         return toks[list(slots)].astype(np.int32)
 
+    def snapshot_rows(self, slots: Sequence[int]) -> np.ndarray:
+        """Host copy of `slots`' token rows [len(slots), image_seq_len]."""
+        return self._read_rows(slots, fault=False)
+
     def harvest(self, slots: Sequence[int]) -> np.ndarray:
         """Finished slots' tokens (host copy), counted as generated rows."""
-        self._fault_point("harvest")
-        toks = self.snapshot_rows(slots)
+        toks = self._read_rows(slots, fault=True)
         with self._lock:
             self.stats.rows_generated += len(toks)
         return toks
 
     def release(self, slots: Sequence[int]) -> None:
         """Deactivate `slots`, after harvest or on an error reset."""
-        with self._lock:
+        with self._lock, self._bracket("release"):
             self._run(lambda st: release_slots(st, slots), "release")
 
-    def decode_pixels(self, tokens: np.ndarray) -> Optional[np.ndarray]:
+    def decode_pixels(self, tokens: np.ndarray, _warmup: bool = False) -> Optional[np.ndarray]:
         """Pixels [n, H, W, 3] in [0, 1] of harvested token rows, decoded
         in batches of max_batch (padded), or None without a VAE."""
         self._fault_point("decode_pixels")
@@ -653,10 +808,15 @@ class ContinuousEngine(GenerationEngine):
         pad = (-n) % self.max_batch
         padded = np.concatenate([tokens, np.zeros((pad, tokens.shape[1]), np.int32)])
         outs = []
+        counter = self._vae_counter("decode_pixels", _warmup)
         with self._lock, torch.inference_mode():
-            for i in range(0, len(padded), self.max_batch):
-                batch = torch.from_numpy(padded[i : i + self.max_batch]).to(self.device)
-                outs.append(decode_unit(self.vae, batch).cpu().numpy())
+            with self._bracket("decode_pixels", _warmup) as dispatch, counter:
+                for i in range(0, len(padded), self.max_batch):
+                    batch = torch.from_numpy(padded[i : i + self.max_batch]).to(self.device)
+                    outs.append(decode_unit(self.vae, batch).cpu().numpy())
+            if len(padded) == self.max_batch:  # one decode: the wall is one program's
+                self._account("decode_pixels", dispatch, _warmup, synced=True,
+                              count_fn=lambda: self._vae_cost(counter, self.max_batch))
         return np.concatenate(outs)[:n]
 
     # ----------------------------------------------------------- previews
@@ -673,7 +833,9 @@ class ContinuousEngine(GenerationEngine):
             self._preview_fill = tok
         return self._preview_fill
 
-    def preview_pixels(self, tokens: np.ndarray, positions: np.ndarray) -> Optional[np.ndarray]:
+    def preview_pixels(
+        self, tokens: np.ndarray, positions: np.ndarray, _warmup: bool = False
+    ) -> Optional[np.ndarray]:
         """Progressive-preview pixels [n, H, W, 3] in [0, 1] of partial
         token rows (`snapshot_rows`) at per-row decode positions: grid
         positions from a row's position on take `preview_fill_token`, and
@@ -690,18 +852,23 @@ class ContinuousEngine(GenerationEngine):
         pos = np.concatenate([positions, np.zeros(pad, np.int64)])
         fill = self.preview_fill_token()
         outs = []
+        counter = self._vae_counter("preview", _warmup)
         with self._lock, torch.inference_mode():
-            grid = torch.arange(self.image_seq_len, device=self.device)[None, :]
-            for i in range(0, len(toks), self.max_batch):
-                t = torch.from_numpy(toks[i : i + self.max_batch]).to(self.device)
-                p = torch.from_numpy(pos[i : i + self.max_batch]).to(self.device)
-                filled = torch.where(grid < p[:, None], t, torch.full_like(t, fill))
-                outs.append(decode_unit(self.vae, filled).cpu().numpy())
+            with self._bracket("preview", _warmup) as dispatch, counter:
+                grid = torch.arange(self.image_seq_len, device=self.device)[None, :]
+                for i in range(0, len(toks), self.max_batch):
+                    t = torch.from_numpy(toks[i : i + self.max_batch]).to(self.device)
+                    p = torch.from_numpy(pos[i : i + self.max_batch]).to(self.device)
+                    filled = torch.where(grid < p[:, None], t, torch.full_like(t, fill))
+                    outs.append(decode_unit(self.vae, filled).cpu().numpy())
+            if len(toks) == self.max_batch:
+                self._account("preview", dispatch, _warmup, synced=True,
+                              count_fn=lambda: self._vae_cost(counter, self.max_batch))
         return np.concatenate(outs)[:n]
 
     def _warmup_preview(self) -> None:
         if self.preview_enabled and self.vae is not None:
-            self.preview_pixels(np.zeros((1, self.image_seq_len), np.int32), np.zeros(1, np.int64))
+            self.preview_pixels(np.zeros((1, self.image_seq_len), np.int32), np.zeros(1, np.int64), _warmup=True)
 
     def _warmup_resume(self, slot: int) -> None:
         dummy = SampleSpec(
@@ -725,7 +892,7 @@ class ContinuousEngine(GenerationEngine):
             self._warmup_resume(res_slot)
         self.step_chunk(_warmup=True)
         self.release([s for s in (0, 1) if s < self.max_batch])
-        self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32))
+        self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32), _warmup=True)
         self._warmup_preview()
         with self._lock:
             self._state = self._fresh_state()
@@ -976,7 +1143,7 @@ class PagedContinuousEngine(ContinuousEngine):
                 continue
             src, dst = self.kv.admit_hit(slot, entry)
             seed, temp, keep = int(spec.seed) & 0x7FFFFFFF, float(spec.temperature), self._keep_k(spec.top_k)
-            with self._lock:
+            with self._lock, self._bracket("admit_hit", _warmup):
                 self._run(lambda st: admit_cached_prefix(
                     self.tp_model, st, slot, entry.sidecar, seed, temp, keep, src, dst, self.page_size
                 ), "admit_hit")
@@ -1013,10 +1180,12 @@ class PagedContinuousEngine(ContinuousEngine):
         bitmap = None if self._sparsity is None else self._sparsity.prefill_bitmaps(self.prefill_batch)
         wave = {}
         with self._lock:
-            self._run(lambda st: wave.update(sidecar=prefill_into_slots_paged(
-                self.tp_model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
-                self.page_size, block_bitmap=bitmap,
-            )), "prefill")
+            with self._bracket("prefill", _warmup) as dispatch:
+                self._run(lambda st: wave.update(sidecar=prefill_into_slots_paged(
+                    self.tp_model, st, texts, slots, seeds, temps, keep, page_rows, partial_dst,
+                    self.page_size, block_bitmap=bitmap,
+                )), "prefill")
+            self._account("prefill", dispatch, _warmup, synced=False, count_fn=self.prefill_cost)
             if not _warmup:
                 self.stats.prefills += len(misses)
                 self.stats.prefill_dispatches += 1
@@ -1044,10 +1213,12 @@ class PagedContinuousEngine(ContinuousEngine):
         with self._lock:
             # a failure rebuilds the state and (`_fresh_state`) the page
             # tables, discarding these mappings
-            self._run(lambda st: resume_into_slots_paged(
-                self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
-                page_rows, self.page_size,
-            ), "resume")
+            with self._bracket("resume", _warmup) as dispatch:
+                self._run(lambda st: resume_into_slots_paged(
+                    self.tp_model, st, texts, img_tokens, img_pos, slots, seeds, temps, keep,
+                    page_rows, self.page_size,
+                ), "resume")
+            self._account("resume", dispatch, _warmup, synced=False, count_fn=self.resume_cost)
             self._count_resume(len(assignments), _warmup)
 
     def _pre_chunk(self) -> None:
@@ -1099,7 +1270,7 @@ class PagedContinuousEngine(ContinuousEngine):
             self._warmup_resume(res_slot)
         self.step_chunk(_warmup=True)
         self.release(range(min(3, self.max_batch)))
-        self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32))
+        self.decode_pixels(np.zeros((1, self.image_seq_len), np.int32), _warmup=True)
         self._warmup_preview()
         with self._lock:
             self._state = self._fresh_state()

@@ -19,9 +19,11 @@ rule indices count serving traffic only.
 
 The program names are the JAX engines': "generate:<shape>", "prefill",
 "admit_hit", "resume", "chunk", "release", "harvest", "decode_pixels",
-"preview". Not here: the reference's crash rule (`crash_nth`, the
-supervised-restart drills; the port has no supervisor yet) and its
-compile-cache rule (`corrupt_cache`; the port has no compile cache).
+"preview". `crash_nth` aborts the process at the Nth dispatch (a replica
+dying mid-request as an OOM-killed container would); the serve twin arms
+it from `DALLE_SERVE_CRASH=program:nth` for restart drills under the
+supervisor (`serving/supervisor.py`). Not here: the reference's
+compile-cache rule (`corrupt_cache`; the port has no compile cache yet).
 """
 
 from __future__ import annotations
@@ -70,13 +72,31 @@ class FaultInjector:
             raise ValueError(f"a stall of {seconds} s")
         return self._add(program, nth, {"kind": "stall", "seconds": float(seconds), "until": until})
 
+    def crash_nth(self, program: str, nth: int, exit_code: int = 70) -> "FaultInjector":
+        """Hard process abort at the Nth dispatch of `program`. `_abort` is
+        the seam: unit tests override it; real chaos lets it `os._exit`."""
+        return self._add(program, nth, {"kind": "crash", "exit_code": int(exit_code)})
+
     def dispatches(self, program: str) -> int:
         with self._lock:
             return self._counts.get(program, 0)
 
+    def _abort(self, program: str, nth: int, exit_code: int) -> None:
+        """The crash rule's exit: `os._exit`, so no atexit hook, drain or
+        socket flush runs (overridable so tests observe the call)."""
+        import os
+        import sys
+
+        print(
+            f"[faults] crash rule fired: {program} dispatch #{nth} -> os._exit({exit_code})",
+            file=sys.stderr, flush=True,
+        )
+        os._exit(exit_code)
+
     def on_dispatch(self, program: str) -> None:
         """Called by the engine at every dispatch of `program`: raises for a
-        fail rule, sleeps for a stall rule, counts and returns otherwise."""
+        fail rule, sleeps for a stall rule, aborts the process for a crash
+        rule, counts and returns otherwise."""
         with self._lock:
             n = self._counts.get(program, 0) + 1
             self._counts[program] = n
@@ -91,6 +111,9 @@ class FaultInjector:
             else:
                 time.sleep(rule["seconds"])
             return
+        if rule["kind"] == "crash":
+            self._abort(program, n, rule["exit_code"])
+            return  # only reachable with a stubbed _abort
         exc = rule["exc"]
         if exc is None:
             exc = InjectedFault(f"injected failure: {program} dispatch #{n}")

@@ -12,13 +12,22 @@ protocol. Endpoints:
                     "usage": {"rows", "decoded_tokens", "resumed_tokens"},
                     "trace_id"?, "shape"?, "images_png_b64"?,
                     "clip_scores"?, "tokens": [[int]]}
-  GET  /healthz -> {"status": "ok", ...}; 503 while draining and for a
-                   while after an engine failure (the error decays)
+  GET  /healthz -> {"status": "ok" | "degraded", ...}; 503 while draining
+                   and for a while after an engine failure (the error
+                   decays); "degraded" (still 200) after a recent watchdog
+                   stall or while an SLO burns its error budget
   GET  /metrics -> Prometheus text of the shared registry; `?exemplars=1`
                    the OpenMetrics flavour with trace-ID exemplars
   GET  /debug/traces -> Perfetto `trace_event` JSON of the recent request
                    traces (`?n=` bounds it, `?trace_id=` one trace, 404
                    once it left the ring)
+  GET  /debug/vitals -> the vitals sampler's ring (`obs/vitals.py`): queue
+                   depth, slots / pages active, the dispatch in flight,
+                   device memory, watchdog stalls, SLO burn, the device;
+                   `?n=` tails it
+  GET  /debug/programs -> the per-program cost table: counted FLOPs and
+                   bytes (a sharded engine's summed over its shards),
+                   warmup memory, kernel launches, EMA wall, MFU and GB/s
   GET  /debug/state -> engine state (slot and page tables), the batcher's
                    queue and slot table, recent kernel-library events
                    (`utils/compile_guard`) and the worker thread's stack
@@ -56,11 +65,13 @@ the resolved request: `result` (the buffered payload), `migrated` (the
 request (the batcher's `_reap` frees its slots); a re-POST with the same
 `x-dalle-request-key` re-attaches to the live stream.
 
-PNGs are written with zlib (`utils/images.py`). Not ported yet: the
-vitals sampler and watchdog (`/debug/vitals`), the per-program cost table
-(`/debug/programs`), on-demand profiling (`/debug/profile`), SLO burn,
-trace export, the router and supervisor, and the compile cache: those
-paths answer 404 like any unknown one, and /healthz has no degraded tier.
+Vitals are off by default (an inert `EngineVitals`): pass an enabled one
+(`vitals=`) to run the sampler, the stall watchdog and the SLO tracker,
+whose max burn also feeds the continuous batcher's deadline shed and
+preemption victim choice. PNGs are written with zlib (`utils/images.py`).
+Not ported yet: on-demand profiling (`/debug/profile`), the fleet trace
+export and the compile cache; `/debug/profile` answers 404 like any
+unknown path.
 """
 
 from __future__ import annotations
@@ -80,7 +91,7 @@ import numpy as np
 from dalle_pytorch_tpu_torch.obs.aggregate import TRACE_HEADER, default_site, parse_trace_header, sanitize_site
 from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
 from dalle_pytorch_tpu_torch.obs.tracing import Tracer
-from dalle_pytorch_tpu_torch.obs.vitals import thread_stacks
+from dalle_pytorch_tpu_torch.obs.vitals import EngineVitals, thread_stacks
 from dalle_pytorch_tpu_torch.serving.batcher import (
     ContinuousBatcher,
     MicroBatcher,
@@ -222,6 +233,24 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(400, {"error": "n must be a positive integer"})
                 return
             self._reply(200, owner.tracer.trace_events(n))
+        elif path == "/debug/vitals":
+            try:
+                n = params.get("n", [None])[0]
+                n = None if n is None else int(n)
+                _require(n is None or n > 0, "n must be positive")
+            except ValueError:
+                self._reply(400, {"error": "n must be a positive integer"})
+                return
+            self._reply(200, owner.vitals.detail(n))
+        elif path == "/debug/programs":
+            table = getattr(owner.engine, "cost_table", None)
+            if table is None:
+                self._reply(200, {
+                    "programs": [],
+                    "note": "no ProgramCostTable attached (set engine.cost_table before warmup)",
+                })
+            else:
+                self._reply(200, table.detail())
         elif path == "/debug/state":
             self._reply(200, owner.state_dump())
         elif path == "/admin/checkpoints":
@@ -653,6 +682,7 @@ class ServingServer:
         log: Optional[StructuredLog] = None,
         log_requests: bool = True,
         trace_dump_path: Optional[str] = None,
+        vitals: Optional[EngineVitals] = None,
         tenant_quota_rows: Optional[int] = None,
         tenant_weights: Optional[dict] = None,
         preempt: bool = True,
@@ -678,6 +708,8 @@ class ServingServer:
             "requests failed as poison: in flight for quarantine_after+ consecutive failed "
             "engine dispatches (terminal 422)",
         )
+        # vitals default off: the inert sampler (no thread, nothing sampled)
+        self.vitals = vitals if vitals is not None else EngineVitals(enabled=False)
         self.tracer = tracer if tracer is not None else Tracer(max_traces=128)
         self.log = log
         self.log_requests = bool(log_requests)
@@ -706,6 +738,13 @@ class ServingServer:
         else:
             self.batcher = MicroBatcher(engine, max_delay_ms=max_delay_ms, **qos)
         self.batcher.checkpoint_fingerprint = self.resume_fingerprint
+        # the sampler's host-state sources, then its thread (a no-op when
+        # off); binding also hands the engine its dispatch clock
+        self.vitals.bind(engine=engine, batcher=self.batcher, log=log, state_dump_fn=self.state_dump).start()
+        if self.vitals.slo is not None and hasattr(self.batcher, "slo_burn"):
+            # a replica burning its error budget sheds earlier and preempts
+            # the cheapest-to-redo victim
+            self.batcher.slo_burn = self.vitals.slo.max_burn
         #: process identity (site / pid / host), shared with the log lines
         self.identity = (
             dict(log._identity) if log is not None else {
@@ -719,7 +758,8 @@ class ServingServer:
         try:
             self._httpd = _Server((host, port), self)
         except OSError:
-            self.batcher.shutdown(drain=False)  # do not leak the worker
+            self.vitals.stop()  # do not leak the sampler or the worker
+            self.batcher.shutdown(drain=False)
             raise
         self._thread: Optional[threading.Thread] = None
         self._state_lock = threading.Lock()
@@ -876,13 +916,17 @@ class ServingServer:
         erroring = err_age is not None and err_age < self.error_window_s
         draining = self._draining or self._intake_paused
         healthy = not draining and not erroring
+        # the degraded tier sits between ok and 503: the replica serves
+        # (200: a health-gated router keeps it), but a recent stall or a
+        # burning SLO says shed load. Hard failures stay 503.
+        degraded_reasons = self.vitals.degraded_reasons() if healthy else []
         stats = self.engine.stats
         # eager PyTorch compiles nothing per shape: the rungs warmup ran
         compiled = getattr(stats, "compiled_shapes", None)
         if compiled is None:
             compiled = self.engine.batch_shapes if getattr(stats, "warmup_batches", 0) else ()
         detail = {
-            "status": "ok" if healthy else "unhealthy",
+            "status": ("degraded" if degraded_reasons else "ok") if healthy else "unhealthy",
             "uptime_s": round(time.time() - self._started_at, 1),
             "queue_depth_rows": self.batcher.queue_depth_rows,
             "compiled_shapes": list(compiled),
@@ -901,6 +945,10 @@ class ServingServer:
             if counter is not None and hasattr(counter, "value"):
                 work[key] = int(counter.value)
         detail["work"] = work
+        if degraded_reasons:
+            detail["degraded_reasons"] = degraded_reasons
+        if self.vitals.slo is not None:
+            detail["slo"] = self.vitals.slo.status()
         if isinstance(self.batcher, ContinuousBatcher):
             detail["engine"] = "continuous"
             detail["slots_active"] = self.batcher.allocator.n_active
@@ -1018,6 +1066,7 @@ class ServingServer:
         """Stop intake, serve (`drain`) or fail what is queued, stop the
         listener, then write the trace dump."""
         self._draining = True
+        self.vitals.stop()
         self.batcher.shutdown(drain=drain)
         with self._state_lock:
             first_close = not self._closed

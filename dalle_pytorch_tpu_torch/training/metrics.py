@@ -11,24 +11,27 @@ Counterpart of the JAX package's `training/metrics.py`:
   the batcher's worker and the HTTP handlers observe concurrently. The
   instrument names the serving layer registers are the reference's
   (`dalle_serving_*`).
+* `parse_exposition` (with `ParsedSample` / `ParsedFamily`), the inverse
+  of `render` in either flavour, and the reset-aware `counter_delta`,
+  `merge_histogram_points` and `render_histogram_point` the fleet scraper
+  (`obs/fleetmetrics.py`) federates replicas' `/metrics` with.
 * `MetricsLogger`: scalars and images to wandb when it imports, else to
   `<out_dir>/metrics.jsonl` and PNG grids (`utils/images.py`, no PIL);
   `ThroughputMeter`: samples a second over interval crossings;
   `ProfilerHook`: a `torch.profiler` trace of one step, written as a
   Chrome trace, after which the trainer stops.
-
-The exposition parser of that module is not ported yet.
 """
 
 from __future__ import annotations
 
 import bisect
 import json
+import re
 import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 
 def _fmt(v: float) -> str:
@@ -141,6 +144,13 @@ class Histogram:
     def sum(self) -> float:
         return self._sum
 
+    def bucket_counts(self):
+        """A consistent snapshot for rolling-window readers (the SLO burn
+        tracker diffs these between ticks): (bucket bounds, per-bucket
+        counts with +Inf last, total count, sum)."""
+        with self._lock:
+            return self.buckets, tuple(self._counts), self._count, self._sum
+
     def percentile(self, q: float) -> float:
         """Nearest-rank percentile over the reservoir (0.0 when empty)."""
         with self._lock:
@@ -179,8 +189,10 @@ class Histogram:
 
 class Family:
     """One metric name with one label: `labels(value)` gets or creates
-    the child instrument; `render` emits one HELP/TYPE header and every
-    child's samples tagged `{label_name="value"}`."""
+    the child instrument, `labels_extra(value, **more)` one that carries
+    further label dimensions (`dalle_serving_mfu{program=,device=}`);
+    `render` emits one HELP/TYPE header and every child's samples tagged
+    with its labels."""
 
     def __init__(self, cls, name: str, help: str, label_name: str, **kw):
         self.cls, self.name, self.help = cls, name, help
@@ -189,17 +201,29 @@ class Family:
         self._children: Dict[str, object] = {}
         self._lock = threading.Lock()
 
-    def labels(self, value) -> object:
-        key = str(value)
+    def _child(self, key: str, suffix: str):
         with self._lock:
             child = self._children.get(key)
             if child is None:
                 child = self.cls(self.name, self.help, **self._kw)
+                child._label_suffix = suffix
                 self._children[key] = child
             return child
 
+    def labels(self, value) -> object:
+        key = str(value)
+        return self._child(key, f'{self.label_name}="{key}"')
+
+    def labels_extra(self, value, **extra) -> object:
+        """The child with the family label plus `extra` label dimensions,
+        keyed by its full rendered label set (so it sits beside the plain
+        `labels(value)` children under one header)."""
+        pairs = [f'{self.label_name}="{value}"'] + [f'{k}="{v}"' for k, v in sorted(extra.items())]
+        suffix = ",".join(pairs)
+        return self._child(suffix, suffix)
+
     def items(self) -> List:
-        """(label value, child) pairs, sorted by label."""
+        """(label key, child) pairs, sorted by key."""
         with self._lock:
             return sorted(self._children.items())
 
@@ -211,8 +235,8 @@ class Family:
             else self.name
         )
         lines = [f"# HELP {fam} {self.help}", f"# TYPE {fam} {kind}"]
-        for key, child in self.items():
-            label = f'{self.label_name}="{key}"'
+        for _, child in self.items():
+            label = child._label_suffix
             for line in child.render(exemplars=exemplars):
                 name, _, value = line.partition(" ")
                 if line.startswith("#") or "_p50" in name or "_p95" in name:
@@ -296,6 +320,202 @@ class MetricsRegistry:
         if exemplars:
             lines.append("# EOF")
         return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------ exposition parsing
+#
+# The inverse of `MetricsRegistry.render()`, for the fleet scraper
+# (obs/fleetmetrics.py): a router pulls each replica's GET /metrics body
+# and needs the samples back as typed values to federate, delta and roll
+# up. Both flavours parse (OpenMetrics' `_total`-stripped counter family
+# names, `# {...}` bucket exemplars, `# EOF`), and so do the `_p50` /
+# `_p95` gauges, which carry a TYPE line but no HELP.
+
+
+class ParsedSample(NamedTuple):
+    """One sample line: full rendered name (`foo_total`, `foo_bucket`,
+    ...), label dict, value."""
+
+    name: str
+    labels: Dict[str, str]
+    value: float
+
+    def key(self) -> Tuple[str, Tuple[Tuple[str, str], ...]]:
+        """Hashable series identity (name + sorted labels): the join key
+        of cross-scrape deltas and cross-replica rollups."""
+        return self.name, tuple(sorted(self.labels.items()))
+
+
+class ParsedFamily:
+    """All samples of one metric family with its TYPE / HELP."""
+
+    __slots__ = ("name", "type", "help", "samples")
+
+    def __init__(self, name: str, type: str = "untyped", help: str = ""):
+        self.name, self.type, self.help = name, type, help
+        self.samples: List[ParsedSample] = []
+
+    def histogram_series(self) -> Dict[Tuple[Tuple[str, str], ...], Dict]:
+        """`_bucket` / `_sum` / `_count` samples reassembled into one point
+        per non-`le` label set: `{"bounds", "cum", "count", "sum"}` with
+        cumulative bucket counts and `+Inf` folded into `count`."""
+        out: Dict[Tuple[Tuple[str, str], ...], Dict] = {}
+
+        def point(labels: Dict[str, str]) -> Dict:
+            k = tuple(sorted((n, v) for n, v in labels.items() if n != "le"))
+            return out.setdefault(k, {"bounds": [], "cum": [], "count": 0, "sum": 0.0})
+
+        for s in self.samples:
+            if s.name == f"{self.name}_bucket":
+                le = s.labels.get("le", "+Inf")
+                if le == "+Inf":
+                    point(s.labels)["count"] = int(s.value)
+                else:
+                    p = point(s.labels)
+                    p["bounds"].append(float(le))
+                    p["cum"].append(int(s.value))
+            elif s.name == f"{self.name}_sum":
+                point(s.labels)["sum"] = float(s.value)
+            elif s.name == f"{self.name}_count":
+                point(s.labels)["count"] = int(s.value)
+        for p in out.values():
+            order = sorted(range(len(p["bounds"])), key=p["bounds"].__getitem__)
+            p["bounds"] = [p["bounds"][i] for i in order]
+            p["cum"] = [p["cum"][i] for i in order]
+        return out
+
+
+_SAMPLE_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+#: suffixes that attach a sample to a declared family: classic counters
+#: match the family name, OpenMetrics ones add `_total`, histograms fan
+#: out into bucket / sum / count
+_FAMILY_SUFFIXES = ("", "_total", "_bucket", "_sum", "_count")
+
+
+def _unescape_label(v: str) -> str:
+    return v.replace('\\"', '"').replace("\\n", "\n").replace("\\\\", "\\")
+
+
+def _parse_sample_line(line: str) -> ParsedSample:
+    """`name[{labels}] value[ # exemplar...]` -> ParsedSample; ValueError
+    on anything malformed (the scraper counts that as a failed scrape,
+    not a partial one)."""
+    name, labels_part, rest = line, "", ""
+    brace = line.find("{")
+    if brace >= 0:
+        close = line.find("}", brace)
+        if close < 0:
+            raise ValueError(f"unterminated label block: {line!r}")
+        name = line[:brace]
+        labels_part = line[brace + 1 : close]
+        rest = line[close + 1 :].strip()
+    else:
+        try:
+            name, rest = line.split(None, 1)
+        except ValueError:
+            raise ValueError(f"sample line without a value: {line!r}")
+    if not _SAMPLE_NAME_RE.match(name):
+        raise ValueError(f"bad sample name in line: {line!r}")
+    labels: Dict[str, str] = {}
+    if labels_part:
+        matched = _LABEL_RE.findall(labels_part)
+        if _LABEL_RE.sub("", labels_part).replace(",", "").strip():
+            raise ValueError(f"bad label block: {labels_part!r}")
+        labels = {k: _unescape_label(v) for k, v in matched}
+    # an OpenMetrics exemplar trails the value as ` # {...} v ts`
+    value_token = rest.split(" # ", 1)[0].strip().split()
+    if len(value_token) != 1:
+        raise ValueError(f"bad sample value in line: {line!r}")
+    tok = value_token[0]
+    try:
+        value = float("inf") if tok == "+Inf" else float(tok)
+    except ValueError:
+        raise ValueError(f"non-numeric sample value {tok!r} in {line!r}")
+    return ParsedSample(name, labels, value)
+
+
+def parse_exposition(text: str) -> Dict[str, ParsedFamily]:
+    """Prometheus text exposition (either flavour `render` emits) back
+    into `{family name: ParsedFamily}`. Strict on sample lines (a
+    truncated or garbage body raises ValueError rather than returning half
+    a scrape), lenient on metadata: unknown comments are skipped, TYPE
+    without HELP is fine, and samples of no declared family land in an
+    `untyped` one."""
+    families: Dict[str, ParsedFamily] = {}
+
+    def family_for(sample_name: str) -> ParsedFamily:
+        for suffix in _FAMILY_SUFFIXES:
+            if suffix and not sample_name.endswith(suffix):
+                continue
+            base = sample_name[: len(sample_name) - len(suffix)] if suffix else sample_name
+            fam = families.get(base)
+            if fam is not None:
+                return fam
+        return families.setdefault(sample_name, ParsedFamily(sample_name))
+
+    for raw_line in text.splitlines():
+        line = raw_line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 3 and parts[1] == "TYPE":
+                fam = families.setdefault(parts[2], ParsedFamily(parts[2]))
+                fam.type = parts[3] if len(parts) > 3 else "untyped"
+            elif len(parts) >= 3 and parts[1] == "HELP":
+                fam = families.setdefault(parts[2], ParsedFamily(parts[2]))
+                fam.help = parts[3] if len(parts) > 3 else ""
+            continue  # `# EOF` and stray comments are skippable metadata
+        sample = _parse_sample_line(line)
+        family_for(sample.name).samples.append(sample)
+    return families
+
+
+def counter_delta(prev: Optional[float], cur: float) -> float:
+    """Reset-aware counter delta: a counter that went down means the
+    replica restarted, so the delta clamps to 0 (the restarted process's
+    increments land from the next scrape); `prev=None` (first sight of the
+    series) also reads 0, so a scraper joining mid-life does not claim the
+    replica's whole history as one interval."""
+    if prev is None or cur < prev:
+        return 0.0
+    return float(cur - prev)
+
+
+def merge_histogram_points(points: Iterable[Dict]) -> Dict:
+    """Per-replica histogram points (`histogram_series()`'s shape) merged
+    into one. Equal bounds merge exactly; mismatched ones on the union
+    grid, each histogram's cumulative count at an unknown bound floored to
+    its nearest lower known bound (an undercount, never an overcount)."""
+    points = [p for p in points if p is not None]
+    if not points:
+        return {"bounds": [], "cum": [], "count": 0, "sum": 0.0}
+    bounds: List[float] = sorted({b for p in points for b in p["bounds"]})
+
+    def cum_at(p: Dict, bound: float) -> int:
+        idx = bisect.bisect_right(p["bounds"], bound) - 1
+        return int(p["cum"][idx]) if idx >= 0 else 0
+
+    return {
+        "bounds": bounds,
+        "cum": [sum(cum_at(p, b) for p in points) for b in bounds],
+        "count": int(sum(p["count"] for p in points)),
+        "sum": float(sum(p["sum"] for p in points)),
+    }
+
+
+def render_histogram_point(name: str, point: Dict, labels: str = "") -> List[str]:
+    """Bucket / sum / count lines of one merged point (no HELP / TYPE:
+    the caller owns the header). `labels` is a rendered `k="v"` list
+    spliced in before `le`."""
+    prefix = f"{labels}," if labels else ""
+    lines = [f'{name}_bucket{{{prefix}le="{_fmt(b)}"}} {int(c)}' for b, c in zip(point["bounds"], point["cum"])]
+    lines.append(f'{name}_bucket{{{prefix}le="+Inf"}} {int(point["count"])}')
+    suffix = f"{{{labels}}}" if labels else ""
+    lines.append(f'{name}_sum{suffix} {_fmt(point["sum"])}')
+    lines.append(f'{name}_count{suffix} {int(point["count"])}')
+    return lines
 
 
 # ------------------------------------------------------------ training logs

@@ -38,7 +38,7 @@ def test_the_scan_covers_every_port_script():
         "loader.py", "rainbow.py", "webdataset.py", "prefetch.py", "config.py", "lr.py", "flops.py",
         "train_vae.py", "train_clip.py", "gumbel.py", "vae_io.py", "mesh.py", "partition.py",
         "serving_partition.py", "tensor_parallel.py", "sharded.py", "collectives.py", "fsdp.py",
-        "ring.py", "launch.py", "torch_collectives_probe.py",
+        "ring.py", "launch.py", "torch_collectives_probe.py", "supervisor.py", "fleetmetrics.py",
     } <= names
 
 

@@ -7,8 +7,9 @@ so the default one serves) is served by `python -m
 dalle_pytorch_tpu_torch.serve --device cpu --port 0`: the readiness line,
 /healthz, two concurrent /generate requests coalesced into one batch, the
 trace dump and a clean exit 0 on SIGTERM. Without `--device cpu` and with
-no card it fails and names the card; the reference's flags the port does
-not offer are refused by the parser.
+no card it fails and names the card; the flags a later slice brings are
+refused by the parser, naming it, and so are the reference's refused
+combinations of the fleet and vitals flags.
 """
 
 import json
@@ -140,14 +141,30 @@ def test_serve_cli_without_a_card_names_it(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--router"], ["--replicas", "http://a"], ["--supervise"], ["--spool_notify", "http://n"],
-    ["--compile_cache", "cache"], ["--no_vitals"], ["--slo_ttft_ms", "500"], ["--trace_export", "http://c"],
-    ["--profile_dir", "p"], ["--no_program_costs"],
+    ["--router"], ["--replicas", "http://a"], ["--supervise", "--port", "0"], ["--spool_notify", "http://n"],
+    ["--compile_cache", "cache"], ["--no_vitals", "--slo_ttft_ms", "500"],
+    ["--slo_ttft_ms", "500", "--slo_objective", "1"], ["--trace_export", "http://c"],
+    ["--profile_dir", "p"], ["--router", "--replicas", "http://a"],
 ])
 def test_flags_not_offered_are_refused(flags, capsys):
+    """The flags a later slice brings, and the fleet and vitals flags in
+    combinations the reference refuses: exit 2 with a message naming one
+    of them."""
     with pytest.raises(SystemExit) as err:
         parse_args(["--dalle_path", "x.npz", *flags])
-    assert err.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+    said = capsys.readouterr().err
+    assert err.value.code == 2 and any(f in said for f in flags if f.startswith("--")), said
+
+
+def test_fleet_and_vitals_flags_accepted():
+    router = parse_args(["--router", "--replicas", "a=http://h:1,http://h:2", "--port", "0",
+                         "--migrate_wait_s", "30", "--hedge_after_ms", "50", "--no_fleet_metrics"])
+    assert router.router and router.migrate_wait_s == 30.0 and router.no_fleet_metrics
+    replica = parse_args(["--dalle_path", "x.npz", "--engine", "continuous", "--port", "8001", "--supervise",
+                          "--checkpoint_spool", "d", "--spool_notify", "http://r:8100", "--slo_ttft_ms", "500",
+                          "--slo_objective", "0.9", "--vitals_interval_s", "0.5", "--no_program_costs"])
+    assert replica.supervise and replica.spool_notify == "http://r:8100" and replica.slo_ttft_ms == 500.0
+    assert replica.vitals_interval_s == 0.5 and replica.no_program_costs and not replica.no_vitals
 
 
 @pytest.mark.parametrize("flags, message", [

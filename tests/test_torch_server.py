@@ -20,7 +20,8 @@
   whose checkpoint the port resumes to the uninterrupted tokens;
   `/debug/traces` holds the request's trace and adopts a valid
   `x-dalle-trace`; `/debug/state` has the slot table and the batcher's
-  thread stack; the paths not ported answer 404.
+  thread stack; `/debug/vitals` and `/debug/programs` answer with vitals
+  off (the default); `/debug/profile`, not ported, answers 404.
 """
 
 import base64
@@ -457,8 +458,11 @@ def test_debug_endpoints(cont):
         assert state["engine"]["max_batch"] == 2 and "recent_compiles" in state
         status, _, text = _request(port, "GET", "/metrics?exemplars=1")
         assert status == 200 and text.rstrip().endswith("# EOF") and '# {trace_id="' in text
-        for path in ("/debug/vitals", "/debug/programs"):
-            assert _request(port, "GET", path)[0] == 404
+        # vitals off by default: the inert sampler's empty ring, no cost table
+        status, _, vitals = _request(port, "GET", "/debug/vitals")
+        assert status == 200 and vitals["enabled"] is False and vitals["samples_taken"] == 0
+        status, _, programs = _request(port, "GET", "/debug/programs")
+        assert status == 200 and programs["programs"] == [] and "note" in programs
         assert _request(port, "POST", "/debug/profile", b"")[0] == 404
     finally:
         server.shutdown()
