@@ -270,8 +270,23 @@ Phases, each failing loudly (nonzero exit, no result line):
    `/debug/programs`: counted FLOPs equal to `fleet_flops`, MFU in (0,
    1] and the counted FLOPs over the EMA wall at most the card's peak,
    depth x 4 step launches a chunk, the tile arm in prefill and
-   resume; (f) no CUDA context in the router or the supervisor
-   (nvidia-smi and /proc/<pid>/maps).
+   resume; (f) trace export: A, B and the router ship their traces
+   (`--trace_export`) to a `CollectorServer` in this process, and every
+   routed request of (a) is one merged trace there, the router's
+   dispatch span and the serving replica's spans on their own tracks
+   joined by a parent edge, with `/critical_path`'s per-stage p50 / p95;
+   (g) the boot cache: a cache directory filled in this process
+   (`CompileCache.export` of the libraries phase 1 built, keyed by the
+   replicas' boot fingerprint), B booting on it (`--compile_cache`) warm
+   at its first boot and after (b)'s restart (hits = the libraries it
+   loaded, no miss, no reject, nothing built, `uncached == 0`), A on a
+   copy with flash_decode's artifact garbled (one reject, the library
+   from the build directory, the reference tokens); (h) the profiler:
+   `POST /debug/profile?seconds=2` on A while (a)'s routed wave runs,
+   a second POST meanwhile 409, the Chrome trace naming flash decode's
+   step kernel and the tile kernel with their launches; (i) no CUDA
+   context in the router or the supervisor (nvidia-smi and
+   /proc/<pid>/maps).
 
 Phases 2 and 3 also hold and time flash decode's tile arms
 (`flash_decode_tile.cu`: bf16 q at n > 4 rows, P carried as a bf16 pair;
@@ -5232,21 +5247,24 @@ def wait_for(cond, timeout, label, interval=0.05):
         time.sleep(interval)
 
 
-def fleet_command(name, path, work, ports):
+def fleet_command(name, path, work, ports, collector):
     """The command of the fleet's process `name`: "a" (a plain serve twin
-    replica on a port of its own choosing), "b" (the same under
-    --supervise on `ports["b"]`, handing its spool to the router) or
-    "router" (on `ports["router"]`, before A's and B's ports)."""
+    replica on a port of its own choosing, booting on the damaged copy of
+    the compile cache, capturing profiles into `work`/profiles), "b" (the
+    same under --supervise on `ports["b"]`, booting on the cache and
+    handing its spool to the router) or "router" (on `ports["router"]`,
+    before A's and B's ports); each exports its traces to `collector`."""
     base = [
         sys.executable, "-m", "dalle_pytorch_tpu_torch.serve", "--dalle_path", str(path), "--engine",
         "continuous", "--batch_shapes", str(FLEET_SLOTS), "--chunk_tokens", str(FLEET_SLOTS),
         "--prefill_batch", str(FLEET_SLOTS), "--preview_every", "0", "--request_timeout_s", str(FLEET_TIMEOUT_S),
         "--spool_every", str(FLEET_SPOOL_EVERY), "--vitals_interval_s", "0.5",
         "--checkpoint_spool", str(work / f"spool_{name}"), "--trace_site", f"replica-{name}",
-        "--request_log_path", str(work / f"{name}.jsonl"),
+        "--request_log_path", str(work / f"{name}.jsonl"), "--trace_export", collector,
+        "--compile_cache", str(work / f"cache_{name}"),
     ]
     if name == "a":
-        return base + ["--port", "0"]
+        return base + ["--port", "0", "--profile_dir", str(work / "profiles")]
     if name == "b":
         return base + ["--port", str(ports["b"]), "--supervise", "--spool_notify",
                        f"http://127.0.0.1:{ports['router']}"]
@@ -5256,6 +5274,7 @@ def fleet_command(name, path, work, ports):
         "--migrate_wait_s", str(FLEET_MIGRATE_WAIT_S), "--request_timeout_s", str(FLEET_TIMEOUT_S),
         "--attempt_timeout_s", str(FLEET_TIMEOUT_S), "--probe_interval_s", "0.5",
         "--fleet_scrape_interval_s", "1", "--trace_site", "router", "--request_log_path", str(work / "router.jsonl"),
+        "--trace_export", collector,
     ]
 
 
@@ -5311,7 +5330,7 @@ def log_event(event):
     return test
 
 
-def start_fleet(path, work, procs):
+def start_fleet(path, work, procs, collector):
     """Phase 16's processes, each in `procs`: replicas A and B started
     together, then the router once both serve (a probe that meets a
     booting replica ejects it into the probe backoff). B's --spool_notify
@@ -5323,13 +5342,13 @@ def start_fleet(path, work, procs):
     held, router_port = reserve_port()
     try:
         ports = {"b": free_port(), "router": router_port}
-        start_fleet_process("a", fleet_command("a", path, work, ports), work, procs)
-        start_fleet_process("b", fleet_command("b", path, work, ports), work, procs)
+        start_fleet_process("a", fleet_command("a", path, work, ports, collector), work, procs)
+        start_fleet_process("b", fleet_command("b", path, work, ports, collector), work, procs)
         ports["a"] = wait_output(procs, "a", listening_port("[serve] listening on "), FLEET_READY_S)
         wait_output(procs, "b", log_event("replica_ready"), FLEET_READY_S)
     finally:
         held.close()
-    start_fleet_process("router", fleet_command("router", path, work, ports), work, procs)
+    start_fleet_process("router", fleet_command("router", path, work, ports, collector), work, procs)
     bound = wait_output(procs, "router", listening_port("[router] listening on "), 60)
     if bound != router_port:
         fail(f"phase 16: the router listens on {bound}, not its port {router_port}")
@@ -5402,6 +5421,169 @@ def maps_card(pid):
     return "/dev/nvidia" in maps or "libcuda.so" in maps
 
 
+# the artifact phase 16 (g) garbles in A's copy of the compile cache: the
+# library of flash decode's step, which every chunk of A launches
+FLEET_GARBLED = "flash_decode"
+# B's SIGKILL-to-ready seconds on an H100 before phase 16 booted it from
+# the compile cache, its libraries loaded from the build directory
+# (PERF.md section 6)
+FLEET_KILL_TO_READY_UNCACHED_S = 24.3
+
+
+def fill_fleet_cache(path, work, collector):
+    """Phase 16 (g)'s cache directories, filled in this process before the
+    fleet starts: the fingerprint of an engine built from A's flags (B's
+    engine flags are A's), every kernel library of the checkout made
+    ready here (phase 1 built them all: nothing builds) and exported
+    into `work`/cache_b with `CompileCache.export`; then a copy as
+    `work`/cache_a with FLEET_GARBLED's artifact garbled on disk by
+    `FaultInjector.corrupt_cache`. Returns the record: the plan's misses
+    before the export (counted), its mode after, the seconds."""
+    import shutil
+
+    import torch
+
+    from dalle_pytorch_tpu_torch import kernels
+    from dalle_pytorch_tpu_torch.serve import engine_from_args, parse_args
+    from dalle_pytorch_tpu_torch.serving.faults import FaultInjector
+    from dalle_pytorch_tpu_torch.utils.compile_cache import CompileCache, engine_fingerprint
+
+    t0 = time.perf_counter()
+    argv = fleet_command("a", path, work, {"b": 0, "router": 0}, collector)[3:]
+    engine = engine_from_args(parse_args(argv))
+    fingerprint = engine_fingerprint(engine)
+    del engine
+    torch.cuda.empty_cache()
+    names = kernels.sources()
+    built_before = {n for n, info in kernels.build_log.items() if info.get("source") == "built"}
+    kernels.build(names)  # all loaded since phase 1: no build
+    if {n for n, info in kernels.build_log.items() if info.get("source") == "built"} != built_before:
+        fail("phase 16 (g): filling the cache built a kernel library")
+    cache = CompileCache(work / "cache_b").bind(fingerprint, names)
+    before = cache.plan_boot()
+    misses = sorted(n for n, v in before["programs"].items() if v["status"] == "miss")
+    for name in names:
+        if not cache.export(name, kernels.build_log[name]["path"]):
+            fail(f"phase 16 (g): export of {name} failed: {cache.detail()['errors']}")
+    after = cache.plan_boot()
+    if before["mode"] != "cold" or misses != names or after["mode"] != "warm":
+        fail(f"phase 16 (g): the fill's plans {before['mode']} (misses {misses}) then {after['mode']}")
+    shutil.copytree(work / "cache_b", work / "cache_a")
+    damaged = CompileCache(work / "cache_a")
+    faults = FaultInjector().corrupt_cache(FLEET_GARBLED, mode="garble")
+    faults.on_artifact_load(FLEET_GARBLED, damaged.artifact_path(FLEET_GARBLED))
+    if not faults.fired:
+        fail("phase 16 (g): the garble rule did not fire")
+    nbytes = {n: cache.artifact_path(n).stat().st_size for n in names}
+    return dict(fingerprint=fingerprint, misses_before=len(misses), plan_after=after["mode"], bytes=nbytes,
+                seconds=round(time.perf_counter() - t0, 3))
+
+
+def boot_cache_state(port):
+    """(the compile cache's detail, the kernel-library tally, the recent
+    library events) of a replica's /debug/state."""
+    _, _, state = http_call(port, "GET", "/debug/state")
+    return state.get("compile_cache"), state.get("compiles"), state.get("recent_compiles") or []
+
+
+def check_warm_boot(port, label):
+    """Phase 16 (g): the replica on `port` booted warm: its plan warm,
+    every library it loaded a hit (hits = the libraries loaded), no
+    miss, no reject, nothing built, `uncached == 0`. Returns its record."""
+    cache, compiles, events = boot_cache_state(port)
+    if cache is None:
+        fail(f"phase 16 (g) {label}: no compile cache in /debug/state")
+    counts, loaded = cache["counts"], compiles["count"]
+    sources = {e["kernel"]: e["source"] for e in events}
+    if (cache["plan"]["mode"] != "warm" or loaded < 1 or counts != {"hits": loaded, "misses": 0, "rejects": 0}
+            or compiles["cache_hits"] != loaded or compiles["uncached"] != 0
+            or set(sources.values()) != {"cache"} or any(e["built"] for e in events)):
+        fail(f"phase 16 (g) {label}: plan {cache['plan']['mode']}, counts {counts}, compiles {compiles}, "
+             f"library sources {sources}")
+    return dict(plan=cache["plan"]["mode"], counts=counts, compiles=compiles, sources=sources,
+                boot_seconds=cache["boot_seconds"])
+
+
+def check_damaged_boot(port):
+    """Phase 16 (g): A booted on the copy with FLEET_GARBLED garbled: one
+    counted reject (that library, from the build directory, not built),
+    every other library it loaded a hit, no miss."""
+    cache, compiles, events = boot_cache_state(port)
+    if cache is None:
+        fail("phase 16 (g) A: no compile cache in /debug/state")
+    counts, loads = cache["counts"], cache["loads"]
+    sources = {e["kernel"]: e["source"] for e in events}
+    hits = compiles["count"] - 1
+    if (counts != {"hits": hits, "misses": 0, "rejects": 1} or loads.get(FLEET_GARBLED, {}).get("status") != "reject"
+            or sources.get(FLEET_GARBLED) != "disk" or any(e["built"] for e in events)
+            or {v for k, v in sources.items() if k != FLEET_GARBLED} - {"cache"}):
+        fail(f"phase 16 (g) A: counts {counts}, loads {loads}, library sources {sources}")
+    return dict(plan=cache["plan"]["mode"], counts=counts, reject=loads[FLEET_GARBLED], sources=sources,
+                compiles=compiles)
+
+
+def check_fleet_traces(collector, routed):
+    """Phase 16 (f): each routed request of (a) is one merged trace in the
+    collector: the router's route and dispatch spans and the serving
+    replica's spans, each process its own track, the replica's root
+    parented into one of the router's spans (a flow arrow). Waits for the
+    exporters' batches. Returns the span counts per site and the
+    `/critical_path` answer."""
+    import urllib.request
+
+    col = collector.collector
+    ids = [(r[3]["trace_id"], "replica-" + r[2].get("x-dalle-replica")) for r in routed]
+
+    def joined():
+        for trace_id, site in ids:
+            bundle = col.find(trace_id)
+            if bundle is None or {p["site"] for p in bundle.procs.values()} != {"router", site}:
+                return False
+        return True
+
+    wait_for(joined, 60, "phase 16 (f): every routed trace joined in the collector", interval=0.1)
+    spans = {}
+    for trace_id, site in ids:
+        events = col.trace_events(trace_id=trace_id)["traceEvents"]
+        tracks = sorted(e["args"]["name"].split(" (")[0] for e in events if e["ph"] == "M")
+        names = {}
+        for e in events:
+            if e["ph"] == "X":
+                at = e["args"]["uid"].split(":")[0]
+                names.setdefault(at, set()).add(e["name"])
+                spans[at] = spans.get(at, 0) + 1
+        replica_proc = next(p for p in col.find(trace_id).procs.values() if p["site"] == site)
+        if (tracks != sorted(["router", site]) or not {"route", "dispatch"} <= names.get("router", set())
+                or not {"request", "queue", "prefill", "chunk", "respond"} <= names.get(site, set())
+                or not (replica_proc["parent_uid"] or "").startswith("router:")
+                or not {"s", "f"} <= {e["ph"] for e in events}):
+            fail(f"phase 16 (f): trace {trace_id}: tracks {tracks}, spans {names}, "
+                 f"parent {replica_proc['parent_uid']}")
+    with urllib.request.urlopen(collector.url + "/critical_path", timeout=30) as resp:
+        critical = json.loads(resp.read())
+    stages = critical["stages"]
+    if not critical["traces"] >= len(ids) or not all(
+            stages.get(n, {}).get("p50_ms") is not None and stages[n]["p95_ms"] >= stages[n]["p50_ms"]
+            for n in ("queue", "prefill", "chunk", "respond")):
+        fail(f"phase 16 (f): /critical_path {json.dumps(critical)[:800]}")
+    return spans, critical
+
+
+def profile_kernels(trace_dir):
+    """{"step": launches of flash_decode.cu's step kernel, "tile": of
+    flash_decode_tile.cu's} in the Chrome trace of a /debug/profile
+    capture (its device kernel events), and the trace's event count."""
+    from dalle_pytorch_tpu_torch.obs.profiler import TRACE_FILE
+
+    events = json.loads((Path(trace_dir) / TRACE_FILE).read_text())["traceEvents"]
+    kernels_seen = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    count = {
+        "step": sum(1 for n in kernels_seen if re.search(r"\bflash_decode_kernel<", n)),
+        "tile": sum(1 for n in kernels_seen if re.search(r"\bflash_decode_tile_kernel<", n)),
+    }
+    return count, len(events), len(kernels_seen)
+
+
 def run_fleet(torch, vae, smi):
     """Phase 16: text-to-image requests through the router to two replicas
     of the port on the card, B supervised (`fleet_checkpoint`,
@@ -5421,10 +5603,17 @@ def run_fleet(torch, vae, smi):
     FLOPs equal to `fleet_flops`, MFU in (0, 1] and the counted FLOPs over
     the EMA wall at the card's peak (unclamped) too, the chunk's step launches
     depth x chunk tokens a dispatch, the tile arm in prefill and resume; the
-    device cuda and the card's name; (f) neither the router nor the
-    supervisor holds a CUDA context. Returns the phase's record."""
+    device cuda and the card's name; (f) every routed request of (a) one
+    merged trace in this process's collector (`check_fleet_traces`); (g)
+    B warm at both boots on the cache `fill_fleet_cache` made, A one
+    reject on its damaged copy (`check_warm_boot`, `check_damaged_boot`);
+    (h) a profile of A during (a)'s routed wave naming the decode
+    kernels, a concurrent capture refused 409 (`profile_kernels`); (i)
+    neither the router nor the supervisor holds a CUDA context. Returns
+    the phase's record."""
     import shutil
 
+    from dalle_pytorch_tpu_torch.obs.collector import CollectorServer
     from dalle_pytorch_tpu_torch.serving.migrate import CheckpointSpool
     from dalle_pytorch_tpu_torch.training.metrics import parse_exposition
 
@@ -5433,24 +5622,43 @@ def run_fleet(torch, vae, smi):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     walls, procs, record = {}, {}, {"smi": smi}
+    collector = CollectorServer(port=0, grace_s=1.0).start()
     try:
         t0 = time.perf_counter()
         path, cfg, model = fleet_checkpoint(torch, vae, work)
         depth = cfg["depth"]
         walls["checkpoint"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ports = start_fleet(path, work, procs)
+        record["cache_fill"] = fill_fleet_cache(path, work, collector.url)
+        print(f"phase 16 (g) ({smi}): cache filled in {record['cache_fill']['seconds']} s: "
+              f"{record['cache_fill']['misses_before']} counted misses before the export, then "
+              f"{record['cache_fill']['plan_after']}; artifacts {json.dumps(record['cache_fill']['bytes'])} bytes; "
+              f"{FLEET_GARBLED} garbled in A's copy")
+        walls["cache_fill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ports = start_fleet(path, work, procs, collector.url)
         pa, pb, pr = ports["a"], ports["b"], ports["router"]
         wait_for(lambda: all(r["state"] == "healthy" for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]),
                  60, "phase 16: both replicas healthy at the router")
         walls["boot"] = time.perf_counter() - t0
         bodies = [{"prompt": p, "seed": 1600 + i, "tenant": FLEET_TENANTS[i % 2]} for i, p in enumerate(FLEET_PROMPTS)]
 
-        # (a) the reference: direct to A, then routed ----------------------
+        # (a) the reference: direct to A, then routed, A profiled (h) -------
         t0 = time.perf_counter()
         direct, _ = fleet_wave(pa, bodies)
         reference = fleet_tokens(torch, direct, "direct to A")
+        profile = {}
+
+        def capture():
+            profile["first"] = http_call(pa, "POST", "/debug/profile?seconds=2", b"", timeout=300)
+
+        profiler = threading.Thread(target=capture, daemon=True)
+        profiler.start()
+        wait_for(lambda: "first" in profile or http_call(pa, "GET", "/debug/state")[2]["profiler"]["capturing"],
+                 120, "phase 16 (h): A's profiler capturing", interval=0.02)
+        profile["second"] = http_call(pa, "POST", "/debug/profile?seconds=2", b"")
         routed, _ = fleet_wave(pr, bodies)
+        profiler.join(300)
         tokens = fleet_tokens(torch, routed, "routed")
         if not torch.equal(tokens, reference):
             fail("phase 16 (a): routed tokens differ from the direct run's")
@@ -5476,6 +5684,42 @@ def run_fleet(torch, vae, smi):
         print(f"phase 16 (a) ({smi}): 4 requests direct to A, walls {record['direct_wall_s']} s; through the "
               f"router {record['routed_wall_s']} s (served by {served_by(routed)}); tokens equal")
         walls["reference"] = time.perf_counter() - t0
+
+        # (h) the profile of A taken during the routed wave ------------------
+        t0 = time.perf_counter()
+        first, second = profile.get("first"), profile["second"]
+        if first is None or first[0] != 200 or second[0] != 409:
+            fail(f"phase 16 (h): the capture answered {first and first[:3:2]}, the concurrent one {second[::2]}")
+        launched, n_events, n_kernels = profile_kernels(first[2]["trace_dir"])
+        a_state = http_call(pa, "GET", "/debug/state")[2]
+        stop_s = a_state["profiler"]["last_stop_s"]
+        if launched["step"] < 1 or launched["tile"] < 1:
+            fail(f"phase 16 (h): the trace ({n_events} events, {n_kernels} kernel events) names flash decode's "
+                 f"step kernel {launched['step']} times, the tile kernel {launched['tile']} times")
+        record["profile"] = dict(trace_dir=first[2]["trace_dir"], seconds=first[2]["seconds"], events=n_events,
+                                 kernel_events=n_kernels, launches=launched, concurrent_status=second[0],
+                                 stop_s=stop_s)
+        print(f"phase 16 (h) ({smi}): POST /debug/profile?seconds=2 on A during the routed wave: 200, a trace of "
+              f"{n_events} events ({n_kernels} kernel events), flash_decode_kernel launched {launched['step']} "
+              f"times, flash_decode_tile_kernel {launched['tile']} times; the capture's stop and export {stop_s} s; "
+              f"the concurrent POST {second[0]}; the wave's tokens equal the direct run's")
+        walls["profile"] = time.perf_counter() - t0
+
+        # (f) every routed request one merged trace in the collector ---------
+        t0 = time.perf_counter()
+        spans, critical = check_fleet_traces(collector, routed)
+        record["traces"] = dict(spans_by_site=spans, collector=collector.collector.stats(),
+                                critical_path={n: {k: v[k] for k in ("count", "p50_ms", "p95_ms")}
+                                               for n, v in critical["stages"].items()})
+        print(f"phase 16 (f) ({smi}): the 4 routed requests joined across the router and {sorted(set(served_by(routed)))} "
+              f"in the collector, spans by site {json.dumps(spans)}; collector {json.dumps(record['traces']['collector'])}; "
+              f"/critical_path stages {json.dumps(record['traces']['critical_path'])}")
+        walls["traces"] = time.perf_counter() - t0
+
+        # (g) B warm on the cache, A one reject on its damaged copy ---------
+        record["boot_cache"] = {"b": check_warm_boot(pb, "B's first boot"), "a": check_damaged_boot(pa)}
+        print(f"phase 16 (g) ({smi}): B's first boot {json.dumps(record['boot_cache']['b'])}; A "
+              f"{json.dumps(record['boot_cache']['a'])}; A's routed requests carried the reference tokens")
 
         # (b) B's child killed mid-decode -------------------------------------
         t0 = time.perf_counter()
@@ -5560,6 +5804,9 @@ def run_fleet(torch, vae, smi):
                 or payload["tokens"][0] != reference[0].tolist() or b_state["restarts"] < 1:
             fail(f"phase 16 (b): the trial went to {headers.get('x-dalle-replica')} ({status}); B is "
                  f"{b_state['state']} after {b_state['restarts']} restarts (was {trial['state']})")
+        record["boot_cache"]["b_restart"] = check_warm_boot(pb, "B's restart")
+        print(f"phase 16 (g) ({smi}): B's restart {json.dumps(record['boot_cache']['b_restart'])}; SIGKILL to ready "
+              f"{record['kill_to_ready_s']} s on the cache (without it: {FLEET_KILL_TO_READY_UNCACHED_S} s)")
         print(f"phase 16 (b) ({smi}): B's child (pid {kill['pid']}) SIGKILLed with {len(kill['keys'])} "
               f"request(s) in its beacon; B ready {record['kill_to_ready_s']} s after the kill; resumed "
               f"{json.dumps(resumed)}; router spool checkpoints {spooled:.0f}; supervisor events {events}; "
@@ -5568,10 +5815,27 @@ def run_fleet(torch, vae, smi):
 
         # (c) a drain of A under load -------------------------------------------
         t0 = time.perf_counter()
+        # (h)'s capture stops with the interpreter held for seconds, so A's
+        # watchdog reports a stuck dispatch and its /healthz stays degraded
+        # for a minute, in which the router sends A nothing while B is
+        # healthy: the drain needs A in rotation
+        wait_for(lambda: next(r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]
+                              if r["name"] == "a")["health"] == "healthy", 90, "phase 16 (c): A healthy at the router")
+        walls["a_healthy_wait"] = time.perf_counter() - t0
 
         def drain():
-            wait_for(lambda: next(r for r in http_call(pr, "GET", "/debug/replicas")[2]["replicas"]
-                                  if r["name"] == "a")["inflight"] > 0, 60, "phase 16 (c): A busy")
+            seen = {}
+
+            def a_busy():
+                seen["replicas"] = http_call(pr, "GET", "/debug/replicas")[2]["replicas"]
+                return next(r for r in seen["replicas"] if r["name"] == "a")["inflight"] > 0
+
+            try:
+                wait_for(a_busy, 60, "phase 16 (c): A busy")
+            except RuntimeError as exc:
+                states = {r["name"]: (r["state"], r["health"], r["inflight"]) for r in seen.get("replicas", [])}
+                fail(f"{exc}; the router's replicas (state, health, in flight) {states}, A's /healthz "
+                     f"{json.dumps(http_call(pa, 'GET', '/healthz')[2])[:600]}")
             status, _, detail = http_call(pr, "POST", "/admin/drain?replica=a&propagate=1", b"")
             healthz = http_call(pa, "GET", "/healthz")[0]
             after, _ = fleet_wave(pr, bodies[:2])
@@ -5591,7 +5855,8 @@ def run_fleet(torch, vae, smi):
         # back in rotation at half-open: the next request to it is its trial
         if u_status != 200 or (u_detail["mode"], u_detail["state"]) != ("active", "half_open"):
             fail(f"phase 16 (c): undrain {u_status} {u_detail}")
-        print(f"phase 16 (c) ({smi}): drain of A under 4 requests (served by {served_by(drained)}): no client "
+        print(f"phase 16 (c) ({smi}): A healthy at the router {walls['a_healthy_wait']:.1f} s after (b); "
+              f"drain of A under 4 requests (served by {served_by(drained)}): no client "
               f"error, A's /healthz {a_healthz} while drained, the 2 after it on {served_by(after)}; undrained")
         walls["drain"] = time.perf_counter() - t0
 
@@ -5672,18 +5937,18 @@ def run_fleet(torch, vae, smi):
                   f"resumed_at_chunk {r['resumed_at_chunk']}, the resume dispatch's EMA wall "
                   f"{programs[r['replica']]['resume']['wall_ema_ms']} ms")
 
-        # (f) no CUDA in the router or the supervisor ------------------------------
+        # (i) no CUDA in the router or the supervisor ------------------------------
         pids, raw = cuda_context_pids()
         b_child = [ln for ln in log_lines(procs["b"][1]) if ln.get("event") == "replica_start"][-1]["pid"]
         host = {"router": procs["router"][0].pid, "supervisor": procs["b"][0].pid}
         replicas = {"a": procs["a"][0].pid, "b": b_child}
         mapped = {name: maps_card(pid) for name, pid in {**host, **replicas}.items()}
         if any(pid in pids for pid in host.values()) or any(mapped[n] for n in host):
-            fail(f"phase 16 (f): a CUDA context in the router or supervisor: nvidia-smi {raw!r}, maps {mapped}")
+            fail(f"phase 16 (i): a CUDA context in the router or supervisor: nvidia-smi {raw!r}, maps {mapped}")
         if not all(mapped[n] for n in replicas):
-            fail(f"phase 16 (f): the replicas' maps show no card {mapped}: the check reads nothing")
+            fail(f"phase 16 (i): the replicas' maps show no card {mapped}: the check reads nothing")
         record["cuda"] = dict(smi_pids=sorted(pids), maps=mapped, pids={**host, **replicas})
-        print(f"phase 16 (f) ({smi}): compute apps by nvidia-smi {sorted(pids)}; the card mapped (/proc/<pid>/maps) "
+        print(f"phase 16 (i) ({smi}): compute apps by nvidia-smi {sorted(pids)}; the card mapped (/proc/<pid>/maps) "
               f"{json.dumps(mapped)} for pids {json.dumps({**host, **replicas})}")
         record["launches"] = {
             name: {"flash_decode": sum(rows[p]["launches"].get("flash_decode_attention.launches", 0)
@@ -5705,6 +5970,7 @@ def run_fleet(torch, vae, smi):
             except subprocess.TimeoutExpired:
                 pass
             stop_process(proc)
+        collector.shutdown()
     record["exits"] = {name: procs[name][0].returncode for name in procs}
     walls["total"] = time.perf_counter() - t_phase
     record["walls"] = {k: round(v, 1) for k, v in walls.items()}

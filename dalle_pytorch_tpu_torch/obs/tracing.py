@@ -25,7 +25,7 @@ event per closed span, one track per trace. `start_trace` accepts a
 propagated `trace_id` and `parent_uid` (the `x-dalle-trace` header,
 `obs/aggregate.py`), so a caller's trace and this server's join on one
 ID. The tracer's `exporter` hook is the shared no-op until a fleet
-exporter attaches (the port has none yet).
+`TraceExporter` (`obs/aggregate.py`) attaches itself.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ class _NullTrace:
 
 class _NullExporter:
     """Shared no-op exporter: the off path of cross-process trace export
-    (the JAX package's `TraceExporter`, not ported yet). Counter-gated like NULL_TRACE — a
+    (`obs/aggregate.py:TraceExporter`). Counter-gated like NULL_TRACE — a
     tracer without an exporter attached serializes zero spans and buffers
     zero traces, whatever traffic flows past it."""
 

@@ -35,13 +35,21 @@ imported: those processes never touch the card. `DALLE_SERVE_CRASH=
 program:nth` in the environment aborts the replica at the nth dispatch of
 `program` (restart drills).
 
-Refused, each naming the later slice that brings it: `--compile_cache`,
-`--profile_dir` and `--trace_export`.
+`--compile_cache DIR` boots against the kernel-library compile cache
+(`utils/compile_cache.py`), installed before anything builds: a replica
+restarted with the same fingerprint loads every library from DIR and runs
+no nvcc; a stale or damaged artifact is a counted miss or reject and the
+library is built or loaded from the build directory instead. `POST
+/debug/profile?seconds=N` writes a `torch.profiler` Chrome trace under
+`--profile_dir`. `--trace_export URL` ships finished request traces to a
+fleet collector (`python -m dalle_pytorch_tpu_torch.obs.collector`); it
+needs the tracer, so `--no_tracing` refuses it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import sys
@@ -63,15 +71,6 @@ def parse_tenant_weights(text):
             raise ValueError(f"tenant {tenant!r} weight must be > 0")
         out[tenant] = w
     return out
-
-
-#: flags of the reference's serve.py the port does not offer yet, each with
-#: the reason the parser gives
-LATER_SLICE = {
-    "compile_cache": "the persistent compile cache comes in a later slice of the port, with CUDA graphs",
-    "profile_dir": "on-demand profiling (/debug/profile) comes in a later slice of the port",
-    "trace_export": "the fleet trace exporter and its collector come in a later slice of the port",
-}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -138,6 +137,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--cond_scale", type=float, default=1.0)
     p.add_argument("--no_warmup", action="store_true",
                    help="skip the warmup (the first request pays the kernel builds)")
+    p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
+                   help="kernel-library compile cache: libraries are loaded from fingerprinted artifacts "
+                   "under DIR (validated against torch, CUDA, nvcc, the device, the sources, the model "
+                   "config and the program ladder) and what is built is exported there, so a restarted "
+                   "replica runs no nvcc; a mismatched or corrupt artifact is a counted miss or reject "
+                   "and a normal build, never a failed boot")
     p.add_argument("--no_resume", action="store_true",
                    help="continuous: preempted and migrated rows decode again from 0 instead of "
                    "resuming at their position")
@@ -152,8 +157,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="write the request-trace ring as Perfetto JSON to PATH at shutdown")
     p.add_argument("--trace_ring", type=int, default=256, help="recent request traces kept in memory")
     p.add_argument("--no_tracing", action="store_true", help="no request span tracer")
+    p.add_argument("--trace_export", type=str, default=None, metavar="URL",
+                   help="ship finished request traces to a fleet trace collector (python -m "
+                   "dalle_pytorch_tpu_torch.obs.collector) at URL as batched JSONL: bounded buffer and "
+                   "backoff, serving is unaffected when the collector is down")
     p.add_argument("--trace_site", type=str, default=None, metavar="NAME",
                    help="process identity of traces and log lines (default: the hostname)")
+    p.add_argument("--profile_dir", type=str, default="profiles",
+                   help="where POST /debug/profile?seconds=N writes its torch.profiler trace directories")
     p.add_argument("--no_request_log", action="store_true", help="no JSON line per request")
     p.add_argument("--request_log_path", type=str, default=None, metavar="FILE",
                    help="write the JSON lines to FILE (appended) instead of stdout")
@@ -178,12 +189,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--slo_objective", type=float, default=0.99,
                    help="fraction of requests that must meet each SLO target")
     p.add_argument("--slo_window_s", type=float, default=300.0, help="rolling window of the SLO burn rate")
-    for flag, why in LATER_SLICE.items():
-        p.add_argument(f"--{flag}", type=str, default=None, metavar="VALUE", help=f"refused: {why}")
     args = p.parse_args(argv)
-    for flag, why in LATER_SLICE.items():
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag} is not offered: {why}")
     if args.supervise:
         if args.router:
             p.error("--supervise supervises an engine replica; run the router under its own process manager")
@@ -194,6 +200,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.error("--spool_notify is the supervisor's hand-off hook; it needs --supervise")
     if args.spool_notify is not None and args.checkpoint_spool is None:
         p.error("--spool_notify needs --checkpoint_spool (nothing to hand over otherwise)")
+    if args.trace_export is not None and args.no_tracing:
+        # a disabled tracer finishes no trace: the exporter would idle
+        p.error("--trace_export needs the span tracer; drop --no_tracing")
     if args.router:
         if not args.replicas:
             p.error("--router needs --replicas URL[,URL...]")
@@ -286,6 +295,33 @@ def build_vitals(args, registry, log):
     )
 
 
+def engine_from_args(args, mesh=None):
+    """The replica's engine from its parsed flags (`mesh`: the built device
+    mesh of `--mesh`), not warmed up."""
+    from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
+
+    return engine_from_checkpoint(
+        args.dalle_path,
+        clip_path=args.clip_path,
+        batch_shapes=args.batch_shapes,
+        cond_scale=args.cond_scale,
+        device=args.device,
+        mode=args.engine,
+        chunk_tokens=args.chunk_tokens,
+        prefill_batch=args.prefill_batch,
+        kv_dtype=args.kv_dtype,
+        decode_sparsity=args.decode_sparsity,
+        kv_layout=args.kv_layout,
+        page_size=args.page_size,
+        kv_pages=args.kv_pages,
+        prefix_entries=args.prefix_entries,
+        mesh=mesh,
+        resume_enabled=not args.no_resume,
+        # previews off drops the preview decode from the warmup
+        preview_enabled=args.preview_every > 0,
+    )
+
+
 def arm_crash(engine, log) -> None:
     """Restart drills: `DALLE_SERVE_CRASH=program:nth` aborts this replica
     at the nth dispatch of a named program (e.g. `chunk:3`)."""
@@ -310,41 +346,42 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         return supervise_serve(args, argv)
     from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
+    from dalle_pytorch_tpu_torch.obs.profiler import ProfilerCapture
     from dalle_pytorch_tpu_torch.obs.tracing import Tracer
     from dalle_pytorch_tpu_torch.obs.vitals import ProgramCostTable
-    from dalle_pytorch_tpu_torch.serving.engine import engine_from_checkpoint
     from dalle_pytorch_tpu_torch.serving.server import ServingServer
     from dalle_pytorch_tpu_torch.training.metrics import MetricsRegistry
     from dalle_pytorch_tpu_torch.utils import compile_guard
 
     log = StructuredLog(site=args.trace_site, path=args.request_log_path, max_mb=args.request_log_max_mb)
+    registry = MetricsRegistry()
+    cache = None
+    if args.compile_cache:
+        from dalle_pytorch_tpu_torch.utils.compile_cache import CompileCache
+
+        # installed before anything builds: every kernel library of this
+        # boot is looked up in the cache first
+        cache = CompileCache(args.compile_cache, registry=registry, log=log).install()
+    phases = cache.boot_phase if cache is not None else contextlib.nullcontext
     mesh = None
     if args.mesh is not None:  # the devices are counted before the checkpoint loads
         from dalle_pytorch_tpu_torch.serving.engine import resolve_device
         from dalle_pytorch_tpu_torch.serving.sharded import build_serving_mesh
 
         mesh = build_serving_mesh(args.mesh, device=resolve_device(args.device))
-    engine = engine_from_checkpoint(
-        args.dalle_path,
-        clip_path=args.clip_path,
-        batch_shapes=args.batch_shapes,
-        cond_scale=args.cond_scale,
-        device=args.device,
-        mode=args.engine,
-        chunk_tokens=args.chunk_tokens,
-        prefill_batch=args.prefill_batch,
-        kv_dtype=args.kv_dtype,
-        decode_sparsity=args.decode_sparsity,
-        kv_layout=args.kv_layout,
-        page_size=args.page_size,
-        kv_pages=args.kv_pages,
-        prefix_entries=args.prefix_entries,
-        mesh=mesh,
-        resume_enabled=not args.no_resume,
-        # previews off drops the preview decode from the warmup
-        preview_enabled=args.preview_every > 0,
-    )
-    engine.registry = registry = MetricsRegistry()
+    with phases("checkpoint"):
+        engine = engine_from_args(args, mesh)
+    engine.registry = registry
+    if cache is not None:
+        from dalle_pytorch_tpu_torch import kernels
+        from dalle_pytorch_tpu_torch.utils.compile_cache import engine_fingerprint
+
+        # any drift of the fingerprint (toolkit, device, sources, config,
+        # ladder) turns the artifacts into counted misses
+        with phases("plan"):
+            cache.bind(engine_fingerprint(engine), kernels.sources())
+            cache.plan_boot()
+        engine.compile_cache = cache
     if not args.no_program_costs:
         # attached before warmup, which counts each program at its shape
         import torch
@@ -353,9 +390,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         engine.cost_table = ProgramCostTable(registry=registry, device_name=name)
     if not args.no_warmup:
         log.event("warmup_start", batch_shapes=list(engine.batch_shapes), device=str(engine.device))
-        engine.warmup()
-        log.event("warmup_done", kernel_builds=compile_guard.recent_events())
+        with compile_guard.track_compiles() as tally:
+            with phases("warmup"):
+                engine.warmup()
+        # the warm-boot receipt: against a matching cache, uncached == 0
+        log.event(
+            "warmup_done", kernel_builds=compile_guard.recent_events(), compiles=tally.count,
+            cache_hits=tally.cache_hits, uncached_compiles=tally.uncached,
+            boot_cache_mode=cache.plan["mode"] if cache is not None else None,
+            boot_seconds=dict(cache.boot_seconds) if cache is not None else None,
+        )
     arm_crash(engine, log)
+    exporter = None
+    if args.trace_export is not None:
+        from dalle_pytorch_tpu_torch.obs.aggregate import TraceExporter
+
+        # its drop / sent / retry counters ride the replica's /metrics
+        exporter = TraceExporter(args.trace_export, site=args.trace_site, registry=registry)
+        log.event("trace_export", url=exporter.url, site=exporter.site)
 
     server = ServingServer(
         engine,
@@ -366,8 +418,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         request_timeout_s=args.request_timeout_s,
         verbose=args.verbose,
         tracer=Tracer(enabled=not args.no_tracing, max_traces=args.trace_ring),
+        exporter=exporter,
         log=log,
         log_requests=not args.no_request_log,
+        profiler=ProfilerCapture(out_dir=args.profile_dir, device=engine.device),
         trace_dump_path=args.trace_dump,
         vitals=build_vitals(args, registry, log),
         tenant_quota_rows=args.tenant_quota_rows,

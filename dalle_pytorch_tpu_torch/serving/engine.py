@@ -43,7 +43,11 @@ included: it fires inside the same `try`, before the dispatch touches the
 state) leaves a rebuilt, empty state, which the batcher's retry re-admits
 into. The continuous engines' tensor-parallel twins over a mesh are in
 `serving/sharded.py`; they share these dispatch paths, brackets included.
-Not ported yet: the compile cache.
+With a `utils/compile_cache.CompileCache` attached as
+`engine.compile_cache` before `warmup()`, warmup ends by exporting the
+kernel libraries it made ready into the cache (the export half of the
+reference's `_capture_cost`); a failed export is recorded on the cache,
+never raised.
 """
 
 from __future__ import annotations
@@ -182,6 +186,9 @@ class GenerationEngine:
         #: ProgramCostTable that warmup fills (attach it before warmup())
         self.vitals = NULL_VITALS
         self.cost_table = None
+        #: the boot's compile cache (utils/compile_cache.py), set before
+        #: warmup(); None: nothing exported
+        self.compile_cache = None
 
     def _placed_model(self, model: DALLE) -> DALLE:
         """The model the engine runs: `model` on the engine's device."""
@@ -196,6 +203,20 @@ class GenerationEngine:
         """Names of the dispatch shapes `warmup()` runs: the fixed-shape
         surface the resume fingerprint hashes."""
         return tuple(f"generate:{b}" for b in self.batch_shapes)
+
+    def _export_libraries(self) -> None:
+        """Warmup's last step: every kernel library made ready so far that
+        the attached compile cache wants goes into it (timed as the boot's
+        "export" phase; `export` records a failure, never raises)."""
+        cache = self.compile_cache
+        if cache is None:
+            return
+        from dalle_pytorch_tpu_torch import kernels
+
+        with cache.boot_phase("export"):
+            for name, info in list(kernels.build_log.items()):
+                if name in kernels._libs and cache.wants(name):
+                    cache.export(name, info["path"])
 
     # -------------------------------------------------------------- vitals
 
@@ -335,6 +356,7 @@ class GenerationEngine:
         for b in self.batch_shapes:
             dummy = [SampleSpec(np.zeros(text_seq, np.int32), seed=i) for i in range(b)]
             self.generate(dummy, _warmup=True)
+        self._export_libraries()
 
     def generate(self, specs: Sequence[SampleSpec], _warmup: bool = False):
         """Run one micro-batch. Returns (tokens [n, image_seq_len] np.int32,
@@ -897,6 +919,7 @@ class ContinuousEngine(GenerationEngine):
         with self._lock:
             self._state = self._fresh_state()
             self.stats.warmup_batches += 1
+        self._export_libraries()
 
     def program_ladder(self) -> Tuple[str, ...]:
         out = ["prefill"] + (["resume"] if self.resume_enabled else []) + ["chunk", "release"]
@@ -1275,6 +1298,7 @@ class PagedContinuousEngine(ContinuousEngine):
         with self._lock:
             self._state = self._fresh_state()
             self.stats.warmup_batches += 1
+        self._export_libraries()
 
     def program_ladder(self) -> Tuple[str, ...]:
         out = list(super().program_ladder())

@@ -22,8 +22,10 @@ The program names are the JAX engines': "generate:<shape>", "prefill",
 "preview". `crash_nth` aborts the process at the Nth dispatch (a replica
 dying mid-request as an OOM-killed container would); the serve twin arms
 it from `DALLE_SERVE_CRASH=program:nth` for restart drills under the
-supervisor (`serving/supervisor.py`). Not here: the reference's
-compile-cache rule (`corrupt_cache`; the port has no compile cache yet).
+supervisor (`serving/supervisor.py`). `corrupt_cache` truncates or
+garbles a compile-cache artifact on disk the Nth time the cache is about
+to read it (`utils/compile_cache.py` calls `on_artifact_load` before
+every read), which must end in a counted reject, never a failed boot.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ class FaultInjector:
         self._counts: Dict[str, int] = {}
         # program -> {nth: rule}; one rule per (program, nth)
         self._rules: Dict[str, Dict[int, dict]] = {}
+        # artifact-load rules count in their own namespace: cache reads
+        # are boot-time events, not dispatches
+        self._cache_counts: Dict[str, int] = {}
+        self._cache_rules: Dict[str, Dict[int, dict]] = {}
         self.fired: List[dict] = []
 
     def _add(self, program: str, nth: int, rule: dict) -> "FaultInjector":
@@ -76,6 +82,19 @@ class FaultInjector:
         """Hard process abort at the Nth dispatch of `program`. `_abort` is
         the seam: unit tests override it; real chaos lets it `os._exit`."""
         return self._add(program, nth, {"kind": "crash", "exit_code": int(exit_code)})
+
+    def corrupt_cache(self, artifact: str, nth: int = 1, mode: str = "truncate") -> "FaultInjector":
+        """Truncate (`mode="truncate"`: a torn write) or garble (`"garble"`:
+        flipped payload bytes, the length kept) the named compile-cache
+        artifact the Nth time the cache is about to read it (attach the
+        injector as `CompileCache.faults`)."""
+        if nth < 1:
+            raise ValueError(f"nth counts artifact reads from 1, got {nth}")
+        if mode not in ("truncate", "garble"):
+            raise ValueError(f"mode must be 'truncate' or 'garble', got {mode!r}")
+        with self._lock:
+            self._cache_rules.setdefault(artifact, {})[int(nth)] = {"kind": "corrupt_cache", "mode": mode}
+        return self
 
     def dispatches(self, program: str) -> int:
         with self._lock:
@@ -118,3 +137,29 @@ class FaultInjector:
         if exc is None:
             exc = InjectedFault(f"injected failure: {program} dispatch #{n}")
         raise exc
+
+    def on_artifact_load(self, artifact: str, path) -> None:
+        """Called by `CompileCache` before it reads `artifact` at `path`. A
+        matching corrupt_cache rule changes the file on disk (a missing
+        file stays missing: that is a miss, not a reject), then the read
+        goes on into the validator."""
+        with self._lock:
+            n = self._cache_counts.get(artifact, 0) + 1
+            self._cache_counts[artifact] = n
+            rule = self._cache_rules.get(artifact, {}).pop(n, None)
+            if rule is not None:
+                self.fired.append({"artifact": artifact, "nth": n, **rule})
+        if rule is None:
+            return
+        try:
+            raw = path.read_bytes()
+        except FileNotFoundError:
+            return
+        if rule["mode"] == "truncate":
+            path.write_bytes(raw[: max(1, len(raw) // 2)])
+        else:  # flip a run of bytes mid-file, keeping the length
+            mid = len(raw) // 2
+            garbled = bytearray(raw)
+            for i in range(mid, min(mid + 16, len(garbled))):
+                garbled[i] ^= 0xFF
+            path.write_bytes(bytes(garbled))

@@ -58,9 +58,9 @@ Run it: `python -m dalle_pytorch_tpu_torch.serving.router --replicas
 http://h1:8000,http://h2:8000 --port 8100` (or `python -m
 dalle_pytorch_tpu_torch.serve --router --replicas ...`). The `_post` /
 `_probe` seams are the only socket touches, and the state machine runs
-off an injectable clock. Not ported yet: the fleet trace export
-(`--trace_export`, `obs/aggregate.TraceExporter`); the flag is refused,
-and the `exporter` seam stays None.
+off an injectable clock. `--trace_export URL` attaches an
+`obs/aggregate.TraceExporter` to the router's tracer, so its dispatch
+spans join the replicas' in the fleet collector (`obs/collector.py`).
 """
 
 from __future__ import annotations
@@ -124,14 +124,6 @@ def parse_request_key(value) -> Optional[str]:
     return value if _REQUEST_KEY_RE.match(value) else None
 
 MAX_BODY_BYTES = 1 << 20
-
-#: why `--trace_export` is refused: the fleet trace exporter and its
-#: collector are a later slice of the port
-TRACE_EXPORT_REFUSAL = (
-    "--trace_export is not offered yet: the fleet trace exporter "
-    "(obs/aggregate.TraceExporter) and the collector it ships to come "
-    "in a later slice of the port"
-)
 
 #: numeric encoding of replica state for the state gauge family
 STATE_VALUES = {
@@ -2667,8 +2659,15 @@ def add_router_args(p: argparse.ArgumentParser,
 def router_from_args(args, registry=None, log=None) -> FleetRouter:
     """Build a `FleetRouter` from parsed CLI args (shared by both CLIs).
     Tracing/export flags follow serve.py's."""
+    exporter = None
     if getattr(args, "trace_export", None):
-        raise ValueError(TRACE_EXPORT_REFUSAL)
+        from dalle_pytorch_tpu_torch.obs.aggregate import TraceExporter
+
+        if registry is None:
+            from dalle_pytorch_tpu_torch.training.metrics import MetricsRegistry
+
+            registry = MetricsRegistry()
+        exporter = TraceExporter(args.trace_export, site=getattr(args, "trace_site", None), registry=registry)
     return FleetRouter(
         [r for r in args.replicas.split(",") if r],
         registry=registry,
@@ -2677,6 +2676,7 @@ def router_from_args(args, registry=None, log=None) -> FleetRouter:
             max_traces=getattr(args, "trace_ring", 256),
         ),
         log=log,
+        exporter=exporter,
         site=getattr(args, "trace_site", None),
         request_timeout_s=getattr(args, "request_timeout_s", 120.0),
         attempt_timeout_s=args.attempt_timeout_s,
@@ -2762,8 +2762,8 @@ def main(argv=None) -> int:
     p.add_argument("--no_tracing", action="store_true")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
-    if args.trace_export is not None:
-        p.error(TRACE_EXPORT_REFUSAL)
+    if args.trace_export is not None and args.no_tracing:
+        p.error("--trace_export needs the span tracer; drop --no_tracing")
 
     log = StructuredLog(component="dalle.router", site=args.trace_site)
     return run_router_server(args, log=log)

@@ -29,8 +29,16 @@ protocol. Endpoints:
                    bytes (a sharded engine's summed over its shards),
                    warmup memory, kernel launches, EMA wall, MFU and GB/s
   GET  /debug/state -> engine state (slot and page tables), the batcher's
-                   queue and slot table, recent kernel-library events
-                   (`utils/compile_guard`) and the worker thread's stack
+                   queue and slot table, recent kernel-library events and
+                   the process's tally of them (`utils/compile_guard`),
+                   the compile cache's plan and verdicts, the trace
+                   exporter's health, the profiler's state and the worker
+                   thread's stack
+  POST /debug/profile?seconds=N -> an on-demand `torch.profiler` capture
+                   of N seconds of live traffic (`obs/profiler.py`): 200
+                   with the trace directory; a bad `seconds` or body 400,
+                   a rank other than 0 403, a capture in flight 409, a
+                   failed capture 500
   POST /admin/drain -> pause intake (new requests 503 + Retry-After,
                    /healthz 503 "draining"); in-flight work completes.
                    `?migrate=1` exports every queued and in-flight request
@@ -44,7 +52,9 @@ protocol. Endpoints:
 
 Every /generate request gets a trace: adopted from a valid `x-dalle-trace`
 header (`obs/aggregate.py`), minted otherwise; its ID comes back as
-`trace_id`. `x-dalle-route` and `x-dalle-request-key`
+`trace_id`; with a `TraceExporter` attached (`exporter=`, `serve
+--trace_export URL`) the finished trace ships to the fleet collector
+(`obs/collector.py`). `x-dalle-route` and `x-dalle-request-key`
 (`serving/router.py`) are parsed into the request's log line; the key also
 names its checkpoints and lets a streamed request re-attach. With a
 `StructuredLog`, one JSON line per request.
@@ -69,9 +79,6 @@ Vitals are off by default (an inert `EngineVitals`): pass an enabled one
 (`vitals=`) to run the sampler, the stall watchdog and the SLO tracker,
 whose max burn also feeds the continuous batcher's deadline shed and
 preemption victim choice. PNGs are written with zlib (`utils/images.py`).
-Not ported yet: on-demand profiling (`/debug/profile`), the fleet trace
-export and the compile cache; `/debug/profile` answers 404 like any
-unknown path.
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ import numpy as np
 
 from dalle_pytorch_tpu_torch.obs.aggregate import TRACE_HEADER, default_site, parse_trace_header, sanitize_site
 from dalle_pytorch_tpu_torch.obs.logging import StructuredLog
+from dalle_pytorch_tpu_torch.obs.profiler import ProfilerBusy, ProfilerCapture
 from dalle_pytorch_tpu_torch.obs.tracing import Tracer
 from dalle_pytorch_tpu_torch.obs.vitals import EngineVitals, thread_stacks
 from dalle_pytorch_tpu_torch.serving.batcher import (
@@ -179,6 +187,37 @@ class _Handler(BaseHTTPRequestHandler):
         except (BrokenPipeError, ConnectionResetError):
             pass
 
+    def _profile(self, owner, query: str) -> None:
+        """POST /debug/profile?seconds=N: a blocking on-demand capture."""
+        if not self._drain_body():  # the endpoint takes no body
+            return
+        try:
+            seconds = float(parse_qs(query).get("seconds", ["2"])[0])
+        except (TypeError, ValueError):
+            self._reply(400, {"error": "seconds must be a number"})
+            return
+        # the answer and the log name what was captured: capture() clamps
+        if seconds > 0:
+            seconds = min(seconds, owner.profiler.max_seconds)
+        try:
+            trace_dir = owner.profiler.capture(seconds)
+        except ProfilerBusy as exc:
+            self._reply(409, {"error": str(exc)})
+            return
+        except PermissionError as exc:
+            self._reply(403, {"error": str(exc)})
+            return
+        except ValueError as exc:
+            self._reply(400, {"error": f"bad request: {exc}"})
+            return
+        except Exception as exc:
+            self._reply(500, {"error": f"profiler capture failed: {exc}"})
+            return
+        if owner.log is not None:
+            owner.log.event("profile_capture", trace_dir=str(trace_dir), seconds=seconds,
+                            stop_s=owner.profiler.last_stop_s)
+        self._reply(200, {"trace_dir": str(trace_dir), "seconds": seconds})
+
     def _drain_body(self) -> bool:
         """Read and drop a bounded body (admin POSTs take none); False
         after a 400 for a bad length."""
@@ -263,6 +302,9 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         owner = self.server.owner
         path, _, query = self.path.partition("?")
+        if path == "/debug/profile":
+            self._profile(owner, query)
+            return
         if path == "/admin/drain":
             if self._drain_body():
                 self._reply(200, owner.drain_intake(migrate=_flag(parse_qs(query), "migrate")))
@@ -661,7 +703,10 @@ class ServingServer:
     `shutdown()` stops intake, serves what is queued, then closes the
     listener. The metrics registry is the engine's `registry` when it has
     one, a fresh one otherwise; `tracer` defaults to a bounded on tracer,
-    `log` to none.
+    `log` to none, `profiler` to a `ProfilerCapture` on the engine's
+    device writing under `profiles/`; an `exporter` (`TraceExporter`)
+    attaches to the tracer here and is stopped, after a final flush, at
+    shutdown.
     """
 
     #: how long a failed dispatch keeps /healthz at 503: decayed, so a
@@ -681,6 +726,8 @@ class ServingServer:
         tracer: Optional[Tracer] = None,
         log: Optional[StructuredLog] = None,
         log_requests: bool = True,
+        profiler: Optional[ProfilerCapture] = None,
+        exporter=None,
         trace_dump_path: Optional[str] = None,
         vitals: Optional[EngineVitals] = None,
         tenant_quota_rows: Optional[int] = None,
@@ -711,6 +758,14 @@ class ServingServer:
         # vitals default off: the inert sampler (no thread, nothing sampled)
         self.vitals = vitals if vitals is not None else EngineVitals(enabled=False)
         self.tracer = tracer if tracer is not None else Tracer(max_traces=128)
+        # the server owns the exporter's lifecycle: attached here, stopped
+        # (with a final flush) at shutdown
+        self.exporter = exporter
+        if exporter is not None:
+            exporter.attach(self.tracer)
+        self.profiler = (
+            profiler if profiler is not None else ProfilerCapture(device=getattr(engine, "device", None))
+        )
         self.log = log
         self.log_requests = bool(log_requests)
         self.trace_dump_path = trace_dump_path
@@ -758,8 +813,10 @@ class ServingServer:
         try:
             self._httpd = _Server((host, port), self)
         except OSError:
-            self.vitals.stop()  # do not leak the sampler or the worker
+            self.vitals.stop()  # do not leak the sampler, the worker or the shipper
             self.batcher.shutdown(drain=False)
+            if self.exporter is not None:
+                self.exporter.stop(final_flush=False)
             raise
         self._thread: Optional[threading.Thread] = None
         self._state_lock = threading.Lock()
@@ -988,8 +1045,21 @@ class ServingServer:
             "engine": engine_dump() if engine_dump is not None else {"engine": type(self.engine).__name__},
             "batcher": summary() if summary is not None else {},
             "recent_compiles": compile_guard.recent_events(),
+            # the process's kernel-library events: uncached == 0 on a warm boot
+            "compiles": {
+                "count": compile_guard.compile_count(),
+                "cache_hits": compile_guard.cache_hit_count(),
+                "uncached": compile_guard.uncached_count(),
+            },
+            "profiler": self.profiler.detail(),
             "worker_stacks": thread_stacks("batcher"),
         }
+        cache = getattr(self.engine, "compile_cache", None)
+        if cache is not None:
+            dump["compile_cache"] = cache.detail()
+        if self.exporter is not None:
+            # did this replica's traces reach the collector
+            dump["trace_export"] = self.exporter.detail()
         if self.spool is not None:
             dump["checkpoint_spool"] = self.spool.detail()
         return dump
@@ -1084,5 +1154,11 @@ class ServingServer:
             self._thread = None
         # last, so handlers still responding have finished their traces
         self._dump_traces()
+        if self.exporter is not None and first_close:
+            # every finished trace is buffered by now: one final flush,
+            # bounded by the POST timeout
+            self.exporter.stop()
+            if self.log is not None:
+                self.log.event("trace_export_stopped", **self.exporter.detail())
         if first_close and self.log is not None:
             self.log.event("shutdown", drain=drain)

@@ -12,7 +12,10 @@ owns one replica subprocess end to end:
     probe's flip is the edge that walks the router's half-open trial.
   * on an abnormal exit, restart with capped exponential backoff
     (`backoff_base_s * 2^(n-1)`, capped at `backoff_max_s`; the streak
-    resets once a child served healthily for `stable_reset_s`).
+    resets once a child served healthily for `stable_reset_s`). The child
+    keeps every serve flag but the supervisor's own, `--compile_cache`
+    among them, so a restarted replica loads its kernel libraries from
+    the cache and builds nothing.
   * detect crash loops: `crash_loop_exits` abnormal exits inside
     `crash_loop_window_s` hold the replica down for `hold_down_s` with a
     structured `crash_loop` event instead of a restart storm.

@@ -1,15 +1,15 @@
 """Boot fingerprints and the self-validating artifact container.
 
 Counterpart of the part of the JAX package's `utils/compile_cache.py`
-that decode-state checkpoints use (`serving/migrate.py`): the boot
+that decode-state checkpoints (`serving/migrate.py`) and the port's
+kernel-library compile cache (`utils/compile_cache.py`) share: the boot
 fingerprint, its canonical-JSON and config helpers, and `pack_artifact` /
 `unpack_artifact`. The container is byte for byte the reference's — MAGIC
 + canonical-JSON header (format version, fingerprint, payload length,
 payload sha256) + one newline + payload — so a blob written by either
 package opens in the other under the same fingerprint string. The port's
 fingerprint names torch's version and the device kind where the
-reference's names jax's version and backend. The AOT compile cache is not
-ported.
+reference's names jax's version and backend.
 """
 
 from __future__ import annotations

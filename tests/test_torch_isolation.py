@@ -39,6 +39,7 @@ def test_the_scan_covers_every_port_script():
         "train_vae.py", "train_clip.py", "gumbel.py", "vae_io.py", "mesh.py", "partition.py",
         "serving_partition.py", "tensor_parallel.py", "sharded.py", "collectives.py", "fsdp.py",
         "ring.py", "launch.py", "torch_collectives_probe.py", "supervisor.py", "fleetmetrics.py",
+        "collector.py", "profiler.py", "compile_cache.py",
     } <= names
 
 

@@ -39,6 +39,7 @@ from dalle_pytorch_tpu.serving import router as jrouter
 from dalle_pytorch_tpu.training.metrics import MetricsRegistry as JRegistry
 from dalle_pytorch_tpu_torch.data.tokenizer import ByteTokenizer
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.obs.aggregate import TraceExporter
 from dalle_pytorch_tpu_torch.serving import router as prouter
 from dalle_pytorch_tpu_torch.serving.engine import ContinuousEngine
 from dalle_pytorch_tpu_torch.serving.faults import FaultInjector
@@ -557,12 +558,25 @@ def test_streamed_request_through_the_router(model, direct, side):
 
 
 def test_trace_export_is_refused_naming_the_later_slice(capsys):
+    """`--trace_export` was refused until the fleet exporter was ported:
+    now it is refused only as the reference refuses it, beside
+    `--no_tracing`, and otherwise wires a `TraceExporter` to the router's
+    tracer."""
     with pytest.raises(SystemExit) as err:
-        prouter.main(["--replicas", "http://127.0.0.1:1", "--trace_export", "http://collector:1"])
-    assert err.value.code == 2 and "later slice" in capsys.readouterr().err
-    args = types.SimpleNamespace(trace_export="http://collector:1", replicas="http://127.0.0.1:1")
-    with pytest.raises(ValueError, match="later slice"):
-        prouter.router_from_args(args)
+        prouter.main(["--replicas", "http://127.0.0.1:1", "--trace_export", "http://collector:1", "--no_tracing"])
+    assert err.value.code == 2 and "--no_tracing" in capsys.readouterr().err
+    args = types.SimpleNamespace(
+        trace_export="http://collector:1", trace_site="edge", replicas="http://127.0.0.1:1", attempt_timeout_s=1.0,
+        hedge_after_ms=None, probe_interval_s=1.0, eject_after=3, error_rate_threshold=0.5, error_min_samples=4,
+        retry_budget_ratio=0.2, retry_budget_initial=10.0,
+    )
+    router = prouter.router_from_args(args)
+    try:
+        assert isinstance(router.exporter, TraceExporter) and router.tracer.exporter is router.exporter
+        assert router.exporter.url == "http://collector:1" and router.exporter.site == "edge"
+        assert router.registry.get("dalle_obs_export_dropped_total") is not None
+    finally:
+        router.exporter.stop(final_flush=False)
 
 
 def test_serve_router_subprocess_without_torch(tmp_path):

@@ -7,9 +7,11 @@ so the default one serves) is served by `python -m
 dalle_pytorch_tpu_torch.serve --device cpu --port 0`: the readiness line,
 /healthz, two concurrent /generate requests coalesced into one batch, the
 trace dump and a clean exit 0 on SIGTERM. Without `--device cpu` and with
-no card it fails and names the card; the flags a later slice brings are
-refused by the parser, naming it, and so are the reference's refused
-combinations of the fleet and vitals flags.
+no card it fails and names the card; the reference's refused combinations
+of the fleet, vitals and tracing flags are refused by the parser. One CPU
+boot with `--compile_cache`, `--profile_dir` and `--trace_export` shows
+each wired: the cache's plan in /debug/state, a profile written under the
+directory, the request's trace in the collector.
 """
 
 import json
@@ -142,18 +144,90 @@ def test_serve_cli_without_a_card_names_it(checkpoint, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--router"], ["--replicas", "http://a"], ["--supervise", "--port", "0"], ["--spool_notify", "http://n"],
-    ["--compile_cache", "cache"], ["--no_vitals", "--slo_ttft_ms", "500"],
-    ["--slo_ttft_ms", "500", "--slo_objective", "1"], ["--trace_export", "http://c"],
-    ["--profile_dir", "p"], ["--router", "--replicas", "http://a"],
+    ["--trace_export", "http://c", "--no_tracing"], ["--no_vitals", "--slo_ttft_ms", "500"],
+    ["--slo_ttft_ms", "500", "--slo_objective", "1"], ["--tenant_quota_rows", "0"],
+    ["--replica_quarantine_after", "-1"], ["--router", "--replicas", "http://a"],
 ])
 def test_flags_not_offered_are_refused(flags, capsys):
-    """The flags a later slice brings, and the fleet and vitals flags in
-    combinations the reference refuses: exit 2 with a message naming one
-    of them."""
+    """The fleet, vitals, QoS and tracing flags in combinations the
+    reference refuses: exit 2 with a message naming one of them."""
     with pytest.raises(SystemExit) as err:
         parse_args(["--dalle_path", "x.npz", *flags])
     said = capsys.readouterr().err
     assert err.value.code == 2 and any(f in said for f in flags if f.startswith("--")), said
+
+
+@pytest.fixture(scope="module")
+def observed_boot(checkpoint, tmp_path_factory):
+    """One CPU boot of the serve twin with the three observability flags,
+    exporting to an in-process collector: one request, one profile
+    capture, /debug/state and /metrics, then SIGTERM (the exporter's last
+    flush). Returns what the cases read."""
+    from dalle_pytorch_tpu_torch.obs.collector import CollectorServer
+
+    work = tmp_path_factory.mktemp("observed")
+    collector = CollectorServer(port=0, grace_s=0.1).start()
+    proc = _serve(checkpoint, "--device", "cpu", "--port", "0", "--batch_shapes", "1",
+                  "--compile_cache", str(work / "cache"), "--profile_dir", str(work / "profiles"),
+                  "--trace_export", collector.url, "--trace_site", "replica-x", cwd=work)
+    try:
+        lines, port = [], None
+        deadline = time.monotonic() + 240
+        while port is None and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "listening on" in line:
+                port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+        assert port is not None, "".join(lines)
+        _, generated = _post(port, {"prompt": "red", "seed": 3})
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/debug/profile?seconds=0.5", data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            profile = json.loads(resp.read())
+        state = json.loads(_get(port, "/debug/state")[1])
+        metrics = _get(port, "/metrics")[1]
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+        events = [json.loads(ln) for ln in lines + out.splitlines(keepends=True) if ln.startswith("{")]
+        yield dict(work=work, generated=generated, profile=profile, state=state, metrics=metrics, events=events,
+                   collector=collector.collector, collector_url=collector.url)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        collector.shutdown()
+
+
+@pytest.mark.parametrize("flag", ["--compile_cache", "--profile_dir", "--trace_export"])
+def test_observability_flags_accepted_and_wired(flag, observed_boot):
+    b = observed_boot
+    if flag == "--compile_cache":
+        # the CPU loads no kernel library: a cold plan over every source,
+        # no verdict counted, the boot phases timed
+        cache = b["state"]["compile_cache"]
+        assert cache["dir"] == str(b["work"] / "cache") and (b["work"] / "cache" / "aot").is_dir()
+        assert cache["plan"]["mode"] == "cold" and len(cache["plan"]["programs"]) >= 6
+        assert cache["counts"] == {"hits": 0, "misses": 0, "rejects": 0} and b["state"]["compiles"]["uncached"] == 0
+        assert {"checkpoint", "plan", "warmup", "export"} <= set(cache["boot_seconds"])
+        assert 'dalle_boot_seconds{phase="warmup"}' in b["metrics"] and "dalle_boot_cache_hits_total 0" in b["metrics"]
+        done = next(e for e in b["events"] if e.get("event") == "warmup_done")
+        assert done["boot_cache_mode"] == "cold" and done["uncached_compiles"] == 0
+    elif flag == "--profile_dir":
+        trace_dir = Path(b["profile"]["trace_dir"])
+        assert trace_dir.parent == b["work"] / "profiles" and trace_dir.name.startswith("profile_")
+        assert b["profile"]["seconds"] == 0.5 and "traceEvents" in json.loads((trace_dir / "trace.json").read_text())
+        assert b["state"]["profiler"]["captures"] == 1 and not b["state"]["profiler"]["busy"]
+    else:
+        assert b["state"]["trace_export"]["url"] == b["collector_url"]
+        trace_id = b["generated"]["trace_id"]
+        bundle = b["collector"].find(trace_id)
+        assert bundle is not None and {p["site"] for p in bundle.procs.values()} == {"replica-x"}
+        names = {s["name"] for s in bundle.spans.values()}
+        assert {"request", "queue", "generate", "respond"} <= names, names
+        stopped = next(e for e in b["events"] if e.get("event") == "trace_export_stopped")
+        assert stopped["traces_sent"] >= 1 and stopped["dropped"] == 0
+        assert "dalle_obs_export_traces_total" in b["metrics"]
 
 
 def test_fleet_and_vitals_flags_accepted():

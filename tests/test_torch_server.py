@@ -463,6 +463,8 @@ def test_debug_endpoints(cont):
         assert status == 200 and vitals["enabled"] is False and vitals["samples_taken"] == 0
         status, _, programs = _request(port, "GET", "/debug/programs")
         assert status == 200 and programs["programs"] == [] and "note" in programs
-        assert _request(port, "POST", "/debug/profile", b"")[0] == 404
+        # /debug/profile answers (its captures: tests/test_torch_profiler.py)
+        assert _request(port, "POST", "/debug/profile?seconds=0", b"")[0] == 400
+        assert state["profiler"]["captures"] == 0 and set(state["compiles"]) == {"count", "cache_hits", "uncached"}
     finally:
         server.shutdown()
